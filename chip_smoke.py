@@ -1,0 +1,492 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (``mxnet_tpu_torch``) on one card.
+
+    python3 chip_smoke.py            # needs one CUDA device and nvcc
+    python3 chip_smoke.py --profile  # also: device time of one micro-batch
+
+Phases, each of which fails the run (non-zero exit) when it fails:
+
+1. print the card's name and power limit, the torch and CUDA versions,
+   and turn TF32 off for float32 products and convolutions;
+2. build the CUDA kernel library from ``mxnet_tpu_torch/ops/kernels/csrc``;
+3. hold each kernel against its plain PyTorch version on the card, in
+   float32 and bfloat16, with the tolerance printed beside the error, and
+   time the kernel, the plain version and one PyTorch library call that
+   computes the same function at the served shapes, in both dtypes;
+4. serve BERT-base (12 x 768, vocab 30522, seeded random weights) through
+   ``CompiledPredictor`` + ``DynamicBatcher``: 8 client threads, 96
+   requests of 1-8 rows at sequence length 128; check that every request
+   resolved, that two requests match a CPU copy of the model, and that
+   each micro-batch launched 12 flash and 25 LayerNorm kernels;
+5. run a 2-layer ``TransformerEncoder`` with the ``gelu`` FFN, so the
+   bias-GELU kernel launches, and check it against a CPU copy.
+
+``{"launch_counts": {...}}`` gives each kernel's launches on its path.
+The line before the last is a JSON object with one entry per kernel
+(launches on its path, error, times, bound, all at float32, the served
+dtype); the last line is
+``{"ok": true, "device": {...}}``.
+"""
+import json
+import math
+import subprocess
+import sys
+import time
+
+#: published peaks of one H100 SXM (dense): HBM bytes/s, and flop/s for
+#: float32 on CUDA cores and bfloat16 on tensor cores
+PEAK_BYTES_S = 3.35e12
+PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
+
+SERVE_SEQ = 128
+SERVE_REQUESTS = 96
+SERVE_CLIENTS = 8
+SERVE_MAX_BATCH = 32
+#: the phase-5 encoder: BERT-base's layer widths, FFN activation "gelu"
+ENC_LAYERS, ENC_UNITS, ENC_HIDDEN, ENC_HEADS = 2, 768, 3072, 12
+#: float32 logits, GPU vs CPU copy: twelve layers of float32 sums taken in
+#: another order (cuBLAS vs a float64-accumulated CPU product, the kernels
+#: vs their plain versions); on an H100 the differences are ~1e-6
+LOGIT_ATOL = 2e-4
+
+
+def emit(obj):
+    print(json.dumps(obj), flush=True)
+
+
+def bound_ms(nbytes, flops, dtype):
+    t_bytes = nbytes / PEAK_BYTES_S
+    t_ops = flops / PEAK_FLOPS[dtype]
+    return max(t_bytes, t_ops) * 1e3, \
+        ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def time_ms(torch, fn, arg_sets, iters=30, replays=5):
+    """(device ms, eager ms) per call of ``fn``, cycling through
+    ``arg_sets`` (together larger than the 50 MB L2, so each call finds
+    its inputs cold), timed with CUDA events after a warm-up.
+
+    Device ms: the ``iters`` calls captured once in a CUDA graph and the
+    graph replayed, so the host's per-call work (argument checks, the
+    ``ctypes`` call) is out of the timing. Eager ms: the same calls made
+    one by one from Python; it exceeds the device ms where the host's work
+    per call outlasts the kernel."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for a in arg_sets:
+            fn(*a)
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for i in range(iters):
+        fn(*arg_sets[i % len(arg_sets)])
+    end.record()
+    torch.cuda.synchronize()
+    eager = start.elapsed_time(end) / iters
+
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(iters):
+            fn(*arg_sets[i % len(arg_sets)])
+    graph.replay()
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    device = start.elapsed_time(end) / (replays * iters)
+    del graph
+    return device, eager
+
+
+def n_sets(torch, tensors):
+    """How many copies of a call's tensors exceed the L2 twice over."""
+    nbytes = sum(t.numel() * t.element_size() for t in tensors)
+    return max(1, math.ceil(100e6 / max(nbytes, 1)))
+
+
+def compare(torch, got, ref, atol, rtol):
+    """(ok, max abs error, relative error) of ``got`` against ``ref``: ok
+    when every element is finite and within atol + rtol * |ref|; the
+    relative error is the max abs error over the max |ref|."""
+    err = (got.float() - ref.float()).abs()
+    mag = ref.float().abs()
+    ok = bool(torch.isfinite(got.float()).all()) and \
+        bool((err <= atol + rtol * mag).all())
+    if not err.numel():
+        return ok, 0.0, 0.0
+    return ok, float(err.max()), float(err.max() / mag.max().clamp_min(1e-30))
+
+
+#: per-dtype (atol, rtol) of a kernel against its plain version on the
+#: card: float32 sums in another order and the CUDA math library's
+#: expf/erfcf/rsqrtf (~1e-6 observed); bfloat16 one or two ulps of an O(1)
+#: output (2**-8 = 0.0039 per ulp)
+TOLS = {"float32": (1e-4, 1e-4), "bfloat16": (2e-2, 2e-2)}
+#: flash-attention cases (B, H, Sq, Sk, D, causal); the first two are the
+#: served shapes of buckets 8 and 32
+FLASH_CASES = [
+    (8, 12, 128, 128, 64, False),
+    (32, 12, 128, 128, 64, False),
+    (2, 4, 100, 164, 64, True),      # causal, Sq != Sk
+    (2, 4, 100, 40, 64, True),       # rows 0..59 see no valid key
+    (2, 3, 70, 70, 80, False),       # D not a power of two
+    (2, 2, 33, 130, 32, True),
+]
+#: (rows, C) of the LayerNorm and bias-GELU checks; the first is served
+LN_CASES = ((4096, 768), (37, 50))
+BG_CASES = ((4096, 3072), (37, 50))
+
+
+def check_kernels(torch, ATT, KN, dev):
+    """Phase 3: every kernel against its plain version, in float32 and
+    bfloat16. Returns {(kernel, dtype): (record, args)} of the served
+    shapes, for :func:`time_kernels`."""
+    g = torch.Generator(device=dev).manual_seed(0)
+    failures, served = [], {}
+
+    def rnd(*shape, dtype):
+        return torch.randn(*shape, generator=g, device=dev).to(dtype)
+
+    def record(rec, args, is_served):
+        emit({"check": rec})
+        if not rec["ok"]:
+            failures.append(rec)
+        if is_served:
+            served[(rec["kernel"], rec["dtype"])] = (rec, args)
+
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).replace("torch.", "")
+        atol, rtol = TOLS[dn]
+        for b, h, sq, sk, d, causal in FLASH_CASES:
+            q, k, v = rnd(b, h, sq, d, dtype=dtype), \
+                rnd(b, h, sk, d, dtype=dtype), rnd(b, h, sk, d, dtype=dtype)
+            out, lse = ATT.flash_attention_fwd(q, k, v, causal)
+            torch.cuda.synchronize()
+            rout, rlse = ATT.flash_attention_fwd_plain(q, k, v, causal)
+            ok1, e1, r1 = compare(torch, out, rout, atol, rtol)
+            ok2, e2, _ = compare(torch, lse, rlse, 1e-4, 1e-5)
+            record({"kernel": "flash_fwd", "dtype": dn,
+                    "shape": [b, h, sq, sk, d], "causal": causal,
+                    "max_abs_err": e1, "rel_err": r1, "lse_max_abs_err": e2,
+                    "atol": atol, "rtol": rtol, "lse_atol": 1e-4,
+                    "ok": ok1 and ok2},
+                   (q, k, v), (b, sq, causal) == (32, 128, False))
+
+        for rows, c in LN_CASES:
+            x = rnd(rows, c, dtype=dtype)
+            gam, bet = rnd(c, dtype=torch.float32), rnd(c, dtype=torch.float32)
+            y = KN.layer_norm(x, gam, bet, 1e-5)
+            torch.cuda.synchronize()
+            ok, e, r = compare(torch, y, KN.layer_norm_plain(x, gam, bet),
+                               atol, rtol)
+            record({"kernel": "layernorm_fwd", "dtype": dn,
+                    "shape": [rows, c], "max_abs_err": e, "rel_err": r,
+                    "atol": atol, "rtol": rtol, "ok": ok},
+                   (x, gam, bet), (rows, c) == LN_CASES[0])
+
+        for rows, c in BG_CASES:
+            x, bias = rnd(rows, c, dtype=dtype), rnd(c, dtype=dtype)
+            y = KN.bias_gelu(x, bias)
+            torch.cuda.synchronize()
+            ok, e, r = compare(torch, y, KN.bias_gelu_plain(x, bias),
+                               atol, rtol)
+            record({"kernel": "bias_gelu_fwd", "dtype": dn,
+                    "shape": [rows, c], "max_abs_err": e, "rel_err": r,
+                    "atol": atol, "rtol": rtol, "ok": ok},
+                   (x, bias), (rows, c) == BG_CASES[0])
+    if failures:
+        raise SystemExit(f"kernel checks failed: {failures}")
+    return served
+
+
+def time_kernels(torch, F, ATT, KN, served):
+    """Kernel, plain-version and library-call times (device and eager,
+    :func:`time_ms`) at the served shapes (bucket 32, sequence 128), in
+    each dtype, with the bound of this call's work. Returns
+    {(kernel, dtype): timing}."""
+    timing = {}
+    for (name, dn), (rec, args) in served.items():
+        size = args[0].element_size()
+        if name == "flash_fwd":
+            q, k, v = args
+            b, h, sq, d = q.shape
+            sk = k.shape[2]
+            sets = [tuple(t.clone() for t in args)
+                    for _ in range(n_sets(torch, (q, k, v, q)))]
+            # q, k, v read; out written in the input dtype, lse in float32
+            nbytes = size * (2 * q.numel() + k.numel() + v.numel()) \
+                + 4 * b * h * sq
+            flops = 4.0 * b * h * sq * sk * d          # QK^T and PV
+            fns = (lambda *a: ATT.flash_attention_fwd(*a),
+                   lambda *a: ATT.flash_attention_fwd_plain(*a),
+                   lambda *a: F.scaled_dot_product_attention(*a))
+        elif name == "layernorm_fwd":
+            x, gam, bet = args
+            c = x.shape[-1]
+            sets = [(x.clone(), gam, bet) for _ in range(n_sets(torch, (x, x)))]
+            nbytes = size * 2 * x.numel() + 4 * 2 * c
+            flops = 8.0 * x.numel()       # mean, deviation², scale, shift
+            fns = (lambda *a: KN.layer_norm(*a),
+                   lambda *a: KN.layer_norm_plain(*a),
+                   lambda x_, g_, b_: F.layer_norm(
+                       x_, (x_.shape[-1],), g_.to(x_.dtype), b_.to(x_.dtype),
+                       1e-5))
+        else:
+            x, bias = args
+            c = x.shape[-1]
+            sets = [(x.clone(), bias) for _ in range(n_sets(torch, (x, x)))]
+            nbytes = size * (2 * x.numel() + c)
+            flops = 20.0 * x.numel()      # add, erfc (~15), three products
+            fns = (lambda *a: KN.bias_gelu(*a),
+                   lambda *a: KN.bias_gelu_plain(*a),
+                   lambda x_, b_: F.gelu(x_ + b_))
+        (ms, eager_ms), (plain_ms, plain_eager_ms), \
+            (library_ms, library_eager_ms) = (time_ms(torch, fn, sets)
+                                              for fn in fns)
+        b_ms, b_by = bound_ms(nbytes, flops, dn)
+        t = {"kernel": name, "dtype": dn, "shape": rec["shape"],
+             "max_abs_err": rec["max_abs_err"], "ms": ms,
+             "plain_ms": plain_ms, "library_ms": library_ms,
+             "bound_ms": b_ms, "bound_by": b_by,
+             "eager_ms": eager_ms, "plain_eager_ms": plain_eager_ms,
+             "library_eager_ms": library_eager_ms,
+             "bytes": nbytes, "flops": flops}
+        emit({"timing": t})
+        timing[(name, dn)] = t
+    return timing
+
+
+def serve_bert(torch, np, K, dev):
+    """Phase 4: BERT-base served through the batcher; the launch counts
+    of exactly this run, and the predictor."""
+    from mxnet_tpu_torch.gluon.model_zoo.bert import BERTClassifier, bert_base
+    from mxnet_tpu_torch.gluon.params import init_params_numpy, \
+        load_jax_params
+    from mxnet_tpu_torch.serving import CompiledPredictor, DynamicBatcher, \
+        loadgen
+
+    t0 = time.perf_counter()
+    net = BERTClassifier(bert_base(device=dev), num_classes=2, device=dev)
+    params = init_params_numpy(net, seed=0)
+    load_jax_params(net, params)
+    n_params = sum(p.numel() for p in net.parameters())
+    pred = CompiledPredictor(net, device=dev)
+    rs = np.random.RandomState(0)
+    vocab = net.bert.word_embed.weight.shape[0]
+    warm = pred.warmup(rs.randint(0, vocab, (1, SERVE_SEQ)).astype(np.int64))
+    emit({"serving_setup": {"params": n_params,
+                            "setup_s": time.perf_counter() - t0,
+                            "warmup_s": warm,
+                            "service_time_seed_s": pred.service_time_seed_s}})
+    reqs = [rs.randint(0, vocab, (int(rs.randint(1, 9)), SERVE_SEQ))
+            .astype(np.int64) for _ in range(SERVE_REQUESTS)]
+    results = [None] * SERVE_REQUESTS
+
+    K.reset_launch_counts()
+    with DynamicBatcher(pred, max_batch=SERVE_MAX_BATCH,
+                        timeout_ms=2.0) as batcher:
+        def issue(i):
+            out = batcher.submit(reqs[i]).result(120)
+            results[i] = out.float().cpu().numpy()
+
+        rep = loadgen.run_closed_loop(issue, SERVE_CLIENTS, SERVE_REQUESTS)
+    counts = K.launch_counts()
+    stats = dict(batcher.stats)
+    rows = sum(r.shape[0] for r in reqs)
+    report = {
+        "requests": rep["requests"], "errors": rep["errors"],
+        "first_error": rep["first_error"],
+        "req_per_s": rep["requests"] / rep["wall_s"],
+        "tokens_per_s": rows * SERVE_SEQ / rep["wall_s"],
+        "p50_ms": rep["p50_ms"], "p99_ms": rep["p99_ms"],
+        "wall_s": rep["wall_s"], "rows": rows,
+        "micro_batches": stats["batches"], "batch_fill": batcher.batch_fill,
+        "buckets": {str(k): v for k, v in sorted(batcher.bucket_counts
+                                                   .items())},
+        "flush": {k[6:]: v for k, v in stats.items()
+                  if k.startswith("flush_")},
+        "launches": counts, "n_traces": pred.n_traces}
+    emit({"serving": report})
+    if rep["errors"] or rep["requests"] != SERVE_REQUESTS:
+        raise SystemExit(f"serving failed: {rep}")
+    for i, out in enumerate(results):
+        if out is None or out.shape != (reqs[i].shape[0], 2) or \
+                not np.isfinite(out).all():
+            raise SystemExit(f"request {i}: bad logits {out!r}")
+    nb = stats["batches"]
+    if counts["flash_fwd"] != 12 * nb or counts["layernorm_fwd"] != 25 * nb:
+        raise SystemExit(f"launches {counts} do not match 12 flash and 25 "
+                         f"LayerNorm per micro-batch ({nb} micro-batches)")
+
+    # two requests again through a CPU copy (plain kernels)
+    cpu_net = BERTClassifier(bert_base(device="cpu"), num_classes=2,
+                             device="cpu")
+    load_jax_params(cpu_net, params)
+    cpu_pred = CompiledPredictor(cpu_net, device="cpu")
+    errs = []
+    for i in (0, 1):
+        padded, n = cpu_pred.pad_to_bucket(reqs[i])
+        ref = cpu_pred.predict(*padded)[:n].numpy()
+        errs.append(float(np.abs(ref - results[i]).max()))
+    emit({"serving_vs_cpu": {"requests": [0, 1], "max_abs_err": max(errs),
+                             "atol": LOGIT_ATOL}})
+    if max(errs) > LOGIT_ATOL:
+        raise SystemExit(f"GPU logits differ from the CPU copy: {errs}")
+    return counts, pred
+
+
+def profile_bucket(torch, np, pred, bucket=SERVE_MAX_BATCH, iters=5):
+    """``--profile``: where the device time of one served micro-batch
+    goes. ``torch.profiler`` over ``iters`` back-to-back predicts of the
+    bucket; kernel time summed by family, and the device's busy share of
+    the wall time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    vocab = pred.net.bert.word_embed.weight.shape[0]
+    x = np.random.RandomState(2).randint(0, vocab, (bucket, SERVE_SEQ)) \
+        .astype(np.int64)
+    pred.predict(x)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            pred.predict(x)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    families = {"flash_fwd": 0.0, "layernorm_fwd": 0.0, "bias_gelu_fwd": 0.0,
+                "gemm": 0.0, "other": 0.0}
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        name = e.key.lower()
+        fam = ("flash_fwd" if "flash_fwd" in name else
+               "layernorm_fwd" if "ln_fwd" in name else
+               "bias_gelu_fwd" if "bias_gelu" in name else
+               "gemm" if any(w in name for w in ("gemm", "cutlass", "gemv"))
+               else "other")
+        families[fam] += us
+    busy = sum(families.values())
+    emit({"profile": {
+        "bucket": bucket, "seq": SERVE_SEQ, "iters": iters,
+        "wall_ms_per_batch": wall_us / iters / 1e3,
+        "device_ms_per_batch": {k: v / iters / 1e3
+                                for k, v in families.items()},
+        "device_busy_share": busy / wall_us if busy else
+        "not measured (the profiler saw no device time)"}})
+
+
+def run_encoder(torch, np, K, dev):
+    """Phase 5: a TransformerEncoder with the default ``gelu`` FFN, so the
+    bias-GELU kernel runs; its launch counts and a CPU check."""
+    from mxnet_tpu_torch.gluon.nn import TransformerEncoder
+    from mxnet_tpu_torch.gluon.params import init_params_numpy, \
+        load_jax_params
+
+    shape = (ENC_LAYERS, ENC_UNITS, ENC_HIDDEN, ENC_HEADS)
+    enc = TransformerEncoder(*shape, device=dev).eval()
+    params = init_params_numpy(enc, seed=1)
+    load_jax_params(enc, params)
+    x = np.random.RandomState(1).standard_normal(
+        (SERVE_MAX_BATCH, SERVE_SEQ, ENC_UNITS)).astype(np.float32)
+    K.reset_launch_counts()
+    with torch.inference_mode():
+        y = enc(torch.from_numpy(x).to(dev))
+    torch.cuda.synchronize()
+    counts = K.launch_counts()
+    cpu = TransformerEncoder(*shape, device="cpu").eval()
+    load_jax_params(cpu, params)
+    with torch.inference_mode():
+        ref = cpu(torch.from_numpy(x[:2]))
+    err = float((y[:2].cpu() - ref).abs().max())
+    ok = bool(torch.isfinite(y).all()) and err <= LOGIT_ATOL
+    emit({"encoder": {"shape": list(y.shape), "launches": counts,
+                      "max_abs_err_vs_cpu": err, "atol": LOGIT_ATOL,
+                      "ok": ok}})
+    if not ok or counts["bias_gelu_fwd"] != 2 or counts["flash_fwd"] != 2 \
+            or counts["layernorm_fwd"] != 4:
+        raise SystemExit(f"encoder phase failed: {counts}, err {err}")
+    return counts
+
+
+def main(argv):
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs on the card",
+              file=sys.stderr)
+        return 2
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.ops import attention as ATT
+    from mxnet_tpu_torch.ops import kernels as K
+    from mxnet_tpu_torch.ops.kernels import norm as KN
+
+    # phase 1: the card
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(smi, flush=True)
+    emit({"torch": torch.__version__, "cuda": torch.version.cuda,
+          "device_count": torch.cuda.device_count(),
+          "matmul.allow_tf32": torch.backends.cuda.matmul.allow_tf32,
+          "cudnn.allow_tf32": torch.backends.cudnn.allow_tf32})
+    dev = mx.default_device()
+
+    # phase 2: build the kernel library from the sources in the checkout
+    t0 = time.perf_counter()
+    K.build_library(verbose="--ptxas" in argv)
+    K.library()
+    emit({"build_s": time.perf_counter() - t0})
+
+    served_args = check_kernels(torch, ATT, KN, dev)
+    timing = time_kernels(torch, F, ATT, KN, served_args)
+    del served_args
+    served, pred = serve_bert(torch, np, K, dev)
+    if "--profile" in argv:
+        profile_bucket(torch, np, pred)
+    del pred
+    encoder = run_encoder(torch, np, K, dev)
+
+    # each kernel's launches on the path that drives it, counted from 0
+    launches = {"flash_fwd": served["flash_fwd"],
+                "layernorm_fwd": served["layernorm_fwd"],
+                "bias_gelu_fwd": encoder["bias_gelu_fwd"]}
+    path = {"flash_fwd": "bert_base_serving",
+            "layernorm_fwd": "bert_base_serving",
+            "bias_gelu_fwd": "transformer_encoder_gelu"}
+    emit({"launch_counts": launches})
+    if not all(n > 0 for n in launches.values()):
+        raise SystemExit(f"a kernel never launched on its path: {launches}")
+    rows = []
+    for name, info in K.KERNELS.items():
+        # the served dtype is float32; bfloat16 times are on "timing" lines
+        t = timing[(name, "float32")]
+        rows.append({"name": name, "route": "cuda", "source": info.source,
+                     "replaces": info.replaces, "launches": launches[name],
+                     "path": path[name], "max_abs_err": t["max_abs_err"],
+                     "ms": t["ms"], "plain_ms": t["plain_ms"],
+                     "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+                     "library_ms": t["library_ms"], "shape": t["shape"],
+                     "dtype": "float32"})
+    print(smi, flush=True)
+    emit({"kernels": rows})
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

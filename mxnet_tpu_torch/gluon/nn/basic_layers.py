@@ -1,0 +1,142 @@
+"""Basic layers (counterpart of ``mxnet_tpu/gluon/nn/basic_layers.py``):
+``Dense``, ``Dropout``, ``Embedding`` and ``LayerNorm`` as ``nn.Module``s.
+
+Parameter names and layouts are the JAX package's, so a dict of its
+``collect_params()`` loads as it is (``gluon.params.load_jax_params``):
+``Dense.weight`` is (units, in_units), ``Embedding.weight`` is
+(input_dim, output_dim), ``LayerNorm`` has ``gamma`` and ``beta``.
+
+Every layer takes ``device`` (default ``cuda:0``; without CUDA the
+constructor raises unless ``device="cpu"``) and an optional
+``torch.Generator`` for its random initial weights or dropout masks.
+Shapes are not inferred at the first call: ``in_units`` / ``in_channels``
+are required.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ...base import MXNetError
+from ...context import resolve_device
+from ...ops import nn as FNN
+
+__all__ = ["Dense", "Dropout", "Embedding", "LayerNorm", "activation"]
+
+#: initial weights: uniform in [-0.07, 0.07] (the JAX package's default
+#: ``initializer.Uniform()``); biases and beta 0, gamma 1
+INIT_SCALE = 0.07
+
+_ACTIVATIONS = {
+    "relu": torch.relu,
+    "tanh": torch.tanh,
+    "gelu": F.gelu,
+    "gelu_tanh": lambda x: F.gelu(x, approximate="tanh"),
+}
+
+
+def activation(x, act_type: str):
+    """``F.Activation`` of the JAX package for the activations this slice
+    uses."""
+    fn = _ACTIVATIONS.get(act_type)
+    if fn is None:
+        raise MXNetError(f"unknown Activation act_type {act_type!r}")
+    return fn(x)
+
+
+def _param(shape, device, fill=None, generator=None):
+    t = torch.empty(shape, dtype=torch.float32)
+    if fill is None:
+        t.uniform_(-INIT_SCALE, INIT_SCALE, generator=generator)
+    else:
+        t.fill_(fill)
+    return nn.Parameter(t.to(device), requires_grad=False)
+
+
+class Dense(nn.Module):
+    """Fully-connected layer: ``act(x W^T + b)``. ``flatten`` collapses
+    the trailing axes of a >2-d input first."""
+
+    def __init__(self, units: int, activation: Optional[str] = None,
+                 use_bias: bool = True, flatten: bool = True,
+                 in_units: int = 0, device=None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        if in_units <= 0:
+            raise MXNetError("Dense needs in_units (shapes are not "
+                             "inferred at the first call)")
+        dev = resolve_device(device)
+        self._units = units
+        self._flatten = flatten
+        self._activation = activation
+        self.weight = _param((units, in_units), dev, generator=generator)
+        self.bias = _param((units,), dev, fill=0.0) if use_bias else None
+
+    def forward(self, x):
+        if self._flatten and x.ndim > 2:
+            x = x.reshape(x.shape[0], -1)
+        out = FNN.linear(x, self.weight, self.bias)
+        if self._activation:
+            out = activation(out, self._activation)
+        return out
+
+
+class Dropout(nn.Module):
+    """Inverted dropout in training mode, identity in eval mode."""
+
+    def __init__(self, rate: float,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self._rate = rate
+        self._generator = generator
+
+    def forward(self, x):
+        if self._rate == 0 or not self.training:
+            return x
+        keep = torch.bernoulli(
+            torch.full(x.shape, 1.0 - self._rate, device=x.device),
+            generator=self._generator).to(torch.bool)
+        return torch.where(keep, x / (1.0 - self._rate),
+                           torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+class Embedding(nn.Module):
+    """Embedding lookup. Out-of-range ids clamp to the nearest row, as in
+    the JAX package (``jnp.take(mode="clip")``)."""
+
+    def __init__(self, input_dim: int, output_dim: int, device=None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        dev = resolve_device(device)
+        self._input_dim = input_dim
+        self._output_dim = output_dim
+        self.weight = _param((input_dim, output_dim), dev,
+                             generator=generator)
+
+    def forward(self, x):
+        idx = x.to(torch.long).clamp(0, self._input_dim - 1)
+        return F.embedding(idx, self.weight)
+
+
+class LayerNorm(nn.Module):
+    """LayerNorm over ``axis`` (float32 statistics, output in x's dtype);
+    the trailing axis goes through the LayerNorm kernel."""
+
+    def __init__(self, axis: int = -1, epsilon: float = 1e-5,
+                 in_channels: int = 0, device=None):
+        super().__init__()
+        if in_channels <= 0:
+            raise MXNetError("LayerNorm needs in_channels (shapes are not "
+                             "inferred at the first call)")
+        dev = resolve_device(device)
+        self._axis = axis
+        self._eps = epsilon
+        self.gamma = _param((in_channels,), dev, fill=1.0)
+        self.beta = _param((in_channels,), dev, fill=0.0)
+
+    def forward(self, x):
+        return FNN.layer_norm(x, self.gamma, self.beta, axis=self._axis,
+                              eps=self._eps)

@@ -1,0 +1,44 @@
+"""Layer ops (counterpart of ``mxnet_tpu/ops/nn.py``; this slice ports
+``layer_norm`` and the fully-connected product)."""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from .kernels import norm as _knorm
+
+__all__ = ["layer_norm", "linear"]
+
+
+def linear(x, weight, bias=None):
+    """``x W^T (+ b)`` over the trailing axis.
+
+    On the card this is one cuBLAS product in x's dtype (the JAX package
+    leaves the product to XLA too). On the CPU, MKL picks its GEMM
+    kernel by the number of rows and a row's position among them, so a
+    float32 row would round differently with other batch-mates; there
+    the product accumulates in float64 and rounds once, which keeps a
+    request's result independent of the batch it rides in, as XLA's CPU
+    dot does for the JAX package."""
+    if x.device.type == "cpu" and x.dtype == torch.float32:
+        return F.linear(x.double(), weight.double(),
+                        None if bias is None else bias.double()).float()
+    return F.linear(x, weight, bias)
+
+
+def layer_norm(x, gamma, beta, axis: int = -1, eps: float = 1e-5):
+    """LayerNorm with float32 statistics and output in x's dtype.
+    Trailing-axis calls go through the kernel layer
+    (``kernels.norm.layer_norm``); any other axis runs plain PyTorch."""
+    if axis in (-1, x.ndim - 1):
+        return _knorm.layer_norm(x, gamma, beta, eps)
+    dt = _knorm.stat_dtype(x)
+    xf = x.to(dt)
+    mean = xf.mean(dim=axis, keepdim=True)
+    d = xf - mean
+    var = (d * d).mean(dim=axis, keepdim=True)
+    out = d * torch.rsqrt(var + eps)
+    shape = [1] * x.ndim
+    shape[axis] = x.shape[axis]
+    return (out * gamma.to(dt).reshape(shape)
+            + beta.to(dt).reshape(shape)).to(x.dtype)
