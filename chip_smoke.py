@@ -2,7 +2,8 @@
 """Smoke run of the PyTorch/CUDA port (``mxnet_tpu_torch``) on one card.
 
     python3 chip_smoke.py            # needs one CUDA device and nvcc
-    python3 chip_smoke.py --profile  # also: device time of one micro-batch
+    python3 chip_smoke.py --profile  # also: device time of one served
+                                     # micro-batch and of one train step
 
 Phases, each of which fails the run (non-zero exit) when it fails:
 
@@ -12,23 +13,36 @@ Phases, each of which fails the run (non-zero exit) when it fails:
 3. hold each kernel against its plain PyTorch version on the card, in
    float32 and bfloat16, with the tolerance printed beside the error, and
    time the kernel, the plain version and one PyTorch library call that
-   computes the same function at the served shapes, in both dtypes;
+   computes the same function at the shapes of its path, in both dtypes
+   (the backward kernels at BERT-base training's B*H = 384, S = 512,
+   D = 64, at the long-sequence phase's S = 1024, and LayerNorm at
+   16384 x 768);
 4. serve BERT-base (12 x 768, vocab 30522, seeded random weights) through
    ``CompiledPredictor`` + ``DynamicBatcher``: 8 client threads, 96
    requests of 1-8 rows at sequence length 128; check that every request
    resolved, that two requests match a CPU copy of the model, and that
    each micro-batch launched 12 flash and 25 LayerNorm kernels;
 5. run a 2-layer ``TransformerEncoder`` with the ``gelu`` FFN, so the
-   bias-GELU kernel launches, and check it against a CPU copy.
+   bias-GELU kernel launches, and check it against a CPU copy;
+6. train the BERT-base classifier (float32, dropout 0.1, batch 32 x
+   sequence 512, Adam) for ten steps of ``Trainer.compile_step`` on one
+   seeded batch: every loss finite and the last below the first, exactly
+   12 flash forward, 12 fused flash backward, 25 LayerNorm forward and 25
+   LayerNorm backward launches per step, and one step's gradients of
+   every parameter (batch 2 x 128, dropout off) against a CPU copy;
+7. train a 2-layer BERT-width classifier at sequence 1024 for two steps,
+   so the flash backward takes its dq and dkv kernels (two launches each
+   per step, none of the fused one), with its gradients against a CPU
+   copy.
 
 ``{"launch_counts": {...}}`` gives each kernel's launches on its path.
 The line before the last is a JSON object with one entry per kernel
-(launches on its path, error, times, bound, all at float32, the served
-dtype); the last line is
-``{"ok": true, "device": {...}}``.
+(launches on its path, error, times, bound, all at float32, the dtype of
+every path here); the last line is ``{"ok": true, "device": {...}}``.
 """
 import json
 import math
+import statistics
 import subprocess
 import sys
 import time
@@ -48,6 +62,23 @@ ENC_LAYERS, ENC_UNITS, ENC_HIDDEN, ENC_HEADS = 2, 768, 3072, 12
 #: another order (cuBLAS vs a float64-accumulated CPU product, the kernels
 #: vs their plain versions); on an H100 the differences are ~1e-6
 LOGIT_ATOL = 2e-4
+#: phase 6: the JAX package's BERT training leg (bench.py bench_bert):
+#: batch 32 x sequence 512, Adam; ten steps on one seeded batch. From
+#: random weights without warmup, Adam at 1e-4 overshoots (the second
+#: loss jumps to ~2) and the ten losses end near the first; at 1e-5 they
+#: fall step by step
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_LR = 32, 512, 10, 1e-5
+#: the gradient check of phase 6 runs at this batch x sequence
+GRAD_BATCH, GRAD_SEQ = 2, 128
+#: phase 7: BERT-base widths, 2 layers, sequence 1024 (past the fused
+#: backward's 512), two steps
+LONG_LAYERS, LONG_BATCH, LONG_SEQ, LONG_STEPS = 2, 2, 1024, 2
+#: float32 gradients, GPU vs CPU copy, per parameter: max |difference| <=
+#: GRAD_ATOL + GRAD_RTOL * max |CPU gradient|. The scale is the
+#: parameter's largest gradient, not each element's: key_proj.bias has a
+#: zero gradient in exact arithmetic (softmax ignores a per-row shift), so
+#: both sides hold rounding noise there, ~1e-9
+GRAD_ATOL, GRAD_RTOL = 1e-6, 1e-3
 
 
 def emit(obj):
@@ -261,6 +292,438 @@ def time_kernels(torch, F, ATT, KN, served):
     return timing
 
 
+#: flash backward cases (B, H, Sq, Sk, D, causal): the first is BERT-base
+#: training's (B*H = 384), the sixth phase 7's (dq and dkv kernels)
+FLASH_BWD_CASES = [
+    (32, 12, 512, 512, 64, False),
+    (32, 12, 512, 512, 64, True),
+    (2, 4, 100, 164, 64, True),      # causal, Sq < Sk
+    (2, 4, 100, 40, 64, True),       # rows 0..59 see no valid key
+    (2, 3, 70, 70, 80, False),       # D not a power of two
+    (LONG_BATCH, 12, LONG_SEQ, LONG_SEQ, 64, False),
+    (LONG_BATCH, 12, LONG_SEQ, LONG_SEQ, 64, True),
+]
+#: (rows, C) of the LayerNorm backward: training's 32 x 512 tokens, and
+#: a C that takes the scalar (unaligned) path
+LN_BWD_CASES = ((TRAIN_BATCH * TRAIN_SEQ, 768), (4099, 771))
+
+
+def check_bwd_kernels(torch, ATT, KN, dev):
+    """Phase 3, backward: the flash backward (through its dispatching
+    wrapper) and the LayerNorm backward against their plain versions, in
+    float32 and bfloat16. Returns {(kernel, dtype): (record, args)} at the
+    shapes of the training paths, for :func:`time_bwd_kernels`."""
+    g = torch.Generator(device=dev).manual_seed(1)
+    failures, timed = [], {}
+
+    def rnd(*shape, dtype):
+        return torch.randn(*shape, generator=g, device=dev).to(dtype)
+
+    def record(rec, args, is_timed):
+        emit({"check": rec})
+        if not rec["ok"]:
+            failures.append(rec)
+        if is_timed:
+            timed[(rec["kernel"], rec["dtype"])] = (rec, args)
+
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).replace("torch.", "")
+        atol, rtol = TOLS[dn]
+        for i, (b, h, sq, sk, d, causal) in enumerate(FLASH_BWD_CASES):
+            q, k, v = rnd(b, h, sq, d, dtype=dtype), \
+                rnd(b, h, sk, d, dtype=dtype), rnd(b, h, sk, d, dtype=dtype)
+            do = rnd(b, h, sq, d, dtype=dtype)
+            out, lse = ATT.flash_attention_fwd(q, k, v, causal)
+            got = ATT.flash_attention_bwd(q, k, v, out, lse, do, causal)
+            torch.cuda.synchronize()
+            ref = ATT.flash_attention_bwd_plain(q, k, v, out, lse, do,
+                                                causal)
+            res = [compare(torch, a, r, atol, rtol)
+                   for a, r in zip(got, ref)]
+            del ref
+            delta = (do.float() * out.float()).sum(-1)
+            args = (q, k, v, do, lse, delta, out)
+            base = {"dtype": dn, "shape": [b, h, sq, sk, d],
+                    "causal": causal, "atol": atol, "rtol": rtol}
+            timed_case = i in (0, 5)
+            if ATT.uses_fused_bwd(sq, sk):
+                record(dict(base, kernel="flash_bwd_fused",
+                            max_abs_err=max(r[1] for r in res),
+                            rel_err=max(r[2] for r in res),
+                            ok=all(r[0] for r in res)), args, timed_case)
+            else:
+                record(dict(base, kernel="flash_bwd_dq", max_abs_err=res[0][1],
+                            rel_err=res[0][2], ok=res[0][0]), args,
+                       timed_case)
+                record(dict(base, kernel="flash_bwd_dkv",
+                            max_abs_err=max(res[1][1], res[2][1]),
+                            rel_err=max(res[1][2], res[2][2]),
+                            ok=res[1][0] and res[2][0]), args, timed_case)
+
+        for rows, c in LN_BWD_CASES:
+            x, dy = rnd(rows, c, dtype=dtype), rnd(rows, c, dtype=dtype)
+            gam = rnd(c, dtype=torch.float32)
+            got = KN.layer_norm_bwd(x, gam, dy)
+            torch.cuda.synchronize()
+            res = [compare(torch, a, r, atol, rtol) for a, r in
+                   zip(got, KN.layer_norm_bwd_plain(x, gam, dy))]
+            again = KN.layer_norm_bwd(x, gam, dy)
+            repeats = all(bool(torch.equal(a, b)) for a, b in zip(got, again))
+            record({"kernel": "layernorm_bwd", "dtype": dn, "shape": [rows, c],
+                    "max_abs_err": max(r[1] for r in res),
+                    "rel_err": max(r[2] for r in res), "atol": atol,
+                    "rtol": rtol, "repeats_bit_for_bit": repeats,
+                    "ok": all(r[0] for r in res) and repeats},
+                   (x, gam, dy), (rows, c) == LN_BWD_CASES[0])
+    if failures:
+        raise SystemExit(f"backward kernel checks failed: {failures}")
+    return timed
+
+
+def causal_pairs(sq, sk, causal):
+    """(query, key) pairs the attention computes: all, or under the
+    end-aligned causal mask those with k <= q + (sk - sq)."""
+    if not causal:
+        return sq * sk
+    return sum(min(sk, max(0, i + sk - sq + 1)) for i in range(sq))
+
+
+def time_eager_ms(torch, fn, args, iters=20, warmup=3):
+    """Device ms per call of ``fn(*args)`` timed with CUDA events around
+    ``iters`` calls made one by one from Python (for library calls with
+    autograd, which a CUDA graph does not capture simply)."""
+    for _ in range(warmup):
+        fn(*args)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn(*args)
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def sdpa_bwd_ms(torch, F, q, k, v, do):
+    """The library yardstick of a flash backward: SDPA forward+backward
+    minus SDPA forward, each timed eagerly."""
+    def fwd(q_, k_, v_):
+        return F.scaled_dot_product_attention(q_, k_, v_)
+
+    def fwd_bwd(q_, k_, v_, do_):
+        leaves = [t.detach().requires_grad_() for t in (q_, k_, v_)]
+        torch.autograd.grad(fwd(*leaves), leaves, do_)
+
+    return (time_eager_ms(torch, fwd_bwd, (q, k, v, do))
+            - time_eager_ms(torch, fwd, (q, k, v)))
+
+
+def time_bwd_kernels(torch, F, ATT, KN, timed):
+    """Kernel, plain-version and library times of the backward kernels at
+    the shapes of the training paths, in each dtype, with the bound of
+    this call's work (each input read once, each output written once).
+    The kernel is called through its own wrapper with delta precomputed,
+    as ``flash_attention_bwd`` calls it. Returns {(kernel, dtype):
+    timing}."""
+    timing = {}
+    for (name, dn), (rec, args) in timed.items():
+        size = args[0].element_size()
+        if name == "layernorm_bwd":
+            x, gam, dy = args
+            rows, c = x.shape
+            sets = [(x.clone(), gam, dy.clone())
+                    for _ in range(n_sets(torch, (x, x, x)))]
+            # x and dy read, dx written; gamma read, dgamma/dbeta written
+            nbytes = size * 3 * x.numel() + 4 * 3 * c
+            flops = 14.0 * x.numel()
+            nat = torch.native_layer_norm(x, (c,), gam.to(x.dtype),
+                                          torch.zeros_like(gam).to(x.dtype),
+                                          1e-5)
+            lib_args = (dy, x, [c], nat[1], nat[2], gam.to(x.dtype),
+                        torch.zeros_like(gam).to(x.dtype), [True] * 3)
+            fns = (lambda *a: KN.layer_norm_bwd(*a),
+                   lambda *a: KN.layer_norm_bwd_plain(*a))
+            library = "torch.ops.aten.native_layer_norm_backward"
+            library_ms = time_ms(
+                torch, lambda *a: torch.ops.aten.native_layer_norm_backward(
+                    *a), [lib_args])[0]
+        else:
+            q, k, v, do, lse, delta, out = args
+            b, h, sq, d = q.shape
+            sk = k.shape[2]
+            causal = rec["causal"]
+            scale = 1.0 / math.sqrt(d)
+            sets = [tuple(t.clone() for t in (q, k, v, do)) + (lse, delta)
+                    for _ in range(n_sets(torch, (q, k, v, do, q, k, v)))]
+            pairs = b * h * causal_pairs(sq, sk, causal)
+            # products a kernel needs: QK^T and dO V^T rebuild P and dP;
+            # then dS K (dq), P^T dO and dS^T Q (dk, dv)
+            n_products = {"flash_bwd_fused": 5, "flash_bwd_dq": 3,
+                          "flash_bwd_dkv": 4}[name]
+            flops = 2.0 * d * pairs * n_products
+            reads = size * (2 * q.numel() + k.numel() + v.numel()) \
+                + 4 * 2 * b * h * sq                # q, dO, k, v; lse, delta
+            writes = {"flash_bwd_fused": q.numel() + k.numel() + v.numel(),
+                      "flash_bwd_dq": q.numel(),
+                      "flash_bwd_dkv": k.numel() + v.numel()}[name] * size
+            nbytes = reads + writes
+            kern = {"flash_bwd_fused": ATT.flash_bwd_fused,
+                    "flash_bwd_dq": ATT.flash_bwd_dq,
+                    "flash_bwd_dkv": ATT.flash_bwd_dkv}[name]
+            fns = (lambda *a, kern=kern: kern(*a, causal, scale),
+                   lambda q_, k_, v_, do_, lse_, delta_:
+                   ATT.flash_attention_bwd_plain(q_, k_, v_, out, lse_, do_,
+                                                 causal, scale))
+            if name == "flash_bwd_fused":
+                library = "SDPA forward+backward minus SDPA forward (eager)"
+                library_ms = sdpa_bwd_ms(torch, F, q, k, v, do)
+            else:
+                # no one library call computes dq alone or dk, dv alone;
+                # the whole backward's yardstick is printed beside it
+                library, library_ms = None, None
+        (ms, eager_ms), (plain_ms, plain_eager_ms) = (
+            time_ms(torch, fn, sets) for fn in fns)
+        b_ms, b_by = bound_ms(nbytes, flops, dn)
+        t = {"kernel": name, "dtype": dn, "shape": rec["shape"],
+             "max_abs_err": rec["max_abs_err"], "ms": ms,
+             "plain_ms": plain_ms, "library_ms": library_ms,
+             "library": library, "bound_ms": b_ms, "bound_by": b_by,
+             "eager_ms": eager_ms, "plain_eager_ms": plain_eager_ms,
+             "bytes": nbytes, "flops": flops}
+        if name == "flash_bwd_dq":
+            t["library_ms_whole_backward"] = sdpa_bwd_ms(torch, F, q, k, v,
+                                                         do)
+            t["library_whole_backward"] = \
+                "SDPA forward+backward minus SDPA forward (eager): dq, dk, dv"
+        emit({"timing": t})
+        timing[(name, dn)] = t
+    return timing
+
+
+def grad_check(torch, gpu_net, cpu_net, loss_fn, x, y):
+    """One backward of ``loss_fn`` at (x, y) on both nets (in eval mode:
+    dropout off); the worst parameter's max |difference| over its bound
+    GRAD_ATOL + GRAD_RTOL * max |CPU gradient| (ok when <= 1)."""
+    grads = []
+    for net in (gpu_net, cpu_net):
+        net.eval()
+        dev = next(net.parameters()).device
+        for p in net.parameters():
+            p.grad = None
+        loss_fn(net(torch.from_numpy(x).to(dev)),
+                torch.from_numpy(y).to(dev)).sum().backward()
+        grads.append({n: p.grad.detach().float().cpu()
+                      for n, p in net.named_parameters()})
+    worst, worst_name, worst_err = 0.0, None, 0.0
+    for n, ref in grads[1].items():
+        err = float((grads[0][n] - ref).abs().max())
+        ratio = err / (GRAD_ATOL + GRAD_RTOL * float(ref.abs().max()))
+        if not math.isfinite(ratio) or ratio > worst:
+            worst, worst_name, worst_err = ratio, n, err
+    return {"params": len(grads[1]), "worst_param": worst_name,
+            "worst_max_abs_err": worst_err, "worst_err_over_bound": worst,
+            "atol": GRAD_ATOL, "rtol_of_param_max": GRAD_RTOL,
+            "ok": worst <= 1.0}
+
+
+def copy_to_cpu(make_cpu_net, gpu_net, load_jax_params):
+    """A CPU copy of ``gpu_net`` with its current weights."""
+    cpu_net = make_cpu_net()
+    load_jax_params(cpu_net, {n: p.detach().cpu().numpy()
+                              for n, p in gpu_net.named_parameters()})
+    return cpu_net
+
+
+def run_train_steps(torch, K, step, x, y, steps):
+    """``steps`` calls of a compiled train step on one batch: the losses,
+    the wall ms of each step (each ends in a synchronize), the launches of
+    each step, and the launches of the whole run (counted from 0)."""
+    losses, step_ms, per_step = [], [], []
+    K.reset_launch_counts()
+    for _ in range(steps):
+        before = K.launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(step(x, y))
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        after = K.launch_counts()
+        per_step.append({n: after[n] - before[n] for n in after})
+    counts = K.launch_counts()
+    return [float(l.mean()) for l in losses], step_ms, per_step, counts
+
+
+def profile_train_step(torch, net, trainer, loss_fn, x, y, iters=3):
+    """``--profile``: where the time of one training step goes. One step
+    split by CUDA events into forward, backward and optimizer update;
+    then ``torch.profiler`` over ``iters`` steps, device time summed by
+    kernel family, and the device's busy share of the wall time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    ev[0].record()
+    loss = loss_fn(net(x), y)
+    ev[1].record()
+    loss.sum().backward()
+    ev[2].record()
+    trainer.step(x.shape[0])
+    ev[3].record()
+    torch.cuda.synchronize()
+    phases = {name: ev[i].elapsed_time(ev[i + 1]) for i, name in
+              enumerate(("forward", "backward", "update"))}
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            loss_fn(net(x), y).sum().backward()
+            trainer.step(x.shape[0])
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    families = {"flash_fwd": 0.0, "flash_bwd": 0.0, "layernorm_fwd": 0.0,
+                "layernorm_bwd": 0.0, "gemm": 0.0, "other": 0.0}
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        name = e.key.lower()
+        fam = ("flash_fwd" if "flash_fwd" in name else
+               "flash_bwd" if "flash_bwd" in name else
+               "layernorm_fwd" if "ln_fwd" in name else
+               "layernorm_bwd" if "ln_bwd" in name else
+               "gemm" if any(w in name for w in ("gemm", "cutlass", "gemv"))
+               else "other")
+        families[fam] += us
+    busy = sum(families.values())
+    emit({"train_profile": {
+        "iters": iters, "phase_ms_one_step": phases,
+        "wall_ms_per_step": wall_us / iters / 1e3,
+        "device_ms_per_step": {k: v / iters / 1e3
+                               for k, v in families.items()},
+        "device_busy_share": busy / wall_us if busy else
+        "not measured (the profiler saw no device time)"}})
+
+
+def train_bert(torch, np, K, dev, smi, profile=False):
+    """Phase 6: BERT-base classifier training through
+    ``Trainer.compile_step``; the launch counts of exactly the ten
+    steps."""
+    from mxnet_tpu_torch.gluon import Trainer
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from mxnet_tpu_torch.gluon.model_zoo.bert import BERTClassifier, bert_base
+    from mxnet_tpu_torch.gluon.params import init_params_numpy, \
+        load_jax_params
+
+    def make(device):
+        return BERTClassifier(bert_base(max_length=TRAIN_SEQ, dropout=0.1,
+                                        device=device),
+                              num_classes=2, dropout=0.1, device=device)
+
+    t0 = time.perf_counter()
+    torch.manual_seed(0)        # the dropout masks
+    net = make(dev)
+    load_jax_params(net, init_params_numpy(net, seed=2))
+    net.train()
+    rs = np.random.RandomState(3)
+    vocab = net.bert.word_embed.weight.shape[0]
+    x = rs.randint(0, vocab, (TRAIN_BATCH, TRAIN_SEQ)).astype(np.int64)
+    y = rs.randint(0, 2, (TRAIN_BATCH,)).astype(np.float32)
+    loss_fn = SoftmaxCrossEntropyLoss()
+    trainer = Trainer(dict(net.named_parameters()), "adam",
+                      {"learning_rate": TRAIN_LR})
+    step = trainer.compile_step(lambda a, b: loss_fn(net(a), b))
+    xt, yt = torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev)
+    setup_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_ms, per_step, counts = run_train_steps(
+        torch, K, step, xt, yt, TRAIN_STEPS)
+    peak = torch.cuda.max_memory_allocated()
+    median_ms = statistics.median(step_ms)
+    expect = {"flash_fwd": 12, "flash_bwd_fused": 12, "layernorm_fwd": 25,
+              "layernorm_bwd": 25, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
+              "bias_gelu_fwd": 0}
+    launches_ok = all(s == expect for s in per_step)
+    losses_ok = all(math.isfinite(v) for v in losses) and \
+        losses[-1] < losses[0]
+    if profile:
+        profile_train_step(torch, net, trainer, loss_fn, xt, yt)
+
+    t1 = time.perf_counter()
+    cpu_net = copy_to_cpu(lambda: make("cpu"), net, load_jax_params)
+    grads = grad_check(torch, net, cpu_net, loss_fn,
+                       x[:GRAD_BATCH, :GRAD_SEQ], y[:GRAD_BATCH])
+    print(smi, flush=True)
+    report = {
+        "model": "bert_base classifier", "dtype": "float32",
+        "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "steps": TRAIN_STEPS,
+        "optimizer": "adam", "learning_rate": TRAIN_LR, "dropout": 0.1,
+        "losses": losses, "step_ms": step_ms, "median_step_ms": median_ms,
+        "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / (median_ms / 1e3),
+        "max_memory_allocated": peak, "setup_s": setup_s,
+        "launches": counts, "launches_per_step": per_step[-1],
+        "launches_per_step_expected": expect,
+        "grad_check": dict(grads, batch=GRAD_BATCH, seq=GRAD_SEQ,
+                           seconds=time.perf_counter() - t1),
+        "card": smi, "ok": launches_ok and losses_ok and grads["ok"]}
+    emit({"train": report})
+    if not report["ok"]:
+        raise SystemExit(f"training phase failed: losses {losses}, "
+                         f"launches per step {per_step}, gradients {grads}")
+    return counts
+
+
+def train_long(torch, np, K, dev):
+    """Phase 7: a 2-layer BERT-width classifier at sequence 1024, where
+    the flash backward takes its dq and dkv kernels."""
+    from mxnet_tpu_torch.gluon import Trainer
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from mxnet_tpu_torch.gluon.model_zoo.bert import BERTClassifier, BERTModel
+    from mxnet_tpu_torch.gluon.params import init_params_numpy, \
+        load_jax_params
+
+    def make(device):
+        return BERTClassifier(BERTModel(num_layers=LONG_LAYERS,
+                                        max_length=LONG_SEQ, dropout=0.1,
+                                        device=device),
+                              num_classes=2, dropout=0.1, device=device)
+
+    torch.manual_seed(1)        # the dropout masks
+    net = make(dev)
+    load_jax_params(net, init_params_numpy(net, seed=4))
+    net.train()
+    rs = np.random.RandomState(5)
+    vocab = net.bert.word_embed.weight.shape[0]
+    x = rs.randint(0, vocab, (LONG_BATCH, LONG_SEQ)).astype(np.int64)
+    y = rs.randint(0, 2, (LONG_BATCH,)).astype(np.float32)
+    loss_fn = SoftmaxCrossEntropyLoss()
+    trainer = Trainer(dict(net.named_parameters()), "adam",
+                      {"learning_rate": TRAIN_LR})
+    step = trainer.compile_step(lambda a, b: loss_fn(net(a), b))
+    losses, step_ms, per_step, counts = run_train_steps(
+        torch, K, step, torch.from_numpy(x).to(dev),
+        torch.from_numpy(y).to(dev), LONG_STEPS)
+    expect = {"flash_fwd": LONG_LAYERS, "flash_bwd_fused": 0,
+              "flash_bwd_dq": LONG_LAYERS, "flash_bwd_dkv": LONG_LAYERS,
+              "layernorm_fwd": 2 * LONG_LAYERS + 1,
+              "layernorm_bwd": 2 * LONG_LAYERS + 1, "bias_gelu_fwd": 0}
+    cpu_net = copy_to_cpu(lambda: make("cpu"), net, load_jax_params)
+    grads = grad_check(torch, net, cpu_net, loss_fn, x, y)
+    ok = all(s == expect for s in per_step) and grads["ok"] and \
+        all(math.isfinite(v) for v in losses)
+    emit({"train_long": {
+        "layers": LONG_LAYERS, "batch": LONG_BATCH, "seq": LONG_SEQ,
+        "steps": LONG_STEPS, "losses": losses, "step_ms": step_ms,
+        "launches": counts, "launches_per_step": per_step,
+        "launches_per_step_expected": expect,
+        "grad_check": dict(grads, batch=LONG_BATCH, seq=LONG_SEQ),
+        "ok": ok}})
+    if not ok:
+        raise SystemExit(f"long-sequence phase failed: {per_step}, {grads}")
+    return counts
+
+
 def serve_bert(torch, np, K, dev):
     """Phase 4: BERT-base served through the batcher; the launch counts
     of exactly this run, and the predictor."""
@@ -453,25 +916,36 @@ def main(argv):
     served_args = check_kernels(torch, ATT, KN, dev)
     timing = time_kernels(torch, F, ATT, KN, served_args)
     del served_args
+    bwd_args = check_bwd_kernels(torch, ATT, KN, dev)
+    timing.update(time_bwd_kernels(torch, F, ATT, KN, bwd_args))
+    del bwd_args
     served, pred = serve_bert(torch, np, K, dev)
     if "--profile" in argv:
         profile_bucket(torch, np, pred)
     del pred
     encoder = run_encoder(torch, np, K, dev)
+    trained = train_bert(torch, np, K, dev, smi, "--profile" in argv)
+    trained_long = train_long(torch, np, K, dev)
 
     # each kernel's launches on the path that drives it, counted from 0
-    launches = {"flash_fwd": served["flash_fwd"],
-                "layernorm_fwd": served["layernorm_fwd"],
-                "bias_gelu_fwd": encoder["bias_gelu_fwd"]}
     path = {"flash_fwd": "bert_base_serving",
             "layernorm_fwd": "bert_base_serving",
-            "bias_gelu_fwd": "transformer_encoder_gelu"}
+            "bias_gelu_fwd": "transformer_encoder_gelu",
+            "flash_bwd_fused": "bert_base_training",
+            "layernorm_bwd": "bert_base_training",
+            "flash_bwd_dq": "bert_width_training_seq1024",
+            "flash_bwd_dkv": "bert_width_training_seq1024"}
+    counts_of = {"bert_base_serving": served,
+                 "transformer_encoder_gelu": encoder,
+                 "bert_base_training": trained,
+                 "bert_width_training_seq1024": trained_long}
+    launches = {name: counts_of[path[name]][name] for name in K.KERNELS}
     emit({"launch_counts": launches})
     if not all(n > 0 for n in launches.values()):
         raise SystemExit(f"a kernel never launched on its path: {launches}")
     rows = []
     for name, info in K.KERNELS.items():
-        # the served dtype is float32; bfloat16 times are on "timing" lines
+        # every path runs in float32; bfloat16 times are on "timing" lines
         t = timing[(name, "float32")]
         rows.append({"name": name, "route": "cuda", "source": info.source,
                      "replaces": info.replaces, "launches": launches[name],

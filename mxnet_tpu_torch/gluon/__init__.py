@@ -1,5 +1,8 @@
-"""Gluon layers and models (counterpart of ``mxnet_tpu/gluon``) as
-``torch.nn.Module``s."""
-from . import model_zoo, nn, params
+"""Gluon layers, models, losses and the Trainer (counterpart of
+``mxnet_tpu/gluon``) as ``torch.nn.Module``s."""
+from . import loss, model_zoo, nn, params
+from .fused_step import CompiledTrainStep
+from .trainer import Trainer
 
-__all__ = ["model_zoo", "nn", "params"]
+__all__ = ["loss", "model_zoo", "nn", "params", "Trainer",
+           "CompiledTrainStep"]

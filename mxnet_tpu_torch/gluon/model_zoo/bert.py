@@ -5,6 +5,13 @@ Every builder runs on ``cuda:0`` unless ``device="cpu"`` is passed, and
 raises without CUDA otherwise. Weights are random; a dict of the JAX
 package's ``collect_params()`` (or of ``gluon.params.init_params_numpy``)
 loads with ``gluon.params.load_jax_params``.
+
+Training: every parameter is trainable and the forward is
+differentiable through the flash-attention and LayerNorm kernels. In
+``train()`` mode (a module's default) dropout is on; ``eval()`` turns it
+off. The masked-LM decoder's output projection reuses
+``word_embed.weight``, which so gets the gradient of the lookup and of
+the projection, summed.
 """
 from __future__ import annotations
 

@@ -11,9 +11,19 @@ constructor raises unless ``device="cpu"``) and an optional
 ``torch.Generator`` for its random initial weights or dropout masks.
 Shapes are not inferred at the first call: ``in_units`` / ``in_channels``
 are required.
+
+Parameters are trainable. Each carries the JAX package's ``Parameter``
+attributes (``gluon/parameter.py``): ``grad_req`` (``"write"``,
+``"add"`` or ``"null"``; set it with :func:`set_grad_req`), ``lr_mult``
+and ``wd_mult``, and ``fresh_grad``, which a backward that reaches the
+parameter sets and ``gluon.Trainer`` clears after each update. A hook on
+each parameter gives ``"write"`` its meaning: each backward overwrites
+the gradient.
 """
 from __future__ import annotations
 
+import functools
+import weakref
 from typing import Optional
 
 import torch
@@ -24,7 +34,10 @@ from ...base import MXNetError
 from ...context import resolve_device
 from ...ops import nn as FNN
 
-__all__ = ["Dense", "Dropout", "Embedding", "LayerNorm", "activation"]
+__all__ = ["Dense", "Dropout", "Embedding", "LayerNorm", "activation",
+           "init_param", "set_grad_req", "GRAD_REQS"]
+
+GRAD_REQS = ("write", "add", "null")
 
 #: initial weights: uniform in [-0.07, 0.07] (the JAX package's default
 #: ``initializer.Uniform()``); biases and beta 0, gamma 1
@@ -47,13 +60,53 @@ def activation(x, act_type: str):
     return fn(x)
 
 
+def _on_grad(param_ref, grad):
+    """Runs when a backward is about to accumulate ``grad`` into the
+    parameter (once per backward, with every use of it summed): under
+    ``"write"`` the old gradient is dropped first, so the backward
+    overwrites it, as in the JAX package; PyTorch alone would add."""
+    p = param_ref()
+    if p is not None:
+        if p.grad_req == "write":
+            p.grad = None
+        p.fresh_grad = True
+    return grad
+
+
+def set_grad_req(p: nn.Parameter, grad_req: str) -> None:
+    """Set ``p.grad_req``: ``"write"`` (a backward overwrites the
+    gradient) and ``"add"`` (it accumulates) make it trainable, ``"null"``
+    freezes it and drops its gradient."""
+    if grad_req not in GRAD_REQS:
+        raise MXNetError(f"grad_req must be one of {GRAD_REQS}, got "
+                         f"{grad_req!r}")
+    p.grad_req = grad_req
+    p.requires_grad_(grad_req != "null")
+    if grad_req == "null":
+        p.grad = None
+    elif not getattr(p, "_grad_hook", False):
+        p.register_hook(functools.partial(_on_grad, weakref.ref(p)))
+        p._grad_hook = True
+    p.fresh_grad = False
+
+
+def init_param(p: nn.Parameter, grad_req: str = "write",
+               lr_mult: float = 1.0, wd_mult: float = 1.0) -> nn.Parameter:
+    """Give ``p`` the JAX package's Parameter attributes (``grad_req``,
+    ``lr_mult``, ``wd_mult``, ``fresh_grad``); returns ``p``."""
+    p.lr_mult = lr_mult
+    p.wd_mult = wd_mult
+    set_grad_req(p, grad_req)
+    return p
+
+
 def _param(shape, device, fill=None, generator=None):
     t = torch.empty(shape, dtype=torch.float32)
     if fill is None:
         t.uniform_(-INIT_SCALE, INIT_SCALE, generator=generator)
     else:
         t.fill_(fill)
-    return nn.Parameter(t.to(device), requires_grad=False)
+    return init_param(nn.Parameter(t.to(device)))
 
 
 class Dense(nn.Module):

@@ -3,9 +3,10 @@
 and ``TransformerEncoder``, used by ``model_zoo.bert``.
 
 Attention goes through ``ops.attention.flash_attention`` (the flash
-forward kernel on the card); the FFN's ``gelu`` branch goes through the
-bias-GELU kernel; every trailing-axis LayerNorm through the LayerNorm
-kernel.
+forward and backward kernels on the card); the FFN's ``gelu`` branch
+goes through the bias-GELU kernel, forward only on the card (a backward
+through it raises there until its kernel is ported); every
+trailing-axis LayerNorm through the LayerNorm kernels.
 """
 from __future__ import annotations
 

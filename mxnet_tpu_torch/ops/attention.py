@@ -5,12 +5,15 @@ softmax scale defaults to head_dim**-0.5; masking uses the finite value
 -1e30, and a query row with no valid key outputs exactly zero on every
 path of this module.
 
-- :func:`flash_attention`: on a CUDA tensor the forward kernel
-  ``csrc/flash_fwd.cu`` (online softmax over key tiles, returning the
-  per-row log-sum-exp beside the output); on a CPU tensor its plain
-  version :func:`flash_attention_fwd_plain`. With ``valid_length`` (a
-  per-sample key count) it runs the blockwise PyTorch path on either
-  device, as the JAX package runs that case outside its Pallas kernel.
+- :func:`flash_attention`: a ``torch.autograd.Function`` whose forward
+  is, on a CUDA tensor, the kernel ``csrc/flash_fwd.cu`` (online softmax
+  over key tiles, returning the per-row log-sum-exp beside the output)
+  and whose backward is ``csrc/flash_bwd.cu`` (P rebuilt from the saved
+  lse); on a CPU tensor the plain versions
+  :func:`flash_attention_fwd_plain` and :func:`flash_attention_bwd_plain`
+  run in the same Function. With ``valid_length`` (a per-sample key
+  count) it runs the blockwise PyTorch path on either device, as the JAX
+  package runs that case outside its Pallas kernels.
 - :func:`attention_reference`: unfused softmax(QK^T)V, the oracle and
   the path for an arbitrary additive mask.
 """
@@ -20,15 +23,21 @@ import math
 from typing import Optional, Tuple
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from ..base import MXNetError
 from .kernels import DTYPE_CODES, check_cuda_operands, launch
 
 __all__ = ["flash_attention", "flash_attention_fwd",
-           "flash_attention_fwd_plain", "attention_reference"]
+           "flash_attention_fwd_plain", "flash_attention_bwd",
+           "flash_attention_bwd_plain", "flash_bwd_fused", "flash_bwd_dq",
+           "flash_bwd_dkv", "attention_reference"]
 
 NEG_INF = -1e30  # finite mask value: keeps exp() NaN-free for masked rows
 MAX_HEAD_DIM = 128
+#: longest Sq and Sk of the fused backward kernel (the JAX package's
+#: 512-row block: one block per head there)
+FUSED_BWD_MAX_SEQ = 512
 #: keys per block of the blockwise (``valid_length``) path
 BLOCK_K = 512
 
@@ -133,25 +142,22 @@ def _check_flash_shapes(q, k, v):
                          f"{tuple(k.shape)}, v {tuple(v.shape)} disagree")
 
 
-def flash_attention_fwd(q, k, v, causal: bool = False,
-                        sm_scale: Optional[float] = None
-                        ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Flash-attention forward → (out, lse). A CUDA tensor launches the
-    kernel (contiguous float32 or bfloat16, head_dim <= 128, else it
-    raises); a CPU tensor runs :func:`flash_attention_fwd_plain`."""
-    _check_flash_shapes(q, k, v)
-    if q.device.type == "cpu":
-        return flash_attention_fwd_plain(q, k, v, causal, sm_scale)
-    sm_scale = _default_scale(q, sm_scale)
-    check_cuda_operands("flash_attention", q, k, v)
-    for t in (k, v):
+def _check_cuda_attention(q, *others):
+    check_cuda_operands("flash_attention", q, *others)
+    for t in others:
         if t.dtype != q.dtype or not t.is_contiguous():
-            raise MXNetError("flash_attention: q, k and v must be "
+            raise MXNetError("flash_attention: q, k, v (and dO) must be "
                              "contiguous and of one dtype")
+    if q.shape[-1] > MAX_HEAD_DIM:
+        raise MXNetError(f"flash_attention: head_dim {q.shape[-1]} > "
+                         f"{MAX_HEAD_DIM}")
+
+
+def _flash_fwd_kernel(q, k, v, causal: bool, sm_scale: float):
+    """(out, lse) from the ``flash_fwd`` kernel (CUDA tensors)."""
+    _check_cuda_attention(q, k, v)
     b, h, sq, d = q.shape
     sk = k.shape[2]
-    if d > MAX_HEAD_DIM:
-        raise MXNetError(f"flash_attention: head_dim {d} > {MAX_HEAD_DIM}")
     out = torch.empty_like(q)
     lse = torch.empty(b, h, sq, dtype=torch.float32, device=q.device)
     if out.numel() == 0:
@@ -162,10 +168,158 @@ def flash_attention_fwd(q, k, v, causal: bool = False,
     return out, lse
 
 
+# ---------------------------------------------------------------------------
+# backward
+# ---------------------------------------------------------------------------
+
+def flash_attention_bwd_plain(q, k, v, out, lse, dout, causal: bool = False,
+                              sm_scale: Optional[float] = None):
+    """Plain version of the flash backward kernels → (dq, dk, dv): P
+    rebuilt as exp(s - lse) in float32 and zeroed where masked, P
+    rounded to dO's dtype before dV, dS = P (dP - delta) scale rounded to
+    q's dtype before dQ and dK, delta = rowsum(dO * O); outputs in the
+    inputs' dtype."""
+    sm_scale = _default_scale(q, sm_scale)
+    sq, sk = q.shape[2], k.shape[2]
+    dout = dout.to(q.dtype)
+    delta = (dout.float() * out.float()).sum(-1, keepdim=True)
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * sm_scale
+    p = torch.exp(s - lse.float()[..., None])
+    if causal:
+        p = torch.where(_causal_keep(sq, sk, p.device), p, 0.0)
+    dv = torch.matmul(p.to(dout.dtype).float().transpose(-1, -2),
+                      dout.float())
+    dp = torch.matmul(dout.float(), v.float().transpose(-1, -2))
+    ds = (p * (dp - delta) * sm_scale).to(q.dtype).float()
+    dq = torch.matmul(ds, k.float())
+    dk = torch.matmul(ds.transpose(-1, -2), q.float())
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def uses_fused_bwd(sq: int, sk: int) -> bool:
+    """The JAX package's rule (``_flash_bwd_pallas``): one 512-block
+    holds the whole sequence, so dq, dk and dv come from one kernel;
+    longer sequences take the dq and dkv kernels."""
+    return sq <= FUSED_BWD_MAX_SEQ and sk <= FUSED_BWD_MAX_SEQ
+
+
+def _bwd_operands(q, k, v, dout, lse, delta, causal, sm_scale):
+    """Checked pointers and sizes of a backward kernel's C entry."""
+    _check_cuda_attention(q, k, v, dout)
+    b, h, sq, d = q.shape
+    for name, t in (("lse", lse), ("delta", delta)):
+        if t.shape != (b, h, sq) or t.dtype != torch.float32 or \
+                not t.is_contiguous() or t.device != q.device:
+            raise MXNetError(f"flash_attention_bwd: {name} must be a "
+                             f"contiguous float32 ({b}, {h}, {sq}) tensor "
+                             f"on {q.device}")
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+            lse.data_ptr(), delta.data_ptr())
+    geom = (b * h, sq, k.shape[2], d, int(causal), float(sm_scale),
+            DTYPE_CODES[q.dtype])
+    return ptrs, geom
+
+
+def flash_bwd_fused(q, k, v, dout, lse, delta, causal, sm_scale):
+    """(dq, dk, dv) from the ``flash_bwd_fused`` kernel (CUDA tensors;
+    ``delta`` = rowsum(dO * O) in float32)."""
+    ptrs, geom = _bwd_operands(q, k, v, dout, lse, delta, causal, sm_scale)
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    # dq accumulates in float32: in dq itself when that is float32
+    acc = dq if q.dtype == torch.float32 else \
+        torch.empty(dq.shape, dtype=torch.float32, device=q.device)
+    launch("flash_bwd_fused", q.device, *ptrs, dq.data_ptr(),
+           acc.data_ptr(), dk.data_ptr(), dv.data_ptr(), *geom)
+    return dq, dk, dv
+
+
+def flash_bwd_dq(q, k, v, dout, lse, delta, causal, sm_scale):
+    """dq from the ``flash_bwd_dq`` kernel (CUDA tensors)."""
+    ptrs, geom = _bwd_operands(q, k, v, dout, lse, delta, causal, sm_scale)
+    dq = torch.empty_like(q)
+    launch("flash_bwd_dq", q.device, *ptrs, dq.data_ptr(), *geom)
+    return dq
+
+
+def flash_bwd_dkv(q, k, v, dout, lse, delta, causal, sm_scale):
+    """(dk, dv) from the ``flash_bwd_dkv`` kernel (CUDA tensors)."""
+    ptrs, geom = _bwd_operands(q, k, v, dout, lse, delta, causal, sm_scale)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    launch("flash_bwd_dkv", q.device, *ptrs, dk.data_ptr(), dv.data_ptr(),
+           *geom)
+    return dk, dv
+
+
+def flash_attention_bwd(q, k, v, out, lse, dout, causal: bool = False,
+                        sm_scale: Optional[float] = None):
+    """Flash-attention backward → (dq, dk, dv) from the forward's ``out``
+    and ``lse``. A CUDA tensor launches ``flash_bwd_fused`` when Sq and
+    Sk are both <= 512, else ``flash_bwd_dq`` and ``flash_bwd_dkv``
+    (contiguous float32 or bfloat16, head_dim <= 128, else it raises); a
+    CPU tensor runs :func:`flash_attention_bwd_plain`."""
+    _check_flash_shapes(q, k, v)
+    if q.device.type == "cpu":
+        return flash_attention_bwd_plain(q, k, v, out, lse, dout, causal,
+                                         sm_scale)
+    sm_scale = _default_scale(q, sm_scale)
+    _check_cuda_attention(q, out, dout)
+    if q.numel() == 0 or k.numel() == 0:
+        return torch.zeros_like(q), torch.zeros_like(k), torch.zeros_like(v)
+    # delta_i = rowsum(dO_i * O_i), outside the kernel as on the TPU
+    delta = (dout.float() * out.float()).sum(-1)
+    if uses_fused_bwd(q.shape[2], k.shape[2]):
+        return flash_bwd_fused(q, k, v, dout, lse, delta, causal, sm_scale)
+    dq = flash_bwd_dq(q, k, v, dout, lse, delta, causal, sm_scale)
+    return (dq,) + flash_bwd_dkv(q, k, v, dout, lse, delta, causal,
+                                 sm_scale)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Flash attention with its backward. A CPU tensor runs the plain
+    forward and backward, a CUDA tensor the kernels; ``lse`` is an output
+    without a gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, sm_scale):
+        if q.device.type == "cpu":
+            out, lse = flash_attention_fwd_plain(q, k, v, causal, sm_scale)
+        else:
+            out, lse = _flash_fwd_kernel(q, k, v, causal, sm_scale)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.sm_scale = causal, sm_scale
+        ctx.mark_non_differentiable(lse)
+        return out, lse
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, dout, _dlse):
+        q, k, v, out, lse = ctx.saved_tensors
+        # the gradient arrives strided from the head merge
+        # (out.permute(0, 2, 1, 3).reshape(...)) and maybe in another dtype
+        dq, dk, dv = flash_attention_bwd(
+            q, k, v, out, lse, dout.to(q.dtype).contiguous(), ctx.causal,
+            ctx.sm_scale)
+        return dq, dk, dv, None, None
+
+
+def flash_attention_fwd(q, k, v, causal: bool = False,
+                        sm_scale: Optional[float] = None
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Flash-attention forward → (out, lse), differentiable in q, k and v
+    (``lse`` carries no gradient). A CUDA tensor launches the kernel
+    (contiguous float32 or bfloat16, head_dim <= 128, else it raises), and
+    its backward the flash backward kernels; a CPU tensor runs
+    :func:`flash_attention_fwd_plain` and the plain backward."""
+    _check_flash_shapes(q, k, v)
+    return _FlashAttention.apply(q, k, v, bool(causal),
+                                 _default_scale(q, sm_scale))
+
+
 def flash_attention(q, k, v, causal: bool = False,
                     sm_scale: Optional[float] = None, valid_length=None):
     """Fused memory-efficient attention on (B, H, S, D) tensors.
-    ``valid_length`` (B,) masks padded keys on the blockwise path."""
+    ``valid_length`` (B,) masks padded keys on the blockwise path (plain
+    PyTorch, differentiated by autograd)."""
     _check_flash_shapes(q, k, v)
     if valid_length is not None:
         return attention_blockwise(q, k, v, causal,

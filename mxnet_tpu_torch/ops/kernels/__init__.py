@@ -8,10 +8,11 @@ kernel is rebuilt and an unchanged one is not. Nothing is compiled or
 loaded when this module is imported.
 
 Dispatch rule, shared by every wrapper (``norm.layer_norm``,
-``norm.bias_gelu``, ``attention.flash_attention``): a tensor on the CPU
-takes the plain PyTorch version that sits beside the wrapper; a tensor
-on a CUDA device launches the kernel or raises. There is no switch that
-turns a kernel off on the card.
+``norm.layer_norm_bwd``, ``norm.bias_gelu``,
+``attention.flash_attention_fwd``, ``attention.flash_attention_bwd``):
+a tensor on the CPU takes the plain PyTorch version that sits beside
+the wrapper; a tensor on a CUDA device launches the kernel or raises.
+There is no switch that turns a kernel off on the card.
 
 Each wrapper adds one to its kernel's launch counter where it launches,
 and nowhere else (:func:`launch_counts`), so a run can show that its
@@ -81,6 +82,34 @@ KERNELS: Dict[str, KernelInfo] = {k.name: k for k in (
         # x, b, out, n, C, dtype, stream
         (_P, _P, _P, _L, _I, _I, _P),
         "mxnet_tpu/ops/kernels/norm.py:222 (_bg_fwd_kernel)"),
+    KernelInfo(
+        "flash_bwd_fused", "mxnet_tpu_torch/ops/kernels/csrc/flash_bwd.cu",
+        "mxt_flash_bwd_fused",
+        # q, k, v, dout, lse, delta, dq, dq_acc, dk, dv, BH, Sq, Sk, D,
+        # causal, sm_scale, dtype, stream
+        (_P,) * 10 + (_I,) * 5 + (_F, _I, _P),
+        "mxnet_tpu/ops/attention.py:371 (_flash_bwd_fused_kernel)"),
+    KernelInfo(
+        "flash_bwd_dq", "mxnet_tpu_torch/ops/kernels/csrc/flash_bwd.cu",
+        "mxt_flash_bwd_dq",
+        # q, k, v, dout, lse, delta, dq, BH, Sq, Sk, D, causal, sm_scale,
+        # dtype, stream
+        (_P,) * 7 + (_I,) * 5 + (_F, _I, _P),
+        "mxnet_tpu/ops/attention.py:405 (_flash_bwd_dq_kernel)"),
+    KernelInfo(
+        "flash_bwd_dkv", "mxnet_tpu_torch/ops/kernels/csrc/flash_bwd.cu",
+        "mxt_flash_bwd_dkv",
+        # q, k, v, dout, lse, delta, dk, dv, BH, Sq, Sk, D, causal,
+        # sm_scale, dtype, stream
+        (_P,) * 8 + (_I,) * 5 + (_F, _I, _P),
+        "mxnet_tpu/ops/attention.py:322 (_flash_bwd_dkv_kernel)"),
+    KernelInfo(
+        "layernorm_bwd", "mxnet_tpu_torch/ops/kernels/csrc/layernorm_bwd.cu",
+        "mxt_layernorm_bwd",
+        # x, gamma, dy, dx, dg_part, db_part, dgamma, dbeta, rows, C,
+        # nparts, eps, dtype, stream
+        (_P,) * 8 + (_L, _I, _I, _F, _I, _P),
+        "mxnet_tpu/ops/kernels/norm.py:116 (_ln_bwd_kernel)"),
 )}
 
 _COUNTS: Dict[str, int] = {name: 0 for name in KERNELS}

@@ -1,27 +1,41 @@
-"""LayerNorm and bias-GELU forward kernels (counterpart of
+"""LayerNorm and bias-GELU kernels (counterpart of
 ``mxnet_tpu/ops/kernels/norm.py``).
 
 - :func:`layer_norm`: float32 two-pass statistics over the trailing axis,
-  output in x's dtype (CUDA kernel ``csrc/layernorm_fwd.cu``).
+  output in x's dtype (CUDA kernel ``csrc/layernorm_fwd.cu``); its
+  backward :func:`layer_norm_bwd` (``csrc/layernorm_bwd.cu``) gives dx,
+  and dgamma/dbeta summed over all rows in float32.
 - :func:`bias_gelu`: exact (erf) ``gelu(x + b)`` over the trailing axis
-  (CUDA kernel ``csrc/bias_gelu_fwd.cu``).
+  (CUDA kernel ``csrc/bias_gelu_fwd.cu``). Its backward kernel is not
+  ported yet: on the card a backward through it raises.
 
-Each wrapper runs its plain PyTorch version (``layer_norm_plain``,
-``bias_gelu_plain``, beside it) for a tensor on the CPU, and its kernel
-for a tensor on a CUDA device, raising on what the kernel does not take.
+Each op is a ``torch.autograd.Function``: for a tensor on the CPU its
+forward and backward run the plain PyTorch versions beside them
+(``layer_norm_plain``, ``layer_norm_bwd_plain``, ``bias_gelu_plain``,
+``bias_gelu_bwd_plain``); for a tensor on a CUDA device the kernels run,
+raising on what a kernel does not take.
 """
 from __future__ import annotations
 
 import math
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from ...base import MXNetError
 from . import DTYPE_CODES, check_cuda_operands, launch
 
-__all__ = ["layer_norm", "layer_norm_plain", "bias_gelu", "bias_gelu_plain"]
+__all__ = ["layer_norm", "layer_norm_plain", "layer_norm_bwd",
+           "layer_norm_bwd_plain", "bias_gelu", "bias_gelu_plain",
+           "bias_gelu_bwd_plain"]
 
 _SQRT_HALF = math.sqrt(0.5)
+_INV_SQRT2PI = 1.0 / math.sqrt(2.0 * math.pi)
+#: blocks of the LayerNorm backward's first pass, each keeping float32
+#: dgamma/dbeta partials of its rows (fixed, so a card repeats bit for bit)
+LN_BWD_PARTS = 512
+#: widest C of the LayerNorm backward: its partials live in shared memory
+LN_BWD_MAX_C = 16384
 
 
 def stat_dtype(x: torch.Tensor) -> torch.dtype:
@@ -40,23 +54,45 @@ def _check_vector(name: str, t: torch.Tensor, c: int, what: str) -> None:
 # LayerNorm
 # ---------------------------------------------------------------------------
 
-def layer_norm_plain(x, gamma, beta, eps: float = 1e-5):
-    """LayerNorm over the trailing axis: the mean, then the mean of
-    squared deviations (two passes, as ``jnp.var``), in float32."""
-    dt = stat_dtype(x)
-    xf = x.to(dt)
+def _ln_stats(xf):
+    """mean and var over the trailing axis: the mean, then the mean of
+    squared deviations (two passes, as ``jnp.var``)."""
     mean = xf.mean(dim=-1, keepdim=True)
     d = xf - mean
-    var = (d * d).mean(dim=-1, keepdim=True)
-    out = d * torch.rsqrt(var + eps)
+    return mean, (d * d).mean(dim=-1, keepdim=True)
+
+
+def layer_norm_plain(x, gamma, beta, eps: float = 1e-5):
+    """LayerNorm over the trailing axis, statistics in float32."""
+    dt = stat_dtype(x)
+    xf = x.to(dt)
+    mean, var = _ln_stats(xf)
+    out = (xf - mean) * torch.rsqrt(var + eps)
     return (out * gamma.to(dt) + beta.to(dt)).to(x.dtype)
 
 
-def layer_norm(x, gamma, beta, eps: float = 1e-5):
-    """Fused LayerNorm over the trailing axis (float32 statistics, output
-    in x's dtype)."""
-    if x.device.type == "cpu":
-        return layer_norm_plain(x, gamma, beta, eps)
+def layer_norm_bwd_plain(x, gamma, dy, eps: float = 1e-5):
+    """Plain version of the LayerNorm backward kernel → (dx, dgamma,
+    dbeta): statistics recomputed from x as in the forward, dy taken in
+    x's dtype, dx in x's dtype, dgamma and dbeta summed over all rows in
+    float32 and returned in gamma's dtype."""
+    dt = stat_dtype(x)
+    xf = x.to(dt)
+    dyf = dy.to(x.dtype).to(dt)
+    mean, var = _ln_stats(xf)
+    rstd = torch.rsqrt(var + eps)
+    xhat = (xf - mean) * rstd
+    rows = dyf.reshape(-1, x.shape[-1])
+    dg = (rows * xhat.reshape(rows.shape)).sum(0)
+    db = rows.sum(0)
+    dxhat = dyf * gamma.to(dt)
+    m1 = dxhat.mean(dim=-1, keepdim=True)
+    m2 = (dxhat * xhat).mean(dim=-1, keepdim=True)
+    dx = rstd * (dxhat - m1 - xhat * m2)
+    return dx.to(x.dtype), dg.to(gamma.dtype), db.to(gamma.dtype)
+
+
+def _ln_fwd_kernel(x, gamma, beta, eps):
     check_cuda_operands("layer_norm", x, gamma, beta)
     if x.ndim < 1:
         raise MXNetError("layer_norm: expects at least one axis")
@@ -75,6 +111,61 @@ def layer_norm(x, gamma, beta, eps: float = 1e-5):
     return out
 
 
+def layer_norm_bwd(x, gamma, dy, eps: float = 1e-5):
+    """LayerNorm backward → (dx, dgamma, dbeta). A CUDA tensor launches
+    the ``layernorm_bwd`` kernel (contiguous float32 or bfloat16 x, C <=
+    16384, else it raises); a CPU tensor runs
+    :func:`layer_norm_bwd_plain`."""
+    if x.device.type == "cpu":
+        return layer_norm_bwd_plain(x, gamma, dy, eps)
+    dy = dy.to(x.dtype).contiguous()
+    check_cuda_operands("layer_norm_bwd", x, gamma, dy)
+    c = int(x.shape[-1]) if x.ndim else 0
+    _check_vector("layer_norm_bwd", gamma, c, "gamma")
+    if dy.shape != x.shape:
+        raise MXNetError(f"layer_norm_bwd: dy {tuple(dy.shape)} and x "
+                         f"{tuple(x.shape)} disagree")
+    if c > LN_BWD_MAX_C:
+        raise MXNetError(f"layer_norm_bwd: C {c} > {LN_BWD_MAX_C}")
+    rows = x.numel() // c if c else 0
+    dx = torch.empty_like(x)
+    dg = torch.zeros(c, dtype=torch.float32, device=x.device)
+    db = torch.zeros(c, dtype=torch.float32, device=x.device)
+    if rows:
+        nparts = min(rows, LN_BWD_PARTS)
+        part = torch.empty(2, nparts, c, dtype=torch.float32,
+                           device=x.device)
+        g = gamma.to(torch.float32).contiguous()
+        launch("layernorm_bwd", x.device, x.data_ptr(), g.data_ptr(),
+               dy.data_ptr(), dx.data_ptr(), part[0].data_ptr(),
+               part[1].data_ptr(), dg.data_ptr(), db.data_ptr(), rows, c,
+               nparts, float(eps), DTYPE_CODES[x.dtype])
+    return dx, dg.to(gamma.dtype), db.to(gamma.dtype)
+
+
+class _LayerNorm(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, gamma, beta, eps):
+        out = layer_norm_plain(x, gamma, beta, eps) \
+            if x.device.type == "cpu" else _ln_fwd_kernel(x, gamma, beta, eps)
+        ctx.save_for_backward(x, gamma)
+        ctx.eps = eps
+        return out
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, dy):
+        x, gamma = ctx.saved_tensors
+        dx, dg, db = layer_norm_bwd(x, gamma, dy, ctx.eps)
+        return dx, dg, db, None
+
+
+def layer_norm(x, gamma, beta, eps: float = 1e-5):
+    """Fused LayerNorm over the trailing axis (float32 statistics, output
+    in x's dtype), differentiable in x, gamma and beta."""
+    return _LayerNorm.apply(x, gamma, beta, float(eps))
+
+
 # ---------------------------------------------------------------------------
 # bias-GELU
 # ---------------------------------------------------------------------------
@@ -86,10 +177,21 @@ def bias_gelu_plain(x, b):
     return (0.5 * z * torch.erfc(-z * _SQRT_HALF)).to(x.dtype)
 
 
-def bias_gelu(x, b):
-    """Fused ``gelu(x + b)`` (exact erf form) over the trailing axis."""
-    if x.device.type == "cpu":
-        return bias_gelu_plain(x, b)
+def bias_gelu_bwd_plain(x, b, dy):
+    """Plain version of the JAX package's bias-GELU backward kernel →
+    (dx, db): z = x + b, dx = dy * (Phi(z) + z * phi(z)) in float32
+    written in x's dtype, db = the float32 column sums of dx in b's
+    dtype."""
+    dt = stat_dtype(x)
+    z = (x + b.to(x.dtype)).to(dt)
+    phi = torch.exp(-0.5 * z * z) * _INV_SQRT2PI
+    cdf = 0.5 * (1.0 + torch.erf(z / math.sqrt(2.0)))
+    dx = dy.to(x.dtype).to(dt) * (cdf + z * phi)
+    db = dx.reshape(-1, x.shape[-1]).sum(0)
+    return dx.to(x.dtype), db.to(b.dtype)
+
+
+def _bg_fwd_kernel(x, b):
     check_cuda_operands("bias_gelu", x, b)
     c = int(x.shape[-1]) if x.ndim else 0
     _check_vector("bias_gelu", b, c, "b")
@@ -100,3 +202,28 @@ def bias_gelu(x, b):
     launch("bias_gelu_fwd", x.device, x.data_ptr(), bb.data_ptr(),
            out.data_ptr(), x.numel(), c, DTYPE_CODES[x.dtype])
     return out
+
+
+class _BiasGelu(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, b):
+        out = bias_gelu_plain(x, b) if x.device.type == "cpu" \
+            else _bg_fwd_kernel(x, b)
+        ctx.save_for_backward(x, b)
+        return out
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, dy):
+        x, b = ctx.saved_tensors
+        if x.device.type != "cpu":
+            raise MXNetError(
+                "bias_gelu: the backward kernel is not ported yet "
+                "(mxnet_tpu/ops/kernels/norm.py:227 _bg_bwd_kernel); on "
+                "the card this op runs forward only")
+        return bias_gelu_bwd_plain(x, b, dy)
+
+
+def bias_gelu(x, b):
+    """Fused ``gelu(x + b)`` (exact erf form) over the trailing axis."""
+    return _BiasGelu.apply(x, b)

@@ -1,0 +1,270 @@
+"""Optimizers (counterpart of ``mxnet_tpu/optimizer/optimizer.py``; this
+slice ports ``SGD``, ``Adam`` and ``AdamW``).
+
+The update rules are the JAX package's, written as pure functions
+``rule(w, g, lr, wd, t, states) -> (w', states')`` over tensors; the
+optimizer applies them with the JAX package's bookkeeping:
+
+- the gradient is multiplied by ``rescale_grad`` and then clipped to
+  ``[-clip_gradient, clip_gradient]``;
+- each parameter index counts its own updates ``t``; ``num_update`` is
+  their maximum and feeds ``lr_scheduler``;
+- lr and wd are scaled by the parameter's ``lr_mult``/``wd_mult``
+  (``param_dict``) and by :meth:`Optimizer.set_lr_mult` /
+  :meth:`Optimizer.set_wd_mult`, where an index-keyed entry wins over a
+  name-keyed one (``param_idx2name``).
+
+``torch.optim`` is not a substitute: it places weight decay elsewhere,
+counts one step for all parameters, and has no mults. Updates run on the
+parameters' device, in place, with no host sync: weights and states keep
+their tensors, and the new values are copied into them.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional
+
+import torch
+
+from ..base import MXNetError
+
+__all__ = ["Optimizer", "SGD", "Adam", "AdamW", "Updater", "get_updater",
+           "create", "register"]
+
+_registry: Dict[str, type] = {}
+
+
+def register(cls):
+    """Register an optimizer under its lowercase class name."""
+    _registry[cls.__name__.lower()] = cls
+    return cls
+
+
+def create(name, **kwargs) -> "Optimizer":
+    """An optimizer by registered name (an instance passes through)."""
+    if isinstance(name, Optimizer):
+        return name
+    try:
+        cls = _registry[name.lower()]
+    except KeyError as e:
+        raise MXNetError(f"unknown optimizer {name!r} (ported: "
+                         f"{sorted(_registry)})") from e
+    return cls(**kwargs)
+
+
+class Optimizer:
+    """Base optimizer. Subclasses define :meth:`create_state` and
+    :meth:`_rule`."""
+
+    def __init__(self, rescale_grad: float = 1.0, param_idx2name=None,
+                 wd: float = 0.0, clip_gradient: Optional[float] = None,
+                 learning_rate: Optional[float] = None, lr_scheduler=None,
+                 param_dict=None, begin_num_update: int = 0):
+        self.rescale_grad = rescale_grad
+        self.lr = learning_rate if learning_rate is not None else 0.01
+        self.lr_scheduler = lr_scheduler
+        if lr_scheduler is not None and learning_rate is not None:
+            self.lr_scheduler.base_lr = learning_rate
+        self.wd = wd
+        self.clip_gradient = clip_gradient
+        self.num_update = begin_num_update
+        self.begin_num_update = begin_num_update
+        self._index_update_count: Dict[int, int] = {}
+        self.idx2name = param_idx2name or {}
+        self.param_dict = param_dict or {}
+        self._lr_mult: Dict[Any, float] = {}
+        self._wd_mult: Dict[Any, float] = {}
+
+    # ---------------- lr/wd handling ----------------
+    @property
+    def learning_rate(self) -> float:
+        if self.lr_scheduler is not None:
+            return float(self.lr_scheduler(self.num_update))
+        return self.lr
+
+    @learning_rate.setter
+    def learning_rate(self, lr):
+        self.lr = lr
+
+    def set_learning_rate(self, lr):
+        self.lr = lr
+
+    def set_lr_mult(self, args_lr_mult: Dict[Any, float]):
+        self._lr_mult = dict(args_lr_mult)
+
+    def set_wd_mult(self, args_wd_mult: Dict[Any, float]):
+        self._wd_mult = dict(args_wd_mult)
+
+    def _get_lr(self, index) -> float:
+        lr = self.learning_rate
+        if index in self.param_dict:
+            lr *= self.param_dict[index].lr_mult
+        # an index-keyed mult wins over a name-keyed one for the same
+        # parameter
+        if index in self._lr_mult:
+            lr *= self._lr_mult[index]
+        else:
+            lr *= self._lr_mult.get(self.idx2name.get(index, index), 1.0)
+        return lr
+
+    def _get_wd(self, index) -> float:
+        wd = self.wd
+        if index in self.param_dict:
+            wd *= self.param_dict[index].wd_mult
+        if index in self._wd_mult:
+            wd *= self._wd_mult[index]
+        else:
+            wd *= self._wd_mult.get(self.idx2name.get(index, index), 1.0)
+        return wd
+
+    def _update_count(self, index) -> int:
+        cnt = self._index_update_count.get(index, self.begin_num_update) + 1
+        self._index_update_count[index] = cnt
+        self.num_update = max(cnt, self.num_update)
+        return cnt
+
+    # ---------------- state ----------------
+    def create_state(self, index, weight: torch.Tensor):
+        return ()
+
+    @staticmethod
+    def _zeros_state(weight: torch.Tensor, n: int):
+        return tuple(torch.zeros_like(weight, memory_format=torch.
+                                      contiguous_format) for _ in range(n))
+
+    # ---------------- update ----------------
+    def _rule(self):
+        """``rule(w, g, lr, wd, t, states) -> (w', states')``."""
+        raise NotImplementedError
+
+    def _apply(self, rule, weight, grad, lr, wd, t, state):
+        g = grad * self.rescale_grad
+        if self.clip_gradient is not None:
+            g = torch.clamp(g, -self.clip_gradient, self.clip_gradient)
+        new_w, new_state = rule(weight, g, lr, wd, t, state)
+        weight.copy_(new_w)
+        for s, ns in zip(state, new_state):
+            s.copy_(ns)
+
+    @torch.no_grad()
+    def update(self, index, weight, grad, state):
+        """Update one parameter, or several given as lists: then every
+        update count advances first and lr/wd are read after, as the JAX
+        package's multi-tensor update does."""
+        if not isinstance(index, (list, tuple)):
+            index, weight, grad, state = [index], [weight], [grad], [state]
+        ts = [self._update_count(i) for i in index]
+        lrs = [self._get_lr(i) for i in index]
+        wds = [self._get_wd(i) for i in index]
+        rule = self._rule()
+        for w, g, lr, wd, t, st in zip(weight, grad, lrs, wds, ts, state):
+            self._apply(rule, w, g, lr, wd, t, st)
+
+    def __repr__(self):
+        return f"{type(self).__name__}(lr={self.learning_rate})"
+
+
+@register
+class SGD(Optimizer):
+    """SGD, with momentum when ``momentum`` != 0 (wd folded into the
+    gradient)."""
+
+    def __init__(self, learning_rate=0.01, momentum=0.0, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.momentum = momentum
+
+    def create_state(self, index, weight):
+        if self.momentum == 0.0:
+            return ()
+        return self._zeros_state(weight, 1)
+
+    def _rule(self):
+        mom = self.momentum
+
+        def rule(w, g, lr, wd, t, states):
+            g = g + wd * w
+            if mom == 0.0:
+                return w - lr * g, states
+            (m,) = states
+            m = mom * m - lr * g
+            return w + m, (m,)
+        return rule
+
+
+@register
+class Adam(Optimizer):
+    """Adam with wd folded into the gradient and bias-corrected moments."""
+
+    def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
+                 epsilon=1e-8, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.beta1, self.beta2, self.epsilon = beta1, beta2, epsilon
+
+    def create_state(self, index, weight):
+        return self._zeros_state(weight, 2)
+
+    def _rule(self):
+        b1, b2, eps = self.beta1, self.beta2, self.epsilon
+
+        def rule(w, g, lr, wd, t, states):
+            m, v = states
+            g = g + wd * w
+            m = b1 * m + (1 - b1) * g
+            v = b2 * v + (1 - b2) * g * g
+            mhat = m / (1 - b1 ** t)
+            vhat = v / (1 - b2 ** t)
+            return w - lr * mhat / (torch.sqrt(vhat) + eps), (m, v)
+        return rule
+
+
+@register
+class AdamW(Optimizer):
+    """Adam with decoupled weight decay: wd applies to the weight, outside
+    the adaptive moments."""
+
+    def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
+                 epsilon=1e-8, correct_bias=True, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.beta1, self.beta2, self.epsilon = beta1, beta2, epsilon
+        self.correct_bias = correct_bias
+
+    def create_state(self, index, weight):
+        return self._zeros_state(weight, 2)
+
+    def _rule(self):
+        b1, b2, eps = self.beta1, self.beta2, self.epsilon
+        correct = self.correct_bias
+
+        def rule(w, g, lr, wd, t, states):
+            m, v = states
+            m = b1 * m + (1 - b1) * g
+            v = b2 * v + (1 - b2) * g * g
+            if correct:
+                mhat = m / (1 - b1 ** t)
+                vhat = v / (1 - b2 ** t)
+            else:
+                mhat, vhat = m, v
+            upd = mhat / (torch.sqrt(vhat) + eps) + wd * w
+            return w - lr * upd, (m, v)
+        return rule
+
+
+class Updater:
+    """Applies an optimizer to indexed weights and owns their states."""
+
+    def __init__(self, optimizer: Optimizer):
+        self.optimizer = optimizer
+        self.states: Dict[Any, Any] = {}
+
+    def __call__(self, index, grad, weight):
+        indices = index if isinstance(index, (list, tuple)) else [index]
+        grads = grad if isinstance(grad, (list, tuple)) else [grad]
+        weights = weight if isinstance(weight, (list, tuple)) else [weight]
+        for i, w in zip(indices, weights):
+            if i not in self.states:
+                self.states[i] = self.optimizer.create_state(i, w)
+        self.optimizer.update(list(indices), list(weights), list(grads),
+                              [self.states[i] for i in indices])
+
+
+def get_updater(optimizer: Optimizer) -> Updater:
+    return Updater(optimizer)

@@ -47,11 +47,13 @@ def test_package_has_its_modules():
               "gluon/nn/basic_layers.py", "gluon/nn/transformer.py",
               "gluon/model_zoo/bert.py", "gluon/params.py",
               "serving/predictor.py", "serving/batcher.py",
-              "serving/loadgen.py"):
+              "serving/loadgen.py", "gluon/loss.py", "gluon/trainer.py",
+              "gluon/fused_step.py", "lr_scheduler.py",
+              "optimizer/optimizer.py"):
         assert os.path.join("mxnet_tpu_torch", m) in rel, m
     csrc = os.listdir(os.path.join(PKG, "ops", "kernels", "csrc"))
-    assert {"flash_fwd.cu", "layernorm_fwd.cu",
-            "bias_gelu_fwd.cu"} <= set(csrc)
+    assert {"flash_fwd.cu", "layernorm_fwd.cu", "bias_gelu_fwd.cu",
+            "flash_bwd.cu", "layernorm_bwd.cu"} <= set(csrc)
 
 
 @pytest.mark.parametrize("path", _package_files()

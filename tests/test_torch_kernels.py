@@ -168,13 +168,17 @@ def test_bias_gelu_plain_vs_jax(c):
 
 def test_cpu_tensors_take_plain_versions_and_count_nothing():
     K.reset_launch_counts()
-    q, k, v = _t(*_qkv(1, 1, 8, 8, 4))
-    ATT.flash_attention(q, k, v)
-    KN.layer_norm(torch.ones(2, 8), torch.ones(8), torch.zeros(8))
-    KN.bias_gelu(torch.ones(2, 8), torch.zeros(8))
-    assert K.launch_counts() == {"flash_fwd": 0, "layernorm_fwd": 0,
-                                 "bias_gelu_fwd": 0}
-    assert set(K.KERNELS) == set(K.launch_counts())
+    q, k, v = (t.requires_grad_() for t in _t(*_qkv(1, 1, 8, 8, 4)))
+    x = torch.ones(2, 8, requires_grad=True)
+    loss = ATT.flash_attention(q, k, v).sum() \
+        + KN.layer_norm(x, torch.ones(8), torch.zeros(8)).sum() \
+        + KN.bias_gelu(x, torch.zeros(8)).sum()
+    loss.backward()
+    assert q.grad is not None and x.grad is not None
+    assert K.launch_counts() == {name: 0 for name in K.KERNELS}
+    assert set(K.KERNELS) == {
+        "flash_fwd", "layernorm_fwd", "bias_gelu_fwd", "flash_bwd_fused",
+        "flash_bwd_dq", "flash_bwd_dkv", "layernorm_bwd"}
 
 
 def test_wrappers_refuse_other_devices():
