@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py            # needs one CUDA device and nvcc
     python3 chip_smoke.py --profile  # also: device time of one served
-                                     # micro-batch and of one train step
+                                     # micro-batch and of one BERT and
+                                     # one LSTM LM train step
 
 Phases, each of which fails the run (non-zero exit) when it fails:
 
@@ -16,14 +17,20 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    computes the same function at the shapes of its path, in both dtypes
    (the backward kernels at BERT-base training's B*H = 384, S = 512,
    D = 64, at the long-sequence phase's S = 1024, and LayerNorm at
-   16384 x 768);
+   16384 x 768); the recurrence kernels in every mode (LSTM, GRU, tanh
+   and relu RNN), forward and reverse, at T 7 x N 3 x H 37 and at the
+   LSTM LM's T 35 x N 64 x H 650 (every output and gradient compared,
+   timed at the LM's LSTM layer), and the bias-GELU backward at 4096 x
+   3072 and at an unaligned C;
 4. serve BERT-base (12 x 768, vocab 30522, seeded random weights) through
    ``CompiledPredictor`` + ``DynamicBatcher``: 8 client threads, 96
    requests of 1-8 rows at sequence length 128; check that every request
    resolved, that two requests match a CPU copy of the model, and that
    each micro-batch launched 12 flash and 25 LayerNorm kernels;
 5. run a 2-layer ``TransformerEncoder`` with the ``gelu`` FFN, so the
-   bias-GELU kernel launches, and check it against a CPU copy;
+   bias-GELU kernels launch: a forward checked against a CPU copy, and a
+   backward (exactly 2 ``bias_gelu_bwd`` launches) with the gradients of
+   every parameter against the CPU copy;
 6. train the BERT-base classifier (float32, dropout 0.1, batch 32 x
    sequence 512, Adam) for ten steps of ``Trainer.compile_step`` on one
    seeded batch: every loss finite and the last below the first, exactly
@@ -33,7 +40,15 @@ Phases, each of which fails the run (non-zero exit) when it fails:
 7. train a 2-layer BERT-width classifier at sequence 1024 for two steps,
    so the flash backward takes its dq and dkv kernels (two launches each
    per step, none of the fused one), with its gradients against a CPU
-   copy.
+   copy;
+8. train the LSTM word LM (``model_zoo.word_lm.WordLM``: vocab 33,278,
+   embed and hidden 650, 2 layers, float32) at batch 64 x bptt 35 for ten
+   SGD-momentum steps of ``Trainer.compile_step`` on one seeded batch:
+   every loss finite and the last below the first, exactly 2
+   ``rnn_scan_fwd`` and 2 ``rnn_scan_bwd`` launches per step, one step's
+   gradients of all 11 parameters at batch 4 against a CPU copy; then an
+   eval-mode forward of the batch (``lstm_forward`` line) against the
+   CPU copy.
 
 ``{"launch_counts": {...}}`` gives each kernel's launches on its path.
 The line before the last is a JSON object with one entry per kernel
@@ -501,6 +516,239 @@ def time_bwd_kernels(torch, F, ATT, KN, timed):
     return timing
 
 
+#: recurrence cases (T, N, H): a ragged small one, and the LSTM LM's
+#: (bptt 35, batch 64, hidden 650); every mode, forward and reverse
+RNN_CASES = ((7, 3, 37), (35, 64, 650))
+RNN_MODES = ("lstm", "gru", "rnn_tanh", "rnn_relu")
+#: (rows, C) of the bias-GELU backward: the phase-5 encoder's FFN
+#: (32 x 128 tokens x 3072), and an unaligned C
+BG_BWD_CASES = ((4096, 3072), (37, 50))
+
+
+def rnn_case(torch, K, KR, rnd, mode, n_t, n, h, rev):
+    """One recurrence through ``rnn_scan`` (the kernels, forward and
+    backward through autograd) and through the plain versions on the same
+    card: (results, references, launches, inputs). Every output is
+    compared: ys, h_T, c_T, dxw, dh0, dc0, dW, db."""
+    lstm = mode == "lstm"
+    g = KR.GATES[mode]
+    xw, h0 = rnd(n_t, n, g * h, s=0.5), rnd(n, h, s=0.5)
+    c0 = rnd(n, h, s=0.5) if lstm else None
+    # W_hh of spectral radius ~0.5: a contracting recurrence, so that one
+    # bfloat16 ulp of state does not grow over the steps
+    w, b = rnd(g * h, h, s=0.5 * h ** -0.5), rnd(g * h, s=0.1)
+    dys, dh_t = rnd(n_t, n, h, s=1.0), rnd(n, h, s=1.0)
+    dc_t = rnd(n, h, s=1.0) if lstm else None
+    names = ["xw", "h0"] + (["c0"] if lstm else []) + ["w_hh", "b_hh"]
+    leaves = [t.detach().requires_grad_() for t in (xw, h0, c0, w, b)
+              if t is not None]
+    before = K.launch_counts()
+    full = leaves[:2] + ([leaves[2]] if lstm else [None]) + leaves[-2:]
+    ys, hy, cy = KR.rnn_scan(*full, mode, reverse=rev)
+    grads = torch.autograd.grad([ys, hy] + ([cy] if lstm else []), leaves,
+                                [dys, dh_t] + ([dc_t] if lstm else []))
+    torch.cuda.synchronize()
+    after = K.launch_counts()
+    launched = {k: after[k] - before[k] for k in ("rnn_scan_fwd",
+                                                  "rnn_scan_bwd")}
+    flip = (lambda t: torch.flip(t, dims=(0,))) if rev else (lambda t: t)
+    xs = flip(xw)
+    ys_p, cs_p = KR.rnn_scan_plain(xs, h0, c0, w, b, mode)
+    dys_s = flip(dys).clone()
+    dys_s[-1] = dys_s[-1] + dh_t
+    # the plain backward takes the kernel's own forward residuals (the
+    # forward kernel again: it repeats bit for bit), so that a relu mask
+    # or a bfloat16 state rounded the other way in the forward does not
+    # count against the backward
+    ys_k, cs_k = KR.rnn_scan_fwd(xs, h0, c0, w, b, mode)
+    ref_g = KR.rnn_scan_bwd_plain(xs, h0, c0, w, b, ys_k, cs_k, dys_s, dc_t,
+                                  mode)
+    ys, hy = ys.detach(), hy.detach()
+    cy = cy.detach() if lstm else None
+    got = {"ys": ys, "h_T": hy}
+    ref = {"ys": flip(ys_p), "h_T": ys_p[-1]}
+    if lstm:
+        got["c_T"], ref["c_T"] = cy, cs_p[-1]
+    ref_grads = [flip(ref_g[0]), ref_g[1]] + ([ref_g[2]] if lstm else []) \
+        + list(ref_g[3:])
+    for nm, a, r in zip(names, grads, ref_grads):
+        got["d" + nm], ref["d" + nm] = a, r
+    return got, ref, launched, (xw, h0, c0, w, b, dys, dc_t)
+
+
+def check_new_kernels(torch, K, KR, KN, dev):
+    """Phase 3, this slice's kernels: the recurrence forward and backward
+    (every mode, forward and reverse, a ragged shape and the LM's) and the
+    bias-GELU backward against their plain versions on the card, in
+    float32 and bfloat16. Returns {(kernel, dtype): (record, args)} at the
+    shapes of their paths, for :func:`time_new_kernels`."""
+    g = torch.Generator(device=dev).manual_seed(2)
+    failures, timed = [], {}
+
+    for dtype in (torch.float32, torch.bfloat16):
+        def rnd(*shape, s=1.0):
+            return (torch.randn(*shape, generator=g, device=dev) * s).to(
+                dtype)
+
+        dn = str(dtype).replace("torch.", "")
+        atol, rtol = TOLS[dn]
+        for n_t, n, h in RNN_CASES:
+            for mode in RNN_MODES:
+                for rev in (False, True):
+                    got, ref, launched, args = rnn_case(
+                        torch, K, KR, rnd, mode, n_t, n, h, rev)
+                    res = {k: compare(torch, got[k], ref[k], atol, rtol)
+                           for k in ref}
+                    worst = max(res, key=lambda k: res[k][1])
+                    ok = all(r[0] for r in res.values()) and \
+                        launched == {"rnn_scan_fwd": 1, "rnn_scan_bwd": 1}
+                    rec = {"kernel": "rnn_scan", "mode": mode,
+                           "reverse": rev, "dtype": dn, "shape": [n_t, n, h],
+                           "max_abs_err": {k: r[1] for k, r in res.items()},
+                           "worst": worst, "atol": atol, "rtol": rtol,
+                           "launches": launched, "ok": ok}
+                    emit({"check": rec})
+                    if not ok:
+                        failures.append(rec)
+                    if (n_t, n, h) == RNN_CASES[-1] and mode == "lstm" \
+                            and not rev:
+                        fwd_err = max(res[k][1] for k in ("ys", "h_T", "c_T"))
+                        bwd_err = max(r[1] for k, r in res.items()
+                                      if k.startswith("d"))
+                        timed[("rnn_scan_fwd", dn)] = (
+                            dict(rec, kernel="rnn_scan_fwd",
+                                 max_abs_err=fwd_err), args)
+                        timed[("rnn_scan_bwd", dn)] = (
+                            dict(rec, kernel="rnn_scan_bwd",
+                                 max_abs_err=bwd_err), args)
+        for rows, c in BG_BWD_CASES:
+            x, bias, dy = rnd(rows, c), rnd(c), rnd(rows, c)
+            got = KN.bias_gelu_bwd(x, bias, dy)
+            torch.cuda.synchronize()
+            res = [compare(torch, a, r, atol, rtol) for a, r in
+                   zip(got, KN.bias_gelu_bwd_plain(x, bias, dy))]
+            again = KN.bias_gelu_bwd(x, bias, dy)
+            repeats = all(bool(torch.equal(a, b)) for a, b in zip(got, again))
+            rec = {"kernel": "bias_gelu_bwd", "dtype": dn, "shape": [rows, c],
+                   "max_abs_err": max(r[1] for r in res),
+                   "rel_err": max(r[2] for r in res), "atol": atol,
+                   "rtol": rtol, "repeats_bit_for_bit": repeats,
+                   "ok": all(r[0] for r in res) and repeats}
+            emit({"check": rec})
+            if not rec["ok"]:
+                failures.append(rec)
+            if (rows, c) == BG_BWD_CASES[0]:
+                timed[("bias_gelu_bwd", dn)] = (rec, (x, bias, dy))
+    if failures:
+        raise SystemExit(f"rnn / bias-GELU backward checks failed: "
+                         f"{failures}")
+    return timed
+
+
+def cudnn_rnn_ms(torch, xw, h0, c0):
+    """The library yardstick of the recurrence: cuDNN through
+    ``torch.nn.LSTM`` (one layer, input size H, the same T, N, H and
+    dtype), timed eagerly: (forward ms, forward+backward minus forward
+    ms). Its time includes the input projection, which the kernels do
+    not do. The port never calls it."""
+    n_t, n, _ = xw.shape
+    h = h0.shape[-1]
+    lstm = torch.nn.LSTM(h, h).to(device=xw.device, dtype=xw.dtype)
+    x = torch.randn(n_t, n, h, device=xw.device).to(xw.dtype)
+    dy = torch.randn(n_t, n, h, device=xw.device).to(xw.dtype)
+    state = (h0[None].contiguous(), c0[None].contiguous())
+
+    def fwd(x_):
+        return lstm(x_, state)[0]
+
+    def fwd_bwd(x_):
+        leaf = x_.detach().requires_grad_()
+        torch.autograd.grad(fwd(leaf), [leaf] + list(lstm.parameters()), dy)
+
+    f = time_eager_ms(torch, fwd, (x,))
+    return f, time_eager_ms(torch, fwd_bwd, (x,)) - f
+
+
+def time_new_kernels(torch, F, KR, KN, timed):
+    """Kernel, plain-version and library times of this slice's kernels at
+    their paths' shapes (the LM's LSTM layer, the phase-5 FFN), in each
+    dtype, with the bound of this call's work: each input read once and
+    each output written once; the recurrence's operations are the TPU
+    kernel's (2*T*N*G*H^2 a product; the backward's three: recompute, dh,
+    dW). Returns {(kernel, dtype): timing}."""
+    timing, cudnn = {}, {}
+    for (name, dn), (rec, args) in timed.items():
+        if name == "bias_gelu_bwd":
+            x, bias, dy = args
+            size = x.element_size()
+            sets = [(x.clone(), bias, dy.clone())
+                    for _ in range(n_sets(torch, (x, x, x)))]
+            nbytes = size * (3 * x.numel() + 2 * bias.numel())
+            flops = 25.0 * x.numel()    # add, exp, erf (~15), six products
+            fns = (lambda *a: KN.bias_gelu_bwd(*a),
+                   lambda *a: KN.bias_gelu_bwd_plain(*a))
+
+            def gelu_fwd(x_, b_):
+                return F.gelu(x_ + b_)
+
+            def gelu_fwd_bwd(x_, b_, dy_):
+                leaves = [x_.detach().requires_grad_(),
+                          b_.detach().requires_grad_()]
+                torch.autograd.grad(gelu_fwd(*leaves), leaves, dy_)
+
+            library = "autograd backward of F.gelu(x + b) (eager)"
+            library_ms = time_eager_ms(torch, gelu_fwd_bwd, (x, bias, dy)) \
+                - time_eager_ms(torch, gelu_fwd, (x, bias))
+        else:
+            xw, h0, c0, w, b, dys, dc_t = args
+            n_t, n, gh = xw.shape
+            h = h0.shape[-1]
+            size = xw.element_size()
+            product = 2.0 * n_t * n * gh * h
+            state = 2 * n * h                             # h0, c0
+            if dn not in cudnn:
+                cudnn[dn] = cudnn_rnn_ms(torch, xw, h0, c0)
+            if name == "rnn_scan_fwd":
+                sets = [(xw.clone(), h0, c0, w, b)
+                        for _ in range(n_sets(torch, (xw, dys, dys)))]
+                # xw, h0, c0, W_hh, b_hh in; ys and cs out
+                nbytes = size * (xw.numel() + state + w.numel() + b.numel()
+                                 + 2 * dys.numel())
+                flops = product
+                fns = (lambda *a: KR.rnn_scan_fwd(*a, "lstm"),
+                       lambda *a: KR.rnn_scan_plain(*a, "lstm"))
+                library = "cuDNN torch.nn.LSTM forward (eager)"
+                library_ms = cudnn[dn][0]
+            else:
+                ys, cs = KR.rnn_scan_fwd(xw, h0, c0, w, b, "lstm")
+                sets = [(xw.clone(), h0, c0, w, b, ys, cs, dys.clone(), dc_t)
+                        for _ in range(n_sets(torch, (xw, xw, ys, cs, dys)))]
+                # in: xw, h0, c0, W, b, ys, cs, dys, dc_T; out: dxw, dh0,
+                # dc0, dW, db
+                nbytes = size * (2 * xw.numel() + 2 * state + 2 * w.numel()
+                                 + 2 * b.numel() + 3 * dys.numel()
+                                 + dc_t.numel())
+                flops = 3 * product
+                fns = (lambda *a: KR.rnn_scan_bwd(*a, "lstm"),
+                       lambda *a: KR.rnn_scan_bwd_plain(*a, "lstm"))
+                library = ("cuDNN torch.nn.LSTM forward+backward minus "
+                           "forward (eager)")
+                library_ms = cudnn[dn][1]
+        (ms, eager_ms), (plain_ms, plain_eager_ms) = (
+            time_ms(torch, fn, sets, iters=10 if name != "bias_gelu_bwd"
+                    else 30) for fn in fns)
+        b_ms, b_by = bound_ms(nbytes, flops, dn)
+        t = {"kernel": name, "dtype": dn, "shape": rec["shape"],
+             "max_abs_err": rec["max_abs_err"], "ms": ms,
+             "plain_ms": plain_ms, "library_ms": library_ms,
+             "library": library, "bound_ms": b_ms, "bound_by": b_by,
+             "eager_ms": eager_ms, "plain_eager_ms": plain_eager_ms,
+             "bytes": nbytes, "flops": flops}
+        emit({"timing": t})
+        timing[(name, dn)] = t
+    return timing
+
+
 def grad_check(torch, gpu_net, cpu_net, loss_fn, x, y):
     """One backward of ``loss_fn`` at (x, y) on both nets (in eval mode:
     dropout off); the worst parameter's max |difference| over its bound
@@ -554,6 +802,40 @@ def run_train_steps(torch, K, step, x, y, steps):
     return [float(l.mean()) for l in losses], step_ms, per_step, counts
 
 
+#: device-kernel name fragments of each family in a profile
+FAMILIES = (("flash_fwd", ("flash_fwd",)), ("flash_bwd", ("flash_bwd",)),
+            ("layernorm_fwd", ("ln_fwd",)), ("layernorm_bwd", ("ln_bwd",)),
+            ("bias_gelu_fwd", ("bias_gelu_fwd",)),
+            ("bias_gelu_bwd", ("bias_gelu_bwd",)),
+            ("rnn_scan_fwd", ("rnn_scan_fwd",)),
+            ("rnn_scan_bwd", ("rnn_scan_bwd", "rnn_dw")),
+            ("gemm", ("gemm", "cutlass", "gemv")))
+
+
+def device_us_by_kernel(torch, prof):
+    """Device µs of a ``torch.profiler`` run by kernel name."""
+    kernels = {}
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        kernels[e.key] = kernels.get(e.key, 0.0) + us
+    return kernels
+
+
+def device_us_by_family(torch, prof):
+    """Device µs of a ``torch.profiler`` run summed by kernel family."""
+    families = {}
+    for key, us in device_us_by_kernel(torch, prof).items():
+        name = key.lower()
+        fam = next((f for f, parts in FAMILIES
+                    if any(p in name for p in parts)), "other")
+        families[fam] = families.get(fam, 0.0) + us
+    return families
+
+
 def profile_train_step(torch, net, trainer, loss_fn, x, y, iters=3):
     """``--profile``: where the time of one training step goes. One step
     split by CUDA events into forward, backward and optimizer update;
@@ -580,28 +862,17 @@ def profile_train_step(torch, net, trainer, loss_fn, x, y, iters=3):
             trainer.step(x.shape[0])
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    families = {"flash_fwd": 0.0, "flash_bwd": 0.0, "layernorm_fwd": 0.0,
-                "layernorm_bwd": 0.0, "gemm": 0.0, "other": 0.0}
-    for e in prof.key_averages():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = e.self_cuda_time_total
-        name = e.key.lower()
-        fam = ("flash_fwd" if "flash_fwd" in name else
-               "flash_bwd" if "flash_bwd" in name else
-               "layernorm_fwd" if "ln_fwd" in name else
-               "layernorm_bwd" if "ln_bwd" in name else
-               "gemm" if any(w in name for w in ("gemm", "cutlass", "gemv"))
-               else "other")
-        families[fam] += us
+    families = device_us_by_family(torch, prof)
     busy = sum(families.values())
+    top = sorted(device_us_by_kernel(torch, prof).items(),
+                 key=lambda kv: -kv[1])[:8]
     emit({"train_profile": {
         "iters": iters, "phase_ms_one_step": phases,
         "wall_ms_per_step": wall_us / iters / 1e3,
         "device_ms_per_step": {k: v / iters / 1e3
                                for k, v in families.items()},
+        "top_kernels_ms_per_step": [[k[:80], v / iters / 1e3]
+                                    for k, v in top],
         "device_busy_share": busy / wall_us if busy else
         "not measured (the profiler saw no device time)"}})
 
@@ -641,9 +912,9 @@ def train_bert(torch, np, K, dev, smi, profile=False):
         torch, K, step, xt, yt, TRAIN_STEPS)
     peak = torch.cuda.max_memory_allocated()
     median_ms = statistics.median(step_ms)
-    expect = {"flash_fwd": 12, "flash_bwd_fused": 12, "layernorm_fwd": 25,
-              "layernorm_bwd": 25, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
-              "bias_gelu_fwd": 0}
+    expect = {n: 0 for n in K.KERNELS}
+    expect.update(flash_fwd=12, flash_bwd_fused=12, layernorm_fwd=25,
+                  layernorm_bwd=25)
     launches_ok = all(s == expect for s in per_step)
     losses_ok = all(math.isfinite(v) for v in losses) and \
         losses[-1] < losses[0]
@@ -704,10 +975,11 @@ def train_long(torch, np, K, dev):
     losses, step_ms, per_step, counts = run_train_steps(
         torch, K, step, torch.from_numpy(x).to(dev),
         torch.from_numpy(y).to(dev), LONG_STEPS)
-    expect = {"flash_fwd": LONG_LAYERS, "flash_bwd_fused": 0,
-              "flash_bwd_dq": LONG_LAYERS, "flash_bwd_dkv": LONG_LAYERS,
-              "layernorm_fwd": 2 * LONG_LAYERS + 1,
-              "layernorm_bwd": 2 * LONG_LAYERS + 1, "bias_gelu_fwd": 0}
+    expect = {n: 0 for n in K.KERNELS}
+    expect.update(flash_fwd=LONG_LAYERS, flash_bwd_dq=LONG_LAYERS,
+                  flash_bwd_dkv=LONG_LAYERS,
+                  layernorm_fwd=2 * LONG_LAYERS + 1,
+                  layernorm_bwd=2 * LONG_LAYERS + 1)
     cpu_net = copy_to_cpu(lambda: make("cpu"), net, load_jax_params)
     grads = grad_check(torch, net, cpu_net, loss_fn, x, y)
     ok = all(s == expect for s in per_step) and grads["ok"] and \
@@ -822,21 +1094,7 @@ def profile_bucket(torch, np, pred, bucket=SERVE_MAX_BATCH, iters=5):
             pred.predict(x)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    families = {"flash_fwd": 0.0, "layernorm_fwd": 0.0, "bias_gelu_fwd": 0.0,
-                "gemm": 0.0, "other": 0.0}
-    for e in prof.key_averages():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = e.self_cuda_time_total
-        name = e.key.lower()
-        fam = ("flash_fwd" if "flash_fwd" in name else
-               "layernorm_fwd" if "ln_fwd" in name else
-               "bias_gelu_fwd" if "bias_gelu" in name else
-               "gemm" if any(w in name for w in ("gemm", "cutlass", "gemv"))
-               else "other")
-        families[fam] += us
+    families = device_us_by_family(torch, prof)
     busy = sum(families.values())
     emit({"profile": {
         "bucket": bucket, "seq": SERVE_SEQ, "iters": iters,
@@ -849,7 +1107,10 @@ def profile_bucket(torch, np, pred, bucket=SERVE_MAX_BATCH, iters=5):
 
 def run_encoder(torch, np, K, dev):
     """Phase 5: a TransformerEncoder with the default ``gelu`` FFN, so the
-    bias-GELU kernel runs; its launch counts and a CPU check."""
+    bias-GELU kernels run: a forward checked against a CPU copy, then a
+    backward at the same shapes (one ``bias_gelu_bwd`` launch per layer)
+    and the gradients of every parameter against the CPU copy. The launch
+    counts of the forward and the backward."""
     from mxnet_tpu_torch.gluon.nn import TransformerEncoder
     from mxnet_tpu_torch.gluon.params import init_params_numpy, \
         load_jax_params
@@ -858,8 +1119,10 @@ def run_encoder(torch, np, K, dev):
     enc = TransformerEncoder(*shape, device=dev).eval()
     params = init_params_numpy(enc, seed=1)
     load_jax_params(enc, params)
-    x = np.random.RandomState(1).standard_normal(
-        (SERVE_MAX_BATCH, SERVE_SEQ, ENC_UNITS)).astype(np.float32)
+    rs = np.random.RandomState(1)
+    x = rs.standard_normal((SERVE_MAX_BATCH, SERVE_SEQ, ENC_UNITS)) \
+        .astype(np.float32)
+    wgt = rs.standard_normal(x.shape).astype(np.float32)
     K.reset_launch_counts()
     with torch.inference_mode():
         y = enc(torch.from_numpy(x).to(dev))
@@ -871,12 +1134,138 @@ def run_encoder(torch, np, K, dev):
         ref = cpu(torch.from_numpy(x[:2]))
     err = float((y[:2].cpu() - ref).abs().max())
     ok = bool(torch.isfinite(y).all()) and err <= LOGIT_ATOL
+
+    def weighted(out, w):
+        """a per-sample loss (the repo's loss convention): the mean over
+        tokens and units of the output weighted by w"""
+        return (out * w).mean(dim=(1, 2))
+
+    # backward at the phase's shapes
+    K.reset_launch_counts()
+    weighted(enc(torch.from_numpy(x).to(dev)),
+             torch.from_numpy(wgt).to(dev)).sum().backward()
+    torch.cuda.synchronize()
+    bwd_counts = K.launch_counts()
+    finite = all(bool(torch.isfinite(p.grad).all()) for p in enc.parameters())
+
+    grads = grad_check(torch, enc, cpu, weighted, x[:GRAD_BATCH],
+                       wgt[:GRAD_BATCH])
+    ok = ok and finite and grads["ok"] and bwd_counts["bias_gelu_bwd"] == \
+        ENC_LAYERS and bwd_counts["bias_gelu_fwd"] == ENC_LAYERS
     emit({"encoder": {"shape": list(y.shape), "launches": counts,
                       "max_abs_err_vs_cpu": err, "atol": LOGIT_ATOL,
+                      "backward_launches": bwd_counts,
+                      "grad_check": dict(grads, batch=GRAD_BATCH,
+                                         seq=SERVE_SEQ),
                       "ok": ok}})
     if not ok or counts["bias_gelu_fwd"] != 2 or counts["flash_fwd"] != 2 \
             or counts["layernorm_fwd"] != 4:
-        raise SystemExit(f"encoder phase failed: {counts}, err {err}")
+        raise SystemExit(f"encoder phase failed: {counts}, {bwd_counts}, "
+                         f"err {err}, gradients {grads}")
+    return {k: counts[k] + bwd_counts[k] for k in counts}
+
+
+#: phase 8: the JAX package's LSTM training leg (bench.py bench_lstm,
+#: examples/train_lstm_lm.py WordLM): vocab 33,278 (wikitext-2), embed
+#: and hidden 650, 2 layers, batch 64 x bptt 35, float32, SGD with
+#: momentum 0.9 at the leg's own learning rate; ten steps on one seeded
+#: batch
+LM_VOCAB, LM_EMBED, LM_HIDDEN, LM_LAYERS = 33278, 650, 650, 2
+LM_BATCH, LM_BPTT, LM_STEPS, LM_LR = 64, 35, 10, 0.5
+#: the gradient check of phase 8 runs at this batch (x bptt 35)
+LM_GRAD_BATCH = 4
+
+
+def train_lstm(torch, np, K, dev, smi, profile=False):
+    """Phase 8: the LSTM word LM trained through ``Trainer.compile_step``
+    (SGD, momentum 0.9): every loss finite and the last below the first,
+    exactly LM_LAYERS ``rnn_scan_fwd`` and LM_LAYERS ``rnn_scan_bwd``
+    launches per step, one step's gradients of all 11 parameters at batch
+    4 against a CPU copy; then an eval-mode forward of the same batch
+    (tokens/s, logits against the CPU copy). The launch counts of exactly
+    the ten steps."""
+    from mxnet_tpu_torch.gluon import Trainer
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from mxnet_tpu_torch.gluon.model_zoo.word_lm import WordLM
+    from mxnet_tpu_torch.gluon.params import init_params_numpy, \
+        load_jax_params
+
+    def make(device):
+        return WordLM(LM_VOCAB, LM_EMBED, LM_HIDDEN, LM_LAYERS, device=device)
+
+    t0 = time.perf_counter()
+    net = make(dev)
+    load_jax_params(net, init_params_numpy(net, seed=6))
+    net.train()
+    rs = np.random.RandomState(7)
+    x = rs.randint(0, LM_VOCAB, (LM_BATCH, LM_BPTT)).astype(np.int64)
+    y = rs.randint(0, LM_VOCAB, (LM_BATCH, LM_BPTT)).astype(np.float32)
+    loss_fn = SoftmaxCrossEntropyLoss()
+    trainer = Trainer(dict(net.named_parameters()), "sgd",
+                      {"learning_rate": LM_LR, "momentum": 0.9})
+    step = trainer.compile_step(lambda a, b: loss_fn(net(a), b))
+    xt, yt = torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev)
+    setup_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_ms, per_step, counts = run_train_steps(
+        torch, K, step, xt, yt, LM_STEPS)
+    peak = torch.cuda.max_memory_allocated()
+    median_ms = statistics.median(step_ms)
+    expect = {n: 0 for n in K.KERNELS}
+    expect.update(rnn_scan_fwd=LM_LAYERS, rnn_scan_bwd=LM_LAYERS)
+    launches_ok = all(s == expect for s in per_step)
+    losses_ok = all(math.isfinite(v) for v in losses) and \
+        losses[-1] < losses[0]
+    if profile:
+        profile_train_step(torch, net, trainer, loss_fn, xt, yt)
+
+    t1 = time.perf_counter()
+    cpu_net = copy_to_cpu(lambda: make("cpu"), net, load_jax_params)
+    grads = grad_check(torch, net, cpu_net, loss_fn, x[:LM_GRAD_BATCH],
+                       y[:LM_GRAD_BATCH])
+    grad_s = time.perf_counter() - t1
+    tokens = LM_BATCH * LM_BPTT
+    report = {
+        "model": "WordLM (LSTM LM)", "vocab": LM_VOCAB, "embed": LM_EMBED,
+        "hidden": LM_HIDDEN, "layers": LM_LAYERS, "dtype": "float32",
+        "batch": LM_BATCH, "bptt": LM_BPTT, "steps": LM_STEPS,
+        "optimizer": "sgd", "momentum": 0.9, "learning_rate": LM_LR,
+        "losses": losses, "step_ms": step_ms, "median_step_ms": median_ms,
+        "tokens_per_s": tokens / (median_ms / 1e3),
+        "max_memory_allocated": peak, "setup_s": setup_s,
+        "launches": counts, "launches_per_step": per_step[-1],
+        "launches_per_step_expected": expect,
+        "grad_check": dict(grads, batch=LM_GRAD_BATCH, bptt=LM_BPTT,
+                           seconds=grad_s),
+        "card": smi, "ok": launches_ok and losses_ok and grads["ok"]}
+    emit({"lstm_train": report})
+    if not report["ok"]:
+        raise SystemExit(f"LSTM LM phase failed: losses {losses}, launches "
+                         f"per step {per_step}, gradients {grads}")
+
+    # eval-mode forward of the same batch
+    net.eval()
+    fwd_ms = []
+    with torch.inference_mode():
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            logits = net(xt)
+            torch.cuda.synchronize()
+            fwd_ms.append((time.perf_counter() - t2) * 1e3)
+        ref = cpu_net(torch.from_numpy(x[:LM_GRAD_BATCH]))
+    err = float((logits[:LM_GRAD_BATCH].float().cpu() - ref).abs().max())
+    ok = bool(torch.isfinite(logits).all()) and err <= LOGIT_ATOL and \
+        tuple(logits.shape) == (LM_BATCH, LM_BPTT, LM_VOCAB)
+    fwd_median = statistics.median(fwd_ms[1:])
+    emit({"lstm_forward": {
+        "batch": LM_BATCH, "bptt": LM_BPTT, "shape": list(logits.shape),
+        "ms": fwd_ms, "median_ms": fwd_median,
+        "tokens_per_s": tokens / (fwd_median / 1e3),
+        "max_abs_err_vs_cpu": err, "atol": LOGIT_ATOL,
+        "rows_vs_cpu": LM_GRAD_BATCH, "card": smi, "ok": ok}})
+    if not ok:
+        raise SystemExit(f"LSTM LM forward failed: err {err}")
     return counts
 
 
@@ -893,6 +1282,7 @@ def main(argv):
     from mxnet_tpu_torch.ops import attention as ATT
     from mxnet_tpu_torch.ops import kernels as K
     from mxnet_tpu_torch.ops.kernels import norm as KN
+    from mxnet_tpu_torch.ops.kernels import rnn_scan as KR
 
     # phase 1: the card
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -919,6 +1309,9 @@ def main(argv):
     bwd_args = check_bwd_kernels(torch, ATT, KN, dev)
     timing.update(time_bwd_kernels(torch, F, ATT, KN, bwd_args))
     del bwd_args
+    new_args = check_new_kernels(torch, K, KR, KN, dev)
+    timing.update(time_new_kernels(torch, F, KR, KN, new_args))
+    del new_args
     served, pred = serve_bert(torch, np, K, dev)
     if "--profile" in argv:
         profile_bucket(torch, np, pred)
@@ -926,6 +1319,7 @@ def main(argv):
     encoder = run_encoder(torch, np, K, dev)
     trained = train_bert(torch, np, K, dev, smi, "--profile" in argv)
     trained_long = train_long(torch, np, K, dev)
+    lstm = train_lstm(torch, np, K, dev, smi, "--profile" in argv)
 
     # each kernel's launches on the path that drives it, counted from 0
     path = {"flash_fwd": "bert_base_serving",
@@ -934,11 +1328,15 @@ def main(argv):
             "flash_bwd_fused": "bert_base_training",
             "layernorm_bwd": "bert_base_training",
             "flash_bwd_dq": "bert_width_training_seq1024",
-            "flash_bwd_dkv": "bert_width_training_seq1024"}
+            "flash_bwd_dkv": "bert_width_training_seq1024",
+            "bias_gelu_bwd": "transformer_encoder_gelu",
+            "rnn_scan_fwd": "lstm_lm_training",
+            "rnn_scan_bwd": "lstm_lm_training"}
     counts_of = {"bert_base_serving": served,
                  "transformer_encoder_gelu": encoder,
                  "bert_base_training": trained,
-                 "bert_width_training_seq1024": trained_long}
+                 "bert_width_training_seq1024": trained_long,
+                 "lstm_lm_training": lstm}
     launches = {name: counts_of[path[name]][name] for name in K.KERNELS}
     emit({"launch_counts": launches})
     if not all(n > 0 for n in launches.values()):

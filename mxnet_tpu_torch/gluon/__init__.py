@@ -1,8 +1,8 @@
 """Gluon layers, models, losses and the Trainer (counterpart of
 ``mxnet_tpu/gluon``) as ``torch.nn.Module``s."""
-from . import loss, model_zoo, nn, params
+from . import loss, model_zoo, nn, params, rnn
 from .fused_step import CompiledTrainStep
 from .trainer import Trainer
 
-__all__ = ["loss", "model_zoo", "nn", "params", "Trainer",
+__all__ = ["loss", "model_zoo", "nn", "params", "rnn", "Trainer",
            "CompiledTrainStep"]

@@ -8,8 +8,9 @@ kernel is rebuilt and an unchanged one is not. Nothing is compiled or
 loaded when this module is imported.
 
 Dispatch rule, shared by every wrapper (``norm.layer_norm``,
-``norm.layer_norm_bwd``, ``norm.bias_gelu``,
-``attention.flash_attention_fwd``, ``attention.flash_attention_bwd``):
+``norm.layer_norm_bwd``, ``norm.bias_gelu``, ``norm.bias_gelu_bwd``,
+``attention.flash_attention_fwd``, ``attention.flash_attention_bwd``,
+``rnn_scan.rnn_scan_fwd``, ``rnn_scan.rnn_scan_bwd``):
 a tensor on the CPU takes the plain PyTorch version that sits beside
 the wrapper; a tensor on a CUDA device launches the kernel or raises.
 There is no switch that turns a kernel off on the card.
@@ -110,6 +111,25 @@ KERNELS: Dict[str, KernelInfo] = {k.name: k for k in (
         # nparts, eps, dtype, stream
         (_P,) * 8 + (_L, _I, _I, _F, _I, _P),
         "mxnet_tpu/ops/kernels/norm.py:116 (_ln_bwd_kernel)"),
+    KernelInfo(
+        "bias_gelu_bwd", "mxnet_tpu_torch/ops/kernels/csrc/bias_gelu_bwd.cu",
+        "mxt_bias_gelu_bwd",
+        # x, b, dy, dx, db_part, db, rows, C, nparts, dtype, stream
+        (_P,) * 6 + (_L, _I, _I, _I, _P),
+        "mxnet_tpu/ops/kernels/norm.py:227 (_bg_bwd_kernel)"),
+    KernelInfo(
+        "rnn_scan_fwd", "mxnet_tpu_torch/ops/kernels/csrc/rnn_scan_fwd.cu",
+        "mxt_rnn_scan_fwd",
+        # xw, h0, c0, w_hh, b_hh, ys, cs, T, N, H, mode, dtype, stream
+        (_P,) * 7 + (_I,) * 5 + (_P,),
+        "mxnet_tpu/ops/kernels/rnn_scan.py:210 (_fwd_kernel)"),
+    KernelInfo(
+        "rnn_scan_bwd", "mxnet_tpu_torch/ops/kernels/csrc/rnn_scan_bwd.cu",
+        "mxt_rnn_scan_bwd",
+        # xw, h0, c0, w_hh, b_hh, ys, cs, dy, dh_s, dc_s, dxw, dhw, dh0,
+        # dc0, dw, db, T, N, H, mode, dtype, stream
+        (_P,) * 16 + (_I,) * 5 + (_P,),
+        "mxnet_tpu/ops/kernels/rnn_scan.py:240 (_bwd_kernel)"),
 )}
 
 _COUNTS: Dict[str, int] = {name: 0 for name in KERNELS}

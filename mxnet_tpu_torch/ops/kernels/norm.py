@@ -6,8 +6,9 @@
   backward :func:`layer_norm_bwd` (``csrc/layernorm_bwd.cu``) gives dx,
   and dgamma/dbeta summed over all rows in float32.
 - :func:`bias_gelu`: exact (erf) ``gelu(x + b)`` over the trailing axis
-  (CUDA kernel ``csrc/bias_gelu_fwd.cu``). Its backward kernel is not
-  ported yet: on the card a backward through it raises.
+  (CUDA kernel ``csrc/bias_gelu_fwd.cu``); its backward
+  :func:`bias_gelu_bwd` (``csrc/bias_gelu_bwd.cu``) gives dx, and db
+  summed over all rows in float32.
 
 Each op is a ``torch.autograd.Function``: for a tensor on the CPU its
 forward and backward run the plain PyTorch versions beside them
@@ -27,7 +28,7 @@ from . import DTYPE_CODES, check_cuda_operands, launch
 
 __all__ = ["layer_norm", "layer_norm_plain", "layer_norm_bwd",
            "layer_norm_bwd_plain", "bias_gelu", "bias_gelu_plain",
-           "bias_gelu_bwd_plain"]
+           "bias_gelu_bwd", "bias_gelu_bwd_plain"]
 
 _SQRT_HALF = math.sqrt(0.5)
 _INV_SQRT2PI = 1.0 / math.sqrt(2.0 * math.pi)
@@ -36,6 +37,9 @@ _INV_SQRT2PI = 1.0 / math.sqrt(2.0 * math.pi)
 LN_BWD_PARTS = 512
 #: widest C of the LayerNorm backward: its partials live in shared memory
 LN_BWD_MAX_C = 16384
+#: the bias-GELU backward's first-pass blocks and widest C, as above
+BG_BWD_PARTS = 512
+BG_BWD_MAX_C = 16384
 
 
 def stat_dtype(x: torch.Tensor) -> torch.dtype:
@@ -191,6 +195,35 @@ def bias_gelu_bwd_plain(x, b, dy):
     return dx.to(x.dtype), db.to(b.dtype)
 
 
+def bias_gelu_bwd(x, b, dy):
+    """bias-GELU backward → (dx, db). A CUDA tensor launches the
+    ``bias_gelu_bwd`` kernel (contiguous float32 or bfloat16 x, C <=
+    16384, else it raises); a CPU tensor runs
+    :func:`bias_gelu_bwd_plain`."""
+    if x.device.type == "cpu":
+        return bias_gelu_bwd_plain(x, b, dy)
+    dy = dy.to(x.dtype).contiguous()
+    check_cuda_operands("bias_gelu_bwd", x, b, dy)
+    c = int(x.shape[-1]) if x.ndim else 0
+    _check_vector("bias_gelu_bwd", b, c, "b")
+    if dy.shape != x.shape:
+        raise MXNetError(f"bias_gelu_bwd: dy {tuple(dy.shape)} and x "
+                         f"{tuple(x.shape)} disagree")
+    if c > BG_BWD_MAX_C:
+        raise MXNetError(f"bias_gelu_bwd: C {c} > {BG_BWD_MAX_C}")
+    rows = x.numel() // c if c else 0
+    dx = torch.empty_like(x)
+    db = torch.zeros(c, dtype=torch.float32, device=x.device)
+    if rows:
+        nparts = min(rows, BG_BWD_PARTS)
+        part = torch.empty(nparts, c, dtype=torch.float32, device=x.device)
+        bb = b.to(x.dtype).contiguous()
+        launch("bias_gelu_bwd", x.device, x.data_ptr(), bb.data_ptr(),
+               dy.data_ptr(), dx.data_ptr(), part.data_ptr(), db.data_ptr(),
+               rows, c, nparts, DTYPE_CODES[x.dtype])
+    return dx, db.to(b.dtype)
+
+
 def _bg_fwd_kernel(x, b):
     check_cuda_operands("bias_gelu", x, b)
     c = int(x.shape[-1]) if x.ndim else 0
@@ -216,12 +249,7 @@ class _BiasGelu(torch.autograd.Function):
     @once_differentiable
     def backward(ctx, dy):
         x, b = ctx.saved_tensors
-        if x.device.type != "cpu":
-            raise MXNetError(
-                "bias_gelu: the backward kernel is not ported yet "
-                "(mxnet_tpu/ops/kernels/norm.py:227 _bg_bwd_kernel); on "
-                "the card this op runs forward only")
-        return bias_gelu_bwd_plain(x, b, dy)
+        return bias_gelu_bwd(x, b, dy)
 
 
 def bias_gelu(x, b):

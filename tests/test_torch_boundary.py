@@ -3,7 +3,8 @@
 ``mxnet_tpu_torch`` and ``chip_smoke.py`` import neither JAX nor the JAX
 package, and the package never calls a library kernel in place of its
 own (``scaled_dot_product_attention``, ``F.layer_norm`` /
-``torch.layer_norm``, ``torch.compile``).
+``torch.layer_norm``, ``torch.compile``, and cuDNN's recurrence:
+``torch.nn.LSTM`` / ``GRU`` / ``RNN``, ``torch._VF``, ``torch.lstm``).
 """
 import ast
 import os
@@ -49,11 +50,14 @@ def test_package_has_its_modules():
               "serving/predictor.py", "serving/batcher.py",
               "serving/loadgen.py", "gluon/loss.py", "gluon/trainer.py",
               "gluon/fused_step.py", "lr_scheduler.py",
-              "optimizer/optimizer.py"):
+              "optimizer/optimizer.py", "ops/rnn.py",
+              "ops/kernels/rnn_scan.py", "gluon/rnn/rnn_layer.py",
+              "gluon/model_zoo/word_lm.py"):
         assert os.path.join("mxnet_tpu_torch", m) in rel, m
     csrc = os.listdir(os.path.join(PKG, "ops", "kernels", "csrc"))
     assert {"flash_fwd.cu", "layernorm_fwd.cu", "bias_gelu_fwd.cu",
-            "flash_bwd.cu", "layernorm_bwd.cu"} <= set(csrc)
+            "flash_bwd.cu", "layernorm_bwd.cu", "bias_gelu_bwd.cu",
+            "rnn_scan_fwd.cu", "rnn_scan_bwd.cu"} <= set(csrc)
 
 
 @pytest.mark.parametrize("path", _package_files()
@@ -84,7 +88,18 @@ def _library_call(name: str) -> bool:
         return parts[0] in ("F", "torch") or "functional" in parts
     if parts[-1] == "compile":
         return parts[0] == "torch"
+    if "_VF" in parts or "cudnn_rnn" in parts[-1]:
+        return True
+    if parts[-1] in _TORCH_RNN_MODULES:
+        return parts[0] in ("nn", "torch")
+    if parts[-1] in ("lstm", "gru", "rnn_tanh", "rnn_relu"):
+        return parts[0] == "torch"
     return False
+
+
+#: cuDNN-backed recurrent modules of ``torch.nn``
+_TORCH_RNN_MODULES = ("LSTM", "GRU", "RNN", "LSTMCell", "GRUCell",
+                      "RNNCell")
 
 
 @pytest.mark.parametrize("path", _package_files(),
@@ -101,11 +116,17 @@ def test_checks_catch_what_they_guard():
                      "import mxnet_tpu_torch\n"
                      "F.scaled_dot_product_attention(q, k, v)\n"
                      "torch.nn.functional.layer_norm(x, (4,))\n"
-                     "torch.compile(f)\nK.layer_norm(x, g, b)\n")
+                     "torch.compile(f)\nK.layer_norm(x, g, b)\n"
+                     "torch.nn.LSTM(4, 4)\nnn.GRU(4, 4)\n"
+                     "torch._VF.lstm(x, hx, w)\ntorch.rnn_tanh(x, h, w)\n"
+                     "torch._cudnn_rnn(x)\nrnn.LSTM(4, input_size=4)\n"
+                     "LSTM(4, input_size=4)\n")
     assert [n for _, n in _imports(tree) if _forbidden_module(n)] \
         == ["jax", "mxnet_tpu.ops"]
     calls = [_call_name(n.func) for n in ast.walk(tree)
              if isinstance(n, ast.Call) and _library_call(_call_name(n.func))]
     assert sorted(calls) == ["F.scaled_dot_product_attention",
-                             "torch.compile",
-                             "torch.nn.functional.layer_norm"]
+                             "nn.GRU", "torch._VF.lstm", "torch._cudnn_rnn",
+                             "torch.compile", "torch.nn.LSTM",
+                             "torch.nn.functional.layer_norm",
+                             "torch.rnn_tanh"]

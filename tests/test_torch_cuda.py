@@ -10,7 +10,10 @@ with the card:
 Tolerances: 1e-4 in float32 (sums in another order, expf/erfcf of the
 CUDA math library), 2e-2 in bfloat16 (one or two bfloat16 ulps of an O(1)
 output); 2e-4 for the encoder's gradients (two layers of float32 sums in
-another order, cuBLAS against a float64-accumulated CPU product).
+another order, cuBLAS against a float64-accumulated CPU product). The
+recurrence's backward is held against the plain backward given the
+kernel's own forward residuals, so that a state rounded the other way
+in the forward does not count against it.
 """
 import numpy as onp
 import pytest
@@ -20,6 +23,7 @@ import mxnet_tpu_torch as mxt
 from mxnet_tpu_torch.ops import attention as ATT
 from mxnet_tpu_torch.ops import kernels as K
 from mxnet_tpu_torch.ops.kernels import norm as KN
+from mxnet_tpu_torch.ops.kernels import rnn_scan as KR
 
 # (B, H, Sq, Sk, D, causal)
 FLASH_CASES = [
@@ -168,10 +172,14 @@ def test_kernel_outputs_carry_gradients_on_card(cuda_dev):
     assert y.grad_fn is not None
     (y * torch.arange(32, device=cuda_dev)).sum().backward()
     assert x.grad.abs().sum() > 0 and gam.grad.abs().sum() > 0
+    x.grad = None
+    bet.grad = None
+    K.reset_launch_counts()
     z = KN.bias_gelu(x, bet)
     assert z.grad_fn is not None
-    with pytest.raises(mxt.MXNetError, match="_bg_bwd_kernel"):
-        z.sum().backward()
+    (z * torch.arange(32, device=cuda_dev)).sum().backward()
+    assert K.launch_counts()["bias_gelu_bwd"] == 1
+    assert x.grad.abs().sum() > 0 and bet.grad.abs().sum() > 0
 
 
 @pytest.mark.cuda
@@ -190,10 +198,9 @@ def test_encoder_gradients_on_card_vs_cpu(cuda_dev):
     from mxnet_tpu_torch.gluon.nn import TransformerEncoder
     from mxnet_tpu_torch.gluon.params import init_params_numpy, \
         load_jax_params
-    # gelu_tanh: the bias-GELU backward is not ported yet
+    # the default gelu FFN: the bias-GELU forward and backward kernels
     shape = (2, 64, 128, 4)
-    nets = [TransformerEncoder(*shape, activation="gelu_tanh", device=d)
-            for d in (cuda_dev, "cpu")]
+    nets = [TransformerEncoder(*shape, device=d) for d in (cuda_dev, "cpu")]
     params = init_params_numpy(nets[0], 3)
     rs = onp.random.RandomState(4)
     x = rs.randn(2, 70, 64).astype("f4")
@@ -210,6 +217,7 @@ def test_encoder_gradients_on_card_vs_cpu(cuda_dev):
             counts = K.launch_counts()
             assert counts["flash_bwd_fused"] == 2
             assert counts["layernorm_bwd"] == 4
+            assert counts["bias_gelu_bwd"] == 2
     assert grads[0].keys() == grads[1].keys()
     for n in grads[1]:
         torch.testing.assert_close(grads[0][n], grads[1][n], atol=2e-4,
@@ -228,3 +236,115 @@ def test_kernel_wrappers_raise_on_card(cuda_dev):
     y = torch.zeros(8, 4, device=cuda_dev).t()
     with pytest.raises(mxt.MXNetError, match="contiguous"):
         KN.bias_gelu(y, torch.zeros(8, device=cuda_dev))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(4096, 3072), (37, 50), (3, 5, 33)])
+def test_bias_gelu_bwd_kernel_on_card(cuda_dev, dtype, shape):
+    g = torch.Generator().manual_seed(2)
+    x = torch.randn(*shape, generator=g).to(cuda_dev, dtype)
+    dy = torch.randn(*shape, generator=g).to(cuda_dev, dtype)
+    b = torch.randn(shape[-1], generator=g).to(cuda_dev, dtype)
+    K.reset_launch_counts()
+    got = KN.bias_gelu_bwd(x, b, dy)
+    torch.cuda.synchronize()
+    assert K.launch_counts()["bias_gelu_bwd"] == 1
+    tol = CARD_TOL[dtype]
+    for a, r in zip(got, KN.bias_gelu_bwd_plain(x, b, dy)):
+        assert a.dtype == dtype
+        torch.testing.assert_close(a.float(), r.float(), atol=tol, rtol=tol)
+    again = KN.bias_gelu_bwd(x, b, dy)
+    assert all(torch.equal(a, c) for a, c in zip(got, again))
+
+
+def _rnn_inputs(mode, n_t, n, h, dtype, dev, seed=3):
+    r = onp.random.RandomState(seed)
+    g = KR.GATES[mode]
+
+    def t(*shape, s):
+        return torch.from_numpy((r.randn(*shape) * s).astype("f4")).to(
+            dev, dtype)
+
+    xw, h0 = t(n_t, n, g * h, s=0.5), t(n, h, s=0.5)
+    c0 = t(n, h, s=0.5) if mode == "lstm" else None
+    w, b = t(g * h, h, s=0.5 / h ** 0.5), t(g * h, s=0.1)
+    dys = t(n_t, n, h, s=1.0)
+    dct = t(n, h, s=1.0) if mode == "lstm" else None
+    return xw, h0, c0, w, b, dys, dct
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(7, 3, 37), (12, 16, 300)])
+@pytest.mark.parametrize("mode", ["lstm", "gru", "rnn_tanh", "rnn_relu"])
+def test_rnn_scan_kernels_on_card(cuda_dev, mode, shape, dtype):
+    xw, h0, c0, w, b, dys, dct = _rnn_inputs(mode, *shape, dtype, cuda_dev)
+    K.reset_launch_counts()
+    ys, cs = KR.rnn_scan_fwd(xw, h0, c0, w, b, mode)
+    got = KR.rnn_scan_bwd(xw, h0, c0, w, b, ys, cs, dys, dct, mode)
+    torch.cuda.synchronize()
+    assert K.launch_counts()["rnn_scan_fwd"] == 1
+    assert K.launch_counts()["rnn_scan_bwd"] == 1
+    tol = CARD_TOL[dtype]
+    rys, rcs = KR.rnn_scan_plain(xw, h0, c0, w, b, mode)
+    torch.testing.assert_close(ys.float(), rys.float(), atol=tol, rtol=tol)
+    if mode == "lstm":
+        torch.testing.assert_close(cs.float(), rcs.float(), atol=tol,
+                                   rtol=tol)
+    ref = KR.rnn_scan_bwd_plain(xw, h0, c0, w, b, ys, cs, dys, dct, mode)
+    for a, r in zip(got, ref):
+        if r is None:
+            assert a is None
+            continue
+        assert a.dtype == dtype and torch.isfinite(a.float()).all()
+        torch.testing.assert_close(a.float(), r.float(), atol=tol, rtol=tol)
+    # the kernels repeat bit for bit, and leave their inputs as they were
+    dct_before = dct.clone() if dct is not None else None
+    again = KR.rnn_scan_bwd(xw, h0, c0, w, b, ys, cs, dys, dct, mode)
+    assert all(a is None or torch.equal(a, c) for a, c in zip(got, again))
+    if dct is not None:
+        assert torch.equal(dct, dct_before)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rev", [False, True])
+@pytest.mark.parametrize("mode", ["lstm", "gru"])
+def test_rnn_scan_through_autograd_on_card_vs_cpu(cuda_dev, mode, rev):
+    """``rnn_scan`` (the Functions, flip-scan-flip for ``reverse``) on the
+    card against the same on the CPU (plain versions), float32."""
+    inputs = _rnn_inputs(mode, 9, 4, 70, torch.float32, "cpu", seed=4)
+    xw, h0, c0, w, b, dys, dct = inputs
+    outs = []
+    for dev in (cuda_dev, "cpu"):
+        leaves = [t.to(dev).requires_grad_() if t is not None else None
+                  for t in (xw, h0, c0, w, b)]
+        ys, hy, cy = KR.rnn_scan(*leaves, mode, reverse=rev)
+        res = [ys, hy] + ([cy] if cy is not None else [])
+        cots = [dys.to(dev), dys[0].to(dev)] + \
+            ([dct.to(dev)] if cy is not None else [])
+        grads = torch.autograd.grad(res, [t for t in leaves
+                                          if t is not None], cots)
+        outs.append([t.detach().cpu() for t in res + list(grads)])
+    for a, r in zip(*outs):
+        torch.testing.assert_close(a, r, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_rnn_wrappers_raise_on_card(cuda_dev):
+    xw, h0, c0, w, b, _, _ = _rnn_inputs("lstm", 3, 2, 8, torch.float32,
+                                         cuda_dev)
+    with pytest.raises(mxt.MXNetError, match="no kernel"):
+        KR.rnn_scan(*(t.half() for t in (xw, h0, c0, w, b)), "lstm")
+    strided = xw.transpose(0, 1).contiguous().transpose(0, 1)
+    with pytest.raises(mxt.MXNetError, match="contiguous"):
+        KR.rnn_scan_fwd(strided, h0, c0, w, b, "lstm")
+    # a hidden width whose grid of at most 8 units a block cannot be
+    # resident all at once on one card
+    big = 12000
+    xw1 = torch.zeros(1, 1, big, device=cuda_dev)
+    h1 = torch.zeros(1, big, device=cuda_dev)
+    w1 = torch.zeros(big, big, device=cuda_dev)
+    b1 = torch.zeros(big, device=cuda_dev)
+    with pytest.raises(mxt.MXNetError, match="cooperative"):
+        KR.rnn_scan_fwd(xw1, h1, None, w1, b1, "rnn_tanh")

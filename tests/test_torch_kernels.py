@@ -178,7 +178,8 @@ def test_cpu_tensors_take_plain_versions_and_count_nothing():
     assert K.launch_counts() == {name: 0 for name in K.KERNELS}
     assert set(K.KERNELS) == {
         "flash_fwd", "layernorm_fwd", "bias_gelu_fwd", "flash_bwd_fused",
-        "flash_bwd_dq", "flash_bwd_dkv", "layernorm_bwd"}
+        "flash_bwd_dq", "flash_bwd_dkv", "layernorm_bwd", "bias_gelu_bwd",
+        "rnn_scan_fwd", "rnn_scan_bwd"}
 
 
 def test_wrappers_refuse_other_devices():
