@@ -3,8 +3,9 @@
 
     python3 chip_smoke.py            # needs one CUDA device and nvcc
     python3 chip_smoke.py --profile  # also: device time of one served
-                                     # micro-batch and of one BERT and
-                                     # one LSTM LM train step
+                                     # micro-batch, of one BERT and one
+                                     # LSTM LM train step, and of one
+                                     # bucket-8 decode step
 
 Phases, each of which fails the run (non-zero exit) when it fails:
 
@@ -20,8 +21,11 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    16384 x 768); the recurrence kernels in every mode (LSTM, GRU, tanh
    and relu RNN), forward and reverse, at T 7 x N 3 x H 37 and at the
    LSTM LM's T 35 x N 64 x H 650 (every output and gradient compared,
-   timed at the LM's LSTM layer), and the bias-GELU backward at 4096 x
-   3072 and at an unaligned C;
+   timed at the LM's LSTM layer), the bias-GELU backward at 4096 x
+   3072 and at an unaligned C, and the decode step (``rnn_decode``) in
+   every mode at N 3 x H 37, N 8 x H 650 and N 8 x H 128, float32 and
+   bfloat16, plus 35 chained decode steps against the ``rnn_scan_fwd``
+   kernel's trajectory at N 8 x H 650 (within 1e-6);
 4. serve BERT-base (12 x 768, vocab 30522, seeded random weights) through
    ``CompiledPredictor`` + ``DynamicBatcher``: 8 client threads, 96
    requests of 1-8 rows at sequence length 128; check that every request
@@ -48,15 +52,29 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    ``rnn_scan_fwd`` and 2 ``rnn_scan_bwd`` launches per step, one step's
    gradients of all 11 parameters at batch 4 against a CPU copy; then an
    eval-mode forward of the batch (``lstm_forward`` line) against the
-   CPU copy.
+   CPU copy;
+9. serve autoregressive decode through ``serving.run_decode`` (the
+   continuous-batching ``DecodeEngine``, slot ladder 1-8, page size 16,
+   prefill chunk 16) over the JAX package's decode mix (32 requests from
+   RandomState(7)): ``decode_leg`` at ``TinyDecoder(256, 128, 4)``
+   continuous, static, the speculative A/B (spec_k 4 with prefix sharing
+   against plain greedy, 16 requests over a shared base) and the GQA
+   decoder on 8 requests; ``decode_wide`` at the word LM's widths
+   (vocab 33,278, d_model 650, 10 heads), continuous. Every run's tokens
+   equal a CPU copy's, continuous = static and speculative = greedy
+   request by request, 0 errors, and ``rnn_decode`` launches exactly
+   one a decode step (spec_k + 1 a verify step) plus 16 a prefill chunk
+   (0 for the GQA decoder).
 
 ``{"launch_counts": {...}}`` gives each kernel's launches on its path.
 The line before the last is a JSON object with one entry per kernel
 (launches on its path, error, times, bound, all at float32, the dtype of
-every path here); the last line is ``{"ok": true, "device": {...}}``.
+every path here; ``rnn_decode`` at decode_wide's N 8 x H 650); the last
+line is ``{"ok": true, "device": {...}}``.
 """
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -749,6 +767,124 @@ def time_new_kernels(torch, F, KR, KN, timed):
     return timing
 
 
+#: decode-kernel cases (N, H): a ragged one and the decode_wide shape
+#: (bucket 8, the word LM's hidden 650); decode_leg's (8, 128) is timed
+DECODE_CASES = ((3, 37), (8, 650))
+DECODE_TIMED = ((8, 650), (8, 128))
+#: the chained case: T decode steps against the scan kernel's ys, float32
+DECODE_CHAIN_T, DECODE_CHAIN_TOL = 35, 1e-6
+
+
+def check_decode_kernel(torch, K, KR, dev):
+    """Phase 3, the decode kernel: ``rnn_decode`` against its plain
+    version in all four modes, float32 and bfloat16, at DECODE_CASES and
+    DECODE_TIMED; then DECODE_CHAIN_T decode steps against the
+    ``rnn_scan_fwd`` kernel's trajectory at (8, 650), LSTM, float32.
+    Returns {(kernel, dtype, N, H): (record, args)} of the LSTM cases at
+    DECODE_TIMED, for :func:`time_decode_kernel`."""
+    g = torch.Generator(device=dev).manual_seed(3)
+    failures, timed = [], {}
+    for dtype in (torch.float32, torch.bfloat16):
+        def rnd(*shape, s=1.0):
+            return (torch.randn(*shape, generator=g, device=dev) * s).to(
+                dtype)
+
+        dn = str(dtype).replace("torch.", "")
+        atol, rtol = TOLS[dn]
+        for n, h in DECODE_CASES + DECODE_TIMED:
+            for mode in RNN_MODES:
+                gates = KR.GATES[mode]
+                xw, hh = rnd(n, gates * h, s=0.5), rnd(n, h, s=0.5)
+                cc = rnd(n, h, s=0.5) if mode == "lstm" else None
+                w = rnd(gates * h, h, s=0.5 * h ** -0.5)
+                b = rnd(gates * h, s=0.1)
+                before = K.launch_counts()["rnn_decode"]
+                got = KR.rnn_decode_step(xw, hh, cc, w, b, mode)
+                torch.cuda.synchronize()
+                launched = K.launch_counts()["rnn_decode"] - before
+                ref = KR.rnn_decode_step_plain(xw, hh, cc, w, b, mode)
+                res = [compare(torch, a, r, atol, rtol)
+                       for a, r in zip(got, ref) if r is not None]
+                rec = {"kernel": "rnn_decode", "mode": mode, "dtype": dn,
+                       "shape": [n, h], "max_abs_err": max(r[1] for r in res),
+                       "atol": atol, "rtol": rtol, "launches": launched,
+                       "ok": all(r[0] for r in res) and launched == 1}
+                emit({"check": rec})
+                if not rec["ok"]:
+                    failures.append(rec)
+                if mode == "lstm" and (n, h) in DECODE_TIMED:
+                    timed[("rnn_decode", dn, n, h)] = (rec, (xw, hh, cc, w,
+                                                             b))
+    # decode = scan position, at the kernel level
+    n, h = DECODE_CASES[-1]
+    xw = (torch.randn(DECODE_CHAIN_T, n, 4 * h, generator=g, device=dev)
+          * 0.5)
+    h0 = torch.randn(n, h, generator=g, device=dev) * 0.5
+    c0 = torch.randn(n, h, generator=g, device=dev) * 0.5
+    w = torch.randn(4 * h, h, generator=g, device=dev) * 0.5 * h ** -0.5
+    b = torch.randn(4 * h, generator=g, device=dev) * 0.1
+    ys, cs = KR.rnn_scan_fwd(xw, h0, c0, w, b, "lstm")
+    hh, cc, err = h0, c0, 0.0
+    for t in range(DECODE_CHAIN_T):
+        hh, cc = KR.rnn_decode_step(xw[t], hh, cc, w, b, "lstm")
+        err = max(err, float((hh - ys[t]).abs().max()),
+                  float((cc - cs[t]).abs().max()))
+    torch.cuda.synchronize()
+    rec = {"kernel": "rnn_decode", "chained_vs": "rnn_scan_fwd ys, cs",
+           "steps": DECODE_CHAIN_T, "shape": [n, h], "mode": "lstm",
+           "dtype": "float32", "max_abs_err": err, "atol": DECODE_CHAIN_TOL,
+           "ok": err <= DECODE_CHAIN_TOL}
+    emit({"check": rec})
+    if not rec["ok"]:
+        failures.append(rec)
+    if failures:
+        raise SystemExit(f"decode kernel checks failed: {failures}")
+    return timed
+
+
+def time_decode_kernel(torch, KR, timed):
+    """Kernel, plain-version and library times of ``rnn_decode`` (LSTM)
+    at DECODE_TIMED in each dtype, by CUDA-graph replay over copies of
+    W_hh larger than the L2 (the engine reads W_hh cold, after the 86 MB
+    logits product of a step). W_hh is in the activation dtype, as the
+    scan's checks hold it; the wrapper hands the kernel a float32 copy
+    (no copy in float32). Bound: W_hh, b_hh, xw, h, c read once and h, c
+    written once, against 2*N*G*H^2 float32 operations (the kernel's
+    arithmetic is float32 in both dtypes). Library: ``torch.nn.LSTMCell`` at the same N, H and
+    dtype, which also does the input projection. Returns {(kernel,
+    dtype, N, H): timing}."""
+    timing = {}
+    for key, (rec, args) in timed.items():
+        _, dn, n, h = key
+        xw, hh, cc, w, b = args
+        size = xw.element_size()
+        sets = [(xw.clone(), hh.clone(), cc.clone(), w.clone(), b)
+                for _ in range(n_sets(torch, (w,)))]
+        nbytes = size * (w.numel() + b.numel() + xw.numel()
+                         + 4 * hh.numel())
+        flops = 2.0 * n * xw.shape[1] * h
+        cell = torch.nn.LSTMCell(h, h).to(device=xw.device, dtype=xw.dtype)
+        x = torch.randn(n, h, device=xw.device).to(xw.dtype)
+        fns = (lambda *a: KR.rnn_decode_step(*a, "lstm"),
+               lambda *a: KR.rnn_decode_step_plain(*a, "lstm"),
+               lambda xw_, h_, c_, w_, b_: cell(x, (h_, c_)))
+        (ms, eager_ms), (plain_ms, plain_eager_ms), \
+            (library_ms, library_eager_ms) = (
+                time_ms(torch, fn, sets, iters=50) for fn in fns)
+        b_ms, b_by = bound_ms(nbytes, flops, "float32")
+        t = {"kernel": "rnn_decode", "dtype": dn, "shape": [n, h],
+             "max_abs_err": rec["max_abs_err"], "ms": ms,
+             "plain_ms": plain_ms, "library_ms": library_ms,
+             "library": "torch.nn.LSTMCell (with its input projection)",
+             "bound_ms": b_ms, "bound_by": b_by, "eager_ms": eager_ms,
+             "plain_eager_ms": plain_eager_ms,
+             "library_eager_ms": library_eager_ms, "bytes": nbytes,
+             "flops": flops}
+        emit({"timing": t})
+        timing[key] = t
+    return timing
+
+
 def grad_check(torch, gpu_net, cpu_net, loss_fn, x, y):
     """One backward of ``loss_fn`` at (x, y) on both nets (in eval mode:
     dropout off); the worst parameter's max |difference| over its bound
@@ -809,6 +945,7 @@ FAMILIES = (("flash_fwd", ("flash_fwd",)), ("flash_bwd", ("flash_bwd",)),
             ("bias_gelu_bwd", ("bias_gelu_bwd",)),
             ("rnn_scan_fwd", ("rnn_scan_fwd",)),
             ("rnn_scan_bwd", ("rnn_scan_bwd", "rnn_dw")),
+            ("rnn_decode", ("rnn_decode",)),
             ("gemm", ("gemm", "cutlass", "gemv")))
 
 
@@ -1269,6 +1406,317 @@ def train_lstm(torch, np, K, dev, smi, profile=False):
     return counts
 
 
+#: phase 9: the JAX package's decode leg as bench.py bench_decode runs it
+#: on an accelerator (decode_leg), and the same engine and mix at the
+#: word LM's widths (decode_wide); float32 weights and KV cache
+DECODE_REQUESTS, DECODE_LADDER, DECODE_PAGE = 32, (1, 2, 4, 8), 16
+DECODE_SPEC_K, DECODE_SPEC_NEW, DECODE_GQA_REQUESTS = 4, 24, 8
+DECODE_LEG = dict(vocab=256, d_model=128, num_heads=4)
+DECODE_WIDE = dict(vocab=33278, d_model=650, num_heads=10)
+
+
+def decode_mix(np, vocab, n_req, page_size):
+    """bench.py's decode mix from RandomState(7): prompts of 2-11 tokens,
+    max_new 48 for every 8th request and 2-5 otherwise; then the
+    speculative mix, a 3-page shared base plus a 2-4 token tail."""
+    rng = np.random.RandomState(7)
+    prompts, mns = [], []
+    for i in range(n_req):
+        prompts.append(rng.randint(0, vocab, size=int(rng.randint(2, 12))))
+        mns.append(48 if i % 8 == 0 else int(rng.randint(2, 6)))
+    base = rng.randint(0, vocab, size=3 * page_size).astype(np.int32)
+    sp_prompts = [np.concatenate([base, rng.randint(0, vocab, size=2 + (
+        i % 3)).astype(np.int32)]) for i in range(max(8, n_req // 2))]
+    return prompts, mns, sp_prompts
+
+
+def tiny_logit_gap(torch, ATT, model, seq):
+    """Top-2 logit gap of a TinyDecoder after the tokens ``seq``, one
+    slot, computed position by position (the diagnostic of a token
+    mismatch: a near tie, or a bug)."""
+    p = model.params
+    dev = model.device
+    h, c = model.init_state(1)
+    ks, vs = [], []
+    with torch.no_grad():
+        for tok in seq:
+            h, c = model._cell(p, torch.tensor([int(tok)], device=dev), h, c)
+            q, k, v = model._qkv(p, h)
+            ks.append(k)
+            vs.append(v)
+        keys = torch.stack(ks, 2)                  # (1, heads, T, hd)
+        vals = torch.stack(vs, 2)
+        attn = ATT.attention_reference(q[:, :, None], keys, vals)[:, :, 0]
+        top = model._logits(p, h, attn)[0].float().topk(2).values
+    return float(top[0] - top[1])
+
+
+def state_drift(torch, model, prompt, tokens, at=(0, 8, 16, 24, 32, 40)):
+    """max |h_float32 - h_float64| of a TinyDecoder's recurrent state
+    along one request (its prompt, then ``tokens`` fed back), on the CPU
+    copy, at the generated positions ``at``: how fast the recurrence
+    amplifies float32 rounding at these widths."""
+    p32 = model.params
+    p64 = {k: v.double() for k, v in p32.items()}
+    h = [torch.zeros(1, model.d_model, dtype=d) for d in (torch.float32,
+                                                          torch.float64)]
+    c = [x.clone() for x in h]
+    seq = list(prompt) + list(tokens)
+    out = {}
+    with torch.no_grad():
+        for i, tok in enumerate(seq[:-1]):
+            t = torch.tensor([int(tok)])
+            for j, p in enumerate((p32, p64)):
+                h[j], c[j] = model._cell(p, t, h[j], c[j])
+            gen = i - (len(prompt) - 1)
+            if gen in at:
+                out[gen] = float((h[0].double() - h[1]).abs().max())
+    return out
+
+
+def check_tokens(torch, ATT, what, got, ref, model, prompts, horizon=None):
+    """Fail the phase where two runs' tokens differ within the first
+    ``horizon`` tokens of a request (all of them when None), after
+    printing the first differing request, position and the top-2 logit
+    gap there. Returns the first difference past the horizon, or
+    None."""
+    def first_diff(a, r):
+        a, r = a or [], r or []
+        return next((j for j, (x, y) in enumerate(zip(a, r)) if x != y),
+                    min(len(a), len(r)))
+
+    if got == ref:
+        return None
+    if horizon is not None:
+        cut = [[(a or [])[:horizon] for a in x] for x in (got, ref)]
+        if cut[0] == cut[1] and None not in got:
+            return next((i, first_diff(a, r))
+                        for i, (a, r) in enumerate(zip(got, ref)) if a != r)
+    for i, (a, r) in enumerate(zip(got, ref)):
+        if a != r:
+            pos = first_diff(a, r)
+            gap = None
+            if hasattr(model, "_cell") and r is not None:
+                gap = tiny_logit_gap(torch, ATT, model,
+                                     list(prompts[i]) + list(r[:pos]))
+            emit({"token_mismatch": {"what": what, "request": i,
+                                     "position": pos, "got": a, "ref": r,
+                                     "top2_logit_gap": gap}})
+            break
+    raise SystemExit(f"decode tokens differ: {what}")
+
+
+def decode_line(name, rep, smi, extra=None):
+    keys = ("mode", "requests", "tokens", "wall_s", "decode_tokens_per_sec",
+            "ttft_p50_ms", "ttft_p99_ms", "tpot_p50_ms", "tpot_p99_ms",
+            "steps", "prefill_chunks", "kv_page_util", "kv_num_pages",
+            "warmup_s", "errors", "acceptance_rate", "tokens_per_step",
+            "spec_steps", "prefix_hits", "cow_copies", "kv_shared_peak")
+    line = {k: rep[k] for k in keys if k in rep}
+    line["rnn_decode_launches"] = rep["launches"]["rnn_decode"]
+    line.update(extra or {}, card=smi)
+    emit({name: line})
+
+
+def decode_run(torch, K, model, prompts, mns, **kw):
+    """``serving.run_decode`` on the card with the kernel counts set to 0
+    just before it: (report, launches of the whole call)."""
+    from mxnet_tpu_torch import serving
+    K.reset_launch_counts()
+    rep = serving.run_decode(model, prompts, mns, ladder=DECODE_LADDER,
+                             page_size=DECODE_PAGE, **kw)
+    torch.cuda.synchronize()
+    return rep, K.launch_counts()
+
+
+def decode_gates(rep, spec_k=0):
+    """The run's own checks: no error, and its rnn_decode launches after
+    the warm-up exactly one a decode step (spec_k + 1 a verify step) plus
+    the chunk width per prefill chunk."""
+    per_step = spec_k + 1
+    want = per_step * rep["steps"] + 16 * rep["prefill_chunks"]
+    return rep["errors"] == 0 and rep["launches"]["rnn_decode"] == want, \
+        want
+
+
+#: decode_wide's tokens are held exactly against the CPU copy over each
+#: request's first DECODE_WIDE_HORIZON tokens: at d_model 650 with the
+#: reference's random weights (std 0.3) the recurrence amplifies float32
+#: rounding (the CPU copy's own float32 state drifts from float64 by
+#: 4e-6 after 1 token, 1e-4 after 16, 1.5e-2 after 40), so two correct
+#: float32 implementations part ways late in a 48-token request
+#: (state_drift prints the drift of every run)
+DECODE_WIDE_HORIZON = 32
+
+
+def serve_decode(torch, np, K, ATT, dev, smi, widths, leg):
+    """Phase 9: the decode engine on the card through ``run_decode``.
+    ``leg`` True runs decode_leg (continuous, static, the speculative A/B
+    with prefix sharing, and the GQA decoder on the first 8 prompts);
+    False runs decode_wide (continuous). Every run's tokens are held
+    against a CPU copy (same seed); continuous = static, speculative =
+    greedy; exact rnn_decode launch counts. Returns the launch counts of
+    the continuous run and its model."""
+    from mxnet_tpu_torch.gluon import GQADecoder
+    from mxnet_tpu_torch.serving import TinyDecoder
+    name = "decode" if leg else "decode_wide"
+    t0 = time.perf_counter()
+    model = TinyDecoder(**widths, seed=0, device=dev)
+    cpu_model = TinyDecoder(**widths, seed=0, device="cpu")
+    prompts, mns, sp_prompts = decode_mix(np, widths["vocab"],
+                                          DECODE_REQUESTS, DECODE_PAGE)
+    emit({f"{name}_setup": {"widths": widths, "seconds":
+                            time.perf_counter() - t0}})
+    runs = [("continuous", model, cpu_model, prompts, mns, {})]
+    if leg:
+        runs += [("static", model, cpu_model, prompts, mns,
+                  {"static": True}),
+                 ("greedy", model, cpu_model, sp_prompts, DECODE_SPEC_NEW,
+                  {"spec_k": 0, "prefix_share": False}),
+                 ("speculative", model, cpu_model, sp_prompts,
+                  DECODE_SPEC_NEW, {"spec_k": DECODE_SPEC_K,
+                                    "prefix_share": True})]
+        kw = dict(vocab=widths["vocab"], d_model=widths["d_model"],
+                  num_heads=2 * widths["num_heads"],
+                  num_kv_heads=widths["num_heads"], num_layers=2, seed=0)
+        runs.append(("gqa", GQADecoder(**kw, device=dev),
+                     GQADecoder(**kw, device="cpu"),
+                     prompts[:DECODE_GQA_REQUESTS], mns[:DECODE_GQA_REQUESTS],
+                     {}))
+    horizon = None if leg else DECODE_WIDE_HORIZON
+    reps, path_counts = {}, None
+    for what, m, cm, ps_, mn, kw in runs:
+        rep, counts = decode_run(torch, K, m, ps_, mn, **kw)
+        t1 = time.perf_counter()
+        ref = run_cpu_decode(cm, ps_, mn, **kw)
+        cpu_s = time.perf_counter() - t1
+        late = check_tokens(torch, ATT, f"{name} {what} vs CPU copy",
+                            rep["tokens_by_request"], ref, cm, ps_, horizon)
+        if what == "gqa":
+            ok = rep["errors"] == 0 and counts["rnn_decode"] == 0
+            want = 0
+        else:
+            ok, want = decode_gates(rep, kw.get("spec_k", 0))
+        reps[what] = rep
+        extra = {"launches_expected": want, "cpu_copy_s": cpu_s,
+                 "tokens_equal_cpu_copy": late is None, "ok": ok}
+        if horizon is not None:
+            extra.update(exact_horizon=horizon, first_difference_past_it=late,
+                         cpu_state_drift_f32_vs_f64=state_drift(
+                             torch, cm, ps_[0], ref[0]))
+        if what == "continuous":
+            path_counts = counts
+        decode_line(name, rep, smi, dict(extra, run=what))
+        if not ok:
+            raise SystemExit(f"{name} {what}: errors {rep['errors']} or "
+                             f"rnn_decode launches {rep['launches']} "
+                             f"(expected {want})")
+    if leg:
+        check_tokens(torch, ATT, "continuous vs static",
+                     reps["continuous"]["tokens_by_request"],
+                     reps["static"]["tokens_by_request"], cpu_model, prompts)
+        check_tokens(torch, ATT, "speculative vs greedy",
+                     reps["speculative"]["tokens_by_request"],
+                     reps["greedy"]["tokens_by_request"], cpu_model,
+                     sp_prompts)
+        c, s = reps["continuous"], reps["static"]
+        g, sp = reps["greedy"], reps["speculative"]
+        emit({"decode_summary": {
+            "speedup_vs_static": c["decode_tokens_per_sec"]
+            / s["decode_tokens_per_sec"],
+            "speedup_spec_vs_greedy": sp["decode_tokens_per_sec"]
+            / g["decode_tokens_per_sec"],
+            "acceptance_rate": sp.get("acceptance_rate"),
+            "tokens_per_step": sp.get("tokens_per_step"),
+            "continuous_equals_static": True,
+            "speculative_equals_greedy": True, "card": smi}})
+    return path_counts, model
+
+
+def run_cpu_decode(model, prompts, mns, **kw):
+    from mxnet_tpu_torch import serving
+    rep = serving.run_decode(model, prompts, mns, ladder=DECODE_LADDER,
+                             page_size=DECODE_PAGE, warmup=False, **kw)
+    return rep["tokens_by_request"]
+
+
+def profile_decode_step(torch, np, model, smi, bucket=8, iters=5):
+    """``--profile``: where a decode step's time goes in decode_wide.
+    Eight requests are seated (each prefill chunk dispatched and retired
+    alone, host clock), then ``iters`` bucket-8 decode steps, each
+    retired: timed by the host clock, then under ``cProfile`` (the host
+    functions with the most own time), then under ``torch.profiler``
+    (device time by kernel family per step, and the device's busy share
+    of the wall time)."""
+    import cProfile
+    import pstats
+    from torch.profiler import ProfilerActivity, profile
+    from mxnet_tpu_torch.serving import DecodeEngine
+
+    def timed_step():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.step_once()
+        eng.sync()
+        return (time.perf_counter() - t0) * 1e3
+
+    eng = DecodeEngine(model, ladder=DECODE_LADDER, page_size=DECODE_PAGE,
+                       max_context=80, start=False)
+    try:
+        eng.warmup()
+        rng = np.random.RandomState(11)
+        for _ in range(bucket):
+            eng.submit(rng.randint(0, model.vocab, size=8), max_new=60)
+        prefill_ms, steps = [], 0
+        while any(o is None or o.phase != "decode" or o.generated < 1
+                  for o in eng._occupant):
+            before = eng.stats["prefill_chunks"]
+            ms = timed_step()
+            if eng.stats["prefill_chunks"] > before:
+                prefill_ms.append(ms)
+        decode_ms = [timed_step() for _ in range(iters)]
+        prof_host = cProfile.Profile()
+        prof_host.enable()
+        for _ in range(iters):
+            eng.step_once()
+            eng.sync()
+        prof_host.disable()
+        stats = pstats.Stats(prof_host)
+        host_top = sorted(
+            ((f"{os.path.basename(k[0])}:{k[1]}:{k[2]}", v[1], v[2])
+             for k, v in stats.stats.items()), key=lambda r: -r[2])[:12]
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                eng.step_once()
+                eng.sync()
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        steps = eng.stats["steps"]
+    finally:
+        eng.close()
+    families = device_us_by_family(torch, prof)
+    busy = sum(families.values())
+    top = sorted(device_us_by_kernel(torch, prof).items(),
+                 key=lambda kv: -kv[1])[:8]
+    emit({"decode_profile": {
+        "bucket": bucket, "iters": iters, "steps_run": steps,
+        "prefill_chunk_ms": prefill_ms,
+        "decode_step_ms": decode_ms,
+        "host_top_own_ms_per_step": [[name, calls // iters,
+                                      own * 1e3 / iters]
+                                     for name, calls, own in host_top],
+        "wall_ms_per_step_under_profiler": wall_us / iters / 1e3,
+        "device_ms_per_step": {k: v / iters / 1e3
+                               for k, v in families.items()},
+        "top_kernels_ms_per_step": [[k[:80], v / iters / 1e3]
+                                    for k, v in top],
+        "device_busy_share": busy / wall_us if busy else
+        "not measured (the profiler saw no device time)", "card": smi}})
+
+
 def main(argv):
     import numpy as np
     import torch
@@ -1312,6 +1760,13 @@ def main(argv):
     new_args = check_new_kernels(torch, K, KR, KN, dev)
     timing.update(time_new_kernels(torch, F, KR, KN, new_args))
     del new_args
+    dec_args = check_decode_kernel(torch, K, KR, dev)
+    dec_timing = time_decode_kernel(torch, KR, dec_args)
+    del dec_args
+    # the kernels line's row: the decode_wide shape (bucket 8, H 650)
+    for dn in ("float32", "bfloat16"):
+        timing[("rnn_decode", dn)] = dec_timing[("rnn_decode", dn)
+                                                + DECODE_TIMED[0]]
     served, pred = serve_bert(torch, np, K, dev)
     if "--profile" in argv:
         profile_bucket(torch, np, pred)
@@ -1320,6 +1775,12 @@ def main(argv):
     trained = train_bert(torch, np, K, dev, smi, "--profile" in argv)
     trained_long = train_long(torch, np, K, dev)
     lstm = train_lstm(torch, np, K, dev, smi, "--profile" in argv)
+    serve_decode(torch, np, K, ATT, dev, smi, DECODE_LEG, leg=True)
+    decode_wide, wide_model = serve_decode(torch, np, K, ATT, dev, smi,
+                                           DECODE_WIDE, leg=False)
+    if "--profile" in argv:
+        profile_decode_step(torch, np, wide_model, smi)
+    del wide_model
 
     # each kernel's launches on the path that drives it, counted from 0
     path = {"flash_fwd": "bert_base_serving",
@@ -1331,12 +1792,14 @@ def main(argv):
             "flash_bwd_dkv": "bert_width_training_seq1024",
             "bias_gelu_bwd": "transformer_encoder_gelu",
             "rnn_scan_fwd": "lstm_lm_training",
-            "rnn_scan_bwd": "lstm_lm_training"}
+            "rnn_scan_bwd": "lstm_lm_training",
+            "rnn_decode": "decode_wide"}
     counts_of = {"bert_base_serving": served,
                  "transformer_encoder_gelu": encoder,
                  "bert_base_training": trained,
                  "bert_width_training_seq1024": trained_long,
-                 "lstm_lm_training": lstm}
+                 "lstm_lm_training": lstm,
+                 "decode_wide": decode_wide}
     launches = {name: counts_of[path[name]][name] for name in K.KERNELS}
     emit({"launch_counts": launches})
     if not all(n > 0 for n in launches.values()):

@@ -16,6 +16,8 @@ path of this module.
   package runs that case outside its Pallas kernels.
 - :func:`attention_reference`: unfused softmax(QK^T)V, the oracle and
   the path for an arbitrary additive mask.
+- :func:`paged_decode_attention`: one query token per slot over a paged
+  K/V cache (page gather, then the blockwise path), for decode.
 """
 from __future__ import annotations
 
@@ -31,7 +33,8 @@ from .kernels import DTYPE_CODES, check_cuda_operands, launch
 __all__ = ["flash_attention", "flash_attention_fwd",
            "flash_attention_fwd_plain", "flash_attention_bwd",
            "flash_attention_bwd_plain", "flash_bwd_fused", "flash_bwd_dq",
-           "flash_bwd_dkv", "attention_reference"]
+           "flash_bwd_dkv", "attention_reference",
+           "paged_decode_attention"]
 
 NEG_INF = -1e30  # finite mask value: keeps exp() NaN-free for masked rows
 MAX_HEAD_DIM = 128
@@ -327,3 +330,38 @@ def flash_attention(q, k, v, causal: bool = False,
                                    valid_length=torch.as_tensor(
                                        valid_length))
     return flash_attention_fwd(q, k, v, causal, sm_scale)[0]
+
+
+def paged_decode_attention(q, k_pages, v_pages, page_table, lengths,
+                           sm_scale: Optional[float] = None):
+    """One query token per batch slot attending over K/V held in a paged
+    cache (``serving/kvcache.py``), read through page-table indirection.
+
+    - ``q``: (S, H, D), the current token's query per slot;
+    - ``k_pages``/``v_pages``: (P, page_size, Hkv, D), one layer's page
+      arrays. ``Hkv`` may divide H (grouped-query attention): stored head
+      j serves query heads [j*g, (j+1)*g), g = H // Hkv;
+    - ``page_table``: (S, max_pages) integer page ids, padded with the
+      null page 0;
+    - ``lengths``: (S,) valid key count per slot.
+
+    A page gather, then :func:`flash_attention` with ``valid_length``
+    (the blockwise path, as the JAX package runs it), so padding pages
+    and unwritten positions are masked exactly. Returns (S, H, D)."""
+    s, h, d = q.shape
+    hkv = k_pages.shape[2]
+    if hkv < 1 or h % hkv:
+        raise MXNetError(f"paged_decode_attention: query heads {h} not a "
+                         f"multiple of K/V heads {hkv} (GQA needs integer "
+                         "groups)")
+    t = page_table.shape[1] * k_pages.shape[1]
+    # (S, max_pages, page_size, Hkv, D) -> (S, Hkv, T, D): slot s's key at
+    # position p lives at flat index p because pages fill in order
+    k = k_pages[page_table].reshape(s, t, hkv, d).transpose(1, 2)
+    v = v_pages[page_table].reshape(s, t, hkv, d).transpose(1, 2)
+    if h != hkv:
+        k = k.repeat_interleave(h // hkv, dim=1)
+        v = v.repeat_interleave(h // hkv, dim=1)
+    out = flash_attention(q[:, :, None, :], k, v, causal=False,
+                          sm_scale=sm_scale, valid_length=lengths)
+    return out[:, :, 0, :]

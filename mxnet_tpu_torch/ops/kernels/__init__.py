@@ -10,7 +10,8 @@ loaded when this module is imported.
 Dispatch rule, shared by every wrapper (``norm.layer_norm``,
 ``norm.layer_norm_bwd``, ``norm.bias_gelu``, ``norm.bias_gelu_bwd``,
 ``attention.flash_attention_fwd``, ``attention.flash_attention_bwd``,
-``rnn_scan.rnn_scan_fwd``, ``rnn_scan.rnn_scan_bwd``):
+``rnn_scan.rnn_scan_fwd``, ``rnn_scan.rnn_scan_bwd``,
+``rnn_scan.rnn_decode_step``):
 a tensor on the CPU takes the plain PyTorch version that sits beside
 the wrapper; a tensor on a CUDA device launches the kernel or raises.
 There is no switch that turns a kernel off on the card.
@@ -130,6 +131,12 @@ KERNELS: Dict[str, KernelInfo] = {k.name: k for k in (
         # dc0, dw, db, T, N, H, mode, dtype, stream
         (_P,) * 16 + (_I,) * 5 + (_P,),
         "mxnet_tpu/ops/kernels/rnn_scan.py:240 (_bwd_kernel)"),
+    KernelInfo(
+        "rnn_decode", "mxnet_tpu_torch/ops/kernels/csrc/rnn_decode.cu",
+        "mxt_rnn_decode",
+        # xw, h, c, w_hh, b_hh, h_out, c_out, N, H, mode, dtype, stream
+        (_P,) * 7 + (_I,) * 4 + (_P,),
+        "mxnet_tpu/ops/kernels/rnn_scan.py:486 (_decode_kernel)"),
 )}
 
 _COUNTS: Dict[str, int] = {name: 0 for name in KERNELS}

@@ -10,7 +10,11 @@ the JAX package's: LSTM [i, f, g, o], GRU [r, z, n].
   that owns the whole sequence (:func:`rnn_scan_fwd`);
 - backward: ``csrc/rnn_scan_bwd.cu``, the reverse-time walk that
   recomputes the gates and then sums dW_hh and db_hh, one C entry
-  (:func:`rnn_scan_bwd`).
+  (:func:`rnn_scan_bwd`);
+- decode: :func:`rnn_decode_step`, one inference step from (N, G*H)
+  projections, CUDA kernel ``csrc/rnn_decode.cu`` (one ordinary launch a
+  step, the scan's gate math), and :func:`rnn_verify_scan`, the same step
+  over K masked positions (speculative-decode verification).
 
 Each carry family is a ``torch.autograd.Function`` (``_ScanLSTM``
 returns (ys, c_T) and takes h_T as ys[-1]; ``_ScanNoC`` returns ys), as
@@ -37,7 +41,8 @@ from . import DTYPE_CODES, check_cuda_operands, launch
 
 __all__ = ["GATES", "MODE_CODES", "scan_supported", "rnn_scan",
            "rnn_scan_plain", "rnn_scan_bwd_plain", "rnn_scan_fwd",
-           "rnn_scan_bwd"]
+           "rnn_scan_bwd", "decode_supported", "rnn_decode_step",
+           "rnn_decode_step_plain", "rnn_verify_scan"]
 
 GATES = {"rnn_relu": 1, "rnn_tanh": 1, "lstm": 4, "gru": 3}
 #: mode codes of the C interface (csrc/rnn_scan.cuh)
@@ -323,6 +328,87 @@ class _ScanNoC(torch.autograd.Function):
         dxw, dh0, _, dw, db = rnn_scan_bwd(xw, h0, None, w_hh, b_hh, ys,
                                            None, dys, None, ctx.mode)
         return dxw, dh0, dw, db, None
+
+
+# ---------------------------------------------------------------------------
+# single-step decode (inference only: no autograd)
+# ---------------------------------------------------------------------------
+
+#: shared memory a decode block may use (the H100's opt-in limit)
+DECODE_SMEM_BYTES = 232448
+
+
+def decode_supported(xw, h, c, mode: str) -> Optional[str]:
+    """None when the decode kernel covers this call, else the reason (the
+    JAX package's rule: a known mode, float32 or bfloat16, xw (N, G*H))."""
+    if mode not in GATES:
+        return f"unknown mode {mode!r}"
+    if xw.dtype not in DTYPE_CODES:
+        return f"dtype {xw.dtype} has no kernel (float32, bfloat16)"
+    if xw.ndim != 2:
+        return "expects (N, G*H): one timestep per call"
+    return None
+
+
+def rnn_decode_step_plain(xw, h, c, w_hh, b_hh, mode: str):
+    """Plain version of one decode step → (h_new, c_new|None) in xw's
+    dtype: the scan's ``_fwd_step`` on one position, so a token decoded
+    step by step equals the same position of :func:`rnn_scan_plain`."""
+    dt = xw.dtype
+    hf = h.to(dt).float()
+    cf = c.to(dt).float() if mode == "lstm" else None
+    h_new, c_new = _fwd_step(mode, xw.float(), hf @ w_hh.float().t(),
+                             b_hh.float(), hf, cf, dt)
+    return h_new.to(dt), (c_new.to(dt) if c_new is not None else None)
+
+
+def rnn_decode_step(xw, h, c, w_hh, b_hh, mode: str):
+    """ONE recurrence step from a precomputed input projection ``xw``
+    (N, G*H) → ``(h_new, c_new|None)``, new tensors in xw's dtype. A CUDA
+    tensor launches the ``rnn_decode`` kernel (contiguous float32 or
+    bfloat16 operands of one dtype, N*H small enough for a block's shared
+    memory, else it raises); a CPU tensor runs
+    :func:`rnn_decode_step_plain`. Inference only: no gradient."""
+    why = decode_supported(xw, h, c, mode)
+    if why is not None and not (xw.device.type == "cpu" and "dtype" in why):
+        raise MXNetError(f"rnn_decode_step: {why}")
+    if xw.device.type == "cpu":
+        return rnn_decode_step_plain(xw, h, c, w_hh, b_hh, mode)
+    _, n, h_dim = _check_scan("rnn_decode_step", xw[None], h, c, w_hh, b_hh,
+                              mode)
+    if 4 * n * h_dim > DECODE_SMEM_BYTES:
+        raise MXNetError(f"rnn_decode_step: h as float32 ({n} x {h_dim}) "
+                         f"does not fit a block's shared memory "
+                         f"({DECODE_SMEM_BYTES} bytes)")
+    lstm = mode == "lstm"
+    h_new = torch.empty(n, h_dim, dtype=xw.dtype, device=xw.device)
+    c_new = torch.empty_like(h_new) if lstm else None
+    w = w_hh.float().contiguous()
+    b = b_hh.float().contiguous()
+    launch("rnn_decode", xw.device, xw.data_ptr(), h.data_ptr(),
+           c.data_ptr() if lstm else None, w.data_ptr(), b.data_ptr(),
+           h_new.data_ptr(), c_new.data_ptr() if lstm else None, n, h_dim,
+           MODE_CODES[mode], DTYPE_CODES[xw.dtype])
+    return h_new, c_new
+
+
+def rnn_verify_scan(xw, h, c, w_hh, b_hh, mode: str, valid):
+    """Masked multi-position scan for speculative-decode verification:
+    the SAME single step as :func:`rnn_decode_step` (the kernel on the
+    card) over K positions ``xw`` (K, N, G*H), the carry kept where
+    ``valid`` (K, N) is False → the state trajectories ``(hs, cs|None)``,
+    each (K, N, H)."""
+    lstm = mode == "lstm"
+    hs, cs = [], []
+    for t in range(xw.shape[0]):
+        h2, c2 = rnn_decode_step(xw[t], h, c, w_hh, b_hh, mode)
+        vm = valid[t][:, None]
+        h = torch.where(vm, h2, h)
+        hs.append(h)
+        if lstm:
+            c = torch.where(vm, c2, c)
+            cs.append(c)
+    return torch.stack(hs), (torch.stack(cs) if lstm else None)
 
 
 def rnn_scan(xw, h0, c0, w_hh, b_hh, mode: str, reverse: bool = False):

@@ -5,7 +5,8 @@ clients share one forward pass per micro-batch:
 
 - ``submit()`` puts a request (array arguments with a leading row dim)
   on a bounded queue and returns a :class:`ServingFuture`; a queue that
-  stays full sheds with :class:`Overloaded`.
+  stays full sheds with :class:`~.resilience.Overloaded` (``reason``
+  ``"queue"``).
 - The dispatcher gathers requests until ``max_batch`` rows wait or the
   oldest has aged ``timeout_ms`` (or, when nothing is in flight, ships at
   once: lingering on an idle device buys no fill). The rows are
@@ -29,6 +30,7 @@ from __future__ import annotations
 
 import collections
 import logging
+import os
 import queue
 import threading
 import time
@@ -39,19 +41,22 @@ import torch
 
 from ..base import MXNetError
 from .predictor import map_tensors
+from .resilience import Overloaded, ServingShutdown
 
 __all__ = ["DynamicBatcher", "ServingFuture", "Overloaded",
-           "ServingShutdown"]
+           "ServingShutdown", "queue_depth"]
 
 _LOG = logging.getLogger("mxnet_tpu_torch.serving")
 
 
-class Overloaded(MXNetError):
-    """The request was shed at admission (the queue stayed full)."""
-
-
-class ServingShutdown(MXNetError):
-    """The batcher closed before the request could be dispatched."""
+def queue_depth(default: int = 1024) -> int:
+    """``MXNET_SERVING_QUEUE_DEPTH``: bounded request-queue capacity
+    (at least 1; an unparsable value gives ``default``)."""
+    try:
+        v = int(os.environ.get("MXNET_SERVING_QUEUE_DEPTH", str(default)))
+    except ValueError:
+        return default
+    return max(1, v)
 
 
 def _build_response(outs, off: int, rows: int, bucket: int, event):
@@ -203,7 +208,8 @@ class DynamicBatcher:
             with self._stats_mu:
                 self.stats["rejected"] += 1
             raise Overloaded(f"serving queue saturated "
-                             f"({self._queue.maxsize} requests)") from None
+                             f"({self._queue.maxsize} requests)",
+                             reason="queue") from None
         if self._stop.is_set() and not fut.done():
             # closed while this request was enqueued: the closer's last
             # sweep may have run already, so nobody would dispatch it

@@ -52,12 +52,15 @@ def test_package_has_its_modules():
               "gluon/fused_step.py", "lr_scheduler.py",
               "optimizer/optimizer.py", "ops/rnn.py",
               "ops/kernels/rnn_scan.py", "gluon/rnn/rnn_layer.py",
-              "gluon/model_zoo/word_lm.py"):
+              "gluon/model_zoo/word_lm.py", "engine.py",
+              "serving/resilience.py", "serving/kvcache.py",
+              "serving/decode.py", "gluon/gqa_decoder.py"):
         assert os.path.join("mxnet_tpu_torch", m) in rel, m
     csrc = os.listdir(os.path.join(PKG, "ops", "kernels", "csrc"))
     assert {"flash_fwd.cu", "layernorm_fwd.cu", "bias_gelu_fwd.cu",
             "flash_bwd.cu", "layernorm_bwd.cu", "bias_gelu_bwd.cu",
-            "rnn_scan_fwd.cu", "rnn_scan_bwd.cu"} <= set(csrc)
+            "rnn_scan_fwd.cu", "rnn_scan_bwd.cu",
+            "rnn_decode.cu"} <= set(csrc)
 
 
 @pytest.mark.parametrize("path", _package_files()
@@ -120,13 +123,17 @@ def test_checks_catch_what_they_guard():
                      "torch.nn.LSTM(4, 4)\nnn.GRU(4, 4)\n"
                      "torch._VF.lstm(x, hx, w)\ntorch.rnn_tanh(x, h, w)\n"
                      "torch._cudnn_rnn(x)\nrnn.LSTM(4, input_size=4)\n"
-                     "LSTM(4, input_size=4)\n")
+                     "LSTM(4, input_size=4)\n"
+                     "nn.LSTMCell(4, 4)\ntorch.nn.GRUCell(4, 4)\n"
+                     "nn.RNNCell(4, 4)\n")
     assert [n for _, n in _imports(tree) if _forbidden_module(n)] \
         == ["jax", "mxnet_tpu.ops"]
     calls = [_call_name(n.func) for n in ast.walk(tree)
              if isinstance(n, ast.Call) and _library_call(_call_name(n.func))]
     assert sorted(calls) == ["F.scaled_dot_product_attention",
-                             "nn.GRU", "torch._VF.lstm", "torch._cudnn_rnn",
-                             "torch.compile", "torch.nn.LSTM",
+                             "nn.GRU", "nn.LSTMCell", "nn.RNNCell",
+                             "torch._VF.lstm", "torch._cudnn_rnn",
+                             "torch.compile", "torch.nn.GRUCell",
+                             "torch.nn.LSTM",
                              "torch.nn.functional.layer_norm",
                              "torch.rnn_tanh"]

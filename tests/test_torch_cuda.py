@@ -348,3 +348,123 @@ def test_rnn_wrappers_raise_on_card(cuda_dev):
     b1 = torch.zeros(big, device=cuda_dev)
     with pytest.raises(mxt.MXNetError, match="cooperative"):
         KR.rnn_scan_fwd(xw1, h1, None, w1, b1, "rnn_tanh")
+
+
+def _decode_inputs(mode, n, h, dtype, dev, seed=5):
+    xw, h0, c0, w, b, _, _ = _rnn_inputs(mode, 1, n, h, dtype, dev, seed)
+    return xw[0].contiguous(), h0, c0, w, b
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(3, 37), (8, 650), (11, 64)])
+@pytest.mark.parametrize("mode", ["lstm", "gru", "rnn_tanh", "rnn_relu"])
+def test_rnn_decode_kernel_on_card(cuda_dev, mode, shape, dtype):
+    xw, h, c, w, b = _decode_inputs(mode, *shape, dtype, cuda_dev)
+    K.reset_launch_counts()
+    hn, cn = KR.rnn_decode_step(xw, h, c, w, b, mode)
+    torch.cuda.synchronize()
+    assert K.launch_counts()["rnn_decode"] == 1
+    rh, rc = KR.rnn_decode_step_plain(xw, h, c, w, b, mode)
+    tol = CARD_TOL[dtype]
+    assert hn.dtype == dtype and hn.data_ptr() != h.data_ptr()
+    torch.testing.assert_close(hn.float(), rh.float(), atol=tol, rtol=tol)
+    if mode == "lstm":
+        assert cn.data_ptr() != c.data_ptr()
+        torch.testing.assert_close(cn.float(), rc.float(), atol=tol,
+                                   rtol=tol)
+    else:
+        assert cn is None
+    # the kernel repeats bit for bit
+    again = KR.rnn_decode_step(xw, h, c, w, b, mode)
+    assert torch.equal(again[0], hn)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["lstm", "gru"])
+def test_rnn_decode_row_independent_of_batch(cuda_dev, mode):
+    """A row computed at bucket 8 equals, bit for bit, the same row run
+    alone (bucket 1): the engine's exact-token contracts rest on it."""
+    xw, h, c, w, b = _decode_inputs(mode, 8, 650, torch.float32, cuda_dev)
+    hn, cn = KR.rnn_decode_step(xw, h, c, w, b, mode)
+    for row in (0, 3, 7):
+        h1, c1 = KR.rnn_decode_step(
+            xw[row:row + 1].contiguous(), h[row:row + 1].contiguous(),
+            c[row:row + 1].contiguous() if c is not None else None, w, b,
+            mode)
+        assert torch.equal(h1[0], hn[row])
+        if mode == "lstm":
+            assert torch.equal(c1[0], cn[row])
+
+
+@pytest.mark.cuda
+def test_rnn_decode_wrapper_raises_on_card(cuda_dev):
+    xw, h, c, w, b = _decode_inputs("lstm", 2, 8, torch.float32, cuda_dev)
+    with pytest.raises(mxt.MXNetError, match="no kernel"):
+        KR.rnn_decode_step(*(t.half() for t in (xw, h, c, w, b)), "lstm")
+    strided = h.t().contiguous().t()
+    with pytest.raises(mxt.MXNetError, match="contiguous"):
+        KR.rnn_decode_step(xw, strided, c, w, b, "lstm")
+    big = torch.zeros(64, 4096, device=cuda_dev)
+    with pytest.raises(mxt.MXNetError, match="shared memory"):
+        KR.rnn_decode_step(torch.zeros(64, 4096, device=cuda_dev), big,
+                           None, torch.zeros(4096, 4096, device=cuda_dev),
+                           torch.zeros(4096, device=cuda_dev), "rnn_tanh")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spec", [0, 3])
+def test_decode_engine_dispatch_is_sync_free_on_card(cuda_dev, spec):
+    """The engine's dispatches make no host sync (the retire is the one,
+    exempt through ``engine.allow_sync``), and its tokens equal a CPU
+    copy's."""
+    from mxnet_tpu_torch.serving import DecodeEngine, TinyDecoder
+
+    rng = onp.random.RandomState(3)
+    base = rng.randint(0, 64, size=9)
+    prompts = [onp.concatenate([base, rng.randint(0, 64, size=i + 1)])
+               for i in range(4)] + [rng.randint(0, 64, size=3)]
+    outs = []
+    for dev in (cuda_dev, "cpu"):
+        model = TinyDecoder(vocab=64, d_model=32, num_heads=2, seed=0,
+                            device=dev)
+        eng = DecodeEngine(model, ladder=(1, 2, 4), page_size=4,
+                           max_context=48, start=False, spec_k=spec,
+                           prefix_share=bool(spec))
+        try:
+            eng.warmup()
+            streams = [eng.submit(p, max_new=6) for p in prompts]
+            if dev != "cpu":
+                torch.cuda.set_sync_debug_mode("error")
+            try:
+                for _ in range(400):
+                    did = eng.step_once()
+                    if not did and eng._idle():
+                        break
+                    if not did:
+                        eng.sync()
+            finally:
+                if dev != "cpu":
+                    torch.cuda.set_sync_debug_mode(0)
+            outs.append([s.result(0) for s in streams])
+            assert eng._dead is None
+        finally:
+            eng.close()
+    assert outs[0] == outs[1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode", ["lstm", "gru", "rnn_tanh", "rnn_relu"])
+def test_rnn_decode_equals_scan_position_on_card(cuda_dev, mode, dtype):
+    """Decode steps fed back repeat the ``rnn_scan_fwd`` kernel's
+    trajectory bit for bit: one summation order, one gate function."""
+    xw, h0, c0, w, b, _, _ = _rnn_inputs(mode, 9, 8, 650, dtype, cuda_dev,
+                                         seed=6)
+    ys, cs = KR.rnn_scan_fwd(xw, h0, c0, w, b, mode)
+    h, c = h0, c0
+    for t in range(xw.shape[0]):
+        h, c = KR.rnn_decode_step(xw[t], h, c, w, b, mode)
+        assert torch.equal(h, ys[t])
+        if mode == "lstm":
+            assert torch.equal(c, cs[t])

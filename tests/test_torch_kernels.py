@@ -167,7 +167,14 @@ def test_bias_gelu_plain_vs_jax(c):
 # ---------------------------------------------------------------------------
 
 def test_cpu_tensors_take_plain_versions_and_count_nothing():
+    from mxnet_tpu_torch.ops.kernels import rnn_scan as KR
     K.reset_launch_counts()
+    hd = KR.rnn_decode_step(torch.ones(2, 16), torch.zeros(2, 4),
+                            torch.zeros(2, 4), torch.ones(16, 4),
+                            torch.zeros(16), "lstm")
+    assert torch.equal(hd[0], KR.rnn_decode_step_plain(
+        torch.ones(2, 16), torch.zeros(2, 4), torch.zeros(2, 4),
+        torch.ones(16, 4), torch.zeros(16), "lstm")[0])
     q, k, v = (t.requires_grad_() for t in _t(*_qkv(1, 1, 8, 8, 4)))
     x = torch.ones(2, 8, requires_grad=True)
     loss = ATT.flash_attention(q, k, v).sum() \
@@ -179,7 +186,7 @@ def test_cpu_tensors_take_plain_versions_and_count_nothing():
     assert set(K.KERNELS) == {
         "flash_fwd", "layernorm_fwd", "bias_gelu_fwd", "flash_bwd_fused",
         "flash_bwd_dq", "flash_bwd_dkv", "layernorm_bwd", "bias_gelu_bwd",
-        "rnn_scan_fwd", "rnn_scan_bwd"}
+        "rnn_scan_fwd", "rnn_scan_bwd", "rnn_decode"}
 
 
 def test_wrappers_refuse_other_devices():

@@ -183,6 +183,21 @@ def test_queue_backpressure(pred):
     b.close()
 
 
+def test_queue_shed_carries_reason_like_jax(pred):
+    """The batcher's shed is the typed ``Overloaded`` of
+    ``serving.resilience`` with the JAX package's ``reason``."""
+    from mxnet_tpu.serving.resilience import Overloaded as JOverloaded
+    b = manual_batcher(pred, [0.0], depth=1)
+    b.submit(rows(1))
+    with pytest.raises(serving.resilience.Overloaded) as ei:
+        b.submit(rows(1))
+    assert ei.value.reason == JOverloaded("x").reason == "queue"
+    assert serving.Overloaded is serving.resilience.Overloaded
+    assert serving.ServingShutdown is serving.resilience.ServingShutdown
+    b.flush()
+    b.close()
+
+
 def test_future_timeout_message(pred):
     b = manual_batcher(pred, [0.0])
     fut = b.submit(rows(1))
