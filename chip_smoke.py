@@ -6,6 +6,8 @@
                                      # micro-batch, of one BERT and one
                                      # LSTM LM train step, and of one
                                      # bucket-8 decode step
+    python3 chip_smoke.py --zero-train  # phases 1, 2 and 11 alone, on
+                                        # two or more cards
 
 Phases, each of which fails the run (non-zero exit) when it fails:
 
@@ -25,7 +27,13 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    3072 and at an unaligned C, and the decode step (``rnn_decode``) in
    every mode at N 3 x H 37, N 8 x H 650 and N 8 x H 128, float32 and
    bfloat16, plus 35 chained decode steps against the ``rnn_scan_fwd``
-   kernel's trajectory at N 8 x H 650 (within 1e-6);
+   kernel's trajectory at N 8 x H 650 (within 1e-6); and the fused
+   optimizer update (``opt_update``) for SGD, SGD-momentum and Adam, clip
+   on and off, scalar and per-element hyperparameters, float32 and
+   bfloat16, at 5000 elements, at BERT-base's word-embedding shard at dp 4
+   (5,860,224) and at its bucket unit (88,322): float32 states bit-exact
+   and weights within 1 ulp, bfloat16 within 2e-2; the Adam update of the
+   word-embedding shard timed beside ``torch._fused_adam_``;
 4. serve BERT-base (12 x 768, vocab 30522, seeded random weights) through
    ``CompiledPredictor`` + ``DynamicBatcher``: 8 client threads, 96
    requests of 1-8 rows at sequence length 128; check that every request
@@ -64,12 +72,27 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    equal a CPU copy's, continuous = static and speculative = greedy
    request by request, 0 errors, and ``rnn_decode`` launches exactly
    one a decode step (spec_k + 1 a verify step) plus 16 a prefill chunk
-   (0 for the GQA decoder).
+   (0 for the GQA decoder);
+10. BERT-base's ZeRO-1 update layout on this card: one backward at batch
+    32 x sequence 512 (dropout 0) gives fixed gradients; the port's
+    ``_ZeroShardPlan`` at 4 shards (88 units); ten Adam updates (lr 1e-5)
+    through ``Optimizer.kernel_step_fn()`` on every shard of every unit
+    in turn, reassembled, against ten eager ``trainer.step`` updates of a
+    copy (weights within 1e-6 relative + 1e-7 absolute), exactly 88 x 4 x
+    10 ``opt_update`` launches, and the state bytes a rank would hold;
+11. with two or more cards only (one line says so otherwise): BERT-base
+    ZeRO-1 training, one rank a card over NCCL (``parallel.dist.spawn``),
+    batch 32 x 512 global, ten Adam steps through ``TrainLoop`` under
+    ``make_mesh({"dp": world})``: the sharded update on, falling finite
+    losses, bit-equal weights on every rank, 88 ``opt_update`` launches a
+    rank a step, the first losses equal a one-card forward's within 1e-5,
+    the Adam state a rank ~1/world; step ms, global tokens/s, peak memory.
 
 ``{"launch_counts": {...}}`` gives each kernel's launches on its path.
 The line before the last is a JSON object with one entry per kernel
 (launches on its path, error, times, bound, all at float32, the dtype of
-every path here; ``rnn_decode`` at decode_wide's N 8 x H 650); the last
+every path here; ``rnn_decode`` at decode_wide's N 8 x H 650,
+``opt_update`` at the word-embedding shard); the last
 line is ``{"ok": true, "device": {...}}``.
 """
 import json
@@ -1717,6 +1740,445 @@ def profile_decode_step(torch, np, model, smi, bucket=8, iters=5):
         "not measured (the profiler saw no device time)", "card": smi}})
 
 
+# ---------------------------------------------------------------------------
+# kernel 12 (opt_update) and the ZeRO-1 update: phases 3, 10 and 11
+# ---------------------------------------------------------------------------
+
+#: the opt_update checks' lengths: ragged, BERT-base's word-embedding
+#: shard at dp 4 (30,522 x 768 / 4) and its bucket unit (the 114
+#: parameters under 2048 elements, concatenated)
+OPT_RAGGED, OPT_EMBED_SHARD, OPT_BUCKET = 5000, 30522 * 768 // 4, 88322
+#: (code, optimizer kind, rule constants)
+OPT_KINDS = (("sgd", "sgd", {"momentum": 0.0}),
+             ("sgd_mom", "sgd", {"momentum": 0.9}),
+             ("adam", "adam", {"beta1": 0.9, "beta2": 0.999,
+                               "epsilon": 1e-8}))
+#: bfloat16 outputs, kernel vs plain: one or two bf16 ulps of O(1) values
+OPT_BF16_TOL = 2e-2
+#: phases 10 and 11: BERT-base's widths, the ZeRO layout at dp 4, ten Adam
+#: steps at lr 1e-5 at batch 32 x sequence 512
+BERT_BASE = dict(units=768, hidden_size=3072, num_layers=12, num_heads=12)
+BERT_BASE_CLASSIFIER_PARAMS = 109_483_778
+ZERO_SHARDS, ZERO_UNITS = 4, 88
+#: phase 10's weights, sharded kernel updates vs eager ``trainer.step``:
+#: the same float32 Adam rule, but the eager one takes 1 - b1**t in double
+#: and the kernel a float32 powf, so the updates part by a few ulps
+ZERO_WEIGHT_RTOL, ZERO_WEIGHT_ATOL = 1e-6, 1e-7
+#: phase 11's first loss against a one-card forward of the same weights
+ZERO_LOSS_ATOL = 1e-5
+
+
+def opt_case(torch, dev, code, n, dtype, vec, seed):
+    """Inputs of one opt_update check: w, g, the states, (lr, wd, t)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    n_states = {"sgd": 0, "sgd_mom": 1, "adam": 2}[code]
+    w = torch.randn(n, generator=g, device=dev).to(dtype)
+    grad = (torch.randn(n, generator=g, device=dev) * 3).to(dtype)
+    states = tuple((torch.rand(n, generator=g, device=dev) * 0.1).to(dtype)
+                   for _ in range(n_states))
+    if vec:
+        hp = (torch.rand(n, generator=g, device=dev) * 0.1,
+              torch.rand(n, generator=g, device=dev) * 0.01,
+              torch.randint(1, 5, (n,), generator=g, device=dev,
+                            dtype=torch.int32))
+    else:
+        hp = (0.05, 0.01, 3)
+    return w, grad, states, hp
+
+
+def opt_weight_ulps(torch, got, ref, w_in):
+    """Max |got - ref| in float32 ulps of max(|w_in|, |ref|)."""
+    scale = torch.maximum(w_in.float().abs(), ref.float().abs())
+    ulp = torch.nextafter(scale, torch.full_like(scale, math.inf)) - scale
+    return float(((got.float() - ref.float()).abs() / ulp).max())
+
+
+def check_opt_kernel(torch, KO, dev):
+    """Phase 3, kernel 12: every kind x clip x scalar/vector
+    hyperparameters x dtype at a ragged length, every kind x clip x dtype
+    at the word-embedding shard (scalar) and at the bucket unit (vector).
+    float32: new states bit-exact, the weight within 1 ulp; bfloat16
+    within OPT_BF16_TOL. Returns the timed case (Adam, float32, the
+    word-embedding shard)."""
+    failures, timed, seed = [], None, 0
+    worst = {"float32_weight_ulps": 0.0, "float32_state_max_abs_err": 0.0,
+             "bfloat16_max_abs_err": 0.0}
+    for n, vecs in ((OPT_RAGGED, (False, True)), (OPT_EMBED_SHARD, (False,)),
+                    (OPT_BUCKET, (True,))):
+        for code, kind, extra in OPT_KINDS:
+            for clip in (False, True):
+                for vec in vecs:
+                    for dtype in (torch.float32, torch.bfloat16):
+                        seed += 1
+                        w, g, st, (lr, wd, t) = opt_case(
+                            torch, dev, code, n, dtype, vec, seed)
+                        cfg = dict(extra, has_clip=clip)
+                        pw, ps = KO.unit_update_plain(
+                            kind, cfg, w, g, lr, wd, t, 0.25, 0.5, st)
+                        kw, ks = w.clone(), tuple(s.clone() for s in st)
+                        KO.unit_update(kind, cfg, kw, g, lr, wd, t, 0.25,
+                                       0.5, ks)
+                        torch.cuda.synchronize()
+                        err = max(float((a.float() - b.float()).abs().max())
+                                  for a, b in [(kw, pw)] + list(zip(ks, ps)))
+                        dn = str(dtype).replace("torch.", "")
+                        rec = {"kernel": "opt_update", "dtype": dn,
+                               "kind": code, "n": n, "clip": clip,
+                               "vector_hparams": vec, "max_abs_err": err}
+                        if dtype == torch.float32:
+                            ulps = opt_weight_ulps(torch, kw, pw, w)
+                            st_err = max([float((a - b).abs().max())
+                                          for a, b in zip(ks, ps)] or [0.0])
+                            rec.update(weight_ulps=ulps,
+                                       state_max_abs_err=st_err,
+                                       ok=ulps <= 1 and st_err == 0.0)
+                            worst["float32_weight_ulps"] = max(
+                                worst["float32_weight_ulps"], ulps)
+                            worst["float32_state_max_abs_err"] = max(
+                                worst["float32_state_max_abs_err"], st_err)
+                        else:
+                            rec.update(atol=OPT_BF16_TOL, rtol=OPT_BF16_TOL,
+                                       ok=all(compare(
+                                           torch, a, b, OPT_BF16_TOL,
+                                           OPT_BF16_TOL)[0] for a, b in
+                                           [(kw, pw)] + list(zip(ks, ps))))
+                            worst["bfloat16_max_abs_err"] = max(
+                                worst["bfloat16_max_abs_err"], err)
+                        emit({"check": rec})
+                        if not rec["ok"]:
+                            failures.append(rec)
+                        if (n, code, clip, vec, dn) == (
+                                OPT_EMBED_SHARD, "adam", False, False,
+                                "float32"):
+                            timed = (rec, (w, g, st, (lr, wd, t)))
+    emit({"opt_update_worst": worst})
+    if failures:
+        raise SystemExit(f"opt_update checks failed: {failures}")
+    return timed
+
+
+def time_opt_kernel(torch, KO, timed):
+    """Kernel, plain-version and ``torch._fused_adam_`` times of one Adam
+    update of the word-embedding shard (float32), by CUDA-graph replay over
+    copies larger than the L2. Bound: w, g, m, v read once and w, m, v
+    written once (28 B an element) against ~20 float32 operations an
+    element."""
+    rec, (w, g, st, (lr, wd, t)) = timed
+    n = w.numel()
+    cfg = dict(OPT_KINDS[2][2], has_clip=False)
+    sets = [(w.clone(), g, tuple(s.clone() for s in st),
+             torch.full((), float(t), device=w.device))
+            for _ in range(n_sets(torch, (w, g) + st))]
+    lib_err = None
+
+    def library(w_, g_, st_, step_):
+        torch._fused_adam_([w_], [g_], [st_[0]], [st_[1]], [], [step_],
+                           lr=lr, beta1=0.9, beta2=0.999, weight_decay=wd,
+                           eps=1e-8, amsgrad=False, maximize=False)
+
+    fns = (lambda w_, g_, st_, s_: KO.unit_update(
+               "adam", cfg, w_, g_, lr, wd, t, 0.25, 0.0, st_),
+           lambda w_, g_, st_, s_: KO.unit_update_plain(
+               "adam", cfg, w_, g_, lr, wd, t, 0.25, 0.0, st_),
+           library)
+    (ms, eager_ms), (plain_ms, plain_eager_ms) = (
+        time_ms(torch, fn, sets) for fn in fns[:2])
+    try:
+        library_ms, library_eager_ms = time_ms(torch, fns[2], sets)
+    except Exception as e:    # the yardstick only: the port never calls it
+        library_ms = library_eager_ms = None
+        lib_err = f"{type(e).__name__}: {e}"[:300]
+    nbytes = 28 * n
+    b_ms, b_by = bound_ms(nbytes, 20.0 * n, "float32")
+    t_rec = {"kernel": "opt_update", "dtype": "float32", "shape": [n],
+             "max_abs_err": rec["max_abs_err"], "ms": ms,
+             "plain_ms": plain_ms, "library_ms": library_ms,
+             "library": "torch._fused_adam_ (torch.optim's fused Adam; "
+                        "wd decoupled from the gradient there, the same "
+                        "bytes)", "library_error": lib_err,
+             "bound_ms": b_ms, "bound_by": b_by, "eager_ms": eager_ms,
+             "plain_eager_ms": plain_eager_ms,
+             "library_eager_ms": library_eager_ms, "bytes": nbytes,
+             "flops": 20.0 * n}
+    emit({"timing": t_rec})
+    return {("opt_update", "float32"): t_rec}
+
+
+def bert_base_classifier(torch, seq, device, widths=None):
+    from mxnet_tpu_torch.gluon.model_zoo.bert import BERTClassifier, BERTModel
+    return BERTClassifier(BERTModel(max_length=seq, dropout=0.0,
+                                    device=device, **(widths or BERT_BASE)),
+                          num_classes=2, dropout=0.0, device=device)
+
+
+def zero_layout(torch, np, K, dev, smi, widths=None, batch=TRAIN_BATCH,
+                seq=TRAIN_SEQ, steps=TRAIN_STEPS):
+    """Phase 10: BERT-base's ZeRO-1 update on one card. One backward at
+    batch x seq gives a fixed set of gradients; the port's plan at
+    ZERO_SHARDS shards; ``steps`` Adam updates (lr 1e-5) through
+    ``Optimizer.kernel_step_fn()`` on every shard of every unit in turn
+    (what the ranks each do), reassembled; against ``steps`` eager
+    ``trainer.step`` updates of a copy with the same gradients."""
+    from mxnet_tpu_torch.gluon import Trainer
+    from mxnet_tpu_torch.gluon.fused_step import _ZeroShardPlan
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from mxnet_tpu_torch.gluon.params import init_params_numpy, \
+        load_jax_params
+
+    t0 = time.perf_counter()
+    nets = [bert_base_classifier(torch, seq, dev, widths) for _ in range(2)]
+    init = init_params_numpy(nets[0], seed=2)
+    for net in nets:
+        load_jax_params(net, init)
+    n_params = sum(p.numel() for p in nets[0].parameters())
+    trainers = [Trainer(dict(net.named_parameters()), "adam",
+                        {"learning_rate": TRAIN_LR}) for net in nets]
+    rs = np.random.RandomState(3)
+    vocab = nets[0].bert.word_embed.weight.shape[0]
+    x = torch.from_numpy(rs.randint(0, vocab, (batch, seq))
+                         .astype(np.int64)).to(dev)
+    y = torch.from_numpy(rs.randint(0, 2, (batch,))
+                         .astype(np.float32)).to(dev)
+    loss = SoftmaxCrossEntropyLoss()(nets[0](x), y)
+    grads = [g.detach() for g in torch.autograd.grad(
+        loss.sum(), trainers[0]._params)]
+    del loss
+    tz, te = trainers
+    opt = tz.optimizer
+    plan = _ZeroShardPlan(tz._params, opt, ZERO_SHARDS)
+    states = [plan.create_states(opt, r) for r in range(ZERO_SHARDS)]
+    fn = opt.kernel_step_fn()
+    n = len(tz._params)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+
+    K.reset_launch_counts()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for _ in range(steps):
+        opt.rescale_grad = 1.0 / batch
+        lrs, wds, ts = opt.begin_fused_step(list(range(n)))
+        ulrs, uwds, uts = plan.pack_hparams(opt, lrs, wds, ts)
+        for k, u in enumerate(plan.units):
+            s = plan.shard_len(k)
+            full = torch.empty(u["padded"], dtype=u["upd_dtype"], device=dev)
+            for r in range(ZERO_SHARDS):
+                w_sh = plan.copy_shard(k, tz._params, r, full[r * s:
+                                                               (r + 1) * s])
+                g_sh = plan.copy_shard(k, grads, r, torch.empty_like(w_sh))
+                fn((w_sh,), (g_sh,),
+                   [plan.shard_hparam(k, ulrs[k], r, dev)],
+                   [plan.shard_hparam(k, uwds[k], r, dev)],
+                   [plan.shard_hparam(k, uts[k], r, dev)],
+                   np.float32(opt.rescale_grad), np.float32(0.0),
+                   (states[r][k],))
+            plan.write_unit(k, full)
+    torch.cuda.synchronize()
+    zero_s = time.perf_counter() - t1
+    counts = K.launch_counts()
+
+    for _ in range(steps):
+        for p, g in zip(te._params, grads):
+            p.grad = g.clone()
+            p.fresh_grad = True
+        te.step(batch)
+    torch.cuda.synchronize()
+    worst, worst_name = 0.0, None
+    for (name, pz), pe in zip(nets[0].named_parameters(),
+                              nets[1].parameters()):
+        err = (pz.detach() - pe.detach()).abs()
+        bound = ZERO_WEIGHT_ATOL + ZERO_WEIGHT_RTOL * pe.detach().abs()
+        ratio = float((err / bound).max())
+        if ratio > worst:
+            worst, worst_name = ratio, name
+    unsharded = sum(2 * 4 * p.numel() for p in tz._params)
+    per_rank = [sum(s.numel() * s.element_size() for st in sts for s in st)
+                for sts in states]
+    expect = len(plan.units) * ZERO_SHARDS * steps
+    report = {
+        "model": "bert_base classifier", "params": n_params,
+        "params_expected": BERT_BASE_CLASSIFIER_PARAMS if widths is None
+        else n_params, "n_shards": ZERO_SHARDS, "units": len(plan.units),
+        "units_expected": ZERO_UNITS if widths is None else len(plan.units),
+        "bucket_unit_elements": max(u["total"] for u in plan.units
+                                    if len(u["members"]) > 1),
+        "steps": steps, "grad_batch": batch, "grad_seq": seq,
+        "launches": counts["opt_update"], "launches_expected": expect,
+        "worst_weight_err_over_bound": worst, "worst_param": worst_name,
+        "rtol": ZERO_WEIGHT_RTOL, "atol": ZERO_WEIGHT_ATOL,
+        "state_bytes_per_rank": per_rank, "state_bytes_unsharded": unsharded,
+        "sharded_update_s": zero_s, "setup_s": setup_s, "card": smi}
+    report["ok"] = (report["params"] == report["params_expected"]
+                    and report["units"] == report["units_expected"]
+                    and report["launches"] == expect and worst <= 1.0)
+    emit({"zero_layout": report})
+    if not report["ok"]:
+        raise SystemExit(f"ZeRO layout phase failed: {report}")
+    return counts
+
+
+def zero_rank(widths, batch, seq, steps, lr):
+    """Phase 11, one rank: BERT-base through ``TrainLoop`` under
+    ``make_mesh({"dp": world})`` on the global batch (each rank keeps its
+    contiguous 1/world), dropout 0, ten Adam steps. Returns the rank's
+    facts; rank 0 also holds a one-card forward of the initial weights on
+    the whole batch, for the first loss."""
+    import numpy as np
+    import torch
+    from mxnet_tpu_torch.gluon import Trainer, TrainLoop
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from mxnet_tpu_torch.gluon.params import init_params_numpy, \
+        load_jax_params
+    from mxnet_tpu_torch.ops import kernels as K
+    from mxnet_tpu_torch.parallel import dist, make_mesh
+    import torch.distributed as tdist
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = dist.device()
+    rank, world = dist.rank(), dist.size()
+    net = bert_base_classifier(torch, seq, dev, widths)
+    load_jax_params(net, init_params_numpy(net, seed=2))
+    rs = np.random.RandomState(3)
+    vocab = net.bert.word_embed.weight.shape[0]
+    x = torch.from_numpy(rs.randint(0, vocab, (batch, seq))
+                         .astype(np.int64)).to(dev)
+    y = torch.from_numpy(rs.randint(0, 2, (batch,))
+                         .astype(np.float32)).to(dev)
+    loss_fn = SoftmaxCrossEntropyLoss()
+    ref = None
+    if rank == 0:
+        with torch.no_grad():
+            ref = loss_fn(net(x), y).float().cpu().numpy()
+    # the rank's forward + backward alone (no reduction, no update), so
+    # the step's remainder is the ZeRO reduction and update
+    per = batch // world
+    xl, yl = x[rank * per:(rank + 1) * per], y[rank * per:(rank + 1) * per]
+    fb_ms = []
+    for _ in range(4):
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        loss_fn(net(xl), yl).sum().backward()
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        fb_ms.append((time.perf_counter() - t0) * 1e3)
+    for p in net.parameters():
+        p.grad = None
+    trainer = Trainer(dict(net.named_parameters()), "adam",
+                      {"learning_rate": lr})
+    losses, step_ms, per_step = [], [], []
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    with make_mesh({"dp": world}):
+        loop = TrainLoop(net, trainer, loss_fn)
+        K.reset_launch_counts()
+        for _ in range(steps):
+            before = K.launch_counts()["opt_update"]
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            losses.append(loop.step(x, y))
+            loop.synchronize()
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            per_step.append(K.launch_counts()["opt_update"] - before)
+    step = loop.compiled_step
+    first = losses[0].float().contiguous()
+    gathered = [torch.empty_like(first) for _ in range(world)]
+    tdist.all_gather(gathered, first)
+    same = True
+    for p in net.parameters():
+        q = p.detach().clone()
+        tdist.broadcast(q, 0)
+        same = same and bool(torch.equal(q, p.detach()))
+    flag = torch.tensor([1 if same else 0], device=dev)
+    tdist.all_reduce(flag, op=tdist.ReduceOp.MIN)
+    return {"rank": rank, "world": world, "zero_sharded": step.zero_sharded,
+            "losses": [float(l.float().mean()) for l in losses],
+            "first_losses_global": torch.cat(gathered).cpu().numpy()
+            if rank == 0 else None, "one_card_first_losses": ref,
+            "step_ms": step_ms, "opt_update_per_step": per_step,
+            "fwd_bwd_ms": statistics.median(fb_ms[1:]),
+            "units": len(step.zero_plan.units),
+            "state_bytes": step.optimizer_state_bytes(),
+            "state_bytes_unsharded": sum(2 * 4 * p.numel()
+                                         for p in trainer._params),
+            "weights_equal_all_ranks": bool(flag.item()),
+            "max_memory_allocated": torch.cuda.max_memory_allocated(dev)
+            if dev.type == "cuda" else None}
+
+
+def zero_train_multi(torch, np, smi, device="cuda", world=None, widths=None,
+                     batch=TRAIN_BATCH, seq=TRAIN_SEQ, steps=TRAIN_STEPS,
+                     timeout_s=600):
+    """Phase 11: ZeRO-1 training across the visible cards, one rank a
+    card over NCCL (``parallel.dist.spawn``). Gates: the sharded update
+    on, finite losses falling, every rank's weights equal bit for bit,
+    exactly one opt_update launch a unit a step, the first step's losses
+    equal a one-card forward's within ZERO_LOSS_ATOL, and each rank's
+    Adam state ~1/world of the unsharded."""
+    from mxnet_tpu_torch.parallel import dist
+    world = world or torch.cuda.device_count()
+    if device == "cuda":
+        topo = subprocess.run(["nvidia-smi", "topo", "-m"],
+                              capture_output=True, text=True)
+        print(topo.stdout + topo.stderr, flush=True)
+        # where nvidia-smi cannot draw the matrix: peer access between the
+        # cards (NVLink or PCIe peer-to-peer) from the runtime
+        peer = [[i == j or torch.cuda.can_device_access_peer(i, j)
+                 for j in range(world)] for i in range(world)]
+        emit({"peer_access": peer})
+    ranks = dist.spawn(zero_rank, world, device,
+                       (widths, batch, seq, steps, TRAIN_LR),
+                       timeout_s=timeout_s)
+    r0 = ranks[0]
+    first_err = float(np.abs(r0["first_losses_global"]
+                             - r0["one_card_first_losses"]).max())
+    median = statistics.median(max(r["step_ms"][i] for r in ranks)
+                               for i in range(1, steps))
+    report = {
+        "model": "bert_base classifier", "world": world, "batch": batch,
+        "seq": seq, "steps": steps, "optimizer": "adam",
+        "learning_rate": TRAIN_LR, "dropout": 0.0,
+        "zero_sharded": all(r["zero_sharded"] for r in ranks),
+        "losses_rank0": r0["losses"], "units": r0["units"],
+        "opt_update_per_step": [r["opt_update_per_step"] for r in ranks],
+        "first_loss_max_abs_err_vs_one_card": first_err,
+        "first_loss_atol": ZERO_LOSS_ATOL,
+        "weights_equal_all_ranks": all(r["weights_equal_all_ranks"]
+                                       for r in ranks),
+        "state_bytes_per_rank": [r["state_bytes"] for r in ranks],
+        "state_bytes_unsharded": r0["state_bytes_unsharded"],
+        "step_ms_rank0": r0["step_ms"], "median_step_ms": median,
+        "fwd_bwd_ms_per_rank": [r["fwd_bwd_ms"] for r in ranks],
+        "reduce_and_update_ms": median - max(r["fwd_bwd_ms"]
+                                             for r in ranks),
+        "global_tokens_per_s": batch * seq / (median / 1e3),
+        "max_memory_allocated_per_rank": [r["max_memory_allocated"]
+                                          for r in ranks],
+        "card": smi}
+    share = max(report["state_bytes_per_rank"]) \
+        / report["state_bytes_unsharded"]
+    report["state_share_per_rank"] = share
+    losses = r0["losses"]
+    report["ok"] = (report["zero_sharded"]
+                    and all(math.isfinite(v) for r in ranks
+                            for v in r["losses"])
+                    and losses[-1] < losses[0]
+                    and report["weights_equal_all_ranks"]
+                    and r0["units"] == (ZERO_UNITS if widths is None
+                                        else r0["units"])
+                    and all(c == r0["units"] for r in ranks
+                            for c in r["opt_update_per_step"])
+                    and first_err <= ZERO_LOSS_ATOL
+                    and share <= 1.01 / world)
+    emit({"zero_train": report})
+    if not report["ok"]:
+        raise SystemExit(f"ZeRO training phase failed: {report}")
+    return report
+
+
 def main(argv):
     import numpy as np
     import torch
@@ -1730,6 +2192,7 @@ def main(argv):
     from mxnet_tpu_torch.ops import attention as ATT
     from mxnet_tpu_torch.ops import kernels as K
     from mxnet_tpu_torch.ops.kernels import norm as KN
+    from mxnet_tpu_torch.ops.kernels import opt_update as KO
     from mxnet_tpu_torch.ops.kernels import rnn_scan as KR
 
     # phase 1: the card
@@ -1750,6 +2213,15 @@ def main(argv):
     K.build_library(verbose="--ptxas" in argv)
     K.library()
     emit({"build_s": time.perf_counter() - t0})
+    if "--zero-train" in argv:
+        if torch.cuda.device_count() < 2:
+            raise SystemExit("--zero-train needs two or more cards")
+        zero_train_multi(torch, np, smi)
+        print(smi, flush=True)
+        emit({"ok": True, "device": {"platform": "gpu",
+                                     "kind": torch.cuda.get_device_name(0),
+                                     "count": torch.cuda.device_count()}})
+        return 0
 
     served_args = check_kernels(torch, ATT, KN, dev)
     timing = time_kernels(torch, F, ATT, KN, served_args)
@@ -1767,6 +2239,9 @@ def main(argv):
     for dn in ("float32", "bfloat16"):
         timing[("rnn_decode", dn)] = dec_timing[("rnn_decode", dn)
                                                 + DECODE_TIMED[0]]
+    opt_timed = check_opt_kernel(torch, KO, dev)
+    timing.update(time_opt_kernel(torch, KO, opt_timed))
+    del opt_timed
     served, pred = serve_bert(torch, np, K, dev)
     if "--profile" in argv:
         profile_bucket(torch, np, pred)
@@ -1781,6 +2256,14 @@ def main(argv):
     if "--profile" in argv:
         profile_decode_step(torch, np, wide_model, smi)
     del wide_model
+    zero = zero_layout(torch, np, K, dev, smi)
+    torch.cuda.empty_cache()
+    if torch.cuda.device_count() >= 2:
+        zero_train_multi(torch, np, smi)
+    else:
+        print("phase 11 (ZeRO training across cards) needs >= 2 GPUs; "
+              f"{torch.cuda.device_count()} visible, so it did not run",
+              flush=True)
 
     # each kernel's launches on the path that drives it, counted from 0
     path = {"flash_fwd": "bert_base_serving",
@@ -1793,13 +2276,15 @@ def main(argv):
             "bias_gelu_bwd": "transformer_encoder_gelu",
             "rnn_scan_fwd": "lstm_lm_training",
             "rnn_scan_bwd": "lstm_lm_training",
-            "rnn_decode": "decode_wide"}
+            "rnn_decode": "decode_wide",
+            "opt_update": "bert_base_zero_update_layout"}
     counts_of = {"bert_base_serving": served,
                  "transformer_encoder_gelu": encoder,
                  "bert_base_training": trained,
                  "bert_width_training_seq1024": trained_long,
                  "lstm_lm_training": lstm,
-                 "decode_wide": decode_wide}
+                 "decode_wide": decode_wide,
+                 "bert_base_zero_update_layout": zero}
     launches = {name: counts_of[path[name]][name] for name in K.KERNELS}
     emit({"launch_counts": launches})
     if not all(n > 0 for n in launches.values()):

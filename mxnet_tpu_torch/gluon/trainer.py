@@ -1,5 +1,7 @@
 """Gluon Trainer (counterpart of ``mxnet_tpu/gluon/trainer.py``): applies
-an optimizer to a set of parameters, on one device.
+an optimizer to a set of parameters, on one device or, through
+:meth:`Trainer.compile_step` on a ``parallel.make_mesh`` mesh, on every
+rank of a data-parallel process group (the ZeRO-1 sharded update).
 
     trainer = Trainer(dict(net.named_parameters()), "adam",
                       {"learning_rate": 1e-3})
@@ -19,8 +21,10 @@ Gradient semantics are the JAX package's, on top of PyTorch's autograd:
 
 A parameter that no backward reached since the last update has a stale
 gradient: :meth:`step` raises, unless ``ignore_stale_grad=True``, which
-skips it. There is one device, so :meth:`allreduce_grads` has nothing to
-reduce; a distributed kvstore raises.
+skips it. The kvstore is the single-process store (``"device"``,
+``"local"``, ``"tpu"``); a distributed one (``dist_sync``) is not ported
+and raises. Across ranks the gradient reduction belongs to the compiled
+step, so :meth:`allreduce_grads` has nothing to reduce.
 """
 from __future__ import annotations
 
@@ -28,12 +32,10 @@ from typing import Optional
 
 from .. import optimizer as opt_mod
 from ..base import MXNetError
+from ..kvstore import create as create_kvstore
 from .nn.basic_layers import init_param
 
 __all__ = ["Trainer"]
-
-#: single-device stores: gradients need no reduction
-_LOCAL_KVSTORES = (None, "device", "local")
 
 
 class Trainer:
@@ -48,12 +50,11 @@ class Trainer:
             self._param_names = [str(i) for i in range(len(params))]
         else:
             raise MXNetError("params must be a dict or list of Parameters")
-        if kvstore not in _LOCAL_KVSTORES:
-            raise MXNetError(f"kvstore {kvstore!r}: only a single-device "
-                             f"store {_LOCAL_KVSTORES} is ported")
+        self._kvstore = None if kvstore is None else create_kvstore(kvstore)
         for p in self._params:
             if not hasattr(p, "grad_req"):
                 init_param(p)       # a parameter made outside gluon.nn
+        self._all_params = list(self._params)
         self._params = [p for p in self._params if p.grad_req != "null"]
         optimizer_params = optimizer_params or {}
         self._optimizer = opt_mod.create(optimizer, **optimizer_params)
@@ -77,20 +78,21 @@ class Trainer:
     def optimizer(self):
         return self._optimizer
 
-    def compile_step(self, loss_fn, zero_shard: Optional[bool] = None):
+    def compile_step(self, loss_fn, zero_shard: Optional[bool] = None,
+                     zero_axis: str = "dp", mesh=None):
         """One callable for forward, backward and update
         (``gluon/fused_step.py``)::
 
             step = trainer.compile_step(lambda x, y: loss_blk(net(x), y))
             loss = step(x, y)      # == loss.backward(); step(batch_size)
 
-        The ZeRO sharded update is not ported: ``zero_shard=True``
-        raises."""
+        Under a mesh with a ``zero_axis`` of size >= 2 (``mesh``, or the
+        active ``parallel.make_mesh``) the update is the ZeRO-1 sharded
+        one, unless ``zero_shard=False``; ``zero_shard=True`` raises
+        where it cannot apply."""
         from .fused_step import CompiledTrainStep
-        if zero_shard:
-            raise MXNetError("compile_step(zero_shard=True): the ZeRO "
-                             "sharded update is not ported yet")
-        return CompiledTrainStep(self, loss_fn)
+        return CompiledTrainStep(self, loss_fn, zero_shard=zero_shard,
+                                 zero_axis=zero_axis, mesh=mesh)
 
     # ---------------- core ----------------
     def step(self, batch_size: int, ignore_stale_grad: bool = False):
@@ -101,7 +103,8 @@ class Trainer:
         self._update(ignore_stale_grad)
 
     def allreduce_grads(self):
-        """Nothing to reduce: every gradient lives on one device."""
+        """Nothing to reduce: the single-process store holds one gradient
+        per parameter (across ranks, the compiled step reduces)."""
 
     def update(self, batch_size: int, ignore_stale_grad: bool = False):
         """Apply the optimizer only (gradients assumed reduced)."""

@@ -11,7 +11,7 @@ Dispatch rule, shared by every wrapper (``norm.layer_norm``,
 ``norm.layer_norm_bwd``, ``norm.bias_gelu``, ``norm.bias_gelu_bwd``,
 ``attention.flash_attention_fwd``, ``attention.flash_attention_bwd``,
 ``rnn_scan.rnn_scan_fwd``, ``rnn_scan.rnn_scan_bwd``,
-``rnn_scan.rnn_decode_step``):
+``rnn_scan.rnn_decode_step``, ``opt_update.unit_update``):
 a tensor on the CPU takes the plain PyTorch version that sits beside
 the wrapper; a tensor on a CUDA device launches the kernel or raises.
 There is no switch that turns a kernel off on the card.
@@ -137,6 +137,13 @@ KERNELS: Dict[str, KernelInfo] = {k.name: k for k in (
         # xw, h, c, w_hh, b_hh, h_out, c_out, N, H, mode, dtype, stream
         (_P,) * 7 + (_I,) * 4 + (_P,),
         "mxnet_tpu/ops/kernels/rnn_scan.py:486 (_decode_kernel)"),
+    KernelInfo(
+        "opt_update", "mxnet_tpu_torch/ops/kernels/csrc/opt_update.cu",
+        "mxt_opt_update",
+        # w, g, s0, s1, lrv, wdv, tv, n, kind, has_clip, vec, lr, wd, t,
+        # rescale, clip, mom, b1, b2, eps, omb1, omb2, dtype, stream
+        (_P,) * 7 + (_L, _I, _I, _I, _F, _F, _I) + (_F,) * 8 + (_I, _P),
+        "mxnet_tpu/ops/kernels/opt_update.py:107 (_opt_kernel)"),
 )}
 
 _COUNTS: Dict[str, int] = {name: 0 for name in KERNELS}

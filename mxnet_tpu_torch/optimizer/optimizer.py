@@ -23,6 +23,7 @@ from __future__ import annotations
 
 from typing import Any, Dict, Optional
 
+import numpy as np
 import torch
 
 from ..base import MXNetError
@@ -54,6 +55,11 @@ def create(name, **kwargs) -> "Optimizer":
 class Optimizer:
     """Base optimizer. Subclasses define :meth:`create_state` and
     :meth:`_rule`."""
+
+    #: the rule is elementwise over the weight (no reduction across
+    #: elements) and takes per-element lr/wd/t: it runs on flat 1/N
+    #: shards, which the ZeRO-1 sharded update keys on
+    elementwise_update = True
 
     def __init__(self, rescale_grad: float = 1.0, param_idx2name=None,
                  wd: float = 0.0, clip_gradient: Optional[float] = None,
@@ -144,6 +150,77 @@ class Optimizer:
         weight.copy_(new_w)
         for s, ns in zip(state, new_state):
             s.copy_(ns)
+
+    # ---------------- the sharded update's surface ----------------
+    def fused_step_fn(self):
+        """The multi-tensor update as one function over flat units, the
+        form the ZeRO-1 sharded update applies to each rank's shard:
+        ``(ws, gs, lrs, wds, ts, rescale, clip, states) -> (new_ws,
+        new_states)``, new tensors. ``lrs[i]``/``wds[i]`` (float32) and
+        ``ts[i]`` (int32) are scalars or per-element vectors
+        (:meth:`pack_shard_hparams`); an :attr:`elementwise_update` rule
+        applies unchanged either way."""
+        rule = self._rule()
+        has_clip = self.clip_gradient is not None
+
+        def stepfn(ws, gs, lrs, wds, ts, rescale, clip, states):
+            new_ws, new_ss = [], []
+            for i, (w, g, st) in enumerate(zip(ws, gs, states)):
+                dev = w.device
+                g = g * torch.as_tensor(rescale, dtype=torch.float32,
+                                        device=dev)
+                if has_clip:
+                    c = float(clip)
+                    g = torch.clamp(g, -c, c)
+                nw, ns = rule(
+                    w, g,
+                    torch.as_tensor(lrs[i], dtype=torch.float32, device=dev),
+                    torch.as_tensor(wds[i], dtype=torch.float32, device=dev),
+                    torch.as_tensor(ts[i], device=dev).to(torch.int32),
+                    tuple(st))
+                new_ws.append(nw)
+                new_ss.append(tuple(ns))
+            return tuple(new_ws), tuple(new_ss)
+
+        return stepfn
+
+    def kernel_step_fn(self):
+        """:meth:`fused_step_fn` through the ``opt_update`` kernel over
+        flat 1-d units, updating them IN PLACE (``ops/kernels/
+        opt_update.py``), or None where the rule is not kernelized (exact
+        SGD/Adam only: a subclass may override the rule)."""
+        from ..ops.kernels.opt_update import kernel_step_fn as _kfn
+        return _kfn(self)
+
+    @staticmethod
+    def pack_shard_hparams(lrs, wds, ts, member_idx, sizes, padded):
+        """Per-element lr/wd/t of a ZeRO bucket unit (several small
+        parameters in one flat buffer): each member's scalar repeated
+        over its segment, the pad tail lr = wd = 0 and t = 1 so Adam's
+        ``1 / (1 - beta**t)`` stays finite there. Returns numpy
+        (float32, float32, int32) vectors of length ``padded``."""
+        lr_vec = np.zeros(padded, np.float32)
+        wd_vec = np.zeros(padded, np.float32)
+        t_vec = np.ones(padded, np.int32)
+        total = int(np.sum(sizes))
+        lr_vec[:total] = np.repeat(
+            np.asarray(lrs, np.float32)[member_idx], sizes)
+        wd_vec[:total] = np.repeat(
+            np.asarray(wds, np.float32)[member_idx], sizes)
+        t_vec[:total] = np.repeat(
+            np.asarray(ts, np.int32)[member_idx], sizes)
+        return lr_vec, wd_vec, t_vec
+
+    def begin_fused_step(self, indices):
+        """Host half of a sharded step: advance the update counts of
+        ``indices`` first, then read lr and wd (the multi-tensor
+        bookkeeping of :meth:`update`). Returns numpy ``(lrs float32,
+        wds float32, ts int32)``."""
+        ts = [self._update_count(i) for i in indices]
+        lrs = [self._get_lr(i) for i in indices]
+        wds = [self._get_wd(i) for i in indices]
+        return (np.asarray(lrs, np.float32), np.asarray(wds, np.float32),
+                np.asarray(ts, np.int32))
 
     @torch.no_grad()
     def update(self, index, weight, grad, state):

@@ -1,0 +1,192 @@
+"""Collectives over a mesh axis (counterpart of
+``mxnet_tpu/parallel/collectives.py``) on ``torch.distributed``.
+
+Each rank passes its own part of the logical array and gets its own part
+of the result: :func:`allreduce` the sum (mean, max) over the ranks,
+:func:`allgather` every rank's part in rank order, :func:`reduce_scatter`
+its 1/N tile of the summed leading axis, :func:`broadcast_axis` rank
+``src``'s part.
+
+:func:`reduce_scatter_bucketed` / :func:`allgather_bucketed` are the
+ZeRO step's interleaved routing: each flat segment is padded to a
+multiple of N and viewed as ``(N, s_k)`` rows, and the views concatenate
+on the free axis into one ``(N, S)`` buffer. Row d is contiguous in the
+flat buffer, so ONE ``reduce_scatter_tensor`` of it hands rank d exactly
+``[seg_0[d*s_0:(d+1)*s_0], seg_1[...], ...]``. ``constrain`` is where the
+collective happens; ``None`` is the identity, which keeps the routing
+testable without a group.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.distributed as dist
+
+from ..base import MXNetError
+from .mesh import DeviceMesh, current_mesh
+
+__all__ = ["allreduce", "allgather", "reduce_scatter", "broadcast_axis",
+           "reduce_scatter_bucketed", "allgather_bucketed", "bucket_rows",
+           "reduce_scatter_rows", "all_gather_rows"]
+
+# the non-deprecated names where this torch has them
+_RS = getattr(dist, "reduce_scatter_single", None) or \
+    dist.reduce_scatter_tensor
+_AG = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
+
+
+def _mesh_n(mesh, axis):
+    mesh = mesh or current_mesh()
+    if mesh is None:
+        raise MXNetError("no active mesh; wrap in `with make_mesh(...)`")
+    return mesh, mesh.check_axis(axis)
+
+
+def allreduce(x: torch.Tensor, axis: str = "dp",
+              mesh: Optional[DeviceMesh] = None, op: str = "sum"):
+    """The sum (``"mean"``, ``"max"``) of every rank's ``x``."""
+    mesh, n = _mesh_n(mesh, axis)
+    ops = {"sum": dist.ReduceOp.SUM, "mean": dist.ReduceOp.SUM,
+           "max": dist.ReduceOp.MAX}
+    if op not in ops:
+        raise MXNetError(f"unknown reduce op {op}")
+    out = x.clone()
+    if n > 1:
+        dist.all_reduce(out, ops[op], group=mesh.group)
+    if op == "mean":
+        out.div_(n)
+    return out
+
+
+def allgather(x: torch.Tensor, axis: str = "dp",
+              mesh: Optional[DeviceMesh] = None, tiled: bool = True):
+    """Every rank's ``x`` in rank order: concatenated on the leading axis
+    (``tiled``) or stacked on a new one."""
+    mesh, n = _mesh_n(mesh, axis)
+    flat = x.reshape(-1)
+    out = torch.empty(n * flat.numel(), dtype=x.dtype, device=x.device)
+    if n > 1:
+        _AG(out, flat, group=mesh.group)
+    else:
+        out.copy_(flat)
+    out = out.view((n,) + tuple(x.shape))
+    return out.reshape((-1,) + tuple(x.shape[1:])) if tiled else out
+
+
+def reduce_scatter(x: torch.Tensor, axis: str = "dp",
+                   mesh: Optional[DeviceMesh] = None):
+    """This rank's tile of the leading axis of the sum of every rank's
+    ``x``. A leading size not divisible by N is zero-padded for the
+    collective and the padding cut from the result (the last ranks' tiles
+    may be shorter, or empty)."""
+    mesh, n = _mesh_n(mesh, axis)
+    if x.ndim == 0:
+        raise MXNetError("reduce_scatter needs a >=1-d operand")
+    lead = int(x.shape[0])
+    per = -(-lead // n)
+    data = x.contiguous()
+    if per * n != lead:
+        data = torch.cat([data, data.new_zeros((per * n - lead,)
+                                               + tuple(x.shape[1:]))])
+    out = torch.empty((per,) + tuple(x.shape[1:]), dtype=x.dtype,
+                      device=x.device)
+    if n > 1:
+        _RS(out, data, group=mesh.group)
+    else:
+        out.copy_(data)
+    r = mesh.rank
+    return out[:max(0, min(per, lead - r * per))]
+
+
+def broadcast_axis(x: torch.Tensor, axis: str = "dp",
+                   mesh: Optional[DeviceMesh] = None, src: int = 0):
+    """Rank ``src``'s ``x`` on every rank."""
+    mesh, n = _mesh_n(mesh, axis)
+    out = x.clone()
+    if n > 1:
+        dist.broadcast(out, src, group=mesh.group)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the interleaved bucket layout of the ZeRO step
+# ---------------------------------------------------------------------------
+
+def bucket_rows(segs, num_shards: int):
+    """Pad each flat segment to ``num_shards`` divisibility and lay the
+    ``(num_shards, s_k)`` views side by side: ``(buf (num_shards, S),
+    cols)``, where ``cols[k]`` is segment k's per-shard column count."""
+    cols = [-(-int(g.numel()) // num_shards) for g in segs]
+    buf = segs[0].new_zeros(num_shards, sum(cols))
+    off = 0
+    for g, s in zip(segs, cols):
+        padded = g.new_zeros(num_shards * s)
+        padded[:g.numel()] = g.reshape(-1)
+        buf[:, off:off + s] = padded.view(num_shards, s)
+        off += s
+    return buf, cols
+
+
+def reduce_scatter_rows(buf: torch.Tensor, mesh: DeviceMesh,
+                        mean: bool = False) -> torch.Tensor:
+    """One reduce-scatter of an interleaved ``(N, S)`` buffer: this rank's
+    row of the sum (or mean) over ranks, ``(S,)``."""
+    out = torch.empty(buf.shape[1], dtype=buf.dtype, device=buf.device)
+    _RS(out, buf.reshape(-1), group=mesh.group)
+    return out.div_(buf.shape[0]) if mean else out
+
+
+def all_gather_rows(row: torch.Tensor, mesh: DeviceMesh, n: int):
+    """One all-gather of every rank's ``(S,)`` row into ``(N, S)``."""
+    out = torch.empty(n, row.numel(), dtype=row.dtype, device=row.device)
+    _AG(out.view(-1), row, group=mesh.group)
+    return out
+
+
+def reduce_scatter_bucketed(segs, num_shards: int, constrain=None):
+    """One reduce-scatter per bucket instead of one per segment.
+
+    ``segs`` are flat gradient segments of any lengths. ``constrain``
+    maps the interleaved ``(num_shards, S)`` buffer to its reduced
+    layout; ``None`` is the identity. Returns the flat
+    ``(num_shards * s_k,)`` padded segments in input order."""
+    buf, cols = bucket_rows(segs, num_shards)
+    if constrain is not None:
+        buf = constrain(buf)
+    outs, off = [], 0
+    for s in cols:
+        outs.append(buf[:, off:off + s].reshape(num_shards * s))
+        off += s
+    return outs
+
+
+def allgather_bucketed(shards, num_shards: int, constrain=None,
+                       orig_lens=None):
+    """The inverse routing of :func:`reduce_scatter_bucketed`: flat
+    segments whose lengths divide by ``num_shards`` concatenate into the
+    interleaved buffer, ``constrain`` gathers it (``None``: identity),
+    and each segment's full value slices back out; ``orig_lens`` strips
+    the padding."""
+    rows = []
+    for w in shards:
+        w = w.reshape(-1)
+        n = int(w.numel())
+        if n % num_shards:
+            raise MXNetError(
+                "allgather_bucketed: segment length %d not divisible "
+                "by num_shards=%d (pass reduce_scatter_bucketed "
+                "outputs)" % (n, num_shards))
+        rows.append(w.reshape(num_shards, n // num_shards))
+    buf = rows[0] if len(rows) == 1 else torch.cat(rows, dim=1)
+    if constrain is not None:
+        buf = constrain(buf)
+    outs, off = [], 0
+    for k, r in enumerate(rows):
+        s = r.shape[1]
+        full = buf[:, off:off + s].reshape(num_shards * s)
+        if orig_lens is not None:
+            full = full[:int(orig_lens[k])]
+        outs.append(full)
+        off += s
+    return outs

@@ -1,0 +1,165 @@
+"""The device mesh over the process group (counterpart of
+``mxnet_tpu/parallel/mesh.py``).
+
+The JAX package's mesh is N devices driven by one process. Here it is a
+world of N ranks, one process and one device each (:mod:`.dist`):
+``make_mesh({"dp": N})`` wraps the default process group, whose size
+must be N, and rank r is coordinate r on the axis. A tensor a rank holds
+is its own part of the logical array: :func:`shard_batch` and
+:func:`place_on_mesh` keep rank r's contiguous 1/N of a global batch's
+leading axis when it divides by N, and the whole array otherwise (the
+JAX package's "shard dim 0 when divisible, else replicate").
+"""
+from __future__ import annotations
+
+import threading
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from ..base import MXNetError
+from . import dist as _dist
+
+__all__ = ["DeviceMesh", "make_mesh", "current_mesh", "data_parallel_mesh",
+           "shard_batch", "place_on_mesh", "batch_is_sharded", "replicate",
+           "zero_shard_pad"]
+
+_state = threading.local()
+
+
+class DeviceMesh:
+    """Named axes over the ranks of a process group. Every collective of
+    :mod:`.collectives` runs along an axis that spans the whole group
+    (this slice's meshes are one axis of size N, or N x 1)."""
+
+    def __init__(self, axes: Dict[str, int], group=None):
+        self._axes = dict(axes)
+        self.group = group
+
+    @property
+    def axis_names(self) -> Tuple[str, ...]:
+        return tuple(self._axes)
+
+    @property
+    def shape(self) -> Dict[str, int]:
+        return dict(self._axes)
+
+    @property
+    def size(self) -> int:
+        return int(np.prod(list(self._axes.values()))) if self._axes else 1
+
+    @property
+    def rank(self) -> int:
+        """This process's coordinate along the mesh's non-trivial axis."""
+        return dist.get_rank(self.group) if _dist.is_initialized() else 0
+
+    def axis_size(self, axis: str) -> int:
+        if axis not in self._axes:
+            raise MXNetError(f"mesh has no axis {axis!r}; axes: "
+                             f"{self.axis_names}")
+        return int(self._axes[axis])
+
+    def check_axis(self, axis: str) -> int:
+        """The size of ``axis``, which must span the whole group."""
+        n = self.axis_size(axis)
+        if n != self.size:
+            raise MXNetError(f"axis {axis!r} of {self.shape} does not span "
+                             "the process group (one non-trivial axis)")
+        return n
+
+    def __enter__(self):
+        stack = getattr(_state, "stack", None)
+        if stack is None:
+            stack = _state.stack = []
+        stack.append(self)
+        return self
+
+    def __exit__(self, *exc):
+        _state.stack.pop()
+
+    def __repr__(self):
+        return f"DeviceMesh({self.shape})"
+
+
+def make_mesh(axes: Dict[str, int], group=None) -> DeviceMesh:
+    """A mesh from axis name -> size over the default process group (or
+    ``group``). Sizes multiply to the group's size; one -1 is inferred.
+    A mesh of size 1 needs no group."""
+    world = dist.get_world_size(group) if _dist.is_initialized() else 1
+    names, sizes = list(axes), list(axes.values())
+    if -1 in sizes:
+        known = int(np.prod([s for s in sizes if s != -1]))
+        sizes[sizes.index(-1)] = world // known
+    total = int(np.prod(sizes))
+    if total != world:
+        raise MXNetError(
+            f"mesh {dict(zip(names, sizes))} needs {total} ranks but the "
+            f"process group has {world}")
+    return DeviceMesh(dict(zip(names, sizes)), group)
+
+
+def data_parallel_mesh(num_devices: Optional[int] = None) -> DeviceMesh:
+    return make_mesh({"dp": num_devices or _dist.size()})
+
+
+def current_mesh() -> Optional[DeviceMesh]:
+    stack = getattr(_state, "stack", None)
+    return stack[-1] if stack else None
+
+
+def _divides(d, n: int) -> bool:
+    return getattr(d, "ndim", 0) >= 1 and d.shape[0] > 0 \
+        and d.shape[0] % n == 0
+
+
+def place_on_mesh(mesh: DeviceMesh, axis: str, d):
+    """Rank r's part of a global step input: its contiguous 1/N of the
+    leading axis when that divides by N, else the whole array. numpy
+    arrays become tensors; anything without a shape passes through."""
+    if isinstance(d, np.ndarray):
+        d = torch.from_numpy(np.ascontiguousarray(d))
+    if not isinstance(d, torch.Tensor):
+        return d
+    n = mesh.check_axis(axis)
+    if n > 1 and _divides(d, n):
+        per = d.shape[0] // n
+        return d[mesh.rank * per:(mesh.rank + 1) * per]
+    return d
+
+
+def batch_is_sharded(mesh: DeviceMesh, axis: str, leaves) -> bool:
+    """Whether :func:`place_on_mesh` split any of ``leaves``: when none
+    was, every rank holds the whole batch."""
+    n = mesh.check_axis(axis)
+    return n > 1 and any(_divides(d, n) for d in leaves
+                         if isinstance(d, (torch.Tensor, np.ndarray)))
+
+
+def shard_batch(data, mesh: Optional[DeviceMesh] = None, axis: str = "dp"):
+    """This rank's part of a global batch (:func:`place_on_mesh`);
+    unchanged without a mesh."""
+    mesh = mesh or current_mesh()
+    if mesh is None:
+        return data
+    return place_on_mesh(mesh, axis, data)
+
+
+def replicate(data: torch.Tensor, mesh: Optional[DeviceMesh] = None,
+              src: int = 0) -> torch.Tensor:
+    """Rank ``src``'s value on every rank: a broadcast into ``data`` in
+    place (the counterpart of placing an array replicated on the mesh)."""
+    mesh = mesh or current_mesh()
+    if mesh is None or mesh.size == 1:
+        return data
+    dist.broadcast(data, src, group=mesh.group)
+    return data
+
+
+def zero_shard_pad(n: int, num_shards: int) -> int:
+    """Smallest multiple of ``num_shards`` >= ``n``: the padded flat length
+    a ZeRO-sharded buffer needs so every rank owns an equal 1/N tile."""
+    if num_shards <= 0:
+        raise MXNetError(f"num_shards must be positive, got {num_shards}")
+    return -(-n // num_shards) * num_shards

@@ -3,8 +3,10 @@
 ``mxnet_tpu_torch`` and ``chip_smoke.py`` import neither JAX nor the JAX
 package, and the package never calls a library kernel in place of its
 own (``scaled_dot_product_attention``, ``F.layer_norm`` /
-``torch.layer_norm``, ``torch.compile``, and cuDNN's recurrence:
-``torch.nn.LSTM`` / ``GRU`` / ``RNN``, ``torch._VF``, ``torch.lstm``).
+``torch.layer_norm``, ``torch.compile``, cuDNN's recurrence:
+``torch.nn.LSTM`` / ``GRU`` / ``RNN``, ``torch._VF``, ``torch.lstm``, and
+the library's optimizer kernels: ``torch.optim``, ``torch._fused_adam_``
+and its kin, ``torch._foreach_*``).
 """
 import ast
 import os
@@ -54,13 +56,16 @@ def test_package_has_its_modules():
               "ops/kernels/rnn_scan.py", "gluon/rnn/rnn_layer.py",
               "gluon/model_zoo/word_lm.py", "engine.py",
               "serving/resilience.py", "serving/kvcache.py",
-              "serving/decode.py", "gluon/gqa_decoder.py"):
+              "serving/decode.py", "gluon/gqa_decoder.py",
+              "parallel/dist.py", "parallel/mesh.py",
+              "parallel/collectives.py", "kvstore/base.py",
+              "kvstore/kvstore.py", "ops/kernels/opt_update.py"):
         assert os.path.join("mxnet_tpu_torch", m) in rel, m
     csrc = os.listdir(os.path.join(PKG, "ops", "kernels", "csrc"))
     assert {"flash_fwd.cu", "layernorm_fwd.cu", "bias_gelu_fwd.cu",
             "flash_bwd.cu", "layernorm_bwd.cu", "bias_gelu_bwd.cu",
             "rnn_scan_fwd.cu", "rnn_scan_bwd.cu",
-            "rnn_decode.cu"} <= set(csrc)
+            "rnn_decode.cu", "opt_update.cu"} <= set(csrc)
 
 
 @pytest.mark.parametrize("path", _package_files()
@@ -97,7 +102,9 @@ def _library_call(name: str) -> bool:
         return parts[0] in ("nn", "torch")
     if parts[-1] in ("lstm", "gru", "rnn_tanh", "rnn_relu"):
         return parts[0] == "torch"
-    return False
+    if parts[-1].startswith(("_fused_adam", "_fused_sgd", "_foreach_")):
+        return True
+    return "optim" in parts[:-1] and parts[0] == "torch"
 
 
 #: cuDNN-backed recurrent modules of ``torch.nn``
@@ -125,7 +132,11 @@ def test_checks_catch_what_they_guard():
                      "torch._cudnn_rnn(x)\nrnn.LSTM(4, input_size=4)\n"
                      "LSTM(4, input_size=4)\n"
                      "nn.LSTMCell(4, 4)\ntorch.nn.GRUCell(4, 4)\n"
-                     "nn.RNNCell(4, 4)\n")
+                     "nn.RNNCell(4, 4)\n"
+                     "torch._fused_adam_(ws, gs, ms, vs, mx, st)\n"
+                     "torch._fused_adamw_(ws)\ntorch._fused_sgd_(ws)\n"
+                     "torch._foreach_add_(ws, gs)\n"
+                     "torch.optim.Adam(ps)\nK.unit_update(w, g)\n")
     assert [n for _, n in _imports(tree) if _forbidden_module(n)] \
         == ["jax", "mxnet_tpu.ops"]
     calls = [_call_name(n.func) for n in ast.walk(tree)
@@ -133,7 +144,9 @@ def test_checks_catch_what_they_guard():
     assert sorted(calls) == ["F.scaled_dot_product_attention",
                              "nn.GRU", "nn.LSTMCell", "nn.RNNCell",
                              "torch._VF.lstm", "torch._cudnn_rnn",
+                             "torch._foreach_add_", "torch._fused_adam_",
+                             "torch._fused_adamw_", "torch._fused_sgd_",
                              "torch.compile", "torch.nn.GRUCell",
                              "torch.nn.LSTM",
                              "torch.nn.functional.layer_norm",
-                             "torch.rnn_tanh"]
+                             "torch.optim.Adam", "torch.rnn_tanh"]

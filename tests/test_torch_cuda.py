@@ -468,3 +468,82 @@ def test_rnn_decode_equals_scan_position_on_card(cuda_dev, mode, dtype):
         assert torch.equal(h, ys[t])
         if mode == "lstm":
             assert torch.equal(c, cs[t])
+
+
+def _opt_unit(kind_code, n, dtype, dev, seed, vec):
+    """Flat unit inputs of the ``opt_update`` kernel on ``dev``."""
+    g = torch.Generator().manual_seed(seed)
+    n_states = {"sgd": 0, "sgd_mom": 1, "adam": 2}[kind_code]
+    w = torch.randn(n, generator=g).to(dev, dtype)
+    grad = (torch.randn(n, generator=g) * 3).to(dev, dtype)
+    states = tuple((torch.rand(n, generator=g) * 0.1).to(dev, dtype)
+                   for _ in range(n_states))
+    if vec:
+        hp = ((torch.rand(n, generator=g) * 0.1).to(dev),
+              (torch.rand(n, generator=g) * 0.01).to(dev),
+              torch.randint(1, 5, (n,), generator=g).to(dev, torch.int32))
+    else:
+        hp = (0.05, 0.01, 3)
+    return w, grad, states, hp
+
+
+def opt_weight_ulps(got, ref, w_in):
+    """Max |got - ref| in float32 ulps of max(|w_in|, |ref|): the new
+    weight's error against the scale of the value it updates."""
+    scale = torch.maximum(w_in.float().abs(), ref.float().abs())
+    ulp = torch.nextafter(scale, torch.full_like(scale, float("inf"))) \
+        - scale
+    return float(((got.float() - ref.float()).abs() / ulp).max())
+
+
+OPT_KERNEL_CASES = [("sgd", {"momentum": 0.0}), ("sgd_mom", {"momentum": 0.9}),
+                    ("adam", {"beta1": 0.9, "beta2": 0.999,
+                              "epsilon": 1e-8})]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("vec", [False, True])
+@pytest.mark.parametrize("clip", [False, True])
+@pytest.mark.parametrize("case", OPT_KERNEL_CASES, ids=lambda c: c[0])
+def test_opt_update_kernel_on_card(cuda_dev, case, clip, vec, dtype):
+    """Kernel 12 against its plain version on the card at a ragged length:
+    float32 states bit-exact and the weight within 1 ulp (float32 pow of
+    the bias correction), bfloat16 within 2e-2."""
+    from mxnet_tpu_torch.ops.kernels import opt_update as KO
+    code, extra = case
+    kind = "adam" if code == "adam" else "sgd"
+    cfg = dict(extra, has_clip=clip)
+    w, g, states, (lr, wd, t) = _opt_unit(code, 5001, dtype, cuda_dev, 4,
+                                          vec)
+    pw, ps = KO.unit_update_plain(kind, cfg, w, g, lr, wd, t, 0.25, 0.5,
+                                  states)
+    kw, ks = w.clone(), tuple(s.clone() for s in states)
+    before = K.launch_counts()["opt_update"]
+    KO.unit_update(kind, cfg, kw, g, lr, wd, t, 0.25, 0.5, ks)
+    torch.cuda.synchronize()
+    assert K.launch_counts()["opt_update"] == before + 1
+    if dtype == torch.float32:
+        for a, b in zip(ks, ps):
+            assert torch.equal(a, b)
+        assert opt_weight_ulps(kw, pw, w) <= 1
+    else:
+        for a, b in list(zip(ks, ps)) + [(kw, pw)]:
+            torch.testing.assert_close(a.float(), b.float(), rtol=2e-2,
+                                       atol=2e-2)
+
+
+@pytest.mark.cuda
+def test_opt_update_wrapper_raises_on_card(cuda_dev):
+    from mxnet_tpu_torch.ops.kernels import opt_update as KO
+    cfg = {"momentum": 0.9, "has_clip": False}
+    w = torch.zeros(8, 4, device=cuda_dev)
+    with pytest.raises(mxt.MXNetError, match="flat"):
+        KO.unit_update("sgd", cfg, w, w, 0.1, 0.0, 1, 1.0, 0.0,
+                       (torch.zeros_like(w),))
+    w = torch.zeros(8, device=cuda_dev)
+    with pytest.raises(mxt.MXNetError, match="states"):
+        KO.unit_update("sgd", cfg, w, w, 0.1, 0.0, 1, 1.0, 0.0, ())
+    with pytest.raises(mxt.MXNetError, match="all scalars or all"):
+        KO.unit_update("sgd", cfg, w, w, torch.zeros(8, device=cuda_dev),
+                       0.0, 1, 1.0, 0.0, (torch.zeros_like(w),))

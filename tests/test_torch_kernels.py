@@ -182,11 +182,17 @@ def test_cpu_tensors_take_plain_versions_and_count_nothing():
         + KN.bias_gelu(x, torch.zeros(8)).sum()
     loss.backward()
     assert q.grad is not None and x.grad is not None
+    from mxnet_tpu_torch.ops.kernels import opt_update as KO
+    w, m = torch.ones(8), torch.zeros(8)
+    KO.unit_update("sgd", {"momentum": 0.9, "has_clip": False}, w,
+                   torch.ones(8), 0.5, 0.0, 1, 1.0, 0.0, (m,))
+    assert torch.equal(m, torch.full((8,), -0.5))
+    assert torch.equal(w, torch.full((8,), 0.5))
     assert K.launch_counts() == {name: 0 for name in K.KERNELS}
     assert set(K.KERNELS) == {
         "flash_fwd", "layernorm_fwd", "bias_gelu_fwd", "flash_bwd_fused",
         "flash_bwd_dq", "flash_bwd_dkv", "layernorm_bwd", "bias_gelu_bwd",
-        "rnn_scan_fwd", "rnn_scan_bwd", "rnn_decode"}
+        "rnn_scan_fwd", "rnn_scan_bwd", "rnn_decode", "opt_update"}
 
 
 def test_wrappers_refuse_other_devices():
@@ -199,6 +205,11 @@ def test_wrappers_refuse_other_devices():
     q = torch.empty(1, 1, 4, 4, device="meta")
     with pytest.raises(mxt.MXNetError, match="not supported"):
         ATT.flash_attention(q, q, q)
+    from mxnet_tpu_torch.ops.kernels import opt_update as KO
+    w = torch.empty(8, device="meta")
+    with pytest.raises(mxt.MXNetError, match="not supported"):
+        KO.unit_update("sgd", {"momentum": 0.0, "has_clip": False}, w, w,
+                       0.1, 0.0, 1, 1.0, 0.0, ())
     with pytest.raises(mxt.MXNetError, match="batch, heads, seq, dim"):
         ATT.flash_attention(torch.ones(4, 4), torch.ones(4, 4),
                             torch.ones(4, 4))
