@@ -4,8 +4,11 @@
     python3 chip_smoke.py            # needs one CUDA device and nvcc
     python3 chip_smoke.py --profile  # also: device time of one served
                                      # micro-batch, of one BERT and one
-                                     # LSTM LM train step, and of one
+                                     # LSTM LM train step (device shares
+                                     # by kernel family), and of one
                                      # bucket-8 decode step
+    python3 chip_smoke.py --ptxas    # also: nvcc's register and spill
+                                     # report of every kernel
     python3 chip_smoke.py --zero-train  # phases 1, 2 and 11 alone, on
                                         # two or more cards
 
@@ -20,10 +23,15 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    computes the same function at the shapes of its path, in both dtypes
    (the backward kernels at BERT-base training's B*H = 384, S = 512,
    D = 64, at the long-sequence phase's S = 1024, and LayerNorm at
-   16384 x 768); the recurrence kernels in every mode (LSTM, GRU, tanh
-   and relu RNN), forward and reverse, at T 7 x N 3 x H 37 and at the
-   LSTM LM's T 35 x N 64 x H 650 (every output and gradient compared,
-   timed at the LM's LSTM layer), the bias-GELU backward at 4096 x
+   16384 x 768; the fused backward's tile edges are checked too: one
+   position at D 1, one key, one query, D 128 causal at 512, 449 keys);
+   the recurrence kernels in every mode (LSTM, GRU, tanh and relu RNN),
+   forward and reverse, at T 7 x N 3 x H 37, N 1, N 130, H 129, at T 3 x
+   N 300 x H 1,024 (and H 1,500 for the one-gate modes), where the
+   backward's walk must read W_hh through L2 (each check prints its
+   plan), and the LSTM LM's T 35 x N 64 x H 650 (every output and
+   gradient compared, timed at the LM's LSTM layer, with the host time
+   of the walk's plan), the bias-GELU backward at 4096 x
    3072 and at an unaligned C, and the decode step (``rnn_decode``) in
    every mode at N 3 x H 37, N 8 x H 650 and N 8 x H 128, float32 and
    bfloat16, plus 35 chained decode steps against the ``rnn_scan_fwd``
@@ -86,7 +94,11 @@ Phases, each of which fails the run (non-zero exit) when it fails:
     ``make_mesh({"dp": world})``: the sharded update on, falling finite
     losses, bit-equal weights on every rank, 88 ``opt_update`` launches a
     rank a step, the first losses equal a one-card forward's within 1e-5,
-    the Adam state a rank ~1/world; step ms, global tokens/s, peak memory.
+    the Adam state a rank ~1/world; step ms, global tokens/s, peak memory;
+    then one eager step on each rank's rows (``loss.backward()``,
+    ``Trainer.allreduce_grads()`` over NCCL, ``Trainer.update``): every
+    reduced gradient against rank 0's backward of the whole batch (as
+    phase 6's gradient check bounds it) and bit-equal weights after.
 
 ``{"launch_counts": {...}}`` gives each kernel's launches on its path.
 The line before the last is a JSON object with one entry per kernel
@@ -358,6 +370,13 @@ FLASH_BWD_CASES = [
     (2, 3, 70, 70, 80, False),       # D not a power of two
     (LONG_BATCH, 12, LONG_SEQ, LONG_SEQ, 64, False),
     (LONG_BATCH, 12, LONG_SEQ, LONG_SEQ, 64, True),
+    # the fused kernel's tile edges: one position at D = 1, one key, one
+    # query, D = 128 causal at 512, a ragged key count
+    (2, 3, 1, 1, 1, False),
+    (2, 3, 77, 1, 64, True),
+    (2, 3, 1, 130, 32, True),
+    (2, 12, 512, 512, 128, True),
+    (2, 3, 300, 449, 64, False),
 ]
 #: (rows, C) of the LayerNorm backward: training's 32 x 512 tokens, and
 #: a C that takes the scalar (unaligned) path
@@ -557,9 +576,18 @@ def time_bwd_kernels(torch, F, ATT, KN, timed):
     return timing
 
 
-#: recurrence cases (T, N, H): a ragged small one, and the LSTM LM's
-#: (bptt 35, batch 64, hidden 650); every mode, forward and reverse
-RNN_CASES = ((7, 3, 37), (35, 64, 650))
+#: recurrence cases (T, N, H): a ragged small one, one batch row, 130
+#: rows (more than one block's rows), H 129 (ragged unit tiles), and the
+#: LSTM LM's (bptt 35, batch 64, hidden 650), which is timed; every mode,
+#: forward and reverse
+RNN_TIMED = (35, 64, 650)
+#: (T, N, H) per mode where the forward runs but no tile with W_hh's
+#: column slice in shared memory keeps the backward walk's grid resident:
+#: the walk reads W_hh through L2 there
+RNN_L2_CASES = {"lstm": (3, 300, 1024), "gru": (3, 300, 1024),
+                "rnn_tanh": (3, 300, 1500), "rnn_relu": (3, 300, 1500)}
+RNN_CASES = ((7, 3, 37), (9, 1, 300), (5, 130, 200), (6, 17, 129),
+             RNN_L2_CASES["lstm"], RNN_TIMED)
 RNN_MODES = ("lstm", "gru", "rnn_tanh", "rnn_relu")
 #: (rows, C) of the bias-GELU backward: the phase-5 encoder's FFN
 #: (32 x 128 tokens x 3072), and an unaligned C
@@ -633,35 +661,40 @@ def check_new_kernels(torch, K, KR, KN, dev):
 
         dn = str(dtype).replace("torch.", "")
         atol, rtol = TOLS[dn]
-        for n_t, n, h in RNN_CASES:
-            for mode in RNN_MODES:
-                for rev in (False, True):
-                    got, ref, launched, args = rnn_case(
-                        torch, K, KR, rnd, mode, n_t, n, h, rev)
-                    res = {k: compare(torch, got[k], ref[k], atol, rtol)
-                           for k in ref}
-                    worst = max(res, key=lambda k: res[k][1])
-                    ok = all(r[0] for r in res.values()) and \
-                        launched == {"rnn_scan_fwd": 1, "rnn_scan_bwd": 1}
-                    rec = {"kernel": "rnn_scan", "mode": mode,
-                           "reverse": rev, "dtype": dn, "shape": [n_t, n, h],
-                           "max_abs_err": {k: r[1] for k, r in res.items()},
-                           "worst": worst, "atol": atol, "rtol": rtol,
-                           "launches": launched, "ok": ok}
-                    emit({"check": rec})
-                    if not ok:
-                        failures.append(rec)
-                    if (n_t, n, h) == RNN_CASES[-1] and mode == "lstm" \
-                            and not rev:
-                        fwd_err = max(res[k][1] for k in ("ys", "h_T", "c_T"))
-                        bwd_err = max(r[1] for k, r in res.items()
-                                      if k.startswith("d"))
-                        timed[("rnn_scan_fwd", dn)] = (
-                            dict(rec, kernel="rnn_scan_fwd",
-                                 max_abs_err=fwd_err), args)
-                        timed[("rnn_scan_bwd", dn)] = (
-                            dict(rec, kernel="rnn_scan_bwd",
-                                 max_abs_err=bwd_err), args)
+        cases = [(shape, mode) for shape in RNN_CASES for mode in RNN_MODES]
+        cases += [(shape, mode) for mode, shape in RNN_L2_CASES.items()
+                  if shape not in RNN_CASES]
+        for (n_t, n, h), mode in cases:
+            for rev in (False, True):
+                got, ref, launched, args = rnn_case(
+                    torch, K, KR, rnd, mode, n_t, n, h, rev)
+                res = {k: compare(torch, got[k], ref[k], atol, rtol)
+                       for k in ref}
+                worst = max(res, key=lambda k: res[k][1])
+                walk = KR.rnn_bwd_walk_plan(n, h, mode, dtype, dev)
+                ok = all(r[0] for r in res.values()) and \
+                    launched == {"rnn_scan_fwd": 1, "rnn_scan_bwd": 1}
+                if RNN_L2_CASES.get(mode) == (n_t, n, h):
+                    ok = ok and not walk["w_in_smem"]
+                rec = {"kernel": "rnn_scan", "mode": mode,
+                       "reverse": rev, "dtype": dn, "shape": [n_t, n, h],
+                       "max_abs_err": {k: r[1] for k, r in res.items()},
+                       "worst": worst, "atol": atol, "rtol": rtol,
+                       "launches": launched, "walk": walk, "ok": ok}
+                emit({"check": rec})
+                if not ok:
+                    failures.append(rec)
+                if (n_t, n, h) == RNN_TIMED and mode == "lstm" \
+                        and not rev:
+                    fwd_err = max(res[k][1] for k in ("ys", "h_T", "c_T"))
+                    bwd_err = max(r[1] for k, r in res.items()
+                                  if k.startswith("d"))
+                    timed[("rnn_scan_fwd", dn)] = (
+                        dict(rec, kernel="rnn_scan_fwd",
+                             max_abs_err=fwd_err), args)
+                    timed[("rnn_scan_bwd", dn)] = (
+                        dict(rec, kernel="rnn_scan_bwd",
+                             max_abs_err=bwd_err), args)
         for rows, c in BG_BWD_CASES:
             x, bias, dy = rnd(rows, c), rnd(c), rnd(rows, c)
             got = KN.bias_gelu_bwd(x, bias, dy)
@@ -719,6 +752,7 @@ def time_new_kernels(torch, F, KR, KN, timed):
     dW). Returns {(kernel, dtype): timing}."""
     timing, cudnn = {}, {}
     for (name, dn), (rec, args) in timed.items():
+        extra = {}
         if name == "bias_gelu_bwd":
             x, bias, dy = args
             size = x.element_size()
@@ -775,6 +809,8 @@ def time_new_kernels(torch, F, KR, KN, timed):
                 library = ("cuDNN torch.nn.LSTM forward+backward minus "
                            "forward (eager)")
                 library_ms = cudnn[dn][1]
+                extra["walk_plan_host_us"] = walk_plan_host_us(
+                    KR, n, h, xw.dtype, xw.device)
         (ms, eager_ms), (plain_ms, plain_eager_ms) = (
             time_ms(torch, fn, sets, iters=10 if name != "bias_gelu_bwd"
                     else 30) for fn in fns)
@@ -784,10 +820,21 @@ def time_new_kernels(torch, F, KR, KN, timed):
              "plain_ms": plain_ms, "library_ms": library_ms,
              "library": library, "bound_ms": b_ms, "bound_by": b_by,
              "eager_ms": eager_ms, "plain_eager_ms": plain_eager_ms,
-             "bytes": nbytes, "flops": flops}
+             "bytes": nbytes, "flops": flops, **extra}
         emit({"timing": t})
         timing[(name, dn)] = t
     return timing
+
+
+def walk_plan_host_us(KR, n, h, dtype, dev, calls=200):
+    """Host microseconds of one plan of the recurrence backward's walk
+    (the occupancy queries that every ``rnn_scan_bwd`` call makes),
+    through the query entry from Python: the mean of ``calls``."""
+    KR.rnn_bwd_walk_plan(n, h, "lstm", dtype, dev)
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        KR.rnn_bwd_walk_plan(n, h, "lstm", dtype, dev)
+    return (time.perf_counter() - t0) / calls * 1e6
 
 
 #: decode-kernel cases (N, H): a ragged one and the decode_wide shape
@@ -967,7 +1014,7 @@ FAMILIES = (("flash_fwd", ("flash_fwd",)), ("flash_bwd", ("flash_bwd",)),
             ("bias_gelu_fwd", ("bias_gelu_fwd",)),
             ("bias_gelu_bwd", ("bias_gelu_bwd",)),
             ("rnn_scan_fwd", ("rnn_scan_fwd",)),
-            ("rnn_scan_bwd", ("rnn_scan_bwd", "rnn_dw")),
+            ("rnn_scan_bwd", ("rnn_bwd_walk", "rnn_gemm")),
             ("rnn_decode", ("rnn_decode",)),
             ("gemm", ("gemm", "cutlass", "gemv")))
 
@@ -996,7 +1043,7 @@ def device_us_by_family(torch, prof):
     return families
 
 
-def profile_train_step(torch, net, trainer, loss_fn, x, y, iters=3):
+def profile_train_step(torch, net, trainer, loss_fn, x, y, what, iters=3):
     """``--profile``: where the time of one training step goes. One step
     split by CUDA events into forward, backward and optimizer update;
     then ``torch.profiler`` over ``iters`` steps, device time summed by
@@ -1027,10 +1074,12 @@ def profile_train_step(torch, net, trainer, loss_fn, x, y, iters=3):
     top = sorted(device_us_by_kernel(torch, prof).items(),
                  key=lambda kv: -kv[1])[:8]
     emit({"train_profile": {
-        "iters": iters, "phase_ms_one_step": phases,
+        "model": what, "iters": iters, "phase_ms_one_step": phases,
         "wall_ms_per_step": wall_us / iters / 1e3,
         "device_ms_per_step": {k: v / iters / 1e3
                                for k, v in families.items()},
+        "device_share_by_family": {k: v / busy for k, v in families.items()}
+        if busy else "not measured (the profiler saw no device time)",
         "top_kernels_ms_per_step": [[k[:80], v / iters / 1e3]
                                     for k, v in top],
         "device_busy_share": busy / wall_us if busy else
@@ -1079,7 +1128,8 @@ def train_bert(torch, np, K, dev, smi, profile=False):
     losses_ok = all(math.isfinite(v) for v in losses) and \
         losses[-1] < losses[0]
     if profile:
-        profile_train_step(torch, net, trainer, loss_fn, xt, yt)
+        profile_train_step(torch, net, trainer, loss_fn, xt, yt,
+                           "bert_base classifier 32 x 512")
 
     t1 = time.perf_counter()
     cpu_net = copy_to_cpu(lambda: make("cpu"), net, load_jax_params)
@@ -1377,7 +1427,8 @@ def train_lstm(torch, np, K, dev, smi, profile=False):
     losses_ok = all(math.isfinite(v) for v in losses) and \
         losses[-1] < losses[0]
     if profile:
-        profile_train_step(torch, net, trainer, loss_fn, xt, yt)
+        profile_train_step(torch, net, trainer, loss_fn, xt, yt,
+                           "WordLM 64 x 35")
 
     t1 = time.perf_counter()
     cpu_net = copy_to_cpu(lambda: make("cpu"), net, load_jax_params)
@@ -2087,13 +2138,8 @@ def zero_rank(widths, batch, seq, steps, lr):
     first = losses[0].float().contiguous()
     gathered = [torch.empty_like(first) for _ in range(world)]
     tdist.all_gather(gathered, first)
-    same = True
-    for p in net.parameters():
-        q = p.detach().clone()
-        tdist.broadcast(q, 0)
-        same = same and bool(torch.equal(q, p.detach()))
-    flag = torch.tensor([1 if same else 0], device=dev)
-    tdist.all_reduce(flag, op=tdist.ReduceOp.MIN)
+    same = weights_equal_all_ranks(torch, net)
+    eager = eager_rank_step(torch, net, loss_fn, x, y)
     return {"rank": rank, "world": world, "zero_sharded": step.zero_sharded,
             "losses": [float(l.float().mean()) for l in losses],
             "first_losses_global": torch.cat(gathered).cpu().numpy()
@@ -2104,9 +2150,61 @@ def zero_rank(widths, batch, seq, steps, lr):
             "state_bytes": step.optimizer_state_bytes(),
             "state_bytes_unsharded": sum(2 * 4 * p.numel()
                                          for p in trainer._params),
-            "weights_equal_all_ranks": bool(flag.item()),
+            "weights_equal_all_ranks": same, "eager": eager,
             "max_memory_allocated": torch.cuda.max_memory_allocated(dev)
             if dev.type == "cuda" else None}
+
+
+def weights_equal_all_ranks(torch, net):
+    """Whether every rank holds rank 0's parameters bit for bit (the
+    answer is the same on every rank)."""
+    import torch.distributed as tdist
+    same = True
+    for p in net.parameters():
+        q = p.detach().clone()
+        tdist.broadcast(q, 0)
+        same = same and bool(torch.equal(q, p.detach()))
+    flag = torch.tensor([1 if same else 0], device=p.device)
+    tdist.all_reduce(flag, op=tdist.ReduceOp.MIN)
+    return bool(flag.item())
+
+
+def eager_rank_step(torch, net, loss_fn, x, y, lr=0.1):
+    """Phase 11's eager leg, one rank: ``loss.backward()`` on the rank's
+    rows of the global batch, then ``Trainer.allreduce_grads()`` under
+    the dp mesh and ``Trainer.update`` (together what ``Trainer.step``
+    does, here with a look at the reduced gradients between them), SGD.
+    Rank 0 first runs a backward of the whole batch on its card; each
+    parameter's reduced gradient is held against it within GRAD_ATOL +
+    GRAD_RTOL x its largest |gradient| (the sum over ranks is taken in
+    another order), and the ranks' weights must end equal bit for bit."""
+    import torch.distributed as tdist
+    from mxnet_tpu_torch.gluon import Trainer
+    from mxnet_tpu_torch.parallel import dist, make_mesh
+    rank, world = dist.rank(), dist.size()
+    params = dict(net.named_parameters())
+    ref = None
+    if rank == 0:
+        loss_fn(net(x), y).sum().backward()
+        ref = {k: p.grad.detach().clone() for k, p in params.items()}
+    per = x.shape[0] // world
+    rows = slice(rank * per, (rank + 1) * per)
+    trainer = Trainer(params, "sgd", {"learning_rate": lr})
+    worst, worst_name = 0.0, None
+    with make_mesh({"dp": world}):
+        loss_fn(net(x[rows]), y[rows]).sum().backward()
+        trainer.allreduce_grads()
+        if ref is not None:
+            for k, p in params.items():
+                err = float((p.grad - ref[k]).abs().max())
+                ratio = err / (GRAD_ATOL
+                               + GRAD_RTOL * float(ref[k].abs().max()))
+                if not math.isfinite(ratio) or ratio > worst:
+                    worst, worst_name = ratio, k
+        trainer.update(x.shape[0])
+    return {"grad_worst_err_over_bound": worst, "grad_worst_param":
+            worst_name, "weights_equal_all_ranks":
+            weights_equal_all_ranks(torch, net)}
 
 
 def zero_train_multi(torch, np, smi, device="cuda", world=None, widths=None,
@@ -2116,8 +2214,10 @@ def zero_train_multi(torch, np, smi, device="cuda", world=None, widths=None,
     card over NCCL (``parallel.dist.spawn``). Gates: the sharded update
     on, finite losses falling, every rank's weights equal bit for bit,
     exactly one opt_update launch a unit a step, the first step's losses
-    equal a one-card forward's within ZERO_LOSS_ATOL, and each rank's
-    Adam state ~1/world of the unsharded."""
+    equal a one-card forward's within ZERO_LOSS_ATOL, each rank's Adam
+    state ~1/world of the unsharded; and in the eager leg
+    (:func:`eager_rank_step`) every reduced gradient within its bound and
+    the ranks' weights equal after the update."""
     from mxnet_tpu_torch.parallel import dist
     world = world or torch.cuda.device_count()
     if device == "cuda":
@@ -2148,6 +2248,11 @@ def zero_train_multi(torch, np, smi, device="cuda", world=None, widths=None,
         "first_loss_atol": ZERO_LOSS_ATOL,
         "weights_equal_all_ranks": all(r["weights_equal_all_ranks"]
                                        for r in ranks),
+        "eager_grad_worst_err_over_bound":
+            r0["eager"]["grad_worst_err_over_bound"],
+        "eager_grad_worst_param": r0["eager"]["grad_worst_param"],
+        "eager_weights_equal_all_ranks": all(
+            r["eager"]["weights_equal_all_ranks"] for r in ranks),
         "state_bytes_per_rank": [r["state_bytes"] for r in ranks],
         "state_bytes_unsharded": r0["state_bytes_unsharded"],
         "step_ms_rank0": r0["step_ms"], "median_step_ms": median,
@@ -2172,7 +2277,9 @@ def zero_train_multi(torch, np, smi, device="cuda", world=None, widths=None,
                     and all(c == r0["units"] for r in ranks
                             for c in r["opt_update_per_step"])
                     and first_err <= ZERO_LOSS_ATOL
-                    and share <= 1.01 / world)
+                    and share <= 1.01 / world
+                    and report["eager_grad_worst_err_over_bound"] <= 1.0
+                    and report["eager_weights_equal_all_ranks"])
     emit({"zero_train": report})
     if not report["ok"]:
         raise SystemExit(f"ZeRO training phase failed: {report}")

@@ -46,7 +46,6 @@ from typing import Callable, List, Optional
 
 import numpy as np
 import torch
-import torch.distributed as dist
 
 from ..base import MXNetError
 from ..parallel import dist as _dist
@@ -402,12 +401,8 @@ class CompiledTrainStep:
         """Replicated update after an all-reduce of every gradient."""
         loss = self._forward(args, kwargs)
         loss.sum().backward()
-        for p in self._trainer._params:
-            if p.grad is not None:
-                dist.all_reduce(p.grad, group=mesh.group)
-                if mean:
-                    p.grad.div_(mesh.size)
-        self._trainer.step(batch_size)
+        self._trainer.allreduce_grads(mean=mean, mesh=mesh)
+        self._trainer.update(batch_size)
         return loss.detach()
 
     # ---------------- the ZeRO-1 step ----------------

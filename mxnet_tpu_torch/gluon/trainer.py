@@ -23,16 +23,29 @@ A parameter that no backward reached since the last update has a stale
 gradient: :meth:`step` raises, unless ``ignore_stale_grad=True``, which
 skips it. The kvstore is the single-process store (``"device"``,
 ``"local"``, ``"tpu"``); a distributed one (``dist_sync``) is not ported
-and raises. Across ranks the gradient reduction belongs to the compiled
-step, so :meth:`allreduce_grads` has nothing to reduce.
+and raises.
+
+Across ranks (``parallel.dist.size() > 1``) :meth:`step` first
+all-reduces the gradient of every parameter that some rank's backward
+reached, over the active mesh's group, or the default group without a
+mesh, so each rank updates from the gradient of the global batch: each rank backpropagates its own part, and
+``step(global_batch_size)`` turns the sum into the global mean, as the
+reference's global arrays do. ``compile_step``'s ``mesh`` mode reduces
+through the same :meth:`allreduce_grads`; its ``zero`` mode
+reduce-scatters instead and never calls it.
 """
 from __future__ import annotations
 
 from typing import Optional
 
+import torch
+import torch.distributed as dist
+
 from .. import optimizer as opt_mod
 from ..base import MXNetError
 from ..kvstore import create as create_kvstore
+from ..parallel import dist as _dist
+from ..parallel.mesh import current_mesh
 from .nn.basic_layers import init_param
 
 __all__ = ["Trainer"]
@@ -96,15 +109,45 @@ class Trainer:
 
     # ---------------- core ----------------
     def step(self, batch_size: int, ignore_stale_grad: bool = False):
-        """Reduce gradients (nothing to do on one device), then apply the
-        optimizer with gradients rescaled by 1 / ``batch_size``."""
+        """Reduce gradients across ranks (:meth:`allreduce_grads`), then
+        apply the optimizer with gradients rescaled by 1 /
+        ``batch_size``, the global batch's size."""
         self._optimizer.rescale_grad = self._scale / batch_size
         self.allreduce_grads()
         self._update(ignore_stale_grad)
 
-    def allreduce_grads(self):
-        """Nothing to reduce: the single-process store holds one gradient
-        per parameter (across ranks, the compiled step reduces)."""
+    def allreduce_grads(self, mean: bool = False, mesh=None):
+        """Sum the gradients over the ranks of ``mesh`` (else the active
+        mesh, else the default process group); ``mean`` divides by the
+        group's size (a batch every rank computed whole). A no-op in a
+        single process.
+
+        Every rank reduces the same parameters in the same order, as the
+        reference's ``pushpull_list`` covers every key: one small
+        all-reduce of the fresh flags first gives the parameters that some
+        rank's backward reached, and a rank whose backward missed one of
+        them adds zeros and takes the sum as its fresh gradient. A
+        parameter no rank reached stays stale on every rank."""
+        if _dist.size() < 2 or not self._params:
+            return
+        mesh = mesh or current_mesh()
+        group = mesh.group if mesh is not None else None
+        n = mesh.size if mesh is not None else _dist.size()
+        if n < 2:
+            return
+        fresh = torch.tensor([p.fresh_grad and p.grad is not None
+                              for p in self._params], dtype=torch.int32,
+                             device=self._params[0].device)
+        dist.all_reduce(fresh, op=dist.ReduceOp.MAX, group=group)
+        for p, anywhere in zip(self._params, fresh.tolist()):
+            if not anywhere:
+                continue
+            if not (p.fresh_grad and p.grad is not None):
+                p.grad = torch.zeros_like(p)
+                p.fresh_grad = True
+            dist.all_reduce(p.grad, group=group)
+            if mean:
+                p.grad.div_(n)
 
     def update(self, batch_size: int, ignore_stale_grad: bool = False):
         """Apply the optimizer only (gradients assumed reduced)."""

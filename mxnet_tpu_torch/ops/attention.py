@@ -8,8 +8,9 @@ path of this module.
 - :func:`flash_attention`: a ``torch.autograd.Function`` whose forward
   is, on a CUDA tensor, the kernel ``csrc/flash_fwd.cu`` (online softmax
   over key tiles, returning the per-row log-sum-exp beside the output)
-  and whose backward is ``csrc/flash_bwd.cu`` (P rebuilt from the saved
-  lse); on a CPU tensor the plain versions
+  and whose backward is ``csrc/flash_bwd_fused.cu`` up to 512 positions,
+  else ``csrc/flash_bwd.cu`` (P rebuilt from the saved lse); on a CPU
+  tensor the plain versions
   :func:`flash_attention_fwd_plain` and :func:`flash_attention_bwd_plain`
   run in the same Function. With ``valid_length`` (a per-sample key
   count) it runs the blockwise PyTorch path on either device, as the JAX
@@ -225,10 +226,12 @@ def _bwd_operands(q, k, v, dout, lse, delta, causal, sm_scale):
 
 def flash_bwd_fused(q, k, v, dout, lse, delta, causal, sm_scale):
     """(dq, dk, dv) from the ``flash_bwd_fused`` kernel (CUDA tensors;
-    ``delta`` = rowsum(dO * O) in float32)."""
+    ``delta`` = rowsum(dO * O) in float32). dq is summed by atomic adds
+    in no fixed order, so it repeats only within float32 rounding."""
     ptrs, geom = _bwd_operands(q, k, v, dout, lse, delta, causal, sm_scale)
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
-    # dq accumulates in float32: in dq itself when that is float32
+    # dq accumulates in float32 (zeroed by the kernel's entry): in dq
+    # itself when that is float32
     acc = dq if q.dtype == torch.float32 else \
         torch.empty(dq.shape, dtype=torch.float32, device=q.device)
     launch("flash_bwd_fused", q.device, *ptrs, dq.data_ptr(),

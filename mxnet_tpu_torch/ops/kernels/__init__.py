@@ -85,7 +85,8 @@ KERNELS: Dict[str, KernelInfo] = {k.name: k for k in (
         (_P, _P, _P, _L, _I, _I, _P),
         "mxnet_tpu/ops/kernels/norm.py:222 (_bg_fwd_kernel)"),
     KernelInfo(
-        "flash_bwd_fused", "mxnet_tpu_torch/ops/kernels/csrc/flash_bwd.cu",
+        "flash_bwd_fused",
+        "mxnet_tpu_torch/ops/kernels/csrc/flash_bwd_fused.cu",
         "mxt_flash_bwd_fused",
         # q, k, v, dout, lse, delta, dq, dq_acc, dk, dv, BH, Sq, Sk, D,
         # causal, sm_scale, dtype, stream
@@ -249,6 +250,9 @@ def library() -> ctypes.CDLL:
                 fn.restype = ctypes.c_int
             lib.mxt_error_string.argtypes = [ctypes.c_int]
             lib.mxt_error_string.restype = ctypes.c_char_p
+            # a query of the recurrence backward's walk, not a kernel
+            lib.mxt_rnn_bwd_walk_plan.argtypes = [_I, _I, _I, _I, _P]
+            lib.mxt_rnn_bwd_walk_plan.restype = ctypes.c_int
             _LIB = lib
         return _LIB
 

@@ -1,13 +1,14 @@
-// Flash-attention backward: dq, dk, dv from q, k, v, dO, lse and
-// delta = rowsum(dO * O), with P = exp(s - lse) rebuilt from the scores.
+// Flash-attention backward for long sequences: dq and dk, dv from q, k,
+// v, dO, lse and delta = rowsum(dO * O), with P = exp(s - lse) rebuilt
+// from the scores.
 //
-// Replaces three TPU kernels of mxnet_tpu/ops/attention.py, all launched
-// by `_flash_bwd_pallas`:
-//   - `_flash_bwd_fused_kernel` (Sq <= 512 and Sk <= 512: the whole
-//     sequence is one 512-block there) -> mxt_flash_bwd_fused;
+// Replaces two TPU kernels of mxnet_tpu/ops/attention.py, launched by
+// `_flash_bwd_pallas` when Sq or Sk exceeds 512:
 //   - `_flash_bwd_dq_kernel`, q-parallel over key blocks -> mxt_flash_bwd_dq;
 //   - `_flash_bwd_dkv_kernel`, k-parallel over query blocks ->
-//     mxt_flash_bwd_dkv (these two for longer sequences).
+//     mxt_flash_bwd_dkv.
+// The third, `_flash_bwd_fused_kernel` (Sq and Sk <= 512), is
+// flash_bwd_fused.cu.
 // Semantics kept exactly:
 //   - layout (B*H, S, D), D <= 128; lse and delta (B*H, Sq) float32,
 //     computed outside the kernels as on the TPU;
@@ -20,24 +21,15 @@
 //     no valid key has lse = -1e30, so exp(s - lse) would be inf, and
 //     inf * 0 is NaN. A masked entry's P and dS are exactly 0.
 //
-// What has no one-to-one CUDA form: the fused TPU kernel holds a whole
-// 512 x 512 P block in VMEM, which does not fit in 227 KB of shared
-// memory. Here one block per (batch*head) owns dq, dk and dv of its head:
-// an outer loop walks 64-key tiles and keeps that tile's dK and dV
-// accumulators in registers; an inner loop walks 64-query tiles,
-// rebuilds P and dS once per (q-tile, k-tile), and adds dS K into a
-// float32 dq accumulator in device memory that only this block writes
-// (so no atomics; for float32 it is dq itself). The dq and dkv kernels
-// run the same tile step from one side each.
+// One block per (batch*head, 64-query tile) walks the key tiles (dq), or
+// per (batch*head, 64-key tile) walks the query tiles (dkv), rebuilding P
+// and dS once per tile pair.
 //
-// Bound on the card: at BERT's training shape (S = 512, D = 64) the
-// backward does 10 * S^2 * D flops per head (QK^T, dO V^T, P^T dO,
-// dS^T Q, dS K) for 7 * S * D * sizeof(T) bytes: operations bound it by
-// far. This first version is simple: float32 FMAs on CUDA cores from
-// shared-memory tiles (no tensor cores, no TMA); 256 threads, four per
-// tile row, each holding 16 scores and D/4 accumulators.
-#include <type_traits>
-
+// Bound on the card: the backward does 10 * S^2 * D flops per head (QK^T,
+// dO V^T, P^T dO, dS^T Q, dS K) for 7 * S * D * sizeof(T) bytes:
+// operations bound it by far. This first version is simple: float32 FMAs
+// on CUDA cores from shared-memory tiles (no tensor cores, no TMA); 256
+// threads, four per tile row, each holding 16 scores and D/4 accumulators.
 #include "common.cuh"
 
 #define BQ 64
@@ -165,114 +157,6 @@ template <int DP>
 __host__ __device__ constexpr size_t smem_floats() {
   // K, V, Q, dO tiles; P and dS tiles; lse and delta rows
   return 4 * 64 * (DP + 1) + 2 * BQ * LDP + 2 * BQ;
-}
-
-// --------------------------------------------------------------------------
-// fused: one block per (batch*head)
-// --------------------------------------------------------------------------
-template <typename T, int DP>
-__global__ void __launch_bounds__(NTHREADS)
-flash_bwd_fused_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, const T* __restrict__ dout,
-                       const float* __restrict__ lse,
-                       const float* __restrict__ delta, T* __restrict__ dq,
-                       float* __restrict__ dq_acc, T* __restrict__ dk,
-                       T* __restrict__ dv, int Sq, int Sk, int D, int causal,
-                       float scale) {
-  constexpr int LD = DP + 1;
-  extern __shared__ float smem[];
-  float* Ks = smem;
-  float* Vs = Ks + BK * LD;
-  float* Qs = Vs + BK * LD;
-  float* dOs = Qs + BQ * LD;
-  float* Ps = dOs + BQ * LD;
-  float* dSs = Ps + BQ * LDP;
-  float* lse_s = dSs + BQ * LDP;
-  float* delta_s = lse_s + BQ;
-
-  const int bh = blockIdx.x;
-  const size_t qbase = (size_t)bh * Sq * D, kbase = (size_t)bh * Sk * D;
-  const float* lse_h = lse + (size_t)bh * Sq;
-  const float* delta_h = delta + (size_t)bh * Sq;
-  float* acc = dq_acc + qbase;
-  const int nq = (Sq + BQ - 1) / BQ, nk = (Sk + BK - 1) / BK;
-  const int r = threadIdx.x >> 2, cg = threadIdx.x & 3;
-
-  // this head's dq accumulator starts at 0; thread (r, cg) owns exactly
-  // the entries it adds to below, so no barrier is needed
-  for (int qt = 0; qt < nq; ++qt) {
-    const int qp = qt * BQ + r;
-    if (qp < Sq) {
-#pragma unroll
-      for (int j = 0; j < DP / 4; ++j) {
-        const int d = cg + 4 * j;
-        if (d < D) acc[(size_t)qp * D + d] = 0.f;
-      }
-    }
-  }
-
-  for (int kt = 0; kt < nk; ++kt) {
-    const int k0 = kt * BK;
-    __syncthreads();   // the previous tile's K and V are consumed
-    load_tile<T>(Ks, LD, k + kbase, k0, Sk, D);
-    load_tile<T>(Vs, LD, v + kbase, k0, Sk, D);
-    float dkr[DP / 4], dvr[DP / 4];
-#pragma unroll
-    for (int j = 0; j < DP / 4; ++j) dkr[j] = dvr[j] = 0.f;
-
-    for (int qt = 0; qt < nq; ++qt) {
-      const int q0 = qt * BQ;
-      if (!tile_runs(q0, k0, Sq, Sk, causal)) continue;
-      __syncthreads();   // Q, dO, P and dS of the previous step consumed
-      load_tile<T>(Qs, LD, q + qbase, q0, Sq, D);
-      load_tile<T>(dOs, LD, dout + qbase, q0, Sq, D);
-      load_rows(lse_s, delta_s, lse_h, delta_h, q0, Sq);
-      __syncthreads();
-      tile_p_ds<T, DP>(Qs, dOs, Ks, Vs, lse_s, delta_s, Ps, dSs, q0, k0, Sq,
-                       Sk, D, causal, scale);
-      __syncthreads();
-      accum_dkv<DP>(Ps, dSs, Qs, dOs, dkr, dvr, D);
-      float dqr[DP / 4];
-#pragma unroll
-      for (int j = 0; j < DP / 4; ++j) dqr[j] = 0.f;
-      accum_dq<DP>(dSs, Ks, dqr, D);
-      const int qp = q0 + r;
-      if (qp < Sq) {
-#pragma unroll
-        for (int j = 0; j < DP / 4; ++j) {
-          const int d = cg + 4 * j;
-          if (d < D) acc[(size_t)qp * D + d] += dqr[j];
-        }
-      }
-    }
-
-    const int kp = k0 + r;
-    if (kp < Sk) {
-#pragma unroll
-      for (int j = 0; j < DP / 4; ++j) {
-        const int d = cg + 4 * j;
-        if (d < D) {
-          dk[kbase + (size_t)kp * D + d] = mxt_from_float<T>(dkr[j]);
-          dv[kbase + (size_t)kp * D + d] = mxt_from_float<T>(dvr[j]);
-        }
-      }
-    }
-  }
-
-  if constexpr (!std::is_same<T, float>::value) {
-    for (int qt = 0; qt < nq; ++qt) {
-      const int qp = qt * BQ + r;
-      if (qp < Sq) {
-#pragma unroll
-        for (int j = 0; j < DP / 4; ++j) {
-          const int d = cg + 4 * j;
-          if (d < D)
-            dq[qbase + (size_t)qp * D + d] =
-                mxt_from_float<T>(acc[(size_t)qp * D + d]);
-        }
-      }
-    }
-  }
 }
 
 // --------------------------------------------------------------------------
@@ -413,11 +297,11 @@ static int allow_smem(K kernel, size_t bytes, bool* configured) {
   return 0;
 }
 
-enum BwdKind { BWD_FUSED = 0, BWD_DQ = 1, BWD_DKV = 2 };
+enum BwdKind { BWD_DQ = 1, BWD_DKV = 2 };
 
 struct BwdArgs {
   const void *q, *k, *v, *dout, *lse, *delta;
-  void *dq, *dq_acc, *dk, *dv;
+  void *dq, *dk, *dv;
   int BH, Sq, Sk, D, causal;
   float scale;
 };
@@ -432,15 +316,7 @@ static int bwd_launch(int kind, const BwdArgs& a, cudaStream_t stream) {
   const float* lse = static_cast<const float*>(a.lse);
   const float* delta = static_cast<const float*>(a.delta);
   int err;
-  if (kind == BWD_FUSED) {
-    static bool configured = false;
-    if ((err = allow_smem(flash_bwd_fused_kernel<T, DP>, smem, &configured)))
-      return err;
-    flash_bwd_fused_kernel<T, DP><<<a.BH, NTHREADS, smem, stream>>>(
-        q, k, v, dout, lse, delta, static_cast<T*>(a.dq),
-        static_cast<float*>(a.dq_acc), static_cast<T*>(a.dk),
-        static_cast<T*>(a.dv), a.Sq, a.Sk, a.D, a.causal, a.scale);
-  } else if (kind == BWD_DQ) {
+  if (kind == BWD_DQ) {
     static bool configured = false;
     if ((err = allow_smem(flash_bwd_dq_kernel<T, DP>, smem, &configured)))
       return err;
@@ -479,25 +355,13 @@ static int bwd_entry(int kind, const BwdArgs& a, int dtype, void* stream) {
 }
 
 // q, dout, dq: (BH, Sq, D); k, v, dk, dv: (BH, Sk, D), contiguous in
-// `dtype`; lse, delta: (BH, Sq) float32; dq_acc: (BH, Sq, D) float32
-// scratch (may be dq itself when dtype is float32). 1 <= D <= 128.
-MXT_API int mxt_flash_bwd_fused(const void* q, const void* k, const void* v,
-                                const void* dout, const void* lse,
-                                const void* delta, void* dq, void* dq_acc,
-                                void* dk, void* dv, int BH, int Sq, int Sk,
-                                int D, int causal, float scale, int dtype,
-                                void* stream) {
-  BwdArgs a{q, k, v, dout, lse, delta, dq, dq_acc, dk, dv,
-            BH, Sq, Sk, D, causal, scale};
-  return bwd_entry(BWD_FUSED, a, dtype, stream);
-}
-
+// `dtype`; lse, delta: (BH, Sq) float32. 1 <= D <= 128.
 MXT_API int mxt_flash_bwd_dq(const void* q, const void* k, const void* v,
                              const void* dout, const void* lse,
                              const void* delta, void* dq, int BH, int Sq,
                              int Sk, int D, int causal, float scale,
                              int dtype, void* stream) {
-  BwdArgs a{q, k, v, dout, lse, delta, dq, nullptr, nullptr, nullptr,
+  BwdArgs a{q, k, v, dout, lse, delta, dq, nullptr, nullptr,
             BH, Sq, Sk, D, causal, scale};
   return bwd_entry(BWD_DQ, a, dtype, stream);
 }
@@ -507,7 +371,7 @@ MXT_API int mxt_flash_bwd_dkv(const void* q, const void* k, const void* v,
                               const void* delta, void* dk, void* dv, int BH,
                               int Sq, int Sk, int D, int causal, float scale,
                               int dtype, void* stream) {
-  BwdArgs a{q, k, v, dout, lse, delta, nullptr, nullptr, dk, dv,
+  BwdArgs a{q, k, v, dout, lse, delta, nullptr, dk, dv,
             BH, Sq, Sk, D, causal, scale};
   return bwd_entry(BWD_DKV, a, dtype, stream);
 }

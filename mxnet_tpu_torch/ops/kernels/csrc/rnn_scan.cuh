@@ -1,10 +1,10 @@
-// Shared pieces of the time-fused recurrence kernels (rnn_scan_fwd.cu,
-// rnn_scan_bwd.cu): mode codes, the gate math of one hidden unit forward
-// and backward, the block's slice of W_hh, the h @ W_hh^T dot product of
-// one batch row, and the cooperative launch that sizes its grid from
-// occupancy.
+// Shared pieces of the recurrence kernels: mode codes and the gate math of
+// one hidden unit forward and backward (rnn_scan_fwd.cu, rnn_scan_bwd.cu,
+// rnn_decode.cu); the forward's block slice of W_hh, its h @ W_hh^T dot
+// product of one batch row, and the cooperative launch that sizes its
+// grid from occupancy.
 //
-// Work split: a block owns U consecutive hidden units with all G gates of
+// The forward's work split: a block owns U consecutive hidden units with all G gates of
 // each unit, so the cell update of a unit stays inside one thread. Within
 // a block each warp takes batch rows n = warp, warp + 8, ...; the lanes
 // split the contraction axis, and lane j finishes unit u0 + j of the row.

@@ -8,9 +8,10 @@ the JAX package's: LSTM [i, f, g, o], GRU [r, z, n].
 
 - forward: CUDA kernel ``csrc/rnn_scan_fwd.cu``, one cooperative launch
   that owns the whole sequence (:func:`rnn_scan_fwd`);
-- backward: ``csrc/rnn_scan_bwd.cu``, the reverse-time walk that
-  recomputes the gates and then sums dW_hh and db_hh, one C entry
-  (:func:`rnn_scan_bwd`);
+- backward: ``csrc/rnn_scan_bwd.cu``, one C entry
+  (:func:`rnn_scan_bwd`): the gate recompute h_{t-1} @ W_hh^T of every
+  step as one tiled product, the cooperative reverse-time walk, then the
+  dW_hh and db_hh sums;
 - decode: :func:`rnn_decode_step`, one inference step from (N, G*H)
   projections, CUDA kernel ``csrc/rnn_decode.cu`` (one ordinary launch a
   step, the scan's gate math), and :func:`rnn_verify_scan`, the same step
@@ -31,18 +32,19 @@ activation dtype and dW, db in W_hh's.
 """
 from __future__ import annotations
 
+import ctypes
 from typing import Optional
 
 import torch
 from torch.autograd.function import once_differentiable
 
 from ...base import MXNetError
-from . import DTYPE_CODES, check_cuda_operands, launch
+from . import DTYPE_CODES, check_cuda_operands, launch, library
 
 __all__ = ["GATES", "MODE_CODES", "scan_supported", "rnn_scan",
            "rnn_scan_plain", "rnn_scan_bwd_plain", "rnn_scan_fwd",
-           "rnn_scan_bwd", "decode_supported", "rnn_decode_step",
-           "rnn_decode_step_plain", "rnn_verify_scan"]
+           "rnn_scan_bwd", "rnn_bwd_walk_plan", "decode_supported",
+           "rnn_decode_step", "rnn_decode_step_plain", "rnn_verify_scan"]
 
 GATES = {"rnn_relu": 1, "rnn_tanh": 1, "lstm": 4, "gru": 3}
 #: mode codes of the C interface (csrc/rnn_scan.cuh)
@@ -283,6 +285,28 @@ def rnn_scan_bwd(xw, h0, c0, w_hh, b_hh, ys, cs, dys, dc_t, mode: str):
            db.data_ptr(), n_t, n, h, MODE_CODES[mode],
            DTYPE_CODES[xw.dtype])
     return dxw, dh0, dc0, dw.to(w_hh.dtype), db.to(b_hh.dtype)
+
+
+def rnn_bwd_walk_plan(n: int, h: int, mode: str,
+                      dtype: torch.dtype = torch.float32,
+                      device=None) -> dict:
+    """The plan that ``rnn_scan_bwd``'s reverse-time walk takes for batch
+    ``n`` and hidden size ``h`` on the CUDA ``device`` (the current one by
+    default): hidden units and batch rows a block, blocks, and whether
+    W_hh's column slice sits in shared memory (else the walk reads it
+    through L2). A query: it launches nothing and counts nothing."""
+    if dtype not in DTYPE_CODES or mode not in MODE_CODES:
+        raise MXNetError(f"rnn_bwd_walk_plan: no kernel for {mode!r} in "
+                         f"{dtype}")
+    out = (ctypes.c_int * 4)()
+    with torch.cuda.device(device):
+        err = library().mxt_rnn_bwd_walk_plan(n, h, MODE_CODES[mode],
+                                              DTYPE_CODES[dtype], out)
+    if err != 0:
+        what = library().mxt_error_string(err).decode()
+        raise MXNetError(f"rnn_bwd_walk_plan: CUDA error {err} ({what})")
+    return {"units": out[0], "rows": out[1], "blocks": out[2],
+            "w_in_smem": bool(out[3])}
 
 
 # ---------------------------------------------------------------------------

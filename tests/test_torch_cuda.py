@@ -103,6 +103,13 @@ FLASH_BWD_CASES = [
     (1, 2, 1024, 1024, 64, False),   # dq + dkv kernels
     (1, 2, 600, 1030, 64, True),
     (1, 2, 33, 700, 128, True),
+    # the fused kernel's tile edges: one position, D = 1; one key; one
+    # query; D = 128 causal at 512; a ragged key count
+    (2, 3, 1, 1, 1, False),
+    (2, 3, 77, 1, 64, True),
+    (2, 3, 1, 130, 32, True),
+    (1, 2, 512, 512, 128, True),
+    (2, 3, 300, 449, 64, False),
 ]
 
 
@@ -276,9 +283,28 @@ def _rnn_inputs(mode, n_t, n, h, dtype, dev, seed=3):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", [(7, 3, 37), (12, 16, 300)])
+@pytest.mark.parametrize("shape", [(7, 3, 37), (12, 16, 300), (9, 1, 300),
+                                   (5, 130, 200), (6, 17, 129)])
 @pytest.mark.parametrize("mode", ["lstm", "gru", "rnn_tanh", "rnn_relu"])
 def test_rnn_scan_kernels_on_card(cuda_dev, mode, shape, dtype):
+    _scan_kernels_vs_plain(cuda_dev, mode, shape, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode,h", [("lstm", 1024), ("gru", 1024),
+                                    ("rnn_tanh", 1500), ("rnn_relu", 1500)])
+def test_rnn_scan_bwd_reads_w_hh_through_l2_on_card(cuda_dev, mode, h,
+                                                    dtype):
+    """300 batch rows at a hidden size the forward still serves, where no
+    tile with W_hh's column slice in shared memory keeps the walk's grid
+    resident: the walk reads W_hh through L2."""
+    plan = KR.rnn_bwd_walk_plan(300, h, mode, dtype, cuda_dev)
+    assert not plan["w_in_smem"], plan
+    _scan_kernels_vs_plain(cuda_dev, mode, (3, 300, h), dtype)
+
+
+def _scan_kernels_vs_plain(cuda_dev, mode, shape, dtype):
     xw, h0, c0, w, b, dys, dct = _rnn_inputs(mode, *shape, dtype, cuda_dev)
     K.reset_launch_counts()
     ys, cs = KR.rnn_scan_fwd(xw, h0, c0, w, b, mode)
