@@ -11,6 +11,12 @@
                                      # report of every kernel
     python3 chip_smoke.py --zero-train  # phases 1, 2 and 11 alone, on
                                         # two or more cards
+    python3 chip_smoke.py --compare DIR  # A/B on one card: the flash
+        # forward, the recurrence kernels and the decode step of the
+        # checkout at DIR (e.g. the parent commit unpacked by `git archive`
+        # under build/) and of this one, timed in turns (DIR, this, this,
+        # DIR), with what each wrapper does at shapes the first versions
+        # refused
 
 Phases, each of which fails the run (non-zero exit) when it fails:
 
@@ -23,17 +29,25 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    computes the same function at the shapes of its path, in both dtypes
    (the backward kernels at BERT-base training's B*H = 384, S = 512,
    D = 64, at the long-sequence phase's S = 1024, and LayerNorm at
-   16384 x 768; the fused backward's tile edges are checked too: one
-   position at D 1, one key, one query, D 128 causal at 512, 449 keys);
+   16384 x 768; the flash forward's tile edges too: one position at D 1,
+   Sq and Sk no multiple of a tile, causal with Sq < Sk and Sq > Sk, D 7,
+   32, 80 and 128, S 512 causal and S 1024, each run twice to show it
+   repeats bit for bit, and it is timed at BERT training's S 512 as well;
+   the fused backward's tile edges: one position at D 1, one key, one
+   query, D 128 causal at 512, 449 keys);
    the recurrence kernels in every mode (LSTM, GRU, tanh and relu RNN),
    forward and reverse, at T 7 x N 3 x H 37, N 1, N 130, H 129, at T 3 x
    N 300 x H 1,024 (and H 1,500 for the one-gate modes), where the
-   backward's walk must read W_hh through L2 (each check prints its
-   plan), and the LSTM LM's T 35 x N 64 x H 650 (every output and
-   gradient compared, timed at the LM's LSTM layer, with the host time
-   of the walk's plan), the bias-GELU backward at 4096 x
-   3072 and at an unaligned C, and the decode step (``rnn_decode``) in
-   every mode at N 3 x H 37, N 8 x H 650 and N 8 x H 128, float32 and
+   backward's walk must read W_hh through L2, and the LSTM LM's T 35 x N
+   64 x H 650, where the forward keeps W_hh's rows in shared memory
+   (every output and gradient compared, timed at the LM's LSTM layer,
+   with the host time of the walk's plan; each check prints both plans),
+   and LSTM at T 3 x N 64 x H 4,096 (the forward reads W_hh through L2,
+   several tiles a block) and T 2 x N 512 x H 4,096 (several walk tiles a
+   block), shapes the first versions refused; the bias-GELU backward at
+   4096 x 3072 and at an unaligned C, and the decode step (``rnn_decode``)
+   in every mode at N 3 x H 37, N 128 x H 650 (two row groups), N 8 x H
+   650 and N 8 x H 128, float32 and
    bfloat16, plus 35 chained decode steps against the ``rnn_scan_fwd``
    kernel's trajectory at N 8 x H 650 (within 1e-6); and the fused
    optimizer update (``opt_update``) for SGD, SGD-momentum and Adam, clip
@@ -41,7 +55,8 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    bfloat16, at 5000 elements, at BERT-base's word-embedding shard at dp 4
    (5,860,224) and at its bucket unit (88,322): float32 states bit-exact
    and weights within 1 ulp, bfloat16 within 2e-2; the Adam update of the
-   word-embedding shard timed beside ``torch._fused_adam_``;
+   word-embedding shard timed beside ``torch._fused_adam_`` in float32
+   and bfloat16;
 4. serve BERT-base (12 x 768, vocab 30522, seeded random weights) through
    ``CompiledPredictor`` + ``DynamicBatcher``: 8 client threads, 96
    requests of 1-8 rows at sequence length 128; check that every request
@@ -227,7 +242,7 @@ def compare(torch, got, ref, atol, rtol):
 #: output (2**-8 = 0.0039 per ulp)
 TOLS = {"float32": (1e-4, 1e-4), "bfloat16": (2e-2, 2e-2)}
 #: flash-attention cases (B, H, Sq, Sk, D, causal); the first two are the
-#: served shapes of buckets 8 and 32
+#: served shapes of buckets 8 and 32, the last BERT training's (timed too)
 FLASH_CASES = [
     (8, 12, 128, 128, 64, False),
     (32, 12, 128, 128, 64, False),
@@ -235,7 +250,20 @@ FLASH_CASES = [
     (2, 4, 100, 40, 64, True),       # rows 0..59 see no valid key
     (2, 3, 70, 70, 80, False),       # D not a power of two
     (2, 2, 33, 130, 32, True),
+    # the tiles' edges: one position at D 1, Sq and Sk no multiple of a
+    # tile, causal with Sq < Sk and Sq > Sk, D 7 (no 16-byte rows), D 128,
+    # S 512 causal and S 1024
+    (2, 3, 1, 1, 1, False),
+    (1, 2, 77, 93, 32, True),
+    (1, 2, 150, 70, 128, True),
+    (1, 3, 65, 129, 7, False),
+    (1, 2, 200, 130, 128, False),
+    (1, 12, 512, 512, 64, True),
+    (1, 4, 1024, 1024, 64, False),
+    (32, 12, 512, 512, 64, False),
 ]
+#: the flash forward's shapes timed: served (bucket 32) and BERT training
+FLASH_SERVED, FLASH_TRAIN = (32, 128), (32, 512)
 #: (rows, C) of the LayerNorm and bias-GELU checks; the first is served
 LN_CASES = ((4096, 768), (37, 50))
 BG_CASES = ((4096, 3072), (37, 50))
@@ -251,12 +279,12 @@ def check_kernels(torch, ATT, KN, dev):
     def rnd(*shape, dtype):
         return torch.randn(*shape, generator=g, device=dev).to(dtype)
 
-    def record(rec, args, is_served):
+    def record(rec, args, key):
         emit({"check": rec})
         if not rec["ok"]:
             failures.append(rec)
-        if is_served:
-            served[(rec["kernel"], rec["dtype"])] = (rec, args)
+        if key:
+            served[(key, rec["dtype"])] = (rec, args)
 
     for dtype in (torch.float32, torch.bfloat16):
         dn = str(dtype).replace("torch.", "")
@@ -265,16 +293,24 @@ def check_kernels(torch, ATT, KN, dev):
             q, k, v = rnd(b, h, sq, d, dtype=dtype), \
                 rnd(b, h, sk, d, dtype=dtype), rnd(b, h, sk, d, dtype=dtype)
             out, lse = ATT.flash_attention_fwd(q, k, v, causal)
+            again = ATT.flash_attention_fwd(q, k, v, causal)
             torch.cuda.synchronize()
+            repeats = bool(torch.equal(out, again[0])) and \
+                bool(torch.equal(lse, again[1]))
+            del again
             rout, rlse = ATT.flash_attention_fwd_plain(q, k, v, causal)
             ok1, e1, r1 = compare(torch, out, rout, atol, rtol)
             ok2, e2, _ = compare(torch, lse, rlse, 1e-4, 1e-5)
+            key = None
+            if not causal and sq == sk:
+                key = {FLASH_SERVED: "flash_fwd",
+                       FLASH_TRAIN: "flash_fwd@train"}.get((b, sq))
             record({"kernel": "flash_fwd", "dtype": dn,
                     "shape": [b, h, sq, sk, d], "causal": causal,
                     "max_abs_err": e1, "rel_err": r1, "lse_max_abs_err": e2,
                     "atol": atol, "rtol": rtol, "lse_atol": 1e-4,
-                    "ok": ok1 and ok2},
-                   (q, k, v), (b, sq, causal) == (32, 128, False))
+                    "repeats_bit_for_bit": repeats,
+                    "ok": ok1 and ok2 and repeats}, (q, k, v), key)
 
         for rows, c in LN_CASES:
             x = rnd(rows, c, dtype=dtype)
@@ -286,7 +322,8 @@ def check_kernels(torch, ATT, KN, dev):
             record({"kernel": "layernorm_fwd", "dtype": dn,
                     "shape": [rows, c], "max_abs_err": e, "rel_err": r,
                     "atol": atol, "rtol": rtol, "ok": ok},
-                   (x, gam, bet), (rows, c) == LN_CASES[0])
+                   (x, gam, bet),
+                   "layernorm_fwd" if (rows, c) == LN_CASES[0] else None)
 
         for rows, c in BG_CASES:
             x, bias = rnd(rows, c, dtype=dtype), rnd(c, dtype=dtype)
@@ -297,7 +334,8 @@ def check_kernels(torch, ATT, KN, dev):
             record({"kernel": "bias_gelu_fwd", "dtype": dn,
                     "shape": [rows, c], "max_abs_err": e, "rel_err": r,
                     "atol": atol, "rtol": rtol, "ok": ok},
-                   (x, bias), (rows, c) == BG_CASES[0])
+                   (x, bias),
+                   "bias_gelu_fwd" if (rows, c) == BG_CASES[0] else None)
     if failures:
         raise SystemExit(f"kernel checks failed: {failures}")
     return served
@@ -305,11 +343,13 @@ def check_kernels(torch, ATT, KN, dev):
 
 def time_kernels(torch, F, ATT, KN, served):
     """Kernel, plain-version and library-call times (device and eager,
-    :func:`time_ms`) at the served shapes (bucket 32, sequence 128), in
-    each dtype, with the bound of this call's work. Returns
-    {(kernel, dtype): timing}."""
+    :func:`time_ms`) at the served shapes (bucket 32, sequence 128), and
+    the flash forward also at BERT training's (batch 32, sequence 512;
+    key ``flash_fwd@train``), in each dtype, with the bound of this call's
+    work. Returns {(kernel, dtype): timing}."""
     timing = {}
-    for (name, dn), (rec, args) in served.items():
+    for (key, dn), (rec, args) in served.items():
+        name = key.split("@")[0]
         size = args[0].element_size()
         if name == "flash_fwd":
             q, k, v = args
@@ -356,7 +396,7 @@ def time_kernels(torch, F, ATT, KN, served):
              "library_eager_ms": library_eager_ms,
              "bytes": nbytes, "flops": flops}
         emit({"timing": t})
-        timing[(name, dn)] = t
+        timing[(key, dn)] = t
     return timing
 
 
@@ -588,6 +628,11 @@ RNN_L2_CASES = {"lstm": (3, 300, 1024), "gru": (3, 300, 1024),
                 "rnn_tanh": (3, 300, 1500), "rnn_relu": (3, 300, 1500)}
 RNN_CASES = ((7, 3, 37), (9, 1, 300), (5, 130, 200), (6, 17, 129),
              RNN_L2_CASES["lstm"], RNN_TIMED)
+#: LSTM shapes the first versions refused ("too many blocks in cooperative
+#: launch"): the forward at H 4,096, where the plan reads W_hh through L2
+#: and a block takes several tiles a step; the walk at N 512 x H 4,096,
+#: where a walk block takes several tiles a step. Forward only, T small
+RNN_REFUSED = {"forward": (3, 64, 4096), "walk": (2, 512, 4096)}
 RNN_MODES = ("lstm", "gru", "rnn_tanh", "rnn_relu")
 #: (rows, C) of the bias-GELU backward: the phase-5 encoder's FFN
 #: (32 x 128 tokens x 3072), and an unaligned C
@@ -661,26 +706,39 @@ def check_new_kernels(torch, K, KR, KN, dev):
 
         dn = str(dtype).replace("torch.", "")
         atol, rtol = TOLS[dn]
-        cases = [(shape, mode) for shape in RNN_CASES for mode in RNN_MODES]
-        cases += [(shape, mode) for mode, shape in RNN_L2_CASES.items()
+        cases = [(shape, mode, revs) for shape in RNN_CASES
+                 for mode in RNN_MODES for revs in [(False, True)]]
+        cases += [(shape, mode, (False, True))
+                  for mode, shape in RNN_L2_CASES.items()
                   if shape not in RNN_CASES]
-        for (n_t, n, h), mode in cases:
-            for rev in (False, True):
+        cases += [(shape, "lstm", (False,)) for shape in RNN_REFUSED.values()]
+        for (n_t, n, h), mode, revs in cases:
+            for rev in revs:
                 got, ref, launched, args = rnn_case(
                     torch, K, KR, rnd, mode, n_t, n, h, rev)
                 res = {k: compare(torch, got[k], ref[k], atol, rtol)
                        for k in ref}
+                del got, ref
                 worst = max(res, key=lambda k: res[k][1])
+                fwd = KR.rnn_fwd_plan(n, h, mode, dtype, dev)
                 walk = KR.rnn_bwd_walk_plan(n, h, mode, dtype, dev)
                 ok = all(r[0] for r in res.values()) and \
                     launched == {"rnn_scan_fwd": 1, "rnn_scan_bwd": 1}
                 if RNN_L2_CASES.get(mode) == (n_t, n, h):
                     ok = ok and not walk["w_in_smem"]
+                if (n_t, n, h) == RNN_TIMED and mode == "lstm":
+                    ok = ok and fwd["w_in_smem"]
+                if (n_t, n, h) == RNN_REFUSED["forward"]:
+                    ok = ok and not fwd["w_in_smem"] and \
+                        fwd["tiles_per_block"] > 1
+                if (n_t, n, h) == RNN_REFUSED["walk"]:
+                    ok = ok and walk["tiles_per_block"] > 1
                 rec = {"kernel": "rnn_scan", "mode": mode,
                        "reverse": rev, "dtype": dn, "shape": [n_t, n, h],
                        "max_abs_err": {k: r[1] for k, r in res.items()},
                        "worst": worst, "atol": atol, "rtol": rtol,
-                       "launches": launched, "walk": walk, "ok": ok}
+                       "launches": launched, "fwd_plan": fwd, "walk": walk,
+                       "ok": ok}
                 emit({"check": rec})
                 if not ok:
                     failures.append(rec)
@@ -794,6 +852,8 @@ def time_new_kernels(torch, F, KR, KN, timed):
                        lambda *a: KR.rnn_scan_plain(*a, "lstm"))
                 library = "cuDNN torch.nn.LSTM forward (eager)"
                 library_ms = cudnn[dn][0]
+                extra["fwd_plan_host_us"] = plan_host_us(
+                    KR.rnn_fwd_plan, n, h, xw.dtype, xw.device)
             else:
                 ys, cs = KR.rnn_scan_fwd(xw, h0, c0, w, b, "lstm")
                 sets = [(xw.clone(), h0, c0, w, b, ys, cs, dys.clone(), dc_t)
@@ -809,8 +869,8 @@ def time_new_kernels(torch, F, KR, KN, timed):
                 library = ("cuDNN torch.nn.LSTM forward+backward minus "
                            "forward (eager)")
                 library_ms = cudnn[dn][1]
-                extra["walk_plan_host_us"] = walk_plan_host_us(
-                    KR, n, h, xw.dtype, xw.device)
+                extra["walk_plan_host_us"] = plan_host_us(
+                    KR.rnn_bwd_walk_plan, n, h, xw.dtype, xw.device)
         (ms, eager_ms), (plain_ms, plain_eager_ms) = (
             time_ms(torch, fn, sets, iters=10 if name != "bias_gelu_bwd"
                     else 30) for fn in fns)
@@ -826,20 +886,24 @@ def time_new_kernels(torch, F, KR, KN, timed):
     return timing
 
 
-def walk_plan_host_us(KR, n, h, dtype, dev, calls=200):
-    """Host microseconds of one plan of the recurrence backward's walk
-    (the occupancy queries that every ``rnn_scan_bwd`` call makes),
-    through the query entry from Python: the mean of ``calls``."""
-    KR.rnn_bwd_walk_plan(n, h, "lstm", dtype, dev)
+def plan_host_us(query, n, h, dtype, dev, calls=200):
+    """Host microseconds of one plan of a recurrence kernel (the card
+    queries and the tile search that every ``rnn_scan_fwd`` or
+    ``rnn_scan_bwd`` call makes), through its query entry from Python
+    (``query`` is ``rnn_fwd_plan`` or ``rnn_bwd_walk_plan``): the mean of
+    ``calls``."""
+    query(n, h, "lstm", dtype, dev)
     t0 = time.perf_counter()
     for _ in range(calls):
-        KR.rnn_bwd_walk_plan(n, h, "lstm", dtype, dev)
+        query(n, h, "lstm", dtype, dev)
     return (time.perf_counter() - t0) / calls * 1e6
 
 
-#: decode-kernel cases (N, H): a ragged one and the decode_wide shape
-#: (bucket 8, the word LM's hidden 650); decode_leg's (8, 128) is timed
-DECODE_CASES = ((3, 37), (8, 650))
+#: decode-kernel cases (N, H): a ragged one, the decode_wide shape
+#: (bucket 8, the word LM's hidden 650), and 128 rows at H 650, which the
+#: first version refused (h of all rows in one block's shared memory);
+#: decode_leg's (8, 128) is timed
+DECODE_CASES = ((3, 37), (128, 650), (8, 650))
 DECODE_TIMED = ((8, 650), (8, 128))
 #: the chained case: T decode steps against the scan kernel's ys, float32
 DECODE_CHAIN_T, DECODE_CHAIN_TOL = 35, 1e-6
@@ -1849,9 +1913,9 @@ def check_opt_kernel(torch, KO, dev):
     hyperparameters x dtype at a ragged length, every kind x clip x dtype
     at the word-embedding shard (scalar) and at the bucket unit (vector).
     float32: new states bit-exact, the weight within 1 ulp; bfloat16
-    within OPT_BF16_TOL. Returns the timed case (Adam, float32, the
+    within OPT_BF16_TOL. Returns the timed cases by dtype (Adam, the
     word-embedding shard)."""
-    failures, timed, seed = [], None, 0
+    failures, timed, seed = [], {}, 0
     worst = {"float32_weight_ulps": 0.0, "float32_state_max_abs_err": 0.0,
              "bfloat16_max_abs_err": 0.0}
     for n, vecs in ((OPT_RAGGED, (False, True)), (OPT_EMBED_SHARD, (False,)),
@@ -1898,10 +1962,9 @@ def check_opt_kernel(torch, KO, dev):
                         emit({"check": rec})
                         if not rec["ok"]:
                             failures.append(rec)
-                        if (n, code, clip, vec, dn) == (
-                                OPT_EMBED_SHARD, "adam", False, False,
-                                "float32"):
-                            timed = (rec, (w, g, st, (lr, wd, t)))
+                        if (n, code, clip, vec) == (
+                                OPT_EMBED_SHARD, "adam", False, False):
+                            timed[dn] = (rec, (w, g, st, (lr, wd, t)))
     emit({"opt_update_worst": worst})
     if failures:
         raise SystemExit(f"opt_update checks failed: {failures}")
@@ -1910,11 +1973,17 @@ def check_opt_kernel(torch, KO, dev):
 
 def time_opt_kernel(torch, KO, timed):
     """Kernel, plain-version and ``torch._fused_adam_`` times of one Adam
-    update of the word-embedding shard (float32), by CUDA-graph replay over
-    copies larger than the L2. Bound: w, g, m, v read once and w, m, v
-    written once (28 B an element) against ~20 float32 operations an
-    element."""
-    rec, (w, g, st, (lr, wd, t)) = timed
+    update of the word-embedding shard in each dtype, by CUDA-graph replay
+    over copies larger than the L2. Bound: w, g, m, v read once and w, m,
+    v written once (28 B an element in float32, 14 in bfloat16) against
+    ~20 float32 operations an element. Returns {("opt_update", dtype):
+    timing}."""
+    return dict(time_opt_case(torch, KO, dn, *case)
+                for dn, case in timed.items())
+
+
+def time_opt_case(torch, KO, dn, rec, args):
+    w, g, st, (lr, wd, t) = args
     n = w.numel()
     cfg = dict(OPT_KINDS[2][2], has_clip=False)
     sets = [(w.clone(), g, tuple(s.clone() for s in st),
@@ -1939,9 +2008,9 @@ def time_opt_kernel(torch, KO, timed):
     except Exception as e:    # the yardstick only: the port never calls it
         library_ms = library_eager_ms = None
         lib_err = f"{type(e).__name__}: {e}"[:300]
-    nbytes = 28 * n
+    nbytes = 7 * w.element_size() * n
     b_ms, b_by = bound_ms(nbytes, 20.0 * n, "float32")
-    t_rec = {"kernel": "opt_update", "dtype": "float32", "shape": [n],
+    t_rec = {"kernel": "opt_update", "dtype": dn, "shape": [n],
              "max_abs_err": rec["max_abs_err"], "ms": ms,
              "plain_ms": plain_ms, "library_ms": library_ms,
              "library": "torch._fused_adam_ (torch.optim's fused Adam; "
@@ -1952,7 +2021,7 @@ def time_opt_kernel(torch, KO, timed):
              "library_eager_ms": library_eager_ms, "bytes": nbytes,
              "flops": 20.0 * n}
     emit({"timing": t_rec})
-    return {("opt_update", "float32"): t_rec}
+    return ("opt_update", dn), t_rec
 
 
 def bert_base_classifier(torch, seq, device, widths=None):
@@ -2286,6 +2355,134 @@ def zero_train_multi(torch, np, smi, device="cuda", world=None, widths=None,
     return report
 
 
+#: --kernel-times: the shapes of the kernels this slice changed, each on
+#: its path (the flash forward served and in BERT training; the LM's LSTM
+#: layer; decode_wide's step)
+AB_FLASH = ((32, 12, 128, 128, 64), (32, 12, 512, 512, 64))
+#: --kernel-times: one LSTM shape each recurrence wrapper refused before
+#: this slice: (wrapper, T or None for decode, N, H)
+AB_REFUSED = (("rnn_scan_fwd",) + RNN_REFUSED["forward"],
+              ("rnn_scan_bwd",) + RNN_REFUSED["walk"],
+              ("rnn_decode_step", None, 128, 650))
+
+
+def kernel_times(root):
+    """``--kernel-times ROOT``: build the kernels of the package under
+    ROOT (another checkout, for an A/B on one card) and print one
+    ``{"kernel_times": ...}`` line: device ms by CUDA-graph replay of the
+    flash forward, the recurrence forward and backward and the decode step
+    at their paths' shapes, float32 and bfloat16 (the decode step float32),
+    and what each wrapper does at the AB_REFUSED shapes (ran, then timed
+    the same way, or the error it raised: a probe, not a path)."""
+    import torch
+    sys.path.insert(0, os.path.abspath(root))
+    from mxnet_tpu_torch.ops import attention as ATT
+    from mxnet_tpu_torch.ops import kernels as K
+    from mxnet_tpu_torch.ops.kernels import rnn_scan as KR
+    torch.backends.cuda.matmul.allow_tf32 = False
+    K.build_library()
+    dev = torch.device("cuda", 0)
+    g = torch.Generator(device=dev).manual_seed(7)
+
+    def rnd(*shape, dtype=torch.float32, s=1.0):
+        return (torch.randn(*shape, generator=g, device=dev) * s).to(dtype)
+
+    out = {"root": root, "package": os.path.dirname(ATT.__file__)}
+
+    def zeros(*shape):
+        return torch.zeros(*shape, device=dev)
+
+    probes = []
+    for name, n_t, n, h in AB_REFUSED:
+        w, b, st = zeros(4 * h, h), zeros(4 * h), zeros(n, h)
+        if name == "rnn_decode_step":
+            fn, args = KR.rnn_decode_step, (zeros(n, 4 * h), st, st, w, b)
+        elif name == "rnn_scan_fwd":
+            fn, args = KR.rnn_scan_fwd, (zeros(n_t, n, 4 * h), st, st, w, b)
+        else:
+            ys = zeros(n_t, n, h)
+            fn, args = KR.rnn_scan_bwd, (zeros(n_t, n, 4 * h), st, st, w, b,
+                                         ys, ys, ys, st)
+        rec = {"wrapper": name, "lstm_t_n_h": [n_t, n, h]}
+        try:
+            fn(*args, "lstm")
+            torch.cuda.synchronize()
+        except Exception as e:    # the probe records what the parent raised
+            probes.append(dict(rec, result=f"raised {type(e).__name__}: {e}"))
+            continue
+        rec["device_ms"] = time_ms(torch, lambda *a: fn(*a, "lstm"), [args],
+                                   iters=3, replays=2)[0]
+        probes.append(dict(rec, result="ran"))
+        del args
+    out["refused_shapes"] = probes
+    times = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).replace("torch.", "")
+        for b, h, sq, sk, d in AB_FLASH:
+            args = (rnd(b, h, sq, d, dtype=dtype), rnd(b, h, sk, d, dtype=dtype),
+                    rnd(b, h, sk, d, dtype=dtype))
+            sets = [tuple(t.clone() for t in args)
+                    for _ in range(n_sets(torch, args + args[:1]))]
+            times[f"flash_fwd {dn} {[b * h, sq, sk, d]}"] = time_ms(
+                torch, lambda *a: ATT.flash_attention_fwd(*a), sets)[0]
+            del args, sets
+        n_t, n, h = RNN_TIMED
+        xw, h0, c0 = rnd(n_t, n, 4 * h, dtype=dtype, s=0.5), \
+            rnd(n, h, dtype=dtype, s=0.5), rnd(n, h, dtype=dtype, s=0.5)
+        w, b = rnd(4 * h, h, dtype=dtype, s=0.5 * h ** -0.5), \
+            rnd(4 * h, dtype=dtype, s=0.1)
+        sets = [(xw.clone(), h0, c0, w, b)
+                for _ in range(n_sets(torch, (xw, xw)))]
+        times[f"rnn_scan_fwd {dn} {list(RNN_TIMED)}"] = time_ms(
+            torch, lambda *a: KR.rnn_scan_fwd(*a, "lstm"), sets, iters=10)[0]
+        ys, cs = KR.rnn_scan_fwd(xw, h0, c0, w, b, "lstm")
+        dys = rnd(n_t, n, h, dtype=dtype)
+        sets = [(xw.clone(), h0, c0, w, b, ys, cs, dys.clone(), c0)
+                for _ in range(n_sets(torch, (xw, xw, ys, cs, dys)))]
+        times[f"rnn_scan_bwd {dn} {list(RNN_TIMED)}"] = time_ms(
+            torch, lambda *a: KR.rnn_scan_bwd(*a, "lstm"), sets, iters=10)[0]
+        del xw, sets, ys, cs, dys
+    n, h = DECODE_TIMED[0]
+    xw, hh, cc = rnd(n, 4 * h, s=0.5), rnd(n, h, s=0.5), rnd(n, h, s=0.5)
+    w, b = rnd(4 * h, h, s=0.5 * h ** -0.5), rnd(4 * h, s=0.1)
+    sets = [(xw, hh, cc, w.clone(), b) for _ in range(n_sets(torch, (w,)))]
+    times[f"rnn_decode float32 {[n, h]}"] = time_ms(
+        torch, lambda *a: KR.rnn_decode_step(*a, "lstm"), sets, iters=50)[0]
+    out["device_ms"] = times
+    emit({"kernel_times": out})
+    return 0
+
+
+def compare_checkouts(parent):
+    """``--compare PARENT``: ``--kernel-times`` of PARENT (a checkout of
+    the parent commit, unpacked under build/) and of this checkout, in
+    turns on this card (parent, change, change, parent), each in its own
+    process; prints one ``{"compare": ...}`` line with both runs of each."""
+    runs = []
+    for root in (parent, ".", ".", parent):
+        res = subprocess.run([sys.executable, os.path.abspath(__file__),
+                              "--kernel-times", root], capture_output=True,
+                             text=True)
+        line = [ln for ln in res.stdout.splitlines()
+                if ln.startswith('{"kernel_times"')]
+        if res.returncode != 0 or not line:
+            raise SystemExit(f"--kernel-times {root} failed:\n"
+                             f"{res.stdout[-3000:]}\n{res.stderr[-3000:]}")
+        runs.append((root, json.loads(line[0])["kernel_times"]))
+    table = {}
+    for root, r in runs:
+        side = "parent" if root == parent else "change"
+        for key, ms in r["device_ms"].items():
+            table.setdefault(key, {"parent": [], "change": []})[side].append(
+                ms)
+    emit({"compare": {"order": [root for root, _ in runs],
+                      "device_ms": table,
+                      "refused_shapes": {("parent" if root == parent
+                                          else "change"): r["refused_shapes"]
+                                         for root, r in runs}}})
+    return 0
+
+
 def main(argv):
     import numpy as np
     import torch
@@ -2295,6 +2492,10 @@ def main(argv):
         print("chip_smoke: no CUDA device; this script runs on the card",
               file=sys.stderr)
         return 2
+    if "--kernel-times" in argv:
+        return kernel_times(argv[argv.index("--kernel-times") + 1])
+    if "--compare" in argv:
+        return compare_checkouts(argv[argv.index("--compare") + 1])
     import mxnet_tpu_torch as mx
     from mxnet_tpu_torch.ops import attention as ATT
     from mxnet_tpu_torch.ops import kernels as K

@@ -2,13 +2,16 @@
 //
 // Replaces the TPU kernel mxnet_tpu/ops/attention.py `_flash_kernel`
 // (launched by `_flash_fwd_pallas`). Semantics kept exactly:
-//   - layout (B*H, S, D), any D <= 128, q of Sq rows, k/v of Sk rows;
+//   - layout (B*H, S, D), any 1 <= D <= 128, q of Sq rows, k/v of Sk rows;
 //   - the causal diagonal is aligned to the end: key k is visible to
 //     query q iff k <= q + (Sk - Sq); keys past Sk are masked;
-//   - masked scores are the finite -1e30, so exp() never sees inf;
+//   - masked scores are the finite -1e30, so exp() never sees inf (the
+//     softmax runs in base 2, scores scaled by scale * log2 e: one ex2 an
+//     element; lse comes back in natural units);
 //   - a row that sees no valid key outputs 0 and its lse is -1e30;
 //   - scores and the PV product accumulate in float32; for bfloat16
-//     inputs P is rounded to bfloat16 before the PV product.
+//     inputs P is rounded to bfloat16 before the PV product; lse is
+//     float32.
 // What is NOT carried over: the TPU's 128-lane head-dim padding, the
 // 8-lane replication of lse, and `_head_group` (several heads per grid
 // program to amortise TPU per-program overhead). Here a grid of blocks
@@ -16,183 +19,576 @@
 // the block walks the key tiles, which on the TPU was the sequential
 // grid axis.
 //
-// Bound on the card: at BERT's shapes (S = 128, D = 64) the kernel does
-// 4*S*S*D flops per head for 4*S*D*sizeof(T) bytes, about 32 flops a
-// byte in float32: above the float32 CUDA-core ridge, so operations
-// bound it. This first version is simple: float32 FMAs on CUDA cores
-// from shared-memory tiles (no tensor cores, no TMA); 256 threads, four
-// per query row, each holding 16 scores and D/4 accumulators.
+// Bound on the card: at the served shape (B*H 384, S 128, D 64) 1.61
+// GFLOP: 0.024 ms at 67 TFLOP/s in float32 (operations bound it), and
+// 0.0076 ms for the bytes in bfloat16 (bytes bound it on tensor cores).
+// Two kernels, one per dtype:
+//   - float32 on CUDA cores (TF32 would not hold float32's 1e-4), register-
+//     tiled as flash_bwd_fused.cu: 256 threads, each a 4 x 4 patch of the
+//     64 x 64 scores (rows 16 i + rg, keys 16 j + cg) from float4 loads
+//     along the depth, so one loaded float feeds 4 FMAs, and a warp's
+//     loads read few distinct words (the Q rows are broadcast). The row
+//     max and sum are reduced with shuffles among the 16 lanes of a row;
+//     P goes through shared memory to the same warp, which multiplies it
+//     into a 4-row x D/16-column patch of the output (float4 loads of P
+//     and V).
+//   - bfloat16 on tensor cores: 128 threads, each warp 16 query rows.
+//     S = Q K^T and O += P V are mma.sync.m16n8k16 (bf16 operands, float32
+//     sums) with K and V fragments from ldmatrix (V transposed by
+//     ldmatrix.trans); the scores' accumulator fragment is, repacked to
+//     bf16, the A fragment of the P V product, so P never leaves registers.
+// Both walk the key tiles with K and V double-buffered through cp.async
+// (16-byte copies, zero-filled past Sk and D), so the next tile's loads
+// fly while this one is multiplied; where D or a pointer is not 16-byte
+// aligned they are loaded by plain loads instead.
 #include "common.cuh"
 
-#define BQ 64
-#define BK 64
-#define NTHREADS 256
+namespace {
 
-template <typename T, int DP>
-__global__ void __launch_bounds__(NTHREADS)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ out,
-                 float* __restrict__ lse, int Sq, int Sk, int D, int causal,
-                 float sm_scale) {
-  extern __shared__ float smem[];
-  float* Qs = smem;                      // [BQ][DP + 1]
-  float* Ks = Qs + BQ * (DP + 1);        // [BK][DP + 1]
-  float* Vs = Ks + BK * (DP + 1);        // [BK][DP]
-  float* Ps = Vs + BK * DP;              // [BQ][BK + 1]
+constexpr int kBQ = 64;   // query rows a block
+constexpr int kBK = 64;   // keys a tile
 
-  const int nq = (Sq + BQ - 1) / BQ;
-  const int bh = blockIdx.x / nq;
-  const int q0 = (blockIdx.x % nq) * BQ;
-  const int tid = threadIdx.x;
-  const int r = tid >> 2;                // query row in the tile
-  const int cg = tid & 3;                // which quarter of the columns
-  const size_t qbase = (size_t)bh * Sq * D;
-  const size_t kbase = (size_t)bh * Sk * D;
-  const int diag = Sk - Sq;
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
 
-  for (int idx = tid; idx < BQ * D; idx += NTHREADS) {
-    const int row = idx / D, d = idx - row * D;
-    const int gq = q0 + row;
-    Qs[row * (DP + 1) + d] =
-        gq < Sq ? mxt_to_float(q[qbase + (size_t)gq * D + d]) : 0.f;
-  }
+// 16 bytes from src to shared dst; bytes past `n` (0 or 16) read as zero
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int n) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(n));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
 
-  // key tiles this query tile can see (causal: none past the diagonal)
-  const int nk_all = (Sk + BK - 1) / BK;
-  int nk = nk_all;
-  if (causal) {
-    const int last_q = min(q0 + BQ, Sq) - 1;
-    const int kmax = last_q + diag;
-    nk = kmax < 0 ? 0 : min(nk_all, kmax / BK + 1);
-  }
-
-  float acc[DP / 4];
-#pragma unroll
-  for (int j = 0; j < DP / 4; ++j) acc[j] = 0.f;
-  float m_run = MXT_NEG_INF, l_run = 0.f;
-  const int q_pos = q0 + r;
-
-  for (int kt = 0; kt < nk; ++kt) {
-    const int k0 = kt * BK;
-    __syncthreads();   // the previous tile's K, V and P are consumed
-    for (int idx = tid; idx < BK * D; idx += NTHREADS) {
-      const int row = idx / D, d = idx - row * D;
-      const int gk = k0 + row;
-      float kv = 0.f, vv = 0.f;
-      if (gk < Sk) {
-        kv = mxt_to_float(k[kbase + (size_t)gk * D + d]);
-        vv = mxt_to_float(v[kbase + (size_t)gk * D + d]);
-      }
-      Ks[row * (DP + 1) + d] = kv;
-      Vs[row * DP + d] = vv;
+// rows [row0, row0 + 64) of a (S, D) head at src into dst (row stride LD
+// elements, DP columns), zeros past S and D: 16-byte cp.async where
+// `vec` (D a multiple of 16 bytes' elements, pointers aligned), else
+// plain loads
+template <typename T, int DP, int LD, int NT>
+__device__ __forceinline__ void load_tile(T* dst, const T* src, int row0,
+                                          int S, int D, bool vec) {
+  constexpr int E = 16 / sizeof(T);       // elements a chunk
+  constexpr int CPR = DP / E;             // chunks a row
+  if (vec) {
+    for (int ci = threadIdx.x; ci < 64 * CPR; ci += NT) {
+      const int row = ci / CPR, d = (ci - row * CPR) * E;
+      const int g = row0 + row;
+      const bool in = g < S && d < D;
+      cp_async16(dst + row * LD + d, in ? src + (size_t)g * D + d : src,
+                 in ? 16 : 0);
     }
-    __syncthreads();
-
-    float s[BK / 4];
-#pragma unroll
-    for (int j = 0; j < BK / 4; ++j) s[j] = 0.f;
-    const float* qrow = Qs + r * (DP + 1);
-    for (int d = 0; d < D; ++d) {
-      const float qd = qrow[d];
-#pragma unroll
-      for (int j = 0; j < BK / 4; ++j)
-        s[j] = fmaf(qd, Ks[(cg + 4 * j) * (DP + 1) + d], s[j]);
+  } else {
+    for (int i = threadIdx.x; i < 64 * DP; i += NT) {
+      const int row = i / DP, d = i - row * DP;
+      const int g = row0 + row;
+      dst[row * LD + d] = (g < S && d < D) ? src[(size_t)g * D + d]
+                                           : mxt_from_float<T>(0.f);
     }
-    float mloc = MXT_NEG_INF;
-#pragma unroll
-    for (int j = 0; j < BK / 4; ++j) {
-      const int k_pos = k0 + cg + 4 * j;
-      bool valid = k_pos < Sk;
-      if (causal) valid = valid && (k_pos <= q_pos + diag);
-      s[j] = valid ? s[j] * sm_scale : MXT_NEG_INF;
-      mloc = fmaxf(mloc, s[j]);
-    }
-    // the four threads of a row are neighbouring lanes
-    mloc = fmaxf(mloc, __shfl_xor_sync(0xffffffffu, mloc, 1));
-    mloc = fmaxf(mloc, __shfl_xor_sync(0xffffffffu, mloc, 2));
-    const float m_new = fmaxf(m_run, mloc);
-    const float alpha = expf(m_run - m_new);
-    float lsum = 0.f;
-    float* prow = Ps + r * (BK + 1);
-#pragma unroll
-    for (int j = 0; j < BK / 4; ++j) {
-      const float p = expf(s[j] - m_new);
-      lsum += p;
-      // P takes V's dtype before the PV product (a no-op for float32)
-      prow[cg + 4 * j] = mxt_to_float(mxt_from_float<T>(p));
-    }
-    lsum += __shfl_xor_sync(0xffffffffu, lsum, 1);
-    lsum += __shfl_xor_sync(0xffffffffu, lsum, 2);
-    l_run = l_run * alpha + lsum;
-    m_run = m_new;
-    __syncwarp();      // the row's P is written by lanes of this warp
-
-#pragma unroll
-    for (int j = 0; j < DP / 4; ++j) acc[j] *= alpha;
-    for (int c = 0; c < BK; ++c) {
-      const float p = prow[c];
-      const float* vrow = Vs + c * DP;
-#pragma unroll
-      for (int j = 0; j < DP / 4; ++j) {
-        const int d = cg + 4 * j;
-        if (d < D) acc[j] = fmaf(p, vrow[d], acc[j]);
-      }
-    }
-  }
-
-  if (q_pos < Sq) {
-    const bool seen = m_run > MXT_NEG_INF / 2;
-    const float l = fmaxf(l_run, 1e-30f);
-    T* orow = out + qbase + (size_t)q_pos * D;
-#pragma unroll
-    for (int j = 0; j < DP / 4; ++j) {
-      const int d = cg + 4 * j;
-      if (d < D) orow[d] = mxt_from_float<T>(seen ? acc[j] / l : 0.f);
-    }
-    if (cg == 0)
-      lse[(size_t)bh * Sq + q_pos] = seen ? m_run + logf(l) : MXT_NEG_INF;
   }
 }
 
-template <typename T, int DP>
-static int flash_launch(const void* q, const void* k, const void* v,
-                        void* out, void* lse, int BH, int Sq, int Sk, int D,
-                        int causal, float sm_scale, cudaStream_t stream) {
-  const size_t smem =
-      sizeof(float) * (2 * BQ * (DP + 1) + BK * DP + BQ * (BK + 1));
-  // above 48 KB a block's shared memory must be asked for explicitly;
-  // setting it again from another thread is harmless
-  static bool configured = false;
-  if (!configured) {
-    cudaError_t e = cudaFuncSetAttribute(
-        flash_fwd_kernel<T, DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e != cudaSuccess) return (int)e;
-    configured = true;
+constexpr float kLog2e = 1.4426950408889634f, kLn2 = 0.6931471805599453f;
+
+// Whether key tile [k0, k0 + kBK) needs the mask for some row of the
+// query tile [q0, q0 + kBQ): keys past Sk, or (causal) keys past the
+// first row's diagonal q0 + Sk - Sq. Interior tiles skip the mask.
+__device__ __forceinline__ bool tile_masks(int k0, int q0, int Sk, int diag,
+                                           int causal) {
+  return k0 + kBK > Sk || (causal && k0 + kBK - 1 > q0 + diag);
+}
+
+__device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
+  acc = fmaf(a.x, b.x, acc);
+  acc = fmaf(a.y, b.y, acc);
+  acc = fmaf(a.z, b.z, acc);
+  return fmaf(a.w, b.w, acc);
+}
+
+__device__ __forceinline__ float f4(const float4& v, int e) {
+  return e == 0 ? v.x : e == 1 ? v.y : e == 2 ? v.z : v.w;
+}
+
+// ---------------------------------------------------------------------------
+// float32: CUDA cores
+// ---------------------------------------------------------------------------
+
+constexpr int kFT = 256;
+
+template <int DP>
+struct F32Geo {
+  static constexpr int LD = DP + 4;         // Q, K, V row stride (floats)
+  static constexpr int LDP = kBK + 16;      // P row stride
+  static constexpr int DC = DP >= 64 ? DP / 16 : 2;   // output columns
+  static constexpr size_t floats =
+      (size_t)kBQ * LD + 4 * (size_t)kBK * LD + (size_t)kBQ * LDP;
+};
+
+template <int DP>
+__global__ void __launch_bounds__(kFT, DP <= 64 ? 2 : 1)
+flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, float* __restrict__ out,
+                     float* __restrict__ lse, int Sq, int Sk, int D,
+                     int causal, float scale, int vec) {
+  using Geo = F32Geo<DP>;
+  constexpr int LD = Geo::LD, LDP = Geo::LDP, DC = Geo::DC;
+  extern __shared__ float4 smem_v[];
+  float* Qs = reinterpret_cast<float*>(smem_v);
+  float* Ks = Qs + kBQ * LD;                // [2][kBK][LD]
+  float* Vs = Ks + 2 * kBK * LD;            // [2][kBK][LD]
+  float* Ps = Vs + 2 * kBK * LD;            // [kBQ][LDP]
+
+  const int nq = (Sq + kBQ - 1) / kBQ;
+  const int bh = blockIdx.x / nq;
+  const int q0 = (blockIdx.x % nq) * kBQ;
+  const size_t qbase = (size_t)bh * Sq * D, kbase = (size_t)bh * Sk * D;
+  const int diag = Sk - Sq;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int rg = 2 * warp + (lane >> 4);    // rows rg + 16 i
+  const int cg = lane & 15;                 // keys cg + 16 j
+  const bool vb = vec != 0;
+  const float scale2 = scale * kLog2e;
+
+  // key tiles this query tile can see (causal: none past the diagonal)
+  const int nk_all = (Sk + kBK - 1) / kBK;
+  int nk = nk_all;
+  if (causal) {
+    const int kmax = min(q0 + kBQ, Sq) - 1 + diag;
+    nk = kmax < 0 ? 0 : min(nk_all, kmax / kBK + 1);
   }
-  const long long blocks = (long long)BH * ((Sq + BQ - 1) / BQ);
+
+  if (nk > 0) {
+    load_tile<float, DP, LD, kFT>(Qs, q + qbase, q0, Sq, D, vb);
+    load_tile<float, DP, LD, kFT>(Ks, k + kbase, 0, Sk, D, vb);
+    load_tile<float, DP, LD, kFT>(Vs, v + kbase, 0, Sk, D, vb);
+    cp_async_commit();
+  }
+
+  float o[4][DC];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int c = 0; c < DC; ++c) o[i][c] = 0.f;
+  float m_run[4], l_run[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    m_run[i] = MXT_NEG_INF;
+    l_run[i] = 0.f;
+  }
+
+  for (int kt = 0; kt < nk; ++kt) {
+    const int buf = kt & 1, k0 = kt * kBK;
+    cp_async_wait_all();
+    __syncthreads();   // tile kt is in; everyone is done with tile kt - 1
+    if (kt + 1 < nk) {
+      load_tile<float, DP, LD, kFT>(Ks + (buf ^ 1) * kBK * LD, k + kbase,
+                                    k0 + kBK, Sk, D, vb);
+      load_tile<float, DP, LD, kFT>(Vs + (buf ^ 1) * kBK * LD, v + kbase,
+                                    k0 + kBK, Sk, D, vb);
+      cp_async_commit();
+    }
+    const float* Kb = Ks + buf * kBK * LD;
+    const float* Vb = Vs + buf * kBK * LD;
+
+    // S = Q K^T: rows rg + 16 i, keys cg + 16 j
+    float s[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+#pragma unroll 4
+    for (int d = 0; d < DP; d += 4) {
+      float4 kv[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        kv[j] = *reinterpret_cast<const float4*>(Kb + (cg + 16 * j) * LD + d);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float4 qv =
+            *reinterpret_cast<const float4*>(Qs + (rg + 16 * i) * LD + d);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) s[i][j] = dot4(qv, kv[j], s[i][j]);
+      }
+    }
+
+    // online softmax of each row over the 16 lanes that share it, in
+    // base 2 (scores scaled by scale * log2 e)
+    const bool edge = tile_masks(k0, q0, Sk, diag, causal);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int qp = q0 + rg + 16 * i;
+      float mloc = MXT_NEG_INF;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        s[i][j] *= scale2;
+        if (edge) {
+          const int kp = k0 + cg + 16 * j;
+          bool valid = kp < Sk;
+          if (causal) valid = valid && kp <= qp + diag;
+          s[i][j] = valid ? s[i][j] : MXT_NEG_INF;
+        }
+        mloc = fmaxf(mloc, s[i][j]);
+      }
+#pragma unroll
+      for (int o2 = 1; o2 < 16; o2 <<= 1)
+        mloc = fmaxf(mloc, __shfl_xor_sync(0xffffffffu, mloc, o2));
+      const float m_new = fmaxf(m_run[i], mloc);
+      const float alpha = exp2f(m_run[i] - m_new);
+      float lsum = 0.f;
+      float* prow = Ps + (rg + 16 * i) * LDP;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float p = exp2f(s[i][j] - m_new);
+        lsum += p;
+        prow[cg + 16 * j] = p;
+      }
+#pragma unroll
+      for (int o2 = 1; o2 < 16; o2 <<= 1)
+        lsum += __shfl_xor_sync(0xffffffffu, lsum, o2);
+      l_run[i] = l_run[i] * alpha + lsum;
+      m_run[i] = m_new;
+#pragma unroll
+      for (int c = 0; c < DC; ++c) o[i][c] *= alpha;
+    }
+    __syncwarp();   // a warp reads only the P rows it wrote
+
+    // O += P V: rows rg + 16 i, columns 4 cg + 64 e (+ 0..3), or 2 cg
+    // (+ 0..1) at DP 32
+#pragma unroll 2
+    for (int c = 0; c < kBK; c += 4) {
+      float4 pv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        pv[i] = *reinterpret_cast<const float4*>(Ps + (rg + 16 * i) * LDP + c);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const float* vrow = Vb + (c + kk) * LD;
+        if constexpr (DP >= 64) {
+#pragma unroll
+          for (int e = 0; e < DP / 64; ++e) {
+            const float4 vv =
+                *reinterpret_cast<const float4*>(vrow + 4 * cg + 64 * e);
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              const float p = f4(pv[i], kk);
+              o[i][4 * e] = fmaf(p, vv.x, o[i][4 * e]);
+              o[i][4 * e + 1] = fmaf(p, vv.y, o[i][4 * e + 1]);
+              o[i][4 * e + 2] = fmaf(p, vv.z, o[i][4 * e + 2]);
+              o[i][4 * e + 3] = fmaf(p, vv.w, o[i][4 * e + 3]);
+            }
+          }
+        } else {
+          const float2 vv = *reinterpret_cast<const float2*>(vrow + 2 * cg);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const float p = f4(pv[i], kk);
+            o[i][0] = fmaf(p, vv.x, o[i][0]);
+            o[i][1] = fmaf(p, vv.y, o[i][1]);
+          }
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int qp = q0 + rg + 16 * i;
+    if (qp >= Sq) continue;
+    const bool seen = m_run[i] > MXT_NEG_INF / 2;
+    const float l = fmaxf(l_run[i], 1e-30f);
+    float* orow = out + qbase + (size_t)qp * D;
+#pragma unroll
+    for (int c = 0; c < DC; ++c) {
+      const int col = DP >= 64 ? 4 * cg + 64 * (c / 4) + (c & 3) : 2 * cg + c;
+      if (col < D) orow[col] = seen ? o[i][c] / l : 0.f;
+    }
+    if (cg == 0)
+      lse[(size_t)bh * Sq + qp] =
+          seen ? m_run[i] * kLn2 + logf(l) : MXT_NEG_INF;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// bfloat16: tensor cores
+// ---------------------------------------------------------------------------
+
+constexpr int kBT = 128;   // four warps, 16 query rows each
+
+template <int DP>
+struct Bf16Geo {
+  static constexpr int LD = DP + 8;         // row stride (bf16): 16-byte rows
+  static constexpr size_t elems = 5 * (size_t)64 * LD;   // Q, 2 K, 2 V
+};
+
+__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+__device__ __forceinline__ void ldsm_x4_t(unsigned (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+
+// c += a b for one m16n8k16 tile (bf16 operands, float32 sums)
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4],
+                                         unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const unsigned*>(&v);
+}
+
+template <int DP>
+__global__ void __launch_bounds__(kBT)
+flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
+                      const __nv_bfloat16* __restrict__ k,
+                      const __nv_bfloat16* __restrict__ v,
+                      __nv_bfloat16* __restrict__ out,
+                      float* __restrict__ lse, int Sq, int Sk, int D,
+                      int causal, float scale, int vec) {
+  using bf = __nv_bfloat16;
+  constexpr int LD = Bf16Geo<DP>::LD, KS = DP / 16, NT = DP / 8;
+  extern __shared__ float4 smem_v[];
+  bf* Qs = reinterpret_cast<bf*>(smem_v);
+  bf* Ks = Qs + 64 * LD;                    // [2][64][LD]
+  bf* Vs = Ks + 2 * 64 * LD;                // [2][64][LD]
+
+  const int nq = (Sq + kBQ - 1) / kBQ;
+  const int bh = blockIdx.x / nq;
+  const int q0 = (blockIdx.x % nq) * kBQ;
+  const size_t qbase = (size_t)bh * Sq * D, kbase = (size_t)bh * Sk * D;
+  const int diag = Sk - Sq;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int mi = lane >> 3, mr = lane & 7;  // ldmatrix: matrix, row
+  const bool vb = vec != 0;
+  const float scale2 = scale * kLog2e;
+  const int r0 = 16 * warp + gid;           // rows r0 and r0 + 8 of the tile
+
+  const int nk_all = (Sk + kBK - 1) / kBK;
+  int nk = nk_all;
+  if (causal) {
+    const int kmax = min(q0 + kBQ, Sq) - 1 + diag;
+    nk = kmax < 0 ? 0 : min(nk_all, kmax / kBK + 1);
+  }
+
+  if (nk > 0) {
+    load_tile<bf, DP, LD, kBT>(Qs, q + qbase, q0, Sq, D, vb);
+    load_tile<bf, DP, LD, kBT>(Ks, k + kbase, 0, Sk, D, vb);
+    load_tile<bf, DP, LD, kBT>(Vs, v + kbase, 0, Sk, D, vb);
+    cp_async_commit();
+  }
+
+  unsigned qf[KS][4];                       // this warp's Q rows, A fragments
+  float oacc[NT][4];
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) oacc[n][e] = 0.f;
+  float m_run[2] = {MXT_NEG_INF, MXT_NEG_INF}, l_run[2] = {0.f, 0.f};
+
+  for (int kt = 0; kt < nk; ++kt) {
+    const int buf = kt & 1, k0 = kt * kBK;
+    cp_async_wait_all();
+    __syncthreads();
+    if (kt == 0) {
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks)
+        ldsm_x4(qf[ks], Qs + (16 * warp + mr + 8 * (mi & 1)) * LD + 16 * ks +
+                            8 * (mi >> 1));
+    }
+    if (kt + 1 < nk) {
+      load_tile<bf, DP, LD, kBT>(Ks + (buf ^ 1) * 64 * LD, k + kbase,
+                                 k0 + kBK, Sk, D, vb);
+      load_tile<bf, DP, LD, kBT>(Vs + (buf ^ 1) * 64 * LD, v + kbase,
+                                 k0 + kBK, Sk, D, vb);
+      cp_async_commit();
+    }
+    const bf* Kb = Ks + buf * 64 * LD;
+    const bf* Vb = Vs + buf * 64 * LD;
+
+    // S = Q K^T: 8 tiles of 8 keys; s[n][0..1] row r0, [2..3] row r0 + 8,
+    // keys 8 n + 2 tig (+1)
+    float s[8][4];
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks) {
+#pragma unroll
+      for (int n = 0; n < 8; n += 2) {
+        unsigned b[4];   // key tiles n, n + 1; depth halves 0, 1
+        ldsm_x4(b, Kb + (8 * (n + (mi >> 1)) + mr) * LD + 16 * ks +
+                       8 * (mi & 1));
+        mma_bf16(s[n], qf[ks], b[0], b[1]);
+        mma_bf16(s[n + 1], qf[ks], b[2], b[3]);
+      }
+    }
+
+    float alpha[2];
+    const bool edge = tile_masks(k0, q0, Sk, diag, causal);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int qp = q0 + r0 + 8 * h;
+      float mloc = MXT_NEG_INF;
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float& x = s[n][2 * h + e];
+          x *= scale2;
+          if (edge) {
+            const int kp = k0 + 8 * n + 2 * tig + e;
+            bool valid = kp < Sk;
+            if (causal) valid = valid && kp <= qp + diag;
+            x = valid ? x : MXT_NEG_INF;
+          }
+          mloc = fmaxf(mloc, x);
+        }
+      mloc = fmaxf(mloc, __shfl_xor_sync(0xffffffffu, mloc, 1));
+      mloc = fmaxf(mloc, __shfl_xor_sync(0xffffffffu, mloc, 2));
+      const float m_new = fmaxf(m_run[h], mloc);
+      alpha[h] = exp2f(m_run[h] - m_new);
+      float lsum = 0.f;
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float& x = s[n][2 * h + e];
+          x = exp2f(x - m_new);
+          lsum += x;
+        }
+      lsum += __shfl_xor_sync(0xffffffffu, lsum, 1);
+      lsum += __shfl_xor_sync(0xffffffffu, lsum, 2);
+      l_run[h] = l_run[h] * alpha[h] + lsum;
+      m_run[h] = m_new;
+    }
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      oacc[n][0] *= alpha[0];
+      oacc[n][1] *= alpha[0];
+      oacc[n][2] *= alpha[1];
+      oacc[n][3] *= alpha[1];
+    }
+
+    // O += P V: P (rounded to bf16) is the A fragment straight from s
+#pragma unroll
+    for (int kc = 0; kc < 4; ++kc) {
+      const unsigned pa[4] = {pack_bf16(s[2 * kc][0], s[2 * kc][1]),
+                              pack_bf16(s[2 * kc][2], s[2 * kc][3]),
+                              pack_bf16(s[2 * kc + 1][0], s[2 * kc + 1][1]),
+                              pack_bf16(s[2 * kc + 1][2], s[2 * kc + 1][3])};
+#pragma unroll
+      for (int n = 0; n < NT; n += 2) {
+        unsigned b[4];   // V^T: column tiles n, n + 1; key halves 0, 1
+        ldsm_x4_t(b, Vb + (16 * kc + 8 * (mi & 1) + mr) * LD +
+                         8 * (n + (mi >> 1)));
+        mma_bf16(oacc[n], pa, b[0], b[1]);
+        mma_bf16(oacc[n + 1], pa, b[2], b[3]);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int qp = q0 + r0 + 8 * h;
+    if (qp >= Sq) continue;
+    const bool seen = m_run[h] > MXT_NEG_INF / 2;
+    const float l = fmaxf(l_run[h], 1e-30f);
+    bf* orow = out + qbase + (size_t)qp * D;
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      const int col = 8 * n + 2 * tig;
+      const float a = seen ? oacc[n][2 * h] / l : 0.f;
+      const float c = seen ? oacc[n][2 * h + 1] / l : 0.f;
+      if (vb && col + 1 < D) {   // D even: one 4-byte store of the pair
+        *reinterpret_cast<__nv_bfloat162*>(orow + col) =
+            __floats2bfloat162_rn(a, c);
+      } else {
+        if (col < D) orow[col] = __float2bfloat16_rn(a);
+        if (col + 1 < D) orow[col + 1] = __float2bfloat16_rn(c);
+      }
+    }
+    if (tig == 0)
+      lse[(size_t)bh * Sq + qp] =
+          seen ? m_run[h] * kLn2 + logf(l) : MXT_NEG_INF;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// launch
+// ---------------------------------------------------------------------------
+
+struct FwdArgs {
+  const void *q, *k, *v;
+  void *out, *lse;
+  int BH, Sq, Sk, D, causal;
+  float scale;
+};
+
+template <typename T>
+bool vec_ok(const FwdArgs& a) {
+  constexpr int E = 16 / sizeof(T);
+  return a.D % E == 0 &&
+         ((reinterpret_cast<uintptr_t>(a.q) | reinterpret_cast<uintptr_t>(a.k) |
+           reinterpret_cast<uintptr_t>(a.v)) & 15u) == 0;
+}
+
+// The kernel's shared-memory limit is set on every call, to the same
+// value (the kernel's own size), so it holds on every device and no call
+// changes it under another's launch.
+template <typename T, int DP>
+int fwd_launch(const FwdArgs& a, cudaStream_t s) {
+  constexpr bool F32 = sizeof(T) == 4;
+  const size_t smem = F32 ? sizeof(float) * F32Geo<DP>::floats
+                          : sizeof(__nv_bfloat16) * Bf16Geo<DP>::elems;
+  void* fn = F32 ? (void*)flash_fwd_f32_kernel<DP>
+                 : (void*)flash_fwd_bf16_kernel<DP>;
+  cudaError_t e = cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  const long long blocks = (long long)a.BH * ((a.Sq + kBQ - 1) / kBQ);
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
-  flash_fwd_kernel<T, DP><<<(unsigned)blocks, NTHREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out),
-      static_cast<float*>(lse), Sq, Sk, D, causal, sm_scale);
+  const int vec = vec_ok<T>(a) ? 1 : 0;
+  if constexpr (F32) {
+    flash_fwd_f32_kernel<DP><<<(unsigned)blocks, kFT, smem, s>>>(
+        static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+        static_cast<const float*>(a.v), static_cast<float*>(a.out),
+        static_cast<float*>(a.lse), a.Sq, a.Sk, a.D, a.causal, a.scale, vec);
+  } else {
+    flash_fwd_bf16_kernel<DP><<<(unsigned)blocks, kBT, smem, s>>>(
+        static_cast<const __nv_bfloat16*>(a.q),
+        static_cast<const __nv_bfloat16*>(a.k),
+        static_cast<const __nv_bfloat16*>(a.v),
+        static_cast<__nv_bfloat16*>(a.out), static_cast<float*>(a.lse),
+        a.Sq, a.Sk, a.D, a.causal, a.scale, vec);
+  }
   return (int)cudaGetLastError();
 }
 
 template <typename T>
-static int flash_dispatch_d(const void* q, const void* k, const void* v,
-                            void* out, void* lse, int BH, int Sq, int Sk,
-                            int D, int causal, float sm_scale,
-                            cudaStream_t s) {
-  if (D <= 32)
-    return flash_launch<T, 32>(q, k, v, out, lse, BH, Sq, Sk, D, causal,
-                               sm_scale, s);
-  if (D <= 64)
-    return flash_launch<T, 64>(q, k, v, out, lse, BH, Sq, Sk, D, causal,
-                               sm_scale, s);
-  return flash_launch<T, 128>(q, k, v, out, lse, BH, Sq, Sk, D, causal,
-                              sm_scale, s);
+int fwd_dispatch_d(const FwdArgs& a, cudaStream_t s) {
+  if (a.D <= 32) return fwd_launch<T, 32>(a, s);
+  if (a.D <= 64) return fwd_launch<T, 64>(a, s);
+  return fwd_launch<T, 128>(a, s);
 }
+
+}  // namespace
 
 // q: (BH, Sq, D); k, v: (BH, Sk, D); out: (BH, Sq, D), all contiguous in
 // `dtype`; lse: (BH, Sq) float32. 1 <= D <= 128.
@@ -203,16 +599,13 @@ MXT_API int mxt_flash_fwd(const void* q, const void* k, const void* v,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (D < 1 || D > 128) return (int)cudaErrorInvalidValue;
   if (BH <= 0 || Sq <= 0) return 0;
-  if (dtype == MXT_F32)
-    return flash_dispatch_d<float>(q, k, v, out, lse, BH, Sq, Sk, D, causal,
-                                   sm_scale, s);
-  if (dtype == MXT_BF16)
-    return flash_dispatch_d<__nv_bfloat16>(q, k, v, out, lse, BH, Sq, Sk, D,
-                                           causal, sm_scale, s);
+  const FwdArgs a{q, k, v, out, lse, BH, Sq, Sk, D, causal, sm_scale};
+  if (dtype == MXT_F32) return fwd_dispatch_d<float>(a, s);
+  if (dtype == MXT_BF16) return fwd_dispatch_d<__nv_bfloat16>(a, s);
   return (int)cudaErrorInvalidValue;
 }
 
-// cudaGetErrorString for the codes the entries above return
+// cudaGetErrorString for the codes the entries of every kernel return
 MXT_API const char* mxt_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

@@ -1,13 +1,16 @@
-// Shared pieces of the recurrence kernels: mode codes and the gate math of
-// one hidden unit forward and backward (rnn_scan_fwd.cu, rnn_scan_bwd.cu,
-// rnn_decode.cu); the forward's block slice of W_hh, its h @ W_hh^T dot
-// product of one batch row, and the cooperative launch that sizes its
-// grid from occupancy.
+// Shared pieces of the recurrence kernels (rnn_scan_fwd.cu, rnn_scan_bwd.cu,
+// rnn_decode.cu): mode codes, the gate math of one hidden unit forward and
+// backward, the summation order of h @ W_hh^T that the forward and the
+// decode step share, and the card's limits that the launch plans read.
 //
-// The forward's work split: a block owns U consecutive hidden units with all G gates of
-// each unit, so the cell update of a unit stays inside one thread. Within
-// a block each warp takes batch rows n = warp, warp + 8, ...; the lanes
-// split the contraction axis, and lane j finishes unit u0 + j of the row.
+// The summation order (fixed, so that a decode step equals a position of
+// the forward bit for bit, and a batch row's sum never depends on the
+// other rows): the dot of a row of h with a row of W_hh over k < H is
+// taken by the 32 lanes of a warp, lane j adding k = j, j + 32, j + 64,
+// ... in that order with fmaf(h[k], w[k], acc), and the 32 partial sums
+// are then added by the xor tree of mxt_warp_sum (offsets 16, 8, 4, 2, 1).
+// mxt_rnn_reduce64 takes that tree for 64 sums at once (each pairwise sum
+// is the same addition, so the bits are the same).
 #pragma once
 
 #include <cooperative_groups.h>
@@ -20,9 +23,6 @@ namespace cg = cooperative_groups;
 enum MxtRnnMode { MXT_RNN_RELU = 0, MXT_RNN_TANH = 1, MXT_LSTM = 2,
                   MXT_GRU = 3 };
 
-#define MXT_RNN_THREADS 256
-// the most hidden units one block owns (the register arrays are sized by it)
-#define MXT_RNN_MAX_UNITS 8
 // values of a row each lane loads before it multiplies: the loads are all
 // in flight together, so a row of H <= 768 costs one L2 round trip
 #define MXT_RNN_CHUNK 24
@@ -133,119 +133,40 @@ __device__ __forceinline__ void mxt_rnn_bwd_unit(
   }
 }
 
-// The block's rows of W_hh (G*U rows of H, row g*U + j is W_hh[g*H + u0 +
-// j], zero past the last unit) into shared memory at `dst`.
-template <int G, int U>
-__device__ void mxt_rnn_load_rows(float* dst, const float* __restrict__ w,
-                                  int H, int u0, int nu) {
-  for (int idx = threadIdx.x; idx < G * U * H; idx += blockDim.x) {
-    const int q = idx / H, k = idx - q * H;
-    const int g = q / U, j = q - g * U;
-    dst[idx] = j < nu ? w[(size_t)(g * H + u0 + j) * H + k] : 0.f;
+// Halve the C sums a lane holds by one level of the xor tree at offset o:
+// of each pair (v[i], v[i + C/2]) the lane keeps one half (the upper when
+// `hi`) and adds the partner lane's value of it; the partner keeps the
+// other half. Every sum is the one mxt_warp_sum forms at that level.
+template <int C>
+__device__ __forceinline__ void mxt_rnn_halve(float* v, int o, bool hi) {
+#pragma unroll
+  for (int i = 0; i < C / 2; ++i) {
+    const float send = hi ? v[i] : v[i + C / 2];
+    const float keep = hi ? v[i + C / 2] : v[i];
+    v[i] = keep + __shfl_xor_sync(0xffffffffu, send, o);
   }
 }
 
-// acc[q] = sum over k < K of v[k] * w[off[q] + k * stride] for Q sums, this
-// lane taking k = lane, lane + 32, ... in that order, the warp's partial
-// sums then reduced so that every lane holds every sum. v is read from L2
-// (other blocks wrote it), MXT_RNN_CHUNK values at a time.
-template <typename T, int Q>
-__device__ __forceinline__ void mxt_rnn_warp_dot(const T* v, int K,
-                                                 const float* w,
-                                                 const int* off, int stride,
-                                                 float* acc) {
+// The warp sums of 64 values a lane holds (each the lane's partial sum of
+// one dot product), by the xor tree of mxt_warp_sum: afterwards lane l
+// holds the sums of values 2 l and 2 l + 1 in v[0] and v[1].
+__device__ __forceinline__ void mxt_rnn_reduce64(float (&v)[64]) {
   const int lane = threadIdx.x & 31;
-#pragma unroll
-  for (int q = 0; q < Q; ++q) acc[q] = 0.f;
-  for (int k0 = lane; k0 < K; k0 += 32 * MXT_RNN_CHUNK) {
-    float vv[MXT_RNN_CHUNK];
-#pragma unroll
-    for (int i = 0; i < MXT_RNN_CHUNK; ++i) {
-      const int k = k0 + 32 * i;
-      vv[i] = k < K ? mxt_ldcg(v + k) : 0.f;
-    }
-#pragma unroll
-    for (int i = 0; i < MXT_RNN_CHUNK; ++i) {
-      const int k = k0 + 32 * i;
-      if (k < K) {
-#pragma unroll
-        for (int q = 0; q < Q; ++q)
-          acc[q] = fmaf(vv[i], w[off[q] + (size_t)k * stride], acc[q]);
-      }
-    }
-  }
-#pragma unroll
-  for (int q = 0; q < Q; ++q) acc[q] = mxt_warp_sum(acc[q]);
+  mxt_rnn_halve<64>(v, 16, lane & 16);
+  mxt_rnn_halve<32>(v, 8, lane & 8);
+  mxt_rnn_halve<16>(v, 4, lane & 4);
+  mxt_rnn_halve<8>(v, 2, lane & 2);
+  mxt_rnn_halve<4>(v, 1, lane & 1);
 }
 
-
-// Row offsets of the block's G*U rows: in the shared slice, or in W_hh
-// (a row past the last unit points at row 0; its sums are never used).
-template <int G, int U>
-__device__ __forceinline__ void mxt_rnn_row_offsets(bool smem, int H, int u0,
-                                                    int nu, int* off) {
-#pragma unroll
-  for (int q = 0; q < G * U; ++q) {
-    const int g = q / U, j = q - g * U;
-    off[q] = smem ? q * H : (j < nu ? (g * H + u0 + j) * H : 0);
-  }
-}
-
-// Lane j's G values of acc (unit u0 + j) into hw, with compile-time
-// indices so that acc stays in registers.
-template <int G, int U>
-__device__ __forceinline__ void mxt_rnn_pick(const float* acc, int lane,
-                                             float* hw) {
-#pragma unroll
-  for (int j = 0; j < U; ++j) {
-    if (lane == j) {
-#pragma unroll
-      for (int g = 0; g < G; ++g) hw[g] = acc[g * U + j];
-    }
-  }
-}
-
-// Launch kernel `fns[U-1]` (U = 1..MXT_RNN_MAX_UNITS units per block) as a
-// cooperative grid of ceil(H / U) blocks, all co-resident. U starts at
-// ceil(H / SMs), one block per SM, and grows until the grid fits what the
-// card can hold at the kernel's occupancy. `smem_per_unit` is the shared
-// memory one unit's slice of W_hh takes; where U units' slices do not fit
-// a block, the kernel reads W_hh from device memory (args[w_flag_index]
-// is set to 0). Returns cudaErrorCooperativeLaunchTooLarge when no U
-// gives a co-resident grid.
-static int mxt_rnn_coop_launch(void* const* fns, int H, size_t smem_per_unit,
-                               void** args, int* w_in_smem,
-                               cudaStream_t stream) {
-  int dev, sms, optin;
+// The current device's SM count and the shared memory a block may opt in to.
+static inline int mxt_device_limits(int* sms, int* optin) {
+  int dev;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    e = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
   if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(&optin,
+    e = cudaDeviceGetAttribute(optin,
                                cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (e != cudaSuccess) return (int)e;
-  int u = (H + sms - 1) / sms;
-  if (u < 1) u = 1;
-  if (u > MXT_RNN_MAX_UNITS) u = MXT_RNN_MAX_UNITS;
-  for (; u <= MXT_RNN_MAX_UNITS; ++u) {
-    const void* fn = fns[u - 1];
-    size_t smem = smem_per_unit * u;
-    *w_in_smem = smem <= (size_t)optin ? 1 : 0;
-    if (!*w_in_smem) smem = 0;
-    e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
-    if (e != cudaSuccess) return (int)e;
-    int occ = 0;
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, fn,
-                                                      MXT_RNN_THREADS, smem);
-    if (e != cudaSuccess) return (int)e;
-    const int blocks = (H + u - 1) / u;
-    if (blocks <= occ * sms) {
-      e = cudaLaunchCooperativeKernel(fn, dim3(blocks), dim3(MXT_RNN_THREADS),
-                                      args, smem, stream);
-      if (e != cudaSuccess) return (int)e;
-      return (int)cudaGetLastError();
-    }
-  }
-  return (int)cudaErrorCooperativeLaunchTooLarge;
+  return (int)e;
 }

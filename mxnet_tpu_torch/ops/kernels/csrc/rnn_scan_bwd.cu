@@ -31,9 +31,12 @@
 //    208 KB there). Where no tile with the slice in shared memory keeps
 //    the whole grid resident (the slice grows with G*H*UP, the grid with
 //    H/UP), the walk reads W_hh through L2 instead: at N 300, LSTM and
-//    GRU at H 1,024 and the one-gate modes at H 1,500, where the forward
-//    still runs; the card tests and phase 3 of chip_smoke.py run that
-//    branch there.
+//    GRU at H 1,024 and the one-gate modes at H 1,500; the card tests and
+//    phase 3 of chip_smoke.py run that branch there. Where not even that
+//    keeps one tile a block resident (LSTM at N 512 x H 4,096), the grid
+//    is as many blocks as the card holds and each block takes several
+//    tiles a step, their dh and dc carries kept in the wrapper's float32
+//    dh_s / dc_s.
 //    Per step: the gate backward of its (row, unit) pairs turns
 //    hw_t into the dgates in place in `dhw` (and writes dxw); ONE grid
 //    barrier; then dh_{t-1} of its pairs = dh_dir + dhw_t @ W_hh[:, units],
@@ -282,40 +285,56 @@ rnn_bwd_walk_kernel(const T* __restrict__ xw, const T* __restrict__ h0,
                     const T* __restrict__ c0, const float* __restrict__ w,
                     const float* __restrict__ b, const T* __restrict__ ys,
                     const T* __restrict__ cs, const T* __restrict__ dy,
-                    const float* __restrict__ dh_s,
-                    const float* __restrict__ dc_s, T* __restrict__ dxw,
+                    float* dh_s, float* dc_s, T* __restrict__ dxw,
                     float* dhw, T* __restrict__ dh0, T* __restrict__ dc0,
                     int Tn, int N, int H, int mode, int NB, int w_in_smem) {
   extern __shared__ float4 smem_v[];
   cg::grid_group grid = cg::this_grid();
   const int GH = G * H;
   const int n_ug = (H + UP - 1) / UP;
-  const int n0 = (blockIdx.x / n_ug) * NB, u0 = (blockIdx.x % n_ug) * UP;
-  const int nb = min(NB, N - n0), nu = min(UP, H - u0);
+  const int tiles = ((N + NB - 1) / NB) * n_ug;
+  // one tile a block: its carries stay in shared memory; several: each
+  // pair's carries stay in dh_s / dc_s, touched only by the thread that
+  // owns the pair
+  const bool one = tiles == (int)gridDim.x;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int pairs = NB * UP;
   const int nslices = walk_slices(NB);
 
-  // [GH][UP]: W_hh's columns of this block's units (if they fit); then
-  // the partial sums [nslices][NB][UP]; then the dh and dc carries
+  // [GH][UP]: W_hh's columns of this block's units (if they fit; one tile
+  // a block); then the partial sums [nslices][NB][UP]; then the dh and dc
+  // carries (one tile a block)
   float* wc = reinterpret_cast<float*>(smem_v);
   float* part = wc + (w_in_smem ? (size_t)GH * UP : 0);
   float* dh_c = part + (size_t)nslices * NB * UP;
   float* dc_c = dh_c + pairs;
-  if (w_in_smem) {
-    for (int idx = tid; idx < GH * UP; idx += kWT) {
-      const int k = idx / UP, ul = idx - k * UP;
-      wc[idx] = ul < nu ? w[(size_t)k * H + u0 + ul] : 0.f;
-    }
-  }
-  for (int p = tid; p < pairs; p += kWT) {
+  // pair p of the tile at (n0, u0): its carries' place
+  auto carry = [&](int n0, int u0, int p, size_t& at) -> bool {
     const int nl = p / UP, ul = p - nl * UP;
-    const bool in = nl < nb && ul < nu;
-    const size_t su = (size_t)(n0 + nl) * H + u0 + ul;
-    dh_c[p] = in ? dh_s[su] : 0.f;
-    dc_c[p] = (in && G == 4) ? dc_s[su] : 0.f;
+    at = one ? (size_t)p : (size_t)(n0 + nl) * H + u0 + ul;
+    return nl < min(NB, N - n0) && ul < min(UP, H - u0);
+  };
+  float* dhc = one ? dh_c : dh_s;
+  float* dcc = one ? dc_c : dc_s;
+  if (one) {
+    const int n0 = (blockIdx.x / n_ug) * NB, u0 = (blockIdx.x % n_ug) * UP;
+    const int nu = min(UP, H - u0);
+    if (w_in_smem) {
+      for (int idx = tid; idx < GH * UP; idx += kWT) {
+        const int k = idx / UP, ul = idx - k * UP;
+        wc[idx] = ul < nu ? w[(size_t)k * H + u0 + ul] : 0.f;
+      }
+    }
+    for (int p = tid; p < pairs; p += kWT) {
+      const int nl = p / UP, ul = p - nl * UP;
+      size_t at;
+      const bool in = carry(n0, u0, p, at);
+      const size_t su = (size_t)(n0 + nl) * H + u0 + ul;
+      dh_c[p] = in ? dh_s[su] : 0.f;
+      dc_c[p] = (in && G == 4) ? dc_s[su] : 0.f;
+    }
+    __syncthreads();
   }
-  __syncthreads();
 
   const size_t step = (size_t)N * H;
   const int ngr = walk_groups(NB);
@@ -326,126 +345,148 @@ rnn_bwd_walk_kernel(const T* __restrict__ xw, const T* __restrict__ h0,
     const T* cprev = t == 0 ? c0 : cs + (t - 1) * step;
     // the gate backward of this block's (row, unit) pairs; hw_t in dhw
     // becomes dhw_t in place
-    for (int p = tid; p < pairs; p += kWT) {
-      const int nl = p / UP, ul = p - nl * UP;
-      if (nl >= nb || ul >= nu) continue;
-      const int n = n0 + nl, u = u0 + ul;
-      const size_t row = (size_t)t * N + n;
-      const size_t su = (size_t)n * H + u;
-      float x[G], hw[G], bias[G];
+    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+      const int n0 = (tile / n_ug) * NB, u0 = (tile % n_ug) * UP;
+      for (int p = tid; p < pairs; p += kWT) {
+        size_t at;
+        if (!carry(n0, u0, p, at)) continue;
+        const int nl = p / UP, ul = p - nl * UP;
+        const int n = n0 + nl, u = u0 + ul;
+        const size_t row = (size_t)t * N + n;
+        const size_t su = (size_t)n * H + u;
+        float x[G], hw[G], bias[G];
 #pragma unroll
-      for (int g = 0; g < G; ++g) {
-        x[g] = mxt_to_float(xw[row * GH + g * H + u]);
-        hw[g] = __ldcg(dhw + row * GH + g * H + u);
-        bias[g] = b[g * H + u];
-      }
-      const float h_prev = mxt_to_float(hprev[su]);
-      const float c_prev = G == 4 ? mxt_to_float(cprev[su]) : 0.f;
-      const float c_new = G == 4 ? mxt_to_float(cs[row * H + u]) : 0.f;
-      const float y = G == 1 ? mxt_to_float(ys[row * H + u]) : 0.f;
-      float gx[G], gh[G], dh_dir, dc_out = 0.f;
-      mxt_rnn_bwd_unit<G>(mode, x, hw, bias, h_prev, c_prev, c_new, y,
-                          mxt_to_float(dy[row * H + u]), dh_c[p], dc_c[p],
-                          gx, gh, dh_dir, dc_out);
+        for (int g = 0; g < G; ++g) {
+          x[g] = mxt_to_float(xw[row * GH + g * H + u]);
+          hw[g] = __ldcg(dhw + row * GH + g * H + u);
+          bias[g] = b[g * H + u];
+        }
+        const float h_prev = mxt_to_float(hprev[su]);
+        const float c_prev = G == 4 ? mxt_to_float(cprev[su]) : 0.f;
+        const float c_new = G == 4 ? mxt_to_float(cs[row * H + u]) : 0.f;
+        const float y = G == 1 ? mxt_to_float(ys[row * H + u]) : 0.f;
+        float gx[G], gh[G], dh_dir, dc_out = 0.f;
+        mxt_rnn_bwd_unit<G>(mode, x, hw, bias, h_prev, c_prev, c_new, y,
+                            mxt_to_float(dy[row * H + u]), dhc[at],
+                            G == 4 ? dcc[at] : 0.f, gx, gh, dh_dir, dc_out);
 #pragma unroll
-      for (int g = 0; g < G; ++g) {
-        dxw[row * GH + g * H + u] = mxt_from_float<T>(gx[g]);
-        dhw[row * GH + g * H + u] = gh[g];
+        for (int g = 0; g < G; ++g) {
+          dxw[row * GH + g * H + u] = mxt_from_float<T>(gx[g]);
+          dhw[row * GH + g * H + u] = gh[g];
+        }
+        dhc[at] = dh_dir;
+        if (G == 4) dcc[at] = dc_out;
       }
-      dh_c[p] = dh_dir;
-      if (G == 4) dc_c[p] = dc_out;
     }
     grid.sync();
-    // dh_{t-1} = dh_dir + dhw_t @ W_hh[:, units]: this thread's rows
-    // kWalkRows grp + r, depth values k = 4 ch .. 4 ch + 3 for ch = ks,
-    // ks + s_k, ...
-    float acc[kWalkRows][UP];
-#pragma unroll
-    for (int r = 0; r < kWalkRows; ++r)
-#pragma unroll
-      for (int u = 0; u < UP; ++u) acc[r][u] = 0.f;
-    {
-      const float* drow[kWalkRows];
-      bool live[kWalkRows];
-#pragma unroll
-      for (int r = 0; r < kWalkRows; ++r) {
-        const int nl = kWalkRows * grp + r;
-        live[r] = nl < nb;
-        drow[r] = dhw + ((size_t)t * N + n0 + (live[r] ? nl : 0)) * GH;
-      }
-      auto load = [&](float4 (&d)[kWalkRows], int k) {
-#pragma unroll
-        for (int r = 0; r < kWalkRows; ++r)
-          d[r] = live[r] ? walk_load4(drow[r], k, GH, vec)
-                         : make_float4(0.f, 0.f, 0.f, 0.f);
-      };
-      // kWalkBatch chunks of 4 depth values loaded together, then
-      // multiplied: one L2 round trip a batch, and no branch between a
-      // batch's loads and its FMAs; the chunks left over go one by one
-      const int nch = (GH + 3) / 4;
-      int ch = ks;
-      for (; ch + (kWalkBatch - 1) * s_k < nch; ch += kWalkBatch * s_k) {
-        float4 dv[kWalkBatch][kWalkRows];
-#pragma unroll
-        for (int i = 0; i < kWalkBatch; ++i) load(dv[i], 4 * (ch + i * s_k));
-#pragma unroll
-        for (int i = 0; i < kWalkBatch; ++i)
-          walk_fma<UP>(acc, dv[i], 4 * (ch + i * s_k), GH, wc, w, H, u0, nu,
-                       w_in_smem);
-      }
-      for (; ch < nch; ch += s_k) {
-        float4 dv[kWalkRows];
-        load(dv, 4 * ch);
-        walk_fma<UP>(acc, dv, 4 * ch, GH, wc, w, H, u0, nu, w_in_smem);
-      }
-    }
-    // part[slice][row][u]: lanes lane ^ ngr, lane ^ 2 ngr, ... of a warp
-    // hold slices of the same rows, added first by shuffles
-    int slice = ks;
-    bool writes = true;
-    if (ngr < 32) {
+    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+      const int n0 = (tile / n_ug) * NB, u0 = (tile % n_ug) * UP;
+      const int nb = min(NB, N - n0), nu = min(UP, H - u0);
+      // dh_{t-1} = dh_dir + dhw_t @ W_hh[:, units]: this thread's rows
+      // kWalkRows grp + r, depth values k = 4 ch .. 4 ch + 3 for ch = ks,
+      // ks + s_k, ...
+      float acc[kWalkRows][UP];
 #pragma unroll
       for (int r = 0; r < kWalkRows; ++r)
 #pragma unroll
-        for (int u = 0; u < UP; ++u)
-          for (int o = ngr; o < 32; o <<= 1)
-            acc[r][u] += __shfl_xor_sync(0xffffffffu, acc[r][u], o);
-      slice = warp;
-      writes = lane < ngr;
-    }
-    if (writes) {
+        for (int u = 0; u < UP; ++u) acc[r][u] = 0.f;
+      {
+        const float* drow[kWalkRows];
+        bool live[kWalkRows];
 #pragma unroll
-      for (int r = 0; r < kWalkRows; ++r) {
-        const int nl = kWalkRows * grp + r;
-        if (nl >= NB) continue;
+        for (int r = 0; r < kWalkRows; ++r) {
+          const int nl = kWalkRows * grp + r;
+          live[r] = nl < nb;
+          drow[r] = dhw + ((size_t)t * N + n0 + (live[r] ? nl : 0)) * GH;
+        }
+        auto load = [&](float4 (&d)[kWalkRows], int k) {
 #pragma unroll
-        for (int u = 0; u < UP; ++u) part[(slice * NB + nl) * UP + u] = acc[r][u];
+          for (int r = 0; r < kWalkRows; ++r)
+            d[r] = live[r] ? walk_load4(drow[r], k, GH, vec)
+                           : make_float4(0.f, 0.f, 0.f, 0.f);
+        };
+        // kWalkBatch chunks of 4 depth values loaded together, then
+        // multiplied: one L2 round trip a batch, and no branch between a
+        // batch's loads and its FMAs; the chunks left over go one by one
+        const int nch = (GH + 3) / 4;
+        int ch = ks;
+        for (; ch + (kWalkBatch - 1) * s_k < nch; ch += kWalkBatch * s_k) {
+          float4 dv[kWalkBatch][kWalkRows];
+#pragma unroll
+          for (int i = 0; i < kWalkBatch; ++i) load(dv[i], 4 * (ch + i * s_k));
+#pragma unroll
+          for (int i = 0; i < kWalkBatch; ++i)
+            walk_fma<UP>(acc, dv[i], 4 * (ch + i * s_k), GH, wc, w, H, u0, nu,
+                         w_in_smem);
+        }
+        for (; ch < nch; ch += s_k) {
+          float4 dv[kWalkRows];
+          load(dv, 4 * ch);
+          walk_fma<UP>(acc, dv, 4 * ch, GH, wc, w, H, u0, nu, w_in_smem);
+        }
       }
+      // part[slice][row][u]: lanes lane ^ ngr, lane ^ 2 ngr, ... of a warp
+      // hold slices of the same rows, added first by shuffles
+      int slice = ks;
+      bool writes = true;
+      if (ngr < 32) {
+#pragma unroll
+        for (int r = 0; r < kWalkRows; ++r)
+#pragma unroll
+          for (int u = 0; u < UP; ++u)
+            for (int o = ngr; o < 32; o <<= 1)
+              acc[r][u] += __shfl_xor_sync(0xffffffffu, acc[r][u], o);
+        slice = warp;
+        writes = lane < ngr;
+      }
+      if (writes) {
+#pragma unroll
+        for (int r = 0; r < kWalkRows; ++r) {
+          const int nl = kWalkRows * grp + r;
+          if (nl >= NB) continue;
+#pragma unroll
+          for (int u = 0; u < UP; ++u)
+            part[(slice * NB + nl) * UP + u] = acc[r][u];
+        }
+      }
+      __syncthreads();
+      for (int p = tid; p < pairs; p += kWT) {
+        size_t at;
+        if (!carry(n0, u0, p, at)) continue;
+        float s = 0.f;
+        for (int sl = 0; sl < nslices; ++sl) s += part[sl * pairs + p];
+        dhc[at] = dhc[at] + s;
+      }
+      // with several tiles, the next tile writes `part` after everyone
+      // has read it; with one, the next step's first writes to `part`
+      // follow its grid barrier. Each pair's carries are touched by the
+      // thread that owns the pair
+      if (!one) __syncthreads();
     }
-    __syncthreads();
-    for (int p = tid; p < pairs; p += kWT) {
-      float s = 0.f;
-      for (int sl = 0; sl < nslices; ++sl) s += part[sl * pairs + p];
-      dh_c[p] = dh_c[p] + s;
-    }
-    // the next step's first writes to `part` follow its grid barrier, and
-    // each pair's carries are touched by the thread that owns the pair
   }
-  for (int p = tid; p < pairs; p += kWT) {
-    const int nl = p / UP, ul = p - nl * UP;
-    if (nl >= nb || ul >= nu) continue;
-    const size_t su = (size_t)(n0 + nl) * H + u0 + ul;
-    dh0[su] = mxt_from_float<T>(dh_c[p]);
-    if (G == 4) dc0[su] = mxt_from_float<T>(dc_c[p]);
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const int n0 = (tile / n_ug) * NB, u0 = (tile % n_ug) * UP;
+    for (int p = tid; p < pairs; p += kWT) {
+      size_t at;
+      if (!carry(n0, u0, p, at)) continue;
+      const int nl = p / UP, ul = p - nl * UP;
+      const size_t su = (size_t)(n0 + nl) * H + u0 + ul;
+      dh0[su] = mxt_from_float<T>(dhc[at]);
+      if (G == 4) dc0[su] = mxt_from_float<T>(dcc[at]);
+    }
   }
 }
+
+// the fixed cost of a tile in the walk plan's units (a block that takes
+// several tiles a step pays it for each)
+constexpr long long kTileCost = 256;
 
 // units a walk block may own (the register array of the dh product)
 constexpr int kUnits[] = {4, 8, 12, 16, 20, 24};
 constexpr int kNUnits = sizeof(kUnits) / sizeof(kUnits[0]);
 
 struct WalkPlan {
-  int up, nb, blocks, w_in_smem;
+  int up, nb, tiles, blocks, w_in_smem;
   size_t smem;
 };
 
@@ -453,14 +494,12 @@ struct WalkPlan {
 // grid is co-resident, W_hh's slice in shared memory where it fits (its
 // product then costs max(UP, 21) FMA clocks a row and depth value against
 // ~21 for the L2 load of the row's value; through L2 four times that).
+// Where no tile keeps a grid of one tile a block resident, the grid is as
+// many blocks as the card holds, each taking several tiles a step (W_hh
+// through L2, the carries in dh_s / dc_s), at the least estimated work.
 static int walk_plan(void* const* fns, int N, int H, int G, WalkPlan* best) {
-  int dev, sms, optin;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(&optin,
-                               cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  int sms, optin;
+  cudaError_t e = (cudaError_t)mxt_device_limits(&sms, &optin);
   if (e != cudaSuccess) return (int)e;
   // every call sets the limit to the card's most, the same value from
   // every call and host thread, so that no call changes it under
@@ -476,7 +515,8 @@ static int walk_plan(void* const* fns, int N, int H, int G, WalkPlan* best) {
   for (int ui = kNUnits - 1; ui >= 0; --ui) {
     const int up = kUnits[ui];
     for (int nb = 1; nb <= kWT; nb <<= 1) {
-      const int blocks = ((N + nb - 1) / nb) * ((H + up - 1) / up);
+      const long long tiles =
+          (long long)((N + nb - 1) / nb) * ((H + up - 1) / up);
       const size_t rest =
           sizeof(float) * ((size_t)walk_slices(nb) * nb * up + 2 * nb * up);
       if (rest > (size_t)optin) break;
@@ -487,17 +527,44 @@ static int walk_plan(void* const* fns, int N, int H, int G, WalkPlan* best) {
       e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, fns[ui], kWT,
                                                         smem);
       if (e != cudaSuccess) return (int)e;
-      if (blocks > occ * sms) continue;
+      if (tiles > (long long)occ * sms) continue;
       const long long cost =
           (long long)nb * (up > 21 ? up : 21) * (in_smem ? 1 : 4);
       if (best_cost < 0 || cost < best_cost) {
         best_cost = cost;
-        *best = WalkPlan{up, nb, blocks, in_smem, smem};
+        *best = WalkPlan{up, nb, (int)tiles, (int)tiles, in_smem, smem};
       }
       break;   // a larger nb only costs more
     }
   }
-  return best_cost < 0 ? (int)cudaErrorCooperativeLaunchTooLarge : 0;
+  if (best_cost >= 0) return 0;
+  // several tiles a block
+  for (int ui = kNUnits - 1; ui >= 0; --ui) {
+    const int up = kUnits[ui];
+    for (int nb = 1; nb <= kWT; nb <<= 1) {
+      const long long tiles =
+          (long long)((N + nb - 1) / nb) * ((H + up - 1) / up);
+      const size_t smem =
+          sizeof(float) * ((size_t)walk_slices(nb) * nb * up + 2 * nb * up);
+      if (smem > (size_t)optin) break;
+      int occ = 0;
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, fns[ui], kWT,
+                                                        smem);
+      if (e != cudaSuccess) return (int)e;
+      if (occ < 1) continue;
+      const long long resident = (long long)occ * sms;
+      const long long tpb = (tiles + resident - 1) / resident;
+      const long long blocks = (tiles + tpb - 1) / tpb;
+      // each tile also pays two block barriers and its partial sums
+      const long long cost =
+          ((long long)nb * (up > 21 ? up : 21) * 4 + kTileCost) * tpb;
+      if (best_cost < 0 || cost < best_cost) {
+        best_cost = cost;
+        *best = WalkPlan{up, nb, (int)tiles, (int)blocks, 0, smem};
+      }
+    }
+  }
+  return best_cost < 0 ? (int)cudaErrorInvalidConfiguration : 0;
 }
 
 // the walk kernel of each unit width kUnits[i], for one dtype and gate count
@@ -526,8 +593,8 @@ static int rnn_bwd_launch(const void* xw, const void* h0, const void* c0,
   const T* a_ys = static_cast<const T*>(ys);
   const T* a_cs = static_cast<const T*>(cs);
   const T* a_dy = static_cast<const T*>(dy);
-  const float* a_dh_s = static_cast<const float*>(dh_s);
-  const float* a_dc_s = static_cast<const float*>(dc_s);
+  float* a_dh_s = static_cast<float*>(dh_s);
+  float* a_dc_s = static_cast<float*>(dc_s);
   T* a_dxw = static_cast<T*>(dxw);
   float* a_dhw = static_cast<float*>(dhw);
   T* a_dh0 = static_cast<T*>(dh0);
@@ -575,9 +642,9 @@ static int rnn_bwd_launch(const void* xw, const void* h0, const void* c0,
 }  // namespace
 
 // The walk's plan for (N, H, mode, dtype) on the current device, as a
-// launch would choose it: out = {units a block, batch rows a block,
-// blocks, 1 if W_hh's column slice is in shared memory else 0 (read
-// through L2)}. Launches nothing.
+// launch would choose it: out = {units a tile, batch rows a tile, blocks,
+// 1 if W_hh's column slice is in shared memory else 0 (read through L2),
+// tiles, tiles a block takes a step (at most)}. Launches nothing.
 MXT_API int mxt_rnn_bwd_walk_plan(int N, int H, int mode, int dtype,
                                   int* out) {
   if (N <= 0 || H <= 0 || mode < MXT_RNN_RELU || mode > MXT_GRU ||
@@ -601,6 +668,8 @@ MXT_API int mxt_rnn_bwd_walk_plan(int N, int H, int mode, int dtype,
   out[1] = plan.nb;
   out[2] = plan.blocks;
   out[3] = plan.w_in_smem;
+  out[4] = plan.tiles;
+  out[5] = (plan.tiles + plan.blocks - 1) / plan.blocks;
   return 0;
 }
 
@@ -621,9 +690,6 @@ MXT_API int mxt_rnn_scan_bwd(const void* xw, const void* h0, const void* c0,
   if (Tn <= 0 || N <= 0 || H <= 0) return 0;
   if (mode < MXT_RNN_RELU || mode > MXT_GRU) return (int)cudaErrorInvalidValue;
   const int G = mxt_rnn_gates(mode);
-  if ((size_t)G * H * H >= (1u << 31) ||
-      (size_t)Tn * N * G * H >= (1u << 31))
-    return (int)cudaErrorInvalidValue;
   if (G == 4 && (c0 == nullptr || cs == nullptr || dc_s == nullptr ||
                  dc0 == nullptr))
     return (int)cudaErrorInvalidValue;

@@ -7,7 +7,8 @@ returns ``(ys, h_T, c_T|None)``, ys in forward time order. Gate order is
 the JAX package's: LSTM [i, f, g, o], GRU [r, z, n].
 
 - forward: CUDA kernel ``csrc/rnn_scan_fwd.cu``, one cooperative launch
-  that owns the whole sequence (:func:`rnn_scan_fwd`);
+  that owns the whole sequence (:func:`rnn_scan_fwd`; its tile:
+  :func:`rnn_fwd_plan`);
 - backward: ``csrc/rnn_scan_bwd.cu``, one C entry
   (:func:`rnn_scan_bwd`): the gate recompute h_{t-1} @ W_hh^T of every
   step as one tiled product, the cooperative reverse-time walk, then the
@@ -43,7 +44,8 @@ from . import DTYPE_CODES, check_cuda_operands, launch, library
 
 __all__ = ["GATES", "MODE_CODES", "scan_supported", "rnn_scan",
            "rnn_scan_plain", "rnn_scan_bwd_plain", "rnn_scan_fwd",
-           "rnn_scan_bwd", "rnn_bwd_walk_plan", "decode_supported",
+           "rnn_scan_bwd", "rnn_fwd_plan", "rnn_bwd_walk_plan",
+           "decode_supported",
            "rnn_decode_step", "rnn_decode_step_plain", "rnn_verify_scan"]
 
 GATES = {"rnn_relu": 1, "rnn_tanh": 1, "lstm": 4, "gru": 3}
@@ -229,8 +231,8 @@ def _check_scan(name, xw, h0, c0, w_hh, b_hh, mode):
 def rnn_scan_fwd(xw, h0, c0, w_hh, b_hh, mode: str):
     """Forward of the recurrence → (ys, cs|None). A CUDA tensor launches
     the ``rnn_scan_fwd`` kernel (contiguous float32 or bfloat16 operands
-    of one dtype, a grid the card can hold at once, else it raises); a CPU
-    tensor runs :func:`rnn_scan_plain`."""
+    of one dtype, else it raises; any T, N, H); a CPU tensor runs
+    :func:`rnn_scan_plain`."""
     if xw.device.type == "cpu":
         return rnn_scan_plain(xw, h0, c0, w_hh, b_hh, mode)
     n_t, n, h = _check_scan("rnn_scan_fwd", xw, h0, c0, w_hh, b_hh, mode)
@@ -287,26 +289,47 @@ def rnn_scan_bwd(xw, h0, c0, w_hh, b_hh, ys, cs, dys, dc_t, mode: str):
     return dxw, dh0, dc0, dw.to(w_hh.dtype), db.to(b_hh.dtype)
 
 
+def _plan_query(entry: str, n: int, h: int, mode: str, dtype, device,
+                size: int):
+    if dtype not in DTYPE_CODES or mode not in MODE_CODES:
+        raise MXNetError(f"{entry}: no kernel for {mode!r} in {dtype}")
+    out = (ctypes.c_int * size)()
+    with torch.cuda.device(device):
+        err = getattr(library(), "mxt_" + entry)(
+            n, h, MODE_CODES[mode], DTYPE_CODES[dtype], out)
+    if err != 0:
+        what = library().mxt_error_string(err).decode()
+        raise MXNetError(f"{entry}: CUDA error {err} ({what})")
+    return list(out)
+
+
+def rnn_fwd_plan(n: int, h: int, mode: str,
+                 dtype: torch.dtype = torch.float32, device=None) -> dict:
+    """The tile that ``rnn_scan_fwd`` takes for batch ``n`` and hidden size
+    ``h`` on the CUDA ``device`` (the current one by default): batch rows
+    and hidden units a tile, tiles, blocks, the most tiles a block takes a
+    step, whether W_hh's rows of a tile sit in shared memory (else the
+    product reads them through L2), and the columns of h staged at once
+    (``h``: whole rows). A query: it launches nothing and counts nothing."""
+    o = _plan_query("rnn_fwd_plan", n, h, mode, dtype, device, 7)
+    return {"rows": o[0], "units": o[1], "tiles": o[2], "blocks": o[3],
+            "tiles_per_block": o[4], "w_in_smem": bool(o[5]),
+            "k_chunk": o[6]}
+
+
 def rnn_bwd_walk_plan(n: int, h: int, mode: str,
                       dtype: torch.dtype = torch.float32,
                       device=None) -> dict:
     """The plan that ``rnn_scan_bwd``'s reverse-time walk takes for batch
     ``n`` and hidden size ``h`` on the CUDA ``device`` (the current one by
-    default): hidden units and batch rows a block, blocks, and whether
-    W_hh's column slice sits in shared memory (else the walk reads it
-    through L2). A query: it launches nothing and counts nothing."""
-    if dtype not in DTYPE_CODES or mode not in MODE_CODES:
-        raise MXNetError(f"rnn_bwd_walk_plan: no kernel for {mode!r} in "
-                         f"{dtype}")
-    out = (ctypes.c_int * 4)()
-    with torch.cuda.device(device):
-        err = library().mxt_rnn_bwd_walk_plan(n, h, MODE_CODES[mode],
-                                              DTYPE_CODES[dtype], out)
-    if err != 0:
-        what = library().mxt_error_string(err).decode()
-        raise MXNetError(f"rnn_bwd_walk_plan: CUDA error {err} ({what})")
-    return {"units": out[0], "rows": out[1], "blocks": out[2],
-            "w_in_smem": bool(out[3])}
+    default): hidden units and batch rows a tile, blocks, whether W_hh's
+    column slice sits in shared memory (else the walk reads it through
+    L2), tiles, and the most tiles a block takes a step (more than one
+    where no grid of one tile a block can be resident). A query: it
+    launches nothing and counts nothing."""
+    o = _plan_query("rnn_bwd_walk_plan", n, h, mode, dtype, device, 6)
+    return {"units": o[0], "rows": o[1], "blocks": o[2],
+            "w_in_smem": bool(o[3]), "tiles": o[4], "tiles_per_block": o[5]}
 
 
 # ---------------------------------------------------------------------------
@@ -358,10 +381,6 @@ class _ScanNoC(torch.autograd.Function):
 # single-step decode (inference only: no autograd)
 # ---------------------------------------------------------------------------
 
-#: shared memory a decode block may use (the H100's opt-in limit)
-DECODE_SMEM_BYTES = 232448
-
-
 def decode_supported(xw, h, c, mode: str) -> Optional[str]:
     """None when the decode kernel covers this call, else the reason (the
     JAX package's rule: a known mode, float32 or bfloat16, xw (N, G*H))."""
@@ -390,9 +409,9 @@ def rnn_decode_step(xw, h, c, w_hh, b_hh, mode: str):
     """ONE recurrence step from a precomputed input projection ``xw``
     (N, G*H) → ``(h_new, c_new|None)``, new tensors in xw's dtype. A CUDA
     tensor launches the ``rnn_decode`` kernel (contiguous float32 or
-    bfloat16 operands of one dtype, N*H small enough for a block's shared
-    memory, else it raises); a CPU tensor runs
-    :func:`rnn_decode_step_plain`. Inference only: no gradient."""
+    bfloat16 operands of one dtype, else it raises; any N and H); a CPU
+    tensor runs :func:`rnn_decode_step_plain`. Inference only: no
+    gradient."""
     why = decode_supported(xw, h, c, mode)
     if why is not None and not (xw.device.type == "cpu" and "dtype" in why):
         raise MXNetError(f"rnn_decode_step: {why}")
@@ -400,10 +419,6 @@ def rnn_decode_step(xw, h, c, w_hh, b_hh, mode: str):
         return rnn_decode_step_plain(xw, h, c, w_hh, b_hh, mode)
     _, n, h_dim = _check_scan("rnn_decode_step", xw[None], h, c, w_hh, b_hh,
                               mode)
-    if 4 * n * h_dim > DECODE_SMEM_BYTES:
-        raise MXNetError(f"rnn_decode_step: h as float32 ({n} x {h_dim}) "
-                         f"does not fit a block's shared memory "
-                         f"({DECODE_SMEM_BYTES} bytes)")
     lstm = mode == "lstm"
     h_new = torch.empty(n, h_dim, dtype=xw.dtype, device=xw.device)
     c_new = torch.empty_like(h_new) if lstm else None

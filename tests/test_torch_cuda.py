@@ -34,6 +34,16 @@ FLASH_CASES = [
     (1, 3, 100, 100, 8, False),
     (2, 12, 128, 128, 64, False),
     (1, 2, 70, 70, 128, True),
+    # the tiles' edges: D 1 and 80, Sq and Sk no multiple of a 64-row
+    # tile, causal with Sq < Sk and Sq > Sk, D 7 (no 16-byte rows), S 512
+    # causal and S 1024
+    (1, 2, 1, 1, 1, False),
+    (1, 2, 77, 93, 32, True),
+    (1, 2, 150, 70, 128, True),
+    (1, 3, 65, 129, 7, False),
+    (1, 2, 200, 130, 80, False),
+    (1, 4, 512, 512, 64, True),
+    (1, 2, 1024, 1024, 64, False),
 ]
 
 
@@ -68,6 +78,9 @@ def test_flash_kernel_on_card(cuda_dev, dtype, case):
     tol = CARD_TOL[dtype]
     torch.testing.assert_close(out.float(), rout.float(), atol=tol, rtol=tol)
     torch.testing.assert_close(lse, rlse, atol=1e-4, rtol=1e-5)
+    # no atomics: a second run repeats bit for bit
+    again = ATT.flash_attention_fwd(q, k, v, causal)
+    assert torch.equal(again[0], out) and torch.equal(again[1], lse)
 
 
 @pytest.mark.cuda
@@ -304,6 +317,79 @@ def test_rnn_scan_bwd_reads_w_hh_through_l2_on_card(cuda_dev, mode, h,
     _scan_kernels_vs_plain(cuda_dev, mode, (3, 300, h), dtype)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode", ["lstm", "gru", "rnn_tanh"])
+def test_rnn_scan_fwd_keeps_w_hh_in_shared_memory_on_card(cuda_dev, mode,
+                                                          dtype):
+    """The LM's layer: one tile a block, W_hh's rows of the tile resident
+    in shared memory, whole rows of h staged."""
+    plan = KR.rnn_fwd_plan(64, 650, mode, dtype, cuda_dev)
+    assert plan["w_in_smem"] and plan["tiles_per_block"] == 1, plan
+    assert plan["k_chunk"] == 650 and plan["blocks"] <= 132, plan
+    _scan_kernels_vs_plain(cuda_dev, mode, (5, 64, 650), dtype)
+
+
+#: LSTM shapes the first card kernels refused ("too many blocks in
+#: cooperative launch"), with what the plans must now show there
+REFUSED_BEFORE = [
+    ((3, 64, 4096), "forward"),   # W_hh through L2, several tiles a block
+    ((2, 512, 4096), "walk"),     # several walk tiles a block
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,what", REFUSED_BEFORE)
+def test_rnn_scan_serves_shapes_refused_before_on_card(cuda_dev, shape, what,
+                                                       dtype):
+    _, n, h = shape
+    fwd = KR.rnn_fwd_plan(n, h, "lstm", dtype, cuda_dev)
+    walk = KR.rnn_bwd_walk_plan(n, h, "lstm", dtype, cuda_dev)
+    if what == "forward":
+        assert not fwd["w_in_smem"] and fwd["tiles_per_block"] > 1, fwd
+    else:
+        assert walk["tiles_per_block"] > 1 and not walk["w_in_smem"], walk
+        assert walk["blocks"] < walk["tiles"], walk
+    _scan_kernels_vs_plain(cuda_dev, "lstm", shape, dtype)
+
+
+@pytest.mark.cuda
+def test_rnn_kernels_where_no_row_of_h_fits_a_block_on_card(cuda_dev):
+    """H 60,000 (one gate): a row of h (240 KB) fits no block, so the
+    forward stages h in column chunks and the decode step reads h through
+    L2; W_hh (14.4 GB) has more than 2**31 elements. Forward, backward and
+    a decode step against the plain versions, float32."""
+    n_t, n, h = 2, 2, 60000
+    plan = KR.rnn_fwd_plan(n, h, "rnn_tanh", torch.float32, cuda_dev)
+    assert 0 < plan["k_chunk"] < h and not plan["w_in_smem"], plan
+    g = torch.Generator(device=cuda_dev).manual_seed(9)
+
+    def t(*shape, s):   # made on the card: W_hh alone is 14.4 GB
+        return torch.randn(*shape, generator=g, device=cuda_dev) * s
+
+    xw, h0, w, b = t(n_t, n, h, s=0.5), t(n, h, s=0.5), \
+        t(h, h, s=0.5 / h ** 0.5), t(h, s=0.1)
+    dys = t(n_t, n, h, s=1.0)
+    ys, _ = KR.rnn_scan_fwd(xw, h0, None, w, b, "rnn_tanh")
+    ref, _ = KR.rnn_scan_plain(xw, h0, None, w, b, "rnn_tanh")
+    torch.testing.assert_close(ys, ref, atol=1e-4, rtol=1e-4)
+    del ref
+    got = KR.rnn_scan_bwd(xw, h0, None, w, b, ys, None, dys, None,
+                          "rnn_tanh")
+    ref = KR.rnn_scan_bwd_plain(xw, h0, None, w, b, ys, None, dys, None,
+                                "rnn_tanh")
+    for a, r in zip(got, ref):   # dxw, dh0, (no dc0), dw, db
+        if r is None:
+            continue
+        for i in range(0, a.shape[0], 4096):   # in row blocks: dw is 14 GB
+            torch.testing.assert_close(a[i:i + 4096], r[i:i + 4096],
+                                       atol=1e-4, rtol=1e-4)
+    del got, ref
+    got, _ = KR.rnn_decode_step(xw[0], h0, None, w, b, "rnn_tanh")
+    assert torch.equal(got, ys[0])   # the step equals the scan position
+
+
 def _scan_kernels_vs_plain(cuda_dev, mode, shape, dtype):
     xw, h0, c0, w, b, dys, dct = _rnn_inputs(mode, *shape, dtype, cuda_dev)
     K.reset_launch_counts()
@@ -365,15 +451,14 @@ def test_rnn_wrappers_raise_on_card(cuda_dev):
     strided = xw.transpose(0, 1).contiguous().transpose(0, 1)
     with pytest.raises(mxt.MXNetError, match="contiguous"):
         KR.rnn_scan_fwd(strided, h0, c0, w, b, "lstm")
-    # a hidden width whose grid of at most 8 units a block cannot be
-    # resident all at once on one card
+    # a hidden width the first forward refused (its grid of at most 8
+    # units a block could not be resident at once) now runs
     big = 12000
-    xw1 = torch.zeros(1, 1, big, device=cuda_dev)
-    h1 = torch.zeros(1, big, device=cuda_dev)
-    w1 = torch.zeros(big, big, device=cuda_dev)
-    b1 = torch.zeros(big, device=cuda_dev)
-    with pytest.raises(mxt.MXNetError, match="cooperative"):
-        KR.rnn_scan_fwd(xw1, h1, None, w1, b1, "rnn_tanh")
+    xw1, h1, _, w1, b1, _, _ = _rnn_inputs("rnn_tanh", 1, 1, big,
+                                           torch.float32, cuda_dev)
+    ys, _ = KR.rnn_scan_fwd(xw1, h1, None, w1, b1, "rnn_tanh")
+    ref, _ = KR.rnn_scan_plain(xw1, h1, None, w1, b1, "rnn_tanh")
+    torch.testing.assert_close(ys, ref, atol=1e-4, rtol=1e-4)
 
 
 def _decode_inputs(mode, n, h, dtype, dev, seed=5):
@@ -383,7 +468,7 @@ def _decode_inputs(mode, n, h, dtype, dev, seed=5):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", [(3, 37), (8, 650), (11, 64)])
+@pytest.mark.parametrize("shape", [(3, 37), (8, 650), (11, 64), (128, 650)])
 @pytest.mark.parametrize("mode", ["lstm", "gru", "rnn_tanh", "rnn_relu"])
 def test_rnn_decode_kernel_on_card(cuda_dev, mode, shape, dtype):
     xw, h, c, w, b = _decode_inputs(mode, *shape, dtype, cuda_dev)
@@ -431,11 +516,13 @@ def test_rnn_decode_wrapper_raises_on_card(cuda_dev):
     strided = h.t().contiguous().t()
     with pytest.raises(mxt.MXNetError, match="contiguous"):
         KR.rnn_decode_step(xw, strided, c, w, b, "lstm")
-    big = torch.zeros(64, 4096, device=cuda_dev)
-    with pytest.raises(mxt.MXNetError, match="shared memory"):
-        KR.rnn_decode_step(torch.zeros(64, 4096, device=cuda_dev), big,
-                           None, torch.zeros(4096, 4096, device=cuda_dev),
-                           torch.zeros(4096, device=cuda_dev), "rnn_tanh")
+    # h of 64 x 4,096 floats (1 MB), which the first version refused to
+    # stage in one block's shared memory, now runs in row groups
+    xw, h, _, w, b = _decode_inputs("rnn_tanh", 64, 4096, torch.float32,
+                                    cuda_dev)
+    got, _ = KR.rnn_decode_step(xw, h, None, w, b, "rnn_tanh")
+    ref, _ = KR.rnn_decode_step_plain(xw, h, None, w, b, "rnn_tanh")
+    torch.testing.assert_close(got, ref, atol=1e-4, rtol=1e-4)
 
 
 @pytest.mark.cuda

@@ -70,6 +70,22 @@ def test_rnn_decode_step_vs_jax(mode, pallas, monkeypatch):
 
 
 @pytest.mark.parametrize("mode", ["lstm", "gru"])
+def test_rnn_decode_step_at_128_rows_vs_jax(mode, monkeypatch):
+    """128 rows at decode_wide's H 650, a batch the card kernel now takes
+    in two row groups (the first version refused it): the plain step
+    against the JAX package's interpret-mode kernel."""
+    xw, h, c, w, b = _step_inputs(mode, 128, 650, seed=9)
+    w = w * 650 ** -0.5
+    monkeypatch.setenv("MXNET_PALLAS", "on")
+    jh, jc = JK.rnn_decode_step(*(jnp.asarray(a) for a in (xw, h, c, w, b)),
+                                mode)
+    th, tc = KR.rnn_decode_step(*_t(xw, h, c, w, b), mode)
+    onp.testing.assert_allclose(th.numpy(), onp.asarray(jh), atol=TOL)
+    if mode == "lstm":
+        onp.testing.assert_allclose(tc.numpy(), onp.asarray(jc), atol=TOL)
+
+
+@pytest.mark.parametrize("mode", ["lstm", "gru"])
 def test_rnn_verify_scan_ragged_vs_jax(mode, monkeypatch):
     rng = onp.random.RandomState(11)
     k, n, h = 4, 3, 8

@@ -53,7 +53,16 @@ def _t(*arrs):
     return tuple(torch.from_numpy(a) for a in arrs)
 
 
-@pytest.mark.parametrize("case", FLASH_CASES)
+#: BERT training's sequence length, causal with Sq != Sk both ways: the
+#: card kernel's tiles walk 8-10 key tiles here, its plain version the
+#: whole row at once
+FLASH_LONG_CASES = [
+    (1, 2, 512, 640, 64, True),
+    (1, 2, 640, 512, 64, True),   # rows 0..127 see no valid key
+]
+
+
+@pytest.mark.parametrize("case", FLASH_CASES + FLASH_LONG_CASES)
 def test_flash_plain_vs_pallas_interpret(case):
     b, h, sq, sk, d, causal = case
     q, k, v = _qkv(b, h, sq, sk, d)

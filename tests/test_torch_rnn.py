@@ -151,6 +151,26 @@ def test_scan_reference_is_the_plain_forward(mode, rev):
                                     atol=TOL)
 
 
+@pytest.mark.parametrize("mode", ["lstm", "rnn_tanh"])
+def test_rnn_scan_at_a_wide_hidden_size_vs_jax_kernel(monkeypatch, mode):
+    """H 1,024 over two steps, a width at which the card kernels take
+    other tiles (and the first versions refused some batches): the port's
+    plain forward and backward, which the card kernels are held to,
+    against ``jax.vjp`` of the interpret-mode Pallas kernels. W_hh is
+    scaled by H**-0.5 so that the gates do not saturate; 1e-5 as above."""
+    monkeypatch.setenv("MXNET_PALLAS", "on")
+    g = KR.GATES[mode]
+    n_t, n, h = 2, 8, 1024
+    args, cot = _scan_args(mode, T=n_t, N=n, H=h, seed=12)
+    r = onp.random.RandomState(13)
+    args = args[:3] + ((r.randn(g * h, h) * 0.5 * h ** -0.5).astype("f4"),
+                       args[4])
+    jo, jg = _jax_scan(args, cot, mode, False)
+    to, tg = _torch_scan(args, cot, mode, False)
+    for a, b in zip(to + tg, jo + jg):
+        onp.testing.assert_allclose(a, b, rtol=TOL, atol=TOL)
+
+
 def test_rnn_scan_bwd_plain_seeds_dc_at_the_last_step():
     """c_T's cotangent enters only at t = T-1: with ys and h_T cotangents
     zero, dxw at T-1 carries it and a change of it moves every step."""
