@@ -12,7 +12,8 @@
     python3 chip_smoke.py --zero-train  # phases 1, 2 and 11 alone, on
                                         # two or more cards
     python3 chip_smoke.py --compare DIR  # A/B on one card: the flash
-        # forward, the recurrence kernels and the decode step of the
+        # forward, the long-sequence flash backward (dq, dkv), the
+        # recurrence kernels and the decode step of the
         # checkout at DIR (e.g. the parent commit unpacked by `git archive`
         # under build/) and of this one, timed in turns (DIR, this, this,
         # DIR), with what each wrapper does at shapes the first versions
@@ -34,7 +35,11 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    32, 80 and 128, S 512 causal and S 1024, each run twice to show it
    repeats bit for bit, and it is timed at BERT training's S 512 as well;
    the fused backward's tile edges: one position at D 1, one key, one
-   query, D 128 causal at 512, 449 keys);
+   query, D 128 causal at 512, 449 keys; the dq and dkv kernels' edges
+   past 512: Sq = Sk = 513, Sq 1,030 x Sk 600 causal, Sq 1 x Sk 1,030
+   causal, D 1, 7 and 80, D 128 causal at 1,024, each run twice to show
+   dq, dk and dv repeat bit for bit, with the kernels' plans; every case
+   launches one fused kernel, or one dq and one dkv and no fused one);
    the recurrence kernels in every mode (LSTM, GRU, tanh and relu RNN),
    forward and reverse, at T 7 x N 3 x H 37, N 1, N 130, H 129, at T 3 x
    N 300 x H 1,024 (and H 1,500 for the one-gate modes), where the
@@ -417,17 +422,31 @@ FLASH_BWD_CASES = [
     (2, 3, 1, 130, 32, True),
     (2, 12, 512, 512, 128, True),
     (2, 3, 300, 449, 64, False),
+    # the dq/dkv kernels' tile edges, all past 512 positions: one ragged
+    # tile, rows that see no key, one query, D 1, D 7 (no 16-byte rows),
+    # D 80, D 128 causal at 1024
+    (2, 3, 513, 513, 64, False),
+    (2, 3, 1030, 600, 64, True),
+    (2, 3, 1, 1030, 64, True),
+    (2, 3, 600, 600, 1, False),
+    (2, 3, 600, 600, 7, False),
+    (2, 3, 600, 600, 80, False),
+    (2, 3, 1024, 1024, 128, True),
 ]
 #: (rows, C) of the LayerNorm backward: training's 32 x 512 tokens, and
 #: a C that takes the scalar (unaligned) path
 LN_BWD_CASES = ((TRAIN_BATCH * TRAIN_SEQ, 768), (4099, 771))
 
 
-def check_bwd_kernels(torch, ATT, KN, dev):
+def check_bwd_kernels(torch, ATT, K, KN, dev):
     """Phase 3, backward: the flash backward (through its dispatching
-    wrapper) and the LayerNorm backward against their plain versions, in
-    float32 and bfloat16. Returns {(kernel, dtype): (record, args)} at the
-    shapes of the training paths, for :func:`time_bwd_kernels`."""
+    wrapper: exactly one launch of the fused kernel, or one each of dq and
+    dkv and none of the fused) and the LayerNorm backward against their
+    plain versions, in float32 and bfloat16; past 512 positions the
+    backward runs twice and must repeat bit for bit, and the record
+    carries the dq and dkv kernels' plans. Returns {(kernel, dtype):
+    (record, args)} at the shapes of the training paths, for
+    :func:`time_bwd_kernels`."""
     g = torch.Generator(device=dev).manual_seed(1)
     failures, timed = [], {}
 
@@ -449,8 +468,16 @@ def check_bwd_kernels(torch, ATT, KN, dev):
                 rnd(b, h, sk, d, dtype=dtype), rnd(b, h, sk, d, dtype=dtype)
             do = rnd(b, h, sq, d, dtype=dtype)
             out, lse = ATT.flash_attention_fwd(q, k, v, causal)
+            fused = ATT.uses_fused_bwd(sq, sk)
+            K.reset_launch_counts()
             got = ATT.flash_attention_bwd(q, k, v, out, lse, do, causal)
             torch.cuda.synchronize()
+            n = K.launch_counts()
+            launched = {name: n[name] for name in
+                        ("flash_bwd_fused", "flash_bwd_dq", "flash_bwd_dkv")}
+            launches_ok = launched == {"flash_bwd_fused": int(fused),
+                                       "flash_bwd_dq": int(not fused),
+                                       "flash_bwd_dkv": int(not fused)}
             ref = ATT.flash_attention_bwd_plain(q, k, v, out, lse, do,
                                                 causal)
             res = [compare(torch, a, r, atol, rtol)
@@ -459,21 +486,31 @@ def check_bwd_kernels(torch, ATT, KN, dev):
             delta = (do.float() * out.float()).sum(-1)
             args = (q, k, v, do, lse, delta, out)
             base = {"dtype": dn, "shape": [b, h, sq, sk, d],
-                    "causal": causal, "atol": atol, "rtol": rtol}
+                    "causal": causal, "atol": atol, "rtol": rtol,
+                    "launches": launched}
             timed_case = i in (0, 5)
-            if ATT.uses_fused_bwd(sq, sk):
+            if fused:
                 record(dict(base, kernel="flash_bwd_fused",
                             max_abs_err=max(r[1] for r in res),
                             rel_err=max(r[2] for r in res),
-                            ok=all(r[0] for r in res)), args, timed_case)
-            else:
-                record(dict(base, kernel="flash_bwd_dq", max_abs_err=res[0][1],
-                            rel_err=res[0][2], ok=res[0][0]), args,
+                            ok=all(r[0] for r in res) and launches_ok), args,
                        timed_case)
-                record(dict(base, kernel="flash_bwd_dkv",
-                            max_abs_err=max(res[1][1], res[2][1]),
-                            rel_err=max(res[1][2], res[2][2]),
-                            ok=res[1][0] and res[2][0]), args, timed_case)
+                continue
+            # no atomics: a second run gives dq, dk and dv bit for bit
+            again = ATT.flash_attention_bwd(q, k, v, out, lse, do, causal)
+            torch.cuda.synchronize()
+            repeats = [bool(torch.equal(a, r)) for a, r in zip(got, again)]
+            del again
+            for name, idx in (("flash_bwd_dq", (0,)),
+                              ("flash_bwd_dkv", (1, 2))):
+                record(dict(base, kernel=name,
+                            max_abs_err=max(res[j][1] for j in idx),
+                            rel_err=max(res[j][2] for j in idx),
+                            repeats_bit_for_bit=all(repeats[j] for j in idx),
+                            plan=ATT.flash_bwd_plan(name, b * h, sq, sk, d,
+                                                    dtype, dev),
+                            ok=all(res[j][0] and repeats[j] for j in idx)
+                            and launches_ok), args, timed_case)
 
         for rows, c in LN_BWD_CASES:
             x, dy = rnd(rows, c, dtype=dtype), rnd(rows, c, dtype=dtype)
@@ -1219,9 +1256,10 @@ def train_bert(torch, np, K, dev, smi, profile=False):
     return counts
 
 
-def train_long(torch, np, K, dev):
-    """Phase 7: a 2-layer BERT-width classifier at sequence 1024, where
-    the flash backward takes its dq and dkv kernels."""
+def long_setup(torch, np, dev):
+    """Phase 7's model (seeded weights, dropout 0.1, train mode), batch
+    (numpy), loss and compiled Adam step on ``dev``, and the function
+    that makes the model on a device."""
     from mxnet_tpu_torch.gluon import Trainer
     from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
     from mxnet_tpu_torch.gluon.model_zoo.bert import BERTClassifier, BERTModel
@@ -1246,6 +1284,15 @@ def train_long(torch, np, K, dev):
     trainer = Trainer(dict(net.named_parameters()), "adam",
                       {"learning_rate": TRAIN_LR})
     step = trainer.compile_step(lambda a, b: loss_fn(net(a), b))
+    return make, net, x, y, loss_fn, step
+
+
+def train_long(torch, np, K, dev):
+    """Phase 7: a 2-layer BERT-width classifier at sequence 1024, where
+    the flash backward takes its dq and dkv kernels."""
+    from mxnet_tpu_torch.gluon.params import load_jax_params
+
+    make, net, x, y, loss_fn, step = long_setup(torch, np, dev)
     losses, step_ms, per_step, counts = run_train_steps(
         torch, K, step, torch.from_numpy(x).to(dev),
         torch.from_numpy(y).to(dev), LONG_STEPS)
@@ -2355,10 +2402,13 @@ def zero_train_multi(torch, np, smi, device="cuda", world=None, widths=None,
     return report
 
 
-#: --kernel-times: the shapes of the kernels this slice changed, each on
-#: its path (the flash forward served and in BERT training; the LM's LSTM
-#: layer; decode_wide's step)
+#: --kernel-times: the kernels' shapes, each on its path (the flash
+#: forward served and in BERT training; the long-sequence backward's dq
+#: and dkv at phase 7's; the LM's LSTM layer; decode_wide's step)
 AB_FLASH = ((32, 12, 128, 128, 64), (32, 12, 512, 512, 64))
+AB_FLASH_BWD = (LONG_BATCH, 12, LONG_SEQ, LONG_SEQ, 64)
+#: --kernel-times: phase 7's training steps timed after one warm-up step
+AB_LONG_STEPS = 5
 #: --kernel-times: one LSTM shape each recurrence wrapper refused before
 #: this slice: (wrapper, T or None for decode, N, H)
 AB_REFUSED = (("rnn_scan_fwd",) + RNN_REFUSED["forward"],
@@ -2370,10 +2420,14 @@ def kernel_times(root):
     """``--kernel-times ROOT``: build the kernels of the package under
     ROOT (another checkout, for an A/B on one card) and print one
     ``{"kernel_times": ...}`` line: device ms by CUDA-graph replay of the
-    flash forward, the recurrence forward and backward and the decode step
-    at their paths' shapes, float32 and bfloat16 (the decode step float32),
+    flash forward, the long-sequence backward's dq and dkv kernels, the
+    recurrence forward and backward and the decode step at their paths'
+    shapes, float32 and bfloat16 (the decode step float32), the median
+    wall ms of phase 7's training step (host clock, each step ends in a
+    synchronize),
     and what each wrapper does at the AB_REFUSED shapes (ran, then timed
     the same way, or the error it raised: a probe, not a path)."""
+    import numpy as np
     import torch
     sys.path.insert(0, os.path.abspath(root))
     from mxnet_tpu_torch.ops import attention as ATT
@@ -2426,6 +2480,18 @@ def kernel_times(root):
             times[f"flash_fwd {dn} {[b * h, sq, sk, d]}"] = time_ms(
                 torch, lambda *a: ATT.flash_attention_fwd(*a), sets)[0]
             del args, sets
+        b, h, sq, sk, d = AB_FLASH_BWD
+        q, do = rnd(b, h, sq, d, dtype=dtype), rnd(b, h, sq, d, dtype=dtype)
+        k, v = rnd(b, h, sk, d, dtype=dtype), rnd(b, h, sk, d, dtype=dtype)
+        o, lse = ATT.flash_attention_fwd(q, k, v)
+        delta = (do.float() * o.float()).sum(-1)
+        sets = [tuple(t.clone() for t in (q, k, v, do)) + (lse, delta)
+                for _ in range(n_sets(torch, (q, k, v, do, q, k, v)))]
+        for name in ("flash_bwd_dq", "flash_bwd_dkv"):
+            times[f"{name} {dn} {[b * h, sq, sk, d]}"] = time_ms(
+                torch, lambda *a, fn=getattr(ATT, name): fn(
+                    *a, False, d ** -0.5), sets)[0]
+        del q, k, v, do, o, lse, delta, sets
         n_t, n, h = RNN_TIMED
         xw, h0, c0 = rnd(n_t, n, 4 * h, dtype=dtype, s=0.5), \
             rnd(n, h, dtype=dtype, s=0.5), rnd(n, h, dtype=dtype, s=0.5)
@@ -2449,6 +2515,12 @@ def kernel_times(root):
     times[f"rnn_decode float32 {[n, h]}"] = time_ms(
         torch, lambda *a: KR.rnn_decode_step(*a, "lstm"), sets, iters=50)[0]
     out["device_ms"] = times
+    _, _, x, y, _, step = long_setup(torch, np, dev)
+    x, y = torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev)
+    wall = run_train_steps(torch, K, step, x, y, AB_LONG_STEPS + 1)[1]
+    out["wall_ms"] = {"train_long step (median of "
+                      f"{AB_LONG_STEPS} after a warm-up)":
+                      statistics.median(wall[1:])}
     emit({"kernel_times": out})
     return 0
 
@@ -2472,11 +2544,11 @@ def compare_checkouts(parent):
     table = {}
     for root, r in runs:
         side = "parent" if root == parent else "change"
-        for key, ms in r["device_ms"].items():
-            table.setdefault(key, {"parent": [], "change": []})[side].append(
-                ms)
-    emit({"compare": {"order": [root for root, _ in runs],
-                      "device_ms": table,
+        for kind in ("device_ms", "wall_ms"):
+            for key, ms in r[kind].items():
+                table.setdefault(kind, {}).setdefault(
+                    key, {"parent": [], "change": []})[side].append(ms)
+    emit({"compare": {"order": [root for root, _ in runs], **table,
                       "refused_shapes": {("parent" if root == parent
                                           else "change"): r["refused_shapes"]
                                          for root, r in runs}}})
@@ -2534,7 +2606,7 @@ def main(argv):
     served_args = check_kernels(torch, ATT, KN, dev)
     timing = time_kernels(torch, F, ATT, KN, served_args)
     del served_args
-    bwd_args = check_bwd_kernels(torch, ATT, KN, dev)
+    bwd_args = check_bwd_kernels(torch, ATT, K, KN, dev)
     timing.update(time_bwd_kernels(torch, F, ATT, KN, bwd_args))
     del bwd_args
     new_args = check_new_kernels(torch, K, KR, KN, dev)

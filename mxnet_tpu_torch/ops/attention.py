@@ -9,7 +9,8 @@ path of this module.
   is, on a CUDA tensor, the kernel ``csrc/flash_fwd.cu`` (online softmax
   over key tiles, returning the per-row log-sum-exp beside the output)
   and whose backward is ``csrc/flash_bwd_fused.cu`` up to 512 positions,
-  else ``csrc/flash_bwd.cu`` (P rebuilt from the saved lse); on a CPU
+  else the dq and dkv kernels of ``csrc/flash_bwd.cu`` (P rebuilt from
+  the saved lse; :func:`flash_bwd_plan` shows their tiles); on a CPU
   tensor the plain versions
   :func:`flash_attention_fwd_plain` and :func:`flash_attention_bwd_plain`
   run in the same Function. With ``valid_length`` (a per-sample key
@@ -22,6 +23,7 @@ path of this module.
 """
 from __future__ import annotations
 
+import ctypes
 import math
 from typing import Optional, Tuple
 
@@ -29,12 +31,12 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from ..base import MXNetError
-from .kernels import DTYPE_CODES, check_cuda_operands, launch
+from .kernels import DTYPE_CODES, check_cuda_operands, launch, library
 
 __all__ = ["flash_attention", "flash_attention_fwd",
            "flash_attention_fwd_plain", "flash_attention_bwd",
            "flash_attention_bwd_plain", "flash_bwd_fused", "flash_bwd_dq",
-           "flash_bwd_dkv", "attention_reference",
+           "flash_bwd_dkv", "flash_bwd_plan", "attention_reference",
            "paged_decode_attention"]
 
 NEG_INF = -1e30  # finite mask value: keeps exp() NaN-free for masked rows
@@ -254,6 +256,31 @@ def flash_bwd_dkv(q, k, v, dout, lse, delta, causal, sm_scale):
     launch("flash_bwd_dkv", q.device, *ptrs, dk.data_ptr(), dv.data_ptr(),
            *geom)
     return dk, dv
+
+
+def flash_bwd_plan(kernel: str, bh: int, sq: int, sk: int, d: int,
+                   dtype: torch.dtype = torch.float32, device=None) -> dict:
+    """The plan of the ``flash_bwd_dq`` or ``flash_bwd_dkv`` kernel for
+    ``bh`` heads of ``sq`` queries and ``sk`` keys at head_dim ``d`` on the
+    CUDA ``device`` (the current one by default): rows of a block (queries
+    for dq, keys for dkv), rows of the tile it walks, threads, shared
+    memory a block, blocks resident on an SM, blocks, and the card's SMs.
+    A query: it launches nothing and counts nothing."""
+    kinds = {"flash_bwd_dq": 1, "flash_bwd_dkv": 2}
+    if kernel not in kinds or dtype not in DTYPE_CODES:
+        raise MXNetError(f"flash_bwd_plan: no kernel {kernel!r} in {dtype}")
+    out = (ctypes.c_int * 7)()
+    with torch.cuda.device(device):
+        err = library().mxt_flash_bwd_plan(kinds[kernel], bh, sq, sk, d,
+                                           DTYPE_CODES[dtype], out)
+    if err != 0:
+        what = library().mxt_error_string(err).decode()
+        raise MXNetError(f"flash_bwd_plan: CUDA error {err} ({what})")
+    per_sm, blocks, sms = out[4], out[5], out[6]
+    return {"rows": out[0], "walk_rows": out[1], "threads": out[2],
+            "smem_bytes": out[3], "blocks_per_sm": per_sm,
+            "blocks": blocks, "sms": sms,
+            "waves": blocks / max(per_sm * sms, 1)}
 
 
 def flash_attention_bwd(q, k, v, out, lse, dout, causal: bool = False,

@@ -250,10 +250,12 @@ def library() -> ctypes.CDLL:
                 fn.restype = ctypes.c_int
             lib.mxt_error_string.argtypes = [ctypes.c_int]
             lib.mxt_error_string.restype = ctypes.c_char_p
-            # queries of the recurrence kernels' plans, not kernels
+            # queries of the kernels' plans, not kernels
             for query in ("mxt_rnn_fwd_plan", "mxt_rnn_bwd_walk_plan"):
                 getattr(lib, query).argtypes = [_I, _I, _I, _I, _P]
                 getattr(lib, query).restype = ctypes.c_int
+            lib.mxt_flash_bwd_plan.argtypes = [_I] * 6 + [_P]
+            lib.mxt_flash_bwd_plan.restype = ctypes.c_int
             _LIB = lib
         return _LIB
 

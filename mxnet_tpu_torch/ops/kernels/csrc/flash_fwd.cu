@@ -41,58 +41,14 @@
 // (16-byte copies, zero-filled past Sk and D), so the next tile's loads
 // fly while this one is multiplied; where D or a pointer is not 16-byte
 // aligned they are loaded by plain loads instead.
-#include "common.cuh"
+#include "flash_common.cuh"
 
 namespace {
 
 constexpr int kBQ = 64;   // query rows a block
 constexpr int kBK = 64;   // keys a tile
 
-__device__ __forceinline__ unsigned smem_u32(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes from src to shared dst; bytes past `n` (0 or 16) read as zero
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, int n) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(n));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
-// rows [row0, row0 + 64) of a (S, D) head at src into dst (row stride LD
-// elements, DP columns), zeros past S and D: 16-byte cp.async where
-// `vec` (D a multiple of 16 bytes' elements, pointers aligned), else
-// plain loads
-template <typename T, int DP, int LD, int NT>
-__device__ __forceinline__ void load_tile(T* dst, const T* src, int row0,
-                                          int S, int D, bool vec) {
-  constexpr int E = 16 / sizeof(T);       // elements a chunk
-  constexpr int CPR = DP / E;             // chunks a row
-  if (vec) {
-    for (int ci = threadIdx.x; ci < 64 * CPR; ci += NT) {
-      const int row = ci / CPR, d = (ci - row * CPR) * E;
-      const int g = row0 + row;
-      const bool in = g < S && d < D;
-      cp_async16(dst + row * LD + d, in ? src + (size_t)g * D + d : src,
-                 in ? 16 : 0);
-    }
-  } else {
-    for (int i = threadIdx.x; i < 64 * DP; i += NT) {
-      const int row = i / DP, d = i - row * DP;
-      const int g = row0 + row;
-      dst[row * LD + d] = (g < S && d < D) ? src[(size_t)g * D + d]
-                                           : mxt_from_float<T>(0.f);
-    }
-  }
-}
-
-constexpr float kLog2e = 1.4426950408889634f, kLn2 = 0.6931471805599453f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 // Whether key tile [k0, k0 + kBK) needs the mask for some row of the
 // query tile [q0, q0 + kBQ): keys past Sk, or (causal) keys past the
@@ -100,17 +56,6 @@ constexpr float kLog2e = 1.4426950408889634f, kLn2 = 0.6931471805599453f;
 __device__ __forceinline__ bool tile_masks(int k0, int q0, int Sk, int diag,
                                            int causal) {
   return k0 + kBK > Sk || (causal && k0 + kBK - 1 > q0 + diag);
-}
-
-__device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
-  acc = fmaf(a.x, b.x, acc);
-  acc = fmaf(a.y, b.y, acc);
-  acc = fmaf(a.z, b.z, acc);
-  return fmaf(a.w, b.w, acc);
-}
-
-__device__ __forceinline__ float f4(const float4& v, int e) {
-  return e == 0 ? v.x : e == 1 ? v.y : e == 2 ? v.z : v.w;
 }
 
 // ---------------------------------------------------------------------------
@@ -154,17 +99,12 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const float scale2 = scale * kLog2e;
 
   // key tiles this query tile can see (causal: none past the diagonal)
-  const int nk_all = (Sk + kBK - 1) / kBK;
-  int nk = nk_all;
-  if (causal) {
-    const int kmax = min(q0 + kBQ, Sq) - 1 + diag;
-    nk = kmax < 0 ? 0 : min(nk_all, kmax / kBK + 1);
-  }
+  const int nk = key_tiles(q0, kBQ, kBK, Sq, Sk, causal);
 
   if (nk > 0) {
-    load_tile<float, DP, LD, kFT>(Qs, q + qbase, q0, Sq, D, vb);
-    load_tile<float, DP, LD, kFT>(Ks, k + kbase, 0, Sk, D, vb);
-    load_tile<float, DP, LD, kFT>(Vs, v + kbase, 0, Sk, D, vb);
+    load_tile<float, kBQ, DP, LD, kFT>(Qs, q + qbase, q0, Sq, D, vb);
+    load_tile<float, kBK, DP, LD, kFT>(Ks, k + kbase, 0, Sk, D, vb);
+    load_tile<float, kBK, DP, LD, kFT>(Vs, v + kbase, 0, Sk, D, vb);
     cp_async_commit();
   }
 
@@ -185,10 +125,10 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     cp_async_wait_all();
     __syncthreads();   // tile kt is in; everyone is done with tile kt - 1
     if (kt + 1 < nk) {
-      load_tile<float, DP, LD, kFT>(Ks + (buf ^ 1) * kBK * LD, k + kbase,
-                                    k0 + kBK, Sk, D, vb);
-      load_tile<float, DP, LD, kFT>(Vs + (buf ^ 1) * kBK * LD, v + kbase,
-                                    k0 + kBK, Sk, D, vb);
+      load_tile<float, kBK, DP, LD, kFT>(Ks + (buf ^ 1) * kBK * LD,
+                                         k + kbase, k0 + kBK, Sk, D, vb);
+      load_tile<float, kBK, DP, LD, kFT>(Vs + (buf ^ 1) * kBK * LD,
+                                         v + kbase, k0 + kBK, Sk, D, vb);
       cp_async_commit();
     }
     const float* Kb = Ks + buf * kBK * LD;
@@ -324,34 +264,6 @@ struct Bf16Geo {
   static constexpr size_t elems = 5 * (size_t)64 * LD;   // Q, 2 K, 2 V
 };
 
-__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-__device__ __forceinline__ void ldsm_x4_t(unsigned (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-
-// c += a b for one m16n8k16 tile (bf16 operands, float32 sums)
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4],
-                                         unsigned b0, unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const unsigned*>(&v);
-}
-
 template <int DP>
 __global__ void __launch_bounds__(kBT)
 flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
@@ -379,17 +291,12 @@ flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   const float scale2 = scale * kLog2e;
   const int r0 = 16 * warp + gid;           // rows r0 and r0 + 8 of the tile
 
-  const int nk_all = (Sk + kBK - 1) / kBK;
-  int nk = nk_all;
-  if (causal) {
-    const int kmax = min(q0 + kBQ, Sq) - 1 + diag;
-    nk = kmax < 0 ? 0 : min(nk_all, kmax / kBK + 1);
-  }
+  const int nk = key_tiles(q0, kBQ, kBK, Sq, Sk, causal);
 
   if (nk > 0) {
-    load_tile<bf, DP, LD, kBT>(Qs, q + qbase, q0, Sq, D, vb);
-    load_tile<bf, DP, LD, kBT>(Ks, k + kbase, 0, Sk, D, vb);
-    load_tile<bf, DP, LD, kBT>(Vs, v + kbase, 0, Sk, D, vb);
+    load_tile<bf, kBQ, DP, LD, kBT>(Qs, q + qbase, q0, Sq, D, vb);
+    load_tile<bf, kBK, DP, LD, kBT>(Ks, k + kbase, 0, Sk, D, vb);
+    load_tile<bf, kBK, DP, LD, kBT>(Vs, v + kbase, 0, Sk, D, vb);
     cp_async_commit();
   }
 
@@ -412,10 +319,10 @@ flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
                             8 * (mi >> 1));
     }
     if (kt + 1 < nk) {
-      load_tile<bf, DP, LD, kBT>(Ks + (buf ^ 1) * 64 * LD, k + kbase,
-                                 k0 + kBK, Sk, D, vb);
-      load_tile<bf, DP, LD, kBT>(Vs + (buf ^ 1) * 64 * LD, v + kbase,
-                                 k0 + kBK, Sk, D, vb);
+      load_tile<bf, kBK, DP, LD, kBT>(Ks + (buf ^ 1) * 64 * LD, k + kbase,
+                                      k0 + kBK, Sk, D, vb);
+      load_tile<bf, kBK, DP, LD, kBT>(Vs + (buf ^ 1) * 64 * LD, v + kbase,
+                                      k0 + kBK, Sk, D, vb);
       cp_async_commit();
     }
     const bf* Kb = Ks + buf * 64 * LD;
@@ -514,15 +421,8 @@ flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
     for (int n = 0; n < NT; ++n) {
       const int col = 8 * n + 2 * tig;
-      const float a = seen ? oacc[n][2 * h] / l : 0.f;
-      const float c = seen ? oacc[n][2 * h + 1] / l : 0.f;
-      if (vb && col + 1 < D) {   // D even: one 4-byte store of the pair
-        *reinterpret_cast<__nv_bfloat162*>(orow + col) =
-            __floats2bfloat162_rn(a, c);
-      } else {
-        if (col < D) orow[col] = __float2bfloat16_rn(a);
-        if (col + 1 < D) orow[col + 1] = __float2bfloat16_rn(c);
-      }
+      store_pair(orow, col, D, seen ? oacc[n][2 * h] / l : 0.f,
+                 seen ? oacc[n][2 * h + 1] / l : 0.f, vb);
     }
     if (tig == 0)
       lse[(size_t)bh * Sq + qp] =

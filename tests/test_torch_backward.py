@@ -45,6 +45,15 @@ MULTIBLOCK_CASES = [
     (1, 2, 40, 64, 8, True),
     (1, 2, 64, 40, 16, True),
     (1, 1, 48, 48, 80, False),
+    # the dq/dkv kernels' tile edges: one ragged tile, rows that see no
+    # key, one query, D 1, D 7, D 80 causal, D 128 causal
+    (1, 2, 33, 33, 8, False),
+    (1, 2, 50, 34, 8, True),
+    (1, 2, 1, 66, 8, True),
+    (1, 2, 40, 40, 1, False),
+    (1, 2, 40, 40, 7, False),
+    (1, 1, 40, 56, 80, True),
+    (1, 1, 64, 64, 128, True),
 ]
 
 
@@ -83,6 +92,24 @@ def test_flash_bwd_plain_vs_pallas_fused(case, dtype):
     q, k, v, do = _inputs(case)
     causal = case[-1]
     o, lse, ref = _jax_bwd(q, k, v, do, causal, dtype)
+    td = getattr(torch, dtype)
+    t = [torch.from_numpy(a).to(td) for a in (q, k, v, do)]
+    tout = torch.from_numpy(onp.array(o.astype(jnp.float32))).to(td)
+    tlse = torch.from_numpy(onp.array(lse))
+    got = ATT.flash_attention_bwd_plain(t[0], t[1], t[2], tout, tlse, t[3],
+                                        causal)
+    assert all(g.dtype == td for g in got)
+    _close(got, ref, dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", MULTIBLOCK_CASES)
+def test_flash_bwd_plain_vs_pallas_multiblock(case, dtype):
+    """The plain backward, the CPU side of the dq and dkv kernels, against
+    the JAX package's dq and dkv kernels over 16-blocks."""
+    q, k, v, do = _inputs(case)
+    causal = case[-1]
+    o, lse, ref = _jax_bwd(q, k, v, do, causal, dtype, block=16)
     td = getattr(torch, dtype)
     t = [torch.from_numpy(a).to(td) for a in (q, k, v, do)]
     tout = torch.from_numpy(onp.array(o.astype(jnp.float32))).to(td)
@@ -193,6 +220,14 @@ def test_backward_on_the_cpu_launches_nothing():
                             do)
     KN.layer_norm_bwd(torch.ones(3, 8), torch.ones(8), torch.ones(3, 8))
     assert all(n == 0 for n in K.launch_counts().values())
+
+
+def test_flash_bwd_plan_refuses_unknown_kernels():
+    with pytest.raises(mxt.MXNetError, match="no kernel"):
+        ATT.flash_bwd_plan("flash_bwd_fused", 24, 1024, 1024, 64)
+    with pytest.raises(mxt.MXNetError, match="no kernel"):
+        ATT.flash_bwd_plan("flash_bwd_dq", 24, 1024, 1024, 64,
+                           torch.float16)
 
 
 def test_backward_wrappers_refuse_other_devices():

@@ -123,7 +123,19 @@ FLASH_BWD_CASES = [
     (2, 3, 1, 130, 32, True),
     (1, 2, 512, 512, 128, True),
     (2, 3, 300, 449, 64, False),
+    # the dq/dkv kernels' tile edges, past 512: one ragged tile, rows that
+    # see no key, one query, D 1, D 7 (no 16-byte rows), D 80, D 128 causal
+    (1, 2, 513, 513, 64, False),
+    (1, 2, 1030, 600, 64, True),
+    (1, 2, 1, 1030, 64, True),
+    (1, 2, 600, 600, 1, False),
+    (1, 2, 600, 600, 7, False),
+    (1, 2, 600, 600, 80, False),
+    (1, 2, 1024, 1024, 128, True),
 ]
+#: the cases that take the dq and dkv kernels
+DQ_DKV_CASES = [c for c in FLASH_BWD_CASES
+                if not ATT.uses_fused_bwd(c[2], c[3])]
 
 
 def _bwd_inputs(case, dtype, dev, seed=1):
@@ -152,6 +164,38 @@ def test_flash_bwd_kernels_on_card(cuda_dev, dtype, case):
     for g, r in zip(got, ref):
         assert g.dtype == dtype and torch.isfinite(g.float()).all()
         torch.testing.assert_close(g.float(), r.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", DQ_DKV_CASES)
+def test_flash_bwd_dq_dkv_repeat_bit_for_bit_on_card(cuda_dev, dtype, case):
+    """Each of dq, dk and dv has one owner and no atomics: two calls
+    agree bit for bit."""
+    q, k, v, out, lse, do, causal = _bwd_inputs(case, dtype, cuda_dev)
+    K.reset_launch_counts()
+    first = ATT.flash_attention_bwd(q, k, v, out, lse, do, causal)
+    second = ATT.flash_attention_bwd(q, k, v, out, lse, do, causal)
+    torch.cuda.synchronize()
+    counts = K.launch_counts()
+    assert counts["flash_bwd_dq"] == counts["flash_bwd_dkv"] == 2
+    assert counts["flash_bwd_fused"] == 0
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kernel", ["flash_bwd_dq", "flash_bwd_dkv"])
+def test_flash_bwd_plan_on_card(cuda_dev, kernel, dtype):
+    """The plan query at the long-sequence training shape (B*H 24, S 1024,
+    D 64): a grid of whole tiles that the card holds, launching nothing."""
+    K.reset_launch_counts()
+    plan = ATT.flash_bwd_plan(kernel, 24, 1024, 1024, 64, dtype, cuda_dev)
+    assert all(n == 0 for n in K.launch_counts().values())
+    assert plan["blocks"] == 24 * (1024 // plan["rows"])
+    assert plan["blocks_per_sm"] >= 1 and plan["sms"] >= 1
+    assert plan["smem_bytes"] <= 232448
 
 
 @pytest.mark.cuda
