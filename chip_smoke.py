@@ -13,11 +13,11 @@
                                         # two or more cards
     python3 chip_smoke.py --compare DIR  # A/B on one card: the flash
         # forward, the long-sequence flash backward (dq, dkv), the
-        # recurrence kernels and the decode step of the
-        # checkout at DIR (e.g. the parent commit unpacked by `git archive`
-        # under build/) and of this one, timed in turns (DIR, this, this,
-        # DIR), with what each wrapper does at shapes the first versions
-        # refused
+        # recurrence kernels, the LayerNorm backward and the decode step
+        # (with its launch floor) of the checkout at DIR (e.g. the parent
+        # commit unpacked by `git archive` under build/) and of this one,
+        # timed in turns (DIR, this, this, DIR), with what each wrapper
+        # does at shapes the first versions refused
 
 Phases, each of which fails the run (non-zero exit) when it fails:
 
@@ -30,7 +30,10 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    computes the same function at the shapes of its path, in both dtypes
    (the backward kernels at BERT-base training's B*H = 384, S = 512,
    D = 64, at the long-sequence phase's S = 1024, and LayerNorm at
-   16384 x 768; the flash forward's tile edges too: one position at D 1,
+   16384 x 768, with its plan's edges: C at the warp branch's cap and one
+   past it, C 16,384, C 771, 3 rows and one row, each with its plan, one
+   launch, and run twice to show dx, dgamma and dbeta repeat bit for bit;
+   the flash forward's tile edges too: one position at D 1,
    Sq and Sk no multiple of a tile, causal with Sq < Sk and Sq > Sk, D 7,
    32, 80 and 128, S 512 causal and S 1024, each run twice to show it
    repeats bit for bit, and it is timed at BERT training's S 512 as well;
@@ -51,9 +54,11 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    several tiles a block) and T 2 x N 512 x H 4,096 (several walk tiles a
    block), shapes the first versions refused; the bias-GELU backward at
    4096 x 3072 and at an unaligned C, and the decode step (``rnn_decode``)
-   in every mode at N 3 x H 37, N 128 x H 650 (two row groups), N 8 x H
-   650 and N 8 x H 128, float32 and
-   bfloat16, plus 35 chained decode steps against the ``rnn_scan_fwd``
+   in every mode at N 3 x H 37, N 128 x H 650 (two row groups), N 2 x H
+   4,096, N 8 x H 650 and N 8 x H 128, float32 and bfloat16 (bfloat16
+   W_hh read as it is, equal bit for bit to its float32 widening), each
+   with its plan, timed beside an empty kernel of its grid (the launch
+   floor), plus 35 chained decode steps against the ``rnn_scan_fwd``
    kernel's trajectory at N 8 x H 650 (within 1e-6); and the fused
    optimizer update (``opt_update``) for SGD, SGD-momentum and Adam, clip
    on and off, scalar and per-element hyperparameters, float32 and
@@ -113,7 +118,9 @@ Phases, each of which fails the run (non-zero exit) when it fails:
     batch 32 x 512 global, ten Adam steps through ``TrainLoop`` under
     ``make_mesh({"dp": world})``: the sharded update on, falling finite
     losses, bit-equal weights on every rank, 88 ``opt_update`` launches a
-    rank a step, the first losses equal a one-card forward's within 1e-5,
+    rank a step, the first step's loss on every rank the global batch's
+    (32 values, all-gathered by the step) and within 1e-5 of a one-card
+    forward's,
     the Adam state a rank ~1/world; step ms, global tokens/s, peak memory;
     then one eager step on each rank's rows (``loss.backward()``,
     ``Trainer.allreduce_grads()`` over NCCL, ``Trainer.update``): every
@@ -433,9 +440,14 @@ FLASH_BWD_CASES = [
     (2, 3, 600, 600, 80, False),
     (2, 3, 1024, 1024, 128, True),
 ]
-#: (rows, C) of the LayerNorm backward: training's 32 x 512 tokens, and
-#: a C that takes the scalar (unaligned) path
-LN_BWD_CASES = ((TRAIN_BATCH * TRAIN_SEQ, 768), (4099, 771))
+#: (rows, C) of the LayerNorm backward: training's 32 x 512 tokens, then
+#: the plan's edges: a C that takes one element a load (771), C 16,384
+#: (the block branch), rows below the block count, one row; and by dtype,
+#: C at the warp branch's cap and one past it
+LN_BWD_CASES = ((TRAIN_BATCH * TRAIN_SEQ, 768), (4099, 771), (20, 16384),
+                (3, 768), (1, 768))
+LN_BWD_CAP_CASES = {"float32": ((300, 1024), (300, 1025)),
+                    "bfloat16": ((300, 2048), (300, 2049))}
 
 
 def check_bwd_kernels(torch, ATT, K, KN, dev):
@@ -512,11 +524,13 @@ def check_bwd_kernels(torch, ATT, K, KN, dev):
                             ok=all(res[j][0] and repeats[j] for j in idx)
                             and launches_ok), args, timed_case)
 
-        for rows, c in LN_BWD_CASES:
+        for rows, c in LN_BWD_CASES + LN_BWD_CAP_CASES[dn]:
             x, dy = rnd(rows, c, dtype=dtype), rnd(rows, c, dtype=dtype)
             gam = rnd(c, dtype=torch.float32)
+            K.reset_launch_counts()
             got = KN.layer_norm_bwd(x, gam, dy)
             torch.cuda.synchronize()
+            launched = K.launch_counts()["layernorm_bwd"]
             res = [compare(torch, a, r, atol, rtol) for a, r in
                    zip(got, KN.layer_norm_bwd_plain(x, gam, dy))]
             again = KN.layer_norm_bwd(x, gam, dy)
@@ -525,7 +539,10 @@ def check_bwd_kernels(torch, ATT, K, KN, dev):
                     "max_abs_err": max(r[1] for r in res),
                     "rel_err": max(r[2] for r in res), "atol": atol,
                     "rtol": rtol, "repeats_bit_for_bit": repeats,
-                    "ok": all(r[0] for r in res) and repeats},
+                    "launches": launched,
+                    "plan": KN.ln_bwd_plan(rows, c, dtype, dev),
+                    "ok": all(r[0] for r in res) and repeats
+                    and launched == 1},
                    (x, gam, dy), (rows, c) == LN_BWD_CASES[0])
     if failures:
         raise SystemExit(f"backward kernel checks failed: {failures}")
@@ -936,11 +953,11 @@ def plan_host_us(query, n, h, dtype, dev, calls=200):
     return (time.perf_counter() - t0) / calls * 1e6
 
 
-#: decode-kernel cases (N, H): a ragged one, the decode_wide shape
-#: (bucket 8, the word LM's hidden 650), and 128 rows at H 650, which the
-#: first version refused (h of all rows in one block's shared memory);
-#: decode_leg's (8, 128) is timed
-DECODE_CASES = ((3, 37), (128, 650), (8, 650))
+#: decode-kernel cases (N, H): a ragged one, 128 rows at H 650, which the
+#: first version refused (h of all rows in one block's shared memory), H
+#: 4,096 at N 2 (several rows of W_hh a warp), and the decode_wide shape
+#: (bucket 8, the word LM's hidden 650); decode_leg's (8, 128) is timed
+DECODE_CASES = ((3, 37), (128, 650), (2, 4096), (8, 650))
 DECODE_TIMED = ((8, 650), (8, 128))
 #: the chained case: T decode steps against the scan kernel's ys, float32
 DECODE_CHAIN_T, DECODE_CHAIN_TOL = 35, 1e-6
@@ -979,7 +996,18 @@ def check_decode_kernel(torch, K, KR, dev):
                 rec = {"kernel": "rnn_decode", "mode": mode, "dtype": dn,
                        "shape": [n, h], "max_abs_err": max(r[1] for r in res),
                        "atol": atol, "rtol": rtol, "launches": launched,
+                       "plan": KR.rnn_decode_plan(n, h, mode, dtype, dev),
                        "ok": all(r[0] for r in res) and launched == 1}
+                if dtype == torch.bfloat16:
+                    # W_hh and b_hh read in bfloat16 as they are give the
+                    # bits of their float32 widening
+                    wide = KR.rnn_decode_step(xw, hh, cc, w.float(),
+                                              b.float(), mode)
+                    rec["bf16_weights_equal_widened"] = all(
+                        bool(torch.equal(a, r)) for a, r in zip(got, wide)
+                        if r is not None)
+                    rec["ok"] = (rec["ok"]
+                                 and rec["bf16_weights_equal_widened"])
                 emit({"check": rec})
                 if not rec["ok"]:
                     failures.append(rec)
@@ -1013,17 +1041,18 @@ def check_decode_kernel(torch, K, KR, dev):
     return timed
 
 
-def time_decode_kernel(torch, KR, timed):
+def time_decode_kernel(torch, K, KR, timed):
     """Kernel, plain-version and library times of ``rnn_decode`` (LSTM)
     at DECODE_TIMED in each dtype, by CUDA-graph replay over copies of
     W_hh larger than the L2 (the engine reads W_hh cold, after the 86 MB
     logits product of a step). W_hh is in the activation dtype, as the
-    scan's checks hold it; the wrapper hands the kernel a float32 copy
-    (no copy in float32). Bound: W_hh, b_hh, xw, h, c read once and h, c
-    written once, against 2*N*G*H^2 float32 operations (the kernel's
-    arithmetic is float32 in both dtypes). Library: ``torch.nn.LSTMCell`` at the same N, H and
-    dtype, which also does the input projection. Returns {(kernel,
-    dtype, N, H): timing}."""
+    scan's checks hold it; the kernel reads it as it is. Bound: W_hh,
+    b_hh, xw, h, c read once and h, c written once, against 2*N*G*H^2
+    float32 operations (the kernel's arithmetic is float32 in both
+    dtypes). Beside it the launch floor: an empty kernel of the plan's
+    blocks and threads, timed the same way. Library:
+    ``torch.nn.LSTMCell`` at the same N, H and dtype, which also does the
+    input projection. Returns {(kernel, dtype, N, H): timing}."""
     timing = {}
     for key, (rec, args) in timed.items():
         _, dn, n, h = key
@@ -1042,12 +1071,16 @@ def time_decode_kernel(torch, KR, timed):
         (ms, eager_ms), (plain_ms, plain_eager_ms), \
             (library_ms, library_eager_ms) = (
                 time_ms(torch, fn, sets, iters=50) for fn in fns)
+        plan = rec["plan"]
+        empty_ms = time_ms(torch, lambda *a: K.launch_empty(
+            xw.device, plan["blocks"], plan["threads"]), [()], iters=50)[0]
         b_ms, b_by = bound_ms(nbytes, flops, "float32")
         t = {"kernel": "rnn_decode", "dtype": dn, "shape": [n, h],
              "max_abs_err": rec["max_abs_err"], "ms": ms,
              "plain_ms": plain_ms, "library_ms": library_ms,
              "library": "torch.nn.LSTMCell (with its input projection)",
-             "bound_ms": b_ms, "bound_by": b_by, "eager_ms": eager_ms,
+             "bound_ms": b_ms, "bound_by": b_by,
+             "empty_kernel_ms": empty_ms, "plan": plan, "eager_ms": eager_ms,
              "plain_eager_ms": plain_eager_ms,
              "library_eager_ms": library_eager_ms, "bytes": nbytes,
              "flops": flops}
@@ -2198,7 +2231,6 @@ def zero_rank(widths, batch, seq, steps, lr):
         load_jax_params
     from mxnet_tpu_torch.ops import kernels as K
     from mxnet_tpu_torch.parallel import dist, make_mesh
-    import torch.distributed as tdist
 
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = dist.device()
@@ -2251,15 +2283,13 @@ def zero_rank(widths, batch, seq, steps, lr):
             step_ms.append((time.perf_counter() - t0) * 1e3)
             per_step.append(K.launch_counts()["opt_update"] - before)
     step = loop.compiled_step
-    first = losses[0].float().contiguous()
-    gathered = [torch.empty_like(first) for _ in range(world)]
-    tdist.all_gather(gathered, first)
     same = weights_equal_all_ranks(torch, net)
     eager = eager_rank_step(torch, net, loss_fn, x, y)
     return {"rank": rank, "world": world, "zero_sharded": step.zero_sharded,
             "losses": [float(l.float().mean()) for l in losses],
-            "first_losses_global": torch.cat(gathered).cpu().numpy()
-            if rank == 0 else None, "one_card_first_losses": ref,
+            # the step returns the global batch's loss on every rank
+            "first_losses": losses[0].float().cpu().numpy(),
+            "one_card_first_losses": ref,
             "step_ms": step_ms, "opt_update_per_step": per_step,
             "fwd_bwd_ms": statistics.median(fb_ms[1:]),
             "units": len(step.zero_plan.units),
@@ -2329,8 +2359,9 @@ def zero_train_multi(torch, np, smi, device="cuda", world=None, widths=None,
     """Phase 11: ZeRO-1 training across the visible cards, one rank a
     card over NCCL (``parallel.dist.spawn``). Gates: the sharded update
     on, finite losses falling, every rank's weights equal bit for bit,
-    exactly one opt_update launch a unit a step, the first step's losses
-    equal a one-card forward's within ZERO_LOSS_ATOL, each rank's Adam
+    exactly one opt_update launch a unit a step, the first step's loss on
+    every rank of the global batch's shape and within ZERO_LOSS_ATOL of a
+    one-card forward's, each rank's Adam
     state ~1/world of the unsharded; and in the eager leg
     (:func:`eager_rank_step`) every reduced gradient within its bound and
     the ranks' weights equal after the update."""
@@ -2349,8 +2380,10 @@ def zero_train_multi(torch, np, smi, device="cuda", world=None, widths=None,
                        (widths, batch, seq, steps, TRAIN_LR),
                        timeout_s=timeout_s)
     r0 = ranks[0]
-    first_err = float(np.abs(r0["first_losses_global"]
-                             - r0["one_card_first_losses"]).max())
+    ref = r0["one_card_first_losses"]
+    global_loss = all(r["first_losses"].shape == ref.shape for r in ranks)
+    first_err = max(float(np.abs(r["first_losses"] - ref).max())
+                    if global_loss else math.inf for r in ranks)
     median = statistics.median(max(r["step_ms"][i] for r in ranks)
                                for i in range(1, steps))
     report = {
@@ -2360,6 +2393,8 @@ def zero_train_multi(torch, np, smi, device="cuda", world=None, widths=None,
         "zero_sharded": all(r["zero_sharded"] for r in ranks),
         "losses_rank0": r0["losses"], "units": r0["units"],
         "opt_update_per_step": [r["opt_update_per_step"] for r in ranks],
+        "first_loss_shape_per_rank": [list(r["first_losses"].shape)
+                                      for r in ranks],
         "first_loss_max_abs_err_vs_one_card": first_err,
         "first_loss_atol": ZERO_LOSS_ATOL,
         "weights_equal_all_ranks": all(r["weights_equal_all_ranks"]
@@ -2392,7 +2427,7 @@ def zero_train_multi(torch, np, smi, device="cuda", world=None, widths=None,
                                         else r0["units"])
                     and all(c == r0["units"] for r in ranks
                             for c in r["opt_update_per_step"])
-                    and first_err <= ZERO_LOSS_ATOL
+                    and global_loss and first_err <= ZERO_LOSS_ATOL
                     and share <= 1.01 / world
                     and report["eager_grad_worst_err_over_bound"] <= 1.0
                     and report["eager_weights_equal_all_ranks"])
@@ -2421,10 +2456,12 @@ def kernel_times(root):
     ROOT (another checkout, for an A/B on one card) and print one
     ``{"kernel_times": ...}`` line: device ms by CUDA-graph replay of the
     flash forward, the long-sequence backward's dq and dkv kernels, the
-    recurrence forward and backward and the decode step at their paths'
-    shapes, float32 and bfloat16 (the decode step float32), the median
-    wall ms of phase 7's training step (host clock, each step ends in a
-    synchronize),
+    recurrence forward and backward, the LayerNorm backward at BERT
+    training's 16384 x 768 and the decode step at decode_wide's and
+    decode_leg's shapes, float32 and bfloat16, with an empty kernel of
+    the decode plan's grid (the launch floor; only where the checkout has
+    it), the median wall ms of phase 7's training step (host clock, each
+    step ends in a synchronize),
     and what each wrapper does at the AB_REFUSED shapes (ran, then timed
     the same way, or the error it raised: a probe, not a path)."""
     import numpy as np
@@ -2432,6 +2469,7 @@ def kernel_times(root):
     sys.path.insert(0, os.path.abspath(root))
     from mxnet_tpu_torch.ops import attention as ATT
     from mxnet_tpu_torch.ops import kernels as K
+    from mxnet_tpu_torch.ops.kernels import norm as KN
     from mxnet_tpu_torch.ops.kernels import rnn_scan as KR
     torch.backends.cuda.matmul.allow_tf32 = False
     K.build_library()
@@ -2508,12 +2546,35 @@ def kernel_times(root):
         times[f"rnn_scan_bwd {dn} {list(RNN_TIMED)}"] = time_ms(
             torch, lambda *a: KR.rnn_scan_bwd(*a, "lstm"), sets, iters=10)[0]
         del xw, sets, ys, cs, dys
-    n, h = DECODE_TIMED[0]
-    xw, hh, cc = rnd(n, 4 * h, s=0.5), rnd(n, h, s=0.5), rnd(n, h, s=0.5)
-    w, b = rnd(4 * h, h, s=0.5 * h ** -0.5), rnd(4 * h, s=0.1)
-    sets = [(xw, hh, cc, w.clone(), b) for _ in range(n_sets(torch, (w,)))]
-    times[f"rnn_decode float32 {[n, h]}"] = time_ms(
-        torch, lambda *a: KR.rnn_decode_step(*a, "lstm"), sets, iters=50)[0]
+        rows, c = LN_BWD_CASES[0]
+        x, dy = rnd(rows, c, dtype=dtype), rnd(rows, c, dtype=dtype)
+        gam = rnd(c)
+        sets = [(x.clone(), gam, dy.clone())
+                for _ in range(n_sets(torch, (x, x, x)))]
+        times[f"layernorm_bwd {dn} {[rows, c]}"] = time_ms(
+            torch, lambda *a: KN.layer_norm_bwd(*a), sets)[0]
+        del x, dy, sets
+        for n, h in DECODE_TIMED:
+            xw, hh, cc = (rnd(n, 4 * h, dtype=dtype, s=0.5),
+                          rnd(n, h, dtype=dtype, s=0.5),
+                          rnd(n, h, dtype=dtype, s=0.5))
+            w = rnd(4 * h, h, dtype=dtype, s=0.5 * h ** -0.5)
+            b = rnd(4 * h, dtype=dtype, s=0.1)
+            sets = [(xw, hh, cc, w.clone(), b)
+                    for _ in range(n_sets(torch, (w,)))]
+            times[f"rnn_decode {dn} {[n, h]}"] = time_ms(
+                torch, lambda *a: KR.rnn_decode_step(*a, "lstm"), sets,
+                iters=50)[0]
+            del w, sets
+    if hasattr(K, "launch_empty"):
+        # the launch floor under the decode step: an empty kernel of its
+        # plan's grid (a checkout without the query has no floor line)
+        for n, h in DECODE_TIMED:
+            plan = KR.rnn_decode_plan(n, h, "lstm", torch.float32, dev)
+            times[f"empty kernel {plan['blocks']} x {plan['threads']}"] = \
+                time_ms(torch, lambda: K.launch_empty(
+                    dev, plan["blocks"], plan["threads"]), [()],
+                    iters=50)[0]
     out["device_ms"] = times
     _, _, x, y, _, step = long_setup(torch, np, dev)
     x, y = torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev)
@@ -2613,7 +2674,7 @@ def main(argv):
     timing.update(time_new_kernels(torch, F, KR, KN, new_args))
     del new_args
     dec_args = check_decode_kernel(torch, K, KR, dev)
-    dec_timing = time_decode_kernel(torch, KR, dec_args)
+    dec_timing = time_decode_kernel(torch, K, KR, dec_args)
     del dec_args
     # the kernels line's row: the decode_wide shape (bucket 8, H 650)
     for dn in ("float32", "bfloat16"):

@@ -7,7 +7,9 @@ Each call runs ``loss_fn(*batch)`` (the forward, returning a per-sample
 loss), the backward of the loss's SUM (what ``loss.backward()`` seeds
 with ones), and the update with gradients rescaled by 1 / ``batch_size``,
 ``batch_size`` taken from the leading axis of the first batched argument.
-It returns the per-sample loss, detached, without waiting for the device.
+It returns the per-sample loss of the whole (global) batch, detached,
+without waiting for the device: where the batch was split over the
+ranks, each rank's part is all-gathered in rank order.
 The JAX package traces this into one XLA program; PyTorch runs eagerly,
 so here the step is its phases in order. Dropout follows the modules'
 own ``train()`` / ``eval()`` mode.
@@ -49,8 +51,8 @@ import torch
 
 from ..base import MXNetError
 from ..parallel import dist as _dist
-from ..parallel.collectives import (all_gather_rows, bucket_rows,
-                                    reduce_scatter_rows)
+from ..parallel.collectives import (all_gather_rows, allgather,
+                                    bucket_rows, reduce_scatter_rows)
 from ..parallel.mesh import (batch_is_sharded, current_mesh, place_on_mesh,
                              replicate, zero_shard_pad)
 
@@ -247,6 +249,18 @@ class _ZeroShardPlan:
                    for st in self.states or () for s in st)
 
 
+def _global_loss(loss: torch.Tensor, mesh, axis: str) -> torch.Tensor:
+    """The global batch's per-sample loss from each rank's part of it:
+    one all-gather over the mesh's ``axis`` group, in rank order (rank
+    r's rows are the r-th 1/N of the batch, ``place_on_mesh``), so every
+    rank returns what the JAX package's step returns. Issued after the
+    update's collectives, on the same stream; the host does not wait. A
+    scalar loss (no per-sample axis) stays the rank's own."""
+    if loss.ndim == 0:
+        return loss
+    return allgather(loss.contiguous(), axis, mesh)
+
+
 def _infer_batch_size(leaves) -> int:
     for leaf in leaves:
         if getattr(leaf, "ndim", 0) >= 1:
@@ -381,6 +395,8 @@ class CompiledTrainStep:
                 loss = self._zero_call(args, kwargs, batch_size, mesh, mean)
             else:
                 loss = self._mesh_call(args, kwargs, batch_size, mesh, mean)
+            if not mean:
+                loss = _global_loss(loss, mesh, axis)
         self._steps_done += 1
         return loss
 
@@ -487,8 +503,10 @@ class TrainLoop:
     ``step(*inputs, label)`` feeds all but the last argument to ``net``
     and the last to the loss block through ``Trainer.compile_step``
     (the ZeRO-1 sharded update when a dp mesh is active at the first
-    step). It returns the rank's per-sample loss without waiting for the
-    device; a bounded window (``engine.DispatchWindow``, size
+    step). It returns the global batch's per-sample loss (under a dp
+    mesh every rank gathers the others' rows, in rank order, as the JAX
+    package's step returns them) without waiting for the device; a
+    bounded window (``engine.DispatchWindow``, size
     ``inflight`` or ``MXNET_INFLIGHT_STEPS``, default 2;
     ``MXNET_ENGINE_TYPE=NaiveEngine`` forces 0) makes the host wait, on
     the OLDEST step's loss, only when more steps are outstanding.

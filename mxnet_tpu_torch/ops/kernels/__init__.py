@@ -38,7 +38,7 @@ from ...base import MXNetError
 
 __all__ = ["KERNELS", "KernelInfo", "launch_counts", "reset_launch_counts",
            "library", "build_library", "launch", "check_cuda_operands",
-           "DTYPE_CODES"]
+           "DTYPE_CODES", "card_limits", "launch_empty"]
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
@@ -54,6 +54,24 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 _P, _I, _L, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                   ctypes.c_float)
+
+#: an H100's SMs and the shared memory a block may opt in to: what the
+#: plans written in Python assume where no card is at hand
+H100_SMS, H100_SMEM_OPTIN = 132, 232448
+
+
+def card_limits(device=None):
+    """(SMs, bytes of shared memory a block may opt in to) of the CUDA
+    ``device`` (the current one by default), for the launch plans written
+    in Python; an H100's where the device is not a CUDA device or there
+    is no card."""
+    if device is not None and torch.device(device).type != "cuda" \
+            or not torch.cuda.is_available():
+        return H100_SMS, H100_SMEM_OPTIN
+    props = torch.cuda.get_device_properties(
+        torch.cuda.current_device() if device is None else device)
+    return props.multi_processor_count, getattr(
+        props, "shared_memory_per_block_optin", H100_SMEM_OPTIN)
 
 
 @dataclass(frozen=True)
@@ -109,9 +127,9 @@ KERNELS: Dict[str, KernelInfo] = {k.name: k for k in (
     KernelInfo(
         "layernorm_bwd", "mxnet_tpu_torch/ops/kernels/csrc/layernorm_bwd.cu",
         "mxt_layernorm_bwd",
-        # x, gamma, dy, dx, dg_part, db_part, dgamma, dbeta, rows, C,
-        # nparts, eps, dtype, stream
-        (_P,) * 8 + (_L, _I, _I, _F, _I, _P),
+        # x, gamma, dy, dx, part, dgamma, dbeta, rows, C, eps, dtype, vec,
+        # packs, threads, blocks, stream
+        (_P,) * 7 + (_L, _I, _F) + (_I,) * 5 + (_P,),
         "mxnet_tpu/ops/kernels/norm.py:116 (_ln_bwd_kernel)"),
     KernelInfo(
         "bias_gelu_bwd", "mxnet_tpu_torch/ops/kernels/csrc/bias_gelu_bwd.cu",
@@ -135,8 +153,9 @@ KERNELS: Dict[str, KernelInfo] = {k.name: k for k in (
     KernelInfo(
         "rnn_decode", "mxnet_tpu_torch/ops/kernels/csrc/rnn_decode.cu",
         "mxt_rnn_decode",
-        # xw, h, c, w_hh, b_hh, h_out, c_out, N, H, mode, dtype, stream
-        (_P,) * 7 + (_I,) * 4 + (_P,),
+        # xw, h, c, w_hh, b_hh, h_out, c_out, N, H, mode, dtype, w_dtype,
+        # units, threads, group_rows, path, stream
+        (_P,) * 7 + (_I,) * 9 + (_P,),
         "mxnet_tpu/ops/kernels/rnn_scan.py:486 (_decode_kernel)"),
     KernelInfo(
         "opt_update", "mxnet_tpu_torch/ops/kernels/csrc/opt_update.cu",
@@ -256,8 +275,23 @@ def library() -> ctypes.CDLL:
                 getattr(lib, query).restype = ctypes.c_int
             lib.mxt_flash_bwd_plan.argtypes = [_I] * 6 + [_P]
             lib.mxt_flash_bwd_plan.restype = ctypes.c_int
+            # an empty kernel: the launch floor, for timing (not counted)
+            lib.mxt_empty_launch.argtypes = [_I, _I, _P]
+            lib.mxt_empty_launch.restype = ctypes.c_int
             _LIB = lib
         return _LIB
+
+
+def launch_empty(device: torch.device, blocks: int, threads: int) -> None:
+    """Launch an empty kernel of ``blocks`` x ``threads`` on PyTorch's
+    current stream of ``device``: the floor under any launch, timed beside
+    the kernels. Not a kernel of :data:`KERNELS` and not counted."""
+    with torch.cuda.device(device):
+        err = library().mxt_empty_launch(
+            blocks, threads, torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        what = library().mxt_error_string(err).decode()
+        raise MXNetError(f"empty launch: CUDA error {err} ({what})")
 
 
 def check_cuda_operands(name: str, x: torch.Tensor, *others) -> None:

@@ -24,19 +24,25 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from ...base import MXNetError
-from . import DTYPE_CODES, check_cuda_operands, launch
+from . import DTYPE_CODES, card_limits, check_cuda_operands, launch
 
 __all__ = ["layer_norm", "layer_norm_plain", "layer_norm_bwd",
-           "layer_norm_bwd_plain", "bias_gelu", "bias_gelu_plain",
-           "bias_gelu_bwd", "bias_gelu_bwd_plain"]
+           "layer_norm_bwd_plain", "ln_bwd_plan", "bias_gelu",
+           "bias_gelu_plain", "bias_gelu_bwd", "bias_gelu_bwd_plain"]
 
 _SQRT_HALF = math.sqrt(0.5)
 _INV_SQRT2PI = 1.0 / math.sqrt(2.0 * math.pi)
-#: blocks of the LayerNorm backward's first pass, each keeping float32
-#: dgamma/dbeta partials of its rows (fixed, so a card repeats bit for bit)
-LN_BWD_PARTS = 512
-#: widest C of the LayerNorm backward: its partials live in shared memory
+#: widest C of the LayerNorm backward: a block's partials live in shared
+#: memory
 LN_BWD_MAX_C = 16384
+#: the LayerNorm backward's warp branch (a warp a row): threads a block,
+#: and the widest C it takes with 16-byte loads (by dtype) and with one
+#: element a load; wider rows take the block branch (a block a row)
+LN_BWD_WARP_THREADS = 128
+LN_BWD_WARP_CAP = {torch.float32: 1024, torch.bfloat16: 2048}
+LN_BWD_SCALAR_CAP = 1024
+#: the block branch: most threads a block
+LN_BWD_BLOCK_THREADS = 512
 #: the bias-GELU backward's first-pass blocks and widest C, as above
 BG_BWD_PARTS = 512
 BG_BWD_MAX_C = 16384
@@ -115,11 +121,69 @@ def _ln_fwd_kernel(x, gamma, beta, eps):
     return out
 
 
+def _ln_warp_blocks_per_sm(vec: int, packs: int) -> int:
+    """Blocks an SM of the warp branch: the register estimate of
+    ``LnWarpCfg`` in ``csrc/layernorm_bwd.cu``, from what a lane holds
+    (x and dy of a row as floats, the float32 dgamma/dbeta partials of its
+    columns, and the rest)."""
+    regs = (4 * packs * vec + (24 if vec > 1 else 40) + 7) // 8 * 8
+    return max(1, min(16, 65536 // (LN_BWD_WARP_THREADS * regs)))
+
+
+def ln_bwd_plan(rows: int, c: int, dtype: torch.dtype = torch.float32,
+                device=None, aligned: bool = True) -> dict:
+    """The launch of the ``layernorm_bwd`` kernel for ``rows`` rows of
+    ``c`` columns in ``dtype`` on ``device`` (an H100's SM count where
+    there is no card; ``aligned``: x, dy, dx and gamma start on 16
+    bytes). Plain Python: it launches nothing, and the wrapper launches
+    what it says.
+
+    - ``branch`` ``"warp"`` (a warp a row, C up to ``LN_BWD_WARP_CAP``
+      with 16-byte loads, ``LN_BWD_SCALAR_CAP`` with one element a load)
+      or ``"block"`` (a block a row, up to ``LN_BWD_MAX_C``);
+    - ``vec`` elements a load, ``packs`` loads a lane a row (0 in the
+      block branch);
+    - ``threads`` and ``warps`` a block, ``blocks_per_sm`` (what the warp
+      kernel's launch bounds ask for), ``blocks`` (= the column partials
+      the second pass sums), ``rows_per_warp`` or ``rows_per_block`` (the
+      most any takes), ``smem_bytes`` a block and ``sms``."""
+    if dtype not in DTYPE_CODES:
+        raise MXNetError(f"ln_bwd_plan: no kernel in {dtype}")
+    if not 0 < c <= LN_BWD_MAX_C or rows < 1:
+        raise MXNetError(f"ln_bwd_plan: rows {rows}, C {c} (1 <= C <= "
+                         f"{LN_BWD_MAX_C})")
+    sms, optin = card_limits(device)
+    wide = 16 // dtype.itemsize
+    vec = wide if aligned and c % wide == 0 else 1
+    smem = 4 * 2 * c
+    plan = {"vec": vec, "smem_bytes": smem, "sms": sms}
+    cap = LN_BWD_WARP_CAP[dtype] if vec > 1 else LN_BWD_SCALAR_CAP
+    if c <= cap:
+        packs = -(-c // (32 * vec))
+        if vec == 1:
+            packs = -(-packs // 8) * 8
+        per_sm = _ln_warp_blocks_per_sm(vec, packs)
+        warps = LN_BWD_WARP_THREADS // 32
+        per_warp = -(-rows // (sms * per_sm * warps))
+        blocks = -(-(-(-rows // per_warp)) // warps)
+        nw = blocks * warps
+        return dict(plan, branch="warp", packs=packs,
+                    threads=LN_BWD_WARP_THREADS, warps=warps,
+                    blocks_per_sm=per_sm, blocks=blocks,
+                    rows_per_warp=-(-rows // nw))
+    threads = min(LN_BWD_BLOCK_THREADS, max(32, -(-c // vec + 31) // 32 * 32))
+    per_sm = max(1, min(2048 // threads, optin // (smem + 1024)))
+    blocks = min(rows, sms * per_sm)
+    return dict(plan, branch="block", packs=0, threads=threads,
+                warps=threads // 32, blocks_per_sm=per_sm, blocks=blocks,
+                rows_per_block=-(-rows // blocks))
+
+
 def layer_norm_bwd(x, gamma, dy, eps: float = 1e-5):
     """LayerNorm backward → (dx, dgamma, dbeta). A CUDA tensor launches
-    the ``layernorm_bwd`` kernel (contiguous float32 or bfloat16 x, C <=
-    16384, else it raises); a CPU tensor runs
-    :func:`layer_norm_bwd_plain`."""
+    the ``layernorm_bwd`` kernel as :func:`ln_bwd_plan` plans it
+    (contiguous float32 or bfloat16 x, C <= 16384, else it raises); a CPU
+    tensor runs :func:`layer_norm_bwd_plain`."""
     if x.device.type == "cpu":
         return layer_norm_bwd_plain(x, gamma, dy, eps)
     dy = dy.to(x.dtype).contiguous()
@@ -133,18 +197,20 @@ def layer_norm_bwd(x, gamma, dy, eps: float = 1e-5):
         raise MXNetError(f"layer_norm_bwd: C {c} > {LN_BWD_MAX_C}")
     rows = x.numel() // c if c else 0
     dx = torch.empty_like(x)
-    dg = torch.zeros(c, dtype=torch.float32, device=x.device)
-    db = torch.zeros(c, dtype=torch.float32, device=x.device)
-    if rows:
-        nparts = min(rows, LN_BWD_PARTS)
-        part = torch.empty(2, nparts, c, dtype=torch.float32,
-                           device=x.device)
-        g = gamma.to(torch.float32).contiguous()
-        launch("layernorm_bwd", x.device, x.data_ptr(), g.data_ptr(),
-               dy.data_ptr(), dx.data_ptr(), part[0].data_ptr(),
-               part[1].data_ptr(), dg.data_ptr(), db.data_ptr(), rows, c,
-               nparts, float(eps), DTYPE_CODES[x.dtype])
-    return dx, dg.to(gamma.dtype), db.to(gamma.dtype)
+    if not rows:
+        dgb = torch.zeros(2, c, dtype=torch.float32, device=x.device)
+        return dx, dgb[0].to(gamma.dtype), dgb[1].to(gamma.dtype)
+    dgb = torch.empty(2, c, dtype=torch.float32, device=x.device)
+    g = gamma.to(torch.float32).contiguous()
+    plan = ln_bwd_plan(rows, c, x.dtype, x.device, aligned=all(
+        t.data_ptr() % 16 == 0 for t in (x, dy, dx, g)))
+    part = torch.empty(plan["blocks"], 2, c, dtype=torch.float32,
+                       device=x.device)
+    launch("layernorm_bwd", x.device, x.data_ptr(), g.data_ptr(),
+           dy.data_ptr(), dx.data_ptr(), part.data_ptr(), dgb[0].data_ptr(),
+           dgb[1].data_ptr(), rows, c, float(eps), DTYPE_CODES[x.dtype],
+           plan["vec"], plan["packs"], plan["threads"], plan["blocks"])
+    return dx, dgb[0].to(gamma.dtype), dgb[1].to(gamma.dtype)
 
 
 class _LayerNorm(torch.autograd.Function):

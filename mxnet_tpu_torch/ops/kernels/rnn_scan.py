@@ -34,18 +34,19 @@ activation dtype and dW, db in W_hh's.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional
 
 import torch
 from torch.autograd.function import once_differentiable
 
 from ...base import MXNetError
-from . import DTYPE_CODES, check_cuda_operands, launch, library
+from . import DTYPE_CODES, card_limits, check_cuda_operands, launch, library
 
 __all__ = ["GATES", "MODE_CODES", "scan_supported", "rnn_scan",
            "rnn_scan_plain", "rnn_scan_bwd_plain", "rnn_scan_fwd",
            "rnn_scan_bwd", "rnn_fwd_plan", "rnn_bwd_walk_plan",
-           "decode_supported",
+           "decode_supported", "rnn_decode_plan",
            "rnn_decode_step", "rnn_decode_step_plain", "rnn_verify_scan"]
 
 GATES = {"rnn_relu": 1, "rnn_tanh": 1, "lstm": 4, "gru": 3}
@@ -198,7 +199,10 @@ def rnn_scan_bwd_plain(xw, h0, c0, w_hh, b_hh, ys, cs, dys, dc_t,
 # kernel wrappers
 # ---------------------------------------------------------------------------
 
-def _check_scan(name, xw, h0, c0, w_hh, b_hh, mode):
+def _check_scan(name, xw, h0, c0, w_hh, b_hh, mode, own_weights=False):
+    """Raise unless the kernels take these operands → (T, N, H). With
+    ``own_weights`` (the decode step) W_hh and b_hh may be float32 or
+    bfloat16 whatever xw's dtype; else every operand is in xw's."""
     why = scan_supported(xw, h0, c0, mode)
     if why is not None:
         raise MXNetError(f"{name}: {why}")
@@ -220,7 +224,11 @@ def _check_scan(name, xw, h0, c0, w_hh, b_hh, mode):
         if tuple(t.shape) != shape:
             raise MXNetError(f"{name}: {what} has shape {tuple(t.shape)}, "
                              f"expected {shape}")
-        if t.dtype != xw.dtype:
+        if own_weights and what in ("w_hh", "b_hh"):
+            if t.dtype not in DTYPE_CODES:
+                raise MXNetError(f"{name}: {what} is {t.dtype}: no kernel "
+                                 "(float32, bfloat16)")
+        elif t.dtype != xw.dtype:
             raise MXNetError(f"{name}: {what} is {t.dtype}, xw {xw.dtype}")
         if not t.is_contiguous():
             raise MXNetError(f"{name}: the kernel takes contiguous tensors "
@@ -405,29 +413,114 @@ def rnn_decode_step_plain(xw, h, c, w_hh, b_hh, mode: str):
     return h_new.to(dt), (c_new.to(dt) if c_new is not None else None)
 
 
+#: the decode kernel's rows of W_hh a warp multiplies at once (W_hh in
+#: registers; W_hh in shared memory) and most warps a block
+#: (csrc/rnn_decode.cu MXT_DEC_RB, MXT_DEC_TMA_RB, MXT_DEC_MAX_WARPS)
+DEC_ROWS_PER_WARP = 2
+DEC_TMA_ROWS_PER_WARP = 4
+DEC_MAX_WARPS = 16
+#: the kernel's paths (csrc/rnn_decode.cu MxtDecPath)
+DEC_PATHS = {"l2": 0, "staged": 1, "tma": 2}
+
+
+def _a16(x: int) -> int:
+    return (x + 15) // 16 * 16
+
+
+def _warps(rows: int, per_warp: int) -> dict:
+    groups = -(-rows // per_warp)
+    warps = min(DEC_MAX_WARPS, groups)
+    return {"warps": warps, "threads": 32 * warps,
+            "rows_per_warp": -(-groups // warps) * per_warp}
+
+
+@functools.lru_cache(maxsize=256)
+def _decode_plan(n: int, h: int, g: int, act_size: int, w_size: int,
+                 sms: int, optin: int) -> dict:
+    units = min(h, -(-h // sms))
+    rows = g * units
+    # the block's rows of W_hh and the batch's h both in shared memory (the
+    # mxt_dec_tma_smem layout), where one group of the whole batch fits
+    tma = (_a16(16 + 4 * rows * n) + _a16(act_size * n * h + 16)
+           + g * _a16(w_size * units * h + 16))
+    if tma <= optin:
+        return dict(_warps(rows, DEC_TMA_ROWS_PER_WARP), units=units,
+                    rows=rows, group_rows=n, groups=1, blocks=-(-h // units),
+                    path="tma", staged=True, smem_bytes=tma, sms=sms)
+    budget = optin // 4                 # floats of shared memory a block
+    staged, groups = True, 1
+    while True:
+        per = -(-n // groups)
+        units = min(h, max(1, -(-h * groups // sms)))
+        rows = g * units
+        width = (h if staged else 0) + rows
+        if per * width <= budget:
+            break
+        if staged and budget < h + rows:
+            staged = False              # not one row of h fits a block
+            continue
+        groups = max(groups + 1, -(-n // max(1, budget // width)))
+    return dict(_warps(rows, DEC_ROWS_PER_WARP), units=units, rows=rows,
+                group_rows=per, groups=-(-n // per),
+                blocks=-(-h // units) * -(-n // per),
+                path="staged" if staged else "l2", staged=staged,
+                smem_bytes=4 * per * width, sms=sms)
+
+
+def rnn_decode_plan(n: int, h: int, mode: str,
+                    dtype: torch.dtype = torch.float32, device=None,
+                    w_dtype: Optional[torch.dtype] = None) -> dict:
+    """The launch of the ``rnn_decode`` kernel for batch ``n`` and hidden
+    size ``h`` on ``device`` (an H100's limits where there is no card).
+    Plain Python: it launches nothing, and the wrapper launches what it
+    says. ``units`` hidden units a block (all gates of each: ``rows`` rows
+    of W_hh), chosen so that a group's blocks are about the card's SM
+    count; ``warps`` / ``threads`` a block and ``rows_per_warp`` (at most
+    DEC_MAX_WARPS warps a block); the batch in ``groups`` of
+    ``group_rows`` rows; the ``path``: ``"tma"`` where the block's rows of
+    W_hh (in ``w_dtype``, xw's ``dtype`` by default) and the whole batch's
+    h fit shared memory (bulk copies; DEC_TMA_ROWS_PER_WARP rows a warp
+    at once), else ``"staged"`` (h staged in shared memory, W_hh through
+    registers, DEC_ROWS_PER_WARP rows a warp) or, where not one row of h
+    fits a block, ``"l2"`` (h read through L2); ``staged`` (h in shared
+    memory), ``blocks``, ``smem_bytes`` and ``sms``."""
+    w_dtype = dtype if w_dtype is None else w_dtype
+    if mode not in GATES or dtype not in DTYPE_CODES \
+            or w_dtype not in DTYPE_CODES:
+        raise MXNetError(f"rnn_decode_plan: no kernel for {mode!r} in "
+                         f"{dtype} (W_hh {w_dtype})")
+    if n < 1 or h < 1:
+        raise MXNetError(f"rnn_decode_plan: N {n}, H {h}")
+    return dict(_decode_plan(int(n), int(h), GATES[mode], dtype.itemsize,
+                             w_dtype.itemsize, *card_limits(device)))
+
+
 def rnn_decode_step(xw, h, c, w_hh, b_hh, mode: str):
     """ONE recurrence step from a precomputed input projection ``xw``
     (N, G*H) → ``(h_new, c_new|None)``, new tensors in xw's dtype. A CUDA
-    tensor launches the ``rnn_decode`` kernel (contiguous float32 or
-    bfloat16 operands of one dtype, else it raises; any N and H); a CPU
-    tensor runs :func:`rnn_decode_step_plain`. Inference only: no
-    gradient."""
+    tensor launches the ``rnn_decode`` kernel as :func:`rnn_decode_plan`
+    plans it (contiguous operands; xw, h and c float32 or bfloat16 of one
+    dtype, W_hh float32 or bfloat16 read as it is, b_hh taken in W_hh's
+    dtype; else it raises; any N and H); a CPU tensor runs
+    :func:`rnn_decode_step_plain`. Inference only: no gradient."""
     why = decode_supported(xw, h, c, mode)
     if why is not None and not (xw.device.type == "cpu" and "dtype" in why):
         raise MXNetError(f"rnn_decode_step: {why}")
     if xw.device.type == "cpu":
         return rnn_decode_step_plain(xw, h, c, w_hh, b_hh, mode)
     _, n, h_dim = _check_scan("rnn_decode_step", xw[None], h, c, w_hh, b_hh,
-                              mode)
+                              mode, own_weights=True)
     lstm = mode == "lstm"
     h_new = torch.empty(n, h_dim, dtype=xw.dtype, device=xw.device)
     c_new = torch.empty_like(h_new) if lstm else None
-    w = w_hh.float().contiguous()
-    b = b_hh.float().contiguous()
+    b = b_hh.to(w_hh.dtype)
+    plan = rnn_decode_plan(n, h_dim, mode, xw.dtype, xw.device, w_hh.dtype)
     launch("rnn_decode", xw.device, xw.data_ptr(), h.data_ptr(),
-           c.data_ptr() if lstm else None, w.data_ptr(), b.data_ptr(),
+           c.data_ptr() if lstm else None, w_hh.data_ptr(), b.data_ptr(),
            h_new.data_ptr(), c_new.data_ptr() if lstm else None, n, h_dim,
-           MODE_CODES[mode], DTYPE_CODES[xw.dtype])
+           MODE_CODES[mode], DTYPE_CODES[xw.dtype], DTYPE_CODES[w_hh.dtype],
+           plan["units"], plan["threads"], plan["group_rows"],
+           DEC_PATHS[plan["path"]])
     return h_new, c_new
 
 

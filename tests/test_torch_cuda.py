@@ -220,6 +220,44 @@ def test_layernorm_bwd_kernel_on_card(cuda_dev, dtype, shape):
         assert torch.equal(a, b)
 
 
+#: the LayerNorm backward's edges by dtype: C at the warp branch's cap
+#: and one past it, C 16,384 (block branch), C 771 (one element a load),
+#: rows below the block count, one row
+LN_BWD_EDGES = {
+    torch.float32: {"cap": (300, 1024), "cap+1": (300, 1025),
+                    "c16384": (20, 16384), "c771": (4099, 771),
+                    "few_rows": (3, 768), "one_row": (1, 768)},
+    torch.bfloat16: {"cap": (300, 2048), "cap+1": (300, 2049),
+                     "c16384": (20, 16384), "c771": (4099, 771),
+                     "few_rows": (3, 768), "one_row": (1, 768)},
+}
+LN_BWD_BRANCH = {"cap": "warp", "cap+1": "block", "c16384": "block",
+                 "c771": "warp", "few_rows": "warp", "one_row": "warp"}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("edge", sorted(LN_BWD_BRANCH))
+def test_layernorm_bwd_edges_on_card(cuda_dev, dtype, edge):
+    """Each branch of the plan at its edges: within tolerance of the plain
+    version, and dx, dgamma, dbeta repeat bit for bit."""
+    rows, c = LN_BWD_EDGES[dtype][edge]
+    assert KN.ln_bwd_plan(rows, c, dtype, cuda_dev)["branch"] == \
+        LN_BWD_BRANCH[edge]
+    g = torch.Generator().manual_seed(rows + c)
+    x = torch.randn(rows, c, generator=g).to(cuda_dev, dtype)
+    dy = torch.randn(rows, c, generator=g).to(cuda_dev, dtype)
+    gam = torch.randn(c, generator=g).to(cuda_dev)
+    got = KN.layer_norm_bwd(x, gam, dy)
+    ref = KN.layer_norm_bwd_plain(x, gam, dy)
+    tol = CARD_TOL[dtype]
+    for a, r in zip(got, ref):
+        torch.testing.assert_close(a.float(), r.float(), atol=tol, rtol=tol)
+    again = KN.layer_norm_bwd(x, gam, dy)
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+
+
 @pytest.mark.cuda
 def test_kernel_outputs_carry_gradients_on_card(cuda_dev):
     q, k, v = (t.to(cuda_dev).requires_grad_() for t in
@@ -512,7 +550,8 @@ def _decode_inputs(mode, n, h, dtype, dev, seed=5):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", [(3, 37), (8, 650), (11, 64), (128, 650)])
+@pytest.mark.parametrize("shape", [(3, 37), (8, 650), (11, 64), (128, 650),
+                                   (2, 4096)])
 @pytest.mark.parametrize("mode", ["lstm", "gru", "rnn_tanh", "rnn_relu"])
 def test_rnn_decode_kernel_on_card(cuda_dev, mode, shape, dtype):
     xw, h, c, w, b = _decode_inputs(mode, *shape, dtype, cuda_dev)
@@ -533,6 +572,26 @@ def test_rnn_decode_kernel_on_card(cuda_dev, mode, shape, dtype):
     # the kernel repeats bit for bit
     again = KR.rnn_decode_step(xw, h, c, w, b, mode)
     assert torch.equal(again[0], hn)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(8, 650), (8, 128), (2, 4096)])
+@pytest.mark.parametrize("mode", ["lstm", "gru", "rnn_tanh"])
+def test_rnn_decode_reads_bf16_weights_on_card(cuda_dev, mode, shape):
+    """bfloat16 activations with bfloat16 W_hh and b_hh, read as they are
+    (no float32 copy), give the bits of the same weights widened to
+    float32, and the plain version's values within tolerance."""
+    xw, h, c, w, b = _decode_inputs(mode, *shape, torch.bfloat16, cuda_dev)
+    assert w.dtype == b.dtype == torch.bfloat16
+    got = KR.rnn_decode_step(xw, h, c, w, b, mode)
+    wide = KR.rnn_decode_step(xw, h, c, w.float(), b.float(), mode)
+    ref = KR.rnn_decode_step_plain(xw, h, c, w, b, mode)
+    for a, aw, r in zip(got, wide, ref):
+        if r is None:
+            continue
+        assert torch.equal(a, aw)
+        torch.testing.assert_close(a.float(), r.float(), atol=2e-2,
+                                   rtol=2e-2)
 
 
 @pytest.mark.cuda

@@ -152,6 +152,85 @@ def test_decode_bf16_state_within_bf16_resolution():
         assert (a.float() - r).abs().max() < 2e-2
 
 
+def test_decode_bf16_weights_equal_their_float32_form():
+    """The kernel reads W_hh and b_hh in their own dtype and widens them
+    in registers, as the float32 copy it no longer makes would hold them:
+    the plain step with bfloat16 weights equals, bit for bit, the step
+    with those weights widened to float32."""
+    xw, h, c, w, b = _step_inputs("lstm", 8, 64, seed=9)
+    acts = tuple(t.to(torch.bfloat16) for t in _t(xw, h, c))
+    wb, bb = (t.to(torch.bfloat16) for t in _t(w, b))
+    for mode in MODES:
+        g = KR.GATES[mode]
+        x_ = acts[0][:, :g * 64].contiguous()
+        narrow = KR.rnn_decode_step(x_, acts[1], acts[2], wb[:g * 64],
+                                    bb[:g * 64], mode)
+        wide = KR.rnn_decode_step(x_, acts[1], acts[2],
+                                  wb[:g * 64].float(), bb[:g * 64].float(),
+                                  mode)
+        for a, r in zip(narrow, wide):
+            if r is not None:
+                assert a.dtype == torch.bfloat16
+                assert torch.equal(a, r), mode
+
+
+#: (N, H, mode) -> (path, groups): decode_wide's bucket 8 at the word LM's
+#: H 650 and decode_leg's H 128 (W_hh's rows and h in shared memory), two
+#: row groups at N 128, H 4,096 at N 2 (h staged, W_hh through registers),
+#: and H 60,000, where not one row of h fits a block (h through L2)
+DECODE_PLANS = [
+    ((8, 650, "lstm"), ("tma", 1)),
+    ((8, 128, "lstm"), ("tma", 1)),
+    ((128, 650, "lstm"), ("staged", 2)),
+    ((2, 4096, "lstm"), ("staged", 1)),
+    ((64, 4096, "rnn_tanh"), ("staged", 5)),
+    ((3, 37, "gru"), ("tma", 1)),
+    ((2, 60000, "rnn_tanh"), ("l2", 1)),
+]
+
+
+@pytest.mark.parametrize("case,want", DECODE_PLANS)
+def test_rnn_decode_plan_branches(case, want):
+    n, h, mode = case
+    plan = KR.rnn_decode_plan(n, h, mode)
+    g = KR.GATES[mode]
+    assert (plan["path"], plan["groups"]) == want
+    assert plan["staged"] == (plan["path"] != "l2")
+    assert plan["sms"] == 132                  # an H100's, without a card
+    assert plan["rows"] == g * plan["units"]
+    assert plan["threads"] == 32 * plan["warps"] <= 32 * KR.DEC_MAX_WARPS
+    assert plan["warps"] * plan["rows_per_warp"] >= plan["rows"]
+    assert plan["groups"] * plan["group_rows"] >= n
+    assert plan["blocks"] == -(-h // plan["units"]) * plan["groups"]
+    # a group's blocks about fill the card: one wave, none ragged
+    assert plan["blocks"] <= plan["groups"] * plan["sms"]
+    assert plan["smem_bytes"] <= 232448
+    if plan["path"] != "tma":
+        assert plan["smem_bytes"] == 4 * plan["group_rows"] * (
+            (h if plan["staged"] else 0) + plan["rows"])
+    # bfloat16 halves what the shared-memory path holds, so a shape may
+    # move onto it (N 128 x H 650 does); on one path the grid is the same
+    bf = KR.rnn_decode_plan(n, h, mode, torch.bfloat16)
+    assert bf["smem_bytes"] <= 232448
+    if bf["path"] == plan["path"]:
+        assert bf["smem_bytes"] <= plan["smem_bytes"]
+        assert {k: v for k, v in bf.items() if k != "smem_bytes"} == \
+            {k: v for k, v in plan.items() if k != "smem_bytes"}
+    else:
+        assert (plan["path"], bf["path"]) == ("staged", "tma")
+
+
+def test_rnn_decode_plan_at_decode_wide():
+    """N 8 x H 650: 2,600 gate rows as 130 blocks of 5 units (20 rows, 4 a
+    warp), W_hh's rows and h copied to shared memory; the first version
+    took 325 blocks of 8 rows."""
+    plan = KR.rnn_decode_plan(8, 650, "lstm")
+    assert (plan["units"], plan["blocks"], plan["warps"],
+            plan["rows_per_warp"], plan["path"]) == (5, 130, 5, 4, "tma")
+    with pytest.raises(mxt.MXNetError, match="no kernel"):
+        KR.rnn_decode_plan(8, 650, "elman")
+
+
 def test_decode_step_refuses_what_it_does_not_take():
     xw, h, c, w, b = _t(*_step_inputs("lstm", 2, 4, seed=1))
     with pytest.raises(mxt.MXNetError, match="unknown mode"):

@@ -257,3 +257,67 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     monkeypatch.setattr(K, "BUILD_DIR", str(tmp_path / "torch_kernels"))
     with pytest.raises(mxt.MXNetError, match="nvcc not found"):
         K.build_library()
+
+
+# ---------------------------------------------------------------------------
+# the LayerNorm backward's launch plan (plain Python: no card needed)
+# ---------------------------------------------------------------------------
+
+#: (rows, C, dtype, aligned) -> (branch, vec, packs): BERT training's
+#: 16384 x 768 in both dtypes (a warp a row, 16-byte loads), the caps
+#: (1,024 float32 and 2,048 bfloat16 with 16-byte loads, 1,024 with one
+#: element a load) and one past them, C 16,384, an unaligned C (771) and
+#: unaligned pointers, one row
+LN_PLANS = [
+    ((16384, 768, torch.float32, True), ("warp", 4, 6)),
+    ((16384, 768, torch.bfloat16, True), ("warp", 8, 3)),
+    ((16384, 1024, torch.float32, True), ("warp", 4, 8)),
+    ((16384, 1028, torch.float32, True), ("block", 4, 0)),
+    ((4096, 1025, torch.float32, True), ("block", 1, 0)),
+    ((4096, 2048, torch.bfloat16, True), ("warp", 8, 8)),
+    ((4096, 2056, torch.bfloat16, True), ("block", 8, 0)),
+    ((4096, 2049, torch.bfloat16, True), ("block", 1, 0)),
+    ((64, 16384, torch.float32, True), ("block", 4, 0)),
+    ((64, 16384, torch.bfloat16, True), ("block", 8, 0)),
+    ((4099, 771, torch.float32, True), ("warp", 1, 32)),
+    ((4099, 1024, torch.bfloat16, True), ("warp", 8, 4)),
+    ((100, 768, torch.float32, False), ("warp", 1, 24)),
+    ((1, 768, torch.float32, True), ("warp", 4, 6)),
+]
+
+
+@pytest.mark.parametrize("case,want", LN_PLANS)
+def test_ln_bwd_plan_branches(case, want):
+    rows, c, dtype, aligned = case
+    plan = KN.ln_bwd_plan(rows, c, dtype, aligned=aligned)
+    assert (plan["branch"], plan["vec"], plan["packs"]) == want
+    assert plan["sms"] == 132                 # an H100's, without a card
+    assert 1 <= plan["blocks"] <= rows
+    assert plan["smem_bytes"] == 8 * c <= 232448
+    assert plan["threads"] == 32 * plan["warps"] <= 1024
+    if plan["branch"] == "warp":
+        # every row has a warp, no warp more than its share, and the grid
+        # stays within the blocks an SM the register estimate allows
+        assert plan["packs"] * 32 * plan["vec"] >= c
+        nw = plan["blocks"] * plan["warps"]
+        assert nw * plan["rows_per_warp"] >= rows
+        assert plan["rows_per_warp"] == -(-rows // nw)
+        assert plan["blocks"] <= plan["sms"] * plan["blocks_per_sm"]
+    else:
+        assert plan["blocks"] * plan["rows_per_block"] >= rows
+
+
+def test_ln_bwd_plan_at_bert_training_fills_the_card():
+    """16384 x 768: 4 blocks of 4 warps an SM (16 warps), 512 blocks, 8
+    rows a warp, in both dtypes; rows below the block count take one warp
+    each; C past 16,384 is refused."""
+    for dtype in (torch.float32, torch.bfloat16):
+        plan = KN.ln_bwd_plan(16384, 768, dtype)
+        assert (plan["blocks_per_sm"], plan["blocks"],
+                plan["rows_per_warp"]) == (4, 512, 8)
+    few = KN.ln_bwd_plan(5, 768, torch.float32)
+    assert few["blocks"] == 2 and few["rows_per_warp"] == 1
+    with pytest.raises(mxt.MXNetError, match="C 16385"):
+        KN.ln_bwd_plan(4, 16385)
+    with pytest.raises(mxt.MXNetError, match="no kernel"):
+        KN.ln_bwd_plan(4, 64, torch.float16)

@@ -4,8 +4,10 @@ holding its half of a seeded batch, updates from the gradient of the
 global batch (``Trainer.allreduce_grads``), with a mesh active and
 without one; a parameter that one rank's backward leaves unreached is
 reduced all the same (zeros from that rank), and one that no rank
-reached stays stale on both; and ``compile_step``'s ``mesh`` mode
-reduces each gradient exactly once through the same path.
+reached stays stale on both; ``compile_step``'s ``mesh`` mode reduces
+each gradient exactly once through the same path; and the compiled step
+(``zero`` and ``mesh`` modes) and ``TrainLoop.step`` return the GLOBAL
+batch's per-sample loss on every rank, as the JAX package's step does.
 
 The reference is the JAX package's ``gluon.Trainer`` stepping eagerly in
 one process on the whole batch from the same weights, and beside it the
@@ -13,7 +15,10 @@ port's own Trainer doing the same. Tolerance: weights within 1e-6 of the
 largest |weight| of their tensor, since the two ranks' partial sums are
 added in another order than the one-process sum (and XLA's CPU products
 round apart from torch's); the two ranks end bit-equal to each other
-(one all-reduce gives every rank the same sum).
+(one all-reduce gives every rank the same sum). Losses: within 1e-6 of
+the JAX package's compiled step under a dp 2 mesh (the 8-device CPU
+platform) and of the port's one-process compiled step, for the same
+reasons; equal bit for bit on the two ranks (one all-gather).
 
 The ranks import this module to find their workers, so JAX is imported
 inside the reference function alone.
@@ -22,7 +27,7 @@ import numpy as onp
 import pytest
 import torch
 
-from mxnet_tpu_torch.gluon import Trainer
+from mxnet_tpu_torch.gluon import Trainer, TrainLoop
 from mxnet_tpu_torch.gluon import loss as tloss
 from mxnet_tpu_torch.gluon.nn import Dense
 from mxnet_tpu_torch.gluon.params import load_jax_params
@@ -34,6 +39,7 @@ BATCH = 8
 STEPS = 3
 SPAWN_TIMEOUT_S = 90
 REL_TOL = 1e-6
+LOSS_ATOL = 1e-6
 N_PARAMS = 4
 OPTS = {"sgd": ("sgd", {"learning_rate": 0.1}),
         "sgd_mom": ("sgd", {"learning_rate": 0.1, "momentum": 0.9}),
@@ -272,3 +278,101 @@ def test_allreduce_grads_is_a_no_op_in_one_process():
     assert calls[0] == 0
     for k, p in net.named_parameters():
         assert torch.equal(p.grad, before[k])
+
+
+# ---------------------------------------------------------------------------
+# the loss a data-parallel step returns
+# ---------------------------------------------------------------------------
+
+#: how the step is driven on each rank: compile_step's ``zero`` mode (the
+#: sharded update), its ``mesh`` mode (all-reduce, replicated update), or
+#: ``TrainLoop.step`` (the zero mode through the dispatch window)
+LOSS_STEPS = {"zero": ("zero", None), "mesh": ("mesh", False),
+                "loop": ("zero", None)}
+
+
+def _loss_worker(how, rows):
+    """One rank: STEPS SGD-momentum steps on the global batch of ``rows``
+    rows under a dp mesh of both ranks; the loss each step returned."""
+    torch.set_num_threads(1)
+    net = _net()
+    name, kw = OPTS["sgd_mom"]
+    tr = Trainer(dict(net.named_parameters()), name, dict(kw))
+    lb = tloss.SoftmaxCrossEntropyLoss()
+    x, y = (torch.from_numpy(a[:rows]) for a in _batch())
+    losses = []
+    with make_mesh({"dp": WORLD}):
+        if how == "loop":
+            loop = TrainLoop(net, tr, lb)
+            run, step = loop.step, loop.compiled_step
+        else:
+            step = tr.compile_step(lambda a, b: lb(net(a), b),
+                                   zero_shard=LOSS_STEPS[how][1])
+            run = step
+        for _ in range(STEPS):
+            losses.append(run(x, y).numpy().copy())
+        if how == "loop":
+            loop.synchronize()
+    return {"losses": losses, "mode": step.mode}
+
+
+def _one_process_losses(rows):
+    """The port's compiled step in one process on the global batch."""
+    net = _net()
+    name, kw = OPTS["sgd_mom"]
+    tr = Trainer(dict(net.named_parameters()), name, dict(kw))
+    lb = tloss.SoftmaxCrossEntropyLoss()
+    step = tr.compile_step(lambda a, b: lb(net(a), b))
+    x, y = (torch.from_numpy(a[:rows]) for a in _batch())
+    return [step(x, y).numpy() for _ in range(STEPS)]
+
+
+def _jax_dp_losses(rows, zero_shard):
+    """The JAX package's compiled step under a dp mesh of WORLD devices,
+    given the global batch, from the same weights."""
+    import jax
+    import mxnet_tpu as mx
+    from mxnet_tpu.gluon import Trainer as JTrainer
+    from mxnet_tpu.gluon import loss as jloss
+    from mxnet_tpu.gluon import nn as jnn
+    from mxnet_tpu.parallel import make_mesh as jmake_mesh
+    net = jnn.HybridSequential()
+    net.add(jnn.Dense(6, in_units=4, activation="relu"))
+    net.add(jnn.Dense(3, in_units=6))
+    net.initialize()
+    for k, p in net.collect_params().items():
+        p.set_data(mx.nd.array(_weights()[k]))
+    name, kw = OPTS["sgd_mom"]
+    tr = JTrainer(net.collect_params(), name, dict(kw))
+    lb = jloss.SoftmaxCrossEntropyLoss()
+    step = tr.compile_step(lambda a, b: lb(net(a), b), zero_shard=zero_shard)
+    x, y = (a[:rows] for a in _batch())
+    with jmake_mesh({"dp": WORLD}, jax.devices()[:WORLD]):
+        return [step(mx.nd.array(x), mx.nd.array(y)).asnumpy()
+                for _ in range(STEPS)]
+
+
+@pytest.mark.parametrize("rows", [BATCH, 5])
+@pytest.mark.parametrize("how", sorted(LOSS_STEPS))
+def test_dp_step_returns_the_global_batch_loss(how, rows):
+    """Each rank returns the loss of every row of the global batch, in
+    the batch's order: one all-gather of the ranks' halves. A batch of 5
+    rows does not divide by 2, so each rank computes it whole and returns
+    that whole-batch loss as it is."""
+    ranks = tdist.spawn(_loss_worker, WORLD, "cpu", (how, rows),
+                        timeout_s=SPAWN_TIMEOUT_S)
+    mode, zero_shard = LOSS_STEPS[how]
+    assert all(r["mode"] == mode for r in ranks)
+    refs = {"port one process": _one_process_losses(rows),
+            "JAX dp mesh": _jax_dp_losses(rows, zero_shard)}
+    for what, ref in refs.items():
+        for i, want in enumerate(ref):
+            assert want.shape == (rows,)
+            for r in ranks:
+                assert r["losses"][i].shape == (rows,)
+                onp.testing.assert_allclose(r["losses"][i], want, rtol=0,
+                                            atol=LOSS_ATOL,
+                                            err_msg=f"{what}, step {i}")
+    for i in range(STEPS):
+        onp.testing.assert_array_equal(ranks[1]["losses"][i],
+                                       ranks[0]["losses"][i])
