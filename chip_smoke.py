@@ -12,12 +12,13 @@
     python3 chip_smoke.py --zero-train  # phases 1, 2 and 11 alone, on
                                         # two or more cards
     python3 chip_smoke.py --compare DIR  # A/B on one card: the flash
-        # forward, the long-sequence flash backward (dq, dkv), the
-        # recurrence kernels, the LayerNorm backward and the decode step
-        # (with its launch floor) of the checkout at DIR (e.g. the parent
-        # commit unpacked by `git archive` under build/) and of this one,
-        # timed in turns (DIR, this, this, DIR), with what each wrapper
-        # does at shapes the first versions refused
+        # forward, the flash backward (fused at BERT training's shape;
+        # dq, dkv at phase 7's), the recurrence kernels, the LayerNorm
+        # backward and the decode step (with its launch floor), phase
+        # 7's step and the bf16 amp BERT step of the checkout at DIR
+        # (e.g. the parent commit unpacked by `git archive` under build/)
+        # and of this one, timed in turns (DIR, this, this, DIR), with
+        # what each wrapper does at shapes the first versions refused
 
 Phases, each of which fails the run (non-zero exit) when it fails:
 
@@ -38,7 +39,9 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    32, 80 and 128, S 512 causal and S 1024, each run twice to show it
    repeats bit for bit, and it is timed at BERT training's S 512 as well;
    the fused backward's tile edges: one position at D 1, one key, one
-   query, D 128 causal at 512, 449 keys; the dq and dkv kernels' edges
+   query, D 128 causal at 512, 449 keys, D 7, each run twice to show dk
+   and dv repeat bit for bit (bf16 on tensor cores, timed at BERT
+   training's shape beside SDPA's bf16 backward); the dq and dkv kernels' edges
    past 512: Sq = Sk = 513, Sq 1,030 x Sk 600 causal, Sq 1 x Sk 1,030
    causal, D 1, 7 and 80, D 128 causal at 1,024, each run twice to show
    dq, dk and dv repeat bit for bit, with the kernels' plans; every case
@@ -72,6 +75,10 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    requests of 1-8 rows at sequence length 128; check that every request
    resolved, that two requests match a CPU copy of the model, and that
    each micro-batch launched 12 flash and 25 LayerNorm kernels;
+4b. the same traffic through ``serving.predictor_for(net,
+   dtype="bfloat16")`` (every parameter but the LayerNorms' in bf16):
+   every launch in bf16, two requests against a CPU copy converted the
+   same way within 5e-2 of the largest logit; req/s, p50, p99;
 5. run a 2-layer ``TransformerEncoder`` with the ``gelu`` FFN, so the
    bias-GELU kernels launch: a forward checked against a CPU copy, and a
    backward (exactly 2 ``bias_gelu_bwd`` launches) with the gradients of
@@ -82,6 +89,12 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    12 flash forward, 12 fused flash backward, 25 LayerNorm forward and 25
    LayerNorm backward launches per step, and one step's gradients of
    every parameter (batch 2 x 128, dropout off) against a CPU copy;
+6b. the same training under ``amp.init()`` (``amp.uninit()`` after it):
+   finite falling losses, per step 12 ``flash_fwd`` and 12
+   ``flash_bwd_fused`` launches in bf16 and 25 + 25 LayerNorm launches
+   in float32 (counted by input dtype), parameters and gradients
+   float32, the gradients against a CPU copy under amp within 2.5e-1 of
+   each parameter's largest; median step ms, tokens/s, peak memory;
 7. train a 2-layer BERT-width classifier at sequence 1024 for two steps,
    so the flash backward takes its dq and dkv kernels (two launches each
    per step, none of the fused one), with its gradients against a CPU
@@ -113,6 +126,11 @@ Phases, each of which fails the run (non-zero exit) when it fails:
     in turn, reassembled, against ten eager ``trainer.step`` updates of a
     copy (weights within 1e-6 relative + 1e-7 absolute), exactly 88 x 4 x
     10 ``opt_update`` launches, and the state bytes a rank would hold;
+    then bf16 + ``multi_precision`` (the model converted to bf16, its
+    LayerNorms float32): every bf16 parameter an mp unit with float32
+    master shards, three Adam updates through the kernel on the masters
+    (every launch in float32), each weight equal to its gathered master
+    in bf16, the masters against eager ``trainer.step``'s;
 11. with two or more cards only (one line says so otherwise): BERT-base
     ZeRO-1 training, one rank a card over NCCL (``parallel.dist.spawn``),
     batch 32 x 512 global, ten Adam steps through ``TrainLoop`` under
@@ -127,12 +145,13 @@ Phases, each of which fails the run (non-zero exit) when it fails:
     reduced gradient against rank 0's backward of the whole batch (as
     phase 6's gradient check bounds it) and bit-equal weights after.
 
-``{"launch_counts": {...}}`` gives each kernel's launches on its path.
+``{"launch_counts": {...}, "bf16_launch_counts": {...}}`` gives each
+kernel's launches on its path, and on its bf16 path where it has one.
 The line before the last is a JSON object with one entry per kernel
-(launches on its path, error, times, bound, all at float32, the dtype of
-every path here; ``rnn_decode`` at decode_wide's N 8 x H 650,
-``opt_update`` at the word-embedding shard); the last
-line is ``{"ok": true, "device": {...}}``.
+(launches on its float32 path, error, times, bound; then its bf16 path,
+bf16 launches there, and its bf16 error, times and bound; ``rnn_decode``
+at decode_wide's N 8 x H 650, ``opt_update`` at the word-embedding
+shard); the last line is ``{"ok": true, "device": {...}}``.
 """
 import json
 import math
@@ -174,6 +193,21 @@ LONG_LAYERS, LONG_BATCH, LONG_SEQ, LONG_STEPS = 2, 2, 1024, 2
 #: zero gradient in exact arithmetic (softmax ignores a per-row shift), so
 #: both sides hold rounding noise there, ~1e-9
 GRAD_ATOL, GRAD_RTOL = 1e-6, 1e-3
+#: phase 6b's gradients under bf16 amp, GPU vs a CPU copy under amp:
+#: 2.5e-1 of the parameter's largest gradient (a bias's: of its layer's
+#: weight's too, ``bias_scale``). Twelve layers of bf16 products (2**-9
+#: relative a rounding) after ten training steps whose float32 dq atomics
+#: sum in no fixed order: on the CPU at this shape bf16 amp's gradients
+#: differ from float32's by up to 4.7 % of a parameter's largest, and on
+#: the card GPU and CPU bf16 differed by 5.8 % and 8.0 % in two runs, the
+#: worst in the last layer's query and key projections (their dS is a
+#: small difference of bf16-rounded products). A wrong gradient (a lost
+#: term, a wrong scale or operand) is off by O(1) of its largest
+GRAD_RTOL_BF16 = 2.5e-1
+#: phase 4b's bf16 logits, GPU vs a CPU copy converted the same way: 5e-2
+#: of the largest |logit|. On the CPU at this shape bf16 logits differ
+#: from float32's by 1.5 % of the largest; two bf16 runs about twice that
+LOGIT_RTOL_BF16 = 5e-2
 
 
 def emit(obj):
@@ -423,12 +457,14 @@ FLASH_BWD_CASES = [
     (LONG_BATCH, 12, LONG_SEQ, LONG_SEQ, 64, False),
     (LONG_BATCH, 12, LONG_SEQ, LONG_SEQ, 64, True),
     # the fused kernel's tile edges: one position at D = 1, one key, one
-    # query, D = 128 causal at 512, a ragged key count
+    # query, D = 128 causal at 512, a ragged key count, D 7 (no 16-byte
+    # rows, an odd dq row)
     (2, 3, 1, 1, 1, False),
     (2, 3, 77, 1, 64, True),
     (2, 3, 1, 130, 32, True),
     (2, 12, 512, 512, 128, True),
     (2, 3, 300, 449, 64, False),
+    (2, 3, 200, 200, 7, False),
     # the dq/dkv kernels' tile edges, all past 512 positions: one ragged
     # tile, rows that see no key, one query, D 1, D 7 (no 16-byte rows),
     # D 80, D 128 causal at 1024
@@ -501,18 +537,23 @@ def check_bwd_kernels(torch, ATT, K, KN, dev):
                     "causal": causal, "atol": atol, "rtol": rtol,
                     "launches": launched}
             timed_case = i in (0, 5)
-            if fused:
-                record(dict(base, kernel="flash_bwd_fused",
-                            max_abs_err=max(r[1] for r in res),
-                            rel_err=max(r[2] for r in res),
-                            ok=all(r[0] for r in res) and launches_ok), args,
-                       timed_case)
-                continue
-            # no atomics: a second run gives dq, dk and dv bit for bit
+            # a second run: dk and dv (one owner each) bit for bit, and
+            # dq too past 512 (no atomics); the fused kernel's dq sums by
+            # atomics in no fixed order, so it repeats within rounding
             again = ATT.flash_attention_bwd(q, k, v, out, lse, do, causal)
             torch.cuda.synchronize()
             repeats = [bool(torch.equal(a, r)) for a, r in zip(got, again)]
             del again
+            if fused:
+                record(dict(base, kernel="flash_bwd_fused",
+                            max_abs_err=max(r[1] for r in res),
+                            rel_err=max(r[2] for r in res),
+                            dk_dv_repeat_bit_for_bit=repeats[1]
+                            and repeats[2],
+                            ok=all(r[0] for r in res) and launches_ok
+                            and repeats[1] and repeats[2]), args,
+                       timed_case)
+                continue
             for name, idx in (("flash_bwd_dq", (0,)),
                               ("flash_bwd_dkv", (1, 2))):
                 record(dict(base, kernel=name,
@@ -1089,10 +1130,13 @@ def time_decode_kernel(torch, K, KR, timed):
     return timing
 
 
-def grad_check(torch, gpu_net, cpu_net, loss_fn, x, y):
+def grad_check(torch, gpu_net, cpu_net, loss_fn, x, y, atol=GRAD_ATOL,
+               rtol=GRAD_RTOL, scale_of=None):
     """One backward of ``loss_fn`` at (x, y) on both nets (in eval mode:
-    dropout off); the worst parameter's max |difference| over its bound
-    GRAD_ATOL + GRAD_RTOL * max |CPU gradient| (ok when <= 1)."""
+    dropout off); the worst parameters' max |difference| over their bound
+    ``atol + rtol * scale``, the scale max |CPU gradient| of the parameter
+    (or the largest over the parameters ``scale_of(name)`` lists; ok when
+    <= 1)."""
     grads = []
     for net in (gpu_net, cpu_net):
         net.eval()
@@ -1103,16 +1147,33 @@ def grad_check(torch, gpu_net, cpu_net, loss_fn, x, y):
                 torch.from_numpy(y).to(dev)).sum().backward()
         grads.append({n: p.grad.detach().float().cpu()
                       for n, p in net.named_parameters()})
-    worst, worst_name, worst_err = 0.0, None, 0.0
+    ranked = []
     for n, ref in grads[1].items():
         err = float((grads[0][n] - ref).abs().max())
-        ratio = err / (GRAD_ATOL + GRAD_RTOL * float(ref.abs().max()))
-        if not math.isfinite(ratio) or ratio > worst:
-            worst, worst_name, worst_err = ratio, n, err
+        scale = max(float(grads[1][m].abs().max())
+                    for m in (scale_of(n) if scale_of else [n]))
+        ratio = err / (atol + rtol * scale)
+        ranked.append((ratio if math.isfinite(ratio) else math.inf, n, err))
+    ranked.sort(reverse=True)
+    worst, worst_name, worst_err = ranked[0]
     return {"params": len(grads[1]), "worst_param": worst_name,
             "worst_max_abs_err": worst_err, "worst_err_over_bound": worst,
-            "atol": GRAD_ATOL, "rtol_of_param_max": GRAD_RTOL,
-            "ok": worst <= 1.0}
+            "next_worst": [[n, r] for r, n, _ in ranked[1:4]],
+            "atol": atol, "rtol_of_param_max": rtol, "ok": worst <= 1.0}
+
+
+def bias_scale(name):
+    """The gradients whose largest sets a parameter's bf16 bound: its own,
+    and for a bias (LayerNorm beta) its layer's weight (gamma) too. A
+    bias's gradient sums over rows what the weight's sums times an O(1)
+    input, so both carry the same bf16 rounding; where the rows cancel
+    (key_proj.bias: zero in exact arithmetic; the classifier's bias over
+    two samples' opposite-signed terms) the bias's own largest
+    understates it."""
+    for bias, weight in ((".bias", ".weight"), (".beta", ".gamma")):
+        if name.endswith(bias):
+            return [name, name[:-len(bias)] + weight]
+    return [name]
 
 
 def copy_to_cpu(make_cpu_net, gpu_net, load_jax_params):
@@ -1123,14 +1184,28 @@ def copy_to_cpu(make_cpu_net, gpu_net, load_jax_params):
     return cpu_net
 
 
-def run_train_steps(torch, K, step, x, y, steps):
+def by_dtype_diff(after, before):
+    """Launches by kernel and dtype between two
+    ``launch_counts_by_dtype()`` readings (kernels with none left out)."""
+    out = {}
+    for name, per in after.items():
+        d = {dt: n - before.get(name, {}).get(dt, 0) for dt, n in per.items()}
+        d = {dt: n for dt, n in d.items() if n}
+        if d:
+            out[name] = d
+    return out
+
+
+def run_train_steps(torch, K, step, x, y, steps, by_dtype=False):
     """``steps`` calls of a compiled train step on one batch: the losses,
     the wall ms of each step (each ends in a synchronize), the launches of
-    each step, and the launches of the whole run (counted from 0)."""
-    losses, step_ms, per_step = [], [], []
+    each step, and the launches of the whole run (counted from 0). With
+    ``by_dtype``, also each step's launches by kernel and input dtype."""
+    losses, step_ms, per_step, per_step_dt = [], [], [], []
     K.reset_launch_counts()
     for _ in range(steps):
         before = K.launch_counts()
+        before_dt = K.launch_counts_by_dtype() if by_dtype else None
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         losses.append(step(x, y))
@@ -1138,8 +1213,12 @@ def run_train_steps(torch, K, step, x, y, steps):
         step_ms.append((time.perf_counter() - t0) * 1e3)
         after = K.launch_counts()
         per_step.append({n: after[n] - before[n] for n in after})
+        if by_dtype:
+            per_step_dt.append(by_dtype_diff(K.launch_counts_by_dtype(),
+                                             before_dt))
     counts = K.launch_counts()
-    return [float(l.mean()) for l in losses], step_ms, per_step, counts
+    out = ([float(l.mean()) for l in losses], step_ms, per_step, counts)
+    return out + (per_step_dt,) if by_dtype else out
 
 
 #: device-kernel name fragments of each family in a profile
@@ -1150,7 +1229,7 @@ FAMILIES = (("flash_fwd", ("flash_fwd",)), ("flash_bwd", ("flash_bwd",)),
             ("rnn_scan_fwd", ("rnn_scan_fwd",)),
             ("rnn_scan_bwd", ("rnn_bwd_walk", "rnn_gemm")),
             ("rnn_decode", ("rnn_decode",)),
-            ("gemm", ("gemm", "cutlass", "gemv")))
+            ("gemm", ("gemm", "cutlass", "gemv", "nvjet")))
 
 
 def device_us_by_kernel(torch, prof):
@@ -1220,10 +1299,21 @@ def profile_train_step(torch, net, trainer, loss_fn, x, y, what, iters=3):
         "not measured (the profiler saw no device time)"}})
 
 
-def train_bert(torch, np, K, dev, smi, profile=False):
+def train_bert(torch, np, K, dev, smi, profile=False, bf16=False):
     """Phase 6: BERT-base classifier training through
-    ``Trainer.compile_step``; the launch counts of exactly the ten
-    steps."""
+    ``Trainer.compile_step``; the launch counts of exactly the ten steps.
+    Phase 6b (``bf16``): the same under ``amp.init()`` (bf16 products and
+    attention, float32 parameters, gradients, LayerNorms, loss and Adam
+    state), ``amp.uninit()`` after it whatever happens; its launches are
+    also held by input dtype, and the gradients against a CPU copy under
+    amp with the bf16 tolerance."""
+    from mxnet_tpu_torch import amp
+    if bf16:
+        amp.init("bfloat16")
+        try:
+            return train_bert(torch, np, K, dev, smi, profile, False)
+        finally:
+            amp.uninit()
     from mxnet_tpu_torch.gluon import Trainer
     from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
     from mxnet_tpu_torch.gluon.model_zoo.bert import BERTClassifier, bert_base
@@ -1250,28 +1340,48 @@ def train_bert(torch, np, K, dev, smi, profile=False):
     step = trainer.compile_step(lambda a, b: loss_fn(net(a), b))
     xt, yt = torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev)
     setup_s = time.perf_counter() - t0
+    amp_on = amp.is_enabled()
     torch.cuda.reset_peak_memory_stats()
-    losses, step_ms, per_step, counts = run_train_steps(
-        torch, K, step, xt, yt, TRAIN_STEPS)
+    losses, step_ms, per_step, counts, per_step_dt = run_train_steps(
+        torch, K, step, xt, yt, TRAIN_STEPS, by_dtype=True)
     peak = torch.cuda.max_memory_allocated()
     median_ms = statistics.median(step_ms)
     expect = {n: 0 for n in K.KERNELS}
     expect.update(flash_fwd=12, flash_bwd_fused=12, layernorm_fwd=25,
                   layernorm_bwd=25)
-    launches_ok = all(s == expect for s in per_step)
+    # under amp: attention in bf16, the LayerNorms in float32 (each sees
+    # a residual sum, float32 + bf16 = float32)
+    att = "bfloat16" if amp_on else "float32"
+    expect_dt = {"flash_fwd": {att: 12}, "flash_bwd_fused": {att: 12},
+                 "layernorm_fwd": {"float32": 25},
+                 "layernorm_bwd": {"float32": 25}}
+    launches_ok = all(s == expect for s in per_step) and \
+        all(s == expect_dt for s in per_step_dt)
     losses_ok = all(math.isfinite(v) for v in losses) and \
         losses[-1] < losses[0]
+    master_ok = all(p.dtype == torch.float32 and (
+        p.grad is None or p.grad.dtype == torch.float32)
+        for p in net.parameters())
     if profile:
         profile_train_step(torch, net, trainer, loss_fn, xt, yt,
-                           "bert_base classifier 32 x 512")
+                           "bert_base classifier 32 x 512"
+                           + (" bf16 amp" if amp_on else ""))
 
     t1 = time.perf_counter()
     cpu_net = copy_to_cpu(lambda: make("cpu"), net, load_jax_params)
-    grads = grad_check(torch, net, cpu_net, loss_fn,
-                       x[:GRAD_BATCH, :GRAD_SEQ], y[:GRAD_BATCH])
+    if amp_on:
+        grads = grad_check(
+            torch, net, cpu_net, loss_fn, x[:GRAD_BATCH, :GRAD_SEQ],
+            y[:GRAD_BATCH], atol=GRAD_ATOL, rtol=GRAD_RTOL_BF16,
+            scale_of=bias_scale)
+    else:
+        grads = grad_check(torch, net, cpu_net, loss_fn,
+                           x[:GRAD_BATCH, :GRAD_SEQ], y[:GRAD_BATCH])
     print(smi, flush=True)
     report = {
-        "model": "bert_base classifier", "dtype": "float32",
+        "model": "bert_base classifier",
+        "dtype": "bfloat16 amp, float32 parameters" if amp_on
+        else "float32",
         "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "steps": TRAIN_STEPS,
         "optimizer": "adam", "learning_rate": TRAIN_LR, "dropout": 0.1,
         "losses": losses, "step_ms": step_ms, "median_step_ms": median_ms,
@@ -1279,13 +1389,18 @@ def train_bert(torch, np, K, dev, smi, profile=False):
         "max_memory_allocated": peak, "setup_s": setup_s,
         "launches": counts, "launches_per_step": per_step[-1],
         "launches_per_step_expected": expect,
+        "launches_per_step_by_dtype": per_step_dt[-1],
+        "launches_per_step_by_dtype_expected": expect_dt,
+        "parameters_and_gradients_float32": master_ok,
         "grad_check": dict(grads, batch=GRAD_BATCH, seq=GRAD_SEQ,
                            seconds=time.perf_counter() - t1),
-        "card": smi, "ok": launches_ok and losses_ok and grads["ok"]}
-    emit({"train": report})
+        "card": smi, "ok": launches_ok and losses_ok and grads["ok"]
+        and master_ok}
+    emit({"train_bf16" if amp_on else "train": report})
     if not report["ok"]:
         raise SystemExit(f"training phase failed: losses {losses}, "
-                         f"launches per step {per_step}, gradients {grads}")
+                         f"launches per step {per_step} {per_step_dt}, "
+                         f"gradients {grads}, float32 {master_ok}")
     return counts
 
 
@@ -1350,25 +1465,29 @@ def train_long(torch, np, K, dev):
     return counts
 
 
-def serve_bert(torch, np, K, dev):
+def serve_bert(torch, np, K, dev, dtype="float32"):
     """Phase 4: BERT-base served through the batcher; the launch counts
-    of exactly this run, and the predictor."""
+    of exactly this run, and the predictor. Phase 4b (``dtype``
+    "bfloat16"): the same weights and traffic through
+    ``predictor_for(net, dtype="bfloat16")`` (every parameter but the
+    LayerNorms' in bf16), its logits against a CPU copy converted the
+    same way, its launches held by input dtype."""
     from mxnet_tpu_torch.gluon.model_zoo.bert import BERTClassifier, bert_base
     from mxnet_tpu_torch.gluon.params import init_params_numpy, \
         load_jax_params
-    from mxnet_tpu_torch.serving import CompiledPredictor, DynamicBatcher, \
-        loadgen
+    from mxnet_tpu_torch.serving import DynamicBatcher, loadgen, \
+        predictor_for
 
     t0 = time.perf_counter()
     net = BERTClassifier(bert_base(device=dev), num_classes=2, device=dev)
     params = init_params_numpy(net, seed=0)
     load_jax_params(net, params)
     n_params = sum(p.numel() for p in net.parameters())
-    pred = CompiledPredictor(net, device=dev)
+    pred = predictor_for(net, dtype=dtype, device=dev)
     rs = np.random.RandomState(0)
     vocab = net.bert.word_embed.weight.shape[0]
     warm = pred.warmup(rs.randint(0, vocab, (1, SERVE_SEQ)).astype(np.int64))
-    emit({"serving_setup": {"params": n_params,
+    emit({"serving_setup": {"params": n_params, "dtype": dtype,
                             "setup_s": time.perf_counter() - t0,
                             "warmup_s": warm,
                             "service_time_seed_s": pred.service_time_seed_s}})
@@ -1385,6 +1504,7 @@ def serve_bert(torch, np, K, dev):
 
         rep = loadgen.run_closed_loop(issue, SERVE_CLIENTS, SERVE_REQUESTS)
     counts = K.launch_counts()
+    counts_dt = K.launch_counts_by_dtype()
     stats = dict(batcher.stats)
     rows = sum(r.shape[0] for r in reqs)
     report = {
@@ -1399,8 +1519,9 @@ def serve_bert(torch, np, K, dev):
                                                    .items())},
         "flush": {k[6:]: v for k, v in stats.items()
                   if k.startswith("flush_")},
-        "launches": counts, "n_traces": pred.n_traces}
-    emit({"serving": report})
+        "launches": counts, "launches_by_dtype": counts_dt,
+        "n_traces": pred.n_traces, "dtype": dtype}
+    emit({"serving_bf16" if dtype != "float32" else "serving": report})
     if rep["errors"] or rep["requests"] != SERVE_REQUESTS:
         raise SystemExit(f"serving failed: {rep}")
     for i, out in enumerate(results):
@@ -1408,23 +1529,32 @@ def serve_bert(torch, np, K, dev):
                 not np.isfinite(out).all():
             raise SystemExit(f"request {i}: bad logits {out!r}")
     nb = stats["batches"]
-    if counts["flash_fwd"] != 12 * nb or counts["layernorm_fwd"] != 25 * nb:
-        raise SystemExit(f"launches {counts} do not match 12 flash and 25 "
-                         f"LayerNorm per micro-batch ({nb} micro-batches)")
+    # every LayerNorm sees the embedding's or a residual's dtype: bf16
+    # once the embeddings are bf16
+    expect_dt = {"flash_fwd": {dtype: 12 * nb},
+                 "layernorm_fwd": {dtype: 25 * nb}}
+    if counts["flash_fwd"] != 12 * nb or counts["layernorm_fwd"] != 25 * nb \
+            or any(counts_dt.get(k) != v for k, v in expect_dt.items()):
+        raise SystemExit(f"launches {counts_dt} do not match 12 flash and 25 "
+                         f"LayerNorm per micro-batch ({nb} micro-batches) "
+                         f"in {dtype}")
 
     # two requests again through a CPU copy (plain kernels)
     cpu_net = BERTClassifier(bert_base(device="cpu"), num_classes=2,
                              device="cpu")
     load_jax_params(cpu_net, params)
-    cpu_pred = CompiledPredictor(cpu_net, device="cpu")
-    errs = []
+    cpu_pred = predictor_for(cpu_net, dtype=dtype, device="cpu")
+    errs, refs = [], []
     for i in (0, 1):
         padded, n = cpu_pred.pad_to_bucket(reqs[i])
-        ref = cpu_pred.predict(*padded)[:n].numpy()
+        ref = cpu_pred.predict(*padded)[:n].float().numpy()
+        refs.append(float(np.abs(ref).max()))
         errs.append(float(np.abs(ref - results[i]).max()))
-    emit({"serving_vs_cpu": {"requests": [0, 1], "max_abs_err": max(errs),
-                             "atol": LOGIT_ATOL}})
-    if max(errs) > LOGIT_ATOL:
+    atol = LOGIT_ATOL if dtype == "float32" else LOGIT_RTOL_BF16 * max(refs)
+    emit({"serving_vs_cpu": {"dtype": dtype, "requests": [0, 1],
+                             "max_abs_err": max(errs),
+                             "max_abs_logit": max(refs), "atol": atol}})
+    if max(errs) > atol:
         raise SystemExit(f"GPU logits differ from the CPU copy: {errs}")
     return counts, pred
 
@@ -1955,6 +2085,8 @@ OPT_BF16_TOL = 2e-2
 BERT_BASE = dict(units=768, hidden_size=3072, num_layers=12, num_heads=12)
 BERT_BASE_CLASSIFIER_PARAMS = 109_483_778
 ZERO_SHARDS, ZERO_UNITS = 4, 88
+#: phase 10's bf16 + multi_precision layout: Adam updates on the masters
+ZERO_MP_STEPS = 3
 #: phase 10's weights, sharded kernel updates vs eager ``trainer.step``:
 #: the same float32 Adam rule, but the eager one takes 1 - b1**t in double
 #: and the kernel a float32 powf, so the updates part by a few ulps
@@ -2217,6 +2349,135 @@ def zero_layout(torch, np, K, dev, smi, widths=None, batch=TRAIN_BATCH,
     return counts
 
 
+def zero_layout_mp(torch, np, K, dev, smi, widths=None, batch=TRAIN_BATCH,
+                   seq=TRAIN_SEQ, steps=ZERO_MP_STEPS):
+    """Phase 10, bf16 + ``multi_precision``: BERT-base converted to bf16
+    (``amp.convert_hybrid_block``: the LayerNorms stay float32), Adam
+    with ``multi_precision``. One backward at batch x seq gives fixed
+    gradients; the plan at ZERO_SHARDS shards makes every bf16 parameter
+    an mp unit with a float32 master shard on each rank. ``steps``
+    updates through ``Optimizer.kernel_step_fn()`` on every shard of
+    every unit (an mp unit's on its master, the gradient cast to
+    float32), each weight rebuilt from its gathered master; against
+    ``steps`` eager ``trainer.step`` updates of a copy (the Updater's
+    masters). Checks: the mp units and their float32 masters, every
+    ``opt_update`` launch in float32, each weight equal to its master in
+    bf16, and the masters against the eager ones."""
+    from mxnet_tpu_torch import amp
+    from mxnet_tpu_torch.gluon import Trainer
+    from mxnet_tpu_torch.gluon.fused_step import _ZeroShardPlan
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from mxnet_tpu_torch.gluon.params import init_params_numpy, \
+        load_jax_params
+
+    t0 = time.perf_counter()
+    nets = [bert_base_classifier(torch, seq, dev, widths) for _ in range(2)]
+    init = init_params_numpy(nets[0], seed=2)
+    for net in nets:
+        load_jax_params(net, init)
+        amp.convert_hybrid_block(net)
+    hp = {"learning_rate": TRAIN_LR, "multi_precision": True}
+    trainers = [Trainer(dict(net.named_parameters()), "adam", dict(hp))
+                for net in nets]
+    rs = np.random.RandomState(3)
+    vocab = nets[0].bert.word_embed.weight.shape[0]
+    x = torch.from_numpy(rs.randint(0, vocab, (batch, seq))
+                         .astype(np.int64)).to(dev)
+    y = torch.from_numpy(rs.randint(0, 2, (batch,))
+                         .astype(np.float32)).to(dev)
+    loss = SoftmaxCrossEntropyLoss()(nets[0](x), y)
+    grads = [g.detach() for g in torch.autograd.grad(
+        loss.float().sum(), trainers[0]._params)]
+    del loss
+    tz, te = trainers
+    opt = tz.optimizer
+    plan = _ZeroShardPlan(tz._params, opt, ZERO_SHARDS)
+    states, masters = [], []
+    for r in range(ZERO_SHARDS):
+        states.append(plan.create_states(opt, r))
+        masters.append(dict(plan.masters))
+    mp_units = [k for k, u in enumerate(plan.units) if u["mp"]]
+    n_bf16 = sum(1 for p in tz._params if p.dtype == torch.bfloat16)
+    fn = opt.kernel_step_fn()
+    n = len(tz._params)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+
+    K.reset_launch_counts()
+    for _ in range(steps):
+        opt.rescale_grad = 1.0 / batch
+        lrs, wds, ts = opt.begin_fused_step(list(range(n)))
+        ulrs, uwds, uts = plan.pack_hparams(opt, lrs, wds, ts)
+        for k, u in enumerate(plan.units):
+            s = plan.shard_len(k)
+            full = torch.empty(u["padded"], dtype=u["upd_dtype"], device=dev)
+            for r in range(ZERO_SHARDS):
+                w_sh = masters[r][k] if u["mp"] else plan.copy_shard(
+                    k, tz._params, r, full[r * s:(r + 1) * s])
+                g_sh = plan.copy_shard(k, grads, r, torch.empty_like(w_sh))
+                fn((w_sh,), (g_sh,),
+                   [plan.shard_hparam(k, ulrs[k], r, dev)],
+                   [plan.shard_hparam(k, uwds[k], r, dev)],
+                   [plan.shard_hparam(k, uts[k], r, dev)],
+                   np.float32(opt.rescale_grad), np.float32(0.0),
+                   (states[r][k],))
+                if u["mp"]:
+                    full[r * s:(r + 1) * s] = w_sh
+            # an mp unit's weight: its gathered master in the weight's dtype
+            plan.write_unit(k, full.to(u["dtypes"][0]))
+    torch.cuda.synchronize()
+    counts = K.launch_counts()
+    counts_dt = K.launch_counts_by_dtype()
+
+    for _ in range(steps):
+        for p, g in zip(te._params, grads):
+            p.grad = g.clone()
+            p.fresh_grad = True
+        te.step(batch)
+    torch.cuda.synchronize()
+    weights_are_masters = True
+    worst, worst_name = 0.0, None
+    for k in mp_units:
+        j = plan.units[k]["members"][0]
+        w = tz._params[j]
+        full = torch.cat([masters[r][k] for r in range(ZERO_SHARDS)])
+        master = full[:w.numel()].view(w.shape)
+        weights_are_masters &= bool(torch.equal(w, master.to(w.dtype)))
+        eager_master = te._updater.states[j][1]
+        err = (master - eager_master).abs()
+        bound = ZERO_WEIGHT_ATOL + ZERO_WEIGHT_RTOL * eager_master.abs()
+        ratio = float((err / bound).max())
+        if ratio > worst:
+            worst, worst_name = ratio, tz._param_names[j]
+    expect = len(plan.units) * ZERO_SHARDS * steps
+    per_rank = [sum(t.numel() * t.element_size() for st in sts for t in st)
+                + sum(m.numel() * m.element_size() for m in ms.values())
+                for sts, ms in zip(states, masters)]
+    report = {
+        "model": "bert_base classifier, bf16 (LayerNorms float32)",
+        "optimizer": "adam, multi_precision", "n_shards": ZERO_SHARDS,
+        "units": len(plan.units), "mp_units": len(mp_units),
+        "bf16_params": n_bf16, "steps": steps,
+        "masters_float32": all(m.dtype == torch.float32
+                               for ms in masters for m in ms.values()),
+        "launches": counts["opt_update"], "launches_expected": expect,
+        "launches_by_dtype": counts_dt.get("opt_update", {}),
+        "weights_equal_master_in_bf16": weights_are_masters,
+        "worst_master_err_over_bound": worst, "worst_param": worst_name,
+        "rtol": ZERO_WEIGHT_RTOL, "atol": ZERO_WEIGHT_ATOL,
+        "state_and_master_bytes_per_rank": per_rank, "setup_s": setup_s,
+        "card": smi}
+    report["ok"] = (len(mp_units) == n_bf16 > 0
+                    and report["masters_float32"]
+                    and report["launches"] == expect
+                    and report["launches_by_dtype"] == {"float32": expect}
+                    and weights_are_masters and worst <= 1.0)
+    emit({"zero_layout_mp": report})
+    if not report["ok"]:
+        raise SystemExit(f"ZeRO multi-precision layout failed: {report}")
+    return counts
+
+
 def zero_rank(widths, batch, seq, steps, lr):
     """Phase 11, one rank: BERT-base through ``TrainLoop`` under
     ``make_mesh({"dp": world})`` on the global batch (each rank keeps its
@@ -2442,6 +2703,11 @@ def zero_train_multi(torch, np, smi, device="cuda", world=None, widths=None,
 #: and dkv at phase 7's; the LM's LSTM layer; decode_wide's step)
 AB_FLASH = ((32, 12, 128, 128, 64), (32, 12, 512, 512, 64))
 AB_FLASH_BWD = (LONG_BATCH, 12, LONG_SEQ, LONG_SEQ, 64)
+#: --kernel-times: the fused backward at BERT training's shape
+AB_FUSED_BWD = (TRAIN_BATCH, 12, TRAIN_SEQ, TRAIN_SEQ, 64)
+#: --kernel-times: bf16 amp BERT-base steps (32 x 512) timed after a
+#: warm-up step, where the checkout has amp
+AB_BF16_STEPS = 5
 #: --kernel-times: phase 7's training steps timed after one warm-up step
 AB_LONG_STEPS = 5
 #: --kernel-times: one LSTM shape each recurrence wrapper refused before
@@ -2530,6 +2796,17 @@ def kernel_times(root):
                 torch, lambda *a, fn=getattr(ATT, name): fn(
                     *a, False, d ** -0.5), sets)[0]
         del q, k, v, do, o, lse, delta, sets
+        b, h, sq, sk, d = AB_FUSED_BWD
+        q, do = rnd(b, h, sq, d, dtype=dtype), rnd(b, h, sq, d, dtype=dtype)
+        k, v = rnd(b, h, sk, d, dtype=dtype), rnd(b, h, sk, d, dtype=dtype)
+        o, lse = ATT.flash_attention_fwd(q, k, v)
+        delta = (do.float() * o.float()).sum(-1)
+        sets = [tuple(t.clone() for t in (q, k, v, do)) + (lse, delta)
+                for _ in range(n_sets(torch, (q, k, v, do, q, k, v)))]
+        times[f"flash_bwd_fused {dn} {[b * h, sq, sk, d]}"] = time_ms(
+            torch, lambda *a: ATT.flash_bwd_fused(*a, False, d ** -0.5),
+            sets)[0]
+        del q, k, v, do, o, lse, delta, sets
         n_t, n, h = RNN_TIMED
         xw, h0, c0 = rnd(n_t, n, 4 * h, dtype=dtype, s=0.5), \
             rnd(n, h, dtype=dtype, s=0.5), rnd(n, h, dtype=dtype, s=0.5)
@@ -2582,8 +2859,45 @@ def kernel_times(root):
     out["wall_ms"] = {"train_long step (median of "
                       f"{AB_LONG_STEPS} after a warm-up)":
                       statistics.median(wall[1:])}
+    del step, x, y
+    torch.cuda.empty_cache()
+    key = f"bert_base bf16 amp step 32 x 512 (median of {AB_BF16_STEPS} " \
+        "after a warm-up)"
+    try:
+        from mxnet_tpu_torch import amp
+    except ImportError:
+        out["wall_ms"][key] = "not measured: the checkout has no amp"
+    else:
+        out["wall_ms"][key] = bf16_bert_step_ms(torch, np, K, dev, amp)
     emit({"kernel_times": out})
     return 0
+
+
+def bf16_bert_step_ms(torch, np, K, dev, amp):
+    """Median wall ms of BERT-base training steps (32 x 512, Adam, dropout
+    0.1) under ``amp.init()``, after one warm-up step (--kernel-times)."""
+    from mxnet_tpu_torch.gluon import Trainer
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from mxnet_tpu_torch.gluon.model_zoo.bert import BERTClassifier, bert_base
+    torch.manual_seed(0)
+    net = BERTClassifier(bert_base(max_length=TRAIN_SEQ, dropout=0.1,
+                                   device=dev), num_classes=2, dropout=0.1,
+                         device=dev)
+    rs = np.random.RandomState(3)
+    x = torch.from_numpy(rs.randint(0, 30522, (TRAIN_BATCH, TRAIN_SEQ))
+                         .astype(np.int64)).to(dev)
+    y = torch.from_numpy(rs.randint(0, 2, (TRAIN_BATCH,))
+                         .astype(np.float32)).to(dev)
+    loss_fn = SoftmaxCrossEntropyLoss()
+    trainer = Trainer(dict(net.named_parameters()), "adam",
+                      {"learning_rate": TRAIN_LR})
+    step = trainer.compile_step(lambda a, b: loss_fn(net(a), b))
+    amp.init("bfloat16")
+    try:
+        wall = run_train_steps(torch, K, step, x, y, AB_BF16_STEPS + 1)[1]
+    finally:
+        amp.uninit()
+    return statistics.median(wall[1:])
 
 
 def compare_checkouts(parent):
@@ -2687,8 +3001,15 @@ def main(argv):
     if "--profile" in argv:
         profile_bucket(torch, np, pred)
     del pred
+    served_bf16, pred = serve_bert(torch, np, K, dev, dtype="bfloat16")
+    if "--profile" in argv:
+        profile_bucket(torch, np, pred)
+    del pred
     encoder = run_encoder(torch, np, K, dev)
     trained = train_bert(torch, np, K, dev, smi, "--profile" in argv)
+    torch.cuda.empty_cache()
+    trained_bf16 = train_bert(torch, np, K, dev, smi, "--profile" in argv,
+                              bf16=True)
     trained_long = train_long(torch, np, K, dev)
     lstm = train_lstm(torch, np, K, dev, smi, "--profile" in argv)
     serve_decode(torch, np, K, ATT, dev, smi, DECODE_LEG, leg=True)
@@ -2698,6 +3019,8 @@ def main(argv):
         profile_decode_step(torch, np, wide_model, smi)
     del wide_model
     zero = zero_layout(torch, np, K, dev, smi)
+    torch.cuda.empty_cache()
+    zero_layout_mp(torch, np, K, dev, smi)
     torch.cuda.empty_cache()
     if torch.cuda.device_count() >= 2:
         zero_train_multi(torch, np, smi)
@@ -2727,20 +3050,39 @@ def main(argv):
                  "decode_wide": decode_wide,
                  "bert_base_zero_update_layout": zero}
     launches = {name: counts_of[path[name]][name] for name in K.KERNELS}
-    emit({"launch_counts": launches})
-    if not all(n > 0 for n in launches.values()):
-        raise SystemExit(f"a kernel never launched on its path: {launches}")
+    # the bf16 paths and what each launched there (the LayerNorm
+    # backward runs in float32 under amp; opt_update updates float32
+    # masters; the others have no bf16 path)
+    bf16_path = {"flash_fwd": "bert_base_serving_bf16",
+                 "layernorm_fwd": "bert_base_serving_bf16",
+                 "flash_bwd_fused": "bert_base_training_bf16"}
+    bf16_counts = {"bert_base_serving_bf16": served_bf16,
+                   "bert_base_training_bf16": trained_bf16}
+    bf16_launches = {name: bf16_counts[p][name]
+                     for name, p in bf16_path.items()}
+    emit({"launch_counts": launches, "bf16_launch_counts": bf16_launches})
+    if not all(n > 0 for n in launches.values()) or \
+            not all(n > 0 for n in bf16_launches.values()):
+        raise SystemExit(f"a kernel never launched on its path: {launches}"
+                         f" {bf16_launches}")
     rows = []
     for name, info in K.KERNELS.items():
-        # every path runs in float32; bfloat16 times are on "timing" lines
-        t = timing[(name, "float32")]
+        # the float32 path's numbers; the bf16 ones beside them
+        t, tb = timing[(name, "float32")], timing[(name, "bfloat16")]
         rows.append({"name": name, "route": "cuda", "source": info.source,
                      "replaces": info.replaces, "launches": launches[name],
                      "path": path[name], "max_abs_err": t["max_abs_err"],
                      "ms": t["ms"], "plain_ms": t["plain_ms"],
                      "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
                      "library_ms": t["library_ms"], "shape": t["shape"],
-                     "dtype": "float32"})
+                     "dtype": "float32",
+                     "bf16_path": bf16_path.get(name),
+                     "bf16_launches": bf16_launches.get(name),
+                     "bf16_max_abs_err": tb["max_abs_err"],
+                     "bf16_ms": tb["ms"], "bf16_plain_ms": tb["plain_ms"],
+                     "bf16_bound_ms": tb["bound_ms"],
+                     "bf16_bound_by": tb["bound_by"],
+                     "bf16_library_ms": tb["library_ms"]})
     print(smi, flush=True)
     emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu",

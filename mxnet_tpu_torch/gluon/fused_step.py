@@ -32,7 +32,11 @@ Three modes, decided at the first call as the JAX package decides them:
   ``all_gather_into_tensor``, and the new weights unpacked into the
   parameters. A batch whose leading axis does not divide by N is computed
   whole on every rank; its gradient is then reduced as a mean, not a
-  sum, so it is not counted N times.
+  sum, so it is not counted N times. Under ``multi_precision`` a
+  bfloat16 or float16 parameter is a unit of its own with a float32
+  master shard: its gradient is reduced in float32, the rule updates the
+  master, and the weight is rebuilt from the master in its own dtype
+  before the all-gather.
 - ``mesh``: the mesh is active but the sharded update is off
   (``zero_shard=False``, or a rule that is not elementwise): every
   gradient is all-reduced, then the replicated update.
@@ -40,6 +44,11 @@ Three modes, decided at the first call as the JAX package decides them:
 The collectives wait for the backward to end: overlapping them with it
 through gradient hooks is later work. :class:`TrainLoop` runs the step
 with a bounded in-flight window (``engine.DispatchWindow``).
+
+Under ``amp.init()`` parameters stay float32 and gradients come back
+float32, so no mode needs a master; bfloat16 parameters with
+``multi_precision`` take the ``eager`` mode on one card (their masters
+in the Updater's states), as the JAX package does.
 """
 from __future__ import annotations
 
@@ -50,6 +59,7 @@ import numpy as np
 import torch
 
 from ..base import MXNetError
+from ..optimizer.optimizer import LOW_PRECISION
 from ..parallel import dist as _dist
 from ..parallel.collectives import (all_gather_rows, allgather,
                                     bucket_rows, reduce_scatter_rows)
@@ -108,14 +118,16 @@ class _ZeroShardPlan:
     (no process group):
 
     - a parameter of at least ``MXNET_ZERO_SHARD_MIN_SIZE`` elements is
-      its own unit;
+      its own unit, and so is a bfloat16 or float16 one under the
+      optimizer's ``multi_precision`` (``mp``: updated in float32,
+      ``upd_dtype``, on a float32 master);
     - smaller ones concatenate into one bucket unit per dtype, with
       per-element hyperparameters (``Optimizer.pack_shard_hparams``).
 
     Each unit is a flat buffer zero-padded to a multiple of ``n_shards``;
     shard d is its contiguous slice ``[d*s, (d+1)*s)``. The optimizer
-    state of rank d's shards (:meth:`create_states`) is all that rank
-    keeps of it. Multi-precision master units are not ported."""
+    state of rank d's shards, and the float32 master shard of each mp
+    unit (:meth:`create_states`), are all that rank keeps of them."""
 
     def __init__(self, params, optimizer, n_shards: int):
         self.params = list(params)
@@ -123,13 +135,15 @@ class _ZeroShardPlan:
         min_size = _zero_min_size()
         raw_units, small = [], {}
         for j, p in enumerate(self.params):
-            if p.numel() >= min_size:
-                raw_units.append((j,))
+            mp = bool(getattr(optimizer, "multi_precision", False)) and \
+                p.dtype in LOW_PRECISION
+            if mp or p.numel() >= min_size:
+                raw_units.append(((j,), mp))
             else:
                 small.setdefault(str(p.dtype), []).append(j)
-        raw_units += [tuple(js) for js in small.values()]
+        raw_units += [(tuple(js), False) for js in small.values()]
         self.units = []
-        for members in raw_units:
+        for members, mp in raw_units:
             shapes = tuple(tuple(self.params[j].shape) for j in members)
             dtypes = tuple(self.params[j].dtype for j in members)
             sizes = tuple(self.params[j].numel() for j in members)
@@ -137,8 +151,10 @@ class _ZeroShardPlan:
             self.units.append(dict(
                 members=members, shapes=shapes, dtypes=dtypes, sizes=sizes,
                 total=total, padded=zero_shard_pad(total, self.n_shards),
-                upd_dtype=dtypes[0]))
+                mp=mp, upd_dtype=torch.float32 if mp else dtypes[0]))
         self.states: Optional[list] = None
+        #: unit index -> this rank's float32 master shard (mp units)
+        self.masters: dict = {}
         self.rank: Optional[int] = None
 
     # ---------------- layout helpers ----------------
@@ -215,17 +231,28 @@ class _ZeroShardPlan:
     def create_states(self, opt, rank: int, updater_states=None) -> list:
         """Shard ``rank`` of every unit's optimizer state: each member's
         state (adopted from ``updater_states`` when its shapes fit, else
-        ``opt.create_state``), concatenated, padded and sliced."""
+        ``opt.create_state``, on the float32 master of an mp unit),
+        concatenated, padded and sliced; and each mp unit's float32
+        master shard (:attr:`masters`), cast from the weight."""
         updater_states = updater_states or {}
         states = []
+        self.masters = {}
         for k, u in enumerate(self.units):
+            if u["mp"]:
+                master = torch.empty(self.shard_len(k),
+                                     dtype=torch.float32,
+                                     device=self.params[u["members"][0]]
+                                     .device)
+                self.masters[k] = self.copy_shard(k, self.params, rank,
+                                                  master)
             per_member = []
             for j, shape in zip(u["members"], u["shapes"]):
                 st = updater_states.get(j)
                 if not (isinstance(st, tuple) and all(
                         isinstance(s, torch.Tensor) and
                         tuple(s.shape) == shape for s in st)):
-                    st = opt.create_state(j, self.params[j].detach())
+                    w = self.params[j].detach()
+                    st = opt.create_state(j, w.float() if u["mp"] else w)
                 per_member.append(tuple(st))
             counts = {len(m) for m in per_member}
             if len(counts) != 1:
@@ -244,9 +271,11 @@ class _ZeroShardPlan:
         return states
 
     def state_bytes_per_replica(self) -> int:
-        """Bytes of optimizer state this rank holds (its shards)."""
+        """Bytes of optimizer state this rank holds: its shards of the
+        states and of the float32 masters."""
         return sum(s.numel() * s.element_size()
-                   for st in self.states or () for s in st)
+                   for st in (self.states or []) + [self.masters.values()]
+                   for s in st)
 
 
 def _global_loss(loss: torch.Tensor, mesh, axis: str) -> torch.Tensor:
@@ -318,9 +347,10 @@ class CompiledTrainStep:
         sharded update, every parameter's state otherwise."""
         if self._zero is not None:
             return self._zero.state_bytes_per_replica()
+        opt = self._trainer._optimizer
         return sum(s.numel() * s.element_size()
                    for st in self._trainer._updater.states.values()
-                   for s in st)
+                   for s in opt.state_tensors(st))
 
     # ---------------- mode decision ----------------
     def _decide_mode(self) -> str:
@@ -457,14 +487,18 @@ class CompiledTrainStep:
         opt_fn = opt.kernel_step_fn() or opt.fused_step_fn()
         rank, n, dev = plan.rank, plan.n_shards, self._device
         for idx in self._buckets:
+            # an mp bucket's gradient is packed, and reduced, in float32
             buf, cols = bucket_rows([plan.unit_flat(k, grads) for k in idx],
                                     n)
             g_row = reduce_scatter_rows(buf, mesh, mean=mean)
             del buf
-            w_row = torch.empty_like(g_row)
+            mp = plan.units[idx[0]]["mp"]   # a bucket is all mp or none
+            w_row = torch.empty(g_row.shape, device=g_row.device,
+                                dtype=plan.units[idx[0]]["dtypes"][0])
             ws, gs, offs, off = [], [], [], 0
             for k, s in zip(idx, cols):
-                ws.append(plan.copy_shard(k, params, rank,
+                ws.append(plan.masters[k] if mp else
+                          plan.copy_shard(k, params, rank,
                                           w_row[off:off + s]))
                 gs.append(g_row[off:off + s])
                 offs.append(off)
@@ -482,6 +516,9 @@ class CompiledTrainStep:
                 for s_, ns in zip(st, nst):
                     if ns is not s_:
                         s_.copy_(ns)
+            if mp:      # the weights, rebuilt from the masters, gathered
+                for w, o, s in zip(ws, offs, cols):
+                    w_row[o:o + s].copy_(w)
             full = all_gather_rows(w_row, mesh, n)
             for k, s, o in zip(idx, cols, offs):
                 plan.write_unit(k, full[:, o:o + s].reshape(-1))

@@ -14,6 +14,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops import nn as FNN
+
 __all__ = ["Loss", "L2Loss", "L1Loss", "SigmoidBinaryCrossEntropyLoss",
            "SigmoidBCELoss", "SoftmaxCrossEntropyLoss", "SoftmaxCELoss"]
 
@@ -115,7 +117,7 @@ class SoftmaxCrossEntropyLoss(Loss):
 
     def forward(self, pred, label, sample_weight=None):
         if not self._from_logits:
-            pred = torch.log_softmax(pred, dim=self._axis)
+            pred = FNN.log_softmax(pred, axis=self._axis)
         if self._sparse_label:
             n = pred.shape[self._axis]
             idx = label.to(torch.long).clamp(0, n - 1)

@@ -23,6 +23,7 @@ from torch import nn
 from ...base import MXNetError
 from ...context import resolve_device
 from ...ops import nn as FNN
+from ...ops.registry import invoke
 from ..nn.basic_layers import Dense, Dropout, Embedding, LayerNorm, \
     activation
 from ..nn.transformer import TransformerEncoder
@@ -84,7 +85,8 @@ class BERTModel(nn.Module):
         if self.decoder_transform is not None:
             h = self.decoder_ln(activation(self.decoder_transform(seq),
                                            "gelu"))
-            outs.append(FNN.linear(h, self.word_embed.weight))
+            outs.append(invoke("bert_decoder_proj", FNN.linear, h,
+                               self.word_embed.weight))
         return outs[0] if len(outs) == 1 else tuple(outs)
 
 

@@ -5,6 +5,9 @@ Parameter names and layouts are the JAX package's, so a dict of its
 ``collect_params()`` loads as it is (``gluon.params.load_jax_params``):
 ``Dense.weight`` is (units, in_units), ``Embedding.weight`` is
 (input_dim, output_dim), ``LayerNorm`` has ``gamma`` and ``beta``.
+``Dense`` and ``LayerNorm`` run their op through the op funnel
+(``ops/registry.py``) as ``"fully_connected"`` and ``"layer_norm"``, the
+names under which ``amp`` casts them.
 
 Every layer takes ``device`` (default ``cuda:0``; without CUDA the
 constructor raises unless ``device="cpu"``) and an optional
@@ -33,6 +36,7 @@ from torch import nn
 from ...base import MXNetError
 from ...context import resolve_device
 from ...ops import nn as FNN
+from ...ops.registry import invoke
 
 __all__ = ["Dense", "Dropout", "Embedding", "LayerNorm", "activation",
            "init_param", "set_grad_req", "GRAD_REQS"]
@@ -131,7 +135,8 @@ class Dense(nn.Module):
     def forward(self, x):
         if self._flatten and x.ndim > 2:
             x = x.reshape(x.shape[0], -1)
-        out = FNN.linear(x, self.weight, self.bias)
+        out = invoke("fully_connected", FNN.linear, x, self.weight,
+                     self.bias)
         if self._activation:
             out = activation(out, self._activation)
         return out
@@ -191,5 +196,8 @@ class LayerNorm(nn.Module):
         self.beta = _param((in_channels,), dev, fill=0.0)
 
     def forward(self, x):
-        return FNN.layer_norm(x, self.gamma, self.beta, axis=self._axis,
+        return invoke("layer_norm", self._norm, x, self.gamma, self.beta)
+
+    def _norm(self, x, gamma, beta):
+        return FNN.layer_norm(x, gamma, beta, axis=self._axis,
                               eps=self._eps)

@@ -4,9 +4,12 @@ and ``TransformerEncoder``, used by ``model_zoo.bert``.
 
 Attention goes through ``ops.attention.flash_attention`` (the flash
 forward and backward kernels on the card); the FFN's ``gelu`` branch
-goes through the bias-GELU kernel, forward only on the card (a backward
-through it raises there until its kernel is ported); every
-trailing-axis LayerNorm through the LayerNorm kernels.
+through the bias-GELU kernels; every trailing-axis LayerNorm through the
+LayerNorm kernels. Each runs through the op funnel (``ops/registry.py``)
+under the JAX package's name: ``"flash_attention"``,
+``"flash_attention_vl"`` (with ``valid_length``), ``"masked_attention"``
+(with ``mask``) and ``"bias_gelu_dense"``, where ``amp`` casts it or
+leaves it.
 """
 from __future__ import annotations
 
@@ -21,6 +24,7 @@ from ...context import resolve_device
 from ...ops import attention as ATT
 from ...ops import nn as FNN
 from ...ops.kernels.norm import bias_gelu
+from ...ops.registry import invoke
 from .basic_layers import Dense, Dropout, LayerNorm, activation
 
 __all__ = ["MultiHeadAttention", "PositionwiseFFN", "TransformerEncoderCell",
@@ -80,16 +84,29 @@ class MultiHeadAttention(nn.Module):
         kh = self._split(self.key_proj(k))
         vh = self._split(self.value_proj(v))
         scale = 1.0 / math.sqrt(self._units // self._num_heads)
+        causal = self._causal
         if mask is not None:
-            out = _masked_attention(
-                qh, kh, vh, torch.as_tensor(mask, device=qh.device), scale,
-                causal=self._causal,
-                valid_length=None if valid_length is None
-                else torch.as_tensor(valid_length))
+            vl = None if valid_length is None \
+                else torch.as_tensor(valid_length)
+            out = invoke(
+                "masked_attention",
+                lambda q_, k_, v_, m_: _masked_attention(
+                    q_, k_, v_, m_, scale, causal=causal, valid_length=vl),
+                qh, kh, vh, torch.as_tensor(mask, device=qh.device))
+        elif valid_length is not None:
+            # the key counts stay integers: the wrapper casts only float32
+            out = invoke(
+                "flash_attention_vl",
+                lambda q_, k_, v_: ATT.flash_attention(
+                    q_, k_, v_, causal=causal, sm_scale=scale,
+                    valid_length=valid_length),
+                qh, kh, vh)
         else:
-            out = ATT.flash_attention(qh, kh, vh, causal=self._causal,
-                                      sm_scale=scale,
-                                      valid_length=valid_length)
+            out = invoke(
+                "flash_attention",
+                lambda q_, k_, v_: ATT.flash_attention(
+                    q_, k_, v_, causal=causal, sm_scale=scale),
+                qh, kh, vh)
         b, _, s, _ = out.shape
         out = out.permute(0, 2, 1, 3).reshape(b, s, self._units)
         return self.dropout(self.out_proj(out))
@@ -114,8 +131,9 @@ class PositionwiseFFN(nn.Module):
 
     def forward(self, x):
         if self._activation == "gelu" and self.ffn_1.bias is not None:
-            h = bias_gelu(FNN.linear(x, self.ffn_1.weight),
-                          self.ffn_1.bias)
+            h = invoke("bias_gelu_dense",
+                       lambda x_, w_, b_: bias_gelu(FNN.linear(x_, w_), b_),
+                       x, self.ffn_1.weight, self.ffn_1.bias)
         else:
             h = activation(self.ffn_1(x), self._activation)
         return self.dropout(self.ffn_2(h))

@@ -7,7 +7,9 @@ as it is (``gluon.params.load_jax_params``): ``l0_i2h_weight`` (G*H, C),
 ``l0_h2h_weight`` (G*H, H), ``l0_i2h_bias`` and ``l0_h2h_bias`` (G*H,),
 ``r0_...`` for the reverse direction. The recurrence is
 ``ops.rnn.fused_rnn``: one product for all input projections, then the
-time-fused kernels.
+time-fused kernels, run through the op funnel (``ops/registry.py``) as
+``f"rnn_{mode}"`` with the input, the states and every parameter as its
+inputs, as the JAX package funnels it (``amp`` casts them all).
 
 ``input_size`` is required (shapes are not inferred at the first call),
 parameters are float32, and ``device`` defaults to ``cuda:0``.
@@ -24,6 +26,7 @@ from torch import nn
 from ...base import MXNetError
 from ...context import resolve_device
 from ...ops import rnn as rnn_ops
+from ...ops.registry import invoke
 from ..nn.basic_layers import INIT_SCALE, init_param
 
 __all__ = ["RNN", "LSTM", "GRU"]
@@ -97,15 +100,25 @@ class _RNNLayer(nn.Module):
             states = self.begin_state(x.shape[1], dtype=x.dtype)
         elif isinstance(states, torch.Tensor):
             states = [states]
-        h0 = states[0]
-        c0 = states[1] if self._mode == "lstm" else None
-        y, h, c = rnn_ops.fused_rnn(
-            x, h0, c0, self._ordered_params(), self._mode, self._num_layers,
-            self._dir == 2, dropout=self._dropout, train=self.training,
-            generator=self._generator)
+        mode = self._mode
+        nl, bi, dr = self._num_layers, self._dir == 2, self._dropout
+        train, gen = self.training, self._generator
+
+        def fn(x_, h0_, *rest):
+            if mode == "lstm":
+                c0_, *pk = rest
+            else:
+                c0_, pk = None, list(rest)
+            y, h, c = rnn_ops.fused_rnn(x_, h0_, c0_, pk, mode, nl, bi,
+                                        dropout=dr, train=train,
+                                        generator=gen)
+            return (y, h, c) if c is not None else (y, h)
+
+        inputs = [x, states[0]] + ([states[1]] if mode == "lstm" else []) \
+            + self._ordered_params()
+        y, *out_states = invoke(f"rnn_{mode}", fn, *inputs)
         if self._layout == "NTC":
             y = y.transpose(0, 1)
-        out_states = [h, c] if c is not None else [h]
         return (y, out_states) if ret_states else y
 
     def extra_repr(self):

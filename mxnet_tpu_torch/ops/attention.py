@@ -170,7 +170,7 @@ def _flash_fwd_kernel(q, k, v, causal: bool, sm_scale: float):
         return out, lse
     launch("flash_fwd", q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
            out.data_ptr(), lse.data_ptr(), b * h, sq, sk, d, int(causal),
-           sm_scale, DTYPE_CODES[q.dtype])
+           sm_scale, DTYPE_CODES[q.dtype], dtype=q.dtype)
     return out, lse
 
 
@@ -237,7 +237,8 @@ def flash_bwd_fused(q, k, v, dout, lse, delta, causal, sm_scale):
     acc = dq if q.dtype == torch.float32 else \
         torch.empty(dq.shape, dtype=torch.float32, device=q.device)
     launch("flash_bwd_fused", q.device, *ptrs, dq.data_ptr(),
-           acc.data_ptr(), dk.data_ptr(), dv.data_ptr(), *geom)
+           acc.data_ptr(), dk.data_ptr(), dv.data_ptr(), *geom,
+           dtype=q.dtype)
     return dq, dk, dv
 
 
@@ -245,7 +246,8 @@ def flash_bwd_dq(q, k, v, dout, lse, delta, causal, sm_scale):
     """dq from the ``flash_bwd_dq`` kernel (CUDA tensors)."""
     ptrs, geom = _bwd_operands(q, k, v, dout, lse, delta, causal, sm_scale)
     dq = torch.empty_like(q)
-    launch("flash_bwd_dq", q.device, *ptrs, dq.data_ptr(), *geom)
+    launch("flash_bwd_dq", q.device, *ptrs, dq.data_ptr(), *geom,
+           dtype=q.dtype)
     return dq
 
 
@@ -254,7 +256,7 @@ def flash_bwd_dkv(q, k, v, dout, lse, delta, causal, sm_scale):
     ptrs, geom = _bwd_operands(q, k, v, dout, lse, delta, causal, sm_scale)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     launch("flash_bwd_dkv", q.device, *ptrs, dk.data_ptr(), dv.data_ptr(),
-           *geom)
+           *geom, dtype=q.dtype)
     return dk, dv
 
 

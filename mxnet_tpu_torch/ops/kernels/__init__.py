@@ -17,8 +17,9 @@ the wrapper; a tensor on a CUDA device launches the kernel or raises.
 There is no switch that turns a kernel off on the card.
 
 Each wrapper adds one to its kernel's launch counter where it launches,
-and nowhere else (:func:`launch_counts`), so a run can show that its
-path went through the kernels.
+and nowhere else (:func:`launch_counts`, and by input dtype
+:func:`launch_counts_by_dtype`), so a run can show that its path went
+through the kernels, and in which dtype.
 """
 from __future__ import annotations
 
@@ -36,7 +37,8 @@ import torch
 
 from ...base import MXNetError
 
-__all__ = ["KERNELS", "KernelInfo", "launch_counts", "reset_launch_counts",
+__all__ = ["KERNELS", "KernelInfo", "launch_counts",
+           "launch_counts_by_dtype", "reset_launch_counts",
            "library", "build_library", "launch", "check_cuda_operands",
            "DTYPE_CODES", "card_limits", "launch_empty"]
 
@@ -167,6 +169,7 @@ KERNELS: Dict[str, KernelInfo] = {k.name: k for k in (
 )}
 
 _COUNTS: Dict[str, int] = {name: 0 for name in KERNELS}
+_DTYPE_COUNTS: Dict[tuple, int] = {}
 _COUNT_MU = threading.Lock()
 _LIB_MU = threading.Lock()
 _LIB: Optional[ctypes.CDLL] = None
@@ -178,10 +181,21 @@ def launch_counts() -> Dict[str, int]:
         return dict(_COUNTS)
 
 
+def launch_counts_by_dtype() -> Dict[str, Dict[str, int]]:
+    """Launches per kernel and input dtype (``"float32"``,
+    ``"bfloat16"``) since the last :func:`reset_launch_counts`."""
+    with _COUNT_MU:
+        out: Dict[str, Dict[str, int]] = {}
+        for (name, dt), n in _DTYPE_COUNTS.items():
+            out.setdefault(name, {})[dt] = n
+        return out
+
+
 def reset_launch_counts() -> None:
     with _COUNT_MU:
         for k in _COUNTS:
             _COUNTS[k] = 0
+        _DTYPE_COUNTS.clear()
 
 
 def _sources():
@@ -311,15 +325,19 @@ def check_cuda_operands(name: str, x: torch.Tensor, *others) -> None:
         raise MXNetError(f"{name}: the kernel takes contiguous tensors")
 
 
-def launch(name: str, device: torch.device, *args) -> None:
+def launch(name: str, device: torch.device, *args,
+           dtype: torch.dtype) -> None:
     """Call kernel ``name``'s C entry with ``args`` followed by PyTorch's
-    current stream on ``device``, and count the launch. Raises when the
-    entry reports a CUDA error (a refused launch)."""
+    current stream on ``device``, and count the launch, also under the
+    ``dtype`` of its inputs (:func:`launch_counts_by_dtype`). Raises when
+    the entry reports a CUDA error (a refused launch)."""
     fn = getattr(library(), KERNELS[name].entry)
     with torch.cuda.device(device):
         err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
         what = library().mxt_error_string(err).decode()
         raise MXNetError(f"{name}: CUDA error {err} ({what}) at launch")
+    key = (name, str(dtype).replace("torch.", ""))
     with _COUNT_MU:
         _COUNTS[name] += 1
+        _DTYPE_COUNTS[key] = _DTYPE_COUNTS.get(key, 0) + 1

@@ -81,20 +81,6 @@
 
 namespace {
 
-// the first tile of `bq` query rows that sees the key tile at k0 (every
-// later one does too)
-__device__ __forceinline__ int first_query_tile(int k0, int bq, int Sq,
-                                                int Sk, int causal) {
-  if (!causal) return 0;
-  const int lo = k0 - (Sk - Sq) - bq + 1;
-  return lo > 0 ? (lo + bq - 1) / bq : 0;
-}
-
-__device__ __forceinline__ bool visible(int qp, int kp, int Sq, int Sk,
-                                        int causal) {
-  return qp < Sq && kp < Sk && (!causal || kp <= qp + (Sk - Sq));
-}
-
 // ---------------------------------------------------------------------------
 // float32: CUDA cores
 // ---------------------------------------------------------------------------
@@ -475,15 +461,6 @@ struct Bf16Geo {
   static constexpr size_t dq_bytes = 6 * (size_t)kBR * LD * sizeof(bf);
   static constexpr size_t dkv_bytes = dq_bytes + 4 * kBR * sizeof(float);
 };
-
-// one 16 x 16 A fragment of the tile at `base`: rows 16 warp .. + 15,
-// depth 16 ks .. + 15
-template <int LD>
-__device__ __forceinline__ void afrag(unsigned (&r)[4], const bf* base,
-                                      int warp, int ks, int mi, int mr) {
-  ldsm_x4(r, base + (16 * warp + mr + 8 * (mi & 1)) * LD + 16 * ks +
-                 8 * (mi >> 1));
-}
 
 template <int DP>
 __global__ void __launch_bounds__(kBT, DP <= 64 ? 3 : 2)

@@ -14,12 +14,13 @@
 //     dS = P (dP - delta) scale before dQ += dS K and dK += dS^T Q (no-ops
 //     in float32).
 //
-// Bound on the card at BERT-base training's shape (B*H 384, S 512, D 64,
-// float32): five products of 64^3 per (64-query, 64-key) tile pair, 64.4
-// GFLOP, 0.96 ms at 67 TFLOP/s; its bytes (7 S D values a head) take
-// 0.06 ms. Operations bound it.
+// Bound on the card at BERT-base training's shape (B*H 384, S 512, D 64):
+// five products of 64^3 per (64-query, 64-key) tile pair, 64.4 GFLOP,
+// 0.96 ms at 67 TFLOP/s in float32 and 0.065 ms at 989 TFLOP/s on bf16
+// tensor cores; its bytes (7 S D values a head) take 0.06 / 0.03 ms.
+// Operations bound it in both dtypes.
 //
-// Design for the H100's CUDA cores (TF32 stays off: it would not hold
+// float32, on the H100's CUDA cores (TF32 stays off: it would not hold
 // float32's 1e-4 tolerance):
 //   - A k-parallel grid: one block per (batch*head, 64-key tile), 3,072
 //     blocks at that shape (the first version had one block per head,
@@ -50,13 +51,30 @@
 //     the first version's read-modify-write of each head's dq once per
 //     (key tile, query tile). For float32 the accumulator is dq itself;
 //     for bfloat16 a cast kernel in this entry writes dq.
+// bfloat16, on tensor cores (mma.sync.m16n8k16: bf16 operands, float32
+// sums), the design of flash_bwd.cu's bf16 dkv kernel with dQ added:
+//   - the same k-parallel grid, one block of 128 threads per (batch*head,
+//     64-key tile), 3,072 blocks at BERT training's shape; each warp owns
+//     16 keys of the block. The block walks the 64-query tiles that see
+//     its keys, Q, dO, lse and delta double-buffered through cp.async.
+//   - The transposed scores S^T = K Q^T and dP^T = V dO^T, so P^T and
+//     dS^T, rounded to bf16, are already the A fragments of dV += P^T dO
+//     and dK += dS^T Q straight from the accumulators; Q and dO are B
+//     operands through ldmatrix.trans; the warp's K and V fragments are
+//     held in registers for the walk (D <= 64).
+//   - dQ: each warp writes its dS^T fragments (rounded to bf16) to a
+//     shared [key][query] tile, in conflict-free 4-byte stores; after one
+//     barrier each warp multiplies dS K for 16 query rows (dS through
+//     ldmatrix.trans of that tile, K through ldmatrix.trans) and adds the
+//     partial to the float32 accumulator with vector atomics
+//     (`atomicAdd` of a float2: red.global.add.v2.f32). The cast kernel of
+//     this entry writes dq.
+//   - 64 KB of shared memory at D 64, three blocks an SM.
 // The atomic adds arrive in an order that changes from run to run, so dq
 // repeats only within float32 rounding of its partial sums, one per
-// 64-key tile (well inside 1e-4 + 1e-4 |ref|); dk and dv repeat bit for
-// bit.
-#include <type_traits>
-
-#include "common.cuh"
+// 64-key tile (well inside 1e-4 + 1e-4 |ref|, 2e-2 in bf16); dk and dv
+// repeat bit for bit.
+#include "flash_common.cuh"
 
 namespace {
 
@@ -66,65 +84,18 @@ constexpr int kThreads = 256;
 constexpr int kLDP = kBK + 4;   // row stride of the P and dS tiles
 constexpr int kLDT = kBQ + 4;   // row stride of the transposed dS tile
 
-template <typename T>
-__device__ __forceinline__ float fb_round(float v) {
-  return mxt_to_float(mxt_from_float<T>(v));
-}
-
-// four consecutive elements of a row, as loaded (converted to float only
-// when stored, so a prefetch's loads stay in flight across the compute)
-template <typename T>
-struct Raw4;
-template <>
-struct Raw4<float> {
-  float4 v;
-};
-template <>
-struct Raw4<__nv_bfloat16> {
-  uint2 v;
-};
-
-// elements [0, n) of p (n in 0..4), zeros after; one 16-byte (float) or
-// 8-byte (bfloat16) load when `vec` and n == 4
-__device__ __forceinline__ void load4(Raw4<float>& r, const float* p, int n,
+// elements [0, n) of p (n in 0..4), zeros after; one 16-byte load when
+// `vec` and n == 4
+__device__ __forceinline__ void load4(float4& r, const float* p, int n,
                                       bool vec) {
   if (vec && n == 4) {
-    r.v = *reinterpret_cast<const float4*>(p);
+    r = *reinterpret_cast<const float4*>(p);
   } else {
-    r.v.x = n > 0 ? p[0] : 0.f;
-    r.v.y = n > 1 ? p[1] : 0.f;
-    r.v.z = n > 2 ? p[2] : 0.f;
-    r.v.w = n > 3 ? p[3] : 0.f;
+    r.x = n > 0 ? p[0] : 0.f;
+    r.y = n > 1 ? p[1] : 0.f;
+    r.z = n > 2 ? p[2] : 0.f;
+    r.w = n > 3 ? p[3] : 0.f;
   }
-}
-__device__ __forceinline__ void load4(Raw4<__nv_bfloat16>& r,
-                                      const __nv_bfloat16* p, int n,
-                                      bool vec) {
-  if (vec && n == 4) {
-    r.v = *reinterpret_cast<const uint2*>(p);
-  } else {
-    const unsigned short* s = reinterpret_cast<const unsigned short*>(p);
-    const unsigned a = n > 0 ? s[0] : 0u, b = n > 1 ? s[1] : 0u;
-    const unsigned c = n > 2 ? s[2] : 0u, d = n > 3 ? s[3] : 0u;
-    r.v.x = a | (b << 16);
-    r.v.y = c | (d << 16);
-  }
-}
-__device__ __forceinline__ float4 to_float4(const Raw4<float>& r) {
-  return r.v;
-}
-__device__ __forceinline__ float4 to_float4(const Raw4<__nv_bfloat16>& r) {
-  return make_float4(__uint_as_float(r.v.x << 16),
-                     __uint_as_float(r.v.x & 0xffff0000u),
-                     __uint_as_float(r.v.y << 16),
-                     __uint_as_float(r.v.y & 0xffff0000u));
-}
-
-__device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
-  acc = fmaf(a.x, b.x, acc);
-  acc = fmaf(a.y, b.y, acc);
-  acc = fmaf(a.z, b.z, acc);
-  return fmaf(a.w, b.w, acc);
 }
 
 template <int DP>
@@ -140,9 +111,11 @@ struct Geo {
 };
 
 // Rows [row0, row0 + ROWS) of a (n, D) tensor, this thread's CH chunks of
-// four elements; rows at or past n and columns at or past D read as 0.
-template <typename T, int DP, int ROWS, int CH>
-__device__ __forceinline__ void load_tile(Raw4<T> (&r)[CH], const T* src,
+// four elements, held in registers until stored to shared memory (so a
+// prefetch's loads stay in flight across the compute); rows at or past n
+// and columns at or past D read as 0.
+template <int DP, int ROWS, int CH>
+__device__ __forceinline__ void load_regs(float4 (&r)[CH], const float* src,
                                           int row0, int n, int D, bool vec) {
 #pragma unroll
   for (int m = 0; m < CH; ++m) {
@@ -155,25 +128,27 @@ __device__ __forceinline__ void load_tile(Raw4<T> (&r)[CH], const T* src,
   }
 }
 
-template <typename T, int DP, int CH>
-__device__ __forceinline__ void store_tile(float* dst, const Raw4<T> (&r)[CH]) {
+template <int DP, int CH>
+__device__ __forceinline__ void store_regs(float* dst, const float4 (&r)[CH]) {
 #pragma unroll
   for (int m = 0; m < CH; ++m) {
     const int ci = threadIdx.x + kThreads * m;
     const int row = ci / (DP / 4), d = 4 * (ci % (DP / 4));
-    *reinterpret_cast<float4*>(dst + row * Geo<DP>::LD + d) = to_float4(r[m]);
+    *reinterpret_cast<float4*>(dst + row * Geo<DP>::LD + d) = r[m];
   }
 }
 
-template <typename T, int DP>
+template <int DP>
 __global__ void __launch_bounds__(kThreads, DP <= 64 ? 2 : 1)
-flash_bwd_fused_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, const T* __restrict__ dout,
+flash_bwd_fused_kernel(const float* __restrict__ q,
+                       const float* __restrict__ k,
+                       const float* __restrict__ v,
+                       const float* __restrict__ dout,
                        const float* __restrict__ lse,
                        const float* __restrict__ delta,
-                       float* __restrict__ dq_acc, T* __restrict__ dk,
-                       T* __restrict__ dv, int Sq, int Sk, int D, int causal,
-                       float scale, int vec) {
+                       float* __restrict__ dq_acc, float* __restrict__ dk,
+                       float* __restrict__ dv, int Sq, int Sk, int D,
+                       int causal, float scale, int vec) {
   using G = Geo<DP>;
   constexpr int LD = G::LD;
   extern __shared__ float4 smem_v[];
@@ -203,12 +178,12 @@ flash_bwd_fused_kernel(const T* __restrict__ q, const T* __restrict__ k,
     qt = lo > 0 ? (lo + kBQ - 1) / kBQ : 0;
   }
 
-  Raw4<T> rq[G::QCH], rdo[G::QCH];
+  float4 rq[G::QCH], rdo[G::QCH];
   float rowv = 0.f;
   auto prefetch = [&](int t) {
     const int q0 = t * kBQ;
-    load_tile<T, DP, kBQ, G::QCH>(rq, q + qbase, q0, Sq, D, vecb);
-    load_tile<T, DP, kBQ, G::QCH>(rdo, dout + qbase, q0, Sq, D, vecb);
+    load_regs<DP, kBQ, G::QCH>(rq, q + qbase, q0, Sq, D, vecb);
+    load_regs<DP, kBQ, G::QCH>(rdo, dout + qbase, q0, Sq, D, vecb);
     if (tid < 2 * kBQ) {
       const int row = q0 + (tid & (kBQ - 1));
       rowv = row < Sq ? (tid < kBQ ? lse_h[row] : delta_h[row]) : 0.f;
@@ -216,11 +191,11 @@ flash_bwd_fused_kernel(const T* __restrict__ q, const T* __restrict__ k,
   };
   if (qt < nq) prefetch(qt);
   {
-    Raw4<T> rk[G::KCH], rv[G::KCH];
-    load_tile<T, DP, kBK, G::KCH>(rk, k + kbase, k0, Sk, D, vecb);
-    load_tile<T, DP, kBK, G::KCH>(rv, v + kbase, k0, Sk, D, vecb);
-    store_tile<T, DP, G::KCH>(Ks, rk);
-    store_tile<T, DP, G::KCH>(Vs, rv);
+    float4 rk[G::KCH], rv[G::KCH];
+    load_regs<DP, kBK, G::KCH>(rk, k + kbase, k0, Sk, D, vecb);
+    load_regs<DP, kBK, G::KCH>(rv, v + kbase, k0, Sk, D, vecb);
+    store_regs<DP, G::KCH>(Ks, rk);
+    store_regs<DP, G::KCH>(Vs, rv);
   }
 
   const int u = tid & 127, lane = tid & 31, wq = u >> 5;
@@ -251,8 +226,8 @@ flash_bwd_fused_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (; qt < nq; ++qt) {
     const int q0 = qt * kBQ;
     __syncthreads();   // the previous step's tiles are consumed
-    store_tile<T, DP, G::QCH>(Qs, rq);
-    store_tile<T, DP, G::QCH>(dOs, rdo);
+    store_regs<DP, G::QCH>(Qs, rq);
+    store_regs<DP, G::QCH>(dOs, rdo);
     if (tid < 2 * kBQ) rows_s[tid] = rowv;
     __syncthreads();
     if (qt + 1 < nq) prefetch(qt + 1);
@@ -281,9 +256,8 @@ flash_bwd_fused_kernel(const T* __restrict__ q, const T* __restrict__ k,
         }
       }
     }
-    // P: masked before it enters any product; rounded to T for dV, kept
-    // unrounded for dS (in dS's tile until dS overwrites it)
-    float* p_raw = std::is_same<T, float>::value ? Ps : dSs;
+    // P: masked before it enters any product (rounding to the input dtype
+    // is a no-op in float32)
     if (!upper) {
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
@@ -295,8 +269,7 @@ flash_bwd_fused_kernel(const T* __restrict__ q, const T* __restrict__ k,
           bool valid = qp < Sq && kp < Sk;
           if (causal) valid = valid && kp <= qp + (Sk - Sq);
           const float p = valid ? expf(acc[i][j] * scale - l) : 0.f;
-          Ps[r * kLDP + c] = fb_round<T>(p);
-          if (!std::is_same<T, float>::value) dSs[r * kLDP + c] = p;
+          Ps[r * kLDP + c] = p;
         }
       }
     }
@@ -310,7 +283,7 @@ flash_bwd_fused_kernel(const T* __restrict__ q, const T* __restrict__ k,
         for (int j = 0; j < 4; ++j) {
           const int c = cg + 16 * j;
           const float ds =
-              fb_round<T>(p_raw[r * kLDP + c] * (acc[i][j] - dl) * scale);
+              Ps[r * kLDP + c] * (acc[i][j] - dl) * scale;
           dSs[r * kLDP + c] = ds;
           dSt[c * kLDT + r] = ds;
         }
@@ -399,7 +372,7 @@ flash_bwd_fused_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 
   // this key tile's dK or dV rows
-  T* out = upper ? dk : dv;
+  float* out = upper ? dk : dv;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int kp = k0 + c0 + i;
@@ -410,8 +383,263 @@ flash_bwd_fused_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int e = 0; e < 4; ++e) {
         const int d = 4 * dgB + 32 * j + e;
         if (d < D)
-          out[kbase + (size_t)kp * D + d] = mxt_from_float<T>(kv[i][j][e]);
+          out[kbase + (size_t)kp * D + d] = kv[i][j][e];
       }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// bfloat16: tensor cores
+// ---------------------------------------------------------------------------
+
+using bf = __nv_bfloat16;
+constexpr int kBT = 128;   // four warps, 16 keys of the block each
+constexpr int kBR = 64;    // keys of a block, queries of a walked tile
+
+constexpr int kLDS = kBR + 8;   // row stride of the dS^T tile (queries)
+
+template <int DP>
+struct Bf16Geo {
+  static constexpr int LD = DP + 8;   // row stride (bf16): 16-byte rows
+  // K, V, 2 Q, 2 dO, dS^T, then 2 x 64 lse and delta
+  static constexpr size_t bytes = 6 * (size_t)kBR * LD * sizeof(bf) +
+                                  (size_t)kBR * kLDS * sizeof(bf) +
+                                  4 * kBR * sizeof(float);
+};
+
+// a and c into p[0] and p[1] (c only where `two`) of the float32
+// accumulator: one red.global.add.v2.f32 where `vec`
+__device__ __forceinline__ void add_pair(float* p, float a, float c,
+                                         bool two, bool vec) {
+  if (two && vec) {
+    atomicAdd(reinterpret_cast<float2*>(p), make_float2(a, c));
+  } else {
+    atomicAdd(p, a);
+    if (two) atomicAdd(p + 1, c);
+  }
+}
+
+template <int DP>
+__global__ void __launch_bounds__(kBT, DP <= 64 ? 3 : 1)
+flash_bwd_fused_bf16_kernel(const bf* __restrict__ q,
+                            const bf* __restrict__ k,
+                            const bf* __restrict__ v,
+                            const bf* __restrict__ dout,
+                            const float* __restrict__ lse,
+                            const float* __restrict__ delta,
+                            float* __restrict__ dq_acc, bf* __restrict__ dk,
+                            bf* __restrict__ dv, int Sq, int Sk, int D,
+                            int causal, float scale, int vec, int vec_acc) {
+  constexpr int LD = Bf16Geo<DP>::LD, KS = DP / 16, NT = DP / 8;
+  constexpr bool kHold = DP <= 64;   // K and V fragments in registers
+  extern __shared__ float4 smem_v[];
+  bf* Ks = reinterpret_cast<bf*>(smem_v);
+  bf* Vs = Ks + kBR * LD;
+  bf* Qs = Vs + kBR * LD;         // [2][kBR][LD]
+  bf* dOs = Qs + 2 * kBR * LD;    // [2][kBR][LD]
+  bf* dSt = dOs + 2 * kBR * LD;   // [key][query]: dS^T rounded to bf16
+  float* lse_s = reinterpret_cast<float*>(dSt + kBR * kLDS);   // [2][kBR]
+  float* delta_s = lse_s + 2 * kBR;                           // [2][kBR]
+
+  const int nk = (Sk + kBR - 1) / kBR, nq = (Sq + kBR - 1) / kBR;
+  const int bh = blockIdx.x / nk;
+  const int k0 = (blockIdx.x % nk) * kBR;
+  const size_t qbase = (size_t)bh * Sq * D, kbase = (size_t)bh * Sk * D;
+  const float* lse_h = lse + (size_t)bh * Sq;
+  const float* delta_h = delta + (size_t)bh * Sq;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int mi = lane >> 3, mr = lane & 7;   // ldmatrix: matrix, row
+  const bool vb = vec != 0, va = vec_acc != 0;
+  const float scale2 = scale * kLog2e;
+  const int r0 = 16 * warp + gid;   // key rows r0 and r0 + 8 of the block
+
+  // query tile t's Q, dO, lse and delta into buffer b (not committed)
+  auto stage = [&](int t, int b) {
+    const int q0 = t * kBR;
+    load_tile<bf, kBR, DP, LD, kBT>(Qs + b * kBR * LD, q + qbase, q0, Sq, D,
+                                    vb);
+    load_tile<bf, kBR, DP, LD, kBT>(dOs + b * kBR * LD, dout + qbase, q0,
+                                    Sq, D, vb);
+    const int row = q0 + (tid & (kBR - 1));
+    const bool in = row < Sq;
+    const float* src = tid < kBR ? lse_h : delta_h;
+    float* dst = (tid < kBR ? lse_s : delta_s) + b * kBR + (tid & (kBR - 1));
+    cp_async4(dst, in ? src + row : src, in ? 4 : 0);
+  };
+
+  int qt = first_query_tile(k0, kBR, Sq, Sk, causal);
+  load_tile<bf, kBR, DP, LD, kBT>(Ks, k + kbase, k0, Sk, D, vb);
+  load_tile<bf, kBR, DP, LD, kBT>(Vs, v + kbase, k0, Sk, D, vb);
+  if (qt < nq) stage(qt, 0);
+  cp_async_commit();
+
+  unsigned kf[kHold ? KS : 1][4], vf[kHold ? KS : 1][4];
+  float dka[NT][4], dva[NT][4];   // rows r0 (0, 1), r0 + 8 (2, 3)
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dka[n][e] = dva[n][e] = 0.f;
+
+  for (int it = 0; qt < nq; ++qt, ++it) {
+    const int buf = it & 1, q0 = qt * kBR;
+    cp_async_wait_all();
+    __syncthreads();   // tile qt is in; everyone is done with tile qt - 1
+    if constexpr (kHold) {
+      if (it == 0) {
+#pragma unroll
+        for (int ks = 0; ks < KS; ++ks) {
+          afrag<LD>(kf[ks], Ks, warp, ks, mi, mr);
+          afrag<LD>(vf[ks], Vs, warp, ks, mi, mr);
+        }
+      }
+    }
+    if (qt + 1 < nq) {
+      stage(qt + 1, buf ^ 1);
+      cp_async_commit();
+    }
+    const bf* Qb = Qs + buf * kBR * LD;
+    const bf* dOb = dOs + buf * kBR * LD;
+    const float* lb = lse_s + buf * kBR;
+    const float* db = delta_s + buf * kBR;
+    const bool edge = k0 + kBR > Sk || q0 + kBR > Sq ||
+                      (causal && k0 + kBR - 1 > q0 + (Sk - Sq));
+
+#pragma unroll
+    for (int kc = 0; kc < kBR / 16; ++kc) {
+      // S^T = K Q^T and dP^T = V dO^T of queries 16 kc .. + 15:
+      // st[n][0..1] key r0, [2..3] key r0 + 8, queries 16 kc + 8 n + 2 tig
+      // (+1)
+      float st[2][4], dpt[2][4];
+#pragma unroll
+      for (int n = 0; n < 2; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) st[n][e] = dpt[n][e] = 0.f;
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks) {
+        unsigned ka[4], vfr[4];
+        if constexpr (kHold) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            ka[e] = kf[ks][e];
+            vfr[e] = vf[ks][e];
+          }
+        } else {
+          afrag<LD>(ka, Ks, warp, ks, mi, mr);
+          afrag<LD>(vfr, Vs, warp, ks, mi, mr);
+        }
+        const int off = (16 * kc + 8 * (mi >> 1) + mr) * LD + 16 * ks +
+                        8 * (mi & 1);
+        unsigned b[4];
+        ldsm_x4(b, Qb + off);
+        mma_bf16(st[0], ka, b[0], b[1]);
+        mma_bf16(st[1], ka, b[2], b[3]);
+        ldsm_x4(b, dOb + off);
+        mma_bf16(dpt[0], vfr, b[0], b[1]);
+        mma_bf16(dpt[1], vfr, b[2], b[3]);
+      }
+      // P^T masked, then dS^T = P^T (dP^T - delta) scale; lse and delta
+      // per column (query)
+      float pt[2][4];
+#pragma unroll
+      for (int n = 0; n < 2; ++n)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int qi = 16 * kc + 8 * n + 2 * tig + e;
+          const float l = lb[qi] * kLog2e, dd = db[qi];
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int x = 2 * h + e;
+            float p = exp2f(fmaf(st[n][x], scale2, -l));
+            if (edge && !visible(q0 + qi, k0 + r0 + 8 * h, Sq, Sk, causal))
+              p = 0.f;
+            pt[n][x] = p;
+            st[n][x] = p * (dpt[n][x] - dd) * scale;
+          }
+        }
+      // P^T and dS^T rounded to bf16: the A fragments of dV += P^T dO and
+      // dK += dS^T Q (dO and Q transposed by ldmatrix the B)
+      const unsigned pa[4] = {pack_bf16(pt[0][0], pt[0][1]),
+                              pack_bf16(pt[0][2], pt[0][3]),
+                              pack_bf16(pt[1][0], pt[1][1]),
+                              pack_bf16(pt[1][2], pt[1][3])};
+      const unsigned da[4] = {pack_bf16(st[0][0], st[0][1]),
+                              pack_bf16(st[0][2], st[0][3]),
+                              pack_bf16(st[1][0], st[1][1]),
+                              pack_bf16(st[1][2], st[1][3])};
+      // dS^T to shared memory for dQ: da[2 n + h] holds key r0 + 8 h,
+      // queries 16 kc + 8 n + 2 tig (+1)
+#pragma unroll
+      for (int n = 0; n < 2; ++n)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          *reinterpret_cast<unsigned*>(dSt + (r0 + 8 * h) * kLDS +
+                                       16 * kc + 8 * n + 2 * tig) =
+              da[2 * n + h];
+#pragma unroll
+      for (int n = 0; n < NT; n += 2) {
+        const int off = (16 * kc + 8 * (mi & 1) + mr) * LD +
+                        8 * (n + (mi >> 1));
+        unsigned b[4];
+        ldsm_x4_t(b, dOb + off);
+        mma_bf16(dva[n], pa, b[0], b[1]);
+        mma_bf16(dva[n + 1], pa, b[2], b[3]);
+        ldsm_x4_t(b, Qb + off);
+        mma_bf16(dka[n], da, b[0], b[1]);
+        mma_bf16(dka[n + 1], da, b[2], b[3]);
+      }
+    }
+    __syncthreads();   // the tile pair's dS^T is in shared memory
+
+    // dQ's partial dS K for query rows 16 warp .. + 15 over the block's
+    // 64 keys: dS through ldmatrix.trans of dS^T, K^T likewise; added to
+    // the float32 accumulator
+    unsigned af[kBR / 16][4];
+#pragma unroll
+    for (int ks = 0; ks < kBR / 16; ++ks)
+      ldsm_x4_t(af[ks], dSt + (16 * ks + 8 * (mi >> 1) + mr) * kLDS +
+                            16 * warp + 8 * (mi & 1));
+    const int qa = q0 + 16 * warp + gid;   // rows qa (0, 1), qa + 8 (2, 3)
+#pragma unroll
+    for (int n = 0; n < NT; n += 2) {
+      float c[2][4];
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) c[j][e] = 0.f;
+#pragma unroll
+      for (int ks = 0; ks < kBR / 16; ++ks) {
+        unsigned b[4];
+        ldsm_x4_t(b, Ks + (16 * ks + 8 * (mi & 1) + mr) * LD +
+                         8 * (n + (mi >> 1)));
+        mma_bf16(c[0], af[ks], b[0], b[1]);
+        mma_bf16(c[1], af[ks], b[2], b[3]);
+      }
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int qp = qa + 8 * h, col = 8 * (n + j) + 2 * tig;
+          if (qp < Sq && col < D)
+            add_pair(dq_acc + qbase + (size_t)qp * D + col, c[j][2 * h],
+                     c[j][2 * h + 1], col + 1 < D, va);
+        }
+    }
+  }
+  cp_async_wait_all();   // no copy outlives the block
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int kp = k0 + r0 + 8 * h;
+    if (kp >= Sk) continue;
+    bf* krow = dk + kbase + (size_t)kp * D;
+    bf* vrow = dv + kbase + (size_t)kp * D;
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      const int col = 8 * n + 2 * tig;
+      store_pair(krow, col, D, dka[n][2 * h], dka[n][2 * h + 1], vb);
+      store_pair(vrow, col, D, dva[n][2 * h], dva[n][2 * h + 1], vb);
     }
   }
 }
@@ -431,13 +659,14 @@ struct FusedArgs {
   float scale;
 };
 
-template <typename T, int DP>
-int fused_launch(const FusedArgs& a, cudaStream_t s) {
+// float32: the register-tiled kernel, accumulating dq in dq itself
+template <int DP>
+int fused_launch_f32(const FusedArgs& a, cudaStream_t s) {
   const size_t smem = sizeof(float) * Geo<DP>::smem_floats;
   static bool configured = false;
   if (!configured) {
     cudaError_t e = cudaFuncSetAttribute(
-        flash_bwd_fused_kernel<T, DP>,
+        flash_bwd_fused_kernel<DP>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
     configured = true;   // setting it again from another thread is harmless
@@ -447,38 +676,76 @@ int fused_launch(const FusedArgs& a, cudaStream_t s) {
   if (e != cudaSuccess) return (int)e;
   const long long blocks = (long long)a.BH * ((a.Sk + kBK - 1) / kBK);
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
-  // 16-byte loads of four elements (8-byte for bfloat16) and float4 atomics
-  // where every row starts aligned
-  const uintptr_t mask = sizeof(T) == 4 ? 15u : 7u;
+  // 16-byte loads of four elements and float4 atomics where every row
+  // starts aligned
   const bool vec =
       a.D % 4 == 0 &&
       ((reinterpret_cast<uintptr_t>(a.q) | reinterpret_cast<uintptr_t>(a.k) |
         reinterpret_cast<uintptr_t>(a.v) |
-        reinterpret_cast<uintptr_t>(a.dout)) & mask) == 0 &&
+        reinterpret_cast<uintptr_t>(a.dout)) & 15u) == 0 &&
       mxt_aligned16(a.dq_acc);
-  flash_bwd_fused_kernel<T, DP><<<(unsigned)blocks, kThreads, smem, s>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-      static_cast<const T*>(a.v), static_cast<const T*>(a.dout),
-      static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
-      static_cast<float*>(a.dq_acc), static_cast<T*>(a.dk),
-      static_cast<T*>(a.dv), a.Sq, a.Sk, a.D, a.causal, a.scale,
+  using F = float;
+  flash_bwd_fused_kernel<DP><<<(unsigned)blocks, kThreads, smem, s>>>(
+      static_cast<const F*>(a.q), static_cast<const F*>(a.k),
+      static_cast<const F*>(a.v), static_cast<const F*>(a.dout),
+      static_cast<const F*>(a.lse), static_cast<const F*>(a.delta),
+      static_cast<F*>(a.dq_acc), static_cast<F*>(a.dk),
+      static_cast<F*>(a.dv), a.Sq, a.Sk, a.D, a.causal, a.scale,
       vec ? 1 : 0);
-  if (!std::is_same<T, float>::value) {
-    e = cudaGetLastError();
-    if (e != cudaSuccess) return (int)e;
-    const size_t want = (n + 255) / 256;
-    const unsigned grid = (unsigned)(want < 4096 ? want : 4096);
-    flash_bwd_dq_cast_kernel<T><<<grid, 256, 0, s>>>(
-        static_cast<const float*>(a.dq_acc), static_cast<T*>(a.dq), n);
-  }
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int fused_dispatch_d(const FusedArgs& a, cudaStream_t s) {
-  if (a.D <= 32) return fused_launch<T, 32>(a, s);
-  if (a.D <= 64) return fused_launch<T, 64>(a, s);
-  return fused_launch<T, 128>(a, s);
+// bfloat16: the tensor-core kernel into the float32 accumulator, then the
+// cast to dq. The shared-memory limit is set on every call, to the same
+// value, so it holds on every device.
+template <int DP>
+int fused_launch_bf16(const FusedArgs& a, cudaStream_t s) {
+  const size_t smem = Bf16Geo<DP>::bytes;
+  cudaError_t e = cudaFuncSetAttribute(
+      flash_bwd_fused_bf16_kernel<DP>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  const size_t n = (size_t)a.BH * a.Sq * a.D;
+  e = cudaMemsetAsync(a.dq_acc, 0, n * sizeof(float), s);
+  if (e != cudaSuccess) return (int)e;
+  const long long blocks = (long long)a.BH * ((a.Sk + kBR - 1) / kBR);
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+  // 16-byte cp.async rows and paired stores where D is a multiple of 8
+  // and every pointer 16-byte aligned; float2 atomics where D is even
+  const uintptr_t p =
+      reinterpret_cast<uintptr_t>(a.q) | reinterpret_cast<uintptr_t>(a.k) |
+      reinterpret_cast<uintptr_t>(a.v) |
+      reinterpret_cast<uintptr_t>(a.dout) |
+      reinterpret_cast<uintptr_t>(a.dk) | reinterpret_cast<uintptr_t>(a.dv);
+  const bool vec = a.D % 8 == 0 && (p & 15u) == 0;
+  const bool vec_acc =
+      a.D % 2 == 0 && (reinterpret_cast<uintptr_t>(a.dq_acc) & 7u) == 0;
+  flash_bwd_fused_bf16_kernel<DP><<<(unsigned)blocks, kBT, smem, s>>>(
+      static_cast<const bf*>(a.q), static_cast<const bf*>(a.k),
+      static_cast<const bf*>(a.v), static_cast<const bf*>(a.dout),
+      static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
+      static_cast<float*>(a.dq_acc), static_cast<bf*>(a.dk),
+      static_cast<bf*>(a.dv), a.Sq, a.Sk, a.D, a.causal, a.scale,
+      vec ? 1 : 0, vec_acc ? 1 : 0);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  const size_t want = (n + 255) / 256;
+  const unsigned grid = (unsigned)(want < 4096 ? want : 4096);
+  flash_bwd_dq_cast_kernel<bf><<<grid, 256, 0, s>>>(
+      static_cast<const float*>(a.dq_acc), static_cast<bf*>(a.dq), n);
+  return (int)cudaGetLastError();
+}
+
+int fused_dispatch_f32(const FusedArgs& a, cudaStream_t s) {
+  if (a.D <= 32) return fused_launch_f32<32>(a, s);
+  if (a.D <= 64) return fused_launch_f32<64>(a, s);
+  return fused_launch_f32<128>(a, s);
+}
+
+int fused_dispatch_bf16(const FusedArgs& a, cudaStream_t s) {
+  if (a.D <= 32) return fused_launch_bf16<32>(a, s);
+  if (a.D <= 64) return fused_launch_bf16<64>(a, s);
+  return fused_launch_bf16<128>(a, s);
 }
 
 }  // namespace
@@ -498,7 +765,7 @@ MXT_API int mxt_flash_bwd_fused(const void* q, const void* k, const void* v,
   if (dtype == MXT_F32 && dq_acc != dq) return (int)cudaErrorInvalidValue;
   FusedArgs a{q, k, v, dout, lse, delta, dq, dq_acc, dk, dv,
               BH, Sq, Sk, D, causal, scale};
-  if (dtype == MXT_F32) return fused_dispatch_d<float>(a, s);
-  if (dtype == MXT_BF16) return fused_dispatch_d<__nv_bfloat16>(a, s);
+  if (dtype == MXT_F32) return fused_dispatch_f32(a, s);
+  if (dtype == MXT_BF16) return fused_dispatch_bf16(a, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -1,6 +1,7 @@
 // Device helpers of the flash-attention kernels (flash_fwd.cu,
-// flash_bwd.cu): asynchronous copies into shared memory (cp.async),
-// tile loads that zero-fill the ragged edge, the causal walk's length,
+// flash_bwd.cu, flash_bwd_fused.cu): asynchronous copies into shared
+// memory (cp.async), tile loads that zero-fill the ragged edge, the causal
+// walk's length and visibility,
 // float4 dot products, and the bfloat16 tensor-core pieces (ldmatrix
 // fragments, mma.sync.m16n8k16, paired bf16 stores).
 #pragma once
@@ -71,6 +72,20 @@ __device__ __forceinline__ int key_tiles(int q0, int rows, int bk, int Sq,
   return kmax < 0 ? 0 : min(nk, kmax / bk + 1);
 }
 
+// the first tile of `bq` query rows that sees the key tile at k0 (every
+// later one does too)
+__device__ __forceinline__ int first_query_tile(int k0, int bq, int Sq,
+                                                int Sk, int causal) {
+  if (!causal) return 0;
+  const int lo = k0 - (Sk - Sq) - bq + 1;
+  return lo > 0 ? (lo + bq - 1) / bq : 0;
+}
+
+__device__ __forceinline__ bool visible(int qp, int kp, int Sq, int Sk,
+                                        int causal) {
+  return qp < Sq && kp < Sk && (!causal || kp <= qp + (Sk - Sq));
+}
+
 __device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
   acc = fmaf(a.x, b.x, acc);
   acc = fmaf(a.y, b.y, acc);
@@ -93,6 +108,16 @@ __device__ __forceinline__ void ldsm_x4_t(unsigned (&r)[4], const void* p) {
       "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
       : "r"(smem_u32(p)));
+}
+
+// one 16 x 16 A fragment of the bf16 tile at `base` (row stride LD): rows
+// 16 warp .. + 15, depth 16 ks .. + 15
+template <int LD>
+__device__ __forceinline__ void afrag(unsigned (&r)[4],
+                                      const __nv_bfloat16* base, int warp,
+                                      int ks, int mi, int mr) {
+  ldsm_x4(r, base + (16 * warp + mr + 8 * (mi & 1)) * LD + 16 * ks +
+                 8 * (mi >> 1));
 }
 
 // c += a b for one m16n8k16 tile (bf16 operands, float32 sums)

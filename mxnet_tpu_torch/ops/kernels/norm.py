@@ -117,7 +117,7 @@ def _ln_fwd_kernel(x, gamma, beta, eps):
     b = beta.to(torch.float32).contiguous()
     launch("layernorm_fwd", x.device, x.data_ptr(), g.data_ptr(),
            b.data_ptr(), out.data_ptr(), rows, c, float(eps),
-           DTYPE_CODES[x.dtype])
+           DTYPE_CODES[x.dtype], dtype=x.dtype)
     return out
 
 
@@ -209,7 +209,8 @@ def layer_norm_bwd(x, gamma, dy, eps: float = 1e-5):
     launch("layernorm_bwd", x.device, x.data_ptr(), g.data_ptr(),
            dy.data_ptr(), dx.data_ptr(), part.data_ptr(), dgb[0].data_ptr(),
            dgb[1].data_ptr(), rows, c, float(eps), DTYPE_CODES[x.dtype],
-           plan["vec"], plan["packs"], plan["threads"], plan["blocks"])
+           plan["vec"], plan["packs"], plan["threads"], plan["blocks"],
+           dtype=x.dtype)
     return dx, dgb[0].to(gamma.dtype), dgb[1].to(gamma.dtype)
 
 
@@ -286,7 +287,7 @@ def bias_gelu_bwd(x, b, dy):
         bb = b.to(x.dtype).contiguous()
         launch("bias_gelu_bwd", x.device, x.data_ptr(), bb.data_ptr(),
                dy.data_ptr(), dx.data_ptr(), part.data_ptr(), db.data_ptr(),
-               rows, c, nparts, DTYPE_CODES[x.dtype])
+               rows, c, nparts, DTYPE_CODES[x.dtype], dtype=x.dtype)
     return dx, db.to(b.dtype)
 
 
@@ -299,7 +300,7 @@ def _bg_fwd_kernel(x, b):
         return out
     bb = b.to(x.dtype).contiguous()
     launch("bias_gelu_fwd", x.device, x.data_ptr(), bb.data_ptr(),
-           out.data_ptr(), x.numel(), c, DTYPE_CODES[x.dtype])
+           out.data_ptr(), x.numel(), c, DTYPE_CODES[x.dtype], dtype=x.dtype)
     return out
 
 

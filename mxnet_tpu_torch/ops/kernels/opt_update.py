@@ -155,7 +155,7 @@ def unit_update(kind: str, cfg: dict, w, g, lr, wd, t, rescale, clip,
            0 if vec else _scalar(t, int), _scalar(rescale, float),
            _scalar(clip, float), float(cfg.get("momentum", 0.0)),
            float(b1), float(b2), float(cfg.get("epsilon", 0.0)),
-           float(1 - b1), float(1 - b2), DTYPE_CODES[w.dtype])
+           float(1 - b1), float(1 - b2), DTYPE_CODES[w.dtype], dtype=w.dtype)
     return w, states
 
 

@@ -252,7 +252,7 @@ def rnn_scan_fwd(xw, h0, c0, w_hh, b_hh, mode: str):
     launch("rnn_scan_fwd", xw.device, xw.data_ptr(), h0.data_ptr(),
            c0.data_ptr() if lstm else None, w.data_ptr(), b.data_ptr(),
            ys.data_ptr(), cs.data_ptr() if lstm else None, n_t, n, h,
-           MODE_CODES[mode], DTYPE_CODES[xw.dtype])
+           MODE_CODES[mode], DTYPE_CODES[xw.dtype], dtype=xw.dtype)
     return ys, cs
 
 
@@ -293,7 +293,7 @@ def rnn_scan_bwd(xw, h0, c0, w_hh, b_hh, ys, cs, dys, dc_t, mode: str):
            dys.data_ptr(), dh_s.data_ptr(), ptr(dc_s), dxw.data_ptr(),
            dhw.data_ptr(), dh0.data_ptr(), ptr(dc0), dw.data_ptr(),
            db.data_ptr(), n_t, n, h, MODE_CODES[mode],
-           DTYPE_CODES[xw.dtype])
+           DTYPE_CODES[xw.dtype], dtype=xw.dtype)
     return dxw, dh0, dc0, dw.to(w_hh.dtype), db.to(b_hh.dtype)
 
 
@@ -520,7 +520,7 @@ def rnn_decode_step(xw, h, c, w_hh, b_hh, mode: str):
            h_new.data_ptr(), c_new.data_ptr() if lstm else None, n, h_dim,
            MODE_CODES[mode], DTYPE_CODES[xw.dtype], DTYPE_CODES[w_hh.dtype],
            plan["units"], plan["threads"], plan["group_rows"],
-           DEC_PATHS[plan["path"]])
+           DEC_PATHS[plan["path"]], dtype=xw.dtype)
     return h_new, c_new
 
 

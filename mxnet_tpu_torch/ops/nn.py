@@ -1,13 +1,19 @@
 """Layer ops (counterpart of ``mxnet_tpu/ops/nn.py``; this slice ports
-``layer_norm`` and the fully-connected product)."""
+``layer_norm``, the fully-connected product and the softmaxes).
+
+:func:`softmax` and :func:`log_softmax` go through the op funnel
+(``ops/registry.py``) under the JAX package's names, as its
+``F.softmax`` / ``F.log_softmax`` do; :func:`linear` and
+:func:`layer_norm` are the bodies the layers funnel."""
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
 from .kernels import norm as _knorm
+from .registry import invoke
 
-__all__ = ["layer_norm", "linear"]
+__all__ = ["layer_norm", "linear", "softmax", "log_softmax"]
 
 
 def linear(x, weight, bias=None):
@@ -19,7 +25,13 @@ def linear(x, weight, bias=None):
     float32 row would round differently with other batch-mates; there
     the product accumulates in float64 and rounds once, which keeps a
     request's result independent of the batch it rides in, as XLA's CPU
-    dot does for the JAX package."""
+    dot does for the JAX package. Operands of mixed dtypes are promoted
+    first (float32 with bfloat16 gives float32), as ``jnp.dot`` does."""
+    dt = torch.promote_types(x.dtype, weight.dtype)
+    if bias is not None:
+        dt = torch.promote_types(dt, bias.dtype)
+    x, weight = x.to(dt), weight.to(dt)
+    bias = None if bias is None else bias.to(dt)
     if x.device.type == "cpu" and x.dtype == torch.float32:
         return F.linear(x.double(), weight.double(),
                         None if bias is None else bias.double()).float()
@@ -42,3 +54,15 @@ def layer_norm(x, gamma, beta, axis: int = -1, eps: float = 1e-5):
     shape[axis] = x.shape[axis]
     return (out * gamma.to(dt).reshape(shape)
             + beta.to(dt).reshape(shape)).to(x.dtype)
+
+
+def softmax(x, axis: int = -1):
+    """Softmax over ``axis``, through the funnel as ``"softmax"``."""
+    return invoke("softmax", lambda t: torch.softmax(t, dim=axis), x)
+
+
+def log_softmax(x, axis: int = -1):
+    """Log-softmax over ``axis``, through the funnel as
+    ``"log_softmax"``."""
+    return invoke("log_softmax", lambda t: torch.log_softmax(t, dim=axis),
+                  x)

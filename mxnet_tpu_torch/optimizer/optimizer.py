@@ -14,6 +14,12 @@ optimizer applies them with the JAX package's bookkeeping:
   :meth:`Optimizer.set_wd_mult`, where an index-keyed entry wins over a
   name-keyed one (``param_idx2name``).
 
+``multi_precision=True`` gives a bfloat16 or float16 weight a float32
+master copy: :meth:`Optimizer.create_state_multi_precision` returns
+``(state, master)``, the rule updates the master with the gradient cast
+to float32, and the weight takes ``master.to(weight.dtype)``
+(``mxnet_tpu/optimizer/optimizer.py`` ``_update_one``).
+
 ``torch.optim`` is not a substitute: it places weight decay elsewhere,
 counts one step for all parameters, and has no mults. Updates run on the
 parameters' device, in place, with no host sync: weights and states keep
@@ -29,7 +35,10 @@ import torch
 from ..base import MXNetError
 
 __all__ = ["Optimizer", "SGD", "Adam", "AdamW", "Updater", "get_updater",
-           "create", "register"]
+           "create", "register", "LOW_PRECISION"]
+
+#: the weight dtypes that get a float32 master under ``multi_precision``
+LOW_PRECISION = (torch.float16, torch.bfloat16)
 
 _registry: Dict[str, type] = {}
 
@@ -64,7 +73,8 @@ class Optimizer:
     def __init__(self, rescale_grad: float = 1.0, param_idx2name=None,
                  wd: float = 0.0, clip_gradient: Optional[float] = None,
                  learning_rate: Optional[float] = None, lr_scheduler=None,
-                 param_dict=None, begin_num_update: int = 0):
+                 multi_precision: bool = False, param_dict=None,
+                 begin_num_update: int = 0):
         self.rescale_grad = rescale_grad
         self.lr = learning_rate if learning_rate is not None else 0.01
         self.lr_scheduler = lr_scheduler
@@ -72,6 +82,7 @@ class Optimizer:
             self.lr_scheduler.base_lr = learning_rate
         self.wd = wd
         self.clip_gradient = clip_gradient
+        self.multi_precision = multi_precision
         self.num_update = begin_num_update
         self.begin_num_update = begin_num_update
         self._index_update_count: Dict[int, int] = {}
@@ -137,17 +148,52 @@ class Optimizer:
         return tuple(torch.zeros_like(weight, memory_format=torch.
                                       contiguous_format) for _ in range(n))
 
+    def create_state_multi_precision(self, index, weight: torch.Tensor):
+        """``(state, float32 master)`` for a bfloat16 or float16 weight
+        under ``multi_precision``, else :meth:`create_state`. The state is
+        float32, like the master it updates (the JAX package's bf16 zeros
+        turn float32 at the first update)."""
+        if self.multi_precision and weight.dtype in LOW_PRECISION:
+            master = weight.detach().to(torch.float32,
+                                        memory_format=torch.
+                                        contiguous_format)
+            return (self.create_state(index, master), master)
+        return self.create_state(index, weight)
+
+    @staticmethod
+    def is_master_state(weight: torch.Tensor, state) -> bool:
+        """Whether ``state`` is a ``(state, master)`` pair of
+        :meth:`create_state_multi_precision`."""
+        return (weight.dtype in LOW_PRECISION and isinstance(state, tuple)
+                and len(state) == 2 and isinstance(state[0], tuple)
+                and isinstance(state[1], torch.Tensor))
+
+    @staticmethod
+    def state_tensors(state):
+        """The tensors of a state, a master's included, flattened."""
+        if isinstance(state, torch.Tensor):
+            return [state]
+        return [t for s in state for t in Optimizer.state_tensors(s)]
+
     # ---------------- update ----------------
     def _rule(self):
         """``rule(w, g, lr, wd, t, states) -> (w', states')``."""
         raise NotImplementedError
 
     def _apply(self, rule, weight, grad, lr, wd, t, state):
+        """The rule on ``weight``, or on its float32 master (the gradient
+        cast to float32) and then ``weight`` = the master in its dtype."""
+        target = weight
+        if self.is_master_state(weight, state):
+            state, target = state
+            grad = grad.to(torch.float32)
         g = grad * self.rescale_grad
         if self.clip_gradient is not None:
             g = torch.clamp(g, -self.clip_gradient, self.clip_gradient)
-        new_w, new_state = rule(weight, g, lr, wd, t, state)
-        weight.copy_(new_w)
+        new_w, new_state = rule(target, g, lr, wd, t, state)
+        target.copy_(new_w)
+        if target is not weight:
+            weight.copy_(target)
         for s, ns in zip(state, new_state):
             s.copy_(ns)
 
@@ -229,6 +275,13 @@ class Optimizer:
         package's multi-tensor update does."""
         if not isinstance(index, (list, tuple)):
             index, weight, grad, state = [index], [weight], [grad], [state]
+        if len(index) > 1 and any(self.is_master_state(w, s)
+                                  for w, s in zip(weight, state)):
+            # with a master in the list, one parameter at a time (count,
+            # then lr and wd), as the JAX package does
+            for args in zip(index, weight, grad, state):
+                self.update(*args)
+            return
         ts = [self._update_count(i) for i in index]
         lrs = [self._get_lr(i) for i in index]
         wds = [self._get_wd(i) for i in index]
@@ -338,7 +391,8 @@ class Updater:
         weights = weight if isinstance(weight, (list, tuple)) else [weight]
         for i, w in zip(indices, weights):
             if i not in self.states:
-                self.states[i] = self.optimizer.create_state(i, w)
+                self.states[i] = \
+                    self.optimizer.create_state_multi_precision(i, w)
         self.optimizer.update(list(indices), list(weights), list(grads),
                               [self.states[i] for i in indices])
 

@@ -9,11 +9,12 @@ from .decode import (DecodeEngine, DecodeStream, ModelDrafter, NgramDrafter,
                      TinyDecoder, kv_page_size, prefill_chunk, prefix_share,
                      run_decode, slot_ladder, spec_k)
 from .kvcache import KV_PAGE_SIZE, PagedKVCache, pages_needed, prefix_hash
-from .predictor import DEFAULT_BUCKETS, CompiledPredictor
+from .predictor import DEFAULT_BUCKETS, CompiledPredictor, predictor_for
 from .resilience import (DeadlineExceeded, Overloaded, ServingShutdown,
                          default_deadline_ms, shed_mode)
 
-__all__ = ["CompiledPredictor", "DEFAULT_BUCKETS", "DynamicBatcher",
+__all__ = ["CompiledPredictor", "DEFAULT_BUCKETS", "predictor_for",
+           "DynamicBatcher",
            "ServingFuture", "Overloaded", "ServingShutdown",
            "DeadlineExceeded", "default_deadline_ms", "shed_mode",
            "queue_depth", "loadgen", "resilience", "decode", "kvcache",

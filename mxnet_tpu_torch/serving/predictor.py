@@ -9,7 +9,8 @@ JAX package compiles one XLA program per bucket; PyTorch runs eagerly,
 so here :attr:`n_traces` counts the distinct bucket shapes run, and
 :meth:`warmup` runs each bucket once before traffic arrives.
 :meth:`predict` returns the net's outputs on the device without waiting
-for them.
+for them. :func:`predictor_for` builds one at a serving precision
+(float32, or bfloat16 through ``amp.convert_hybrid_block``).
 """
 from __future__ import annotations
 
@@ -23,7 +24,7 @@ from ..base import MXNetError
 from ..context import resolve_device
 
 __all__ = ["CompiledPredictor", "DEFAULT_BUCKETS", "map_tensors",
-           "synchronize"]
+           "predictor_for", "synchronize"]
 
 #: default leading-dim shape buckets: powers of two up to 64
 DEFAULT_BUCKETS = (1, 2, 4, 8, 16, 32, 64)
@@ -165,3 +166,34 @@ class CompiledPredictor:
             synchronize(self.device)
             self.service_time_seed_s = time.perf_counter() - t0
         return out
+
+
+def predictor_for(net, dtype: str = "float32",
+                  bucket_sizes: Optional[Sequence[int]] = None,
+                  **kwargs) -> CompiledPredictor:
+    """A :class:`CompiledPredictor` at the requested serving precision
+    (``mxnet_tpu/serving/predictor.py`` ``predictor_for``):
+
+    - ``float32``/``fp32``/``f32``: the net as it is;
+    - ``bfloat16``/``bf16``/``float16``/``fp16``:
+      ``amp.convert_hybrid_block`` casts every parameter not owned by a
+      ``LayerNorm`` down (the LayerNorms stay float32);
+    - ``int8``: raises, ``contrib.quantization`` is not ported.
+
+    The conversion changes ``net`` in place; pass a copy to keep a
+    float32 original. ``kwargs`` go to :class:`CompiledPredictor`
+    (``device``)."""
+    d = dtype.lower()
+    if d in ("float32", "fp32", "f32"):
+        pass
+    elif d in ("bfloat16", "bf16", "float16", "fp16"):
+        from .. import amp as _amp
+        _amp.convert_hybrid_block(
+            net, "bfloat16" if d.startswith("b") else "float16")
+    elif d == "int8":
+        raise MXNetError("int8 serving needs contrib.quantization, which "
+                         "the port does not have")
+    else:
+        raise MXNetError(f"unknown serving dtype {dtype!r} (float32, "
+                         "bfloat16, float16, int8)")
+    return CompiledPredictor(net, bucket_sizes=bucket_sizes, **kwargs)

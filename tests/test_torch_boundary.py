@@ -59,7 +59,8 @@ def test_package_has_its_modules():
               "serving/decode.py", "gluon/gqa_decoder.py",
               "parallel/dist.py", "parallel/mesh.py",
               "parallel/collectives.py", "kvstore/base.py",
-              "kvstore/kvstore.py", "ops/kernels/opt_update.py"):
+              "kvstore/kvstore.py", "ops/kernels/opt_update.py",
+              "amp/__init__.py", "amp/loss_scaler.py", "ops/registry.py"):
         assert os.path.join("mxnet_tpu_torch", m) in rel, m
     csrc = os.listdir(os.path.join(PKG, "ops", "kernels", "csrc"))
     assert {"flash_fwd.cu", "layernorm_fwd.cu", "bias_gelu_fwd.cu",

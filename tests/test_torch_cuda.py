@@ -1,7 +1,8 @@
 """mxnet_tpu_torch's CUDA kernels against their plain versions, on the
 card, forward and backward; that kernel outputs carry gradients and
-parameters train there; and a 2-layer encoder's gradients on the card
-against a CPU copy. Every test here needs a CUDA device and skips
+parameters train there; a 2-layer encoder's gradients on the card
+against a CPU copy; and bf16 ``amp``'s kernels by dtype and one-sync
+overflow check. Every test here needs a CUDA device and skips
 without one; the file imports nothing of JAX, so it runs on the machine
 with the card:
 
@@ -182,6 +183,95 @@ def test_flash_bwd_dq_dkv_repeat_bit_for_bit_on_card(cuda_dev, dtype, case):
     assert counts["flash_bwd_fused"] == 0
     for a, b in zip(first, second):
         assert torch.equal(a, b)
+
+
+#: the fused backward's bf16 tile edges (the tensor-core kernel): one
+#: position at D 1, one key, one query, D 7, 80 and 128, a ragged key
+#: count, S 512 non-causal and causal
+FUSED_BF16_EDGES = [
+    (2, 3, 1, 1, 1, False),
+    (2, 3, 77, 1, 64, True),
+    (2, 3, 1, 130, 32, True),
+    (1, 2, 200, 200, 7, False),
+    (1, 2, 70, 70, 80, False),
+    (1, 2, 200, 130, 128, True),
+    (2, 3, 300, 449, 64, False),
+    (1, 4, 512, 512, 64, False),
+    (1, 4, 512, 512, 64, True),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", FUSED_BF16_EDGES)
+def test_flash_bwd_fused_bf16_edges_on_card(cuda_dev, case):
+    """The bf16 fused backward against its plain version; dk and dv have
+    one owner each and repeat bit for bit, dq (float32 atomics) within
+    the tolerance; one launch a call, counted under bfloat16."""
+    q, k, v, out, lse, do, causal = _bwd_inputs(case, torch.bfloat16,
+                                                cuda_dev)
+    K.reset_launch_counts()
+    first = ATT.flash_attention_bwd(q, k, v, out, lse, do, causal)
+    second = ATT.flash_attention_bwd(q, k, v, out, lse, do, causal)
+    torch.cuda.synchronize()
+    assert K.launch_counts_by_dtype()["flash_bwd_fused"] == {"bfloat16": 2}
+    ref = ATT.flash_attention_bwd_plain(q, k, v, out, lse, do, causal)
+    for g, r in zip(first, ref):
+        torch.testing.assert_close(g.float(), r.float(), atol=2e-2,
+                                   rtol=2e-2)
+    assert torch.equal(first[1], second[1])
+    assert torch.equal(first[2], second[2])
+    torch.testing.assert_close(first[0].float(), second[0].float(),
+                               atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.cuda
+def test_amp_bert_launches_by_dtype_on_card(cuda_dev):
+    """bert_small_test under amp, forward and backward on the card: the
+    flash kernels launch in bf16, the LayerNorm kernels in float32, and
+    every gradient comes back float32."""
+    from mxnet_tpu_torch import amp
+    from mxnet_tpu_torch.gluon.model_zoo import bert
+    net = bert.bert_small_test(dropout=0.0, device=cuda_dev)
+    x = torch.randint(0, 128, (2, 16), device=cuda_dev)
+    amp.init()
+    try:
+        K.reset_launch_counts()
+        seq, pooled = net(x)
+        (seq.float().sum() + pooled.float().sum()).backward()
+        torch.cuda.synchronize()
+    finally:
+        amp.uninit()
+    n = K.launch_counts_by_dtype()
+    assert n["flash_fwd"] == {"bfloat16": 2}
+    assert n["flash_bwd_fused"] == {"bfloat16": 2}
+    assert n["layernorm_fwd"] == {"float32": 5}
+    assert n["layernorm_bwd"] == {"float32": 5}
+    assert seq.dtype == torch.float32 and pooled.dtype == torch.bfloat16
+    assert all(p.grad.dtype == torch.float32 for p in net.parameters()
+               if p.grad is not None)
+
+
+@pytest.mark.cuda
+def test_loss_scaler_has_overflow_syncs_once_on_card(cuda_dev):
+    """has_overflow checks every gradient on the card and brings one flag
+    back: one host sync, not one a parameter."""
+    import warnings
+    from mxnet_tpu_torch import amp
+    grads = [torch.randn(64, 64, device=cuda_dev) for _ in range(40)]
+    scaler = amp.LossScaler()
+    torch.cuda.synchronize()
+    for bad, want in ((None, False), (float("inf"), True)):
+        if bad is not None:
+            grads[17][3, 5] = bad
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                got = scaler.has_overflow(grads)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        assert got is want
+        assert sum("synchroniz" in str(w.message) for w in caught) == 1
 
 
 @pytest.mark.cuda

@@ -302,6 +302,65 @@ def test_plan_layout_vs_jax(monkeypatch, model, min_size):
             onp.testing.assert_array_equal(onp.asarray(x), onp.asarray(y))
 
 
+def _dtype_name(dt):
+    return str(dt).replace("torch.", "") if isinstance(dt, torch.dtype) \
+        else onp.dtype(dt).name
+
+
+def test_multi_precision_plan_layout_vs_jax():
+    """bert_small_test converted to bf16 (LayerNorms stay float32), Adam
+    with multi_precision: every bf16 parameter is its own mp unit updated
+    in float32 on a float32 master, the float32 ones share a bucket, as
+    in the JAX plan; a rank's state bytes count the master shards and
+    equal the JAX step's per-replica bytes at dp 4."""
+    import jax
+    from mxnet_tpu import amp as jamp
+    from mxnet_tpu.gluon import Trainer as JTrainer
+    from mxnet_tpu.gluon import fused_step as jfs
+    from mxnet_tpu.parallel import make_mesh as jmake_mesh
+    from mxnet_tpu_torch import amp as tamp
+    tnet, weights = _bert_weights()
+    load_jax_params(tnet, weights)
+    jnet = _jax_bert(weights)
+    jamp.convert_hybrid_block(jnet)
+    tamp.convert_hybrid_block(tnet)
+    hp = {"learning_rate": 0.01, "multi_precision": True}
+    jtr = JTrainer(jnet.collect_params(), "adam", dict(hp))
+    ttr = TTrainer(dict(tnet.named_parameters()), "adam", dict(hp))
+    jplan = jfs._ZeroShardPlan(jtr, jmake_mesh({"dp": DP},
+                                               jax.devices()[:DP]), "dp")
+    tplan = tfs._ZeroShardPlan(ttr._params, ttr._optimizer, DP)
+    keys = ("members", "sizes", "shapes", "total", "padded", "mp")
+    assert [{k: u[k] for k in keys} for u in tplan.units] == \
+        [{k: u[k] for k in keys} for u in jplan.units]
+    assert [_dtype_name(u["upd_dtype"]) for u in tplan.units] == \
+        [_dtype_name(u["upd_dtype"]) for u in jplan.units]
+    mp = [k for k, u in enumerate(tplan.units) if u["mp"]]
+    assert len(mp) == sum(1 for p in ttr._params
+                          if p.dtype == torch.bfloat16) > 0
+    for bucket_bytes in (0, 1 << 20, 64):
+        assert tfs.zero_bucket_schedule(tplan.units, bucket_bytes) == \
+            jfs.zero_bucket_schedule(jplan.units, bucket_bytes)
+    total = 0
+    for rank in range(DP):
+        tplan.create_states(ttr._optimizer, rank)
+        assert sorted(tplan.masters) == mp
+        for k in mp:
+            m = tplan.masters[k]
+            assert m.dtype == torch.float32
+            p = tplan.params[tplan.units[k]["members"][0]]
+            s = tplan.shard_len(k)
+            flat = torch.zeros(tplan.units[k]["padded"])
+            flat[:p.numel()] = p.detach().float().reshape(-1)
+            assert torch.equal(m, flat[rank * s:(rank + 1) * s])
+        assert all(t.dtype == torch.float32 for st in tplan.states
+                   for t in st)
+        total += tplan.state_bytes_per_replica()
+    assert total == sum(4 * u["padded"] * (3 if u["mp"] else 2)
+                        for u in tplan.units)
+    assert tplan.state_bytes_per_replica() == jplan.state_bytes_per_replica()
+
+
 @pytest.mark.parametrize("lens", [[5, 13, 8, 1], [16], [3, 4097]])
 def test_bucketed_routing_vs_jax(lens):
     import jax.numpy as jnp
@@ -482,6 +541,95 @@ def test_four_rank_replicated_batch_and_plain_mesh_mode():
                 onp.testing.assert_allclose(r["params"][k], ref,
                                             rtol=1e-5, atol=1e-6,
                                             err_msg=k)
+
+
+def _worker_mlp_mp(weights, kwargs, steps, bs):
+    """One rank: the MLP in bf16 with ``multi_precision`` through
+    ``compile_step`` under a dp mesh; its losses, bf16 weights (as
+    float32), master shards and plan facts."""
+    torch.set_num_threads(1)
+    from mxnet_tpu_torch.ops import kernels as K
+    net = _torch_mlp(weights).to(torch.bfloat16)
+    tr = TTrainer(dict(net.named_parameters()), "adam",
+                  dict(kwargs, multi_precision=True))
+    lb = tloss.SoftmaxCrossEntropyLoss()
+    step = tr.compile_step(lambda a, b: lb(net(a), b))
+    x, y = _mlp_batch(bs)
+    with tmake_mesh({"dp": tdist.size()}):
+        losses = [step(x, y).float().numpy().copy() for _ in range(steps)]
+    plan = step.zero_plan
+    return {"losses": losses, "mode": step.mode,
+            "params": {k: p.detach().float().numpy().copy()
+                       for k, p in net.named_parameters()},
+            "names": [n for n, _ in sorted(net.named_parameters())],
+            "mp": [u["mp"] for u in plan.units],
+            "members": [u["members"] for u in plan.units],
+            "masters": {k: m.numpy().copy() for k, m in plan.masters.items()},
+            "shard_len": [plan.shard_len(k) for k in range(len(plan.units))],
+            "state_bytes": step.optimizer_state_bytes(),
+            "launches": K.launch_counts()}
+
+
+def _jax_zero_mlp_mp(weights, kwargs, steps, bs):
+    import jax
+    import mxnet_tpu as mx
+    from mxnet_tpu.gluon import Trainer as JTrainer
+    from mxnet_tpu.gluon import loss as jloss
+    from mxnet_tpu.parallel import make_mesh as jmake_mesh
+    from mxnet_tpu.parallel import shard_batch
+    net = _jax_mlp(weights)
+    for p in net.collect_params().values():
+        p.cast("bfloat16")
+    tr = JTrainer(net.collect_params(), "adam",
+                  dict(kwargs, multi_precision=True))
+    lb = jloss.SoftmaxCrossEntropyLoss()
+    step = tr.compile_step(lambda a, b: lb(net(a), b))
+    x, y = _mlp_batch(bs)
+    with jmake_mesh({"dp": DP}, jax.devices()[:DP]) as mesh:
+        xs = shard_batch(mx.nd.array(x), mesh)
+        ys = shard_batch(mx.nd.array(y), mesh)
+        losses = [step(xs, ys).asnumpy().astype("f4") for _ in range(steps)]
+    assert step.zero_sharded
+    return losses, {k: p.data().asnumpy().astype("f4")
+                    for k, p in net.collect_params().items()}, \
+        step.optimizer_state_bytes()
+
+
+def test_four_rank_multi_precision_zero_vs_jax_zero_step(monkeypatch):
+    """The MLP's weights in bf16, Adam with multi_precision: four gloo
+    ranks against the JAX ZeRO step at dp 4 (kernel 12 in interpret
+    mode), four steps. Every parameter is an mp unit with a float32
+    master shard; on every rank each weight equals its gathered master
+    rounded to bf16. Both sides rebuild the forward in float32 from the
+    same bf16 weights and reduce bf16 gradients in float32, so the
+    losses agree to 1e-5; the weights to one bf16 ulp (2**-8 of a value:
+    a master within float32 rounding of a bf16 tie can round apart)."""
+    monkeypatch.setenv("MXNET_PALLAS", "on")
+    monkeypatch.setenv("MXNET_ZERO_SHARD_MIN_SIZE", "1")
+    weights = _mlp_weights()
+    run = (weights, {"learning_rate": 1e-2, "wd": 0.01}, 4, 8)
+    jl, jp, jbytes = _jax_zero_mlp_mp(*run)
+    ranks = tdist.spawn(_worker_mlp_mp, DP, "cpu", run,
+                        timeout_s=SPAWN_TIMEOUT_S)
+    for r in ranks:
+        assert r["mode"] == "zero" and all(r["mp"])
+        assert r["state_bytes"] == jbytes
+        for a, b in zip(r["losses"], jl):
+            onp.testing.assert_allclose(a, b, atol=1e-5)
+        for k, ref in jp.items():
+            onp.testing.assert_allclose(r["params"][k], ref, rtol=2 ** -8,
+                                        atol=1e-6, err_msg=k)
+            onp.testing.assert_array_equal(r["params"][k],
+                                           ranks[0]["params"][k])
+    # each weight is its master (gathered over the ranks) in bf16
+    r0 = ranks[0]
+    for k, members in enumerate(r0["members"]):
+        name = r0["names"][members[0]]
+        full = onp.concatenate([r["masters"][k] for r in ranks])
+        w = r0["params"][name]
+        master = torch.from_numpy(full[:w.size].reshape(w.shape))
+        onp.testing.assert_array_equal(
+            master.to(torch.bfloat16).float().numpy(), w)
 
 
 def _worker_bert(weights, x, y, steps):
