@@ -14,7 +14,9 @@
     python3 chip_smoke.py --compare DIR  # A/B on one card: the flash
         # forward, the flash backward (fused at BERT training's shape;
         # dq, dkv at phase 7's), the recurrence kernels, the LayerNorm
-        # backward and the decode step (with its launch floor), phase
+        # forward (served and at BERT training's 16384 x 768) and
+        # backward, the bias-GELU backward and the decode step (with the
+        # launch floors of their plans' grids), phase
         # 7's step and the bf16 amp BERT step of the checkout at DIR
         # (e.g. the parent commit unpacked by `git archive` under build/)
         # and of this one, timed in turns (DIR, this, this, DIR), with
@@ -29,7 +31,12 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    float32 and bfloat16, with the tolerance printed beside the error, and
    time the kernel, the plain version and one PyTorch library call that
    computes the same function at the shapes of its path, in both dtypes
-   (the backward kernels at BERT-base training's B*H = 384, S = 512,
+   (the LayerNorm forward served and at BERT training's 16384 x 768,
+   with its plan's edges: one row, C 1, C 771, C 16,384, C 120,000, C at
+   the warp branch's cap and one past it, and x offset by one element,
+   each with its plan and one launch, run twice to show it repeats bit
+   for bit, timed beside an empty kernel of its grid;
+   the backward kernels at BERT-base training's B*H = 384, S = 512,
    D = 64, at the long-sequence phase's S = 1024, and LayerNorm at
    16384 x 768, with its plan's edges: C at the warp branch's cap and one
    past it, C 16,384, C 771, 3 rows and one row, each with its plan, one
@@ -56,7 +63,11 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    and LSTM at T 3 x N 64 x H 4,096 (the forward reads W_hh through L2,
    several tiles a block) and T 2 x N 512 x H 4,096 (several walk tiles a
    block), shapes the first versions refused; the bias-GELU backward at
-   4096 x 3072 and at an unaligned C, and the decode step (``rnn_decode``)
+   4096 x 3072, an unaligned C, one row, C 1, C 16,384, x and dy offset
+   by one element and a float32 b under bfloat16 x (db in b's dtype),
+   each with its plan and one launch, run twice to show dx and db repeat
+   bit for bit, timed beside an empty kernel of its grid; the decode
+   step (``rnn_decode``)
    in every mode at N 3 x H 37, N 128 x H 650 (two row groups), N 2 x H
    4,096, N 8 x H 650 and N 8 x H 128, float32 and bfloat16 (bfloat16
    W_hh read as it is, equal bit for bit to its float32 widening), each
@@ -94,7 +105,17 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    ``flash_bwd_fused`` launches in bf16 and 25 + 25 LayerNorm launches
    in float32 (counted by input dtype), parameters and gradients
    float32, the gradients against a CPU copy under amp within 2.5e-1 of
-   each parameter's largest; median step ms, tokens/s, peak memory;
+   each parameter's largest, and so against a float64 CPU copy of the
+   same weights; each parameter's error to float64 (largest element and
+   rms, the larger over three batches) on the card under amp, on the CPU
+   under amp and on the CPU in float32, the five worst by the ratio card
+   / CPU (``bf16_grad_vs_float64``); the bf16 ops against
+   float64 on the same bf16 inputs, beside the CPU's result
+   (``bf16_ops``): cuBLAS products at training's and the check's shapes
+   with ``allow_bf16_reduced_precision_reduction`` on and off, the fused
+   flash backward (dq, dk, dv) against an exact float64 backward and one
+   rounding P and dS as the reference does, the flash forward's output,
+   and dq's spread over five runs; median step ms, tokens/s, peak memory;
 7. train a 2-layer BERT-width classifier at sequence 1024 for two steps,
    so the flash backward takes its dq and dkv kernels (two launches each
    per step, none of the fused one), with its gradients against a CPU
@@ -204,6 +225,10 @@ GRAD_ATOL, GRAD_RTOL = 1e-6, 1e-3
 #: small difference of bf16-rounded products). A wrong gradient (a lost
 #: term, a wrong scale or operand) is off by O(1) of its largest
 GRAD_RTOL_BF16 = 2.5e-1
+#: phase 6b also holds each side's gradients against a float64 CPU copy
+#: at this many batches of GRAD_BATCH x GRAD_SEQ (the first is the
+#: gradient check's)
+GRAD_F64_BATCHES = 3
 #: phase 4b's bf16 logits, GPU vs a CPU copy converted the same way: 5e-2
 #: of the largest |logit|. On the CPU at this shape bf16 logits differ
 #: from float32's by 1.5 % of the largest; two bf16 runs about twice that
@@ -310,15 +335,27 @@ FLASH_CASES = [
 ]
 #: the flash forward's shapes timed: served (bucket 32) and BERT training
 FLASH_SERVED, FLASH_TRAIN = (32, 128), (32, 512)
-#: (rows, C) of the LayerNorm and bias-GELU checks; the first is served
-LN_CASES = ((4096, 768), (37, 50))
+#: (rows, C) of the LayerNorm and bias-GELU checks; the first is served.
+#: The LayerNorm forward's also: BERT training's 16384 x 768 (timed in
+#: float32 as ``layernorm_fwd@train``), then its plan's edges: one row,
+#: C 1, C 771 (one element a load), C 16,384 (the block branch, the row
+#: kept in shared memory) and C 120,000 (a row too wide for it); by dtype
+#: C at the warp branch's cap and one past it; and x offset by one
+#: element (LN_OFFSET_CASES: unaligned, one element a load)
+LN_CASES = ((4096, 768), (37, 50), (TRAIN_BATCH * TRAIN_SEQ, 768), (1, 768),
+            (3, 1), (4099, 771), (20, 16384), (3, 120000))
+LN_CAP_CASES = {"float32": ((300, 1024), (300, 1025)),
+                "bfloat16": ((300, 2048), (300, 2049))}
+LN_OFFSET_CASES = ((4096, 768),)
 BG_CASES = ((4096, 3072), (37, 50))
 
 
-def check_kernels(torch, ATT, KN, dev):
+def check_kernels(torch, ATT, K, KN, dev):
     """Phase 3: every kernel against its plain version, in float32 and
-    bfloat16. Returns {(kernel, dtype): (record, args)} of the served
-    shapes, for :func:`time_kernels`."""
+    bfloat16 (the LayerNorm forward also at its plan's edges, each with
+    its plan and one launch, run twice to show it repeats bit for bit).
+    Returns {(kernel, dtype): (record, args)} of the served shapes (and
+    the LayerNorm forward's training shape), for :func:`time_kernels`."""
     g = torch.Generator(device=dev).manual_seed(0)
     failures, served = [], {}
 
@@ -358,18 +395,32 @@ def check_kernels(torch, ATT, KN, dev):
                     "repeats_bit_for_bit": repeats,
                     "ok": ok1 and ok2 and repeats}, (q, k, v), key)
 
-        for rows, c in LN_CASES:
-            x = rnd(rows, c, dtype=dtype)
+        ln_cases = [(rows, c, 0) for rows, c in LN_CASES + LN_CAP_CASES[dn]]
+        for rows, c, off in ln_cases + [(r, c, 1) for r, c in LN_OFFSET_CASES]:
+            x = rnd(rows * c + off, dtype=dtype)[off:].view(rows, c)
             gam, bet = rnd(c, dtype=torch.float32), rnd(c, dtype=torch.float32)
+            K.reset_launch_counts()
             y = KN.layer_norm(x, gam, bet, 1e-5)
             torch.cuda.synchronize()
+            launched = K.launch_counts()["layernorm_fwd"]
+            repeats = bool(torch.equal(y, KN.layer_norm(x, gam, bet, 1e-5)))
             ok, e, r = compare(torch, y, KN.layer_norm_plain(x, gam, bet),
                                atol, rtol)
+            key = None
+            if off == 0 and (rows, c) == LN_CASES[0]:
+                key = "layernorm_fwd"
+            elif off == 0 and (rows, c) == LN_CASES[2] and dn == "float32":
+                key = "layernorm_fwd@train"
             record({"kernel": "layernorm_fwd", "dtype": dn,
-                    "shape": [rows, c], "max_abs_err": e, "rel_err": r,
-                    "atol": atol, "rtol": rtol, "ok": ok},
-                   (x, gam, bet),
-                   "layernorm_fwd" if (rows, c) == LN_CASES[0] else None)
+                    "shape": [rows, c], "offset_elements": off,
+                    "max_abs_err": e, "rel_err": r, "atol": atol,
+                    "rtol": rtol, "repeats_bit_for_bit": repeats,
+                    "launches": launched,
+                    "plan": KN.ln_fwd_plan(rows, c, dtype, dev,
+                                           aligned=off == 0),
+                    "ok": ok and repeats and launched == 1},
+                   (x, gam, bet), key)
+            del x, y
 
         for rows, c in BG_CASES:
             x, bias = rnd(rows, c, dtype=dtype), rnd(c, dtype=dtype)
@@ -387,16 +438,19 @@ def check_kernels(torch, ATT, KN, dev):
     return served
 
 
-def time_kernels(torch, F, ATT, KN, served):
+def time_kernels(torch, F, ATT, K, KN, served):
     """Kernel, plain-version and library-call times (device and eager,
-    :func:`time_ms`) at the served shapes (bucket 32, sequence 128), and
-    the flash forward also at BERT training's (batch 32, sequence 512;
-    key ``flash_fwd@train``), in each dtype, with the bound of this call's
-    work. Returns {(kernel, dtype): timing}."""
+    :func:`time_ms`) at the served shapes (bucket 32, sequence 128), the
+    flash forward also at BERT training's (batch 32, sequence 512; key
+    ``flash_fwd@train``) and the LayerNorm forward at its 16384 x 768 in
+    float32 (``layernorm_fwd@train``), in each dtype, with the bound of
+    this call's work; the LayerNorm forward beside an empty kernel of its
+    plan's grid (the launch floor). Returns {(kernel, dtype): timing}."""
     timing = {}
     for (key, dn), (rec, args) in served.items():
         name = key.split("@")[0]
         size = args[0].element_size()
+        extra = {}
         if name == "flash_fwd":
             q, k, v = args
             b, h, sq, d = q.shape
@@ -421,6 +475,7 @@ def time_kernels(torch, F, ATT, KN, served):
                    lambda x_, g_, b_: F.layer_norm(
                        x_, (x_.shape[-1],), g_.to(x_.dtype), b_.to(x_.dtype),
                        1e-5))
+            extra = empty_floor(torch, K, x.device, rec["plan"])
         else:
             x, bias = args
             c = x.shape[-1]
@@ -440,10 +495,17 @@ def time_kernels(torch, F, ATT, KN, served):
              "bound_ms": b_ms, "bound_by": b_by,
              "eager_ms": eager_ms, "plain_eager_ms": plain_eager_ms,
              "library_eager_ms": library_eager_ms,
-             "bytes": nbytes, "flops": flops}
+             "bytes": nbytes, "flops": flops, **extra}
         emit({"timing": t})
         timing[(key, dn)] = t
     return timing
+
+
+def empty_floor(torch, K, dev, plan):
+    """The launch floor beside a kernel's time: an empty kernel of its
+    plan's blocks and threads, timed as the kernel is (graph replay)."""
+    return {"empty_kernel_ms": time_ms(torch, lambda: K.launch_empty(
+        dev, plan["blocks"], plan["threads"]), [()])[0], "plan": plan}
 
 
 #: flash backward cases (B, H, Sq, Sk, D, causal): the first is BERT-base
@@ -730,8 +792,13 @@ RNN_CASES = ((7, 3, 37), (9, 1, 300), (5, 130, 200), (6, 17, 129),
 RNN_REFUSED = {"forward": (3, 64, 4096), "walk": (2, 512, 4096)}
 RNN_MODES = ("lstm", "gru", "rnn_tanh", "rnn_relu")
 #: (rows, C) of the bias-GELU backward: the phase-5 encoder's FFN
-#: (32 x 128 tokens x 3072), and an unaligned C
-BG_BWD_CASES = ((4096, 3072), (37, 50))
+#: (32 x 128 tokens x 3072), an unaligned C, then the plan's edges: one
+#: row, C 1, C 16,384; x, dy offset by one element (BG_BWD_OFFSET_CASES:
+#: one element a load); and b in float32 under bfloat16 x
+#: (BG_BWD_F32_BIAS_CASES: b read and db written in b's dtype)
+BG_BWD_CASES = ((4096, 3072), (37, 50), (1, 3072), (3, 1), (20, 16384))
+BG_BWD_OFFSET_CASES = ((4096, 3072),)
+BG_BWD_F32_BIAS_CASES = ((37, 3072),)
 
 
 def rnn_case(torch, K, KR, rnd, mode, n_t, n, h, rev):
@@ -848,24 +915,39 @@ def check_new_kernels(torch, K, KR, KN, dev):
                     timed[("rnn_scan_bwd", dn)] = (
                         dict(rec, kernel="rnn_scan_bwd",
                              max_abs_err=bwd_err), args)
-        for rows, c in BG_BWD_CASES:
-            x, bias, dy = rnd(rows, c), rnd(c), rnd(rows, c)
+        bg_cases = [(rows, c, 0, dtype) for rows, c in BG_BWD_CASES] + \
+            [(rows, c, 1, dtype) for rows, c in BG_BWD_OFFSET_CASES] + \
+            [(rows, c, 0, torch.float32) for rows, c in BG_BWD_F32_BIAS_CASES]
+        for rows, c, off, b_dtype in bg_cases:
+            x = rnd(rows * c + off)[off:].view(rows, c)
+            dy = rnd(rows * c + off)[off:].view(rows, c)
+            bias = rnd(c).to(b_dtype)
+            K.reset_launch_counts()
             got = KN.bias_gelu_bwd(x, bias, dy)
             torch.cuda.synchronize()
+            launched = K.launch_counts()["bias_gelu_bwd"]
             res = [compare(torch, a, r, atol, rtol) for a, r in
                    zip(got, KN.bias_gelu_bwd_plain(x, bias, dy))]
             again = KN.bias_gelu_bwd(x, bias, dy)
             repeats = all(bool(torch.equal(a, b)) for a, b in zip(got, again))
+            dtypes_ok = got[0].dtype == dtype and got[1].dtype == b_dtype
             rec = {"kernel": "bias_gelu_bwd", "dtype": dn, "shape": [rows, c],
+                   "offset_elements": off,
+                   "b_dtype": str(b_dtype).replace("torch.", ""),
                    "max_abs_err": max(r[1] for r in res),
                    "rel_err": max(r[2] for r in res), "atol": atol,
                    "rtol": rtol, "repeats_bit_for_bit": repeats,
-                   "ok": all(r[0] for r in res) and repeats}
+                   "launches": launched,
+                   "plan": KN.bg_bwd_plan(rows, c, dtype, dev,
+                                          aligned=off == 0),
+                   "ok": all(r[0] for r in res) and repeats and dtypes_ok
+                   and launched == 1}
             emit({"check": rec})
             if not rec["ok"]:
                 failures.append(rec)
-            if (rows, c) == BG_BWD_CASES[0]:
+            if (rows, c, off, b_dtype) == BG_BWD_CASES[0] + (0, dtype):
                 timed[("bias_gelu_bwd", dn)] = (rec, (x, bias, dy))
+            del x, dy, got, again
     if failures:
         raise SystemExit(f"rnn / bias-GELU backward checks failed: "
                          f"{failures}")
@@ -896,13 +978,14 @@ def cudnn_rnn_ms(torch, xw, h0, c0):
     return f, time_eager_ms(torch, fwd_bwd, (x,)) - f
 
 
-def time_new_kernels(torch, F, KR, KN, timed):
+def time_new_kernels(torch, F, K, KR, KN, timed):
     """Kernel, plain-version and library times of this slice's kernels at
     their paths' shapes (the LM's LSTM layer, the phase-5 FFN), in each
     dtype, with the bound of this call's work: each input read once and
     each output written once; the recurrence's operations are the TPU
     kernel's (2*T*N*G*H^2 a product; the backward's three: recompute, dh,
-    dW). Returns {(kernel, dtype): timing}."""
+    dW); the bias-GELU backward beside an empty kernel of its plan's grid
+    (the launch floor). Returns {(kernel, dtype): timing}."""
     timing, cudnn = {}, {}
     for (name, dn), (rec, args) in timed.items():
         extra = {}
@@ -927,6 +1010,7 @@ def time_new_kernels(torch, F, KR, KN, timed):
             library = "autograd backward of F.gelu(x + b) (eager)"
             library_ms = time_eager_ms(torch, gelu_fwd_bwd, (x, bias, dy)) \
                 - time_eager_ms(torch, gelu_fwd, (x, bias))
+            extra = empty_floor(torch, K, x.device, rec["plan"])
         else:
             xw, h0, c0, w, b, dys, dc_t = args
             n_t, n, gh = xw.shape
@@ -1130,29 +1214,40 @@ def time_decode_kernel(torch, K, KR, timed):
     return timing
 
 
+def param_grads(torch, net, loss_fn, x, y):
+    """One backward of ``loss_fn`` at (x, y) (numpy) on ``net`` in eval
+    mode (dropout off): {name: gradient on the CPU, in its dtype}."""
+    net.eval()
+    dev = next(net.parameters()).device
+    for p in net.parameters():
+        p.grad = None
+    loss_fn(net(torch.from_numpy(x).to(dev)),
+            torch.from_numpy(y).to(dev)).sum().backward()
+    return {n: p.grad.detach().cpu() for n, p in net.named_parameters()}
+
+
+def grad_scales(ref, scale_of=None):
+    """Each parameter's scale: max |ref gradient| of the parameter, or the
+    largest over the parameters ``scale_of(name)`` lists."""
+    return {n: max(float(ref[m].abs().max())
+                   for m in (scale_of(n) if scale_of else [n])) for n in ref}
+
+
 def grad_check(torch, gpu_net, cpu_net, loss_fn, x, y, atol=GRAD_ATOL,
-               rtol=GRAD_RTOL, scale_of=None):
+               rtol=GRAD_RTOL, scale_of=None, grads=None):
     """One backward of ``loss_fn`` at (x, y) on both nets (in eval mode:
-    dropout off); the worst parameters' max |difference| over their bound
-    ``atol + rtol * scale``, the scale max |CPU gradient| of the parameter
-    (or the largest over the parameters ``scale_of(name)`` lists; ok when
-    <= 1)."""
-    grads = []
-    for net in (gpu_net, cpu_net):
-        net.eval()
-        dev = next(net.parameters()).device
-        for p in net.parameters():
-            p.grad = None
-        loss_fn(net(torch.from_numpy(x).to(dev)),
-                torch.from_numpy(y).to(dev)).sum().backward()
-        grads.append({n: p.grad.detach().float().cpu()
-                      for n, p in net.named_parameters()})
+    dropout off; or their gradients ``grads``, from :func:`param_grads`);
+    the worst parameters' max |difference| over their bound
+    ``atol + rtol * scale`` (:func:`grad_scales` of the CPU gradients; ok
+    when <= 1)."""
+    if grads is None:
+        grads = [param_grads(torch, net, loss_fn, x, y)
+                 for net in (gpu_net, cpu_net)]
+    scales = grad_scales(grads[1], scale_of)
     ranked = []
     for n, ref in grads[1].items():
-        err = float((grads[0][n] - ref).abs().max())
-        scale = max(float(grads[1][m].abs().max())
-                    for m in (scale_of(n) if scale_of else [n]))
-        ratio = err / (atol + rtol * scale)
+        err = float((grads[0][n].double() - ref.double()).abs().max())
+        ratio = err / (atol + rtol * scales[n])
         ranked.append((ratio if math.isfinite(ratio) else math.inf, n, err))
     ranked.sort(reverse=True)
     worst, worst_name, worst_err = ranked[0]
@@ -1160,6 +1255,194 @@ def grad_check(torch, gpu_net, cpu_net, loss_fn, x, y, atol=GRAD_ATOL,
             "worst_max_abs_err": worst_err, "worst_err_over_bound": worst,
             "next_worst": [[n, r] for r, n, _ in ranked[1:4]],
             "atol": atol, "rtol_of_param_max": rtol, "ok": worst <= 1.0}
+
+
+def grad_errors(grads, ref, scale_of=None, rms=False):
+    """Per parameter: max |gradient - ref| (with ``rms``: the root mean
+    square of the difference) over the parameter's scale
+    (:func:`grad_scales` of ``ref``)."""
+    scales = grad_scales(ref, scale_of)
+    out = {}
+    for n, r in ref.items():
+        d = grads[n].double() - r
+        err = d.pow(2).mean().sqrt() if rms else d.abs().max()
+        out[n] = float(err) / max(scales[n], 1e-300)
+    return out
+
+
+#: phase 6b's sides against float64, and the measures of their errors
+F64_SIDES = ("card_amp", "cpu_amp", "cpu_float32")
+F64_MEASURES = ("max", "rms")
+
+
+def side_errors(g_card, g_amp, g_f32, g_f64):
+    """One batch's errors against float64 (:func:`grad_errors`, max and
+    rms, scaled as ``bias_scale`` says) of the card under amp, of the CPU
+    copy under amp and of the CPU copy in float32: {measure: {side:
+    {parameter: error}}}."""
+    return {m: {side: grad_errors(g, g_f64, bias_scale, rms=m == "rms")
+                for side, g in zip(F64_SIDES, (g_card, g_amp, g_f32))}
+            for m in F64_MEASURES}
+
+
+def amp_vs_float64(batches, sizes):
+    """Phase 6b's three sides against float64 over several batches (a
+    list of :func:`side_errors`; ``sizes``: each parameter's elements):
+    each parameter's error is its largest over the batches; by each
+    measure the largest and median error of each side, the median ratio
+    card / CPU under amp, the five parameters with the largest ratio
+    (with their element counts), and ``within_2x``: every ratio <= 2."""
+    out = {"batches": len(batches),
+           "per_param_columns": [f"{side} {m}" for m in F64_MEASURES
+                                 for side in F64_SIDES]}
+    errs = {m: {side: {n: max(b[m][side][n] for b in batches)
+                       for n in sizes} for side in F64_SIDES}
+            for m in F64_MEASURES}
+    for m, e in errs.items():
+        ratio = {n: e["card_amp"][n] / max(e["cpu_amp"][n], 1e-300)
+                 for n in sizes}
+        worst = sorted(ratio, key=ratio.get, reverse=True)[:5]
+        out[m] = {
+            "max": {side: max(v.values()) for side, v in e.items()},
+            "argmax": {side: max(v, key=v.get) for side, v in e.items()},
+            "median": {side: statistics.median(v.values())
+                       for side, v in e.items()},
+            "median_ratio": statistics.median(ratio.values()),
+            "worst_ratio_card_over_cpu_amp": [
+                [n, ratio[n], sizes[n]] + [e[sd][n] for sd in F64_SIDES]
+                for n in worst],
+            "within_2x": all(r <= 2.0 for r in ratio.values())}
+    out["per_param"] = {n: [errs[m][side][n] for m in F64_MEASURES
+                            for side in F64_SIDES] for n in sizes}
+    return out
+
+
+#: part of phase 6b: the bf16 products that BERT-base training (16384
+#: tokens) and the gradient check (256 tokens) make, (M, K, N): the
+#: forward's 768 x 768 and 768 x 3072 and 3072 x 768 layers, and the
+#: weight gradients, whose K is the tokens
+BF16_MATMUL_CASES = ((16384, 768, 768), (16384, 768, 3072),
+                     (16384, 3072, 768), (768, 16384, 768),
+                     (768, 16384, 3072), (256, 768, 768), (256, 3072, 768),
+                     (768, 256, 768))
+#: the fused flash backward's bf16 branch held against float64: BERT
+#: training's shape and the gradient check's
+BF16_FLASH_CASES = ((TRAIN_BATCH, 12, TRAIN_SEQ, TRAIN_SEQ, 64),
+                    (GRAD_BATCH, 12, GRAD_SEQ, GRAD_SEQ, 64))
+#: runs of the fused backward whose dq is compared (the atomics' order)
+BF16_DQ_RUNS = 5
+
+
+def rel_errs(torch, got, ref):
+    """(max |err| / max |ref|, rms err / rms ref) of ``got`` against the
+    float64 ``ref`` (on one device)."""
+    err = got.double() - ref
+    return (float(err.abs().max() / ref.abs().max()),
+            float(err.pow(2).mean().sqrt() / ref.pow(2).mean().sqrt()))
+
+
+def flash_bwd_float64(torch, q, k, v, out, lse, do, scale, rounded):
+    """The attention backward in float64 from the same (bf16) q, k, v,
+    out, lse and dO, the delta from that out; with ``rounded`` P is
+    rounded to bf16 before dV and dS before dQ and dK, as the reference
+    (``mxnet_tpu/ops/attention.py``) and the plain version round them."""
+    q, k, v, o, do = (t.double() for t in (q, k, v, out, do))
+    delta = (do * o).sum(-1, keepdim=True)
+    p = torch.exp(torch.matmul(q, k.transpose(-1, -2)) * scale
+                  - lse.double()[..., None])
+    pv = p.to(torch.bfloat16).double() if rounded else p
+    dv = torch.matmul(pv.transpose(-1, -2), do)
+    ds = p * (torch.matmul(do, v.transpose(-1, -2)) - delta) * scale
+    if rounded:
+        ds = ds.to(torch.bfloat16).double()
+    return torch.matmul(ds, k), torch.matmul(ds.transpose(-1, -2), q), dv
+
+
+def bf16_op_checks(torch, ATT, dev):
+    """Part of phase 6b: the card's bf16 ops against float64 on the same
+    bf16 inputs, beside the CPU's bf16 result of the same op: (a) cuBLAS
+    products (``torch.matmul``) at BF16_MATMUL_CASES with
+    ``allow_bf16_reduced_precision_reduction`` True (PyTorch's default)
+    and False, (b) the fused flash backward's bf16 branch (dq, dk, dv)
+    against an exact float64 backward and one that rounds P and dS as
+    the reference does, and the flash forward's output against exact
+    float64 attention, (c) dq's spread over BF16_DQ_RUNS runs (float32
+    atomics in no fixed order). Errors are (max, rms) relative; beside
+    them the float64 result rounded once to bf16, the least any bf16
+    output can miss by."""
+    g = torch.Generator(device=dev).manual_seed(11)
+    flag = torch.backends.cuda.matmul
+    default = flag.allow_bf16_reduced_precision_reduction
+    products = []
+    for m, kk, n in BF16_MATMUL_CASES:
+        a = torch.randn(m, kk, generator=g, device=dev).to(torch.bfloat16)
+        b = (torch.randn(kk, n, generator=g, device=dev)
+             * kk ** -0.5).to(torch.bfloat16)
+        ref = torch.matmul(a.double(), b.double())
+        rec = {"m_k_n": [m, kk, n],
+               "bf16_rounding_floor": rel_errs(torch, ref.to(torch.bfloat16),
+                                               ref)}
+        try:
+            for allow in (True, False):
+                flag.allow_bf16_reduced_precision_reduction = allow
+                rec[f"card_reduced_precision_{allow}"] = rel_errs(
+                    torch, torch.matmul(a, b), ref)
+        finally:
+            flag.allow_bf16_reduced_precision_reduction = default
+        rec["cpu"] = rel_errs(torch, torch.matmul(a.cpu(), b.cpu()),
+                              ref.cpu())
+        products.append(rec)
+        del a, b, ref
+    flash = []
+    for bb, h, sq, sk, d in BF16_FLASH_CASES:
+        q, k, v, do = (torch.randn(bb, h, s_, d, generator=g, device=dev)
+                       .to(torch.bfloat16) for s_ in (sq, sk, sk, sq))
+        out, lse = ATT.flash_attention_fwd(q, k, v)
+        scale = d ** -0.5
+        # the forward too: the card's online softmax over 64-key tiles
+        # rounds P to bf16 against each tile's running max, the plain
+        # version against the row's max
+        ref = torch.softmax(torch.matmul(q.double(), k.double().transpose(
+            -1, -2)) * scale, -1).matmul(v.double())
+        rec = {"shape": [bb, h, sq, sk, d], "flash_fwd_out": {
+            "card": rel_errs(torch, out, ref),
+            "cpu": rel_errs(torch, ATT.flash_attention_fwd_plain(
+                q.cpu(), k.cpu(), v.cpu())[0], ref.cpu()),
+            "bf16_rounding_floor": rel_errs(torch, ref.to(torch.bfloat16),
+                                            ref)}}
+        del ref
+        runs = [ATT.flash_attention_bwd(q, k, v, out, lse, do)
+                for _ in range(BF16_DQ_RUNS)]
+        cpu = ATT.flash_attention_bwd_plain(
+            *(t.cpu() for t in (q, k, v, out, lse, do)))
+        for rounded in (False, True):
+            ref = flash_bwd_float64(torch, q, k, v, out, lse, do, scale,
+                                    rounded)
+            key = "rounded_as_reference" if rounded else "exact"
+            rec[key] = {
+                name: {"card": rel_errs(torch, runs[0][i], ref[i]),
+                       "cpu": rel_errs(torch, cpu[i], ref[i].cpu()),
+                       "bf16_rounding_floor": rel_errs(
+                           torch, ref[i].to(torch.bfloat16), ref[i])}
+                for i, name in enumerate(("dq", "dk", "dv"))}
+            del ref
+        dq0 = runs[0][0].float()
+        spread = max(float((r[0].float() - dq0).abs().max())
+                     for r in runs[1:])
+        rec["dq_spread"] = {
+            "runs": BF16_DQ_RUNS, "max_abs_over_max_dq":
+            spread / float(dq0.abs().max()),
+            "elements_differing": max(int((r[0] != runs[0][0]).sum())
+                                      for r in runs[1:]),
+            "elements": dq0.numel(),
+            "dk_dv_bit_for_bit": all(torch.equal(r[1], runs[0][1])
+                                     and torch.equal(r[2], runs[0][2])
+                                     for r in runs[1:])}
+        flash.append(rec)
+        del q, k, v, do, out, lse, runs, cpu
+    torch.cuda.empty_cache()
+    return {"matmul": products, "flash_bwd_fused": flash,
+            "allow_bf16_reduced_precision_reduction_default": default}
 
 
 def bias_scale(name):
@@ -1306,8 +1589,11 @@ def train_bert(torch, np, K, dev, smi, profile=False, bf16=False):
     attention, float32 parameters, gradients, LayerNorms, loss and Adam
     state), ``amp.uninit()`` after it whatever happens; its launches are
     also held by input dtype, and the gradients against a CPU copy under
-    amp with the bf16 tolerance."""
+    amp and against a float64 CPU copy with the bf16 tolerance; beside
+    them the three sides' errors to float64 (:func:`amp_vs_float64`) and
+    the bf16 ops against float64 (:func:`bf16_op_checks`)."""
     from mxnet_tpu_torch import amp
+    from mxnet_tpu_torch.ops import attention as ATT
     if bf16:
         amp.init("bfloat16")
         try:
@@ -1369,14 +1655,48 @@ def train_bert(torch, np, K, dev, smi, profile=False, bf16=False):
 
     t1 = time.perf_counter()
     cpu_net = copy_to_cpu(lambda: make("cpu"), net, load_jax_params)
+    xs, ys = x[:GRAD_BATCH, :GRAD_SEQ], y[:GRAD_BATCH]
+    extra = {}
     if amp_on:
-        grads = grad_check(
-            torch, net, cpu_net, loss_fn, x[:GRAD_BATCH, :GRAD_SEQ],
-            y[:GRAD_BATCH], atol=GRAD_ATOL, rtol=GRAD_RTOL_BF16,
-            scale_of=bias_scale)
+        # the same weights on the CPU under amp, and without amp in
+        # float32 and converted to float64 (its attention still float32:
+        # the plain version computes in float32), at GRAD_F64_BATCHES
+        # batches of the run's rows; the first is the gradient check's
+        cpu64 = copy_to_cpu(lambda: make("cpu"), net, load_jax_params)
+        cpu64.double()
+        batches = []
+        for i in range(GRAD_F64_BATCHES):
+            rows = slice(i * GRAD_BATCH, (i + 1) * GRAD_BATCH)
+            xb, yb = x[rows, :GRAD_SEQ], y[rows]
+            g = [param_grads(torch, m, loss_fn, xb, yb)
+                 for m in (net, cpu_net)]
+            amp.uninit()
+            try:
+                g += [param_grads(torch, m, loss_fn, xb, yb)
+                      for m in (cpu_net, cpu64)]
+            finally:
+                amp.init("bfloat16")
+            if i == 0:
+                grads = grad_check(torch, None, None, loss_fn, xs, ys,
+                                   atol=GRAD_ATOL, rtol=GRAD_RTOL_BF16,
+                                   scale_of=bias_scale, grads=g[:2])
+                card64 = grad_check(torch, None, None, loss_fn, xs, ys,
+                                    atol=GRAD_ATOL, rtol=GRAD_RTOL_BF16,
+                                    scale_of=bias_scale,
+                                    grads=(g[0], g[3]))
+                sizes = {n: t.numel() for n, t in g[3].items()}
+            batches.append(side_errors(*g))
+            del g
+        del cpu_net, cpu64
+        vs64 = amp_vs_float64(batches, sizes)
+        emit({"bf16_grad_vs_float64": dict(vs64, card_vs_float64=card64)})
+        extra["bf16_ops"] = bf16_op_checks(torch, ATT, dev)
+        emit({"bf16_ops": extra["bf16_ops"]})
+        extra["grad_vs_float64"] = {m: vs64[m] for m in F64_MEASURES}
+        extra["grad_vs_float64"]["card_vs_float64_ok"] = card64["ok"]
+        grads["ok"] = grads["ok"] and card64["ok"]
     else:
-        grads = grad_check(torch, net, cpu_net, loss_fn,
-                           x[:GRAD_BATCH, :GRAD_SEQ], y[:GRAD_BATCH])
+        grads = grad_check(torch, net, cpu_net, loss_fn, xs, ys)
     print(smi, flush=True)
     report = {
         "model": "bert_base classifier",
@@ -1394,6 +1714,7 @@ def train_bert(torch, np, K, dev, smi, profile=False, bf16=False):
         "parameters_and_gradients_float32": master_ok,
         "grad_check": dict(grads, batch=GRAD_BATCH, seq=GRAD_SEQ,
                            seconds=time.perf_counter() - t1),
+        **{k: v for k, v in extra.items() if k != "bf16_ops"},
         "card": smi, "ok": launches_ok and losses_ok and grads["ok"]
         and master_ok}
     emit({"train_bf16" if amp_on else "train": report})
@@ -2705,6 +3026,10 @@ AB_FLASH = ((32, 12, 128, 128, 64), (32, 12, 512, 512, 64))
 AB_FLASH_BWD = (LONG_BATCH, 12, LONG_SEQ, LONG_SEQ, 64)
 #: --kernel-times: the fused backward at BERT training's shape
 AB_FUSED_BWD = (TRAIN_BATCH, 12, TRAIN_SEQ, TRAIN_SEQ, 64)
+#: --kernel-times: the LayerNorm forward served (both dtypes) and at BERT
+#: training's 16384 x 768 (float32, its dtype there also under amp)
+AB_LN_FWD = {"float32": ((4096, 768), (TRAIN_BATCH * TRAIN_SEQ, 768)),
+             "bfloat16": ((4096, 768),)}
 #: --kernel-times: bf16 amp BERT-base steps (32 x 512) timed after a
 #: warm-up step, where the checkout has amp
 AB_BF16_STEPS = 5
@@ -2723,11 +3048,13 @@ def kernel_times(root):
     ``{"kernel_times": ...}`` line: device ms by CUDA-graph replay of the
     flash forward, the long-sequence backward's dq and dkv kernels, the
     recurrence forward and backward, the LayerNorm backward at BERT
-    training's 16384 x 768 and the decode step at decode_wide's and
-    decode_leg's shapes, float32 and bfloat16, with an empty kernel of
-    the decode plan's grid (the launch floor; only where the checkout has
-    it), the median wall ms of phase 7's training step (host clock, each
-    step ends in a synchronize),
+    training's 16384 x 768, the LayerNorm forward at AB_LN_FWD, the
+    bias-GELU backward at 4096 x 3072 and the decode step at
+    decode_wide's and decode_leg's shapes, float32 and bfloat16, with an
+    empty kernel of the decode, LayerNorm forward and bias-GELU backward
+    plans' grids (the launch floor; only where the checkout has the
+    plan), the median wall ms of phase 7's training step (host clock,
+    each step ends in a synchronize),
     and what each wrapper does at the AB_REFUSED shapes (ran, then timed
     the same way, or the error it raised: a probe, not a path)."""
     import numpy as np
@@ -2831,6 +3158,20 @@ def kernel_times(root):
         times[f"layernorm_bwd {dn} {[rows, c]}"] = time_ms(
             torch, lambda *a: KN.layer_norm_bwd(*a), sets)[0]
         del x, dy, sets
+        for rows, c in AB_LN_FWD[dn]:
+            x = rnd(rows, c, dtype=dtype)
+            sets = [(x.clone(), rnd(c), rnd(c))
+                    for _ in range(n_sets(torch, (x, x)))]
+            times[f"layernorm_fwd {dn} {[rows, c]}"] = time_ms(
+                torch, lambda *a: KN.layer_norm(*a), sets)[0]
+            del x, sets
+        rows, c = BG_BWD_CASES[0]
+        x, dy = rnd(rows, c, dtype=dtype), rnd(rows, c, dtype=dtype)
+        sets = [(x.clone(), rnd(c, dtype=dtype), dy.clone())
+                for _ in range(n_sets(torch, (x, x, x)))]
+        times[f"bias_gelu_bwd {dn} {[rows, c]}"] = time_ms(
+            torch, lambda *a: KN.bias_gelu_bwd(*a), sets)[0]
+        del x, dy, sets
         for n, h in DECODE_TIMED:
             xw, hh, cc = (rnd(n, 4 * h, dtype=dtype, s=0.5),
                           rnd(n, h, dtype=dtype, s=0.5),
@@ -2844,10 +3185,20 @@ def kernel_times(root):
                 iters=50)[0]
             del w, sets
     if hasattr(K, "launch_empty"):
-        # the launch floor under the decode step: an empty kernel of its
-        # plan's grid (a checkout without the query has no floor line)
-        for n, h in DECODE_TIMED:
-            plan = KR.rnn_decode_plan(n, h, "lstm", torch.float32, dev)
+        # the launch floor under the decode step, and where the checkout
+        # plans them under the LayerNorm forward and the bias-GELU
+        # backward: an empty kernel of each plan's grid (a checkout
+        # without the query has no floor line)
+        plans = [KR.rnn_decode_plan(n, h, "lstm", torch.float32, dev)
+                 for n, h in DECODE_TIMED]
+        for query, shapes in (("ln_fwd_plan", AB_LN_FWD),
+                              ("bg_bwd_plan", {dn: (BG_BWD_CASES[0],)
+                                               for dn in AB_LN_FWD})):
+            if hasattr(KN, query):
+                plans += [getattr(KN, query)(rows, c, getattr(torch, dn), dev)
+                          for dn, cases in shapes.items()
+                          for rows, c in cases]
+        for plan in plans:
             times[f"empty kernel {plan['blocks']} x {plan['threads']}"] = \
                 time_ms(torch, lambda: K.launch_empty(
                     dev, plan["blocks"], plan["threads"]), [()],
@@ -2978,14 +3329,14 @@ def main(argv):
                                      "count": torch.cuda.device_count()}})
         return 0
 
-    served_args = check_kernels(torch, ATT, KN, dev)
-    timing = time_kernels(torch, F, ATT, KN, served_args)
+    served_args = check_kernels(torch, ATT, K, KN, dev)
+    timing = time_kernels(torch, F, ATT, K, KN, served_args)
     del served_args
     bwd_args = check_bwd_kernels(torch, ATT, K, KN, dev)
     timing.update(time_bwd_kernels(torch, F, ATT, KN, bwd_args))
     del bwd_args
     new_args = check_new_kernels(torch, K, KR, KN, dev)
-    timing.update(time_new_kernels(torch, F, KR, KN, new_args))
+    timing.update(time_new_kernels(torch, F, K, KR, KN, new_args))
     del new_args
     dec_args = check_decode_kernel(torch, K, KR, dev)
     dec_timing = time_decode_kernel(torch, K, KR, dec_args)
@@ -3082,7 +3433,9 @@ def main(argv):
                      "bf16_ms": tb["ms"], "bf16_plain_ms": tb["plain_ms"],
                      "bf16_bound_ms": tb["bound_ms"],
                      "bf16_bound_by": tb["bound_by"],
-                     "bf16_library_ms": tb["library_ms"]})
+                     "bf16_library_ms": tb["library_ms"],
+                     "empty_kernel_ms": t.get("empty_kernel_ms"),
+                     "bf16_empty_kernel_ms": tb.get("empty_kernel_ms")})
     print(smi, flush=True)
     emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu",

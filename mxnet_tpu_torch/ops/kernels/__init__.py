@@ -95,8 +95,9 @@ KERNELS: Dict[str, KernelInfo] = {k.name: k for k in (
     KernelInfo(
         "layernorm_fwd", "mxnet_tpu_torch/ops/kernels/csrc/layernorm_fwd.cu",
         "mxt_layernorm_fwd",
-        # x, gamma, beta, out, rows, C, eps, dtype, stream
-        (_P, _P, _P, _P, _L, _I, _F, _I, _P),
+        # x, gamma, beta, out, rows, C, eps, dtype, vec, packs, threads,
+        # blocks, stream
+        (_P, _P, _P, _P, _L, _I, _F) + (_I,) * 5 + (_P,),
         "mxnet_tpu/ops/kernels/norm.py:107 (_ln_fwd_kernel)"),
     KernelInfo(
         "bias_gelu_fwd", "mxnet_tpu_torch/ops/kernels/csrc/bias_gelu_fwd.cu",
@@ -136,8 +137,9 @@ KERNELS: Dict[str, KernelInfo] = {k.name: k for k in (
     KernelInfo(
         "bias_gelu_bwd", "mxnet_tpu_torch/ops/kernels/csrc/bias_gelu_bwd.cu",
         "mxt_bias_gelu_bwd",
-        # x, b, dy, dx, db_part, db, rows, C, nparts, dtype, stream
-        (_P,) * 6 + (_L, _I, _I, _I, _P),
+        # x, b, dy, dx, part, db, rows, C, dtype, b_dtype, vec, tiles,
+        # chunks, rows_per_chunk, stream
+        (_P,) * 6 + (_L,) + (_I,) * 6 + (_L, _P),
         "mxnet_tpu/ops/kernels/norm.py:227 (_bg_bwd_kernel)"),
     KernelInfo(
         "rnn_scan_fwd", "mxnet_tpu_torch/ops/kernels/csrc/rnn_scan_fwd.cu",

@@ -26,26 +26,33 @@ from torch.autograd.function import once_differentiable
 from ...base import MXNetError
 from . import DTYPE_CODES, card_limits, check_cuda_operands, launch
 
-__all__ = ["layer_norm", "layer_norm_plain", "layer_norm_bwd",
-           "layer_norm_bwd_plain", "ln_bwd_plan", "bias_gelu",
-           "bias_gelu_plain", "bias_gelu_bwd", "bias_gelu_bwd_plain"]
+__all__ = ["layer_norm", "layer_norm_plain", "ln_fwd_plan",
+           "layer_norm_bwd", "layer_norm_bwd_plain", "ln_bwd_plan",
+           "bias_gelu", "bias_gelu_plain", "bias_gelu_bwd",
+           "bias_gelu_bwd_plain", "bg_bwd_plan"]
 
 _SQRT_HALF = math.sqrt(0.5)
 _INV_SQRT2PI = 1.0 / math.sqrt(2.0 * math.pi)
 #: widest C of the LayerNorm backward: a block's partials live in shared
 #: memory
 LN_BWD_MAX_C = 16384
-#: the LayerNorm backward's warp branch (a warp a row): threads a block,
-#: and the widest C it takes with 16-byte loads (by dtype) and with one
-#: element a load; wider rows take the block branch (a block a row)
-LN_BWD_WARP_THREADS = 128
-LN_BWD_WARP_CAP = {torch.float32: 1024, torch.bfloat16: 2048}
-LN_BWD_SCALAR_CAP = 1024
+#: the LayerNorm kernels' warp branch (a warp a row, forward and
+#: backward): threads a block, and the widest C it takes with 16-byte
+#: loads (by dtype) and with one element a load; wider rows take the
+#: block branch (a block a row)
+LN_WARP_THREADS = 128
+LN_WARP_CAP = {torch.float32: 1024, torch.bfloat16: 2048}
+LN_SCALAR_CAP = 1024
 #: the block branch: most threads a block
-LN_BWD_BLOCK_THREADS = 512
-#: the bias-GELU backward's first-pass blocks and widest C, as above
-BG_BWD_PARTS = 512
-BG_BWD_MAX_C = 16384
+LN_BLOCK_THREADS = 512
+#: the forward's block branch keeps a row of up to this many bytes in
+#: shared memory (``LNF_SMEM_CAP`` in ``csrc/layernorm_fwd.cu``)
+LN_FWD_SMEM_CAP = 65536
+#: the bias-GELU backward: threads a block (8 warps on rows 8 apart, each
+#: lane on one pack of a tile's 32 packs of columns) and the blocks an SM
+#: its launch bounds ask for (``BGB_MINB`` in ``csrc/bias_gelu_bwd.cu``)
+BG_BWD_THREADS = 256
+BG_BWD_BLOCKS_PER_SM = 3
 
 
 def stat_dtype(x: torch.Tensor) -> torch.dtype:
@@ -102,6 +109,86 @@ def layer_norm_bwd_plain(x, gamma, dy, eps: float = 1e-5):
     return dx.to(x.dtype), dg.to(gamma.dtype), db.to(gamma.dtype)
 
 
+def _f32(t: torch.Tensor) -> torch.Tensor:
+    """``t`` as a contiguous float32 tensor, converted only if it is not
+    one already."""
+    if t.dtype == torch.float32 and t.is_contiguous():
+        return t
+    return t.to(torch.float32).contiguous()
+
+
+def _ln_layout(c: int, dtype: torch.dtype, aligned: bool):
+    """(vec, packs) of a LayerNorm kernel's row of ``c`` columns: 16-byte
+    loads where C and the pointers allow, else one element a load; a
+    lane's loads a row in the warp branch (rounded up to 8 single
+    elements), or 0 past its cap (the block branch)."""
+    wide = 16 // dtype.itemsize
+    vec = wide if aligned and c % wide == 0 else 1
+    if c > (LN_WARP_CAP[dtype] if vec > 1 else LN_SCALAR_CAP):
+        return vec, 0
+    packs = -(-c // (32 * vec))
+    return vec, -(-packs // 8) * 8 if vec == 1 else packs
+
+
+def _ln_block_threads(c: int, vec: int) -> int:
+    """Threads a block of the block branch (the backward's rule)."""
+    return min(LN_BLOCK_THREADS, max(32, -(-c // vec + 31) // 32 * 32))
+
+
+def _ln_fwd_blocks_per_sm(dtype: torch.dtype, vec: int, packs: int) -> int:
+    """Blocks an SM of the forward's warp branch: the register estimate of
+    ``LnFwdCfg`` in ``csrc/layernorm_fwd.cu``, from what a lane holds (its
+    packs of the row as loaded, and the rest)."""
+    row = -(-packs * vec * dtype.itemsize // 4)
+    regs = (row + 40 + 7) // 8 * 8
+    return max(1, min(16, 65536 // (LN_WARP_THREADS * regs)))
+
+
+def ln_fwd_plan(rows: int, c: int, dtype: torch.dtype = torch.float32,
+                device=None, aligned: bool = True) -> dict:
+    """The launch of the ``layernorm_fwd`` kernel for ``rows`` rows of
+    ``c`` columns in ``dtype`` on ``device`` (an H100's SM count where
+    there is no card; ``aligned``: x, out, gamma and beta start on 16
+    bytes). Plain Python: it launches nothing, and the wrapper launches
+    what it says. No C is refused.
+
+    - ``branch`` ``"warp"`` (a warp a row, C up to ``LN_WARP_CAP`` with
+      16-byte loads, ``LN_SCALAR_CAP`` with one element a load) or
+      ``"block"`` (a block a row; ``cached``: the row kept in shared
+      memory, up to ``LN_FWD_SMEM_CAP`` bytes);
+    - ``vec`` elements a load, ``packs`` loads a lane a row (0 in the
+      block branch);
+    - ``threads`` and ``warps`` a block, ``blocks_per_sm`` (what the warp
+      kernel's launch bounds ask for), ``blocks`` (a persistent grid of
+      at most that many an SM), ``rows_per_warp`` or ``rows_per_block``
+      (the most any takes), ``smem_bytes`` a block and ``sms``."""
+    if dtype not in DTYPE_CODES:
+        raise MXNetError(f"ln_fwd_plan: no kernel in {dtype}")
+    if c < 1 or rows < 1:
+        raise MXNetError(f"ln_fwd_plan: rows {rows}, C {c}")
+    sms, optin = card_limits(device)
+    vec, packs = _ln_layout(c, dtype, aligned)
+    if packs:
+        warps = LN_WARP_THREADS // 32
+        per_sm = _ln_fwd_blocks_per_sm(dtype, vec, packs)
+        blocks = min(-(-rows // warps), sms * per_sm)
+        return {"branch": "warp", "vec": vec, "packs": packs,
+                "threads": LN_WARP_THREADS, "warps": warps,
+                "blocks_per_sm": per_sm, "blocks": blocks,
+                "rows_per_warp": -(-rows // (blocks * warps)),
+                "smem_bytes": 0, "sms": sms}
+    cached = c * dtype.itemsize <= LN_FWD_SMEM_CAP
+    smem = -(-c * dtype.itemsize // 16) * 16 if cached else 0
+    threads = _ln_block_threads(c, vec)
+    per_sm = max(1, min(2048 // threads, optin // (smem + 1024)))
+    blocks = min(rows, sms * per_sm)
+    return {"branch": "block", "vec": vec, "packs": 0, "cached": cached,
+            "threads": threads, "warps": threads // 32,
+            "blocks_per_sm": per_sm, "blocks": blocks,
+            "rows_per_block": -(-rows // blocks), "smem_bytes": smem,
+            "sms": sms}
+
+
 def _ln_fwd_kernel(x, gamma, beta, eps):
     check_cuda_operands("layer_norm", x, gamma, beta)
     if x.ndim < 1:
@@ -113,11 +200,13 @@ def _ln_fwd_kernel(x, gamma, beta, eps):
     rows = x.numel() // c if c else 0
     if rows == 0:
         return out
-    g = gamma.to(torch.float32).contiguous()
-    b = beta.to(torch.float32).contiguous()
+    g, b = _f32(gamma), _f32(beta)
+    plan = ln_fwd_plan(rows, c, x.dtype, x.device, aligned=all(
+        t.data_ptr() % 16 == 0 for t in (x, out, g, b)))
     launch("layernorm_fwd", x.device, x.data_ptr(), g.data_ptr(),
            b.data_ptr(), out.data_ptr(), rows, c, float(eps),
-           DTYPE_CODES[x.dtype], dtype=x.dtype)
+           DTYPE_CODES[x.dtype], plan["vec"], plan["packs"], plan["threads"],
+           plan["blocks"], dtype=x.dtype)
     return out
 
 
@@ -127,7 +216,7 @@ def _ln_warp_blocks_per_sm(vec: int, packs: int) -> int:
     (x and dy of a row as floats, the float32 dgamma/dbeta partials of its
     columns, and the rest)."""
     regs = (4 * packs * vec + (24 if vec > 1 else 40) + 7) // 8 * 8
-    return max(1, min(16, 65536 // (LN_BWD_WARP_THREADS * regs)))
+    return max(1, min(16, 65536 // (LN_WARP_THREADS * regs)))
 
 
 def ln_bwd_plan(rows: int, c: int, dtype: torch.dtype = torch.float32,
@@ -138,9 +227,9 @@ def ln_bwd_plan(rows: int, c: int, dtype: torch.dtype = torch.float32,
     bytes). Plain Python: it launches nothing, and the wrapper launches
     what it says.
 
-    - ``branch`` ``"warp"`` (a warp a row, C up to ``LN_BWD_WARP_CAP``
-      with 16-byte loads, ``LN_BWD_SCALAR_CAP`` with one element a load)
-      or ``"block"`` (a block a row, up to ``LN_BWD_MAX_C``);
+    - ``branch`` ``"warp"`` (a warp a row, C up to ``LN_WARP_CAP`` with
+      16-byte loads, ``LN_SCALAR_CAP`` with one element a load) or
+      ``"block"`` (a block a row, up to ``LN_BWD_MAX_C``);
     - ``vec`` elements a load, ``packs`` loads a lane a row (0 in the
       block branch);
     - ``threads`` and ``warps`` a block, ``blocks_per_sm`` (what the warp
@@ -153,25 +242,20 @@ def ln_bwd_plan(rows: int, c: int, dtype: torch.dtype = torch.float32,
         raise MXNetError(f"ln_bwd_plan: rows {rows}, C {c} (1 <= C <= "
                          f"{LN_BWD_MAX_C})")
     sms, optin = card_limits(device)
-    wide = 16 // dtype.itemsize
-    vec = wide if aligned and c % wide == 0 else 1
+    vec, packs = _ln_layout(c, dtype, aligned)
     smem = 4 * 2 * c
     plan = {"vec": vec, "smem_bytes": smem, "sms": sms}
-    cap = LN_BWD_WARP_CAP[dtype] if vec > 1 else LN_BWD_SCALAR_CAP
-    if c <= cap:
-        packs = -(-c // (32 * vec))
-        if vec == 1:
-            packs = -(-packs // 8) * 8
+    if packs:
         per_sm = _ln_warp_blocks_per_sm(vec, packs)
-        warps = LN_BWD_WARP_THREADS // 32
+        warps = LN_WARP_THREADS // 32
         per_warp = -(-rows // (sms * per_sm * warps))
         blocks = -(-(-(-rows // per_warp)) // warps)
         nw = blocks * warps
         return dict(plan, branch="warp", packs=packs,
-                    threads=LN_BWD_WARP_THREADS, warps=warps,
+                    threads=LN_WARP_THREADS, warps=warps,
                     blocks_per_sm=per_sm, blocks=blocks,
                     rows_per_warp=-(-rows // nw))
-    threads = min(LN_BWD_BLOCK_THREADS, max(32, -(-c // vec + 31) // 32 * 32))
+    threads = _ln_block_threads(c, vec)
     per_sm = max(1, min(2048 // threads, optin // (smem + 1024)))
     blocks = min(rows, sms * per_sm)
     return dict(plan, branch="block", packs=0, threads=threads,
@@ -201,7 +285,7 @@ def layer_norm_bwd(x, gamma, dy, eps: float = 1e-5):
         dgb = torch.zeros(2, c, dtype=torch.float32, device=x.device)
         return dx, dgb[0].to(gamma.dtype), dgb[1].to(gamma.dtype)
     dgb = torch.empty(2, c, dtype=torch.float32, device=x.device)
-    g = gamma.to(torch.float32).contiguous()
+    g = _f32(gamma)
     plan = ln_bwd_plan(rows, c, x.dtype, x.device, aligned=all(
         t.data_ptr() % 16 == 0 for t in (x, dy, dx, g)))
     part = torch.empty(plan["blocks"], 2, c, dtype=torch.float32,
@@ -262,11 +346,49 @@ def bias_gelu_bwd_plain(x, b, dy):
     return dx.to(x.dtype), db.to(b.dtype)
 
 
+def bg_bwd_plan(rows: int, c: int, dtype: torch.dtype = torch.float32,
+                device=None, aligned: bool = True) -> dict:
+    """The launch of the ``bias_gelu_bwd`` kernel for ``rows`` rows of
+    ``c`` columns in ``dtype`` on ``device`` (an H100's SM count where
+    there is no card; ``aligned``: x, dy and dx start on 16 bytes). Plain
+    Python: it launches nothing, and the wrapper launches what it says.
+    No C is refused.
+
+    - ``vec`` elements a load (16 bytes, or one element when C or a
+      pointer does not allow it);
+    - a grid of ``tiles`` column tiles (32 loads of ``vec`` columns) x
+      ``chunks`` row chunks of ``rows_per_chunk`` rows: at most one wave
+      of ``blocks_per_sm`` blocks an SM (one chunk where the tiles alone
+      fill it), no chunk empty, and no warp without a row;
+    - ``threads`` and ``warps`` a block, ``blocks`` (= tiles x chunks),
+      ``rows_per_warp`` (the most any warp walks), ``partial_bytes`` (the
+      float32 column partials the second pass sums) and ``sms``."""
+    if dtype not in DTYPE_CODES:
+        raise MXNetError(f"bg_bwd_plan: no kernel in {dtype}")
+    if c < 1 or rows < 1:
+        raise MXNetError(f"bg_bwd_plan: rows {rows}, C {c}")
+    sms, _ = card_limits(device)
+    wide = 16 // dtype.itemsize
+    vec = wide if aligned and c % wide == 0 else 1
+    tiles = -(-c // (32 * vec))
+    warps = BG_BWD_THREADS // 32
+    chunks = max(1, min(sms * BG_BWD_BLOCKS_PER_SM // tiles,
+                        -(-rows // warps)))
+    per_chunk = -(-rows // chunks)
+    chunks = -(-rows // per_chunk)
+    return {"vec": vec, "tiles": tiles, "chunks": chunks,
+            "rows_per_chunk": per_chunk, "blocks": tiles * chunks,
+            "threads": BG_BWD_THREADS, "warps": warps,
+            "blocks_per_sm": BG_BWD_BLOCKS_PER_SM,
+            "rows_per_warp": -(-per_chunk // warps),
+            "partial_bytes": 4 * chunks * c, "sms": sms}
+
+
 def bias_gelu_bwd(x, b, dy):
     """bias-GELU backward → (dx, db). A CUDA tensor launches the
-    ``bias_gelu_bwd`` kernel (contiguous float32 or bfloat16 x, C <=
-    16384, else it raises); a CPU tensor runs
-    :func:`bias_gelu_bwd_plain`."""
+    ``bias_gelu_bwd`` kernel as :func:`bg_bwd_plan` plans it (contiguous
+    float32 or bfloat16 x, else it raises; db written in b's dtype); a
+    CPU tensor runs :func:`bias_gelu_bwd_plain`."""
     if x.device.type == "cpu":
         return bias_gelu_bwd_plain(x, b, dy)
     dy = dy.to(x.dtype).contiguous()
@@ -276,18 +398,22 @@ def bias_gelu_bwd(x, b, dy):
     if dy.shape != x.shape:
         raise MXNetError(f"bias_gelu_bwd: dy {tuple(dy.shape)} and x "
                          f"{tuple(x.shape)} disagree")
-    if c > BG_BWD_MAX_C:
-        raise MXNetError(f"bias_gelu_bwd: C {c} > {BG_BWD_MAX_C}")
     rows = x.numel() // c if c else 0
     dx = torch.empty_like(x)
-    db = torch.zeros(c, dtype=torch.float32, device=x.device)
-    if rows:
-        nparts = min(rows, BG_BWD_PARTS)
-        part = torch.empty(nparts, c, dtype=torch.float32, device=x.device)
-        bb = b.to(x.dtype).contiguous()
-        launch("bias_gelu_bwd", x.device, x.data_ptr(), bb.data_ptr(),
-               dy.data_ptr(), dx.data_ptr(), part.data_ptr(), db.data_ptr(),
-               rows, c, nparts, DTYPE_CODES[x.dtype], dtype=x.dtype)
+    # the kernel reads b and writes db in b's dtype where it has one
+    bb = (b if b.dtype in DTYPE_CODES else b.to(x.dtype)).contiguous()
+    if not rows:
+        return dx, torch.zeros(c, dtype=b.dtype, device=x.device)
+    db = torch.empty(c, dtype=bb.dtype, device=x.device)
+    plan = bg_bwd_plan(rows, c, x.dtype, x.device, aligned=all(
+        t.data_ptr() % 16 == 0 for t in (x, dy, dx)))
+    part = torch.empty(plan["chunks"], c, dtype=torch.float32,
+                       device=x.device)
+    launch("bias_gelu_bwd", x.device, x.data_ptr(), bb.data_ptr(),
+           dy.data_ptr(), dx.data_ptr(), part.data_ptr(), db.data_ptr(),
+           rows, c, DTYPE_CODES[x.dtype], DTYPE_CODES[bb.dtype],
+           plan["vec"], plan["tiles"], plan["chunks"],
+           plan["rows_per_chunk"], dtype=x.dtype)
     return dx, db.to(b.dtype)
 
 

@@ -311,6 +311,45 @@ def test_bert_three_adam_steps_compile_step_vs_jax(monkeypatch, amp_on):
         assert d.mean() <= BF16_TOL * moved, k
 
 
+def test_amp_gradients_vs_float64_within_the_card_check_bound():
+    """The yardstick of chip_smoke.py phase 6b on the CPU: one backward of
+    bert_small_test under amp against a float64 copy of the same weights
+    (its attention float32: the plain version computes in float32). Every
+    parameter within the bound phase 6b holds the card to
+    (``GRAD_RTOL_BF16`` of its largest gradient, a bias's scaled by its
+    weight's); float32 without amp within 1e-4 (rounding of float32
+    sums), and amp's error bf16-sized, above float32's."""
+    import chip_smoke as CS
+    _, tnet = _classifier_pair()
+    _, net64 = _classifier_pair()
+    net64.double()
+    x = _tokens()
+    y = onp.array([0, 2, 1, 1], "f4")
+    lf = tloss.SoftmaxCrossEntropyLoss()
+    g64 = CS.param_grads(torch, net64, lf, x, y)
+    assert all(g.dtype == torch.float64 for g in g64.values())
+    g32 = CS.param_grads(torch, tnet, lf, x, y)
+    tamp.init("bfloat16")
+    try:
+        g_amp = CS.param_grads(torch, tnet, lf, x, y)
+    finally:
+        tamp.uninit()
+    res = CS.grad_check(torch, None, None, lf, x, y, atol=CS.GRAD_ATOL,
+                        rtol=CS.GRAD_RTOL_BF16, scale_of=CS.bias_scale,
+                        grads=(g_amp, g64))
+    assert res["ok"] and res["params"] == len(g64), res
+    f32 = CS.grad_errors(g32, g64, CS.bias_scale)
+    amp = CS.grad_errors(g_amp, g64, CS.bias_scale)
+    assert max(f32.values()) < 1e-4
+    assert max(f32.values()) < max(amp.values()) < CS.GRAD_RTOL_BF16
+    sides = CS.amp_vs_float64([CS.side_errors(g_amp, g_amp, g32, g64)],
+                              {n: t.numel() for n, t in g64.items()})
+    assert sides["batches"] == 1 and len(sides["per_param"]) == len(g64)
+    for m in CS.F64_MEASURES:
+        assert sides[m]["within_2x"] and sides[m]["median_ratio"] == 1.0
+        assert sides[m]["max"]["cpu_float32"] < sides[m]["max"]["cpu_amp"]
+
+
 # ---------------------------------------------------------------------------
 # LossScaler and scale_loss
 # ---------------------------------------------------------------------------

@@ -198,18 +198,34 @@ def test_layer_norm_bwd_vs_jax_grad(c, dtype):
     _close((tx.grad, tg.grad, tb.grad), ref, dtype)
 
 
-def test_bias_gelu_bwd_plain_vs_jax():
+def _bias_gelu_bwd_vs_jax(dtype):
     r = onp.random.RandomState(5)
     x = r.randn(4, 9, 50).astype("f4")
     b = r.randn(50).astype("f4")
     dy = r.randn(4, 9, 50).astype("f4")
+    jd = getattr(jnp, dtype)
     _, vjp = jax.vjp(lambda x_, b_: JNORM.bias_gelu(x_, b_, interpret=True),
-                     jnp.asarray(x), jnp.asarray(b))
-    ref = [onp.asarray(a) for a in vjp(jnp.asarray(dy))]
-    tx = torch.from_numpy(x).requires_grad_()
-    tb = torch.from_numpy(b).requires_grad_()
-    KN.bias_gelu(tx, tb).backward(torch.from_numpy(dy))
-    _close((tx.grad, tb.grad), ref, "float32")
+                     jnp.asarray(x).astype(jd), jnp.asarray(b).astype(jd))
+    ref = [onp.asarray(a.astype(jnp.float32))
+           for a in vjp(jnp.asarray(dy).astype(jd))]
+    td = getattr(torch, dtype)
+    tx = torch.from_numpy(x).to(td).requires_grad_()
+    tb = torch.from_numpy(b).to(td).requires_grad_()
+    KN.bias_gelu(tx, tb).backward(torch.from_numpy(dy).to(td))
+    assert tx.grad.dtype == td and tb.grad.dtype == td
+    _close((tx.grad, tb.grad), ref, dtype)
+
+
+def test_bias_gelu_bwd_plain_vs_jax():
+    _bias_gelu_bwd_vs_jax("float32")
+
+
+def test_bias_gelu_bwd_plain_vs_jax_bf16():
+    """bfloat16 x, b and dy: z = x + b rounded to bfloat16 on both sides,
+    dx from float32 and rounded once, db the float32 sums of the
+    unrounded dx over 36 rows rounded once: within 2e-2 (one or two
+    bfloat16 ulps of an O(1) gradient, relative for db)."""
+    _bias_gelu_bwd_vs_jax("bfloat16")
 
 
 def test_backward_on_the_cpu_launches_nothing():

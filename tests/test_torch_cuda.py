@@ -430,24 +430,78 @@ def test_kernel_wrappers_raise_on_card(cuda_dev):
         KN.bias_gelu(y, torch.zeros(8, device=cuda_dev))
 
 
+def _offset(shape, offset, g, dev, dtype):
+    """A contiguous tensor of ``shape`` that starts ``offset`` elements
+    into its storage (offset 1: no 16-byte loads)."""
+    n = int(onp.prod(shape))
+    return torch.randn(n + offset, generator=g).to(dev, dtype)[offset:] \
+        .view(*shape)
+
+
+#: the LayerNorm forward's shapes: served, one row, C 1, C 771, C 16,384
+#: (block branch, the row in shared memory), C 120,000 (the row too wide
+#: for it), a 3-axis x, and by dtype C at the warp branch's cap and one
+#: past it
+LN_FWD_SHAPES = [(4096, 768), (1, 768), (3, 1), (37, 771), (20, 16384),
+                 (3, 120000), (3, 5, 33)]
+LN_FWD_CAPS = {torch.float32: [(300, 1024), (300, 1025)],
+               torch.bfloat16: [(300, 2048), (300, 2049)]}
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0, 1])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", [(4096, 3072), (37, 50), (3, 5, 33)])
-def test_bias_gelu_bwd_kernel_on_card(cuda_dev, dtype, shape):
-    g = torch.Generator().manual_seed(2)
-    x = torch.randn(*shape, generator=g).to(cuda_dev, dtype)
-    dy = torch.randn(*shape, generator=g).to(cuda_dev, dtype)
-    b = torch.randn(shape[-1], generator=g).to(cuda_dev, dtype)
+@pytest.mark.parametrize("shape", LN_FWD_SHAPES + ["cap", "cap+1"])
+def test_layernorm_fwd_kernel_on_card(cuda_dev, dtype, shape, offset):
+    """Every branch of ln_fwd_plan, x aligned and offset by one element:
+    one launch, within tolerance of the plain version, bit for bit on a
+    second run."""
+    if isinstance(shape, str):
+        shape = LN_FWD_CAPS[dtype][shape == "cap+1"]
+    g = torch.Generator().manual_seed(3)
+    x = _offset(shape, offset, g, cuda_dev, dtype)
+    c = shape[-1]
+    gam = torch.randn(c, generator=g).to(cuda_dev)
+    bet = torch.randn(c, generator=g).to(cuda_dev)
+    plan = KN.ln_fwd_plan(x.numel() // c, c, dtype, cuda_dev,
+                          aligned=offset == 0)
+    assert plan["vec"] == 1 or offset == 0
     K.reset_launch_counts()
-    got = KN.bias_gelu_bwd(x, b, dy)
+    y = KN.layer_norm(x, gam, bet)
     torch.cuda.synchronize()
-    assert K.launch_counts()["bias_gelu_bwd"] == 1
+    assert K.launch_counts()["layernorm_fwd"] == 1
+    assert y.dtype == dtype and y.shape == x.shape
     tol = CARD_TOL[dtype]
-    for a, r in zip(got, KN.bias_gelu_bwd_plain(x, b, dy)):
-        assert a.dtype == dtype
-        torch.testing.assert_close(a.float(), r.float(), atol=tol, rtol=tol)
-    again = KN.bias_gelu_bwd(x, b, dy)
-    assert all(torch.equal(a, c) for a, c in zip(got, again))
+    torch.testing.assert_close(y.float(), KN.layer_norm_plain(
+        x, gam, bet).float(), atol=tol, rtol=tol)
+    assert torch.equal(KN.layer_norm(x, gam, bet), y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(4096, 3072), (37, 50), (3, 5, 33),
+                                   (1, 3072), (3, 1), (20, 16384)])
+def test_bias_gelu_bwd_kernel_on_card(cuda_dev, dtype, shape, offset):
+    """One launch, within tolerance of the plain version, dx and db bit
+    for bit on a second run, x and dy aligned and offset by one element;
+    db in b's dtype, also a float32 b under bfloat16 x."""
+    g = torch.Generator().manual_seed(2)
+    x = _offset(shape, offset, g, cuda_dev, dtype)
+    dy = _offset(shape, offset, g, cuda_dev, dtype)
+    for b_dtype in dict.fromkeys((dtype, torch.float32)):
+        b = torch.randn(shape[-1], generator=g).to(cuda_dev, b_dtype)
+        K.reset_launch_counts()
+        got = KN.bias_gelu_bwd(x, b, dy)
+        torch.cuda.synchronize()
+        assert K.launch_counts()["bias_gelu_bwd"] == 1
+        assert got[0].dtype == dtype and got[1].dtype == b_dtype
+        tol = CARD_TOL[dtype]
+        for a, r in zip(got, KN.bias_gelu_bwd_plain(x, b, dy)):
+            torch.testing.assert_close(a.float(), r.float(), atol=tol,
+                                       rtol=tol)
+        again = KN.bias_gelu_bwd(x, b, dy)
+        assert all(torch.equal(a, c) for a, c in zip(got, again))
 
 
 def _rnn_inputs(mode, n_t, n, h, dtype, dev, seed=3):

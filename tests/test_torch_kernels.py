@@ -31,6 +31,7 @@ from mxnet_tpu_torch.ops.kernels import norm as KN
 
 ATOL = RTOL = 2e-5
 NORM_TOL = 1e-5
+BF16_TOL = 2e-2
 
 # (B, H, Sq, Sk, D, causal)
 FLASH_CASES = [
@@ -128,23 +129,33 @@ def test_flash_plain_matches_reference_bf16_rounding():
     assert (out.float() - ref.float()).abs().max() < 2e-2
 
 
-@pytest.mark.parametrize("c", [32, 50, 768])
-def test_layer_norm_plain_vs_jax(c):
+@pytest.mark.parametrize("c,dtype", [
+    pytest.param(c, dt, id=str(c) if dt == "float32" else f"{c}-{dt}")
+    for dt in ("float32", "bfloat16") for c in (32, 50, 768)])
+def test_layer_norm_plain_vs_jax(c, dtype):
+    """float32 within 1e-5; bfloat16 x (float32 gamma, beta and
+    statistics on both sides, the output rounded to bfloat16 once) within
+    2e-2: one or two bfloat16 ulps of an O(1) output."""
     r = onp.random.RandomState(c)
     x = r.randn(3, 5, c).astype("f4")
     g = r.randn(c).astype("f4")
     b = r.randn(c).astype("f4")
-    got = KN.layer_norm(*_t(x, g, b)).numpy()
-    ker = JNORM.layer_norm(jnp.asarray(x), jnp.asarray(g), jnp.asarray(b),
+    tol = NORM_TOL if dtype == "float32" else BF16_TOL
+    jx = jnp.asarray(x).astype(getattr(jnp, dtype))
+    tx, tg, tb = _t(x, g, b)
+    tx = tx.to(getattr(torch, dtype))
+    got = KN.layer_norm(tx, tg, tb)
+    assert got.dtype == tx.dtype
+    got = got.float().numpy()
+    ker = JNORM.layer_norm(jx, jnp.asarray(g), jnp.asarray(b),
                            interpret=True)
-    ref = JFNN.layer_norm(jnp.asarray(x), jnp.asarray(g), jnp.asarray(b))
-    onp.testing.assert_allclose(got, onp.asarray(ker), rtol=NORM_TOL,
-                                atol=NORM_TOL)
-    onp.testing.assert_allclose(got, onp.asarray(ref), rtol=NORM_TOL,
-                                atol=NORM_TOL)
+    ref = JFNN.layer_norm(jx, jnp.asarray(g), jnp.asarray(b))
+    for want in (ker, ref):
+        onp.testing.assert_allclose(
+            got, onp.asarray(want.astype(jnp.float32)), rtol=tol, atol=tol)
     # ops.nn.layer_norm routes the trailing axis through the wrapper
-    onp.testing.assert_array_equal(FNN.layer_norm(*_t(x, g, b)).numpy(),
-                                   got)
+    onp.testing.assert_array_equal(
+        FNN.layer_norm(tx, tg, tb).float().numpy(), got)
 
 
 def test_layer_norm_other_axis_vs_jax():
@@ -305,6 +316,107 @@ def test_ln_bwd_plan_branches(case, want):
         assert plan["blocks"] <= plan["sms"] * plan["blocks_per_sm"]
     else:
         assert plan["blocks"] * plan["rows_per_block"] >= rows
+
+
+PLAN_CS = (1, 50, 768, 1023, 1024, 2048, 4096, 16384)
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c", PLAN_CS)
+@pytest.mark.parametrize("rows", [1, 7, 16384])
+def test_ln_fwd_plan_branches(rows, c, dtype, aligned):
+    """Every row has a warp (warp branch) or a block (block branch), the
+    grid fits the card, and no C is refused: past the warp branch's cap a
+    block takes the row, kept in shared memory up to its cap."""
+    plan = KN.ln_fwd_plan(rows, c, dtype, aligned=aligned)
+    wide = 16 // dtype.itemsize
+    assert plan["vec"] == (wide if aligned and c % wide == 0 else 1)
+    assert plan["sms"] == 132                 # an H100's, without a card
+    assert 1 <= plan["blocks"] <= rows
+    assert plan["blocks"] <= plan["sms"] * plan["blocks_per_sm"]
+    assert plan["threads"] == 32 * plan["warps"] <= 1024
+    cap = KN.LN_WARP_CAP[dtype] if plan["vec"] > 1 else KN.LN_SCALAR_CAP
+    assert plan["branch"] == ("warp" if c <= cap else "block")
+    if plan["branch"] == "warp":
+        assert plan["packs"] * 32 * plan["vec"] >= c
+        assert plan["packs"] <= (8 if plan["vec"] > 1 else 32)
+        nw = plan["blocks"] * plan["warps"]
+        assert plan["rows_per_warp"] == -(-rows // nw)
+        assert plan["blocks_per_sm"] == KN._ln_fwd_blocks_per_sm(
+            dtype, plan["vec"], plan["packs"])
+        assert plan["smem_bytes"] == 0
+    else:
+        assert plan["packs"] == 0
+        assert plan["blocks"] * plan["rows_per_block"] >= rows
+        assert plan["cached"] == (c * dtype.itemsize
+                                  <= KN.LN_FWD_SMEM_CAP)
+        assert plan["smem_bytes"] == (
+            -(-c * dtype.itemsize // 16) * 16 if plan["cached"] else 0)
+        assert plan["smem_bytes"] <= 232448
+        assert 32 <= plan["threads"] <= KN.LN_BLOCK_THREADS
+
+
+def test_ln_fwd_plan_at_served_and_training_shapes():
+    """4096 x 768 (a served bucket-32 micro-batch): every row its own warp
+    at once, 9 blocks of 4 warps an SM in bf16 (3 packs a lane), 8 in
+    float32 (6 packs); BERT training's 16384 x 768 in float32: one wave
+    of 1,056 blocks, 4 rows a warp."""
+    bf = KN.ln_fwd_plan(4096, 768, torch.bfloat16)
+    assert (bf["packs"], bf["blocks_per_sm"], bf["blocks"],
+            bf["rows_per_warp"]) == (3, 9, 1024, 1)
+    f32 = KN.ln_fwd_plan(4096, 768, torch.float32)
+    assert (f32["packs"], f32["blocks_per_sm"], f32["blocks"],
+            f32["rows_per_warp"]) == (6, 8, 1024, 1)
+    train = KN.ln_fwd_plan(16384, 768, torch.float32)
+    assert (train["blocks"], train["rows_per_warp"]) == (1056, 4)
+
+
+def test_ln_fwd_plan_takes_any_c_and_refuses_other_dtypes():
+    wide = KN.ln_fwd_plan(3, 120000, torch.bfloat16)
+    assert wide["branch"] == "block" and not wide["cached"]
+    assert wide["smem_bytes"] == 0 and wide["blocks"] == 3
+    with pytest.raises(mxt.MXNetError, match="C 0"):
+        KN.ln_fwd_plan(4, 0)
+    with pytest.raises(mxt.MXNetError, match="no kernel"):
+        KN.ln_fwd_plan(4, 64, torch.float16)
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c", PLAN_CS)
+@pytest.mark.parametrize("rows", [1, 7, 4096])
+def test_bg_bwd_plan_branches(rows, c, dtype, aligned):
+    """Column tiles cover C, the row chunks cover every row with none
+    empty and each warp given a row, the grid is one wave of the blocks
+    an SM the launch bounds ask for (or one chunk), and no C is
+    refused."""
+    plan = KN.bg_bwd_plan(rows, c, dtype, aligned=aligned)
+    wide = 16 // dtype.itemsize
+    vec = wide if aligned and c % wide == 0 else 1
+    assert plan["vec"] == vec and plan["sms"] == 132
+    assert plan["tiles"] == -(-c // (32 * vec))
+    assert plan["blocks"] == plan["tiles"] * plan["chunks"]
+    per = plan["rows_per_chunk"]
+    assert plan["chunks"] * per >= rows > (plan["chunks"] - 1) * per
+    assert 1 <= plan["chunks"] <= min(65535, -(-rows // plan["warps"]))
+    assert plan["rows_per_warp"] == -(-per // plan["warps"])
+    assert plan["threads"] == 32 * plan["warps"] == KN.BG_BWD_THREADS
+    assert plan["blocks"] <= plan["sms"] * plan["blocks_per_sm"] \
+        or plan["chunks"] == 1
+    assert plan["partial_bytes"] == 4 * plan["chunks"] * c
+
+
+def test_bg_bwd_plan_at_the_encoder_fills_one_wave():
+    """4096 x 3072 (the gelu encoder's FFN): 3 blocks of 8 warps an SM,
+    one wave of 396 blocks of 12 column tiles of 256 bf16 columns (384 of
+    24 tiles of 128 float32 columns)."""
+    bf = KN.bg_bwd_plan(4096, 3072, torch.bfloat16)
+    assert (bf["tiles"], bf["chunks"], bf["blocks"]) == (12, 33, 396)
+    f32 = KN.bg_bwd_plan(4096, 3072, torch.float32)
+    assert (f32["tiles"], f32["chunks"], f32["blocks"]) == (24, 16, 384)
+    with pytest.raises(mxt.MXNetError, match="no kernel"):
+        KN.bg_bwd_plan(4, 64, torch.float16)
 
 
 def test_ln_bwd_plan_at_bert_training_fills_the_card():
