@@ -2,11 +2,12 @@
 """Smoke run of the PyTorch/CUDA port (``mxnet_tpu_torch``) on one card.
 
     python3 chip_smoke.py            # needs one CUDA device and nvcc
-    python3 chip_smoke.py --profile  # also: device time of one served
-                                     # micro-batch, of one BERT and one
-                                     # LSTM LM train step (device shares
-                                     # by kernel family), and of one
-                                     # bucket-8 decode step
+    python3 chip_smoke.py --profile  # also: wall, host and device time
+                                     # of one served micro-batch (on its
+                                     # captured program), of one BERT and
+                                     # one LSTM LM train step (device
+                                     # shares by kernel family), and of
+                                     # one bucket-8 decode step
     python3 chip_smoke.py --ptxas    # also: nvcc's register and spill
                                      # report of every kernel
     python3 chip_smoke.py --zero-train  # phases 1, 2 and 11 alone, on
@@ -17,10 +18,14 @@
         # forward (served and at BERT training's 16384 x 768) and
         # backward, the bias-GELU backward and the decode step (with the
         # launch floors of their plans' grids), phase
-        # 7's step and the bf16 amp BERT step of the checkout at DIR
-        # (e.g. the parent commit unpacked by `git archive` under build/)
-        # and of this one, timed in turns (DIR, this, this, DIR), with
-        # what each wrapper does at shapes the first versions refused
+        # 7's step, the bf16 amp BERT step, the served bucket-32
+        # micro-batch (wall and host ms, float32 and bf16) with phase
+        # 4's req/s and the serving peak memory, and decode_wide's
+        # prefill chunk and bucket-8 step ms, tokens/s and peak memory
+        # of the checkout at DIR (e.g. the parent commit unpacked by
+        # `git archive` under build/) and of this one, timed in turns
+        # (DIR, this, this, DIR), with what each wrapper does at shapes
+        # the first versions refused
 
 Phases, each of which fails the run (non-zero exit) when it fails:
 
@@ -82,14 +87,21 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    word-embedding shard timed beside ``torch._fused_adam_`` in float32
    and bfloat16;
 4. serve BERT-base (12 x 768, vocab 30522, seeded random weights) through
-   ``CompiledPredictor`` + ``DynamicBatcher``: 8 client threads, 96
-   requests of 1-8 rows at sequence length 128; check that every request
-   resolved, that two requests match a CPU copy of the model, and that
-   each micro-batch launched 12 flash and 25 LayerNorm kernels;
+   ``CompiledPredictor`` + ``DynamicBatcher``: ``warmup`` captures one
+   CUDA graph per bucket (1-64; the capture seconds of each printed),
+   each bucket's replay is held bit for bit against the net called
+   eagerly on the same padded batch (``serving_graph_vs_eager``), then 8
+   client threads send 96 requests of 1-8 rows at sequence length 128;
+   check that every request resolved, that two requests match a CPU copy
+   of the model, that each micro-batch launched 12 flash and 25
+   LayerNorm kernels (counted through the replays), and that traffic
+   captured nothing (``n_traces`` 7 after the warm-up and after the
+   traffic); peak memory;
 4b. the same traffic through ``serving.predictor_for(net,
-   dtype="bfloat16")`` (every parameter but the LayerNorms' in bf16):
-   every launch in bf16, two requests against a CPU copy converted the
-   same way within 5e-2 of the largest logit; req/s, p50, p99;
+   dtype="bfloat16")`` (every parameter but the LayerNorms' in bf16),
+   the same captures and checks: every launch in bf16, two requests
+   against a CPU copy converted the same way within 5e-2 of the largest
+   logit; req/s, p50, p99;
 5. run a 2-layer ``TransformerEncoder`` with the ``gelu`` FFN, so the
    bias-GELU kernels launch: a forward checked against a CPU copy, and a
    backward (exactly 2 ``bias_gelu_bwd`` launches) with the gradients of
@@ -130,16 +142,21 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    CPU copy;
 9. serve autoregressive decode through ``serving.run_decode`` (the
    continuous-batching ``DecodeEngine``, slot ladder 1-8, page size 16,
-   prefill chunk 16) over the JAX package's decode mix (32 requests from
+   prefill chunk 16, one CUDA graph per (kind, bucket) captured by its
+   ``warmup``) over the JAX package's decode mix (32 requests from
    RandomState(7)): ``decode_leg`` at ``TinyDecoder(256, 128, 4)``
    continuous, static, the speculative A/B (spec_k 4 with prefix sharing
    against plain greedy, 16 requests over a shared base) and the GQA
    decoder on 8 requests; ``decode_wide`` at the word LM's widths
-   (vocab 33,278, d_model 650, 10 heads), continuous. Every run's tokens
-   equal a CPU copy's, continuous = static and speculative = greedy
-   request by request, 0 errors, and ``rnn_decode`` launches exactly
-   one a decode step (spec_k + 1 a verify step) plus 16 a prefill chunk
-   (0 for the GQA decoder);
+   (vocab 33,278, d_model 650, 10 heads), continuous. First every
+   decode, prefill and verify program's replay is held bit for bit
+   against its body run eagerly from one random state
+   (``*_graph_vs_eager``). Every run's tokens equal a CPU copy's,
+   continuous = static and speculative = greedy request by request, 0
+   errors, no program captured after the warm-up (``n_traces`` 0), and
+   ``rnn_decode`` launches exactly one a decode step (spec_k + 1 a
+   verify step) plus 16 a prefill chunk (0 for the GQA decoder); each
+   run prints its captures and peak memory;
 10. BERT-base's ZeRO-1 update layout on this card: one backward at batch
     32 x sequence 512 (dropout 0) gives fixed gradients; the port's
     ``_ZeroShardPlan`` at 4 shards (88 units); ten Adam updates (lr 1e-5)
@@ -233,6 +250,10 @@ GRAD_F64_BATCHES = 3
 #: of the largest |logit|. On the CPU at this shape bf16 logits differ
 #: from float32's by 1.5 % of the largest; two bf16 runs about twice that
 LOGIT_RTOL_BF16 = 5e-2
+#: a served bucket's replay against the net called eagerly on the card,
+#: the same padded batch: the graph runs the same kernels and cuBLAS
+#: calls, so the logits are held bit for bit
+GRAPH_ATOL = {"float32": 0.0, "bfloat16": 0.0}
 
 
 def emit(obj):
@@ -1804,14 +1825,26 @@ def serve_bert(torch, np, K, dev, dtype="float32"):
     params = init_params_numpy(net, seed=0)
     load_jax_params(net, params)
     n_params = sum(p.numel() for p in net.parameters())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     pred = predictor_for(net, dtype=dtype, device=dev)
     rs = np.random.RandomState(0)
     vocab = net.bert.word_embed.weight.shape[0]
     warm = pred.warmup(rs.randint(0, vocab, (1, SERVE_SEQ)).astype(np.int64))
+    traces_warm = pred.n_traces
     emit({"serving_setup": {"params": n_params, "dtype": dtype,
                             "setup_s": time.perf_counter() - t0,
-                            "warmup_s": warm,
-                            "service_time_seed_s": pred.service_time_seed_s}})
+                            "captures": len(warm),
+                            "capture_s": {str(b): s_ for b, s_ in
+                                          warm.items()},
+                            "n_traces_after_warmup": traces_warm,
+                            "service_time_seed_s": pred.service_time_seed_s,
+                            "max_memory_allocated_after_warmup":
+                            torch.cuda.max_memory_allocated()}})
+    gve = predictor_graph_vs_eager(torch, np, pred, vocab)
+    emit({"serving_graph_vs_eager": dict(gve, dtype=dtype)})
+    if not gve["ok"]:
+        raise SystemExit(f"{dtype} replays differ from the eager net: {gve}")
     reqs = [rs.randint(0, vocab, (int(rs.randint(1, 9)), SERVE_SEQ))
             .astype(np.int64) for _ in range(SERVE_REQUESTS)]
     results = [None] * SERVE_REQUESTS
@@ -1841,10 +1874,16 @@ def serve_bert(torch, np, K, dev, dtype="float32"):
         "flush": {k[6:]: v for k, v in stats.items()
                   if k.startswith("flush_")},
         "launches": counts, "launches_by_dtype": counts_dt,
-        "n_traces": pred.n_traces, "dtype": dtype}
+        "n_traces_after_warmup": traces_warm, "n_traces": pred.n_traces,
+        "max_memory_allocated": torch.cuda.max_memory_allocated(),
+        "dtype": dtype}
     emit({"serving_bf16" if dtype != "float32" else "serving": report})
     if rep["errors"] or rep["requests"] != SERVE_REQUESTS:
         raise SystemExit(f"serving failed: {rep}")
+    if not traces_warm == pred.n_traces == len(pred.bucket_sizes):
+        raise SystemExit(f"programs captured: {traces_warm} after warm-up, "
+                         f"{pred.n_traces} after traffic; expected one per "
+                         f"bucket ({len(pred.bucket_sizes)})")
     for i, out in enumerate(results):
         if out is None or out.shape != (reqs[i].shape[0], 2) or \
                 not np.isfinite(out).all():
@@ -1880,17 +1919,70 @@ def serve_bert(torch, np, K, dev, dtype="float32"):
     return counts, pred
 
 
-def profile_bucket(torch, np, pred, bucket=SERVE_MAX_BATCH, iters=5):
-    """``--profile``: where the device time of one served micro-batch
-    goes. ``torch.profiler`` over ``iters`` back-to-back predicts of the
-    bucket; kernel time summed by family, and the device's busy share of
-    the wall time."""
+def predictor_graph_vs_eager(torch, np, pred, vocab, seed=1):
+    """Each bucket's replay against ``pred.net`` called eagerly (no
+    program) on the same padded batch: the largest |difference| of the
+    logits and whether they are bit-equal; ``ok`` when every bucket is
+    within GRAPH_ATOL (bf16: of the largest logit)."""
+    rs = np.random.RandomState(seed)
+    out, ok = {}, True
+    for b in pred.bucket_sizes:
+        x = rs.randint(0, vocab, (b, SERVE_SEQ)).astype(np.int64)
+        got = pred.predict(x)
+        with torch.inference_mode():
+            ref = pred.net(torch.from_numpy(x).to(pred.device))
+        diff = float((got.float() - ref.float()).abs().max())
+        dt = str(got.dtype).replace("torch.", "")
+        tol = GRAPH_ATOL[dt] * (float(ref.float().abs().max())
+                                if dt != "float32" else 1.0)
+        ok = ok and diff <= tol
+        out[str(b)] = {"bit_equal": bool(torch.equal(got, ref)),
+                       "max_abs_diff": diff, "atol": tol}
+    return {"buckets": out, "ok": ok,
+            "all_bit_equal": all(r["bit_equal"] for r in out.values())}
+
+
+def param_check_us(programs, n=1000):
+    """Host µs of one check that the parameters did not move since a
+    capture (``Programs.ptrs``, made on every predict and decode step):
+    the mean of ``n``."""
+    t0 = time.perf_counter()
+    for _ in range(n):
+        programs.ptrs()
+    return (time.perf_counter() - t0) / n * 1e6
+
+
+def profile_bucket(torch, np, pred, smi, bucket=SERVE_MAX_BATCH, iters=5):
+    """``--profile``: where the time of one served micro-batch goes, on
+    the bucket's captured program. Unprofiled, ``iters`` predicts each
+    from an idle device: wall ms (to the synchronize) and host ms (the
+    predict call alone: input copy, replay, output copy); the device ms
+    of ``iters`` back-to-back predicts between CUDA events; then
+    ``torch.profiler`` over ``iters`` back-to-back predicts: kernel time
+    summed by family and the device's busy share of the wall time, under
+    the profiler and of the unprofiled median wall; and the host µs of
+    the check that the parameters did not move (:func:`param_check_us`)."""
     from torch.profiler import ProfilerActivity, profile
 
     vocab = pred.net.bert.word_embed.weight.shape[0]
     x = np.random.RandomState(2).randint(0, vocab, (bucket, SERVE_SEQ)) \
         .astype(np.int64)
     pred.predict(x)
+    torch.cuda.synchronize()
+    wall, host = [], []
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        pred.predict(x)
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        wall.append((time.perf_counter() - t0) * 1e3)
+        host.append((t1 - t0) * 1e3)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        pred.predict(x)
+    end.record()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -1903,11 +1995,18 @@ def profile_bucket(torch, np, pred, bucket=SERVE_MAX_BATCH, iters=5):
     busy = sum(families.values())
     emit({"profile": {
         "bucket": bucket, "seq": SERVE_SEQ, "iters": iters,
-        "wall_ms_per_batch": wall_us / iters / 1e3,
+        "dtype": str(next(pred.net.parameters()).dtype),
+        "wall_ms": wall, "host_ms": host,
+        "device_ms_per_batch_events": start.elapsed_time(end) / iters,
+        "wall_ms_per_batch_under_profiler": wall_us / iters / 1e3,
         "device_ms_per_batch": {k: v / iters / 1e3
                                 for k, v in families.items()},
         "device_busy_share": busy / wall_us if busy else
-        "not measured (the profiler saw no device time)"}})
+        "not measured (the profiler saw no device time)",
+        "device_busy_share_unprofiled": busy / iters / 1e3
+        / statistics.median(wall) if busy else "not measured",
+        "param_check_us": param_check_us(pred._programs),
+        "n_traces": pred.n_traces, "card": smi}})
 
 
 def run_encoder(torch, np, K, dev):
@@ -2179,8 +2278,9 @@ def decode_line(name, rep, smi, extra=None):
     keys = ("mode", "requests", "tokens", "wall_s", "decode_tokens_per_sec",
             "ttft_p50_ms", "ttft_p99_ms", "tpot_p50_ms", "tpot_p99_ms",
             "steps", "prefill_chunks", "kv_page_util", "kv_num_pages",
-            "warmup_s", "errors", "acceptance_rate", "tokens_per_step",
-            "spec_steps", "prefix_hits", "cow_copies", "kv_shared_peak")
+            "warmup_s", "captures", "n_traces", "errors", "acceptance_rate",
+            "tokens_per_step", "spec_steps", "prefix_hits", "cow_copies",
+            "kv_shared_peak")
     line = {k: rep[k] for k in keys if k in rep}
     line["rnn_decode_launches"] = rep["launches"]["rnn_decode"]
     line.update(extra or {}, card=smi)
@@ -2189,23 +2289,100 @@ def decode_line(name, rep, smi, extra=None):
 
 def decode_run(torch, K, model, prompts, mns, **kw):
     """``serving.run_decode`` on the card with the kernel counts set to 0
-    just before it: (report, launches of the whole call)."""
+    just before it: (report with the run's peak memory, launches of the
+    whole call)."""
     from mxnet_tpu_torch import serving
     K.reset_launch_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     rep = serving.run_decode(model, prompts, mns, ladder=DECODE_LADDER,
                              page_size=DECODE_PAGE, **kw)
     torch.cuda.synchronize()
+    rep["max_memory_allocated"] = torch.cuda.max_memory_allocated()
     return rep, K.launch_counts()
 
 
 def decode_gates(rep, spec_k=0):
-    """The run's own checks: no error, and its rnn_decode launches after
-    the warm-up exactly one a decode step (spec_k + 1 a verify step) plus
-    the chunk width per prefill chunk."""
+    """The run's own checks: no error, no program captured after the
+    warm-up, and its rnn_decode launches after the warm-up exactly one a
+    decode step (spec_k + 1 a verify step) plus the chunk width per
+    prefill chunk."""
     per_step = spec_k + 1
     want = per_step * rep["steps"] + 16 * rep["prefill_chunks"]
-    return rep["errors"] == 0 and rep["launches"]["rnn_decode"] == want, \
-        want
+    return rep["errors"] == 0 and rep["n_traces"] == 0 and \
+        rep["launches"]["rnn_decode"] == want, want
+
+
+def decode_graph_vs_eager(torch, np, model, spec_k=0, seed=5):
+    """Every warm-up program of an engine over ``model`` (slot ladder
+    1-8, ``spec_k``) replayed against its body run eagerly: the model's
+    entry point called directly, then the state stitch. Both start from
+    one random state (slot state, tokens, K/V pages) and random inputs
+    (disjoint page tables, so no two slots write one position); their
+    outputs and new state (the null page aside, where inactive slots'
+    writes collide) are compared bit for bit."""
+    from mxnet_tpu_torch.serving import DecodeEngine
+    from mxnet_tpu_torch.serving.captured import map_tensors
+    eng = DecodeEngine(model, ladder=DECODE_LADDER, page_size=DECODE_PAGE,
+                       max_context=80, start=False, spec_k=spec_k,
+                       prefix_share=False)
+    rs = np.random.RandomState(seed)
+    g = torch.Generator(device=model.device).manual_seed(seed)
+    ps, mp = eng.kv.page_size, eng.max_pages_per_slot
+    state = (eng._h, eng._c, eng._tokens_dev, eng.kv.k_pages, eng.kv.v_pages)
+
+    def flat(out):
+        got = []
+        map_tensors(got.append, out)
+        return got
+
+    try:
+        warm = eng.warmup()
+        with torch.no_grad():
+            for t in state[:2] + state[3:]:
+                t.copy_(torch.randn(t.shape, generator=g, device=t.device)
+                        .to(t.dtype) * 0.5)
+            state[2].copy_(torch.from_numpy(
+                rs.randint(0, model.vocab, eng.slots)))
+        res = {}
+        for kind, b in sorted(warm):
+            prog = eng._entry(kind, b, count=False)
+            table = rs.permutation(np.arange(1, eng.kv.num_pages))[
+                :b * mp].reshape(b, mp)
+            lengths = rs.randint(1, mp * ps + 1, b)
+            width = {"decode": 1, "verify": spec_k + 1,
+                     "prefill": eng._chunk}[kind]
+            vals = {"pidx": table[np.arange(b), (lengths - 1) // ps],
+                    "poff": (lengths - 1) % ps, "table": table,
+                    "lengths": lengths,
+                    "active": np.r_[True, rs.rand(b - 1) < 0.75],
+                    "reset": rs.rand(b) < 0.3,
+                    "tokens": rs.randint(0, model.vocab, (b, width)),
+                    "start": rs.randint(0, mp * ps - width + 1, b),
+                    "n_valid": rs.randint(1, width + 1, b),
+                    "n_draft": rs.randint(1, width + 1, b)}
+            eng._stage([vals[name] for name, _ in eng._fields(kind, b)])
+            saved = [t.clone() for t in state]
+            got = flat(prog.run()) + [t.clone() for t in state]
+            for t, v in zip(state, saved):
+                t.copy_(v)
+            ref = flat(map_tensors(torch.clone, prog.body(*prog.inputs))) \
+                + [t.clone() for t in state]
+            for t, v in zip(state, saved):
+                t.copy_(v)
+            got[-2:] = [t[:, 1:] for t in got[-2:]]
+            ref[-2:] = [t[:, 1:] for t in ref[-2:]]
+            res[f"{kind} {b}"] = {
+                "bit_equal": all(bool(torch.equal(a, r))
+                                 for a, r in zip(got, ref)),
+                "max_abs_diff": max(float((a.double() - r.double()).abs()
+                                          .max()) for a, r in zip(got, ref))}
+        return {"programs": res, "captures": len(warm),
+                "n_traces": eng.n_traces,
+                "ok": all(r["bit_equal"] for r in res.values())
+                and eng.n_traces == 0}
+    finally:
+        eng.close()
 
 
 #: decode_wide's tokens are held exactly against the CPU copy over each
@@ -2253,6 +2430,15 @@ def serve_decode(torch, np, K, ATT, dev, smi, widths, leg):
                      prompts[:DECODE_GQA_REQUESTS], mns[:DECODE_GQA_REQUESTS],
                      {}))
     horizon = None if leg else DECODE_WIDE_HORIZON
+    gve_runs = [("continuous", model, DECODE_SPEC_K if leg else 0)]
+    if leg:
+        gve_runs.append(("gqa", runs[-1][1], DECODE_SPEC_K))
+    for what, m, sk in gve_runs:
+        gve = decode_graph_vs_eager(torch, np, m, spec_k=sk)
+        emit({f"{name}_graph_vs_eager": dict(gve, model=what, spec_k=sk)})
+        if not gve["ok"]:
+            raise SystemExit(f"{name} {what}: replays differ from the eager "
+                             f"model or a program was captured live: {gve}")
     reps, path_counts = {}, None
     for what, m, cm, ps_, mn, kw in runs:
         rep, counts = decode_run(torch, K, m, ps_, mn, **kw)
@@ -2262,13 +2448,15 @@ def serve_decode(torch, np, K, ATT, dev, smi, widths, leg):
         late = check_tokens(torch, ATT, f"{name} {what} vs CPU copy",
                             rep["tokens_by_request"], ref, cm, ps_, horizon)
         if what == "gqa":
-            ok = rep["errors"] == 0 and counts["rnn_decode"] == 0
+            ok = rep["errors"] == 0 and rep["n_traces"] == 0 and \
+                counts["rnn_decode"] == 0
             want = 0
         else:
             ok, want = decode_gates(rep, kw.get("spec_k", 0))
         reps[what] = rep
         extra = {"launches_expected": want, "cpu_copy_s": cpu_s,
-                 "tokens_equal_cpu_copy": late is None, "ok": ok}
+                 "tokens_equal_cpu_copy": late is None, "ok": ok,
+                 "max_memory_allocated": rep["max_memory_allocated"]}
         if horizon is not None:
             extra.update(exact_horizon=horizon, first_difference_past_it=late,
                          cpu_state_drift_f32_vs_f64=state_drift(
@@ -2277,7 +2465,8 @@ def serve_decode(torch, np, K, ATT, dev, smi, widths, leg):
             path_counts = counts
         decode_line(name, rep, smi, dict(extra, run=what))
         if not ok:
-            raise SystemExit(f"{name} {what}: errors {rep['errors']} or "
+            raise SystemExit(f"{name} {what}: errors {rep['errors']}, "
+                             f"{rep['n_traces']} programs captured live or "
                              f"rnn_decode launches {rep['launches']} "
                              f"(expected {want})")
     if leg:
@@ -2309,41 +2498,54 @@ def run_cpu_decode(model, prompts, mns, **kw):
     return rep["tokens_by_request"]
 
 
+def seat_and_step(torch, np, eng, vocab, bucket=8, iters=5):
+    """Seat ``bucket`` requests of 8 prompt tokens in the warmed engine
+    ``eng`` (each prefill chunk dispatched and retired alone), then run
+    ``iters`` bucket-``bucket`` decode steps, each from an idle device and
+    retired. Returns (prefill chunk ms, decode step ms, decode step host
+    ms): a step's ms run from the dispatch to its retire (host clock),
+    its host ms to the end of the dispatch, before the retire waits."""
+    def timed_step():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.step_once()
+        t1 = time.perf_counter()
+        eng.sync()
+        return (time.perf_counter() - t0) * 1e3, (t1 - t0) * 1e3
+
+    rng = np.random.RandomState(11)
+    for _ in range(bucket):
+        eng.submit(rng.randint(0, vocab, size=8), max_new=60)
+    prefill_ms = []
+    while any(o is None or o.phase != "decode" or o.generated < 1
+              for o in eng._occupant):
+        before = eng.stats["prefill_chunks"]
+        ms = timed_step()[0]
+        if eng.stats["prefill_chunks"] > before:
+            prefill_ms.append(ms)
+    steps = [timed_step() for _ in range(iters)]
+    return prefill_ms, [w for w, _ in steps], [h for _, h in steps]
+
+
 def profile_decode_step(torch, np, model, smi, bucket=8, iters=5):
-    """``--profile``: where a decode step's time goes in decode_wide.
-    Eight requests are seated (each prefill chunk dispatched and retired
-    alone, host clock), then ``iters`` bucket-8 decode steps, each
-    retired: timed by the host clock, then under ``cProfile`` (the host
-    functions with the most own time), then under ``torch.profiler``
-    (device time by kernel family per step, and the device's busy share
-    of the wall time)."""
+    """``--profile``: where a decode step's time goes in decode_wide, on
+    the captured programs. Eight requests are seated, then ``iters``
+    bucket-8 decode steps are timed (:func:`seat_and_step`), then run
+    under ``cProfile`` (the host functions with the most own time), then
+    under ``torch.profiler`` (device time by kernel family per step, and
+    the device's busy share of the wall time, under the profiler and of
+    the unprofiled median step), and the host µs of the parameter check."""
     import cProfile
     import pstats
     from torch.profiler import ProfilerActivity, profile
     from mxnet_tpu_torch.serving import DecodeEngine
 
-    def timed_step():
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        eng.step_once()
-        eng.sync()
-        return (time.perf_counter() - t0) * 1e3
-
     eng = DecodeEngine(model, ladder=DECODE_LADDER, page_size=DECODE_PAGE,
                        max_context=80, start=False)
     try:
         eng.warmup()
-        rng = np.random.RandomState(11)
-        for _ in range(bucket):
-            eng.submit(rng.randint(0, model.vocab, size=8), max_new=60)
-        prefill_ms, steps = [], 0
-        while any(o is None or o.phase != "decode" or o.generated < 1
-                  for o in eng._occupant):
-            before = eng.stats["prefill_chunks"]
-            ms = timed_step()
-            if eng.stats["prefill_chunks"] > before:
-                prefill_ms.append(ms)
-        decode_ms = [timed_step() for _ in range(iters)]
+        prefill_ms, decode_ms, host_ms = seat_and_step(
+            torch, np, eng, model.vocab, bucket, iters)
         prof_host = cProfile.Profile()
         prof_host.enable()
         for _ in range(iters):
@@ -2364,6 +2566,8 @@ def profile_decode_step(torch, np, model, smi, bucket=8, iters=5):
             torch.cuda.synchronize()
             wall_us = (time.perf_counter() - t0) * 1e6
         steps = eng.stats["steps"]
+        n_traces = eng.n_traces
+        check_us = param_check_us(eng._programs)
     finally:
         eng.close()
     families = device_us_by_family(torch, prof)
@@ -2373,7 +2577,7 @@ def profile_decode_step(torch, np, model, smi, bucket=8, iters=5):
     emit({"decode_profile": {
         "bucket": bucket, "iters": iters, "steps_run": steps,
         "prefill_chunk_ms": prefill_ms,
-        "decode_step_ms": decode_ms,
+        "decode_step_ms": decode_ms, "decode_step_host_ms": host_ms,
         "host_top_own_ms_per_step": [[name, calls // iters,
                                       own * 1e3 / iters]
                                      for name, calls, own in host_top],
@@ -2383,7 +2587,10 @@ def profile_decode_step(torch, np, model, smi, bucket=8, iters=5):
         "top_kernels_ms_per_step": [[k[:80], v / iters / 1e3]
                                     for k, v in top],
         "device_busy_share": busy / wall_us if busy else
-        "not measured (the profiler saw no device time)", "card": smi}})
+        "not measured (the profiler saw no device time)",
+        "device_busy_share_unprofiled": busy / iters / 1e3
+        / statistics.median(decode_ms) if busy else "not measured",
+        "param_check_us": check_us, "n_traces": n_traces, "card": smi}})
 
 
 # ---------------------------------------------------------------------------
@@ -3035,11 +3242,88 @@ AB_LN_FWD = {"float32": ((4096, 768), (TRAIN_BATCH * TRAIN_SEQ, 768)),
 AB_BF16_STEPS = 5
 #: --kernel-times: phase 7's training steps timed after one warm-up step
 AB_LONG_STEPS = 5
+#: --kernel-times: bucket-32 micro-batches timed after the predictor's
+#: warm-up, and decode_wide's bucket-8 steps after seating 8 requests
+AB_SERVE_ITERS, AB_DECODE_ITERS = 20, 10
 #: --kernel-times: one LSTM shape each recurrence wrapper refused before
 #: this slice: (wrapper, T or None for decode, N, H)
 AB_REFUSED = (("rnn_scan_fwd",) + RNN_REFUSED["forward"],
               ("rnn_scan_bwd",) + RNN_REFUSED["walk"],
               ("rnn_decode_step", None, 128, 650))
+
+
+def serve_times(torch, np, dev, dtype, iters=AB_SERVE_ITERS):
+    """``--kernel-times``: BERT-base (seeded weights) through
+    ``serving.predictor_for(net, dtype)`` after its warm-up: the median
+    wall ms of a bucket-32 micro-batch from an idle device (to the
+    synchronize) and its median host ms (the predict call alone), then
+    phase 4's traffic (8 clients, 96 requests of 1-8 rows) through
+    ``DynamicBatcher``: req/s; and the peak memory of the warm-up and
+    these calls. Only what both checkouts' APIs have is used."""
+    from mxnet_tpu_torch.gluon.model_zoo.bert import BERTClassifier, bert_base
+    from mxnet_tpu_torch.gluon.params import init_params_numpy, \
+        load_jax_params
+    from mxnet_tpu_torch.serving import DynamicBatcher, loadgen, \
+        predictor_for
+    net = BERTClassifier(bert_base(device=dev), num_classes=2, device=dev)
+    load_jax_params(net, init_params_numpy(net, seed=0))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    pred = predictor_for(net, dtype=dtype, device=dev)
+    rs = np.random.RandomState(0)
+    vocab = net.bert.word_embed.weight.shape[0]
+    pred.warmup(rs.randint(0, vocab, (1, SERVE_SEQ)).astype(np.int64))
+    x = rs.randint(0, vocab, (SERVE_MAX_BATCH, SERVE_SEQ)).astype(np.int64)
+    wall, host = [], []
+    for _ in range(iters):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pred.predict(x)
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        wall.append((time.perf_counter() - t0) * 1e3)
+        host.append((t1 - t0) * 1e3)
+    reqs = [rs.randint(0, vocab, (int(rs.randint(1, 9)), SERVE_SEQ))
+            .astype(np.int64) for _ in range(SERVE_REQUESTS)]
+    with DynamicBatcher(pred, max_batch=SERVE_MAX_BATCH,
+                        timeout_ms=2.0) as batcher:
+        rep = loadgen.run_closed_loop(
+            lambda i: batcher.submit(reqs[i]).result(120).cpu(),
+            SERVE_CLIENTS, SERVE_REQUESTS)
+    torch.cuda.synchronize()
+    return (statistics.median(wall), statistics.median(host),
+            rep["requests"] / rep["wall_s"] if not rep["errors"] else
+            f"errors: {rep['first_error']}",
+            torch.cuda.max_memory_allocated())
+
+
+def decode_wide_times(torch, np, dev, iters=AB_DECODE_ITERS):
+    """``--kernel-times``: decode_wide (``TinyDecoder`` at the word LM's
+    widths, seed 0): a warmed engine's prefill chunk ms and bucket-8
+    decode step ms and host ms (:func:`seat_and_step`, medians) with the
+    peak memory of the warm-up and these steps, then phase 9's continuous
+    ``run_decode`` over the decode mix: decode tokens/s."""
+    from mxnet_tpu_torch import serving
+    model = serving.TinyDecoder(**DECODE_WIDE, seed=0, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    eng = serving.DecodeEngine(model, ladder=DECODE_LADDER,
+                               page_size=DECODE_PAGE, max_context=80,
+                               start=False)
+    try:
+        eng.warmup()
+        prefill, step, host = seat_and_step(torch, np, eng, model.vocab,
+                                            iters=iters)
+    finally:
+        eng.close()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    prompts, mns, _ = decode_mix(np, DECODE_WIDE["vocab"], DECODE_REQUESTS,
+                                 DECODE_PAGE)
+    rep = serving.run_decode(model, prompts, mns, ladder=DECODE_LADDER,
+                             page_size=DECODE_PAGE)
+    return (statistics.median(prefill), statistics.median(step),
+            statistics.median(host), rep["decode_tokens_per_sec"], peak)
 
 
 def kernel_times(root):
@@ -3056,7 +3340,11 @@ def kernel_times(root):
     plan), the median wall ms of phase 7's training step (host clock,
     each step ends in a synchronize),
     and what each wrapper does at the AB_REFUSED shapes (ran, then timed
-    the same way, or the error it raised: a probe, not a path)."""
+    the same way, or the error it raised: a probe, not a path); then the
+    served bucket-32 micro-batch's wall and host ms, served req/s and
+    the serving peak memory in float32 and bf16 (:func:`serve_times`),
+    and decode_wide's prefill chunk and bucket-8 step ms, decode
+    tokens/s and peak memory (:func:`decode_wide_times`)."""
     import numpy as np
     import torch
     sys.path.insert(0, os.path.abspath(root))
@@ -3220,6 +3508,24 @@ def kernel_times(root):
         out["wall_ms"][key] = "not measured: the checkout has no amp"
     else:
         out["wall_ms"][key] = bf16_bert_step_ms(torch, np, K, dev, amp)
+    torch.cuda.empty_cache()
+    out["per_s"], out["max_memory_allocated"] = {}, {}
+    for dn in ("float32", "bfloat16"):
+        wall, host, rps, peak = serve_times(torch, np, dev, dn)
+        tag = f"served {dn} bucket {SERVE_MAX_BATCH} x {SERVE_SEQ}"
+        out["wall_ms"][f"{tag} micro-batch (median of {AB_SERVE_ITERS})"] \
+            = wall
+        out["wall_ms"][f"{tag} micro-batch host"] = host
+        out["per_s"][f"served {dn} req/s (phase 4's traffic)"] = rps
+        out["max_memory_allocated"][f"serving {dn} (7 buckets)"] = peak
+        torch.cuda.empty_cache()
+    prefill, step, host, tps, peak = decode_wide_times(torch, np, dev)
+    out["wall_ms"]["decode_wide prefill chunk (median)"] = prefill
+    out["wall_ms"][f"decode_wide bucket-8 decode step (median of "
+                   f"{AB_DECODE_ITERS})"] = step
+    out["wall_ms"]["decode_wide bucket-8 decode step host"] = host
+    out["per_s"]["decode_wide continuous decode tokens/s"] = tps
+    out["max_memory_allocated"]["decode_wide engine (ladder 1-8)"] = peak
     emit({"kernel_times": out})
     return 0
 
@@ -3270,8 +3576,9 @@ def compare_checkouts(parent):
     table = {}
     for root, r in runs:
         side = "parent" if root == parent else "change"
-        for kind in ("device_ms", "wall_ms"):
-            for key, ms in r[kind].items():
+        for kind in ("device_ms", "wall_ms", "per_s",
+                     "max_memory_allocated"):
+            for key, ms in r.get(kind, {}).items():
                 table.setdefault(kind, {}).setdefault(
                     key, {"parent": [], "change": []})[side].append(ms)
     emit({"compare": {"order": [root for root, _ in runs], **table,
@@ -3350,12 +3657,14 @@ def main(argv):
     del opt_timed
     served, pred = serve_bert(torch, np, K, dev)
     if "--profile" in argv:
-        profile_bucket(torch, np, pred)
+        profile_bucket(torch, np, pred, smi)
     del pred
+    torch.cuda.empty_cache()
     served_bf16, pred = serve_bert(torch, np, K, dev, dtype="bfloat16")
     if "--profile" in argv:
-        profile_bucket(torch, np, pred)
+        profile_bucket(torch, np, pred, smi)
     del pred
+    torch.cuda.empty_cache()
     encoder = run_encoder(torch, np, K, dev)
     trained = train_bert(torch, np, K, dev, smi, "--profile" in argv)
     torch.cuda.empty_cache()

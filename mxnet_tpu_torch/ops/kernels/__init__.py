@@ -19,7 +19,11 @@ There is no switch that turns a kernel off on the card.
 Each wrapper adds one to its kernel's launch counter where it launches,
 and nowhere else (:func:`launch_counts`, and by input dtype
 :func:`launch_counts_by_dtype`), so a run can show that its path went
-through the kernels, and in which dtype.
+through the kernels, and in which dtype. A CUDA-graph capture launches
+nothing on the card: :func:`record_launches` takes what the capturing
+thread's wrappers would have counted into a dict instead, and
+:func:`add_launches` adds that delta at each replay, so the counts stay
+the launches the card ran.
 """
 from __future__ import annotations
 
@@ -30,6 +34,7 @@ import shutil
 import subprocess
 import tempfile
 import threading
+from contextlib import contextmanager
 from dataclasses import dataclass
 from typing import Dict, Optional
 
@@ -39,6 +44,7 @@ from ...base import MXNetError
 
 __all__ = ["KERNELS", "KernelInfo", "launch_counts",
            "launch_counts_by_dtype", "reset_launch_counts",
+           "record_launches", "add_launches",
            "library", "build_library", "launch", "check_cuda_operands",
            "DTYPE_CODES", "card_limits", "launch_empty"]
 
@@ -173,6 +179,8 @@ KERNELS: Dict[str, KernelInfo] = {k.name: k for k in (
 _COUNTS: Dict[str, int] = {name: 0 for name in KERNELS}
 _DTYPE_COUNTS: Dict[tuple, int] = {}
 _COUNT_MU = threading.Lock()
+#: per thread: the dict a capture on that thread records its launches into
+_RECORDING = threading.local()
 _LIB_MU = threading.Lock()
 _LIB: Optional[ctypes.CDLL] = None
 
@@ -198,6 +206,42 @@ def reset_launch_counts() -> None:
         for k in _COUNTS:
             _COUNTS[k] = 0
         _DTYPE_COUNTS.clear()
+
+
+@contextmanager
+def record_launches():
+    """Within the block, launches counted on this thread go into the
+    yielded dict ``{(kernel, input dtype): launches}`` and not into the
+    counts: a graph capture, which the card runs only at each replay
+    (:func:`add_launches`). Other threads count as before."""
+    delta: Dict[tuple, int] = {}
+    prev = getattr(_RECORDING, "delta", None)
+    _RECORDING.delta = delta
+    try:
+        yield delta
+    finally:
+        _RECORDING.delta = prev
+
+
+def add_launches(delta: Dict[tuple, int]) -> None:
+    """Count ``delta``'s launches once (a graph's replay)."""
+    with _COUNT_MU:
+        for key, n in delta.items():
+            _COUNTS[key[0]] += n
+            _DTYPE_COUNTS[key] = _DTYPE_COUNTS.get(key, 0) + n
+
+
+def _count(name: str, dtype: torch.dtype) -> None:
+    """One launch of kernel ``name`` on inputs of ``dtype``: into this
+    thread's capture record when one is open, else into the counts."""
+    key = (name, str(dtype).replace("torch.", ""))
+    delta = getattr(_RECORDING, "delta", None)
+    if delta is not None:
+        delta[key] = delta.get(key, 0) + 1
+        return
+    with _COUNT_MU:
+        _COUNTS[name] += 1
+        _DTYPE_COUNTS[key] = _DTYPE_COUNTS.get(key, 0) + 1
 
 
 def _sources():
@@ -331,15 +375,13 @@ def launch(name: str, device: torch.device, *args,
            dtype: torch.dtype) -> None:
     """Call kernel ``name``'s C entry with ``args`` followed by PyTorch's
     current stream on ``device``, and count the launch, also under the
-    ``dtype`` of its inputs (:func:`launch_counts_by_dtype`). Raises when
-    the entry reports a CUDA error (a refused launch)."""
+    ``dtype`` of its inputs (:func:`launch_counts_by_dtype`; under
+    :func:`record_launches`, into the capture's record). Raises when the
+    entry reports a CUDA error (a refused launch)."""
     fn = getattr(library(), KERNELS[name].entry)
     with torch.cuda.device(device):
         err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
         what = library().mxt_error_string(err).decode()
         raise MXNetError(f"{name}: CUDA error {err} ({what}) at launch")
-    key = (name, str(dtype).replace("torch.", ""))
-    with _COUNT_MU:
-        _COUNTS[name] += 1
-        _DTYPE_COUNTS[key] = _DTYPE_COUNTS.get(key, 0) + 1
+    _count(name, dtype)

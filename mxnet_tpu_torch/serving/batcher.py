@@ -16,7 +16,9 @@ clients share one forward pass per micro-batch:
   a window of ``inflight`` batches; the host forms batch N+1 while the
   device runs batch N and waits only on the oldest batch when the window
   is full. A future resolves at dispatch; its ``result()`` waits for its
-  batch's event on the client's thread and slices its rows out.
+  batch's event on the client's thread and slices its rows out of the
+  outputs ``predict`` returned: copies out of the bucket's captured
+  program, which no later micro-batch's replay overwrites.
 - ``close()`` flushes what is waiting; a request that cannot be
   dispatched fails with :class:`ServingShutdown`, never hangs.
 

@@ -35,18 +35,30 @@ or its token budget is refilled from the queue at the next iteration.
 Pipelining: every step is dispatched asynchronously and pushed into an
 :class:`~..engine.DispatchWindow`; its retire is the one host sync, where
 the step's tokens are read back and streamed to the :class:`DecodeStream`
-futures. Next-step tokens chain on the device. The per-step index arrays
-are built on the host and copied from pinned memory with
-``non_blocking=True`` (a fresh pinned buffer a dispatch), so no dispatch
-waits for the device: the loop runs clean under
-``torch.cuda.set_sync_debug_mode("error")`` with the retire exempt.
+futures. Next-step tokens chain on the device.
 
-What the JAX package's compiled programs do, these do eagerly: a model's
-``decode_step`` / ``prefill_chunk`` / ``verify_chunk`` are called as they
-are (:meth:`DecodeEngine.warmup` runs each (kind, bucket) once on inactive
-dummy inputs). The K/V pages are written in place, where the JAX package
-donates them. The state snapshots of the prefix registry are clones:
-a view of the live state rows would go on changing.
+One captured program per (kind, bucket), as the JAX package compiles
+one: a model's ``decode_step`` / ``prefill_chunk`` / ``verify_chunk``
+with the state stitch around it runs as one CUDA graph
+(:mod:`.captured`), captured by :meth:`DecodeEngine.warmup` on inactive
+dummy inputs (their writes land on the null page, the state is left as
+it was) and replayed by every step; a (kind, bucket) the warm-up did not
+cover is captured at its first step and counts in
+:attr:`DecodeEngine.n_traces`. On the CPU each program's body runs
+eagerly over the same static buffers. The graphs read the slot state,
+the token array and the K/V pages where they always live, and the
+per-step host arrays (page indices, the page table, lengths, masks,
+prompt and draft tokens) from one static device buffer: each step packs
+them into one array, pins it and copies it up with ``non_blocking=True``
+(the caching host allocator hands the pinned block out again only once
+that copy has finished), so no dispatch waits for the device
+and the loop runs clean under ``torch.cuda.set_sync_debug_mode("error")``
+with the retire exempt. A replay's outputs are copied out before the
+next replay can overwrite them. The K/V pages are written in place,
+where the JAX package donates them; copy-on-write page copies, the
+prefill's first-token copy and the prefix registry's state snapshots
+(clones: a view of the live state rows would go on changing) run
+eagerly between replays.
 
 Not ported yet: the ``decode.*`` tunables, telemetry and the memory census,
 ``lower_entry``/``analyze``, and the fleet's use of the engine.
@@ -56,6 +68,7 @@ from __future__ import annotations
 import os
 import threading
 import time
+import weakref
 from collections import deque
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
@@ -70,6 +83,7 @@ from ..ops.attention import paged_decode_attention
 from ..ops.kernels import launch_counts
 from ..ops.kernels.rnn_scan import rnn_decode_step, rnn_verify_scan
 from .batcher import queue_depth
+from .captured import Programs
 from .kvcache import KV_PAGE_SIZE, PagedKVCache, pages_needed
 from .resilience import (DeadlineExceeded, Overloaded, ServingShutdown,
                          default_deadline_ms, shed_mode)
@@ -565,6 +579,46 @@ class _Request:
         self.shared_len = 0        # prompt tokens seated from the cache
 
 
+def _program_body(model, params, kind: str, names, state, tokens,
+                  page_size: int):
+    """The body of a (kind, bucket) program: the model call over the
+    static buffer's views (named ``names``, in order) and the bucket's
+    slot rows ``state`` = (h, c, k_pages, v_pages), the new h, c
+    stitched back into those rows and (decode, verify) the next tokens
+    into ``tokens``. Returns what the retire reads: the tokens, or
+    (emitted, n_acc). It holds what it reads, not the engine."""
+    h, c = state[0], state[1]
+
+    def body(*views):
+        v = dict(zip(names, views))
+        active = v["active"] != 0
+        with torch.no_grad():
+            if kind == "decode":
+                nxt, h2, c2, _, _ = model.decode_step(
+                    params, tokens, *state, v["pidx"], v["poff"],
+                    v["table"], v["lengths"], active)
+                out = nxt
+            elif kind == "verify":
+                ys, hs, cs, _, _ = model.verify_chunk(
+                    params, v["tokens"], *state, v["start"], v["n_draft"],
+                    active, v["table"], page_size=page_size)
+                emitted, n_acc, nxt, h2, c2 = _accept_longest_prefix(
+                    ys, hs, cs, v["tokens"], v["n_draft"], active)
+                out = (emitted, n_acc)
+            else:
+                nxt, h2, c2, _, _ = model.prefill_chunk(
+                    params, v["tokens"], *state, v["start"], v["n_valid"],
+                    v["reset"] != 0, active, v["table"],
+                    page_size=page_size)
+                out = nxt
+            h.copy_(h2)
+            c.copy_(c2)
+            if kind != "prefill":
+                tokens.copy_(nxt)
+        return out
+    return body
+
+
 # ---------------------------------------------------------------------------
 # the engine
 # ---------------------------------------------------------------------------
@@ -618,6 +672,13 @@ class DecodeEngine:
         self._h, self._c = model.init_state(self.slots)
         self._tokens_dev = torch.zeros(self.slots, dtype=torch.long,
                                        device=self.device)
+        # the programs and their one static device buffer of per-step
+        # host arrays
+        self._programs = Programs(model, self.device)
+        n = max(sum(int(np.prod(shape)) for _, shape in
+                    self._fields(kind, self.slots))
+                for kind in ("decode", "prefill", "verify"))
+        self._staged = torch.zeros(n, dtype=torch.long, device=self.device)
         self._table = np.zeros((self.slots, self.max_pages_per_slot),
                                np.int64)
         self._device_len = np.zeros(self.slots, np.int64)
@@ -631,9 +692,10 @@ class DecodeEngine:
         self._lock = threading.RLock()
         self._work = threading.Condition(self._lock)
         self._clock = clock
-        self._window = DispatchWindow(max_inflight=max(0, int(inflight)),
-                                      what="decode step",
-                                      sync_fn=self._retire_sync)
+        me = weakref.ref(self)      # the window must not keep its engine
+        self._window = DispatchWindow(
+            max_inflight=max(0, int(inflight)), what="decode step",
+            sync_fn=lambda payload: me()._retire_sync(payload))
         self._seq = 0
         self._tag = 0
         self._draining = False
@@ -660,71 +722,75 @@ class DecodeEngine:
                 daemon=True)
             self._thread.start()
 
-    # ---------------- host -> device ----------------
-    def _upload(self, arr: np.ndarray) -> torch.Tensor:
-        """A host array on the engine's device: on a card through a fresh
-        pinned buffer and a non-blocking copy (a pageable source would
-        make the copy wait for the device), on the CPU a copy."""
-        t = torch.from_numpy(np.ascontiguousarray(arr))
-        if self.device.type == "cuda":
-            return t.pin_memory().to(self.device, non_blocking=True)
-        return t.clone()
+    # ---------------- the programs ----------------
+    def _fields(self, kind: str, b: int):
+        """(name, shape) of the per-step host arrays of a (kind, bucket)
+        program, in their order in the static buffer."""
+        mp = self.max_pages_per_slot
+        if kind == "decode":
+            return (("pidx", (b,)), ("poff", (b,)), ("table", (b, mp)),
+                    ("lengths", (b,)), ("active", (b,)))
+        if kind == "verify":
+            return (("tokens", (b, self._spec_k + 1)), ("start", (b,)),
+                    ("n_draft", (b,)), ("active", (b,)), ("table", (b, mp)))
+        return (("tokens", (b, self._chunk)), ("start", (b,)),
+                ("n_valid", (b,)), ("reset", (b,)), ("active", (b,)),
+                ("table", (b, mp)))
 
-    def _run(self, kind: str, b: int, *args):
-        """One model call of ``kind`` at bucket ``b`` (the slot rows
-        [0, b) of the state)."""
-        m, ps = self.model, self.kv.page_size
-        state = (self._h[:b], self._c[:b], self.kv.k_pages, self.kv.v_pages)
-        with torch.no_grad():
-            if kind == "decode":
-                tokens, pidx, poff, table, lengths, active = args
-                return m.decode_step(self._params, tokens, *state, pidx,
-                                     poff, table, lengths, active)
-            if kind == "verify":
-                tokens, start, n_draft, active, table = args
-                ys, hs, cs, kp, vp = m.verify_chunk(
-                    self._params, tokens, *state, start, n_draft, active,
-                    table, page_size=ps)
-                emitted, n_acc, nxt, h2, c2 = _accept_longest_prefix(
-                    ys, hs, cs, tokens, n_draft, active)
-                return emitted, n_acc, nxt, h2, c2, kp, vp
-            tokens, start, n_valid, reset, active, table = args
-            return m.prefill_chunk(self._params, tokens, *state, start,
-                                   n_valid, reset, active, table,
-                                   page_size=ps)
+    def _stage(self, arrays) -> None:
+        """Pack one step's host arrays into one array and copy it into the
+        static buffer (on a card non-blocking from pinned memory, whose
+        block the caching host allocator keeps until the copy is done)."""
+        packed = torch.from_numpy(np.concatenate(
+            [np.asarray(a, np.int64).ravel() for a in arrays]))
+        if self.device.type == "cuda":
+            packed = packed.pin_memory()
+        self._staged[:packed.numel()].copy_(packed, non_blocking=True)
+
+    def _entry(self, kind: str, b: int, count: bool = True):
+        """The captured program of (kind, bucket b). A new one (or one
+        whose parameters moved) is captured on inactive dummy inputs
+        staged first, and counts in :attr:`n_traces` unless ``count`` is
+        False (the warm-up)."""
+        def build():
+            self._params = self.model.params
+            views, o = [], 0
+            dummy = []
+            for name, shape in self._fields(kind, b):
+                n = int(np.prod(shape))
+                views.append(self._staged[o:o + n].view(shape))
+                o += n
+                dummy.append(np.full(n, 1 if name in ("lengths", "n_draft")
+                                     else 0, np.int64))
+            self._stage(dummy)
+            return _program_body(
+                self.model, self._params, kind,
+                [name for name, _ in self._fields(kind, b)],
+                (self._h[:b], self._c[:b], self.kv.k_pages, self.kv.v_pages),
+                self._tokens_dev[:b], self.kv.page_size), views
+        return self._programs.get((kind, b), build, count=count,
+                                  what=f"decode {kind} bucket {b}")
+
+    @property
+    def n_traces(self) -> int:
+        """Programs captured outside :meth:`warmup`: 0 while the warm-up
+        covered every (kind, bucket) traffic needs and the parameters
+        stayed where they were."""
+        return self._programs.n_traces
 
     def warmup(self, buckets: Optional[Sequence[int]] = None) -> dict:
-        """Run each (kind, bucket) once on inactive dummy inputs (their
-        writes land on the null page, the state is left as it was), so
-        no request pays for a first call: the kernel build, and each
-        shape's first cuBLAS and allocator work. Returns {(kind, bucket):
-        seconds}."""
+        """Capture the decode and prefill programs (and the verify one
+        with ``spec_k``) of every ladder bucket before traffic, so no
+        request pays for a capture and live steps capture nothing.
+        Returns {(kind, bucket): seconds of its capture}."""
         out = {}
         kinds = ("decode", "prefill", "verify") if self._spec_k > 0 \
             else ("decode", "prefill")
-        i64 = np.int64
-        for b in (buckets or self._ladder):
-            b = int(b)
-            table = self._upload(np.zeros((b, self.max_pages_per_slot), i64))
-            zeros = self._upload(np.zeros(b, i64))
-            off = self._upload(np.zeros(b, bool))
-            for kind in kinds:
-                t0 = time.perf_counter()
-                if kind == "decode":
-                    self._run(kind, b, self._upload(np.zeros(b, i64)), zeros,
-                              zeros, table, self._upload(np.ones(b, i64)),
-                              off)
-                elif kind == "verify":
-                    self._run(kind, b, self._upload(
-                        np.zeros((b, self._spec_k + 1), i64)), zeros,
-                        self._upload(np.ones(b, i64)), off, table)
-                else:
-                    self._run(kind, b, self._upload(
-                        np.zeros((b, self._chunk), i64)), zeros, zeros, off,
-                        off, table)
-                if self.device.type == "cuda":
-                    torch.cuda.synchronize(self.device)
-                out[(kind, b)] = time.perf_counter() - t0
+        with self._lock:
+            for b in (buckets or self._ladder):
+                for kind in kinds:
+                    out[(kind, int(b))] = self._entry(
+                        kind, int(b), count=False).capture_s
         return out
 
     # ---------------- admission ----------------
@@ -921,12 +987,6 @@ class DecodeEngine:
             if len(self._window):
                 self._window.drain()
 
-    def _stitch(self, b: int, h2, c2):
-        """Fold one bucket's new state back into the full-slot rows (on
-        the device, in stream order)."""
-        self._h[:b].copy_(h2)
-        self._c[:b].copy_(c2)
-
     def _push(self, meta: tuple, arr):
         self._tag += 1
         self._window.push((meta, arr), tag=f"{meta[0]}#{self._tag}")
@@ -961,12 +1021,9 @@ class DecodeEngine:
             act[s] = True
             metas.append((s, self._occupant[s]))
             self._device_len[s] += 1
-        nxt, h2, c2, _, _ = self._run(
-            "decode", b, self._tokens_dev[:b], self._upload(pidx),
-            self._upload(poff), self._upload(self._table[:b]),
-            self._upload(lengths), self._upload(act))
-        self._stitch(b, h2, c2)
-        self._tokens_dev[:b].copy_(nxt)
+        prog = self._entry("decode", b)
+        self._stage((pidx, poff, self._table[:b], lengths, act))
+        nxt = prog.run()
         self.stats["steps"] += 1
         self._last_was_prefill = False
         self._push(("decode", metas, self._clock()), nxt)
@@ -987,11 +1044,9 @@ class DecodeEngine:
         act = np.zeros(b, bool)
         act[slot] = True
         self._cow_guard(slot, req, int(start[slot]), n_valid)
-        nxt, h2, c2, _, _ = self._run(
-            "prefill", b, self._upload(toks), self._upload(start),
-            self._upload(nv), self._upload(reset), self._upload(act),
-            self._upload(self._table[:b]))
-        self._stitch(b, h2, c2)
+        prog = self._entry("prefill", b)
+        self._stage((toks, start, nv, reset, act, self._table[:b]))
+        nxt = prog.run()
         self._device_len[slot] += n_valid
         req.pos += n_valid
         final = req.pos >= req.prompt.size
@@ -1041,12 +1096,9 @@ class DecodeEngine:
             req.inflight = True
             self._cow_guard(s, req, dl, n)
             metas.append((s, req, n))
-        emitted, n_acc, nxt, h2, c2, _, _ = self._run(
-            "verify", b, self._upload(toks), self._upload(start),
-            self._upload(nd), self._upload(act),
-            self._upload(self._table[:b]))
-        self._stitch(b, h2, c2)
-        self._tokens_dev[:b].copy_(nxt)
+        prog = self._entry("verify", b)
+        self._stage((toks, start, nd, act, self._table[:b]))
+        emitted, n_acc = prog.run()
         self.stats["steps"] += 1
         self.stats["spec_steps"] += 1
         self._last_was_prefill = False
@@ -1244,6 +1296,7 @@ class DecodeEngine:
                 exc = ServingShutdown("DecodeEngine closed")
                 self._fail_requests(exc)
                 self._dead = exc
+            self._programs.clear()
 
     def __enter__(self):
         return self
@@ -1268,8 +1321,10 @@ def run_decode(model, prompts, max_new, *, static: bool = False,
     (the JAX package's bench ``decode`` leg). ``static`` selects the
     whole-batch baseline; everything else is identical, so the difference
     is scheduling. Besides the JAX report this returns each request's
-    tokens (``tokens_by_request``) and the kernel launches of the run
-    after the warm-up (``launches``)."""
+    tokens (``tokens_by_request``), the kernel launches of the run after
+    the warm-up (``launches``), the warm-up's capture seconds per
+    (kind, bucket) (``captures``) and the programs the run captured after
+    it (``n_traces``)."""
     prompts = [np.asarray(p, np.int32).ravel() for p in prompts]
     mns = ([int(max_new)] * len(prompts) if isinstance(max_new, int)
            else [int(m) for m in max_new])
@@ -1311,6 +1366,8 @@ def run_decode(model, prompts, max_new, *, static: bool = False,
             "page_size": ps,
             "errors": sum(1 for r in recs if r["outcome"] != "ok"),
             "warmup_s": sum(warm.values()),
+            "captures": {f"{k} {b}": t for (k, b), t in warm.items()},
+            "n_traces": eng.n_traces,
             "launches": {k: after[k] - before[k] for k in after},
             "tokens_by_request": [s.result(0) if r["outcome"] == "ok"
                                   else None

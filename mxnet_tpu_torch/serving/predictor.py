@@ -4,16 +4,22 @@
 in ``eval()`` mode under ``torch.inference_mode()``. The leading batch
 dimension is quantised to ``bucket_sizes``: :meth:`bucket_for` and
 :meth:`pad_to_bucket` pad a partial batch with zero rows up to the next
-bucket, so concurrent requests of any size run a handful of shapes. The
-JAX package compiles one XLA program per bucket; PyTorch runs eagerly,
-so here :attr:`n_traces` counts the distinct bucket shapes run, and
-:meth:`warmup` runs each bucket once before traffic arrives.
-:meth:`predict` returns the net's outputs on the device without waiting
-for them. :func:`predictor_for` builds one at a serving precision
-(float32, or bfloat16 through ``amp.convert_hybrid_block``).
+bucket, so concurrent requests of any size run a handful of shapes.
+Where the JAX package AOT-compiles one XLA program per bucket, this
+predictor captures one CUDA graph per input signature
+(:mod:`.captured`): :meth:`aot_compile` captures one, :meth:`warmup`
+captures every bucket before traffic arrives, and :meth:`predict`
+copies its arguments into the program's static inputs and replays it.
+A signature not seen before is captured at its first call, and
+:attr:`n_traces` counts the programs captured. On the CPU each program
+runs its forward eagerly over the same static inputs. :meth:`predict`
+returns copies of the net's outputs on the device without waiting for
+them. :func:`predictor_for` builds one at a serving precision (float32,
+or bfloat16 through ``amp.convert_hybrid_block``).
 """
 from __future__ import annotations
 
+import threading
 import time
 from typing import Dict, Optional, Sequence
 
@@ -22,6 +28,7 @@ import torch
 
 from ..base import MXNetError
 from ..context import resolve_device
+from .captured import Programs, map_tensors
 
 __all__ = ["CompiledPredictor", "DEFAULT_BUCKETS", "map_tensors",
            "predictor_for", "synchronize"]
@@ -48,15 +55,15 @@ def pad_rows(leaf, bucket: int):
     return torch.cat([leaf, pad], dim=0)
 
 
-def map_tensors(fn, out):
-    """Apply ``fn`` to every tensor of a nested tuple/list/dict output."""
-    if isinstance(out, torch.Tensor):
-        return fn(out)
-    if isinstance(out, (tuple, list)):
-        return type(out)(map_tensors(fn, o) for o in out)
-    if isinstance(out, dict):
-        return {k: map_tensors(fn, v) for k, v in out.items()}
-    return out
+#: where a static input goes among a call's arguments
+_INPUT = object()
+
+
+def _static_key(leaf):
+    """A non-tensor argument as part of a program's signature."""
+    if leaf is None or isinstance(leaf, (bool, int, float, str)):
+        return leaf
+    return repr(leaf)
 
 
 def synchronize(device: torch.device) -> None:
@@ -69,7 +76,7 @@ class CompiledPredictor:
     """One callable = the whole forward pass, per shape bucket.
 
         pred = CompiledPredictor(net)          # cuda:0 unless device="cpu"
-        pred.warmup(example_row)               # run every bucket once
+        pred.warmup(example_row)               # capture every bucket
         out = pred.predict(*pred.pad_to_bucket(x)[0])
     """
 
@@ -84,7 +91,8 @@ class CompiledPredictor:
         self.device = resolve_device(device)
         self.bucket_sizes = sizes
         self._net = net.to(self.device).eval()
-        self._shapes = set()
+        self._programs = Programs(self._net, self.device)
+        self._mu = threading.Lock()
         #: measured time of one micro-batch of the largest bucket, from
         #: :meth:`warmup`; None until warmup ran
         self.service_time_seed_s: Optional[float] = None
@@ -95,8 +103,9 @@ class CompiledPredictor:
 
     @property
     def n_traces(self) -> int:
-        """Distinct input shapes (buckets) run so far."""
-        return len(self._shapes)
+        """Programs captured so far: one per input signature (bucket), and
+        one more each time the parameters moved since a capture."""
+        return self._programs.n_traces
 
     # ---------------- bucketing ----------------
     def bucket_for(self, rows: int) -> int:
@@ -132,34 +141,70 @@ class CompiledPredictor:
                 .to(self.device)
         return leaf
 
+    def _program(self, args, kwargs):
+        """The program of this call's signature (captured when new) and
+        the call's tensor arguments in the order of its static inputs."""
+        names = tuple(sorted(kwargs))
+        leaves = [torch.from_numpy(np.ascontiguousarray(a))
+                  if isinstance(a, np.ndarray) else a
+                  for a in args + tuple(kwargs[k] for k in names)]
+        tensors = [a for a in leaves if isinstance(a, torch.Tensor)]
+        key = (len(args), names, tuple(
+            (tuple(a.shape), a.dtype) if isinstance(a, torch.Tensor)
+            else _static_key(a) for a in leaves))
+
+        net = self._net     # not self: a program must not keep its owner
+        fixed = [_INPUT if isinstance(a, torch.Tensor) else a
+                 for a in leaves]
+        nargs = len(args)
+
+        def build():
+            inputs = [t.to(self.device, copy=True) for t in tensors]
+
+            def body(*ins):
+                it = iter(ins)
+                vals = [next(it) if a is _INPUT else a for a in fixed]
+                with torch.inference_mode():
+                    return net(*vals[:nargs],
+                               **dict(zip(names, vals[nargs:])))
+            return body, inputs
+
+        shapes = [tuple(t.shape) for t in tensors]
+        return self._programs.get(key, build,
+                                  what=f"predictor program {shapes}"), tensors
+
+    def aot_compile(self, *args, **kwargs) -> float:
+        """Capture the program of this (bucket-shaped) batch ahead of
+        traffic, unless it exists; returns its capture seconds."""
+        with self._mu:
+            return self._program(args, kwargs)[0].capture_s
+
     def predict(self, *args, **kwargs):
-        """Run one (bucket-shaped) batch; returns the net's outputs on the
-        device, without waiting for the device to finish them."""
-        args = tuple(self.as_tensor(a) for a in args)
-        kwargs = {k: self.as_tensor(v) for k, v in kwargs.items()}
-        self._shapes.add(tuple(
-            (tuple(a.shape), a.dtype) if isinstance(a, torch.Tensor) else a
-            for a in args + tuple(kwargs[k] for k in sorted(kwargs))))
-        with torch.inference_mode():
-            return self._net(*args, **kwargs)
+        """Run one (bucket-shaped) batch: its arguments are copied into
+        its program's static inputs and the program replays. Returns
+        copies of the net's outputs on the device, without waiting for
+        the device to finish them."""
+        with self._mu:
+            prog, tensors = self._program(args, kwargs)
+            for static, t in zip(prog.inputs, tensors):
+                static.copy_(t)
+            with torch.inference_mode():
+                return prog.run()
 
     __call__ = predict
 
     def warmup(self, *example, buckets: Optional[Sequence[int]] = None
                ) -> Dict[int, float]:
-        """Run every bucket once from one example request (a one-row
-        batch), then time one more run of the largest bucket into
+        """Capture every bucket's program from one example request (a
+        one-row batch), then time one replay of the largest bucket into
         :attr:`service_time_seed_s`. Returns {bucket: seconds of its
-        first run}."""
+        capture}."""
         out = {}
         padded = None
         for b in (buckets or self.bucket_sizes):
             padded = tuple(pad_rows(a, b) if _is_batched(a) else a
                            for a in example)
-            t0 = time.perf_counter()
-            self.predict(*padded)
-            synchronize(self.device)
-            out[b] = time.perf_counter() - t0
+            out[b] = self.aot_compile(*padded)
         if padded is not None:
             t0 = time.perf_counter()
             self.predict(*padded)

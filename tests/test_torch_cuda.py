@@ -772,12 +772,9 @@ def test_rnn_decode_wrapper_raises_on_card(cuda_dev):
     torch.testing.assert_close(got, ref, atol=1e-4, rtol=1e-4)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("spec", [0, 3])
-def test_decode_engine_dispatch_is_sync_free_on_card(cuda_dev, spec):
-    """The engine's dispatches make no host sync (the retire is the one,
-    exempt through ``engine.allow_sync``), and its tokens equal a CPU
-    copy's."""
+def _sync_free_decode_tokens(cuda_dev, spec, inflight):
+    """Tokens of a warmed engine on the card, its step loop run under
+    ``set_sync_debug_mode("error")``, and of its CPU copy."""
     from mxnet_tpu_torch.serving import DecodeEngine, TinyDecoder
 
     rng = onp.random.RandomState(3)
@@ -790,7 +787,7 @@ def test_decode_engine_dispatch_is_sync_free_on_card(cuda_dev, spec):
                             device=dev)
         eng = DecodeEngine(model, ladder=(1, 2, 4), page_size=4,
                            max_context=48, start=False, spec_k=spec,
-                           prefix_share=bool(spec))
+                           prefix_share=bool(spec), inflight=inflight)
         try:
             eng.warmup()
             streams = [eng.submit(p, max_new=6) for p in prompts]
@@ -810,6 +807,24 @@ def test_decode_engine_dispatch_is_sync_free_on_card(cuda_dev, spec):
             assert eng._dead is None
         finally:
             eng.close()
+    return outs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spec", [0, 3])
+def test_decode_engine_dispatch_is_sync_free_on_card(cuda_dev, spec):
+    """The engine's dispatches make no host sync (the retire is the one,
+    exempt through ``engine.allow_sync``), and its tokens equal a CPU
+    copy's."""
+    outs = _sync_free_decode_tokens(cuda_dev, spec, inflight=1)
+    assert outs[0] == outs[1]
+
+
+@pytest.mark.cuda
+def test_decode_engine_deep_window_is_sync_free_on_card(cuda_dev):
+    """With four steps in flight no dispatch waits for an earlier one's
+    staging copy: still no host sync, and the CPU copy's tokens."""
+    outs = _sync_free_decode_tokens(cuda_dev, 0, inflight=4)
     assert outs[0] == outs[1]
 
 
@@ -907,3 +922,147 @@ def test_opt_update_wrapper_raises_on_card(cuda_dev):
     with pytest.raises(mxt.MXNetError, match="all scalars or all"):
         KO.unit_update("sgd", cfg, w, w, torch.zeros(8, device=cuda_dev),
                        0.0, 1, 1.0, 0.0, (torch.zeros_like(w),))
+
+
+# ---------------------------------------------------------------------------
+# captured programs (serving/captured.py): CUDA graphs per signature
+# ---------------------------------------------------------------------------
+
+def _small_bert(dev, dtype, seed=0):
+    from mxnet_tpu_torch.gluon.model_zoo import bert as tbert
+    from mxnet_tpu_torch.gluon.params import init_params_numpy, \
+        load_jax_params
+    from mxnet_tpu_torch.serving import predictor_for
+    net = tbert.BERTClassifier(tbert.bert_small_test(device=dev),
+                               num_classes=3, device=dev)
+    load_jax_params(net, init_params_numpy(net, seed))
+    return predictor_for(net, dtype=dtype, device=dev)
+
+
+def _tokens(b, seed, seq=32):
+    return onp.random.RandomState(seed).randint(0, 128, (b, seq)) \
+        .astype("int64")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_predictor_replay_equals_the_eager_net_on_card(cuda_dev, dtype):
+    """Every bucket's graph replay gives the logits of the net called
+    eagerly on the same padded batch, bit for bit (same kernels, same
+    cuBLAS calls), and counts the kernels' launches once a replay."""
+    pred = _small_bert(cuda_dev, dtype)
+    warm = pred.warmup(_tokens(1, 0))
+    assert set(warm) == set(pred.bucket_sizes)
+    assert pred.n_traces == len(pred.bucket_sizes)
+    for b in pred.bucket_sizes:
+        x = _tokens(b, b)
+        K.reset_launch_counts()
+        got = pred.predict(x)
+        counts = K.launch_counts()
+        with torch.inference_mode():
+            ref = pred.net(torch.from_numpy(x).to(cuda_dev))
+        assert torch.equal(got, ref), f"bucket {b}"
+        # 2 layers: 2 flash, 5 LayerNorm (embeddings + 2 a layer)
+        assert counts["flash_fwd"] == 2 and counts["layernorm_fwd"] == 5
+    assert pred.n_traces == len(pred.bucket_sizes)
+
+
+@pytest.mark.cuda
+def test_predictor_follows_weights_loaded_after_warmup_on_card(cuda_dev):
+    from mxnet_tpu_torch.gluon.params import init_params_numpy, \
+        load_jax_params
+    pred = _small_bert(cuda_dev, "float32")
+    pred.warmup(_tokens(1, 0))
+    x = _tokens(4, 3)
+    first = pred.predict(x)
+    load_jax_params(pred.net, init_params_numpy(pred.net, 1))
+    second = pred.predict(x)
+    with torch.inference_mode():
+        ref = pred.net(torch.from_numpy(x).to(cuda_dev))
+    assert torch.equal(second, ref) and not torch.equal(first, second)
+    assert pred.n_traces == len(pred.bucket_sizes)
+
+
+@pytest.mark.cuda
+def test_first_seen_signature_captured_while_a_thread_reads_on_card(
+        cuda_dev):
+    """A capture (thread-local mode) goes through while another thread
+    copies results to the host; both threads' results are right."""
+    import threading
+    pred = _small_bert(cuda_dev, "float32")
+    pred.warmup(_tokens(1, 0), buckets=(1,))
+    x1 = _tokens(1, 5)
+    ref1 = pred.predict(x1).cpu()
+    stop, seen, errors = threading.Event(), [], []
+
+    def reader():
+        try:
+            while not stop.is_set():
+                seen.append(torch.equal(pred.predict(x1).cpu(), ref1))
+        except Exception as e:          # reported by the assert below
+            errors.append(e)
+
+    t = threading.Thread(target=reader)
+    t.start()
+    try:
+        x4 = _tokens(4, 6)
+        got = pred.predict(x4)          # bucket 4: captured now
+    finally:
+        stop.set()
+        t.join(60)
+    assert not errors and seen and all(seen)
+    with torch.inference_mode():
+        ref = pred.net(torch.from_numpy(x4).to(cuda_dev))
+    assert torch.equal(got, ref) and pred.n_traces == 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model", ["tiny", "gqa"])
+@pytest.mark.parametrize("spec", [0, 3])
+def test_decode_graphs_tokens_equal_the_cpu_copy_on_card(cuda_dev, model,
+                                                         spec):
+    """``run_decode`` on the captured programs gives the CPU copy's
+    tokens, with no program captured after the warm-up."""
+    from mxnet_tpu_torch import serving
+    from mxnet_tpu_torch.gluon import GQADecoder
+    rng = onp.random.RandomState(4)
+    prompts = [rng.randint(0, 64, size=int(rng.randint(2, 20)))
+               for _ in range(6)]
+    mns = [int(rng.randint(2, 9)) for _ in range(6)]
+    reps = []
+    for dev in (cuda_dev, "cpu"):
+        if model == "tiny":
+            m = serving.TinyDecoder(vocab=64, d_model=32, num_heads=2,
+                                    seed=0, device=dev)
+        else:
+            m = GQADecoder(vocab=64, d_model=32, num_heads=4,
+                           num_kv_heads=2, num_layers=2, seed=1, device=dev)
+        reps.append(serving.run_decode(m, prompts, mns, ladder=(1, 2, 4),
+                                       page_size=4, spec_k=spec,
+                                       prefix_share=bool(spec)))
+    assert reps[0]["tokens_by_request"] == reps[1]["tokens_by_request"]
+    assert reps[0]["n_traces"] == 0 and reps[0]["errors"] == 0
+    assert len(reps[0]["captures"]) == 3 * (3 if spec else 2)
+
+
+@pytest.mark.cuda
+def test_a_failed_capture_raises_and_runs_nothing_eagerly_on_card(cuda_dev):
+    """A forward that syncs with the host cannot be captured: the call
+    raises MXNetError, counts no program, and raises again next time."""
+    from mxnet_tpu_torch.serving import CompiledPredictor
+
+    class Syncing(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.w = torch.nn.Parameter(torch.ones(4, device=cuda_dev))
+
+        def forward(self, x):
+            return x * self.w * float(x.sum().item())
+
+    pred = CompiledPredictor(Syncing(), bucket_sizes=(2,), device=cuda_dev)
+    x = torch.ones(2, 4)
+    for _ in range(2):
+        with pytest.raises(mxt.MXNetError, match="capture of"):
+            pred.predict(x)
+    assert pred.n_traces == 0
+    torch.cuda.synchronize()
