@@ -12,6 +12,7 @@
                                      # report of every kernel
     python3 chip_smoke.py --zero-train  # phases 1, 2 and 11 alone, on
                                         # two or more cards
+    python3 chip_smoke.py --checkpoint  # phases 1, 2 and 6c alone
     python3 chip_smoke.py --compare DIR  # A/B on one card: the flash
         # forward, the flash backward (fused at BERT training's shape;
         # dq, dkv at phase 7's), the recurrence kernels, the LayerNorm
@@ -128,6 +129,23 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    flash backward (dq, dk, dv) against an exact float64 backward and one
    rounding P and dS as the reference does, the flash forward's output,
    and dq's spread over five runs; median step ms, tokens/s, peak memory;
+6c. phase 6's training through ``TrainLoop(checkpoint_dir=...,
+   checkpoint_every=5)`` under ``build/chip_ckpt`` (removed after), in
+   float32 and then converted to bf16 with Adam's ``multi_precision``
+   (uint16 bf16 weights and float32 masters on disk): CKPT_RUNS
+   uninterrupted ten-step runs; a run that saves at step 5 in the
+   background and goes on two steps while the write is in flight; a
+   fresh net, trainer and loop that resume and run steps 6-10. The
+   checkpoint must equal a capture taken at step 5 and the restored state
+   the checkpoint, bit for bit (parameters, states, masters, counts,
+   scheduler, RNG); the resumed losses and final weights must lie within
+   the uninterrupted runs' spread (``CKPT_SPREAD_FACTOR``; bit-equal where
+   they are); the resumed steps launch phase 6's kernels exactly. Then
+   ``save_parameters`` of the resumed float32 net and ``load_parameters``
+   into the net of a warmed ``CompiledPredictor``: bucket 32 bit-equal to
+   that net called eagerly, changed by the load, ``n_traces`` unchanged.
+   Prints capture ms, write s, checkpoint bytes, restore s and step ms
+   with and without a write in flight;
 7. train a 2-layer BERT-width classifier at sequence 1024 for two steps,
    so the flash backward takes its dq and dkv kernels (two launches each
    per step, none of the fused one), with its gradients against a CPU
@@ -181,7 +199,11 @@ Phases, each of which fails the run (non-zero exit) when it fails:
     then one eager step on each rank's rows (``loss.backward()``,
     ``Trainer.allreduce_grads()`` over NCCL, ``Trainer.update``): every
     reduced gradient against rank 0's backward of the whole batch (as
-    phase 6's gradient check bounds it) and bit-equal weights after.
+    phase 6's gradient check bounds it) and bit-equal weights after;
+    the training loop checkpoints at step 5 (the shards gathered, rank 0
+    writing), and half as many ranks resume that checkpoint and run steps
+    6-10: the losses within ZERO_RESUME_RTOL of the full world's, one
+    ``opt_update`` launch a unit a resumed step.
 
 ``{"launch_counts": {...}, "bf16_launch_counts": {...}}`` gives each
 kernel's launches on its path, and on its bf16 path where it has one.
@@ -246,6 +268,24 @@ GRAD_RTOL_BF16 = 2.5e-1
 #: at this many batches of GRAD_BATCH x GRAD_SEQ (the first is the
 #: gradient check's)
 GRAD_F64_BATCHES = 3
+#: phase 6c: phase 6's setup through ``TrainLoop(checkpoint_dir=...)``: a
+#: run that checkpoints at step CKPT_SAVE_AT (in the background) and goes
+#: on CKPT_WRITE_STEPS steps while the write is in flight, then a resume
+#: in fresh objects to step TRAIN_STEPS, held against CKPT_RUNS
+#: uninterrupted runs. The fused flash backward sums dq with float32
+#: atomics, so two runs may part in the last bits: the resumed run's
+#: nearest uninterrupted run must be within CKPT_SPREAD_FACTOR times the
+#: largest distance between two uninterrupted runs (the largest
+#: |difference| of the resumed steps' losses; the rms difference of the
+#: final weights), and bit-equal where those are. Three runs and the
+#: factor, because the resumed run is one more draw of the same spread:
+#: held to one measured distance alone it would fail about as often as it
+#: passed. The weights' rms, not their largest difference: one element
+#: with a tiny Adam denominator decides the largest (one H100 run gave
+#: 3.4e-6 resumed against 1.4e-6 between two runs, losses within)
+CKPT_SAVE_AT, CKPT_WRITE_STEPS, CKPT_RUNS, CKPT_SPREAD_FACTOR = 5, 2, 3, 2.0
+#: phase 6c's checkpoints (git-ignored; removed at the end of the phase)
+CKPT_DIR = os.path.join("build", "chip_ckpt")
 #: phase 4b's bf16 logits, GPU vs a CPU copy converted the same way: 5e-2
 #: of the largest |logit|. On the CPU at this shape bf16 logits differ
 #: from float32's by 1.5 % of the largest; two bf16 runs about twice that
@@ -1746,6 +1786,290 @@ def train_bert(torch, np, K, dev, smi, profile=False, bf16=False):
     return counts
 
 
+def flat_weights(torch, net):
+    """Every parameter of ``net``, flattened into one float32 tensor on
+    its device (a bf16 weight widened exactly)."""
+    return torch.cat([p.detach().float().reshape(-1)
+                      for p in net.parameters()])
+
+
+def dir_bytes(path):
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, files in os.walk(path) for f in files)
+
+
+def loop_steps(torch, loop, x, y, steps):
+    """``TrainLoop.step`` up to global step ``steps``: {step index: loss
+    mean}, and per step (index, wall ms to a synchronize, whether a
+    background checkpoint write was in flight when it began)."""
+    mgr = loop.checkpoint_manager
+    losses, timed = {}, []
+    for i in range(loop.global_step, steps):
+        writing = mgr is not None and mgr.writing
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = loop.step(x, y)
+        torch.cuda.synchronize()
+        timed.append((i, (time.perf_counter() - t0) * 1e3, writing))
+        losses[i] = float(loss.float().mean())
+    loop.synchronize()
+    return losses, timed
+
+
+def states_equal(a, b):
+    """Names whose arrays differ between two ``TrainState``-like
+    (arrays, meta) pairs, the update counts and scheduler among them."""
+    (aa, am), (ba, bm) = a, b
+    bad = sorted(set(aa) ^ set(ba))
+    bad += [k for k in set(aa) & set(ba)
+            if aa[k].dtype != ba[k].dtype or aa[k].shape != ba[k].shape
+            or not (aa[k] == ba[k]).all()]
+    bad += [k for k in ("num_update", "index_update_count", "lr_scheduler",
+                        "optimizer", "param_names") if am.get(k) != bm.get(k)]
+    return bad
+
+
+def checkpoint_phase(torch, np, K, dev, smi, bf16=False):
+    """Phase 6c: phase 6's BERT-base training (float32, or converted to
+    bf16 with Adam's ``multi_precision``: bf16 weights, float32 masters)
+    through ``TrainLoop(checkpoint_dir=..., checkpoint_every=5)``.
+
+    CKPT_RUNS uninterrupted 10-step runs measure the spread; a run saves
+    at step 5 (in the background) and goes on two steps while the write is
+    in flight; a fresh net, trainer and loop on the same directory resume
+    and run steps 6-10. Gates: the checkpoint holds what was captured at
+    step 5 and the restored state (parameters, states, masters, counts,
+    scheduler, RNG) equals it bit for bit; the resumed run's losses and
+    final weights within the spread (bit-equal where the runs are); the
+    resumed steps launch exactly phase 6's kernels. Prints capture ms,
+    write s, checkpoint bytes, restore s and the step's ms with and
+    without a write in flight. Returns the resumed net (float32) for the
+    serving check."""
+    import shutil
+    from mxnet_tpu_torch import amp
+    from mxnet_tpu_torch.checkpoint import (capture_train_state,
+                                            read_checkpoint)
+    from mxnet_tpu_torch.gluon import Trainer, TrainLoop
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from mxnet_tpu_torch.gluon.model_zoo.bert import BERTClassifier, bert_base
+    from mxnet_tpu_torch.gluon.params import init_params_numpy, \
+        load_jax_params
+
+    dtype = "bfloat16" if bf16 else "float32"
+
+    def make():
+        net = BERTClassifier(bert_base(max_length=TRAIN_SEQ, dropout=0.1,
+                                       device=dev),
+                             num_classes=2, dropout=0.1, device=dev)
+        if bf16:
+            amp.convert_hybrid_block(net)      # LayerNorms stay float32
+        return net.train()
+
+    def loop_for(net, **kw):
+        trainer = Trainer(dict(net.named_parameters()), "adam",
+                          {"learning_rate": TRAIN_LR,
+                           "multi_precision": bf16})
+        return TrainLoop(net, trainer, loss_fn, **kw)
+
+    t_setup = time.perf_counter()
+    net = make()
+    init = init_params_numpy(net, seed=2)
+    rs = np.random.RandomState(3)
+    vocab = net.bert.word_embed.weight.shape[0]
+    x = torch.from_numpy(rs.randint(0, vocab, (TRAIN_BATCH, TRAIN_SEQ))
+                         .astype(np.int64)).to(dev)
+    y = torch.from_numpy(rs.randint(0, 2, (TRAIN_BATCH,))
+                         .astype(np.float32)).to(dev)
+    loss_fn = SoftmaxCrossEntropyLoss()
+    root = os.path.join(CKPT_DIR, dtype)
+    shutil.rmtree(root, ignore_errors=True)
+    try:
+        runs, plain = [], []
+        for _ in range(CKPT_RUNS):
+            load_jax_params(net, init)
+            torch.manual_seed(0)            # the dropout masks
+            losses, timed = loop_steps(torch, loop_for(net), x, y,
+                                       TRAIN_STEPS)
+            runs.append((losses, flat_weights(torch, net)))
+            plain += [ms for i, ms, _ in timed if i > 0]
+        setup_s = time.perf_counter() - t_setup
+
+        # the run that saves at step 5 and goes on while the write is in
+        # flight; its own capture of step 5 is what the checkpoint must hold
+        load_jax_params(net, init)
+        torch.manual_seed(0)
+        loop = loop_for(net, checkpoint_dir=root,
+                        checkpoint_every=CKPT_SAVE_AT)
+        mgr = loop.checkpoint_manager
+        loop_steps(torch, loop, x, y, CKPT_SAVE_AT)
+        captured = capture_train_state(trainer=loop.trainer, net=net,
+                                       step=CKPT_SAVE_AT)
+        _, timed = loop_steps(torch, loop, x, y,
+                              CKPT_SAVE_AT + CKPT_WRITE_STEPS)
+        writing_ms = [ms for _, ms, w in timed if w]
+        loop.wait()
+        path = mgr.latest_path()
+        saved_step = mgr.latest_step()
+        capture_ms, write_s = mgr.stats["capture_s"] * 1e3, \
+            mgr.stats["write_s"]
+        nbytes = dir_bytes(path)
+        del loop, mgr, net
+
+        # fresh objects on the same directory: auto-resume, steps 6-10
+        net_b = make()
+        t0 = time.perf_counter()
+        loop_b = loop_for(net_b, checkpoint_dir=root,
+                          checkpoint_every=CKPT_SAVE_AT)
+        resume_wall_s = time.perf_counter() - t0
+        restore_s = loop_b.checkpoint_manager.stats["restore_s"]
+        resumed_at = loop_b.global_step
+        disk, manifest = read_checkpoint(path)
+        restored = capture_train_state(trainer=loop_b.trainer, net=net_b,
+                                       step=CKPT_SAVE_AT)
+        disk_vs_captured = states_equal((disk, manifest["meta"]),
+                                        (captured.arrays, captured.meta))
+        restored_vs_disk = states_equal((restored.arrays, restored.meta),
+                                        (disk, manifest["meta"]))
+        bf16_params = sorted({e["dtype"] for k, e in
+                              manifest["arrays"].items()
+                              if k.startswith("param/")})
+        master_keys = sum(1 for k, e in manifest["arrays"].items()
+                          if k.startswith("opt/") and e["dtype"] == "float32")
+        del captured, restored, disk
+        K.reset_launch_counts()
+        resumed, _ = loop_steps(torch, loop_b, x, y, TRAIN_STEPS)
+        launches = K.launch_counts()
+        loop_b.wait()
+        w_res = flat_weights(torch, net_b)
+    finally:
+        shutil.rmtree(CKPT_DIR, ignore_errors=True)
+
+    steps = sorted(resumed)
+
+    def loss_dist(a, b):
+        return max(abs(a[i] - b[i]) for i in steps)
+
+    def w_rms(a, b):
+        return float((a - b).double().pow(2).mean().sqrt())
+
+    def w_max(a, b):
+        return float((a - b).abs().max())
+
+    pairs = [(i, j) for i in range(len(runs)) for j in range(i + 1,
+                                                             len(runs))]
+    spread = {"loss": max(loss_dist(runs[i][0], runs[j][0])
+                          for i, j in pairs),
+              "weights_rms": max(w_rms(runs[i][1], runs[j][1])
+                                 for i, j in pairs)}
+    nearest = {"loss": min(loss_dist(resumed, r[0]) for r in runs),
+               "weights_rms": min(w_rms(w_res, r[1]) for r in runs)}
+    within = {m: nearest[m] <= CKPT_SPREAD_FACTOR * spread[m]
+              if spread[m] > 0 else nearest[m] == 0 for m in spread}
+    # beside the gate: the largest element's difference, which one
+    # element with a tiny Adam denominator decides
+    weights_max = {"pairs": [w_max(runs[i][1], runs[j][1])
+                             for i, j in pairs],
+                   "resumed": [w_max(w_res, r[1]) for r in runs]}
+    weights_unequal = {"pairs": [int((runs[i][1] != runs[j][1]).sum())
+                                 for i, j in pairs],
+                       "resumed": [int((w_res != r[1]).sum())
+                                   for r in runs]}
+    expect = {n: 0 for n in K.KERNELS}
+    expect.update(flash_fwd=12, flash_bwd_fused=12, layernorm_fwd=25,
+                  layernorm_bwd=25)
+    expect = {n: c * len(steps) for n, c in expect.items()}
+    print(smi, flush=True)
+    report = {
+        "model": "bert_base classifier", "dtype": dtype,
+        "multi_precision": bf16, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+        "optimizer": "adam", "learning_rate": TRAIN_LR, "dropout": 0.1,
+        "saved_at_step": saved_step, "resumed_at_step": resumed_at,
+        "resumed_steps": [i + 1 for i in steps],
+        "capture_ms": capture_ms, "write_s": write_s,
+        "checkpoint_bytes": nbytes, "restore_s": restore_s,
+        "resume_wall_s": resume_wall_s,
+        "step_ms_median": statistics.median(plain),
+        "step_ms_with_write_in_flight": writing_ms,
+        "param_dtypes_on_disk": bf16_params,
+        "float32_state_arrays_on_disk": master_keys,
+        "disk_vs_captured_mismatch": disk_vs_captured,
+        "restored_vs_disk_mismatch": restored_vs_disk,
+        "uninterrupted_losses": [[r[0][i] for i in range(TRAIN_STEPS)]
+                                 for r in runs],
+        "resumed_losses": [resumed[i] for i in steps],
+        "spread": spread, "nearest_uninterrupted": nearest,
+        "spread_factor": CKPT_SPREAD_FACTOR, "within_spread": within,
+        "weights_max_abs_diff": weights_max,
+        "weights_elements_unequal": weights_unequal,
+        "launches_resumed": launches, "launches_expected": expect,
+        "setup_s": setup_s, "card": smi}
+    # converted to bf16, the LayerNorms keep float32 parameters
+    report["ok"] = (saved_step == CKPT_SAVE_AT
+                    and resumed_at == CKPT_SAVE_AT
+                    and not disk_vs_captured and not restored_vs_disk
+                    and bf16_params == (["bfloat16", "float32"] if bf16
+                                        else ["float32"])
+                    and all(within.values()) and launches == expect
+                    and all(math.isfinite(v) for v in resumed.values()))
+    emit({"checkpoint_bf16" if bf16 else "checkpoint": report})
+    if not report["ok"]:
+        raise SystemExit(f"checkpoint phase failed: {report}")
+    return net_b
+
+
+def serve_loaded(torch, np, dev, smi, trained):
+    """Phase 6c, serving: ``save_parameters`` of the resumed net, then
+    ``load_parameters`` into the net of a warmed ``CompiledPredictor``
+    (bucket 32, its own random weights): its replies must equal that net
+    called eagerly on the loaded weights bit for bit, differ from the
+    replies before the load, and nothing may be captured again."""
+    import shutil
+    from mxnet_tpu_torch.gluon import load_parameters, save_parameters
+    from mxnet_tpu_torch.gluon.model_zoo.bert import BERTClassifier, bert_base
+    from mxnet_tpu_torch.serving import CompiledPredictor
+    os.makedirs(CKPT_DIR, exist_ok=True)
+    fname = os.path.join(CKPT_DIR, "bert_base.params")
+    try:
+        save_parameters(trained, fname)
+        file_bytes = os.path.getsize(fname)
+        torch.manual_seed(1)
+        net = BERTClassifier(bert_base(max_length=TRAIN_SEQ, dropout=0.1,
+                                       device=dev),
+                             num_classes=2, dropout=0.1, device=dev)
+        pred = CompiledPredictor(net, bucket_sizes=(SERVE_MAX_BATCH,))
+        vocab = net.bert.word_embed.weight.shape[0]
+        rs = np.random.RandomState(4)
+        pred.warmup(rs.randint(0, vocab, (1, SERVE_SEQ)).astype(np.int64))
+        traces = pred.n_traces
+        xb = rs.randint(0, vocab, (SERVE_MAX_BATCH, SERVE_SEQ)) \
+            .astype(np.int64)
+        before = pred.predict(xb).clone()
+        t0 = time.perf_counter()
+        load_parameters(pred.net, fname)
+        load_s = time.perf_counter() - t0
+        got = pred.predict(xb)
+        with torch.inference_mode():
+            ref = pred.net(torch.from_numpy(xb).to(dev))
+        loaded = all(torch.equal(a, b.to(a.device)) for a, b in zip(
+            pred.net.parameters(), trained.parameters()))
+    finally:
+        shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    report = {"bucket": SERVE_MAX_BATCH, "seq": SERVE_SEQ,
+              "file_bytes": file_bytes, "load_s": load_s,
+              "weights_equal_trained": loaded,
+              "bit_equal_to_eager": bool(torch.equal(got, ref)),
+              "max_abs_diff": float((got - ref).abs().max()),
+              "changed_by_load": not bool(torch.equal(got, before)),
+              "n_traces_before": traces, "n_traces_after": pred.n_traces,
+              "card": smi}
+    report["ok"] = (loaded and report["bit_equal_to_eager"]
+                    and report["changed_by_load"]
+                    and pred.n_traces == traces)
+    emit({"checkpoint_serving": report})
+    if not report["ok"]:
+        raise SystemExit(f"checkpoint serving check failed: {report}")
+
+
 def long_setup(torch, np, dev):
     """Phase 7's model (seeded weights, dropout 0.1, train mode), batch
     (numpy), loss and compiled Adam step on ``dev``, and the function
@@ -2621,6 +2945,10 @@ ZERO_MP_STEPS = 3
 ZERO_WEIGHT_RTOL, ZERO_WEIGHT_ATOL = 1e-6, 1e-7
 #: phase 11's first loss against a one-card forward of the same weights
 ZERO_LOSS_ATOL = 1e-5
+#: phase 11's resume at half the world from the step-5 checkpoint, its
+#: losses against the full world's steps 6-10: the JAX package's dp 4 ->
+#: dp 2 test bound (the gradient sums over the ranks in another order)
+ZERO_RESUME_RTOL = 1e-5
 
 
 def opt_case(torch, dev, code, n, dtype, vec, seed):
@@ -3006,12 +3334,14 @@ def zero_layout_mp(torch, np, K, dev, smi, widths=None, batch=TRAIN_BATCH,
     return counts
 
 
-def zero_rank(widths, batch, seq, steps, lr):
+def zero_rank(widths, batch, seq, steps, lr, ckpt_dir=None):
     """Phase 11, one rank: BERT-base through ``TrainLoop`` under
     ``make_mesh({"dp": world})`` on the global batch (each rank keeps its
-    contiguous 1/world), dropout 0, ten Adam steps. Returns the rank's
-    facts; rank 0 also holds a one-card forward of the initial weights on
-    the whole batch, for the first loss."""
+    contiguous 1/world), dropout 0, ten Adam steps; with ``ckpt_dir`` the
+    loop checkpoints every CKPT_SAVE_AT steps there (the shards gathered,
+    rank 0 writing). Returns the rank's facts; rank 0 also holds a
+    one-card forward of the initial weights on the whole batch, for the
+    first loss."""
     import numpy as np
     import torch
     from mxnet_tpu_torch.gluon import Trainer, TrainLoop
@@ -3054,13 +3384,19 @@ def zero_rank(widths, batch, seq, steps, lr):
         p.grad = None
     trainer = Trainer(dict(net.named_parameters()), "adam",
                       {"learning_rate": lr})
-    losses, step_ms, per_step = [], [], []
+    losses, step_ms, per_step, ckpt_busy = [], [], [], []
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
     with make_mesh({"dp": world}):
-        loop = TrainLoop(net, trainer, loss_fn)
+        loop = TrainLoop(net, trainer, loss_fn, checkpoint_dir=ckpt_dir,
+                         checkpoint_every=CKPT_SAVE_AT if ckpt_dir else None)
+        mgr = loop.checkpoint_manager
         K.reset_launch_counts()
-        for _ in range(steps):
+        for i in range(steps):
+            # a step that saves, or runs beside a write, is not timed
+            # into the median
+            ckpt_busy.append(mgr is not None and (
+                mgr.writing or (i + 1) % CKPT_SAVE_AT == 0))
             before = K.launch_counts()["opt_update"]
             if dev.type == "cuda":
                 torch.cuda.synchronize(dev)
@@ -3071,6 +3407,10 @@ def zero_rank(widths, batch, seq, steps, lr):
                 torch.cuda.synchronize(dev)
             step_ms.append((time.perf_counter() - t0) * 1e3)
             per_step.append(K.launch_counts()["opt_update"] - before)
+        loop.wait()
+        ckpt = None if mgr is None else {
+            "latest_step": mgr.latest_step(), "capture_s": mgr.stats[
+                "capture_s"], "write_s": mgr.stats["write_s"]}
     step = loop.compiled_step
     same = weights_equal_all_ranks(torch, net)
     eager = eager_rank_step(torch, net, loss_fn, x, y)
@@ -3079,15 +3419,59 @@ def zero_rank(widths, batch, seq, steps, lr):
             # the step returns the global batch's loss on every rank
             "first_losses": losses[0].float().cpu().numpy(),
             "one_card_first_losses": ref,
-            "step_ms": step_ms, "opt_update_per_step": per_step,
+            "step_ms": step_ms, "ckpt_busy": ckpt_busy,
+            "opt_update_per_step": per_step,
             "fwd_bwd_ms": statistics.median(fb_ms[1:]),
             "units": len(step.zero_plan.units),
             "state_bytes": step.optimizer_state_bytes(),
             "state_bytes_unsharded": sum(2 * 4 * p.numel()
                                          for p in trainer._params),
             "weights_equal_all_ranks": same, "eager": eager,
+            "checkpoint": ckpt,
             "max_memory_allocated": torch.cuda.max_memory_allocated(dev)
             if dev.type == "cuda" else None}
+
+
+def zero_resume_rank(widths, batch, seq, steps, lr, ckpt_dir):
+    """Phase 11's resume, one rank of a smaller world: a fresh BERT-base,
+    trainer and ``TrainLoop`` on ``ckpt_dir`` resume from the larger
+    world's checkpoint (the layout-free states sharded again for this
+    world) and run to step ``steps``: the losses, the ``opt_update``
+    launches of each resumed step, the restore's provenance and time."""
+    import numpy as np
+    import torch
+    from mxnet_tpu_torch.gluon import Trainer, TrainLoop
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from mxnet_tpu_torch.ops import kernels as K
+    from mxnet_tpu_torch.parallel import dist, make_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = dist.device()
+    net = bert_base_classifier(torch, seq, dev, widths)
+    rs = np.random.RandomState(3)
+    vocab = net.bert.word_embed.weight.shape[0]
+    x = torch.from_numpy(rs.randint(0, vocab, (batch, seq))
+                         .astype(np.int64)).to(dev)
+    y = torch.from_numpy(rs.randint(0, 2, (batch,))
+                         .astype(np.float32)).to(dev)
+    trainer = Trainer(dict(net.named_parameters()), "adam",
+                      {"learning_rate": lr})
+    with make_mesh({"dp": dist.size()}):
+        loop = TrainLoop(net, trainer, SoftmaxCrossEntropyLoss(),
+                         checkpoint_dir=ckpt_dir)
+        start = loop.global_step
+        K.reset_launch_counts()
+        losses, per_step = {}, []
+        for i in range(start, steps):
+            before = K.launch_counts()["opt_update"]
+            losses[i] = float(loop.step(x, y).float().mean())
+            loop.synchronize()
+            per_step.append(K.launch_counts()["opt_update"] - before)
+    mgr = loop.checkpoint_manager
+    return {"start": start, "losses": losses, "opt_update_per_step": per_step,
+            "zero_sharded": loop.compiled_step.zero_sharded,
+            "provenance": mgr.restore_provenance,
+            "restore_s": mgr.stats["restore_s"]}
 
 
 def weights_equal_all_ranks(torch, net):
@@ -3165,16 +3549,33 @@ def zero_train_multi(torch, np, smi, device="cuda", world=None, widths=None,
         peer = [[i == j or torch.cuda.can_device_access_peer(i, j)
                  for j in range(world)] for i in range(world)]
         emit({"peer_access": peer})
-    ranks = dist.spawn(zero_rank, world, device,
-                       (widths, batch, seq, steps, TRAIN_LR),
-                       timeout_s=timeout_s)
+    import shutil
+    from mxnet_tpu_torch.checkpoint import list_checkpoints
+    from mxnet_tpu_torch.checkpoint.atomic import step_dir_name
+    root = os.path.abspath(os.path.join(CKPT_DIR, "zero"))
+    shutil.rmtree(root, ignore_errors=True)
+    try:
+        ranks = dist.spawn(zero_rank, world, device,
+                           (widths, batch, seq, steps, TRAIN_LR, root),
+                           timeout_s=timeout_s)
+        # the step-5 checkpoint of this world, resumed on half of it:
+        # the newer ones go (the restore warns that `latest` is gone)
+        for s in list_checkpoints(root):
+            if s != CKPT_SAVE_AT:
+                shutil.rmtree(os.path.join(root, step_dir_name(s)))
+        resumed = dist.spawn(zero_resume_rank, world // 2, device,
+                             (widths, batch, seq, steps, TRAIN_LR, root),
+                             timeout_s=timeout_s)
+    finally:
+        shutil.rmtree(CKPT_DIR, ignore_errors=True)
     r0 = ranks[0]
     ref = r0["one_card_first_losses"]
     global_loss = all(r["first_losses"].shape == ref.shape for r in ranks)
     first_err = max(float(np.abs(r["first_losses"] - ref).max())
                     if global_loss else math.inf for r in ranks)
     median = statistics.median(max(r["step_ms"][i] for r in ranks)
-                               for i in range(1, steps))
+                               for i in range(1, steps)
+                               if not any(r["ckpt_busy"][i] for r in ranks))
     report = {
         "model": "bert_base classifier", "world": world, "batch": batch,
         "seq": seq, "steps": steps, "optimizer": "adam",
@@ -3196,13 +3597,33 @@ def zero_train_multi(torch, np, smi, device="cuda", world=None, widths=None,
         "state_bytes_per_rank": [r["state_bytes"] for r in ranks],
         "state_bytes_unsharded": r0["state_bytes_unsharded"],
         "step_ms_rank0": r0["step_ms"], "median_step_ms": median,
+        "checkpoint_busy_steps": r0["ckpt_busy"],
         "fwd_bwd_ms_per_rank": [r["fwd_bwd_ms"] for r in ranks],
         "reduce_and_update_ms": median - max(r["fwd_bwd_ms"]
                                              for r in ranks),
         "global_tokens_per_s": batch * seq / (median / 1e3),
         "max_memory_allocated_per_rank": [r["max_memory_allocated"]
                                           for r in ranks],
-        "card": smi}
+        "checkpoint_rank0": r0["checkpoint"], "card": smi}
+    # the resume at world // 2 against this world's own steps 6-10
+    res0 = resumed[0]
+    res_err = max(abs(res0["losses"][i] - r0["losses"][i])
+                  / abs(r0["losses"][i]) for i in res0["losses"])
+    report["resume"] = {
+        "world": world // 2, "start": res0["start"],
+        "provenance": res0["provenance"], "restore_s": res0["restore_s"],
+        "losses": [r["losses"] for r in resumed],
+        "max_rel_err_vs_this_world": res_err, "rtol": ZERO_RESUME_RTOL,
+        "opt_update_per_step": [r["opt_update_per_step"] for r in resumed],
+        "zero_sharded": all(r["zero_sharded"] for r in resumed)}
+    report["resume"]["ok"] = (
+        res0["start"] == CKPT_SAVE_AT
+        and r0["checkpoint"]["latest_step"] >= CKPT_SAVE_AT
+        and res_err <= ZERO_RESUME_RTOL
+        and all(r["losses"] == res0["losses"] for r in resumed)
+        and (world // 2 < 2 or (report["resume"]["zero_sharded"] and all(
+            c == r0["units"] for r in resumed
+            for c in r["opt_update_per_step"]))))
     share = max(report["state_bytes_per_rank"]) \
         / report["state_bytes_unsharded"]
     report["state_share_per_rank"] = share
@@ -3219,7 +3640,8 @@ def zero_train_multi(torch, np, smi, device="cuda", world=None, widths=None,
                     and global_loss and first_err <= ZERO_LOSS_ATOL
                     and share <= 1.01 / world
                     and report["eager_grad_worst_err_over_bound"] <= 1.0
-                    and report["eager_weights_equal_all_ranks"])
+                    and report["eager_weights_equal_all_ranks"]
+                    and report["resume"]["ok"])
     emit({"zero_train": report})
     if not report["ok"]:
         raise SystemExit(f"ZeRO training phase failed: {report}")
@@ -3626,6 +4048,17 @@ def main(argv):
     K.build_library(verbose="--ptxas" in argv)
     K.library()
     emit({"build_s": time.perf_counter() - t0})
+    if "--checkpoint" in argv:
+        resumed = checkpoint_phase(torch, np, K, dev, smi)
+        serve_loaded(torch, np, dev, smi, resumed)
+        del resumed
+        torch.cuda.empty_cache()
+        checkpoint_phase(torch, np, K, dev, smi, bf16=True)
+        print(smi, flush=True)
+        emit({"ok": True, "device": {"platform": "gpu",
+                                     "kind": torch.cuda.get_device_name(0),
+                                     "count": torch.cuda.device_count()}})
+        return 0
     if "--zero-train" in argv:
         if torch.cuda.device_count() < 2:
             raise SystemExit("--zero-train needs two or more cards")
@@ -3670,6 +4103,13 @@ def main(argv):
     torch.cuda.empty_cache()
     trained_bf16 = train_bert(torch, np, K, dev, smi, "--profile" in argv,
                               bf16=True)
+    torch.cuda.empty_cache()
+    resumed = checkpoint_phase(torch, np, K, dev, smi)
+    serve_loaded(torch, np, dev, smi, resumed)
+    del resumed
+    torch.cuda.empty_cache()
+    checkpoint_phase(torch, np, K, dev, smi, bf16=True)
+    torch.cuda.empty_cache()
     trained_long = train_long(torch, np, K, dev)
     lstm = train_lstm(torch, np, K, dev, smi, "--profile" in argv)
     serve_decode(torch, np, K, ATT, dev, smi, DECODE_LEG, leg=True)

@@ -52,6 +52,7 @@ in the Updater's states), as the JAX package does.
 """
 from __future__ import annotations
 
+import logging
 import os
 from typing import Callable, List, Optional
 
@@ -67,6 +68,8 @@ from ..parallel.mesh import (batch_is_sharded, current_mesh, place_on_mesh,
                              replicate, zero_shard_pad)
 
 __all__ = ["CompiledTrainStep", "TrainLoop", "zero_bucket_schedule"]
+
+_LOG = logging.getLogger("mxnet_tpu_torch.gluon")
 
 
 def _env_int(name: str, default: int) -> int:
@@ -228,32 +231,75 @@ class _ZeroShardPlan:
             v[rank * s:(rank + 1) * s])).to(device)
 
     # ---------------- sharded state ----------------
-    def create_states(self, opt, rank: int, updater_states=None) -> list:
-        """Shard ``rank`` of every unit's optimizer state: each member's
-        state (adopted from ``updater_states`` when its shapes fit, else
-        ``opt.create_state``, on the float32 master of an mp unit),
-        concatenated, padded and sliced; and each mp unit's float32
-        master shard (:attr:`masters`), cast from the weight."""
-        updater_states = updater_states or {}
-        states = []
-        self.masters = {}
+    def create_states(self, opt, rank: int, updater_states=None,
+                      masters=None) -> list:
+        """Shard ``rank`` of every unit's optimizer state and each mp
+        unit's float32 master shard (:attr:`masters`).
+
+        A member's state is adopted from ``updater_states`` (a restored
+        checkpoint's, or the eager steps' before the plan) when it is a
+        tuple of param-shaped tensors, or a ``(state, master)`` pair of
+        them; else it is ``opt.create_state``'s, on the float32 master
+        of an mp unit. An mp member's master comes from ``masters``
+        (index -> param-shaped float32, a checkpoint's ``master/<j>``;
+        each used one is taken out), else from the adopted pair, else
+        the weight cast to float32."""
+        self.states, self.masters = self._build_states(
+            opt, rank, updater_states or {}, masters)
+        self.rank = rank
+        return self.states
+
+    def load_states(self, opt, updater_states, masters=None) -> None:
+        """Refill a live plan's shards IN PLACE from restored states and
+        masters (:meth:`create_states`' adoption rules): the tensors the
+        step holds keep their storage."""
+        states, new_masters = self._build_states(opt, self.rank,
+                                                 updater_states, masters)
+        with torch.no_grad():
+            for st, nst in zip(self.states, states):
+                for s_, ns in zip(st, nst):
+                    s_.copy_(ns)
+            for k, m in new_masters.items():
+                self.masters[k].copy_(m)
+
+    def _adopt(self, opt, j, st):
+        """(state, master or None) of member j from ``st`` when it fits
+        the parameter's shape, else (None, None)."""
+        p = self.params[j]
+        master = None
+        if opt.is_master_state(p, st):
+            st, master = st
+        shape = tuple(p.shape)
+        ok = isinstance(st, tuple) and all(
+            isinstance(s, torch.Tensor) and tuple(s.shape) == shape
+            for s in st)
+        if master is not None and tuple(master.shape) != shape:
+            master = None
+        return (st if ok else None), master
+
+    def _build_states(self, opt, rank, updater_states, masters):
+        restored = masters if masters is not None else {}
+        states, out_masters = [], {}
         for k, u in enumerate(self.units):
-            if u["mp"]:
-                master = torch.empty(self.shard_len(k),
-                                     dtype=torch.float32,
-                                     device=self.params[u["members"][0]]
-                                     .device)
-                self.masters[k] = self.copy_shard(k, self.params, rank,
-                                                  master)
-            per_member = []
-            for j, shape in zip(u["members"], u["shapes"]):
-                st = updater_states.get(j)
-                if not (isinstance(st, tuple) and all(
-                        isinstance(s, torch.Tensor) and
-                        tuple(s.shape) == shape for s in st)):
+            dev = self.params[u["members"][0]].device
+            per_member, pair_master = [], {}
+            for j in u["members"]:
+                st, m = self._adopt(opt, j, updater_states.get(j))
+                if m is not None:
+                    pair_master[j] = m
+                if st is None:
                     w = self.params[j].detach()
                     st = opt.create_state(j, w.float() if u["mp"] else w)
                 per_member.append(tuple(st))
+            if u["mp"]:
+                j = u["members"][0]
+                src = restored.pop(j, None)
+                if src is None:
+                    src = pair_master.get(j, self.params[j])
+                master = torch.empty(self.shard_len(k), dtype=torch.float32,
+                                     device=dev)
+                out_masters[k] = self.copy_shard(k, {j: src.to(dev)}, rank,
+                                                 master)
             counts = {len(m) for m in per_member}
             if len(counts) != 1:
                 raise MXNetError(
@@ -261,14 +307,15 @@ class _ZeroShardPlan:
                     f"bucket members ({sorted(counts)})")
             leaves = []
             for li in range(counts.pop()):
-                leaf = [m[li] for m in per_member]
-                out = torch.empty(self.shard_len(k), dtype=leaf[0].dtype,
-                                  device=leaf[0].device)
+                leaf = [m[li].to(dev) for m in per_member]
+                # a state is the dtype it updates in, whatever a
+                # checkpoint stored it in
+                out = torch.empty(self.shard_len(k), dtype=u["upd_dtype"],
+                                  device=dev)
                 self.copy_shard(k, dict(zip(u["members"], leaf)), rank, out)
                 leaves.append(out)
             states.append(tuple(leaves))
-        self.states, self.rank = states, rank
-        return states
+        return states, out_masters
 
     def state_bytes_per_replica(self) -> int:
         """Bytes of optimizer state this rank holds: its shards of the
@@ -319,6 +366,9 @@ class CompiledTrainStep:
         self._plain_mesh: Optional[tuple] = None
         self._zero: Optional[_ZeroShardPlan] = None
         self._buckets: List[list] = []
+        # the checkpoint stack asks the trainer's live steps whether a
+        # ZeRO plan owns the optimizer state
+        trainer._register_compiled(self)
         if zero_shard and (mesh is not None or current_mesh() is not None
                            or _dist.size() < 2):
             # decidable now: raise at once when it cannot hold
@@ -463,7 +513,7 @@ class CompiledTrainStep:
         self._zero = _ZeroShardPlan(tr._params, tr._optimizer,
                                     mesh.axis_size(axis))
         self._zero.create_states(tr._optimizer, mesh.rank,
-                                 tr._updater.states)
+                                 tr._updater.states, tr._restored_masters)
         self._buckets = zero_bucket_schedule(self._zero.units,
                                              _zero_bucket_bytes())
 
@@ -547,9 +597,26 @@ class TrainLoop:
     ``inflight`` or ``MXNET_INFLIGHT_STEPS``, default 2;
     ``MXNET_ENGINE_TYPE=NaiveEngine`` forces 0) makes the host wait, on
     the OLDEST step's loss, only when more steps are outstanding.
-    Checkpointing, numerics, telemetry and prefetch are not ported."""
 
-    def __init__(self, net, trainer, loss, inflight: Optional[int] = None):
+    **Checkpoints** (``checkpoint_dir=...``): the loop owns a
+    ``checkpoint.TrainCheckpointManager``. At construction it resumes
+    from the newest VALID checkpoint there (parameters, the optimizer
+    state, the ZeRO shards' included, update counts, scheduler, RNG;
+    corrupt ones are skipped with a warning) unless ``resume=False``.
+    Every ``checkpoint_every`` steps it retires the window, captures the
+    state (the step's one blessed wait for the device) and commits the
+    write on a background thread (``async_checkpoint``), keeping the
+    newest ``keep_last``. A failed background write surfaces at the next
+    save or :meth:`wait`. An interrupt (``KeyboardInterrupt``,
+    ``SystemExit``) in :meth:`step` drains the window and leaves a final
+    checkpoint before it propagates. Numerics, telemetry and prefetch
+    are not ported."""
+
+    def __init__(self, net, trainer, loss, inflight: Optional[int] = None,
+                 checkpoint_dir: Optional[str] = None,
+                 checkpoint_every: Optional[int] = None,
+                 keep_last: int = 3, async_checkpoint: bool = True,
+                 resume: bool = True):
         from ..engine import DispatchWindow
         self._net = net
         self._loss = loss
@@ -562,6 +629,20 @@ class TrainLoop:
         self._window = DispatchWindow(self._retire, max_inflight=inflight,
                                       what="TrainLoop step")
         self._global_step = 0
+        self._every = checkpoint_every
+        self._manager = None
+        if checkpoint_dir is not None:
+            from ..checkpoint.manager import TrainCheckpointManager
+            self._manager = TrainCheckpointManager(
+                checkpoint_dir, keep_last=keep_last,
+                async_save=async_checkpoint)
+            if resume:
+                meta = self._manager.restore_latest(
+                    trainer=trainer, net=net, strict=False)
+                if meta is not None:
+                    self._global_step = int(meta.get("step", 0))
+                    _LOG.info("TrainLoop resumed at step %d from %s",
+                              self._global_step, checkpoint_dir)
 
     def _loss_fn(self, *batch):
         *inputs, label = batch
@@ -572,12 +653,44 @@ class TrainLoop:
         loss.cpu()         # waits for the step's device work
 
     def step(self, *batch, batch_size: Optional[int] = None):
-        loss = self._step(*batch, batch_size=batch_size)
-        self._global_step += 1
-        self._window.push(loss, tag=self._global_step)
-        return loss
+        try:
+            loss = self._step(*batch, batch_size=batch_size)
+            self._global_step += 1
+            self._window.push(loss, tag=self._global_step)
+            if self._manager is not None and self._every and \
+                    self._global_step % self._every == 0:
+                # at the step's boundary, after its retire: the capture's
+                # copies to the host are then its only wait
+                self._window.drain()
+                self.save_checkpoint()
+            return loss
+        except (KeyboardInterrupt, SystemExit) as intr:
+            fault = self._interrupt_cleanup()
+            if fault is not None:
+                raise fault from intr
+            raise
 
     __call__ = step
+
+    def _interrupt_cleanup(self):
+        """An interrupt landed in the loop: drain the window (the first
+        deferred failure in it is the real story, returned for the
+        caller to raise) and, with a checkpoint manager, commit a final
+        checkpoint, so the run resumes where it stopped."""
+        fault = None
+        try:
+            self._window.drain()
+        except BaseException as e:
+            fault = e
+            self._window.abandon()
+        if self._manager is not None:
+            try:
+                self._manager.save(self._global_step, trainer=self._trainer,
+                                   net=self._net, block=True)
+            except Exception:
+                _LOG.warning("final checkpoint on interrupt failed",
+                             exc_info=True)
+        return fault
 
     def synchronize(self):
         """Retire every outstanding step; a deferred error surfaces here
@@ -589,6 +702,26 @@ class TrainLoop:
         s["inflight_window"] = self._window.max_inflight
         s["pending"] = len(self._window)
         return s
+
+    # ---------------- checkpointing ----------------
+    def save_checkpoint(self, block: Optional[bool] = None):
+        """Checkpoint now, at :attr:`global_step`; in the background
+        unless ``block=True`` (or ``async_checkpoint=False``). Returns
+        the captured ``checkpoint.TrainState``."""
+        if self._manager is None:
+            raise MXNetError("TrainLoop was built without checkpoint_dir=")
+        return self._manager.save(self._global_step, trainer=self._trainer,
+                                  net=self._net, block=block)
+
+    def wait(self):
+        """Wait for the checkpoint write in flight (re-raising its
+        error); call it before exiting so the newest one is durable."""
+        if self._manager is not None:
+            self._manager.wait()
+
+    @property
+    def checkpoint_manager(self):
+        return self._manager
 
     @property
     def global_step(self) -> int:

@@ -36,7 +36,9 @@ reduce-scatters instead and never calls it.
 """
 from __future__ import annotations
 
-from typing import Optional
+import os
+import weakref
+from typing import Dict, List, Optional
 
 import torch
 import torch.distributed as dist
@@ -74,6 +76,13 @@ class Trainer:
         self._optimizer.param_dict = dict(enumerate(self._params))
         self._updater = opt_mod.get_updater(self._optimizer)
         self._scale = 1.0
+        # live CompiledTrainSteps of this trainer (weakrefs: a dropped
+        # step must not leak): the checkpoint stack asks them whether a
+        # ZeRO plan owns the optimizer state
+        self._compiled_refs: List[weakref.ref] = []
+        # float32 masters restored from a checkpoint, taken by the next
+        # ZeRO plan that is built (checkpoint/state.py)
+        self._restored_masters: Dict[int, torch.Tensor] = {}
 
     # ---------------- properties ----------------
     @property
@@ -106,6 +115,89 @@ class Trainer:
         from .fused_step import CompiledTrainStep
         return CompiledTrainStep(self, loss_fn, zero_shard=zero_shard,
                                  zero_axis=zero_axis, mesh=mesh)
+
+    # ---------------- compiled-step registry ----------------
+    def _register_compiled(self, step):
+        self._compiled_refs.append(weakref.ref(step))
+
+    def _live_compiled_steps(self):
+        alive, out = [], []
+        for ref in self._compiled_refs:
+            s = ref()
+            if s is not None:
+                alive.append(ref)
+                out.append(s)
+        self._compiled_refs = alive
+        return out
+
+    def _zero_state_owner(self):
+        """The CompiledTrainStep whose ZeRO plan owns (or will own at its
+        next call) the sharded optimizer state, if any."""
+        for s in self._live_compiled_steps():
+            if s._zero is not None or s._zero_ok is not None:
+                return s
+        return None
+
+    @property
+    def _trainable_names(self) -> List[str]:
+        """Each trainable parameter's own name, as the JAX package's
+        ``Parameter.name`` gives it: the last part of its path."""
+        return [n.rsplit(".", 1)[-1]
+                for n, p in zip(self._param_names, self._all_params)
+                if p.grad_req != "null"]
+
+    # ---------------- persistence ----------------
+    def train_state(self, step: int = 0, net=None, extra=None):
+        """The WHOLE training state (parameters, the optimizer state,
+        a ZeRO step's shards gathered, update counts, scheduler, RNG) as
+        a ``checkpoint.TrainState`` of host arrays; write it with
+        ``checkpoint.write_checkpoint`` or let a
+        ``checkpoint.TrainCheckpointManager`` do it. Under a ZeRO step
+        every rank must call it (it gathers the shards)."""
+        from ..checkpoint.state import capture_train_state
+        return capture_train_state(trainer=self, net=net, step=step,
+                                   extra=extra)
+
+    def load_train_state(self, state, net=None, strict: bool = True):
+        """Restore a ``TrainState`` (the inverse of :meth:`train_state`);
+        returns its meta dict (with ``"step"``)."""
+        from ..checkpoint.state import apply_train_state
+        return apply_train_state(state, trainer=self, net=net,
+                                 strict=strict)
+
+    def save_states(self, fname: str):
+        """The optimizer state in one file (``Updater.get_states``'
+        pickle, the JAX package's format), written atomically. It holds
+        the eager updater's states only, so it raises while a ZeRO step
+        owns the state: use :meth:`train_state` there."""
+        if self._zero_state_owner() is not None:
+            raise MXNetError(
+                "Trainer.save_states cannot serialize the ZeRO-sharded "
+                "optimizer state owned by a compile_step program (the "
+                "eager updater it pickles does not hold the live moments "
+                "and float32 masters). Use trainer.train_state() with "
+                "checkpoint.write_checkpoint, or "
+                "checkpoint.TrainCheckpointManager / "
+                "gluon.TrainLoop(checkpoint_dir=...).")
+        from ..checkpoint.atomic import atomic_write_bytes
+        atomic_write_bytes(fname,
+                           self._updater.get_states(dump_optimizer=True),
+                           fault="trainer.save_states")
+
+    def load_states(self, fname: str):
+        """Load :meth:`save_states`' file, or the optimizer state and
+        counts of a checkpoint directory (``step-<N>``) of either
+        package."""
+        if os.path.isdir(fname):
+            from ..checkpoint.atomic import read_checkpoint
+            from ..checkpoint.state import TrainState, apply_train_state
+            arrays, manifest = read_checkpoint(fname)
+            apply_train_state(TrainState(arrays, manifest.get("meta", {}),
+                                         array_meta=manifest["arrays"]),
+                              trainer=self, strict=False)
+            return
+        with open(fname, "rb") as f:
+            self._updater.set_states(f.read())
 
     # ---------------- core ----------------
     def step(self, batch_size: int, ignore_stale_grad: bool = False):

@@ -170,10 +170,32 @@ class Optimizer:
 
     @staticmethod
     def state_tensors(state):
-        """The tensors of a state, a master's included, flattened."""
+        """The tensors of a state, a master's included, flattened: a
+        ``(state, master)`` pair gives the state's leaves, then the
+        master, as the JAX package's ``tree_leaves`` orders them."""
         if isinstance(state, torch.Tensor):
             return [state]
         return [t for s in state for t in Optimizer.state_tensors(s)]
+
+    @torch.no_grad()
+    def fill_state(self, index, weight: torch.Tensor, leaves,
+                   template=None):
+        """The state of ``weight`` holding ``leaves`` (tensors in
+        :meth:`state_tensors` order, anywhere, any dtype): ``template``
+        (a live state, else :meth:`create_state_multi_precision`'s) with
+        each leaf copied in, so the structure, device and dtypes stay the
+        live ones. Leaves that do not fit the template leaf for leaf are
+        returned as a flat tuple on the weight's device."""
+        if template is None:
+            template = self.create_state_multi_precision(index, weight)
+        flat = self.state_tensors(template)
+        if len(flat) == len(leaves) and all(
+                tuple(d.shape) == tuple(s.shape)
+                for d, s in zip(flat, leaves)):
+            for d, s in zip(flat, leaves):
+                d.copy_(s)
+            return template
+        return tuple(s.to(weight.device) for s in leaves)
 
     # ---------------- update ----------------
     def _rule(self):
@@ -378,21 +400,73 @@ class AdamW(Optimizer):
         return rule
 
 
+def _host_tree(state):
+    """A state's nested tuples with numpy leaves (bfloat16 widened to
+    float32, which holds it exactly: numpy has no bfloat16 of its own)."""
+    if isinstance(state, torch.Tensor):
+        t = state.detach().to("cpu", copy=True)
+        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+    return tuple(_host_tree(s) for s in state)
+
+
+def _tensor_tree(state):
+    if isinstance(state, (tuple, list)):
+        return tuple(_tensor_tree(s) for s in state)
+    return torch.from_numpy(np.ascontiguousarray(state))
+
+
 class Updater:
     """Applies an optimizer to indexed weights and owns their states."""
 
     def __init__(self, optimizer: Optimizer):
         self.optimizer = optimizer
         self.states: Dict[Any, Any] = {}
+        # indices whose states set_states loaded to the host: they move
+        # to their weight's device, in its state's dtypes, at first use
+        self._unplaced: set = set()
+
+    def get_states(self, dump_optimizer: bool = False) -> bytes:
+        """The states pickled as the JAX package pickles them: a dict of
+        index -> nested tuples of numpy arrays, with ``dump_optimizer``
+        in ``(states, optimizer name, {num_update,
+        index_update_count})``, so the update counts survive a
+        restart."""
+        import pickle
+        host = {k: _host_tree(v) for k, v in self.states.items()}
+        if dump_optimizer:
+            meta = dict(num_update=self.optimizer.num_update,
+                        index_update_count=dict(
+                            self.optimizer._index_update_count))
+            return pickle.dumps((host, type(self.optimizer).__name__, meta))
+        return pickle.dumps(host)
+
+    def set_states(self, states_bytes: bytes) -> None:
+        """Load what :meth:`get_states` (of either package) pickled."""
+        import pickle
+        loaded = pickle.loads(states_bytes)
+        if isinstance(loaded, tuple):
+            loaded, _opt_name, meta = loaded
+            self.optimizer.num_update = meta["num_update"]
+            self.optimizer._index_update_count.update(
+                meta["index_update_count"])
+        self.states = {k: _tensor_tree(v) for k, v in loaded.items()}
+        self._unplaced = set(self.states)
+
+    def _state_for(self, i, w):
+        if i not in self.states:
+            self.states[i] = self.optimizer.create_state_multi_precision(i, w)
+        elif i in self._unplaced:
+            self._unplaced.discard(i)
+            self.states[i] = self.optimizer.fill_state(
+                i, w, Optimizer.state_tensors(self.states[i]))
+        return self.states[i]
 
     def __call__(self, index, grad, weight):
         indices = index if isinstance(index, (list, tuple)) else [index]
         grads = grad if isinstance(grad, (list, tuple)) else [grad]
         weights = weight if isinstance(weight, (list, tuple)) else [weight]
         for i, w in zip(indices, weights):
-            if i not in self.states:
-                self.states[i] = \
-                    self.optimizer.create_state_multi_precision(i, w)
+            self._state_for(i, w)
         self.optimizer.update(list(indices), list(weights), list(grads),
                               [self.states[i] for i in indices])
 

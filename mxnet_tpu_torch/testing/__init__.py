@@ -1,0 +1,7 @@
+"""Testing support (counterpart of ``mxnet_tpu/testing``): fault points,
+so the checkpoint stack's atomicity is shown by kill -9 tests rather
+than claimed in comments."""
+from . import faults
+from .faults import FaultInjectedError, FaultRule, fault_point
+
+__all__ = ["faults", "fault_point", "FaultInjectedError", "FaultRule"]

@@ -244,7 +244,16 @@ def test_lstm_under_amp_vs_jax(monkeypatch, amp_on):
     jl.initialize()
     with jamp_off():
         jl(mx.nd.array(x))
-    params = {k: p.data().asnumpy() for k, p in jl.collect_params().items()}
+    # the JAX package's default initial weights (uniform in +-0.07, zero
+    # biases), drawn from numpy: its own initializer reads the process's
+    # mx.random state, which the tests run before this one in the same
+    # worker decide
+    w = onp.random.RandomState(11)
+    params = {k: (onp.zeros(p.shape, "f4") if k.endswith("bias") else
+                  w.uniform(-0.07, 0.07, p.shape).astype("f4"))
+              for k, p in jl.collect_params().items()}
+    for k, p in jl.collect_params().items():
+        p.set_data(mx.nd.array(params[k]))
     tl = trnn.LSTM(H, num_layers=2, input_size=C, device="cpu")
     load_jax_params(tl, params)
     states = [(r.randn(2, N, H) * 0.5).astype("f4") for _ in range(2)]
