@@ -13,6 +13,7 @@
     python3 chip_smoke.py --zero-train  # phases 1, 2 and 11 alone, on
                                         # two or more cards
     python3 chip_smoke.py --checkpoint  # phases 1, 2 and 6c alone
+    python3 chip_smoke.py --elastic     # phases 1, 2 and 12 alone
     python3 chip_smoke.py --compare DIR  # A/B on one card: the flash
         # forward, the flash backward (fused at BERT training's shape;
         # dq, dkv at phase 7's), the recurrence kernels, the LayerNorm
@@ -203,7 +204,33 @@ Phases, each of which fails the run (non-zero exit) when it fails:
     the training loop checkpoints at step 5 (the shards gathered, rank 0
     writing), and half as many ranks resume that checkpoint and run steps
     6-10: the losses within ZERO_RESUME_RTOL of the full world's, one
-    ``opt_update`` launch a unit a resumed step.
+    ``opt_update`` launch a unit a resumed step. Then four legs: (a) the
+    ten steps again from one set of weights in turns serial
+    (``MXNET_ZERO_BUCKET_BYTES=0``: one bucket reduced after the
+    backward), overlapped (4 MiB buckets launched from the backward's
+    gradient hooks), overlapped, serial: the median step ms of the
+    slowest rank, peak memory a rank, forward / backward / after the
+    backward ms from device events, one profiled overlapped step (the
+    reduce-scatter's device ms and its share beside compute kernels),
+    NCCL's reduce-scatter beside the step's at 4 MiB and at the whole
+    model; gates: 88 ``opt_update`` a rank a step, each overlapped run's
+    weights (rms) and losses within CKPT_SPREAD_FACTOR of the serial
+    runs' spread, a Dense-only model bit-equal in every bucketing; (b)
+    ``loop.prefetch`` against plain steps over PREFETCH_STEPS host
+    batches (step ms, ``input_wait_ms``, ``starvation_count``; losses
+    within the plain runs' spread); (c) ``elastic.ElasticSupervisor`` at
+    BERT-base's widths (ELASTIC_LAYERS layers), checkpoint_every=2,
+    ``step.dispatch:before=6:revoke:2``: one ``device_lost`` event (dp 4
+    -> 2, restored step 4), the run finished, its losses after the
+    recovery within the spread of two uninterrupted dp-2 runs restored
+    from the same checkpoint, ``downtime_s``; (d) a ``restore`` grows
+    the run back to dp 4 through a planned re-form;
+12. one card: the in-process ``ElasticSupervisor`` on phase 6's
+    BERT-base recovering from ``step.dispatch:before=4:error``
+    (``transient``: one event, restored step 2, losses within the spread
+    of two uninterrupted restores, phase 6's launches for every step
+    dispatched, ``downtime_s``), and ``TrainLoop.prefetch`` against plain
+    steps (step ms, ``input_wait_ms``).
 
 ``{"launch_counts": {...}, "bf16_launch_counts": {...}}`` gives each
 kernel's launches on its path, and on its bf16 path where it has one.
@@ -2935,6 +2962,7 @@ OPT_BF16_TOL = 2e-2
 #: phases 10 and 11: BERT-base's widths, the ZeRO layout at dp 4, ten Adam
 #: steps at lr 1e-5 at batch 32 x sequence 512
 BERT_BASE = dict(units=768, hidden_size=3072, num_layers=12, num_heads=12)
+BERT_VOCAB = 30522
 BERT_BASE_CLASSIFIER_PARAMS = 109_483_778
 ZERO_SHARDS, ZERO_UNITS = 4, 88
 #: phase 10's bf16 + multi_precision layout: Adam updates on the masters
@@ -2949,6 +2977,20 @@ ZERO_LOSS_ATOL = 1e-5
 #: losses against the full world's steps 6-10: the JAX package's dp 4 ->
 #: dp 2 test bound (the gradient sums over the ranks in another order)
 ZERO_RESUME_RTOL = 1e-5
+#: phase 11 leg (a): the four BERT-base runs, in turns (serial: one
+#: bucket reduced after the backward; overlap: 4 MiB buckets launched
+#: from the backward's hooks)
+OVERLAP_TURNS = ("serial", "overlap", "overlap", "serial")
+#: leg (a)'s Dense-only model (BERT-base's FFN widths and a 2-way head),
+#: trained DENSE_STEPS Adam steps on DENSE_ROWS rows
+DENSE_ROWS, DENSE_STEPS = 4096, 3
+#: legs (b) and phase 12's prefetch: host batches a run
+PREFETCH_STEPS = 10
+#: legs (c), (d): BERT-base widths with the depth cut to ELASTIC_LAYERS,
+#: ELASTIC_STEPS steps a run
+ELASTIC_LAYERS, ELASTIC_STEPS = 2, 8
+#: phase 12: the in-process supervisor's run
+ONE_CARD_STEPS = 6
 
 
 def opt_case(torch, dev, code, n, dtype, vec, seed):
@@ -3648,6 +3690,701 @@ def zero_train_multi(torch, np, smi, device="cuda", world=None, widths=None,
     return report
 
 
+def spread_gate(refs, got, dist):
+    """Phase 6c's gate for two card runs that cannot be bit-equal (the fused
+    backward's dq atomics): ``got``'s nearest of ``refs`` within
+    CKPT_SPREAD_FACTOR times the largest distance between two ``refs``,
+    or bit-equal where those are."""
+    pairs = [(i, j) for i in range(len(refs)) for j in range(i + 1,
+                                                             len(refs))]
+    spread = max(dist(refs[i], refs[j]) for i, j in pairs)
+    nearest = min(dist(got, r) for r in refs)
+    ok = nearest <= CKPT_SPREAD_FACTOR * spread if spread > 0 \
+        else nearest == 0
+    return {"spread": spread, "nearest": nearest, "ok": bool(ok)}
+
+
+def loss_dist(a, b):
+    """The largest difference of two runs' losses ({step: loss})."""
+    return max(abs(a[i] - b[i]) for i in a)
+
+
+def rms_dist(a, b):
+    return float((a - b).double().pow(2).mean().sqrt())
+
+
+def kernel_intervals(path):
+    """(name, start us, end us) of every kernel in a ``torch.profiler``
+    chrome trace."""
+    with open(path) as f:
+        trace = json.load(f)
+    return [(e["name"], float(e["ts"]), float(e["ts"]) + float(e["dur"]))
+            for e in trace.get("traceEvents", [])
+            if e.get("ph") == "X" and e.get("cat") == "kernel"]
+
+
+def union(intervals):
+    out = []
+    for a, b in sorted(intervals):
+        if out and a <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], b)
+        else:
+            out.append([a, b])
+    return out
+
+
+def overlap_us(intervals, cover):
+    """How much of ``intervals`` (disjoint or not, each counted) lies
+    inside the union ``cover``."""
+    total = 0.0
+    for a, b in intervals:
+        for c, d in cover:
+            total += max(0.0, min(b, d) - max(a, c))
+    return total
+
+
+def reduce_split(ivs):
+    """Phase 11's profile of one overlapped step: device ms of the
+    reduce-scatter's exchange kernels (NCCL's SendRecv: an all_to_all),
+    of the all-gathers, and the share of the exchange's time that runs
+    while compute kernels run."""
+    nccl = [(n, a, b) for n, a, b in ivs if "nccl" in n.lower()]
+    compute = union([(a, b) for n, a, b in ivs if "nccl" not in n.lower()])
+    rs = [(a, b) for n, a, b in nccl if "sendrecv" in n.lower()]
+    ag = [(a, b) for n, a, b in nccl if "allgather" in n.lower()]
+    rs_us = sum(b - a for a, b in rs)
+    return {"reduce_scatter_device_ms": rs_us / 1e3,
+            "all_gather_device_ms": sum(b - a for a, b in ag) / 1e3,
+            "reduce_scatter_kernels": len(rs),
+            "reduce_scatter_share_beside_compute":
+                overlap_us(rs, compute) / rs_us if rs_us else None,
+            "nccl_kernel_names": sorted({n.split("(")[0] for n, _, _ in
+                                         nccl})}
+
+
+def collective_ms(torch, n_elems, reps=5):
+    """One rank's device ms of NCCL's reduce_scatter_tensor and of the
+    step's reduce-scatter (all_to_all + rank-ordered sum,
+    ``collectives.reduce_scatter_rows``) of an (N, n/N) float32 buffer."""
+    import torch.distributed as tdist
+    from mxnet_tpu_torch.parallel import collectives, current_mesh
+    mesh = current_mesh()
+    n = mesh.size
+    buf = torch.ones(n, n_elems // n, device=torch.cuda.current_device())
+    out = torch.empty(n_elems // n, device=buf.device)
+    res = {}
+    for name, fn in (("nccl_reduce_scatter", lambda: tdist.
+                      reduce_scatter_tensor(out, buf.reshape(-1))),
+                     ("all_to_all_ordered_sum", lambda: collectives.
+                      reduce_scatter_rows(buf, mesh))):
+        fn()
+        torch.cuda.synchronize()
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        for _ in range(reps):
+            fn()
+        b.record()
+        torch.cuda.synchronize()
+        res[name] = a.elapsed_time(b) / reps
+    return res
+
+
+def overlap_rank(widths, batch, seq, steps, lr, trace_dir, dense_rows):
+    """Phase 11 legs (a) and (b), one rank. (a) BERT-base through
+    ``TrainLoop`` under the dp mesh from one set of weights, four runs in
+    turns: serial (MXNET_ZERO_BUCKET_BYTES=0: one bucket, reduced after
+    the backward), overlapped (4 MiB buckets launched from the
+    backward's hooks), overlapped, serial: step ms, peak memory, the
+    opt_update launches of each step, device events around the backward
+    (forward, backward, and after the backward to the step's end: the
+    exposed reduction and update), the losses and (rank 0) the final
+    weights; rank 0 profiles one more overlapped step. Then a Dense-only
+    model, three Adam steps serial, at 4 MiB and with one unit a bucket,
+    and NCCL's reduce-scatter beside the step's at a 4 MiB bucket and at
+    the whole model. (b) plain steps against ``loop.prefetch`` over
+    PREFETCH_STEPS host batches, in turns."""
+    import numpy as np
+    import torch
+    from mxnet_tpu_torch.gluon import Trainer, TrainLoop
+    from mxnet_tpu_torch.gluon import fused_step as FS
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from mxnet_tpu_torch.gluon.nn import Dense
+    from mxnet_tpu_torch.gluon.params import init_params_numpy, \
+        load_jax_params
+    from mxnet_tpu_torch.ops import kernels as K
+    from mxnet_tpu_torch.parallel import dist, make_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = dist.device()
+    rank, world = dist.rank(), dist.size()
+    cuda = dev.type == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize(dev)
+
+    net = bert_base_classifier(torch, seq, dev, widths)
+    init = init_params_numpy(net, seed=2)
+    rs = np.random.RandomState(3)
+    vocab = net.bert.word_embed.weight.shape[0]
+    x = torch.from_numpy(rs.randint(0, vocab, (batch, seq))
+                         .astype(np.int64)).to(dev)
+    y = torch.from_numpy(rs.randint(0, 2, (batch,))
+                         .astype(np.float32)).to(dev)
+    loss_fn = SoftmaxCrossEntropyLoss()
+    marks = []
+    real_backward = FS._BucketReducer.backward
+
+    def marked_backward(self, loss_sum, params):
+        a = torch.cuda.Event(enable_timing=True) if cuda else None
+        if a is not None:
+            a.record()
+        real_backward(self, loss_sum, params)
+        b = torch.cuda.Event(enable_timing=True) if cuda else None
+        if b is not None:
+            b.record()
+        marks.append((a, b))
+
+    FS._BucketReducer.backward = marked_backward
+
+    def fresh_loop(model):
+        for p in model.parameters():
+            p.grad = None
+        tr = Trainer(dict(model.named_parameters()), "adam",
+                     {"learning_rate": lr})
+        return TrainLoop(model, tr, loss_fn)
+
+    runs = []
+    with make_mesh({"dp": world}):
+        for mode in OVERLAP_TURNS:
+            os.environ["MXNET_ZERO_BUCKET_BYTES"] = \
+                "0" if mode == "serial" else str(4 << 20)
+            load_jax_params(net, init)
+            loop = fresh_loop(net)
+            if cuda:
+                torch.cuda.reset_peak_memory_stats(dev)
+            losses, step_ms, per_step, split = {}, [], [], []
+            K.reset_launch_counts()
+            for i in range(steps):
+                before = K.launch_counts()["opt_update"]
+                del marks[:]
+                sync()
+                t0 = time.perf_counter()
+                e0 = torch.cuda.Event(enable_timing=True) if cuda else None
+                if e0 is not None:
+                    e0.record()
+                loss = loop.step(x, y)
+                e1 = torch.cuda.Event(enable_timing=True) if cuda else None
+                if e1 is not None:
+                    e1.record()
+                loop.synchronize()
+                sync()
+                step_ms.append((time.perf_counter() - t0) * 1e3)
+                per_step.append(K.launch_counts()["opt_update"] - before)
+                losses[i] = float(loss.float().mean())
+                if cuda and marks:
+                    a, b = marks[0]
+                    split.append((e0.elapsed_time(a), a.elapsed_time(b),
+                                  b.elapsed_time(e1)))
+            buckets = len(loop.compiled_step.buckets)
+            runs.append({
+                "mode": mode, "losses": losses, "step_ms": step_ms,
+                "opt_update_per_step": per_step, "buckets": buckets,
+                "zero_sharded": loop.compiled_step.zero_sharded,
+                "split_ms": split,
+                "max_memory_allocated": torch.cuda.max_memory_allocated(dev)
+                if cuda else None,
+                "weights": flat_weights(torch, net) if rank == 0 else None})
+        # rank 0 profiles one more overlapped step
+        profile = None
+        os.environ["MXNET_ZERO_BUCKET_BYTES"] = str(4 << 20)
+        load_jax_params(net, init)
+        loop = fresh_loop(net)
+        loop.step(x, y)
+        loop.synchronize()
+        sync()
+        if cuda and rank == 0:
+            from torch.profiler import ProfilerActivity, profile as prof_cm
+            with prof_cm(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                loop.step(x, y)
+                loop.synchronize()
+                sync()
+            path = os.path.join(trace_dir, "overlap_step.json")
+            prof.export_chrome_trace(path)
+            profile = reduce_split(kernel_intervals(path))
+            os.remove(path)
+        else:
+            loop.step(x, y)
+            loop.synchronize()
+        FS._BucketReducer.backward = real_backward
+        del loop
+        coll = None
+        if cuda:
+            coll = {"bucket_4MiB": collective_ms(torch, 1 << 20),
+                    "whole_model": collective_ms(
+                        torch, sum(p.numel() for p in net.parameters())
+                        // world * world)}
+
+        # the Dense-only model (the FFN's widths and a 2-way head):
+        # bit-equal in every bucketing
+        c, h = (widths or BERT_BASE)["units"], \
+            (widths or BERT_BASE)["hidden_size"]
+        rd = np.random.RandomState(11)
+        dense_init = {k: (rd.randn(*s) * 0.02).astype(np.float32)
+                      for k, s in (("0.weight", (h, c)), ("0.bias", (h,)),
+                                   ("1.weight", (c, h)), ("1.bias", (c,)),
+                                   ("2.weight", (2, c)), ("2.bias", (2,)))}
+        xd = torch.from_numpy(rd.randn(dense_rows, c)
+                              .astype(np.float32)).to(dev)
+        yd = torch.from_numpy(rd.randint(0, 2, (dense_rows,))
+                              .astype(np.float32)).to(dev)
+        dense = {}
+        for mode, bb in (("serial", 0), ("bucket_4MiB", 4 << 20),
+                         ("one_unit_a_bucket", 64)):
+            os.environ["MXNET_ZERO_BUCKET_BYTES"] = str(bb)
+            dnet = torch.nn.Sequential(
+                Dense(h, in_units=c, activation="relu", device=dev),
+                Dense(c, in_units=h, activation="relu", device=dev),
+                Dense(2, in_units=c, device=dev))
+            load_jax_params(dnet, dense_init)
+            dloop = fresh_loop(dnet)
+            dl = [float(dloop.step(xd, yd).float().mean())
+                  for _ in range(DENSE_STEPS)]
+            dloop.synchronize()
+            dense[mode] = (dl, flat_weights(torch, dnet),
+                           len(dloop.compiled_step.buckets))
+        dense_equal = all(dense[m][0] == dense["serial"][0] and torch.equal(
+            dense[m][1], dense["serial"][1]) for m in dense)
+        dense_buckets = {m: v[2] for m, v in dense.items()}
+        del dense
+
+        # (b) plain steps against loop.prefetch, in turns
+        os.environ["MXNET_ZERO_BUCKET_BYTES"] = str(4 << 20)
+        host = []
+        hb = np.random.RandomState(5)
+        for _ in range(PREFETCH_STEPS):
+            host.append((hb.randint(0, vocab, (batch, seq)).astype(np.int64),
+                         hb.randint(0, 2, (batch,)).astype(np.float32)))
+        pf_runs = []
+        for mode in ("plain", "prefetch", "prefetch", "plain"):
+            load_jax_params(net, init)
+            loop = fresh_loop(net)
+            src = loop.prefetch(iter(host), depth=2) if mode == "prefetch" \
+                else iter(host)
+            losses, step_ms = {}, []
+            sync()
+            t_prev = time.perf_counter()
+            for i, (bx, by) in enumerate(src):
+                losses[i] = float(loop.step(bx, by).float().mean())
+                loop.synchronize()
+                sync()
+                t = time.perf_counter()
+                step_ms.append((t - t_prev) * 1e3)
+                t_prev = t
+            st = loop.engine_stats()
+            pf_runs.append({"mode": mode, "losses": losses,
+                            "step_ms": step_ms,
+                            "input_wait_ms": st.get("input_wait_ms"),
+                            "starvation_count": st.get("starvation_count"),
+                            "prefetch_batches": st.get("prefetch_batches")})
+            del loop, src
+    return {"rank": rank, "world": world, "runs": runs, "profile": profile,
+            "collectives_ms": coll, "dense_equal": dense_equal,
+            "dense_buckets": dense_buckets, "prefetch": pf_runs}
+
+
+def zero_overlap(torch, np, smi, device="cuda", world=None, widths=None,
+                 batch=TRAIN_BATCH, seq=TRAIN_SEQ, steps=TRAIN_STEPS,
+                 dense_rows=DENSE_ROWS, timeout_s=600):
+    """Phase 11 legs (a) serial against overlapped and (b) prefetch, on
+    every visible card (:func:`overlap_rank`). Gates: every run sharded
+    with exactly one opt_update launch a unit a rank a step; each
+    overlapped run's final weights (rms) and losses within the spread
+    of the serial runs (``spread_gate``); the Dense-only model bit-equal
+    serial, at 4 MiB and one unit a bucket; the prefetch runs' losses
+    within the spread of the plain runs, every batch staged."""
+    from mxnet_tpu_torch.parallel import dist
+    world = world or torch.cuda.device_count()
+    trace_dir = os.path.abspath(os.path.join("build", "chip_trace"))
+    os.makedirs(trace_dir, exist_ok=True)
+    ranks = dist.spawn(overlap_rank, world, device,
+                       (widths, batch, seq, steps, TRAIN_LR, trace_dir,
+                        dense_rows), timeout_s=timeout_s)
+    r0 = ranks[0]
+    units = ZERO_UNITS if widths is None else None
+    runs = {}
+    for k, run in enumerate(r0["runs"]):
+        runs.setdefault(run["mode"], []).append(k)
+    serial = [r0["runs"][k] for k in runs["serial"]]
+    over = [r0["runs"][k] for k in runs["overlap"]]
+
+    def median_slowest(k):
+        return statistics.median(max(r["runs"][k]["step_ms"][i]
+                                     for r in ranks)
+                                 for i in range(1, steps))
+
+    def split_median(k, j):
+        vals = [r0["runs"][k]["split_ms"][i][j] for i in range(1, steps)
+                if i < len(r0["runs"][k]["split_ms"])]
+        return statistics.median(vals) if vals else None
+
+    turns = []
+    for k, run in enumerate(r0["runs"]):
+        turns.append({
+            "mode": run["mode"], "buckets": run["buckets"],
+            "median_step_ms_slowest_rank": median_slowest(k),
+            "peak_memory_per_rank": [r["runs"][k]["max_memory_allocated"]
+                                     for r in ranks],
+            "forward_ms": split_median(k, 0),
+            "backward_ms": split_median(k, 1),
+            "after_backward_ms": split_median(k, 2),
+            "losses_rank0": [run["losses"][i] for i in range(steps)]})
+    w_gate = [spread_gate([s["weights"] for s in serial], o["weights"],
+                          rms_dist) for o in over]
+    l_gate = [spread_gate([s["losses"] for s in serial], o["losses"],
+                          loss_dist) for o in over]
+    launches_ok = all(c == (units or r["runs"][0]["opt_update_per_step"][0])
+                      for r in ranks for run in r["runs"]
+                      for c in run["opt_update_per_step"])
+    pf = r0["prefetch"]
+    plain = [p["losses"] for p in pf if p["mode"] == "plain"]
+    pf_gate = [spread_gate(plain, p["losses"], loss_dist)
+               for p in pf if p["mode"] == "prefetch"]
+    report = {
+        "model": "bert_base classifier", "world": world, "batch": batch,
+        "seq": seq, "steps": steps, "turns": turns,
+        "overlap_vs_serial_weights_rms": w_gate,
+        "overlap_vs_serial_losses": l_gate,
+        "spread_factor": CKPT_SPREAD_FACTOR,
+        "opt_update_per_rank_step": [run["opt_update_per_step"]
+                                     for run in r0["runs"]],
+        "profile_overlapped_step_rank0": r0["profile"],
+        "collectives_ms_rank0": r0["collectives_ms"],
+        "dense_only_bit_equal": all(r["dense_equal"] for r in ranks),
+        "dense_only_buckets": r0["dense_buckets"], "card": smi}
+    report["ok"] = (all(r["zero_sharded"] for rk in ranks
+                        for r in rk["runs"])
+                    and launches_ok and all(g["ok"] for g in w_gate)
+                    and all(g["ok"] for g in l_gate)
+                    and report["dense_only_bit_equal"]
+                    and all(math.isfinite(v) for r in r0["runs"]
+                            for v in r["losses"].values()))
+    emit({"zero_overlap": report})
+    prefetch = {
+        "model": "bert_base classifier", "world": world,
+        "steps": PREFETCH_STEPS,
+        "turns": [{"mode": p["mode"],
+                   "median_step_ms_slowest_rank": statistics.median(
+                       max(r["prefetch"][k]["step_ms"][i] for r in ranks)
+                       for i in range(1, PREFETCH_STEPS)),
+                   "input_wait_ms_per_rank": [r["prefetch"][k]
+                                              ["input_wait_ms"]
+                                              for r in ranks],
+                   "starvation_count_rank0": p["starvation_count"],
+                   "prefetch_batches": p["prefetch_batches"]}
+                  for k, p in enumerate(pf)],
+        "losses_vs_plain": pf_gate, "card": smi}
+    prefetch["ok"] = (all(g["ok"] for g in pf_gate)
+                      and all(p["prefetch_batches"] == PREFETCH_STEPS
+                              for p in pf if p["mode"] == "prefetch"))
+    emit({"zero_prefetch": prefetch})
+    if not (report["ok"] and prefetch["ok"]):
+        raise SystemExit(f"ZeRO overlap / prefetch legs failed: "
+                         f"{report} {prefetch}")
+    return report
+
+
+def elastic_build(widths, seq, lr, dropout=0.0):
+    """What each formation of phase 11's elastic legs builds, on this
+    rank's card: a BERT-base-width classifier of ``widths`` (depth cut),
+    its weights from one seed, Adam."""
+    import torch
+    from mxnet_tpu_torch.gluon import Trainer
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from mxnet_tpu_torch.gluon.params import init_params_numpy, \
+        load_jax_params
+    from mxnet_tpu_torch.parallel import dist
+    net = bert_base_classifier(torch, seq, dist.device(), widths)
+    load_jax_params(net, init_params_numpy(net, seed=2))
+    trainer = Trainer(dict(net.named_parameters()), "adam",
+                      {"learning_rate": lr})
+    return net, trainer, SoftmaxCrossEntropyLoss()
+
+
+def elastic_batch(batch, seq, vocab, i):
+    """Step i's global batch on the host, from its own seed."""
+    import numpy as np
+    rs = np.random.RandomState(100 + i)
+    return (rs.randint(0, vocab, (batch, seq)).astype(np.int64),
+            rs.randint(0, 2, (batch,)).astype(np.float32))
+
+
+def elastic_ref_rank(build, batch_fn, ckpt_dir, restored, total, runs):
+    """An uninterrupted run of this world restored from checkpoint
+    ``restored``, ``runs`` times: rank 0's summed losses of each."""
+    import torch
+    from mxnet_tpu_torch.checkpoint import TrainCheckpointManager
+    from mxnet_tpu_torch.gluon import TrainLoop
+    from mxnet_tpu_torch.parallel import dist, make_mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = []
+    with make_mesh({"dp": dist.size()}):
+        for _ in range(runs):
+            net, trainer, loss_fn = build()
+            TrainCheckpointManager(ckpt_dir, keep_last=99).restore_step(
+                restored, trainer=trainer, net=net)
+            loop = TrainLoop(net, trainer, loss_fn)
+            h = {i: loop.step(*batch_fn(i)) for i in range(restored, total)}
+            loop.synchronize()
+            out.append({i: float(v.detach().double().sum())
+                        for i, v in h.items()})
+            del net, trainer, loop, h
+    return out if dist.rank() == 0 else None
+
+
+def zero_elastic(torch, np, smi, device="cuda", widths=None,
+                 batch=TRAIN_BATCH, seq=TRAIN_SEQ, timeout_s=300):
+    """Phase 11 legs (c) and (d): ``elastic.ElasticSupervisor`` over the
+    visible cards, one process group a formation. (c) ELASTIC_STEPS
+    steps with checkpoint_every=2 and ``step.dispatch:before=6:revoke:2``:
+    exactly one device_lost event (dp N -> N - 2, restored step 4), the
+    run finishing at its last step, and the losses after the recovery
+    within the spread of two uninterrupted runs at the smaller world
+    restored from the same checkpoint; ``downtime_s`` is the time to
+    recover. (d) a revocation and then a ``restore`` at the smaller
+    formation's second dispatch: the run grows back through a planned
+    re-form (cause ``grow``) and finishes at the full world."""
+    import functools
+    import shutil
+    from mxnet_tpu_torch import elastic
+    from mxnet_tpu_torch.parallel import dist
+    from mxnet_tpu_torch.testing import faults
+    widths = widths or dict(BERT_BASE, num_layers=ELASTIC_LAYERS)
+    world = len(dist.available_devices(device))
+    vocab = widths.get("vocab_size", BERT_VOCAB)
+    build = functools.partial(elastic_build, widths, seq, TRAIN_LR)
+    batch_fn = functools.partial(elastic_batch, batch, seq, vocab)
+    root = os.path.abspath(os.path.join(CKPT_DIR, "elastic"))
+    report = {"model": "bert_base-width classifier", "widths": widths,
+              "world": world, "batch": batch, "seq": seq, "card": smi}
+    try:
+        shutil.rmtree(root, ignore_errors=True)
+        spec = "step.dispatch:before=6:revoke:2"
+        faults.configure(spec)
+        t0 = time.perf_counter()
+        sup = elastic.ElasticSupervisor(
+            build, os.path.join(root, "shrink"), mesh_axes={"dp": -1},
+            checkpoint_every=2, keep_last=99, backoff_base=0.0,
+            final_checkpoint=False, device=device,
+            log=elastic.RecoveryLog(), formation_timeout_s=timeout_s)
+        res = sup.run(batch_fn, ELASTIC_STEPS)
+        wall = time.perf_counter() - t0
+        faults.reset()
+        ev = res.events[0] if res.events else {}
+        restored = ev.get("restored_step", 4)
+        refs = dist.spawn(elastic_ref_rank, world - 2, device,
+                          (build, batch_fn, os.path.join(root, "shrink"),
+                           restored, ELASTIC_STEPS, 2),
+                          timeout_s=timeout_s)[0]
+        after = {i: res.losses[i] for i in range(restored, ELASTIC_STEPS)
+                 if i in res.losses}
+        gate = spread_gate(refs, after, loss_dist) \
+            if len(after) == ELASTIC_STEPS - restored else {"ok": False}
+        report["shrink"] = {
+            "fault": spec, "steps": ELASTIC_STEPS, "events": res.events,
+            "final_step": res.final_step, "world_size": res.world_size,
+            "losses": res.losses, "reference_losses": refs,
+            "losses_vs_uninterrupted": gate, "wall_s": wall,
+            "downtime_s": ev.get("downtime_s")}
+        report["shrink"]["ok"] = (
+            len(res.events) == 1 and ev["cause"] == "device_lost"
+            and (ev["old_dp"], ev["new_dp"], ev["restored_step"])
+            == (world, world - 2, 4)
+            and res.final_step == ELASTIC_STEPS and gate["ok"])
+
+        spec = "step.dispatch:before=4:revoke:2;" \
+            f"step.dispatch@dp{world - 2}:before=2:restore"
+        faults.configure(spec)
+        t0 = time.perf_counter()
+        sup = elastic.ElasticSupervisor(
+            build, os.path.join(root, "grow"), mesh_axes={"dp": -1},
+            checkpoint_every=2, backoff_base=0.0, final_checkpoint=False,
+            device=device, log=elastic.RecoveryLog(),
+            formation_timeout_s=timeout_s)
+        res = sup.run(batch_fn, ELASTIC_STEPS)
+        wall = time.perf_counter() - t0
+        faults.reset()
+        causes = [(e["cause"], e["old_dp"], e["new_dp"])
+                  for e in res.events]
+        report["grow"] = {
+            "fault": spec, "events": res.events, "final_step":
+                res.final_step, "world_size": res.world_size,
+            "wall_s": wall,
+            "downtime_s": [e["downtime_s"] for e in res.events]}
+        report["grow"]["ok"] = (
+            causes == [("device_lost", world, world - 2),
+                       ("grow", world - 2, world)]
+            and res.final_step == ELASTIC_STEPS
+            and res.world_size == world
+            and res.events[1]["discarded_steps"] == 0
+            and all(math.isfinite(v) for v in res.losses.values()))
+    finally:
+        faults.reset()
+        shutil.rmtree(root, ignore_errors=True)
+    report["ok"] = report["shrink"]["ok"] and report["grow"]["ok"]
+    emit({"zero_elastic": report})
+    if not report["ok"]:
+        raise SystemExit(f"elastic legs failed: {report}")
+    return report
+
+
+def one_card_build(dev, init):
+    """Phase 12's formation: phase 6's BERT-base (dropout 0.1, Adam at
+    TRAIN_LR) from the weights ``init``, its dropout seeded."""
+    import torch
+    from mxnet_tpu_torch.gluon import Trainer
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from mxnet_tpu_torch.gluon.model_zoo.bert import BERTClassifier, bert_base
+    from mxnet_tpu_torch.gluon.params import load_jax_params
+    net = BERTClassifier(bert_base(max_length=TRAIN_SEQ, dropout=0.1,
+                                   device=dev),
+                         num_classes=2, dropout=0.1, device=dev).train()
+    load_jax_params(net, init)
+    torch.manual_seed(0)
+    trainer = Trainer(dict(net.named_parameters()), "adam",
+                      {"learning_rate": TRAIN_LR})
+    return net, trainer, SoftmaxCrossEntropyLoss()
+
+
+def elastic_one_card(torch, np, K, dev, smi):
+    """Phase 12, one card: (1) the in-process ``ElasticSupervisor`` on
+    phase 6's BERT-base (32 x 512, dropout 0.1, Adam), checkpoint_every=2,
+    with ``step.dispatch:before=4:error``: one ``transient`` event
+    restored at step 2, the run finishing at step ONE_CARD_STEPS, its
+    losses after the recovery within the spread of two uninterrupted
+    runs restored from the same checkpoint, and exactly phase 6's
+    launches for every step dispatched; ``downtime_s``. (2)
+    ``TrainLoop.prefetch`` against plain steps over PREFETCH_STEPS host
+    batches, in turns: step ms, ``input_wait_ms``, losses within the
+    plain runs' spread."""
+    import functools
+    import shutil
+    from mxnet_tpu_torch import elastic
+    from mxnet_tpu_torch.checkpoint import TrainCheckpointManager
+    from mxnet_tpu_torch.gluon import TrainLoop
+    from mxnet_tpu_torch.gluon.model_zoo.bert import BERTClassifier, bert_base
+    from mxnet_tpu_torch.gluon.params import init_params_numpy
+    from mxnet_tpu_torch.testing import faults
+    t_phase = time.perf_counter()
+    net = BERTClassifier(bert_base(max_length=TRAIN_SEQ, dropout=0.1,
+                                   device=dev), num_classes=2, dropout=0.1,
+                         device=dev)
+    init = init_params_numpy(net, seed=2)
+    vocab = net.bert.word_embed.weight.shape[0]
+    del net
+    build = functools.partial(one_card_build, dev, init)
+    rs = np.random.RandomState(3)
+    x = torch.from_numpy(rs.randint(0, vocab, (TRAIN_BATCH, TRAIN_SEQ))
+                         .astype(np.int64)).to(dev)
+    y = torch.from_numpy(rs.randint(0, 2, (TRAIN_BATCH,))
+                         .astype(np.float32)).to(dev)
+    root = os.path.abspath(os.path.join(CKPT_DIR, "one_card"))
+    shutil.rmtree(root, ignore_errors=True)
+    spec = "step.dispatch:before=4:error"
+    try:
+        faults.configure(spec)
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        sup = elastic.ElasticSupervisor(
+            build, root, mesh_axes=None, checkpoint_every=2, keep_last=99,
+            backoff_base=0.0, final_checkpoint=False, device=dev.type,
+            log=elastic.RecoveryLog())
+        res = sup.run(lambda i: (x, y), ONE_CARD_STEPS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = K.launch_counts()
+        faults.reset()
+        ev = res.events[0] if res.events else {}
+        restored = ev.get("restored_step", 2)
+        refs = []
+        for _ in range(2):
+            net, trainer, loss_fn = build()
+            TrainCheckpointManager(root, keep_last=99).restore_step(
+                restored, trainer=trainer, net=net)
+            loop = TrainLoop(net, trainer, loss_fn)
+            h = {i: loop.step(x, y) for i in range(restored, ONE_CARD_STEPS)}
+            loop.synchronize()
+            refs.append({i: float(v.detach().double().sum())
+                         for i, v in h.items()})
+            del net, trainer, loop, h
+    finally:
+        faults.reset()
+        shutil.rmtree(root, ignore_errors=True)
+    after = {i: res.losses[i] for i in range(restored, ONE_CARD_STEPS)}
+    gate = spread_gate(refs, after, loss_dist)
+    dispatched = 3 + ONE_CARD_STEPS - restored
+    expect = {n: 0 for n in K.KERNELS}
+    expect.update(flash_fwd=12, flash_bwd_fused=12, layernorm_fwd=25,
+                  layernorm_bwd=25)
+    expect = {n: c * dispatched for n, c in expect.items()}
+    report = {"model": "bert_base classifier", "batch": TRAIN_BATCH,
+              "seq": TRAIN_SEQ, "dropout": 0.1, "fault": spec,
+              "steps": ONE_CARD_STEPS, "events": res.events,
+              "final_step": res.final_step, "losses": res.losses,
+              "reference_losses": refs, "losses_vs_uninterrupted": gate,
+              "downtime_s": ev.get("downtime_s"), "wall_s": wall,
+              "steps_dispatched": dispatched, "launches": launches,
+              "launches_expected": expect, "card": smi}
+    report["ok"] = (len(res.events) == 1 and ev["cause"] == "transient"
+                    and ev["restored_step"] == 2 and ev["step"] == 3
+                    and res.final_step == ONE_CARD_STEPS and gate["ok"]
+                    and launches == expect)
+    emit({"elastic_one_card": report})
+
+    # TrainLoop.prefetch on one card against plain steps, in turns
+    hb = np.random.RandomState(5)
+    host = [(hb.randint(0, vocab, (TRAIN_BATCH, TRAIN_SEQ)).astype(np.int64),
+             hb.randint(0, 2, (TRAIN_BATCH,)).astype(np.float32))
+            for _ in range(PREFETCH_STEPS)]
+    turns, plain = [], []
+    for mode in ("plain", "prefetch", "prefetch", "plain"):
+        net, trainer, loss_fn = build()
+        loop = TrainLoop(net, trainer, loss_fn)
+        src = loop.prefetch(iter(host), depth=2) if mode == "prefetch" \
+            else iter(host)
+        losses, step_ms = {}, []
+        torch.cuda.synchronize()
+        t_prev = time.perf_counter()
+        for i, (bx, by) in enumerate(src):
+            losses[i] = float(loop.step(bx, by).float().mean())
+            loop.synchronize()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            step_ms.append((t - t_prev) * 1e3)
+            t_prev = t
+        st = loop.engine_stats()
+        turns.append({"mode": mode, "losses": losses,
+                      "median_step_ms": statistics.median(step_ms[1:]),
+                      "input_wait_ms": st.get("input_wait_ms"),
+                      "starvation_count": st.get("starvation_count"),
+                      "prefetch_batches": st.get("prefetch_batches")})
+        del net, trainer, loop, src
+    plain = [t["losses"] for t in turns if t["mode"] == "plain"]
+    pf_gate = [spread_gate(plain, t["losses"], loss_dist)
+               for t in turns if t["mode"] == "prefetch"]
+    pf = {"model": "bert_base classifier", "steps": PREFETCH_STEPS,
+          "turns": turns, "losses_vs_plain": pf_gate, "card": smi,
+          "phase_s": time.perf_counter() - t_phase}
+    pf["ok"] = (all(g["ok"] for g in pf_gate)
+                and all(t["prefetch_batches"] == PREFETCH_STEPS
+                        for t in turns if t["mode"] == "prefetch"))
+    emit({"prefetch_one_card": pf})
+    if not (report["ok"] and pf["ok"]):
+        raise SystemExit(f"phase 12 failed: {report} {pf}")
+    return report
+
+
 #: --kernel-times: the kernels' shapes, each on its path (the flash
 #: forward served and in BERT training; the long-sequence backward's dq
 #: and dkv at phase 7's; the LM's LSTM layer; decode_wide's step)
@@ -4059,10 +4796,19 @@ def main(argv):
                                      "kind": torch.cuda.get_device_name(0),
                                      "count": torch.cuda.device_count()}})
         return 0
+    if "--elastic" in argv:
+        elastic_one_card(torch, np, K, dev, smi)
+        print(smi, flush=True)
+        emit({"ok": True, "device": {"platform": "gpu",
+                                     "kind": torch.cuda.get_device_name(0),
+                                     "count": torch.cuda.device_count()}})
+        return 0
     if "--zero-train" in argv:
         if torch.cuda.device_count() < 2:
             raise SystemExit("--zero-train needs two or more cards")
         zero_train_multi(torch, np, smi)
+        zero_overlap(torch, np, smi)
+        zero_elastic(torch, np, smi)
         print(smi, flush=True)
         emit({"ok": True, "device": {"platform": "gpu",
                                      "kind": torch.cuda.get_device_name(0),
@@ -4122,8 +4868,12 @@ def main(argv):
     torch.cuda.empty_cache()
     zero_layout_mp(torch, np, K, dev, smi)
     torch.cuda.empty_cache()
+    elastic_one_card(torch, np, K, dev, smi)
+    torch.cuda.empty_cache()
     if torch.cuda.device_count() >= 2:
         zero_train_multi(torch, np, smi)
+        zero_overlap(torch, np, smi)
+        zero_elastic(torch, np, smi)
     else:
         print("phase 11 (ZeRO training across cards) needs >= 2 GPUs; "
               f"{torch.cuda.device_count()} visible, so it did not run",

@@ -11,11 +11,17 @@ pipelined loop: it runs with PyTorch's sync debug mode off
 ``torch.cuda.set_sync_debug_mode("error")`` flags every other sync.
 
 Error contract: an asynchronous failure surfaces at the retire of the
-step that faulted, as an :class:`MXNetError` naming that step's tag.
+step that faulted, as an :class:`MXNetError` naming that step's tag; a
+device loss among them is recorded once (``elastic.detect``). The
+retire is bracketed by the ``window.retire`` fault points, where a
+revoked device lands in a pipelined run. :meth:`DispatchWindow.
+drain_partial` is the recovery's drain: it retires what still completes
+and discards the rest.
 """
 from __future__ import annotations
 
 import contextlib
+import logging
 import threading
 from collections import deque
 from typing import Any, Callable
@@ -23,8 +29,11 @@ from typing import Any, Callable
 import torch
 
 from .base import MXNetError
+from .testing.faults import fault_point
 
 __all__ = ["DispatchWindow", "allow_sync"]
+
+_LOG = logging.getLogger("mxnet_tpu_torch.engine")
 
 
 @contextlib.contextmanager
@@ -76,16 +85,19 @@ class DispatchWindow:
             if not self._pending:
                 return
             tag, payload = self._pending.popleft()
+        fault_point("window.retire", "before")
         try:
             with allow_sync():
                 self._sync(payload)
-        except MXNetError:
+        except MXNetError as e:
             with self._mu:
                 self.stats["errors"] += 1
+            _record_device_lost(e, tag)
             raise
         except Exception as e:
             with self._mu:
                 self.stats["errors"] += 1
+            _record_device_lost(e, tag)
             raise MXNetError(
                 f"async {self._what} "
                 f"{tag if tag is not None else '<untagged>'} failed "
@@ -93,6 +105,7 @@ class DispatchWindow:
                 f"retire): {type(e).__name__}: {e}") from e
         with self._mu:
             self.stats["retires"] += 1
+        fault_point("window.retire", "after")
 
     def drain(self):
         """Retire every outstanding entry; a deferred error surfaces here
@@ -108,3 +121,28 @@ class DispatchWindow:
             self._pending.clear()
             self.stats["abandoned"] += len(tags)
         return tags
+
+    def drain_partial(self):
+        """The recovery's drain: retire entries that still complete, in
+        FIFO order (work the device finished before it failed), then
+        discard everything after the first failure. Returns ``(retired,
+        discarded_tags)``; the failed entry is consumed. The failure is
+        logged, not raised: the caller already holds the one that
+        started the recovery."""
+        retired = 0
+        while self._pending:
+            try:
+                self._retire_oldest()
+                retired += 1
+            except Exception as e:
+                _LOG.warning(
+                    "recovery drain: retire failed (%s: %s); discarding "
+                    "%d in-flight step(s)", type(e).__name__, e,
+                    len(self._pending))
+                return retired, self.abandon()
+        return retired, []
+
+
+def _record_device_lost(exc, tag):
+    from .elastic import detect
+    detect.maybe_record_device_lost(exc, "dispatch-window retire", step=tag)

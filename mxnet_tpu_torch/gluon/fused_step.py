@@ -24,26 +24,44 @@ Three modes, decided at the first call as the JAX package decides them:
   keeps its own part (``parallel.place_on_mesh``), so ``batch_size`` is
   the global leading size. The trainable parameters map to flat units
   (:class:`_ZeroShardPlan`) grouped into communication buckets
-  (:func:`zero_bucket_schedule`); per bucket, in the same order on every
-  rank: the gradients packed into the interleaved buffer, ONE
-  ``reduce_scatter_tensor``, each unit's update on this rank's shard
-  against its persistent sharded state (the ``opt_update`` kernel for
-  exact SGD/Adam, ``fused_step_fn`` for any other elementwise rule), ONE
-  ``all_gather_into_tensor``, and the new weights unpacked into the
-  parameters. A batch whose leading axis does not divide by N is computed
-  whole on every rank; its gradient is then reduced as a mean, not a
-  sum, so it is not counted N times. Under ``multi_precision`` a
-  bfloat16 or float16 parameter is a unit of its own with a float32
-  master shard: its gradient is reduced in float32, the rule updates the
-  master, and the weight is rebuilt from the master in its own dtype
-  before the all-gather.
+  (:func:`zero_bucket_schedule`). The backward runs with one
+  post-accumulate hook a parameter: each gradient, as it arrives, is
+  written straight into its columns of its bucket's interleaved buffer
+  and dropped, and once a bucket is whole its ONE reduce-scatter
+  (``collectives.reduce_scatter_rows``: an ``all_to_all_single`` and a
+  rank-ordered sum) is launched asynchronously (NCCL runs it on its own
+  stream while autograd goes on with earlier layers), in the schedule's
+  order on every rank: a bucket that is whole waits for the ones before
+  it. After the backward the buckets not yet out go (a parameter the
+  step did not use has zeros). Then, once a run of buckets of one dtype
+  (what a serial schedule makes one bucket): ``work.wait()`` on its
+  buckets (the compute stream waits, not the host), each unit's update
+  on this rank's shard against its persistent sharded state (the
+  ``opt_update`` kernel for exact SGD/Adam, ``fused_step_fn`` for any
+  other elementwise rule) and ONE asynchronous
+  ``all_gather_into_tensor``; the new weights are unpacked into the
+  parameters once every gather has landed. (The first design gathered
+  each bucket on its own after the backward: at BERT-base's 75 buckets
+  of 4 MiB its host work made a dp-4 step ~35 ms slower than one
+  bucket's, on four H100s.) The packing is routing only and the sum's
+  order is fixed, so any bucketing, ``MXNET_ZERO_BUCKET_BYTES=0``'s one
+  bucket (no overlap) included, trains bit for bit alike. A batch whose
+  leading axis does not divide by N is computed whole on every rank; its
+  gradient is then reduced as a mean, not a sum, so it is not counted N
+  times. Under ``multi_precision`` a bfloat16 or float16 parameter is a
+  unit of its own with a float32 master shard: its gradient is reduced
+  in float32, the rule updates the master, and the weight is rebuilt
+  from the master in its own dtype before the all-gather.
 - ``mesh``: the mesh is active but the sharded update is off
   (``zero_shard=False``, or a rule that is not elementwise): every
   gradient is all-reduced, then the replicated update.
 
-The collectives wait for the backward to end: overlapping them with it
-through gradient hooks is later work. :class:`TrainLoop` runs the step
-with a bounded in-flight window (``engine.DispatchWindow``).
+The plain ``mesh`` mode's all-reduce still waits for the backward to
+end. :class:`TrainLoop` runs the step with a bounded in-flight window
+(``engine.DispatchWindow``). Every call is bracketed by the
+``step.dispatch`` fault points (context ``dp<N>``, N the step's data
+parallel width) and records a device loss escaping it
+(``elastic.detect``).
 
 Under ``amp.init()`` parameters stay float32 and gradients come back
 float32, so no mode needs a master; bfloat16 parameters with
@@ -52,6 +70,7 @@ in the Updater's states), as the JAX package does.
 """
 from __future__ import annotations
 
+import functools
 import logging
 import os
 from typing import Callable, List, Optional
@@ -63,9 +82,11 @@ from ..base import MXNetError
 from ..optimizer.optimizer import LOW_PRECISION
 from ..parallel import dist as _dist
 from ..parallel.collectives import (all_gather_rows, allgather,
-                                    bucket_rows, reduce_scatter_rows)
-from ..parallel.mesh import (batch_is_sharded, current_mesh, place_on_mesh,
-                             replicate, zero_shard_pad)
+                                    reduce_scatter_rows, write_segment,
+                                    zero_segment)
+from ..parallel.mesh import (batch_is_sharded, current_mesh, global_lead,
+                             place_on_mesh, replicate, zero_shard_pad)
+from ..testing.faults import fault_point
 
 __all__ = ["CompiledTrainStep", "TrainLoop", "zero_bucket_schedule"]
 
@@ -325,6 +346,150 @@ class _ZeroShardPlan:
                    for s in st)
 
 
+class _BucketReducer:
+    """One backward's reduce-scatters, launched from the parameters'
+    post-accumulate hooks in the bucket schedule's order.
+
+    Unit k of bucket b owns the columns ``[off, off + s_k)`` of b's
+    ``(N, S)`` buffer (allocated in the bucket's update dtype when its
+    first gradient arrives, only the pad tails zeroed). A gradient is
+    written there in one :func:`write_segment` and the parameter's
+    ``.grad`` dropped; when b's last unit is whole and every bucket
+    before it is out, b's reduce-scatter is launched with ``async_op``.
+
+    Consecutive buckets of one dtype form a group (the buckets a serial
+    schedule would merge into one): their reduced rows land side by side
+    in one group row, so what follows the backward runs once a group,
+    whatever the bucket bound. ``trace`` receives ``("grad", j)`` and
+    ``("reduce_scatter", b)`` in the order they happen."""
+
+    def __init__(self, plan, buckets, mesh, trace: list):
+        self.plan, self.buckets, self.mesh = plan, buckets, mesh
+        self.trace = trace
+        n = plan.n_shards
+        #: param j -> (unit k, offset in the unit's flat buffer)
+        self.member_of = {}
+        #: unit k -> (bucket b, column offset, columns)
+        self.unit_at = {}
+        #: per bucket, its units' columns
+        self.cols = []
+        #: bucket b -> (group g, column offset in the group's row)
+        self.group_of = []
+        #: per group, its buckets and its row's width
+        self.groups, self.widths = [], []
+        key = None
+        for b, idx in enumerate(buckets):
+            off, cols = 0, []
+            for k in idx:
+                u = plan.units[k]
+                s = u["padded"] // n
+                self.unit_at[k] = (b, off, s)
+                m_off = 0
+                for j, size in zip(u["members"], u["sizes"]):
+                    self.member_of[j] = (k, m_off)
+                    m_off += size
+                cols.append(s)
+                off += s
+            self.cols.append(cols)
+            u0 = plan.units[idx[0]]
+            if (u0["upd_dtype"], u0["dtypes"][0]) != key:
+                key = (u0["upd_dtype"], u0["dtypes"][0])
+                self.groups.append([])
+                self.widths.append(0)
+            self.group_of.append((len(self.groups) - 1, self.widths[-1]))
+            self.groups[-1].append(b)
+            self.widths[-1] += off
+        self.missing = {k: set(u["members"])
+                        for k, u in enumerate(plan.units)}
+        self.units_left = [len(idx) for idx in buckets]
+        self.bufs = [None] * len(buckets)
+        self.works = [None] * len(buckets)
+        self.rows = [None] * len(self.groups)
+        self.next = 0
+
+    def _unit0(self, b):
+        u0 = self.plan.units[self.buckets[b][0]]
+        return u0, self.plan.params[u0["members"][0]].device
+
+    def _buf(self, b):
+        if self.bufs[b] is None:
+            plan, n = self.plan, self.plan.n_shards
+            u0, dev = self._unit0(b)
+            buf = torch.empty(n, sum(self.cols[b]), dtype=u0["upd_dtype"],
+                              device=dev)
+            for k in self.buckets[b]:
+                _, off, s = self.unit_at[k]
+                zero_segment(buf, off, s, plan.units[k]["total"], n * s)
+            self.bufs[b] = buf
+        return self.bufs[b]
+
+    def on_grad(self, j, p):
+        """The post-accumulate hook of parameter j."""
+        k, m_off = self.member_of[j]
+        b, off, s = self.unit_at[k]
+        with torch.no_grad():
+            write_segment(self._buf(b), off, s, m_off, p.grad.reshape(-1))
+        p.grad = None
+        self.trace.append(("grad", j))
+        self.missing[k].discard(j)
+        if not self.missing[k]:
+            self.units_left[b] -= 1
+        while self.next < len(self.buckets) and \
+                self.units_left[self.next] == 0:
+            self._launch(self.next)
+
+    def _launch(self, b):
+        g, goff = self.group_of[b]
+        if self.rows[g] is None:
+            u0, dev = self._unit0(b)
+            self.rows[g] = torch.empty(self.widths[g], dtype=u0["upd_dtype"],
+                                       device=dev)
+        width = sum(self.cols[b])
+        _, self.works[b] = reduce_scatter_rows(
+            self._buf(b), self.mesh, async_op=True,
+            out=self.rows[g][goff:goff + width])
+        self.trace.append(("reduce_scatter", b))
+        self.next = b + 1
+
+    def backward(self, loss_sum, params):
+        """``loss_sum``'s backward into ``params`` with the hooks on, then
+        every bucket not yet out, in order: a member that got no
+        gradient (a parameter the step did not use) reads as zeros."""
+        for p in params:
+            p.grad = None
+        inputs = [p for p in params if p.requires_grad]
+        handles = [p.register_post_accumulate_grad_hook(
+            functools.partial(self.on_grad, j))
+            for j, p in enumerate(params) if p.requires_grad]
+        try:
+            if inputs:
+                loss_sum.backward(inputs=inputs)
+        finally:
+            for h in handles:
+                h.remove()
+        for b in range(self.next, len(self.buckets)):
+            buf = self._buf(b)
+            for k in self.buckets[b]:
+                _, off, s = self.unit_at[k]
+                for j in self.missing[k]:
+                    _, m_off = self.member_of[j]
+                    zero_segment(buf, off, s, m_off,
+                                 m_off + self.plan.params[j].numel())
+                self.missing[k].clear()
+            self._launch(b)
+
+    def group_row(self, g, mean: bool) -> torch.Tensor:
+        """Group g's reduced row (this rank's shard of each of its units,
+        in schedule order) once its buckets' reduce-scatters are done
+        (``work.wait()``: on a card the compute stream waits, not the
+        host); their packed buffers are released."""
+        for b in self.groups[g]:
+            self.works[b].wait()
+            self.bufs[b] = self.works[b] = None
+        row, self.rows[g] = self.rows[g], None
+        return row.div_(self.plan.n_shards) if mean else row
+
+
 def _global_loss(loss: torch.Tensor, mesh, axis: str) -> torch.Tensor:
     """The global batch's per-sample loss from each rank's part of it:
     one all-gather over the mesh's ``axis`` group, in rank order (rank
@@ -340,7 +505,8 @@ def _global_loss(loss: torch.Tensor, mesh, axis: str) -> torch.Tensor:
 def _infer_batch_size(leaves) -> int:
     for leaf in leaves:
         if getattr(leaf, "ndim", 0) >= 1:
-            return int(leaf.shape[0])
+            lead = global_lead(leaf)
+            return int(leaf.shape[0]) if lead is None else lead
     return 1
 
 
@@ -366,6 +532,8 @@ class CompiledTrainStep:
         self._plain_mesh: Optional[tuple] = None
         self._zero: Optional[_ZeroShardPlan] = None
         self._buckets: List[list] = []
+        #: the last ZeRO step's hooks and launches, in order
+        self._zero_trace: list = []
         # the checkpoint stack asks the trainer's live steps whether a
         # ZeRO plan owns the optimizer state
         trainer._register_compiled(self)
@@ -391,6 +559,41 @@ class CompiledTrainStep:
     @property
     def zero_plan(self) -> Optional[_ZeroShardPlan]:
         return self._zero
+
+    @property
+    def zero_trace(self) -> list:
+        """The last ZeRO step's events in the order they happened:
+        ``("grad", j)`` when parameter j's gradient arrived,
+        ``("reduce_scatter", b)`` / ``("all_gather", b)`` when bucket b's
+        collective was launched."""
+        return list(self._zero_trace)
+
+    @property
+    def buckets(self) -> List[list]:
+        """The ZeRO bucket schedule (unit indices a bucket, in launch
+        order; empty before the first ZeRO step)."""
+        return [list(b) for b in self._buckets]
+
+    def input_placement(self) -> Optional[Callable]:
+        """What :meth:`__call__` applies to each input leaf, or None on
+        one device (``.to(device)`` then suffices): under a dp mesh
+        ``place(x)`` is ``parallel.place_on_mesh``, this rank's 1/N of
+        the leading axis, marked so the step passes it through with no
+        second copy. ``TrainLoop.prefetch`` stages batches through it."""
+        if self._zero_ok is not None:
+            mesh, axis = self._zero_ok
+        elif self._plain_mesh is not None:
+            mesh, axis = self._plain_mesh
+        else:
+            mesh, axis = self._zero_mesh or current_mesh(), self._zero_axis
+            if mesh is None or axis not in mesh.axis_names \
+                    or mesh.shape[axis] < 2:
+                return None
+        return functools.partial(place_on_mesh, mesh, axis)
+
+    @property
+    def device(self) -> torch.device:
+        return self._device
 
     def optimizer_state_bytes(self) -> int:
         """Bytes of optimizer state this rank holds: its shards under the
@@ -458,8 +661,22 @@ class CompiledTrainStep:
         return leaf
 
     def __call__(self, *args, batch_size: Optional[int] = None, **kwargs):
+        from ..elastic import detect
         if self._mode is None:
             self._mode = self._decide_mode()
+        mesh = self._zero_ok or self._plain_mesh
+        ctx = "dp%d" % (mesh[0].axis_size(mesh[1]) if mesh else 1)
+        with detect.device_lost_guard("CompiledTrainStep.step",
+                                      step=self._steps_done + 1):
+            fault_point("step.dispatch", "before", ctx=ctx)
+            loss = self._dispatch(args, kwargs, batch_size)
+            fault_point("step.dispatch", "after", ctx=ctx)
+        self._steps_done += 1
+        return loss
+
+    step = __call__
+
+    def _dispatch(self, args, kwargs, batch_size):
         leaves = list(args) + list(kwargs.values())
         if batch_size is None:
             batch_size = _infer_batch_size(leaves)
@@ -477,10 +694,7 @@ class CompiledTrainStep:
                 loss = self._mesh_call(args, kwargs, batch_size, mesh, mean)
             if not mean:
                 loss = _global_loss(loss, mesh, axis)
-        self._steps_done += 1
         return loss
-
-    step = __call__
 
     def _forward(self, args, kwargs):
         args = tuple(self._as_tensor(a) for a in args)
@@ -530,19 +744,21 @@ class CompiledTrainStep:
             self._prepare_zero()
         plan, tr = self._zero, self._trainer
         params, opt = tr._params, tr._optimizer
+        self._zero_trace = trace = []
         loss = self._forward(args, kwargs)
-        grads = torch.autograd.grad(loss.sum(), params, allow_unused=True)
+        red = _BucketReducer(plan, self._buckets, mesh, trace)
+        red.backward(loss.sum(), params)
         lrs, wds, ts, rescale, clip = self._scalars(batch_size)
         ulrs, uwds, uts = plan.pack_hparams(opt, lrs, wds, ts)
         opt_fn = opt.kernel_step_fn() or opt.fused_step_fn()
         rank, n, dev = plan.rank, plan.n_shards, self._device
-        for idx in self._buckets:
-            # an mp bucket's gradient is packed, and reduced, in float32
-            buf, cols = bucket_rows([plan.unit_flat(k, grads) for k in idx],
-                                    n)
-            g_row = reduce_scatter_rows(buf, mesh, mean=mean)
-            del buf
-            mp = plan.units[idx[0]]["mp"]   # a bucket is all mp or none
+        gathers = []
+        for g, bs in enumerate(red.groups):
+            # an mp group's gradient was packed, and is reduced, in float32
+            g_row = red.group_row(g, mean)
+            idx = [k for b in bs for k in self._buckets[b]]
+            cols = [c for b in bs for c in red.cols[b]]
+            mp = plan.units[idx[0]]["mp"]   # a group is all mp or none
             w_row = torch.empty(g_row.shape, device=g_row.device,
                                 dtype=plan.units[idx[0]]["dtypes"][0])
             ws, gs, offs, off = [], [], [], 0
@@ -569,7 +785,11 @@ class CompiledTrainStep:
             if mp:      # the weights, rebuilt from the masters, gathered
                 for w, o, s in zip(ws, offs, cols):
                     w_row[o:o + s].copy_(w)
-            full = all_gather_rows(w_row, mesh, n)
+            full, work = all_gather_rows(w_row, mesh, n, async_op=True)
+            trace.append(("all_gather", g))
+            gathers.append((idx, cols, offs, w_row, full, work))
+        for idx, cols, offs, _w_row, full, work in gathers:
+            work.wait()
             for k, s, o in zip(idx, cols, offs):
                 plan.write_unit(k, full[:, o:o + s].reshape(-1))
         for p in params:
@@ -609,8 +829,16 @@ class TrainLoop:
     newest ``keep_last``. A failed background write surfaces at the next
     save or :meth:`wait`. An interrupt (``KeyboardInterrupt``,
     ``SystemExit``) in :meth:`step` drains the window and leaves a final
-    checkpoint before it propagates. Numerics, telemetry and prefetch
-    are not ported."""
+    checkpoint before it propagates.
+
+    **Prefetch**: ``for x, y in loop.prefetch(batches): loop.step(x,
+    y)`` stages the next batches on the card (this rank's part of each
+    under a dp mesh) while the current step runs
+    (``gluon.data.DevicePrefetcher``); its stats join
+    :meth:`engine_stats`. **Recovery**: :meth:`discard_inflight` retires
+    what still completes and discards the rest (the elastic supervisor's
+    teardown). The JAX package's numerics, telemetry and ``arm_mfu``
+    wait for ``telemetry/`` (``ROADMAP.md`` queue 1, item 9)."""
 
     def __init__(self, net, trainer, loss, inflight: Optional[int] = None,
                  checkpoint_dir: Optional[str] = None,
@@ -631,6 +859,7 @@ class TrainLoop:
         self._global_step = 0
         self._every = checkpoint_every
         self._manager = None
+        self._prefetcher = None
         if checkpoint_dir is not None:
             from ..checkpoint.manager import TrainCheckpointManager
             self._manager = TrainCheckpointManager(
@@ -697,10 +926,45 @@ class TrainLoop:
         attributed to its step."""
         self._window.drain()
 
+    def discard_inflight(self, retire: bool = True):
+        """The recovery's window cleanup: retire the steps in flight that
+        still complete, then discard everything after the first failure
+        (their results died with the device; the newest checkpoint is
+        the truth for them). Returns ``(retired, discarded_tags)``. With
+        ``retire=False`` nothing is waited for and every step in flight
+        is discarded: where another rank is gone, a wait on a step that
+        needs its collective would never end."""
+        if retire:
+            return self._window.drain_partial()
+        return 0, self._window.abandon()
+
+    def prefetch(self, batches, depth: Optional[int] = None):
+        """Wrap an iterable of host batches in a prefetcher that stages
+        them as this loop's step places its inputs (this rank's part
+        under a dp mesh, the whole batch on the step's device
+        otherwise)::
+
+            for x, y in loop.prefetch(loader):
+                loop.step(x, y)
+
+        The copy of batch N+1 to the card overlaps step N. ``depth``
+        bounds the staged batches (``MXNET_DEVICE_PREFETCH``, default 2;
+        0 stages inline). The stats join :meth:`engine_stats`."""
+        from .data.prefetcher import DevicePrefetcher
+        self._prefetcher = DevicePrefetcher(
+            batches, depth=depth, place=self._step.input_placement(),
+            device=self._step.device)
+        return self._prefetcher
+
     def engine_stats(self) -> dict:
+        """The window's pushes, retires, errors and size, and the last
+        :meth:`prefetch` iterator's ``prefetch_batches``,
+        ``input_wait_ms``, ``starvation_count`` and ``prefetch_depth``."""
         s = dict(self._window.stats)
         s["inflight_window"] = self._window.max_inflight
         s["pending"] = len(self._window)
+        if self._prefetcher is not None:
+            s.update(self._prefetcher.stats_snapshot())
         return s
 
     # ---------------- checkpointing ----------------

@@ -14,7 +14,11 @@ on the free axis into one ``(N, S)`` buffer. Row d is contiguous in the
 flat buffer, so ONE ``reduce_scatter_tensor`` of it hands rank d exactly
 ``[seg_0[d*s_0:(d+1)*s_0], seg_1[...], ...]``. ``constrain`` is where the
 collective happens; ``None`` is the identity, which keeps the routing
-testable without a group.
+testable without a group. :func:`write_segment` packs a flat segment
+straight into its columns of such a buffer (one copy a segment, zeros
+only in the pad tail): the ZeRO step packs each unit's gradient so as
+it arrives, and :func:`reduce_scatter_rows` / :func:`all_gather_rows`
+take ``async_op`` to return the work handle with the output.
 """
 from __future__ import annotations
 
@@ -28,7 +32,8 @@ from .mesh import DeviceMesh, current_mesh
 
 __all__ = ["allreduce", "allgather", "reduce_scatter", "broadcast_axis",
            "reduce_scatter_bucketed", "allgather_bucketed", "bucket_rows",
-           "reduce_scatter_rows", "all_gather_rows"]
+           "write_segment", "zero_segment", "reduce_scatter_rows",
+           "all_gather_rows"]
 
 # the non-deprecated names where this torch has them
 _RS = getattr(dist, "reduce_scatter_single", None) or \
@@ -113,35 +118,126 @@ def broadcast_axis(x: torch.Tensor, axis: str = "dp",
 # the interleaved bucket layout of the ZeRO step
 # ---------------------------------------------------------------------------
 
+def write_segment(buf: torch.Tensor, off: int, s: int, start: int,
+                  flat: torch.Tensor) -> None:
+    """Write ``flat`` at positions ``[start, start + flat.numel())`` of
+    the column block ``buf[:, off:off + s]``, position p at row ``p // s``,
+    column ``off + p % s`` (the interleaved layout): at most three copies,
+    a partial first row, the whole rows, a partial last row. The copy
+    casts to ``buf``'s dtype."""
+    n = int(flat.numel())
+    p, i, end = start, 0, start + n
+    r, c = divmod(p, s)
+    if c and n:
+        take = min(s - c, n)
+        buf[r, off + c:off + c + take].copy_(flat[:take])
+        p, i = p + take, take
+    full = (end - p) // s
+    if full:
+        r = p // s
+        buf[r:r + full, off:off + s].copy_(flat[i:i + full * s].view(full, s))
+        p, i = p + full * s, i + full * s
+    if p < end:
+        buf[p // s, off:off + end - p].copy_(flat[i:])
+
+
+def zero_segment(buf: torch.Tensor, off: int, s: int, start: int,
+                 end: int) -> None:
+    """Zero positions ``[start, end)`` of the column block
+    ``buf[:, off:off + s]`` (:func:`write_segment`'s layout)."""
+    p = start
+    r, c = divmod(p, s)
+    if c and p < end:
+        take = min(s - c, end - p)
+        buf[r, off + c:off + c + take].zero_()
+        p += take
+    full = (end - p) // s
+    if full:
+        buf[p // s:p // s + full, off:off + s].zero_()
+        p += full * s
+    if p < end:
+        buf[p // s, off:off + end - p].zero_()
+
+
 def bucket_rows(segs, num_shards: int):
     """Pad each flat segment to ``num_shards`` divisibility and lay the
     ``(num_shards, s_k)`` views side by side: ``(buf (num_shards, S),
-    cols)``, where ``cols[k]`` is segment k's per-shard column count."""
+    cols)``, where ``cols[k]`` is segment k's per-shard column count.
+    Each segment is one :func:`write_segment` into the buffer; only the
+    pad tails are zeroed."""
     cols = [-(-int(g.numel()) // num_shards) for g in segs]
-    buf = segs[0].new_zeros(num_shards, sum(cols))
+    buf = segs[0].new_empty(num_shards, sum(cols))
     off = 0
     for g, s in zip(segs, cols):
-        padded = g.new_zeros(num_shards * s)
-        padded[:g.numel()] = g.reshape(-1)
-        buf[:, off:off + s] = padded.view(num_shards, s)
+        write_segment(buf, off, s, 0, g.reshape(-1))
+        zero_segment(buf, off, s, int(g.numel()), num_shards * s)
         off += s
     return buf, cols
 
 
-def reduce_scatter_rows(buf: torch.Tensor, mesh: DeviceMesh,
-                        mean: bool = False) -> torch.Tensor:
-    """One reduce-scatter of an interleaved ``(N, S)`` buffer: this rank's
-    row of the sum (or mean) over ranks, ``(S,)``."""
-    out = torch.empty(buf.shape[1], dtype=buf.dtype, device=buf.device)
-    _RS(out, buf.reshape(-1), group=mesh.group)
-    return out.div_(buf.shape[0]) if mean else out
+class _RowSum:
+    """The work of an asynchronous :func:`reduce_scatter_rows`:
+    ``wait()`` waits for the exchange, then sums the N received rows in
+    rank order into the output (on the caller's stream)."""
+
+    def __init__(self, work, rows: torch.Tensor, out: torch.Tensor):
+        self._work, self._rows, self._out = work, rows, out
+
+    def wait(self) -> bool:
+        self._work.wait()
+        _sum_rows(self._rows, self._out)
+        self._work = self._rows = None
+        return True
 
 
-def all_gather_rows(row: torch.Tensor, mesh: DeviceMesh, n: int):
-    """One all-gather of every rank's ``(S,)`` row into ``(N, S)``."""
-    out = torch.empty(n, row.numel(), dtype=row.dtype, device=row.device)
-    _AG(out.view(-1), row, group=mesh.group)
+def _sum_rows(rows: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
+    """``out = ((rows[0] + rows[1]) + rows[2]) + ...``: one order for
+    every element, wherever it lies."""
+    if rows.shape[0] == 1:
+        return out.copy_(rows[0])
+    torch.add(rows[0], rows[1], out=out)
+    for r in range(2, rows.shape[0]):
+        out.add_(rows[r])
     return out
+
+
+def reduce_scatter_rows(buf: torch.Tensor, mesh: DeviceMesh,
+                        mean: bool = False, async_op: bool = False,
+                        out: Optional[torch.Tensor] = None):
+    """The reduce-scatter of an interleaved ``(N, S)`` buffer: this rank's
+    row of the sum (or mean) over ranks, ``(S,)``.
+
+    NCCL's and gloo's reduce-scatters pick their algorithm, and with it
+    the order in which an element's N terms are summed, by the message's
+    size, so one gradient reduces to other last bits in another bucket
+    layout (measured with gloo: 1 ulp). Here rank d's rows travel in ONE
+    ``all_to_all_single`` (the bytes a ring reduce-scatter moves:
+    (N - 1)/N of the buffer a rank) and the N rows a rank receives are
+    summed in rank order, so any bucketing reduces bit for bit alike.
+    With ``async_op`` it returns ``(row, work)`` at once: ``row`` holds
+    the SUM once ``work.wait()`` returned (the caller divides for a
+    mean), and ``buf`` must stay alive until then. ``out`` is where the
+    row goes (a new tensor by default)."""
+    n, width = buf.shape
+    if out is None:
+        out = torch.empty(width, dtype=buf.dtype, device=buf.device)
+    rows = torch.empty_like(buf)
+    work = dist.all_to_all_single(rows, buf, group=mesh.group,
+                                  async_op=async_op)
+    if async_op:
+        return out, _RowSum(work, rows, out)
+    _sum_rows(rows, out)
+    return out.div_(n) if mean else out
+
+
+def all_gather_rows(row: torch.Tensor, mesh: DeviceMesh, n: int,
+                    async_op: bool = False):
+    """One all-gather of every rank's ``(S,)`` row into ``(N, S)``. With
+    ``async_op`` it returns ``(out, work)``; ``out`` holds the rows once
+    ``work.wait()`` returned."""
+    out = torch.empty(n, row.numel(), dtype=row.dtype, device=row.device)
+    work = _AG(out.view(-1), row, group=mesh.group, async_op=async_op)
+    return (out, work) if async_op else out
 
 
 def reduce_scatter_bucketed(segs, num_shards: int, constrain=None):

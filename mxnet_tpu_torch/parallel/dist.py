@@ -14,6 +14,12 @@ launcher's ``DMLC_WORKER_ID`` / ``DMLC_NUM_WORKER`` / ``DMLC_PS_ROOT_URI``
 host and returns what each rank's function returned; every join it makes
 has a timeout, so a rank that hangs fails the caller instead of hanging
 it.
+
+:func:`available_devices` is the surviving world, asked afresh on every
+call: the visible devices less those a fault rule revoked
+(``testing.faults``). On the CPU, where gloo ranks stand in for cards,
+``MXNET_CPU_DEVICES`` (default 1) says how many virtual devices there
+are, as the JAX package's forced host device count does.
 """
 from __future__ import annotations
 
@@ -24,8 +30,10 @@ import pickle
 import random as _pyrandom
 import shutil
 import socket
+import sys
 import tempfile
 import time
+import traceback
 from typing import Any, Callable, List, Optional, Sequence
 
 import torch
@@ -34,7 +42,8 @@ import torch.distributed as dist
 from ..base import MXNetError
 
 __all__ = ["initialize", "is_initialized", "rank", "size", "local_rank",
-           "device", "spawn", "shutdown"]
+           "device", "spawn", "shutdown", "visible_device_ids",
+           "available_devices", "world_changed"]
 
 _LOG = logging.getLogger("mxnet_tpu_torch.dist")
 
@@ -165,6 +174,48 @@ def device() -> Optional[torch.device]:
     return _DEVICE[0]
 
 
+def _kind(kind: Optional[str]) -> str:
+    if kind is not None:
+        return torch.device(kind).type
+    if _DEVICE[0] is not None:
+        return _DEVICE[0].type
+    return "cuda" if torch.cuda.is_available() else "cpu"
+
+
+def visible_device_ids(kind: Optional[str] = None) -> List[int]:
+    """Every device id of ``kind`` this host shows (``"cuda"``: the
+    visible cards; ``"cpu"``: ``MXNET_CPU_DEVICES`` virtual ones). The
+    default kind is the joined rank's, else CUDA where there is a card,
+    else the CPU."""
+    if _kind(kind) == "cuda":
+        return list(range(torch.cuda.device_count()))
+    return list(range(max(1, _env_get("MXNET_CPU_DEVICES", 1, int))))
+
+
+def available_devices(kind: Optional[str] = None) -> List[torch.device]:
+    """The surviving device world, asked afresh on every call (never a
+    list cached at import): the visible devices less the ids a fault
+    rule revoked. What the elastic supervisor sizes each formation
+    from."""
+    from ..testing.faults import revoked_device_ids
+    k = _kind(kind)
+    revoked = revoked_device_ids()
+    return [torch.device(k, i) for i in visible_device_ids(k)
+            if i not in revoked]
+
+
+def world_changed(devices: Sequence) -> bool:
+    """Whether the available world differs from ``devices`` (devices or
+    ids, captured when the current world formed): True on a loss and on
+    a growth."""
+    devices = list(devices)
+    kind = devices[0].type if devices and isinstance(
+        devices[0], torch.device) else None
+    ids = {d.index if isinstance(d, torch.device) else int(d)
+           for d in devices}
+    return {d.index for d in available_devices(kind)} != ids
+
+
 def shutdown() -> None:
     """Leave the process group (a no-op when not joined)."""
     if is_initialized():
@@ -184,26 +235,48 @@ def _free_port() -> int:
 
 def _spawn_entry(rank_: int, fn: Callable, world: int, device_kind: str,
                  port: int, out_dir: str, args: Sequence,
-                 timeout_s: float) -> None:
+                 timeout_s: float, device_ids: Sequence[int]) -> None:
     os.environ.update(RANK=str(rank_), WORLD_SIZE=str(world),
-                      LOCAL_RANK=str(rank_), MASTER_ADDR="127.0.0.1",
-                      MASTER_PORT=str(port))
+                      LOCAL_RANK=str(device_ids[rank_]),
+                      MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
     if device_kind == "cpu":
         torch.set_num_threads(1)
     initialize(device_kind, timeout_s=timeout_s)
     try:
         result = fn(*args)
-        with open(os.path.join(out_dir, f"rank{rank_}.pkl"), "wb") as f:
-            pickle.dump(result, f)
-    finally:
-        shutdown()
+    except BaseException:
+        # a failed rank leaves at once, with no process-group shutdown:
+        # its peers may sit inside a collective with it, and NCCL's
+        # teardown (here or at the interpreter's exit) would wait for
+        # them; spawn() reports this traceback and kills them
+        with open(os.path.join(out_dir, f"rank{rank_}.err"), "w") as f:
+            f.write(traceback.format_exc())
+        sys.stdout.flush()
+        sys.stderr.flush()
+        os._exit(1)
+    with open(os.path.join(out_dir, f"rank{rank_}.pkl"), "wb") as f:
+        pickle.dump(result, f)
+    shutdown()
+
+
+def _raised_in(out_dir: str, first: int, world: int):
+    """(rank, traceback) of a rank that failed with an exception (the
+    one that ended the group first where it wrote one), or None."""
+    for r in [first] + [r for r in range(world) if r != first]:
+        path = os.path.join(out_dir, f"rank{r}.err")
+        if os.path.exists(path):
+            with open(path) as f:
+                return r, f.read()
+    return None
 
 
 def spawn(fn: Callable, world: int, device: str = "cuda",
-          args: Sequence = (), timeout_s: float = 90.0) -> List[Any]:
+          args: Sequence = (), timeout_s: float = 90.0,
+          device_ids: Optional[Sequence[int]] = None) -> List[Any]:
     """Run ``fn(*args)`` in ``world`` new processes, rank r on
-    ``cuda:r`` (NCCL) or, with ``device="cpu"``, on the CPU (gloo, one
-    thread each), and return the ranks' return values in rank order.
+    ``cuda:r`` (NCCL; ``cuda:device_ids[r]`` when given) or, with
+    ``device="cpu"``, on the CPU (gloo, one thread each), and return the
+    ranks' return values in rank order.
 
     ``fn`` must be importable by the children (a module-level function)
     and return something picklable. The ranks join through a store on a
@@ -212,7 +285,12 @@ def spawn(fn: Callable, world: int, device: str = "cuda",
     is killed and the call raises :class:`MXNetError`."""
     import torch.multiprocessing as mp
     kind = torch.device(device).type
-    if kind == "cuda" and torch.cuda.device_count() < world:
+    device_ids = list(range(world)) if device_ids is None \
+        else [int(i) for i in device_ids]
+    if len(device_ids) != world:
+        raise MXNetError(f"spawn: {world} ranks need {world} device ids, "
+                         f"got {device_ids}")
+    if kind == "cuda" and torch.cuda.device_count() <= max(device_ids):
         raise MXNetError(f"spawn: {world} ranks need {world} CUDA devices "
                          f"(NCCL refuses two ranks on one), "
                          f"{torch.cuda.device_count()} visible")
@@ -220,7 +298,7 @@ def spawn(fn: Callable, world: int, device: str = "cuda",
     try:
         ctx = mp.start_processes(
             _spawn_entry, args=(fn, world, kind, _free_port(), out_dir,
-                                tuple(args), timeout_s),
+                                tuple(args), timeout_s, device_ids),
             nprocs=world, join=False, start_method="spawn")
         deadline = time.monotonic() + timeout_s
         try:
@@ -230,6 +308,14 @@ def spawn(fn: Callable, world: int, device: str = "cuda",
                     raise MXNetError(
                         f"spawn: {world} ranks did not finish within "
                         f"{timeout_s:.0f} s")
+        except mp.ProcessExitedException as e:
+            raised = _raised_in(out_dir, e.error_index, world)
+            if raised is None:
+                raise
+            r, tb = raised
+            raise mp.ProcessRaisedException(
+                f"\n\n-- Process {r} terminated with the following "
+                f"error:\n{tb}", r, ctx.processes[r].pid) from None
         finally:
             for p in ctx.processes:
                 if p.is_alive():

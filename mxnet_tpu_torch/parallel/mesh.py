@@ -24,7 +24,7 @@ from . import dist as _dist
 
 __all__ = ["DeviceMesh", "make_mesh", "current_mesh", "data_parallel_mesh",
            "shard_batch", "place_on_mesh", "batch_is_sharded", "replicate",
-           "zero_shard_pad"]
+           "zero_shard_pad", "carry_placement", "global_lead"]
 
 _state = threading.local()
 
@@ -114,27 +114,58 @@ def _divides(d, n: int) -> bool:
         and d.shape[0] % n == 0
 
 
+#: the attribute a rank's part of a global batch carries: (mesh, axis,
+#: the global leading size), so placing it again passes it through
+_PLACED = "_mxt_placed"
+
+
+def _placed(d, mesh, axis):
+    p = getattr(d, _PLACED, None)
+    return p if p is not None and p[0] is mesh and p[1] == axis else None
+
+
 def place_on_mesh(mesh: DeviceMesh, axis: str, d):
     """Rank r's part of a global step input: its contiguous 1/N of the
     leading axis when that divides by N, else the whole array. numpy
-    arrays become tensors; anything without a shape passes through."""
+    arrays become tensors; anything without a shape passes through. A
+    part is marked with the mesh, the axis and the global leading size,
+    so a part placed already (a batch a prefetcher staged) passes
+    through unchanged and still counts as split."""
     if isinstance(d, np.ndarray):
         d = torch.from_numpy(np.ascontiguousarray(d))
-    if not isinstance(d, torch.Tensor):
+    if not isinstance(d, torch.Tensor) or _placed(d, mesh, axis):
         return d
     n = mesh.check_axis(axis)
     if n > 1 and _divides(d, n):
         per = d.shape[0] // n
-        return d[mesh.rank * per:(mesh.rank + 1) * per]
+        part = d[mesh.rank * per:(mesh.rank + 1) * per]
+        setattr(part, _PLACED, (mesh, axis, int(d.shape[0])))
+        return part
     return d
 
 
+def carry_placement(src, dst):
+    """``dst`` (``src`` moved to another device) marked as ``src`` is;
+    returns ``dst``."""
+    p = getattr(src, _PLACED, None)
+    if p is not None:
+        setattr(dst, _PLACED, p)
+    return dst
+
+
+def global_lead(d) -> Optional[int]:
+    """The global batch's leading size of a placed part, else None."""
+    p = getattr(d, _PLACED, None)
+    return None if p is None else p[2]
+
+
 def batch_is_sharded(mesh: DeviceMesh, axis: str, leaves) -> bool:
-    """Whether :func:`place_on_mesh` split any of ``leaves``: when none
-    was, every rank holds the whole batch."""
+    """Whether :func:`place_on_mesh` split (or has split) any of
+    ``leaves``: when none was, every rank holds the whole batch."""
     n = mesh.check_axis(axis)
-    return n > 1 and any(_divides(d, n) for d in leaves
-                         if isinstance(d, (torch.Tensor, np.ndarray)))
+    return n > 1 and any(
+        _placed(d, mesh, axis) or _divides(d, n) for d in leaves
+        if isinstance(d, (torch.Tensor, np.ndarray)))
 
 
 def shard_batch(data, mesh: Optional[DeviceMesh] = None, axis: str = "dp"):

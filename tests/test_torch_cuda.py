@@ -1066,3 +1066,152 @@ def test_a_failed_capture_raises_and_runs_nothing_eagerly_on_card(cuda_dev):
             pred.predict(x)
     assert pred.n_traces == 0
     torch.cuda.synchronize()
+
+
+# ---------------------------------------------------------------------------
+# the prefetcher's side stream, TrainLoop.prefetch, the overlapped ZeRO
+# step and the in-process supervisor on the card
+# ---------------------------------------------------------------------------
+
+def _mlp_on(dev, seed=3):
+    from mxnet_tpu_torch.gluon.nn import Dense
+    r = onp.random.RandomState(seed)
+    net = torch.nn.Sequential(
+        Dense(256, in_units=64, activation="relu", device=dev),
+        Dense(3, in_units=256, device=dev))
+    with torch.no_grad():
+        for p in net.parameters():
+            p.copy_(torch.from_numpy(
+                (r.randn(*p.shape) * 0.1).astype("f4")))
+    return net
+
+
+def _host_batches(n, bs=64, seed=0):
+    r = onp.random.RandomState(seed)
+    return [(r.randn(bs, 64).astype("f4"),
+             r.randint(0, 3, (bs,)).astype("f4")) for _ in range(n)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("depth", [0, 2])
+def test_prefetcher_stages_on_its_stream_on_card(cuda_dev, depth):
+    """Large batches staged from pinned memory on the prefetcher's
+    stream: the consumer's stream waits for them, so a kernel queued at
+    once reads the whole copy; structure and values kept."""
+    from mxnet_tpu_torch.gluon.data import DevicePrefetcher
+    r = onp.random.RandomState(1)
+    host = [(r.randn(1 << 22).astype("f4"), {"i": onp.int64(i)})
+            for i in range(4)]
+    pf = DevicePrefetcher(iter(host), depth=depth, device=cuda_dev)
+    sums, staged = [], []
+    for (x, meta), (hx, hm) in zip(pf, host):
+        assert x.is_cuda and meta["i"] == hm["i"]
+        sums.append(x.double().sum())
+        staged.append(x)
+    # the same reduction over a synchronous copy, and the staged bytes
+    ref = [torch.from_numpy(hx).to(cuda_dev).double().sum()
+           for hx, _ in host]
+    assert [float(s) for s in sums] == [float(r) for r in ref]
+    for x, (hx, _) in zip(staged, host):
+        assert torch.equal(x.cpu(), torch.from_numpy(hx))
+    assert pf.stats_snapshot()["prefetch_batches"] == 4
+
+
+@pytest.mark.cuda
+def test_trainloop_prefetch_bit_equal_to_plain_steps_on_card(cuda_dev):
+    from mxnet_tpu_torch.gluon import Trainer, TrainLoop
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    host = _host_batches(6)
+    runs = []
+    for prefetch in (False, True):
+        net = _mlp_on(cuda_dev)
+        loop = TrainLoop(net, Trainer(dict(net.named_parameters()), "adam",
+                                      {"learning_rate": 1e-2}),
+                         SoftmaxCrossEntropyLoss())
+        src = loop.prefetch(iter(host)) if prefetch else iter(host)
+        losses = [loop.step(x, y) for x, y in src]
+        loop.synchronize()
+        runs.append(([l.cpu() for l in losses],
+                     [p.detach().cpu() for p in net.parameters()]))
+    for a, b in zip(runs[0][0] + runs[0][1], runs[1][0] + runs[1][1]):
+        assert torch.equal(a, b)
+
+
+def _elastic_build_on_card():
+    from mxnet_tpu_torch.gluon import Trainer
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    net = _mlp_on(torch.device("cuda", 0))
+    return net, Trainer(dict(net.named_parameters()), "adam",
+                        {"learning_rate": 1e-2}), SoftmaxCrossEntropyLoss()
+
+
+@pytest.mark.cuda
+def test_in_process_recovery_bit_exact_on_card(cuda_dev, tmp_path):
+    """A transient failure at step 5's dispatch on the card: one event,
+    restored at step 4, the losses after it bit for bit an uninterrupted
+    run restored from the same checkpoint."""
+    from mxnet_tpu_torch import elastic
+    from mxnet_tpu_torch.checkpoint import TrainCheckpointManager
+    from mxnet_tpu_torch.gluon import TrainLoop
+    from mxnet_tpu_torch.testing import faults
+    host = _host_batches(8)
+    d = str(tmp_path / "ck")
+    faults.configure("step.dispatch:before=5:error")
+    try:
+        res = elastic.ElasticSupervisor(
+            _elastic_build_on_card, d, mesh_axes=None, checkpoint_every=2,
+            keep_last=99, backoff_base=0.0,
+            log=elastic.RecoveryLog()).run(lambda i: host[i], 8)
+    finally:
+        faults.reset()
+    assert [(e["cause"], e["restored_step"]) for e in res.events] == \
+        [("transient", 4)]
+    net, trainer, lb = _elastic_build_on_card()
+    TrainCheckpointManager(d, keep_last=99).restore_step(4, trainer=trainer,
+                                                         net=net)
+    loop = TrainLoop(net, trainer, lb)
+    ref = {i: float(loop.step(*host[i]).detach().double().sum())
+           for i in range(4, 8)}
+    for i in range(4, 8):
+        assert res.losses[i] == ref[i]
+
+
+def _overlap_rank_on_card(bucket_bytes):
+    import os
+    from mxnet_tpu_torch.gluon import Trainer, TrainLoop
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from mxnet_tpu_torch.parallel import dist, make_mesh
+    out = {}
+    for bb in bucket_bytes:
+        os.environ["MXNET_ZERO_BUCKET_BYTES"] = str(bb)
+        os.environ["MXNET_ZERO_SHARD_MIN_SIZE"] = "1"
+        net = _mlp_on(dist.device())
+        with make_mesh({"dp": dist.size()}):
+            loop = TrainLoop(net, Trainer(dict(net.named_parameters()),
+                                          "adam", {"learning_rate": 1e-2}),
+                             SoftmaxCrossEntropyLoss())
+            losses = [loop.step(x, y).cpu() for x, y in _host_batches(4)]
+            loop.synchronize()
+        out[bb] = (losses, [p.detach().cpu() for p in net.parameters()],
+                   loop.compiled_step.buckets, loop.compiled_step.zero_trace)
+    return out
+
+
+@pytest.mark.cuda
+def test_overlapped_zero_step_bit_equal_to_serial_on_cards(cuda_dev):
+    """Two cards over NCCL, an MLP with one unit a bucket against one
+    bucket: the reduce-scatter's exchange and rank-ordered sum make every
+    bucketing train bit for bit alike; bucket 0 leaves before the last
+    gradient arrives."""
+    from mxnet_tpu_torch.parallel import dist
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two cards")
+    ranks = dist.spawn(_overlap_rank_on_card, 2, "cuda", ((0, 64),),
+                       timeout_s=300)
+    for r in ranks:
+        (ls, ws, bs, _), (lo, wo, bo, trace) = r[0], r[64]
+        assert len(bs) == 1 and len(bo) == 4
+        for a, b in zip(ls + ws, lo + wo):
+            assert torch.equal(a, b)
+        last_grad = max(i for i, (e, _) in enumerate(trace) if e == "grad")
+        assert trace.index(("reduce_scatter", 0)) < last_grad
