@@ -82,12 +82,21 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    floor), plus 35 chained decode steps against the ``rnn_scan_fwd``
    kernel's trajectory at N 8 x H 650 (within 1e-6); and the fused
    optimizer update (``opt_update``) for SGD, SGD-momentum and Adam, clip
-   on and off, scalar and per-element hyperparameters, float32 and
-   bfloat16, at 5000 elements, at BERT-base's word-embedding shard at dp 4
-   (5,860,224) and at its bucket unit (88,322): float32 states bit-exact
-   and weights within 1 ulp, bfloat16 within 2e-2; the Adam update of the
-   word-embedding shard timed beside ``torch._fused_adam_`` in float32
-   and bfloat16;
+   on and off, hyperparameters as host scalars, per-element vectors and
+   device scalars (lr, wd, t, rescale and clip read from a
+   ``DeviceHParams`` block, the captured one-card step's form), float32
+   and bfloat16, at 5000 elements, at BERT-base's word embedding
+   (23,440,896; device scalars, as phase 6 runs it), at its shard at dp 4
+   (5,860,224; host scalars, as phase 10 runs it) and at its bucket unit
+   (88,322; vectors): float32 states bit-exact and weights within 1 ulp,
+   bfloat16 within 2e-2; the Adam update of the word embedding in the
+   device form timed beside ``torch._fused_adam_`` in float32 and
+   bfloat16; BERT-base's whole one-card float32 Adam update as the
+   captured step runs it (one launch a parameter, 201; each parameter
+   its own lr, wd and t in the block), held against the plain version
+   parameter by parameter as above, and timed in a graph beside
+   ``torch._fused_adam_`` over the same list and its bound
+   (``bert_update_graph``);
 4. serve BERT-base (12 x 768, vocab 30522, seeded random weights) through
    ``CompiledPredictor`` + ``DynamicBatcher``: ``warmup`` captures one
    CUDA graph per bucket (1-64; the capture seconds of each printed),
@@ -110,14 +119,29 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    every parameter against the CPU copy;
 6. train the BERT-base classifier (float32, dropout 0.1, batch 32 x
    sequence 512, Adam) for ten steps of ``Trainer.compile_step`` on one
-   seeded batch: every loss finite and the last below the first, exactly
-   12 flash forward, 12 fused flash backward, 25 LayerNorm forward and 25
-   LayerNorm backward launches per step, and one step's gradients of
-   every parameter (batch 2 x 128, dropout off) against a CPU copy;
-6b. the same training under ``amp.init()`` (``amp.uninit()`` after it):
+   seeded batch, one captured CUDA graph replayed a step (``aot_compile``
+   captures it first: its capture seconds, ``n_traces`` 1 after the
+   warm-up and after the steps): every loss finite and the last below
+   the first, exactly 12 flash forward, 12 fused flash backward, 25
+   LayerNorm forward, 25 LayerNorm backward and 201 ``opt_update``
+   launches per step (counted through the replays), and one step's
+   gradients of every parameter (batch 2 x 128, dropout off) against a
+   CPU copy; then (``captured_vs_eager``) the captured step and the plain
+   eager loop (``loss.sum().backward(); trainer.step(32)``) in turns from
+   the same state (captured, eager, eager, captured: median step ms,
+   tokens/s, peak allocated and reserved memory each), and the step's
+   body run eagerly twice from that state: the replays' weights (rms)
+   and losses within CKPT_SPREAD_FACTOR of the body runs' spread (dq
+   atomics), and against the eager runs within CAPTURED_EAGER_RTOL of
+   how far those moved (or twice the eager and body runs' spread), while
+   a control run captured with its lr staged at twice the scheduler's
+   must fail that gate (``vs_eager``, ``control_fails``);
+6b. the same training under ``amp.init()`` (``amp.uninit()`` after it),
+   captured and in turns as phase 6:
    finite falling losses, per step 12 ``flash_fwd`` and 12
-   ``flash_bwd_fused`` launches in bf16 and 25 + 25 LayerNorm launches
-   in float32 (counted by input dtype), parameters and gradients
+   ``flash_bwd_fused`` launches in bf16 and 25 + 25 LayerNorm and 201
+   ``opt_update`` launches in float32 (counted by input dtype),
+   parameters and gradients
    float32, the gradients against a CPU copy under amp within 2.5e-1 of
    each parameter's largest, and so against a float64 CPU copy of the
    same weights; each parameter's error to float64 (largest element and
@@ -141,24 +165,32 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    the checkpoint, bit for bit (parameters, states, masters, counts,
    scheduler, RNG); the resumed losses and final weights must lie within
    the uninterrupted runs' spread (``CKPT_SPREAD_FACTOR``; bit-equal where
-   they are); the resumed steps launch phase 6's kernels exactly. Then
+   they are); the resumed steps launch phase 6's kernels exactly, on the
+   captured step in float32 (one capture, 201 ``opt_update`` a step) and
+   eagerly in bf16 + ``multi_precision`` (the JAX package's mode). Then
    ``save_parameters`` of the resumed float32 net and ``load_parameters``
    into the net of a warmed ``CompiledPredictor``: bucket 32 bit-equal to
    that net called eagerly, changed by the load, ``n_traces`` unchanged.
    Prints capture ms, write s, checkpoint bytes, restore s and step ms
    with and without a write in flight;
-7. train a 2-layer BERT-width classifier at sequence 1024 for two steps,
-   so the flash backward takes its dq and dkv kernels (two launches each
-   per step, none of the fused one), with its gradients against a CPU
-   copy;
+7. train a 2-layer BERT-width classifier at sequence 1024 for six
+   captured steps, so the flash backward takes its dq and dkv kernels
+   (two launches each per step, none of the fused one; one
+   ``opt_update`` a parameter), with its gradients against a CPU copy,
+   and in turns against the eager loop as phase 6;
 8. train the LSTM word LM (``model_zoo.word_lm.WordLM``: vocab 33,278,
    embed and hidden 650, 2 layers, float32) at batch 64 x bptt 35 for ten
-   SGD-momentum steps of ``Trainer.compile_step`` on one seeded batch:
-   every loss finite and the last below the first, exactly 2
-   ``rnn_scan_fwd`` and 2 ``rnn_scan_bwd`` launches per step, one step's
-   gradients of all 11 parameters at batch 4 against a CPU copy; then an
+   captured SGD-momentum steps of ``Trainer.compile_step`` on one seeded
+   batch: every loss finite and the last below the first, exactly 2
+   ``rnn_scan_fwd``, 2 ``rnn_scan_bwd`` and 11 ``opt_update`` launches
+   per step, one step's gradients of all 11 parameters at batch 4
+   against a CPU copy, and the turns of phase 6 with the replays
+   bit-equal to the body runs (every kernel deterministic); then an
    eval-mode forward of the batch (``lstm_forward`` line) against the
    CPU copy;
+8b. a Dense-only model (768 -> 3072 -> 768 -> 2, 4096 rows, three Adam
+   steps) in the same turns: replays bit-equal to the body runs, 6
+   ``opt_update`` a step (``dense_train``);
 9. serve autoregressive decode through ``serving.run_decode`` (the
    continuous-batching ``DecodeEngine``, slot ladder 1-8, page size 16,
    prefill chunk 16, one CUDA graph per (kind, bucket) captured by its
@@ -229,16 +261,19 @@ Phases, each of which fails the run (non-zero exit) when it fails:
     BERT-base recovering from ``step.dispatch:before=4:error``
     (``transient``: one event, restored step 2, losses within the spread
     of two uninterrupted restores, phase 6's launches for every step
-    dispatched, ``downtime_s``), and ``TrainLoop.prefetch`` against plain
-    steps (step ms, ``input_wait_ms``).
+    dispatched and, less the update, for the two warm-up runs of each
+    formation's capture, ``downtime_s``), and ``TrainLoop.prefetch`` against plain steps
+    (step ms, ``input_wait_ms``).
 
 ``{"launch_counts": {...}, "bf16_launch_counts": {...}}`` gives each
 kernel's launches on its path, and on its bf16 path where it has one.
 The line before the last is a JSON object with one entry per kernel
 (launches on its float32 path, error, times, bound; then its bf16 path,
 bf16 launches there, and its bf16 error, times and bound; ``rnn_decode``
-at decode_wide's N 8 x H 650, ``opt_update`` at the word-embedding
-shard); the last line is ``{"ok": true, "device": {...}}``.
+at decode_wide's N 8 x H 650, ``opt_update`` at the word embedding in
+the device form, with its launches on phase 6's one-card path); the
+last line is
+``{"ok": true, "device": {...}}``.
 """
 import json
 import math
@@ -273,7 +308,7 @@ TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_LR = 32, 512, 10, 1e-5
 GRAD_BATCH, GRAD_SEQ = 2, 128
 #: phase 7: BERT-base widths, 2 layers, sequence 1024 (past the fused
 #: backward's 512), two steps
-LONG_LAYERS, LONG_BATCH, LONG_SEQ, LONG_STEPS = 2, 2, 1024, 2
+LONG_LAYERS, LONG_BATCH, LONG_SEQ, LONG_STEPS = 2, 2, 1024, 6
 #: float32 gradients, GPU vs CPU copy, per parameter: max |difference| <=
 #: GRAD_ATOL + GRAD_RTOL * max |CPU gradient|. The scale is the
 #: parameter's largest gradient, not each element's: key_proj.bias has a
@@ -1592,6 +1627,189 @@ def run_train_steps(torch, K, step, x, y, steps, by_dtype=False):
     return out + (per_step_dt,) if by_dtype else out
 
 
+#: phases 6, 6b, 7 and 8: the captured step (``compile_step``: one CUDA
+#: graph replayed a step) and the plain eager loop (``loss.sum().
+#: backward(); trainer.step(batch)``) in turns, each from the same state;
+#: then the step's body run eagerly BODY_RUNS times from that state, which
+#: the replays must equal: bit for bit where every kernel is deterministic,
+#: else within CKPT_SPREAD_FACTOR of the body runs' own spread (BERT's fused
+#: backward sums dq by atomics)
+TRAIN_TURNS = ("captured", "eager", "eager", "captured")
+BODY_RUNS = 2
+#: the replays against the eager loop (its ``Trainer.step`` updates
+#: through ``Optimizer._apply``, apart from the graph's code): the nearest
+#: eager run's losses (largest step difference) and weights (rms
+#: distance) within CKPT_SPREAD_FACTOR times the largest distance between
+#: two eager or body runs, or within CAPTURED_EAGER_RTOL of how far the
+#: eager run moved from the first step (losses: the largest |loss_k -
+#: loss_0|; weights: the rms distance from the initial weights),
+#: whichever is larger. The eager update takes Adam's 1 - b1**t in double
+#: and the kernel a float32 powf, so the two part by a few ulps a step;
+#: readings on an H100 (PERF.md §6): float32 losses 5.6e-6 to 8.0e-6 of
+#: the move, weights 2.8e-5 to 4.7e-4; controls 0.51 to 1.14. A control
+#: run, captured with every lr staged at CONTROL_LR_FACTOR times the
+#: scheduler's (a wrong lr staged on the card), must fail the same gate.
+CAPTURED_EAGER_RTOL, CONTROL_LR_FACTOR = 1e-2, 2.0
+
+
+def body_step(step):
+    """``step``'s body run eagerly on the card, no graph: each call stages
+    the hyperparameters and copies the batch as a call of ``step`` does,
+    then runs the body the graph holds."""
+    def run(x, y):
+        n = len(step._drawers)
+        prog, key = step._fused_program((x, y), {}, None, advance=True)
+        out = prog.body(*prog.inputs)
+        step._settle_key(n, *key)
+        return out
+    return run
+
+
+def plain_step(net, trainer, loss_fn):
+    """The eager training loop's step: forward, backward, Trainer.step."""
+    def run(x, y):
+        loss = loss_fn(net(x), y)
+        loss.sum().backward()
+        trainer.step(x.shape[0])
+        return loss.detach()
+    return run
+
+
+def control_step(step, np):
+    """``step`` with every lr it stages multiplied by CONTROL_LR_FACTOR:
+    what a wrong lr staged on the card would do (its capture made
+    first)."""
+    hp = step._hp
+    stage = hp.stage
+
+    def wrong(lrs, *rest):
+        stage(np.asarray(lrs, np.float32) * CONTROL_LR_FACTOR, *rest)
+
+    hp.stage = wrong
+    return step
+
+
+def vs_eager(eager, noise, w0, losses, w):
+    """:data:`CAPTURED_EAGER_RTOL`'s gate of one run (``losses``, final
+    weights ``w``) against the ``eager`` runs, with the ``noise`` runs'
+    spread: [(losses, weights)] each."""
+    def ldist(a, b):
+        return max(abs(p - q) for p, q in zip(a, b))
+
+    pairs = [(i, j) for i in range(len(noise))
+             for j in range(i + 1, len(noise))]
+    spread = {"loss": max(ldist(noise[i][0], noise[j][0]) for i, j in pairs),
+              "weights_rms": max(rms_dist(noise[i][1], noise[j][1])
+                                 for i, j in pairs)}
+    moved = {"loss": max(abs(v - eager[0][0][0]) for v in eager[0][0]),
+             "weights_rms": rms_dist(eager[0][1], w0)}
+    gap = {"loss": min(ldist(losses, e[0]) for e in eager),
+           "weights_rms": min(rms_dist(w, e[1]) for e in eager)}
+    limit = {m: max(CKPT_SPREAD_FACTOR * spread[m],
+                    CAPTURED_EAGER_RTOL * moved[m]) for m in gap}
+    return {"gap": gap, "limit": limit, "spread": spread, "moved": moved,
+            "gap_over_moved": {m: gap[m] / moved[m] if moved[m] else None
+                               for m in gap},
+            "ok": all(gap[m] <= limit[m] for m in gap)}
+
+
+def train_turns(torch, K, build, x, y, steps, tokens, exact,
+                by_dtype=False):
+    """Captured against eager in TRAIN_TURNS, then BODY_RUNS runs of the
+    step's body and one control run, ``steps`` steps each on a fresh
+    ``build()`` (net, trainer, loss; the dropout reseeded). A captured,
+    body or control run first captures its signature (``aot_compile``:
+    its capture seconds and ``n_traces``, again after the steps). Per
+    run: the losses, step ms and their median after the first step,
+    tokens/s, peak allocated and reserved memory. Returns the report
+    (``ok``: one capture a step object, the replays' weights and losses
+    against the body runs' and against the eager runs'
+    (:func:`vs_eager`), and the control run failing that gate), the
+    first captured run's (net, trainer, loss_fn) and its
+    :func:`run_train_steps` result, on which the phase's own gates
+    hold."""
+    import numpy as np
+    runs, first, w0 = [], None, None
+    for kind in TRAIN_TURNS + ("body",) * BODY_RUNS + ("control",):
+        net, trainer, loss_fn = build()
+        if w0 is None:
+            w0 = flat_weights(torch, net)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        rec, step = {"kind": kind}, None
+        if kind == "eager":
+            fn = plain_step(net, trainer, loss_fn)
+        else:
+            step = trainer.compile_step(
+                lambda a, b, net=net, lf=loss_fn: lf(net(a), b))
+            t0 = time.perf_counter()
+            step.aot_compile(x, y)
+            torch.cuda.synchronize()
+            rec.update(mode=step.mode, capture_s=time.perf_counter() - t0,
+                       n_traces_after_warmup=step.n_traces)
+            fn = step if kind == "captured" else body_step(step) \
+                if kind == "body" else control_step(step, np)
+        out = run_train_steps(torch, K, fn, x, y, steps, by_dtype=by_dtype)
+        med = statistics.median(out[1][1:])
+        rec.update(losses=out[0], step_ms=out[1], median_step_ms=med,
+                   tokens_per_s=tokens / (med / 1e3),
+                   max_memory_allocated=torch.cuda.max_memory_allocated(),
+                   max_memory_reserved=torch.cuda.max_memory_reserved())
+        if step is not None:
+            rec["n_traces_after_steps"] = step.n_traces
+        runs.append((rec, flat_weights(torch, net)))
+        if first is None:
+            first = (net, trainer, loss_fn), out
+        del net, trainer, loss_fn, step, fn, out
+    body = [(dict(enumerate(r["losses"])), w) for r, w in runs
+            if r["kind"] == "body"]
+    vs_body = []
+    for r, w in runs:
+        if r["kind"] != "captured":
+            continue
+        vs_body.append({
+            "bit_equal": all(bool(torch.equal(w, b)) for _, b in body),
+            "max_abs_diff": min(float((w - b).abs().max()) for _, b in body),
+            "weights_rms": spread_gate([b for _, b in body], w, rms_dist),
+            "losses": spread_gate([l for l, _ in body],
+                                  dict(enumerate(r["losses"])), loss_dist)})
+    one_capture = all(r["n_traces_after_warmup"] == r["n_traces_after_steps"]
+                      == 1 and r["mode"] == "fused"
+                      for r, _ in runs if r["kind"] != "eager")
+    agree = all(v["bit_equal"] if exact else
+                v["weights_rms"]["ok"] and v["losses"]["ok"]
+                for v in vs_body)
+    eager = [(r["losses"], w) for r, w in runs if r["kind"] == "eager"]
+    noise = eager + [(r["losses"], w) for r, w in runs if r["kind"] == "body"]
+    gates = {r["kind"] + str(i): vs_eager(eager, noise, w0, r["losses"], w)
+             for i, (r, w) in enumerate(runs)
+             if r["kind"] in ("captured", "control")}
+    replays_ok = all(g["ok"] for k, g in gates.items()
+                     if k.startswith("captured"))
+    control_fails = not any(g["ok"] for k, g in gates.items()
+                            if k.startswith("control"))
+
+    def side(kind, key):
+        return [r[key] for r, _ in runs if r["kind"] == kind]
+
+    report = {"order": [r["kind"] for r, _ in runs], "steps": steps,
+              "replays_vs_body": vs_body, "exact": exact,
+              "one_capture_per_step_object": one_capture,
+              "vs_eager": gates, "replays_vs_eager_ok": replays_ok,
+              "control_lr_factor": CONTROL_LR_FACTOR,
+              "control_fails": control_fails,
+              "turns": [{k: v for k, v in r.items() if k != "step_ms"}
+                        for r, _ in runs],
+              "ok": one_capture and agree and replays_ok and control_fails}
+    for kind in ("captured", "eager"):
+        for key in ("median_step_ms", "tokens_per_s",
+                    "max_memory_allocated", "max_memory_reserved"):
+            report[f"{kind}_{key}"] = side(kind, key)
+    report["capture_s"] = side("captured", "capture_s")
+    return report, first[0], first[1]
+
+
 #: device-kernel name fragments of each family in a profile
 FAMILIES = (("flash_fwd", ("flash_fwd",)), ("flash_bwd", ("flash_bwd",)),
             ("layernorm_fwd", ("ln_fwd",)), ("layernorm_bwd", ("ln_bwd",)),
@@ -1700,35 +1918,44 @@ def train_bert(torch, np, K, dev, smi, profile=False, bf16=False):
                               num_classes=2, dropout=0.1, device=device)
 
     t0 = time.perf_counter()
-    torch.manual_seed(0)        # the dropout masks
     net = make(dev)
-    load_jax_params(net, init_params_numpy(net, seed=2))
-    net.train()
+    init = init_params_numpy(net, seed=2)
     rs = np.random.RandomState(3)
     vocab = net.bert.word_embed.weight.shape[0]
     x = rs.randint(0, vocab, (TRAIN_BATCH, TRAIN_SEQ)).astype(np.int64)
     y = rs.randint(0, 2, (TRAIN_BATCH,)).astype(np.float32)
     loss_fn = SoftmaxCrossEntropyLoss()
-    trainer = Trainer(dict(net.named_parameters()), "adam",
-                      {"learning_rate": TRAIN_LR})
-    step = trainer.compile_step(lambda a, b: loss_fn(net(a), b))
     xt, yt = torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev)
+    made = [net]
+    del net
+
+    def build():
+        net = made.pop() if made else make(dev)
+        load_jax_params(net, init)
+        net.train()
+        torch.manual_seed(0)        # the dropout masks
+        return net, Trainer(dict(net.named_parameters()), "adam",
+                            {"learning_rate": TRAIN_LR}), loss_fn
+
     setup_s = time.perf_counter() - t0
     amp_on = amp.is_enabled()
-    torch.cuda.reset_peak_memory_stats()
-    losses, step_ms, per_step, counts, per_step_dt = run_train_steps(
-        torch, K, step, xt, yt, TRAIN_STEPS, by_dtype=True)
-    peak = torch.cuda.max_memory_allocated()
-    median_ms = statistics.median(step_ms)
+    turns, (net, trainer, _), gated = train_turns(
+        torch, K, build, xt, yt, TRAIN_STEPS, TRAIN_BATCH * TRAIN_SEQ,
+        exact=False, by_dtype=True)
+    losses, step_ms, per_step, counts, per_step_dt = gated
+    peak = turns["captured_max_memory_allocated"][0]
+    median_ms = statistics.median(step_ms[1:])
+    n_params = len(trainer._params)
     expect = {n: 0 for n in K.KERNELS}
     expect.update(flash_fwd=12, flash_bwd_fused=12, layernorm_fwd=25,
-                  layernorm_bwd=25)
+                  layernorm_bwd=25, opt_update=n_params)
     # under amp: attention in bf16, the LayerNorms in float32 (each sees
-    # a residual sum, float32 + bf16 = float32)
+    # a residual sum, float32 + bf16 = float32); the update float32
     att = "bfloat16" if amp_on else "float32"
     expect_dt = {"flash_fwd": {att: 12}, "flash_bwd_fused": {att: 12},
                  "layernorm_fwd": {"float32": 25},
-                 "layernorm_bwd": {"float32": 25}}
+                 "layernorm_bwd": {"float32": 25},
+                 "opt_update": {"float32": n_params}}
     launches_ok = all(s == expect for s in per_step) and \
         all(s == expect_dt for s in per_step_dt)
     losses_ok = all(math.isfinite(v) for v in losses) and \
@@ -1795,6 +2022,9 @@ def train_bert(torch, np, K, dev, smi, profile=False, bf16=False):
         "losses": losses, "step_ms": step_ms, "median_step_ms": median_ms,
         "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / (median_ms / 1e3),
         "max_memory_allocated": peak, "setup_s": setup_s,
+        "capture_s": turns["capture_s"][0],
+        "n_traces_after_warmup": turns["turns"][0]["n_traces_after_warmup"],
+        "n_traces_after_steps": turns["turns"][0]["n_traces_after_steps"],
         "launches": counts, "launches_per_step": per_step[-1],
         "launches_per_step_expected": expect,
         "launches_per_step_by_dtype": per_step_dt[-1],
@@ -1803,13 +2033,15 @@ def train_bert(torch, np, K, dev, smi, profile=False, bf16=False):
         "grad_check": dict(grads, batch=GRAD_BATCH, seq=GRAD_SEQ,
                            seconds=time.perf_counter() - t1),
         **{k: v for k, v in extra.items() if k != "bf16_ops"},
+        "captured_vs_eager": turns,
         "card": smi, "ok": launches_ok and losses_ok and grads["ok"]
-        and master_ok}
+        and master_ok and turns["ok"]}
     emit({"train_bf16" if amp_on else "train": report})
     if not report["ok"]:
         raise SystemExit(f"training phase failed: losses {losses}, "
                          f"launches per step {per_step} {per_step_dt}, "
-                         f"gradients {grads}, float32 {master_ok}")
+                         f"gradients {grads}, float32 {master_ok}, "
+                         f"captured vs eager {turns}")
     return counts
 
 
@@ -1963,9 +2195,16 @@ def checkpoint_phase(torch, np, K, dev, smi, bf16=False):
         master_keys = sum(1 for k, e in manifest["arrays"].items()
                           if k.startswith("opt/") and e["dtype"] == "float32")
         del captured, restored, disk
+        # the resumed loop's step captures its signature first (float32;
+        # bf16 + multi_precision runs eagerly), so the counts below are
+        # its steps' alone
+        loop_b.compiled_step.aot_compile(x, y)
+        step_mode = loop_b.compiled_step.mode
+        n_params = len(loop_b.trainer._params)
         K.reset_launch_counts()
         resumed, _ = loop_steps(torch, loop_b, x, y, TRAIN_STEPS)
         launches = K.launch_counts()
+        n_traces_resumed = loop_b.compiled_step.n_traces
         loop_b.wait()
         w_res = flat_weights(torch, net_b)
     finally:
@@ -2003,11 +2242,13 @@ def checkpoint_phase(torch, np, K, dev, smi, bf16=False):
                                    for r in runs]}
     expect = {n: 0 for n in K.KERNELS}
     expect.update(flash_fwd=12, flash_bwd_fused=12, layernorm_fwd=25,
-                  layernorm_bwd=25)
+                  layernorm_bwd=25,
+                  opt_update=n_params if step_mode == "fused" else 0)
     expect = {n: c * len(steps) for n, c in expect.items()}
     print(smi, flush=True)
     report = {
         "model": "bert_base classifier", "dtype": dtype,
+        "step_mode": step_mode, "n_traces_resumed": n_traces_resumed,
         "multi_precision": bf16, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
         "optimizer": "adam", "learning_rate": TRAIN_LR, "dropout": 0.1,
         "saved_at_step": saved_step, "resumed_at_step": resumed_at,
@@ -2037,6 +2278,8 @@ def checkpoint_phase(torch, np, K, dev, smi, bf16=False):
                     and bf16_params == (["bfloat16", "float32"] if bf16
                                         else ["float32"])
                     and all(within.values()) and launches == expect
+                    and step_mode == ("eager" if bf16 else "fused")
+                    and n_traces_resumed == (0 if bf16 else 1)
                     and all(math.isfinite(v) for v in resumed.values()))
     emit({"checkpoint_bf16" if bf16 else "checkpoint": report})
     if not report["ok"]:
@@ -2133,28 +2376,50 @@ def train_long(torch, np, K, dev):
     the flash backward takes its dq and dkv kernels."""
     from mxnet_tpu_torch.gluon.params import load_jax_params
 
+    from mxnet_tpu_torch.gluon import Trainer
     make, net, x, y, loss_fn, step = long_setup(torch, np, dev)
-    losses, step_ms, per_step, counts = run_train_steps(
-        torch, K, step, torch.from_numpy(x).to(dev),
-        torch.from_numpy(y).to(dev), LONG_STEPS)
+    init = {n: p.detach().to("cpu", copy=True).numpy()
+            for n, p in net.named_parameters()}
+    made = [net]
+    del net, step
+
+    def build():
+        net = made.pop() if made else make(dev)
+        load_jax_params(net, init)
+        net.train()
+        torch.manual_seed(1)        # the dropout masks
+        return net, Trainer(dict(net.named_parameters()), "adam",
+                            {"learning_rate": TRAIN_LR}), loss_fn
+
+    turns, (net, trainer, _), gated = train_turns(
+        torch, K, build, torch.from_numpy(x).to(dev),
+        torch.from_numpy(y).to(dev), LONG_STEPS, LONG_BATCH * LONG_SEQ,
+        exact=False)
+    losses, step_ms, per_step, counts = gated
     expect = {n: 0 for n in K.KERNELS}
     expect.update(flash_fwd=LONG_LAYERS, flash_bwd_dq=LONG_LAYERS,
                   flash_bwd_dkv=LONG_LAYERS,
                   layernorm_fwd=2 * LONG_LAYERS + 1,
-                  layernorm_bwd=2 * LONG_LAYERS + 1)
+                  layernorm_bwd=2 * LONG_LAYERS + 1,
+                  opt_update=len(trainer._params))
     cpu_net = copy_to_cpu(lambda: make("cpu"), net, load_jax_params)
     grads = grad_check(torch, net, cpu_net, loss_fn, x, y)
     ok = all(s == expect for s in per_step) and grads["ok"] and \
-        all(math.isfinite(v) for v in losses)
+        all(math.isfinite(v) for v in losses) and turns["ok"]
     emit({"train_long": {
         "layers": LONG_LAYERS, "batch": LONG_BATCH, "seq": LONG_SEQ,
         "steps": LONG_STEPS, "losses": losses, "step_ms": step_ms,
+        "median_step_ms": statistics.median(step_ms[1:]),
+        "capture_s": turns["capture_s"][0],
+        "n_traces_after_warmup": turns["turns"][0]["n_traces_after_warmup"],
+        "n_traces_after_steps": turns["turns"][0]["n_traces_after_steps"],
         "launches": counts, "launches_per_step": per_step,
         "launches_per_step_expected": expect,
         "grad_check": dict(grads, batch=LONG_BATCH, seq=LONG_SEQ),
-        "ok": ok}})
+        "captured_vs_eager": turns, "ok": ok}})
     if not ok:
-        raise SystemExit(f"long-sequence phase failed: {per_step}, {grads}")
+        raise SystemExit(f"long-sequence phase failed: {per_step}, {grads}"
+                         f", captured vs eager {turns}")
     return counts
 
 
@@ -2450,24 +2715,33 @@ def train_lstm(torch, np, K, dev, smi, profile=False):
 
     t0 = time.perf_counter()
     net = make(dev)
-    load_jax_params(net, init_params_numpy(net, seed=6))
-    net.train()
+    init = init_params_numpy(net, seed=6)
     rs = np.random.RandomState(7)
     x = rs.randint(0, LM_VOCAB, (LM_BATCH, LM_BPTT)).astype(np.int64)
     y = rs.randint(0, LM_VOCAB, (LM_BATCH, LM_BPTT)).astype(np.float32)
     loss_fn = SoftmaxCrossEntropyLoss()
-    trainer = Trainer(dict(net.named_parameters()), "sgd",
-                      {"learning_rate": LM_LR, "momentum": 0.9})
-    step = trainer.compile_step(lambda a, b: loss_fn(net(a), b))
     xt, yt = torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev)
+    made = [net]
+    del net
+
+    def build():
+        net = made.pop() if made else make(dev)
+        load_jax_params(net, init)
+        net.train()
+        return net, Trainer(dict(net.named_parameters()), "sgd",
+                            {"learning_rate": LM_LR, "momentum": 0.9}), \
+            loss_fn
+
     setup_s = time.perf_counter() - t0
-    torch.cuda.reset_peak_memory_stats()
-    losses, step_ms, per_step, counts = run_train_steps(
-        torch, K, step, xt, yt, LM_STEPS)
-    peak = torch.cuda.max_memory_allocated()
-    median_ms = statistics.median(step_ms)
+    tokens = LM_BATCH * LM_BPTT
+    turns, (net, trainer, _), gated = train_turns(
+        torch, K, build, xt, yt, LM_STEPS, tokens, exact=True)
+    losses, step_ms, per_step, counts = gated
+    peak = turns["captured_max_memory_allocated"][0]
+    median_ms = statistics.median(step_ms[1:])
     expect = {n: 0 for n in K.KERNELS}
-    expect.update(rnn_scan_fwd=LM_LAYERS, rnn_scan_bwd=LM_LAYERS)
+    expect.update(rnn_scan_fwd=LM_LAYERS, rnn_scan_bwd=LM_LAYERS,
+                  opt_update=len(trainer._params))
     launches_ok = all(s == expect for s in per_step)
     losses_ok = all(math.isfinite(v) for v in losses) and \
         losses[-1] < losses[0]
@@ -2480,7 +2754,6 @@ def train_lstm(torch, np, K, dev, smi, profile=False):
     grads = grad_check(torch, net, cpu_net, loss_fn, x[:LM_GRAD_BATCH],
                        y[:LM_GRAD_BATCH])
     grad_s = time.perf_counter() - t1
-    tokens = LM_BATCH * LM_BPTT
     report = {
         "model": "WordLM (LSTM LM)", "vocab": LM_VOCAB, "embed": LM_EMBED,
         "hidden": LM_HIDDEN, "layers": LM_LAYERS, "dtype": "float32",
@@ -2489,15 +2762,20 @@ def train_lstm(torch, np, K, dev, smi, profile=False):
         "losses": losses, "step_ms": step_ms, "median_step_ms": median_ms,
         "tokens_per_s": tokens / (median_ms / 1e3),
         "max_memory_allocated": peak, "setup_s": setup_s,
+        "capture_s": turns["capture_s"][0],
+        "n_traces_after_warmup": turns["turns"][0]["n_traces_after_warmup"],
+        "n_traces_after_steps": turns["turns"][0]["n_traces_after_steps"],
         "launches": counts, "launches_per_step": per_step[-1],
         "launches_per_step_expected": expect,
         "grad_check": dict(grads, batch=LM_GRAD_BATCH, bptt=LM_BPTT,
                            seconds=grad_s),
-        "card": smi, "ok": launches_ok and losses_ok and grads["ok"]}
+        "captured_vs_eager": turns, "card": smi,
+        "ok": launches_ok and losses_ok and grads["ok"] and turns["ok"]}
     emit({"lstm_train": report})
     if not report["ok"]:
         raise SystemExit(f"LSTM LM phase failed: losses {losses}, launches "
-                         f"per step {per_step}, gradients {grads}")
+                         f"per step {per_step}, gradients {grads}, "
+                         f"captured vs eager {turns}")
 
     # eval-mode forward of the same batch
     net.eval()
@@ -2522,6 +2800,48 @@ def train_lstm(torch, np, K, dev, smi, profile=False):
         "rows_vs_cpu": LM_GRAD_BATCH, "card": smi, "ok": ok}})
     if not ok:
         raise SystemExit(f"LSTM LM forward failed: err {err}")
+    return counts
+
+
+def train_dense(torch, K, dev, smi):
+    """Phase 8b: a Dense-only model (BERT-base's FFN widths, 768 -> 3072
+    -> 768 -> 2, on DENSE_ROWS rows), DENSE_STEPS Adam steps in phase 6's
+    turns: the replays bit-equal to the step's body run eagerly (every
+    kernel deterministic), finite losses, one ``opt_update`` a parameter
+    a step and nothing else launched."""
+    from mxnet_tpu_torch.gluon import Trainer
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from mxnet_tpu_torch.gluon.nn import Dense
+    g = torch.Generator(device=dev).manual_seed(21)
+    x = torch.randn(DENSE_ROWS, 768, generator=g, device=dev)
+    y = torch.randint(0, 2, (DENSE_ROWS,), generator=g, device=dev).float()
+    loss_fn = SoftmaxCrossEntropyLoss()
+
+    def build():
+        init = torch.Generator().manual_seed(5)
+        net = torch.nn.Sequential(
+            Dense(3072, activation="relu", in_units=768, device=dev,
+                  generator=init),
+            Dense(768, in_units=3072, device=dev, generator=init),
+            Dense(2, in_units=768, device=dev, generator=init))
+        return net, Trainer(dict(net.named_parameters()), "adam",
+                            {"learning_rate": 1e-3}), loss_fn
+
+    turns, (_, trainer, _), gated = train_turns(
+        torch, K, build, x, y, DENSE_STEPS, DENSE_ROWS, exact=True)
+    losses, _, per_step, counts = gated
+    expect = {n: 0 for n in K.KERNELS}
+    expect.update(opt_update=len(trainer._params))
+    report = {"model": "Dense 768 -> 3072 -> 768 -> 2", "rows": DENSE_ROWS,
+              "steps": DENSE_STEPS, "optimizer": "adam", "losses": losses,
+              "launches_per_step": per_step,
+              "launches_per_step_expected": expect,
+              "captured_vs_eager": turns, "card": smi,
+              "ok": turns["ok"] and all(p == expect for p in per_step)
+              and all(math.isfinite(v) for v in losses)}
+    emit({"dense_train": report})
+    if not report["ok"]:
+        raise SystemExit(f"Dense-only phase failed: {report}")
     return counts
 
 
@@ -2948,10 +3268,11 @@ def profile_decode_step(torch, np, model, smi, bucket=8, iters=5):
 # kernel 12 (opt_update) and the ZeRO-1 update: phases 3, 10 and 11
 # ---------------------------------------------------------------------------
 
-#: the opt_update checks' lengths: ragged, BERT-base's word-embedding
-#: shard at dp 4 (30,522 x 768 / 4) and its bucket unit (the 114
+#: the opt_update checks' lengths: ragged, BERT-base's word embedding
+#: (30,522 x 768), its shard at dp 4 and its bucket unit (the 114
 #: parameters under 2048 elements, concatenated)
-OPT_RAGGED, OPT_EMBED_SHARD, OPT_BUCKET = 5000, 30522 * 768 // 4, 88322
+OPT_RAGGED, OPT_EMBED, OPT_BUCKET = 5000, 30522 * 768, 88322
+OPT_EMBED_SHARD = OPT_EMBED // 4
 #: (code, optimizer kind, rule constants)
 OPT_KINDS = (("sgd", "sgd", {"momentum": 0.0}),
              ("sgd_mom", "sgd", {"momentum": 0.9}),
@@ -2964,6 +3285,9 @@ OPT_BF16_TOL = 2e-2
 BERT_BASE = dict(units=768, hidden_size=3072, num_layers=12, num_heads=12)
 BERT_VOCAB = 30522
 BERT_BASE_CLASSIFIER_PARAMS = 109_483_778
+#: its parameter tensors, every one trainable: one opt_update launch each
+#: a step on one card
+BERT_BASE_TRAINABLE = 201
 ZERO_SHARDS, ZERO_UNITS = 4, 88
 #: phase 10's bf16 + multi_precision layout: Adam updates on the masters
 ZERO_MP_STEPS = 3
@@ -3018,38 +3342,56 @@ def opt_weight_ulps(torch, got, ref, w_in):
     return float(((got.float() - ref.float()).abs() / ulp).max())
 
 
+def device_hparams(torch, dev, lr, wd, t, rescale, clip):
+    """lr, wd, t, the rescale and the clip as the captured one-card step
+    passes them: element 1 of a 2-parameter ``DeviceHParams`` block."""
+    from mxnet_tpu_torch.optimizer.optimizer import DeviceHParams
+    hp = DeviceHParams(2, dev)
+    hp.stage([0.7, lr], [0.3, wd], [9, t], rescale, clip)
+    lrs, wds, ts = hp.per_param()
+    return lrs[1], wds[1], ts[1], hp.rescale, hp.clip
+
+
 def check_opt_kernel(torch, KO, dev):
-    """Phase 3, kernel 12: every kind x clip x scalar/vector
-    hyperparameters x dtype at a ragged length, every kind x clip x dtype
-    at the word-embedding shard (scalar) and at the bucket unit (vector).
+    """Phase 3, kernel 12: every kind x clip x hyperparameter form (host
+    scalars, per-element vectors, device scalars read from a
+    ``DeviceHParams`` block: the captured one-card step's form) x dtype at
+    a ragged length, and every kind x clip x dtype in the form each path
+    gives it: the word embedding (device scalars: the one-card step), its
+    dp-4 shard (host scalars: ZeRO) and the bucket unit (vectors).
     float32: new states bit-exact, the weight within 1 ulp; bfloat16
-    within OPT_BF16_TOL. Returns the timed cases by dtype (Adam, the
-    word-embedding shard)."""
+    within OPT_BF16_TOL. Returns the timed cases by dtype (Adam, the word
+    embedding, device scalars)."""
     failures, timed, seed = [], {}, 0
     worst = {"float32_weight_ulps": 0.0, "float32_state_max_abs_err": 0.0,
              "bfloat16_max_abs_err": 0.0}
-    for n, vecs in ((OPT_RAGGED, (False, True)), (OPT_EMBED_SHARD, (False,)),
-                    (OPT_BUCKET, (True,))):
+    for n, forms in ((OPT_RAGGED, ("host", "vector", "device")),
+                     (OPT_EMBED, ("device",)),
+                     (OPT_EMBED_SHARD, ("host",)),
+                     (OPT_BUCKET, ("vector",))):
         for code, kind, extra in OPT_KINDS:
             for clip in (False, True):
-                for vec in vecs:
+                for form in forms:
                     for dtype in (torch.float32, torch.bfloat16):
                         seed += 1
                         w, g, st, (lr, wd, t) = opt_case(
-                            torch, dev, code, n, dtype, vec, seed)
+                            torch, dev, code, n, dtype, form == "vector",
+                            seed)
+                        hp = (lr, wd, t, 0.25, 0.5)
+                        if form == "device":
+                            hp = device_hparams(torch, dev, *hp)
                         cfg = dict(extra, has_clip=clip)
                         pw, ps = KO.unit_update_plain(
-                            kind, cfg, w, g, lr, wd, t, 0.25, 0.5, st)
+                            kind, cfg, w, g, *hp, st)
                         kw, ks = w.clone(), tuple(s.clone() for s in st)
-                        KO.unit_update(kind, cfg, kw, g, lr, wd, t, 0.25,
-                                       0.5, ks)
+                        KO.unit_update(kind, cfg, kw, g, *hp, ks)
                         torch.cuda.synchronize()
                         err = max(float((a.float() - b.float()).abs().max())
                                   for a, b in [(kw, pw)] + list(zip(ks, ps)))
                         dn = str(dtype).replace("torch.", "")
                         rec = {"kernel": "opt_update", "dtype": dn,
                                "kind": code, "n": n, "clip": clip,
-                               "vector_hparams": vec, "max_abs_err": err}
+                               "hparams": form, "max_abs_err": err}
                         if dtype == torch.float32:
                             ulps = opt_weight_ulps(torch, kw, pw, w)
                             st_err = max([float((a - b).abs().max())
@@ -3072,9 +3414,9 @@ def check_opt_kernel(torch, KO, dev):
                         emit({"check": rec})
                         if not rec["ok"]:
                             failures.append(rec)
-                        if (n, code, clip, vec) == (
-                                OPT_EMBED_SHARD, "adam", False, False):
-                            timed[dn] = (rec, (w, g, st, (lr, wd, t)))
+                        if (n, code, clip, form) == (
+                                OPT_EMBED, "adam", False, "device"):
+                            timed[dn] = (rec, (w, g, st, hp))
     emit({"opt_update_worst": worst})
     if failures:
         raise SystemExit(f"opt_update checks failed: {failures}")
@@ -3083,17 +3425,18 @@ def check_opt_kernel(torch, KO, dev):
 
 def time_opt_kernel(torch, KO, timed):
     """Kernel, plain-version and ``torch._fused_adam_`` times of one Adam
-    update of the word-embedding shard in each dtype, by CUDA-graph replay
-    over copies larger than the L2. Bound: w, g, m, v read once and w, m,
-    v written once (28 B an element in float32, 14 in bfloat16) against
-    ~20 float32 operations an element. Returns {("opt_update", dtype):
-    timing}."""
+    update of the word embedding in each dtype, the hyperparameters device
+    scalars as phase 6 passes them, by CUDA-graph replay over copies
+    larger than the L2. Bound: w, g, m, v read once and w, m, v written
+    once (28 B an element in float32, 14 in bfloat16) against ~20 float32
+    operations an element. Returns {("opt_update", dtype): timing}."""
     return dict(time_opt_case(torch, KO, dn, *case)
                 for dn, case in timed.items())
 
 
 def time_opt_case(torch, KO, dn, rec, args):
-    w, g, st, (lr, wd, t) = args
+    w, g, st, hp = args
+    lr, wd, t = float(hp[0]), float(hp[1]), int(hp[2])   # the library's
     n = w.numel()
     cfg = dict(OPT_KINDS[2][2], has_clip=False)
     sets = [(w.clone(), g, tuple(s.clone() for s in st),
@@ -3107,9 +3450,9 @@ def time_opt_case(torch, KO, dn, rec, args):
                            eps=1e-8, amsgrad=False, maximize=False)
 
     fns = (lambda w_, g_, st_, s_: KO.unit_update(
-               "adam", cfg, w_, g_, lr, wd, t, 0.25, 0.0, st_),
+               "adam", cfg, w_, g_, *hp, st_),
            lambda w_, g_, st_, s_: KO.unit_update_plain(
-               "adam", cfg, w_, g_, lr, wd, t, 0.25, 0.0, st_),
+               "adam", cfg, w_, g_, *hp, st_),
            library)
     (ms, eager_ms), (plain_ms, plain_eager_ms) = (
         time_ms(torch, fn, sets) for fn in fns[:2])
@@ -3121,7 +3464,8 @@ def time_opt_case(torch, KO, dn, rec, args):
     nbytes = 7 * w.element_size() * n
     b_ms, b_by = bound_ms(nbytes, 20.0 * n, "float32")
     t_rec = {"kernel": "opt_update", "dtype": dn, "shape": [n],
-             "max_abs_err": rec["max_abs_err"], "ms": ms,
+             "hparams": "device", "max_abs_err": rec["max_abs_err"],
+             "ms": ms,
              "plain_ms": plain_ms, "library_ms": library_ms,
              "library": "torch._fused_adam_ (torch.optim's fused Adam; "
                         "wd decoupled from the gradient there, the same "
@@ -3132,6 +3476,104 @@ def time_opt_case(torch, KO, dn, rec, args):
              "flops": 20.0 * n}
     emit({"timing": t_rec})
     return ("opt_update", dn), t_rec
+
+
+def time_bert_update(torch, K, KO, dev):
+    """Phase 3: BERT-base's whole one-card float32 Adam update as the
+    captured step runs it (``Optimizer.whole_step_fn``: one
+    ``opt_update`` launch a parameter, lr / wd / t / rescale / clip read
+    from a device block, each parameter its own lr, wd and t there). Its
+    first run is held against the plain version of each parameter's unit
+    on copies of the same inputs, reading the same block: float32 states
+    bit-exact, each weight within 1 ulp. Then it is timed by CUDA-graph
+    replay beside ``torch._fused_adam_`` over the same list (the
+    yardstick; the port never calls it) and the plain version, against
+    the bound: each parameter's w, g, m, v read once and w, m, v written
+    once (28 B an element)."""
+    from mxnet_tpu_torch.optimizer.optimizer import Adam, DeviceHParams
+    net = bert_base_classifier(torch, TRAIN_SEQ, dev)
+    params = [p.detach() for p in net.parameters()]
+    del net
+    g = torch.Generator(device=dev).manual_seed(11)
+    grads = [torch.randn(p.shape, generator=g, device=dev) * 1e-3
+             for p in params]
+    opt = Adam(learning_rate=TRAIN_LR)
+    states = [opt.create_state(i, p) for i, p in enumerate(params)]
+    n_p = len(params)
+    hp = DeviceHParams(n_p, dev)
+    hp.stage([TRAIN_LR * (1 + (i % 7) / 7) for i in range(n_p)],
+             [0.01 * (i % 3) for i in range(n_p)],
+             [1 + i % 5 for i in range(n_p)], 1.0 / TRAIN_BATCH, 0.0)
+    lrs, wds, ts = hp.per_param()
+    cfg = KO.opt_kernel_kind(opt)[1]
+    w_in = [p.clone() for p in params]
+    st_in = [tuple(s.clone() for s in opt.state_tensors(st))
+             for st in states]
+    update = opt.whole_step_fn(params, states, hp)
+    K.reset_launch_counts()
+    update(grads)
+    torch.cuda.synchronize()
+    launches = K.launch_counts()["opt_update"]
+    worst_ulps, worst_state, bad = 0.0, 0.0, []
+    for i, (w, gr, st) in enumerate(zip(params, grads, states)):
+        pw, ps = KO.unit_update_plain(
+            "adam", cfg, w_in[i].reshape(-1), gr.reshape(-1), lrs[i],
+            wds[i], ts[i], hp.rescale, hp.clip,
+            tuple(s.reshape(-1) for s in st_in[i]))
+        ulps = opt_weight_ulps(torch, w.reshape(-1), pw, w_in[i].reshape(-1))
+        st_err = max(float((a.reshape(-1) - b).abs().max())
+                     for a, b in zip(opt.state_tensors(st), ps))
+        worst_ulps, worst_state = max(worst_ulps, ulps), max(worst_state,
+                                                             st_err)
+        if ulps > 1 or st_err != 0.0:
+            bad.append({"param": i, "shape": list(w.shape),
+                        "weight_ulps": ulps, "state_max_abs_err": st_err})
+    del w_in, st_in
+    lib_states = [tuple(s.clone() for s in opt.state_tensors(st))
+                  for st in states]
+    steps = [torch.ones((), device=dev) for _ in params]
+
+    def plain_update():
+        for i, (w, gr, st) in enumerate(zip(params, grads, states)):
+            KO.unit_update_plain("adam", cfg, w.reshape(-1), gr.reshape(-1),
+                                 lrs[i], wds[i], ts[i], hp.rescale, hp.clip,
+                                 tuple(s.reshape(-1)
+                                       for s in opt.state_tensors(st)))
+
+    def library():
+        torch._fused_adam_(params, grads, [s[0] for s in lib_states],
+                           [s[1] for s in lib_states], [], steps,
+                           lr=TRAIN_LR, beta1=0.9, beta2=0.999,
+                           weight_decay=0.0, eps=1e-8, amsgrad=False,
+                           maximize=False)
+
+    ms, eager_ms = time_ms(torch, lambda: update(grads), [()], iters=10)
+    plain_ms, _ = time_ms(torch, plain_update, [()], iters=3, replays=2)
+    try:
+        library_ms, library_eager_ms = time_ms(torch, library, [()],
+                                               iters=10)
+        lib_err = None
+    except Exception as e:    # the yardstick only: the port never calls it
+        library_ms = library_eager_ms = None
+        lib_err = f"{type(e).__name__}: {e}"[:300]
+    n = sum(p.numel() for p in params)
+    b_ms, b_by = bound_ms(28 * n, 20.0 * n, "float32")
+    rec = {"what": "bert_base classifier Adam update, one card, float32",
+           "parameters": n_p, "elements": n,
+           "opt_update_launches": launches,
+           "vs_plain": {"float32_weight_ulps": worst_ulps,
+                        "float32_state_max_abs_err": worst_state,
+                        "failed": bad[:10]},
+           "ms": ms, "eager_ms": eager_ms,
+           "plain_ms": plain_ms, "library_ms": library_ms,
+           "library_eager_ms": library_eager_ms, "library_error": lib_err,
+           "library": "torch._fused_adam_ over the same list",
+           "bound_ms": b_ms, "bound_by": b_by, "bytes": 28 * n,
+           "ok": launches == n_p == BERT_BASE_TRAINABLE and not bad}
+    emit({"bert_update_graph": rec})
+    if not rec["ok"]:
+        raise SystemExit(f"the one-card BERT-base update failed: {rec}")
+    return rec
 
 
 def bert_base_classifier(torch, seq, device, widths=None):
@@ -4324,17 +4766,25 @@ def elastic_one_card(torch, np, K, dev, smi):
     after = {i: res.losses[i] for i in range(restored, ONE_CARD_STEPS)}
     gate = spread_gate(refs, after, loss_dist)
     dispatched = 3 + ONE_CARD_STEPS - restored
+    # each formation's loop captures its step at its first call: the
+    # warm-up runs the step's forward and backward WARMUP_RUNS times
+    # eagerly, without its update
+    from mxnet_tpu_torch.captured import WARMUP_RUNS
+    captures = 1 + len(res.events)
+    runs = dispatched + WARMUP_RUNS * captures
     expect = {n: 0 for n in K.KERNELS}
     expect.update(flash_fwd=12, flash_bwd_fused=12, layernorm_fwd=25,
                   layernorm_bwd=25)
-    expect = {n: c * dispatched for n, c in expect.items()}
+    expect = {n: c * runs for n, c in expect.items()}
+    expect["opt_update"] = BERT_BASE_TRAINABLE * dispatched
     report = {"model": "bert_base classifier", "batch": TRAIN_BATCH,
               "seq": TRAIN_SEQ, "dropout": 0.1, "fault": spec,
               "steps": ONE_CARD_STEPS, "events": res.events,
               "final_step": res.final_step, "losses": res.losses,
               "reference_losses": refs, "losses_vs_uninterrupted": gate,
               "downtime_s": ev.get("downtime_s"), "wall_s": wall,
-              "steps_dispatched": dispatched, "launches": launches,
+              "steps_dispatched": dispatched, "captures": captures,
+              "warmup_runs_a_capture": WARMUP_RUNS, "launches": launches,
               "launches_expected": expect, "card": smi}
     report["ok"] = (len(res.events) == 1 and ev["cause"] == "transient"
                     and ev["restored_step"] == 2 and ev["step"] == 3
@@ -4834,6 +5284,8 @@ def main(argv):
     opt_timed = check_opt_kernel(torch, KO, dev)
     timing.update(time_opt_kernel(torch, KO, opt_timed))
     del opt_timed
+    time_bert_update(torch, K, KO, dev)
+    torch.cuda.empty_cache()
     served, pred = serve_bert(torch, np, K, dev)
     if "--profile" in argv:
         profile_bucket(torch, np, pred, smi)
@@ -4858,13 +5310,15 @@ def main(argv):
     torch.cuda.empty_cache()
     trained_long = train_long(torch, np, K, dev)
     lstm = train_lstm(torch, np, K, dev, smi, "--profile" in argv)
+    train_dense(torch, K, dev, smi)
+    torch.cuda.empty_cache()
     serve_decode(torch, np, K, ATT, dev, smi, DECODE_LEG, leg=True)
     decode_wide, wide_model = serve_decode(torch, np, K, ATT, dev, smi,
                                            DECODE_WIDE, leg=False)
     if "--profile" in argv:
         profile_decode_step(torch, np, wide_model, smi)
     del wide_model
-    zero = zero_layout(torch, np, K, dev, smi)
+    zero_layout(torch, np, K, dev, smi)
     torch.cuda.empty_cache()
     zero_layout_mp(torch, np, K, dev, smi)
     torch.cuda.empty_cache()
@@ -4891,14 +5345,13 @@ def main(argv):
             "rnn_scan_fwd": "lstm_lm_training",
             "rnn_scan_bwd": "lstm_lm_training",
             "rnn_decode": "decode_wide",
-            "opt_update": "bert_base_zero_update_layout"}
+            "opt_update": "bert_base_training"}
     counts_of = {"bert_base_serving": served,
                  "transformer_encoder_gelu": encoder,
                  "bert_base_training": trained,
                  "bert_width_training_seq1024": trained_long,
                  "lstm_lm_training": lstm,
-                 "decode_wide": decode_wide,
-                 "bert_base_zero_update_layout": zero}
+                 "decode_wide": decode_wide}
     launches = {name: counts_of[path[name]][name] for name in K.KERNELS}
     # the bf16 paths and what each launched there (the LayerNorm
     # backward runs in float32 under amp; opt_update updates float32

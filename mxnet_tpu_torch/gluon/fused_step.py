@@ -10,13 +10,48 @@ with ones), and the update with gradients rescaled by 1 / ``batch_size``,
 It returns the per-sample loss of the whole (global) batch, detached,
 without waiting for the device: where the batch was split over the
 ranks, each rank's part is all-gathered in rank order.
-The JAX package traces this into one XLA program; PyTorch runs eagerly,
-so here the step is its phases in order. Dropout follows the modules'
-own ``train()`` / ``eval()`` mode.
+Dropout follows the modules' own ``train()`` / ``eval()`` mode.
 
-Three modes, decided at the first call as the JAX package decides them:
+Four modes, decided at the first call as the JAX package decides them:
 
-- ``eager``: no mesh; ``trainer.step(batch_size)`` after the backward.
+- ``fused`` (one device, no dp mesh): the counterpart of the JAX
+  package's one donated XLA program per input signature, here one
+  captured CUDA graph per signature (``mxnet_tpu_torch.captured``). The
+  signature is the batch leaves' shapes and dtypes, the non-array
+  arguments' values, the arguments' structure and the training flags of
+  the layers that draw random numbers (``train_mode``), as the JAX
+  ``_entry_for`` keys its cache; ``MXNET_FUSED_STEP_CACHE_SIZE`` (0:
+  unbounded) bounds it, least recently used first, and :attr:`n_traces`
+  / :meth:`explain_retrace` say what was captured and why. The graph
+  holds the whole step: the batch copied into static inputs, the
+  forward, the gradients of the loss's SUM (``torch.autograd.grad``, so
+  a parameter the loss does not reach updates with a zero gradient, as
+  the JAX program's ``jax.grad`` gives it, and no ``.grad`` is touched)
+  and the update of every trainable parameter in place
+  (``Optimizer.whole_step_fn``: one ``opt_update`` launch a parameter
+  for exact SGD / SGD-momentum / Adam). Every lr, wd, update count t,
+  rescale (``trainer._scale`` / batch size, so an amp loss scale enters
+  here) and clip the update reads comes from a device buffer
+  (``optimizer.DeviceHParams``) that the host fills before each replay:
+  the counts advance and lr / wd (a scheduler's, a
+  ``trainer.learning_rate`` set between steps) are read on the host, as
+  ``Trainer.step`` does, and go up in one copy. A capture runs the
+  body's forward and backward twice eagerly first (its warm-up, the
+  update skipped) with the random generators put back after, so the
+  first N calls of a signature are exactly N eager steps; each
+  generator a layer drew from is registered with the graph, so replay k
+  draws what eager step k draws. New tensors in place of the
+  parameters or the optimizer states (``Updater.set_states`` via
+  ``Trainer.load_states`` of a states file) make the next call capture
+  again; a checkpoint restore copies in place and does not.
+  :meth:`aot_compile` captures a signature without stepping. On the
+  CPU the same body runs eagerly over the same static buffers; on a
+  card a capture or replay that fails raises ``MXNetError``.
+- ``eager``: bfloat16 / float16 parameters under ``multi_precision``
+  (their float32 masters live in the Updater's states, as the JAX
+  package sends them to its eager path), or a process group of several
+  ranks without a dp mesh; the forward, ``loss.sum().backward()`` and
+  ``trainer.step(batch_size)``, which reduces across the ranks.
 - ``zero`` (the ZeRO-1 sharded update, arXiv:2004.13336): a
   ``parallel.make_mesh`` mesh with a ``dp`` axis of size >= 2 is active
   (or given), the optimizer's rule is elementwise and the kvstore lets
@@ -63,23 +98,27 @@ end. :class:`TrainLoop` runs the step with a bounded in-flight window
 parallel width) and records a device loss escaping it
 (``elastic.detect``).
 
-Under ``amp.init()`` parameters stay float32 and gradients come back
-float32, so no mode needs a master; bfloat16 parameters with
-``multi_precision`` take the ``eager`` mode on one card (their masters
-in the Updater's states), as the JAX package does.
+The ``zero`` and ``mesh`` modes run eagerly: capturing their NCCL
+collectives and the ZeRO gradient hooks is later work. Under
+``amp.init()`` parameters stay float32 and gradients come back float32,
+so no mode needs a master.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
+import itertools
 import logging
 import os
+from collections import OrderedDict
 from typing import Callable, List, Optional
 
 import numpy as np
 import torch
 
 from ..base import MXNetError
-from ..optimizer.optimizer import LOW_PRECISION
+from ..captured import Programs
+from ..optimizer.optimizer import LOW_PRECISION, DeviceHParams, Optimizer
 from ..parallel import dist as _dist
 from ..parallel.collectives import (all_gather_rows, allgather,
                                     reduce_scatter_rows, write_segment,
@@ -87,6 +126,7 @@ from ..parallel.collectives import (all_gather_rows, allgather,
 from ..parallel.mesh import (batch_is_sharded, current_mesh, global_lead,
                              place_on_mesh, replicate, zero_shard_pad)
 from ..testing.faults import fault_point
+from .nn.basic_layers import recording_draws
 
 __all__ = ["CompiledTrainStep", "TrainLoop", "zero_bucket_schedule"]
 
@@ -502,6 +542,139 @@ def _global_loss(loss: torch.Tensor, mesh, axis: str) -> torch.Tensor:
     return allgather(loss.contiguous(), axis, mesh)
 
 
+class _Traced:
+    """The place of an array leaf in a signature's ``static_spec``."""
+
+    def __repr__(self):
+        return "<traced>"
+
+
+_TRACED = _Traced()
+
+#: a fused step's signature, field by field (the JAX package's, less the
+#: NDArray mask and the numerics mode, which the port does not have)
+_SIG_FIELDS = ("train_mode", "arg_treedef", "static_spec", "shapes_dtypes")
+
+
+def explain_signature_diff(old, new) -> str:
+    """Why the second of two fused-step signatures captured a program of
+    its own, component by component, in the JAX package's words
+    (``mxnet_tpu/analysis/program.py``)."""
+    parts = []
+    for i, fieldname in enumerate(_SIG_FIELDS):
+        a, b = old[i], new[i]
+        if a == b:
+            continue
+        if fieldname == "shapes_dtypes":
+            diffs = [f"arg[{j}]: {sa} -> {sb}" for j, (sa, sb) in
+                     enumerate(itertools.zip_longest(a, b)) if sa != sb]
+            parts.append("traced argument shapes/dtypes changed ("
+                         + "; ".join(diffs[:6])
+                         + ("; ..." if len(diffs) > 6 else "") + ")")
+        elif fieldname == "arg_treedef":
+            parts.append(f"argument STRUCTURE changed ({a} -> {b})")
+        elif fieldname == "static_spec":
+            parts.append("non-array (static) argument values changed — "
+                         "each distinct value compiles its own program")
+        else:
+            parts.append(f"{fieldname} changed ({a} -> {b})")
+    return "; ".join(parts) if parts else \
+        "signatures identical (cache eviction, not a retrace trigger)"
+
+
+def _flatten(obj, leaves: list):
+    """The structure of nested tuples / lists / dicts (hashable), their
+    other values appended to ``leaves`` in order."""
+    if isinstance(obj, (tuple, list)):
+        return (type(obj).__name__, tuple(_flatten(o, leaves) for o in obj))
+    if isinstance(obj, dict):
+        keys = tuple(sorted(obj))
+        return ("dict", keys, tuple(_flatten(obj[k], leaves) for k in keys))
+    leaves.append(obj)
+    return "*"
+
+
+def _unflatten(tree, leaves):
+    """:func:`_flatten`'s inverse over an iterator of leaves."""
+    if tree == "*":
+        return next(leaves)
+    if tree[0] == "dict":
+        return {k: _unflatten(t, leaves) for k, t in zip(tree[1], tree[2])}
+    items = [_unflatten(t, leaves) for t in tree[1]]
+    return tuple(items) if tree[0] == "tuple" else items
+
+
+def _watched(params, updater):
+    """What a captured step reads in place: the trainable parameters and
+    their optimizer states, in order."""
+    out = list(params)
+    for i in range(len(params)):
+        out += Optimizer.state_tensors(updater.states[i])
+    return out
+
+
+@contextlib.contextmanager
+def _warmup_scope(warming: list, device):
+    """Around a capture's warm-up runs of a train step: the body skips
+    its update there (``warming[0]`` is set), so no weight, optimizer
+    state or update count changes, and the random generators (the
+    device's default one, and each one a layer noted:
+    ``recording_draws``) are put back as they were before the runs, so
+    the capture's first replay is the step's first. The warm-up is for
+    the forward and backward (cuBLAS's workspace, the allocator's
+    blocks); the update's kernels load at their first launch in the
+    capture, the kernel library already loaded (``whole_step_fn``).
+    Yields the list of the noted CUDA generators, filled on exit, for the
+    graph to register."""
+    from ..checkpoint.state import (_default_rng_state,
+                                    _set_default_rng_state)
+    rng = _default_rng_state(device)
+    generators: list = []
+    rec: dict = {}
+    warming[0] = True
+    try:
+        with recording_draws() as rec:
+            yield generators
+    finally:
+        warming[0] = False
+        _set_default_rng_state(device, rng)
+        for _, g, state in rec.values():
+            if g is not None:
+                g.set_state(state)
+                if g.device.type == "cuda" and \
+                        all(g is not h for h in generators):
+                    generators.append(g)
+
+
+def _step_body(loss_fn, treedef, spec, params, update, drawers: list,
+               warming: list):
+    """A fused step's body over its static inputs (the array leaves, in
+    order): the forward, the gradients of the loss's sum with respect to
+    ``params`` (zeros for one the loss does not reach) and ``update``,
+    skipped while ``warming[0]`` (:func:`_warmup_scope`); returns the
+    per-sample loss. A layer of the forward that draws random numbers
+    joins ``drawers`` (its training flag is part of the signature). It
+    holds what it reads, not the step."""
+
+    def body(*inputs):
+        it = iter(inputs)
+        leaves = [next(it) if v is _TRACED else v for v in spec]
+        args, kwargs = _unflatten(treedef, iter(leaves))
+        with torch.enable_grad(), recording_draws() as rec:
+            loss = loss_fn(*args, **kwargs)
+            grads = torch.autograd.grad(loss.sum(), params,
+                                        allow_unused=True)
+        for m, _, _ in rec.values():
+            if all(m is not d for d in drawers):
+                drawers.append(m)
+        if not warming[0]:
+            update([torch.zeros_like(p) if g is None else g
+                    for p, g in zip(params, grads)])
+        return loss.detach()
+
+    return body
+
+
 def _infer_batch_size(leaves) -> int:
     for leaf in leaves:
         if getattr(leaf, "ndim", 0) >= 1:
@@ -534,6 +707,15 @@ class CompiledTrainStep:
         self._buckets: List[list] = []
         #: the last ZeRO step's hooks and launches, in order
         self._zero_trace: list = []
+        # the fused mode: its programs, hyperparameter block, signatures
+        # (least recently used first) and the layers that draw
+        self._programs: Optional[Programs] = None
+        self._watch: Optional[Callable] = None
+        self._hp: Optional[DeviceHParams] = None
+        self._lru: "OrderedDict[tuple, None]" = OrderedDict()
+        self._sig_history: List[tuple] = []
+        self._moved = False
+        self._drawers: list = []
         # the checkpoint stack asks the trainer's live steps whether a
         # ZeRO plan owns the optimizer state
         trainer._register_compiled(self)
@@ -546,6 +728,29 @@ class CompiledTrainStep:
     @property
     def steps_done(self) -> int:
         return self._steps_done
+
+    @property
+    def n_traces(self) -> int:
+        """Programs the fused mode captured so far (CUDA graphs on a card,
+        bodies built on the CPU): one a signature, one more for a
+        signature evicted and seen again or whose parameters or optimizer
+        states moved since its capture; 0 in the other modes."""
+        return self._programs.n_traces if self._programs is not None else 0
+
+    def explain_retrace(self) -> str:
+        """WHY the most recent capture happened: a component-wise diff of
+        the last two signatures captured (new shapes or dtypes, changed
+        non-array arguments or structure, a layer's training flag), or
+        that the tensors the program reads moved."""
+        if not self._sig_history:
+            return "no program traced yet"
+        if self._moved:
+            return ("parameters or optimizer states moved since the "
+                    "capture (new tensors in their place): captured again")
+        if len(self._sig_history) < 2:
+            return "only one program traced (no retrace to explain)"
+        return explain_signature_diff(self._sig_history[-2],
+                                      self._sig_history[-1])
 
     @property
     def mode(self) -> Optional[str]:
@@ -609,7 +814,17 @@ class CompiledTrainStep:
     def _decide_mode(self) -> str:
         if self._resolve_zero():
             return "zero"
-        return "mesh" if self._plain_mesh is not None else "eager"
+        if self._plain_mesh is not None:
+            return "mesh"
+        tr = self._trainer
+        if not tr._params or _dist.size() > 1:
+            # several ranks without a mesh: Trainer.step reduces
+            return "eager"
+        if tr._optimizer.multi_precision and any(
+                p.dtype in LOW_PRECISION for p in tr._params):
+            # float32 masters fuse only through the sharded update
+            return "eager"
+        return "fused"
 
     def _resolve_zero(self) -> bool:
         """Whether the ZeRO-1 sharded update applies: a mesh with the dp
@@ -680,7 +895,9 @@ class CompiledTrainStep:
         leaves = list(args) + list(kwargs.values())
         if batch_size is None:
             batch_size = _infer_batch_size(leaves)
-        if self._mode == "eager":
+        if self._mode == "fused":
+            loss = self._fused_call(args, kwargs, batch_size)
+        elif self._mode == "eager":
             loss = self._eager_call(args, kwargs, batch_size)
         else:
             mesh, axis = self._zero_ok or self._plain_mesh
@@ -706,6 +923,125 @@ class CompiledTrainStep:
         loss.sum().backward()
         self._trainer.step(batch_size)
         return loss.detach()
+
+    # ---------------- the fused (captured) step ----------------
+    def aot_compile(self, *args, batch_size: Optional[int] = None,
+                    **kwargs):
+        """Capture this batch's signature ahead of time, everything a
+        first call does up to its replay, so a timed loop captures
+        nothing. No update count advances and no weight, state or
+        generator changes. Returns None: the JAX package returns XLA's
+        flop count, which a CUDA graph does not give."""
+        if self._mode is None:
+            self._mode = self._decide_mode()
+        if self._mode == "fused":
+            n = len(self._drawers)
+            _, key = self._fused_program(args, kwargs, batch_size,
+                                         advance=False)
+            self._settle_key(n, *key)
+        return None
+
+    def _fused_call(self, args, kwargs, batch_size):
+        opt = self._trainer._optimizer
+        counts = dict(opt._index_update_count), opt.num_update
+        n = len(self._drawers)
+        try:
+            prog, key = self._fused_program(args, kwargs, batch_size,
+                                            advance=True)
+            loss = prog.run()
+        except BaseException:
+            # a step that did not run updates nothing, its counts included
+            opt._index_update_count, opt.num_update = counts
+            raise
+        self._settle_key(n, *key)
+        for p in self._trainer._params:
+            p.fresh_grad = False
+        return loss
+
+    def _settle_key(self, n_drawers, sig, treedef, spec, shapes):
+        """The body's first run (its capture's warm-up on a card, the
+        call itself on the CPU) found layers that draw: file the program
+        under the signature with their training flags."""
+        if len(self._drawers) == n_drawers:
+            return
+        new = self._signature(treedef, spec, shapes)
+        if new == sig:
+            return
+        self._programs.rekey(sig, new)
+        self._lru.pop(sig, None)
+        self._lru[new] = None
+        self._sig_history = [new if h == sig else h
+                             for h in self._sig_history]
+
+    def _signature(self, treedef, spec, shapes) -> tuple:
+        sig = (tuple(m.training for m in self._drawers), treedef, spec,
+               shapes)
+        try:
+            hash(sig)
+        except TypeError as e:
+            raise MXNetError("compile_step: a non-array argument of the "
+                             f"step must be hashable ({e})") from e
+        return sig
+
+    def _fused_program(self, args, kwargs, batch_size, advance: bool):
+        """The program of this call's signature (captured when new or
+        moved), the batch copied into its static inputs and, when
+        ``advance``, the update counts advanced and the step's
+        hyperparameters staged; and ``(signature, treedef, static spec,
+        shapes)``."""
+        tr, dev = self._trainer, self._device
+        opt, n = tr._optimizer, len(tr._params)
+        if self._programs is None:
+            self._hp = DeviceHParams(n, dev)
+            self._watch = functools.partial(_watched, list(tr._params),
+                                            tr._updater)
+            self._programs = Programs(self._watch, dev)
+        leaves: list = []
+        treedef = _flatten((args, kwargs), leaves)
+        leaves = [torch.from_numpy(np.ascontiguousarray(v))
+                  if isinstance(v, np.ndarray) else v for v in leaves]
+        arrays = [v for v in leaves if isinstance(v, torch.Tensor)]
+        if batch_size is None:
+            batch_size = _infer_batch_size(arrays)
+        opt.rescale_grad = tr._scale / batch_size
+        states = [tr._updater._state_for(i, p)
+                  for i, p in enumerate(tr._params)]
+        if advance:
+            opt.stage_device_step(self._hp, list(range(n)))
+        spec = tuple(_TRACED if isinstance(v, torch.Tensor) else v
+                     for v in leaves)
+        shapes = tuple((tuple(a.shape), str(a.dtype).replace("torch.", ""))
+                       for a in arrays)
+        sig = self._signature(treedef, spec, shapes)
+        known = sig in self._lru
+        traces = self._programs.n_traces
+        warming = [False]
+
+        def build():
+            inputs = [torch.empty(a.shape, dtype=a.dtype,
+                                  device=dev).copy_(a) for a in arrays]
+            params = list(tr._params)
+            update = opt.whole_step_fn(params, states, self._hp)
+            return (_step_body(self._loss_fn, treedef, spec, params,
+                               update, self._drawers, warming), inputs)
+
+        prog = self._programs.get(
+            sig, build, what=f"train step {shapes}",
+            scope=functools.partial(_warmup_scope, warming, dev))
+        if self._programs.n_traces != traces:
+            self._moved = known
+            self._lru[sig] = None
+            self._sig_history.append(sig)
+            cap = _env_int("MXNET_FUSED_STEP_CACHE_SIZE", 0)
+            while cap > 0 and len(self._lru) > cap:
+                old, _ = self._lru.popitem(last=False)
+                self._programs.drop(old)
+        self._lru.move_to_end(sig)
+        for dst, a in zip(prog.inputs, arrays):
+            if a.device.type == "cpu" and dev.type == "cuda":
+                a = a.pin_memory()
+            dst.copy_(a, non_blocking=True)
+        return prog, (sig, treedef, spec, shapes)
 
     def _mesh_call(self, args, kwargs, batch_size, mesh, mean):
         """Replicated update after an all-reduce of every gradient."""

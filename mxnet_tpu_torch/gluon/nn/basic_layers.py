@@ -15,6 +15,13 @@ constructor raises unless ``device="cpu"``) and an optional
 Shapes are not inferred at the first call: ``in_units`` / ``in_channels``
 are required.
 
+A layer that may draw random numbers in its forward (``Dropout``, the
+recurrent layers' dropout between layers) notes itself and its generator
+with :func:`note_draw` first, whatever its mode; inside
+:func:`recording_draws` a caller (a captured train step, which must
+register every generator its graph draws from and restore them after
+its warm-up) learns of them.
+
 Parameters are trainable. Each carries the JAX package's ``Parameter``
 attributes (``gluon/parameter.py``): ``grad_req`` (``"write"``,
 ``"add"`` or ``"null"``; set it with :func:`set_grad_req`), ``lr_mult``
@@ -25,7 +32,9 @@ the gradient.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
+import threading
 import weakref
 from typing import Optional
 
@@ -39,7 +48,8 @@ from ...ops import nn as FNN
 from ...ops.registry import invoke
 
 __all__ = ["Dense", "Dropout", "Embedding", "LayerNorm", "activation",
-           "init_param", "set_grad_req", "GRAD_REQS"]
+           "init_param", "set_grad_req", "GRAD_REQS", "note_draw",
+           "recording_draws"]
 
 GRAD_REQS = ("write", "add", "null")
 
@@ -53,6 +63,36 @@ _ACTIVATIONS = {
     "gelu": F.gelu,
     "gelu_tanh": lambda x: F.gelu(x, approximate="tanh"),
 }
+
+
+#: per thread: the records the open :func:`recording_draws` fill
+_DRAWS = threading.local()
+
+
+@contextlib.contextmanager
+def recording_draws():
+    """Within the block, each layer that notes a draw on this thread
+    (:func:`note_draw`) is recorded once, in first-seen order: yields a
+    dict ``id(module) -> (module, generator or None, the generator's
+    state before the layer's first draw or None)``. Blocks nest; each
+    records what happens inside it."""
+    rec: dict = {}
+    if not hasattr(_DRAWS, "stack"):
+        _DRAWS.stack = []
+    _DRAWS.stack.append(rec)
+    try:
+        yield rec
+    finally:
+        _DRAWS.stack = [r for r in _DRAWS.stack if r is not rec]
+
+
+def note_draw(module: nn.Module, generator: Optional[torch.Generator]):
+    """``module`` is about to draw from ``generator`` (None: its
+    device's default generator), or would in training mode."""
+    for rec in getattr(_DRAWS, "stack", ()):
+        if id(module) not in rec:
+            rec[id(module)] = (module, generator, None if generator is None
+                               else generator.get_state())
 
 
 def activation(x, act_type: str):
@@ -152,6 +192,7 @@ class Dropout(nn.Module):
         self._generator = generator
 
     def forward(self, x):
+        note_draw(self, self._generator)
         if self._rate == 0 or not self.training:
             return x
         keep = torch.bernoulli(

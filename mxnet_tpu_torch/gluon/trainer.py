@@ -32,7 +32,11 @@ mesh, so each rank updates from the gradient of the global batch: each rank back
 ``step(global_batch_size)`` turns the sum into the global mean, as the
 reference's global arrays do. ``compile_step``'s ``mesh`` mode reduces
 through the same :meth:`allreduce_grads`; its ``zero`` mode
-reduce-scatters instead and never calls it.
+reduce-scatters instead and never calls it. Its one-device ``fused`` mode
+updates every trainable parameter inside its captured graph (one
+``opt_update`` launch a parameter for SGD and Adam), its hyperparameters
+staged by :meth:`Optimizer.stage_device_step` from the same counts, lr
+and wd :meth:`step` would use; :meth:`step` itself updates eagerly.
 """
 from __future__ import annotations
 
@@ -108,10 +112,21 @@ class Trainer:
             step = trainer.compile_step(lambda x, y: loss_blk(net(x), y))
             loss = step(x, y)      # == loss.backward(); step(batch_size)
 
+        On one device (no dp mesh) the step is the ``fused`` mode: one
+        captured CUDA graph per batch signature holds the forward, the
+        backward and the update, and each call copies the batch in, fills
+        the update's lr / wd / t / rescale / clip block on the card and
+        replays it (on the CPU the same body runs eagerly). bf16 or
+        float16 parameters under ``multi_precision`` run the ``eager``
+        mode, as the JAX package sends them.
+
         Under a mesh with a ``zero_axis`` of size >= 2 (``mesh``, or the
         active ``parallel.make_mesh``) the update is the ZeRO-1 sharded
         one, unless ``zero_shard=False``; ``zero_shard=True`` raises
-        where it cannot apply."""
+        where it cannot apply. The ``zero`` and ``mesh`` modes run
+        eagerly: their NCCL collectives, and the gradient hooks that
+        launch the ZeRO reduce-scatters during the backward, are not
+        captured yet."""
         from .fused_step import CompiledTrainStep
         return CompiledTrainStep(self, loss_fn, zero_shard=zero_shard,
                                  zero_axis=zero_axis, mesh=mesh)

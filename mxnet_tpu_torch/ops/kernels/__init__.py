@@ -21,7 +21,8 @@ and nowhere else (:func:`launch_counts`, and by input dtype
 :func:`launch_counts_by_dtype`), so a run can show that its path went
 through the kernels, and in which dtype. A CUDA-graph capture launches
 nothing on the card: :func:`record_launches` takes what the capturing
-thread's wrappers would have counted into a dict instead, and
+thread's wrappers, and any thread's on the capture's stream, would have
+counted into a dict instead, and
 :func:`add_launches` adds that delta at each replay, so the counts stay
 the launches the card ran.
 """
@@ -170,9 +171,9 @@ KERNELS: Dict[str, KernelInfo] = {k.name: k for k in (
     KernelInfo(
         "opt_update", "mxnet_tpu_torch/ops/kernels/csrc/opt_update.cu",
         "mxt_opt_update",
-        # w, g, s0, s1, lrv, wdv, tv, n, kind, has_clip, vec, lr, wd, t,
-        # rescale, clip, mom, b1, b2, eps, omb1, omb2, dtype, stream
-        (_P,) * 7 + (_L, _I, _I, _I, _F, _F, _I) + (_F,) * 8 + (_I, _P),
+        # w, g, s0, s1, lrv, wdv, tv, rsp, clp, n, kind, has_clip, hp, lr,
+        # wd, t, rescale, clip, mom, b1, b2, eps, omb1, omb2, dtype, stream
+        (_P,) * 9 + (_L, _I, _I, _I, _F, _F, _I) + (_F,) * 8 + (_I, _P),
         "mxnet_tpu/ops/kernels/opt_update.py:107 (_opt_kernel)"),
 )}
 
@@ -181,6 +182,8 @@ _DTYPE_COUNTS: Dict[tuple, int] = {}
 _COUNT_MU = threading.Lock()
 #: per thread: the dict a capture on that thread records its launches into
 _RECORDING = threading.local()
+#: per capture stream (its handle): the dict its capture records into
+_RECORDING_STREAMS: Dict[int, Dict[tuple, int]] = {}
 _LIB_MU = threading.Lock()
 _LIB: Optional[ctypes.CDLL] = None
 
@@ -209,18 +212,27 @@ def reset_launch_counts() -> None:
 
 
 @contextmanager
-def record_launches():
+def record_launches(stream=None):
     """Within the block, launches counted on this thread go into the
     yielded dict ``{(kernel, input dtype): launches}`` and not into the
     counts: a graph capture, which the card runs only at each replay
-    (:func:`add_launches`). Other threads count as before."""
+    (:func:`add_launches`). With ``stream`` (the capture's), launches
+    made on that stream by any thread go there too: a captured backward
+    runs on autograd's worker thread. Other launches count as before."""
     delta: Dict[tuple, int] = {}
     prev = getattr(_RECORDING, "delta", None)
     _RECORDING.delta = delta
+    key = None if stream is None else stream.cuda_stream
+    if key is not None:
+        with _COUNT_MU:
+            _RECORDING_STREAMS[key] = delta
     try:
         yield delta
     finally:
         _RECORDING.delta = prev
+        if key is not None:
+            with _COUNT_MU:
+                del _RECORDING_STREAMS[key]
 
 
 def add_launches(delta: Dict[tuple, int]) -> None:
@@ -231,15 +243,20 @@ def add_launches(delta: Dict[tuple, int]) -> None:
             _DTYPE_COUNTS[key] = _DTYPE_COUNTS.get(key, 0) + n
 
 
-def _count(name: str, dtype: torch.dtype) -> None:
-    """One launch of kernel ``name`` on inputs of ``dtype``: into this
-    thread's capture record when one is open, else into the counts."""
+def _count(name: str, dtype: torch.dtype, stream: Optional[int] = None
+           ) -> None:
+    """One launch of kernel ``name`` on inputs of ``dtype`` (on the CUDA
+    stream handle ``stream``): into this thread's capture record, or the
+    record of the capture of ``stream``, when one is open, else into the
+    counts."""
     key = (name, str(dtype).replace("torch.", ""))
     delta = getattr(_RECORDING, "delta", None)
-    if delta is not None:
-        delta[key] = delta.get(key, 0) + 1
-        return
     with _COUNT_MU:
+        if delta is None:
+            delta = _RECORDING_STREAMS.get(stream)
+        if delta is not None:
+            delta[key] = delta.get(key, 0) + 1
+            return
         _COUNTS[name] += 1
         _DTYPE_COUNTS[key] = _DTYPE_COUNTS.get(key, 0) + 1
 
@@ -379,9 +396,10 @@ def launch(name: str, device: torch.device, *args,
     :func:`record_launches`, into the capture's record). Raises when the
     entry reports a CUDA error (a refused launch)."""
     fn = getattr(library(), KERNELS[name].entry)
+    stream = torch.cuda.current_stream(device).cuda_stream
     with torch.cuda.device(device):
-        err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+        err = fn(*args, stream)
     if err != 0:
         what = library().mxt_error_string(err).decode()
         raise MXNetError(f"{name}: CUDA error {err} ({what}) at launch")
-    _count(name, dtype)
+    _count(name, dtype, stream)

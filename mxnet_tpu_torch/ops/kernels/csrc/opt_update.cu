@@ -28,6 +28,13 @@
 // grid-stride streaming pass, four elements a thread an iteration with
 // 16-byte (float32) or 8-byte (bfloat16) loads when the pointers allow,
 // written in place so no second buffer is touched.
+//
+// Hyperparameters come in one of three ways (`hp`): as host scalars in
+// the launch's arguments, as per-element (n,) vectors (a ZeRO bucket
+// unit), or as single values in device memory (lr, wd, t at a pointer
+// each, e.g. element i of a (P,) buffer, and the rescale and the clip at
+// a pointer each), which a captured CUDA graph reads afresh at every
+// replay. The arithmetic is the same in all three.
 #include "common.cuh"
 
 enum { OPT_SGD = 0, OPT_SGD_MOM = 1, OPT_ADAM = 2 };
@@ -94,8 +101,18 @@ __global__ void opt_update_kernel(T* __restrict__ w, const T* __restrict__ g,
                                   T* __restrict__ s0, T* __restrict__ s1,
                                   const float* __restrict__ lrv,
                                   const float* __restrict__ wdv,
-                                  const int* __restrict__ tv, long long n,
+                                  const int* __restrict__ tv,
+                                  const float* __restrict__ rsp,
+                                  const float* __restrict__ clp, long long n,
                                   OptArgs a) {
+  // device scalars (hp 2): one value each at lrv, wdv, tv, rsp and clp
+  if (!VEC && lrv) {
+    a.lr = *lrv;
+    a.wd = *wdv;
+    a.t = *tv;
+    a.rescale = *rsp;
+    a.clip = *clp;
+  }
   const long long stride = (long long)gridDim.x * blockDim.x;
   const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   const long long n_packs = n / P;
@@ -136,7 +153,8 @@ static inline bool opt_aligned(const void* p, size_t bytes) {
 template <typename T, int KIND, bool CLIP, bool VEC>
 static void opt_launch(void* w, const void* g, void* s0, void* s1,
                        const void* lrv, const void* wdv, const void* tv,
-                       long long n, const OptArgs& a, cudaStream_t s) {
+                       const void* rsp, const void* clp, long long n,
+                       const OptArgs& a, cudaStream_t s) {
   const size_t pb = sizeof(T) * 4;
   const bool packed = opt_aligned(w, pb) && opt_aligned(g, pb) &&
                       opt_aligned(s0, pb) && opt_aligned(s1, pb);
@@ -149,7 +167,8 @@ static void opt_launch(void* w, const void* g, void* s0, void* s1,
 #define MXT_OPT_ARGS                                                    \
   static_cast<T*>(w), static_cast<const T*>(g), static_cast<T*>(s0),    \
       static_cast<T*>(s1), static_cast<const float*>(lrv),              \
-      static_cast<const float*>(wdv), static_cast<const int*>(tv), n, a
+      static_cast<const float*>(wdv), static_cast<const int*>(tv),       \
+      static_cast<const float*>(rsp), static_cast<const float*>(clp), n, a
   if (packed)
     opt_update_kernel<T, KIND, CLIP, VEC, 4>
         <<<(unsigned)blocks, threads, 0, s>>>(MXT_OPT_ARGS);
@@ -162,61 +181,74 @@ static void opt_launch(void* w, const void* g, void* s0, void* s1,
 template <typename T, int KIND>
 static void opt_dispatch_flags(int has_clip, int vec, void* w, const void* g,
                                void* s0, void* s1, const void* lrv,
-                               const void* wdv, const void* tv, long long n,
+                               const void* wdv, const void* tv,
+                               const void* rsp, const void* clp, long long n,
                                const OptArgs& a, cudaStream_t s) {
+#define MXT_OPT_PTRS w, g, s0, s1, lrv, wdv, tv, rsp, clp, n, a, s
   if (has_clip) {
     if (vec)
-      opt_launch<T, KIND, true, true>(w, g, s0, s1, lrv, wdv, tv, n, a, s);
+      opt_launch<T, KIND, true, true>(MXT_OPT_PTRS);
     else
-      opt_launch<T, KIND, true, false>(w, g, s0, s1, lrv, wdv, tv, n, a, s);
+      opt_launch<T, KIND, true, false>(MXT_OPT_PTRS);
   } else {
     if (vec)
-      opt_launch<T, KIND, false, true>(w, g, s0, s1, lrv, wdv, tv, n, a, s);
+      opt_launch<T, KIND, false, true>(MXT_OPT_PTRS);
     else
-      opt_launch<T, KIND, false, false>(w, g, s0, s1, lrv, wdv, tv, n, a, s);
+      opt_launch<T, KIND, false, false>(MXT_OPT_PTRS);
   }
+#undef MXT_OPT_PTRS
 }
 
 template <typename T>
 static int opt_dispatch(int kind, int has_clip, int vec, void* w,
                         const void* g, void* s0, void* s1, const void* lrv,
-                        const void* wdv, const void* tv, long long n,
-                        const OptArgs& a, cudaStream_t s) {
+                        const void* wdv, const void* tv, const void* rsp,
+                        const void* clp, long long n, const OptArgs& a,
+                        cudaStream_t s) {
+#define MXT_OPT_ALL \
+  has_clip, vec, w, g, s0, s1, lrv, wdv, tv, rsp, clp, n, a, s
   if (kind == OPT_SGD)
-    opt_dispatch_flags<T, OPT_SGD>(has_clip, vec, w, g, s0, s1, lrv, wdv,
-                                   tv, n, a, s);
+    opt_dispatch_flags<T, OPT_SGD>(MXT_OPT_ALL);
   else if (kind == OPT_SGD_MOM)
-    opt_dispatch_flags<T, OPT_SGD_MOM>(has_clip, vec, w, g, s0, s1, lrv,
-                                       wdv, tv, n, a, s);
+    opt_dispatch_flags<T, OPT_SGD_MOM>(MXT_OPT_ALL);
   else if (kind == OPT_ADAM)
-    opt_dispatch_flags<T, OPT_ADAM>(has_clip, vec, w, g, s0, s1, lrv, wdv,
-                                    tv, n, a, s);
+    opt_dispatch_flags<T, OPT_ADAM>(MXT_OPT_ALL);
   else
     return (int)cudaErrorInvalidValue;
+#undef MXT_OPT_ALL
   return 0;
 }
 
 // w, g, s0, s1: (n,) contiguous in `dtype` (s0/s1 null where the kind has
-// no such state); lrv, wdv (float32) and tv (int32): (n,) when `vec`, else
-// null and the scalars lr, wd, t hold. omb1 / omb2 are 1 - b1 and 1 - b2
-// as the host computes them (in double, then rounded to float32).
+// no such state). By `hp`: 0, lrv, wdv, tv, rsp and clp null and the
+// scalars lr, wd, t, rescale and clip hold; 1, lrv, wdv (float32) and tv
+// (int32) (n,) vectors, rsp and clp null and the scalars rescale and clip
+// hold; 2, all five one value each in device memory (float32, but tv
+// int32). omb1 / omb2 are 1 - b1 and 1 - b2 as the host computes them (in
+// double, then rounded to float32).
 MXT_API int mxt_opt_update(void* w, const void* g, void* s0, void* s1,
                            const void* lrv, const void* wdv, const void* tv,
-                           long long n, int kind, int has_clip, int vec,
-                           float lr, float wd, int t, float rescale,
-                           float clip, float mom, float b1, float b2,
-                           float eps, float omb1, float omb2, int dtype,
-                           void* stream) {
+                           const void* rsp, const void* clp, long long n,
+                           int kind, int has_clip, int hp, float lr,
+                           float wd, int t, float rescale, float clip,
+                           float mom, float b1, float b2, float eps,
+                           float omb1, float omb2, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (n <= 0) return 0;
+  const bool lwt = lrv && wdv && tv, no_lwt = !lrv && !wdv && !tv;
+  const bool rc = rsp && clp, no_rc = !rsp && !clp;
+  const bool ok = hp == 0 ? no_lwt && no_rc
+                          : hp == 1 ? lwt && no_rc : hp == 2 && lwt && rc;
+  if (!ok) return (int)cudaErrorInvalidValue;
   const OptArgs a{lr, wd, t, rescale, clip, mom, b1, b2, eps, omb1, omb2};
+  const int vec = hp == 1;
   int err;
   if (dtype == MXT_F32)
     err = opt_dispatch<float>(kind, has_clip, vec, w, g, s0, s1, lrv, wdv,
-                              tv, n, a, s);
+                              tv, rsp, clp, n, a, s);
   else if (dtype == MXT_BF16)
     err = opt_dispatch<__nv_bfloat16>(kind, has_clip, vec, w, g, s0, s1, lrv,
-                                      wdv, tv, n, a, s);
+                                      wdv, tv, rsp, clp, n, a, s);
   else
     return (int)cudaErrorInvalidValue;
   if (err) return err;

@@ -13,6 +13,15 @@ PyTorch elementwise ops in the kernel's order, and copies the result in.
 Only exact ``SGD`` / ``Adam`` instances take the kernel
 (:func:`opt_kernel_kind`): a subclass may override the rule, so it keeps
 ``Optimizer.fused_step_fn``.
+
+The hyperparameters come in one of three forms, all three alike: host
+scalars; lr, wd and t as per-element (n,) vectors (a ZeRO bucket unit)
+with a host rescale and clip; or all five as 0-d tensors on the unit's
+card (float32, but t int32), which the kernel reads from device memory:
+element i of a (P,) buffer is its pointer plus an offset. In the device
+form the wrapper reads no value on the host, so a captured CUDA graph of
+the launch reads each step's values at its replay (the one-card
+``compile_step``, ``gluon/fused_step.py``). Other mixes are refused.
 """
 from __future__ import annotations
 
@@ -53,11 +62,20 @@ def _dev32(v, device):
     return torch.full((), _c32(v), dtype=torch.float32, device=device)
 
 
+def _host32(v):
+    """A host scalar rounded to float32; a tensor (a device scalar) as
+    float32 where it lies, read on no host."""
+    if isinstance(v, torch.Tensor):
+        return v.to(torch.float32)
+    return _c32(v)
+
+
 def unit_update_plain(kind: str, cfg: dict, w, g, lr, wd, t, rescale, clip,
                       states):
     """Plain version of the kernel → ``(new_w, new_states)``, new tensors
-    in w's dtype. ``lr``/``wd`` (float32) and ``t`` (int32) are scalars or
-    per-element vectors of w's length. The constants ``mom``, ``b1`` and
+    in w's dtype. ``lr``/``wd`` (float32) and ``t`` (int32) are scalars,
+    0-d tensors or per-element vectors of w's length; ``rescale`` and
+    ``clip`` scalars or 0-d tensors. The constants ``mom``, ``b1`` and
     ``b2`` that multiply a state are rounded to w's dtype (weakly typed
     Python floats in the JAX kernel); all arithmetic is float32, one
     elementwise op at a time."""
@@ -65,9 +83,9 @@ def unit_update_plain(kind: str, cfg: dict, w, g, lr, wd, t, rescale, clip,
     dev, wdt = w.device, w.dtype
     wf = w.float()
     lr, wd = _dev32(lr, dev), _dev32(wd, dev)
-    g = g.to(wdt).float() * _c32(rescale)
+    g = g.to(wdt).float() * _host32(rescale)
     if cfg["has_clip"]:
-        c = _c32(clip)
+        c = _host32(clip)
         g = torch.clamp(g, -c, c)
     g = g + wd * wf
     if code == "sgd":
@@ -106,13 +124,31 @@ def _scalar(v, cast):
     return cast(v.item()) if isinstance(v, torch.Tensor) else cast(v)
 
 
+def _on_card(v) -> bool:
+    """A device scalar: a 0-d tensor on a CUDA device."""
+    return isinstance(v, torch.Tensor) and v.ndim == 0 and \
+        v.device.type == "cuda"
+
+
+def _dev_scalar(name, v, dtype, device):
+    """``v``'s device pointer: a 0-d ``dtype`` tensor on ``device``
+    (taken as it is: no copy, no host read)."""
+    if v.dtype != dtype or v.device != device:
+        raise MXNetError(f"opt_update: device scalar {name} must be "
+                         f"{dtype} on {device}, got {v.dtype} on "
+                         f"{v.device}")
+    return v.data_ptr()
+
+
 def unit_update(kind: str, cfg: dict, w, g, lr, wd, t, rescale, clip,
                 states):
     """One flat unit through the update, in place: ``w`` and ``states``
     (flat, w's length and dtype) are overwritten with the new values and
     returned as ``(w, states)``. ``g`` is cast to w's dtype. ``lr``/``wd``
-    /``t`` are scalars or per-element (n,) vectors (a bucket unit's
-    ``pack_shard_hparams``); ``rescale`` and ``clip`` are scalars."""
+    /``t`` are host scalars or per-element (n,) vectors (a bucket unit's
+    ``pack_shard_hparams``), with ``rescale`` and ``clip`` host scalars;
+    or all five are device scalars (0-d tensors on w's card: float32, t
+    int32)."""
     states = tuple(states)
     n_states = {"sgd": 0, "sgd_mom": 1, "adam": 2}[_code(kind, cfg)]
     if len(states) != n_states:
@@ -135,25 +171,38 @@ def unit_update(kind: str, cfg: dict, w, g, lr, wd, t, rescale, clip,
                 not x.is_contiguous():
             raise MXNetError("opt_update: g and the states must be "
                              "contiguous, of w's shape and dtype")
-    lrv = _check_vec("lr", lr, n, torch.float32, w.device)
-    wdv = _check_vec("wd", wd, n, torch.float32, w.device)
-    tv = _check_vec("t", t, n, torch.int32, w.device)
-    vec = lrv is not None
-    if vec != (wdv is not None) or vec != (tv is not None):
-        raise MXNetError("opt_update: lr, wd and t are all scalars or all "
-                         "vectors")
+    dev = w.device
+    on_card = [_on_card(v) for v in (lr, wd, t, rescale, clip)]
+    if all(on_card):
+        hp, ptrs = 2, tuple(
+            _dev_scalar(name, v, dt, dev) for name, v, dt in (
+                ("lr", lr, torch.float32), ("wd", wd, torch.float32),
+                ("t", t, torch.int32), ("rescale", rescale, torch.float32),
+                ("clip", clip, torch.float32)))
+        scalars = (0.0, 0.0, 0, 0.0, 0.0)
+    elif any(on_card):
+        raise MXNetError("opt_update: lr, wd, t, the rescale and the clip "
+                         "are all device scalars or none")
+    else:
+        vecs = (_check_vec("lr", lr, n, torch.float32, dev),
+                _check_vec("wd", wd, n, torch.float32, dev),
+                _check_vec("t", t, n, torch.int32, dev))
+        hp = int(vecs[0] is not None)
+        if any((v is not None) != bool(hp) for v in vecs):
+            raise MXNetError("opt_update: lr, wd and t are all scalars or "
+                             "all vectors")
+        ptrs = tuple(None if v is None else v.data_ptr() for v in vecs) \
+            + (None, None)
+        scalars = ((0.0, 0.0, 0) if hp else (
+            _scalar(lr, float), _scalar(wd, float), _scalar(t, int))) + (
+            _scalar(rescale, float), _scalar(clip, float))
     code = _code(kind, cfg)
     b1, b2 = cfg.get("beta1", 0.0), cfg.get("beta2", 0.0)
-    ptr = lambda x: None if x is None else x.data_ptr()    # noqa: E731
-    launch("opt_update", w.device, w.data_ptr(), g.data_ptr(),
-           ptr(states[0] if states else None),
-           ptr(states[1] if len(states) > 1 else None),
-           ptr(lrv), ptr(wdv), ptr(tv), n, KIND_CODES[code],
-           int(bool(cfg["has_clip"])), int(vec),
-           0.0 if vec else _scalar(lr, float),
-           0.0 if vec else _scalar(wd, float),
-           0 if vec else _scalar(t, int), _scalar(rescale, float),
-           _scalar(clip, float), float(cfg.get("momentum", 0.0)),
+    launch("opt_update", dev, w.data_ptr(), g.data_ptr(),
+           states[0].data_ptr() if states else None,
+           states[1].data_ptr() if len(states) > 1 else None,
+           *ptrs, n, KIND_CODES[code], int(bool(cfg["has_clip"])), hp,
+           *scalars, float(cfg.get("momentum", 0.0)),
            float(b1), float(b2), float(cfg.get("epsilon", 0.0)),
            float(1 - b1), float(1 - b2), DTYPE_CODES[w.dtype], dtype=w.dtype)
     return w, states

@@ -35,7 +35,7 @@ import torch
 from ..base import MXNetError
 
 __all__ = ["Optimizer", "SGD", "Adam", "AdamW", "Updater", "get_updater",
-           "create", "register", "LOW_PRECISION"]
+           "create", "register", "LOW_PRECISION", "DeviceHParams"]
 
 #: the weight dtypes that get a float32 master under ``multi_precision``
 LOW_PRECISION = (torch.float16, torch.bfloat16)
@@ -74,7 +74,10 @@ class Optimizer:
                  wd: float = 0.0, clip_gradient: Optional[float] = None,
                  learning_rate: Optional[float] = None, lr_scheduler=None,
                  multi_precision: bool = False, param_dict=None,
-                 begin_num_update: int = 0):
+                 begin_num_update: int = 0, use_fused_step: bool = True,
+                 **kwargs):
+        # use_fused_step and other keywords are taken and not used, as
+        # the JAX package's base class takes them
         self.rescale_grad = rescale_grad
         self.lr = learning_rate if learning_rate is not None else 0.01
         self.lr_scheduler = lr_scheduler
@@ -225,9 +228,11 @@ class Optimizer:
         form the ZeRO-1 sharded update applies to each rank's shard:
         ``(ws, gs, lrs, wds, ts, rescale, clip, states) -> (new_ws,
         new_states)``, new tensors. ``lrs[i]``/``wds[i]`` (float32) and
-        ``ts[i]`` (int32) are scalars or per-element vectors
-        (:meth:`pack_shard_hparams`); an :attr:`elementwise_update` rule
-        applies unchanged either way."""
+        ``ts[i]`` (int32) are scalars, per-element vectors
+        (:meth:`pack_shard_hparams`) or 0-d tensors on the units' device
+        (:class:`DeviceHParams`); an :attr:`elementwise_update` rule
+        applies unchanged either way. ``rescale`` and ``clip`` are host
+        scalars or 0-d tensors."""
         rule = self._rule()
         has_clip = self.clip_gradient is not None
 
@@ -238,7 +243,9 @@ class Optimizer:
                 g = g * torch.as_tensor(rescale, dtype=torch.float32,
                                         device=dev)
                 if has_clip:
-                    c = float(clip)
+                    # a device scalar stays where it is: no host read
+                    c = clip if isinstance(clip, torch.Tensor) \
+                        else float(clip)
                     g = torch.clamp(g, -c, c)
                 nw, ns = rule(
                     w, g,
@@ -278,6 +285,50 @@ class Optimizer:
         t_vec[:total] = np.repeat(
             np.asarray(ts, np.int32)[member_idx], sizes)
         return lr_vec, wd_vec, t_vec
+
+    def whole_step_fn(self, weights, states, hp: "DeviceHParams"):
+        """The update of whole parameters that a captured one-card step
+        runs: ``update(grads)`` applies the rule to ``weights`` and their
+        ``states`` (this optimizer's, parameter by parameter) IN PLACE,
+        each contiguous tensor viewed flat as one unit, reading lr, wd, t,
+        the rescale and the clip from ``hp``'s device tensors, so a replay
+        reads each step's values (:meth:`stage_device_step`). Exact
+        SGD/Adam go through the ``opt_update`` kernel (one launch a
+        parameter; on a card the kernel library is loaded here, so a
+        capture of the update finds it loaded), any other rule through
+        :meth:`fused_step_fn`."""
+        ws = tuple(w.detach().view(-1) for w in weights)
+        sts = tuple(tuple(s.view(-1) for s in self.state_tensors(st))
+                    for st in states)
+        fn = None
+        if all(w.dtype in (torch.float32, torch.bfloat16) for w in ws):
+            fn = self.kernel_step_fn()
+            if fn is not None and hp.device.type == "cuda":
+                from ..ops.kernels import library
+                library()
+        fn = fn or self.fused_step_fn()
+        lrs, wds, ts = hp.per_param()
+
+        @torch.no_grad()
+        def update(grads):
+            gs = tuple(g.reshape(-1) for g in grads)
+            new_ws, new_sts = fn(ws, gs, lrs, wds, ts, hp.rescale, hp.clip,
+                                 sts)
+            for w, nw, st, nst in zip(ws, new_ws, sts, new_sts):
+                if nw is not w:              # fused_step_fn: new tensors
+                    w.copy_(nw)
+                for s_, ns in zip(st, nst):
+                    if ns is not s_:
+                        s_.copy_(ns)
+        return update
+
+    def stage_device_step(self, hp: "DeviceHParams", indices):
+        """Host half of a captured step: :meth:`begin_fused_step` over
+        ``indices`` (counts first, then lr and wd), then the values, the
+        rescale and the clip, staged into ``hp`` for the step's replay."""
+        lrs, wds, ts = self.begin_fused_step(indices)
+        clip = self.clip_gradient if self.clip_gradient is not None else 0.0
+        hp.stage(lrs, wds, ts, self.rescale_grad, clip)
 
     def begin_fused_step(self, indices):
         """Host half of a sharded step: advance the update counts of
@@ -320,9 +371,13 @@ class SGD(Optimizer):
     """SGD, with momentum when ``momentum`` != 0 (wd folded into the
     gradient)."""
 
-    def __init__(self, learning_rate=0.01, momentum=0.0, **kwargs):
+    def __init__(self, learning_rate=0.01, momentum=0.0, lazy_update=False,
+                 **kwargs):
         super().__init__(learning_rate=learning_rate, **kwargs)
         self.momentum = momentum
+        # the JAX package engages it only for row_sparse gradients, which
+        # the port does not make
+        self.lazy_update = lazy_update
 
     def create_state(self, index, weight):
         if self.momentum == 0.0:
@@ -347,9 +402,10 @@ class Adam(Optimizer):
     """Adam with wd folded into the gradient and bias-corrected moments."""
 
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
-                 epsilon=1e-8, **kwargs):
+                 epsilon=1e-8, lazy_update=False, **kwargs):
         super().__init__(learning_rate=learning_rate, **kwargs)
         self.beta1, self.beta2, self.epsilon = beta1, beta2, epsilon
+        self.lazy_update = lazy_update    # as SGD's
 
     def create_state(self, index, weight):
         return self._zeros_state(weight, 2)
@@ -378,6 +434,7 @@ class AdamW(Optimizer):
         super().__init__(learning_rate=learning_rate, **kwargs)
         self.beta1, self.beta2, self.epsilon = beta1, beta2, epsilon
         self.correct_bias = correct_bias
+        self.lazy_update = True     # as the JAX package sets it
 
     def create_state(self, index, weight):
         return self._zeros_state(weight, 2)
@@ -398,6 +455,48 @@ class AdamW(Optimizer):
             upd = mhat / (torch.sqrt(vhat) + eps) + wd * w
             return w - lr * upd, (m, v)
         return rule
+
+
+class DeviceHParams:
+    """The hyperparameters one step of a captured one-card update reads,
+    in one int32 buffer on ``device``: (P,) lr float32, (P,) wd float32,
+    (P,) t int32, then the rescale and the clip (float32), each a view.
+    :meth:`stage` writes a step's values into it in ONE host-to-device
+    copy from pinned memory; the caching host allocator keeps each
+    step's pinned block until its copy has run, so the host never
+    rewrites memory a queued copy still reads."""
+
+    def __init__(self, n: int, device):
+        self.n = int(n)
+        self.device = torch.device(device)
+        self.buf = torch.zeros(3 * self.n + 2, dtype=torch.int32,
+                               device=self.device)
+        f = self.buf.view(torch.float32)
+        n = self.n
+        self.lr, self.wd = f[:n], f[n:2 * n]
+        self.t = self.buf[2 * n:3 * n]
+        self.rescale, self.clip = f[3 * n], f[3 * n + 1]
+
+    def per_param(self):
+        """Lists of 0-d views, one a parameter: ``(lrs, wds, ts)``
+        (element i's pointer is the buffer's plus an offset)."""
+        return ([self.lr[i] for i in range(self.n)],
+                [self.wd[i] for i in range(self.n)],
+                [self.t[i] for i in range(self.n)])
+
+    def stage(self, lrs, wds, ts, rescale, clip) -> None:
+        """Write one step's values (host numbers) into the buffer."""
+        n = self.n
+        host = np.empty(3 * n + 2, np.int32)
+        hf = host.view(np.float32)
+        hf[:n], hf[n:2 * n] = lrs, wds
+        host[2 * n:3 * n] = ts
+        hf[3 * n], hf[3 * n + 1] = rescale, clip
+        src = torch.from_numpy(host)
+        if self.device.type == "cuda":
+            self.buf.copy_(src.pin_memory(), non_blocking=True)
+        else:
+            self.buf.copy_(src)
 
 
 def _host_tree(state):

@@ -40,8 +40,8 @@ futures. Next-step tokens chain on the device.
 One captured program per (kind, bucket), as the JAX package compiles
 one: a model's ``decode_step`` / ``prefill_chunk`` / ``verify_chunk``
 with the state stitch around it runs as one CUDA graph
-(:mod:`.captured`), captured by :meth:`DecodeEngine.warmup` on inactive
-dummy inputs (their writes land on the null page, the state is left as
+(:mod:`mxnet_tpu_torch.captured`), captured by :meth:`DecodeEngine.warmup`
+on inactive dummy inputs (their writes land on the null page, the state is left as
 it was) and replayed by every step; a (kind, bucket) the warm-up did not
 cover is captured at its first step and counts in
 :attr:`DecodeEngine.n_traces`. On the CPU each program's body runs
@@ -83,7 +83,7 @@ from ..ops.attention import paged_decode_attention
 from ..ops.kernels import launch_counts
 from ..ops.kernels.rnn_scan import rnn_decode_step, rnn_verify_scan
 from .batcher import queue_depth
-from .captured import Programs
+from ..captured import Programs
 from .kvcache import KV_PAGE_SIZE, PagedKVCache, pages_needed
 from .resilience import (DeadlineExceeded, Overloaded, ServingShutdown,
                          default_deadline_ms, shed_mode)

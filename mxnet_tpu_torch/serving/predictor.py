@@ -7,9 +7,10 @@ dimension is quantised to ``bucket_sizes``: :meth:`bucket_for` and
 bucket, so concurrent requests of any size run a handful of shapes.
 Where the JAX package AOT-compiles one XLA program per bucket, this
 predictor captures one CUDA graph per input signature
-(:mod:`.captured`): :meth:`aot_compile` captures one, :meth:`warmup`
-captures every bucket before traffic arrives, and :meth:`predict`
-copies its arguments into the program's static inputs and replays it.
+(:mod:`mxnet_tpu_torch.captured`): :meth:`aot_compile` captures one,
+:meth:`warmup` captures every bucket before traffic arrives, and
+:meth:`predict` copies its arguments into the program's static inputs
+and replays it.
 A signature not seen before is captured at its first call, and
 :attr:`n_traces` counts the programs captured. On the CPU each program
 runs its forward eagerly over the same static inputs. :meth:`predict`
@@ -28,7 +29,7 @@ import torch
 
 from ..base import MXNetError
 from ..context import resolve_device
-from .captured import Programs, map_tensors
+from ..captured import Programs, map_tensors
 
 __all__ = ["CompiledPredictor", "DEFAULT_BUCKETS", "map_tensors",
            "predictor_for", "synchronize"]

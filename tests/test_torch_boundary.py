@@ -67,7 +67,8 @@ def test_package_has_its_modules():
               "checkpoint/state.py", "checkpoint/manager.py",
               "gluon/block.py", "elastic/__init__.py", "elastic/detect.py",
               "elastic/supervisor.py", "gluon/data/__init__.py",
-              "gluon/data/prefetcher.py"):
+              "gluon/data/prefetcher.py", "captured.py",
+              "serving/captured.py"):
         assert os.path.join("mxnet_tpu_torch", m) in rel, m
     csrc = os.listdir(os.path.join(PKG, "ops", "kernels", "csrc"))
     assert {"flash_fwd.cu", "layernorm_fwd.cu", "bias_gelu_fwd.cu",

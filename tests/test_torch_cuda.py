@@ -16,6 +16,9 @@ recurrence's backward is held against the plain backward given the
 kernel's own forward residuals, so that a state rounded the other way
 in the forward does not count against it.
 """
+import functools
+import os
+
 import numpy as onp
 import pytest
 import torch
@@ -922,6 +925,16 @@ def test_opt_update_wrapper_raises_on_card(cuda_dev):
     with pytest.raises(mxt.MXNetError, match="all scalars or all"):
         KO.unit_update("sgd", cfg, w, w, torch.zeros(8, device=cuda_dev),
                        0.0, 1, 1.0, 0.0, (torch.zeros_like(w),))
+    # device scalars come all five together: lr, wd and t on the card
+    # with a host rescale (or a device rescale with host lr) are refused
+    f32 = functools.partial(torch.zeros, (), device=cuda_dev)
+    t = torch.ones((), dtype=torch.int32, device=cuda_dev)
+    with pytest.raises(mxt.MXNetError, match="all device scalars or none"):
+        KO.unit_update("sgd", cfg, w, w, f32(), f32(), t, 1.0, 0.0,
+                       (torch.zeros_like(w),))
+    with pytest.raises(mxt.MXNetError, match="all device scalars or none"):
+        KO.unit_update("sgd", cfg, w, w, 0.1, 0.0, 1, f32(), f32(),
+                       (torch.zeros_like(w),))
 
 
 # ---------------------------------------------------------------------------
@@ -1215,3 +1228,226 @@ def test_overlapped_zero_step_bit_equal_to_serial_on_cards(cuda_dev):
             assert torch.equal(a, b)
         last_grad = max(i for i, (e, _) in enumerate(trace) if e == "grad")
         assert trace.index(("reduce_scatter", 0)) < last_grad
+
+
+# ---------------------------------------------------------------------------
+# the one-card compile_step: one captured CUDA graph a batch signature
+# ---------------------------------------------------------------------------
+
+def _dense_on(dev, seed=3):
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    net = _mlp_on(dev, seed)
+    r = onp.random.RandomState(seed + 1)
+    x = torch.from_numpy(r.randn(64, 64).astype("f4")).to(dev)
+    y = torch.from_numpy(r.randint(0, 3, (64,)).astype("f4")).to(dev)
+    return net, SoftmaxCrossEntropyLoss(), x, y
+
+
+def _lstm_on(dev, seed=3):
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from mxnet_tpu_torch.gluon.model_zoo.word_lm import WordLM
+    from mxnet_tpu_torch.gluon.params import init_params_numpy, \
+        load_jax_params
+    net = WordLM(50, 32, 32, 2, device=dev)
+    load_jax_params(net, init_params_numpy(net, seed))
+    r = onp.random.RandomState(seed + 1)
+    x = torch.from_numpy(r.randint(0, 50, (8, 7))).to(dev)
+    y = torch.from_numpy(r.randint(0, 50, (8, 7)).astype("f4")).to(dev)
+    return net, SoftmaxCrossEntropyLoss(), x, y
+
+
+def _compiled(net, lb, opt="adam", kw=None):
+    from mxnet_tpu_torch.gluon import Trainer
+    tr = Trainer(dict(net.named_parameters()), opt,
+                 dict(kw or {"learning_rate": 1e-2}))
+    return tr, tr.compile_step(lambda a, b: lb(net(a), b))
+
+
+def _body_call(step, x, y):
+    """One call of the step's body run eagerly, no graph (the staging a
+    call does, then the body)."""
+    n = len(step._drawers)
+    prog, key = step._fused_program((x, y), {}, None, advance=True)
+    out = prog.body(*prog.inputs)
+    step._settle_key(n, *key)
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model", ["dense", "lstm"])
+def test_captured_step_replays_equal_the_eager_body_on_card(cuda_dev,
+                                                            model):
+    """Every kernel of these models is deterministic: four replays give
+    the weights and losses of the step's body run eagerly four times
+    from the same state, bit for bit; one capture."""
+    make = _dense_on if model == "dense" else _lstm_on
+    opt, kw = ("adam", None) if model == "dense" else \
+        ("sgd", {"learning_rate": 0.5, "momentum": 0.9})
+    runs = []
+    for eager in (False, True):
+        net, lb, x, y = make(cuda_dev)
+        tr, step = _compiled(net, lb, opt, kw)
+        step.aot_compile(x, y)
+        losses = [(_body_call(step, x, y) if eager else step(x, y)).cpu()
+                  for _ in range(4)]
+        assert step.mode == "fused" and step.n_traces == 1
+        runs.append((losses, [p.detach().cpu() for p in net.parameters()]))
+    for a, b in zip(runs[0][0] + runs[0][1], runs[1][0] + runs[1][1]):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_lr_zero_leaves_the_weights_alone_in_replay_on_card(cuda_dev):
+    """lr is read from the device block at each replay: set to 0 between
+    steps, the replayed Adam step changes no weight; set back, it does."""
+    net, lb, x, y = _dense_on(cuda_dev)
+    tr, step = _compiled(net, lb)
+    step(x, y)
+    step(x, y)
+    before = [p.detach().clone() for p in net.parameters()]
+    tr.learning_rate = 0.0
+    step(x, y)
+    assert all(torch.equal(a, b) for a, b in zip(before, net.parameters()))
+    tr.learning_rate = 1e-2
+    step(x, y)
+    assert not any(torch.equal(a, b)
+                   for a, b in zip(before, net.parameters()))
+    assert step.n_traces == 1
+
+
+@pytest.mark.cuda
+def test_adam_t_advances_across_replays_on_card(cuda_dev):
+    """Adam's bias correction reads t from the device block. A loss
+    linear in the weight gives the same gradient g every step, so with t
+    1, 2, 3 each bias-corrected step moves the weight by lr g / (|g| +
+    eps), three of them in three replays; a t frozen at 1 would move it
+    by ~1.34 lr at step 2. The block holds t 3 after them."""
+    from mxnet_tpu_torch.gluon import Trainer
+    w = torch.nn.Parameter(torch.zeros(1000, device=cuda_dev))
+    sign = (torch.arange(1000, device=cuda_dev) % 2 * 2 - 1).float()
+    x = (sign * 0.5).repeat(4, 1)
+    tr = Trainer([w], "adam", {"learning_rate": 0.05})
+    step = tr.compile_step(lambda a: (w * a).sum(-1))
+    for _ in range(3):
+        step(x)
+    assert step.n_traces == 1
+    assert step._hp.t.cpu().tolist() == [3]
+    g = x.mean(0).double()
+    expect = -3 * 0.05 * g / (g.abs() + 1e-8)
+    torch.testing.assert_close(w.detach().double(), expect, rtol=1e-5,
+                               atol=1e-7)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("explicit", [False, True])
+def test_dropout_masks_differ_between_replays_and_equal_the_body_on_card(
+        cuda_dev, explicit):
+    """Dropout drawing from an explicit CUDA generator (registered with
+    the graph) or from the default one: at lr 0 only the masks move the
+    loss, which differs from replay to replay, and equals the eager
+    body's from the same generator state, replay k to call k."""
+    from mxnet_tpu_torch.gluon.nn import Dropout
+    runs = []
+    for eager in (False, True):
+        net, lb, x, y = _dense_on(cuda_dev)
+        gen = torch.Generator(device=cuda_dev).manual_seed(7) if explicit \
+            else None
+        torch.cuda.manual_seed(7)
+        net = torch.nn.Sequential(net[0], Dropout(0.5, generator=gen),
+                                  net[1])
+        tr, step = _compiled(net, lb, "adam", {"learning_rate": 0.0})
+        step.aot_compile(x, y)
+        losses = [(_body_call(step, x, y) if eager else step(x, y)).cpu()
+                  for _ in range(3)]
+        assert step.n_traces == 1
+        runs.append(losses)
+    assert not torch.equal(runs[0][0], runs[0][1])
+    assert not torch.equal(runs[0][1], runs[0][2])
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_new_state_tensors_after_load_states_capture_again_on_card(
+        cuda_dev, tmp_path):
+    """load_states of a states file puts new tensors in place of the
+    optimizer states the graph reads: the next call captures again (and
+    says why), and training goes on bit for bit as without the reload."""
+    runs = []
+    for reload in (False, True):
+        net, lb, x, y = _dense_on(cuda_dev)
+        tr, step = _compiled(net, lb)
+        step(x, y)
+        step(x, y)
+        if reload:
+            f = str(tmp_path / "states")
+            tr.save_states(f)
+            tr.load_states(f)
+        step(x, y)
+        assert step.n_traces == (2 if reload else 1)
+        if reload:
+            assert "moved" in step.explain_retrace()
+        runs.append([p.detach().cpu() for p in net.parameters()])
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model", ["dense", "lstm"])
+def test_captured_step_launches_counted_once_a_replay_on_card(cuda_dev,
+                                                              model):
+    """The capture records every launch on its stream, the backward's on
+    autograd's thread too; each replay counts them once."""
+    net, lb, x, y = (_dense_on if model == "dense" else _lstm_on)(cuda_dev)
+    tr, step = _compiled(net, lb)
+    step.aot_compile(x, y)
+    K.reset_launch_counts()
+    for _ in range(3):
+        step(x, y)
+    torch.cuda.synchronize()
+    got = {k: v for k, v in K.launch_counts().items() if v}
+    expect = {"opt_update": 3 * len(tr._params)}
+    if model == "lstm":
+        expect.update(rnn_scan_fwd=6, rnn_scan_bwd=6)
+    assert got == expect
+    assert tr.optimizer.num_update == 3 and step.n_traces == 1
+
+
+_FIRST_LAUNCH_IN_CAPTURE = """
+import os, sys
+import torch
+sys.path.insert(0, sys.argv[1])
+import test_torch_cuda as T
+from mxnet_tpu_torch.ops import kernels as K
+dev = torch.device("cuda:0")
+runs = []
+for eager in (False, True):
+    net, lb, x, y = T._dense_on(dev)
+    tr, step = T._compiled(net, lb, sys.argv[2])
+    if not eager:
+        step.aot_compile(x, y)
+        assert K.launch_counts()["opt_update"] == 0
+    losses = [(T._body_call(step, x, y) if eager else step(x, y)).cpu()
+              for _ in range(3)]
+    runs.append(losses + [p.detach().cpu() for p in net.parameters()])
+assert all(torch.equal(a, b) for a, b in zip(*runs))
+print("module loading", os.environ.get("CUDA_MODULE_LOADING"))
+"""
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("opt", ["adam", "adamw"])
+def test_first_update_launch_inside_a_capture_on_card(cuda_dev, opt):
+    """The capture's warm-up skips the update, so in a fresh process the
+    update's kernels (``opt_update`` for Adam; PyTorch's elementwise ops
+    for AdamW) are first launched inside the capture, where lazy module
+    loading has to load them. Three replays equal three eager body runs
+    made after them, bit for bit."""
+    import subprocess
+    import sys
+    here = os.path.dirname(os.path.abspath(__file__))
+    res = subprocess.run([sys.executable, "-c", _FIRST_LAUNCH_IN_CAPTURE,
+                          here, opt], capture_output=True, text=True,
+                         timeout=600, cwd=os.path.dirname(here))
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert "module loading" in res.stdout

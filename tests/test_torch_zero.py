@@ -783,7 +783,7 @@ def test_trainloop_window_holds_at_most_inflight(inflight):
     assert s["retires"] == 5 - s["pending"] and loop.global_step == 5
     loop.synchronize()
     assert loop.engine_stats()["pending"] == 0
-    assert loop.compiled_step.mode == "eager"
+    assert loop.compiled_step.mode == "fused"
 
 
 def test_place_on_mesh_and_state_bytes_single_rank():
