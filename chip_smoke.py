@@ -14,6 +14,9 @@
                                         # two or more cards
     python3 chip_smoke.py --checkpoint  # phases 1, 2 and 6c alone
     python3 chip_smoke.py --elastic     # phases 1, 2 and 12 alone
+    python3 chip_smoke.py --dist-kv     # phases 1, 2 and 13 alone (its
+                                        # legs across cards on two or
+                                        # more)
     python3 chip_smoke.py --compare DIR  # A/B on one card: the flash
         # forward, the flash backward (fused at BERT training's shape;
         # dq, dkv at phase 7's), the recurrence kernels, the LayerNorm
@@ -263,10 +266,41 @@ Phases, each of which fails the run (non-zero exit) when it fails:
     of two uninterrupted restores, phase 6's launches for every step
     dispatched and, less the update, for the two warm-up runs of each
     formation's capture, ``downtime_s``), and ``TrainLoop.prefetch`` against plain steps
-    (step ms, ``input_wait_ms``).
+    (step ms, ``input_wait_ms``);
+13. the dist store (``kvstore.KVStoreDist``). One card: phase 6's
+    training (float32, dropout 0.1, ten Adam steps) with
+    ``Trainer(kvstore=KVStoreDist("dist_sync"))`` forced onto its host
+    path (``_force_fuse``), so ``compile_step`` takes its split program
+    (``mode`` "fused"; one graph of the forward and backward, the store's
+    ``pushpull_list`` on the host, one graph of the update), in turns
+    against phase 6's one-graph step from the same weights and batch
+    (fused, split, split, fused), then a control run with its lr staged
+    at twice the scheduler's: per split step 12 + 12 + 25 + 25 forward
+    and backward launches and 201 ``opt_update``, two graphs, no
+    collective, the buckets printed, the split runs within
+    :func:`vs_eager`'s limit of the fused runs and the control outside
+    it; median step ms, tokens/s and peak memory of each turn. With two
+    or more cards (one line says so otherwise), one rank a card over
+    NCCL at batch 32 x 512 global, dropout 0: (a) ``dist_sync``
+    through the split program from a seed of each rank's own (the
+    store's init gives every rank rank 0's weights), ten Adam steps in
+    turns against phase 11's plain mesh mode (split, mesh, mesh,
+    split; the slowest rank's median step ms, the spread, global
+    tokens/s): one collective a bucket and one wait a step, 201
+    ``opt_update`` a rank a step, bit-equal weights on every rank, the
+    first step's reduced gradients within phase 11's bound of
+    ``Trainer(kvstore=None)``'s eager step and the weights within
+    :func:`vs_eager`'s limit of it; (b) ``Trainer.step`` with the store
+    updating (the JAX default with several workers), within that limit
+    of (a), and ``save_states`` / ``load_states`` through the store's
+    updater; (c) fp16 (within FP16_MOVED_RTOL of (a)) and 2bit (finite,
+    non-zero residuals) compression, three steps each; (d)
+    ``dist_async``: no wait, within the spread of (a)'s runs, and on
+    phase 8b's Dense-only widths bit-equal to ``dist_sync``.
 
-``{"launch_counts": {...}, "bf16_launch_counts": {...}}`` gives each
-kernel's launches on its path, and on its bf16 path where it has one.
+``{"launch_counts": {...}, "bf16_launch_counts": {...},
+"dist_kv_launch_counts": {...}}`` gives each kernel's launches on its
+path, on its bf16 path where it has one, and on phase 13's one-card path.
 The line before the last is a JSON object with one entry per kernel
 (launches on its float32 path, error, times, bound; then its bf16 path,
 bf16 launches there, and its bf16 error, times and bound; ``rnn_decode``
@@ -4835,6 +4869,564 @@ def elastic_one_card(torch, np, K, dev, smi):
     return report
 
 
+#: phase 13: the dist store (``kvstore.KVStoreDist``). One card:
+#: phase 6's training with the store forced onto its host path
+#: (``_force_fuse``), so ``compile_step`` takes its split program, in
+#: turns against phase 6's one-graph fused step from the same weights
+#: and batch, then a control run of the split program with its lr
+#: staged at CONTROL_LR_FACTOR times the scheduler's
+DIST_KV_TURNS = ("fused", "split", "split", "fused")
+#: across cards, leg (a) (``dist_sync``, the split program) and phase
+#: 11's plain ``mesh`` mode, in turns
+DIST_KV_MULTI_TURNS = ("split", "mesh", "mesh", "split")
+#: leg (c): steps of each compression type
+DIST_KV_COMPRESSED_STEPS = 3
+#: leg (c)'s bound for fp16: the rms distance of its weights from leg
+#: (a)'s after DIST_KV_COMPRESSED_STEPS steps within this share of how
+#: far (a)'s moved from the initial weights. fp16 keeps 11 bits of each
+#: rank's gradient and Adam divides each element by its own running
+#: magnitude, so a step's move changes by ~2**-11 of itself, more only
+#: where a gradient underflows fp16 (below 6e-8) or a near-zero one
+#: flips sign; a lost or doubled gradient moves it by O(1) of itself
+FP16_MOVED_RTOL = 5e-2
+#: leg (d) on a model whose kernels are all deterministic (phase 8b's
+#: Dense-only widths): dist_async equals dist_sync bit for bit
+DIST_KV_DENSE_ROWS, DIST_KV_DENSE_STEPS = 4096, 3
+
+
+def dist_kv_one_card(torch, np, K, dev, smi, widths=None, batch=TRAIN_BATCH,
+                     seq=TRAIN_SEQ, steps=TRAIN_STEPS):
+    """Phase 13 on one card: BERT-base float32 (dropout 0.1, phase 6's
+    seeds) through ``compile_step`` with a ``dist_sync`` store forced onto
+    its host path (``_force_fuse``):
+    the split program (``mode`` "fused", two captured graphs, the store's
+    ``pushpull_list`` between them, no collective in one process), in
+    DIST_KV_TURNS against phase 6's fused step, then a control run.
+    Gates: per split step exactly phase 6's forward and backward launches
+    and one ``opt_update`` a parameter; one capture and two graphs; the
+    split runs' losses and weights within :func:`vs_eager`'s limit of
+    the fused runs (their spread: the dq atomics), and the control
+    outside it. Prints the buckets, median step ms of each turn, tokens/s
+    and peak memory."""
+    from mxnet_tpu_torch import kvstore as kvs
+    from mxnet_tpu_torch.gluon import Trainer
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from mxnet_tpu_torch.gluon.model_zoo.bert import BERTClassifier, BERTModel
+    from mxnet_tpu_torch.gluon.params import init_params_numpy, \
+        load_jax_params
+
+    def make():
+        return BERTClassifier(BERTModel(max_length=seq, dropout=0.1,
+                                        device=dev, **(widths or BERT_BASE)),
+                              num_classes=2, dropout=0.1, device=dev)
+
+    t0 = time.perf_counter()
+    net = make()
+    init = init_params_numpy(net, seed=2)
+    rs = np.random.RandomState(3)
+    vocab = net.bert.word_embed.weight.shape[0]
+    x = torch.from_numpy(rs.randint(0, vocab, (batch, seq))
+                         .astype(np.int64)).to(dev)
+    y = torch.from_numpy(rs.randint(0, 2, (batch,))
+                         .astype(np.float32)).to(dev)
+    loss_fn = SoftmaxCrossEntropyLoss()
+    made, runs, w0 = [net], [], None
+    del net
+    for kind in DIST_KV_TURNS + ("control",):
+        net = made.pop() if made else make()
+        load_jax_params(net, init)
+        net.train()
+        torch.manual_seed(0)            # the dropout masks, as phase 6
+        if w0 is None:
+            w0 = flat_weights(torch, net)
+        kv = None
+        if kind != "fused":     # the store forced onto its host path
+            kv = kvs.KVStoreDist("dist_sync")
+            kv._force_fuse = True
+        trainer = Trainer(dict(net.named_parameters()), "adam",
+                          {"learning_rate": TRAIN_LR}, kvstore=kv)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        step = trainer.compile_step(
+            lambda a, b, net=net: loss_fn(net(a), b))
+        t1 = time.perf_counter()
+        step.aot_compile(x, y)
+        torch.cuda.synchronize()
+        rec = {"kind": kind, "mode": step.mode, "split": step._split,
+               "graphs": len(step._programs),
+               "capture_s": time.perf_counter() - t1,
+               "n_traces_after_warmup": step.n_traces}
+        fn = control_step(step, np) if kind == "control" else step
+        out = run_train_steps(torch, K, fn, x, y, steps)
+        med = statistics.median(out[1][1:])
+        rec.update(losses=out[0], step_ms=out[1], median_step_ms=med,
+                   tokens_per_s=batch * seq / (med / 1e3),
+                   launches_per_step=out[2][-1],
+                   launches_each_step_equal=all(s == out[2][0]
+                                                for s in out[2]),
+                   n_traces_after_steps=step.n_traces,
+                   max_memory_allocated=torch.cuda.max_memory_allocated(),
+                   max_memory_reserved=torch.cuda.max_memory_reserved())
+        if kv is not None:
+            rec.update(stats=dict(kv.stats), buckets=list(kv.last_buckets),
+                       bucket_elements=sum(kv.last_buckets),
+                       n_params=len(trainer._params))
+        runs.append((rec, flat_weights(torch, net)))
+        del net, trainer, step, fn, out, kv
+    fused = [(r["losses"], w) for r, w in runs if r["kind"] == "fused"]
+    gates = {r["kind"] + str(i): vs_eager(fused, fused, w0, r["losses"], w)
+             for i, (r, w) in enumerate(runs) if r["kind"] != "fused"}
+    n_params = runs[1][0]["n_params"]
+    layers = (widths or BERT_BASE)["num_layers"]
+    expect = {n: 0 for n in K.KERNELS}
+    expect.update(flash_fwd=layers, flash_bwd_fused=layers,
+                  layernorm_fwd=2 * layers + 1, layernorm_bwd=2 * layers + 1,
+                  opt_update=n_params)
+    split = [r for r, _ in runs if r["kind"] != "fused"]
+    counts_ok = all(r["launches_per_step"] == expect
+                    and r["launches_each_step_equal"] for r, _ in runs)
+    shape_ok = all(r["mode"] == "fused" and r["split"] and r["graphs"] == 2
+                   and r["n_traces_after_warmup"] == 1
+                   and r["n_traces_after_steps"] == 1
+                   and r["stats"] == {"collectives": 0, "blocks": 0}
+                   and r["bucket_elements"] == w0.numel()
+                   for r in split)
+    losses = runs[1][0]["losses"]
+    report = {
+        "model": "bert_base classifier", "dtype": "float32",
+        "store": "KVStoreDist('dist_sync'), _force_fuse", "batch": batch,
+        "seq": seq, "steps": steps, "optimizer": "adam",
+        "learning_rate": TRAIN_LR, "dropout": 0.1,
+        "order": [r["kind"] for r, _ in runs],
+        "buckets": runs[1][0]["buckets"],
+        "launches_per_step_expected": expect,
+        "vs_fused": gates,
+        "split_vs_fused_ok": all(g["ok"] for k, g in gates.items()
+                                 if k.startswith("split")),
+        "control_fails": not any(g["ok"] for k, g in gates.items()
+                                 if k.startswith("control")),
+        "control_lr_factor": CONTROL_LR_FACTOR,
+        "turns": [{k: v for k, v in r.items() if k != "step_ms"}
+                  for r, _ in runs],
+        "setup_s": time.perf_counter() - t0, "card": smi}
+    for kind in ("fused", "split"):
+        for key in ("median_step_ms", "tokens_per_s", "max_memory_allocated",
+                    "max_memory_reserved"):
+            report[f"{kind}_{key}"] = [r[key] for r, _ in runs
+                                       if r["kind"] == kind]
+    report["ok"] = (counts_ok and shape_ok and report["split_vs_fused_ok"]
+                    and report["control_fails"]
+                    and all(math.isfinite(v) for v in losses)
+                    and losses[-1] < losses[0])
+    emit({"dist_kv_one_card": report})
+    if not report["ok"]:
+        raise SystemExit(f"phase 13 (one card) failed: {report}")
+    # each kernel's launches on this phase's path: the first split run's
+    return {n: c * steps for n, c in runs[1][0]["launches_per_step"].items()}
+
+
+def dist_kv_run(ctx, kind, seed=2, steps=None, store="dist_sync",
+                compression=None, update_on_kvstore=False, keep_grads=False,
+                at_step=None):
+    """One run of phase 13's across-cards legs on this rank, from
+    ``seed``'s weights: ``kind`` "split" (``compile_step`` over
+    ``store``: each rank its own rows, ``batch_size`` the global batch),
+    "mesh" (phase 11's plain mode: the global batch under a dp mesh),
+    "ref" (``Trainer(kvstore=None)``'s eager step: backward,
+    ``allreduce_grads``, ``update``) or "eager" (``Trainer.step`` over
+    ``store``). Per step: the rank's loss (mean of its rows), wall ms,
+    ``opt_update`` launches, the store's collectives and waits. The
+    final weights stay on the rank (flat), with those after ``at_step``
+    steps and the first step's reduced gradients where asked."""
+    torch, K, dev = ctx["torch"], ctx["K"], ctx["dev"]
+    from mxnet_tpu_torch.gluon import Trainer
+    from mxnet_tpu_torch.parallel import make_mesh
+    steps = steps or ctx["steps"]
+    net = ctx["build"](seed)
+    kv = None if kind in ("ref", "mesh") else store
+    trainer = Trainer(dict(net.named_parameters()), "adam",
+                      {"learning_rate": ctx["lr"]}, kvstore=kv,
+                      compression_params=compression,
+                      update_on_kvstore=update_on_kvstore)
+    lf, x, y, xl, yl = ctx["loss_fn"], ctx["x"], ctx["y"], ctx["xl"], \
+        ctx["yl"]
+    batch = x.shape[0]
+    rec = {"kind": kind, "store": store if kv else None,
+           "compression": compression, "losses": [], "step_ms": [],
+           "opt_update": [], "collectives": [], "blocks": []}
+    mesh = make_mesh({"dp": ctx["world"]}) if kind == "mesh" else None
+    step = None
+    if kind == "split":
+        step = trainer.compile_step(lambda a, b: lf(net(a), b))
+        step.aot_compile(xl, yl, batch_size=batch)
+        rec.update(mode=step.mode, split=step._split,
+                   graphs=len(step._programs),
+                   update_on_kvstore=trainer._update_on_kvstore,
+                   init_equal_all_ranks=weights_equal_all_ranks(torch, net),
+                   init_is_rank0s=bool(torch.equal(
+                       flat_weights(torch, net), ctx["w0"])))
+    elif kind == "mesh":
+        step = trainer.compile_step(lambda a, b: lf(net(a), b),
+                                    zero_shard=False, mesh=mesh)
+    stats = trainer._kvstore.stats if trainer._kvstore is not None and \
+        hasattr(trainer._kvstore, "stats") else None
+    grads = None
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    for i in range(steps):
+        before = K.launch_counts()["opt_update"]
+        s0 = dict(stats) if stats else None
+        ctx["sync"]()
+        t0 = time.perf_counter()
+        if kind == "split":
+            loss = step(xl, yl, batch_size=batch)
+        elif kind == "mesh":
+            with mesh:
+                loss = step(x, y)
+            loss = loss[ctx["rows"]]
+        else:
+            loss = lf(net(xl), yl)
+            loss.sum().backward()
+            if kind == "ref":
+                trainer.allreduce_grads()
+                if i == 0 and keep_grads:
+                    grads = [p.grad.detach().clone()
+                             for p in trainer._params]
+                trainer.update(batch)
+            else:
+                trainer.step(batch)
+        ctx["sync"]()
+        rec["step_ms"].append((time.perf_counter() - t0) * 1e3)
+        rec["losses"].append(float(loss.detach().float().mean()))
+        rec["opt_update"].append(K.launch_counts()["opt_update"] - before)
+        if stats is not None:
+            rec["collectives"].append(stats["collectives"]
+                                      - s0["collectives"])
+            rec["blocks"].append(stats["blocks"] - s0["blocks"])
+        if i == 0 and keep_grads and kind == "split":
+            grads = [g.clone() for g in step._grads]
+        if at_step is not None and i + 1 == at_step:
+            rec["weights_at_step"] = flat_weights(torch, net)
+    if kv is not None:
+        kvo = trainer._kvstore
+        rec["buckets"] = list(kvo.last_buckets)
+        rec["update_on_kvstore"] = trainer._update_on_kvstore
+        if kvo._compression is not None:
+            res = torch.cat([r.reshape(-1).float() for r in
+                             kvo._compression._residuals.values()])
+            rec["residuals"] = {
+                "n": len(kvo._compression._residuals),
+                "finite": bool(torch.isfinite(res).all()),
+                "nonzero_share": float((res != 0).float().mean()),
+                "max_abs": float(res.abs().max())}
+        if trainer._update_on_kvstore and ctx["rank"] == 0:
+            # save_states / load_states through the store's updater (on
+            # one rank: every rank's states are the same)
+            f = os.path.join(ctx["out_dir"], "states")
+            trainer.save_states(f)
+            before = kvo._updater.get_states()
+            kvo._updater.states = {}
+            trainer.load_states(f)
+            rec["states_round_trip"] = kvo._updater.get_states() == before
+            rec["one_updater"] = trainer._updater is kvo._updater
+    rec["weights_equal_all_ranks"] = weights_equal_all_ranks(torch, net)
+    rec["n_params"] = len(trainer._params)
+    if dev.type == "cuda":
+        rec["max_memory_allocated"] = torch.cuda.max_memory_allocated(dev)
+    rec["weights"] = flat_weights(torch, net)
+    rec["grads"] = grads
+    del net, trainer, step
+    return rec
+
+
+def dist_kv_dense(ctx):
+    """Leg (d) on phase 8b's Dense-only widths (every kernel
+    deterministic): dist_sync and dist_async through the split program
+    from the same weights, each rank its 1/world of DIST_KV_DENSE_ROWS
+    rows; whether the weights are bit-equal, and async's waits."""
+    torch, dev, rank, world = ctx["torch"], ctx["dev"], ctx["rank"], \
+        ctx["world"]
+    from mxnet_tpu_torch.gluon import Trainer
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from mxnet_tpu_torch.gluon.nn import Dense
+    rows = ctx.get("dense_rows", DIST_KV_DENSE_ROWS)
+    g = torch.Generator(device=dev).manual_seed(21)
+    x = torch.randn(rows, 768, generator=g, device=dev)
+    y = torch.randint(0, 2, (rows,), generator=g, device=dev).float()
+    per = rows // world
+    xl, yl = x[rank * per:(rank + 1) * per], y[rank * per:(rank + 1) * per]
+    lf = SoftmaxCrossEntropyLoss()
+    out = {}
+    for store in ("dist_sync", "dist_async"):
+        init = torch.Generator().manual_seed(5)
+        net = torch.nn.Sequential(
+            Dense(3072, activation="relu", in_units=768, device=dev,
+                  generator=init),
+            Dense(768, in_units=3072, device=dev, generator=init),
+            Dense(2, in_units=768, device=dev, generator=init))
+        tr = Trainer(dict(net.named_parameters()), "adam",
+                     {"learning_rate": 1e-3}, kvstore=store,
+                     update_on_kvstore=False)
+        step = tr.compile_step(lambda a, b: lf(net(a), b))
+        for _ in range(DIST_KV_DENSE_STEPS):
+            step(xl, yl, batch_size=rows)
+        ctx["sync"]()
+        out[store] = (flat_weights(torch, net), dict(tr._kvstore.stats),
+                      step._split)
+    (ws, ss, sp1), (wa, sa, sp2) = out["dist_sync"], out["dist_async"]
+    return {"bit_equal": bool(torch.equal(ws, wa)), "sync_stats": ss,
+            "async_stats": sa, "split": sp1 and sp2,
+            "steps": DIST_KV_DENSE_STEPS, "rows": rows}
+
+
+def dist_kv_rank(widths, batch, seq, steps, lr, out_dir, dense_rows=None):
+    """Phase 13 across cards, one rank: BERT-base (dropout 0) on its
+    contiguous 1/world of a seeded global batch. Runs, in order: leg (a)
+    and phase 11's plain mesh mode in DIST_KV_MULTI_TURNS (leg (a) from
+    a seed of the rank's own: the store's init must give it rank 0's
+    weights; the mesh runs from rank 0's); the reference
+    ``Trainer(kvstore=None)`` eager step; leg (b) (``Trainer.step``,
+    ``update_on_kvstore`` by the JAX package's default); leg (c) (fp16
+    and 2bit compression, DIST_KV_COMPRESSED_STEPS steps); leg (d)
+    (``dist_async``) and :func:`dist_kv_dense`. Returns the rank's
+    numbers; every comparison of weights is made here, on the card."""
+    import numpy as np
+    import torch
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from mxnet_tpu_torch.gluon.params import init_params_numpy, \
+        load_jax_params
+    from mxnet_tpu_torch.ops import kernels as K
+    from mxnet_tpu_torch.parallel import dist
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = dist.device()
+    rank, world = dist.rank(), dist.size()
+    inits = {}
+
+    def build(seed):
+        net = bert_base_classifier(torch, seq, dev, widths)
+        if seed not in inits:
+            inits[seed] = init_params_numpy(net, seed=seed)
+        load_jax_params(net, inits[seed])
+        return net
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    net = build(2)
+    rs = np.random.RandomState(3)
+    vocab = net.bert.word_embed.weight.shape[0]
+    x = torch.from_numpy(rs.randint(0, vocab, (batch, seq))
+                         .astype(np.int64)).to(dev)
+    y = torch.from_numpy(rs.randint(0, 2, (batch,))
+                         .astype(np.float32)).to(dev)
+    per = batch // world
+    rows = slice(rank * per, (rank + 1) * per)
+    ctx = {"torch": torch, "K": K, "dev": dev, "rank": rank,
+           "world": world, "build": build, "sync": sync, "lr": lr,
+           "steps": steps, "loss_fn": SoftmaxCrossEntropyLoss(), "x": x,
+           "y": y, "xl": x[rows], "yl": y[rows], "rows": rows,
+           "w0": flat_weights(torch, net), "out_dir": out_dir}
+    if dense_rows:
+        ctx["dense_rows"] = dense_rows
+    del net
+    own_seed = 2 + rank
+    runs = [dist_kv_run(ctx, kind, seed=own_seed if kind == "split" else 2,
+                        keep_grads=kind == "split" and i == 0,
+                        at_step=DIST_KV_COMPRESSED_STEPS
+                        if kind == "split" and i == 0 else None)
+            for i, kind in enumerate(DIST_KV_MULTI_TURNS)]
+    ref = dist_kv_run(ctx, "ref", keep_grads=True)
+    on_store = dist_kv_run(ctx, "eager", update_on_kvstore=None)
+    fp16 = dist_kv_run(ctx, "split", seed=own_seed,
+                       steps=DIST_KV_COMPRESSED_STEPS,
+                       compression={"type": "fp16"})
+    two_bit = dist_kv_run(ctx, "split", seed=own_seed,
+                          steps=DIST_KV_COMPRESSED_STEPS,
+                          compression={"type": "2bit", "threshold": 0.5})
+    async_ = dist_kv_run(ctx, "split", seed=own_seed, store="dist_async")
+    w0 = ctx["w0"]
+    split = [r for r in runs if r["kind"] == "split"]
+    pair = [(r["losses"], r["weights"]) for r in split]
+    # (a) against the reference: phase 6's vs_eager gate (the two (a)
+    # runs' spread, or 1e-2 of how far the reference moved)
+    vs_ref = [vs_eager([(ref["losses"], ref["weights"])], pair, w0,
+                       r["losses"], r["weights"]) for r in split]
+    # the first step's reduced gradients, (a) against the reference, as
+    # phase 11's gradient check bounds them
+    worst, worst_i = 0.0, None
+    for i, (g, gr) in enumerate(zip(split[0]["grads"], ref["grads"])):
+        ratio = float((g - gr).abs().max()) / (
+            GRAD_ATOL + GRAD_RTOL * float(gr.abs().max()))
+        if not math.isfinite(ratio) or ratio > worst:
+            worst, worst_i = ratio, i
+    a3 = split[0]["weights_at_step"]
+    fp16_gap = rms_dist(fp16["weights"], a3)
+    a3_moved = rms_dist(a3, w0)
+
+    def facts(r):
+        return {k: v for k, v in r.items()
+                if k not in ("weights", "grads", "weights_at_step")}
+
+    out = {"rank": rank, "world": world,
+           "turns": [facts(r) for r in runs], "ref": facts(ref),
+           "on_store": facts(on_store), "fp16": facts(fp16),
+           "two_bit": facts(two_bit), "async": facts(async_),
+           "a_vs_ref": vs_ref,
+           "b_vs_a": vs_eager(pair, pair, w0, on_store["losses"],
+                              on_store["weights"]),
+           "grad_worst_err_over_bound": worst,
+           "grad_worst_param_index": worst_i,
+           "fp16_vs_a": {"rms_gap": fp16_gap, "a_moved": a3_moved,
+                         "gap_over_moved": fp16_gap / a3_moved
+                         if a3_moved else None,
+                         "rtol": FP16_MOVED_RTOL,
+                         "ok": fp16_gap <= FP16_MOVED_RTOL * a3_moved},
+           "d_vs_a": spread_gate([w for _, w in pair], async_["weights"],
+                                 rms_dist),
+           "d_bit_equal_a": [bool(torch.equal(async_["weights"], w))
+                             for _, w in pair],
+           "dense": dist_kv_dense(ctx)}
+    return out
+
+
+def dist_kv_multi(torch, np, smi, device="cuda", world=None, widths=None,
+                  batch=TRAIN_BATCH, seq=TRAIN_SEQ, steps=TRAIN_STEPS,
+                  timeout_s=900, dense_rows=None):
+    """Phase 13 across the visible cards (:func:`dist_kv_rank`), one rank
+    a card over NCCL. Gates: (a) the split program (``mode`` "fused",
+    two graphs, ``update_on_kvstore`` False), every rank holding rank
+    0's weights after the store's init, finite losses falling, bit-equal
+    weights on every rank, one ``opt_update`` a parameter a step, one
+    collective a bucket and one wait a step, the first step's reduced
+    gradients within phase 11's bound of the reference's and the weights
+    within :func:`vs_eager`'s limit of the reference's; (b) the store
+    updating (the JAX default with several workers), bit-equal weights
+    on every rank, within :func:`vs_eager`'s limit of (a)'s runs, no
+    ``opt_update`` launch, the states' round trip through the store's
+    updater; (c) fp16 within FP16_MOVED_RTOL of (a) and 2bit's residuals
+    finite and non-zero; (d) ``dist_async`` with no wait, its weights
+    within the spread of (a)'s two runs (BERT's dq atomics keep two runs
+    from being bit-equal) and, on the Dense-only model, bit-equal to
+    ``dist_sync``. Prints the slowest rank's median step ms of (a) and
+    of the mesh mode in turns, the spread and global tokens/s."""
+    import shutil
+    from mxnet_tpu_torch.parallel import dist
+    world = world or torch.cuda.device_count()
+    out_dir = os.path.abspath(os.path.join("build", "dist_kv"))
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    try:
+        ranks = dist.spawn(dist_kv_rank, world, device,
+                           (widths, batch, seq, steps, TRAIN_LR, out_dir,
+                            dense_rows), timeout_s=timeout_s)
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    r0 = ranks[0]
+
+    def slowest_median(i, n):
+        return statistics.median(max(r["turns"][i]["step_ms"][s]
+                                     for r in ranks)
+                                 for s in range(1, n))
+
+    medians = {}
+    for i, kind in enumerate(DIST_KV_MULTI_TURNS):
+        medians.setdefault(kind, []).append(slowest_median(i, steps))
+    a = [t for t in r0["turns"] if t["kind"] == "split"]
+    n_params = a[0]["n_params"]
+    n_buckets = len(a[0]["buckets"])
+
+    def every_rank(key, fn):
+        return all(fn(r[key]) for r in ranks)
+
+    def split_ok(t, blocks):
+        return (t["mode"] == "fused" and t["split"] and t["graphs"] == 2
+                and t["update_on_kvstore"] is False
+                and t["init_equal_all_ranks"]
+                and all(c == n_params for c in t["opt_update"])
+                and all(c == len(t["buckets"]) for c in t["collectives"])
+                and all(b == blocks for b in t["blocks"])
+                and t["weights_equal_all_ranks"]
+                and all(math.isfinite(v) for v in t["losses"]))
+
+    def global_losses(i):
+        # the ranks' rows are equal parts of the batch: the mean of their
+        # means is the global batch's
+        return [statistics.fmean(r["turns"][i]["losses"][s] for r in ranks)
+                for s in range(steps)]
+
+    a_losses = [global_losses(i) for i, k in enumerate(DIST_KV_MULTI_TURNS)
+                if k == "split"]
+    legs = {
+        "a": all(split_ok(t, 1) and t["init_is_rank0s"]
+                 for r in ranks for t in r["turns"] if t["kind"] == "split")
+        and all(ls[-1] < ls[0] for ls in a_losses)
+        and all(g["ok"] for r in ranks for g in r["a_vs_ref"])
+        and max(r["grad_worst_err_over_bound"] for r in ranks) <= 1.0,
+        # (the store's init broadcasts inside the first step)
+        "b": r0["on_store"]["states_round_trip"]
+        and r0["on_store"]["one_updater"]
+        and every_rank("on_store", lambda t: t["update_on_kvstore"] is True
+                        and t["weights_equal_all_ranks"]
+                        and all(c == 0 for c in t["opt_update"])
+                        and all(c == n_params for c in t["collectives"][1:])
+                        and all(math.isfinite(v) for v in t["losses"]))
+        and all(r["b_vs_a"]["ok"] for r in ranks),
+        "c": every_rank("fp16", lambda t: split_ok(t, 1))
+        and all(r["fp16_vs_a"]["ok"] for r in ranks)
+        and every_rank("two_bit", lambda t: split_ok(t, 1)
+                       and t["residuals"]["finite"]
+                       and t["residuals"]["nonzero_share"] > 0),
+        "d": every_rank("async", lambda t: split_ok(t, 0))
+        and all(r["d_vs_a"]["ok"] for r in ranks)
+        and all(r["dense"]["bit_equal"] and r["dense"]["split"]
+                and r["dense"]["async_stats"]["blocks"] == 0
+                for r in ranks)}
+    report = {
+        "model": "bert_base classifier", "world": world, "batch": batch,
+        "seq": seq, "steps": steps, "optimizer": "adam",
+        "learning_rate": TRAIN_LR, "dropout": 0.0,
+        "order": list(DIST_KV_MULTI_TURNS), "buckets": a[0]["buckets"],
+        "collectives_per_step": a[0]["collectives"][-1],
+        "buckets_per_step": n_buckets,
+        "blocks_per_step": a[0]["blocks"][-1],
+        "opt_update_per_step": a[0]["opt_update"][-1],
+        "losses_a_global": a_losses,
+        "median_step_ms_slowest_rank": medians,
+        "spread_ms": {k: max(v) - min(v) for k, v in medians.items()},
+        "global_tokens_per_s": {k: [batch * seq / (m / 1e3) for m in v]
+                                for k, v in medians.items()},
+        "max_memory_allocated_rank0": {
+            t["kind"] + str(i): t.get("max_memory_allocated")
+            for i, t in enumerate(r0["turns"])},
+        "a_vs_ref": r0["a_vs_ref"],
+        "grad_worst_err_over_bound": max(r["grad_worst_err_over_bound"]
+                                         for r in ranks),
+        "b": {"vs_a": r0["b_vs_a"],
+              "collectives_per_step": r0["on_store"]["collectives"][-1],
+              "blocks_per_step": r0["on_store"]["blocks"][-1],
+              "median_step_ms_rank0": statistics.median(
+                  r0["on_store"]["step_ms"][1:]),
+              "states_round_trip": r0["on_store"]["states_round_trip"]},
+        "c": {"fp16_vs_a": r0["fp16_vs_a"],
+              "fp16_losses": r0["fp16"]["losses"],
+              "two_bit_losses": r0["two_bit"]["losses"],
+              "two_bit_residuals": r0["two_bit"]["residuals"]},
+        "d": {"blocks": r0["async"]["blocks"], "vs_a": r0["d_vs_a"],
+              "bit_equal_a": r0["d_bit_equal_a"],
+              "median_step_ms_rank0": statistics.median(
+                  r0["async"]["step_ms"][1:]),
+              "dense": r0["dense"]},
+        "legs_ok": legs, "card": smi}
+    report["ok"] = all(legs.values())
+    emit({"dist_kv": report})
+    if not report["ok"]:
+        raise SystemExit(f"phase 13 (across cards) failed: {report}")
+    return report
+
+
 #: --kernel-times: the kernels' shapes, each on its path (the flash
 #: forward served and in BERT training; the long-sequence backward's dq
 #: and dkv at phase 7's; the LM's LSTM layer; decode_wide's step)
@@ -5210,7 +5802,14 @@ def main(argv):
         return kernel_times(argv[argv.index("--kernel-times") + 1])
     if "--compare" in argv:
         return compare_checkouts(argv[argv.index("--compare") + 1])
-    import mxnet_tpu_torch as mx
+    try:
+        import mxnet_tpu_torch as mx
+    except ImportError as e:
+        # the script alone, without the repo around it, has no port to run
+        print(f"chip_smoke: the port is not importable here ({e}); run "
+              "this script from the root of a checkout of the repo",
+              file=sys.stderr)
+        return 1
     from mxnet_tpu_torch.ops import attention as ATT
     from mxnet_tpu_torch.ops import kernels as K
     from mxnet_tpu_torch.ops.kernels import norm as KN
@@ -5248,6 +5847,20 @@ def main(argv):
         return 0
     if "--elastic" in argv:
         elastic_one_card(torch, np, K, dev, smi)
+        print(smi, flush=True)
+        emit({"ok": True, "device": {"platform": "gpu",
+                                     "kind": torch.cuda.get_device_name(0),
+                                     "count": torch.cuda.device_count()}})
+        return 0
+    if "--dist-kv" in argv:
+        dist_kv_one_card(torch, np, K, dev, smi)
+        torch.cuda.empty_cache()
+        if torch.cuda.device_count() >= 2:
+            dist_kv_multi(torch, np, smi)
+        else:
+            print("phase 13 across cards needs >= 2 GPUs; "
+                  f"{torch.cuda.device_count()} visible, so it did not run",
+                  flush=True)
         print(smi, flush=True)
         emit({"ok": True, "device": {"platform": "gpu",
                                      "kind": torch.cuda.get_device_name(0),
@@ -5324,13 +5937,17 @@ def main(argv):
     torch.cuda.empty_cache()
     elastic_one_card(torch, np, K, dev, smi)
     torch.cuda.empty_cache()
+    dist_kv = dist_kv_one_card(torch, np, K, dev, smi)
+    torch.cuda.empty_cache()
     if torch.cuda.device_count() >= 2:
         zero_train_multi(torch, np, smi)
         zero_overlap(torch, np, smi)
         zero_elastic(torch, np, smi)
+        dist_kv_multi(torch, np, smi)
     else:
-        print("phase 11 (ZeRO training across cards) needs >= 2 GPUs; "
-              f"{torch.cuda.device_count()} visible, so it did not run",
+        print("phase 11 (ZeRO training across cards) and phase 13 across "
+              "cards need >= 2 GPUs; "
+              f"{torch.cuda.device_count()} visible, so they did not run",
               flush=True)
 
     # each kernel's launches on the path that drives it, counted from 0
@@ -5363,7 +5980,8 @@ def main(argv):
                    "bert_base_training_bf16": trained_bf16}
     bf16_launches = {name: bf16_counts[p][name]
                      for name, p in bf16_path.items()}
-    emit({"launch_counts": launches, "bf16_launch_counts": bf16_launches})
+    emit({"launch_counts": launches, "bf16_launch_counts": bf16_launches,
+          "dist_kv_launch_counts": {n: c for n, c in dist_kv.items() if c}})
     if not all(n > 0 for n in launches.values()) or \
             not all(n > 0 for n in bf16_launches.values()):
         raise SystemExit(f"a kernel never launched on its path: {launches}"

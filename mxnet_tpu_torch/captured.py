@@ -49,6 +49,11 @@ How a capture goes, and the traps it avoids:
   never its owner: a program would otherwise keep its owner alive in a
   reference cycle, and the cyclic collector would destroy its graph
   without the device synchronize of :meth:`Programs.clear`.
+- A capture that fails never reaches the end that takes the random
+  generators it registered (the device's default one, and the ones the
+  warm-up named) out of capture mode; the next eager draw from them
+  would raise. One empty capture that registers the same generators and
+  ends normally takes them out (:func:`_end_generator_capture`).
 
 On a CUDA device a capture or replay that fails raises ``MXNetError``;
 nothing runs the body eagerly on the card instead.
@@ -88,6 +93,20 @@ def _no_scope():
     """The warm-up scope of a body that changes no state: no
     generators to register."""
     return contextlib.nullcontext(())
+
+
+def _end_generator_capture(device, generators) -> None:
+    """Take ``generators`` and the device's default generator out of
+    the capture mode a failed capture left them in: one capture of a
+    trivial body that registers them and ends normally (their state is
+    theirs again; the graph is dropped)."""
+    graph = torch.cuda.CUDAGraph()
+    for g in generators:
+        graph.register_generator_state(g)
+    with torch.cuda.graph(graph, stream=torch.cuda.Stream(device),
+                          capture_error_mode="thread_local"):
+        torch.zeros(1, device=device)
+    del graph
 
 
 def map_tensors(fn, out):
@@ -132,6 +151,7 @@ class CapturedProgram:
         stream.wait_stream(cur)
         graph = torch.cuda.CUDAGraph()
         collecting = gc.isenabled()
+        capturing = None
         try:
             with torch.cuda.stream(stream):
                 with scope() as generators:
@@ -140,6 +160,7 @@ class CapturedProgram:
             for g in generators:
                 graph.register_generator_state(g)
             gc.disable()
+            capturing = generators
             with record_launches(stream) as delta, torch.cuda.graph(
                     graph, pool=pool, stream=stream,
                     capture_error_mode="thread_local"):
@@ -147,6 +168,9 @@ class CapturedProgram:
         except Exception as e:
             # a capture that fails to end leaves its stream current
             torch.cuda.set_stream(cur)
+            if capturing is not None:
+                del graph
+                _end_generator_capture(self.device, capturing)
             if isinstance(e, MXNetError):
                 raise
             raise MXNetError(f"capture of {self.what} failed: "

@@ -45,17 +45,43 @@ Four modes, decided at the first call as the JAX package decides them:
   ``Trainer.load_states`` of a states file) make the next call capture
   again; a checkpoint restore copies in place and does not.
   :meth:`aot_compile` captures a signature without stepping. On the
-  CPU the same body runs eagerly over the same static buffers; on a
-  card a capture or replay that fails raises ``MXNetError``.
+  CPU the same body runs eagerly over the same static buffers. If the
+  loss's forward or backward fails in the step's FIRST call (on a card:
+  a loss that syncs with the host, ``.item()``, cannot be captured), the
+  step does what the JAX package does when its first trace fails: it
+  drops its programs, puts the update counts and the random generators
+  back, logs a warning and runs eagerly from then on, that call
+  included. Any other failure of a first call (the update kernel's
+  build or launch: the eager step would not run that kernel) and any
+  failure of a later call raises ``MXNetError``. ``train_mode=False``
+  runs the forward with every layer that draws in eval mode and is part
+  of the signature.
+
+  A store that cannot reduce in-program (``kvstore.KVStoreDist`` with
+  several ranks, or ``_force_fuse``) gets the *split* program, whose
+  ``mode`` still reads ``fused``, as the JAX package's does: a graph a
+  signature of the forward and the backward that leaves every gradient
+  in a static buffer; then, on the host, ``Trainer._allreduce_grads``,
+  where the store's bucketed ``pushpull_list`` writes the sums back into
+  those buffers in place (the collectives stay out of the graphs); then
+  one graph of the update (one ``opt_update`` a parameter, reading the
+  same device block), shared by the signatures. Each rank passes its
+  own rows, and ``batch_size=`` the global batch's size; under an
+  active dp mesh (which must span every rank) each rank is given the
+  global batch and keeps its part, as in the ``zero`` mode, and the
+  store's sum takes the place of the mesh's all-reduce. The ``zero`` and
+  ``mesh`` modes are never taken with such a store.
 - ``eager``: bfloat16 / float16 parameters under ``multi_precision``
   (their float32 masters live in the Updater's states, as the JAX
-  package sends them to its eager path), or a process group of several
-  ranks without a dp mesh; the forward, ``loss.sum().backward()`` and
-  ``trainer.step(batch_size)``, which reduces across the ranks.
+  package sends them to its eager path), ``update_on_kvstore`` (the
+  optimizer runs on the store), or a process group of several ranks
+  without a dp mesh and without a dist store; the forward,
+  ``loss.sum().backward()`` and ``trainer.step(batch_size)``, which
+  reduces across the ranks.
 - ``zero`` (the ZeRO-1 sharded update, arXiv:2004.13336): a
   ``parallel.make_mesh`` mesh with a ``dp`` axis of size >= 2 is active
   (or given), the optimizer's rule is elementwise and the kvstore lets
-  the step own the reduction. Each rank is given the GLOBAL batch and
+  the step own the reduction (a dist store never does). Each rank is given the GLOBAL batch and
   keeps its own part (``parallel.place_on_mesh``), so ``batch_size`` is
   the global leading size. The trainable parameters map to flat units
   (:class:`_ZeroShardPlan`) grouped into communication buckets
@@ -89,7 +115,9 @@ Four modes, decided at the first call as the JAX package decides them:
   from the master in its own dtype before the all-gather.
 - ``mesh``: the mesh is active but the sharded update is off
   (``zero_shard=False``, or a rule that is not elementwise): every
-  gradient is all-reduced, then the replicated update.
+  gradient is all-reduced, then the replicated update. A dist store
+  that sums on the host takes this mode only for float32 masters (or
+  after a failed first capture), and then sums through the store.
 
 The plain ``mesh`` mode's all-reduce still waits for the backward to
 end. :class:`TrainLoop` runs the step with a bounded in-flight window
@@ -118,6 +146,7 @@ import torch
 
 from ..base import MXNetError
 from ..captured import Programs
+from ..kvstore import KVStoreDist
 from ..optimizer.optimizer import LOW_PRECISION, DeviceHParams, Optimizer
 from ..parallel import dist as _dist
 from ..parallel.collectives import (all_gather_rows, allgather,
@@ -126,7 +155,7 @@ from ..parallel.collectives import (all_gather_rows, allgather,
 from ..parallel.mesh import (batch_is_sharded, current_mesh, global_lead,
                              place_on_mesh, replicate, zero_shard_pad)
 from ..testing.faults import fault_point
-from .nn.basic_layers import recording_draws
+from .nn.basic_layers import draws_off, recording_draws
 
 __all__ = ["CompiledTrainStep", "TrainLoop", "zero_bucket_schedule"]
 
@@ -614,7 +643,7 @@ def _watched(params, updater):
 
 
 @contextlib.contextmanager
-def _warmup_scope(warming: list, device):
+def _warmup_scope(warming: list, device, restore: Optional[list] = None):
     """Around a capture's warm-up runs of a train step: the body skips
     its update there (``warming[0]`` is set), so no weight, optimizer
     state or update count changes, and the random generators (the
@@ -625,7 +654,10 @@ def _warmup_scope(warming: list, device):
     blocks); the update's kernels load at their first launch in the
     capture, the kernel library already loaded (``whole_step_fn``).
     Yields the list of the noted CUDA generators, filled on exit, for the
-    graph to register."""
+    graph to register. ``restore``, when given, is filled with the
+    states put back, ``(None, default state)`` first, then ``(generator,
+    state)``: a capture that fails after the scope puts them back again
+    (:meth:`CompiledTrainStep._fall_back`)."""
     from ..checkpoint.state import (_default_rng_state,
                                     _set_default_rng_state)
     rng = _default_rng_state(device)
@@ -638,32 +670,61 @@ def _warmup_scope(warming: list, device):
     finally:
         warming[0] = False
         _set_default_rng_state(device, rng)
+        if restore is not None:
+            restore.append((None, rng))
         for _, g, state in rec.values():
             if g is not None:
                 g.set_state(state)
+                if restore is not None:
+                    restore.append((g, state))
                 if g.device.type == "cuda" and \
                         all(g is not h for h in generators):
                     generators.append(g)
 
 
+#: set on an error the loss's forward or backward raised inside a step's
+#: body: the only failure a first call falls back to eager for
+_LOSS_FAILED = "mxt_loss_failed"
+
+
+def _loss_failed(err) -> bool:
+    """Whether ``err``, or an error it was raised from or while handling
+    (a failed capture's ``MXNetError``, raised from the capture's end,
+    raised while the loss's error went up), came from the loss's forward
+    or backward (:func:`_step_body`)."""
+    while err is not None:
+        if getattr(err, _LOSS_FAILED, False):
+            return True
+        err = err.__cause__ or err.__context__
+    return False
+
+
 def _step_body(loss_fn, treedef, spec, params, update, drawers: list,
-               warming: list):
+               warming: list, train_mode: bool = True):
     """A fused step's body over its static inputs (the array leaves, in
-    order): the forward, the gradients of the loss's sum with respect to
-    ``params`` (zeros for one the loss does not reach) and ``update``,
-    skipped while ``warming[0]`` (:func:`_warmup_scope`); returns the
-    per-sample loss. A layer of the forward that draws random numbers
-    joins ``drawers`` (its training flag is part of the signature). It
-    holds what it reads, not the step."""
+    order): the forward (with ``train_mode`` False, every layer that
+    draws as in eval mode), the gradients of the loss's sum with respect
+    to ``params`` (zeros for one the loss does not reach) and
+    ``update(grads)``, skipped while ``warming[0]``
+    (:func:`_warmup_scope`); returns the per-sample loss. An error of the
+    forward or backward is marked :data:`_LOSS_FAILED`; the update's are
+    not. A layer of the forward that draws random numbers joins
+    ``drawers`` (its training flag is part of the signature). It holds
+    what it reads, not the step."""
 
     def body(*inputs):
         it = iter(inputs)
         leaves = [next(it) if v is _TRACED else v for v in spec]
         args, kwargs = _unflatten(treedef, iter(leaves))
-        with torch.enable_grad(), recording_draws() as rec:
-            loss = loss_fn(*args, **kwargs)
-            grads = torch.autograd.grad(loss.sum(), params,
-                                        allow_unused=True)
+        try:
+            with torch.enable_grad(), recording_draws() as rec, \
+                    draws_off(not train_mode):
+                loss = loss_fn(*args, **kwargs)
+                grads = torch.autograd.grad(loss.sum(), params,
+                                            allow_unused=True)
+        except Exception as e:
+            setattr(e, _LOSS_FAILED, True)
+            raise
         for m, _, _ in rec.values():
             if all(m is not d for d in drawers):
                 drawers.append(m)
@@ -671,6 +732,26 @@ def _step_body(loss_fn, treedef, spec, params, update, drawers: list,
             update([torch.zeros_like(p) if g is None else g
                     for p, g in zip(params, grads)])
         return loss.detach()
+
+    return body
+
+
+def _keep_grads(bufs, grads):
+    """The split program's gradient graph ends here: each gradient copied
+    into its static buffer, which the store reduces in place and the
+    update graph reads."""
+    with torch.no_grad():
+        for b, g in zip(bufs, grads):
+            b.copy_(g)
+
+
+def _update_body(update, warming: list):
+    """The split program's update graph: ``update`` over its inputs, the
+    static gradient buffers, skipped while ``warming[0]``."""
+
+    def body(*grads):
+        if not warming[0]:
+            update(list(grads))
 
     return body
 
@@ -687,11 +768,15 @@ class CompiledTrainStep:
     """One callable = forward + backward + (reduction +) update. Built by
     ``Trainer.compile_step(loss_fn)``."""
 
-    def __init__(self, trainer, loss_fn: Callable,
+    def __init__(self, trainer, loss_fn: Callable, donate: bool = True,
+                 train_mode: bool = True,
                  zero_shard: Optional[bool] = None, zero_axis: str = "dp",
                  mesh=None):
         self._trainer = trainer
         self._loss_fn = loss_fn
+        # ``donate`` is the JAX package's: a graph updates its static
+        # buffers in place already, so there is nothing to donate
+        self._train_mode = bool(train_mode)
         self._device = trainer._params[0].device if trainer._params \
             else torch.device("cpu")
         self._steps_done = 0
@@ -716,6 +801,10 @@ class CompiledTrainStep:
         self._sig_history: List[tuple] = []
         self._moved = False
         self._drawers: list = []
+        # the split program (a store that reduces on the host): the
+        # static gradient buffers between its two graphs
+        self._split = False
+        self._grads: Optional[List[torch.Tensor]] = None
         # the checkpoint stack asks the trainer's live steps whether a
         # ZeRO plan owns the optimizer state
         trainer._register_compiled(self)
@@ -812,17 +901,40 @@ class CompiledTrainStep:
 
     # ---------------- mode decision ----------------
     def _decide_mode(self) -> str:
+        tr = self._trainer
+        if not tr._kv_initialized:
+            # a dist store needs its setup (the broadcast of rank 0's
+            # weights, the update decision); a one-process store is not
+            # read by the step, so it never updates, as the JAX package
+            # decides
+            if isinstance(tr._kvstore, KVStoreDist):
+                tr._init_kvstore()
+            else:
+                tr._update_on_kvstore = False
+        if tr._update_on_kvstore:
+            return "eager"      # the optimizer lives on the store
         if self._resolve_zero():
             return "zero"
+        # float32 masters fuse only through the sharded update
+        masters = tr._optimizer.multi_precision and any(
+            p.dtype in LOW_PRECISION for p in tr._params)
+        if self._host_allreduce() and tr._params and not masters:
+            # the store sums on the host: the split program, under a dp
+            # mesh too (the store's sum over the ranks is the mesh's)
+            if self._plain_mesh is not None and \
+                    self._plain_mesh[0].size != _dist.size():
+                raise MXNetError(
+                    "compile_step: a dist store sums over every rank; the "
+                    f"mesh {self._plain_mesh[0].shape} spans "
+                    f"{self._plain_mesh[0].size} of {_dist.size()}")
+            self._split = True
+            return "fused"
         if self._plain_mesh is not None:
             return "mesh"
-        tr = self._trainer
-        if not tr._params or _dist.size() > 1:
-            # several ranks without a mesh: Trainer.step reduces
+        if not tr._params or masters:
             return "eager"
-        if tr._optimizer.multi_precision and any(
-                p.dtype in LOW_PRECISION for p in tr._params):
-            # float32 masters fuse only through the sharded update
+        if _dist.size() > 1:
+            # several ranks without a mesh: Trainer.step reduces
             return "eager"
         return "fused"
 
@@ -895,28 +1007,30 @@ class CompiledTrainStep:
         leaves = list(args) + list(kwargs.values())
         if batch_size is None:
             batch_size = _infer_batch_size(leaves)
-        if self._mode == "fused":
-            loss = self._fused_call(args, kwargs, batch_size)
-        elif self._mode == "eager":
-            loss = self._eager_call(args, kwargs, batch_size)
+        placed = self._zero_ok or self._plain_mesh
+        if self._mode == "eager":
+            return self._eager_call(args, kwargs, batch_size)
+        if self._mode == "fused" and not (self._split and placed):
+            return self._fused_call(args, kwargs, batch_size)
+        mesh, axis = placed
+        mean = not batch_is_sharded(mesh, axis, leaves)
+        args = tuple(place_on_mesh(mesh, axis, a) for a in args)
+        kwargs = {k: place_on_mesh(mesh, axis, v) for k, v in kwargs.items()}
+        if self._mode == "zero":
+            loss = self._zero_call(args, kwargs, batch_size, mesh, mean)
+        elif self._mode == "mesh":
+            loss = self._mesh_call(args, kwargs, batch_size, mesh, mean)
         else:
-            mesh, axis = self._zero_ok or self._plain_mesh
-            mean = not batch_is_sharded(mesh, axis, leaves)
-            args = tuple(place_on_mesh(mesh, axis, a) for a in args)
-            kwargs = {k: place_on_mesh(mesh, axis, v)
-                      for k, v in kwargs.items()}
-            if self._mode == "zero":
-                loss = self._zero_call(args, kwargs, batch_size, mesh, mean)
-            else:
-                loss = self._mesh_call(args, kwargs, batch_size, mesh, mean)
-            if not mean:
-                loss = _global_loss(loss, mesh, axis)
+            loss = self._fused_call(args, kwargs, batch_size, mean)
+        if not mean:
+            loss = _global_loss(loss, mesh, axis)
         return loss
 
     def _forward(self, args, kwargs):
         args = tuple(self._as_tensor(a) for a in args)
         kwargs = {k: self._as_tensor(v) for k, v in kwargs.items()}
-        return self._loss_fn(*args, **kwargs)
+        with draws_off(not self._train_mode):
+            return self._loss_fn(*args, **kwargs)
 
     def _eager_call(self, args, kwargs, batch_size):
         loss = self._forward(args, kwargs)
@@ -938,25 +1052,85 @@ class CompiledTrainStep:
             n = len(self._drawers)
             _, key = self._fused_program(args, kwargs, batch_size,
                                          advance=False)
+            if self._split:
+                self._update_program()
             self._settle_key(n, *key)
         return None
 
-    def _fused_call(self, args, kwargs, batch_size):
-        opt = self._trainer._optimizer
+    def _fused_call(self, args, kwargs, batch_size, mean=False):
+        """One replay (the split program: the gradient graph, the store's
+        ``pushpull_list``, divided by the ranks when ``mean``, the update
+        graph). If the step's first call fails in the loss's forward or
+        backward (a loss that syncs with the host cannot be captured),
+        :meth:`_fall_back`; any other failure of a first call (the update
+        kernel's build or launch, the signature) raises ``MXNetError``."""
+        tr = self._trainer
+        opt = tr._optimizer
         counts = dict(opt._index_update_count), opt.num_update
         n = len(self._drawers)
+        restore: list = []
         try:
             prog, key = self._fused_program(args, kwargs, batch_size,
-                                            advance=True)
+                                            advance=True, restore=restore)
+            upd = self._update_program() if self._split else None
             loss = prog.run()
-        except BaseException:
+        except Exception as e:
             # a step that did not run updates nothing, its counts included
+            opt._index_update_count, opt.num_update = counts
+            if self._steps_done:
+                raise
+            if not _loss_failed(e):
+                if isinstance(e, MXNetError):
+                    raise
+                raise MXNetError(f"compile_step: {type(e).__name__}: "
+                                 f"{e}") from e
+            return self._fall_back(e, restore, args, kwargs, batch_size,
+                                   mean)
+        except BaseException:
             opt._index_update_count, opt.num_update = counts
             raise
         self._settle_key(n, *key)
-        for p in self._trainer._params:
+        if upd is not None:
+            for p, g in zip(tr._params, self._grads):
+                p.grad, p.fresh_grad = g, True
+            try:
+                tr._allreduce_grads(mean=mean, all_fresh=True)
+            finally:
+                for p in tr._params:
+                    p.grad = None
+            upd.run()
+        for p in tr._params:
             p.fresh_grad = False
         return loss
+
+    def _fall_back(self, err, restore, args, kwargs, batch_size, mean):
+        """The first call's loss failed in its program (on a card: a loss
+        that syncs with the host cannot be captured). As the JAX package
+        does: drop the programs and their graph pool, put back the random
+        generators the warm-up had put back (the failed capture may have
+        drawn), log a warning and run the step eagerly, from now on too
+        (under a dp mesh the ``mesh`` mode, the eager step over this
+        rank's part). The update counts were already put back, so Adam's
+        first real step has t = 1."""
+        from ..checkpoint.state import _set_default_rng_state
+        _LOG.warning("compile_step: the fused program failed (%s: %s); "
+                     "falling back to the eager step", type(err).__name__,
+                     err)
+        for g, state in restore:
+            if g is None:
+                _set_default_rng_state(self._device, state)
+            else:
+                g.set_state(state)
+        self._programs = self._hp = self._watch = self._grads = None
+        self._lru.clear()
+        self._sig_history = []
+        self._split = False
+        if self._plain_mesh is not None:
+            self._mode = "mesh"
+            return self._mesh_call(args, kwargs, batch_size,
+                                   self._plain_mesh[0], mean)
+        self._mode = "eager"
+        return self._eager_call(args, kwargs, batch_size)
 
     def _settle_key(self, n_drawers, sig, treedef, spec, shapes):
         """The body's first run (its capture's warm-up on a card, the
@@ -974,8 +1148,8 @@ class CompiledTrainStep:
                              for h in self._sig_history]
 
     def _signature(self, treedef, spec, shapes) -> tuple:
-        sig = (tuple(m.training for m in self._drawers), treedef, spec,
-               shapes)
+        sig = (tuple(m.training and self._train_mode
+                     for m in self._drawers), treedef, spec, shapes)
         try:
             hash(sig)
         except TypeError as e:
@@ -983,12 +1157,14 @@ class CompiledTrainStep:
                              f"step must be hashable ({e})") from e
         return sig
 
-    def _fused_program(self, args, kwargs, batch_size, advance: bool):
+    def _fused_program(self, args, kwargs, batch_size, advance: bool,
+                       restore: Optional[list] = None):
         """The program of this call's signature (captured when new or
-        moved), the batch copied into its static inputs and, when
-        ``advance``, the update counts advanced and the step's
-        hyperparameters staged; and ``(signature, treedef, static spec,
-        shapes)``."""
+        moved; the split program's gradient graph), the batch copied into
+        its static inputs and, when ``advance``, the update counts
+        advanced and the step's hyperparameters staged; and
+        ``(signature, treedef, static spec, shapes)``. ``restore`` is
+        filled with the generator states a capture's warm-up put back."""
         tr, dev = self._trainer, self._device
         opt, n = tr._optimizer, len(tr._params)
         if self._programs is None:
@@ -996,6 +1172,8 @@ class CompiledTrainStep:
             self._watch = functools.partial(_watched, list(tr._params),
                                             tr._updater)
             self._programs = Programs(self._watch, dev)
+            if self._split:
+                self._grads = [torch.empty_like(p) for p in tr._params]
         leaves: list = []
         treedef = _flatten((args, kwargs), leaves)
         leaves = [torch.from_numpy(np.ascontiguousarray(v))
@@ -1021,13 +1199,16 @@ class CompiledTrainStep:
             inputs = [torch.empty(a.shape, dtype=a.dtype,
                                   device=dev).copy_(a) for a in arrays]
             params = list(tr._params)
-            update = opt.whole_step_fn(params, states, self._hp)
+            update = functools.partial(_keep_grads, self._grads) \
+                if self._split else \
+                opt.whole_step_fn(params, states, self._hp)
             return (_step_body(self._loss_fn, treedef, spec, params,
-                               update, self._drawers, warming), inputs)
+                               update, self._drawers, warming,
+                               self._train_mode), inputs)
 
         prog = self._programs.get(
             sig, build, what=f"train step {shapes}",
-            scope=functools.partial(_warmup_scope, warming, dev))
+            scope=functools.partial(_warmup_scope, warming, dev, restore))
         if self._programs.n_traces != traces:
             self._moved = known
             self._lru[sig] = None
@@ -1043,12 +1224,34 @@ class CompiledTrainStep:
             dst.copy_(a, non_blocking=True)
         return prog, (sig, treedef, spec, shapes)
 
+    def _update_program(self):
+        """The split program's update graph (one for every signature,
+        captured again when the parameters or states move): the update of
+        every trainable parameter from the static gradient buffers, its
+        hyperparameters read from the device block."""
+        tr, dev = self._trainer, self._device
+        warming = [False]
+
+        def build():
+            params = list(tr._params)
+            states = [tr._updater._state_for(i, p)
+                      for i, p in enumerate(params)]
+            update = tr._optimizer.whole_step_fn(params, states, self._hp)
+            return _update_body(update, warming), self._grads
+
+        return self._programs.get(
+            ("update",), build, count=False, what="train step update",
+            scope=functools.partial(_warmup_scope, warming, dev))
+
     def _mesh_call(self, args, kwargs, batch_size, mesh, mean):
-        """Replicated update after an all-reduce of every gradient."""
+        """Replicated update after an all-reduce of every gradient (over
+        the mesh, or through a dist store that sums on the host)."""
+        tr = self._trainer
         loss = self._forward(args, kwargs)
         loss.sum().backward()
-        self._trainer.allreduce_grads(mean=mean, mesh=mesh)
-        self._trainer.update(batch_size)
+        tr.allreduce_grads(mean=mean,
+                           mesh=None if tr._store_reduces() else mesh)
+        tr.update(batch_size)
         return loss.detach()
 
     # ---------------- the ZeRO-1 step ----------------
@@ -1174,7 +1377,7 @@ class TrainLoop:
     :meth:`engine_stats`. **Recovery**: :meth:`discard_inflight` retires
     what still completes and discards the rest (the elastic supervisor's
     teardown). The JAX package's numerics, telemetry and ``arm_mfu``
-    wait for ``telemetry/`` (``ROADMAP.md`` queue 1, item 9)."""
+    wait for ``telemetry/`` (``ROADMAP.md`` queue 1, item 7)."""
 
     def __init__(self, net, trainer, loss, inflight: Optional[int] = None,
                  checkpoint_dir: Optional[str] = None,

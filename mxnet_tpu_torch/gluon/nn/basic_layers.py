@@ -20,7 +20,9 @@ recurrent layers' dropout between layers) notes itself and its generator
 with :func:`note_draw` first, whatever its mode; inside
 :func:`recording_draws` a caller (a captured train step, which must
 register every generator its graph draws from and restore them after
-its warm-up) learns of them.
+its warm-up) learns of them. It draws when :func:`drawing` says so: in
+training mode, outside a :func:`draws_off` block (``compile_step(...,
+train_mode=False)``).
 
 Parameters are trainable. Each carries the JAX package's ``Parameter``
 attributes (``gluon/parameter.py``): ``grad_req`` (``"write"``,
@@ -49,7 +51,7 @@ from ...ops.registry import invoke
 
 __all__ = ["Dense", "Dropout", "Embedding", "LayerNorm", "activation",
            "init_param", "set_grad_req", "GRAD_REQS", "note_draw",
-           "recording_draws"]
+           "recording_draws", "draws_off", "drawing"]
 
 GRAD_REQS = ("write", "add", "null")
 
@@ -84,6 +86,24 @@ def recording_draws():
         yield rec
     finally:
         _DRAWS.stack = [r for r in _DRAWS.stack if r is not rec]
+
+
+@contextlib.contextmanager
+def draws_off(off: bool = True):
+    """Within the block (on this thread), with ``off``, every layer that
+    draws runs as in eval mode whatever its own mode (:func:`drawing`)."""
+    prev = getattr(_DRAWS, "off", False)
+    _DRAWS.off = prev or off
+    try:
+        yield
+    finally:
+        _DRAWS.off = prev
+
+
+def drawing(module: nn.Module) -> bool:
+    """Whether ``module`` draws now: in training mode, and not inside
+    :func:`draws_off`."""
+    return module.training and not getattr(_DRAWS, "off", False)
 
 
 def note_draw(module: nn.Module, generator: Optional[torch.Generator]):
@@ -193,7 +213,7 @@ class Dropout(nn.Module):
 
     def forward(self, x):
         note_draw(self, self._generator)
-        if self._rate == 0 or not self.training:
+        if self._rate == 0 or not drawing(self):
             return x
         keep = torch.bernoulli(
             torch.full(x.shape, 1.0 - self._rate, device=x.device),

@@ -27,7 +27,7 @@ from ...base import MXNetError
 from ...context import resolve_device
 from ...ops import rnn as rnn_ops
 from ...ops.registry import invoke
-from ..nn.basic_layers import INIT_SCALE, init_param, note_draw
+from ..nn.basic_layers import INIT_SCALE, drawing, init_param, note_draw
 
 __all__ = ["RNN", "LSTM", "GRU"]
 
@@ -102,7 +102,7 @@ class _RNNLayer(nn.Module):
             states = [states]
         mode = self._mode
         nl, bi, dr = self._num_layers, self._dir == 2, self._dropout
-        train, gen = self.training, self._generator
+        train, gen = drawing(self), self._generator
         if self._dropout > 0.0 and self._num_layers > 1:
             note_draw(self, gen)
 

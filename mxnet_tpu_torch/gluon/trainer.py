@@ -21,16 +21,33 @@ Gradient semantics are the JAX package's, on top of PyTorch's autograd:
 
 A parameter that no backward reached since the last update has a stale
 gradient: :meth:`step` raises, unless ``ignore_stale_grad=True``, which
-skips it. The kvstore is the single-process store (``"device"``,
-``"local"``, ``"tpu"``); a distributed one (``dist_sync``) is not ported
-and raises.
+skips it.
+
+The kvstore (``kvstore=``, default ``"device"``) is the JAX package's:
+the single-process store, or a distributed one (``"dist_sync"``,
+``"dist_async"``, ...: ``kvstore.KVStoreDist`` over the default process
+group). Its setup runs at the first :meth:`step`, :meth:`update` or
+:meth:`allreduce_grads`, with the JAX package's decision matrix:
+``MXNET_UPDATE_ON_KVSTORE`` overrides, else ``update_on_kvstore``
+defaults to True only for a dist store with several workers; under it
+the store runs the optimizer (``set_optimizer``). A dist store, or one
+given ``update_on_kvstore``, is seeded with every trainable parameter
+(``init(i, p)``: a dist store broadcasts rank 0's weights to every
+rank); ``compression_params`` (``{"type": "2bit" | "1bit" | "fp16" |
+"bf16", "threshold": ...}``) compress each gradient with error feedback
+before the sum (``parallel.compression``).
 
 Across ranks (``parallel.dist.size() > 1``) :meth:`step` first
-all-reduces the gradient of every parameter that some rank's backward
-reached, over the active mesh's group, or the default group without a
-mesh, so each rank updates from the gradient of the global batch: each rank backpropagates its own part, and
-``step(global_batch_size)`` turns the sum into the global mean, as the
-reference's global arrays do. ``compile_step``'s ``mesh`` mode reduces
+reduces the gradient of every parameter that some rank's backward
+reached, so each rank updates from the gradient of the global batch:
+each rank backpropagates its own part, and ``step(global_batch_size)``
+turns the sum into the global mean, as the reference's global arrays
+do. A dist store reduces them itself: one bucketed ``pushpull_list``
+over those keys, or under ``update_on_kvstore`` one ``push`` a
+parameter (the store updates its copy) and a ``pull`` of the new
+weights. Any other store leaves it to :meth:`allreduce_grads`' one
+all-reduce a gradient over the active mesh's group, or the default
+group without a mesh. ``compile_step``'s ``mesh`` mode reduces
 through the same :meth:`allreduce_grads`; its ``zero`` mode
 reduce-scatters instead and never calls it. Its one-device ``fused`` mode
 updates every trainable parameter inside its captured graph (one
@@ -49,6 +66,7 @@ import torch.distributed as dist
 
 from .. import optimizer as opt_mod
 from ..base import MXNetError
+from ..kvstore import KVStoreDist
 from ..kvstore import create as create_kvstore
 from ..parallel import dist as _dist
 from ..parallel.mesh import current_mesh
@@ -59,7 +77,8 @@ __all__ = ["Trainer"]
 
 class Trainer:
     def __init__(self, params, optimizer, optimizer_params=None,
-                 kvstore: Optional[str] = None):
+                 kvstore="device", compression_params=None,
+                 update_on_kvstore: Optional[bool] = None):
         if isinstance(params, dict):
             param_items = sorted(params.items())
             self._params = [p for _, p in param_items]
@@ -69,7 +88,14 @@ class Trainer:
             self._param_names = [str(i) for i in range(len(params))]
         else:
             raise MXNetError("params must be a dict or list of Parameters")
+        # the store object at once (no collective); its setup at the
+        # first step (_init_kvstore)
         self._kvstore = None if kvstore is None else create_kvstore(kvstore)
+        self._update_on_kvstore = update_on_kvstore
+        self._compression_params = compression_params
+        self._kv_initialized = False
+        # the keys the last reduction pushed to an updating store
+        self._pushed: List[int] = []
         for p in self._params:
             if not hasattr(p, "grad_req"):
                 init_param(p)       # a parameter made outside gluon.nn
@@ -104,8 +130,13 @@ class Trainer:
     def optimizer(self):
         return self._optimizer
 
-    def compile_step(self, loss_fn, zero_shard: Optional[bool] = None,
-                     zero_axis: str = "dp", mesh=None):
+    def compile_step(self, loss_fn, donate: bool = True,
+                     train_mode: bool = True,
+                     zero_shard: Optional[bool] = None,
+                     zero_axis: str = "dp", mesh=None,
+                     analyze: Optional[str] = None,
+                     numerics: Optional[str] = None,
+                     autotune: Optional[str] = None):
         """One callable for forward, backward and update
         (``gluon/fused_step.py``)::
 
@@ -116,9 +147,22 @@ class Trainer:
         captured CUDA graph per batch signature holds the forward, the
         backward and the update, and each call copies the batch in, fills
         the update's lr / wd / t / rescale / clip block on the card and
-        replays it (on the CPU the same body runs eagerly). bf16 or
-        float16 parameters under ``multi_precision`` run the ``eager``
+        replays it (on the CPU the same body runs eagerly). If the loss
+        fails in the first call's capture (a loss that syncs with the
+        host, e.g. ``.item()``), the step logs a warning and runs eagerly
+        from then on, that call included, as the JAX package falls back
+        to its tape path; any other failure (the update kernel's build or
+        launch) and a later failure raise. bf16 or float16 parameters under
+        ``multi_precision`` and ``update_on_kvstore`` run the ``eager``
         mode, as the JAX package sends them.
+
+        A store that cannot reduce in-program (a ``KVStoreDist`` with
+        several ranks, or ``_force_fuse``) gets the split program, whose
+        ``mode`` still reads ``"fused"``: one captured graph of the
+        forward and backward that leaves the gradients in static
+        buffers, the store's ``pushpull_list`` on the host summing them in
+        place, and one captured graph of the update; under a dp mesh too,
+        whose all-reduce the store's sum replaces.
 
         Under a mesh with a ``zero_axis`` of size >= 2 (``mesh``, or the
         active ``parallel.make_mesh``) the update is the ZeRO-1 sharded
@@ -126,9 +170,27 @@ class Trainer:
         where it cannot apply. The ``zero`` and ``mesh`` modes run
         eagerly: their NCCL collectives, and the gradient hooks that
         launch the ZeRO reduce-scatters during the backward, are not
-        captured yet."""
+        captured yet.
+
+        ``donate`` is accepted for the JAX package's signature: a graph
+        updates its static buffers in place already. ``train_mode=False``
+        runs the forward with the layers that draw random numbers
+        (dropout) in eval mode, whatever their own mode; it is part of
+        the signature. ``analyze``, ``numerics`` and ``autotune`` need
+        the JAX package's ``analysis/``, ``telemetry/`` and ``tuning/``,
+        not ported yet (``ROADMAP.md`` queue 1, item 7): anything but
+        None raises ``MXNetError``."""
+        for name, value in (("analyze", analyze), ("numerics", numerics),
+                            ("autotune", autotune)):
+            if value is not None:
+                raise MXNetError(
+                    f"compile_step({name}={value!r}): mxnet_tpu_torch does "
+                    "not port the program analysis, numerics and autotune "
+                    "yet (ROADMAP.md queue 1, item 7)")
         from .fused_step import CompiledTrainStep
-        return CompiledTrainStep(self, loss_fn, zero_shard=zero_shard,
+        return CompiledTrainStep(self, loss_fn, donate=donate,
+                                 train_mode=train_mode,
+                                 zero_shard=zero_shard,
                                  zero_axis=zero_axis, mesh=mesh)
 
     # ---------------- compiled-step registry ----------------
@@ -182,7 +244,8 @@ class Trainer:
 
     def save_states(self, fname: str):
         """The optimizer state in one file (``Updater.get_states``'
-        pickle, the JAX package's format), written atomically. It holds
+        pickle, the JAX package's format), written atomically; under
+        ``update_on_kvstore`` the store's updater writes it. It holds
         the eager updater's states only, so it raises while a ZeRO step
         owns the state: use :meth:`train_state` there."""
         if self._zero_state_owner() is not None:
@@ -194,15 +257,19 @@ class Trainer:
                 "checkpoint.write_checkpoint, or "
                 "checkpoint.TrainCheckpointManager / "
                 "gluon.TrainLoop(checkpoint_dir=...).")
+        if self._update_on_kvstore and self._kvstore is not None:
+            self._kvstore.save_optimizer_states(fname, dump_optimizer=True)
+            return
         from ..checkpoint.atomic import atomic_write_bytes
         atomic_write_bytes(fname,
                            self._updater.get_states(dump_optimizer=True),
                            fault="trainer.save_states")
 
     def load_states(self, fname: str):
-        """Load :meth:`save_states`' file, or the optimizer state and
-        counts of a checkpoint directory (``step-<N>``) of either
-        package."""
+        """Load :meth:`save_states`' file (into the store's updater under
+        ``update_on_kvstore``), or the optimizer state and counts of a
+        checkpoint directory (``step-<N>``) of either package."""
+        self._init_kvstore()
         if os.path.isdir(fname):
             from ..checkpoint.atomic import read_checkpoint
             from ..checkpoint.state import TrainState, apply_train_state
@@ -211,23 +278,75 @@ class Trainer:
                                          array_meta=manifest["arrays"]),
                               trainer=self, strict=False)
             return
+        if self._update_on_kvstore and self._kvstore is not None:
+            self._kvstore.load_optimizer_states(fname)
+            return
         with open(fname, "rb") as f:
             self._updater.set_states(f.read())
 
+    # ---------------- kvstore setup ----------------
+    def _init_kvstore(self):
+        """The store's setup, once, at the first step (the JAX package's
+        decision matrix): compression; ``update_on_kvstore`` from
+        ``MXNET_UPDATE_ON_KVSTORE`` where it is set, else True only for a
+        dist store with several workers; under it the store runs the
+        optimizer (its updater is then this trainer's, so checkpoints and
+        ``save_states`` see the live state); a dist store, or one that
+        updates, seeded with every trainable parameter (``init(i, p)``: a
+        dist store's broadcast gives every rank rank 0's weights). A
+        one-process store that does not update is never read, so it is
+        not seeded."""
+        if self._kv_initialized:
+            return
+        kv = self._kvstore
+        if kv is None:
+            self._update_on_kvstore = False
+        else:
+            if self._compression_params:
+                kv.set_gradient_compression(self._compression_params)
+            if self._update_on_kvstore is None:
+                env = os.environ.get("MXNET_UPDATE_ON_KVSTORE")
+                if env is not None:
+                    self._update_on_kvstore = \
+                        env.lower() not in ("0", "false", "no", "")
+                else:
+                    self._update_on_kvstore = \
+                        kv.num_workers > 1 and "dist" in kv.type
+            if self._update_on_kvstore:
+                kv.set_optimizer(self._optimizer)
+                self._updater = kv._updater
+            if self._update_on_kvstore or isinstance(kv, KVStoreDist):
+                for i, p in enumerate(self._params):
+                    kv.init(i, p)
+        self._kv_initialized = True
+
+    def _store_reduces(self) -> bool:
+        """Whether the store sums the gradients across the ranks: a dist
+        store that cannot reduce in-program (several ranks, or
+        ``_force_fuse``)."""
+        kv = self._kvstore
+        return isinstance(kv, KVStoreDist) and not kv.in_program_reduce
+
     # ---------------- core ----------------
     def step(self, batch_size: int, ignore_stale_grad: bool = False):
-        """Reduce gradients across ranks (:meth:`allreduce_grads`), then
-        apply the optimizer with gradients rescaled by 1 /
-        ``batch_size``, the global batch's size."""
+        """Reduce gradients across ranks (through a dist store, or
+        :meth:`allreduce_grads`' all-reduces), then apply the optimizer
+        with gradients rescaled by 1 / ``batch_size``, the global batch's
+        size (under ``update_on_kvstore`` the store applies it on push
+        and the new weights are pulled)."""
+        self._init_kvstore()
         self._optimizer.rescale_grad = self._scale / batch_size
-        self.allreduce_grads()
+        self._allreduce_grads(ignore_stale_grad)
         self._update(ignore_stale_grad)
 
     def allreduce_grads(self, mean: bool = False, mesh=None):
-        """Sum the gradients over the ranks of ``mesh`` (else the active
-        mesh, else the default process group); ``mean`` divides by the
+        """Sum the gradients over the ranks: through a dist store's
+        bucketed ``pushpull_list`` (no ``mesh`` given), else over the
+        ranks of ``mesh`` (else the active mesh, else the default process
+        group), one all-reduce a gradient; ``mean`` divides by the
         group's size (a batch every rank computed whole). A no-op in a
-        single process.
+        single process without a dist store. Under ``update_on_kvstore``
+        the gradients are pushed to the store, which updates.
 
         Every rank reduces the same parameters in the same order, as the
         reference's ``pushpull_list`` covers every key: one small
@@ -235,41 +354,113 @@ class Trainer:
         rank's backward reached, and a rank whose backward missed one of
         them adds zeros and takes the sum as its fresh gradient. A
         parameter no rank reached stays stale on every rank."""
-        if _dist.size() < 2 or not self._params:
+        self._init_kvstore()
+        self._allreduce_grads(mean=mean, mesh=mesh)
+
+    def _allreduce_grads(self, ignore_stale_grad=False, mean=False,
+                         mesh=None, all_fresh=False):
+        """The step's reduction (the JAX package's name). With
+        ``all_fresh`` (compile_step's split program, whose backward gives
+        every parameter a gradient on every rank) the flags' exchange is
+        skipped."""
+        self._pushed = []
+        if not self._params:
             return
-        mesh = mesh or current_mesh()
-        group = mesh.group if mesh is not None else None
-        n = mesh.size if mesh is not None else _dist.size()
+        if mesh is None and self._store_reduces():
+            keys = list(range(len(self._params))) if all_fresh \
+                else self._agree_fresh(None, _dist.size())
+        else:
+            keys = self._group_reduce(mean, mesh)
+            if not self._update_on_kvstore:
+                return
+        kv = self._kvstore
+        if self._update_on_kvstore:
+            # the stale rule before the store updates anything
+            self._stale_check(keys, ignore_stale_grad)
+            for i in keys:
+                kv.push(i, self._params[i].grad)
+            self._pushed = keys
+            return
+        grads = [self._params[i].grad for i in keys]
+        kv.pushpull_list(keys, grads)
+        if mean:
+            for g in grads:
+                g.div_(_dist.size())
+
+    def _agree_fresh(self, group, n) -> List[int]:
+        """The indices of the parameters some rank's backward reached
+        (one MAX all-reduce of the fresh flags over ``group`` when ``n``
+        >= 2); a rank that missed one of them takes zeros as its fresh
+        gradient."""
+        local = [p.fresh_grad and p.grad is not None for p in self._params]
         if n < 2:
-            return
-        fresh = torch.tensor([p.fresh_grad and p.grad is not None
-                              for p in self._params], dtype=torch.int32,
+            return [i for i, f in enumerate(local) if f]
+        fresh = torch.tensor(local, dtype=torch.int32,
                              device=self._params[0].device)
         dist.all_reduce(fresh, op=dist.ReduceOp.MAX, group=group)
-        for p, anywhere in zip(self._params, fresh.tolist()):
+        keys = []
+        for i, (p, anywhere) in enumerate(zip(self._params, fresh.tolist())):
             if not anywhere:
                 continue
-            if not (p.fresh_grad and p.grad is not None):
+            if not local[i]:
                 p.grad = torch.zeros_like(p)
                 p.fresh_grad = True
-            dist.all_reduce(p.grad, group=group)
+            keys.append(i)
+        return keys
+
+    def _group_reduce(self, mean, mesh) -> List[int]:
+        """One all-reduce a gradient fresh on some rank, over ``mesh``'s
+        group (else the active mesh's, else the default group); the
+        indices of the fresh ones."""
+        n = 1
+        if _dist.size() >= 2:
+            mesh = mesh or current_mesh()
+            n = mesh.size if mesh is not None else _dist.size()
+        group = mesh.group if n >= 2 and mesh is not None else None
+        keys = self._agree_fresh(group, n)
+        if n < 2:
+            return keys
+        for i in keys:
+            g = self._params[i].grad
+            dist.all_reduce(g, group=group)
             if mean:
-                p.grad.div_(n)
+                g.div_(n)
+        return keys
+
+    def _stale_error(self, i) -> MXNetError:
+        return MXNetError(
+            f"gradient of parameter {self._param_names[i]} has not been "
+            "updated by backward since the last step; set "
+            "ignore_stale_grad=True to suppress")
+
+    def _stale_check(self, fresh, ignore_stale_grad):
+        stale = set(range(len(self._params))) - set(fresh)
+        if stale and not ignore_stale_grad:
+            raise self._stale_error(min(stale))
 
     def update(self, batch_size: int, ignore_stale_grad: bool = False):
-        """Apply the optimizer only (gradients assumed reduced)."""
+        """Apply the optimizer only (gradients assumed reduced; under
+        ``update_on_kvstore`` pull what the store updated)."""
+        self._init_kvstore()
         self._optimizer.rescale_grad = self._scale / batch_size
         self._update(ignore_stale_grad)
 
     def _update(self, ignore_stale_grad=False):
+        if self._update_on_kvstore:
+            # the store ran the optimizer on push: pull the new weights
+            for i in self._pushed:
+                p = self._params[i]
+                self._kvstore.pull(i, out=p)
+                p.fresh_grad = False
+                if p.grad_req == "write":
+                    p.grad = None
+            self._pushed = []
+            return
         idxs, grads, datas = [], [], []
         for i, p in enumerate(self._params):
             if not p.fresh_grad:
                 if not ignore_stale_grad:
-                    raise MXNetError(
-                        f"gradient of parameter {self._param_names[i]} has "
-                        "not been updated by backward since the last step; "
-                        "set ignore_stale_grad=True to suppress")
+                    raise self._stale_error(i)
                 continue      # a stale parameter is skipped, not re-applied
             idxs.append(i)
             grads.append(p.grad)

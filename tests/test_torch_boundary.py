@@ -58,7 +58,8 @@ def test_package_has_its_modules():
               "serving/resilience.py", "serving/kvcache.py",
               "serving/decode.py", "gluon/gqa_decoder.py",
               "parallel/dist.py", "parallel/mesh.py",
-              "parallel/collectives.py", "kvstore/base.py",
+              "parallel/collectives.py", "parallel/compression.py",
+              "kvstore/base.py",
               "kvstore/kvstore.py", "ops/kernels/opt_update.py",
               "amp/__init__.py", "amp/loss_scaler.py", "ops/registry.py",
               "testing/__init__.py", "testing/faults.py",

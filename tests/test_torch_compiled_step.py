@@ -182,6 +182,141 @@ def test_optimizer_keywords_build_and_update_alike(name, kw):
 
 
 # ---------------------------------------------------------------------------
+# compile_step's keyword surface
+# ---------------------------------------------------------------------------
+
+class JDrop(JHybridBlock):
+    def __init__(self):
+        super().__init__()
+        self.a = jnn.Dense(5, in_units=4)
+        self.d = jnn.Dropout(0.5)
+        self.b = jnn.Dense(3, in_units=5)
+
+    def hybrid_forward(self, F, x):
+        return self.b(self.d(self.a(x)))
+
+
+class TDrop(torch.nn.Module):
+    def __init__(self):
+        super().__init__()
+        self.a = Dense(5, in_units=4, device="cpu")
+        self.d = Dropout(0.5)
+        self.b = Dense(3, in_units=5, device="cpu")
+
+    def forward(self, x):
+        return self.b(self.d(self.a(x)))
+
+
+def _drop_pair(seed=0):
+    jnet, tnet = JDrop(), TDrop()
+    jnet.initialize()
+    r = onp.random.RandomState(seed)
+    params = {k: r.uniform(-0.5, 0.5, tuple(p.shape)).astype("f4")
+              for k, p in tnet.named_parameters()}
+    load_jax_params(tnet, params)
+    for k, p in jnet.collect_params().items():
+        p.set_data(mx.nd.array(params[k]))
+    return jnet, tnet
+
+
+@pytest.mark.parametrize("donate", [True, False])
+def test_compile_step_keywords_build_and_train_alike(donate):
+    """The JAX package's compile_step signature: ``donate`` (nothing to
+    donate in a graph, accepted) and ``train_mode=False`` (the dropout
+    layer runs as in eval mode, though the module is in training mode)
+    build and train in both packages alike, three Adam steps within
+    TOL; with ``train_mode`` True the same net draws masks, and the flag
+    is the signature's first field. ``analyze``, ``numerics`` and
+    ``autotune`` raise, naming the queue item that ports them."""
+    jnet, tnet = _drop_pair()
+    kw = {"learning_rate": 0.01}
+    jtr = JTrainer(jnet.collect_params(), "adam", dict(kw))
+    ttr = TTrainer(dict(tnet.named_parameters()), "adam", dict(kw))
+    jlb, tlb = jloss.SoftmaxCrossEntropyLoss(), tloss.SoftmaxCrossEntropyLoss()
+    jstep = jtr.compile_step(lambda a, b: jlb(jnet(a), b), donate=donate,
+                             train_mode=False)
+    tstep = ttr.compile_step(lambda a, b: tlb(tnet(a), b), donate=donate,
+                             train_mode=False)
+    assert tnet.training
+    for s in (1, 2, 3):
+        x, y = _batch(seed=s)
+        _close(tstep(x, y), jstep(mx.nd.array(x), mx.nd.array(y)))
+    _same_params(jnet, tnet)
+    assert tstep.mode == "fused" and tstep.n_traces == 1
+    assert tstep._sig_history[-1][0] == (False,)
+    # from the same weights, train_mode True draws masks: another loss
+    losses = []
+    for train_mode in (False, True):
+        _, net = _drop_pair()
+        tr = TTrainer(dict(net.named_parameters()), "adam", dict(kw))
+        step = tr.compile_step(lambda a, b: tlb(net(a), b), donate=donate,
+                               train_mode=train_mode)
+        losses.append(step(*_batch(seed=1)))
+        assert step._sig_history[-1][0] == (train_mode,)
+    assert not torch.equal(losses[0], losses[1])
+    for name in ("analyze", "numerics", "autotune"):
+        with pytest.raises(mxt.MXNetError, match="queue 1, item 7"):
+            ttr.compile_step(lambda a: a, **{name: "on"})
+
+
+@pytest.mark.parametrize("where", ["loss", "update"])
+def test_first_call_falls_back_only_when_the_loss_fails(monkeypatch, where):
+    """A first call whose loss fails inside the step's program (on a card,
+    a loss that syncs with the host cannot be captured; here it raises
+    once) falls back to the eager step, as the JAX package's first
+    failed trace does (its loss reads a value to the host): three calls
+    of each package within TOL, Adam's first real step at t = 1. A first
+    call whose update fails (the ``opt_update`` wrapper raising, as a
+    kernel that does not build or launch would) raises ``MXNetError``
+    instead: the eager step would not run that kernel. It then updates
+    and counts nothing and the step stays fused; with the wrapper back,
+    the next call is the first step."""
+    jnet, tnet = _two_pair()
+    kw = {"learning_rate": 0.01}
+    tp = _reached(dict(tnet.named_parameters()))
+    jp = {k: p for k, p in jnet.collect_params().items() if k in tp}
+    jtr, ttr = JTrainer(jp, "adam", dict(kw)), TTrainer(tp, "adam", dict(kw))
+    jlb, tlb = jloss.SoftmaxCrossEntropyLoss(), tloss.SoftmaxCrossEntropyLoss()
+    fails = [1 if where == "loss" else 0]
+
+    def tloss_fn(a, b):
+        out = tnet(a)
+        if fails[0]:
+            fails[0] -= 1
+            raise RuntimeError("operation not permitted when stream is "
+                               "capturing")
+        return tlb(out, b)
+
+    def jloss_fn(a, b):
+        out = jnet(a)
+        if where == "loss":
+            _ = float(out.asnumpy().sum())
+        return jlb(out, b)
+
+    jstep, tstep = jtr.compile_step(jloss_fn), ttr.compile_step(tloss_fn)
+    if where == "update":
+        before = {k: p.detach().clone() for k, p in tp.items()}
+
+        def launch_fails(*a, **k):
+            raise RuntimeError("opt_update: the kernel did not launch")
+
+        with monkeypatch.context() as m:
+            m.setattr(topu, "unit_update", launch_fails)
+            with pytest.raises(mxt.MXNetError, match="did not launch"):
+                tstep(*_batch(seed=1))
+        assert tstep.mode == "fused"
+        assert ttr.optimizer._index_update_count == {}
+        assert all(torch.equal(p, before[k]) for k, p in tp.items())
+    for s in (1, 2, 3):
+        x, y = _batch(seed=s)
+        _close(tstep(x, y), jstep(mx.nd.array(x), mx.nd.array(y)))
+    _same_params(jnet, tnet)
+    assert tstep.mode == jstep.mode == \
+        ("eager" if where == "loss" else "fused")
+    assert ttr.optimizer._index_update_count == {i: 3 for i in range(4)}
+
+
+# ---------------------------------------------------------------------------
 # models, against the JAX package's compile_step
 # ---------------------------------------------------------------------------
 

@@ -1413,6 +1413,152 @@ def test_captured_step_launches_counted_once_a_replay_on_card(cuda_dev,
     assert tr.optimizer.num_update == 3 and step.n_traces == 1
 
 
+def _syncing_loss(net, lb, sync_rows=None):
+    """A loss that reads a number back to the host (``.item()``), which
+    no CUDA graph can capture: always, or only for a batch of
+    ``sync_rows`` rows."""
+    def loss_fn(a, b):
+        out = net(a)
+        if sync_rows is None or a.shape[0] == sync_rows:
+            _ = float(out.sum().item())
+        return lb(out, b)
+    return loss_fn
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("opt,kw", [
+    ("sgd", {"learning_rate": 0.1, "momentum": 0.9}),
+    ("adam", {"learning_rate": 1e-2})])
+def test_failed_first_capture_falls_back_to_eager_on_card(cuda_dev, opt,
+                                                          kw):
+    """The first call's capture fails: the step runs eagerly from then
+    on, as the JAX package's first failed trace does. Three calls equal
+    three eager steps bit for bit (the same kernels), the dropout masks
+    included (the generator the warm-up and the failed capture drew from
+    is put back), and Adam's first real step has t = 1: the counts are
+    3 after three calls."""
+    from mxnet_tpu_torch.gluon import Trainer
+    from mxnet_tpu_torch.gluon.nn import Dropout
+    runs = []
+    for compiled in (True, False):
+        net, lb, x, y = _dense_on(cuda_dev)
+        net = torch.nn.Sequential(net[0], Dropout(0.1), net[1])
+        tr = Trainer(dict(net.named_parameters()), opt, dict(kw))
+        loss_fn = _syncing_loss(net, lb)
+        torch.cuda.manual_seed(11)
+        if compiled:
+            step = tr.compile_step(loss_fn)
+            losses = [step(x, y).cpu() for _ in range(3)]
+            assert step.mode == "eager" and step.n_traces == 0
+        else:
+            losses = []
+            for _ in range(3):
+                loss = loss_fn(x, y)
+                loss.sum().backward()
+                tr.step(x.shape[0])
+                losses.append(loss.detach().cpu())
+        assert tr.optimizer._index_update_count == {i: 3 for i in range(4)}
+        runs.append(losses + [p.detach().cpu() for p in net.parameters()])
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_a_later_capture_failure_raises_on_card(cuda_dev):
+    """Once a program ran, a capture that fails (a new batch signature
+    whose loss syncs) raises, updates nothing and counts nothing; the
+    step stays captured and replays its first signature."""
+    net, lb, x, y = _dense_on(cuda_dev)
+    tr, _ = _compiled(net, lb)
+    step = tr.compile_step(_syncing_loss(net, lb, sync_rows=32))
+    step(x, y)
+    step(x, y)
+    assert step.mode == "fused" and step.n_traces == 1
+    before = [p.detach().clone() for p in net.parameters()]
+    counts = dict(tr.optimizer._index_update_count)
+    with pytest.raises(mxt.MXNetError, match="capture of"):
+        step(x[:32], y[:32])
+    assert step.mode == "fused" and step.n_traces == 1
+    assert tr.optimizer._index_update_count == counts
+    assert all(torch.equal(a, b) for a, b in zip(before, net.parameters()))
+    step(x, y)
+    assert tr.optimizer.num_update == 3
+    assert not any(torch.equal(a, b)
+                   for a, b in zip(before, net.parameters()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("split", [False, True])
+def test_a_failed_update_capture_raises_on_card(cuda_dev, monkeypatch,
+                                                split):
+    """The first call's capture of the update fails (the ``opt_update``
+    wrapper raises inside the capture, as a kernel that does not build or
+    launch would): the step raises ``MXNetError`` and does not fall back
+    to the eager step, which would not run that kernel; nothing is
+    updated or counted and the mode stays fused, in the one-graph program
+    and in the split program's update graph. With the wrapper back the
+    next call captures and is the first step."""
+    from mxnet_tpu_torch.gluon import Trainer
+    from mxnet_tpu_torch.kvstore import KVStoreDist
+    from mxnet_tpu_torch.ops.kernels import opt_update as topu
+    net, lb, x, y = _dense_on(cuda_dev)
+    kv = KVStoreDist("dist_sync")
+    kv._force_fuse = split
+    tr = Trainer(dict(net.named_parameters()), "adam",
+                 {"learning_rate": 1e-2}, kvstore=kv)
+    step = tr.compile_step(lambda a, b: lb(net(a), b))
+    before = [p.detach().clone() for p in net.parameters()]
+    captured = []
+
+    def launch_fails(*a, **k):
+        captured.append(torch.cuda.is_current_stream_capturing())
+        raise RuntimeError("opt_update: the kernel did not launch")
+
+    with monkeypatch.context() as m:
+        m.setattr(topu, "unit_update", launch_fails)
+        with pytest.raises(mxt.MXNetError, match="did not launch"):
+            step(x, y)
+    assert captured == [True]
+    assert step.mode == "fused" and step._split is split
+    assert tr.optimizer._index_update_count == {}
+    assert all(torch.equal(a, b) for a, b in zip(before, net.parameters()))
+    step(x, y)
+    assert tr.optimizer.num_update == 1
+    assert not any(torch.equal(a, b)
+                   for a, b in zip(before, net.parameters()))
+
+
+@pytest.mark.cuda
+def test_split_program_two_graphs_equal_the_fused_step_on_card(cuda_dev):
+    """A dist store that cannot reduce in-program (``_force_fuse`` in one
+    process) takes the split program: two graphs (gradients, update),
+    the store's ``pushpull_list`` between them, one ``opt_update`` a
+    parameter a step; its weights and losses equal the one-graph fused
+    step's bit for bit (every kernel here is deterministic, and one
+    process's sum is the gradient itself)."""
+    from mxnet_tpu_torch.gluon import Trainer
+    from mxnet_tpu_torch.kvstore import KVStoreDist
+    runs = []
+    for split in (True, False):
+        net, lb, x, y = _dense_on(cuda_dev)
+        kv = KVStoreDist("dist_sync")
+        kv._force_fuse = split
+        tr = Trainer(dict(net.named_parameters()), "adam",
+                     {"learning_rate": 1e-2}, kvstore=kv)
+        step = tr.compile_step(lambda a, b: lb(net(a), b))
+        step.aot_compile(x, y)
+        K.reset_launch_counts()
+        losses = [step(x, y).cpu() for _ in range(3)]
+        torch.cuda.synchronize()
+        assert step.mode == "fused" and step._split is split
+        assert len(step._programs) == (2 if split else 1)
+        assert K.launch_counts()["opt_update"] == 3 * len(tr._params)
+        assert step.n_traces == 1 and kv.stats["collectives"] == 0
+        runs.append(losses + [p.detach().cpu() for p in net.parameters()])
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
 _FIRST_LAUNCH_IN_CAPTURE = """
 import os, sys
 import torch

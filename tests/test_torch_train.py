@@ -376,8 +376,12 @@ def test_trainer_learning_rate_and_kvstore():
     tr.set_learning_rate(0.1)
     assert tr.learning_rate == 0.1 and tr.optimizer.lr == 0.1
     tr.allreduce_grads()
-    with pytest.raises(mxt.MXNetError, match="kvstore"):
-        TTrainer(list(tnet.parameters()), "sgd", kvstore="dist_sync")
+    # the dist store builds; in one process it may reduce in-program
+    dist_tr = TTrainer(list(tnet.parameters()), "sgd", kvstore="dist_sync")
+    assert type(dist_tr._kvstore).__name__ == "KVStoreDist"
+    assert dist_tr._kvstore.in_program_reduce
+    with pytest.raises(mxt.MXNetError, match="unknown kvstore"):
+        TTrainer(list(tnet.parameters()), "sgd", kvstore="dist_nowhere")
     with pytest.raises(mxt.MXNetError, match="dict or list"):
         TTrainer(tnet.parameters(), "sgd")
     with pytest.raises(mxt.MXNetError, match="zero_shard"):

@@ -718,8 +718,12 @@ def test_zero_shard_true_without_dp_world_raises_like_jax():
         "of size >= 2"
     with pytest.raises(mxt.MXNetError, match="needs 4 ranks"):
         tmake_mesh({"dp": 4})
-    with pytest.raises(mxt.MXNetError, match="only a single-process"):
-        TTrainer(dict(tnet.named_parameters()), "sgd", kvstore="dist_sync")
+    dist_kv = TTrainer(dict(tnet.named_parameters()), "sgd",
+                       kvstore="dist_sync")._kvstore
+    assert type(dist_kv).__name__ == "KVStoreDist" and \
+        dist_kv.in_program_reduce and dist_kv.in_program_reduce_scatter
+    with pytest.raises(mxt.MXNetError, match="unknown kvstore"):
+        TTrainer(dict(tnet.named_parameters()), "sgd", kvstore="dist_x")
     assert TTrainer(dict(tnet.named_parameters()), "sgd",
                     kvstore="tpu")._kvstore.in_program_reduce_scatter
 
