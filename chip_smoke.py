@@ -17,6 +17,7 @@
     python3 chip_smoke.py --dist-kv     # phases 1, 2 and 13 alone (its
                                         # legs across cards on two or
                                         # more)
+    python3 chip_smoke.py --resnet      # phases 1, 2 and 14 alone
     python3 chip_smoke.py --compare DIR  # A/B on one card: the flash
         # forward, the flash backward (fused at BERT training's shape;
         # dq, dkv at phase 7's), the recurrence kernels, the LayerNorm
@@ -296,19 +297,45 @@ Phases, each of which fails the run (non-zero exit) when it fails:
     updater; (c) fp16 (within FP16_MOVED_RTOL of (a)) and 2bit (finite,
     non-zero residuals) compression, three steps each; (d)
     ``dist_async``: no wait, within the spread of (a)'s runs, and on
-    phase 8b's Dense-only widths bit-equal to ``dist_sync``.
+    phase 8b's Dense-only widths bit-equal to ``dist_sync``;
+14. the convolutional path: ``resnet50_v1`` (1000 classes, seeded
+    He-normal weights) trained as ``bench.py bench_resnet`` trains it
+    (batch 128 x 224 x 224 numpy-uniform images, SGD momentum 0.9 at lr
+    0.1), ten steps through ``TrainLoop`` over ``compile_step`` (one
+    captured graph a step), in float32 (TF32 off for products and
+    convolutions) and under bf16 amp, each in phase 6's turns against the
+    eager loop (capture s, ``n_traces``, median step ms, images/s, peak
+    allocated and reserved memory; the replays within twice the body
+    runs' spread: cuDNN's default backward algorithms may sum with
+    atomics; the 2x-lr control failing): finite falling losses, exactly
+    161 ``opt_update`` launches a step in float32 and nothing else of the
+    library (convolutions, pooling and BatchNorm are cuDNN's), and two
+    training-mode backward passes at 4 x 64 x 64 on a card copy and a CPU
+    copy (float64 under amp) of the net after its first step: the
+    gradients of every parameter and then every running statistic within
+    phase 6's bound (bf16: phase 6b's of float64; the same check of the
+    ten-step net printed, not held). Then the float32-trained net served in eval mode through
+    ``predictor_for(net, "float32")`` and ``"bfloat16"`` (bfloat16
+    images, its BatchNorms float32), one graph a bucket 1-128: bucket
+    128's replay bit-equal to the net called eagerly, its first rows
+    against a CPU copy converted the same way (float32 within 2e-4 of
+    the largest logit, at least 1; bf16 within 5e-2 of the largest) with
+    their top-1, images/s at buckets 32 and 128, one profiled bucket-128
+    micro-batch's busy share, peak memory.
 
 ``{"launch_counts": {...}, "bf16_launch_counts": {...},
-"dist_kv_launch_counts": {...}}`` gives each kernel's launches on its
-path, on its bf16 path where it has one, and on phase 13's one-card path.
+"dist_kv_launch_counts": {...}, "resnet_launch_counts": {...}}`` gives
+each kernel's launches on its path, on its bf16 path where it has one,
+on phase 13's one-card path and on phase 14's float32 and bf16 paths.
 The line before the last is a JSON object with one entry per kernel
 (launches on its float32 path, error, times, bound; then its bf16 path,
 bf16 launches there, and its bf16 error, times and bound; ``rnn_decode``
 at decode_wide's N 8 x H 650, ``opt_update`` at the word embedding in
-the device form, with its launches on phase 6's one-card path); the
-last line is
+the device form, with its launches on phase 6's one-card path and on
+phase 14's, ``resnet50_launches``); the last line is
 ``{"ok": true, "device": {...}}``.
 """
+import gc
 import json
 import math
 import os
@@ -1373,14 +1400,16 @@ def time_decode_kernel(torch, K, KR, timed):
 
 def param_grads(torch, net, loss_fn, x, y):
     """One backward of ``loss_fn`` at (x, y) (numpy) on ``net`` in eval
-    mode (dropout off): {name: gradient on the CPU, in its dtype}."""
+    mode (dropout off, BatchNorm on its running statistics): {name:
+    gradient on the CPU, in its dtype} of every trainable parameter."""
     net.eval()
     dev = next(net.parameters()).device
     for p in net.parameters():
         p.grad = None
     loss_fn(net(torch.from_numpy(x).to(dev)),
             torch.from_numpy(y).to(dev)).sum().backward()
-    return {n: p.grad.detach().cpu() for n, p in net.named_parameters()}
+    return {n: p.grad.detach().cpu() for n, p in net.named_parameters()
+            if p.requires_grad}
 
 
 def grad_scales(ref, scale_of=None):
@@ -1667,9 +1696,13 @@ def run_train_steps(torch, K, step, x, y, steps, by_dtype=False):
 #: then the step's body run eagerly BODY_RUNS times from that state, which
 #: the replays must equal: bit for bit where every kernel is deterministic,
 #: else within CKPT_SPREAD_FACTOR of the body runs' own spread (BERT's fused
-#: backward sums dq by atomics)
+#: backward sums dq by atomics). Three body runs, as phase 6c's CKPT_RUNS:
+#: a replay is one more draw of the same spread, and the losses differ
+#: by a few float32 ulps, so one measured distance between two body runs
+#: (one ulp of the loss in one H100 run, against 2.5 for a replay) is too
+#: small a sample to hold a third draw to
 TRAIN_TURNS = ("captured", "eager", "eager", "captured")
-BODY_RUNS = 2
+BODY_RUNS = 3
 #: the replays against the eager loop (its ``Trainer.step`` updates
 #: through ``Optimizer._apply``, apart from the graph's code): the nearest
 #: eager run's losses (largest step difference) and weights (rms
@@ -1748,18 +1781,20 @@ def vs_eager(eager, noise, w0, losses, w):
 
 
 def train_turns(torch, K, build, x, y, steps, tokens, exact,
-                by_dtype=False):
+                by_dtype=False, loop=False, unit="tokens"):
     """Captured against eager in TRAIN_TURNS, then BODY_RUNS runs of the
     step's body and one control run, ``steps`` steps each on a fresh
     ``build()`` (net, trainer, loss; the dropout reseeded). A captured,
     body or control run first captures its signature (``aot_compile``:
-    its capture seconds and ``n_traces``, again after the steps). Per
+    its capture seconds and ``n_traces``, again after the steps); with
+    ``loop`` its step is a ``gluon.TrainLoop``'s (over the same
+    ``compile_step``), and a captured run calls ``TrainLoop.step``. Per
     run: the losses, step ms and their median after the first step,
-    tokens/s, peak allocated and reserved memory. Returns the report
-    (``ok``: one capture a step object, the replays' weights and losses
-    against the body runs' and against the eager runs'
-    (:func:`vs_eager`), and the control run failing that gate), the
-    first captured run's (net, trainer, loss_fn) and its
+    ``tokens`` a step as ``unit``/s, peak allocated and reserved memory.
+    Returns the report (``ok``: one capture a step object, the replays'
+    weights and losses against the body runs' and against the eager
+    runs' (:func:`vs_eager`), and the control run failing that gate),
+    the first captured run's (net, trainer, loss_fn) and its
     :func:`run_train_steps` result, on which the phase's own gates
     hold."""
     import numpy as np
@@ -1775,19 +1810,27 @@ def train_turns(torch, K, build, x, y, steps, tokens, exact,
         if kind == "eager":
             fn = plain_step(net, trainer, loss_fn)
         else:
-            step = trainer.compile_step(
-                lambda a, b, net=net, lf=loss_fn: lf(net(a), b))
+            if loop:
+                from mxnet_tpu_torch.gluon import TrainLoop
+                tloop = TrainLoop(net, trainer, loss_fn)
+                step = tloop.compiled_step
+            else:
+                tloop = None
+                step = trainer.compile_step(
+                    lambda a, b, net=net, lf=loss_fn: lf(net(a), b))
             t0 = time.perf_counter()
             step.aot_compile(x, y)
             torch.cuda.synchronize()
             rec.update(mode=step.mode, capture_s=time.perf_counter() - t0,
                        n_traces_after_warmup=step.n_traces)
-            fn = step if kind == "captured" else body_step(step) \
-                if kind == "body" else control_step(step, np)
+            fn = (tloop.step if loop else step) if kind == "captured" \
+                else body_step(step) if kind == "body" \
+                else control_step(step, np)
+            del tloop
         out = run_train_steps(torch, K, fn, x, y, steps, by_dtype=by_dtype)
         med = statistics.median(out[1][1:])
         rec.update(losses=out[0], step_ms=out[1], median_step_ms=med,
-                   tokens_per_s=tokens / (med / 1e3),
+                   **{f"{unit}_per_s": tokens / (med / 1e3)},
                    max_memory_allocated=torch.cuda.max_memory_allocated(),
                    max_memory_reserved=torch.cuda.max_memory_reserved())
         if step is not None:
@@ -1796,6 +1839,9 @@ def train_turns(torch, K, build, x, y, steps, tokens, exact,
         if first is None:
             first = (net, trainer, loss_fn), out
         del net, trainer, loss_fn, step, fn, out
+        # a dropped step's captured program (and its graph pool) sits in
+        # reference cycles until the cyclic collector runs
+        gc.collect()
     body = [(dict(enumerate(r["losses"])), w) for r, w in runs
             if r["kind"] == "body"]
     vs_body = []
@@ -1837,7 +1883,7 @@ def train_turns(torch, K, build, x, y, steps, tokens, exact,
                         for r, _ in runs],
               "ok": one_capture and agree and replays_ok and control_fails}
     for kind in ("captured", "eager"):
-        for key in ("median_step_ms", "tokens_per_s",
+        for key in ("median_step_ms", f"{unit}_per_s",
                     "max_memory_allocated", "max_memory_reserved"):
             report[f"{kind}_{key}"] = side(kind, key)
     report["capture_s"] = side("captured", "capture_s")
@@ -1852,6 +1898,10 @@ FAMILIES = (("flash_fwd", ("flash_fwd",)), ("flash_bwd", ("flash_bwd",)),
             ("rnn_scan_fwd", ("rnn_scan_fwd",)),
             ("rnn_scan_bwd", ("rnn_bwd_walk", "rnn_gemm")),
             ("rnn_decode", ("rnn_decode",)),
+            ("conv", ("conv", "fprop", "dgrad", "wgrad", "nchwtonhwc",
+                      "nhwctonchw")),
+            ("batch_norm", ("bn_fw", "bn_bw", "batch_norm", "batchnorm")),
+            ("pool", ("pool",)),
             ("gemm", ("gemm", "cutlass", "gemv", "nvjet")))
 
 
@@ -2602,9 +2652,11 @@ def param_check_us(programs, n=1000):
     return (time.perf_counter() - t0) / n * 1e6
 
 
-def profile_bucket(torch, np, pred, smi, bucket=SERVE_MAX_BATCH, iters=5):
+def profile_bucket(torch, np, pred, smi, bucket=SERVE_MAX_BATCH, iters=5,
+                   x=None):
     """``--profile``: where the time of one served micro-batch goes, on
-    the bucket's captured program. Unprofiled, ``iters`` predicts each
+    the bucket's captured program (``x``: the batch, BERT token rows of
+    SERVE_SEQ when None). Unprofiled, ``iters`` predicts each
     from an idle device: wall ms (to the synchronize) and host ms (the
     predict call alone: input copy, replay, output copy); the device ms
     of ``iters`` back-to-back predicts between CUDA events; then
@@ -2614,9 +2666,10 @@ def profile_bucket(torch, np, pred, smi, bucket=SERVE_MAX_BATCH, iters=5):
     the check that the parameters did not move (:func:`param_check_us`)."""
     from torch.profiler import ProfilerActivity, profile
 
-    vocab = pred.net.bert.word_embed.weight.shape[0]
-    x = np.random.RandomState(2).randint(0, vocab, (bucket, SERVE_SEQ)) \
-        .astype(np.int64)
+    if x is None:
+        vocab = pred.net.bert.word_embed.weight.shape[0]
+        x = np.random.RandomState(2).randint(
+            0, vocab, (bucket, SERVE_SEQ)).astype(np.int64)
     pred.predict(x)
     torch.cuda.synchronize()
     wall, host = [], []
@@ -2643,8 +2696,8 @@ def profile_bucket(torch, np, pred, smi, bucket=SERVE_MAX_BATCH, iters=5):
         wall_us = (time.perf_counter() - t0) * 1e6
     families = device_us_by_family(torch, prof)
     busy = sum(families.values())
-    emit({"profile": {
-        "bucket": bucket, "seq": SERVE_SEQ, "iters": iters,
+    report = {
+        "bucket": bucket, "shape": list(x.shape), "iters": iters,
         "dtype": str(next(pred.net.parameters()).dtype),
         "wall_ms": wall, "host_ms": host,
         "device_ms_per_batch_events": start.elapsed_time(end) / iters,
@@ -2656,7 +2709,9 @@ def profile_bucket(torch, np, pred, smi, bucket=SERVE_MAX_BATCH, iters=5):
         "device_busy_share_unprofiled": busy / iters / 1e3
         / statistics.median(wall) if busy else "not measured",
         "param_check_us": param_check_us(pred._programs),
-        "n_traces": pred.n_traces, "card": smi}})
+        "n_traces": pred.n_traces, "card": smi}
+    emit({"profile": report})
+    return report
 
 
 def run_encoder(torch, np, K, dev):
@@ -3512,34 +3567,35 @@ def time_opt_case(torch, KO, dn, rec, args):
     return ("opt_update", dn), t_rec
 
 
-def time_bert_update(torch, K, KO, dev):
-    """Phase 3: BERT-base's whole one-card float32 Adam update as the
-    captured step runs it (``Optimizer.whole_step_fn``: one
-    ``opt_update`` launch a parameter, lr / wd / t / rescale / clip read
-    from a device block, each parameter its own lr, wd and t there). Its
-    first run is held against the plain version of each parameter's unit
-    on copies of the same inputs, reading the same block: float32 states
-    bit-exact, each weight within 1 ulp. Then it is timed by CUDA-graph
-    replay beside ``torch._fused_adam_`` over the same list (the
-    yardstick; the port never calls it) and the plain version, against
-    the bound: each parameter's w, g, m, v read once and w, m, v written
-    once (28 B an element)."""
-    from mxnet_tpu_torch.optimizer.optimizer import Adam, DeviceHParams
-    net = bert_base_classifier(torch, TRAIN_SEQ, dev)
-    params = [p.detach() for p in net.parameters()]
-    del net
+def time_whole_update(torch, K, KO, dev, what, params, opt, lr, batch,
+                      expect, per_elem, library, library_name):
+    """One card's whole float32 update as the captured step runs it
+    (``Optimizer.whole_step_fn``: one ``opt_update`` launch a parameter,
+    lr / wd / t / rescale / clip read from a device block, each parameter
+    its own lr, wd and t there, every state seeded nonzero). Its first run
+    is held against the plain version of each parameter's unit on copies
+    of the same inputs, reading the same block: float32 states bit-exact,
+    each weight within 1 ulp; a miss, or other than ``expect`` launches,
+    ends the run. Then it is timed by CUDA-graph replay beside
+    ``library(params, grads, states)`` (the yardstick; the port never
+    calls it) and the plain version, against the bound of ``per_elem`` =
+    (bytes, float32 operations) an element: each parameter's weight,
+    gradient and states read once, the weight and states written once."""
+    from mxnet_tpu_torch.optimizer.optimizer import DeviceHParams
     g = torch.Generator(device=dev).manual_seed(11)
     grads = [torch.randn(p.shape, generator=g, device=dev) * 1e-3
              for p in params]
-    opt = Adam(learning_rate=TRAIN_LR)
     states = [opt.create_state(i, p) for i, p in enumerate(params)]
+    for st in states:
+        for s in opt.state_tensors(st):
+            s.copy_(torch.rand(s.shape, generator=g, device=dev) * 1e-3)
     n_p = len(params)
     hp = DeviceHParams(n_p, dev)
-    hp.stage([TRAIN_LR * (1 + (i % 7) / 7) for i in range(n_p)],
+    hp.stage([lr * (1 + (i % 7) / 7) for i in range(n_p)],
              [0.01 * (i % 3) for i in range(n_p)],
-             [1 + i % 5 for i in range(n_p)], 1.0 / TRAIN_BATCH, 0.0)
+             [1 + i % 5 for i in range(n_p)], 1.0 / batch, 0.0)
     lrs, wds, ts = hp.per_param()
-    cfg = KO.opt_kernel_kind(opt)[1]
+    kind, cfg = KO.opt_kernel_kind(opt)
     w_in = [p.clone() for p in params]
     st_in = [tuple(s.clone() for s in opt.state_tensors(st))
              for st in states]
@@ -3551,7 +3607,7 @@ def time_bert_update(torch, K, KO, dev):
     worst_ulps, worst_state, bad = 0.0, 0.0, []
     for i, (w, gr, st) in enumerate(zip(params, grads, states)):
         pw, ps = KO.unit_update_plain(
-            "adam", cfg, w_in[i].reshape(-1), gr.reshape(-1), lrs[i],
+            kind, cfg, w_in[i].reshape(-1), gr.reshape(-1), lrs[i],
             wds[i], ts[i], hp.rescale, hp.clip,
             tuple(s.reshape(-1) for s in st_in[i]))
         ulps = opt_weight_ulps(torch, w.reshape(-1), pw, w_in[i].reshape(-1))
@@ -3565,35 +3621,27 @@ def time_bert_update(torch, K, KO, dev):
     del w_in, st_in
     lib_states = [tuple(s.clone() for s in opt.state_tensors(st))
                   for st in states]
-    steps = [torch.ones((), device=dev) for _ in params]
 
     def plain_update():
         for i, (w, gr, st) in enumerate(zip(params, grads, states)):
-            KO.unit_update_plain("adam", cfg, w.reshape(-1), gr.reshape(-1),
+            KO.unit_update_plain(kind, cfg, w.reshape(-1), gr.reshape(-1),
                                  lrs[i], wds[i], ts[i], hp.rescale, hp.clip,
                                  tuple(s.reshape(-1)
                                        for s in opt.state_tensors(st)))
 
-    def library():
-        torch._fused_adam_(params, grads, [s[0] for s in lib_states],
-                           [s[1] for s in lib_states], [], steps,
-                           lr=TRAIN_LR, beta1=0.9, beta2=0.999,
-                           weight_decay=0.0, eps=1e-8, amsgrad=False,
-                           maximize=False)
-
     ms, eager_ms = time_ms(torch, lambda: update(grads), [()], iters=10)
     plain_ms, _ = time_ms(torch, plain_update, [()], iters=3, replays=2)
     try:
-        library_ms, library_eager_ms = time_ms(torch, library, [()],
-                                               iters=10)
+        library_ms, library_eager_ms = time_ms(
+            torch, lambda: library(params, grads, lib_states), [()],
+            iters=10)
         lib_err = None
     except Exception as e:    # the yardstick only: the port never calls it
         library_ms = library_eager_ms = None
         lib_err = f"{type(e).__name__}: {e}"[:300]
     n = sum(p.numel() for p in params)
-    b_ms, b_by = bound_ms(28 * n, 20.0 * n, "float32")
-    rec = {"what": "bert_base classifier Adam update, one card, float32",
-           "parameters": n_p, "elements": n,
+    b_ms, b_by = bound_ms(per_elem[0] * n, per_elem[1] * n, "float32")
+    rec = {"what": what, "parameters": n_p, "elements": n,
            "opt_update_launches": launches,
            "vs_plain": {"float32_weight_ulps": worst_ulps,
                         "float32_state_max_abs_err": worst_state,
@@ -3601,12 +3649,71 @@ def time_bert_update(torch, K, KO, dev):
            "ms": ms, "eager_ms": eager_ms,
            "plain_ms": plain_ms, "library_ms": library_ms,
            "library_eager_ms": library_eager_ms, "library_error": lib_err,
-           "library": "torch._fused_adam_ over the same list",
-           "bound_ms": b_ms, "bound_by": b_by, "bytes": 28 * n,
-           "ok": launches == n_p == BERT_BASE_TRAINABLE and not bad}
+           "library": library_name,
+           "bound_ms": b_ms, "bound_by": b_by, "bytes": per_elem[0] * n,
+           "ok": launches == n_p == expect and not bad}
+    return rec
+
+
+def time_bert_update(torch, K, KO, dev):
+    """Phase 3: BERT-base's whole one-card float32 Adam update
+    (:func:`time_whole_update`; 28 B and ~20 operations an element),
+    beside ``torch._fused_adam_`` over the same list."""
+    from mxnet_tpu_torch.optimizer.optimizer import Adam
+    net = bert_base_classifier(torch, TRAIN_SEQ, dev)
+    params = [p.detach() for p in net.parameters()]
+    del net
+    steps = [torch.ones((), device=dev) for _ in params]
+
+    def library(params, grads, states):
+        torch._fused_adam_(params, grads, [s[0] for s in states],
+                           [s[1] for s in states], [], steps,
+                           lr=TRAIN_LR, beta1=0.9, beta2=0.999,
+                           weight_decay=0.0, eps=1e-8, amsgrad=False,
+                           maximize=False)
+
+    rec = time_whole_update(
+        torch, K, KO, dev, "bert_base classifier Adam update, one card, "
+        "float32", params, Adam(learning_rate=TRAIN_LR), TRAIN_LR,
+        TRAIN_BATCH, BERT_BASE_TRAINABLE, (28, 20.0), library,
+        "torch._fused_adam_ over the same list")
     emit({"bert_update_graph": rec})
     if not rec["ok"]:
         raise SystemExit(f"the one-card BERT-base update failed: {rec}")
+    return rec
+
+
+def time_resnet_update(torch, K, KO, dev):
+    """Phase 14: resnet50_v1's whole one-card float32 SGD-momentum update
+    over its RESNET50_TRAINABLE parameters, 64 to 2,359,296 values each
+    (:func:`time_whole_update`; w, g, m read and w, m written: 20 B and
+    ~7 operations an element), beside ``torch._fused_sgd_`` over the same
+    list. Under amp the step updates the same float32 parameters."""
+    from mxnet_tpu_torch.gluon.model_zoo.vision import resnet50_v1
+    from mxnet_tpu_torch.optimizer.optimizer import SGD
+    net = resnet50_v1(classes=RESNET_CLASSES, device=dev)
+    params = [p.detach() for p in net.parameters()
+              if getattr(p, "grad_req", "write") != "null"]
+    del net
+
+    def library(params, grads, states):
+        torch._fused_sgd_(params, grads, [s[0] for s in states],
+                          weight_decay=0.0, momentum=RESNET_MOMENTUM,
+                          lr=RESNET_LR, dampening=0.0, nesterov=False,
+                          maximize=False, is_first_step=False)
+
+    rec = time_whole_update(
+        torch, K, KO, dev, "resnet50_v1 SGD-momentum update, one card, "
+        "float32", params, SGD(learning_rate=RESNET_LR,
+                               momentum=RESNET_MOMENTUM), RESNET_LR,
+        RESNET_BATCH, RESNET50_TRAINABLE, (20, 7.0), library,
+        "torch._fused_sgd_ over the same list")
+    rec["sizes"] = [min(p.numel() for p in params),
+                    max(p.numel() for p in params)]
+    emit({"resnet_update_graph": rec})
+    if not rec["ok"]:
+        raise SystemExit(f"phase 14: the one-card resnet50_v1 update "
+                         f"failed: {rec}")
     return rec
 
 
@@ -5426,6 +5533,397 @@ def dist_kv_multi(torch, np, smi, device="cuda", world=None, widths=None,
         raise SystemExit(f"phase 13 (across cards) failed: {report}")
     return report
 
+#: phase 14: bench.py bench_resnet's leg (bench.py:402-442): resnet50_v1
+#: (1000 classes), batch 128 x 224 x 224 numpy-uniform images, SGD with
+#: momentum 0.9 at lr 0.1, in float32 (both TF32 flags off) and under bf16
+#: amp, through TrainLoop over compile_step; RESNET_STEPS steps a run
+RESNET_BATCH, RESNET_SIZE, RESNET_CLASSES = 128, 224, 1000
+RESNET_STEPS, RESNET_LR, RESNET_MOMENTUM = 10, 0.1, 0.9
+#: resnet50_v1's trainable tensors (53 convolutions, 53 BatchNorms' gamma
+#: and beta, the Dense weight and bias; its 106 running statistics are not
+#: updated by the optimizer): one ``opt_update`` each a step
+RESNET50_TRAINABLE = 161
+#: the gradient check: the net after its first training step (a fresh
+#: build and one step of the eager loop: every gradient non-zero, the
+#: zero gammas of :func:`resnet_init` moved) is copied to the card and to
+#: the CPU, and each copy takes RESNET_GRAD_STEPS training-mode backward
+#: passes of
+#: RESNET_GRAD_BATCH images of RESNET_GRAD_SIZE pixels (BatchNorm on the
+#: batch's statistics, its running statistics written; no update). In
+#: float32 each pass's gradients are held within GRAD_ATOL + GRAD_RTOL x
+#: each parameter's largest CPU gradient, and the running statistics
+#: after them within the same bound of each tensor's largest CPU value.
+#: Under amp the card is held against a float64 CPU copy (amp off there):
+#: each parameter's root-mean-square error within GRAD_RTOL_BF16 of its
+#: largest gradient (a bias's: its layer's weight's too, ``bias_scale``),
+#: and the running statistics within GRAD_RTOL_BF16 of their largest; the
+#: largest element errors are printed beside those of a CPU copy under
+#: amp, not held: a BatchNorm gamma's gradient sums bf16-rounded products
+#: over every pixel of the batch, so one element can be off by O(1) of the
+#: largest on any bf16 side (an H100 and a CPU copy under amp both reached
+#: 1.16-1.18 at this shape, their rms 0.126-0.127: PERF.md section 6). A
+#: wrong gradient (a lost term, a wrong scale) is off by O(1) of its
+#: largest in rms too. The check runs on the net after its first step, not
+#: after all RESNET_STEPS: at lr 0.1 on one repeated batch the net leaves
+#: the region where two float32 implementations agree to 1e-3 of a
+#: parameter's largest gradient (float32 against float64 on the CPU:
+#: ``tests/vision_rounding.py``'s ``resnet50_trained_gradients``; PERF.md
+#: section 6)
+RESNET_GRAD_BATCH, RESNET_GRAD_SIZE, RESNET_GRAD_STEPS = 4, 64, 2
+#: serving: the trained float32 net in eval mode through
+#: ``predictor_for(net, "float32")``, then ``"bfloat16"`` (bfloat16
+#: images), one captured program a bucket; RESNET_CPU_ROWS rows (a whole
+#: bucket 128) against a CPU copy (converted the same way for bf16, so
+#: that some of its rows clear the top-1 margin too): float32 logits within RESNET_LOGIT_RTOL of the largest |logit|
+#: (at least 1: LOGIT_ATOL's 2e-4 where the logits are O(1); eval-mode
+#: logits of a net trained ten steps are not), bf16 within
+#: LOGIT_RTOL_BF16 of the largest; top-1 equal wherever the CPU copy's
+#: top-2 margin exceeds that bound; images/s timed at
+#: RESNET_TIMED_BUCKETS (the scoring batches of BASELINE.md's rows) over
+#: RESNET_SERVE_ITERS back-to-back predicts
+RESNET_BUCKETS = (1, 2, 4, 8, 16, 32, 64, 128)
+RESNET_CPU_ROWS, RESNET_LOGIT_RTOL = 128, LOGIT_ATOL
+RESNET_TIMED_BUCKETS, RESNET_SERVE_ITERS = (32, 128), 10
+
+
+def resnet_init(np, net, seed):
+    """Seeded float32 initial weights under ``net``'s parameter names:
+    He-normal convolutions (std sqrt(2 / fan-in)), a 1 / sqrt(fan-in)
+    Dense weight, BatchNorm's gamma 1, beta 0, running mean 0 and
+    running variance 1, the Dense bias 0; and gamma 0 in the last
+    BatchNorm of every residual block's body, so each block starts as
+    its shortcut (Goyal et al. 2017, "Accurate, Large Minibatch SGD",
+    section 5.1). With gamma 1 there, the random 50-layer net amplifies
+    float32 rounding so far that no two float32 implementations agree:
+    at the gradient check's shape, float32 training-mode gradients
+    differ from float64's by 259 and 508 times the check's bound, with
+    the zero gamma by 0.0035 and 0.0031 times (the CPU, float32
+    accumulation: ``tests/vision_rounding.py``)."""
+    rs = np.random.RandomState(seed)
+    last = {f"{name}.{len(m) - 1}.gamma" for name, m in net.named_modules()
+            if name.endswith(".body")}
+    out = {}
+    for name, p in net.named_parameters():
+        shape = tuple(p.shape)
+        if name in last:
+            out[name] = np.zeros(shape, np.float32)
+        elif name.endswith(("gamma", "running_var")):
+            out[name] = np.ones(shape, np.float32)
+        elif p.dim() == 1:
+            out[name] = np.zeros(shape, np.float32)
+        else:
+            fan_in = int(np.prod(shape[1:]))
+            std = math.sqrt((2.0 if p.dim() > 2 else 1.0) / fan_in)
+            out[name] = (rs.standard_normal(shape) * std).astype(np.float32)
+    return out
+
+
+def train_grads(torch, net, loss_fn, x, y):
+    """One backward of ``loss_fn`` at (x, y) (numpy) on ``net`` in
+    training mode (BatchNorm on the batch's statistics, its running
+    statistics written): {name: gradient on the CPU} of the parameters
+    that have one."""
+    net.train()
+    dev = next(net.parameters()).device
+    for p in net.parameters():
+        p.grad = None
+    loss_fn(net(torch.from_numpy(x).to(dev)),
+            torch.from_numpy(y).to(dev)).sum().backward()
+    out = {n: p.grad.detach().cpu() for n, p in net.named_parameters()
+           if p.grad is not None}
+    for p in net.parameters():
+        p.grad = None
+    return out
+
+
+def running_stats(net):
+    """{name: running statistic on the CPU, float64}."""
+    return {n: p.detach().cpu().double() for n, p in net.named_parameters()
+            if n.endswith(("running_mean", "running_var"))}
+
+
+def resnet_grad_check(torch, np, net, loss_fn, amp_on):
+    """The gradient check of :data:`RESNET_GRAD_BATCH`: a card copy of the
+    trained ``net`` against a CPU copy (float32; under amp a float64 one,
+    and beside it a float32 CPU copy under amp): each pass's worst
+    gradients over their bound, then the running statistics'."""
+    from mxnet_tpu_torch import amp
+    from mxnet_tpu_torch.gluon.model_zoo.vision import resnet50_v1
+    from mxnet_tpu_torch.gluon.params import load_jax_params
+    t0 = time.perf_counter()
+
+    def copy(device):
+        return copy_to_cpu(lambda: resnet50_v1(classes=RESNET_CLASSES,
+                                               device=device), net,
+                           load_jax_params)
+
+    card, cpu = copy(net.output.weight.device), copy("cpu")
+    cpu_amp = copy("cpu") if amp_on else None
+    if amp_on:
+        cpu.double()
+    rs = np.random.RandomState(8)
+    passes = []
+    for _ in range(RESNET_GRAD_STEPS):
+        shape = (RESNET_GRAD_BATCH, 3, RESNET_GRAD_SIZE, RESNET_GRAD_SIZE)
+        x = rs.uniform(size=shape).astype(np.float32)
+        y = rs.randint(0, RESNET_CLASSES, (RESNET_GRAD_BATCH,)) \
+            .astype(np.float32)
+        g_card = train_grads(torch, card, loss_fn, x, y)
+        if not amp_on:
+            passes.append(grad_check(
+                torch, None, None, loss_fn, x, y,
+                grads=(g_card, train_grads(torch, cpu, loss_fn, x, y))))
+            continue
+        g_amp = train_grads(torch, cpu_amp, loss_fn, x, y)
+        amp.uninit()
+        try:
+            g64 = train_grads(torch, cpu, loss_fn, x, y)
+        finally:
+            amp.init("bfloat16")
+        rms = grad_errors(g_card, g64, bias_scale, rms=True)
+        worst = max(rms, key=rms.get)
+        passes.append({
+            "params": len(rms), "worst_param": worst,
+            "worst_rms_err_over_scale": rms[worst],
+            "rtol_of_param_max": GRAD_RTOL_BF16,
+            "largest_err_over_scale": {
+                side: max(grad_errors(g, g64, bias_scale).values())
+                for side, g in (("card_amp", g_card), ("cpu_amp", g_amp))},
+            "cpu_amp_worst_rms_err_over_scale": max(grad_errors(
+                g_amp, g64, bias_scale, rms=True).values()),
+            "ok": rms[worst] <= GRAD_RTOL_BF16})
+    stats = grad_check(torch, None, None, loss_fn, None, None,
+                       rtol=GRAD_RTOL_BF16 if amp_on else GRAD_RTOL,
+                       grads=(running_stats(card), running_stats(cpu)))
+    return {"batch": RESNET_GRAD_BATCH, "size": RESNET_GRAD_SIZE,
+            "passes": passes, "running_stats": stats,
+            "cpu_dtype": "float64" if amp_on else "float32",
+            "seconds": time.perf_counter() - t0,
+            "ok": all(p["ok"] for p in passes) and stats["ok"]}
+
+
+def train_resnet(torch, np, K, dev, smi, bf16=False):
+    """Phase 14: resnet50_v1 trained as ``bench_resnet`` trains it,
+    through ``TrainLoop`` over ``compile_step`` (one captured graph a
+    step), in the turns of :func:`train_turns` against the eager loop
+    (the replays held bit-equal to the body run eagerly: the caller sets
+    ``cudnn.deterministic``), with exactly
+    RESNET50_TRAINABLE ``opt_update`` launches a step (float32, also
+    under amp) and nothing else of the library, falling finite losses,
+    and the gradient check of :func:`resnet_grad_check` on the net after
+    its first step. ``bf16``: the
+    same under ``amp.init()``, ``amp.uninit()`` after it whatever
+    happens. Returns (the gated run's launches, its trained net)."""
+    from mxnet_tpu_torch import amp
+    if bf16:
+        amp.init("bfloat16")
+        try:
+            return train_resnet(torch, np, K, dev, smi, False)
+        finally:
+            amp.uninit()
+    from mxnet_tpu_torch.gluon import Trainer
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from mxnet_tpu_torch.gluon.model_zoo.vision import resnet50_v1
+    from mxnet_tpu_torch.gluon.params import load_jax_params
+    amp_on = amp.is_enabled()
+    t0 = time.perf_counter()
+    net = resnet50_v1(classes=RESNET_CLASSES, device=dev)
+    init = resnet_init(np, net, seed=6)
+    rs = np.random.RandomState(7)
+    x = rs.uniform(size=(RESNET_BATCH, 3, RESNET_SIZE, RESNET_SIZE)) \
+        .astype(np.float32)
+    y = rs.randint(0, RESNET_CLASSES, (RESNET_BATCH,)).astype(np.float32)
+    xt, yt = torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev)
+    loss_fn = SoftmaxCrossEntropyLoss()
+    made = [net]
+    del net, x
+
+    def build():
+        net = made.pop() if made else resnet50_v1(classes=RESNET_CLASSES,
+                                                  device=dev)
+        load_jax_params(net, init)
+        net.train()
+        return net, Trainer(dict(net.named_parameters()), "sgd",
+                            {"learning_rate": RESNET_LR,
+                             "momentum": RESNET_MOMENTUM}), loss_fn
+
+    setup_s = time.perf_counter() - t0
+    turns, (net, trainer, _), gated = train_turns(
+        torch, K, build, xt, yt, RESNET_STEPS, RESNET_BATCH, exact=True,
+        by_dtype=True, loop=True, unit="images")
+    losses, step_ms, per_step, counts, per_step_dt = gated
+    n_params = len(trainer._params)
+    expect = {n: 0 for n in K.KERNELS}
+    expect.update(opt_update=RESNET50_TRAINABLE)
+    expect_dt = {"opt_update": {"float32": RESNET50_TRAINABLE}}
+    launches_ok = n_params == RESNET50_TRAINABLE and \
+        all(s == expect for s in per_step) and \
+        all(s == expect_dt for s in per_step_dt)
+    losses_ok = all(math.isfinite(v) for v in losses) and \
+        losses[-1] < losses[0]
+    master_ok = all(p.dtype == torch.float32 for p in net.parameters())
+    torch.cuda.empty_cache()
+    first, first_trainer, _ = build()
+    plain_step(first, first_trainer, loss_fn)(xt, yt)
+    del xt, yt, first_trainer
+    grads = resnet_grad_check(torch, np, first, loss_fn, amp_on)
+    del first
+    median_ms = statistics.median(step_ms[1:])
+    print(smi, flush=True)
+    report = {
+        "model": "resnet50_v1", "classes": RESNET_CLASSES,
+        "dtype": "bfloat16 amp, float32 parameters" if amp_on
+        else "float32",
+        "matmul.allow_tf32": torch.backends.cuda.matmul.allow_tf32,
+        "cudnn.allow_tf32": torch.backends.cudnn.allow_tf32,
+        "cudnn.deterministic": torch.backends.cudnn.deterministic,
+        "batch": RESNET_BATCH, "size": RESNET_SIZE, "steps": RESNET_STEPS,
+        "optimizer": "sgd", "learning_rate": RESNET_LR,
+        "momentum": RESNET_MOMENTUM, "losses": losses, "step_ms": step_ms,
+        "median_step_ms": median_ms,
+        "images_per_s": RESNET_BATCH / (median_ms / 1e3),
+        "max_memory_allocated": turns["captured_max_memory_allocated"][0],
+        "max_memory_reserved": turns["captured_max_memory_reserved"][0],
+        "setup_s": setup_s, "capture_s": turns["capture_s"][0],
+        "n_traces_after_warmup": turns["turns"][0]["n_traces_after_warmup"],
+        "n_traces_after_steps": turns["turns"][0]["n_traces_after_steps"],
+        "trainable": n_params, "launches": counts,
+        "launches_per_step": per_step[-1],
+        "launches_per_step_expected": expect,
+        "launches_per_step_by_dtype": per_step_dt[-1],
+        "parameters_float32": master_ok, "grad_check": grads,
+        "captured_vs_eager": turns, "card": smi,
+        "ok": launches_ok and losses_ok and grads["ok"] and master_ok
+        and turns["ok"]}
+    emit({"resnet_train_bf16" if amp_on else "resnet_train": report})
+    if not report["ok"]:
+        raise SystemExit(f"phase 14 training failed: losses {losses}, "
+                         f"launches per step {per_step} {per_step_dt}, "
+                         f"gradients {grads}, float32 {master_ok}, "
+                         f"captured vs eager {turns}")
+    return counts, net
+
+
+def serve_resnet(torch, np, dev, smi, net, dtype):
+    """Phase 14's serving: ``predictor_for(net, dtype)`` over the trained
+    net in eval mode (``"bfloat16"`` converts it in place, its
+    BatchNorms float32; its images go in bfloat16), one program a bucket
+    of RESNET_BUCKETS (capture s each, ``n_traces`` after the warm-up and
+    after the run); a full bucket's replay against the net called eagerly
+    on the card (GRAPH_ATOL); its first RESNET_CPU_ROWS rows against a
+    CPU copy converted the same way (``cpu_s``: the copy's forward) and
+    their top-1; images/s at
+    RESNET_TIMED_BUCKETS; the profile of one bucket-128 micro-batch (its
+    device busy share); peak memory."""
+    from mxnet_tpu_torch import amp
+    from mxnet_tpu_torch.gluon.model_zoo.vision import resnet50_v1
+    from mxnet_tpu_torch.gluon.params import load_jax_params
+    from mxnet_tpu_torch.serving import predictor_for
+    bf16 = dtype == "bfloat16"
+    xdt = torch.bfloat16 if bf16 else torch.float32
+    cpu = copy_to_cpu(lambda: resnet50_v1(classes=RESNET_CLASSES,
+                                          device="cpu"), net,
+                      load_jax_params).eval()
+    if bf16:
+        amp.convert_hybrid_block(cpu, "bfloat16")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    pred = predictor_for(net, dtype, bucket_sizes=RESNET_BUCKETS,
+                         device=dev)
+    rs = np.random.RandomState(9)
+    big = RESNET_BUCKETS[-1]
+    x = torch.from_numpy(rs.uniform(
+        size=(big, 3, RESNET_SIZE, RESNET_SIZE)).astype(np.float32)) \
+        .to(xdt).to(dev)
+    capture = pred.warmup(x[:1])
+    n_warm = pred.n_traces
+    got = pred.predict(x)
+    with torch.inference_mode():
+        eager = pred.net(x)
+    graph_diff = float((got.float() - eager.float()).abs().max())
+    graph_tol = GRAPH_ATOL[dtype] * (float(eager.float().abs().max())
+                                     if bf16 else 1.0)
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        ref = cpu(x[:RESNET_CPU_ROWS].cpu()).float()
+    cpu_s = time.perf_counter() - t0
+    mine = got[:RESNET_CPU_ROWS].float().cpu()
+    scale = float(ref.abs().max())
+    tol = (LOGIT_RTOL_BF16 if bf16 else RESNET_LOGIT_RTOL) * max(scale, 1.0)
+    err = float((mine - ref).abs().max())
+    top2 = ref.topk(2, dim=1).values
+    sure = (top2[:, 0] - top2[:, 1]) > tol
+    top1_ok = bool(torch.equal(mine.argmax(1)[sure], ref.argmax(1)[sure]))
+    rates = {}
+    for b in RESNET_TIMED_BUCKETS:
+        xb = x[:b]
+        pred.predict(xb)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(RESNET_SERVE_ITERS):
+            pred.predict(xb)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / RESNET_SERVE_ITERS
+        rates[str(b)] = {"ms_per_batch": ms, "images_per_s": b / ms * 1e3}
+    prof = profile_bucket(torch, np, pred, smi, bucket=big, x=x)
+    print(smi, flush=True)
+    report = {
+        "model": "resnet50_v1", "dtype": dtype, "images": str(xdt),
+        "buckets": list(RESNET_BUCKETS), "capture_s": capture,
+        "n_traces_after_warmup": n_warm, "n_traces": pred.n_traces,
+        "graph_vs_eager": {"max_abs_diff": graph_diff, "atol": graph_tol,
+                           "bit_equal": bool(torch.equal(got, eager))},
+        "vs_cpu": {"rows": RESNET_CPU_ROWS, "max_abs_err": err,
+                   "largest_logit": scale, "atol": tol,
+                   "top1_rows_checked": int(sure.sum()),
+                   "top1_equal": top1_ok, "cpu_s": cpu_s},
+        "throughput": rates,
+        "device_busy_share": prof["device_busy_share"],
+        "max_memory_allocated": torch.cuda.max_memory_allocated(),
+        "max_memory_reserved": torch.cuda.max_memory_reserved(),
+        "card": smi,
+        "ok": err <= tol and top1_ok and graph_diff <= graph_tol
+        and n_warm == pred.n_traces == len(RESNET_BUCKETS)}
+    emit({"resnet_serving_bf16" if bf16 else "resnet_serving": report})
+    if not report["ok"]:
+        raise SystemExit(f"phase 14 serving failed: {report}")
+    return report
+
+
+def resnet_phase(torch, np, K, dev, smi):
+    """Phase 14: resnet50_v1's whole update held against its plain
+    version, the net trained in float32 and under bf16 amp, then the
+    float32-trained net served in float32 and bfloat16. Returns the
+    launches of the float32 and bf16 runs.
+
+    The training runs under ``cudnn.deterministic``, so that a replay is
+    held bit-equal to its body run eagerly: with cuDNN's default
+    algorithms the float32 backward sums in an order that changes between
+    runs, and a gate on the spread of two body runs failed one run in four
+    (PERF.md section 6). Serving runs on the defaults."""
+    from mxnet_tpu_torch.ops.kernels import opt_update as KO
+    gc.collect()    # the graph pools of the earlier phases' dropped steps
+    torch.cuda.empty_cache()
+    time_resnet_update(torch, K, KO, dev)
+    torch.cuda.empty_cache()
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        counts, net = train_resnet(torch, np, K, dev, smi)
+        torch.cuda.empty_cache()
+        counts_bf16, _ = train_resnet(torch, np, K, dev, smi, bf16=True)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    torch.cuda.empty_cache()
+    for dtype in ("float32", "bfloat16"):
+        serve_resnet(torch, np, dev, smi, net, dtype)
+        torch.cuda.empty_cache()
+    del net
+    torch.cuda.empty_cache()
+    return counts, counts_bf16
+
+
 
 #: --kernel-times: the kernels' shapes, each on its path (the flash
 #: forward served and in BERT training; the long-sequence backward's dq
@@ -5866,6 +6364,13 @@ def main(argv):
                                      "kind": torch.cuda.get_device_name(0),
                                      "count": torch.cuda.device_count()}})
         return 0
+    if "--resnet" in argv:
+        resnet_phase(torch, np, K, dev, smi)
+        print(smi, flush=True)
+        emit({"ok": True, "device": {"platform": "gpu",
+                                     "kind": torch.cuda.get_device_name(0),
+                                     "count": torch.cuda.device_count()}})
+        return 0
     if "--zero-train" in argv:
         if torch.cuda.device_count() < 2:
             raise SystemExit("--zero-train needs two or more cards")
@@ -5939,6 +6444,8 @@ def main(argv):
     torch.cuda.empty_cache()
     dist_kv = dist_kv_one_card(torch, np, K, dev, smi)
     torch.cuda.empty_cache()
+    resnet = resnet_phase(torch, np, K, dev, smi)
+    torch.cuda.empty_cache()
     if torch.cuda.device_count() >= 2:
         zero_train_multi(torch, np, smi)
         zero_overlap(torch, np, smi)
@@ -5980,12 +6487,21 @@ def main(argv):
                    "bert_base_training_bf16": trained_bf16}
     bf16_launches = {name: bf16_counts[p][name]
                      for name, p in bf16_path.items()}
+    # phase 14's path (resnet50_v1 training, float32 and bf16 amp) runs
+    # one kernel of the library, opt_update
+    resnet_launches = {path: {n: c for n, c in counts.items() if c}
+                       for path, counts in zip(("resnet50_training",
+                                                "resnet50_training_bf16"),
+                                               resnet)}
     emit({"launch_counts": launches, "bf16_launch_counts": bf16_launches,
-          "dist_kv_launch_counts": {n: c for n, c in dist_kv.items() if c}})
+          "dist_kv_launch_counts": {n: c for n, c in dist_kv.items() if c},
+          "resnet_launch_counts": resnet_launches})
     if not all(n > 0 for n in launches.values()) or \
-            not all(n > 0 for n in bf16_launches.values()):
+            not all(n > 0 for n in bf16_launches.values()) or \
+            not all(c.get("opt_update", 0) > 0
+                    for c in resnet_launches.values()):
         raise SystemExit(f"a kernel never launched on its path: {launches}"
-                         f" {bf16_launches}")
+                         f" {bf16_launches} {resnet_launches}")
     rows = []
     for name, info in K.KERNELS.items():
         # the float32 path's numbers; the bf16 ones beside them
@@ -6006,6 +6522,12 @@ def main(argv):
                      "bf16_library_ms": tb["library_ms"],
                      "empty_kernel_ms": t.get("empty_kernel_ms"),
                      "bf16_empty_kernel_ms": tb.get("empty_kernel_ms")})
+        if name == "opt_update":
+            rows[-1].update(
+                resnet50_launches=resnet_launches["resnet50_training"]
+                ["opt_update"],
+                resnet50_bf16_launches=resnet_launches[
+                    "resnet50_training_bf16"]["opt_update"])
     print(smi, flush=True)
     emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -144,15 +144,17 @@ def scale_loss(loss, trainer):
 
 def convert_hybrid_block(block, target_dtype: str = "bfloat16"):
     """Cast a block's parameters for low-precision inference: every
-    float32 parameter not owned by a ``LayerNorm`` (the port's only norm
-    layer) goes to ``target_dtype``, in place (same Parameter objects).
-    Returns ``block``."""
-    from ..gluon.nn import LayerNorm
+    float32 parameter not owned by a normalisation layer (``BatchNorm``,
+    its running statistics included, and ``LayerNorm``: the JAX
+    package's ``norm_types`` the port has) goes to ``target_dtype``, in
+    place (same Parameter objects). Returns ``block``."""
+    from ..gluon.nn import BatchNorm, LayerNorm
     dt = _DTYPES.get(target_dtype)
     if dt is None:
         raise MXNetError(f"unsupported AMP target dtype {target_dtype!r}")
     norm_params = {id(p) for m in block.modules()
-                   if isinstance(m, LayerNorm) for p in m.parameters()}
+                   if isinstance(m, (BatchNorm, LayerNorm))
+                   for p in m.parameters()}
     with torch.no_grad():
         for p in block.parameters():
             if id(p) not in norm_params and p.dtype == torch.float32:

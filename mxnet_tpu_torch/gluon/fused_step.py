@@ -19,7 +19,8 @@ Four modes, decided at the first call as the JAX package decides them:
   captured CUDA graph per signature (``mxnet_tpu_torch.captured``). The
   signature is the batch leaves' shapes and dtypes, the non-array
   arguments' values, the arguments' structure and the training flags of
-  the layers that draw random numbers (``train_mode``), as the JAX
+  the layers that draw random numbers or write state in place (a
+  BatchNorm's running statistics) (``train_mode``), as the JAX
   ``_entry_for`` keys its cache; ``MXNET_FUSED_STEP_CACHE_SIZE`` (0:
   unbounded) bounds it, least recently used first, and :attr:`n_traces`
   / :meth:`explain_retrace` say what was captured and why. The graph
@@ -37,7 +38,8 @@ Four modes, decided at the first call as the JAX package decides them:
   ``trainer.learning_rate`` set between steps) are read on the host, as
   ``Trainer.step`` does, and go up in one copy. A capture runs the
   body's forward and backward twice eagerly first (its warm-up, the
-  update skipped) with the random generators put back after, so the
+  update skipped) with the random generators and the running statistics
+  the forward wrote put back after, so the
   first N calls of a signature are exactly N eager steps; each
   generator a layer drew from is registered with the graph, so replay k
   draws what eager step k draws. New tensors in place of the
@@ -633,31 +635,43 @@ def _unflatten(tree, leaves):
     return tuple(items) if tree[0] == "tuple" else items
 
 
-def _watched(params, updater):
-    """What a captured step reads in place: the trainable parameters and
-    their optimizer states, in order."""
-    out = list(params)
+def _watched(params, updater, frozen=()):
+    """What a captured step reads or writes in place: the trainable
+    parameters, the trainer's frozen ones (``grad_req="null"``: a
+    BatchNorm's running statistics) and the trainable ones' optimizer
+    states, in order."""
+    out = list(params) + list(frozen)
     for i in range(len(params)):
         out += Optimizer.state_tensors(updater.states[i])
     return out
+
+
+def _copy_back(saved) -> None:
+    """Write each ``(tensor, copy)`` pair's copy back into the tensor, in
+    place (a captured graph keeps its pointer)."""
+    with torch.no_grad():
+        for t, copy in saved:
+            t.copy_(copy)
 
 
 @contextlib.contextmanager
 def _warmup_scope(warming: list, device, restore: Optional[list] = None):
     """Around a capture's warm-up runs of a train step: the body skips
     its update there (``warming[0]`` is set), so no weight, optimizer
-    state or update count changes, and the random generators (the
-    device's default one, and each one a layer noted:
-    ``recording_draws``) are put back as they were before the runs, so
-    the capture's first replay is the step's first. The warm-up is for
-    the forward and backward (cuBLAS's workspace, the allocator's
-    blocks); the update's kernels load at their first launch in the
-    capture, the kernel library already loaded (``whole_step_fn``).
-    Yields the list of the noted CUDA generators, filled on exit, for the
-    graph to register. ``restore``, when given, is filled with the
-    states put back, ``(None, default state)`` first, then ``(generator,
-    state)``: a capture that fails after the scope puts them back again
-    (:meth:`CompiledTrainStep._fall_back`)."""
+    state or update count changes; the random generators (the device's
+    default one, and each one a layer noted: ``recording_draws``) are put
+    back as they were before the runs, and so is what a layer wrote in
+    place (``note_writes``: a BatchNorm's running statistics, copied
+    before its first write), so the capture's first replay is the step's
+    first. The warm-up is for the forward and backward (cuBLAS's and
+    cuDNN's workspaces and algorithms, the allocator's blocks); the
+    update's kernels load at their first launch in the capture, the
+    kernel library already loaded (``whole_step_fn``). Yields the list
+    of the noted CUDA generators, filled on exit, for the graph to
+    register. ``restore``, when given, is filled with what puts the
+    same states back, as calls without arguments: a capture that fails
+    after the scope calls them again (:meth:`CompiledTrainStep.
+    _fall_back`)."""
     from ..checkpoint.state import (_default_rng_state,
                                     _set_default_rng_state)
     rng = _default_rng_state(device)
@@ -665,21 +679,23 @@ def _warmup_scope(warming: list, device, restore: Optional[list] = None):
     rec: dict = {}
     warming[0] = True
     try:
-        with recording_draws() as rec:
+        with recording_draws(snapshot=True) as rec:
             yield generators
     finally:
         warming[0] = False
-        _set_default_rng_state(device, rng)
-        if restore is not None:
-            restore.append((None, rng))
-        for _, g, state in rec.values():
+        undo = [functools.partial(_set_default_rng_state, device, rng)]
+        for _, g, state, saved in rec.values():
             if g is not None:
-                g.set_state(state)
-                if restore is not None:
-                    restore.append((g, state))
+                undo.append(functools.partial(g.set_state, state))
                 if g.device.type == "cuda" and \
                         all(g is not h for h in generators):
                     generators.append(g)
+            if saved:
+                undo.append(functools.partial(_copy_back, saved))
+        for fn in undo:
+            fn()
+        if restore is not None:
+            restore.extend(undo)
 
 
 #: set on an error the loss's forward or backward raised inside a step's
@@ -725,7 +741,7 @@ def _step_body(loss_fn, treedef, spec, params, update, drawers: list,
         except Exception as e:
             setattr(e, _LOSS_FAILED, True)
             raise
-        for m, _, _ in rec.values():
+        for m, *_ in rec.values():
             if all(m is not d for d in drawers):
                 drawers.append(m)
         if not warming[0]:
@@ -1107,20 +1123,17 @@ class CompiledTrainStep:
         """The first call's loss failed in its program (on a card: a loss
         that syncs with the host cannot be captured). As the JAX package
         does: drop the programs and their graph pool, put back the random
-        generators the warm-up had put back (the failed capture may have
-        drawn), log a warning and run the step eagerly, from now on too
+        generators and the in-place writes (running statistics) the
+        warm-up had put back (the failed capture may have drawn), log a
+        warning and run the step eagerly, from now on too
         (under a dp mesh the ``mesh`` mode, the eager step over this
         rank's part). The update counts were already put back, so Adam's
         first real step has t = 1."""
-        from ..checkpoint.state import _set_default_rng_state
         _LOG.warning("compile_step: the fused program failed (%s: %s); "
                      "falling back to the eager step", type(err).__name__,
                      err)
-        for g, state in restore:
-            if g is None:
-                _set_default_rng_state(self._device, state)
-            else:
-                g.set_state(state)
+        for fn in restore:
+            fn()
         self._programs = self._hp = self._watch = self._grads = None
         self._lru.clear()
         self._sig_history = []
@@ -1169,8 +1182,9 @@ class CompiledTrainStep:
         opt, n = tr._optimizer, len(tr._params)
         if self._programs is None:
             self._hp = DeviceHParams(n, dev)
-            self._watch = functools.partial(_watched, list(tr._params),
-                                            tr._updater)
+            self._watch = functools.partial(
+                _watched, list(tr._params), tr._updater,
+                [p for p in tr._all_params if p.grad_req == "null"])
             self._programs = Programs(self._watch, dev)
             if self._split:
                 self._grads = [torch.empty_like(p) for p in tr._params]

@@ -1,5 +1,5 @@
-"""Model zoo (counterpart of ``mxnet_tpu/gluon/model_zoo``; ports BERT
-and the LSTM word language model)."""
-from . import bert, word_lm
+"""Model zoo (counterpart of ``mxnet_tpu/gluon/model_zoo``; ports BERT,
+the LSTM word language model and the vision zoo's ResNets)."""
+from . import bert, vision, word_lm
 
-__all__ = ["bert", "word_lm"]
+__all__ = ["bert", "vision", "word_lm"]

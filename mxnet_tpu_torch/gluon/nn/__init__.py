@@ -1,9 +1,21 @@
 """Layers (counterpart of ``mxnet_tpu/gluon/nn``)."""
-from .basic_layers import (Dense, Dropout, Embedding, LayerNorm, init_param,
+from .basic_layers import (Activation, BatchNorm, BatchNormReLU, Dense,
+                           Dropout, Embedding, Flatten, HybridSequential,
+                           Identity, LayerNorm, Sequential, init_param,
                            set_grad_req)
+from .conv_layers import (AvgPool1D, AvgPool2D, AvgPool3D, Conv1D, Conv2D,
+                          Conv3D, GlobalAvgPool1D, GlobalAvgPool2D,
+                          GlobalAvgPool3D, GlobalMaxPool1D, GlobalMaxPool2D,
+                          GlobalMaxPool3D, MaxPool1D, MaxPool2D, MaxPool3D)
 from .transformer import (MultiHeadAttention, PositionwiseFFN,
                           TransformerEncoder, TransformerEncoderCell)
 
-__all__ = ["Dense", "Dropout", "Embedding", "LayerNorm", "init_param",
-           "set_grad_req", "MultiHeadAttention", "PositionwiseFFN",
-           "TransformerEncoder", "TransformerEncoderCell"]
+__all__ = ["Sequential", "HybridSequential", "Dense", "Dropout", "Embedding",
+           "BatchNorm", "BatchNormReLU", "LayerNorm", "Flatten", "Activation",
+           "Identity", "init_param", "set_grad_req",
+           "Conv1D", "Conv2D", "Conv3D", "MaxPool1D", "MaxPool2D",
+           "MaxPool3D", "AvgPool1D", "AvgPool2D", "AvgPool3D",
+           "GlobalMaxPool1D", "GlobalMaxPool2D", "GlobalMaxPool3D",
+           "GlobalAvgPool1D", "GlobalAvgPool2D", "GlobalAvgPool3D",
+           "MultiHeadAttention", "PositionwiseFFN", "TransformerEncoder",
+           "TransformerEncoderCell"]

@@ -1,13 +1,18 @@
 """Basic layers (counterpart of ``mxnet_tpu/gluon/nn/basic_layers.py``):
-``Dense``, ``Dropout``, ``Embedding`` and ``LayerNorm`` as ``nn.Module``s.
+``Sequential``, ``HybridSequential``, ``Dense``, ``Dropout``,
+``Embedding``, ``BatchNorm``, ``BatchNormReLU``, ``LayerNorm``,
+``Flatten``, ``Activation`` and ``Identity`` as ``nn.Module``s.
 
 Parameter names and layouts are the JAX package's, so a dict of its
 ``collect_params()`` loads as it is (``gluon.params.load_jax_params``):
 ``Dense.weight`` is (units, in_units), ``Embedding.weight`` is
-(input_dim, output_dim), ``LayerNorm`` has ``gamma`` and ``beta``.
-``Dense`` and ``LayerNorm`` run their op through the op funnel
-(``ops/registry.py``) as ``"fully_connected"`` and ``"layer_norm"``, the
-names under which ``amp`` casts them.
+(input_dim, output_dim), ``LayerNorm`` has ``gamma`` and ``beta``,
+``BatchNorm`` also ``running_mean`` and ``running_var``, and a
+``Sequential``'s children are named ``0``, ``1``, ... in the order
+added. ``Dense``, ``BatchNorm`` and ``LayerNorm`` run their op through
+the op funnel (``ops/registry.py``) as ``"fully_connected"``,
+``"batch_norm"`` and ``"layer_norm"``, the names under which ``amp``
+casts them.
 
 Every layer takes ``device`` (default ``cuda:0``; without CUDA the
 constructor raises unless ``device="cpu"``) and an optional
@@ -22,7 +27,11 @@ with :func:`note_draw` first, whatever its mode; inside
 register every generator its graph draws from and restore them after
 its warm-up) learns of them. It draws when :func:`drawing` says so: in
 training mode, outside a :func:`draws_off` block (``compile_step(...,
-train_mode=False)``).
+train_mode=False)``). A layer that writes state in place in training
+mode (``BatchNorm``'s running statistics) notes itself and those
+tensors with :func:`note_writes` the same way, and follows the same
+switch: a recording made with ``snapshot=True`` keeps copies of them
+from before the first write, which the step's warm-up puts back.
 
 Parameters are trainable. Each carries the JAX package's ``Parameter``
 attributes (``gluon/parameter.py``): ``grad_req`` (``"write"``,
@@ -49,8 +58,10 @@ from ...context import resolve_device
 from ...ops import nn as FNN
 from ...ops.registry import invoke
 
-__all__ = ["Dense", "Dropout", "Embedding", "LayerNorm", "activation",
-           "init_param", "set_grad_req", "GRAD_REQS", "note_draw",
+__all__ = ["Sequential", "HybridSequential", "Dense", "Dropout",
+           "Embedding", "BatchNorm", "BatchNormReLU", "LayerNorm", "Flatten",
+           "Activation", "Identity", "activation", "init_param",
+           "set_grad_req", "GRAD_REQS", "note_draw", "note_writes",
            "recording_draws", "draws_off", "drawing"]
 
 GRAD_REQS = ("write", "add", "null")
@@ -61,7 +72,10 @@ INIT_SCALE = 0.07
 
 _ACTIVATIONS = {
     "relu": torch.relu,
+    "sigmoid": torch.sigmoid,
     "tanh": torch.tanh,
+    "softrelu": F.softplus,
+    "softsign": F.softsign,
     "gelu": F.gelu,
     "gelu_tanh": lambda x: F.gelu(x, approximate="tanh"),
 }
@@ -72,20 +86,23 @@ _DRAWS = threading.local()
 
 
 @contextlib.contextmanager
-def recording_draws():
-    """Within the block, each layer that notes a draw on this thread
-    (:func:`note_draw`) is recorded once, in first-seen order: yields a
-    dict ``id(module) -> (module, generator or None, the generator's
-    state before the layer's first draw or None)``. Blocks nest; each
-    records what happens inside it."""
+def recording_draws(snapshot: bool = False):
+    """Within the block, each layer that notes a draw or an in-place
+    write on this thread (:func:`note_draw`, :func:`note_writes`) is
+    recorded once, in first-seen order: yields a dict ``id(module) ->
+    (module, generator or None, the generator's state before the layer's
+    first draw or None, ((tensor, its copy from before the layer's first
+    write), ...))``; the copies are taken only with ``snapshot``, else
+    that entry is empty. Blocks nest; each records what happens inside
+    it."""
     rec: dict = {}
     if not hasattr(_DRAWS, "stack"):
         _DRAWS.stack = []
-    _DRAWS.stack.append(rec)
+    _DRAWS.stack.append((rec, snapshot))
     try:
         yield rec
     finally:
-        _DRAWS.stack = [r for r in _DRAWS.stack if r is not rec]
+        _DRAWS.stack = [r for r in _DRAWS.stack if r[0] is not rec]
 
 
 @contextlib.contextmanager
@@ -109,10 +126,23 @@ def drawing(module: nn.Module) -> bool:
 def note_draw(module: nn.Module, generator: Optional[torch.Generator]):
     """``module`` is about to draw from ``generator`` (None: its
     device's default generator), or would in training mode."""
-    for rec in getattr(_DRAWS, "stack", ()):
+    _note(module, generator, ())
+
+
+def note_writes(module: nn.Module, tensors):
+    """``module`` is about to write ``tensors`` in place (a BatchNorm
+    its running statistics), or would in training mode."""
+    _note(module, None, tuple(tensors))
+
+
+def _note(module, generator, writes):
+    for rec, snapshot in getattr(_DRAWS, "stack", ()):
         if id(module) not in rec:
-            rec[id(module)] = (module, generator, None if generator is None
-                               else generator.get_state())
+            rec[id(module)] = (
+                module, generator,
+                None if generator is None else generator.get_state(),
+                tuple((t, t.detach().clone()) for t in writes)
+                if snapshot else ())
 
 
 def activation(x, act_type: str):
@@ -164,13 +194,48 @@ def init_param(p: nn.Parameter, grad_req: str = "write",
     return p
 
 
-def _param(shape, device, fill=None, generator=None):
+def _param(shape, device, fill=None, generator=None, grad_req="write"):
     t = torch.empty(shape, dtype=torch.float32)
     if fill is None:
         t.uniform_(-INIT_SCALE, INIT_SCALE, generator=generator)
     else:
         t.fill_(fill)
-    return init_param(nn.Parameter(t.to(device)))
+    return init_param(nn.Parameter(t.to(device)), grad_req)
+
+
+class Sequential(nn.Module):
+    """Children run one after another, each on the output of the one
+    before; extra arguments go to the first child only. Children are
+    named ``0``, ``1``, ... in the order :meth:`add` gave them."""
+
+    def __init__(self, *blocks):
+        super().__init__()
+        self.add(*blocks)
+
+    def add(self, *blocks):
+        for b in blocks:
+            self.add_module(str(len(self._modules)), b)
+        return self
+
+    def forward(self, x, *args):
+        for block in self._modules.values():
+            x = block(x, *args)
+            args = ()
+        return x
+
+    def __len__(self):
+        return len(self._modules)
+
+    def __getitem__(self, i):
+        return list(self._modules.values())[i]
+
+    def __iter__(self):
+        return iter(self._modules.values())
+
+
+class HybridSequential(Sequential):
+    """:class:`Sequential` (the JAX package's hybridizable one; the port
+    has one kind of block)."""
 
 
 class Dense(nn.Module):
@@ -262,3 +327,105 @@ class LayerNorm(nn.Module):
     def _norm(self, x, gamma, beta):
         return FNN.layer_norm(x, gamma, beta, axis=self._axis,
                               eps=self._eps)
+
+
+class BatchNorm(nn.Module):
+    """Batch normalisation over ``axis`` (the channels): float32
+    statistics whatever x's dtype, the output in x's dtype.
+
+    In training mode (the module's, outside :func:`draws_off`; never
+    with ``use_global_stats``) it normalises with the batch's mean and
+    biased variance and writes ``running = momentum * running + (1 -
+    momentum) * batch`` into ``running_mean`` / ``running_var`` in place,
+    with no gradient; otherwise it normalises with the running
+    statistics and writes nothing. The running statistics are
+    parameters with ``grad_req="null"`` (as the JAX package's), so
+    ``named_parameters()``, the parameter files, the checkpoints and
+    ``load_jax_params`` carry them; ``Trainer`` leaves them out of the
+    update. ``center=False`` / ``scale=False`` keep ``beta`` / ``gamma``
+    frozen at 0 / 1."""
+
+    def __init__(self, axis: int = 1, momentum: float = 0.9,
+                 epsilon: float = 1e-5, center: bool = True,
+                 scale: bool = True, use_global_stats: bool = False,
+                 in_channels: int = 0, device=None):
+        super().__init__()
+        if in_channels <= 0:
+            raise MXNetError("BatchNorm needs in_channels (shapes are not "
+                             "inferred at the first call)")
+        dev = resolve_device(device)
+        self._axis = axis
+        self._momentum = momentum
+        self._eps = epsilon
+        self._use_global_stats = use_global_stats
+        c = (in_channels,)
+        self.gamma = _param(c, dev, fill=1.0,
+                            grad_req="write" if scale else "null")
+        self.beta = _param(c, dev, fill=0.0,
+                           grad_req="write" if center else "null")
+        self.running_mean = _param(c, dev, fill=0.0, grad_req="null")
+        self.running_var = _param(c, dev, fill=1.0, grad_req="null")
+
+    def forward(self, x):
+        if self._axis != 1:
+            x = x.transpose(1, self._axis)
+        if self._use_global_stats:
+            train = False
+        else:
+            note_writes(self, (self.running_mean, self.running_var))
+            train = drawing(self)
+        if not train:
+            out = invoke("batch_norm", self._infer, x, self.gamma,
+                         self.beta, self.running_mean, self.running_var)
+        else:
+            out, mean, var = invoke("batch_norm", self._train, x,
+                                    self.gamma, self.beta)
+            m = self._momentum
+            with torch.no_grad():
+                for run, batch in ((self.running_mean, mean),
+                                   (self.running_var, var)):
+                    run.mul_(m).add_(batch.to(run.dtype), alpha=1.0 - m)
+        if self._axis != 1:
+            out = out.transpose(1, self._axis)
+        return out
+
+    def _infer(self, x, gamma, beta, mean, var):
+        return FNN.batch_norm_infer(x, gamma, beta, mean, var, self._eps)
+
+    def _train(self, x, gamma, beta):
+        return FNN.batch_norm_train(x, gamma, beta, self._eps)
+
+
+class BatchNormReLU(BatchNorm):
+    """:class:`BatchNorm` followed by a ReLU."""
+
+    def forward(self, x):
+        return torch.relu(super().forward(x))
+
+
+class Flatten(nn.Module):
+    """Collapse every axis but the first: (N, ...) -> (N, -1)."""
+
+    def forward(self, x):
+        return x.reshape(x.shape[0] if x.ndim else 1, -1)
+
+
+class Activation(nn.Module):
+    """``activation(x, act_type)`` as a layer."""
+
+    def __init__(self, activation: str):
+        super().__init__()
+        if activation not in _ACTIVATIONS:
+            raise MXNetError(f"unknown Activation act_type {activation!r}")
+        self._act_type = activation
+
+    def forward(self, x):
+        return activation(x, self._act_type)
+
+    def extra_repr(self):
+        return self._act_type
+
+
+class Identity(nn.Module):
+    def forward(self, x):
+        return x

@@ -1597,3 +1597,103 @@ def test_first_update_launch_inside_a_capture_on_card(cuda_dev, opt):
                          timeout=600, cwd=os.path.dirname(here))
     assert res.returncode == 0, res.stderr[-3000:]
     assert "module loading" in res.stdout
+
+
+# ---------------------------------------------------------------------------
+# the convolutional path: ResNet-18 (thumbnail) through compile_step
+# ---------------------------------------------------------------------------
+
+def _resnet_on(dev, seed=5):
+    """resnet18_v1 (thumbnail, 10 classes) with seeded weights on ``dev``,
+    its loss and a batch of 8 32 x 32 images."""
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from mxnet_tpu_torch.gluon.model_zoo.vision import resnet18_v1
+    net = resnet18_v1(classes=10, thumbnail=True, device=dev,
+                      generator=torch.Generator().manual_seed(seed))
+    r = onp.random.RandomState(seed + 1)
+    x = torch.from_numpy(r.uniform(size=(8, 3, 32, 32)).astype("f4")).to(dev)
+    y = torch.from_numpy(r.randint(0, 10, (8,)).astype("f4")).to(dev)
+    return net, SoftmaxCrossEntropyLoss(), x, y
+
+
+@pytest.fixture
+def deterministic_cudnn():
+    """cuDNN's deterministic algorithms (its backward-filter defaults may
+    sum with atomics), so two runs of the same step are bit-equal."""
+    old = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    yield
+    torch.backends.cudnn.deterministic = old
+
+
+def _stats(net):
+    return [p.detach().clone() for n, p in net.named_parameters()
+            if "running" in n]
+
+
+@pytest.mark.cuda
+def test_captured_resnet_step_first_replay_equals_first_eager_step_on_card(
+        cuda_dev, deterministic_cudnn):
+    """The capture's two warm-up runs of the forward write BatchNorm's
+    running statistics; the warm-up puts them back, so after
+    ``aot_compile`` they are as they were, and the first replay equals
+    the step's body run once eagerly from the same state: loss, weights
+    and running statistics bit for bit. Two more replays equal two more
+    body runs."""
+    sgd = {"learning_rate": 0.1, "momentum": 0.9}
+    runs = []
+    for eager in (False, True):
+        net, lb, x, y = _resnet_on(cuda_dev)
+        before = _stats(net)
+        tr, step = _compiled(net, lb, "sgd", sgd)
+        step.aot_compile(x, y)
+        assert all(torch.equal(a, b) for a, b in zip(before, _stats(net)))
+        losses = [(_body_call(step, x, y) if eager else step(x, y)).cpu()
+                  for _ in range(3)]
+        assert step.mode == "fused" and step.n_traces == 1
+        assert not any(torch.equal(a, b)
+                       for a, b in zip(before, _stats(net)))
+        runs.append(losses + [p.detach().cpu() for p in net.parameters()])
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_resnet_eval_mode_captures_again_on_card(cuda_dev):
+    """``net.eval()`` between steps: the next call captures a program of
+    its own (BatchNorm's mode is part of the signature), which writes no
+    running statistic; ``net.train()`` replays the first program again,
+    which writes them."""
+    net, lb, x, y = _resnet_on(cuda_dev)
+    tr, step = _compiled(net, lb, "sgd", {"learning_rate": 0.05,
+                                          "momentum": 0.9})
+    step(x, y)
+    assert step.n_traces == 1
+    net.eval()
+    before = _stats(net)
+    step(x, y)
+    assert step.n_traces == 2
+    assert "train_mode changed" in step.explain_retrace()
+    assert all(torch.equal(a, b) for a, b in zip(before, _stats(net)))
+    net.train()
+    step(x, y)
+    assert step.n_traces == 2
+    assert not any(torch.equal(a, b) for a, b in zip(before, _stats(net)))
+
+
+@pytest.mark.cuda
+def test_resnet_step_launches_one_opt_update_a_parameter_on_card(cuda_dev):
+    """One replayed ResNet-18 step launches exactly one ``opt_update`` a
+    trainable parameter (60; the 38 running statistics are not updated)
+    and no other kernel of the library (convolutions, pooling and
+    BatchNorm are cuDNN's)."""
+    net, lb, x, y = _resnet_on(cuda_dev)
+    tr, step = _compiled(net, lb, "sgd", {"learning_rate": 0.05,
+                                          "momentum": 0.9})
+    step.aot_compile(x, y)
+    K.reset_launch_counts()
+    step(x, y)
+    torch.cuda.synchronize()
+    assert len(tr._params) == 60
+    assert {k: v for k, v in K.launch_counts().items() if v} == \
+        {"opt_update": 60}
