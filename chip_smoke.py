@@ -92,12 +92,15 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    and bfloat16, at 5000 elements, at BERT-base's word embedding
    (23,440,896; device scalars, as phase 6 runs it), at its shard at dp 4
    (5,860,224; host scalars, as phase 10 runs it) and at its bucket unit
-   (88,322; vectors): float32 states bit-exact and weights within 1 ulp,
+   (88,322; vectors), and as ONE launch over a ragged list (1 to 88,322
+   values, the last a view one element into a larger buffer; float32
+   masters whose bfloat16 weights the launch writes) in each form:
+   float32 states bit-exact and weights within 1 ulp,
    bfloat16 within 2e-2; the Adam update of the word embedding in the
    device form timed beside ``torch._fused_adam_`` in float32 and
    bfloat16; BERT-base's whole one-card float32 Adam update as the
-   captured step runs it (one launch a parameter, 201; each parameter
-   its own lr, wd and t in the block), held against the plain version
+   captured step runs it (one launch for its 201 parameters, each its
+   own lr, wd and t in the block), held against the plain version
    parameter by parameter as above, and timed in a graph beside
    ``torch._fused_adam_`` over the same list and its bound
    (``bert_update_graph``);
@@ -127,11 +130,11 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    captures it first: its capture seconds, ``n_traces`` 1 after the
    warm-up and after the steps): every loss finite and the last below
    the first, exactly 12 flash forward, 12 fused flash backward, 25
-   LayerNorm forward, 25 LayerNorm backward and 201 ``opt_update``
-   launches per step (counted through the replays), and one step's
-   gradients of every parameter (batch 2 x 128, dropout off) against a
-   CPU copy; then (``captured_vs_eager``) the captured step and the plain
-   eager loop (``loss.sum().backward(); trainer.step(32)``) in turns from
+   LayerNorm forward, 25 LayerNorm backward and one ``opt_update``
+   launch (all 201 parameters) per step (counted through the replays), and one
+   step's gradients of every parameter (batch 2 x 128, dropout off) against a
+   CPU copy; then (``captured_vs_eager``) the captured step and the plain eager
+   loop (``loss.sum().backward(); trainer.step(32)``) in turns from
    the same state (captured, eager, eager, captured: median step ms,
    tokens/s, peak allocated and reserved memory each), and the step's
    body run eagerly twice from that state: the replays' weights (rms)
@@ -143,8 +146,8 @@ Phases, each of which fails the run (non-zero exit) when it fails:
 6b. the same training under ``amp.init()`` (``amp.uninit()`` after it),
    captured and in turns as phase 6:
    finite falling losses, per step 12 ``flash_fwd`` and 12
-   ``flash_bwd_fused`` launches in bf16 and 25 + 25 LayerNorm and 201
-   ``opt_update`` launches in float32 (counted by input dtype),
+   ``flash_bwd_fused`` launches in bf16 and 25 + 25 LayerNorm and one
+   ``opt_update`` launch in float32 (counted by input dtype),
    parameters and gradients
    float32, the gradients against a CPU copy under amp within 2.5e-1 of
    each parameter's largest, and so against a float64 CPU copy of the
@@ -170,8 +173,10 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    scheduler, RNG); the resumed losses and final weights must lie within
    the uninterrupted runs' spread (``CKPT_SPREAD_FACTOR``; bit-equal where
    they are); the resumed steps launch phase 6's kernels exactly, on the
-   captured step in float32 (one capture, 201 ``opt_update`` a step) and
-   eagerly in bf16 + ``multi_precision`` (the JAX package's mode). Then
+   captured step in float32 (one capture, one ``opt_update`` a step) and
+   eagerly in bf16 + ``multi_precision`` (the JAX package's mode; one
+   ``opt_update`` a step over the float32 masters, which writes the bf16
+   weights). Then
    ``save_parameters`` of the resumed float32 net and ``load_parameters``
    into the net of a warmed ``CompiledPredictor``: bucket 32 bit-equal to
    that net called eagerly, changed by the load, ``n_traces`` unchanged.
@@ -180,20 +185,20 @@ Phases, each of which fails the run (non-zero exit) when it fails:
 7. train a 2-layer BERT-width classifier at sequence 1024 for six
    captured steps, so the flash backward takes its dq and dkv kernels
    (two launches each per step, none of the fused one; one
-   ``opt_update`` a parameter), with its gradients against a CPU copy,
+   ``opt_update`` a step), with its gradients against a CPU copy,
    and in turns against the eager loop as phase 6;
 8. train the LSTM word LM (``model_zoo.word_lm.WordLM``: vocab 33,278,
    embed and hidden 650, 2 layers, float32) at batch 64 x bptt 35 for ten
    captured SGD-momentum steps of ``Trainer.compile_step`` on one seeded
    batch: every loss finite and the last below the first, exactly 2
-   ``rnn_scan_fwd``, 2 ``rnn_scan_bwd`` and 11 ``opt_update`` launches
+   ``rnn_scan_fwd``, 2 ``rnn_scan_bwd`` and one ``opt_update`` launches
    per step, one step's gradients of all 11 parameters at batch 4
    against a CPU copy, and the turns of phase 6 with the replays
    bit-equal to the body runs (every kernel deterministic); then an
    eval-mode forward of the batch (``lstm_forward`` line) against the
    CPU copy;
 8b. a Dense-only model (768 -> 3072 -> 768 -> 2, 4096 rows, three Adam
-   steps) in the same turns: replays bit-equal to the body runs, 6
+   steps) in the same turns: replays bit-equal to the body runs, one
    ``opt_update`` a step (``dense_train``);
 9. serve autoregressive decode through ``serving.run_decode`` (the
    continuous-batching ``DecodeEngine``, slot ladder 1-8, page size 16,
@@ -215,22 +220,25 @@ Phases, each of which fails the run (non-zero exit) when it fails:
 10. BERT-base's ZeRO-1 update layout on this card: one backward at batch
     32 x sequence 512 (dropout 0) gives fixed gradients; the port's
     ``_ZeroShardPlan`` at 4 shards (88 units); ten Adam updates (lr 1e-5)
-    through ``Optimizer.kernel_step_fn()`` on every shard of every unit
-    in turn, reassembled, against ten eager ``trainer.step`` updates of a
-    copy (weights within 1e-6 relative + 1e-7 absolute), exactly 88 x 4 x
-    10 ``opt_update`` launches, and the state bytes a rank would hold;
+    through ``Optimizer.kernel_step_fn()``, a rank's shards of every unit
+    in one launch, reassembled, against ten eager ``trainer.step``
+    updates of a copy (weights within 1e-6 relative + 1e-7 absolute),
+    exactly 4 x 10 ``opt_update`` launches, and the state bytes a rank
+    would hold;
     then bf16 + ``multi_precision`` (the model converted to bf16, its
     LayerNorms float32): every bf16 parameter an mp unit with float32
     master shards, three Adam updates through the kernel on the masters
-    (every launch in float32), each weight equal to its gathered master
-    in bf16, the masters against eager ``trainer.step``'s;
+    (one float32 launch a rank a step, which writes the bf16 weights),
+    each weight equal to its gathered master in bf16, the masters
+    against eager ``trainer.step``'s;
 11. with two or more cards only (one line says so otherwise): BERT-base
     ZeRO-1 training, one rank a card over NCCL (``parallel.dist.spawn``),
     batch 32 x 512 global, ten Adam steps through ``TrainLoop`` under
     ``make_mesh({"dp": world})``: the sharded update on, falling finite
-    losses, bit-equal weights on every rank, 88 ``opt_update`` launches a
-    rank a step, the first step's loss on every rank the global batch's
-    (32 values, all-gathered by the step) and within 1e-5 of a one-card
+    losses, bit-equal weights on every rank, one ``opt_update`` launch a
+    reduce group (a run of buckets of one dtype; one for float32
+    BERT-base) a rank a step, the first step's loss on every rank the global
+    batch's (32 values, all-gathered by the step) and within 1e-5 of a one-card
     forward's,
     the Adam state a rank ~1/world; step ms, global tokens/s, peak memory;
     then one eager step on each rank's rows (``loss.backward()``,
@@ -240,8 +248,8 @@ Phases, each of which fails the run (non-zero exit) when it fails:
     the training loop checkpoints at step 5 (the shards gathered, rank 0
     writing), and half as many ranks resume that checkpoint and run steps
     6-10: the losses within ZERO_RESUME_RTOL of the full world's, one
-    ``opt_update`` launch a unit a resumed step. Then four legs: (a) the
-    ten steps again from one set of weights in turns serial
+    ``opt_update`` launch a reduce group a resumed step. Then four legs:
+    (a) the ten steps again from one set of weights in turns serial
     (``MXNET_ZERO_BUCKET_BYTES=0``: one bucket reduced after the
     backward), overlapped (4 MiB buckets launched from the backward's
     gradient hooks), overlapped, serial: the median step ms of the
@@ -249,7 +257,8 @@ Phases, each of which fails the run (non-zero exit) when it fails:
     backward ms from device events, one profiled overlapped step (the
     reduce-scatter's device ms and its share beside compute kernels),
     NCCL's reduce-scatter beside the step's at 4 MiB and at the whole
-    model; gates: 88 ``opt_update`` a rank a step, each overlapped run's
+    model; gates: one ``opt_update`` a reduce group a rank a step, each
+    overlapped run's
     weights (rms) and losses within CKPT_SPREAD_FACTOR of the serial
     runs' spread, a Dense-only model bit-equal in every bucketing; (b)
     ``loop.prefetch`` against plain steps over PREFETCH_STEPS host
@@ -277,7 +286,7 @@ Phases, each of which fails the run (non-zero exit) when it fails:
     against phase 6's one-graph step from the same weights and batch
     (fused, split, split, fused), then a control run with its lr staged
     at twice the scheduler's: per split step 12 + 12 + 25 + 25 forward
-    and backward launches and 201 ``opt_update``, two graphs, no
+    and backward launches and one ``opt_update``, two graphs, no
     collective, the buckets printed, the split runs within
     :func:`vs_eager`'s limit of the fused runs and the control outside
     it; median step ms, tokens/s and peak memory of each turn. With two
@@ -287,12 +296,13 @@ Phases, each of which fails the run (non-zero exit) when it fails:
     store's init gives every rank rank 0's weights), ten Adam steps in
     turns against phase 11's plain mesh mode (split, mesh, mesh,
     split; the slowest rank's median step ms, the spread, global
-    tokens/s): one collective a bucket and one wait a step, 201
+    tokens/s): one collective a bucket and one wait a step, one
     ``opt_update`` a rank a step, bit-equal weights on every rank, the
     first step's reduced gradients within phase 11's bound of
     ``Trainer(kvstore=None)``'s eager step and the weights within
     :func:`vs_eager`'s limit of it; (b) ``Trainer.step`` with the store
-    updating (the JAX default with several workers), within that limit
+    updating (the JAX default with several workers; one ``opt_update`` a
+    parameter a step, as each key is pushed), within that limit
     of (a), and ``save_states`` / ``load_states`` through the store's
     updater; (c) fp16 (within FP16_MOVED_RTOL of (a)) and 2bit (finite,
     non-zero residuals) compression, three steps each; (d)
@@ -308,11 +318,11 @@ Phases, each of which fails the run (non-zero exit) when it fails:
     allocated and reserved memory; the replays within twice the body
     runs' spread: cuDNN's default backward algorithms may sum with
     atomics; the 2x-lr control failing): finite falling losses, exactly
-    161 ``opt_update`` launches a step in float32 and nothing else of the
-    library (convolutions, pooling and BatchNorm are cuDNN's), and two
-    training-mode backward passes at 4 x 64 x 64 on a card copy and a CPU
-    copy (float64 under amp) of the net after its first step: the
-    gradients of every parameter and then every running statistic within
+    one ``opt_update`` launch a step (all 161 parameters) in float32 and
+    nothing else of the library (convolutions, pooling and BatchNorm are
+    cuDNN's), and two training-mode backward passes at 4 x 64 x 64 on a card
+    copy and a CPU copy (float64 under amp) of the net after its first step:
+    the gradients of every parameter and then every running statistic within
     phase 6's bound (bf16: phase 6b's of float64; the same check of the
     ten-step net printed, not held). Then the float32-trained net served in eval mode through
     ``predictor_for(net, "float32")`` and ``"bfloat16"`` (bfloat16
@@ -335,7 +345,6 @@ the device form, with its launches on phase 6's one-card path and on
 phase 14's, ``resnet50_launches``); the last line is
 ``{"ok": true, "device": {...}}``.
 """
-import gc
 import json
 import math
 import os
@@ -1838,10 +1847,9 @@ def train_turns(torch, K, build, x, y, steps, tokens, exact,
         runs.append((rec, flat_weights(torch, net)))
         if first is None:
             first = (net, trainer, loss_fn), out
+        # the step and its programs go here: its graph pool goes back to
+        # the allocator at once
         del net, trainer, loss_fn, step, fn, out
-        # a dropped step's captured program (and its graph pool) sits in
-        # reference cycles until the cyclic collector runs
-        gc.collect()
     body = [(dict(enumerate(r["losses"])), w) for r, w in runs
             if r["kind"] == "body"]
     vs_body = []
@@ -1898,6 +1906,7 @@ FAMILIES = (("flash_fwd", ("flash_fwd",)), ("flash_bwd", ("flash_bwd",)),
             ("rnn_scan_fwd", ("rnn_scan_fwd",)),
             ("rnn_scan_bwd", ("rnn_bwd_walk", "rnn_gemm")),
             ("rnn_decode", ("rnn_decode",)),
+            ("opt_update", ("opt_multi",)),
             ("conv", ("conv", "fprop", "dgrad", "wgrad", "nchwtonhwc",
                       "nhwctonchw")),
             ("batch_norm", ("bn_fw", "bn_bw", "batch_norm", "batchnorm")),
@@ -1930,10 +1939,11 @@ def device_us_by_family(torch, prof):
 
 
 def profile_train_step(torch, net, trainer, loss_fn, x, y, what, iters=3):
-    """``--profile``: where the time of one training step goes. One step
-    split by CUDA events into forward, backward and optimizer update;
-    then ``torch.profiler`` over ``iters`` steps, device time summed by
-    kernel family, and the device's busy share of the wall time."""
+    """``--profile``: where the time of one eager training step goes. One
+    step split by CUDA events into forward, backward and optimizer update
+    (``Trainer.step``); then ``torch.profiler`` over ``iters`` steps,
+    device time summed by kernel family, and the device's busy share of
+    the wall time."""
     from torch.profiler import ProfilerActivity, profile
 
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
@@ -1970,6 +1980,48 @@ def profile_train_step(torch, net, trainer, loss_fn, x, y, what, iters=3):
                                     for k, v in top],
         "device_busy_share": busy / wall_us if busy else
         "not measured (the profiler saw no device time)"}})
+
+
+def profile_captured_step(torch, step, x, y, what, iters=3):
+    """``--profile``: where the time of one captured step goes (``step``,
+    a fresh ``compile_step``, captured here by its first call): a replay
+    timed by CUDA events, then ``torch.profiler`` over ``iters`` replays,
+    device time summed by kernel family (the whole update is the
+    ``opt_update`` family; "other" the elementwise rest) and the device's
+    busy share of the wall time. The replays step the net."""
+    from torch.profiler import ProfilerActivity, profile
+
+    step(x, y)
+    torch.cuda.synchronize()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ev[0].record()
+    step(x, y)
+    ev[1].record()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            step(x, y)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    families = device_us_by_family(torch, prof)
+    busy = sum(families.values())
+    top = sorted(device_us_by_kernel(torch, prof).items(),
+                 key=lambda kv: -kv[1])[:8]
+    none = "not measured (the profiler saw no device time in the replays)"
+    emit({"train_profile": {
+        "model": what, "program": "captured step, replayed",
+        "iters": iters, "n_traces": step.n_traces,
+        "replay_ms_by_events": ev[0].elapsed_time(ev[1]),
+        "wall_ms_per_step": wall_us / iters / 1e3,
+        "device_ms_per_step": {k: v / iters / 1e3
+                               for k, v in families.items()},
+        "device_share_by_family": {k: v / busy for k, v in families.items()}
+        if busy else none,
+        "top_kernels_ms_per_step": [[k[:80], v / iters / 1e3]
+                                    for k, v in top],
+        "device_busy_share": busy / wall_us if busy else none}})
 
 
 def train_bert(torch, np, K, dev, smi, profile=False, bf16=False):
@@ -2031,15 +2083,16 @@ def train_bert(torch, np, K, dev, smi, profile=False, bf16=False):
     median_ms = statistics.median(step_ms[1:])
     n_params = len(trainer._params)
     expect = {n: 0 for n in K.KERNELS}
+    # the whole update of the n_params float32 parameters: one launch
     expect.update(flash_fwd=12, flash_bwd_fused=12, layernorm_fwd=25,
-                  layernorm_bwd=25, opt_update=n_params)
+                  layernorm_bwd=25, opt_update=1)
     # under amp: attention in bf16, the LayerNorms in float32 (each sees
     # a residual sum, float32 + bf16 = float32); the update float32
     att = "bfloat16" if amp_on else "float32"
     expect_dt = {"flash_fwd": {att: 12}, "flash_bwd_fused": {att: 12},
                  "layernorm_fwd": {"float32": 25},
                  "layernorm_bwd": {"float32": 25},
-                 "opt_update": {"float32": n_params}}
+                 "opt_update": {"float32": 1}}
     launches_ok = all(s == expect for s in per_step) and \
         all(s == expect_dt for s in per_step_dt)
     losses_ok = all(math.isfinite(v) for v in losses) and \
@@ -2048,9 +2101,11 @@ def train_bert(torch, np, K, dev, smi, profile=False, bf16=False):
         p.grad is None or p.grad.dtype == torch.float32)
         for p in net.parameters())
     if profile:
-        profile_train_step(torch, net, trainer, loss_fn, xt, yt,
-                           "bert_base classifier 32 x 512"
-                           + (" bf16 amp" if amp_on else ""))
+        what = "bert_base classifier 32 x 512" + (" bf16 amp" if amp_on
+                                                 else "")
+        profile_train_step(torch, net, trainer, loss_fn, xt, yt, what)
+        profile_captured_step(torch, trainer.compile_step(
+            lambda a, b: loss_fn(net(a), b)), xt, yt, what)
 
     t1 = time.perf_counter()
     cpu_net = copy_to_cpu(lambda: make("cpu"), net, load_jax_params)
@@ -2284,7 +2339,6 @@ def checkpoint_phase(torch, np, K, dev, smi, bf16=False):
         # its steps' alone
         loop_b.compiled_step.aot_compile(x, y)
         step_mode = loop_b.compiled_step.mode
-        n_params = len(loop_b.trainer._params)
         K.reset_launch_counts()
         resumed, _ = loop_steps(torch, loop_b, x, y, TRAIN_STEPS)
         launches = K.launch_counts()
@@ -2325,9 +2379,10 @@ def checkpoint_phase(torch, np, K, dev, smi, bf16=False):
                        "resumed": [int((w_res != r[1]).sum())
                                    for r in runs]}
     expect = {n: 0 for n in K.KERNELS}
+    # one update launch a step: the captured step's, or the eager one's
+    # over the float32 masters (and float32 LayerNorms) under bf16
     expect.update(flash_fwd=12, flash_bwd_fused=12, layernorm_fwd=25,
-                  layernorm_bwd=25,
-                  opt_update=n_params if step_mode == "fused" else 0)
+                  layernorm_bwd=25, opt_update=1)
     expect = {n: c * len(steps) for n, c in expect.items()}
     print(smi, flush=True)
     report = {
@@ -2484,8 +2539,7 @@ def train_long(torch, np, K, dev):
     expect.update(flash_fwd=LONG_LAYERS, flash_bwd_dq=LONG_LAYERS,
                   flash_bwd_dkv=LONG_LAYERS,
                   layernorm_fwd=2 * LONG_LAYERS + 1,
-                  layernorm_bwd=2 * LONG_LAYERS + 1,
-                  opt_update=len(trainer._params))
+                  layernorm_bwd=2 * LONG_LAYERS + 1, opt_update=1)
     cpu_net = copy_to_cpu(lambda: make("cpu"), net, load_jax_params)
     grads = grad_check(torch, net, cpu_net, loss_fn, x, y)
     ok = all(s == expect for s in per_step) and grads["ok"] and \
@@ -2830,7 +2884,7 @@ def train_lstm(torch, np, K, dev, smi, profile=False):
     median_ms = statistics.median(step_ms[1:])
     expect = {n: 0 for n in K.KERNELS}
     expect.update(rnn_scan_fwd=LM_LAYERS, rnn_scan_bwd=LM_LAYERS,
-                  opt_update=len(trainer._params))
+                  opt_update=1)
     launches_ok = all(s == expect for s in per_step)
     losses_ok = all(math.isfinite(v) for v in losses) and \
         losses[-1] < losses[0]
@@ -2896,8 +2950,8 @@ def train_dense(torch, K, dev, smi):
     """Phase 8b: a Dense-only model (BERT-base's FFN widths, 768 -> 3072
     -> 768 -> 2, on DENSE_ROWS rows), DENSE_STEPS Adam steps in phase 6's
     turns: the replays bit-equal to the step's body run eagerly (every
-    kernel deterministic), finite losses, one ``opt_update`` a parameter
-    a step and nothing else launched."""
+    kernel deterministic), finite losses, one ``opt_update`` a step for
+    all six parameters and nothing else launched."""
     from mxnet_tpu_torch.gluon import Trainer
     from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
     from mxnet_tpu_torch.gluon.nn import Dense
@@ -2916,11 +2970,11 @@ def train_dense(torch, K, dev, smi):
         return net, Trainer(dict(net.named_parameters()), "adam",
                             {"learning_rate": 1e-3}), loss_fn
 
-    turns, (_, trainer, _), gated = train_turns(
+    turns, _, gated = train_turns(
         torch, K, build, x, y, DENSE_STEPS, DENSE_ROWS, exact=True)
     losses, _, per_step, counts = gated
     expect = {n: 0 for n in K.KERNELS}
-    expect.update(opt_update=len(trainer._params))
+    expect.update(opt_update=1)
     report = {"model": "Dense 768 -> 3072 -> 768 -> 2", "rows": DENSE_ROWS,
               "steps": DENSE_STEPS, "optimizer": "adam", "losses": losses,
               "launches_per_step": per_step,
@@ -3506,10 +3560,102 @@ def check_opt_kernel(torch, KO, dev):
                         if (n, code, clip, form) == (
                                 OPT_EMBED, "adam", False, "device"):
                             timed[dn] = (rec, (w, g, st, hp))
+    for code, kind, extra in OPT_KINDS:
+        for dtype in (torch.float32, torch.bfloat16):
+            for form in ("host", "vector", "device"):
+                seed += 1
+                rec = check_opt_list(torch, KO, dev, code, kind, extra,
+                                     dtype, form, seed)
+                emit({"check": rec})
+                if not rec["ok"]:
+                    failures.append(rec)
+                key = f"{str(dtype).replace('torch.', '')}_list"
+                worst[key + "_max_abs_err"] = max(
+                    worst.get(key + "_max_abs_err", 0.0), rec["max_abs_err"])
     emit({"opt_update_worst": worst})
     if failures:
         raise SystemExit(f"opt_update checks failed: {failures}")
     return timed
+
+
+#: check_opt_list's entries: 1 to 64 values, a bias, ragged lengths, one
+#: of several chunks, the bucket unit's length, and (last) a view one
+#: element into a larger buffer (the element path)
+OPT_LIST = (1, 3, 64, 768, 5000, 8193, 20000, OPT_BUCKET, 999)
+
+
+def check_opt_list(torch, KO, dev, code, kind, extra, dtype, form, seed):
+    """Phase 3: ONE ``multi_update`` launch over the ragged, misaligned
+    list OPT_LIST (clip on), every entry's lr / wd / t in ``form`` (host
+    scalars, per-element vectors, or device scalars in a ``DeviceHParams``
+    block with the rescale and the clip), against the plain version of
+    each entry; in float32 every other entry is a master whose bfloat16
+    copy the launch writes (equal to the rounding of the new weight).
+    float32: states bit-exact and weights within 1 ulp; bfloat16 within
+    OPT_BF16_TOL."""
+    from mxnet_tpu_torch.ops import kernels as K
+    units = [opt_case(torch, dev, code, n, dtype, form == "vector",
+                      seed * 100 + i) for i, n in enumerate(OPT_LIST)]
+    big = torch.empty(OPT_LIST[-1] + 1, device=dev, dtype=dtype)
+    w_last = big[1:].copy_(units[-1][0])
+    units[-1] = (w_last,) + units[-1][1:]
+    hps = [u[3] if form == "vector" else
+           (0.05 * (1 + i % 3), 0.01 * (i % 2), 1 + i % 4)
+           for i, u in enumerate(units)]
+    rescale, clip = 0.25, 0.5
+    if form == "device":
+        hp = device_hparams_list(torch, dev, hps, rescale, clip)
+        hps, rescale, clip = hp
+    lows = [torch.empty(u[0].numel(), dtype=torch.bfloat16, device=dev)
+            if dtype == torch.float32 and i % 2 else None
+            for i, u in enumerate(units)]
+    cfg = dict(extra, has_clip=True)
+    plain = KO.multi_update_plain(
+        kind, cfg, [u[0] for u in units], [u[1] for u in units],
+        *zip(*hps), rescale, clip, [u[2] for u in units])
+    ws = [u[0].clone() for u in units]
+    sts = [tuple(s.clone() for s in u[2]) for u in units]
+    before = K.launch_counts()["opt_update"]
+    KO.multi_update(kind, cfg, ws, [u[1] for u in units], *zip(*hps),
+                    rescale, clip, sts, lows)
+    torch.cuda.synchronize()
+    launches = K.launch_counts()["opt_update"] - before
+    err, ulps, st_err, lows_ok, bf16_ok = 0.0, 0.0, 0.0, True, True
+    for u, kw, ks, (pw, ps), low in zip(units, ws, sts, plain, lows):
+        err = max([err] + [float((a.float() - b.float()).abs().max())
+                           for a, b in [(kw, pw)] + list(zip(ks, ps))])
+        if dtype == torch.float32:
+            ulps = max(ulps, opt_weight_ulps(torch, kw, pw, u[0]))
+            st_err = max([st_err] + [float((a - b).abs().max())
+                                     for a, b in zip(ks, ps)])
+            if low is not None:
+                lows_ok &= bool(torch.equal(low, kw.to(low.dtype)))
+        else:
+            bf16_ok &= all(compare(torch, a, b, OPT_BF16_TOL,
+                                   OPT_BF16_TOL)[0]
+                           for a, b in [(kw, pw)] + list(zip(ks, ps)))
+    rec = {"kernel": "opt_update", "list": list(OPT_LIST),
+           "dtype": str(dtype).replace("torch.", ""), "kind": code,
+           "hparams": form, "clip": True, "launches": launches,
+           "max_abs_err": err}
+    if dtype == torch.float32:
+        rec.update(weight_ulps=ulps, state_max_abs_err=st_err,
+                   lows_are_the_rounding=lows_ok,
+                   ok=launches == 1 and ulps <= 1 and st_err == 0.0
+                   and lows_ok)
+    else:
+        rec.update(atol=OPT_BF16_TOL, rtol=OPT_BF16_TOL,
+                   ok=launches == 1 and bf16_ok)
+    return rec
+
+
+def device_hparams_list(torch, dev, hps, rescale, clip):
+    """A list's (lr, wd, t) as the captured one-card step passes them:
+    views of one ``DeviceHParams`` block, with its rescale and clip."""
+    from mxnet_tpu_torch.optimizer.optimizer import DeviceHParams
+    hp = DeviceHParams(len(hps), dev)
+    hp.stage(*zip(*hps), rescale, clip)
+    return list(zip(*hp.per_param())), hp.rescale, hp.clip
 
 
 def time_opt_kernel(torch, KO, timed):
@@ -3570,15 +3716,15 @@ def time_opt_case(torch, KO, dn, rec, args):
 def time_whole_update(torch, K, KO, dev, what, params, opt, lr, batch,
                       expect, per_elem, library, library_name):
     """One card's whole float32 update as the captured step runs it
-    (``Optimizer.whole_step_fn``: one ``opt_update`` launch a parameter,
-    lr / wd / t / rescale / clip read from a device block, each parameter
-    its own lr, wd and t there, every state seeded nonzero). Its first run
-    is held against the plain version of each parameter's unit on copies
-    of the same inputs, reading the same block: float32 states bit-exact,
-    each weight within 1 ulp; a miss, or other than ``expect`` launches,
-    ends the run. Then it is timed by CUDA-graph replay beside
-    ``library(params, grads, states)`` (the yardstick; the port never
-    calls it) and the plain version, against the bound of ``per_elem`` =
+    (``Optimizer.whole_step_fn``: ONE ``opt_update`` launch for the
+    ``expect`` parameters, lr / wd / t / rescale / clip read from a device
+    block, each parameter its own lr, wd and t there, every state seeded
+    nonzero). Its first run is held against the plain version of each
+    parameter's unit on copies of the same inputs, reading the same
+    block: float32 states bit-exact, each weight within 1 ulp; a miss, or
+    other than one launch, ends the run. Then it is timed by CUDA-graph
+    replay beside ``library(params, grads, states)`` (the yardstick; the port
+    never calls it) and the plain version, against the bound of ``per_elem`` =
     (bytes, float32 operations) an element: each parameter's weight,
     gradient and states read once, the weight and states written once."""
     from mxnet_tpu_torch.optimizer.optimizer import DeviceHParams
@@ -3651,7 +3797,7 @@ def time_whole_update(torch, K, KO, dev, what, params, opt, lr, batch,
            "library_eager_ms": library_eager_ms, "library_error": lib_err,
            "library": library_name,
            "bound_ms": b_ms, "bound_by": b_by, "bytes": per_elem[0] * n,
-           "ok": launches == n_p == expect and not bad}
+           "ok": launches == 1 and n_p == expect and not bad}
     return rec
 
 
@@ -3729,9 +3875,9 @@ def zero_layout(torch, np, K, dev, smi, widths=None, batch=TRAIN_BATCH,
     """Phase 10: BERT-base's ZeRO-1 update on one card. One backward at
     batch x seq gives a fixed set of gradients; the port's plan at
     ZERO_SHARDS shards; ``steps`` Adam updates (lr 1e-5) through
-    ``Optimizer.kernel_step_fn()`` on every shard of every unit in turn
-    (what the ranks each do), reassembled; against ``steps`` eager
-    ``trainer.step`` updates of a copy with the same gradients."""
+    ``Optimizer.kernel_step_fn()``, each rank's shards of every unit in
+    one launch (what the ranks each do), reassembled; against ``steps``
+    eager ``trainer.step`` updates of a copy with the same gradients."""
     from mxnet_tpu_torch.gluon import Trainer
     from mxnet_tpu_torch.gluon.fused_step import _ZeroShardPlan
     from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
@@ -3771,21 +3917,22 @@ def zero_layout(torch, np, K, dev, smi, widths=None, batch=TRAIN_BATCH,
     for _ in range(steps):
         opt.rescale_grad = 1.0 / batch
         lrs, wds, ts = opt.begin_fused_step(list(range(n)))
-        ulrs, uwds, uts = plan.pack_hparams(opt, lrs, wds, ts)
-        for k, u in enumerate(plan.units):
-            s = plan.shard_len(k)
-            full = torch.empty(u["padded"], dtype=u["upd_dtype"], device=dev)
-            for r in range(ZERO_SHARDS):
-                w_sh = plan.copy_shard(k, tz._params, r, full[r * s:
-                                                               (r + 1) * s])
-                g_sh = plan.copy_shard(k, grads, r, torch.empty_like(w_sh))
-                fn((w_sh,), (g_sh,),
-                   [plan.shard_hparam(k, ulrs[k], r, dev)],
-                   [plan.shard_hparam(k, uwds[k], r, dev)],
-                   [plan.shard_hparam(k, uts[k], r, dev)],
-                   np.float32(opt.rescale_grad), np.float32(0.0),
-                   (states[r][k],))
-            plan.write_unit(k, full)
+        packed = plan.pack_hparams(opt, lrs, wds, ts)
+        fulls = [torch.empty(u["padded"], dtype=u["upd_dtype"], device=dev)
+                 for u in plan.units]
+        for r in range(ZERO_SHARDS):
+            # rank r's update: all its shards in one launch
+            ws, gs = [], []
+            for k, f in enumerate(fulls):
+                s = plan.shard_len(k)
+                ws.append(plan.copy_shard(k, tz._params, r,
+                                          f[r * s:(r + 1) * s]))
+                gs.append(plan.copy_shard(k, grads, r,
+                                          torch.empty_like(ws[-1])))
+            fn(ws, gs, *plan.stage_hparams(*packed, r, dev),
+               np.float32(opt.rescale_grad), np.float32(0.0), states[r])
+        for k, f in enumerate(fulls):
+            plan.write_unit(k, f)
     torch.cuda.synchronize()
     zero_s = time.perf_counter() - t1
     counts = K.launch_counts()
@@ -3807,7 +3954,7 @@ def zero_layout(torch, np, K, dev, smi, widths=None, batch=TRAIN_BATCH,
     unsharded = sum(2 * 4 * p.numel() for p in tz._params)
     per_rank = [sum(s.numel() * s.element_size() for st in sts for s in st)
                 for sts in states]
-    expect = len(plan.units) * ZERO_SHARDS * steps
+    expect = ZERO_SHARDS * steps            # one launch a rank a step
     report = {
         "model": "bert_base classifier", "params": n_params,
         "params_expected": BERT_BASE_CLASSIFIER_PARAMS if widths is None
@@ -3837,9 +3984,10 @@ def zero_layout_mp(torch, np, K, dev, smi, widths=None, batch=TRAIN_BATCH,
     with ``multi_precision``. One backward at batch x seq gives fixed
     gradients; the plan at ZERO_SHARDS shards makes every bf16 parameter
     an mp unit with a float32 master shard on each rank. ``steps``
-    updates through ``Optimizer.kernel_step_fn()`` on every shard of
-    every unit (an mp unit's on its master, the gradient cast to
-    float32), each weight rebuilt from its gathered master; against
+    updates through ``Optimizer.kernel_step_fn()``, each rank's shards
+    in one launch (an mp unit's on its master, the gradient cast to
+    float32, its weight's shard written as the master's rounding by the
+    same launch), each weight gathered; against
     ``steps`` eager ``trainer.step`` updates of a copy (the Updater's
     masters). Checks: the mp units and their float32 masters, every
     ``opt_update`` launch in float32, each weight equal to its master in
@@ -3888,24 +4036,28 @@ def zero_layout_mp(torch, np, K, dev, smi, widths=None, batch=TRAIN_BATCH,
     for _ in range(steps):
         opt.rescale_grad = 1.0 / batch
         lrs, wds, ts = opt.begin_fused_step(list(range(n)))
-        ulrs, uwds, uts = plan.pack_hparams(opt, lrs, wds, ts)
-        for k, u in enumerate(plan.units):
-            s = plan.shard_len(k)
-            full = torch.empty(u["padded"], dtype=u["upd_dtype"], device=dev)
-            for r in range(ZERO_SHARDS):
-                w_sh = masters[r][k] if u["mp"] else plan.copy_shard(
-                    k, tz._params, r, full[r * s:(r + 1) * s])
-                g_sh = plan.copy_shard(k, grads, r, torch.empty_like(w_sh))
-                fn((w_sh,), (g_sh,),
-                   [plan.shard_hparam(k, ulrs[k], r, dev)],
-                   [plan.shard_hparam(k, uwds[k], r, dev)],
-                   [plan.shard_hparam(k, uts[k], r, dev)],
-                   np.float32(opt.rescale_grad), np.float32(0.0),
-                   (states[r][k],))
-                if u["mp"]:
-                    full[r * s:(r + 1) * s] = w_sh
-            # an mp unit's weight: its gathered master in the weight's dtype
-            plan.write_unit(k, full.to(u["dtypes"][0]))
+        packed = plan.pack_hparams(opt, lrs, wds, ts)
+        # each unit gathered in its weight's dtype: an mp unit's shards
+        # written by the launch as its masters' rounding
+        fulls = [torch.empty(u["padded"], dtype=u["dtypes"][0], device=dev)
+                 for u in plan.units]
+        for r in range(ZERO_SHARDS):
+            # rank r's update: all its shards, masters included, in one
+            # launch
+            ws, gs, lows = [], [], []
+            for k, (u, f) in enumerate(zip(plan.units, fulls)):
+                s = plan.shard_len(k)
+                part = f[r * s:(r + 1) * s]
+                ws.append(masters[r][k] if u["mp"] else
+                          plan.copy_shard(k, tz._params, r, part))
+                gs.append(plan.copy_shard(k, grads, r,
+                                          torch.empty_like(ws[-1])))
+                lows.append(part if u["mp"] else None)
+            fn(ws, gs, *plan.stage_hparams(*packed, r, dev),
+               np.float32(opt.rescale_grad), np.float32(0.0), states[r],
+               lows=lows)
+        for k, f in enumerate(fulls):
+            plan.write_unit(k, f)
     torch.cuda.synchronize()
     counts = K.launch_counts()
     counts_dt = K.launch_counts_by_dtype()
@@ -3930,7 +4082,7 @@ def zero_layout_mp(torch, np, K, dev, smi, widths=None, batch=TRAIN_BATCH,
         ratio = float((err / bound).max())
         if ratio > worst:
             worst, worst_name = ratio, tz._param_names[j]
-    expect = len(plan.units) * ZERO_SHARDS * steps
+    expect = ZERO_SHARDS * steps            # one launch a rank a step
     per_rank = [sum(t.numel() * t.element_size() for st in sts for t in st)
                 + sum(m.numel() * m.element_size() for m in ms.values())
                 for sts, ms in zip(states, masters)]
@@ -4047,7 +4199,7 @@ def zero_rank(widths, batch, seq, steps, lr, ckpt_dir=None):
             "step_ms": step_ms, "ckpt_busy": ckpt_busy,
             "opt_update_per_step": per_step,
             "fwd_bwd_ms": statistics.median(fb_ms[1:]),
-            "units": len(step.zero_plan.units),
+            "units": len(step.zero_plan.units), "groups": zero_groups(step),
             "state_bytes": step.optimizer_state_bytes(),
             "state_bytes_unsharded": sum(2 * 4 * p.numel()
                                          for p in trainer._params),
@@ -4093,8 +4245,10 @@ def zero_resume_rank(widths, batch, seq, steps, lr, ckpt_dir):
             loop.synchronize()
             per_step.append(K.launch_counts()["opt_update"] - before)
     mgr = loop.checkpoint_manager
+    step = loop.compiled_step
     return {"start": start, "losses": losses, "opt_update_per_step": per_step,
-            "zero_sharded": loop.compiled_step.zero_sharded,
+            "groups": zero_groups(step) if step.zero_sharded else None,
+            "zero_sharded": step.zero_sharded,
             "provenance": mgr.restore_provenance,
             "restore_s": mgr.stats["restore_s"]}
 
@@ -4247,7 +4401,7 @@ def zero_train_multi(torch, np, smi, device="cuda", world=None, widths=None,
         and res_err <= ZERO_RESUME_RTOL
         and all(r["losses"] == res0["losses"] for r in resumed)
         and (world // 2 < 2 or (report["resume"]["zero_sharded"] and all(
-            c == r0["units"] for r in resumed
+            c == r["groups"] for r in resumed
             for c in r["opt_update_per_step"]))))
     share = max(report["state_bytes_per_rank"]) \
         / report["state_bytes_unsharded"]
@@ -4260,7 +4414,7 @@ def zero_train_multi(torch, np, smi, device="cuda", world=None, widths=None,
                     and report["weights_equal_all_ranks"]
                     and r0["units"] == (ZERO_UNITS if widths is None
                                         else r0["units"])
-                    and all(c == r0["units"] for r in ranks
+                    and all(c == r["groups"] for r in ranks
                             for c in r["opt_update_per_step"])
                     and global_loss and first_err <= ZERO_LOSS_ATOL
                     and share <= 1.01 / world
@@ -4271,6 +4425,16 @@ def zero_train_multi(torch, np, smi, device="cuda", world=None, widths=None,
     if not report["ok"]:
         raise SystemExit(f"ZeRO training phase failed: {report}")
     return report
+
+
+def zero_groups(step):
+    """A ZeRO step's reduce groups (its runs of buckets of one update and
+    weight dtype): what it updates in one ``opt_update`` launch each, a
+    rank a step."""
+    plan = step.zero_plan
+    keys = [(plan.units[b[0]]["upd_dtype"], plan.units[b[0]]["dtypes"][0])
+            for b in step.buckets]
+    return sum(1 for i, k in enumerate(keys) if i == 0 or k != keys[i - 1])
 
 
 def spread_gate(refs, got, dist):
@@ -4473,6 +4637,7 @@ def overlap_rank(widths, batch, seq, steps, lr, trace_dir, dense_rows):
             runs.append({
                 "mode": mode, "losses": losses, "step_ms": step_ms,
                 "opt_update_per_step": per_step, "buckets": buckets,
+                "groups": zero_groups(loop.compiled_step),
                 "zero_sharded": loop.compiled_step.zero_sharded,
                 "split_ms": split,
                 "max_memory_allocated": torch.cuda.max_memory_allocated(dev)
@@ -4595,7 +4760,6 @@ def zero_overlap(torch, np, smi, device="cuda", world=None, widths=None,
                        (widths, batch, seq, steps, TRAIN_LR, trace_dir,
                         dense_rows), timeout_s=timeout_s)
     r0 = ranks[0]
-    units = ZERO_UNITS if widths is None else None
     runs = {}
     for k, run in enumerate(r0["runs"]):
         runs.setdefault(run["mode"], []).append(k)
@@ -4627,9 +4791,8 @@ def zero_overlap(torch, np, smi, device="cuda", world=None, widths=None,
                           rms_dist) for o in over]
     l_gate = [spread_gate([s["losses"] for s in serial], o["losses"],
                           loss_dist) for o in over]
-    launches_ok = all(c == (units or r["runs"][0]["opt_update_per_step"][0])
-                      for r in ranks for run in r["runs"]
-                      for c in run["opt_update_per_step"])
+    launches_ok = all(c == run["groups"] for r in ranks
+                      for run in r["runs"] for c in run["opt_update_per_step"])
     pf = r0["prefetch"]
     plain = [p["losses"] for p in pf if p["mode"] == "plain"]
     pf_gate = [spread_gate(plain, p["losses"], loss_dist)
@@ -4917,7 +5080,7 @@ def elastic_one_card(torch, np, K, dev, smi):
     expect.update(flash_fwd=12, flash_bwd_fused=12, layernorm_fwd=25,
                   layernorm_bwd=25)
     expect = {n: c * runs for n, c in expect.items()}
-    expect["opt_update"] = BERT_BASE_TRAINABLE * dispatched
+    expect["opt_update"] = dispatched       # one a step
     report = {"model": "bert_base classifier", "batch": TRAIN_BATCH,
               "seq": TRAIN_SEQ, "dropout": 0.1, "fault": spec,
               "steps": ONE_CARD_STEPS, "events": res.events,
@@ -5084,12 +5247,11 @@ def dist_kv_one_card(torch, np, K, dev, smi, widths=None, batch=TRAIN_BATCH,
     fused = [(r["losses"], w) for r, w in runs if r["kind"] == "fused"]
     gates = {r["kind"] + str(i): vs_eager(fused, fused, w0, r["losses"], w)
              for i, (r, w) in enumerate(runs) if r["kind"] != "fused"}
-    n_params = runs[1][0]["n_params"]
     layers = (widths or BERT_BASE)["num_layers"]
     expect = {n: 0 for n in K.KERNELS}
     expect.update(flash_fwd=layers, flash_bwd_fused=layers,
                   layernorm_fwd=2 * layers + 1, layernorm_bwd=2 * layers + 1,
-                  opt_update=n_params)
+                  opt_update=1)
     split = [r for r, _ in runs if r["kind"] != "fused"]
     counts_ok = all(r["launches_per_step"] == expect
                     and r["launches_each_step_equal"] for r, _ in runs)
@@ -5406,16 +5568,17 @@ def dist_kv_multi(torch, np, smi, device="cuda", world=None, widths=None,
     a card over NCCL. Gates: (a) the split program (``mode`` "fused",
     two graphs, ``update_on_kvstore`` False), every rank holding rank
     0's weights after the store's init, finite losses falling, bit-equal
-    weights on every rank, one ``opt_update`` a parameter a step, one
-    collective a bucket and one wait a step, the first step's reduced
+    weights on every rank, one ``opt_update`` a step, one collective a
+    bucket and one wait a step, the first step's reduced
     gradients within phase 11's bound of the reference's and the weights
     within :func:`vs_eager`'s limit of the reference's; (b) the store
     updating (the JAX default with several workers), bit-equal weights
-    on every rank, within :func:`vs_eager`'s limit of (a)'s runs, no
-    ``opt_update`` launch, the states' round trip through the store's
-    updater; (c) fp16 within FP16_MOVED_RTOL of (a) and 2bit's residuals
-    finite and non-zero; (d) ``dist_async`` with no wait, its weights
-    within the spread of (a)'s two runs (BERT's dq atomics keep two runs
+    on every rank, within :func:`vs_eager`'s limit of (a)'s runs, one
+    ``opt_update`` a parameter a step (the store updates each key as it
+    is pushed), the states' round trip through the store's updater; (c)
+    fp16 within FP16_MOVED_RTOL of (a) and 2bit's residuals finite and
+    non-zero; (d) ``dist_async`` with no wait, its weights within the
+    spread of (a)'s two runs (BERT's dq atomics keep two runs
     from being bit-equal) and, on the Dense-only model, bit-equal to
     ``dist_sync``. Prints the slowest rank's median step ms of (a) and
     of the mesh mode in turns, the spread and global tokens/s."""
@@ -5452,7 +5615,7 @@ def dist_kv_multi(torch, np, smi, device="cuda", world=None, widths=None,
         return (t["mode"] == "fused" and t["split"] and t["graphs"] == 2
                 and t["update_on_kvstore"] is False
                 and t["init_equal_all_ranks"]
-                and all(c == n_params for c in t["opt_update"])
+                and all(c == 1 for c in t["opt_update"])
                 and all(c == len(t["buckets"]) for c in t["collectives"])
                 and all(b == blocks for b in t["blocks"])
                 and t["weights_equal_all_ranks"]
@@ -5477,7 +5640,7 @@ def dist_kv_multi(torch, np, smi, device="cuda", world=None, widths=None,
         and r0["on_store"]["one_updater"]
         and every_rank("on_store", lambda t: t["update_on_kvstore"] is True
                         and t["weights_equal_all_ranks"]
-                        and all(c == 0 for c in t["opt_update"])
+                        and all(c == n_params for c in t["opt_update"])
                         and all(c == n_params for c in t["collectives"][1:])
                         and all(math.isfinite(v) for v in t["losses"]))
         and all(r["b_vs_a"]["ok"] for r in ranks),
@@ -5702,23 +5865,25 @@ def resnet_grad_check(torch, np, net, loss_fn, amp_on):
             "ok": all(p["ok"] for p in passes) and stats["ok"]}
 
 
-def train_resnet(torch, np, K, dev, smi, bf16=False):
+def train_resnet(torch, np, K, dev, smi, bf16=False, profile=False):
     """Phase 14: resnet50_v1 trained as ``bench_resnet`` trains it,
     through ``TrainLoop`` over ``compile_step`` (one captured graph a
     step), in the turns of :func:`train_turns` against the eager loop
     (the replays held bit-equal to the body run eagerly: the caller sets
-    ``cudnn.deterministic``), with exactly
-    RESNET50_TRAINABLE ``opt_update`` launches a step (float32, also
-    under amp) and nothing else of the library, falling finite losses,
+    ``cudnn.deterministic``), with exactly one ``opt_update`` launch a
+    step for its RESNET50_TRAINABLE parameters (float32, also under amp)
+    and nothing else of the library, falling finite losses,
     and the gradient check of :func:`resnet_grad_check` on the net after
     its first step. ``bf16``: the
     same under ``amp.init()``, ``amp.uninit()`` after it whatever
-    happens. Returns (the gated run's launches, its trained net)."""
+    happens. ``profile``: :func:`profile_train_step` and
+    :func:`profile_captured_step` of the trained net. Returns (the gated
+    run's launches, its trained net)."""
     from mxnet_tpu_torch import amp
     if bf16:
         amp.init("bfloat16")
         try:
-            return train_resnet(torch, np, K, dev, smi, False)
+            return train_resnet(torch, np, K, dev, smi, False, profile)
         finally:
             amp.uninit()
     from mxnet_tpu_torch.gluon import Trainer
@@ -5754,14 +5919,21 @@ def train_resnet(torch, np, K, dev, smi, bf16=False):
     losses, step_ms, per_step, counts, per_step_dt = gated
     n_params = len(trainer._params)
     expect = {n: 0 for n in K.KERNELS}
-    expect.update(opt_update=RESNET50_TRAINABLE)
-    expect_dt = {"opt_update": {"float32": RESNET50_TRAINABLE}}
+    # the whole update of the RESNET50_TRAINABLE float32 parameters
+    expect.update(opt_update=1)
+    expect_dt = {"opt_update": {"float32": 1}}
     launches_ok = n_params == RESNET50_TRAINABLE and \
         all(s == expect for s in per_step) and \
         all(s == expect_dt for s in per_step_dt)
     losses_ok = all(math.isfinite(v) for v in losses) and \
         losses[-1] < losses[0]
     master_ok = all(p.dtype == torch.float32 for p in net.parameters())
+    if profile:
+        what = f"resnet50_v1 {RESNET_BATCH} x {RESNET_SIZE}" + (
+            " bf16 amp" if amp_on else "")
+        profile_train_step(torch, net, trainer, loss_fn, xt, yt, what)
+        profile_captured_step(torch, trainer.compile_step(
+            lambda a, b: loss_fn(net(a), b)), xt, yt, what)
     torch.cuda.empty_cache()
     first, first_trainer, _ = build()
     plain_step(first, first_trainer, loss_fn)(xt, yt)
@@ -5891,7 +6063,7 @@ def serve_resnet(torch, np, dev, smi, net, dtype):
     return report
 
 
-def resnet_phase(torch, np, K, dev, smi):
+def resnet_phase(torch, np, K, dev, smi, profile=False):
     """Phase 14: resnet50_v1's whole update held against its plain
     version, the net trained in float32 and under bf16 amp, then the
     float32-trained net served in float32 and bfloat16. Returns the
@@ -5903,16 +6075,16 @@ def resnet_phase(torch, np, K, dev, smi):
     runs, and a gate on the spread of two body runs failed one run in four
     (PERF.md section 6). Serving runs on the defaults."""
     from mxnet_tpu_torch.ops.kernels import opt_update as KO
-    gc.collect()    # the graph pools of the earlier phases' dropped steps
     torch.cuda.empty_cache()
     time_resnet_update(torch, K, KO, dev)
     torch.cuda.empty_cache()
     deterministic = torch.backends.cudnn.deterministic
     torch.backends.cudnn.deterministic = True
     try:
-        counts, net = train_resnet(torch, np, K, dev, smi)
+        counts, net = train_resnet(torch, np, K, dev, smi, profile=profile)
         torch.cuda.empty_cache()
-        counts_bf16, _ = train_resnet(torch, np, K, dev, smi, bf16=True)
+        counts_bf16, _ = train_resnet(torch, np, K, dev, smi, bf16=True,
+                                      profile=profile)
     finally:
         torch.backends.cudnn.deterministic = deterministic
     torch.cuda.empty_cache()
@@ -6256,22 +6428,113 @@ def bf16_bert_step_ms(torch, np, K, dev, amp):
     return statistics.median(wall[1:])
 
 
-def compare_checkouts(parent):
+#: --step-times: steps a run (the first a warm-up, out of the median)
+AB_STEP_RUNS = 6
+
+
+def step_times(root):
+    """``--step-times ROOT``: with the package under ROOT, the median wall
+    ms (host clock, each step ends in a synchronize) of the captured step
+    (``compile_step`` after ``aot_compile``) and of the eager loop
+    (forward, ``backward``, ``Trainer.step``) of BERT-base at 32 x 512
+    (Adam, dropout 0) in float32 and under bf16 amp, and of resnet50_v1
+    at RESNET_BATCH x RESNET_SIZE (SGD momentum) in float32, each from
+    fresh seeded weights; prints one ``{"step_times": ...}`` line. What
+    the whole update's form moves end to end, for ``--compare-steps``."""
+    import numpy as np
+    import torch
+    sys.path.insert(0, os.path.abspath(root))
+    from mxnet_tpu_torch import amp
+    from mxnet_tpu_torch.gluon import Trainer
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from mxnet_tpu_torch.gluon.model_zoo.vision import resnet50_v1
+    from mxnet_tpu_torch.gluon.params import init_params_numpy, \
+        load_jax_params
+    from mxnet_tpu_torch.ops import kernels as K
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    K.build_library()
+    dev = torch.device("cuda", 0)
+    loss_fn = SoftmaxCrossEntropyLoss()
+    rs = np.random.RandomState(3)
+    bx = torch.from_numpy(rs.randint(0, BERT_VOCAB, (TRAIN_BATCH, TRAIN_SEQ))
+                          .astype(np.int64)).to(dev)
+    by = torch.from_numpy(rs.randint(0, 2, (TRAIN_BATCH,))
+                          .astype(np.float32)).to(dev)
+    rx = torch.from_numpy(rs.uniform(size=(RESNET_BATCH, 3, RESNET_SIZE,
+                                           RESNET_SIZE)).astype(np.float32)
+                          ).to(dev)
+    ry = torch.from_numpy(rs.randint(0, RESNET_CLASSES, (RESNET_BATCH,))
+                          .astype(np.float32)).to(dev)
+
+    def bert():
+        net = bert_base_classifier(torch, TRAIN_SEQ, dev)
+        load_jax_params(net, init_params_numpy(net, seed=2))
+        return net, Trainer(dict(net.named_parameters()), "adam",
+                            {"learning_rate": TRAIN_LR}), bx, by
+
+    def resnet():
+        net = resnet50_v1(classes=RESNET_CLASSES, device=dev)
+        load_jax_params(net, resnet_init(np, net, seed=6))
+        return net, Trainer(dict(net.named_parameters()), "sgd",
+                            {"learning_rate": RESNET_LR,
+                             "momentum": RESNET_MOMENTUM}), rx, ry
+
+    out = {"root": root, "package": os.path.dirname(K.__file__)}
+    for what, build, bf16 in (("bert_base 32 x 512 float32", bert, False),
+                              ("bert_base 32 x 512 bf16 amp", bert, True),
+                              (f"resnet50_v1 {RESNET_BATCH} x {RESNET_SIZE} "
+                               "float32", resnet, False)):
+        for kind in ("captured", "eager"):
+            net, trainer, x, y = build()
+            if bf16:
+                amp.init("bfloat16")
+            try:
+                if kind == "captured":
+                    fn = trainer.compile_step(
+                        lambda a, b, net=net: loss_fn(net(a), b))
+                    fn.aot_compile(x, y)
+                else:
+                    fn = plain_step(net, trainer, loss_fn)
+                wall = run_train_steps(torch, K, fn, x, y, AB_STEP_RUNS)[1]
+            finally:
+                if bf16:
+                    amp.uninit()
+            out[f"{what} {kind} step (median of {AB_STEP_RUNS - 1} after "
+                "a warm-up)"] = statistics.median(wall[1:])
+            del net, trainer, fn
+            torch.cuda.empty_cache()
+    emit({"step_times": out})
+    return 0
+
+
+def compare_checkouts(parent, flag="--kernel-times", key="kernel_times"):
     """``--compare PARENT``: ``--kernel-times`` of PARENT (a checkout of
     the parent commit, unpacked under build/) and of this checkout, in
     turns on this card (parent, change, change, parent), each in its own
-    process; prints one ``{"compare": ...}`` line with both runs of each."""
+    process; prints one ``{"compare": ...}`` line with both runs of each.
+    ``--compare-steps PARENT``: the same of ``--step-times``."""
     runs = []
     for root in (parent, ".", ".", parent):
         res = subprocess.run([sys.executable, os.path.abspath(__file__),
-                              "--kernel-times", root], capture_output=True,
-                             text=True)
+                              flag, root], capture_output=True, text=True)
         line = [ln for ln in res.stdout.splitlines()
-                if ln.startswith('{"kernel_times"')]
+                if ln.startswith('{"%s"' % key)]
         if res.returncode != 0 or not line:
-            raise SystemExit(f"--kernel-times {root} failed:\n"
+            raise SystemExit(f"{flag} {root} failed:\n"
                              f"{res.stdout[-3000:]}\n{res.stderr[-3000:]}")
-        runs.append((root, json.loads(line[0])["kernel_times"]))
+        runs.append((root, json.loads(line[0])[key]))
+    if key == "step_times":
+        table = {}
+        for root, r in runs:
+            side = "parent" if root == parent else "change"
+            for k, ms in r.items():
+                if k not in ("root", "package"):
+                    table.setdefault(k, {"parent": [], "change": []})[
+                        side].append(ms)
+        emit({"compare_steps": {"order": [root for root, _ in runs],
+                                "wall_ms": table}})
+        return 0
     table = {}
     for root, r in runs:
         side = "parent" if root == parent else "change"
@@ -6300,6 +6563,11 @@ def main(argv):
         return kernel_times(argv[argv.index("--kernel-times") + 1])
     if "--compare" in argv:
         return compare_checkouts(argv[argv.index("--compare") + 1])
+    if "--step-times" in argv:
+        return step_times(argv[argv.index("--step-times") + 1])
+    if "--compare-steps" in argv:
+        return compare_checkouts(argv[argv.index("--compare-steps") + 1],
+                                 "--step-times", "step_times")
     try:
         import mxnet_tpu_torch as mx
     except ImportError as e:
@@ -6365,7 +6633,17 @@ def main(argv):
                                      "count": torch.cuda.device_count()}})
         return 0
     if "--resnet" in argv:
-        resnet_phase(torch, np, K, dev, smi)
+        resnet_phase(torch, np, K, dev, smi, "--profile" in argv)
+        print(smi, flush=True)
+        emit({"ok": True, "device": {"platform": "gpu",
+                                     "kind": torch.cuda.get_device_name(0),
+                                     "count": torch.cuda.device_count()}})
+        return 0
+    if "--opt" in argv:
+        # kernel 12 alone: its checks, its times, the two whole updates
+        time_opt_kernel(torch, KO, check_opt_kernel(torch, KO, dev))
+        time_bert_update(torch, K, KO, dev)
+        time_resnet_update(torch, K, KO, dev)
         print(smi, flush=True)
         emit({"ok": True, "device": {"platform": "gpu",
                                      "kind": torch.cuda.get_device_name(0),
@@ -6444,7 +6722,7 @@ def main(argv):
     torch.cuda.empty_cache()
     dist_kv = dist_kv_one_card(torch, np, K, dev, smi)
     torch.cuda.empty_cache()
-    resnet = resnet_phase(torch, np, K, dev, smi)
+    resnet = resnet_phase(torch, np, K, dev, smi, "--profile" in argv)
     torch.cuda.empty_cache()
     if torch.cuda.device_count() >= 2:
         zero_train_multi(torch, np, smi)

@@ -47,8 +47,9 @@ How a capture goes, and the traps it avoids:
   stream), and each replay counts them once.
 - A body holds what it reads (the net, state tensors, static views),
   never its owner: a program would otherwise keep its owner alive in a
-  reference cycle, and the cyclic collector would destroy its graph
-  without the device synchronize of :meth:`Programs.clear`.
+  reference cycle, holding its graph pool until the cyclic collector
+  ran. An owner dropped is freed at once, and :class:`Programs` runs
+  :meth:`Programs.clear` (the device synchronized first) as it goes.
 - A capture that fails never reaches the end that takes the random
   generators it registered (the device's default one, and the ones the
   warm-up named) out of capture mode; the next eager draw from them
@@ -253,6 +254,13 @@ class Programs:
         """Drop every program (their graphs and static buffers)."""
         with self._mu:
             self._drop(list(self._progs))
+
+    def __del__(self):
+        # dropped with its owner (a step, a predictor): the device is
+        # synchronized before the graphs hand their pool back, as
+        # :meth:`clear` does
+        if getattr(self, "_progs", None):
+            self.clear()
 
     def get(self, key, build: Callable[[], tuple], count: bool = True,
             what: str = "", scope: Optional[Callable] = None

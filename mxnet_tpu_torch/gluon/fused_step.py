@@ -29,10 +29,10 @@ Four modes, decided at the first call as the JAX package decides them:
   a parameter the loss does not reach updates with a zero gradient, as
   the JAX program's ``jax.grad`` gives it, and no ``.grad`` is touched)
   and the update of every trainable parameter in place
-  (``Optimizer.whole_step_fn``: one ``opt_update`` launch a parameter
-  for exact SGD / SGD-momentum / Adam). Every lr, wd, update count t,
-  rescale (``trainer._scale`` / batch size, so an amp loss scale enters
-  here) and clip the update reads comes from a device buffer
+  (``Optimizer.whole_step_fn``: one ``opt_update`` launch a dtype
+  group of parameters for exact SGD / SGD-momentum / Adam). Every lr, wd,
+  update count t, rescale (``trainer._scale`` / batch size, so an amp loss
+  scale enters here) and clip the update reads comes from a device buffer
   (``optimizer.DeviceHParams``) that the host fills before each replay:
   the counts advance and lr / wd (a scheduler's, a
   ``trainer.learning_rate`` set between steps) are read on the host, as
@@ -66,7 +66,7 @@ Four modes, decided at the first call as the JAX package decides them:
   in a static buffer; then, on the host, ``Trainer._allreduce_grads``,
   where the store's bucketed ``pushpull_list`` writes the sums back into
   those buffers in place (the collectives stay out of the graphs); then
-  one graph of the update (one ``opt_update`` a parameter, reading the
+  one graph of the update (one ``opt_update`` a dtype group, reading the
   same device block), shared by the signatures. Each rank passes its
   own rows, and ``batch_size=`` the global batch's size; under an
   active dp mesh (which must span every rank) each rank is given the
@@ -98,10 +98,12 @@ Four modes, decided at the first call as the JAX package decides them:
   it. After the backward the buckets not yet out go (a parameter the
   step did not use has zeros). Then, once a run of buckets of one dtype
   (what a serial schedule makes one bucket): ``work.wait()`` on its
-  buckets (the compute stream waits, not the host), each unit's update
-  on this rank's shard against its persistent sharded state (the
-  ``opt_update`` kernel for exact SGD/Adam, ``fused_step_fn`` for any
-  other elementwise rule) and ONE asynchronous
+  buckets (the compute stream waits, not the host), the update of its
+  units' shards on this rank against their persistent sharded state
+  (ONE ``opt_update`` launch for exact SGD/Adam, an mp group's weights
+  written from its masters by the same launch; ``fused_step_fn`` for
+  any other elementwise rule; the bucket units' per-element lr, wd and
+  t go up in one copy a step) and ONE asynchronous
   ``all_gather_into_tensor``; the new weights are unpacked into the
   parameters once every gather has landed. (The first design gathered
   each bucket on its own after the backward: at BERT-base's 75 buckets
@@ -313,14 +315,40 @@ class _ZeroShardPlan:
                 uts.append(tv)
         return ulrs, uwds, uts
 
-    def shard_hparam(self, k: int, v, rank: int, device):
-        """Rank ``rank``'s part of a unit hyperparameter: a scalar as it
-        is, a vector's slice as a tensor on ``device``."""
-        if np.ndim(v) == 0:
-            return v
-        s = self.shard_len(k)
-        return torch.from_numpy(np.ascontiguousarray(
-            v[rank * s:(rank + 1) * s])).to(device)
+    def stage_hparams(self, lrs, wds, ts, rank: int, device):
+        """Rank ``rank``'s part of every unit's lr, wd and t
+        (:meth:`pack_hparams`' lists): a one-parameter unit's scalars as
+        they are; the bucket units' vector slices staged into ONE int32
+        block on ``device`` by one copy from pinned memory (lr and wd as
+        float32 bits), each a view of it."""
+        vec = [k for k, v in enumerate(lrs) if np.ndim(v)]
+        out = [list(lrs), list(wds), list(ts)]
+        if not vec:
+            return out
+        total = sum(self.shard_len(k) for k in vec)
+        host = np.empty(3 * total, np.int32)
+        hf = host.view(np.float32)
+        offs, off = [], 0
+        for k in vec:
+            s = self.shard_len(k)
+            part = slice(rank * s, (rank + 1) * s)
+            hf[off:off + s] = lrs[k][part]
+            hf[total + off:total + off + s] = wds[k][part]
+            host[2 * total + off:2 * total + off + s] = ts[k][part]
+            offs.append((k, off, s))
+            off += s
+        src = torch.from_numpy(host)
+        buf = torch.empty(3 * total, dtype=torch.int32, device=device)
+        if buf.device.type == "cuda":
+            buf.copy_(src.pin_memory(), non_blocking=True)
+        else:
+            buf.copy_(src)
+        f = buf.view(torch.float32)
+        for k, o, s in offs:
+            out[0][k] = f[o:o + s]
+            out[1][k] = f[total + o:total + o + s]
+            out[2][k] = buf[2 * total + o:2 * total + o + s]
+        return out
 
     # ---------------- sharded state ----------------
     def create_states(self, opt, rank: int, updater_states=None,
@@ -1302,9 +1330,10 @@ class CompiledTrainStep:
         red = _BucketReducer(plan, self._buckets, mesh, trace)
         red.backward(loss.sum(), params)
         lrs, wds, ts, rescale, clip = self._scalars(batch_size)
-        ulrs, uwds, uts = plan.pack_hparams(opt, lrs, wds, ts)
-        opt_fn = opt.kernel_step_fn() or opt.fused_step_fn()
         rank, n, dev = plan.rank, plan.n_shards, self._device
+        ulrs, uwds, uts = plan.stage_hparams(
+            *plan.pack_hparams(opt, lrs, wds, ts), rank, dev)
+        kernel = opt.kernel_step_fn()
         gathers = []
         for g, bs in enumerate(red.groups):
             # an mp group's gradient was packed, and is reduced, in float32
@@ -1323,21 +1352,23 @@ class CompiledTrainStep:
                 offs.append(off)
                 off += s
             sts = tuple(plan.states[k] for k in idx)
-            new_ws, new_sts = opt_fn(
-                tuple(ws), tuple(gs),
-                [plan.shard_hparam(k, ulrs[k], rank, dev) for k in idx],
-                [plan.shard_hparam(k, uwds[k], rank, dev) for k in idx],
-                [plan.shard_hparam(k, uts[k], rank, dev) for k in idx],
-                rescale, clip, sts)
-            for w, nw, st, nst in zip(ws, new_ws, sts, new_sts):
-                if nw is not w:              # fused_step_fn: new tensors
+            # the weights of an mp group: its masters' rounding
+            lows = [w_row[o:o + s] for o, s in zip(offs, cols)] \
+                if mp else None
+            args = (tuple(ws), tuple(gs), [ulrs[k] for k in idx],
+                    [uwds[k] for k in idx], [uts[k] for k in idx], rescale,
+                    clip, sts)
+            if kernel is not None:
+                # the whole group in one launch, in place
+                kernel(*args, lows=lows)
+            else:
+                new_ws, new_sts = opt.fused_step_fn()(*args)
+                for w, nw, st, nst in zip(ws, new_ws, sts, new_sts):
                     w.copy_(nw)
-                for s_, ns in zip(st, nst):
-                    if ns is not s_:
+                    for s_, ns in zip(st, nst):
                         s_.copy_(ns)
-            if mp:      # the weights, rebuilt from the masters, gathered
-                for w, o, s in zip(ws, offs, cols):
-                    w_row[o:o + s].copy_(w)
+                for low, w in zip(lows or (), ws):
+                    low.copy_(w)
             full, work = all_gather_rows(w_row, mesh, n, async_op=True)
             trace.append(("all_gather", g))
             gathers.append((idx, cols, offs, w_row, full, work))
@@ -1349,6 +1380,13 @@ class CompiledTrainStep:
             p.fresh_grad = False
             p.grad = None
         return loss.detach()
+
+
+def _loop_loss(net, loss, *batch):
+    """A :class:`TrainLoop`'s loss: all but the last input through
+    ``net``, the last as the label."""
+    *inputs, label = batch
+    return loss(net(*inputs), label)
 
 
 class TrainLoop:
@@ -1402,7 +1440,11 @@ class TrainLoop:
         self._net = net
         self._loss = loss
         self._trainer = trainer
-        self._step = trainer.compile_step(self._loss_fn)
+        # the step holds the net and the loss, not the loop: a loop that
+        # is dropped frees its step's programs at once (no cycle for the
+        # cyclic collector to find later)
+        self._step = trainer.compile_step(
+            functools.partial(_loop_loss, net, loss))
         if inflight is None:
             inflight = _env_int("MXNET_INFLIGHT_STEPS", 2)
         if os.environ.get("MXNET_ENGINE_TYPE") == "NaiveEngine":
@@ -1425,10 +1467,6 @@ class TrainLoop:
                     self._global_step = int(meta.get("step", 0))
                     _LOG.info("TrainLoop resumed at step %d from %s",
                               self._global_step, checkpoint_dir)
-
-    def _loss_fn(self, *batch):
-        *inputs, label = batch
-        return self._loss(self._net(*inputs), label)
 
     @staticmethod
     def _retire(loss):

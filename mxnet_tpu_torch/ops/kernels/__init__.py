@@ -11,7 +11,7 @@ Dispatch rule, shared by every wrapper (``norm.layer_norm``,
 ``norm.layer_norm_bwd``, ``norm.bias_gelu``, ``norm.bias_gelu_bwd``,
 ``attention.flash_attention_fwd``, ``attention.flash_attention_bwd``,
 ``rnn_scan.rnn_scan_fwd``, ``rnn_scan.rnn_scan_bwd``,
-``rnn_scan.rnn_decode_step``, ``opt_update.unit_update``):
+``rnn_scan.rnn_decode_step``, ``opt_update.multi_update``):
 a tensor on the CPU takes the plain PyTorch version that sits beside
 the wrapper; a tensor on a CUDA device launches the kernel or raises.
 There is no switch that turns a kernel off on the card.
@@ -171,9 +171,9 @@ KERNELS: Dict[str, KernelInfo] = {k.name: k for k in (
     KernelInfo(
         "opt_update", "mxnet_tpu_torch/ops/kernels/csrc/opt_update.cu",
         "mxt_opt_update",
-        # w, g, s0, s1, lrv, wdv, tv, rsp, clp, n, kind, has_clip, hp, lr,
-        # wd, t, rescale, clip, mom, b1, b2, eps, omb1, omb2, dtype, stream
-        (_P,) * 9 + (_L, _I, _I, _I, _F, _F, _I) + (_F,) * 8 + (_I, _P),
+        # entries, n_entries, n_chunks, chunk, kind, has_clip, rsp, clp,
+        # rescale, clip, mom, b1, b2, eps, omb1, omb2, dtype, stream
+        (_P,) + (_I,) * 5 + (_P, _P) + (_F,) * 8 + (_I, _P),
         "mxnet_tpu/ops/kernels/opt_update.py:107 (_opt_kernel)"),
 )}
 

@@ -61,6 +61,12 @@ def create(name, **kwargs) -> "Optimizer":
     return cls(**kwargs)
 
 
+def _on_card(weight) -> bool:
+    """Whether ``weight`` lies on a CUDA device (its update may take the
+    ``opt_update`` kernel)."""
+    return weight.device.type == "cuda"
+
+
 class Optimizer:
     """Base optimizer. Subclasses define :meth:`create_state` and
     :meth:`_rule`."""
@@ -293,10 +299,10 @@ class Optimizer:
         each contiguous tensor viewed flat as one unit, reading lr, wd, t,
         the rescale and the clip from ``hp``'s device tensors, so a replay
         reads each step's values (:meth:`stage_device_step`). Exact
-        SGD/Adam go through the ``opt_update`` kernel (one launch a
-        parameter; on a card the kernel library is loaded here, so a
-        capture of the update finds it loaded), any other rule through
-        :meth:`fused_step_fn`."""
+        SGD/Adam go through the ``opt_update`` kernel (one launch a dtype
+        group for the whole list; on a card the kernel library is loaded
+        here, so a capture of the update finds it loaded), any other rule
+        through :meth:`fused_step_fn`."""
         ws = tuple(w.detach().view(-1) for w in weights)
         sts = tuple(tuple(s.view(-1) for s in self.state_tensors(st))
                     for st in states)
@@ -341,23 +347,65 @@ class Optimizer:
         return (np.asarray(lrs, np.float32), np.asarray(wds, np.float32),
                 np.asarray(ts, np.int32))
 
+    def _host_hparams(self, index, weight, state):
+        """``(ts, lrs, wds)`` of an update of ``index``: every count
+        advances first and lr/wd are read after, as the JAX package's
+        multi-tensor update does; with a master in a list of several, one
+        parameter at a time (count, then lr and wd), as it does there."""
+        if len(index) > 1 and any(self.is_master_state(w, s)
+                                  for w, s in zip(weight, state)):
+            hps = [self._host_hparams([i], [w], [s])
+                   for i, w, s in zip(index, weight, state)]
+            return tuple([h[k][0] for h in hps] for k in range(3))
+        ts = [self._update_count(i) for i in index]
+        return ts, [self._get_lr(i) for i in index], \
+            [self._get_wd(i) for i in index]
+
+    def _kernel_update(self, weight, state):
+        """The ``opt_update`` kernel's update of ``weight`` (exact SGD/Adam,
+        every weight on a card, float32 or bfloat16, or a float32 master),
+        as ``update(ts, lrs, wds, grads)``, or None: then ``_apply``."""
+        from ..ops.kernels import opt_update as KO
+        kk = KO.opt_kernel_kind(self)
+        if kk is None or not weight or not all(map(_on_card, weight)):
+            return None
+        targets, lows, sts = [], [], []
+        for w, st in zip(weight, state):
+            if self.is_master_state(w, st):
+                st, master = st
+                targets.append(master.view(-1))
+                lows.append(w.detach().view(-1))
+            elif w.dtype in (torch.float32, torch.bfloat16):
+                targets.append(w.detach().view(-1))
+                lows.append(None)
+            else:
+                return None
+            sts.append(tuple(s.view(-1) for s in st))
+        kind, cfg = kk
+        clip = self.clip_gradient if self.clip_gradient is not None else 0.0
+
+        def update(ts, lrs, wds, grads):
+            KO.multi_update(kind, cfg, targets,
+                            [g.reshape(-1) for g in grads], lrs, wds, ts,
+                            self.rescale_grad, clip, sts, lows)
+        return update
+
     @torch.no_grad()
     def update(self, index, weight, grad, state):
         """Update one parameter, or several given as lists: then every
         update count advances first and lr/wd are read after, as the JAX
-        package's multi-tensor update does."""
+        package's multi-tensor update does. Exact SGD/Adam with every
+        weight on a card take the ``opt_update`` kernel: one launch a
+        dtype group (a master's weight is its rounding, written by the
+        same launch); on the CPU, and for other rules, the rule runs
+        parameter by parameter (:meth:`_apply`)."""
         if not isinstance(index, (list, tuple)):
             index, weight, grad, state = [index], [weight], [grad], [state]
-        if len(index) > 1 and any(self.is_master_state(w, s)
-                                  for w, s in zip(weight, state)):
-            # with a master in the list, one parameter at a time (count,
-            # then lr and wd), as the JAX package does
-            for args in zip(index, weight, grad, state):
-                self.update(*args)
+        ts, lrs, wds = self._host_hparams(index, weight, state)
+        kernel = self._kernel_update(weight, state)
+        if kernel is not None:
+            kernel(ts, lrs, wds, grad)
             return
-        ts = [self._update_count(i) for i in index]
-        lrs = [self._get_lr(i) for i in index]
-        wds = [self._get_wd(i) for i in index]
         rule = self._rule()
         for w, g, lr, wd, t, st in zip(weight, grad, lrs, wds, ts, state):
             self._apply(rule, w, g, lr, wd, t, st)

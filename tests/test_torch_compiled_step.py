@@ -301,7 +301,7 @@ def test_first_call_falls_back_only_when_the_loss_fails(monkeypatch, where):
             raise RuntimeError("opt_update: the kernel did not launch")
 
         with monkeypatch.context() as m:
-            m.setattr(topu, "unit_update", launch_fails)
+            m.setattr(topu, "multi_update", launch_fails)
             with pytest.raises(mxt.MXNetError, match="did not launch"):
                 tstep(*_batch(seed=1))
         assert tstep.mode == "fused"

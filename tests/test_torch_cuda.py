@@ -937,6 +937,238 @@ def test_opt_update_wrapper_raises_on_card(cuda_dev):
                        (torch.zeros_like(w),))
 
 
+def _param_shapes(model):
+    """The trainable parameters' shapes of resnet18_v1 (thumbnail, 10
+    classes: 60 tensors of 10 to 589,824 values) or of the small BERT
+    classifier."""
+    from mxnet_tpu_torch.gluon.model_zoo import bert as tbert
+    from mxnet_tpu_torch.gluon.model_zoo.vision import resnet18_v1
+    net = resnet18_v1(classes=10, thumbnail=True, device="cpu") \
+        if model == "resnet18" else tbert.BERTClassifier(
+            tbert.bert_small_test(device="cpu"), num_classes=3,
+            device="cpu")
+    return [tuple(p.shape) for p in net.parameters()
+            if getattr(p, "grad_req", "write") != "null"]
+
+
+def _opt_list(code, shapes, dtype, dev, seed, forms):
+    """Flat units of ``shapes`` on ``dev`` with their lr / wd / t, each
+    entry's form taken in turn from ``forms`` ("host", "vector")."""
+    units, hps = [], []
+    for i, shp in enumerate(shapes):
+        n = int(onp.prod(shp))
+        w, g, st, hp = _opt_unit(code, n, dtype, dev, seed + i,
+                                 forms[i % len(forms)] == "vector")
+        if not isinstance(hp[0], torch.Tensor):
+            hp = (0.05 * (1 + i % 3), 0.01 * (i % 2), 1 + i % 4)
+        units.append((w, g, st))
+        hps.append(hp)
+    return units, hps
+
+
+def _opt_list_vs_plain(kind, cfg, units, hps, rescale, clip, dtype,
+                       lows=None):
+    """The list through ``multi_update`` (one launch) against each entry's
+    plain version: float32 states bit-exact and weights within 1 ulp (and
+    each low copy the rounding of its new weight), bfloat16 within
+    2e-2."""
+    from mxnet_tpu_torch.ops.kernels import opt_update as KO
+    ws = [w.clone() for w, _, _ in units]
+    sts = [tuple(s.clone() for s in st) for _, _, st in units]
+    before = K.launch_counts()["opt_update"]
+    KO.multi_update(kind, cfg, ws, [g for _, g, _ in units],
+                    [h[0] for h in hps], [h[1] for h in hps],
+                    [h[2] for h in hps], rescale, clip, sts, lows)
+    torch.cuda.synchronize()
+    assert K.launch_counts()["opt_update"] == before + 1
+    plain = KO.multi_update_plain(kind, cfg, *zip(*[(w, g) for w, g, _ in
+                                                    units]),
+                                  [h[0] for h in hps], [h[1] for h in hps],
+                                  [h[2] for h in hps], rescale, clip,
+                                  [st for _, _, st in units])
+    for i, ((w, _, _), kw, ks, (pw, ps)) in enumerate(
+            zip(units, ws, sts, plain)):
+        if dtype == torch.float32:
+            for a, b in zip(ks, ps):
+                assert torch.equal(a, b), i
+            assert opt_weight_ulps(kw, pw, w) <= 1, i
+            if lows is not None and lows[i] is not None:
+                assert torch.equal(lows[i], kw.to(lows[i].dtype)), i
+        else:
+            for a, b in list(zip(ks, ps)) + [(kw, pw)]:
+                torch.testing.assert_close(a.float(), b.float(), rtol=2e-2,
+                                           atol=2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("model", ["resnet18", "bert_small"])
+@pytest.mark.parametrize("case", OPT_KERNEL_CASES, ids=lambda c: c[0])
+def test_multi_update_real_parameter_lists_on_card(cuda_dev, case, model,
+                                                   dtype):
+    """One ``opt_update`` launch over a model's whole parameter list
+    (ResNet-18: 60 tensors; the small BERT), hyperparameters host scalars
+    and per-element vectors in turn, clip on, against each tensor's plain
+    version: float32 states at 0 ulps and weights within 1 ulp, as
+    ``test_opt_update_kernel_on_card`` holds one unit."""
+    code, extra = case
+    kind = "adam" if code == "adam" else "sgd"
+    units, hps = _opt_list(code, _param_shapes(model), dtype, cuda_dev, 30,
+                           ("host", "vector"))
+    _opt_list_vs_plain(kind, dict(extra, has_clip=True), units, hps, 0.25,
+                       0.5, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["host", "device"])
+@pytest.mark.parametrize("case", OPT_KERNEL_CASES, ids=lambda c: c[0])
+def test_multi_update_ragged_misaligned_list_on_card(cuda_dev, case, form):
+    """Entries of 1, 3, 64, 768, 5,001 and 20,000 values (several chunks),
+    a view one element into a larger buffer (the element path), and
+    float32 masters whose bfloat16 / float16 weights the same launch
+    writes; hyperparameters host scalars, or read from a ``DeviceHParams``
+    block with the rescale and the clip (the captured step's form)."""
+    from mxnet_tpu_torch.optimizer.optimizer import DeviceHParams
+    code, extra = case
+    kind = "adam" if code == "adam" else "sgd"
+    shapes = [(1,), (3,), (64,), (768,), (5001,), (20000,), (999,)]
+    units, hps = _opt_list(code, shapes, torch.float32, cuda_dev, 50,
+                           ("host",))
+    big = torch.randn(1000, device=cuda_dev)
+    w, g, st = units[-1]
+    units[-1] = (big[1:].copy_(w), g, st)      # misaligned by 4 bytes
+    rescale, clip = 0.25, 0.5
+    if form == "device":
+        hp = DeviceHParams(len(units), cuda_dev)
+        hp.stage([h[0] for h in hps], [h[1] for h in hps],
+                 [h[2] for h in hps], rescale, clip)
+        hps = list(zip(*hp.per_param()))
+        rescale, clip = hp.rescale, hp.clip
+    lows = [None, torch.empty(3, dtype=torch.bfloat16, device=cuda_dev),
+            None, torch.empty(768, dtype=torch.float16, device=cuda_dev),
+            torch.empty(5001, dtype=torch.bfloat16, device=cuda_dev),
+            None, None]
+    _opt_list_vs_plain(kind, dict(extra, has_clip=True), units, hps,
+                       rescale, clip, torch.float32, lows)
+
+
+@pytest.mark.cuda
+def test_multi_update_one_launch_a_group_on_card(cuda_dev):
+    """A list of float32 and bfloat16 units is one launch a dtype, each
+    counted under its dtype; more entries than one launch takes
+    (``CAPACITY``) are several launches."""
+    from mxnet_tpu_torch.ops.kernels import opt_update as KO
+    cfg = {"momentum": 0.9, "has_clip": False}
+    ws = [torch.ones(10, device=cuda_dev, dtype=dt)
+          for dt in (torch.float32, torch.bfloat16) * 3]
+    ms = [(torch.zeros_like(w),) for w in ws]
+    K.reset_launch_counts()
+    KO.multi_update("sgd", cfg, ws, ws, [0.5] * 6, [0.0] * 6, [1] * 6, 1.0,
+                    0.0, ms)
+    assert K.launch_counts_by_dtype()["opt_update"] == {"float32": 1,
+                                                         "bfloat16": 1}
+    n = KO.CAPACITY + 1
+    ws = [torch.ones(2, device=cuda_dev) for _ in range(n)]
+    KO.multi_update("sgd", cfg, ws, ws, [0.5] * n, [0.0] * n, [1] * n, 1.0,
+                    0.0, [(torch.zeros_like(w),) for w in ws])
+    torch.cuda.synchronize()
+    assert K.launch_counts()["opt_update"] == 4
+    assert all(torch.equal(w, torch.full_like(w, 0.5)) for w in ws)
+
+
+def _eager_pair(dev, opt, kw, dtype=torch.float32):
+    """Two copies of the small MLP, one gradient for both, and a trainer
+    each: the second one's updates go through ``_apply``."""
+    from mxnet_tpu_torch.gluon import Trainer
+    nets = [_mlp_on(dev, 3) for _ in range(2)]
+    for net in nets:
+        net.to(dtype)
+    trs = [Trainer(dict(net.named_parameters()), opt, dict(kw))
+           for net in nets]
+    r = onp.random.RandomState(4)
+    grads = [torch.from_numpy(r.randn(*p.shape).astype("f4")).to(dev, dtype)
+             for p in trs[0]._params]
+    return nets, trs, grads
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("opt,kw", [
+    ("sgd", {"learning_rate": 0.1, "momentum": 0.9, "wd": 1e-3,
+             "clip_gradient": 0.5}),
+    ("adam", {"learning_rate": 1e-2, "wd": 1e-3}),
+    ("adam", {"learning_rate": 1e-2, "multi_precision": True}),
+], ids=["sgd_mom", "adam", "adam_bf16_mp"])
+def test_eager_trainer_step_one_launch_a_group_on_card(cuda_dev, opt, kw,
+                                                       monkeypatch):
+    """The eager ``Trainer.step`` of exact SGD/Adam on a card is one
+    ``opt_update`` launch a step (bf16 weights with ``multi_precision``:
+    their float32 masters, the weights written as the masters' rounding
+    by the same launch). Three steps against ``_apply`` on the card (the
+    eager rule parameter by parameter): SGD-momentum bit for bit; Adam
+    within 1e-6 + 1e-5 |w|, since ``_apply`` takes ``1 - b1 ** t`` in
+    double and the kernel a float32 ``powf``, a few ulps of each step."""
+    from mxnet_tpu_torch.optimizer import optimizer as O
+    mp = kw.get("multi_precision", False)
+    nets, trs, grads = _eager_pair(cuda_dev, opt, kw,
+                                   torch.bfloat16 if mp else torch.float32)
+    K.reset_launch_counts()
+    for step in range(3):
+        for p, g in zip(trs[0]._params, grads):
+            p.grad, p.fresh_grad = g.clone(), True
+        trs[0].step(8)
+    torch.cuda.synchronize()
+    assert K.launch_counts_by_dtype()["opt_update"] == {"float32": 3}
+    with monkeypatch.context() as m:
+        m.setattr(O.Optimizer, "_kernel_update", lambda *a: None)
+        for step in range(3):
+            for p, g in zip(trs[1]._params, grads):
+                p.grad, p.fresh_grad = g.clone(), True
+            trs[1].step(8)
+    torch.cuda.synchronize()
+    assert K.launch_counts()["opt_update"] == 3
+    for i, (a, b) in enumerate(zip(trs[0]._params, trs[1]._params)):
+        if mp:
+            ma, mb = trs[0]._updater.states[i][1], \
+                trs[1]._updater.states[i][1]
+            assert torch.equal(a, ma.to(a.dtype))
+            a, b = ma, mb
+        if opt == "sgd":
+            assert torch.equal(a, b)
+        else:
+            torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_dropped_step_frees_its_graph_pool_on_card(cuda_dev):
+    """A captured step dropped (``del``) hands its graph pool and static
+    buffers back at once, with no ``gc.collect()``: after
+    ``empty_cache`` the reserved memory is within 4 MiB of what it was
+    before the capture. The first round makes what lives as long as the
+    process (cuBLAS's workspace for the capture stream)."""
+    import gc
+    net, lb, x, y = _dense_on(cuda_dev)
+    tr, _ = _compiled(net, lb)
+    reserved = []
+    gc.collect()
+    gc.disable()
+    try:
+        for _ in range(2):
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            reserved.append(torch.cuda.memory_reserved(cuda_dev))
+            step = tr.compile_step(lambda a, b: lb(net(a), b))
+            step.aot_compile(x, y)
+            step(x, y)
+            step(x[:32], y[:32])
+            assert step.n_traces == 2
+            del step
+            torch.cuda.empty_cache()
+            reserved.append(torch.cuda.memory_reserved(cuda_dev))
+    finally:
+        gc.enable()
+    assert abs(reserved[3] - reserved[2]) <= 4 << 20, reserved
+
+
 # ---------------------------------------------------------------------------
 # captured programs (serving/captured.py): CUDA graphs per signature
 # ---------------------------------------------------------------------------
@@ -1406,7 +1638,7 @@ def test_captured_step_launches_counted_once_a_replay_on_card(cuda_dev,
         step(x, y)
     torch.cuda.synchronize()
     got = {k: v for k, v in K.launch_counts().items() if v}
-    expect = {"opt_update": 3 * len(tr._params)}
+    expect = {"opt_update": 3}          # one launch a step
     if model == "lstm":
         expect.update(rnn_scan_fwd=6, rnn_scan_bwd=6)
     assert got == expect
@@ -1515,7 +1747,7 @@ def test_a_failed_update_capture_raises_on_card(cuda_dev, monkeypatch,
         raise RuntimeError("opt_update: the kernel did not launch")
 
     with monkeypatch.context() as m:
-        m.setattr(topu, "unit_update", launch_fails)
+        m.setattr(topu, "multi_update", launch_fails)
         with pytest.raises(mxt.MXNetError, match="did not launch"):
             step(x, y)
     assert captured == [True]
@@ -1533,7 +1765,7 @@ def test_split_program_two_graphs_equal_the_fused_step_on_card(cuda_dev):
     """A dist store that cannot reduce in-program (``_force_fuse`` in one
     process) takes the split program: two graphs (gradients, update),
     the store's ``pushpull_list`` between them, one ``opt_update`` a
-    parameter a step; its weights and losses equal the one-graph fused
+    step; its weights and losses equal the one-graph fused
     step's bit for bit (every kernel here is deterministic, and one
     process's sum is the gradient itself)."""
     from mxnet_tpu_torch.gluon import Trainer
@@ -1552,7 +1784,7 @@ def test_split_program_two_graphs_equal_the_fused_step_on_card(cuda_dev):
         torch.cuda.synchronize()
         assert step.mode == "fused" and step._split is split
         assert len(step._programs) == (2 if split else 1)
-        assert K.launch_counts()["opt_update"] == 3 * len(tr._params)
+        assert K.launch_counts()["opt_update"] == 3   # one a step
         assert step.n_traces == 1 and kv.stats["collectives"] == 0
         runs.append(losses + [p.detach().cpu() for p in net.parameters()])
     for a, b in zip(*runs):
@@ -1682,11 +1914,11 @@ def test_resnet_eval_mode_captures_again_on_card(cuda_dev):
 
 
 @pytest.mark.cuda
-def test_resnet_step_launches_one_opt_update_a_parameter_on_card(cuda_dev):
-    """One replayed ResNet-18 step launches exactly one ``opt_update`` a
-    trainable parameter (60; the 38 running statistics are not updated)
-    and no other kernel of the library (convolutions, pooling and
-    BatchNorm are cuDNN's)."""
+def test_resnet_step_launches_one_opt_update_a_step_on_card(cuda_dev):
+    """One replayed ResNet-18 step launches exactly one ``opt_update``, for
+    all 60 trainable parameters (the 38 running statistics are not
+    updated), and no other kernel of the library (convolutions, pooling
+    and BatchNorm are cuDNN's)."""
     net, lb, x, y = _resnet_on(cuda_dev)
     tr, step = _compiled(net, lb, "sgd", {"learning_rate": 0.05,
                                           "momentum": 0.9})
@@ -1696,4 +1928,4 @@ def test_resnet_step_launches_one_opt_update_a_parameter_on_card(cuda_dev):
     torch.cuda.synchronize()
     assert len(tr._params) == 60
     assert {k: v for k, v in K.launch_counts().items() if v} == \
-        {"opt_update": 60}
+        {"opt_update": 1}
