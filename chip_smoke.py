@@ -18,6 +18,7 @@
                                         # legs across cards on two or
                                         # more)
     python3 chip_smoke.py --resnet      # phases 1, 2 and 14 alone
+    python3 chip_smoke.py --surface     # phases 1, 2 and 15 alone
     python3 chip_smoke.py --compare DIR  # A/B on one card: the flash
         # forward, the flash backward (fused at BERT training's shape;
         # dq, dkv at phase 7's), the recurrence kernels, the LayerNorm
@@ -332,11 +333,41 @@ Phases, each of which fails the run (non-zero exit) when it fails:
     the largest logit, at least 1; bf16 within 5e-2 of the largest) with
     their top-1, images/s at buckets 32 and 128, one profiled bucket-128
     micro-batch's busy share, peak memory.
+15. training's surface (the optimizers, losses, initializers and metrics
+    beyond SGD / Adam): (a) phase 6's BERT-base training with LAMB as
+    GluonNLP's BERT pretraining sets it (lr 1e-4, wd 0.01, no weight
+    decay on gamma, beta and bias) in phase 6's turns: finite falling
+    losses, per step exactly 12 + 12 + 25 + 25 flash / LayerNorm launches
+    and no ``opt_update`` (LAMB runs as PyTorch ops in the graph), the
+    replays against the body and eager runs with the 2x-lr control
+    failing, one full-width LAMB update against a CPU copy fed the same
+    weights and gradients (1e-6 + 1e-5 |w|), a ``metric.Loss`` fed ten
+    captured steps' losses on the card with any sync an error, and the
+    whole LAMB update timed alone; (b) phase 14's ResNet-50 under
+    gluon-cv's ImageNet recipe (``initialize(net, MSRAPrelu())``, NAG
+    momentum 0.9 at lr 0.1 under a cosine schedule, wd 1e-4 but not on
+    beta, gamma, bias, labels smoothed by 0.1 into
+    ``SoftmaxCrossEntropyLoss(sparse_label=False)``) in phase 14's turns
+    and gates, no ``opt_update``, then an eval pass in micro-batches of
+    32 with ``Accuracy``, ``TopKAccuracy(5)``, ``CrossEntropy`` updated on
+    the card with no sync, against the same metrics on numpy copies
+    (1e-5), and the NAG update timed beside ``torch._fused_sgd_``; (c)
+    every registered optimizer (19, a non-default setting each) for three
+    captured steps of phase 8b's Dense-only model against an eager twin
+    (CAPTURED_EAGER_RTOL of the move; SGLD bit for bit from the same
+    generator, its noise std within 5 % of sqrt(lr)) and a CPU copy fed
+    the card's gradients (1e-6 + 1e-5 |w|), ``opt_update`` once a step
+    for exact SGD / Adam only; (d) the 14 losses forward and backward at
+    realistic sizes against a CPU copy (1e-5 of the largest value; CTC
+    at T 200 x N 32 x 29 classes, labels of up to 50, ragged lengths,
+    1e-4).
 
 ``{"launch_counts": {...}, "bf16_launch_counts": {...},
-"dist_kv_launch_counts": {...}, "resnet_launch_counts": {...}}`` gives
+"dist_kv_launch_counts": {...}, "resnet_launch_counts": {...},
+"surface_launch_counts": {...}}`` gives
 each kernel's launches on its path, on its bf16 path where it has one,
-on phase 13's one-card path and on phase 14's float32 and bf16 paths.
+on phase 13's one-card path, on phase 14's float32 and bf16 paths and
+on phase 15's LAMB and NAG paths.
 The line before the last is a JSON object with one entry per kernel
 (launches on its float32 path, error, times, bound; then its bf16 path,
 bf16 launches there, and its bf16 error, times and bound; ``rnn_decode``
@@ -6096,6 +6127,652 @@ def resnet_phase(torch, np, K, dev, smi, profile=False):
     return counts, counts_bf16
 
 
+#: phase 15, training's surface. (a) BERT-base pretraining with LAMB as
+#: GluonNLP's script sets it: lr 1e-4, wd 0.01, no weight decay on gamma,
+#: beta and bias; phase 6's model, batch, dropout and turns
+SURFACE_BERT_LR, SURFACE_BERT_WD = 1e-4, 0.01
+#: (b) gluon-cv's ImageNet recipe (``train_imagenet.py``) on phase 14's
+#: ResNet-50: ``MSRAPrelu`` initial weights (each block's last gamma 0,
+#: its ``--last-gamma``), NAG momentum 0.9 at lr 0.1 under a cosine
+#: schedule over the run, wd 1e-4 but not on beta, gamma and bias
+#: (``--no-wd``), labels smoothed by 0.1 (``--label-smoothing``); its
+#: evaluation in micro-batches of SURFACE_EVAL_MICRO
+SURFACE_NAG_LR, SURFACE_NAG_MOMENTUM, SURFACE_NAG_WD = 0.1, 0.9, 1e-4
+SURFACE_LABEL_SMOOTHING, SURFACE_EVAL_MICRO = 0.1, 32
+#: a rule's update on the card against the same update on the CPU, the
+#: card's weights and gradients fed to both: within ATOL + RTOL |w| (the
+#: norms of LAMB / LARS / LANS summed in another order)
+SURFACE_UPD_ATOL, SURFACE_UPD_RTOL = 1e-6, 1e-5
+#: metrics updated on the card against the same metrics fed numpy copies
+#: (float32 sums on the card, float64 on the host)
+SURFACE_METRIC_RTOL = 1e-5
+#: (c) every registered rule, with a setting other than its default
+#: where it has one, SURFACE_SWEEP_STEPS captured steps of phase 8b's
+#: Dense-only model against an eager twin and a CPU copy
+SURFACE_SWEEP_STEPS = 3
+SURFACE_SWEEP = (
+    ("sgd", {"learning_rate": 0.1, "momentum": 0.9, "wd": 1e-3}),
+    ("nag", {"learning_rate": 0.1, "momentum": 0.9, "wd": 1e-4}),
+    ("signum", {"learning_rate": 1e-3, "momentum": 0.0}),
+    ("sgld", {"learning_rate": 1e-4}),
+    ("dcasgd", {"learning_rate": 0.1, "momentum": 0.9}),
+    ("adam", {"learning_rate": 1e-3, "wd": 1e-3}),
+    ("adamw", {"learning_rate": 1e-3, "wd": 1e-2}),
+    ("adabelief", {"learning_rate": 1e-3}),
+    ("adamax", {"learning_rate": 2e-3, "beta2": 0.99}),
+    ("nadam", {"learning_rate": 1e-3, "schedule_decay": 0.01}),
+    ("adagrad", {"learning_rate": 1e-2, "wd": 1e-3}),
+    ("groupadagrad", {"learning_rate": 1e-2}),
+    ("adadelta", {"rho": 0.95}),
+    ("rmsprop", {"learning_rate": 1e-3, "centered": True,
+                 "clip_weights": 2.0}),
+    ("ftrl", {"learning_rate": 0.1, "lamda1": 1e-3}),
+    ("ftml", {"learning_rate": 2.5e-3}),
+    ("lars", {"learning_rate": 0.1, "eta": 0.01, "wd": 1e-4}),
+    ("lamb", {"learning_rate": 1e-3, "wd": 0.01, "lower_bound": 1e-3,
+              "upper_bound": 10.0}),
+    ("lans", {"learning_rate": 1e-3, "wd": 0.01}))
+#: SGLD's noise std against sqrt(lr)
+SURFACE_SGLD_STD_RTOL = 0.05
+#: (d) each loss and its input gradients on the card against a CPU copy,
+#: the largest error over the largest value; CTC over a character-level
+#: speech batch (T frames x N rows x C classes, labels of up to L)
+SURFACE_LOSS_RTOL, SURFACE_CTC_RTOL = 1e-5, 1e-4
+SURFACE_CTC = (200, 32, 29, 50)
+
+
+def no_wd_on_norms_and_biases(params):
+    """wd_mult 0 on every gamma, beta and bias (GluonNLP's and gluon-cv's
+    scripts); returns how many."""
+    n = 0
+    for name, p in params.items():
+        if name.endswith(("gamma", "beta", "bias")):
+            p.wd_mult = 0.0
+            n += 1
+    return n
+
+
+def cpu_twin(torch, trainer, name, kw):
+    """A CPU copy of ``trainer``'s parameters (their current weights,
+    lr_mult and wd_mult) under a fresh ``Trainer(..., name, kw)``."""
+    from mxnet_tpu_torch.gluon import Trainer
+    from mxnet_tpu_torch.gluon.nn import init_param
+    cpu = {}
+    for i, p in enumerate(trainer._params):
+        c = torch.nn.Parameter(p.detach().to("cpu", copy=True))
+        # names that sort as the parameters do
+        cpu[f"{i:06d}"] = init_param(c, wd_mult=p.wd_mult,
+                                     lr_mult=p.lr_mult)
+    return Trainer(cpu, name, dict(kw))
+
+
+def update_vs_cpu(torch, trainer, twin, grads, batch):
+    """One update of ``trainer``'s parameters (on the card) against the
+    same update of its CPU ``twin``, both fed ``grads`` (the card's
+    gradients): {largest |card - cpu|, its excess over SURFACE_UPD_ATOL +
+    SURFACE_UPD_RTOL |cpu| (<= 0 passes), elements}."""
+    for p, c, g in zip(trainer._params, twin._params, grads):
+        p.grad, p.fresh_grad = g, True
+        c.grad, c.fresh_grad = g.detach().cpu(), True
+    trainer.step(batch)
+    twin.step(batch)
+    worst, excess, n = 0.0, -1.0, 0
+    for p, c in zip(trainer._params, twin._params):
+        ref = c.detach()
+        err = (p.detach().cpu() - ref).abs()
+        worst = max(worst, float(err.max()))
+        excess = max(excess, float((err - SURFACE_UPD_ATOL
+                                    - SURFACE_UPD_RTOL * ref.abs()).max()))
+        n += ref.numel()
+    return {"max_abs_err": worst, "excess_over_bound": excess,
+            "atol": SURFACE_UPD_ATOL, "rtol": SURFACE_UPD_RTOL,
+            "elements": n, "ok": excess <= 0.0}
+
+
+def time_rule_update(torch, K, dev, what, params, opt, lr, wd, batch,
+                     per_elem, library=None, library_name=None):
+    """The whole update of ``params`` as the captured step runs it
+    (``Optimizer.whole_step_fn``, hyperparameters in a device block) for
+    a rule the ``opt_update`` kernel does not take: its launches of the
+    library (0 expected), its device ms by CUDA-graph replay, beside
+    ``library`` where PyTorch has the same function, against the bound of
+    ``per_elem`` = (bytes, float32 operations) an element."""
+    from mxnet_tpu_torch.optimizer.optimizer import DeviceHParams
+    g = torch.Generator(device=dev).manual_seed(11)
+    grads = [torch.randn(p.shape, generator=g, device=dev) * 1e-3
+             for p in params]
+    states = [opt.create_state(i, p) for i, p in enumerate(params)]
+    hp = DeviceHParams(len(params), dev)
+    hp.stage([lr] * len(params),
+             [0.0 if p.dim() == 1 else wd for p in params],
+             [1] * len(params), 1.0 / batch, 0.0)
+    update = opt.whole_step_fn(params, states, hp)
+    K.reset_launch_counts()
+    update(grads)
+    torch.cuda.synchronize()
+    launches = sum(K.launch_counts().values())
+    ms, eager_ms = time_ms(torch, lambda: update(grads), [()], iters=5,
+                           replays=3)
+    library_ms = None
+    if library is not None:
+        lib_states = [tuple(s.clone() for s in opt.state_tensors(st))
+                      for st in states]
+        library_ms, _ = time_ms(
+            torch, lambda: library(params, grads, lib_states), [()],
+            iters=5, replays=3)
+    n = sum(p.numel() for p in params)
+    b_ms, b_by = bound_ms(per_elem[0] * n, per_elem[1] * n, "float32")
+    return {"what": what, "parameters": len(params), "elements": n,
+            "library_launches": launches, "ms": ms, "eager_ms": eager_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms,
+            "library": library_name, "ok": launches == 0}
+
+
+def surface_bert(torch, np, K, dev, smi, profile=False):
+    """Phase 15a: phase 6's BERT-base classifier trained with LAMB
+    (:data:`SURFACE_BERT_LR`, no wd on gamma, beta, bias) in phase 6's
+    turns; exactly 12 flash_fwd + 12 flash_bwd_fused + 25 layernorm_fwd +
+    25 layernorm_bwd and no ``opt_update`` a step; one full-width LAMB
+    update (a fresh build's weights and first gradients) against a CPU
+    copy (:func:`update_vs_cpu`: the trust ratios' norms over the
+    23,440,896-value word embedding among them); a ``metric.Loss`` fed
+    ten more captured steps' losses on the card with any sync an error;
+    the whole LAMB update timed alone (:func:`time_rule_update`)."""
+    from mxnet_tpu_torch import metric
+    from mxnet_tpu_torch.gluon import Trainer
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from mxnet_tpu_torch.gluon.model_zoo.bert import BERTClassifier, bert_base
+    from mxnet_tpu_torch.gluon.params import init_params_numpy, \
+        load_jax_params
+    from mxnet_tpu_torch.optimizer import LAMB
+    kw = {"learning_rate": SURFACE_BERT_LR, "wd": SURFACE_BERT_WD}
+
+    def make(device):
+        return BERTClassifier(bert_base(max_length=TRAIN_SEQ, dropout=0.1,
+                                        device=device),
+                              num_classes=2, dropout=0.1, device=device)
+
+    net = make(dev)
+    init = init_params_numpy(net, seed=2)
+    rs = np.random.RandomState(3)
+    vocab = net.bert.word_embed.weight.shape[0]
+    x = rs.randint(0, vocab, (TRAIN_BATCH, TRAIN_SEQ)).astype(np.int64)
+    y = rs.randint(0, 2, (TRAIN_BATCH,)).astype(np.float32)
+    loss_fn = SoftmaxCrossEntropyLoss()
+    xt, yt = torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev)
+    made, no_wd = [net], []
+    del net
+
+    def build():
+        net = made.pop() if made else make(dev)
+        load_jax_params(net, init)
+        net.train()
+        torch.manual_seed(0)        # the dropout masks
+        params = dict(net.named_parameters())
+        no_wd.append(no_wd_on_norms_and_biases(params))
+        return net, Trainer(params, "lamb", dict(kw)), loss_fn
+
+    turns, (net, trainer, _), gated = train_turns(
+        torch, K, build, xt, yt, TRAIN_STEPS, TRAIN_BATCH * TRAIN_SEQ,
+        exact=False)
+    losses, step_ms, per_step, counts = gated
+    expect = {n: 0 for n in K.KERNELS}
+    expect.update(flash_fwd=12, flash_bwd_fused=12, layernorm_fwd=25,
+                  layernorm_bwd=25)
+    launches_ok = all(s == expect for s in per_step)
+    losses_ok = all(math.isfinite(v) for v in losses) and \
+        losses[-1] < losses[0]
+    # ten more captured steps on the trained net, their losses into a
+    # metric.Loss on the card with any sync an error
+    step = trainer.compile_step(lambda a, b: loss_fn(net(a), b))
+    step.aot_compile(xt, yt)
+    torch.cuda.synchronize()
+    lm, host = metric.Loss(), []
+    for _ in range(TRAIN_STEPS):
+        loss = step(xt, yt)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            lm.update(None, loss)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        host.append(loss)
+    got = lm.get()[1]
+    ref = float(np.mean([l.cpu().numpy() for l in host]))
+    metric_rec = {"get": got, "host_mean": ref,
+                  "ok": abs(got - ref) <= SURFACE_METRIC_RTOL * abs(ref)}
+    if profile:
+        profile_captured_step(torch, step, xt, yt,
+                              "bert_base classifier 32 x 512, LAMB")
+    del step, host, loss
+    torch.cuda.empty_cache()
+    # one full-width update against the CPU: a fresh build's first step
+    t1 = time.perf_counter()
+    fresh, ftr, _ = build()
+    loss_fn(fresh(xt), yt).sum().backward()
+    grads = [p.grad.detach().clone() for p in ftr._params]
+    upd = update_vs_cpu(torch, ftr, cpu_twin(torch, ftr, "lamb", kw), grads,
+                        TRAIN_BATCH)
+    upd["seconds"] = time.perf_counter() - t1
+    upd["largest_tensor"] = max(p.numel() for p in ftr._params)
+    del fresh, ftr, grads
+    torch.cuda.empty_cache()
+    timed_net = make(dev)
+    tparams = [p.detach() for p in timed_net.parameters()]
+    timed = time_rule_update(
+        torch, K, dev, "bert_base classifier LAMB update, one card, "
+        "float32", tparams, LAMB(**kw), SURFACE_BERT_LR, SURFACE_BERT_WD,
+        TRAIN_BATCH, (28, 25.0))
+    del timed_net, tparams
+    torch.cuda.empty_cache()
+    median_ms = statistics.median(step_ms[1:])
+    print(smi, flush=True)
+    report = {
+        "model": "bert_base classifier", "dtype": "float32",
+        "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "steps": TRAIN_STEPS,
+        "optimizer": "lamb", "learning_rate": SURFACE_BERT_LR,
+        "wd": SURFACE_BERT_WD, "no_wd_params": no_wd[0], "dropout": 0.1,
+        "losses": losses, "step_ms": step_ms, "median_step_ms": median_ms,
+        "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / (median_ms / 1e3),
+        "max_memory_allocated": turns["captured_max_memory_allocated"][0],
+        "capture_s": turns["capture_s"][0],
+        "launches_per_step": per_step[-1],
+        "launches_per_step_expected": expect,
+        "update_vs_cpu": upd, "loss_metric_no_sync": metric_rec,
+        "update_graph": timed, "captured_vs_eager": turns, "card": smi,
+        "ok": launches_ok and losses_ok and turns["ok"] and upd["ok"]
+        and metric_rec["ok"] and timed["ok"]}
+    emit({"surface_bert_lamb": report})
+    if not report["ok"]:
+        raise SystemExit(f"phase 15a failed: losses {losses}, launches "
+                         f"{per_step}, update vs cpu {upd}, metric "
+                         f"{metric_rec}, update graph {timed}, captured vs "
+                         f"eager {turns}")
+    return counts
+
+
+def smoothed_one_hot(np, labels, classes, eta):
+    """gluon-cv's label smoothing: 1 - eta + eta / classes on the label,
+    eta / classes elsewhere."""
+    out = np.full((len(labels), classes), eta / classes, np.float32)
+    out[np.arange(len(labels)), labels.astype(np.int64)] += 1.0 - eta
+    return out
+
+
+def surface_resnet(torch, np, K, dev, smi, profile=False):
+    """Phase 15b: phase 14's resnet50_v1, batch and turns under gluon-cv's
+    ImageNet recipe: ``initialize(net, MSRAPrelu())`` (each block's last
+    gamma then 0), NAG under ``CosineScheduler`` (each replay reads a new
+    lr), no wd on beta, gamma, bias, ``SoftmaxCrossEntropyLoss(
+    sparse_label=False)`` on smoothed one-hot labels. Phase 14's gates
+    but no ``opt_update`` (nothing of the library launched), the
+    gradient check of the net after one step (phase 14's, sparse
+    labels); then an eval-mode pass in micro-batches with ``Accuracy``,
+    ``TopKAccuracy(5)`` and ``CrossEntropy`` updated on the card (any
+    sync an error) against the same metrics fed numpy copies; the whole
+    NAG update timed alone beside ``torch._fused_sgd_(nesterov=True)``."""
+    from mxnet_tpu_torch import initializer, lr_scheduler, metric
+    from mxnet_tpu_torch.gluon import Trainer, initialize
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from mxnet_tpu_torch.gluon.model_zoo.vision import resnet50_v1
+    from mxnet_tpu_torch.gluon.params import load_jax_params
+    from mxnet_tpu_torch.optimizer import NAG
+    net = resnet50_v1(classes=RESNET_CLASSES, device=dev)
+    initialize(net, initializer.MSRAPrelu(),
+               generator=torch.Generator().manual_seed(6))
+    last = {f"{name}.{len(m) - 1}.gamma" for name, m in net.named_modules()
+            if name.endswith(".body")}
+    init = {n: (np.zeros(tuple(p.shape), np.float32) if n in last
+                else p.detach().cpu().numpy().copy())
+            for n, p in net.named_parameters()}
+    rs = np.random.RandomState(7)
+    x = rs.uniform(size=(RESNET_BATCH, 3, RESNET_SIZE, RESNET_SIZE)) \
+        .astype(np.float32)
+    y = rs.randint(0, RESNET_CLASSES, (RESNET_BATCH,)).astype(np.float32)
+    ys = smoothed_one_hot(np, y, RESNET_CLASSES, SURFACE_LABEL_SMOOTHING)
+    xt, yt = torch.from_numpy(x).to(dev), torch.from_numpy(ys).to(dev)
+    loss_fn = SoftmaxCrossEntropyLoss(sparse_label=False)
+    kw = {"learning_rate": SURFACE_NAG_LR, "momentum": SURFACE_NAG_MOMENTUM,
+          "wd": SURFACE_NAG_WD}
+    made = [net]
+    del net, x
+
+    def build():
+        net = made.pop() if made else resnet50_v1(classes=RESNET_CLASSES,
+                                                  device=dev)
+        load_jax_params(net, init)
+        net.train()
+        params = dict(net.named_parameters())
+        no_wd_on_norms_and_biases(params)
+        sched = lr_scheduler.CosineScheduler(
+            RESNET_STEPS + 1, base_lr=SURFACE_NAG_LR, final_lr=0.0)
+        return net, Trainer(params, "nag", dict(kw, lr_scheduler=sched)), \
+            loss_fn
+
+    turns, (net, trainer, _), gated = train_turns(
+        torch, K, build, xt, yt, RESNET_STEPS, RESNET_BATCH, exact=True,
+        loop=True, unit="images")
+    losses, step_ms, per_step, counts = gated
+    expect = {n: 0 for n in K.KERNELS}
+    launches_ok = len(trainer._params) == RESNET50_TRAINABLE and \
+        all(s == expect for s in per_step)
+    losses_ok = all(math.isfinite(v) for v in losses) and \
+        losses[-1] < losses[0]
+    lrs_read = trainer._optimizer.learning_rate
+    if profile:
+        profile_captured_step(torch, trainer.compile_step(
+            lambda a, b: loss_fn(net(a), b)), xt, yt,
+            f"resnet50_v1 {RESNET_BATCH} x {RESNET_SIZE}, NAG")
+    # the evaluation: four micro-batches of the trained net in eval mode
+    net.eval()
+    labels = torch.from_numpy(y).to(dev)
+    on_card = [metric.Accuracy(), metric.TopKAccuracy(5),
+               metric.CrossEntropy()]
+    probs = []
+    with torch.inference_mode():
+        for i in range(0, RESNET_BATCH, SURFACE_EVAL_MICRO):
+            p = torch.softmax(net(xt[i:i + SURFACE_EVAL_MICRO]), dim=-1)
+            lab = labels[i:i + SURFACE_EVAL_MICRO]
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                for m in on_card:
+                    m.update(lab, p)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            probs.append(p)
+    on_host = [metric.Accuracy(), metric.TopKAccuracy(5),
+               metric.CrossEntropy()]
+    for i, p in enumerate(probs):
+        rows = slice(i * SURFACE_EVAL_MICRO, (i + 1) * SURFACE_EVAL_MICRO)
+        for m in on_host:
+            m.update(y[rows], p.cpu().numpy())
+    metrics = {m.get()[0]: {"card": m.get()[1], "numpy": h.get()[1]}
+               for m, h in zip(on_card, on_host)}
+    metrics_ok = all(abs(v["card"] - v["numpy"]) <= SURFACE_METRIC_RTOL
+                     * max(abs(v["numpy"]), 1e-12) for v in metrics.values())
+    del net, trainer, probs
+    torch.cuda.empty_cache()
+    first, first_trainer, _ = build()
+    plain_step(first, first_trainer, loss_fn)(xt, yt)
+    del xt, yt, first_trainer
+    grads = resnet_grad_check(torch, np, first, SoftmaxCrossEntropyLoss(),
+                              False)
+    del first
+    torch.cuda.empty_cache()
+    timed_net = resnet50_v1(classes=RESNET_CLASSES, device=dev)
+    tparams = [p.detach() for p in timed_net.parameters()
+               if getattr(p, "grad_req", "write") != "null"]
+
+    def library(params, grads, states):
+        torch._fused_sgd_(params, grads, [s[0] for s in states],
+                          weight_decay=0.0, momentum=SURFACE_NAG_MOMENTUM,
+                          lr=SURFACE_NAG_LR, dampening=0.0, nesterov=True,
+                          maximize=False, is_first_step=False)
+
+    timed = time_rule_update(
+        torch, K, dev, "resnet50_v1 NAG update, one card, float32", tparams,
+        NAG(learning_rate=SURFACE_NAG_LR, momentum=SURFACE_NAG_MOMENTUM),
+        SURFACE_NAG_LR, 0.0, RESNET_BATCH, (20, 7.0), library,
+        "torch._fused_sgd_(nesterov=True) over the same list")
+    del timed_net, tparams
+    torch.cuda.empty_cache()
+    median_ms = statistics.median(step_ms[1:])
+    print(smi, flush=True)
+    report = {
+        "model": "resnet50_v1", "classes": RESNET_CLASSES,
+        "dtype": "float32", "init": "initialize(MSRAPrelu()), last gamma 0",
+        "cudnn.deterministic": torch.backends.cudnn.deterministic,
+        "batch": RESNET_BATCH, "size": RESNET_SIZE, "steps": RESNET_STEPS,
+        "optimizer": "nag", **kw, "lr_scheduler": "CosineScheduler",
+        "lr_after_run": lrs_read,
+        "label_smoothing": SURFACE_LABEL_SMOOTHING,
+        "losses": losses, "step_ms": step_ms, "median_step_ms": median_ms,
+        "images_per_s": RESNET_BATCH / (median_ms / 1e3),
+        "max_memory_allocated": turns["captured_max_memory_allocated"][0],
+        "max_memory_reserved": turns["captured_max_memory_reserved"][0],
+        "capture_s": turns["capture_s"][0],
+        "launches_per_step": per_step[-1],
+        "launches_per_step_expected": expect, "grad_check": grads,
+        "eval_metrics": dict(metrics, micro_batch=SURFACE_EVAL_MICRO,
+                             rtol=SURFACE_METRIC_RTOL, ok=metrics_ok),
+        "update_graph": timed, "captured_vs_eager": turns, "card": smi,
+        "ok": launches_ok and losses_ok and grads["ok"] and turns["ok"]
+        and metrics_ok and timed["ok"]}
+    emit({"surface_resnet_nag": report})
+    if not report["ok"]:
+        raise SystemExit(f"phase 15b failed: losses {losses}, launches "
+                         f"{per_step}, gradients {grads}, metrics "
+                         f"{metrics}, update graph {timed}, captured vs "
+                         f"eager {turns}")
+    return counts
+
+
+def surface_sweep(torch, np, K, dev, smi):
+    """Phase 15c: each rule of :data:`SURFACE_SWEEP` on phase 8b's
+    Dense-only model: SURFACE_SWEEP_STEPS captured steps against as many
+    eager ``Trainer.step``s from the same weights (the rms gap within
+    CAPTURED_EAGER_RTOL of how far the eager run moved; SGLD from the
+    same generator state, bit for bit), the eager run against a CPU
+    copy (:func:`cpu_twin`) fed the card's gradients of each step, after
+    each step (:func:`update_vs_cpu`; SGLD's noise instead held to its
+    law: the std of its moves within SURFACE_SGLD_STD_RTOL of sqrt(lr)),
+    and ``opt_update`` launched once a step for exact SGD and Adam only,
+    never for the others."""
+    from mxnet_tpu_torch.gluon import Trainer
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from mxnet_tpu_torch.gluon.nn import Dense
+    g = torch.Generator(device=dev).manual_seed(21)
+    x = torch.randn(DENSE_ROWS, 768, generator=g, device=dev)
+    y = torch.randint(0, 2, (DENSE_ROWS,), generator=g, device=dev).float()
+    loss_fn = SoftmaxCrossEntropyLoss()
+
+    def make():
+        init = torch.Generator().manual_seed(5)
+        return torch.nn.Sequential(
+            Dense(3072, activation="relu", in_units=768, device=dev,
+                  generator=init),
+            Dense(768, in_units=3072, device=dev, generator=init),
+            Dense(2, in_units=768, device=dev, generator=init))
+
+    rows, t0 = [], time.perf_counter()
+    for name, kw in SURFACE_SWEEP:
+        kinds = {}
+        for kind in ("captured", "eager"):
+            net = make()
+            w0 = flat_weights(torch, net)
+            kwargs = dict(kw)
+            if name == "sgld":
+                kwargs["generator"] = torch.Generator(device=dev) \
+                    .manual_seed(8)
+            tr = Trainer(dict(net.named_parameters()), name, kwargs)
+            cpu_checks = []
+            if kind == "captured":
+                step = tr.compile_step(
+                    lambda a, b, net=net: loss_fn(net(a), b))
+                step.aot_compile(x, y)
+                torch.cuda.synchronize()
+                K.reset_launch_counts()
+                for _ in range(SURFACE_SWEEP_STEPS):
+                    step(x, y)
+                mode, traces = step.mode, step.n_traces
+                del step
+            else:
+                twin = None if name == "sgld" else \
+                    cpu_twin(torch, tr, name, kw)
+                K.reset_launch_counts()
+                mode, traces = "eager", 0
+                for _ in range(SURFACE_SWEEP_STEPS):
+                    loss_fn(net(x), y).sum().backward()
+                    if twin is None:
+                        tr.step(DENSE_ROWS)
+                        continue
+                    grads = [p.grad.detach().clone() for p in tr._params]
+                    cpu_checks.append(update_vs_cpu(torch, tr, twin, grads,
+                                                    DENSE_ROWS))
+            torch.cuda.synchronize()
+            kinds[kind] = {"w": flat_weights(torch, net), "w0": w0,
+                           "launches": K.launch_counts()["opt_update"],
+                           "mode": mode, "n_traces": traces,
+                           "cpu": cpu_checks}
+            del net, tr
+        cap, eag = kinds["captured"], kinds["eager"]
+        gap = rms_dist(cap["w"], eag["w"])
+        moved = rms_dist(eag["w"], eag["w0"])
+        rec = {"optimizer": name, "settings": kw,
+               "captured_vs_eager": {"gap_rms": gap, "moved_rms": moved,
+                                     "limit": CAPTURED_EAGER_RTOL * moved,
+                                     "bit_equal": bool(torch.equal(
+                                         cap["w"], eag["w"]))},
+               "opt_update_launches": {"captured": cap["launches"],
+                                       "eager": eag["launches"]},
+               "mode": cap["mode"], "n_traces": cap["n_traces"]}
+        want = SURFACE_SWEEP_STEPS if name in ("sgd", "adam") else 0
+        ok = cap["mode"] == "fused" and cap["n_traces"] == 1 and \
+            cap["launches"] == want and eag["launches"] == want and \
+            gap <= CAPTURED_EAGER_RTOL * moved and moved > 0
+        if name == "sgld":
+            std = float((cap["w"] - cap["w0"]).std()) / \
+                math.sqrt(SURFACE_SWEEP_STEPS)
+            want_std = math.sqrt(kw["learning_rate"])
+            rec["noise_std"] = {"measured": std, "sqrt_lr": want_std}
+            ok = ok and rec["captured_vs_eager"]["bit_equal"] and \
+                abs(std / want_std - 1) <= SURFACE_SGLD_STD_RTOL
+        else:
+            rec["update_vs_cpu"] = {
+                "max_abs_err": max(c["max_abs_err"] for c in eag["cpu"]),
+                "excess_over_bound": max(c["excess_over_bound"]
+                                         for c in eag["cpu"]),
+                "steps": len(eag["cpu"])}
+            ok = ok and all(c["ok"] for c in eag["cpu"])
+        rec["ok"] = ok
+        rows.append(rec)
+        del kinds, cap, eag
+    print(smi, flush=True)
+    report = {"model": "Dense 768 -> 3072 -> 768 -> 2", "rows": DENSE_ROWS,
+              "steps": SURFACE_SWEEP_STEPS, "optimizers": rows,
+              "seconds": time.perf_counter() - t0, "card": smi,
+              "ok": len(rows) == 19 and all(r["ok"] for r in rows)}
+    emit({"surface_sweep": report})
+    if not report["ok"]:
+        raise SystemExit("phase 15c failed: "
+                         f"{[r for r in rows if not r['ok']]}")
+    return report
+
+
+def surface_loss_cases(np):
+    """Phase 15d's inputs: (loss class name, constructor keywords, numpy
+    inputs, the indices of the inputs to differentiate, keyword inputs)."""
+    rs = np.random.RandomState(31)
+
+    def f(*shape):
+        return rs.randn(*shape).astype(np.float32)
+
+    def sign(*shape):
+        return np.sign(f(*shape)).astype(np.float32)
+
+    def bits(*shape):
+        return rs.randint(0, 2, shape).astype(np.float32)
+
+    reg, cls = (512, 256), (256, 1000)
+    # a confident teacher's distribution (distillation): a softmax of
+    # logits with std 4
+    t = 4.0 * rs.randn(*cls)
+    dist = np.exp(t - t.max(-1, keepdims=True))
+    dist = (dist / dist.sum(-1, keepdims=True)).astype(np.float32)
+    t_len, n, c, l_max = SURFACE_CTC
+    label_len = rs.randint(10, l_max + 1, n)
+    labels = np.zeros((n, l_max), np.float32)
+    for i, k in enumerate(label_len):
+        labels[i, :k] = rs.randint(1, c, k)
+    pred_len = rs.randint(int(0.75 * t_len), t_len + 1, n)
+    return [
+        ("L2Loss", {}, [f(*reg), f(*reg)], [0], {}),
+        ("L1Loss", {}, [f(*reg), f(*reg)], [0], {}),
+        ("HuberLoss", {"rho": 0.5}, [f(*reg), f(*reg)], [0], {}),
+        ("HingeLoss", {}, [f(*reg), sign(*reg)], [0], {}),
+        ("SquaredHingeLoss", {}, [f(*reg), sign(*reg)], [0], {}),
+        ("LogisticLoss", {}, [f(*reg), sign(*reg)], [0], {}),
+        ("SigmoidBinaryCrossEntropyLoss", {}, [f(*reg), bits(*reg)], [0],
+         {}),
+        ("SoftmaxCrossEntropyLoss", {},
+         [f(*cls), rs.randint(0, cls[1], cls[0]).astype(np.float32)], [0],
+         {}),
+        ("KLDivLoss", {"from_logits": False}, [f(*cls), dist], [0], {}),
+        ("TripletLoss", {}, [f(512, 128), f(512, 128), f(512, 128)],
+         [0, 1, 2], {}),
+        ("CosineEmbeddingLoss", {"margin": 0.1},
+         [f(512, 128), f(512, 128), sign(512)], [0, 1], {}),
+        ("PoissonNLLLoss", {"compute_full": True},
+         [f(*reg), rs.poisson(3.0, reg).astype(np.float32)], [0], {}),
+        ("CTCLoss", {}, [f(n, t_len, c), labels], [0],
+         {"pred_lengths": pred_len.astype(np.float32),
+          "label_lengths": label_len.astype(np.float32)}),
+        ("SDMLLoss", {}, [f(256, 128), f(256, 128)], [0, 1], {})]
+
+
+def surface_losses(torch, np, dev, smi):
+    """Phase 15d: every loss of ``gluon.loss`` forward and backward on the
+    card against a CPU copy of the same inputs: the per-sample losses
+    and each input gradient within SURFACE_LOSS_RTOL of the largest
+    value (CTC SURFACE_CTC_RTOL; its batch a character-level speech
+    batch, ragged ``pred_lengths`` / ``label_lengths``)."""
+    from mxnet_tpu_torch.gluon import loss as L
+    rows = []
+    for name, kw, inputs, diff, kw_in in surface_loss_cases(np):
+        outs = []
+        for device in (dev, torch.device("cpu")):
+            ins = [torch.from_numpy(a).to(device) for a in inputs]
+            for i in diff:
+                ins[i].requires_grad_()
+            kws = {k: torch.from_numpy(v).to(device)
+                   for k, v in kw_in.items()}
+            t0 = time.perf_counter()
+            out = getattr(L, name)(**kw)(*ins, **kws)
+            out.sum().backward()
+            if device != torch.device("cpu"):
+                torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            outs.append(([out.detach().cpu()] + [ins[i].grad.cpu()
+                                                  for i in diff], ms))
+        rtol = SURFACE_CTC_RTOL if name == "CTCLoss" else SURFACE_LOSS_RTOL
+        errs = [float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+                for a, b in zip(outs[0][0], outs[1][0])]
+        finite = all(bool(torch.isfinite(a).all()) for a in outs[0][0])
+        rows.append({"loss": name, "shapes": [list(a.shape) for a in inputs],
+                     "rel_err_value_then_grads": errs, "rtol": rtol,
+                     "card_ms_wall": outs[0][1],
+                     "ok": finite and max(errs) <= rtol})
+    print(smi, flush=True)
+    report = {"losses": rows, "card": smi,
+              "ok": len(rows) == 14 and all(r["ok"] for r in rows)}
+    emit({"surface_losses": report})
+    if not report["ok"]:
+        raise SystemExit(f"phase 15d failed: "
+                         f"{[r for r in rows if not r['ok']]}")
+    return report
+
+
+def surface_phase(torch, np, K, dev, smi, profile=False):
+    """Phase 15, training's surface: (a) BERT-base with LAMB, (b)
+    ResNet-50 with gluon-cv's recipe (under ``cudnn.deterministic``, as
+    phase 14's training), (c) the sweep of every optimizer, (d) the
+    losses. Returns (a)'s and (b)'s launches."""
+    torch.cuda.empty_cache()
+    bert = surface_bert(torch, np, K, dev, smi, profile)
+    torch.cuda.empty_cache()
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        resnet = surface_resnet(torch, np, K, dev, smi, profile)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    torch.cuda.empty_cache()
+    surface_sweep(torch, np, K, dev, smi)
+    torch.cuda.empty_cache()
+    surface_losses(torch, np, dev, smi)
+    torch.cuda.empty_cache()
+    return {"bert_base_lamb": {n: c for n, c in bert.items() if c},
+            "resnet50_nag": {n: c for n, c in resnet.items() if c}}
+
 
 #: --kernel-times: the kernels' shapes, each on its path (the flash
 #: forward served and in BERT training; the long-sequence backward's dq
@@ -6639,6 +7316,13 @@ def main(argv):
                                      "kind": torch.cuda.get_device_name(0),
                                      "count": torch.cuda.device_count()}})
         return 0
+    if "--surface" in argv:
+        surface_phase(torch, np, K, dev, smi, "--profile" in argv)
+        print(smi, flush=True)
+        emit({"ok": True, "device": {"platform": "gpu",
+                                     "kind": torch.cuda.get_device_name(0),
+                                     "count": torch.cuda.device_count()}})
+        return 0
     if "--opt" in argv:
         # kernel 12 alone: its checks, its times, the two whole updates
         time_opt_kernel(torch, KO, check_opt_kernel(torch, KO, dev))
@@ -6724,6 +7408,7 @@ def main(argv):
     torch.cuda.empty_cache()
     resnet = resnet_phase(torch, np, K, dev, smi, "--profile" in argv)
     torch.cuda.empty_cache()
+    surface = surface_phase(torch, np, K, dev, smi, "--profile" in argv)
     if torch.cuda.device_count() >= 2:
         zero_train_multi(torch, np, smi)
         zero_overlap(torch, np, smi)
@@ -6773,7 +7458,8 @@ def main(argv):
                                                resnet)}
     emit({"launch_counts": launches, "bf16_launch_counts": bf16_launches,
           "dist_kv_launch_counts": {n: c for n, c in dist_kv.items() if c},
-          "resnet_launch_counts": resnet_launches})
+          "resnet_launch_counts": resnet_launches,
+          "surface_launch_counts": surface})
     if not all(n > 0 for n in launches.values()) or \
             not all(n > 0 for n in bf16_launches.values()) or \
             not all(c.get("opt_update", 0) > 0

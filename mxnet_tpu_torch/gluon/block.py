@@ -1,6 +1,6 @@
-"""Parameter files of a module (counterpart of the JAX package's
-``Block.save_parameters`` / ``load_parameters`` / ``load_dict``,
-``mxnet_tpu/gluon/block.py``).
+"""Parameter files and initialization of a module (counterpart of the JAX
+package's ``Block.save_parameters`` / ``load_parameters`` / ``load_dict``
+/ ``initialize``, ``mxnet_tpu/gluon/block.py``).
 
 The port's layers are plain ``torch.nn.Module``s, so these are
 functions over a module. The file is ``ndarray.save``'s (the JAX
@@ -9,11 +9,11 @@ are the JAX package's ``collect_params()`` names: a file written by
 either package loads into the other. Loading writes each parameter IN
 PLACE, so a captured graph that reads it (``serving.CompiledPredictor``,
 ``serving.DecodeEngine``) replays on the new weights without a new
-capture.
+capture. :func:`initialize` writes in place too.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 from torch import nn
@@ -21,7 +21,41 @@ from torch import nn
 from ..base import MXNetError
 from ..ndarray import utils as nd_utils
 
-__all__ = ["save_parameters", "load_parameters", "load_dict"]
+__all__ = ["save_parameters", "load_parameters", "load_dict", "initialize"]
+
+
+def initialize(module: nn.Module, init=None, ctx=None, verbose=False,
+               force_reinit: bool = False,
+               generator: Optional[torch.Generator] = None) -> None:
+    """Write the initial value of each parameter of ``module``, IN PLACE
+    (its storage, device, dtype and gradient hooks stay, so a captured
+    graph that reads it replays on the new value), as the JAX package's
+    ``Block.initialize``: a parameter with its own initializer (a layer
+    keyword, ``p.init``) takes that initializer's ``_init_weight``; any
+    other takes ``init``'s (``initializer.create``; None: ``Uniform()``)
+    ``init_array``, with the name-suffix rules, under its own name (the
+    last part of its path, as the JAX Parameter's). A parameter already
+    initialized (by an earlier call, or loaded: ``load_dict``,
+    ``params.load_jax_params``) is left as it is unless
+    ``force_reinit``. Random values come from ``generator`` (the CPU's
+    default one without it). ``ctx`` and ``verbose`` are taken, as
+    there, and not used: parameters stay on their devices."""
+    from ..initializer import create
+    default = create(init)
+    with torch.no_grad():
+        for name, p in module.named_parameters():
+            if getattr(p, "initialized", False) and not force_reinit:
+                continue
+            pname = name.rsplit(".", 1)[-1]
+            own = getattr(p, "init", None)
+            if own is not None:
+                value = create(own)._init_weight(pname, tuple(p.shape),
+                                                 p.dtype, generator)
+            else:
+                value = default.init_array(pname, tuple(p.shape), p.dtype,
+                                           generator)
+            p.copy_(value)
+            p.initialized = True
 
 
 def save_parameters(module: nn.Module, filename: str) -> None:
@@ -93,3 +127,4 @@ def load_dict(module: nn.Module, param_dict: Dict[str, torch.Tensor],
                 p.data = v.to(p.device, copy=True)
             else:
                 p.copy_(v)
+            p.initialized = True

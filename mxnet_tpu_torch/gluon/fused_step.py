@@ -772,7 +772,9 @@ def _step_body(loss_fn, treedef, spec, params, update, drawers: list,
         for m, *_ in rec.values():
             if all(m is not d for d in drawers):
                 drawers.append(m)
-        if not warming[0]:
+        if warming[0]:
+            _note_update_draws(update)
+        else:
             update([torch.zeros_like(p) if g is None else g
                     for p, g in zip(params, grads)])
         return loss.detach()
@@ -794,10 +796,22 @@ def _update_body(update, warming: list):
     static gradient buffers, skipped while ``warming[0]``."""
 
     def body(*grads):
-        if not warming[0]:
+        if warming[0]:
+            _note_update_draws(update)
+        else:
             update(list(grads))
 
     return body
+
+
+def _note_update_draws(update) -> None:
+    """A warm-up run skips the update: the generators its rule draws
+    from are noted all the same (``Optimizer.note_draws``), so the scope
+    registers them with the graph (an SGLD's noise then changes at every
+    replay)."""
+    note = getattr(update, "note_draws", None)
+    if note is not None:
+        note()
 
 
 def _infer_batch_size(leaves) -> int:

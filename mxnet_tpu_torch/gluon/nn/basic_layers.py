@@ -17,6 +17,12 @@ casts them.
 Every layer takes ``device`` (default ``cuda:0``; without CUDA the
 constructor raises unless ``device="cpu"``) and an optional
 ``torch.Generator`` for its random initial weights or dropout masks.
+The JAX layers' initializer keywords (``weight_initializer``,
+``bias_initializer``, ``gamma_initializer``, ...) name a parameter's
+initializer (``mxnet_tpu_torch.initializer``): it gives the initial
+value, is recorded as the parameter's ``init``, and wins over the
+module-wide initializer of ``gluon.block.initialize``; a weight without
+one starts uniform in [-0.07, 0.07], the JAX package's default.
 Shapes are not inferred at the first call: ``in_units`` / ``in_channels``
 are required.
 
@@ -53,6 +59,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ... import initializer
 from ...base import MXNetError
 from ...context import resolve_device
 from ...ops import nn as FNN
@@ -66,8 +73,9 @@ __all__ = ["Sequential", "HybridSequential", "Dense", "Dropout",
 
 GRAD_REQS = ("write", "add", "null")
 
-#: initial weights: uniform in [-0.07, 0.07] (the JAX package's default
-#: ``initializer.Uniform()``); biases and beta 0, gamma 1
+#: initial weights without an initializer keyword: uniform in [-0.07,
+#: 0.07] (the JAX package's default ``initializer.Uniform()``); biases
+#: and beta 0, gamma 1 (their keywords' defaults)
 INIT_SCALE = 0.07
 
 _ACTIVATIONS = {
@@ -185,22 +193,36 @@ def set_grad_req(p: nn.Parameter, grad_req: str) -> None:
 
 
 def init_param(p: nn.Parameter, grad_req: str = "write",
-               lr_mult: float = 1.0, wd_mult: float = 1.0) -> nn.Parameter:
+               lr_mult: float = 1.0, wd_mult: float = 1.0,
+               init=None) -> nn.Parameter:
     """Give ``p`` the JAX package's Parameter attributes (``grad_req``,
-    ``lr_mult``, ``wd_mult``, ``fresh_grad``); returns ``p``."""
+    ``lr_mult``, ``wd_mult``, ``fresh_grad``, and ``init``: the
+    initializer a layer keyword named for it, None for the module-wide
+    one of ``gluon.block.initialize``); returns ``p``. ``p`` counts as
+    not yet initialized (``initialize`` without ``force_reinit`` writes
+    it)."""
     p.lr_mult = lr_mult
     p.wd_mult = wd_mult
+    p.init = init
+    p.initialized = False
     set_grad_req(p, grad_req)
     return p
 
 
-def _param(shape, device, fill=None, generator=None, grad_req="write"):
-    t = torch.empty(shape, dtype=torch.float32)
-    if fill is None:
+def _param(name, shape, device, init=None, generator=None,
+           grad_req="write"):
+    """A float32 parameter on ``device`` recording ``init``: its initial
+    value is ``init``'s (``initializer.create(init)._init_weight``, as
+    the JAX package's explicit initializer, no suffix rules) or, with
+    ``init`` None, uniform in [-INIT_SCALE, INIT_SCALE] (the JAX
+    package's default ``Uniform()``); draws from ``generator``."""
+    if init is None:
+        t = torch.empty(shape, dtype=torch.float32)
         t.uniform_(-INIT_SCALE, INIT_SCALE, generator=generator)
     else:
-        t.fill_(fill)
-    return init_param(nn.Parameter(t.to(device)), grad_req)
+        t = initializer.create(init)._init_weight(
+            name, shape, torch.float32, generator)
+    return init_param(nn.Parameter(t.to(device)), grad_req, init=init)
 
 
 class Sequential(nn.Module):
@@ -245,7 +267,8 @@ class Dense(nn.Module):
     def __init__(self, units: int, activation: Optional[str] = None,
                  use_bias: bool = True, flatten: bool = True,
                  in_units: int = 0, device=None,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 weight_initializer=None, bias_initializer="zeros"):
         super().__init__()
         if in_units <= 0:
             raise MXNetError("Dense needs in_units (shapes are not "
@@ -254,8 +277,10 @@ class Dense(nn.Module):
         self._units = units
         self._flatten = flatten
         self._activation = activation
-        self.weight = _param((units, in_units), dev, generator=generator)
-        self.bias = _param((units,), dev, fill=0.0) if use_bias else None
+        self.weight = _param("weight", (units, in_units), dev,
+                             weight_initializer, generator)
+        self.bias = _param("bias", (units,), dev, bias_initializer,
+                           generator) if use_bias else None
 
     def forward(self, x):
         if self._flatten and x.ndim > 2:
@@ -292,13 +317,14 @@ class Embedding(nn.Module):
     the JAX package (``jnp.take(mode="clip")``)."""
 
     def __init__(self, input_dim: int, output_dim: int, device=None,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 weight_initializer=None):
         super().__init__()
         dev = resolve_device(device)
         self._input_dim = input_dim
         self._output_dim = output_dim
-        self.weight = _param((input_dim, output_dim), dev,
-                             generator=generator)
+        self.weight = _param("weight", (input_dim, output_dim), dev,
+                             weight_initializer, generator)
 
     def forward(self, x):
         idx = x.to(torch.long).clamp(0, self._input_dim - 1)
@@ -310,7 +336,8 @@ class LayerNorm(nn.Module):
     the trailing axis goes through the LayerNorm kernel."""
 
     def __init__(self, axis: int = -1, epsilon: float = 1e-5,
-                 in_channels: int = 0, device=None):
+                 in_channels: int = 0, device=None,
+                 beta_initializer="zeros", gamma_initializer="ones"):
         super().__init__()
         if in_channels <= 0:
             raise MXNetError("LayerNorm needs in_channels (shapes are not "
@@ -318,8 +345,8 @@ class LayerNorm(nn.Module):
         dev = resolve_device(device)
         self._axis = axis
         self._eps = epsilon
-        self.gamma = _param((in_channels,), dev, fill=1.0)
-        self.beta = _param((in_channels,), dev, fill=0.0)
+        self.gamma = _param("gamma", (in_channels,), dev, gamma_initializer)
+        self.beta = _param("beta", (in_channels,), dev, beta_initializer)
 
     def forward(self, x):
         return invoke("layer_norm", self._norm, x, self.gamma, self.beta)
@@ -348,7 +375,10 @@ class BatchNorm(nn.Module):
     def __init__(self, axis: int = 1, momentum: float = 0.9,
                  epsilon: float = 1e-5, center: bool = True,
                  scale: bool = True, use_global_stats: bool = False,
-                 in_channels: int = 0, device=None):
+                 in_channels: int = 0, device=None,
+                 beta_initializer="zeros", gamma_initializer="ones",
+                 running_mean_initializer="zeros",
+                 running_variance_initializer="ones"):
         super().__init__()
         if in_channels <= 0:
             raise MXNetError("BatchNorm needs in_channels (shapes are not "
@@ -359,12 +389,16 @@ class BatchNorm(nn.Module):
         self._eps = epsilon
         self._use_global_stats = use_global_stats
         c = (in_channels,)
-        self.gamma = _param(c, dev, fill=1.0,
+        self.gamma = _param("gamma", c, dev, gamma_initializer,
                             grad_req="write" if scale else "null")
-        self.beta = _param(c, dev, fill=0.0,
+        self.beta = _param("beta", c, dev, beta_initializer,
                            grad_req="write" if center else "null")
-        self.running_mean = _param(c, dev, fill=0.0, grad_req="null")
-        self.running_var = _param(c, dev, fill=1.0, grad_req="null")
+        self.running_mean = _param("running_mean", c, dev,
+                                   running_mean_initializer,
+                                   grad_req="null")
+        self.running_var = _param("running_var", c, dev,
+                                  running_variance_initializer,
+                                  grad_req="null")
 
     def forward(self, x):
         if self._axis != 1:

@@ -40,7 +40,7 @@ def _check_layout(layout: Optional[str]) -> None:
 class _Conv(nn.Module):
     def __init__(self, channels, kernel_size, strides, padding, dilation,
                  groups, layout, in_channels, activation, use_bias, ndim,
-                 device, generator):
+                 device, generator, weight_initializer, bias_initializer):
         super().__init__()
         _check_layout(layout)
         if in_channels <= 0:
@@ -57,9 +57,11 @@ class _Conv(nn.Module):
         self._dilation = FNN._tup(dilation, ndim)
         self._groups = groups
         self._activation = activation
-        self.weight = _param((channels, in_channels // groups)
-                             + self._kernel, dev, generator=generator)
-        self.bias = _param((channels,), dev, fill=0.0) if use_bias else None
+        self.weight = _param("weight", (channels, in_channels // groups)
+                             + self._kernel, dev, weight_initializer,
+                             generator)
+        self.bias = _param("bias", (channels,), dev, bias_initializer,
+                           generator) if use_bias else None
 
     def forward(self, x):
         args = (x, self.weight) if self.bias is None \
@@ -84,20 +86,24 @@ class Conv1D(_Conv):
     def __init__(self, channels, kernel_size, strides=1, padding=0,
                  dilation=1, groups=1, layout="NCW", in_channels=0,
                  activation=None, use_bias=True, device=None,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 weight_initializer=None, bias_initializer="zeros"):
         super().__init__(channels, kernel_size, strides, padding, dilation,
                          groups, layout, in_channels, activation, use_bias,
-                         1, device, generator)
+                         1, device, generator, weight_initializer,
+                         bias_initializer)
 
 
 class Conv2D(_Conv):
     def __init__(self, channels, kernel_size, strides=(1, 1), padding=(0, 0),
                  dilation=(1, 1), groups=1, layout="NCHW", in_channels=0,
                  activation=None, use_bias=True, device=None,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 weight_initializer=None, bias_initializer="zeros"):
         super().__init__(channels, kernel_size, strides, padding, dilation,
                          groups, layout, in_channels, activation, use_bias,
-                         2, device, generator)
+                         2, device, generator, weight_initializer,
+                         bias_initializer)
 
 
 class Conv3D(_Conv):
@@ -105,10 +111,12 @@ class Conv3D(_Conv):
                  padding=(0, 0, 0), dilation=(1, 1, 1), groups=1,
                  layout="NCDHW", in_channels=0, activation=None,
                  use_bias=True, device=None,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 weight_initializer=None, bias_initializer="zeros"):
         super().__init__(channels, kernel_size, strides, padding, dilation,
                          groups, layout, in_channels, activation, use_bias,
-                         3, device, generator)
+                         3, device, generator, weight_initializer,
+                         bias_initializer)
 
 
 class _Pool(nn.Module):

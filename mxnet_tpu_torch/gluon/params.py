@@ -25,7 +25,9 @@ INIT_STD = 0.02
 def load_jax_params(module: nn.Module, params: Dict[str, np.ndarray]) -> None:
     """Copy ``params`` (keys as the JAX package's ``collect_params()``
     names them) into ``module``'s parameters, on their device and in
-    their dtype. Raises on a missing, extra or mis-shaped key."""
+    their dtype (each then counts as initialized:
+    ``gluon.block.initialize`` leaves it unless ``force_reinit``). Raises
+    on a missing, extra or mis-shaped key."""
     own = dict(module.named_parameters())
     missing = sorted(set(own) - set(params))
     extra = sorted(set(params) - set(own))
@@ -41,6 +43,7 @@ def load_jax_params(module: nn.Module, params: Dict[str, np.ndarray]) -> None:
     with torch.no_grad():
         for name, p in own.items():
             p.copy_(torch.from_numpy(np.ascontiguousarray(params[name])))
+            p.initialized = True
 
 
 def init_params_numpy(module: nn.Module, seed: int) -> Dict[str, np.ndarray]:

@@ -12,7 +12,9 @@ time-fused kernels, run through the op funnel (``ops/registry.py``) as
 inputs, as the JAX package funnels it (``amp`` casts them all).
 
 ``input_size`` is required (shapes are not inferred at the first call),
-parameters are float32, and ``device`` defaults to ``cuda:0``.
+parameters are float32, and ``device`` defaults to ``cuda:0``. The
+``i2h_*_initializer`` / ``h2h_*_initializer`` keywords name the
+parameters' initializers, as ``gluon.nn``'s layers do.
 Inter-layer dropout runs in ``train()`` mode only, with masks from
 ``generator``.
 """
@@ -27,7 +29,7 @@ from ...base import MXNetError
 from ...context import resolve_device
 from ...ops import rnn as rnn_ops
 from ...ops.registry import invoke
-from ..nn.basic_layers import INIT_SCALE, drawing, init_param, note_draw
+from ..nn.basic_layers import _param, drawing, note_draw
 
 __all__ = ["RNN", "LSTM", "GRU"]
 
@@ -35,7 +37,9 @@ __all__ = ["RNN", "LSTM", "GRU"]
 class _RNNLayer(nn.Module):
     def __init__(self, mode, hidden_size, num_layers=1, layout="TNC",
                  dropout=0.0, bidirectional=False, input_size=0,
-                 device=None, generator: Optional[torch.Generator] = None):
+                 device=None, generator: Optional[torch.Generator] = None,
+                 i2h_weight_initializer=None, h2h_weight_initializer=None,
+                 i2h_bias_initializer="zeros", h2h_bias_initializer="zeros"):
         super().__init__()
         if layout not in ("TNC", "NTC"):
             raise MXNetError(f"invalid layout {layout!r}; TNC or NTC")
@@ -52,20 +56,20 @@ class _RNNLayer(nn.Module):
         self._input_size = input_size
         self._generator = generator
         ng = rnn_ops.GATES[mode] * hidden_size
+        inits = {"i2h_weight": i2h_weight_initializer,
+                 "h2h_weight": h2h_weight_initializer,
+                 "i2h_bias": i2h_bias_initializer,
+                 "h2h_bias": h2h_bias_initializer}
         for layer in range(num_layers):
             in_sz = input_size if layer == 0 else hidden_size * self._dir
             for pre in ("l", "r")[:self._dir]:
-                name = f"{pre}{layer}"
                 for sfx, shape in (("i2h_weight", (ng, in_sz)),
                                    ("h2h_weight", (ng, hidden_size)),
                                    ("i2h_bias", (ng,)),
                                    ("h2h_bias", (ng,))):
-                    t = torch.zeros(shape, dtype=torch.float32)
-                    if sfx.endswith("weight"):
-                        t.uniform_(-INIT_SCALE, INIT_SCALE,
-                                   generator=generator)
-                    setattr(self, f"{name}_{sfx}",
-                            init_param(nn.Parameter(t.to(dev))))
+                    name = f"{pre}{layer}_{sfx}"
+                    setattr(self, name, _param(name, shape, dev, inits[sfx],
+                                               generator))
 
     def _ordered_params(self) -> List[nn.Parameter]:
         return [getattr(self, f"{pre}{layer}_{sfx}")

@@ -1,5 +1,5 @@
-"""Optimizers (counterpart of ``mxnet_tpu/optimizer/optimizer.py``; this
-slice ports ``SGD``, ``Adam`` and ``AdamW``).
+"""Optimizers (counterpart of ``mxnet_tpu/optimizer/optimizer.py``: all
+19 of its registered rules).
 
 The update rules are the JAX package's, written as pure functions
 ``rule(w, g, lr, wd, t, states) -> (w', states')`` over tensors; the
@@ -13,6 +13,14 @@ optimizer applies them with the JAX package's bookkeeping:
   (``param_dict``) and by :meth:`Optimizer.set_lr_mult` /
   :meth:`Optimizer.set_wd_mult`, where an index-keyed entry wins over a
   name-keyed one (``param_idx2name``).
+
+A rule reads lr, wd and t as 0-d tensors on the weight's device (float32,
+float32, int32), the JAX package's float32 jit arguments, in the eager
+update and in a captured step alike (:class:`DeviceHParams`): no rule
+branches in Python on their values. Exact SGD and Adam take the
+``opt_update`` kernel on a card (``ops/kernels/opt_update.py``); every
+other rule runs as PyTorch tensor ops, as the JAX package runs them in
+XLA.
 
 ``multi_precision=True`` gives a bfloat16 or float16 weight a float32
 master copy: :meth:`Optimizer.create_state_multi_precision` returns
@@ -34,8 +42,11 @@ import torch
 
 from ..base import MXNetError
 
-__all__ = ["Optimizer", "SGD", "Adam", "AdamW", "Updater", "get_updater",
-           "create", "register", "LOW_PRECISION", "DeviceHParams"]
+__all__ = ["Optimizer", "SGD", "NAG", "Signum", "SGLD", "DCASGD", "Adam",
+           "AdamW", "AdaBelief", "Adamax", "Nadam", "AdaGrad", "GroupAdaGrad",
+           "AdaDelta", "RMSProp", "Ftrl", "FTML", "LARS", "LAMB", "LANS",
+           "Updater", "get_updater", "create", "register", "LOW_PRECISION",
+           "DeviceHParams"]
 
 #: the weight dtypes that get a float32 master under ``multi_precision``
 LOW_PRECISION = (torch.float16, torch.bfloat16)
@@ -211,22 +222,38 @@ class Optimizer:
         """``rule(w, g, lr, wd, t, states) -> (w', states')``."""
         raise NotImplementedError
 
-    def _apply(self, rule, weight, grad, lr, wd, t, state):
-        """The rule on ``weight``, or on its float32 master (the gradient
-        cast to float32) and then ``weight`` = the master in its dtype."""
-        target = weight
-        if self.is_master_state(weight, state):
-            state, target = state
-            grad = grad.to(torch.float32)
-        g = grad * self.rescale_grad
-        if self.clip_gradient is not None:
-            g = torch.clamp(g, -self.clip_gradient, self.clip_gradient)
-        new_w, new_state = rule(target, g, lr, wd, t, state)
-        target.copy_(new_w)
-        if target is not weight:
-            weight.copy_(target)
-        for s, ns in zip(state, new_state):
-            s.copy_(ns)
+    def _rule_update(self, weight, grad, state, lrs, wds, ts):
+        """The rule over whole parameters as a captured step runs it
+        (:meth:`fused_step_fn`): lr, wd, t, the rescale and the clip
+        staged as 0-d tensors on the weights' device
+        (:class:`DeviceHParams`, one copy); a master, and the gradient
+        cast to float32, in place of a low-precision weight, which then
+        takes the master's rounding."""
+        targets, gs, sts, masters = [], [], [], []
+        for w, g, st in zip(weight, grad, state):
+            master = self.is_master_state(w, st)
+            if master:
+                st, target = st
+                g = g.to(torch.float32)
+            else:
+                target = w.detach()
+            targets.append(target)
+            gs.append(g)
+            sts.append(tuple(st))
+            masters.append(master)
+        clip = self.clip_gradient if self.clip_gradient is not None else 0.0
+        hp = DeviceHParams(len(targets), targets[0].device)
+        hp.stage(lrs, wds, ts, self.rescale_grad, clip)
+        new_ws, new_sts = self.fused_step_fn()(
+            targets, gs, *hp.per_param(), hp.rescale, hp.clip, sts)
+        for w, t, nw, st, nst, master in zip(weight, targets, new_ws, sts,
+                                             new_sts, masters):
+            t.copy_(nw)
+            for s_, ns in zip(st, nst):
+                if ns is not s_:
+                    s_.copy_(ns)
+            if master:
+                w.copy_(t)
 
     # ---------------- the sharded update's surface ----------------
     def fused_step_fn(self):
@@ -296,18 +323,26 @@ class Optimizer:
         """The update of whole parameters that a captured one-card step
         runs: ``update(grads)`` applies the rule to ``weights`` and their
         ``states`` (this optimizer's, parameter by parameter) IN PLACE,
-        each contiguous tensor viewed flat as one unit, reading lr, wd, t,
-        the rescale and the clip from ``hp``'s device tensors, so a replay
-        reads each step's values (:meth:`stage_device_step`). Exact
-        SGD/Adam go through the ``opt_update`` kernel (one launch a dtype
-        group for the whole list; on a card the kernel library is loaded
-        here, so a capture of the update finds it loaded), any other rule
-        through :meth:`fused_step_fn`."""
-        ws = tuple(w.detach().view(-1) for w in weights)
-        sts = tuple(tuple(s.view(-1) for s in self.state_tensors(st))
+        reading lr, wd, t, the rescale and the clip from ``hp``'s device
+        tensors, so a replay reads each step's values
+        (:meth:`stage_device_step`). An :attr:`elementwise_update` rule
+        sees each contiguous tensor viewed flat as one unit; any other
+        (norms, row means) each weight, gradient and state in its own
+        shape. Exact SGD/Adam go through the ``opt_update`` kernel (one
+        launch a dtype group for the whole list; on a card the kernel
+        library is loaded here, so a capture of the update finds it
+        loaded), any other rule through :meth:`fused_step_fn`.
+        ``update.note_draws`` is :meth:`note_draws`, which a step whose
+        warm-up skips the update calls there instead."""
+        flat = self.elementwise_update
+        ws = tuple(w.detach().view(-1) if flat else w.detach()
+                   for w in weights)
+        sts = tuple(tuple(s.view(-1) if flat else s
+                          for s in self.state_tensors(st))
                     for st in states)
         fn = None
-        if all(w.dtype in (torch.float32, torch.bfloat16) for w in ws):
+        if flat and all(w.dtype in (torch.float32, torch.bfloat16)
+                        for w in ws):
             fn = self.kernel_step_fn()
             if fn is not None and hp.device.type == "cuda":
                 from ..ops.kernels import library
@@ -317,7 +352,11 @@ class Optimizer:
 
         @torch.no_grad()
         def update(grads):
-            gs = tuple(g.reshape(-1) for g in grads)
+            self.note_draws()
+            # whole tensors contiguous, as a weight's .grad: a reduction's
+            # order then follows the eager update's
+            gs = tuple(g.reshape(-1) if flat else g.contiguous()
+                       for g in grads)
             new_ws, new_sts = fn(ws, gs, lrs, wds, ts, hp.rescale, hp.clip,
                                  sts)
             for w, nw, st, nst in zip(ws, new_ws, sts, new_sts):
@@ -326,6 +365,7 @@ class Optimizer:
                 for s_, ns in zip(st, nst):
                     if ns is not s_:
                         s_.copy_(ns)
+        update.note_draws = self.note_draws
         return update
 
     def stage_device_step(self, hp: "DeviceHParams", indices):
@@ -364,7 +404,8 @@ class Optimizer:
     def _kernel_update(self, weight, state):
         """The ``opt_update`` kernel's update of ``weight`` (exact SGD/Adam,
         every weight on a card, float32 or bfloat16, or a float32 master),
-        as ``update(ts, lrs, wds, grads)``, or None: then ``_apply``."""
+        as ``update(ts, lrs, wds, grads)``, or None: then
+        :meth:`_rule_update`."""
         from ..ops.kernels import opt_update as KO
         kk = KO.opt_kernel_kind(self)
         if kk is None or not weight or not all(map(_on_card, weight)):
@@ -398,7 +439,7 @@ class Optimizer:
         weight on a card take the ``opt_update`` kernel: one launch a
         dtype group (a master's weight is its rounding, written by the
         same launch); on the CPU, and for other rules, the rule runs
-        parameter by parameter (:meth:`_apply`)."""
+        parameter by parameter (:meth:`_rule_update`)."""
         if not isinstance(index, (list, tuple)):
             index, weight, grad, state = [index], [weight], [grad], [state]
         ts, lrs, wds = self._host_hparams(index, weight, state)
@@ -406,9 +447,16 @@ class Optimizer:
         if kernel is not None:
             kernel(ts, lrs, wds, grad)
             return
-        rule = self._rule()
-        for w, g, lr, wd, t, st in zip(weight, grad, lrs, wds, ts, state):
-            self._apply(rule, w, g, lr, wd, t, st)
+        self._rule_update(weight, grad, state, lrs, wds, ts)
+
+    #: the JAX package's name for the same call (``test_utils`` calls it)
+    update_multi_precision = update
+
+    def note_draws(self) -> None:
+        """Note each generator the rule draws from
+        (``gluon.nn.basic_layers.note_draw``), so a captured step
+        registers it with its graph and puts it back after its warm-up;
+        a rule that draws nothing notes nothing."""
 
     def __repr__(self):
         return f"{type(self).__name__}(lr={self.learning_rate})"
@@ -502,6 +550,500 @@ class AdamW(Optimizer):
                 mhat, vhat = m, v
             upd = mhat / (torch.sqrt(vhat) + eps) + wd * w
             return w - lr * upd, (m, v)
+        return rule
+
+
+def _norm(x):
+    """The whole tensor's 2-norm, a 0-d tensor (the JAX package's
+    ``jnp.sqrt(jnp.sum(x * x))``)."""
+    return torch.sqrt(torch.sum(x * x))
+
+
+@register
+class NAG(Optimizer):
+    """Nesterov accelerated SGD (wd folded into the gradient)."""
+
+    def __init__(self, learning_rate=0.01, momentum=0.0, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.momentum = momentum
+
+    def create_state(self, index, weight):
+        return self._zeros_state(weight, 1)
+
+    def _rule(self):
+        mom = self.momentum
+
+        def rule(w, g, lr, wd, t, states):
+            g = g + wd * w
+            (m,) = states
+            m = mom * m + g
+            return w - lr * (g + mom * m), (m,)
+        return rule
+
+
+@register
+class Signum(Optimizer):
+    """Sign SGD, with momentum when ``momentum`` != 0; ``wd_lh`` decays
+    the weight outside the sign."""
+
+    def __init__(self, learning_rate=0.01, momentum=0.9, wd_lh=0.0,
+                 **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.momentum = momentum
+        self.wd_lh = wd_lh
+
+    def create_state(self, index, weight):
+        return self._zeros_state(weight, 1) if self.momentum != 0 else ()
+
+    def _rule(self):
+        mom, wd_lh = self.momentum, self.wd_lh
+
+        def rule(w, g, lr, wd, t, states):
+            if mom == 0.0:
+                return w * (1 - lr * (wd + wd_lh)) - lr * torch.sign(g), \
+                    states
+            (m,) = states
+            m = mom * m - (1 - mom) * (g + wd * w)
+            return w * (1 - lr * wd_lh) + lr * torch.sign(m), (m,)
+        return rule
+
+
+@register
+class SGLD(Optimizer):
+    """Stochastic gradient Langevin dynamics: half a gradient step plus
+    Gaussian noise of standard deviation sqrt(lr), drawn from
+    ``generator`` (a ``torch.Generator`` on the weights' device; None:
+    that device's default generator). The JAX package draws its noise
+    from ``fold_in(PRNGKey(0x51D), t)``, which PyTorch cannot reproduce:
+    the noise here has the same law, not the same bits."""
+
+    # the noise needs the whole weight's shape, as the JAX rule's key does
+    elementwise_update = False
+
+    def __init__(self, learning_rate=0.01,
+                 generator: Optional[torch.Generator] = None, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.generator = generator
+
+    def create_state(self, index, weight):
+        return ()
+
+    def note_draws(self) -> None:
+        from ..gluon.nn.basic_layers import note_draw
+        note_draw(self, self.generator)
+
+    def _rule(self):
+        gen = self.generator
+
+        def rule(w, g, lr, wd, t, states):
+            g = g + wd * w
+            noise = torch.randn(w.shape, dtype=w.dtype, device=w.device,
+                                generator=gen) * torch.sqrt(lr)
+            return w - 0.5 * lr * g + noise, states
+        return rule
+
+
+@register
+class DCASGD(Optimizer):
+    """Delay-compensated asynchronous SGD: the gradient corrected by
+    ``lamda * g * g * (w - previous w)``; the state keeps the momentum
+    and the weight before the update."""
+
+    def __init__(self, learning_rate=0.01, momentum=0.0, lamda=0.04,
+                 **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.momentum = momentum
+        self.lamda = lamda
+
+    def create_state(self, index, weight):
+        return (torch.zeros_like(weight, memory_format=torch.
+                                 contiguous_format),
+                weight.detach().clone(memory_format=torch.contiguous_format))
+
+    def _rule(self):
+        mom, lam = self.momentum, self.lamda
+
+        def rule(w, g, lr, wd, t, states):
+            m, prev = states
+            g = g + wd * w
+            g = g + lam * g * g * (w - prev)
+            m = mom * m - lr * g
+            # a copy: the weight is written before the states
+            return w + m, (m, w.clone())
+        return rule
+
+
+@register
+class AdaBelief(Optimizer):
+    """AdaBelief: Adam with the second moment of ``g - m``."""
+
+    def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
+                 epsilon=1e-8, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.beta1, self.beta2, self.epsilon = beta1, beta2, epsilon
+
+    def create_state(self, index, weight):
+        return self._zeros_state(weight, 2)
+
+    def _rule(self):
+        b1, b2, eps = self.beta1, self.beta2, self.epsilon
+
+        def rule(w, g, lr, wd, t, states):
+            m, s = states
+            g = g + wd * w
+            m = b1 * m + (1 - b1) * g
+            s = b2 * s + (1 - b2) * (g - m) ** 2 + eps
+            mhat = m / (1 - b1 ** t)
+            shat = s / (1 - b2 ** t)
+            return w - lr * mhat / (torch.sqrt(shat) + eps), (m, s)
+        return rule
+
+
+@register
+class Adamax(Optimizer):
+    """Adamax: Adam with an infinity-norm second moment."""
+
+    def __init__(self, learning_rate=0.002, beta1=0.9, beta2=0.999,
+                 **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.beta1, self.beta2 = beta1, beta2
+
+    def create_state(self, index, weight):
+        return self._zeros_state(weight, 2)
+
+    def _rule(self):
+        b1, b2 = self.beta1, self.beta2
+
+        def rule(w, g, lr, wd, t, states):
+            m, u = states
+            g = g + wd * w
+            m = b1 * m + (1 - b1) * g
+            u = torch.maximum(b2 * u, torch.abs(g))
+            return w - lr / (1 - b1 ** t) * m / (u + 1e-8), (m, u)
+        return rule
+
+
+@register
+class Nadam(Optimizer):
+    """Adam with Nesterov momentum and a momentum schedule
+    (``schedule_decay``)."""
+
+    def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
+                 epsilon=1e-8, schedule_decay=0.004, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.beta1, self.beta2 = beta1, beta2
+        self.epsilon = epsilon
+        self.schedule_decay = schedule_decay
+
+    def create_state(self, index, weight):
+        return self._zeros_state(weight, 2)
+
+    def _rule(self):
+        b1, b2, eps, sd = self.beta1, self.beta2, self.epsilon, \
+            self.schedule_decay
+
+        def rule(w, g, lr, wd, t, states):
+            m, v = states
+            g = g + wd * w
+            # t an int32 tensor: the powers in float32, as the JAX rule's
+            mu_t = b1 * (1 - 0.5 * 0.96 ** (t * sd))
+            mu_t1 = b1 * (1 - 0.5 * 0.96 ** ((t + 1) * sd))
+            m = b1 * m + (1 - b1) * g
+            v = b2 * v + (1 - b2) * g * g
+            ghat = g / (1 - mu_t)
+            mhat = m / (1 - mu_t1)
+            vhat = v / (1 - b2 ** t)
+            mbar = (1 - mu_t) * ghat + mu_t1 * mhat
+            return w - lr * mbar / (torch.sqrt(vhat) + eps), (m, v)
+        return rule
+
+
+@register
+class AdaGrad(Optimizer):
+    """AdaGrad: the step scaled by the root of the summed squared
+    gradients."""
+
+    def __init__(self, learning_rate=0.01, epsilon=1e-7, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.epsilon = epsilon
+        self.lazy_update = True     # as the JAX package sets it
+
+    def create_state(self, index, weight):
+        return self._zeros_state(weight, 1)
+
+    def _rule(self):
+        eps = self.epsilon
+
+        def rule(w, g, lr, wd, t, states):
+            (h,) = states
+            g = g + wd * w
+            h = h + g * g
+            return w - lr * g / (torch.sqrt(h) + eps), (h,)
+        return rule
+
+
+@register
+class GroupAdaGrad(Optimizer):
+    """AdaGrad with one history a row of the parameter: the mean of the
+    squared gradient over the non-leading axes, a state of shape
+    ``(rows, 1, ...)``. Weight decay is refused, as in the JAX
+    package."""
+
+    elementwise_update = False  # the row means need the full shape
+
+    def __init__(self, learning_rate=0.01, epsilon=1e-5, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        if self.wd != 0.0:
+            raise MXNetError("GroupAdaGrad does not support weight decay")
+        self.epsilon = epsilon
+        self.lazy_update = True     # as the JAX package sets it
+
+    def create_state(self, index, weight):
+        return (torch.zeros((weight.shape[0],) + (1,) * (weight.dim() - 1),
+                            dtype=weight.dtype, device=weight.device),)
+
+    def _rule(self):
+        eps = self.epsilon
+
+        def rule(w, g, lr, wd, t, states):
+            (h,) = states
+            axes = tuple(range(1, g.dim()))
+            h = h + (torch.mean(g * g, dim=axes, keepdim=True)
+                     if axes else g * g)
+            return w - lr * g / (torch.sqrt(h) + eps), (h,)
+        return rule
+
+
+@register
+class AdaDelta(Optimizer):
+    """AdaDelta: running averages of the squared gradient and of the
+    squared step."""
+
+    def __init__(self, learning_rate=1.0, rho=0.9, epsilon=1e-5, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.rho, self.epsilon = rho, epsilon
+
+    def create_state(self, index, weight):
+        return self._zeros_state(weight, 2)
+
+    def _rule(self):
+        rho, eps = self.rho, self.epsilon
+
+        def rule(w, g, lr, wd, t, states):
+            acc_g, acc_d = states
+            g = g + wd * w
+            acc_g = rho * acc_g + (1 - rho) * g * g
+            d = torch.sqrt(acc_d + eps) / torch.sqrt(acc_g + eps) * g
+            acc_d = rho * acc_d + (1 - rho) * d * d
+            return w - lr * d, (acc_g, acc_d)
+        return rule
+
+
+@register
+class RMSProp(Optimizer):
+    """RMSProp with momentum; ``centered`` subtracts the squared mean
+    gradient (three states: n, the mean gradient, the step), and
+    ``clip_weights`` clips the new weight to ``[-c, c]``."""
+
+    def __init__(self, learning_rate=0.001, rho=0.9, momentum=0.9,
+                 epsilon=1e-8, centered=False, clip_weights=None, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.rho, self.momentum = rho, momentum
+        self.epsilon, self.centered = epsilon, centered
+        self.clip_weights = clip_weights
+
+    def create_state(self, index, weight):
+        return self._zeros_state(weight, 3 if self.centered else 2)
+
+    def _rule(self):
+        rho, mom, eps = self.rho, self.momentum, self.epsilon
+        centered, cw = self.centered, self.clip_weights
+
+        def rule(w, g, lr, wd, t, states):
+            g = g + wd * w
+            if centered:
+                n, gavg, delta = states
+                n = rho * n + (1 - rho) * g * g
+                gavg = rho * gavg + (1 - rho) * g
+                delta = mom * delta - lr * g / \
+                    torch.sqrt(n - gavg * gavg + eps)
+                new_states = (n, gavg, delta)
+            else:
+                n, delta = states
+                n = rho * n + (1 - rho) * g * g
+                delta = mom * delta - lr * g / torch.sqrt(n + eps)
+                new_states = (n, delta)
+            w = w + delta
+            if cw:
+                w = torch.clamp(w, -cw, cw)
+            return w, new_states
+        return rule
+
+
+@register
+class Ftrl(Optimizer):
+    """FTRL-Proximal with L1 strength ``lamda1``: weights whose
+    accumulated ``|z|`` stays within it are 0."""
+
+    def __init__(self, learning_rate=0.1, lamda1=0.01, beta=1.0, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.lamda1, self.beta = lamda1, beta
+
+    def create_state(self, index, weight):
+        return self._zeros_state(weight, 2)
+
+    def _rule(self):
+        l1, beta = self.lamda1, self.beta
+
+        def rule(w, g, lr, wd, t, states):
+            z, n = states
+            g = g + wd * w
+            sigma = (torch.sqrt(n + g * g) - torch.sqrt(n)) / lr
+            z = z + g - sigma * w
+            n = n + g * g
+            w = torch.where(
+                torch.abs(z) > l1,
+                -(z - torch.sign(z) * l1) / ((beta + torch.sqrt(n)) / lr),
+                torch.zeros_like(w))
+            return w, (z, n)
+        return rule
+
+
+@register
+class FTML(Optimizer):
+    """Follow the moving leader (three states: d, v, z)."""
+
+    def __init__(self, learning_rate=0.0025, beta1=0.6, beta2=0.999,
+                 epsilon=1e-8, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.beta1, self.beta2, self.epsilon = beta1, beta2, epsilon
+
+    def create_state(self, index, weight):
+        return self._zeros_state(weight, 3)
+
+    def _rule(self):
+        b1, b2, eps = self.beta1, self.beta2, self.epsilon
+
+        def rule(w, g, lr, wd, t, states):
+            d, v, z = states
+            g = g + wd * w
+            v = b2 * v + (1 - b2) * g * g
+            d_t = (1 - b1 ** t) / lr * \
+                (torch.sqrt(v / (1 - b2 ** t)) + eps)
+            sigma = d_t - b1 * d
+            z = b1 * z + (1 - b1) * g - sigma * w
+            return -z / d_t, (d_t, v, z)
+        return rule
+
+
+@register
+class LARS(Optimizer):
+    """Layer-wise adaptive rate scaling: SGD momentum with the step of
+    each parameter scaled by ``eta * |w| / (|g| + wd |w| + eps)``."""
+
+    elementwise_update = False  # the trust ratio needs whole-tensor norms
+
+    def __init__(self, learning_rate=0.1, momentum=0.9, eta=0.001,
+                 epsilon=1e-8, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.momentum, self.eta, self.epsilon = momentum, eta, epsilon
+
+    def create_state(self, index, weight):
+        return self._zeros_state(weight, 1)
+
+    def _rule(self):
+        mom, eta, eps = self.momentum, self.eta, self.epsilon
+
+        def rule(w, g, lr, wd, t, states):
+            (m,) = states
+            wnorm, gnorm = _norm(w), _norm(g)
+            trust = torch.where((wnorm > 0) & (gnorm > 0),
+                                eta * wnorm / (gnorm + wd * wnorm + eps),
+                                1.0)
+            g = g + wd * w
+            m = mom * m + trust * lr * g
+            return w - m, (m,)
+        return rule
+
+
+@register
+class LAMB(Optimizer):
+    """Layer-wise Adam for large batches (You et al. 2019): the Adam
+    step plus decoupled wd, scaled by ``|w| / |step|``, with ``|w|``
+    clamped to ``[lower_bound, upper_bound]`` where given."""
+
+    elementwise_update = False  # the trust ratio needs whole-tensor norms
+
+    def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
+                 epsilon=1e-6, lower_bound=None, upper_bound=None,
+                 bias_correction=True, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.beta1, self.beta2, self.epsilon = beta1, beta2, epsilon
+        self.lower_bound, self.upper_bound = lower_bound, upper_bound
+        self.bias_correction = bias_correction
+
+    def create_state(self, index, weight):
+        return self._zeros_state(weight, 2)
+
+    def _rule(self):
+        b1, b2, eps = self.beta1, self.beta2, self.epsilon
+        lo, hi, bc = self.lower_bound, self.upper_bound, self.bias_correction
+
+        def rule(w, g, lr, wd, t, states):
+            m, v = states
+            m = b1 * m + (1 - b1) * g
+            v = b2 * v + (1 - b2) * g * g
+            if bc:
+                mhat = m / (1 - b1 ** t)
+                vhat = v / (1 - b2 ** t)
+            else:
+                mhat, vhat = m, v
+            r = mhat / (torch.sqrt(vhat) + eps) + wd * w
+            wnorm, rnorm = _norm(w), _norm(r)
+            if lo is not None:
+                wnorm = torch.clamp(wnorm, min=lo)
+            if hi is not None:
+                wnorm = torch.clamp(wnorm, max=hi)
+            trust = torch.where((wnorm > 0) & (rnorm > 0), wnorm / rnorm,
+                                1.0)
+            return w - lr * trust * r, (m, v)
+        return rule
+
+
+@register
+class LANS(Optimizer):
+    """LAMB on the normalized gradient, with a second trust-scaled term
+    on the gradient itself (Zheng et al. 2020)."""
+
+    elementwise_update = False  # the trust ratios need whole-tensor norms
+
+    def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
+                 epsilon=1e-6, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.beta1, self.beta2, self.epsilon = beta1, beta2, epsilon
+
+    def create_state(self, index, weight):
+        return self._zeros_state(weight, 2)
+
+    def _rule(self):
+        b1, b2, eps = self.beta1, self.beta2, self.epsilon
+
+        def rule(w, g, lr, wd, t, states):
+            m, v = states
+            g = g / torch.clamp(_norm(g), min=1e-12)
+            m = b1 * m + (1 - b1) * g
+            v = b2 * v + (1 - b2) * g * g
+            mhat = m / (1 - b1 ** t)
+            vhat = v / (1 - b2 ** t)
+            r1 = mhat / (torch.sqrt(vhat) + eps) + wd * w
+            r2 = g / (torch.sqrt(vhat) + eps) + wd * w
+            wnorm = _norm(w)
+
+            def ratio(r):
+                rn = _norm(r)
+                return torch.where((wnorm > 0) & (rn > 0), wnorm / rn, 1.0)
+            w = w - lr * (b1 * ratio(r1) * r1 + (1 - b1) * ratio(r2) * r2)
+            return w, (m, v)
         return rule
 
 

@@ -1929,3 +1929,169 @@ def test_resnet_step_launches_one_opt_update_a_step_on_card(cuda_dev):
     assert len(tr._params) == 60
     assert {k: v for k, v in K.launch_counts().items() if v} == \
         {"opt_update": 1}
+
+
+# ---------------------------------------------------------------------------
+# training's surface: every optimizer captured, metrics without a sync,
+# initialize under a captured predictor
+# ---------------------------------------------------------------------------
+
+#: each registered rule with a setting other than its default where it
+#: has one
+SURFACE_OPTS = [
+    ("sgd", {"learning_rate": 0.1, "momentum": 0.9, "wd": 1e-3}),
+    ("nag", {"learning_rate": 0.1, "momentum": 0.9, "wd": 1e-4}),
+    ("signum", {"learning_rate": 1e-3, "momentum": 0.0}),
+    ("sgld", {"learning_rate": 1e-4}),
+    ("dcasgd", {"learning_rate": 0.1, "momentum": 0.9}),
+    ("adam", {"learning_rate": 1e-2, "wd": 1e-3}),
+    ("adamw", {"learning_rate": 1e-2, "wd": 1e-2}),
+    ("adabelief", {"learning_rate": 1e-3}),
+    ("adamax", {"learning_rate": 2e-3, "beta2": 0.99}),
+    ("nadam", {"learning_rate": 1e-3, "schedule_decay": 0.01}),
+    ("adagrad", {"learning_rate": 1e-2, "wd": 1e-3}),
+    ("groupadagrad", {"learning_rate": 1e-2}),
+    ("adadelta", {"rho": 0.95}),
+    ("rmsprop", {"learning_rate": 1e-3, "centered": True,
+                 "clip_weights": 2.0}),
+    ("ftrl", {"learning_rate": 0.1, "lamda1": 1e-3}),
+    ("ftml", {"learning_rate": 2.5e-3}),
+    ("lars", {"learning_rate": 0.1, "eta": 0.01, "wd": 1e-4}),
+    ("lamb", {"learning_rate": 1e-3, "wd": 0.01, "lower_bound": 1e-3,
+              "upper_bound": 10.0}),
+    ("lans", {"learning_rate": 1e-3, "wd": 0.01}),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("opt,kw", SURFACE_OPTS,
+                         ids=[o for o, _ in SURFACE_OPTS])
+def test_every_optimizer_captured_equals_its_eager_twin_on_card(cuda_dev,
+                                                                 opt, kw):
+    """Three replays of the captured step against three eager
+    ``Trainer.step``s from the same weights (SGLD from the same generator
+    state): the same rule on the same device scalars, so the weights
+    agree to float32 rounding of the products (1e-5 relative, 1e-6
+    absolute), SGLD's noise included; ``opt_update`` launches for exact
+    SGD / Adam only (one a step), every other rule none."""
+    from mxnet_tpu_torch.gluon import Trainer
+    runs = []
+    for captured in (True, False):
+        net, lb, x, y = _dense_on(cuda_dev)
+        kwargs = dict(kw)
+        if opt == "sgld":
+            kwargs["generator"] = torch.Generator(cuda_dev).manual_seed(8)
+        tr = Trainer(dict(net.named_parameters()), opt, kwargs)
+        step = tr.compile_step(lambda a, b: lb(net(a), b))
+        if captured:
+            step.aot_compile(x, y)
+        torch.cuda.synchronize()
+        K.reset_launch_counts()
+        for _ in range(3):
+            if captured:
+                step(x, y)
+            else:
+                lb(net(x), y).sum().backward()
+                tr.step(x.shape[0])
+        torch.cuda.synchronize()
+        if captured:
+            assert step.mode == "fused" and step.n_traces == 1
+        launches = K.launch_counts()["opt_update"]
+        assert launches == (3 if opt in ("sgd", "adam") else 0), launches
+        runs.append([p.detach().clone() for p in net.parameters()])
+    for a, b in zip(*runs):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_sgld_replays_draw_new_noise_from_a_registered_generator_on_card(
+        cuda_dev):
+    """SGLD's generator is registered with the captured step: at lr
+    1e-2 the noise (std 0.1) dwarfs the half gradient step, and three
+    replays move the weights by three different draws of it."""
+    from mxnet_tpu_torch.gluon import Trainer
+    net, lb, x, y = _dense_on(cuda_dev)
+    g = torch.Generator(cuda_dev).manual_seed(2)
+    tr = Trainer(dict(net.named_parameters()), "sgld",
+                 {"learning_rate": 1e-2, "generator": g})
+    step = tr.compile_step(lambda a, b: lb(net(a), b))
+    step.aot_compile(x, y)
+    moves, w = [], net[0].weight
+    for _ in range(3):
+        before = w.detach().clone()
+        step(x, y)
+        moves.append(w.detach() - before)
+    assert not torch.equal(moves[0], moves[1])
+    assert not torch.equal(moves[1], moves[2])
+    for m in moves:
+        assert 0.05 < float(m.std()) < 0.15          # ~sqrt(1e-2)
+    assert step.n_traces == 1
+
+
+@pytest.mark.cuda
+def test_metric_updates_on_card_never_sync(cuda_dev):
+    """Every device-path metric takes CUDA tensors under
+    ``set_sync_debug_mode("error")`` (any sync raises) and, read after,
+    equals the same metric fed numpy copies within 1e-5 relative."""
+    from mxnet_tpu_torch import metric
+    r = onp.random.RandomState(3)
+    logits = torch.from_numpy(r.randn(64, 10).astype("f4"))
+    probs = torch.softmax(logits, -1)
+    labels = torch.from_numpy(r.randint(0, 10, 64).astype("f4"))
+    binary = torch.from_numpy(r.randint(0, 2, 64).astype("f4"))
+    reg = torch.from_numpy(r.randn(64, 3).astype("f4"))
+    cases = [(metric.Accuracy(), labels, probs),
+             (metric.TopKAccuracy(5), labels, logits),
+             (metric.CrossEntropy(), labels, probs),
+             (metric.NegativeLogLikelihood(), labels, probs),
+             (metric.Perplexity(), labels, probs),
+             (metric.MAE(), reg, reg * 0.5), (metric.MSE(), reg, reg * 0.5),
+             (metric.RMSE(), reg, reg * 0.5),
+             (metric.F1(), binary, probs[:, :2]),
+             (metric.Fbeta(beta=2.0), binary, probs[:, :2]),
+             (metric.MCC(), binary, probs[:, :2]),
+             (metric.BinaryAccuracy(), binary, probs[:, 0]),
+             (metric.MeanPairwiseDistance(), reg, reg * 0.5),
+             (metric.MeanCosineSimilarity(), reg, reg + 0.3),
+             (metric.Loss(), None, probs[:, 0])]
+    on_card = [(m, None if l is None else l.to(cuda_dev), p.to(cuda_dev))
+               for m, l, p in cases]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for m, l, p in on_card:
+            for _ in range(2):
+                m.update(l, p)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    for (m, l, p), (mc, _, _) in zip(cases, on_card):
+        ref = type(m)(**({"top_k": 5} if isinstance(m, metric.TopKAccuracy)
+                         else {"beta": 2.0} if isinstance(m, metric.Fbeta)
+                         else {}))
+        for _ in range(2):
+            ref.update(None if l is None else l.numpy(), p.numpy())
+        assert mc.get()[1] == pytest.approx(ref.get()[1], rel=1e-5,
+                                            abs=1e-6), type(m).__name__
+
+
+@pytest.mark.cuda
+def test_initialize_force_reinit_under_a_captured_predictor_on_card(
+        cuda_dev):
+    """``initialize(net, ..., force_reinit=True)`` writes the parameters
+    in place: a ``CompiledPredictor`` captured before replays on the new
+    weights, bit-equal to the eager net, with no new capture."""
+    from mxnet_tpu_torch import initializer
+    from mxnet_tpu_torch.gluon import initialize
+    from mxnet_tpu_torch.serving import CompiledPredictor
+    net = _mlp_on(cuda_dev).eval()
+    pred = CompiledPredictor(net, bucket_sizes=(8,), device=cuda_dev)
+    x = torch.randn(8, 64, device=cuda_dev)
+    first = pred.predict(x).clone()
+    assert pred.n_traces == 1
+    initialize(net, initializer.MSRAPrelu(), force_reinit=True,
+               generator=torch.Generator(cuda_dev).manual_seed(4))
+    got = pred.predict(x)
+    with torch.no_grad():
+        eager = net(x)
+    assert pred.n_traces == 1
+    assert torch.equal(got, eager) and not torch.equal(got, first)

@@ -189,6 +189,27 @@ OPTIMIZERS = [
     ("adam", {"learning_rate": 0.01, "wd": 0.01}),
     ("adamw", {"learning_rate": 0.01, "wd": 0.05}),
     ("adamw", {"learning_rate": 0.01, "wd": 0.05, "correct_bias": False}),
+    ("nag", {"learning_rate": 0.1, "momentum": 0.9, "wd": 0.01}),
+    ("signum", {"learning_rate": 0.01, "wd": 0.01, "wd_lh": 0.001}),
+    ("signum", {"learning_rate": 0.01, "momentum": 0.0, "wd": 0.01}),
+    ("dcasgd", {"learning_rate": 0.1, "momentum": 0.9, "wd": 0.01}),
+    ("adabelief", {"learning_rate": 0.01, "wd": 0.01}),
+    ("adamax", {"learning_rate": 0.01, "wd": 0.01}),
+    ("nadam", {"learning_rate": 0.01, "wd": 0.01,
+               "schedule_decay": 0.01}),
+    ("adagrad", {"learning_rate": 0.1, "wd": 0.01}),
+    ("groupadagrad", {"learning_rate": 0.1}),
+    ("adadelta", {"wd": 0.01, "rho": 0.8}),
+    ("rmsprop", {"learning_rate": 0.01, "wd": 0.01}),
+    ("rmsprop", {"learning_rate": 0.01, "centered": True,
+                 "clip_weights": 0.5}),
+    ("ftrl", {"learning_rate": 0.1, "wd": 0.01, "lamda1": 0.05}),
+    ("ftml", {"learning_rate": 0.01, "wd": 0.01}),
+    ("lars", {"learning_rate": 0.1, "wd": 0.01, "eta": 0.01}),
+    ("lamb", {"learning_rate": 0.01, "wd": 0.01}),
+    ("lamb", {"learning_rate": 0.01, "wd": 0.01, "lower_bound": 0.5,
+              "upper_bound": 1.5, "bias_correction": False}),
+    ("lans", {"learning_rate": 0.01, "wd": 0.01}),
 ]
 
 
@@ -265,7 +286,10 @@ def test_create_and_register():
     opt = topt.Adam()
     assert topt.create(opt) is opt
     with pytest.raises(mxt.MXNetError, match="unknown optimizer"):
-        topt.create("lamb")
+        topt.create("no_such_rule")
+    # every name the JAX package registers
+    assert sorted(topt.optimizer._registry) == \
+        sorted(jopt.optimizer._registry)
 
     @topt.register
     class Halve(topt.SGD):
