@@ -19,6 +19,7 @@
                                         # more)
     python3 chip_smoke.py --resnet      # phases 1, 2 and 14 alone
     python3 chip_smoke.py --surface     # phases 1, 2 and 15 alone
+    python3 chip_smoke.py --cells       # phases 1, 2 and 16 alone
     python3 chip_smoke.py --compare DIR  # A/B on one card: the flash
         # forward, the flash backward (fused at BERT training's shape;
         # dq, dkv at phase 7's), the recurrence kernels, the LayerNorm
@@ -361,19 +362,47 @@ Phases, each of which fails the run (non-zero exit) when it fails:
     realistic sizes against a CPU copy (1e-5 of the largest value; CTC
     at T 200 x N 32 x 29 classes, labels of up to 50, ragged lengths,
     1e-4).
+16. the recurrent cells, the contrib cells and layers, the Estimator:
+    (a) phase 8's word LM built from two ``LSTMCell``s unrolled over the
+    merged batch (the fused unroll): its first loss and one step's 11
+    gradients against phase 8's layer model on the same batch and
+    weights (bit for bit, or within 1e-6 relative), ten SGD-momentum
+    steps in phase 6's turns (replays bit-equal to the body runs), per
+    step exactly 2 ``rnn_scan_fwd`` + 2 ``rnn_scan_bwd`` + 1
+    ``opt_update``, a falling loss, gradients at batch 4 against a CPU
+    copy, the layer model's captured step beside it; GRUCell and RNNCell
+    (tanh, relu) unrolls at 650 in eval mode, one ``rnn_scan_fwd`` each,
+    against CPU copies; (b) Zoneout(LSTMCell 650) -> DropoutCell(0.5) ->
+    Residual(LSTMCell 650) stepped by the loop (one graph of 70 cell
+    steps, no ``rnn_scan``), in turns, in eval mode against a CPU copy;
+    a BidirectionalCell over ragged lengths 35..1 and LSTMPCell(650,
+    256) against CPU copies; (c) ConvLSTM at Shi et al. 2015's Moving
+    MNIST widths (three Conv2DLSTMCells of 128, 64, 64 channels, 5 x 5,
+    ten frames of 16 x 16 x 16 patches, batch 16, RMSProp) in turns under
+    ``cudnn.deterministic`` (replays bit-equal), a falling loss, its
+    gradients against a CPU copy, step ms and frames/s; Conv1DGRUCell and
+    Conv3DRNNCell steps against CPU copies; (d) ``Estimator.fit`` on
+    (c)'s model, 2 epochs of 4 batches with ``CheckpointHandler``,
+    ``ValidationHandler``, ``EarlyStoppingHandler``, then a resumed
+    Estimator's third epoch bit-equal to an uninterrupted 3-epoch run;
+    (e) GroupNorm(32) on (32, 256, 56, 56), InstanceNorm on (4, 64, 256,
+    256), PixelShuffle2D(3) on (1, 9, 224, 224), the activation layers
+    on (4096, 3072) and a HybridConcatenate of two Dense(768), forward
+    and backward against CPU copies (1e-4 + 1e-4 |ref|) with their ms.
 
 ``{"launch_counts": {...}, "bf16_launch_counts": {...},
 "dist_kv_launch_counts": {...}, "resnet_launch_counts": {...},
-"surface_launch_counts": {...}}`` gives
+"surface_launch_counts": {...}, "cells_launch_counts": {...}}`` gives
 each kernel's launches on its path, on its bf16 path where it has one,
-on phase 13's one-card path, on phase 14's float32 and bf16 paths and
-on phase 15's LAMB and NAG paths.
+on phase 13's one-card path, on phase 14's float32 and bf16 paths, on
+phase 15's LAMB and NAG paths and on phase 16's cell-built LM.
 The line before the last is a JSON object with one entry per kernel
 (launches on its float32 path, error, times, bound; then its bf16 path,
 bf16 launches there, and its bf16 error, times and bound; ``rnn_decode``
 at decode_wide's N 8 x H 650, ``opt_update`` at the word embedding in
 the device form, with its launches on phase 6's one-card path and on
-phase 14's, ``resnet50_launches``); the last line is
+phase 14's, ``resnet50_launches``; the recurrence kernels with their
+launches on phase 16's cell LM, ``cells_launches``); the last line is
 ``{"ok": true, "device": {...}}``.
 """
 import json
@@ -6774,6 +6803,746 @@ def surface_phase(torch, np, K, dev, smi, profile=False):
             "resnet50_nag": {n: c for n, c in resnet.items() if c}}
 
 
+#: phase 16: the recurrent cells, the contrib cells and layers, the
+#: Estimator. (a) phase 8's word LM (LM_* widths, batch, steps and lr)
+#: built from two ``LSTMCell``s unrolled over the merged NTC batch; (b)
+#: the step loop at those widths: Zoneout(LSTM 650) 0.1 / 0.1, Dropout
+#: 0.5 (Zaremba et al. 2014's medium LM), Residual(LSTM 650), 35 steps
+#: at batch 64; (c) ConvLSTM at Shi et al. 2015's Moving-MNIST widths
+#: (arXiv:1506.04214 §4.1: 64 x 64 frames as 4 x 4 patches, three
+#: Conv2DLSTMCells of 128, 64 and 64 channels, 5 x 5 kernels, ten input
+#: frames, RMSProp at lr 1e-3 and decay 0.9, batch 16), cut to one
+#: predicted frame and moving squares for digits; (d) ``Estimator.fit``
+#: on (c)'s model with a checkpoint resume; (e) the layers at realistic
+#: sizes
+CELLS_LSTMP = 256
+CELLS_ZONEOUT, CELLS_DROPOUT = 0.1, 0.5
+CONV_BATCH, CONV_FRAMES, CONV_SIZE, CONV_PATCH = 16, 10, 64, 4
+CONV_HIDDEN, CONV_KERNEL, CONV_STEPS = (128, 64, 64), 5, 10
+CONV_SQUARE = 12
+#: the ConvLSTM's gradient check runs at this batch (a float64-summed CPU
+#: copy of ten frames of three cells)
+CONV_GRAD_BATCH = 2
+RMSPROP = {"learning_rate": 1e-3, "rho": 0.9, "momentum": 0.0}
+#: (d): epochs of ESTIMATOR_BATCHES batches, then one resumed epoch
+ESTIMATOR_EPOCHS, ESTIMATOR_BATCHES = 2, 4
+CELLS_CKPT_DIR = os.path.join("build", "chip_cells_ckpt")
+#: (a): the cell LM's first loss and gradients against phase 8's layer
+#: model on the same batch: bit for bit, or within this relative error
+CELLS_VS_LAYER_RTOL = 1e-6
+#: (e): the layers' shapes
+GN_SHAPE, GN_GROUPS = (32, 256, 56, 56), 32
+IN_SHAPE = (4, 64, 256, 256)
+PS_SHAPE, PS_FACTOR = (1, 9, 224, 224), 3
+ACT_SHAPE = (4096, 3072)
+CONCAT_ROWS, CONCAT_UNITS = 4096, 768
+
+
+def cell_lm(torch, dev):
+    """Phase 8's word LM built from cells: Embedding, ``l0`` and ``l1``
+    (LSTMCells, each unrolled over the merged NTC batch), a Dense head."""
+    from mxnet_tpu_torch.gluon import nn as gnn
+    from mxnet_tpu_torch.gluon import rnn
+    vocab, embed, hidden = LM_VOCAB, LM_EMBED, LM_HIDDEN
+
+    class CellLM(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.emb = gnn.Embedding(vocab, embed, device=dev)
+            self.l0 = rnn.LSTMCell(hidden, input_size=embed, device=dev)
+            self.l1 = rnn.LSTMCell(hidden, input_size=hidden, device=dev)
+            self.head = gnn.Dense(vocab, flatten=False, in_units=hidden,
+                                  device=dev)
+
+        def forward(self, tokens):
+            h = self.emb(tokens)
+            h, _ = self.l0.unroll(h.shape[1], h, layout="NTC",
+                                  merge_outputs=True)
+            h, _ = self.l1.unroll(h.shape[1], h, layout="NTC",
+                                  merge_outputs=True)
+            return self.head(h)
+
+    return CellLM()
+
+
+def cell_lm_params(layer_init):
+    """``WordLM``'s parameter dict under the cell LM's names: layer k's
+    ``lstm.l{k}_<name>`` is cell ``l{k}``'s ``<name>``."""
+    out = {}
+    for k, v in layer_init.items():
+        if k.startswith("lstm.l"):
+            layer, name = k[len("lstm.l"):].split("_", 1)
+            k = f"l{layer}.{name}"
+        out[k] = v
+    return out
+
+
+def loss_and_grads(torch, net, loss_fn, x, y):
+    """The mean loss and every parameter's gradient (on the CPU) of one
+    backward at (x, y) (numpy) in eval mode."""
+    net.eval()
+    dev = next(net.parameters()).device
+    for p in net.parameters():
+        p.grad = None
+    loss = loss_fn(net(torch.from_numpy(x).to(dev)),
+                   torch.from_numpy(y).to(dev))
+    loss.sum().backward()
+    return loss.detach().cpu(), {n: p.grad.detach().cpu()
+                                 for n, p in net.named_parameters()}
+
+
+def unroll_check(torch, K, cell, cpu_cell, x, what, smi, **kw):
+    """One eval unroll of ``cell`` over ``x`` (merged) on the card and of
+    its CPU copy: the launches (from 0), ms (one more eager call timed by
+    events) and outputs and states against the CPU copy (TOLS)."""
+    cell.eval()
+    cpu_cell.eval()
+    with torch.no_grad():
+        K.reset_launch_counts()
+        y, st = cell.unroll(x.shape[1], x, merge_outputs=True, **kw)
+        torch.cuda.synchronize()
+        counts = {n: c for n, c in K.launch_counts().items() if c}
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        cell.unroll(x.shape[1], x, merge_outputs=True, **kw)
+        end.record()
+        torch.cuda.synchronize()
+        cpu_kw = {k: v.cpu() for k, v in kw.items()}
+        ry, rst = cpu_cell.unroll(x.shape[1], x.cpu(), merge_outputs=True,
+                                  **cpu_kw)
+    checks = [compare(torch, a.cpu(), b, *TOLS["float32"])
+              for a, b in zip([y] + list(st), [ry] + list(rst))]
+    rec = {"what": what, "shape": list(x.shape), "launches": counts,
+           "ms": start.elapsed_time(end),
+           "max_abs_err": max(c[1] for c in checks),
+           "tol": TOLS["float32"], "card": smi,
+           "ok": all(c[0] for c in checks)}
+    return rec
+
+
+def cells_lm(torch, np, K, dev, smi):
+    """Phase 16a: phase 8's word LM built from LSTMCells. Its first loss
+    and one step's 11 gradients against phase 8's layer model on the same
+    batch and weights (bit for bit, or within CELLS_VS_LAYER_RTOL); ten
+    SGD-momentum steps through ``compile_step`` in turns against the
+    eager loop (the replays bit-equal to the body runs), exactly
+    LM_LAYERS ``rnn_scan_fwd`` + LM_LAYERS ``rnn_scan_bwd`` + one
+    ``opt_update`` a step, a falling loss, the gradients at batch 4
+    against a CPU copy; the layer model's captured step in the same
+    call; then GRUCell and RNNCell (tanh, relu) unrolls at 650 in eval
+    mode, one ``rnn_scan_fwd`` each, against CPU copies. Returns the
+    launches of the ten gated steps."""
+    from mxnet_tpu_torch.gluon import Trainer, rnn
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from mxnet_tpu_torch.gluon.model_zoo.word_lm import WordLM
+    from mxnet_tpu_torch.gluon.params import init_params_numpy, \
+        load_jax_params
+
+    layer_net = WordLM(LM_VOCAB, LM_EMBED, LM_HIDDEN, LM_LAYERS, device=dev)
+    init = init_params_numpy(layer_net, seed=6)
+    load_jax_params(layer_net, init)
+    cinit = cell_lm_params(init)
+    rs = np.random.RandomState(7)
+    x = rs.randint(0, LM_VOCAB, (LM_BATCH, LM_BPTT)).astype(np.int64)
+    y = rs.randint(0, LM_VOCAB, (LM_BATCH, LM_BPTT)).astype(np.float32)
+    xt, yt = torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev)
+    loss_fn = SoftmaxCrossEntropyLoss()
+    net = cell_lm(torch, dev)
+    load_jax_params(net, cinit)
+    l_loss, l_grads = loss_and_grads(torch, layer_net, loss_fn, x, y)
+    c_loss, c_grads = loss_and_grads(torch, net, loss_fn, x, y)
+    names = {n: cell_lm_params({n: None}).popitem()[0] for n in l_grads}
+    vs_layer = {"loss_bit_equal": bool(torch.equal(c_loss, l_loss)),
+                "loss_rel_err": rel_errs(torch, c_loss, l_loss.double())[0],
+                "grads": len(c_grads),
+                "grads_bit_equal": sum(bool(torch.equal(c_grads[names[n]], g))
+                                       for n, g in l_grads.items()),
+                "grad_max_rel_err": max(
+                    rel_errs(torch, c_grads[names[n]], g.double())[0]
+                    for n, g in l_grads.items()),
+                "rtol": CELLS_VS_LAYER_RTOL}
+    vs_layer["ok"] = len(c_grads) == len(l_grads) == 3 + 4 * LM_LAYERS \
+        and vs_layer["loss_rel_err"] <= CELLS_VS_LAYER_RTOL \
+        and vs_layer["grad_max_rel_err"] <= CELLS_VS_LAYER_RTOL
+    made = [net]
+    del net
+
+    def build():
+        net = made.pop() if made else cell_lm(torch, dev)
+        load_jax_params(net, cinit)
+        net.train()
+        return net, Trainer(dict(net.named_parameters()), "sgd",
+                            {"learning_rate": LM_LR, "momentum": 0.9}), \
+            loss_fn
+
+    tokens = LM_BATCH * LM_BPTT
+    turns, (net, _, _), gated = train_turns(
+        torch, K, build, xt, yt, LM_STEPS, tokens, exact=True)
+    losses, step_ms, per_step, counts = gated
+    expect = {n: 0 for n in K.KERNELS}
+    expect.update(rnn_scan_fwd=LM_LAYERS, rnn_scan_bwd=LM_LAYERS,
+                  opt_update=1)
+    launches_ok = all(s == expect for s in per_step)
+    losses_ok = all(math.isfinite(v) for v in losses) and \
+        losses[-1] < losses[0]
+    cpu_net = copy_to_cpu(lambda: cell_lm(torch, "cpu"), net,
+                          load_jax_params)
+    grads = grad_check(torch, net, cpu_net, loss_fn, x[:LM_GRAD_BATCH],
+                       y[:LM_GRAD_BATCH])
+    del cpu_net
+    # phase 8's layer model, captured, in the same call
+    load_jax_params(layer_net, init)
+    layer_net.train()
+    tr = Trainer(dict(layer_net.named_parameters()), "sgd",
+                 {"learning_rate": LM_LR, "momentum": 0.9})
+    lstep = tr.compile_step(lambda a, b: loss_fn(layer_net(a), b))
+    lstep.aot_compile(xt, yt)
+    layer_run = run_train_steps(torch, K, lstep, xt, yt, LM_STEPS)
+    layer_ms = statistics.median(layer_run[1][1:])
+    del lstep, tr, layer_net
+    report = {
+        "model": "word LM of LSTMCells (phase 8's widths)",
+        "vocab": LM_VOCAB, "hidden": LM_HIDDEN, "cells": LM_LAYERS,
+        "batch": LM_BATCH, "bptt": LM_BPTT, "steps": LM_STEPS,
+        "vs_layer_model": vs_layer, "losses": losses, "step_ms": step_ms,
+        "median_step_ms": statistics.median(step_ms[1:]),
+        "layer_model_median_step_ms": layer_ms,
+        "layer_model_losses": layer_run[0],
+        "tokens_per_s": tokens / (statistics.median(step_ms[1:]) / 1e3),
+        "launches": counts, "launches_per_step": per_step[-1],
+        "launches_per_step_expected": expect, "grad_check": grads,
+        "captured_vs_eager": turns, "card": smi,
+        "ok": vs_layer["ok"] and launches_ok and losses_ok and grads["ok"]
+        and turns["ok"]}
+    emit({"cells_lm": report})
+    if not report["ok"]:
+        raise SystemExit(f"phase 16a failed: {report}")
+    del net
+
+    # GRU and Elman cells at the LM's width, eval mode
+    rows = []
+    xs = torch.from_numpy(np.random.RandomState(8).randn(
+        LM_BATCH, LM_BPTT, LM_HIDDEN).astype(np.float32)).to(dev)
+    for what, make in (
+            ("GRUCell", lambda d: rnn.GRUCell(LM_HIDDEN, input_size=LM_HIDDEN,
+                                              device=d)),
+            ("RNNCell(tanh)", lambda d: rnn.RNNCell(
+                LM_HIDDEN, activation="tanh", input_size=LM_HIDDEN,
+                device=d)),
+            ("RNNCell(relu)", lambda d: rnn.RNNCell(
+                LM_HIDDEN, activation="relu", input_size=LM_HIDDEN,
+                device=d))):
+        cell = make(dev)
+        load_jax_params(cell, init_params_numpy(cell, seed=9))
+        rec = unroll_check(torch, K, cell, copy_to_cpu(
+            lambda: make("cpu"), cell, load_jax_params), xs, what, smi)
+        rec["ok"] = rec["ok"] and rec["launches"] == {"rnn_scan_fwd": 1}
+        rows.append(rec)
+    emit({"cells_unrolls": rows})
+    if not all(r["ok"] for r in rows):
+        raise SystemExit(f"phase 16a's unrolls failed: {rows}")
+    return counts
+
+
+def loop_lm(torch, dev, seed):
+    """Phase 16b's model: the embedding and head of phase 8, between
+    them Zoneout(LSTMCell) -> DropoutCell -> Residual(LSTMCell) in a
+    HybridSequentialRNNCell stepped by the loop (masks from CUDA
+    generators seeded with ``seed``); the forward resets the cells
+    first, as the captured rule asks."""
+    from mxnet_tpu_torch.gluon import nn as gnn
+    from mxnet_tpu_torch.gluon import rnn
+
+    def gen(k):
+        if torch.device(dev).type != "cuda":
+            return torch.Generator().manual_seed(seed + k)
+        return torch.Generator(dev).manual_seed(seed + k)
+
+    class LoopLM(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.emb = gnn.Embedding(LM_VOCAB, LM_EMBED, device=dev)
+            self.cells = rnn.HybridSequentialRNNCell()
+            self.cells.add(rnn.ZoneoutCell(
+                rnn.LSTMCell(LM_HIDDEN, input_size=LM_EMBED, device=dev),
+                CELLS_ZONEOUT, CELLS_ZONEOUT, generator=gen(0)))
+            self.cells.add(rnn.DropoutCell(CELLS_DROPOUT, generator=gen(1)))
+            self.cells.add(rnn.ResidualCell(
+                rnn.LSTMCell(LM_HIDDEN, input_size=LM_HIDDEN, device=dev)))
+            self.head = gnn.Dense(LM_VOCAB, flatten=False,
+                                  in_units=LM_HIDDEN, device=dev)
+
+        def forward(self, tokens):
+            self.cells.reset()
+            h, _ = self.cells.unroll(tokens.shape[1], self.emb(tokens),
+                                     layout="NTC", merge_outputs=True)
+            return self.head(h)
+
+    return LoopLM()
+
+
+def cells_loop(torch, np, K, dev, smi):
+    """Phase 16b: the step loop at the LM's widths (``loop_lm``): ten
+    SGD-momentum steps eagerly and through ``compile_step`` in turns (one
+    graph of 2 x LM_BPTT cell steps, masks drawn anew each replay, the
+    replays bit-equal to the body runs), zero ``rnn_scan`` launches and
+    one ``opt_update`` a step; the trained net in eval mode against a CPU
+    copy; then BidirectionalCell(LSTMCell, LSTMCell) over ragged lengths
+    (LM_BPTT down to 1) and LSTMPCell(LM_HIDDEN, CELLS_LSTMP) against CPU
+    copies."""
+    from mxnet_tpu_torch.gluon import Trainer, rnn
+    from mxnet_tpu_torch.gluon.contrib import rnn as crnn
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from mxnet_tpu_torch.gluon.params import init_params_numpy, \
+        load_jax_params
+
+    rs = np.random.RandomState(7)
+    x = rs.randint(0, LM_VOCAB, (LM_BATCH, LM_BPTT)).astype(np.int64)
+    y = rs.randint(0, LM_VOCAB, (LM_BATCH, LM_BPTT)).astype(np.float32)
+    xt, yt = torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev)
+    loss_fn = SoftmaxCrossEntropyLoss()
+    net = loop_lm(torch, dev, 10)
+    init = init_params_numpy(net, seed=10)
+    made = [net]
+    del net
+
+    def build():
+        net = made.pop() if made else loop_lm(torch, dev, 10)
+        load_jax_params(net, init)
+        net.train()
+        return net, Trainer(dict(net.named_parameters()), "sgd",
+                            {"learning_rate": LM_LR, "momentum": 0.9}), \
+            loss_fn
+
+    tokens = LM_BATCH * LM_BPTT
+    turns, (net, _, _), gated = train_turns(
+        torch, K, build, xt, yt, LM_STEPS, tokens, exact=True)
+    losses, step_ms, per_step, counts = gated
+    expect = {n: 0 for n in K.KERNELS}
+    expect.update(opt_update=1)
+    launches_ok = all(s == expect for s in per_step)
+    net.eval()
+    cpu_net = copy_to_cpu(lambda: loop_lm(torch, "cpu", 10), net,
+                          load_jax_params)
+    cpu_net.eval()
+    with torch.no_grad():
+        got = net(xt[:LM_GRAD_BATCH]).cpu()
+        ref = cpu_net(torch.from_numpy(x[:LM_GRAD_BATCH]))
+    eval_err = float((got - ref).abs().max())
+    del cpu_net
+    report = {
+        "model": "Zoneout(LSTMCell) -> DropoutCell -> Residual(LSTMCell), "
+                 "the step loop", "hidden": LM_HIDDEN,
+        "zoneout": CELLS_ZONEOUT, "dropout": CELLS_DROPOUT,
+        "batch": LM_BATCH, "bptt": LM_BPTT, "steps": LM_STEPS,
+        "cell_steps_a_graph": 2 * LM_BPTT, "losses": losses,
+        "step_ms": step_ms, "median_step_ms": statistics.median(step_ms[1:]),
+        "tokens_per_s": tokens / (statistics.median(step_ms[1:]) / 1e3),
+        "launches": counts, "launches_per_step": per_step[-1],
+        "eval_vs_cpu_max_abs_err": eval_err, "atol": LOGIT_ATOL,
+        "captured_vs_eager": turns, "card": smi,
+        "ok": launches_ok and turns["ok"] and eval_err <= LOGIT_ATOL
+        and all(math.isfinite(v) for v in losses)}
+    emit({"cells_loop": report})
+    if not report["ok"]:
+        raise SystemExit(f"phase 16b failed: {report}")
+    del net
+
+    rows = []
+    n = LM_BPTT
+    xb = torch.from_numpy(np.random.RandomState(11).randn(
+        n, LM_BPTT, LM_HIDDEN).astype(np.float32)).to(dev)
+    vl = torch.arange(LM_BPTT, LM_BPTT - n, -1, device=dev)
+
+    def bidi(d):
+        return rnn.BidirectionalCell(
+            rnn.LSTMCell(LM_HIDDEN, input_size=LM_HIDDEN, device=d),
+            rnn.LSTMCell(LM_HIDDEN, input_size=LM_HIDDEN, device=d))
+
+    def lstmp(d):
+        return crnn.LSTMPCell(LM_HIDDEN, CELLS_LSTMP, input_size=LM_HIDDEN,
+                              device=d)
+
+    for what, make, inp, kw in (
+            ("BidirectionalCell(LSTMCell, LSTMCell), valid_length "
+             f"{LM_BPTT}..{LM_BPTT - n + 1}", bidi, xb, {"valid_length": vl}),
+            (f"LSTMPCell({LM_HIDDEN}, {CELLS_LSTMP})", lstmp,
+             torch.from_numpy(np.random.RandomState(12).randn(
+                 LM_BATCH, LM_BPTT, LM_HIDDEN).astype(np.float32)).to(dev),
+             {})):
+        cell = make(dev)
+        load_jax_params(cell, init_params_numpy(cell, seed=13))
+        rec = unroll_check(torch, K, cell, copy_to_cpu(
+            lambda: make("cpu"), cell, load_jax_params), inp, what, smi,
+            **kw)
+        rec["ok"] = rec["ok"] and not rec["launches"]
+        rows.append(rec)
+    emit({"cells_loop_unrolls": rows})
+    if not all(r["ok"] for r in rows):
+        raise SystemExit(f"phase 16b's unrolls failed: {rows}")
+    return counts
+
+
+def moving_squares(np, rs, batch):
+    """Clips of CONV_FRAMES + 1 frames of a bright square moving at a
+    constant velocity, bouncing off the edges
+    (``examples/convlstm_video.py``'s data at Moving MNIST's frame size),
+    as (batch, frames, CONV_PATCH**2, CONV_SIZE / CONV_PATCH, CONV_SIZE /
+    CONV_PATCH) patch stacks (Shi et al. 2015 §4.1)."""
+    frames, size, square, patch = CONV_FRAMES + 1, CONV_SIZE, CONV_SQUARE, \
+        CONV_PATCH
+    clips = np.zeros((batch, frames, size, size), np.float32)
+    span = size - square
+    for b in range(batch):
+        pos = rs.randint(0, span, 2)
+        vel = rs.choice([-3, -2, 2, 3], 2)
+        for t in range(frames):
+            yy, xx = pos
+            clips[b, t, yy:yy + square, xx:xx + square] = 1.0
+            pos = pos + vel
+            for k in range(2):
+                if pos[k] < 0 or pos[k] > span:
+                    vel[k] = -vel[k]
+                    pos[k] = min(max(pos[k], 0), span)
+    g = size // patch
+    return clips.reshape(batch, frames, g, patch, g, patch) \
+        .transpose(0, 1, 3, 5, 2, 4).reshape(batch, frames, patch * patch,
+                                             g, g)
+
+
+def conv_lstm(torch, dev):
+    """Phase 16c's model: three Conv2DLSTMCells (CONV_HIDDEN channels,
+    CONV_KERNEL kernels, SAME padding) in a HybridSequentialRNNCell over
+    the patch stacks, a 1 x 1 Conv2D head to the next frame's patches
+    (``examples/convlstm_video.py``'s NextFrame at Shi et al.'s
+    widths)."""
+    from mxnet_tpu_torch.gluon import nn as gnn
+    from mxnet_tpu_torch.gluon import rnn
+    from mxnet_tpu_torch.gluon.contrib import rnn as crnn
+    g, c = CONV_SIZE // CONV_PATCH, CONV_PATCH ** 2
+
+    class NextFrame(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.cells = rnn.HybridSequentialRNNCell()
+            cin = c
+            for h in CONV_HIDDEN:
+                self.cells.add(crnn.Conv2DLSTMCell(
+                    (cin, g, g), h, CONV_KERNEL, CONV_KERNEL,
+                    i2h_pad=CONV_KERNEL // 2, device=dev))
+                cin = h
+            self.head = gnn.Conv2D(c, 1, in_channels=cin, device=dev)
+
+        def forward(self, clip):
+            outs, _ = self.cells.unroll(clip.shape[1], clip, layout="NTC")
+            return self.head(outs[-1])
+
+    return NextFrame()
+
+
+def conv_lstm_init(torch, net):
+    """Xavier (magnitude 2.5, as ``examples/convlstm_video.py``) from a
+    seeded generator, as a numpy dict under the net's names."""
+    from mxnet_tpu_torch import initializer
+    from mxnet_tpu_torch.gluon import initialize
+    initialize(net, initializer.Xavier(magnitude=2.5), force_reinit=True,
+               generator=torch.Generator().manual_seed(14))
+    return {n: p.detach().cpu().numpy().copy()
+            for n, p in net.named_parameters()}
+
+
+def cells_conv(torch, np, K, dev, smi):
+    """Phase 16c: the ConvLSTM (``conv_lstm``) trained with RMSProp
+    through ``compile_step`` in turns against the eager loop
+    (CONV_STEPS steps on one batch, under ``cudnn.deterministic``: the
+    replays bit-equal to the body runs), a falling loss, one step's
+    gradients at CONV_GRAD_BATCH against a CPU copy, the step's ms and
+    frames/s; then Conv1DGRUCell and Conv3DRNNCell steps against CPU
+    copies. Returns (the init dict, the batch) for (d)."""
+    from mxnet_tpu_torch.gluon import Trainer
+    from mxnet_tpu_torch.gluon.contrib import rnn as crnn
+    from mxnet_tpu_torch.gluon.loss import SigmoidBinaryCrossEntropyLoss
+    from mxnet_tpu_torch.gluon.params import load_jax_params
+
+    clips = moving_squares(np, np.random.RandomState(15), CONV_BATCH)
+    x, y = clips[:, :CONV_FRAMES], clips[:, CONV_FRAMES]
+    xt, yt = torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev)
+    loss_fn = SigmoidBinaryCrossEntropyLoss()
+    net = conv_lstm(torch, dev)
+    init = conv_lstm_init(torch, net)
+    made = [net]
+    del net
+
+    def build():
+        net = made.pop() if made else conv_lstm(torch, dev)
+        load_jax_params(net, init)
+        net.train()
+        return net, Trainer(dict(net.named_parameters()), "rmsprop",
+                            dict(RMSPROP)), loss_fn
+
+    frames = CONV_BATCH * CONV_FRAMES
+    turns, (net, _, _), gated = train_turns(
+        torch, K, build, xt, yt, CONV_STEPS, frames, exact=True,
+        unit="frames")
+    losses, step_ms, per_step, counts = gated
+    losses_ok = all(math.isfinite(v) for v in losses) and \
+        losses[-1] < losses[0]
+    launches_ok = all(not any(s.values()) for s in per_step)
+    cpu_net = copy_to_cpu(lambda: conv_lstm(torch, "cpu"), net,
+                          load_jax_params)
+    t0 = time.perf_counter()
+    grads = grad_check(torch, net, cpu_net, loss_fn, x[:CONV_GRAD_BATCH],
+                       y[:CONV_GRAD_BATCH])
+    grad_s = time.perf_counter() - t0
+    del cpu_net, net
+    med = statistics.median(step_ms[1:])
+    report = {
+        "model": "ConvLSTM (3 x Conv2DLSTMCell) + 1x1 Conv2D head",
+        "source": "Shi et al. 2015, arXiv:1506.04214 §4.1",
+        "hidden": list(CONV_HIDDEN), "kernel": CONV_KERNEL,
+        "input": [CONV_PATCH ** 2, CONV_SIZE // CONV_PATCH,
+                  CONV_SIZE // CONV_PATCH],
+        "frames_in": CONV_FRAMES, "batch": CONV_BATCH,
+        "reduced": ["one predicted frame (the paper: ten)",
+                    "moving squares, not Moving MNIST digits"],
+        "optimizer": dict(RMSPROP, name="rmsprop"), "steps": CONV_STEPS,
+        "losses": losses, "step_ms": step_ms, "median_step_ms": med,
+        "frames_per_s": frames / (med / 1e3), "launches": counts,
+        "grad_check": dict(grads, batch=CONV_GRAD_BATCH, seconds=grad_s),
+        "cudnn.deterministic": torch.backends.cudnn.deterministic,
+        "captured_vs_eager": turns, "card": smi,
+        "ok": losses_ok and launches_ok and grads["ok"] and turns["ok"]}
+    emit({"cells_convlstm": report})
+    if not report["ok"]:
+        raise SystemExit(f"phase 16c failed: {report}")
+
+    rows = []
+    for what, make, shape in (
+            ("Conv1DGRUCell", lambda d: crnn.Conv1DGRUCell(
+                (16, 64), 32, 3, 3, i2h_pad=1, device=d), (16, 16, 64)),
+            ("Conv3DRNNCell", lambda d: crnn.Conv3DRNNCell(
+                (8, 8, 16, 16), 16, 3, 3, i2h_pad=1, device=d),
+             (4, 8, 8, 16, 16))):
+        cell = make(dev)
+        cpu = copy_to_cpu(lambda: make("cpu"), cell, load_jax_params)
+        rs = np.random.RandomState(16)
+        xs = torch.from_numpy(rs.randn(*shape).astype(np.float32))
+        st = [torch.from_numpy(rs.randn(*i["shape"]).astype(np.float32))
+              for i in cell.state_info(shape[0])]
+        with torch.no_grad():
+            out, nst = cell(xs.to(dev), [s.to(dev) for s in st])
+            torch.cuda.synchronize()
+            ref, rst = cpu(xs, st)
+        checks = [compare(torch, a.cpu(), b, *TOLS["float32"])
+                  for a, b in zip([out] + nst, [ref] + rst)]
+        rows.append({"what": what, "input": list(shape),
+                     "max_abs_err": max(c[1] for c in checks),
+                     "tol": TOLS["float32"], "card": smi,
+                     "ok": all(c[0] for c in checks)})
+    emit({"cells_conv_steps": rows})
+    if not all(r["ok"] for r in rows):
+        raise SystemExit(f"phase 16c's conv cell steps failed: {rows}")
+    return init
+
+
+def cells_estimator(torch, np, dev, smi, init):
+    """Phase 16d: ``Estimator.fit`` on (c)'s ConvLSTM (RMSProp) over
+    ESTIMATOR_EPOCHS epochs of ESTIMATOR_BATCHES batches with
+    ``CheckpointHandler(save_trainer_states=True)``,
+    ``ValidationHandler`` and ``EarlyStoppingHandler``; then a new net,
+    trainer and Estimator with ``resume_from_checkpoint=True`` for one
+    more epoch, held bit for bit against an uninterrupted run of
+    ESTIMATOR_EPOCHS + 1 epochs. The checkpoint directory is removed at
+    the end."""
+    import shutil
+    from mxnet_tpu_torch import metric
+    from mxnet_tpu_torch.gluon import Trainer
+    from mxnet_tpu_torch.gluon.contrib import estimator as E
+    from mxnet_tpu_torch.gluon.loss import SigmoidBinaryCrossEntropyLoss
+    from mxnet_tpu_torch.gluon.params import load_jax_params
+
+    rs = np.random.RandomState(17)
+
+    def batches(n):
+        out = []
+        for _ in range(n):
+            c = moving_squares(np, rs, CONV_BATCH)
+            out.append((torch.from_numpy(c[:, :CONV_FRAMES]).to(dev),
+                        torch.from_numpy(c[:, CONV_FRAMES]).to(dev)))
+        return out
+
+    train, val = batches(ESTIMATOR_BATCHES), batches(1)
+    shutil.rmtree(CELLS_CKPT_DIR, ignore_errors=True)
+
+    def estimator():
+        net = conv_lstm(torch, dev)
+        load_jax_params(net, init)
+        tr = Trainer(dict(net.named_parameters()), "rmsprop", dict(RMSPROP))
+        return net, E.Estimator(net, SigmoidBinaryCrossEntropyLoss(),
+                                train_metrics=[], trainer=tr)
+
+    def fit(est, epochs, ckpt):
+        val_loss = metric.Loss("val_loss")
+        stop = E.EarlyStoppingHandler(val_loss, patience=ESTIMATOR_EPOCHS + 1)
+        handlers = [E.ValidationHandler(
+            val, lambda v: est.evaluate(v, [val_loss])), stop]
+        if ckpt is not None:
+            handlers.append(ckpt)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        est.fit(train, epochs=epochs, event_handlers=handlers)
+        torch.cuda.synchronize()
+        return {"epochs": epochs, "s": time.perf_counter() - t0,
+                "train_loss": est.train_loss_metric.get()[1],
+                "val_loss": val_loss.get()[1],
+                "stopped_early": stop.stop_training}
+
+    try:
+        _, est = estimator()
+        first = fit(est, ESTIMATOR_EPOCHS, E.CheckpointHandler(
+            CELLS_CKPT_DIR, save_trainer_states=True))
+        resumed_net, est = estimator()
+        ck = E.CheckpointHandler(CELLS_CKPT_DIR, save_trainer_states=True,
+                                 resume_from_checkpoint=True)
+        resumed = fit(est, 1, ck)
+        whole_net, est = estimator()
+        whole = fit(est, ESTIMATOR_EPOCHS + 1, None)
+        files = sorted(os.listdir(CELLS_CKPT_DIR))
+    finally:
+        shutil.rmtree(CELLS_CKPT_DIR, ignore_errors=True)
+    equal = all(bool(torch.equal(a, b)) for a, b in
+                zip(resumed_net.parameters(), whole_net.parameters()))
+    report = {"model": "phase 16c's ConvLSTM", "batches": ESTIMATOR_BATCHES,
+              "batch": CONV_BATCH, "first": first, "resumed": resumed,
+              "uninterrupted": whole, "resumed_epoch": ck.current_epoch,
+              "files": files, "resumed_bit_equal": equal, "card": smi,
+              "ok": equal and ck.current_epoch == ESTIMATOR_EPOCHS + 1
+              and not whole["stopped_early"]}
+    emit({"cells_estimator": report})
+    if not report["ok"]:
+        raise SystemExit(f"phase 16d failed: {report}")
+
+
+def layer_case(torch, what, make, shapes, dev, smi, backward=False,
+               seed=18):
+    """One layer at a realistic size on the card against its CPU copy:
+    the forward within TOLS float32 of each element, and with
+    ``backward`` the gradients of the input and the parameters of a
+    weighted sum within GRAD_ATOL + GRAD_RTOL x the tensor's largest
+    (phase 6's gradient bound: a gradient summed over thousands of rows,
+    a Dense weight's or a norm's gamma, carries float32 rounding of the
+    whole sum in its small elements); the forward's device ms by graph
+    replay."""
+    from mxnet_tpu_torch.gluon.params import load_jax_params
+    layer = make(dev)
+    if list(layer.parameters()):
+        g = torch.Generator().manual_seed(seed)
+        load_jax_params(layer, {n: (torch.randn(p.shape, generator=g)
+                                    * 0.5 + 1.0).numpy()
+                                for n, p in layer.named_parameters()})
+    cpu = make("cpu")
+    if list(layer.parameters()):
+        load_jax_params(cpu, {n: p.detach().cpu().numpy()
+                              for n, p in layer.named_parameters()})
+    g = torch.Generator().manual_seed(seed + 1)
+    xs = [torch.randn(s, generator=g) * 2 + 0.5 for s in shapes]
+    outs = []
+    for m, d in ((layer, dev), (cpu, torch.device("cpu"))):
+        xd = [t.to(d).requires_grad_(backward) for t in xs]
+        y = m(*xd)
+        rec = [y.detach()]
+        if backward:
+            dy = torch.randn(y.shape, generator=torch.Generator()
+                             .manual_seed(seed + 2)).to(d)
+            (y * dy).sum().backward()
+            rec += [t.grad for t in xd] + [p.grad for p in m.parameters()
+                                           if p.grad is not None]
+        outs.append(rec)
+    fwd = compare(torch, outs[0][0].cpu(), outs[1][0], *TOLS["float32"])
+    grad_ratio = 0.0
+    for a, b in zip(outs[0][1:], outs[1][1:]):
+        err = float((a.cpu().double() - b.double()).abs().max())
+        grad_ratio = max(grad_ratio, err / (GRAD_ATOL + GRAD_RTOL
+                                            * float(b.abs().max())))
+    with torch.no_grad():
+        xd = [t.to(dev) for t in xs]
+        ms, eager_ms = time_ms(torch, layer, [xd], iters=10)
+    return {"what": what, "shapes": [list(s) for s in shapes],
+            "fwd_ms": ms, "fwd_eager_ms": eager_ms, "fwd_max_abs_err": fwd[1],
+            "fwd_tol": TOLS["float32"], "grads": len(outs[0]) - 1,
+            "grad_err_over_bound": grad_ratio,
+            "grad_bound": [GRAD_ATOL, GRAD_RTOL], "card": smi,
+            "ok": fwd[0] and grad_ratio <= 1.0}
+
+
+def cells_layers(torch, dev, smi):
+    """Phase 16e: GroupNorm(32) at Wu & He 2018's ResNet-50 setting,
+    InstanceNorm, ESPCN's PixelShuffle2D(3), the activation layers and a
+    HybridConcatenate of two Dense(768), each against a CPU copy."""
+    from mxnet_tpu_torch.gluon import nn as gnn
+    from mxnet_tpu_torch.gluon.contrib import nn as cnn
+
+    def concat(d):
+        c = gnn.HybridConcatenate()
+        c.add(gnn.Dense(CONCAT_UNITS, in_units=CONCAT_UNITS, device=d),
+              gnn.Dense(CONCAT_UNITS, in_units=CONCAT_UNITS, device=d))
+        return c
+
+    cases = [
+        (f"GroupNorm({GN_GROUPS})", lambda d: gnn.GroupNorm(
+            GN_GROUPS, in_channels=GN_SHAPE[1], device=d), [GN_SHAPE], True),
+        ("InstanceNorm", lambda d: gnn.InstanceNorm(
+            in_channels=IN_SHAPE[1], device=d), [IN_SHAPE], True),
+        (f"PixelShuffle2D({PS_FACTOR})",
+         lambda d: cnn.PixelShuffle2D(PS_FACTOR), [PS_SHAPE], False),
+        ("PReLU", lambda d: gnn.PReLU(device=d), [ACT_SHAPE], True),
+        ("ELU", lambda d: gnn.ELU(), [ACT_SHAPE], True),
+        ("SELU", lambda d: gnn.SELU(), [ACT_SHAPE], True),
+        ("GELU(erf)", lambda d: gnn.GELU(), [ACT_SHAPE], True),
+        ("GELU(tanh)", lambda d: gnn.GELU("tanh"), [ACT_SHAPE], True),
+        ("Swish", lambda d: gnn.Swish(), [ACT_SHAPE], True),
+        ("LeakyReLU", lambda d: gnn.LeakyReLU(0.1), [ACT_SHAPE], True),
+        (f"HybridConcatenate(Dense({CONCAT_UNITS}) x 2)", concat,
+         [(CONCAT_ROWS, CONCAT_UNITS)], True),
+    ]
+    rows = []
+    for what, make, shapes, backward in cases:
+        rows.append(layer_case(torch, what, make, shapes, dev, smi,
+                               backward))
+        torch.cuda.empty_cache()
+    emit({"cells_layers": rows})
+    if not all(r["ok"] for r in rows):
+        raise SystemExit(f"phase 16e failed: "
+                         f"{[r for r in rows if not r['ok']]}")
+
+
+def cells_phase(torch, np, K, dev, smi):
+    """Phase 16: (a) the cell-built LM, (b) the step loop, (c) ConvLSTM
+    and (d) the Estimator (both under ``cudnn.deterministic``, restored
+    after), (e) the layers. Returns (a)'s launches, counted from 0 just
+    before its gated steps."""
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    lm = cells_lm(torch, np, K, dev, smi)
+    torch.cuda.empty_cache()
+    cells_loop(torch, np, K, dev, smi)
+    torch.cuda.empty_cache()
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        init = cells_conv(torch, np, K, dev, smi)
+        torch.cuda.empty_cache()
+        cells_estimator(torch, np, dev, smi, init)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    torch.cuda.empty_cache()
+    cells_layers(torch, dev, smi)
+    torch.cuda.empty_cache()
+    emit({"cells_phase_s": time.perf_counter() - t0, "card": smi})
+    return lm
+
+
 #: --kernel-times: the kernels' shapes, each on its path (the flash
 #: forward served and in BERT training; the long-sequence backward's dq
 #: and dkv at phase 7's; the LM's LSTM layer; decode_wide's step)
@@ -7323,6 +8092,13 @@ def main(argv):
                                      "kind": torch.cuda.get_device_name(0),
                                      "count": torch.cuda.device_count()}})
         return 0
+    if "--cells" in argv:
+        cells_phase(torch, np, K, dev, smi)
+        print(smi, flush=True)
+        emit({"ok": True, "device": {"platform": "gpu",
+                                     "kind": torch.cuda.get_device_name(0),
+                                     "count": torch.cuda.device_count()}})
+        return 0
     if "--opt" in argv:
         # kernel 12 alone: its checks, its times, the two whole updates
         time_opt_kernel(torch, KO, check_opt_kernel(torch, KO, dev))
@@ -7409,6 +8185,8 @@ def main(argv):
     resnet = resnet_phase(torch, np, K, dev, smi, "--profile" in argv)
     torch.cuda.empty_cache()
     surface = surface_phase(torch, np, K, dev, smi, "--profile" in argv)
+    torch.cuda.empty_cache()
+    cells = cells_phase(torch, np, K, dev, smi)
     if torch.cuda.device_count() >= 2:
         zero_train_multi(torch, np, smi)
         zero_overlap(torch, np, smi)
@@ -7459,13 +8237,16 @@ def main(argv):
     emit({"launch_counts": launches, "bf16_launch_counts": bf16_launches,
           "dist_kv_launch_counts": {n: c for n, c in dist_kv.items() if c},
           "resnet_launch_counts": resnet_launches,
-          "surface_launch_counts": surface})
+          "surface_launch_counts": surface,
+          "cells_launch_counts": {n: c for n, c in cells.items() if c}})
     if not all(n > 0 for n in launches.values()) or \
+            not all(cells[n] > 0 for n in ("rnn_scan_fwd",
+                                           "rnn_scan_bwd")) or \
             not all(n > 0 for n in bf16_launches.values()) or \
             not all(c.get("opt_update", 0) > 0
                     for c in resnet_launches.values()):
         raise SystemExit(f"a kernel never launched on its path: {launches}"
-                         f" {bf16_launches} {resnet_launches}")
+                         f" {bf16_launches} {resnet_launches} {cells}")
     rows = []
     for name, info in K.KERNELS.items():
         # the float32 path's numbers; the bf16 ones beside them
@@ -7492,6 +8273,9 @@ def main(argv):
                 ["opt_update"],
                 resnet50_bf16_launches=resnet_launches[
                     "resnet50_training_bf16"]["opt_update"])
+        if name in ("rnn_scan_fwd", "rnn_scan_bwd"):
+            rows[-1].update(cells_launches=cells[name],
+                            cells_path="cell_lm_training")
     print(smi, flush=True)
     emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu",

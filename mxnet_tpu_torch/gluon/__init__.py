@@ -1,11 +1,12 @@
 """Gluon layers, models, losses and the Trainer (counterpart of
 ``mxnet_tpu/gluon``) as ``torch.nn.Module``s."""
-from . import block, data, loss, model_zoo, nn, params, rnn
+from . import block, contrib, data, loss, model_zoo, nn, params, rnn
 from .block import initialize, load_dict, load_parameters, save_parameters
 from .fused_step import CompiledTrainStep, TrainLoop
 from .gqa_decoder import GQADecoder
 from .trainer import Trainer
 
-__all__ = ["block", "data", "loss", "model_zoo", "nn", "params", "rnn", "Trainer",
+__all__ = ["block", "contrib", "data", "loss", "model_zoo", "nn", "params",
+           "rnn", "Trainer",
            "CompiledTrainStep", "TrainLoop", "GQADecoder",
            "save_parameters", "load_parameters", "load_dict", "initialize"]

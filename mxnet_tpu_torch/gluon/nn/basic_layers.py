@@ -1,7 +1,10 @@
 """Basic layers (counterpart of ``mxnet_tpu/gluon/nn/basic_layers.py``):
 ``Sequential``, ``HybridSequential``, ``Dense``, ``Dropout``,
 ``Embedding``, ``BatchNorm``, ``BatchNormReLU``, ``LayerNorm``,
-``Flatten``, ``Activation`` and ``Identity`` as ``nn.Module``s.
+``GroupNorm``, ``InstanceNorm``, ``Flatten``, ``Activation``,
+``LeakyReLU``, ``PReLU``, ``ELU``, ``SELU``, ``GELU``, ``Swish`` /
+``SiLU``, ``Lambda``, ``HybridLambda``, ``Identity``, ``Concatenate``
+and ``HybridConcatenate`` as ``nn.Module``s (all but ``SyncBatchNorm``).
 
 Parameter names and layouts are the JAX package's, so a dict of its
 ``collect_params()`` loads as it is (``gluon.params.load_jax_params``):
@@ -12,7 +15,14 @@ Parameter names and layouts are the JAX package's, so a dict of its
 added. ``Dense``, ``BatchNorm`` and ``LayerNorm`` run their op through
 the op funnel (``ops/registry.py``) as ``"fully_connected"``,
 ``"batch_norm"`` and ``"layer_norm"``, the names under which ``amp``
-casts them.
+casts them; the normalisations and activations added since funnel as
+the JAX package's ``"group_norm"``, ``"instance_norm"``,
+``"leaky_relu"``, ``"prelu"``, ``"elu"``, ``"selu"`` and ``"gelu"``
+(``"gelu_tanh"`` for ``GELU("tanh")``).
+
+``GELU`` takes MXNet's ``approximation`` ("erf" or "tanh"); the JAX
+package's ``GELU`` ignores it and always takes the erf form
+(``ROADMAP.md`` §3, a divergence of the reference).
 
 Every layer takes ``device`` (default ``cuda:0``; without CUDA the
 constructor raises unless ``device="cpu"``) and an optional
@@ -66,8 +76,11 @@ from ...ops import nn as FNN
 from ...ops.registry import invoke
 
 __all__ = ["Sequential", "HybridSequential", "Dense", "Dropout",
-           "Embedding", "BatchNorm", "BatchNormReLU", "LayerNorm", "Flatten",
-           "Activation", "Identity", "activation", "init_param",
+           "Embedding", "BatchNorm", "BatchNormReLU", "LayerNorm",
+           "GroupNorm", "InstanceNorm", "Flatten", "Activation", "LeakyReLU",
+           "PReLU", "ELU", "SELU", "GELU", "Swish", "SiLU", "Lambda",
+           "HybridLambda", "Identity", "Concatenate", "HybridConcatenate",
+           "activation", "dropout", "keep_mask", "init_param",
            "set_grad_req", "GRAD_REQS", "note_draw", "note_writes",
            "recording_draws", "draws_off", "drawing"]
 
@@ -151,6 +164,21 @@ def _note(module, generator, writes):
                 None if generator is None else generator.get_state(),
                 tuple((t, t.detach().clone()) for t in writes)
                 if snapshot else ())
+
+
+def keep_mask(like, rate: float, generator: Optional[torch.Generator]):
+    """A boolean mask of ``like``'s shape, each element True with
+    probability 1 - ``rate`` (drawn from ``generator``)."""
+    return torch.bernoulli(
+        torch.full(like.shape, 1.0 - rate, device=like.device),
+        generator=generator).to(torch.bool)
+
+
+def dropout(x, rate: float, generator: Optional[torch.Generator]):
+    """Inverted dropout: ``x / (1 - rate)`` where :func:`keep_mask`
+    keeps, 0 elsewhere."""
+    return torch.where(keep_mask(x, rate, generator), x / (1.0 - rate),
+                       torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 def activation(x, act_type: str):
@@ -305,11 +333,7 @@ class Dropout(nn.Module):
         note_draw(self, self._generator)
         if self._rate == 0 or not drawing(self):
             return x
-        keep = torch.bernoulli(
-            torch.full(x.shape, 1.0 - self._rate, device=x.device),
-            generator=self._generator).to(torch.bool)
-        return torch.where(keep, x / (1.0 - self._rate),
-                           torch.zeros((), dtype=x.dtype, device=x.device))
+        return dropout(x, self._rate, self._generator)
 
 
 class Embedding(nn.Module):
@@ -463,3 +487,195 @@ class Activation(nn.Module):
 class Identity(nn.Module):
     def forward(self, x):
         return x
+
+
+class _Norm(nn.Module):
+    """``gamma`` / ``beta`` a channel, frozen (``grad_req="null"``) at 1
+    / 0 with ``scale=False`` / ``center=False``."""
+
+    def __init__(self, what, epsilon, center, scale, beta_initializer,
+                 gamma_initializer, in_channels, device):
+        super().__init__()
+        if in_channels <= 0:
+            raise MXNetError(f"{what} needs in_channels (shapes are not "
+                             "inferred at the first call)")
+        dev = resolve_device(device)
+        self._eps = epsilon
+        c = (in_channels,)
+        self.gamma = _param("gamma", c, dev, gamma_initializer,
+                            grad_req="write" if scale else "null")
+        self.beta = _param("beta", c, dev, beta_initializer,
+                           grad_req="write" if center else "null")
+
+
+class GroupNorm(_Norm):
+    """GroupNorm over ``num_groups`` groups of axis 1's channels
+    (``ops.nn.group_norm``: float32 statistics, the output in x's
+    dtype)."""
+
+    def __init__(self, num_groups: int = 1, epsilon: float = 1e-5,
+                 center: bool = True, scale: bool = True,
+                 beta_initializer="zeros", gamma_initializer="ones",
+                 in_channels: int = 0, device=None):
+        super().__init__("GroupNorm", epsilon, center, scale,
+                         beta_initializer, gamma_initializer, in_channels,
+                         device)
+        self._ngroups = num_groups
+
+    def forward(self, x):
+        return invoke("group_norm", self._norm, x, self.gamma, self.beta)
+
+    def _norm(self, x, gamma, beta):
+        return FNN.group_norm(x, gamma, beta, self._ngroups, self._eps)
+
+
+class InstanceNorm(_Norm):
+    """InstanceNorm: each sample's channel ``axis`` normalised over the
+    other axes but the batch's (``ops.nn.instance_norm``). ``scale``
+    defaults to False (gamma frozen at 1), as in the JAX package."""
+
+    def __init__(self, axis: int = 1, epsilon: float = 1e-5,
+                 center: bool = True, scale: bool = False,
+                 beta_initializer="zeros", gamma_initializer="ones",
+                 in_channels: int = 0, device=None):
+        super().__init__("InstanceNorm", epsilon, center, scale,
+                         beta_initializer, gamma_initializer, in_channels,
+                         device)
+        self._axis = axis
+
+    def forward(self, x):
+        if self._axis != 1:
+            x = x.transpose(1, self._axis)
+        out = invoke("instance_norm", self._norm, x, self.gamma, self.beta)
+        if self._axis != 1:
+            out = out.transpose(1, self._axis)
+        return out
+
+    def _norm(self, x, gamma, beta):
+        return FNN.instance_norm(x, gamma, beta, self._eps)
+
+
+def _leaky(x, slope):
+    return torch.where(x > 0, x, slope * x)
+
+
+class LeakyReLU(nn.Module):
+    """``x`` where positive, ``alpha * x`` elsewhere."""
+
+    def __init__(self, alpha: float = 0.01):
+        super().__init__()
+        self._alpha = alpha
+
+    def forward(self, x):
+        return invoke("leaky_relu", functools.partial(
+            _leaky, slope=self._alpha), x)
+
+
+class PReLU(nn.Module):
+    """LeakyReLU with a learned slope ``alpha`` (``in_channels`` values,
+    broadcast against x's last axis; 0.25 each unless
+    ``alpha_initializer`` says otherwise)."""
+
+    def __init__(self, alpha_initializer="constant", in_channels: int = 1,
+                 device=None):
+        super().__init__()
+        dev = resolve_device(device)
+        init = initializer.Constant(0.25) \
+            if alpha_initializer == "constant" else alpha_initializer
+        self.alpha = _param("alpha", (in_channels,), dev, init)
+
+    def forward(self, x):
+        return invoke("prelu", _leaky, x, self.alpha)
+
+
+class ELU(nn.Module):
+    """``x`` where positive, ``alpha * (exp(x) - 1)`` elsewhere."""
+
+    def __init__(self, alpha: float = 1.0):
+        super().__init__()
+        self._alpha = alpha
+
+    def forward(self, x):
+        return invoke("elu", functools.partial(F.elu, alpha=self._alpha), x)
+
+
+class SELU(nn.Module):
+    """The scaled ELU of Klambauer et al. 2017."""
+
+    def forward(self, x):
+        return invoke("selu", torch.selu, x)
+
+
+class GELU(nn.Module):
+    """GELU, ``approximation`` "erf" (exact) or "tanh" (MXNet's meaning;
+    module docstring)."""
+
+    def __init__(self, approximation: str = "erf"):
+        super().__init__()
+        if approximation not in ("erf", "tanh"):
+            raise MXNetError("GELU approximation must be 'erf' or 'tanh', "
+                             f"got {approximation!r}")
+        self._approx = approximation
+
+    def forward(self, x):
+        if self._approx == "tanh":
+            return invoke("gelu_tanh", _ACTIVATIONS["gelu_tanh"], x)
+        return invoke("gelu", F.gelu, x)
+
+
+class Swish(nn.Module):
+    """``x * sigmoid(beta * x)``."""
+
+    def __init__(self, beta: float = 1.0):
+        super().__init__()
+        self._beta = beta
+
+    def forward(self, x):
+        return x * torch.sigmoid(self._beta * x)
+
+
+SiLU = Swish
+
+
+def _function(function):
+    """A callable, or the op a name gives: the port's ``ndarray`` ops
+    first, then torch's."""
+    if not isinstance(function, str):
+        return function
+    from ... import ndarray
+    fn = getattr(ndarray, function, None) or getattr(torch, function, None)
+    if fn is None:
+        raise MXNetError(f"Lambda: no op named {function!r}")
+    return fn
+
+
+class Lambda(nn.Module):
+    """A function (or the name of an op) as a layer."""
+
+    def __init__(self, function):
+        super().__init__()
+        self._func = _function(function)
+
+    def forward(self, *args):
+        return self._func(*args)
+
+
+class HybridLambda(Lambda):
+    """:class:`Lambda` (the port has one kind of block)."""
+
+
+class Concatenate(Sequential):
+    """Children run on the same input; their outputs concatenated on
+    ``axis``."""
+
+    def __init__(self, axis: int = -1):
+        super().__init__()
+        self._axis = axis
+
+    def forward(self, x):
+        return torch.cat([block(x) for block in self._modules.values()],
+                         dim=self._axis)
+
+
+class HybridConcatenate(Concatenate):
+    """:class:`Concatenate` (the port has one kind of block)."""

@@ -1,13 +1,14 @@
 """Layer ops (counterpart of ``mxnet_tpu/ops/nn.py``): ``layer_norm``,
 the fully-connected product, the softmaxes, and the convolutional path's
 ``conv``, ``pool``, ``global_pool``, ``batch_norm_train`` and
-``batch_norm_infer``.
+``batch_norm_infer``; ``group_norm`` and ``instance_norm``.
 
 :func:`softmax` and :func:`log_softmax` go through the op funnel
 (``ops/registry.py``) under the JAX package's names, as its
 ``F.softmax`` / ``F.log_softmax`` do; the others are the bodies the
 layers funnel (``"fully_connected"``, ``"layer_norm"``,
-``"convolution"``, ``"pooling"``, ``"global_pool"``, ``"batch_norm"``).
+``"convolution"``, ``"pooling"``, ``"global_pool"``, ``"batch_norm"``,
+``"group_norm"``, ``"instance_norm"``).
 
 The JAX package computes convolutions and pooling with XLA's
 ``conv_general_dilated`` and ``reduce_window``, outside any Pallas
@@ -25,7 +26,8 @@ from .kernels import norm as _knorm
 from .registry import invoke
 
 __all__ = ["layer_norm", "linear", "softmax", "log_softmax", "conv", "pool",
-           "global_pool", "batch_norm_train", "batch_norm_infer"]
+           "global_pool", "batch_norm_train", "batch_norm_infer", "group_norm",
+           "instance_norm"]
 
 
 def _promoted(*ts):
@@ -254,3 +256,42 @@ def batch_norm_train(x, gamma, beta, eps: float):
                        eps=eps)
     # a new tensor: autograd checks the buffers it saved are unchanged
     return out, mean, var * ((n - 1) / n)
+
+
+def _affine(out, x, gamma, beta):
+    """``out * gamma + beta`` over axis 1, in x's dtype."""
+    g, b = _stat_params(x, gamma, beta)
+    shape = (1, x.shape[1]) + (1,) * (x.ndim - 2)
+    return (out * g.reshape(shape) + b.reshape(shape)).to(x.dtype)
+
+
+def _normalised(xf, axes, eps):
+    mean = xf.mean(dim=axes, keepdim=True)
+    d = xf - mean
+    var = (d * d).mean(dim=axes, keepdim=True)
+    return d * torch.rsqrt(var + eps)
+
+
+def group_norm(x, gamma, beta, num_groups: int, eps: float = 1e-5):
+    """GroupNorm of an (N, C, ...) x: the channels in ``num_groups``
+    groups, each (sample, group) normalised over its channels and
+    spatial positions with the biased variance, eps inside the root,
+    then ``gamma`` / ``beta`` a channel; float32 statistics, the output
+    in x's dtype (the JAX package's ``group_norm``)."""
+    n, c = x.shape[:2]
+    if c % num_groups:
+        raise MXNetError(f"group_norm: {c} channels do not divide into "
+                         f"{num_groups} groups")
+    xg = x.to(_knorm.stat_dtype(x)).reshape(
+        (n, num_groups, c // num_groups) + tuple(x.shape[2:]))
+    out = _normalised(xg, tuple(range(2, xg.ndim)), eps).reshape(x.shape)
+    return _affine(out, x, gamma, beta)
+
+
+def instance_norm(x, gamma, beta, eps: float = 1e-5):
+    """InstanceNorm of an (N, C, ...) x: each (sample, channel)
+    normalised over its spatial positions, then ``gamma`` / ``beta`` a
+    channel; float32 statistics, the output in x's dtype."""
+    xf = x.to(_knorm.stat_dtype(x))
+    return _affine(_normalised(xf, tuple(range(2, x.ndim)), eps), x, gamma,
+                   beta)

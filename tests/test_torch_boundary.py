@@ -69,7 +69,16 @@ def test_package_has_its_modules():
               "gluon/block.py", "elastic/__init__.py", "elastic/detect.py",
               "elastic/supervisor.py", "gluon/data/__init__.py",
               "gluon/data/prefetcher.py", "captured.py",
-              "serving/captured.py"):
+              "serving/captured.py", "ndarray/ops.py",
+              "gluon/rnn/rnn_cell.py", "gluon/contrib/__init__.py",
+              "gluon/contrib/rnn/__init__.py",
+              "gluon/contrib/rnn/rnn_cell.py",
+              "gluon/contrib/rnn/conv_rnn_cell.py",
+              "gluon/contrib/nn/__init__.py",
+              "gluon/contrib/nn/basic_layers.py",
+              "gluon/contrib/estimator/__init__.py",
+              "gluon/contrib/estimator/estimator.py",
+              "gluon/contrib/estimator/event_handler.py"):
         assert os.path.join("mxnet_tpu_torch", m) in rel, m
     csrc = os.listdir(os.path.join(PKG, "ops", "kernels", "csrc"))
     assert {"flash_fwd.cu", "layernorm_fwd.cu", "bias_gelu_fwd.cu",

@@ -2095,3 +2095,126 @@ def test_initialize_force_reinit_under_a_captured_predictor_on_card(
         eager = net(x)
     assert pred.n_traces == 1
     assert torch.equal(got, eager) and not torch.equal(got, first)
+
+
+def _cell_lm_on(dev, seed=3, zoneout=False):
+    """A word LM of cells (vocab 50, H 32): Embedding, two LSTMCells
+    each unrolled over the merged NTC batch (with ``zoneout``: the
+    second wrapped in a ZoneoutCell, drawing from a CUDA generator, the
+    loss resetting it first), a Dense head."""
+    from mxnet_tpu_torch.gluon import nn as gnn
+    from mxnet_tpu_torch.gluon import rnn
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from mxnet_tpu_torch.gluon.params import init_params_numpy, \
+        load_jax_params
+
+    class CellLM(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.emb = gnn.Embedding(50, 32, device=dev)
+            self.l0 = rnn.LSTMCell(32, input_size=32, device=dev)
+            self.l1 = rnn.LSTMCell(32, input_size=32, device=dev)
+            if zoneout:
+                self.l1 = rnn.ZoneoutCell(
+                    self.l1, 0.2, 0.2,
+                    generator=torch.Generator(dev).manual_seed(seed))
+            self.head = gnn.Dense(50, flatten=False, in_units=32,
+                                  device=dev)
+
+        def forward(self, x):
+            self.l1.reset()
+            h, _ = self.l0.unroll(x.shape[1], self.emb(x),
+                                  merge_outputs=True)
+            h, _ = self.l1.unroll(x.shape[1], h, merge_outputs=True)
+            return self.head(h)
+
+    net = CellLM()
+    load_jax_params(net, init_params_numpy(net, seed))
+    r = onp.random.RandomState(seed + 1)
+    x = torch.from_numpy(r.randint(0, 50, (8, 7))).to(dev)
+    y = torch.from_numpy(r.randint(0, 50, (8, 7)).astype("f4")).to(dev)
+    return net, SoftmaxCrossEntropyLoss(), x, y
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["lstm", "gru", "rnn_tanh", "rnn_relu"])
+def test_cell_unroll_launches_one_scan_each_way_on_card(cuda_dev, mode):
+    """A plain gated cell unrolled over a merged batch: one rnn_scan_fwd
+    launch, and one rnn_scan_bwd in its backward; outputs and the input
+    gradient against a CPU copy of the cell (2e-4)."""
+    from mxnet_tpu_torch.gluon import rnn
+    from mxnet_tpu_torch.gluon.params import load_jax_params
+
+    def make(dev):
+        if mode == "lstm":
+            return rnn.LSTMCell(48, input_size=24, device=dev)
+        if mode == "gru":
+            return rnn.GRUCell(48, input_size=24, device=dev)
+        return rnn.RNNCell(48, activation=mode[4:], input_size=24,
+                           device=dev)
+
+    cell = make(cuda_dev)
+    cpu = make("cpu")
+    load_jax_params(cpu, {k: p.detach().cpu().numpy()
+                          for k, p in cell.named_parameters()})
+    x = torch.randn(5, 9, 24)
+    outs = []
+    for c, dev in ((cell, cuda_dev), (cpu, torch.device("cpu"))):
+        xd = x.to(dev).requires_grad_()
+        K.reset_launch_counts()
+        y, _ = c.unroll(9, xd, merge_outputs=True)
+        fwd = dict(K.launch_counts())
+        y.sum().backward()
+        bwd = dict(K.launch_counts())
+        outs.append((y.detach().cpu(), xd.grad.cpu(), fwd, bwd))
+    assert outs[0][2]["rnn_scan_fwd"] == 1 and outs[0][2]["rnn_scan_bwd"] == 0
+    assert outs[0][3]["rnn_scan_bwd"] == 1
+    assert sum(outs[1][3].values()) == 0
+    for a, b in zip(outs[0][:2], outs[1][:2]):
+        torch.testing.assert_close(a, b, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.cuda
+def test_cell_subclass_takes_the_loop_with_no_launch_on_card(cuda_dev):
+    from mxnet_tpu_torch.gluon import rnn
+
+    class MyLSTM(rnn.LSTMCell):
+        pass
+
+    cell = MyLSTM(32, input_size=16, device=cuda_dev)
+    x = torch.randn(4, 6, 16, device=cuda_dev, requires_grad=True)
+    K.reset_launch_counts()
+    y, _ = cell.unroll(6, x, merge_outputs=True)
+    y.sum().backward()
+    assert sum(K.launch_counts().values()) == 0
+    fused = rnn.LSTMCell(32, input_size=16, device=cuda_dev)
+    fused.load_state_dict(cell.state_dict())
+    y2, _ = fused.unroll(6, x, merge_outputs=True)
+    torch.testing.assert_close(y2, y, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("zoneout", [False, True])
+def test_captured_cell_lm_step_equals_eager_on_card(cuda_dev, zoneout):
+    """A cell-built word LM through compile_step: four replays equal the
+    step's body run eagerly four times from the same state, bit for bit
+    (with a ZoneoutCell reset by the forward: its masks drawn anew each
+    replay from the registered generator), one capture; per step two
+    rnn_scan_fwd and two rnn_scan_bwd launches (one with zoneout: its
+    LSTMCell steps through the loop)."""
+    runs = []
+    for eager in (False, True):
+        net, lb, x, y = _cell_lm_on(cuda_dev, zoneout=zoneout)
+        tr, step = _compiled(net, lb, "sgd",
+                             {"learning_rate": 0.5, "momentum": 0.9})
+        step.aot_compile(x, y)
+        K.reset_launch_counts()
+        losses = [(_body_call(step, x, y) if eager else step(x, y)).cpu()
+                  for _ in range(4)]
+        counts = K.launch_counts()
+        assert step.mode == "fused" and step.n_traces == 1
+        n = 1 if zoneout else 2
+        assert counts["rnn_scan_fwd"] == counts["rnn_scan_bwd"] == 4 * n
+        runs.append((losses, [p.detach().cpu() for p in net.parameters()]))
+    for a, b in zip(runs[0][0] + runs[0][1], runs[1][0] + runs[1][1]):
+        assert torch.equal(a, b)
