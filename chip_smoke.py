@@ -11,7 +11,8 @@
     python3 chip_smoke.py --ptxas    # also: nvcc's register and spill
                                      # report of every kernel
     python3 chip_smoke.py --zero-train  # phases 1, 2 and 11 alone, on
-                                        # two or more cards
+                                        # two or more cards (with A1's
+                                        # BatchNorm leg)
     python3 chip_smoke.py --checkpoint  # phases 1, 2 and 6c alone
     python3 chip_smoke.py --elastic     # phases 1, 2 and 12 alone
     python3 chip_smoke.py --dist-kv     # phases 1, 2 and 13 alone (its
@@ -20,6 +21,8 @@
     python3 chip_smoke.py --resnet      # phases 1, 2 and 14 alone
     python3 chip_smoke.py --surface     # phases 1, 2 and 15 alone
     python3 chip_smoke.py --cells       # phases 1, 2 and 16 alone
+    python3 chip_smoke.py --fleet       # phases 1, 2 and 17 alone (17b
+                                        # on three or more cards)
     python3 chip_smoke.py --compare DIR  # A/B on one card: the flash
         # forward, the flash backward (fused at BERT training's shape;
         # dq, dkv at phase 7's), the recurrence kernels, the LayerNorm
@@ -271,7 +274,14 @@ Phases, each of which fails the run (non-zero exit) when it fails:
     -> 2, restored step 4), the run finished, its losses after the
     recovery within the spread of two uninterrupted dp-2 runs restored
     from the same checkpoint, ``downtime_s``; (d) a ``restore`` grows
-    the run back to dp 4 through a planned re-form;
+    the run back to dp 4 through a planned re-form; (e) BatchNorm over the
+    dp group (:func:`zero_batchnorm`): phase 14's resnet50_v1 on its 128 x
+    224 x 224 images split over the ranks, three plain-SGD steps through
+    ``compile_step``'s zero mode, against the same steps on one card:
+    losses, every step's gradients and the running statistics within
+    their stated tolerances, the running statistics bit-identical on
+    every rank; the same steps with each rank's own statistics (the
+    BatchNorm before this repair) printed beside them;
 12. one card: the in-process ``ElasticSupervisor`` on phase 6's
     BERT-base recovering from ``step.dispatch:before=4:error``
     (``transient``: one event, restored step 2, losses within the spread
@@ -389,13 +399,39 @@ Phases, each of which fails the run (non-zero exit) when it fails:
     256), PixelShuffle2D(3) on (1, 9, 224, 224), the activation layers
     on (4096, 3072) and a HybridConcatenate of two Dense(768), forward
     and backward against CPU copies (1e-4 + 1e-4 |ref|) with their ms.
+17. serving resilience and the fleet, BERT-base at phase 4's widths and
+    traffic (rows from a pool of FLEET_POOL, so a float32 CPU copy answers
+    every row): (a) one card, float32 and bf16: a ``ServingSupervisor``
+    under a ``serving.dispatch`` transient fault (retried in place, no
+    request lost, 12 ``flash_fwd`` + 25 ``layernorm_fwd`` a micro-batch),
+    an open loop at twice the closed loop's req/s with a per-request
+    deadline (every request ok, rejected or deadline_missed; goodput), an
+    open breaker failing submit fast, a drain under traffic (every
+    accepted request finishes), a one-replica ``FleetController``'s
+    ``swap_weights`` from a ``TrainCheckpointManager`` checkpoint of
+    another seeded BERT-base (bit-equal to a fresh predictor on those
+    weights, ``n_traces`` unchanged, a corrupted copy aborting typed with
+    the weights still answering bit for bit); (b) three or more cards (in
+    the default run, as phase 11): a fleet with one replica on each card
+    but the last, a burst with ``serving.dispatch@replica-1`` revoking
+    its card (simulated: the card stays healthy) mid-traffic: no request
+    lost or hung, one failover and one restart onto the spare card, every
+    answer within 2e-4 of the CPU copy, each replica's outputs and
+    captured programs on its card, the time to recover and req/s before,
+    during and after, rows 1 and 5 a card; then a rolling
+    ``swap_weights`` under traffic (none dropped, at most one version of
+    skew, each answer against the CPU copy of its ``fut.version``,
+    ``n_traces`` unchanged); with two or more cards, the float32 fused
+    flash backward launched on cuda:0 then cuda:1 from one process.
 
 ``{"launch_counts": {...}, "bf16_launch_counts": {...},
 "dist_kv_launch_counts": {...}, "resnet_launch_counts": {...},
-"surface_launch_counts": {...}, "cells_launch_counts": {...}}`` gives
+"surface_launch_counts": {...}, "cells_launch_counts": {...},
+"fleet_launch_counts": {...}}`` gives
 each kernel's launches on its path, on its bf16 path where it has one,
 on phase 13's one-card path, on phase 14's float32 and bf16 paths, on
-phase 15's LAMB and NAG paths and on phase 16's cell-built LM.
+phase 15's LAMB and NAG paths, on phase 16's cell-built LM and on phase
+17a's supervised float32 serving (rows 1 and 5, ``fleet_launches``).
 The line before the last is a JSON object with one entry per kernel
 (launches on its float32 path, error, times, bound; then its bf16 path,
 bf16 launches there, and its bf16 error, times and bound; ``rnn_decode``
@@ -7543,6 +7579,952 @@ def cells_phase(torch, np, K, dev, smi):
     return lm
 
 
+#: phase 17: BERT-base served through the supervisor and the fleet.
+#: Phase 4's widths and traffic (8 clients, 96 requests of 1-8 rows at
+#: sequence 128), its rows drawn from a pool of FLEET_POOL token rows so
+#: a CPU copy can answer every row of every request; buckets 1-32; the
+#: open loop at FLEET_OPEN_FACTOR times the closed loop's req/s with a
+#: deadline of FLEET_DEADLINE_FACTOR times the closed loop's p99;
+#: FLEET_SEEDS: the served weights, then the swapped-in ones; every wait
+#: bounded by FLEET_WAIT_S
+FLEET_BUCKETS = (1, 2, 4, 8, 16, 32)
+#: the kernels every fleet replica launches on its card (rows 1 and 5)
+FLEET_KERNELS = ("flash_fwd", "layernorm_fwd")
+FLEET_POOL = 48
+FLEET_OPEN_FACTOR = 2.0
+FLEET_OPEN_REQUESTS = 2 * SERVE_REQUESTS
+FLEET_DEADLINE_FACTOR = 2.0
+FLEET_SEEDS = (0, 1)
+FLEET_WAIT_S = 120.0
+FLEET_CKPT_DIR = os.path.join("build", "chip_fleet_ckpt")
+#: phase 17b's victim (its device is revoked at its second dispatch)
+FLEET_VICTIM = 1
+#: the float32 fused backward of A2: one case at BERT training's head
+#: dim, launched on cuda:0 then cuda:1 from this process
+FUSED_TWO_CARDS = (2, 12, 256, 256, 64)
+
+
+def fleet_traffic(np, vocab, seed=0):
+    """(pool, requests): FLEET_POOL token rows and SERVE_REQUESTS
+    (start, rows) slices of 1-8 consecutive pool rows."""
+    rs = np.random.RandomState(seed)
+    pool = rs.randint(0, vocab, (FLEET_POOL, SERVE_SEQ)).astype(np.int64)
+    reqs = []
+    for _ in range(SERVE_REQUESTS):
+        n = int(rs.randint(1, 9))
+        reqs.append((int(rs.randint(0, FLEET_POOL - n + 1)), n))
+    return pool, reqs
+
+
+def fleet_build(dtype, params):
+    """A supervisor's / fleet's ``build()``: BERT-base on the current
+    device (the caller's ``Context``) with ``params``, served at
+    ``dtype``."""
+    from mxnet_tpu_torch.gluon.model_zoo.bert import BERTClassifier, bert_base
+    from mxnet_tpu_torch.gluon.params import load_jax_params
+    from mxnet_tpu_torch.serving import predictor_for
+
+    def build():
+        net = BERTClassifier(bert_base(), num_classes=2)
+        load_jax_params(net, params)
+        return predictor_for(net, dtype=dtype, bucket_sizes=FLEET_BUCKETS)
+    return build
+
+
+def fleet_cpu_refs(torch, np, params, pool):
+    """Every pool row's logits from a float32 CPU copy, in eval mode."""
+    from mxnet_tpu_torch.gluon.model_zoo.bert import BERTClassifier, bert_base
+    from mxnet_tpu_torch.gluon.params import load_jax_params
+    net = BERTClassifier(bert_base(device="cpu"), num_classes=2,
+                         device="cpu")
+    load_jax_params(net, params)
+    net.eval()
+    outs = []
+    with torch.inference_mode():
+        for i in range(0, len(pool), 16):
+            outs.append(net(torch.from_numpy(pool[i:i + 16])).numpy())
+    return np.concatenate(outs)
+
+
+def fleet_answer_err(np, out, ref_rows):
+    """|logits - the CPU copy's| at most (inf for a bad shape or a
+    non-finite value)."""
+    out = np.asarray(out, dtype=np.float64)
+    if out.shape != ref_rows.shape or not np.isfinite(out).all():
+        return math.inf
+    return float(np.abs(out - ref_rows).max())
+
+
+def retrying_submit(submit, args, budget_s=FLEET_WAIT_S, **kw):
+    """A client's posture: a typed ``Overloaded`` (breaker open, fleet
+    failing over) or ``ServingShutdown`` (arrived during a failover) at
+    admission is retryable: back off and resubmit, within a budget."""
+    from mxnet_tpu_torch.serving import Overloaded, ServingShutdown
+    end = time.perf_counter() + budget_s
+    while True:
+        try:
+            return submit(*args, **kw)
+        except (Overloaded, ServingShutdown):
+            if time.perf_counter() >= end:
+                raise
+            time.sleep(0.005)
+
+
+def serving_launch_gate(counts, batches, what):
+    """Rows 1 and 5 on a served BERT-base path: exactly 12 flash_fwd and
+    25 layernorm_fwd launches a dispatched micro-batch."""
+    if counts["flash_fwd"] != 12 * batches or \
+            counts["layernorm_fwd"] != 25 * batches or batches < 1:
+        raise SystemExit(f"{what}: launches {counts} do not match 12 "
+                         f"flash_fwd and 25 layernorm_fwd a micro-batch "
+                         f"({batches} micro-batches)")
+
+
+def fleet_one_card(torch, np, K, dev, smi, dtype, params, refs, pool,
+                   reqs, ckpt):
+    """Phase 17a at ``dtype`` on one card: (1) a ServingSupervisor under a
+    ``serving.dispatch`` transient fault (retried in place, no accepted
+    request lost, rows 1 and 5 at 12 and 25 launches a micro-batch); (2)
+    an open loop at FLEET_OPEN_FACTOR x the closed loop's req/s with a
+    per-request deadline: every request ok, rejected or deadline_missed,
+    no error, no wait past FLEET_WAIT_S; (3) an open breaker fast-fails
+    submit; (4) a drain under traffic: every accepted request finishes;
+    (5) a one-replica fleet's ``swap_weights`` from ``ckpt`` (seed 1's
+    weights, written by TrainCheckpointManager): outputs bit-equal to a
+    fresh predictor built on those weights, ``n_traces`` unchanged, and a
+    corrupted copy of the checkpoint aborting typed with the swapped
+    weights still answering bit for bit. Float32 answers are held
+    against the CPU copies (``refs``: {seed: logits of every pool row})
+    within LOGIT_ATOL. Returns the supervised run's launches."""
+    import shutil
+    import threading
+    from mxnet_tpu_torch.checkpoint import CheckpointCorruptError
+    from mxnet_tpu_torch.context import Context
+    from mxnet_tpu_torch.serving import (FleetController, Overloaded,
+                                         ServingShutdown, ServingSupervisor,
+                                         loadgen)
+    from mxnet_tpu_torch.testing import faults
+    f32 = dtype == "float32"
+    report = {"dtype": dtype, "card": smi}
+    ref0 = refs[FLEET_SEEDS[0]]
+
+    def check(i, out):
+        s, n = reqs[i]
+        return fleet_answer_err(np, out, ref0[s:s + n]) if f32 else (
+            0.0 if out.shape == (n, 2) and np.isfinite(out).all()
+            else math.inf)
+
+    t0 = time.perf_counter()
+    sup = ServingSupervisor(fleet_build(dtype, params[FLEET_SEEDS[0]]),
+                            example=(pool[:1],), max_batch=SERVE_MAX_BATCH,
+                            timeout_ms=2.0, backoff_base=0.01)
+    report["supervisor_setup_s"] = time.perf_counter() - t0
+    errs = [math.inf] * SERVE_REQUESTS
+    try:
+        # (1) the supervised closed loop; the third dispatch fails once
+        faults.configure("serving.dispatch:before=3:error")
+        K.reset_launch_counts()
+
+        def issue(i):
+            s, n = reqs[i]
+            out = sup.submit(pool[s:s + n]).result(FLEET_WAIT_S)
+            errs[i] = check(i, out.float().cpu().numpy())
+
+        closed = loadgen.run_closed_loop(issue, SERVE_CLIENTS,
+                                         SERVE_REQUESTS)
+        faults.configure(None)
+        counts = K.launch_counts()
+        nb = sup.batcher.stats["batches"]
+        serving_launch_gate(counts, nb, f"phase 17a supervisor {dtype}")
+        report["supervised"] = {
+            "req_per_s": closed["requests"] / closed["wall_s"],
+            "p50_ms": closed["p50_ms"], "p99_ms": closed["p99_ms"],
+            "outcomes": closed["outcomes"], "retried": sup.stats["retried"],
+            "recoveries": sup.stats["recoveries"],
+            "failed_requeues": sup.stats["failed_requeues"],
+            "micro_batches": nb, "launches": {
+                k: counts[k] for k in ("flash_fwd", "layernorm_fwd")},
+            "max_abs_err_vs_cpu": max(errs) if f32 else None,
+            "atol": LOGIT_ATOL if f32 else None}
+        if closed["outcomes"]["ok"] != SERVE_REQUESTS or \
+                sup.stats["retried"] < 1 or sup.stats["recoveries"] or \
+                sup.stats["failed_requeues"] or \
+                max(errs) > (LOGIT_ATOL if f32 else 0.0):
+            raise SystemExit(f"phase 17a supervisor {dtype}: {report}")
+        # (2) the open loop at twice the closed loop's rate, deadlines on
+        rate = FLEET_OPEN_FACTOR * closed["requests"] / closed["wall_s"]
+        deadline_ms = FLEET_DEADLINE_FACTOR * closed["p99_ms"]
+
+        def submit(i):
+            s, n = reqs[i % SERVE_REQUESTS]
+            return sup.submit(pool[s:s + n], deadline_ms=deadline_ms).result
+
+        opened = loadgen.run_open_loop(submit, rate, FLEET_OPEN_REQUESTS,
+                                       seed=1, timeout=FLEET_WAIT_S,
+                                       deadline_s=deadline_ms / 1e3)
+        report["open_loop"] = {
+            "rate_qps": rate, "deadline_ms": deadline_ms,
+            "outcomes": opened["outcomes"], "qps": opened["qps"],
+            "goodput_qps": opened["goodput_qps"],
+            "reject_rate": opened["reject_rate"],
+            "deadline_miss_rate": opened["deadline_miss_rate"],
+            "p50_ms": opened["p50_ms"], "p99_ms": opened["p99_ms"],
+            "first_error": opened["first_error"],
+            "shed_at_admission": sup.batcher.stats["rejected"],
+            "dropped_at_dequeue": sup.batcher.stats["deadline_missed"]}
+        if opened["errors"] or \
+                sum(opened["outcomes"].values()) != FLEET_OPEN_REQUESTS:
+            raise SystemExit(f"phase 17a open loop {dtype}: {report}")
+        # (3) an open breaker fails submit fast, queueing nothing
+        sup.breaker.trip("chip check")
+        queued = sup.batcher._queue.qsize()
+        try:
+            sup.submit(pool[:1])
+            breaker = None
+        except Overloaded as e:
+            breaker = e.reason
+        report["open_breaker"] = {"reason": breaker,
+                                  "queued_after": sup.batcher._queue.qsize()
+                                  - queued}
+        sup.breaker.close()
+        if breaker != "breaker" or report["open_breaker"]["queued_after"]:
+            raise SystemExit(f"phase 17a breaker {dtype}: {report}")
+        # (4) a drain under traffic: what was accepted finishes
+        accepted, refused, mu = [], [], threading.Lock()
+        going = threading.Event()
+
+        def client(c):
+            for i in range(c, SERVE_REQUESTS, SERVE_CLIENTS):
+                s, n = reqs[i]
+                try:
+                    fut = sup.submit(pool[s:s + n])
+                except (Overloaded, ServingShutdown) as e:
+                    with mu:
+                        refused.append(type(e).__name__)
+                    return
+                with mu:
+                    accepted.append((i, fut))
+                    if len(accepted) >= 2 * SERVE_CLIENTS:
+                        going.set()
+
+        threads = [threading.Thread(target=client, args=(c,), daemon=True)
+                   for c in range(SERVE_CLIENTS)]
+        for t in threads:
+            t.start()
+        going.wait(FLEET_WAIT_S)
+        t1 = time.perf_counter()
+        sup.drain()
+        drain_s = time.perf_counter() - t1
+        for t in threads:
+            t.join(FLEET_WAIT_S)
+        hung = sum(t.is_alive() for t in threads)
+        drained = []
+        for i, fut in accepted:
+            try:
+                drained.append(check(i, fut.result(FLEET_WAIT_S).float()
+                                     .cpu().numpy()))
+            except Exception as e:     # noqa: BLE001 - the gate reports it
+                drained.append(f"{type(e).__name__}: {e}")
+        bad = [d for d in drained if not isinstance(d, float) or
+               d > (LOGIT_ATOL if f32 else 0.0)]
+        report["drain"] = {"accepted": len(accepted),
+                           "refused": sorted(set(refused)),
+                           "drain_s": drain_s, "lost": len(bad),
+                           "hung_clients": hung}
+        if bad or hung or not accepted:
+            raise SystemExit(f"phase 17a drain {dtype}: {report} {bad[:3]}")
+    finally:
+        faults.configure(None)
+        sup.close()
+        del sup
+    torch.cuda.empty_cache()
+    # (5) a one-replica fleet's rolling swap, and a corrupt checkpoint
+    fleet = FleetController(fleet_build(dtype, params[FLEET_SEEDS[0]]),
+                            example=(pool[:1],), replicas=1,
+                            max_batch=SERVE_MAX_BATCH, timeout_ms=2.0)
+    bad_ckpt = os.path.join(FLEET_CKPT_DIR, "corrupt")
+    try:
+        rep = fleet.replicas[0]
+        traces = rep.sup.predictor.n_traces
+        x = pool[:8]
+        swap = fleet.swap_weights(ckpt)
+        out = fleet.router.submit(x).result(FLEET_WAIT_S)
+        with Context("gpu" if dev.type == "cuda" else "cpu",
+                     dev.index or 0):
+            fresh = fleet_build(dtype, params[FLEET_SEEDS[1]])()
+        ref = fresh.predict(x)
+        fresh_equal = bool(torch.equal(out, ref))
+        del fresh, ref
+        swap_err = fleet_answer_err(np, out.float().cpu().numpy(),
+                                    refs[FLEET_SEEDS[1]][:8]) if f32 else None
+        shutil.rmtree(bad_ckpt, ignore_errors=True)
+        shutil.copytree(ckpt, bad_ckpt)
+        arrays = os.path.join(bad_ckpt, "arrays")
+        with open(os.path.join(arrays, sorted(os.listdir(arrays))[0]),
+                  "r+b") as f:
+            f.seek(-4, os.SEEK_END)
+            f.write(b"\xde\xad\xbe\xef")
+        try:
+            fleet.swap_weights(bad_ckpt)
+            aborted = None
+        except CheckpointCorruptError as e:
+            aborted = type(e).__name__
+        again = fleet.router.submit(x).result(FLEET_WAIT_S)
+        report["swap"] = {
+            "duration_s": swap["duration_s"], "version": fleet.version,
+            "bit_equal_to_fresh_predictor": fresh_equal,
+            "max_abs_err_vs_cpu": swap_err,
+            "n_traces_before": traces,
+            "n_traces_after": rep.sup.predictor.n_traces,
+            "corrupt_checkpoint": aborted,
+            "old_weights_answer_bit_equal": bool(torch.equal(out, again)),
+            "version_after_corrupt": fleet.version}
+    finally:
+        fleet.close()
+        shutil.rmtree(bad_ckpt, ignore_errors=True)
+    sw = report["swap"]
+    if not (sw["bit_equal_to_fresh_predictor"] and sw["version"] == 1
+            and sw["n_traces_after"] == sw["n_traces_before"]
+            and sw["corrupt_checkpoint"] == "CheckpointCorruptError"
+            and sw["old_weights_answer_bit_equal"]
+            and sw["version_after_corrupt"] == 1
+            and (not f32 or sw["max_abs_err_vs_cpu"] <= LOGIT_ATOL)):
+        raise SystemExit(f"phase 17a swap {dtype}: {report}")
+    emit({"fleet_one_card": report})
+    return counts
+
+
+def fleet_devices_ok(torch, fleet):
+    """Every serving replica's predictor, parameters and captured
+    programs' static buffers on its own device (on the CPU's virtual
+    devices, on the CPU)."""
+    def on(t_dev, dev):
+        return t_dev == dev if dev.type == "cuda" else t_dev.type == dev.type
+
+    out = {}
+    for r in fleet.replicas:
+        if r.state != "serving":
+            continue
+        pred = r.sup.predictor
+        tensors = list(pred.net.parameters())
+        for prog in pred._programs._progs.values():
+            tensors += list(prog.inputs)
+            if prog.outputs is not None:
+                tensors += [t for t in (prog.outputs if isinstance(
+                    prog.outputs, (tuple, list)) else [prog.outputs])
+                    if isinstance(t, torch.Tensor)]
+        out[r.name] = {"device": str(r.device),
+                       "programs": len(pred._programs),
+                       "on_its_device": on(pred.device, r.device) and all(
+                           on(t.device, r.device) for t in tensors)}
+    return out
+
+
+def round_robin(fleet):
+    """``submit(i, *args)`` to replica ``i % N`` directly (not through the
+    router), its future stamped as the router stamps one."""
+    reps = list(fleet.replicas)
+
+    def submit(i, *args):
+        rep = reps[i % len(reps)]
+        fut = rep.sup.submit(*args)
+        fut.replica, fut.version = rep.name, rep.version
+        return fut
+    return submit
+
+
+def fleet_burst(torch, np, fleet, pool, reqs, refs, lost, submit=None):
+    """Phase 4's traffic through the router (or ``submit(i, *args)``),
+    clients retrying typed admission failures (``retrying_submit``):
+    (loadgen report, per-request (error vs the CPU copy of its version,
+    replica, version, output device)). An accepted request whose future
+    fails typed is appended to ``lost`` and submitted again."""
+    from mxnet_tpu_torch.serving import Overloaded, ServingShutdown, \
+        loadgen
+    got = [None] * SERVE_REQUESTS
+    if submit is None:
+        submit = lambda i, *args: fleet.router.submit(*args)  # noqa: E731
+
+    def issue(i):
+        s, n = reqs[i]
+        while True:
+            fut = retrying_submit(lambda *a: submit(i, *a),
+                                  (pool[s:s + n],))
+            try:
+                out = fut.result(FLEET_WAIT_S)
+                break
+            except (Overloaded, ServingShutdown) as e:
+                lost.append(f"{type(e).__name__}: {e}")
+        v = fut.version
+        got[i] = (fleet_answer_err(np, out.float().cpu().numpy(),
+                                   refs[FLEET_SEEDS[v]][s:s + n]),
+                  fut.replica, v, str(out.device))
+        return {"replica": fut.replica}
+
+    rep = loadgen.run_closed_loop(issue, SERVE_CLIENTS, SERVE_REQUESTS)
+    return rep, got
+
+
+def fleet_multi_card(torch, np, K, smi, params, refs, pool, reqs, ckpt):
+    """Phase 17b on N >= 3 cards: a float32 fleet of N - 1 replicas, one
+    on each card but the last (the spare). (1) A burst of phase 4's
+    traffic; (2) the same burst with ``serving.dispatch@replica-1`` set
+    to revoke replica-1's device at its second dispatch: no accepted
+    request lost, no hang, exactly one failover and one restart, onto
+    the spare card, every answer within LOGIT_ATOL of the CPU copy, every
+    output and captured program of a replica on its own card; the time
+    from the fault to the restarted replica serving, and the req/s
+    before, during and after (3); (4) a rolling ``swap_weights`` under
+    the burst: none dropped, at most one weight version of skew at any
+    time, each answer within LOGIT_ATOL of the CPU copy of the version
+    its ``fut.version`` names (the two versions' logits part by far
+    more), ``n_traces`` unchanged. The device loss is simulated: the
+    card stays healthy and ``available_devices()`` leaves it out."""
+    from mxnet_tpu_torch.parallel import dist
+    from mxnet_tpu_torch.serving import FleetController
+    from mxnet_tpu_torch.testing import faults
+    n_cards = torch.cuda.device_count()
+    spare = str(dist.available_devices()[-1])
+    t0 = time.perf_counter()
+    fleet = FleetController(fleet_build("float32", params[FLEET_SEEDS[0]]),
+                            example=(pool[:1],), replicas=n_cards - 1,
+                            max_batch=SERVE_MAX_BATCH, timeout_ms=2.0)
+    report = {"cards": n_cards, "replicas": n_cards - 1,
+              "setup_s": time.perf_counter() - t0, "card": smi}
+    try:
+        placed = fleet_devices_ok(torch, fleet)
+        report["placement"] = placed
+        victim = fleet.replicas[FLEET_VICTIM]
+        lost_dev = victim.device
+        batchers = [(r.sup.batcher, str(r.device)) for r in fleet.replicas]
+        lost_reqs = []
+        K.reset_launch_counts()
+        # round robin over the replicas first: the router sends an idle
+        # fleet's traffic to the least estimate (the lowest index on a
+        # tie), and every card is to serve
+        before, got0 = fleet_burst(torch, np, fleet, pool, reqs, refs,
+                                   lost_reqs, round_robin(fleet))
+        # the burst's head steered at the victim (a near-zero service
+        # EWMA makes its projected wait the least), so the fault fires
+        victim.sup.batcher._ewma_service = 1e-6
+        faults.configure(f"serving.dispatch@{victim.name}:before=2"
+                         f":revoke:d{lost_dev.index}")
+        during, got1 = fleet_burst(torch, np, fleet, pool, reqs, refs,
+                                   lost_reqs)
+        restarted = fleet.wait_restarts(600.0)
+        for r in fleet.replicas:
+            if all(r.sup.batcher is not b for b, _d in batchers):
+                batchers.append((r.sup.batcher, str(r.device)))
+        # the head of the next burst steered at the restarted replica, so
+        # it serves on the spare card
+        victim.sup.batcher._ewma_service = 1e-6
+        after, got2 = fleet_burst(torch, np, fleet, pool, reqs, refs,
+                                  lost_reqs)
+        counts = K.launch_counts()
+        ev = {e.kind: e for e in fleet.events}
+        lost, back = ev.get("replica_lost"), ev.get("restart")
+        per_card = {}
+        for b, d in batchers:
+            per_card[d] = per_card.get(d, 0) + b.stats["batches"]
+        # a restarted replica's warm-up, inside the counted window: on a
+        # card WARMUP_RUNS eager runs a bucket before each capture, then
+        # one timed replay of its largest bucket (the service-time seed)
+        from mxnet_tpu_torch.captured import WARMUP_RUNS
+        runs = (WARMUP_RUNS * len(FLEET_BUCKETS)
+                if victim.device.type == "cuda" else 0) + 1
+        warm = {str(victim.device): runs * fleet.stats["restarts"]}
+        nb = sum(per_card.values()) + sum(warm.values())
+        runs_per_card = {d: b + warm.get(d, 0) for d, b in per_card.items()}
+        answers = got0 + got1 + got2
+        worst = max(a[0] if a else math.inf for a in answers)
+        moved = {r.name: str(r.device) for r in fleet.replicas}
+        on_card = (lambda d, want: d == want) if lost_dev.type == "cuda" \
+            else (lambda d, want: d.split(":")[0] == want.split(":")[0])
+        by_dev = all(a is not None and (on_card(a[3], moved[a[1]]) or (
+            a[1] == victim.name and on_card(a[3], str(lost_dev))))
+                     for a in answers)
+        report["failover"] = {
+            "rule": f"serving.dispatch@{victim.name}:before=2:revoke:"
+                    f"d{lost_dev.index}",
+            "simulated": "revoke: the card stays healthy; "
+                         "available_devices() leaves it out",
+            "req_per_s_before_round_robin":
+                before["requests"] / before["wall_s"],
+            "req_per_s_during": during["requests"] / during["wall_s"],
+            "req_per_s_after": after["requests"] / after["wall_s"],
+            "p99_ms_before": before["p99_ms"],
+            "p99_ms_during": during["p99_ms"],
+            "p99_ms_after": after["p99_ms"],
+            "outcomes": [r["outcomes"] for r in (before, during, after)],
+            "per_replica_during": during.get("replicas"),
+            "failovers": fleet.stats["failovers"],
+            "restarts": fleet.stats["restarts"],
+            "requeued": fleet.stats["requeued"],
+            "failed_requeues": fleet.stats["failed_requeues"],
+            "accepted_then_failed": lost_reqs[:4],
+            "accepted_then_failed_count": len(lost_reqs),
+            "victim": victim.name, "lost_device": str(lost_dev),
+            "restarted_on": str(victim.device),
+            "time_to_recover_s": (back.t - lost.t) if lost and back
+            else None,
+            "restart_build_s": back.detail.get("restart_s") if back
+            else None,
+            "restarts_done": restarted,
+            "max_abs_err_vs_cpu": worst, "atol": LOGIT_ATOL,
+            "answers_on_their_replicas_card": by_dev,
+            "placement_after": fleet_devices_ok(torch, fleet),
+            "launches": {k: counts[k] for k in ("flash_fwd",
+                                                "layernorm_fwd")},
+            "micro_batches_per_card": per_card,
+            "warm_up_runs_per_card": warm,
+            "flash_fwd_per_card": {d: 12 * b
+                                   for d, b in runs_per_card.items()},
+            "layernorm_fwd_per_card": {d: 25 * b
+                                       for d, b in runs_per_card.items()}}
+        fo = report["failover"]
+        serving_launch_gate(counts, nb, "phase 17b fleet")
+        if not (all(r["outcomes"]["ok"] == SERVE_REQUESTS
+                    for r in (before, during, after))
+                and fo["failovers"] == 1 and fo["restarts"] == 1
+                and fo["failed_requeues"] == 0 and restarted
+                and not lost_reqs
+                and fo["restarted_on"] == spare
+                and worst <= LOGIT_ATOL and by_dev
+                and all(p["on_its_device"] for p in placed.values())
+                and all(p["on_its_device"]
+                        for p in fo["placement_after"].values())
+                and all(c > 0 for c in per_card.values())
+                and len(per_card) == n_cards):
+            raise SystemExit(f"phase 17b failover: {report}")
+        faults.configure(None)
+        # (4) the rolling swap under bursts of traffic, until it is done
+        import threading
+        traces = {r.name: r.sup.predictor.n_traces for r in fleet.replicas}
+        box = {}
+
+        def do_swap():
+            time.sleep(0.1)
+            try:
+                box["swap"] = fleet.swap_weights(ckpt)
+            except Exception as e:     # noqa: BLE001 - the gate reports it
+                box["error"] = f"{type(e).__name__}: {e}"
+
+        th = threading.Thread(target=do_swap, daemon=True)
+        th.start()
+        bursts, got = [], []
+        while len(bursts) < 40 and (th.is_alive() or len(bursts) < 2):
+            r_, g_ = fleet_burst(torch, np, fleet, pool, reqs, refs,
+                                 lost_reqs)
+            bursts.append(r_)
+            got += g_
+        th.join(FLEET_WAIT_S)
+        swap = box.get("swap") or {"duration_s": None, "replicas": None}
+        # the replicas' versions after every swap event: at most two
+        # versions in service, at most one replica out of rotation
+        versions = {r.name: 0 for r in fleet.replicas}
+        skew_ok, draining = True, 0
+        for e in fleet.events:
+            if e.kind == "swap_drain":
+                draining += 1
+            elif e.kind == "swap_done":
+                draining -= 1
+                versions[e.replica] = e.detail["version"]
+            skew_ok = skew_ok and draining <= 1 and \
+                max(versions.values()) - min(versions.values()) <= 1
+        v_rows = refs[FLEET_SEEDS[0]] - refs[FLEET_SEEDS[1]]
+        report["swap"] = {
+            "duration_s": swap["duration_s"], "replicas": swap["replicas"],
+            "error": box.get("error"), "bursts": len(bursts),
+            "outcomes": [b["outcomes"] for b in bursts],
+            "req_per_s": [b["requests"] / b["wall_s"] for b in bursts],
+            "accepted_then_failed_count": len(lost_reqs),
+            "versions_served": sorted({a[2] for a in got if a}),
+            "max_abs_err_vs_cpu_of_its_version":
+                max(a[0] if a else math.inf for a in got),
+            "versions_part_by_at_least": float(np.abs(v_rows).max(axis=1)
+                                               .min()),
+            "at_most_one_version_of_skew": skew_ok,
+            "n_traces_before": traces,
+            "n_traces_after": {r.name: r.sup.predictor.n_traces
+                               for r in fleet.replicas}}
+        sw = report["swap"]
+        if not (all(b["outcomes"]["ok"] == SERVE_REQUESTS for b in bursts)
+                and "swap" in box and not th.is_alive() and skew_ok
+                and not lost_reqs and sw["versions_served"] == [0, 1]
+                and sw["max_abs_err_vs_cpu_of_its_version"] <= LOGIT_ATOL
+                and sw["versions_part_by_at_least"] > 10 * LOGIT_ATOL
+                and sw["n_traces_after"] == sw["n_traces_before"]
+                and fleet.version == 1):
+            raise SystemExit(f"phase 17b swap: {report}")
+    finally:
+        faults.configure(None)
+        faults.restore_devices()
+        fleet.close()
+    emit({"fleet_multi_card": report})
+    return report
+
+
+def fused_bwd_two_cards(torch, ATT, K):
+    """A2: the float32 fused flash backward launched on cuda:0 and then on
+    cuda:1 from this one process, each against its plain version
+    (TOLS float32)."""
+    out = []
+    b, h, s, d = FUSED_TWO_CARDS[0], FUSED_TWO_CARDS[1], \
+        FUSED_TWO_CARDS[2], FUSED_TWO_CARDS[4]
+    atol, rtol = TOLS["float32"]
+    for idx in (0, 1):
+        dev = torch.device("cuda", idx)
+        g = torch.Generator(device="cpu").manual_seed(idx)
+        q, k, v, do = (torch.randn(b, h, s, d, generator=g).to(dev)
+                       for _ in range(4))
+        o, lse = ATT.flash_attention_fwd_plain(q, k, v, False)
+        K.reset_launch_counts()
+        rec = {"device": str(dev), "shape": [b, h, s, s, d]}
+        try:
+            got = ATT.flash_attention_bwd(q, k, v, o, lse, do, False)
+            torch.cuda.synchronize(dev)
+            ref = ATT.flash_attention_bwd_plain(q, k, v, o, lse, do, False)
+            rec["launches"] = K.launch_counts()["flash_bwd_fused"]
+            rec["max_abs_err"] = max(float((a - r).abs().max())
+                                     for a, r in zip(got, ref))
+            rec["ok"] = rec["launches"] == 1 and all(
+                bool(torch.allclose(a, r, atol=atol, rtol=rtol))
+                for a, r in zip(got, ref)) and \
+                all(a.device == dev for a in got)
+        except Exception as e:     # noqa: BLE001 - the gate reports it
+            rec["error"] = f"{type(e).__name__}: {e}"
+            rec["ok"] = False
+        out.append(rec)
+    emit({"fused_bwd_two_cards": {"cases": out, "atol": atol, "rtol": rtol}})
+    if not all(r["ok"] for r in out):
+        raise SystemExit(f"float32 fused backward on a second card: {out}")
+    return out
+
+
+def fleet_phase(torch, np, K, ATT, dev, smi, multi=True):
+    """Phase 17: (a) :func:`fleet_one_card` in float32 and bf16; (b) with
+    three or more cards :func:`fleet_multi_card`, and with two or more
+    A2's :func:`fused_bwd_two_cards`. The checkpoint the swaps roll out
+    is seed 1's BERT-base written by ``TrainCheckpointManager`` under
+    FLEET_CKPT_DIR (removed at the end). Returns 17a's float32
+    launches."""
+    import shutil
+    from mxnet_tpu_torch.checkpoint import TrainCheckpointManager
+    from mxnet_tpu_torch.gluon.model_zoo.bert import BERTClassifier, bert_base
+    from mxnet_tpu_torch.gluon.params import init_params_numpy, \
+        load_jax_params
+    t0 = time.perf_counter()
+    net = BERTClassifier(bert_base(device=dev), num_classes=2, device=dev)
+    params = {s: init_params_numpy(net, seed=s) for s in FLEET_SEEDS}
+    load_jax_params(net, params[FLEET_SEEDS[1]])
+    shutil.rmtree(FLEET_CKPT_DIR, ignore_errors=True)
+    mgr = TrainCheckpointManager(os.path.join(FLEET_CKPT_DIR, "train"),
+                                 keep_last=1)
+    mgr.save(1, net=net, block=True)
+    ckpt = mgr.latest_path()
+    vocab = net.bert.word_embed.weight.shape[0]
+    del net
+    torch.cuda.empty_cache()
+    pool, reqs = fleet_traffic(np, vocab)
+    refs = {s: fleet_cpu_refs(torch, np, params[s], pool)
+            for s in FLEET_SEEDS}
+    emit({"fleet_setup": {"setup_s": time.perf_counter() - t0,
+                          "checkpoint": ckpt, "pool_rows": FLEET_POOL,
+                          "requests": SERVE_REQUESTS,
+                          "rows": sum(n for _s, n in reqs)}})
+    try:
+        counts = fleet_one_card(torch, np, K, dev, smi, "float32", params,
+                                refs, pool, reqs, ckpt)
+        torch.cuda.empty_cache()
+        fleet_one_card(torch, np, K, dev, smi, "bfloat16", params, refs,
+                       pool, reqs, ckpt)
+        torch.cuda.empty_cache()
+        n = torch.cuda.device_count()
+        if multi and n >= 3:
+            fleet_multi_card(torch, np, K, smi, params, refs, pool, reqs,
+                             ckpt)
+        elif multi:
+            print(f"phase 17b's failover needs >= 3 GPUs (a survivor and a "
+                  f"spare); {n} visible, so it did not run", flush=True)
+        if multi and n >= 2:
+            fused_bwd_two_cards(torch, ATT, K)
+        elif multi:
+            print(f"A2's second-card launch needs >= 2 GPUs; {n} visible, "
+                  "so it did not run", flush=True)
+    finally:
+        shutil.rmtree(FLEET_CKPT_DIR, ignore_errors=True)
+    emit({"fleet_phase_s": time.perf_counter() - t0, "card": smi})
+    return counts
+
+
+#: the ZeRO dp leg of A1: resnet50_v1 at phase 14's 128 x 224 x 224
+#: (seeded images and init, ``cudnn.deterministic``), split over the
+#: ranks, ZERO_BN_STEPS plain-SGD steps at ZERO_BN_LR (no momentum, no
+#: weight decay, so a step's gradient is (w_t - w_t+1) / lr), held
+#: against the same steps on one card over the whole batch (phase 14's
+#: captured step, float32): losses within ZERO_BN_LOSS_ATOL, each
+#: running statistic within ZERO_BN_STAT_RTOL of its largest, and the
+#: running statistics bit-identical on every rank. Gradients: float32
+#: ResNet-50 sums with heavy cancellation (the per-channel means that
+#: BatchNorm's backward subtracts), so two float32 orders of one sum part
+#: far beyond rounding of the result; each step's gradients of the dp
+#: run and of the one-card float32 step are both held against a float64
+#: run of the same steps on the card (the largest error of any tensor
+#: over its largest |value|), and the dp run's must be within
+#: ZERO_BN_SPREAD times the one-card step's. The same steps with each
+#: rank's own statistics (the parent's behaviour: ``split_mesh`` made to
+#: return None) are printed beside them.
+ZERO_BN_STEPS = 3
+ZERO_BN_LR = 0.1
+ZERO_BN_LOSS_ATOL = 1e-4
+ZERO_BN_STAT_RTOL = 1e-4
+ZERO_BN_SPREAD = 4.0
+ZERO_BN_REF = os.path.join("build", "zero_bn_ref.npz")
+
+
+def zero_bn_data(np, batch=RESNET_BATCH, size=RESNET_SIZE):
+    """Phase 14's seeded images and labels."""
+    rs = np.random.RandomState(7)
+    x = rs.uniform(size=(batch, 3, size, size)).astype(np.float32)
+    y = rs.randint(0, RESNET_CLASSES, (batch,)).astype(np.float32)
+    return x, y
+
+
+def zero_bn_names(net):
+    return [n for n, p in net.named_parameters() if p.requires_grad
+            and not n.endswith(("running_mean", "running_var"))]
+
+
+def zero_bn_stats(net):
+    return {n: p.detach().cpu().numpy().copy()
+            for n, p in net.named_parameters()
+            if n.endswith(("running_mean", "running_var"))}
+
+
+def zero_bn_steps(torch, np, dev, step, net, x, y, steps):
+    """(losses, {name: [gradient a step]}, {name: running statistic at
+    the end}) of ``steps`` SGD steps through ``step``."""
+    names = zero_bn_names(net)
+    params = dict(net.named_parameters())
+    losses, grads = [], {n: [] for n in names}
+    for _ in range(steps):
+        before = {n: params[n].detach().clone() for n in names}
+        losses.append(step(x, y).float().cpu().numpy())
+        for n in names:
+            grads[n].append(((before[n] - params[n].detach())
+                             / ZERO_BN_LR).cpu().numpy())
+        del before
+    return losses, grads, zero_bn_stats(net)
+
+
+def zero_bn_float64(torch, np, dev, x, y, steps):
+    """The same SGD steps in float64, eager on the card: the gradient
+    each step (divided by the batch, as the step's rescale does) and the
+    losses."""
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    net = zero_bn_net(torch, np, dev).double()
+    lf = SoftmaxCrossEntropyLoss()
+    params = dict(net.named_parameters())
+    names = zero_bn_names(net)
+    xt = torch.from_numpy(x).to(dev).double()
+    yt = torch.from_numpy(y).to(dev).double()
+    losses, grads = [], {n: [] for n in names}
+    for _ in range(steps):
+        for p in net.parameters():
+            p.grad = None
+        loss = lf(net(xt), yt)
+        loss.sum().backward()
+        losses.append(loss.detach().cpu().numpy())
+        with torch.no_grad():
+            for n in names:
+                g = params[n].grad / x.shape[0]
+                grads[n].append(g.cpu().numpy())
+                params[n].sub_(ZERO_BN_LR * g)
+    return losses, grads, zero_bn_stats(net)
+
+
+def zero_bn_net(torch, np, dev, classes=RESNET_CLASSES):
+    from mxnet_tpu_torch.gluon.model_zoo.vision import resnet50_v1
+    from mxnet_tpu_torch.gluon.params import load_jax_params
+    net = resnet50_v1(classes=classes, device=dev)
+    load_jax_params(net, resnet_init(np, net, seed=6))
+    net.train()
+    return net
+
+
+def zero_bn_grad_errs(np, grads, ref, steps):
+    """Each step's largest gradient error of any tensor over that
+    tensor's largest |value| in ``ref``, and the tensor."""
+    err, worst = [0.0] * steps, [None] * steps
+    for n, gs in grads.items():
+        for i in range(steps):
+            r = ref[n][i]
+            e = float(np.abs(gs[i] - r).max()) / max(float(np.abs(r).max()),
+                                                     1e-30)
+            if e > err[i]:
+                err[i], worst[i] = e, n
+    return err, worst
+
+
+def zero_bn_one_card(torch, np, dev, batch=RESNET_BATCH, size=RESNET_SIZE,
+                     steps=ZERO_BN_STEPS, path=ZERO_BN_REF):
+    """The one-card references, written to ``path`` for the ranks: phase
+    14's captured float32 step over the whole batch, and the same steps
+    in float64. Returns the float32 step's gradient errors to
+    float64."""
+    from mxnet_tpu_torch.gluon import Trainer
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    x, y = zero_bn_data(np, batch, size)
+    try:
+        net = zero_bn_net(torch, np, dev)
+        tr = Trainer(dict(net.named_parameters()), "sgd",
+                     {"learning_rate": ZERO_BN_LR})
+        lf = SoftmaxCrossEntropyLoss()
+        step = tr.compile_step(lambda a, b: lf(net(a), b))
+        xt, yt = torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev)
+        losses, grads, stats = zero_bn_steps(torch, np, dev, step, net, xt,
+                                             yt, steps)
+        del net, step, tr, xt, yt
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        losses64, grads64, _stats64 = zero_bn_float64(torch, np, dev, x, y,
+                                                      steps)
+    finally:
+        torch.backends.cudnn.deterministic = det
+    errs = zero_bn_grad_errs(np, grads, grads64, steps)
+    arrays = {f"loss/{i}": l for i, l in enumerate(losses)}
+    arrays.update({f"grad64/{i}/{n}": g[i] for n, g in grads64.items()
+                   for i in range(steps)})
+    arrays.update({f"stat/{n}": s for n, s in stats.items()})
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    np.savez(path, **arrays)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return errs, [float(np.abs(a - b).max())
+                  for a, b in zip(losses, losses64)]
+
+
+def zero_bn_errors(np, ref, losses, grads, stats, steps):
+    """Against the one-card references: the largest loss error and
+    running-statistic error (over each one's largest) to the float32
+    step, and each step's gradient error to float64."""
+    loss_err = max(float(np.abs(losses[i] - ref[f"loss/{i}"]).max())
+                   for i in range(steps))
+    g64 = {n: [ref[f"grad64/{i}/{n}"] for i in range(steps)]
+           for n in grads}
+    g_err, g_worst = zero_bn_grad_errs(np, grads, g64, steps)
+    s_err = max(float(np.abs(s - ref[f"stat/{n}"]).max())
+                / max(float(np.abs(ref[f"stat/{n}"]).max()), 1e-30)
+                for n, s in stats.items())
+    return {"loss_max_abs_err": loss_err,
+            "grad_max_rel_err_vs_float64": g_err, "grad_worst": g_worst,
+            "stat_max_rel_err": s_err}
+
+
+def zero_bn_rank(batch, size, steps, ref_path):
+    """One rank: the ResNet-50 step through ``compile_step`` under
+    ``make_mesh({"dp": world})`` on the global batch, first with the
+    statistics of the global batch (A1), then with each rank's own
+    (``split_mesh`` made to return None: the parent's BatchNorm). Rank 0
+    compares both with the one-card reference; every rank returns its
+    running statistics."""
+    import numpy as np
+    import torch
+    from mxnet_tpu_torch.gluon import Trainer
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from mxnet_tpu_torch.gluon.nn import basic_layers
+    from mxnet_tpu_torch.parallel import dist, make_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    dev = dist.device()
+    x, y = zero_bn_data(np, batch, size)
+    ref = np.load(ref_path) if dist.rank() == 0 else None
+    out = {"rank": dist.rank()}
+    split = basic_layers.split_mesh
+    for leg in ("global_statistics", "local_statistics"):
+        if leg == "local_statistics":
+            basic_layers.split_mesh = lambda: None
+        try:
+            net = zero_bn_net(torch, np, dev)
+            tr = Trainer(dict(net.named_parameters()), "sgd",
+                         {"learning_rate": ZERO_BN_LR})
+            lf = SoftmaxCrossEntropyLoss()
+            step = tr.compile_step(lambda a, b: lf(net(a), b))
+            with make_mesh({"dp": dist.size()}):
+                t0 = time.perf_counter()
+                losses, grads, stats = zero_bn_steps(torch, np, dev, step,
+                                                     net, x, y, steps)
+                if dev.type == "cuda":
+                    torch.cuda.synchronize(dev)
+                wall = time.perf_counter() - t0
+        finally:
+            basic_layers.split_mesh = split
+        rec = {"mode": step.mode, "stats": stats, "wall_s": wall}
+        if ref is not None:
+            rec.update(zero_bn_errors(np, ref, losses, grads, stats, steps))
+            rec["losses_mean"] = [float(l.mean()) for l in losses]
+        out[leg] = rec
+        del net, step, tr, grads
+        torch.cuda.empty_cache()
+    return out
+
+
+def zero_batchnorm(torch, np, smi, device="cuda", world=None,
+                   batch=RESNET_BATCH, size=RESNET_SIZE,
+                   steps=ZERO_BN_STEPS, timeout_s=900):
+    """A1 across the visible cards: :func:`zero_bn_rank` on every card
+    against :func:`zero_bn_one_card` on the first."""
+    from mxnet_tpu_torch.parallel import dist
+    world = world or torch.cuda.device_count()
+    dev = torch.device(device, 0) if device == "cuda" else \
+        torch.device("cpu")
+    t0 = time.perf_counter()
+    (one_err, one_worst), one_loss64 = zero_bn_one_card(torch, np, dev,
+                                                        batch, size, steps)
+    try:
+        ranks = dist.spawn(zero_bn_rank, world, device,
+                           (batch, size, steps, os.path.abspath(
+                               ZERO_BN_REF)), timeout_s=timeout_s)
+    finally:
+        os.remove(ZERO_BN_REF)
+    report = {"model": "resnet50_v1", "world": world, "batch": batch,
+              "rows_per_rank": batch // world, "size": size,
+              "steps": steps, "optimizer": "sgd", "lr": ZERO_BN_LR,
+              "loss_atol": ZERO_BN_LOSS_ATOL, "stat_rtol": ZERO_BN_STAT_RTOL,
+              "grad_spread_factor": ZERO_BN_SPREAD,
+              "one_card_float32_grad_max_rel_err_vs_float64": one_err,
+              "one_card_float32_grad_worst": one_worst,
+              "one_card_float32_loss_max_abs_err_vs_float64": one_loss64,
+              "card": smi, "phase_s": None}
+    for leg in ("global_statistics", "local_statistics"):
+        r0 = ranks[0][leg]
+        same = all(np.array_equal(r[leg]["stats"][n], r0["stats"][n])
+                   for r in ranks for n in r0["stats"])
+        report[leg] = {k: r0[k] for k in (
+            "mode", "loss_max_abs_err", "grad_max_rel_err_vs_float64",
+            "grad_worst", "stat_max_rel_err", "losses_mean", "wall_s")}
+        report[leg]["grad_err_over_one_card"] = [
+            e / max(o, 1e-30) for e, o in zip(
+                r0["grad_max_rel_err_vs_float64"], one_err)]
+        report[leg]["running_stats_bit_identical_on_every_rank"] = same
+    report["phase_s"] = time.perf_counter() - t0
+    g = report["global_statistics"]
+    report["ok"] = (g["mode"] == "zero"
+                    and g["running_stats_bit_identical_on_every_rank"]
+                    and g["loss_max_abs_err"] <= ZERO_BN_LOSS_ATOL
+                    and all(r <= ZERO_BN_SPREAD
+                            for r in g["grad_err_over_one_card"])
+                    and g["stat_max_rel_err"] <= ZERO_BN_STAT_RTOL)
+    emit({"zero_batchnorm": report})
+    if not report["ok"]:
+        raise SystemExit(f"BatchNorm over the dp group failed: {report}")
+    return report
+
+
 #: --kernel-times: the kernels' shapes, each on its path (the flash
 #: forward served and in BERT training; the long-sequence backward's dq
 #: and dkv at phase 7's; the LM's LSTM layer; decode_wide's step)
@@ -8099,6 +9081,13 @@ def main(argv):
                                      "kind": torch.cuda.get_device_name(0),
                                      "count": torch.cuda.device_count()}})
         return 0
+    if "--fleet" in argv:
+        fleet_phase(torch, np, K, ATT, dev, smi, multi=True)
+        print(smi, flush=True)
+        emit({"ok": True, "device": {"platform": "gpu",
+                                     "kind": torch.cuda.get_device_name(0),
+                                     "count": torch.cuda.device_count()}})
+        return 0
     if "--opt" in argv:
         # kernel 12 alone: its checks, its times, the two whole updates
         time_opt_kernel(torch, KO, check_opt_kernel(torch, KO, dev))
@@ -8115,6 +9104,7 @@ def main(argv):
         zero_train_multi(torch, np, smi)
         zero_overlap(torch, np, smi)
         zero_elastic(torch, np, smi)
+        zero_batchnorm(torch, np, smi)
         print(smi, flush=True)
         emit({"ok": True, "device": {"platform": "gpu",
                                      "kind": torch.cuda.get_device_name(0),
@@ -8187,14 +9177,19 @@ def main(argv):
     surface = surface_phase(torch, np, K, dev, smi, "--profile" in argv)
     torch.cuda.empty_cache()
     cells = cells_phase(torch, np, K, dev, smi)
+    torch.cuda.empty_cache()
+    fleet = fleet_phase(torch, np, K, ATT, dev, smi,
+                        multi=torch.cuda.device_count() >= 2)
+    torch.cuda.empty_cache()
     if torch.cuda.device_count() >= 2:
         zero_train_multi(torch, np, smi)
         zero_overlap(torch, np, smi)
         zero_elastic(torch, np, smi)
+        zero_batchnorm(torch, np, smi)
         dist_kv_multi(torch, np, smi)
     else:
-        print("phase 11 (ZeRO training across cards) and phase 13 across "
-              "cards need >= 2 GPUs; "
+        print("phase 11 (ZeRO training across cards, with A1's BatchNorm "
+              "leg), phase 13 across cards and phase 17b need >= 2 GPUs; "
               f"{torch.cuda.device_count()} visible, so they did not run",
               flush=True)
 
@@ -8238,13 +9233,15 @@ def main(argv):
           "dist_kv_launch_counts": {n: c for n, c in dist_kv.items() if c},
           "resnet_launch_counts": resnet_launches,
           "surface_launch_counts": surface,
-          "cells_launch_counts": {n: c for n, c in cells.items() if c}})
+          "cells_launch_counts": {n: c for n, c in cells.items() if c},
+          "fleet_launch_counts": {n: fleet[n] for n in FLEET_KERNELS}})
     if not all(n > 0 for n in launches.values()) or \
             not all(cells[n] > 0 for n in ("rnn_scan_fwd",
                                            "rnn_scan_bwd")) or \
             not all(n > 0 for n in bf16_launches.values()) or \
             not all(c.get("opt_update", 0) > 0
-                    for c in resnet_launches.values()):
+                    for c in resnet_launches.values()) or \
+            not all(fleet[n] > 0 for n in FLEET_KERNELS):
         raise SystemExit(f"a kernel never launched on its path: {launches}"
                          f" {bf16_launches} {resnet_launches} {cells}")
     rows = []
@@ -8276,6 +9273,9 @@ def main(argv):
         if name in ("rnn_scan_fwd", "rnn_scan_bwd"):
             rows[-1].update(cells_launches=cells[name],
                             cells_path="cell_lm_training")
+        if name in FLEET_KERNELS:
+            rows[-1].update(fleet_launches=fleet[name],
+                            fleet_path="bert_base_supervised_serving")
     print(smi, flush=True)
     emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -9,9 +9,13 @@ device they raise :class:`MXNetError` rather than run on the CPU.
 from . import (amp, checkpoint, elastic, init, initializer, kvstore,
                lr_scheduler, metric, ndarray, optimizer, parallel, testing)
 from .base import MXNetError
-from .context import cpu, default_device, gpu, resolve_device
+from .context import (Context, cpu, cpu_pinned, current_context,
+                      default_device, gpu, gpu_memory_info, num_gpus,
+                      resolve_device)
 
-__all__ = ["MXNetError", "cpu", "gpu", "default_device", "resolve_device",
+__all__ = ["MXNetError", "Context", "cpu", "gpu", "cpu_pinned",
+           "current_context", "num_gpus", "gpu_memory_info",
+           "default_device", "resolve_device",
            "amp", "checkpoint", "elastic", "init", "initializer", "kvstore",
            "lr_scheduler", "metric", "ndarray", "optimizer", "parallel",
            "testing"]

@@ -187,16 +187,17 @@ class CapturedProgram:
         inputs (the CPU); returns copies of the outputs, made in stream
         order before anything else can overwrite them."""
         if self.graph is None:
-            out = self.body(*self.inputs)
-        else:
+            return map_tensors(torch.clone, self.body(*self.inputs))
+        # the graph's card current, whichever thread replays it
+        with torch.cuda.device(self.device) if self.device.type == "cuda" \
+                else contextlib.nullcontext():
             try:
                 self.graph.replay()
             except Exception as e:
                 raise MXNetError(f"replay of {self.what} failed: "
                                  f"{type(e).__name__}: {e}") from e
             add_launches(self.delta)
-            out = self.outputs
-        return map_tensors(torch.clone, out)
+            return map_tensors(torch.clone, self.outputs)
 
 
 class Programs:

@@ -9,8 +9,8 @@ reshape. ``SparseEmbedding`` is ``Embedding`` with ``sparse_grad``; its
 gradient is dense here (the rows a batch does not touch are zero), which
 the updates of SGD and Adam (``lazy_update=False``, their default) treat
 as the JAX package's row-sparse gradient; the lazy row updates are not
-ported. ``SyncBatchNorm`` raises: under the ``zero`` / ``mesh`` modes it
-needs statistics across ranks (``ROADMAP.md`` queue 1, item 8).
+ported. ``SyncBatchNorm`` is ``gluon.nn``'s: its training statistics
+span the ranks of a split batch, as every ``BatchNorm``'s do.
 """
 from __future__ import annotations
 
@@ -18,7 +18,7 @@ from torch import nn
 
 from ....base import MXNetError
 from ...nn.basic_layers import (Concatenate, Embedding, HybridConcatenate,
-                                Identity)
+                                Identity, SyncBatchNorm)
 
 __all__ = ["Concurrent", "HybridConcurrent", "Identity", "SparseEmbedding",
            "SyncBatchNorm", "PixelShuffle1D", "PixelShuffle2D",
@@ -40,17 +40,6 @@ class SparseEmbedding(Embedding):
     def __init__(self, input_dim, output_dim, **kwargs):
         super().__init__(input_dim, output_dim, **kwargs)
         self.sparse_grad = True
-
-
-class SyncBatchNorm(nn.Module):
-    """Not ported yet: raises :class:`MXNetError`."""
-
-    def __init__(self, *args, **kwargs):
-        super().__init__()
-        raise MXNetError(
-            "SyncBatchNorm is not ported yet: under the zero / mesh modes "
-            "it needs batch statistics across ranks (ROADMAP.md queue 1, "
-            "item 8)")
 
 
 def _factors(factor, n):

@@ -157,7 +157,8 @@ from ..parallel.collectives import (all_gather_rows, allgather,
                                     reduce_scatter_rows, write_segment,
                                     zero_segment)
 from ..parallel.mesh import (batch_is_sharded, current_mesh, global_lead,
-                             place_on_mesh, replicate, zero_shard_pad)
+                             place_on_mesh, replicate, split_batch,
+                             zero_shard_pad)
 from ..testing.faults import fault_point
 from .nn.basic_layers import draws_off, recording_draws
 
@@ -1074,12 +1075,15 @@ class CompiledTrainStep:
         mean = not batch_is_sharded(mesh, axis, leaves)
         args = tuple(place_on_mesh(mesh, axis, a) for a in args)
         kwargs = {k: place_on_mesh(mesh, axis, v) for k, v in kwargs.items()}
-        if self._mode == "zero":
-            loss = self._zero_call(args, kwargs, batch_size, mesh, mean)
-        elif self._mode == "mesh":
-            loss = self._mesh_call(args, kwargs, batch_size, mesh, mean)
-        else:
-            loss = self._fused_call(args, kwargs, batch_size, mean)
+        # a split batch is one global batch: BatchNorm's statistics span
+        # the ranks (a batch each rank holds whole needs no collective)
+        with split_batch(mesh, axis, split=not mean):
+            if self._mode == "zero":
+                loss = self._zero_call(args, kwargs, batch_size, mesh, mean)
+            elif self._mode == "mesh":
+                loss = self._mesh_call(args, kwargs, batch_size, mesh, mean)
+            else:
+                loss = self._fused_call(args, kwargs, batch_size, mean)
         if not mean:
             loss = _global_loss(loss, mesh, axis)
         return loss

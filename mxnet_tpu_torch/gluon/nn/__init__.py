@@ -4,7 +4,8 @@ from .basic_layers import (ELU, GELU, SELU, Activation, BatchNorm,
                            Embedding, Flatten, GroupNorm, HybridConcatenate,
                            HybridLambda, HybridSequential, Identity,
                            InstanceNorm, Lambda, LayerNorm, LeakyReLU, PReLU,
-                           Sequential, SiLU, Swish, init_param, set_grad_req)
+                           Sequential, SiLU, Swish, SyncBatchNorm, init_param,
+                           set_grad_req)
 from .conv_layers import (AvgPool1D, AvgPool2D, AvgPool3D, Conv1D, Conv2D,
                           Conv3D, GlobalAvgPool1D, GlobalAvgPool2D,
                           GlobalAvgPool3D, GlobalMaxPool1D, GlobalMaxPool2D,
@@ -13,7 +14,7 @@ from .transformer import (MultiHeadAttention, PositionwiseFFN,
                           TransformerEncoder, TransformerEncoderCell)
 
 __all__ = ["Sequential", "HybridSequential", "Dense", "Dropout", "Embedding",
-           "BatchNorm", "BatchNormReLU", "LayerNorm", "Flatten", "Activation",
+           "BatchNorm", "BatchNormReLU", "SyncBatchNorm", "LayerNorm", "Flatten", "Activation",
            "Identity", "init_param", "set_grad_req", "GroupNorm",
            "InstanceNorm", "LeakyReLU", "PReLU", "ELU", "SELU", "GELU",
            "Swish", "SiLU", "Lambda", "HybridLambda", "Concatenate",

@@ -4,7 +4,7 @@
 ``GroupNorm``, ``InstanceNorm``, ``Flatten``, ``Activation``,
 ``LeakyReLU``, ``PReLU``, ``ELU``, ``SELU``, ``GELU``, ``Swish`` /
 ``SiLU``, ``Lambda``, ``HybridLambda``, ``Identity``, ``Concatenate``
-and ``HybridConcatenate`` as ``nn.Module``s (all but ``SyncBatchNorm``).
+and ``HybridConcatenate`` as ``nn.Module``s, and ``SyncBatchNorm``.
 
 Parameter names and layouts are the JAX package's, so a dict of its
 ``collect_params()`` loads as it is (``gluon.params.load_jax_params``):
@@ -74,9 +74,11 @@ from ...base import MXNetError
 from ...context import resolve_device
 from ...ops import nn as FNN
 from ...ops.registry import invoke
+from ...parallel.mesh import split_mesh
 
 __all__ = ["Sequential", "HybridSequential", "Dense", "Dropout",
-           "Embedding", "BatchNorm", "BatchNormReLU", "LayerNorm",
+           "Embedding", "BatchNorm", "BatchNormReLU", "SyncBatchNorm",
+           "LayerNorm",
            "GroupNorm", "InstanceNorm", "Flatten", "Activation", "LeakyReLU",
            "PReLU", "ELU", "SELU", "GELU", "Swish", "SiLU", "Lambda",
            "HybridLambda", "Identity", "Concatenate", "HybridConcatenate",
@@ -394,7 +396,15 @@ class BatchNorm(nn.Module):
     ``named_parameters()``, the parameter files, the checkpoints and
     ``load_jax_params`` carry them; ``Trainer`` leaves them out of the
     update. ``center=False`` / ``scale=False`` keep ``beta`` / ``gamma``
-    frozen at 0 / 1."""
+    frozen at 0 / 1.
+
+    Under a dp mesh whose step split the batch (``parallel.split_batch``:
+    ``compile_step``'s ``zero`` and ``mesh`` modes), the training
+    statistics are the global batch's: all-reduced over the ranks in
+    float32 (``ops.nn.batch_norm_train_sync``), the backward's two sums
+    too, so every rank normalises as the JAX package's one program does
+    and writes bit-identical running statistics. A batch each rank holds
+    whole, and one process, take the local ops."""
 
     def __init__(self, axis: int = 1, momentum: float = 0.9,
                  epsilon: float = 1e-5, center: bool = True,
@@ -436,8 +446,11 @@ class BatchNorm(nn.Module):
             out = invoke("batch_norm", self._infer, x, self.gamma,
                          self.beta, self.running_mean, self.running_var)
         else:
-            out, mean, var = invoke("batch_norm", self._train, x,
-                                    self.gamma, self.beta)
+            mesh = split_mesh()
+            body = self._train if mesh is None else functools.partial(
+                self._train_sync, group=mesh.group)
+            out, mean, var = invoke("batch_norm", body, x, self.gamma,
+                                    self.beta)
             m = self._momentum
             with torch.no_grad():
                 for run, batch in ((self.running_mean, mean),
@@ -452,6 +465,24 @@ class BatchNorm(nn.Module):
 
     def _train(self, x, gamma, beta):
         return FNN.batch_norm_train(x, gamma, beta, self._eps)
+
+    def _train_sync(self, x, gamma, beta, group):
+        return FNN.batch_norm_train_sync(x, gamma, beta, self._eps, group)
+
+
+class SyncBatchNorm(BatchNorm):
+    """:class:`BatchNorm` under MXNet's cross-device name, with its
+    signature (``in_channels``, ``num_devices``; the JAX package's
+    ``gluon/nn/basic_layers.py`` ``SyncBatchNorm``). Every ``BatchNorm``
+    here already takes its training statistics over the ranks that hold
+    a split batch between them (``parallel.split_batch``), as the JAX
+    package's one SPMD program does, so this layer adds nothing; on one
+    process it is ``BatchNorm``. ``num_devices`` is kept, not used: the
+    ranks are the split batch's."""
+
+    def __init__(self, in_channels: int = 0, num_devices=None, **kwargs):
+        super().__init__(in_channels=in_channels, **kwargs)
+        self._num_devices = num_devices
 
 
 class BatchNormReLU(BatchNorm):

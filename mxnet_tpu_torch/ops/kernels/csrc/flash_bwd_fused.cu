@@ -659,20 +659,18 @@ struct FusedArgs {
   float scale;
 };
 
-// float32: the register-tiled kernel, accumulating dq in dq itself
+// float32: the register-tiled kernel, accumulating dq in dq itself. The
+// shared-memory limit belongs to the device current when it is set, so it
+// is set on every call, to the same value, as the bf16 launch does.
 template <int DP>
 int fused_launch_f32(const FusedArgs& a, cudaStream_t s) {
   const size_t smem = sizeof(float) * Geo<DP>::smem_floats;
-  static bool configured = false;
-  if (!configured) {
-    cudaError_t e = cudaFuncSetAttribute(
-        flash_bwd_fused_kernel<DP>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-    configured = true;   // setting it again from another thread is harmless
-  }
+  cudaError_t e = cudaFuncSetAttribute(
+      flash_bwd_fused_kernel<DP>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
   const size_t n = (size_t)a.BH * a.Sq * a.D;
-  cudaError_t e = cudaMemsetAsync(a.dq_acc, 0, n * sizeof(float), s);
+  e = cudaMemsetAsync(a.dq_acc, 0, n * sizeof(float), s);
   if (e != cudaSuccess) return (int)e;
   const long long blocks = (long long)a.BH * ((a.Sk + kBK - 1) / kBK);
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;

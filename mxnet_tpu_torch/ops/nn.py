@@ -26,8 +26,8 @@ from .kernels import norm as _knorm
 from .registry import invoke
 
 __all__ = ["layer_norm", "linear", "softmax", "log_softmax", "conv", "pool",
-           "global_pool", "batch_norm_train", "batch_norm_infer", "group_norm",
-           "instance_norm"]
+           "global_pool", "batch_norm_train", "batch_norm_train_sync",
+           "batch_norm_infer", "group_norm", "instance_norm"]
 
 
 def _promoted(*ts):
@@ -256,6 +256,77 @@ def batch_norm_train(x, gamma, beta, eps: float):
                        eps=eps)
     # a new tensor: autograd checks the buffers it saved are unchanged
     return out, mean, var * ((n - 1) / n)
+
+
+class _SyncBatchNorm(torch.autograd.Function):
+    """Training-mode BatchNorm whose statistics span the ranks of
+    ``group``: each rank holds its rows of one global batch.
+
+    Forward: one all-reduce of each channel's count and sum gives the
+    global mean, a second one of the sum of squared deviations from it
+    the global (biased) variance; two passes, as ``jnp.var`` takes them
+    (one pass over x^2 would part from the one-program reference by
+    cancellation). Backward: one all-reduce of the per-channel sums of
+    dy and of dy x-hat, then dx = gamma / sigma (dy - mean(dy) - x-hat
+    mean(dy x-hat)) over the global batch. dgamma and dbeta are this
+    rank's sums: the step's own gradient reduction adds the ranks'."""
+
+    @staticmethod
+    def forward(ctx, x, gamma, beta, eps, group):
+        import torch.distributed as dist
+        dt = _knorm.stat_dtype(x)
+        xf = x.to(dt)
+        axes = (0,) + tuple(range(2, x.ndim))
+        shape = (1, -1) + (1,) * (x.ndim - 2)
+        c = x.shape[1]
+        head = torch.empty(c + 1, dtype=dt, device=x.device)
+        head[0] = x.numel() // c
+        head[1:] = xf.sum(dim=axes)
+        dist.all_reduce(head, group=group)
+        count = head[0]
+        mean = head[1:] / count
+        d = xf - mean.reshape(shape)
+        sq = (d * d).sum(dim=axes)
+        dist.all_reduce(sq, group=group)
+        var = sq / count
+        invstd = torch.rsqrt(var + eps)
+        xhat = d * invstd.reshape(shape)
+        g, b = gamma.to(dt), beta.to(dt)
+        out = (xhat * g.reshape(shape) + b.reshape(shape)).to(x.dtype)
+        ctx.save_for_backward(xhat, invstd, g, count)
+        ctx.meta = (group, x.dtype, gamma.dtype, beta.dtype, axes, shape)
+        ctx.mark_non_differentiable(mean, var)
+        return out, mean, var
+
+    @staticmethod
+    def backward(ctx, dy, _dmean, _dvar):
+        import torch.distributed as dist
+        xhat, invstd, g, count = ctx.saved_tensors
+        group, x_dt, g_dt, b_dt, axes, shape = ctx.meta
+        dyf = dy.to(xhat.dtype)
+        c = xhat.shape[1]
+        sums = torch.cat([dyf.sum(dim=axes), (dyf * xhat).sum(dim=axes)])
+        dgamma, dbeta = sums[c:].to(g_dt), sums[:c].to(b_dt)
+        sums = sums.clone()
+        dist.all_reduce(sums, group=group)
+        mdy = (sums[:c] / count).reshape(shape)
+        mdyx = (sums[c:] / count).reshape(shape)
+        dx = (g * invstd).reshape(shape) * (dyf - mdy - xhat * mdyx)
+        return dx.to(x_dt), dgamma, dbeta, None, None
+
+
+def batch_norm_train_sync(x, gamma, beta, eps: float, group=None):
+    """:func:`batch_norm_train` over the global batch whose rows the
+    ranks of ``group`` (a ``torch.distributed`` group; None is the
+    default one) hold between them: ``(out, batch_mean, batch_var)``,
+    the statistics the global batch's, equal on every rank. Collectives
+    cannot be captured into a CUDA graph: a capture raises."""
+    if x.is_cuda and torch.cuda.is_current_stream_capturing():
+        raise MXNetError(
+            "BatchNorm with statistics across ranks cannot be captured "
+            "into a CUDA graph: train it with compile_step's zero or "
+            "mesh mode, which run eagerly")
+    return _SyncBatchNorm.apply(x, gamma, beta, eps, group)
 
 
 def _affine(out, x, gamma, beta):

@@ -8,11 +8,12 @@ from .collectives import (allgather, allgather_bucketed, allreduce,
                           reduce_scatter_bucketed)
 from .compression import GradientCompression
 from .mesh import (DeviceMesh, current_mesh, data_parallel_mesh, make_mesh,
-                   place_on_mesh, replicate, shard_batch, zero_shard_pad)
+                   place_on_mesh, replicate, shard_batch, split_batch,
+                   zero_shard_pad)
 
 __all__ = ["collectives", "compression", "dist", "mesh",
            "GradientCompression", "DeviceMesh", "make_mesh",
            "current_mesh", "data_parallel_mesh", "shard_batch",
-           "place_on_mesh", "replicate", "zero_shard_pad", "allreduce",
+           "place_on_mesh", "replicate", "split_batch", "zero_shard_pad", "allreduce",
            "allgather", "reduce_scatter", "broadcast_axis",
            "reduce_scatter_bucketed", "allgather_bucketed"]

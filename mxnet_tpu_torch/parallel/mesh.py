@@ -12,6 +12,7 @@ JAX package's "shard dim 0 when divisible, else replicate").
 """
 from __future__ import annotations
 
+import contextlib
 import threading
 from typing import Dict, Optional, Tuple
 
@@ -24,7 +25,8 @@ from . import dist as _dist
 
 __all__ = ["DeviceMesh", "make_mesh", "current_mesh", "data_parallel_mesh",
            "shard_batch", "place_on_mesh", "batch_is_sharded", "replicate",
-           "zero_shard_pad", "carry_placement", "global_lead"]
+           "zero_shard_pad", "carry_placement", "global_lead", "split_batch",
+           "split_mesh"]
 
 _state = threading.local()
 
@@ -166,6 +168,40 @@ def batch_is_sharded(mesh: DeviceMesh, axis: str, leaves) -> bool:
     return n > 1 and any(
         _placed(d, mesh, axis) or _divides(d, n) for d in leaves
         if isinstance(d, (torch.Tensor, np.ndarray)))
+
+
+@contextlib.contextmanager
+def split_batch(mesh: Optional[DeviceMesh] = None, axis: str = "dp",
+                split: bool = True):
+    """Mark the work inside as one global batch whose leading axis
+    ``mesh`` split along ``axis`` (each rank its own rows, as
+    :func:`place_on_mesh` keeps them), for the ops whose result spans
+    the batch: a training ``BatchNorm`` then takes its statistics over
+    the axis's ranks (:func:`split_mesh`), as the JAX package's one
+    SPMD program does. ``compile_step``'s ``zero`` and ``mesh`` modes
+    enter it for a batch they split; a loop written by hand enters it
+    around its forward. ``split=False`` marks a batch every rank holds
+    whole (inside an outer scope too)."""
+    mesh = mesh or current_mesh()
+    stack = getattr(_state, "split", None)
+    if stack is None:
+        stack = _state.split = []
+    stack.append((mesh, axis) if split and mesh is not None else None)
+    try:
+        yield
+    finally:
+        stack.pop()
+
+
+def split_mesh() -> Optional[DeviceMesh]:
+    """The mesh whose ranks hold the rows of the batch under way (the
+    innermost :func:`split_batch` on this thread, over an axis of size
+    >= 2), else None: a batch each rank holds whole."""
+    stack = getattr(_state, "split", None)
+    top = stack[-1] if stack else None
+    if top is None or top[0].axis_size(top[1]) < 2:
+        return None
+    return top[0]
 
 
 def shard_batch(data, mesh: Optional[DeviceMesh] = None, axis: str = "dp"):

@@ -20,6 +20,7 @@ or bfloat16 through ``amp.convert_hybrid_block``).
 """
 from __future__ import annotations
 
+import contextlib
 import threading
 import time
 from typing import Dict, Optional, Sequence
@@ -32,7 +33,7 @@ from ..context import resolve_device
 from ..captured import Programs, map_tensors
 
 __all__ = ["CompiledPredictor", "DEFAULT_BUCKETS", "map_tensors",
-           "predictor_for", "synchronize"]
+           "predictor_for", "synchronize", "device_scope"]
 
 #: default leading-dim shape buckets: powers of two up to 64
 DEFAULT_BUCKETS = (1, 2, 4, 8, 16, 32, 64)
@@ -65,6 +66,14 @@ def _static_key(leaf):
     if leaf is None or isinstance(leaf, (bool, int, float, str)):
         return leaf
     return repr(leaf)
+
+
+def device_scope(device: torch.device):
+    """``device`` as the current CUDA device inside (nothing for the
+    CPU)."""
+    if device.type == "cuda":
+        return torch.cuda.device(device)
+    return contextlib.nullcontext()
 
 
 def synchronize(device: torch.device) -> None:
@@ -177,15 +186,16 @@ class CompiledPredictor:
     def aot_compile(self, *args, **kwargs) -> float:
         """Capture the program of this (bucket-shaped) batch ahead of
         traffic, unless it exists; returns its capture seconds."""
-        with self._mu:
+        with self._mu, device_scope(self.device):
             return self._program(args, kwargs)[0].capture_s
 
     def predict(self, *args, **kwargs):
         """Run one (bucket-shaped) batch: its arguments are copied into
         its program's static inputs and the program replays. Returns
         copies of the net's outputs on the device, without waiting for
-        the device to finish them."""
-        with self._mu:
+        the device to finish them. The predictor's card is the current
+        device meanwhile, whichever thread calls."""
+        with self._mu, device_scope(self.device):
             prog, tensors = self._program(args, kwargs)
             for static, t in zip(prog.inputs, tensors):
                 static.copy_(t)

@@ -77,7 +77,7 @@ def test_package_has_its_modules():
               "gluon/contrib/nn/__init__.py",
               "gluon/contrib/nn/basic_layers.py",
               "gluon/contrib/estimator/__init__.py",
-              "gluon/contrib/estimator/estimator.py",
+              "gluon/contrib/estimator/estimator.py", "serving/fleet.py",
               "gluon/contrib/estimator/event_handler.py"):
         assert os.path.join("mxnet_tpu_torch", m) in rel, m
     csrc = os.listdir(os.path.join(PKG, "ops", "kernels", "csrc"))

@@ -255,8 +255,11 @@ def test_concurrent_identity_and_sparse_embedding_vs_jax():
     jg = jg.tostype("default") if hasattr(jg, "tostype") else jg
     assert te.sparse_grad
     close(te.weight.grad, jg, TOL)
-    with pytest.raises(mxt.MXNetError, match="queue 1, item 8"):
-        tcnn.SyncBatchNorm(in_channels=4)
+    # SyncBatchNorm constructs with the reference's signature and is
+    # gluon.nn's BatchNorm (its cases are in test_torch_zero.py)
+    sb = tcnn.SyncBatchNorm(in_channels=4, num_devices=2, device="cpu")
+    assert isinstance(sb, tnn.BatchNorm) and tcnn.SyncBatchNorm is \
+        tnn.SyncBatchNorm
 
 
 def test_contrib_exports_match_jax():

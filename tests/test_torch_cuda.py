@@ -228,6 +228,28 @@ def test_flash_bwd_fused_bf16_edges_on_card(cuda_dev, case):
 
 
 @pytest.mark.cuda
+def test_flash_bwd_fused_f32_on_a_second_card_in_one_process(cuda_dev):
+    """The float32 fused backward's shared-memory attribute belongs to
+    the device current when it is set: launched on cuda:0 and then on
+    cuda:1 from one process (as a fleet drives several cards), each
+    launch is within its plain version's tolerance."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two cards")
+    case = (2, 4, 128, 128, 64, False)
+    for dev in (torch.device("cuda", 0), torch.device("cuda", 1)):
+        q, k, v, out, lse, do, causal = _bwd_inputs(case, torch.float32,
+                                                    dev)
+        K.reset_launch_counts()
+        got = ATT.flash_attention_bwd(q, k, v, out, lse, do, causal)
+        torch.cuda.synchronize(dev)
+        assert K.launch_counts()["flash_bwd_fused"] == 1
+        ref = ATT.flash_attention_bwd_plain(q, k, v, out, lse, do, causal)
+        for g, r in zip(got, ref):
+            assert g.device == dev
+            torch.testing.assert_close(g, r, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
 def test_amp_bert_launches_by_dtype_on_card(cuda_dev):
     """bert_small_test under amp, forward and backward on the card: the
     flash kernels launch in bf16, the LayerNorm kernels in float32, and

@@ -693,6 +693,233 @@ def test_four_rank_zero_bert_vs_eager_trainer():
 
 
 # ---------------------------------------------------------------------------
+# BatchNorm over the dp group: the statistics of the global batch
+# ---------------------------------------------------------------------------
+
+BN_STEPS = 3
+BN_LR = 0.1
+
+
+def _bn_weights(seed=7):
+    """A conv net with BatchNorm: Conv2D(4, 3x3, pad 1) on 2 channels,
+    BatchNorm(4), ReLU, global average pool, Dense(3)."""
+    r = onp.random.RandomState(seed)
+    w = {"0.weight": r.randn(4, 2, 3, 3) * 0.5, "0.bias": r.randn(4) * 0.1,
+         "1.gamma": 1.0 + r.randn(4) * 0.2, "1.beta": r.randn(4) * 0.1,
+         "1.running_mean": r.randn(4) * 0.1,
+         "1.running_var": 1.0 + r.rand(4) * 0.5,
+         "5.weight": r.randn(3, 4) * 0.5, "5.bias": r.randn(3) * 0.1}
+    return {k: v.astype("f4") for k, v in w.items()}
+
+
+def _bn_batch(bs, seed=11):
+    r = onp.random.RandomState(seed)
+    # an offset mean a channel: a one-pass variance would show it
+    x = r.randn(bs, 2, 5, 5) * 2.0 + onp.array([3.0, -1.0])[:, None, None]
+    return x.astype("f4"), r.randint(0, 3, (bs,)).astype("f4")
+
+
+def _torch_bn_net(weights, sync):
+    from mxnet_tpu_torch.gluon import nn as tnn
+    from mxnet_tpu_torch.gluon.contrib import nn as tcnn
+    norm = tcnn.SyncBatchNorm(in_channels=4, num_devices=DP, device="cpu") \
+        if sync else tnn.BatchNorm(in_channels=4, device="cpu")
+    net = tnn.HybridSequential()
+    net.add(tnn.Conv2D(4, 3, padding=1, in_channels=2, device="cpu"), norm,
+            tnn.Activation("relu"), tnn.GlobalAvgPool2D(), tnn.Flatten(),
+            tnn.Dense(3, in_units=4, device="cpu"))
+    load_jax_params(net, weights)
+    return net
+
+
+def _bn_train(net, step, x, y, steps):
+    """Losses and every parameter after each step."""
+    losses, params = [], [_rank_params(net)]
+    for _ in range(steps):
+        losses.append(step(x, y).numpy().copy())
+        params.append(_rank_params(net))
+    return losses, params
+
+
+def _worker_bn(weights, cases, steps):
+    """One rank: each case (sync layer, zero_shard, batch) through
+    ``compile_step`` under a dp mesh, on the global batch."""
+    torch.set_num_threads(1)
+    out = []
+    for sync, zero_shard, bs in cases:
+        net = _torch_bn_net(weights, sync)
+        tr = TTrainer(dict(net.named_parameters()), "sgd",
+                      {"learning_rate": BN_LR})
+        lb = tloss.SoftmaxCrossEntropyLoss()
+        step = tr.compile_step(lambda a, b: lb(net(a), b),
+                               zero_shard=zero_shard)
+        x, y = _bn_batch(bs)
+        with tmake_mesh({"dp": tdist.size()}):
+            losses, params = _bn_train(net, step, x, y, steps)
+        out.append({"losses": losses, "params": params, "mode": step.mode})
+    return out
+
+
+def _jax_bn(weights, sync, bs, steps, dp):
+    """The JAX package's step on the same net: the ZeRO step over a dp
+    mesh of the 8-device virtual CPU (``dp`` 4), or one device
+    (``dp`` None)."""
+    import contextlib
+    import jax
+    import mxnet_tpu as mx
+    from mxnet_tpu.gluon import Trainer as JTrainer
+    from mxnet_tpu.gluon import loss as jloss
+    from mxnet_tpu.gluon import nn as jnn
+    from mxnet_tpu.parallel import make_mesh as jmake_mesh
+    from mxnet_tpu.parallel import shard_batch
+    net = jnn.HybridSequential()
+    net.add(jnn.Conv2D(4, 3, padding=1, in_channels=2),
+            (jnn.SyncBatchNorm if sync else jnn.BatchNorm)(in_channels=4),
+            jnn.Activation("relu"), jnn.GlobalAvgPool2D(), jnn.Flatten(),
+            jnn.Dense(3, in_units=4))
+    net.initialize()
+    for k, p in net.collect_params().items():
+        p.set_data(mx.nd.array(weights[k]))
+    tr = JTrainer(net.collect_params(), "sgd", {"learning_rate": BN_LR})
+    lb = jloss.SoftmaxCrossEntropyLoss()
+    step = tr.compile_step(lambda a, b: lb(net(a), b))
+    x, y = _bn_batch(bs)
+    snap = lambda: {k: p.data().asnumpy()  # noqa: E731
+                    for k, p in net.collect_params().items()}
+    losses, params = [], [snap()]
+    scope = jmake_mesh({"dp": dp}, jax.devices()[:dp]) if dp \
+        else contextlib.nullcontext()
+    with scope as mesh:
+        xs, ys = mx.nd.array(x), mx.nd.array(y)
+        if dp:
+            xs, ys = shard_batch(xs, mesh), shard_batch(ys, mesh)
+        for _ in range(steps):
+            losses.append(step(xs, ys).asnumpy())
+            params.append(snap())
+    return losses, params
+
+
+def _bn_close(got, ref, what):
+    """BatchNorm at dp 4 against the one-program reference: the
+    per-channel sums are taken a rank at a time, then across ranks, so
+    losses agree to 1e-5, each step's gradient ((w_t - w_t+1) / lr) and
+    the running statistics to rtol 1e-4 / atol 1e-5."""
+    gl, gp = got
+    rl, rp = ref
+    for a, b in zip(gl, rl):
+        onp.testing.assert_allclose(a, b, atol=1e-5, err_msg=what)
+    for t in range(len(rl)):
+        for k in rp[0]:
+            if "running" in k:
+                onp.testing.assert_allclose(gp[t + 1][k], rp[t + 1][k],
+                                            rtol=1e-4, atol=1e-5,
+                                            err_msg=f"{what} {k} step {t}")
+            else:
+                onp.testing.assert_allclose(
+                    (gp[t][k] - gp[t + 1][k]) / BN_LR,
+                    (rp[t][k] - rp[t + 1][k]) / BN_LR, rtol=1e-4,
+                    atol=1e-5, err_msg=f"{what} grad {k} step {t}")
+
+
+# (sync layer, zero_shard, global batch): the zero mode with BatchNorm and
+# with SyncBatchNorm, the plain mesh mode, and a batch of 6 rows that does
+# not divide by 4 (each rank computes it whole)
+BN_CASES = ((False, None, 8), (True, None, 8), (False, False, 8),
+            (False, None, 6))
+
+
+@pytest.fixture(scope="module")
+def bn_ranks():
+    return tdist.spawn(_worker_bn, DP, "cpu",
+                       (_bn_weights(), BN_CASES, BN_STEPS),
+                       timeout_s=SPAWN_TIMEOUT_S)
+
+
+@pytest.mark.parametrize("case", range(len(BN_CASES)),
+                         ids=["zero", "zero_sync", "mesh", "whole_batch"])
+def test_four_rank_batchnorm_vs_jax_zero_step(bn_ranks, case):
+    """Four gloo ranks, each holding 1/4 of the batch, against the JAX
+    ZeRO step at dp 4: BatchNorm normalises with the global batch's
+    statistics on every rank, so the losses, every step's gradients
+    and the running statistics match the one SPMD program's, and the
+    running statistics are bit-identical on every rank (the ones a
+    checkpoint takes from rank 0). A batch of 6 rows is computed whole
+    on every rank, as before, and held against the JAX one-device step."""
+    sync, zero_shard, bs = BN_CASES[case]
+    # the JAX mesh does not place 6 rows on 4 devices: its one-device
+    # step is the whole batch's reference
+    ref = _jax_bn(_bn_weights(), sync, bs, BN_STEPS, DP if bs % DP == 0
+                  else None)
+    ranks = [r[case] for r in bn_ranks]
+    for i, r in enumerate(ranks):
+        assert r["mode"] == ("mesh" if zero_shard is False else "zero")
+        _bn_close((r["losses"], r["params"]), ref, f"rank {i}")
+        for k in ("1.running_mean", "1.running_var"):
+            onp.testing.assert_array_equal(r["params"][-1][k],
+                                           ranks[0]["params"][-1][k])
+    # the running statistics moved: the check is not of initial values
+    assert not onp.allclose(ranks[0]["params"][-1]["1.running_mean"],
+                            ranks[0]["params"][0]["1.running_mean"])
+
+
+def test_four_rank_batchnorm_is_not_each_ranks_own(bn_ranks):
+    """What the repair changed: normalising each rank's 2 rows with their
+    own statistics (the step without ``split_batch``) parts from the
+    JAX step far beyond the tolerance above."""
+    ref = _jax_bn(_bn_weights(), False, 8, 1, DP)
+    x, y = _bn_batch(8)
+    net = _torch_bn_net(_bn_weights(), False)
+    lb = tloss.SoftmaxCrossEntropyLoss()
+    local = onp.concatenate([
+        lb(net(torch.from_numpy(x[2 * r:2 * r + 2])),
+           torch.from_numpy(y[2 * r:2 * r + 2])).detach().numpy()
+        for r in range(DP)])
+    assert onp.abs(local - ref[0][0]).max() > 1e-3
+    onp.testing.assert_allclose(bn_ranks[0][0]["losses"][0], ref[0][0],
+                                atol=1e-5)
+
+
+@pytest.mark.parametrize("sync", [False, True])
+def test_one_process_batchnorm_vs_jax_step(sync):
+    """One process: SyncBatchNorm is BatchNorm (bit for bit), and both
+    train as the JAX package's one-device step."""
+    weights = _bn_weights()
+    x, y = _bn_batch(8)
+    got = []
+    for s in (False, sync):
+        net = _torch_bn_net(weights, s)
+        tr = TTrainer(dict(net.named_parameters()), "sgd",
+                      {"learning_rate": BN_LR})
+        lb = tloss.SoftmaxCrossEntropyLoss()
+        step = tr.compile_step(lambda a, b: lb(net(a), b))
+        got.append(_bn_train(net, step, x, y, BN_STEPS))
+    for a, b in zip(got[0][0], got[1][0]):
+        onp.testing.assert_array_equal(a, b)
+    for pa, pb in zip(got[0][1], got[1][1]):
+        for k in pa:
+            onp.testing.assert_array_equal(pa[k], pb[k])
+    _bn_close(got[1], _jax_bn(weights, sync, 8, BN_STEPS, None), "one")
+
+
+def test_split_batch_scope_marks_the_sync_statistics():
+    """``parallel.split_batch`` is what makes a BatchNorm take the
+    statistics across ranks: with no mesh, a mesh of one, or
+    ``split=False`` no collective runs; the scopes nest per thread."""
+    from mxnet_tpu_torch.parallel import mesh as tmesh
+    assert tmesh.split_mesh() is None
+    m1 = tmake_mesh({"dp": 1})
+    with tmesh.split_batch(m1):
+        assert tmesh.split_mesh() is None        # one rank: local ops
+    fake = tmesh.DeviceMesh({"dp": 4})
+    with tmesh.split_batch(fake):
+        assert tmesh.split_mesh() is fake
+        with tmesh.split_batch(fake, split=False):
+            assert tmesh.split_mesh() is None
+        assert tmesh.split_mesh() is fake
+    assert tmesh.split_mesh() is None
+
+
+# ---------------------------------------------------------------------------
 # the gate, the window
 # ---------------------------------------------------------------------------
 
