@@ -23,6 +23,7 @@
     python3 chip_smoke.py --cells       # phases 1, 2 and 16 alone
     python3 chip_smoke.py --fleet       # phases 1, 2 and 17 alone (17b
                                         # on three or more cards)
+    python3 chip_smoke.py --data        # phases 1, 2 and 18 alone
     python3 chip_smoke.py --compare DIR  # A/B on one card: the flash
         # forward, the flash backward (fused at BERT training's shape;
         # dq, dkv at phase 7's), the recurrence kernels, the LayerNorm
@@ -423,15 +424,38 @@ Phases, each of which fails the run (non-zero exit) when it fails:
     skew, each answer against the CPU copy of its ``fut.version``,
     ``n_traces`` unchanged); with two or more cards, the float32 fused
     flash backward launched on cuda:0 then cuda:1 from one process.
+18. the input pipeline at full width: (a) 1,536 synthetic 3 x 480 x 640
+    images as raw records (``recordio``) through ``RecordFileDataset``,
+    gluon-cv's ImageNet augmentation and an 8-thread ``DataLoader``
+    staging two batches ahead on the card, three epochs (36 batches of
+    128) of phase 14's captured float32 ResNet-50 step: the first staged
+    batch bit-equal to the host loader's without workers from the same
+    seeds, labels those of their records, one ``opt_update`` a step,
+    nothing captured after the warm-up; images/s end to end (steps 2-36,
+    and within epochs without each epoch's first step) beside the step
+    on a resident batch, the loader's input wait and starvation, the
+    host ms a sample and the batchify ms; then, with PIL, 512 of the
+    images as JPEG records read by ``io.ImageRecordIter`` (records/s, 4
+    steps) and by ``ImageRecordDataset`` (one step); (b) phase 8's word LM trained as
+    MXNet's word_language_model example trains it: windows through
+    ``IntervalSampler``, ``clip_global_norm`` at 0.25 x 35 x 64, SGD
+    ``step(1)``, ten eager steps (and one clipping at half its norm if
+    none clipped): staged batches equal to the host's, each norm within
+    1e-5 of a float64 CPU norm, the clipped norm within the bound, the
+    update against a CPU copy, 2 + 2 + 1 launches a step; step, clip and
+    plain-step ms.
 
 ``{"launch_counts": {...}, "bf16_launch_counts": {...},
 "dist_kv_launch_counts": {...}, "resnet_launch_counts": {...},
 "surface_launch_counts": {...}, "cells_launch_counts": {...},
-"fleet_launch_counts": {...}}`` gives
+"fleet_launch_counts": {...}, "data_launch_counts": {...}}`` gives
 each kernel's launches on its path, on its bf16 path where it has one,
 on phase 13's one-card path, on phase 14's float32 and bf16 paths, on
-phase 15's LAMB and NAG paths, on phase 16's cell-built LM and on phase
-17a's supervised float32 serving (rows 1 and 5, ``fleet_launches``).
+phase 15's LAMB and NAG paths, on phase 16's cell-built LM, on phase
+17a's supervised float32 serving (rows 1 and 5, ``fleet_launches``) and
+on phase 18's two paths (``opt_update`` on ``resnet50_records`` and
+``lstm_lm_clipped``, the recurrence kernels on ``lstm_lm_clipped``:
+``data_launches`` by path, ``data_path``).
 The line before the last is a JSON object with one entry per kernel
 (launches on its float32 path, error, times, bound; then its bf16 path,
 bf16 launches there, and its bf16 error, times and bound; ``rnn_decode``
@@ -6281,6 +6305,13 @@ def update_vs_cpu(torch, trainer, twin, grads, batch):
         c.grad, c.fresh_grad = g.detach().cpu(), True
     trainer.step(batch)
     twin.step(batch)
+    return twin_gap(trainer, twin)
+
+
+def twin_gap(trainer, twin):
+    """``trainer``'s weights (on the card) against its CPU ``twin``'s
+    after the same update: {largest |card - cpu|, its excess over
+    SURFACE_UPD_ATOL + SURFACE_UPD_RTOL |cpu| (<= 0 passes), elements}."""
     worst, excess, n = 0.0, -1.0, 0
     for p, c in zip(trainer._params, twin._params):
         ref = c.detach()
@@ -8525,6 +8556,506 @@ def zero_batchnorm(torch, np, smi, device="cuda", world=None,
     return report
 
 
+#: phase 18: the input pipeline at full width. (a) gluon-cv's ImageNet
+#: input path (scripts/classification/imagenet/train_imagenet.py) into
+#: phase 14's captured float32 step (resnet50_v1, SGD momentum 0.9, lr
+#: 0.1, under ``cudnn.deterministic``): DATA_RECORDS synthetic images of
+#: DATA_SHAPE (480 the shorter side of im2rec's ``--resize 480``) as raw
+#: CHW uint8 records, labels in 0-999, made from DATA_SEED in a temporary
+#: directory the phase removes; ``RecordFileDataset`` → decode
+#: (``recordio.unpack``, ``image.imdecode_or_raw``) → the recipe's
+#: augmentation → ``DataLoader(batch RESNET_BATCH, shuffle,
+#: last_batch="discard", DATA_WORKERS threads, staged DATA_DEPTH batches
+#: ahead on the card)`` for DATA_EPOCHS epochs of DATA_RECORDS //
+#: RESNET_BATCH steps; then, with PIL, DATA_JPEG_RECORDS images as JPEG
+#: (quality DATA_JPEG_QUALITY, im2rec's default) read by
+#: ``io.ImageRecordIter`` (decoded, resized to 224 x 224 through
+#: ``imresize_np``, mirrored, the ImageNet mean and std in 0-255) for
+#: DATA_ITER_BATCHES batches through the same step, and by
+#: ``ImageRecordDataset`` for one batch. (b) MXNet's example/gluon/word_language_model/train.py loop
+#: on phase 8's WordLM: the bptt-long (data, target) windows of a stream
+#: of LM_BATCH x LM_BPTT x DATA_LM_WINDOWS + 1 tokens, ``IntervalSampler``,
+#: ``loss.backward()``, ``clip_global_norm`` at DATA_LM_CLIP x bptt x
+#: batch, SGD without momentum, ``step(1)`` (lr DATA_LM_LR: phase 8's on
+#: the batch's mean, the loss here being the batch's sum)
+DATA_RECORDS, DATA_SHAPE, DATA_LABELS = 1536, (3, 480, 640), 1000
+DATA_EPOCHS, DATA_WORKERS, DATA_DEPTH, DATA_SEED = 3, 8, 2, 18
+DATA_MEAN, DATA_STD = (0.485, 0.456, 0.406), (0.229, 0.224, 0.225)
+DATA_MEAN_255, DATA_STD_255 = (123.68, 116.28, 103.53), \
+    (58.395, 57.12, 57.375)
+DATA_ITER_BATCHES, DATA_JPEG_QUALITY = 4, 95
+DATA_JPEG_RECORDS = DATA_ITER_BATCHES * RESNET_BATCH
+#: the captured step timed on a resident batch, beside the fed steps
+DATA_RESIDENT_STEPS = 5
+DATA_LM_WINDOWS, DATA_LM_CLIP, DATA_LM_LR = 10, 0.25, LM_LR / LM_BATCH
+#: 18b's eager steps without the clip, timed after the clipped run
+DATA_LM_PLAIN_STEPS = 3
+#: 18b: each step's returned norm against a float64 CPU norm of the same
+#: card gradients (relative); a clipped global norm at most max_norm x
+#: (1 + DATA_NORM_RTOL)
+DATA_NORM_RTOL = 1e-5
+#: the kernels of phase 18's paths
+DATA_KERNELS = {"opt_update": ("resnet50_records", "lstm_lm_clipped"),
+                "rnn_scan_fwd": ("lstm_lm_clipped",),
+                "rnn_scan_bwd": ("lstm_lm_clipped",)}
+
+
+class DataWindows:
+    """The ``bptt``-long (data, target) windows of a token stream, one a
+    sample (the word LM example's batchified corpus)."""
+
+    def __init__(self, stream, bptt):
+        self.stream, self.bptt = stream, bptt
+
+    def __len__(self):
+        return (len(self.stream) - 1) // self.bptt
+
+    def __getitem__(self, i):
+        s = self.stream[i * self.bptt:(i + 1) * self.bptt + 1]
+        return s[:-1], s[1:]
+
+
+class TimedDataset:
+    """``dataset`` with the wall ms of each read kept (a loader's
+    workers read it from several threads)."""
+
+    def __init__(self, dataset):
+        import threading
+        self._dataset = dataset
+        self._mu = threading.Lock()
+        self.ms = []
+
+    def __len__(self):
+        return len(self._dataset)
+
+    def __getitem__(self, i):
+        t0 = time.perf_counter()
+        out = self._dataset[i]
+        with self._mu:
+            self.ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+
+def data_seed(np, seed):
+    """Seed the generators the pipeline draws from (numpy's, for the
+    sampler and the transforms; Python's)."""
+    import random
+    random.seed(seed)
+    np.random.seed(seed)
+
+
+def data_images(np, n, seed=DATA_SEED):
+    """(labels, iterator of ``n`` CHW uint8 images of DATA_SHAPE)."""
+    rs = np.random.RandomState(seed)
+    labels = rs.randint(0, DATA_LABELS, n)
+    size = int(np.prod(DATA_SHAPE))
+
+    def images():
+        for _ in range(n):
+            yield np.frombuffer(rs.bytes(size), np.uint8).reshape(DATA_SHAPE)
+    return labels, images()
+
+
+def data_records(np, path):
+    """Write the DATA_RECORDS records of phase 18a (raw payloads, header
+    id the record's index) with ``MXIndexedRecordIO``; returns their
+    labels."""
+    from mxnet_tpu_torch import recordio
+    labels, images = data_images(np, DATA_RECORDS)
+    w = recordio.MXIndexedRecordIO(os.path.splitext(path)[0] + ".idx", path,
+                                   "w")
+    for i, img in enumerate(images):
+        w.write_idx(i, recordio.pack(
+            recordio.IRHeader(0, float(labels[i]), i, 0), img.tobytes()))
+    w.close()
+    return labels
+
+
+def data_decode(rec):
+    """A raw record as (HWC float32 image, label, record id)."""
+    from mxnet_tpu_torch import image, recordio
+    head, payload = recordio.unpack(rec)
+    return image.imdecode_or_raw(payload, DATA_SHAPE), head.label, head.id
+
+
+def data_augment():
+    """gluon-cv's ImageNet training augmentation."""
+    from mxnet_tpu_torch.gluon.data.vision import transforms as T
+    return T.Compose([T.RandomResizedCrop(RESNET_SIZE),
+                      T.RandomFlipLeftRight(),
+                      T.RandomColorJitter(0.4, 0.4, 0.4),
+                      T.RandomLighting(0.1), T.ToTensor(),
+                      T.Normalize(DATA_MEAN, DATA_STD)])
+
+
+def step_launches(K, before):
+    after = K.launch_counts()
+    return {n: after[n] - before[n] for n in after}
+
+
+def data_resnet(torch, np, K, dev, smi):
+    """Phase 18a. Gates: the first staged batch bit-equal to the same
+    loader's first batch on the host without workers, from the same
+    seeds; every batch's labels those of its records; finite losses;
+    exactly one ``opt_update`` a step and nothing else of the library;
+    one capture, made before the steps. Returns the launches of the
+    loader's steps (counted from 0)."""
+    import shutil
+    import tempfile
+    from mxnet_tpu_torch.gluon import Trainer
+    from mxnet_tpu_torch.gluon.data import DataLoader, RecordFileDataset
+    from mxnet_tpu_torch.gluon.data import default_batchify_fn
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from mxnet_tpu_torch.gluon.model_zoo.vision import resnet50_v1
+    from mxnet_tpu_torch.gluon.params import load_jax_params
+    tmp = tempfile.mkdtemp(prefix="mxt-records-")
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        rec = os.path.join(tmp, "train.rec")
+        t0 = time.perf_counter()
+        labels = data_records(np, rec)
+        write_s = time.perf_counter() - t0
+        rec_bytes = os.path.getsize(rec)
+        ds = RecordFileDataset(rec).transform(data_decode) \
+            .transform_first(data_augment())
+
+        # the host reference: the first batch without workers
+        batchify_ms = []
+
+        def timed_batchify(samples):
+            t = time.perf_counter()
+            out = default_batchify_fn(samples)
+            batchify_ms.append((time.perf_counter() - t) * 1e3)
+            return out
+        host_ds = TimedDataset(ds)
+        data_seed(np, DATA_SEED)
+        host = next(iter(DataLoader(host_ds, RESNET_BATCH, shuffle=True,
+                                    last_batch="discard",
+                                    batchify_fn=timed_batchify)))
+
+        net = resnet50_v1(classes=RESNET_CLASSES, device=dev)
+        load_jax_params(net, resnet_init(np, net, seed=6))
+        net.train()
+        trainer = Trainer(dict(net.named_parameters()), "sgd",
+                          {"learning_rate": RESNET_LR,
+                           "momentum": RESNET_MOMENTUM})
+        loss_fn = SoftmaxCrossEntropyLoss()
+        step = trainer.compile_step(lambda a, b: loss_fn(net(a), b))
+        hx, hy = host[0].to(dev), host[1].to(dev)
+        t0 = time.perf_counter()
+        step.aot_compile(hx, hy)
+        torch.cuda.synchronize()
+        capture_s = time.perf_counter() - t0
+        n_warm = step.n_traces
+
+        card_ds = TimedDataset(ds)
+        loader = DataLoader(card_ds, RESNET_BATCH, shuffle=True,
+                            last_batch="discard", num_workers=DATA_WORKERS,
+                            device=dev, prefetch_to_device=DATA_DEPTH)
+        expect = {n: 0 for n in K.KERNELS}
+        expect.update(opt_update=1)
+        losses, step_ms, per_step, starts = [], [], [], []
+        first_equal, labels_ok = None, True
+        wait_ms, starved = 0.0, 0
+        data_seed(np, DATA_SEED)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        K.reset_launch_counts()
+        t_prev = time.perf_counter()
+        for _ in range(DATA_EPOCHS):
+            starts.append(len(step_ms))
+            for x, y, ids in loader:
+                before = K.launch_counts()
+                loss = step(x, y)
+                torch.cuda.synchronize()
+                now = time.perf_counter()
+                step_ms.append((now - t_prev) * 1e3)
+                t_prev = now
+                per_step.append(step_launches(K, before))
+                losses.append(float(loss.mean()))
+                if first_equal is None:
+                    first_equal = all(bool(torch.equal(a.cpu(), b))
+                                      for a, b in zip((x, y, ids), host))
+                ids_np = ids.cpu().numpy()
+                labels_ok &= bool(np.array_equal(
+                    y.cpu().numpy(), labels[ids_np].astype(np.float32)))
+            stats = loader.device_prefetch_stats
+            wait_ms += stats["input_wait_ms"]
+            starved += stats["starvation_count"]
+        counts = K.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        n_after = step.n_traces
+
+        resident_ms = []
+        for _ in range(DATA_RESIDENT_STEPS):
+            t0 = time.perf_counter()
+            step(hx, hy)
+            torch.cuda.synchronize()
+            resident_ms.append((time.perf_counter() - t0) * 1e3)
+
+        jpeg = data_jpeg(torch, np, K, dev, tmp, step, expect)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+        shutil.rmtree(tmp, ignore_errors=True)
+    fed = step_ms[1:]
+    within = [ms for i, ms in enumerate(step_ms) if i not in starts]
+    resident = statistics.median(resident_ms[1:])
+    n_host = len(host_ds.ms)
+    report = {
+        "model": "resnet50_v1", "records": DATA_RECORDS,
+        "record_shape": list(DATA_SHAPE), "file_bytes": rec_bytes,
+        "write_s": write_s, "batch": RESNET_BATCH, "epochs": DATA_EPOCHS,
+        "workers": DATA_WORKERS, "prefetch_to_device": DATA_DEPTH,
+        "steps": len(losses), "losses": losses, "step_ms": step_ms,
+        "images_per_s_steps_2_on": RESNET_BATCH * len(fed) / (sum(fed) / 1e3),
+        "images_per_s_within_epochs":
+            RESNET_BATCH * len(within) / (sum(within) / 1e3),
+        "epoch_start_ms": [step_ms[i] for i in starts],
+        "resident_step_ms": resident_ms,
+        "resident_images_per_s": RESNET_BATCH / (resident / 1e3),
+        "input_wait_ms": wait_ms, "starvation_count": starved,
+        "host_sample_ms": statistics.median(host_ds.ms),
+        "host_sample_ms_mean": sum(host_ds.ms) / n_host,
+        "host_samples": n_host,
+        "worker_sample_ms": statistics.median(card_ds.ms),
+        "worker_sample_ms_mean": statistics.mean(card_ds.ms),
+        "worker_samples": len(card_ds.ms),
+        "batchify_ms": batchify_ms[0],
+        "first_batch_bit_equal_to_host": first_equal,
+        "labels_match_records": labels_ok, "capture_s": capture_s,
+        "n_traces_after_warmup": n_warm, "n_traces_after_steps": n_after,
+        "launches": counts, "launches_per_step": per_step[-1],
+        "launches_per_step_expected": expect,
+        "max_memory_allocated": peak, "jpeg": jpeg, "card": smi}
+    report["ok"] = bool(
+        first_equal and labels_ok and all(math.isfinite(v) for v in losses)
+        and all(s == expect for s in per_step)
+        and n_warm == n_after == 1
+        and len(losses) == DATA_EPOCHS * (DATA_RECORDS // RESNET_BATCH)
+        and (jpeg is None or jpeg["ok"]))
+    print(smi, flush=True)
+    emit({"data_records_resnet": report})
+    if not report["ok"]:
+        raise SystemExit(f"phase 18a failed: {report}")
+    return counts
+
+
+def data_jpeg(torch, np, K, dev, tmp, step, expect):
+    """Phase 18a's JPEG leg: DATA_JPEG_RECORDS images written with
+    ``recordio.pack_img``, read by ``io.ImageRecordIter`` for
+    DATA_ITER_BATCHES steps and by ``ImageRecordDataset`` for one (a
+    batch sampler of one seeded batch, so one worker builds it alone);
+    None (and a line saying so) without PIL."""
+    try:
+        import PIL  # noqa: F401
+    except ImportError:
+        print("phase 18a's JPEG leg (io.ImageRecordIter, "
+              "ImageRecordDataset) did not run: PIL is not installed on "
+              "this host (recordio.pack_img and image.imdecode need it)",
+              flush=True)
+        return None
+    from mxnet_tpu_torch import io as mxio
+    from mxnet_tpu_torch import recordio
+    from mxnet_tpu_torch.gluon.data import DataLoader
+    from mxnet_tpu_torch.gluon.data.vision import ImageRecordDataset
+    path = os.path.join(tmp, "jpeg.rec")
+    labels, images = data_images(np, DATA_JPEG_RECORDS)
+    t0 = time.perf_counter()
+    w = recordio.MXIndexedRecordIO(os.path.join(tmp, "jpeg.idx"), path, "w")
+    for i, img in enumerate(images):
+        w.write_idx(i, recordio.pack_img(
+            recordio.IRHeader(0, float(labels[i]), i, 0),
+            img.transpose(1, 2, 0), quality=DATA_JPEG_QUALITY))
+    w.close()
+    encode_s = time.perf_counter() - t0
+
+    it = mxio.ImageRecordIter(
+        path, (3, RESNET_SIZE, RESNET_SIZE), RESNET_BATCH, rand_mirror=True,
+        mean_r=DATA_MEAN_255[0], mean_g=DATA_MEAN_255[1],
+        mean_b=DATA_MEAN_255[2], std_r=DATA_STD_255[0],
+        std_g=DATA_STD_255[1], std_b=DATA_STD_255[2])
+    iter_losses, iter_steps, read_s, iter_labels_ok = [], [], 0.0, True
+    data_seed(np, DATA_SEED)
+    for b in range(DATA_ITER_BATCHES):
+        t0 = time.perf_counter()
+        batch = it.next()
+        read_s += time.perf_counter() - t0
+        y = batch.label[0]
+        iter_labels_ok &= bool(np.array_equal(
+            y.numpy(), labels[b * RESNET_BATCH:(b + 1) * RESNET_BATCH]
+            .astype(np.float32)))
+        before = K.launch_counts()
+        loss = step(batch.data[0].to(dev), y.to(dev))
+        torch.cuda.synchronize()
+        iter_steps.append(step_launches(K, before))
+        iter_losses.append(float(loss.mean()))
+    it.close()
+
+    ds = ImageRecordDataset(path).transform_first(data_augment())
+    data_seed(np, DATA_SEED)
+    one = [np.random.permutation(len(ds))[:RESNET_BATCH].tolist()]
+    loader = DataLoader(ds, batch_sampler=one, num_workers=DATA_WORKERS,
+                        device=dev, prefetch_to_device=DATA_DEPTH)
+    t0 = time.perf_counter()
+    x, y = next(iter(loader))
+    torch.cuda.synchronize()
+    batch_s = time.perf_counter() - t0
+    loss = float(step(x, y.float()).mean())
+    return {"records": DATA_JPEG_RECORDS, "quality": DATA_JPEG_QUALITY,
+            "bytes": os.path.getsize(path), "encode_s": encode_s,
+            "image_record_iter": {
+                "batches": DATA_ITER_BATCHES, "losses": iter_losses,
+                "records_per_s": DATA_ITER_BATCHES * RESNET_BATCH / read_s,
+                "read_s": read_s, "labels_match_records": iter_labels_ok,
+                "launches_per_step": iter_steps[-1]},
+            "dataset_first_batch_s": batch_s, "dataset_loss": loss,
+            "ok": bool(
+                iter_labels_ok and all(s == expect for s in iter_steps)
+                and all(math.isfinite(v) for v in iter_losses + [loss])
+                and tuple(x.shape) == (
+                    RESNET_BATCH, 3, RESNET_SIZE, RESNET_SIZE))}
+
+
+def data_lm(torch, np, K, dev, smi):
+    """Phase 18b. Gates: each staged batch equal to its host batch; each
+    step's returned norm within DATA_NORM_RTOL of a float64 CPU norm of
+    the same card gradients; after a clip, the global norm at most
+    max_norm x (1 + DATA_NORM_RTOL); the update fed the clipped
+    gradients within SURFACE_UPD_ATOL + SURFACE_UPD_RTOL |w| of a CPU
+    copy's; exactly LM_LAYERS ``rnn_scan_fwd`` and ``rnn_scan_bwd`` and
+    one ``opt_update`` a step; finite losses. When no step clips at the
+    example's value, one more step (the first batch) clips at half the
+    last step's norm. Returns the launches of the clipped run's steps."""
+    from mxnet_tpu_torch.gluon import Trainer, clip_global_norm
+    from mxnet_tpu_torch.gluon.data import (DataLoader, IntervalSampler,
+                                            SimpleDataset)
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from mxnet_tpu_torch.gluon.model_zoo.word_lm import WordLM
+    from mxnet_tpu_torch.gluon.params import init_params_numpy, \
+        load_jax_params
+    net = WordLM(LM_VOCAB, LM_EMBED, LM_HIDDEN, LM_LAYERS, device=dev)
+    load_jax_params(net, init_params_numpy(net, seed=6))
+    net.train()
+    stream = np.random.RandomState(DATA_SEED).randint(
+        0, LM_VOCAB, LM_BATCH * LM_BPTT * DATA_LM_WINDOWS + 1)
+    windows = DataWindows(stream.astype(np.int64), LM_BPTT)
+    nbatch = len(windows) // LM_BATCH
+
+    def loader(**kw):
+        return DataLoader(SimpleDataset(windows), batch_size=LM_BATCH,
+                          sampler=IntervalSampler(len(windows), nbatch),
+                          last_batch="discard", **kw)
+    host = list(loader())
+    kw = {"learning_rate": DATA_LM_LR}
+    trainer = Trainer(dict(net.named_parameters()), "sgd", dict(kw))
+    params = trainer._params
+    loss_fn = SoftmaxCrossEntropyLoss()
+    max_norm = DATA_LM_CLIP * LM_BPTT * LM_BATCH
+    expect = {n: 0 for n in K.KERNELS}
+    expect.update(rnn_scan_fwd=LM_LAYERS, rnn_scan_bwd=LM_LAYERS,
+                  opt_update=1)
+
+    def cpu_norm(grads):
+        return math.sqrt(sum(float(g.detach().cpu().double().square().sum())
+                             for g in grads))
+
+    def one_step(x, y, limit):
+        rec = {"max_norm": limit}
+        before = K.launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = loss_fn(net(x), y)
+        loss.sum().backward()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        grads = [p.grad for p in params]
+        ref = cpu_norm(grads)
+        t2 = time.perf_counter()
+        total = clip_global_norm(grads, limit)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        rec.update(total=total, total_float64_cpu=ref,
+                   total_rel_err=abs(total - ref) / ref,
+                   clipped=limit / (total + 1e-8) < 1.0)
+        if rec["clipped"]:
+            rec["norm_after_clip"] = cpu_norm(grads)
+        twin = cpu_twin(torch, trainer, "sgd", kw)
+        for p, c in zip(params, twin._params):
+            c.grad, c.fresh_grad = p.grad.detach().cpu(), True
+        torch.cuda.synchronize()
+        t4 = time.perf_counter()
+        trainer.step(1)
+        torch.cuda.synchronize()
+        t5 = time.perf_counter()
+        twin.step(1)
+        rec.update(update_vs_cpu=twin_gap(trainer, twin),
+                   launches=step_launches(K, before),
+                   loss=float(loss.detach().mean()),
+                   fwd_bwd_ms=(t1 - t0) * 1e3, clip_ms=(t3 - t2) * 1e3,
+                   update_ms=(t5 - t4) * 1e3,
+                   step_ms=(t1 - t0 + t3 - t2 + t5 - t4) * 1e3)
+        rec["ok"] = (rec["total_rel_err"] <= DATA_NORM_RTOL
+                     and rec.get("norm_after_clip", 0.0)
+                     <= limit * (1 + DATA_NORM_RTOL)
+                     and rec["update_vs_cpu"]["ok"]
+                     and rec["launches"] == expect
+                     and math.isfinite(rec["loss"]))
+        return rec
+
+    steps, staged_ok = [], True
+    K.reset_launch_counts()
+    for i, (x, y) in enumerate(loader(device=dev,
+                                      prefetch_to_device=DATA_DEPTH)):
+        staged_ok &= bool(torch.equal(x.cpu(), host[i][0])
+                          and torch.equal(y.cpu(), host[i][1]))
+        steps.append(one_step(x, y, max_norm))
+    if not any(s["clipped"] for s in steps):
+        x, y = (t.to(dev) for t in host[0])
+        steps.append(one_step(x, y, steps[-1]["total"] / 2.0))
+    counts = K.launch_counts()
+
+    plain_ms = []
+    for x, y in host[:DATA_LM_PLAIN_STEPS]:
+        x, y = x.to(dev), y.to(dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss_fn(net(x), y).sum().backward()
+        trainer.step(1)
+        torch.cuda.synchronize()
+        plain_ms.append((time.perf_counter() - t0) * 1e3)
+    med = statistics.median(s["step_ms"] for s in steps[1:])
+    report = {
+        "model": "WordLM (LSTM LM)", "vocab": LM_VOCAB, "hidden": LM_HIDDEN,
+        "layers": LM_LAYERS, "batch": LM_BATCH, "bptt": LM_BPTT,
+        "tokens": len(stream), "optimizer": "sgd", "learning_rate":
+        DATA_LM_LR, "max_norm": max_norm, "steps": steps,
+        "extra_clipping_step": len(steps) > nbatch,
+        "staged_equal_host": staged_ok, "median_step_ms": med,
+        "tokens_per_s": LM_BATCH * LM_BPTT / (med / 1e3),
+        "median_clip_ms": statistics.median(s["clip_ms"] for s in steps[1:]),
+        "plain_eager_step_ms": plain_ms, "launches": counts, "card": smi}
+    report["ok"] = bool(staged_ok and len(host) == nbatch
+                        and all(s["ok"] for s in steps)
+                        and any(s["clipped"] for s in steps))
+    print(smi, flush=True)
+    emit({"data_lm_clipped": report})
+    if not report["ok"]:
+        raise SystemExit(f"phase 18b failed: {report}")
+    return counts
+
+
+def data_phase(torch, np, K, dev, smi):
+    """Phase 18 (18a, then 18b): {path: its launches}."""
+    t0 = time.perf_counter()
+    out = {"resnet50_records": data_resnet(torch, np, K, dev, smi)}
+    torch.cuda.empty_cache()
+    out["lstm_lm_clipped"] = data_lm(torch, np, K, dev, smi)
+    torch.cuda.empty_cache()
+    emit({"data_phase_s": time.perf_counter() - t0})
+    return out
+
+
 #: --kernel-times: the kernels' shapes, each on its path (the flash
 #: forward served and in BERT training; the long-sequence backward's dq
 #: and dkv at phase 7's; the LM's LSTM layer; decode_wide's step)
@@ -9088,6 +9619,13 @@ def main(argv):
                                      "kind": torch.cuda.get_device_name(0),
                                      "count": torch.cuda.device_count()}})
         return 0
+    if "--data" in argv:
+        data_phase(torch, np, K, dev, smi)
+        print(smi, flush=True)
+        emit({"ok": True, "device": {"platform": "gpu",
+                                     "kind": torch.cuda.get_device_name(0),
+                                     "count": torch.cuda.device_count()}})
+        return 0
     if "--opt" in argv:
         # kernel 12 alone: its checks, its times, the two whole updates
         time_opt_kernel(torch, KO, check_opt_kernel(torch, KO, dev))
@@ -9181,6 +9719,7 @@ def main(argv):
     fleet = fleet_phase(torch, np, K, ATT, dev, smi,
                         multi=torch.cuda.device_count() >= 2)
     torch.cuda.empty_cache()
+    data = data_phase(torch, np, K, dev, smi)
     if torch.cuda.device_count() >= 2:
         zero_train_multi(torch, np, smi)
         zero_overlap(torch, np, smi)
@@ -9234,14 +9773,18 @@ def main(argv):
           "resnet_launch_counts": resnet_launches,
           "surface_launch_counts": surface,
           "cells_launch_counts": {n: c for n, c in cells.items() if c},
-          "fleet_launch_counts": {n: fleet[n] for n in FLEET_KERNELS}})
+          "fleet_launch_counts": {n: fleet[n] for n in FLEET_KERNELS},
+          "data_launch_counts": {p: {n: c for n, c in counts.items() if c}
+                                 for p, counts in data.items()}})
     if not all(n > 0 for n in launches.values()) or \
             not all(cells[n] > 0 for n in ("rnn_scan_fwd",
                                            "rnn_scan_bwd")) or \
             not all(n > 0 for n in bf16_launches.values()) or \
             not all(c.get("opt_update", 0) > 0
                     for c in resnet_launches.values()) or \
-            not all(fleet[n] > 0 for n in FLEET_KERNELS):
+            not all(fleet[n] > 0 for n in FLEET_KERNELS) or \
+            not all(data[p][n] > 0 for n, paths in DATA_KERNELS.items()
+                    for p in paths):
         raise SystemExit(f"a kernel never launched on its path: {launches}"
                          f" {bf16_launches} {resnet_launches} {cells}")
     rows = []
@@ -9276,6 +9819,10 @@ def main(argv):
         if name in FLEET_KERNELS:
             rows[-1].update(fleet_launches=fleet[name],
                             fleet_path="bert_base_supervised_serving")
+        if name in DATA_KERNELS:
+            rows[-1].update(data_launches={p: data[p][name]
+                                           for p in DATA_KERNELS[name]},
+                            data_path=list(DATA_KERNELS[name]))
     print(smi, flush=True)
     emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu",

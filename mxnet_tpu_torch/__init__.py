@@ -6,8 +6,9 @@ kernel written for Hopper (``ops/kernels/csrc``). Entry points run on
 ``cuda:0`` unless the caller passes ``device="cpu"``; without a CUDA
 device they raise :class:`MXNetError` rather than run on the CPU.
 """
-from . import (amp, checkpoint, elastic, init, initializer, kvstore,
-               lr_scheduler, metric, ndarray, optimizer, parallel, testing)
+from . import (amp, checkpoint, elastic, image, init, initializer, io,
+               kvstore, lr_scheduler, metric, ndarray, optimizer, parallel,
+               recordio, testing)
 from .base import MXNetError
 from .context import (Context, cpu, cpu_pinned, current_context,
                       default_device, gpu, gpu_memory_info, num_gpus,
@@ -16,6 +17,6 @@ from .context import (Context, cpu, cpu_pinned, current_context,
 __all__ = ["MXNetError", "Context", "cpu", "gpu", "cpu_pinned",
            "current_context", "num_gpus", "gpu_memory_info",
            "default_device", "resolve_device",
-           "amp", "checkpoint", "elastic", "init", "initializer", "kvstore",
-           "lr_scheduler", "metric", "ndarray", "optimizer", "parallel",
-           "testing"]
+           "amp", "checkpoint", "elastic", "image", "init", "initializer",
+           "io", "kvstore", "lr_scheduler", "metric", "ndarray", "optimizer",
+           "parallel", "recordio", "testing"]

@@ -1,8 +1,17 @@
 """Data loading for training (counterpart of ``mxnet_tpu/gluon/data``):
-so far the device prefetcher (:mod:`.prefetcher`), which
-``TrainLoop.prefetch`` wraps. The JAX package's datasets, samplers and
-``DataLoader`` are not ported (``ROADMAP.md`` queue 1, item 10)."""
-from . import prefetcher
+datasets, samplers, batchify functions, the threaded :class:`DataLoader`
+and the device prefetcher it stages batches through (which
+``TrainLoop.prefetch`` wraps too); ``vision`` holds the image datasets
+and transforms."""
+from . import batchify, prefetcher, vision
+from .dataloader import DataLoader, default_batchify_fn
+from .dataset import ArrayDataset, Dataset, RecordFileDataset, SimpleDataset
 from .prefetcher import DevicePrefetcher, default_prefetch_depth
+from .sampler import (BatchSampler, FilterSampler, IntervalSampler,
+                      RandomSampler, Sampler, SequentialSampler)
 
-__all__ = ["prefetcher", "DevicePrefetcher", "default_prefetch_depth"]
+__all__ = ["Dataset", "SimpleDataset", "ArrayDataset", "RecordFileDataset",
+           "Sampler", "SequentialSampler", "RandomSampler", "BatchSampler",
+           "FilterSampler", "IntervalSampler", "DataLoader",
+           "default_batchify_fn", "DevicePrefetcher",
+           "default_prefetch_depth", "batchify", "prefetcher", "vision"]

@@ -78,7 +78,14 @@ def test_package_has_its_modules():
               "gluon/contrib/nn/basic_layers.py",
               "gluon/contrib/estimator/__init__.py",
               "gluon/contrib/estimator/estimator.py", "serving/fleet.py",
-              "gluon/contrib/estimator/event_handler.py"):
+              "gluon/contrib/estimator/event_handler.py", "recordio.py",
+              "host.py", "gluon/data/dataset.py", "gluon/data/sampler.py",
+              "gluon/data/batchify.py", "gluon/data/dataloader.py",
+              "gluon/utils.py", "image/__init__.py", "image/image.py",
+              "gluon/data/vision/__init__.py",
+              "gluon/data/vision/transforms.py",
+              "gluon/data/vision/datasets.py", "io/__init__.py",
+              "io/io.py"):
         assert os.path.join("mxnet_tpu_torch", m) in rel, m
     csrc = os.listdir(os.path.join(PKG, "ops", "kernels", "csrc"))
     assert {"flash_fwd.cu", "layernorm_fwd.cu", "bias_gelu_fwd.cu",

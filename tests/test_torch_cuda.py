@@ -2240,3 +2240,46 @@ def test_captured_cell_lm_step_equals_eager_on_card(cuda_dev, zoneout):
         runs.append((losses, [p.detach().cpu() for p in net.parameters()]))
     for a, b in zip(runs[0][0] + runs[0][1], runs[1][0] + runs[1][1]):
         assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("workers", [0, 3])
+def test_dataloader_stages_batches_on_card(cuda_dev, workers):
+    """``DataLoader(device=...)``: every staged batch on the card equal
+    to the host loader's, pinned host batches with ``pin_memory``, the
+    prefetcher's stats counted."""
+    from mxnet_tpu_torch.gluon import data as gdata
+    r = onp.random.RandomState(3)
+    ds = gdata.ArrayDataset(r.uniform(size=(37, 3, 8, 8)).astype("f4"),
+                            r.randint(0, 9, 37))
+    host = list(gdata.DataLoader(ds, 8, last_batch="keep"))
+    card = gdata.DataLoader(ds, 8, num_workers=workers, device=cuda_dev,
+                            prefetch_to_device=2)
+    got = list(card)
+    assert len(got) == len(host) == 5
+    for (x, y), (hx, hy) in zip(got, host):
+        assert x.device == cuda_dev and y.device == cuda_dev
+        assert torch.equal(x.cpu(), hx) and torch.equal(y.cpu(), hy)
+    assert card.device_prefetch_stats["prefetch_batches"] == 5
+    pinned = next(iter(gdata.DataLoader(ds, 8, num_workers=workers,
+                                        pin_memory=True)))
+    assert all(t.is_pinned() for t in pinned)
+
+
+@pytest.mark.cuda
+def test_clip_global_norm_on_card(cuda_dev):
+    """``clip_global_norm`` over card tensors: the total within 1e-6 of a
+    float64 norm on the CPU, the arrays scaled in place to the bound."""
+    from mxnet_tpu_torch.gluon import clip_global_norm
+    r = onp.random.RandomState(4)
+    host = [r.standard_normal(s).astype("f4")
+            for s in ((1000, 33), (77,), (5, 6, 7))]
+    arrs = [torch.from_numpy(a).to(cuda_dev) for a in host]
+    ref = onp.sqrt(sum((a.astype("f8") ** 2).sum() for a in host))
+    total = clip_global_norm(arrs, 10.0)
+    assert isinstance(total, float) and abs(total - ref) <= 1e-6 * ref
+    after = onp.sqrt(sum((a.double() ** 2).sum().item() for a in arrs))
+    assert after <= 10.0 * (1 + 1e-6)
+    for a, h in zip(arrs, host):
+        torch.testing.assert_close(a.cpu(), torch.from_numpy(h) * (10.0 / (
+            ref + 1e-8)), rtol=1e-5, atol=1e-6)
