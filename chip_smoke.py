@@ -24,6 +24,7 @@
     python3 chip_smoke.py --fleet       # phases 1, 2 and 17 alone (17b
                                         # on three or more cards)
     python3 chip_smoke.py --data        # phases 1, 2 and 18 alone
+    python3 chip_smoke.py --telemetry   # phases 1, 2 and 19 alone
     python3 chip_smoke.py --compare DIR  # A/B on one card: the flash
         # forward, the flash backward (fused at BERT training's shape;
         # dq, dkv at phase 7's), the recurrence kernels, the LayerNorm
@@ -444,18 +445,52 @@ Phases, each of which fails the run (non-zero exit) when it fails:
     1e-5 of a float64 CPU norm, the clipped norm within the bound, the
     update against a CPU copy, 2 + 2 + 1 launches a step; step, clip and
     plain-step ms.
+19. the telemetry layer with ``MXNET_TELEMETRY`` on (``telemetry_phase``):
+    (a) phase 6's BERT-base training through ``TrainLoop`` with
+    ``prefetch`` under ``set_sync_debug_mode("error")`` (the retire and
+    the checkpoint exempt), float32 then bf16 amp, numerics off (twice),
+    ``global`` (with one checkpoint) and ``per_layer``: 12 flash_fwd, 12
+    flash_bwd_fused, 25 + 25 LayerNorm and one ``opt_update`` a step in
+    every mode, one capture; each numerics run's losses and weights
+    within TELE_SPREAD_FACTOR of the two numerics-off runs' own distance
+    (the fused backward's dq atomics), and phase 8b's Dense model, every
+    kernel deterministic, bit-equal with numerics on and off; the grad
+    and param norms of one more step within 1e-5 of float64 norms on the
+    card; ``arm_mfu``'s FLOPs within 5 % of 6 x non-embedding weights x
+    tokens + 12 x layers x tokens x S x d_model, ``mx_model_mfu_ratio``
+    in (0, 1]; a NaN planted before step 4 gives one ``nan_loss`` and one
+    ``nonfinite_grad`` anomaly at step 4 and one dump; a 2 s delay at the
+    retire of step 8 (``testing/faults.py``) one ``stall`` at step 8;
+    printed: the step ms with telemetry and numerics on against off, in
+    turns, with each run's peak memory, and the MFU; (b) inside (a)'s
+    float32 run: the census's ``params`` and ``optimizer`` pools equal to
+    the parameters' and states' bytes, ``mx_mem_untracked_bytes``, a
+    budget below use giving one ``memory_budget`` anomaly, an allocation
+    past ``mem_get_info``'s free bytes in an ``oom_guard`` seam giving
+    one ``oom`` anomaly and one dump naming the largest pool, the error
+    re-raised, the process going on; (c) phase 4's closed loop (96
+    requests, 8 clients): ``mx_serving_requests_total`` 96,
+    ``mx_serving_batches_total`` the batcher's count, 96 request
+    latencies; decode_wide (32 requests): ``rnn_decode`` launched,
+    ``mx_decode_tokens_total`` the run's tokens, the KV pools' census
+    bytes the allocator's requested bytes; (d) ``write_prometheus`` holds
+    every catalog series, and a profiler trace of two BERT steps (the
+    first captures) holds the funnel's ops and both steps' dispatch /
+    window / retire spans.
 
 ``{"launch_counts": {...}, "bf16_launch_counts": {...},
 "dist_kv_launch_counts": {...}, "resnet_launch_counts": {...},
 "surface_launch_counts": {...}, "cells_launch_counts": {...},
-"fleet_launch_counts": {...}, "data_launch_counts": {...}}`` gives
+"fleet_launch_counts": {...}, "data_launch_counts": {...},
+"telemetry_launch_counts": {...}}`` gives
 each kernel's launches on its path, on its bf16 path where it has one,
 on phase 13's one-card path, on phase 14's float32 and bf16 paths, on
 phase 15's LAMB and NAG paths, on phase 16's cell-built LM, on phase
 17a's supervised float32 serving (rows 1 and 5, ``fleet_launches``) and
 on phase 18's two paths (``opt_update`` on ``resnet50_records`` and
 ``lstm_lm_clipped``, the recurrence kernels on ``lstm_lm_clipped``:
-``data_launches`` by path, ``data_path``).
+``data_launches`` by path, ``data_path``) and on phase 19's paths
+(``telemetry_launches``).
 The line before the last is a JSON object with one entry per kernel
 (launches on its float32 path, error, times, bound; then its bf16 path,
 bf16 launches there, and its bf16 error, times and bound; ``rnn_decode``
@@ -966,11 +1001,10 @@ def check_bwd_kernels(torch, ATT, K, KN, dev):
 
 
 def causal_pairs(sq, sk, causal):
-    """(query, key) pairs the attention computes: all, or under the
-    end-aligned causal mask those with k <= q + (sk - sq)."""
-    if not causal:
-        return sq * sk
-    return sum(min(sk, max(0, i + sk - sq + 1)) for i in range(sq))
+    """(query, key) pairs the attention computes (the package's count,
+    which the flash wrappers report as their FLOPs' pairs)."""
+    from mxnet_tpu_torch.ops.kernels import causal_pairs as pairs
+    return pairs(sq, sk, causal)
 
 
 def time_eager_ms(torch, fn, args, iters=20, warmup=3):
@@ -9509,6 +9543,672 @@ def compare_checkouts(parent, flag="--kernel-times", key="kernel_times"):
     return 0
 
 
+# ---------------------------------------------------------------------------
+# phase 19: the telemetry layer at full width
+# ---------------------------------------------------------------------------
+
+#: 19a: steps a run after its capture; the run with the checkpoint writes
+#: one at TELE_CKPT_AT; the NaN run poisons one weight before step
+#: TELE_NAN_AT; the stall run sleeps at the retire of step TELE_STALL_AT
+TELE_STEPS, TELE_CKPT_AT, TELE_NAN_AT, TELE_STALL_AT = 6, 4, 4, 8
+#: the stall leg's steps (the detector arms after 5 retires) and its delay
+TELE_STALL_STEPS, TELE_STALL_MS = 10, 2000
+#: 19a turns of the step ms with telemetry and numerics on against off
+TELE_TIMED_STEPS = 5
+#: 19a: the reported norms against float64 on the card
+TELE_NORM_RTOL = 1e-5
+#: 19a: BERT's runs repeat only within the fused flash backward's dq
+#: atomics (float32 adds in no fixed order): a numerics run is held within
+#: this factor of two numerics-off runs' own distance (losses and weights,
+#: rms); the Dense leg, deterministic, is held bit for bit
+TELE_SPREAD_FACTOR = 2.0
+#: 19a: the FLOPs a step against the analytic count, relative
+TELE_FLOPS_RTOL = 0.05
+#: the kernels phase 19's paths launch (rows 1, 2, 5, 6, 11, 12)
+TELE_KERNELS = ("flash_fwd", "flash_bwd_fused", "layernorm_fwd",
+                "layernorm_bwd", "rnn_decode", "opt_update")
+#: where phase 19 writes its checkpoints, dumps, Prometheus file and trace
+BUILD_TELE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "build", "chip_telemetry")
+
+
+def _tele_make(dev, dropout=0.1):
+    from mxnet_tpu_torch.gluon.model_zoo.bert import BERTClassifier, bert_base
+    return BERTClassifier(bert_base(max_length=TRAIN_SEQ, dropout=dropout,
+                                    device=dev),
+                          num_classes=2, dropout=dropout, device=dev)
+
+
+def _tele_run(torch, K, dev, build, xt, yt, mode, steps, before_step=None,
+              ckpt=None, sync_check=True):
+    """One TrainLoop run of ``build()``'s (net, trainer, loss) with
+    ``numerics=mode``, captured first (``aot_compile``), then ``steps``
+    steps from a prefetcher under ``set_sync_debug_mode("error")`` (the
+    retire and the checkpoint are the designed waits); the kernel counts
+    set to 0 just before the steps. Returns the loop, the losses, the
+    last step's numerics (read at its retire through the monitor) and
+    the launches."""
+    from mxnet_tpu_torch import telemetry as tel
+    from mxnet_tpu_torch.gluon import TrainLoop
+    net, tr, loss_fn = build()
+    loop = TrainLoop(net, tr, loss_fn, numerics=mode, inflight=2,
+                     checkpoint_dir=ckpt, checkpoint_every=TELE_CKPT_AT
+                     if ckpt else None, resume=False)
+    loop.compiled_step.aot_compile(xt, yt)
+    losses = []
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    if sync_check:
+        torch.cuda.set_sync_debug_mode("error")
+    try:
+        for i, (x, y) in enumerate(loop.prefetch(
+                ((xt, yt) for _ in range(steps)), depth=2)):
+            if before_step is not None:
+                before_step(i + 1, net)
+            losses.append(loop.step(x, y))
+        loop.synchronize()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    loop.wait()
+    # the last step's statistics, read at its retire
+    last = tel.numerics.monitor().last() if mode is not None else None
+    return loop, [l.float().cpu() for l in losses], last, K.launch_counts()
+
+
+def _tele_dist(a, b):
+    """The rms difference of two lists of tensors over all their elements
+    (0 when equal): one element with a tiny Adam denominator decides the
+    largest difference, the rms is steady (phase 6c)."""
+    sq = sum(float((x.double() - y.double()).square().sum())
+             for x, y in zip(a, b))
+    return math.sqrt(sq / sum(x.numel() for x in a))
+
+
+def tele_train(torch, np, K, dev, smi, bf16=False):
+    """Phase 19a: BERT-base training (phase 6's model, shape and seeds)
+    through ``TrainLoop`` with ``prefetch``, numerics off (twice), global
+    and per_layer, one checkpoint, ``arm_mfu``; the Dense leg bit for bit;
+    the norms against float64; one injected NaN, one injected stall; the
+    step with telemetry and numerics on against off, in turns."""
+    from mxnet_tpu_torch import amp
+    from mxnet_tpu_torch import telemetry as tel
+    from mxnet_tpu_torch.gluon import Trainer
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from mxnet_tpu_torch.gluon.nn import Dense
+    from mxnet_tpu_torch.gluon.params import init_params_numpy, \
+        load_jax_params
+    from mxnet_tpu_torch.testing import faults
+    dt = "bfloat16" if bf16 else "float32"
+    if bf16:
+        amp.init("bfloat16")
+    try:
+        net0 = _tele_make(dev)
+        init = init_params_numpy(net0, seed=2)
+        n_all = sum(p.numel() for p in net0.parameters())
+        embed = sum(p.numel() for n, p in net0.named_parameters()
+                    if "embed" in n and "embed_ln" not in n)
+        n_layers = sum(1 for n, _ in net0.named_parameters()
+                       if n.endswith("attention.query_proj.weight"))
+        vocab, units = net0.bert.word_embed.weight.shape
+        del net0
+        rs = np.random.RandomState(3)     # phase 6's batch
+        x = rs.randint(0, vocab, (TRAIN_BATCH, TRAIN_SEQ)).astype(np.int64)
+        y = rs.randint(0, 2, (TRAIN_BATCH,)).astype(np.float32)
+        xt, yt = torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev)
+        loss_fn = SoftmaxCrossEntropyLoss()
+
+        def build():
+            net = _tele_make(dev)
+            load_jax_params(net, init)
+            net.train()
+            torch.manual_seed(0)            # the dropout masks
+            return net, Trainer(dict(net.named_parameters()), "adam",
+                                {"learning_rate": TRAIN_LR}), loss_fn
+
+        expect = {n: 0 for n in K.KERNELS}
+        expect.update(flash_fwd=12, flash_bwd_fused=12, layernorm_fwd=25,
+                      layernorm_bwd=25, opt_update=1)
+        runs, report = {}, {"dtype": dt}
+
+        def leg(key, value):
+            report[key] = value
+            emit({"telemetry_leg": {"dtype": dt, key: value}})
+
+        ckdir = os.path.join(BUILD_TELE, f"ckpt_{dt}")
+        for name, mode in (("off_a", None), ("off_b", None),
+                           ("global", "global"), ("per_layer", "per_layer")):
+            tel.reset()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            loop, losses, vals, counts = _tele_run(
+                torch, K, dev, build, xt, yt, mode, TELE_STEPS,
+                ckpt=ckdir if name == "global" else None)
+            per_step = {n: c / TELE_STEPS for n, c in counts.items()}
+            runs[name] = {"losses": losses, "weights": [
+                p.detach().clone() for p in loop.trainer._params],
+                "vals": vals, "launches": per_step,
+                "n_traces": loop.compiled_step.n_traces,
+                "peak": torch.cuda.max_memory_allocated(),
+                "anomalies": len(tel.watchdog().anomalies())}
+            if name == "global":
+                report["checkpoint"] = {
+                    "saves": tel.value(tel.names.CHECKPOINT_SAVES),
+                    "capture_count": tel.value(
+                        tel.names.CHECKPOINT_CAPTURE_SECONDS),
+                    "prefetch_batches": tel.value(
+                        tel.names.PREFETCH_BATCHES),
+                    "train_steps": tel.value(tel.names.TRAIN_STEPS)}
+            emit({"telemetry_run": {"dtype": dt, "run": name, **{
+                k: v for k, v in runs[name].items()
+                if k in ("launches", "n_traces", "peak", "anomalies")}}})
+            if name == "off_b":
+                leg("turns", tele_turns(torch, loop, xt, yt))
+            if name == "per_layer" and not bf16:
+                # the run without a checkpoint manager: no capture in
+                # flight during the memory leg
+                leg("norms_vs_float64", tele_norm_check(
+                    torch, dev, build, loop, xt, yt, TRAIN_BATCH))
+                leg("flops", tele_flops(torch, K, loop, xt, yt,
+                                        n_all - embed, n_layers, units))
+                leg("memory", tele_memory(torch, dev, loop, xt, yt))
+            del loop
+            torch.cuda.empty_cache()
+        spread = (_tele_dist(runs["off_a"]["losses"],
+                             runs["off_b"]["losses"]),
+                  _tele_dist(runs["off_a"]["weights"],
+                             runs["off_b"]["weights"]))
+        eq = {}
+        for name in ("global", "per_layer"):
+            d = (_tele_dist(runs[name]["losses"], runs["off_a"]["losses"]),
+                 _tele_dist(runs[name]["weights"], runs["off_a"]["weights"]))
+            eq[name] = {"loss_dist": d[0], "weight_dist": d[1],
+                        "bit_equal": d == (0.0, 0.0),
+                        "ok": d[0] <= TELE_SPREAD_FACTOR * spread[0] and
+                        d[1] <= TELE_SPREAD_FACTOR * spread[1]}
+        report["vs_numerics_off"] = dict(eq, off_vs_off={
+            "loss_dist": spread[0], "weight_dist": spread[1]},
+            factor=TELE_SPREAD_FACTOR)
+        report["launches_per_step"] = {n: {k: v for k, v in
+                                           r["launches"].items() if v}
+                                       for n, r in runs.items()}
+        report["n_traces"] = {n: r["n_traces"] for n, r in runs.items()}
+        report["peak_bytes"] = {n: r["peak"] for n, r in runs.items()}
+        report["numerics_last"] = {n: {k: v for k, v in r["vals"].items()
+                                       if k != "layer_grad_norm"}
+                                   for n, r in runs.items() if r["vals"]}
+        report["per_layer_top"] = sorted(
+            runs["per_layer"]["vals"]["layer_grad_norm"].items(),
+            key=lambda kv: -kv[1])[:4]
+        leg("dense", tele_dense(torch, K, dev))
+        if not bf16:
+            # the anomaly channel does not depend on the dtype
+            leg("nan", tele_nan(torch, K, dev, build, xt, yt,
+                                int(x[0, 0])))
+            leg("stall", tele_stall(torch, K, dev, build, xt, yt, faults))
+        emit({"telemetry_train": report, "smi": smi})
+        fails = [n for n, r in runs.items()
+                 if r["launches"] != expect or r["n_traces"] != 1
+                 or r["anomalies"]]
+        fails += [n for n, e in eq.items() if not e["ok"]]
+        if not all(r["vals"] and r["vals"]["step"] == TELE_STEPS
+                   and r["vals"]["nonfinite_total"] == 0
+                   for n, r in runs.items() if n in ("global",
+                                                     "per_layer")):
+            fails.append("numerics values missing")
+        if report["checkpoint"]["saves"] != 1 or \
+                report["checkpoint"]["prefetch_batches"] != TELE_STEPS:
+            fails.append(f"checkpoint/prefetch {report['checkpoint']}")
+        for leg in ("norms_vs_float64", "flops", "memory", "dense", "nan",
+                    "stall", "turns"):
+            if leg in report and not report[leg]["ok"]:
+                fails.append(leg)
+        if fails:
+            raise SystemExit(f"phase 19a ({dt}) failed: {fails}")
+        return {n: int(c * TELE_STEPS) for n, c in
+                runs["global"]["launches"].items()}
+    finally:
+        if bf16:
+            amp.uninit()
+
+
+def tele_norm_check(torch, dev, build, loop, xt, yt, batch):
+    """The reported norms of one more step against float64 on the card:
+    the weights before it (param norm), the gradients an eager backward
+    computes from those weights with the step's random state restored
+    (grad norm: a replay draws what the eager step draws), and the
+    weights' float64 difference across it (update norm)."""
+    from mxnet_tpu_torch import telemetry as tel
+    named = dict(loop._net.named_parameters())
+    before = {n: p.detach().double().clone() for n, p in named.items()}
+    rng = torch.cuda.get_rng_state(dev)
+    loop.step(xt, yt)
+    loop.synchronize()
+    vals = tel.numerics.monitor().last()
+    after_rng = torch.cuda.get_rng_state(dev)
+    ref_net, _, loss_fn = build()
+    with torch.no_grad():
+        for n, p in ref_net.named_parameters():
+            p.copy_(before[n])
+    torch.cuda.set_rng_state(rng, dev)
+    g = torch.autograd.grad(loss_fn(ref_net(xt), yt).sum(),
+                            list(ref_net.parameters()))
+    torch.cuda.set_rng_state(after_rng, dev)
+
+    def norm(ts):
+        return float(torch.linalg.vector_norm(torch.stack(
+            [torch.linalg.vector_norm(t.double()) for t in ts])))
+
+    ref = {"grad_norm": norm(g) / batch,
+           "param_norm": norm(before.values()),
+           "update_norm": norm([p.detach().double() - before[n]
+                                for n, p in named.items()])}
+    rel = {k: abs(vals[k] - v) / v for k, v in ref.items()}
+    del ref_net, g
+    return {"reported": {k: vals[k] for k in ref}, "float64": ref,
+            "rel_err": rel, "rtol": TELE_NORM_RTOL,
+            "ok": rel["grad_norm"] <= TELE_NORM_RTOL
+            and rel["param_norm"] <= TELE_NORM_RTOL}
+
+
+def tele_flops(torch, K, loop, xt, yt, n_weights, n_layers, units):
+    """``arm_mfu``'s FLOPs a step against 6 x non-embedding weights x
+    tokens + 12 x layers x tokens x S x d_model."""
+    from mxnet_tpu_torch import telemetry as tel
+    flops = loop.arm_mfu(xt, yt, peak_flops=PEAK_FLOPS["float32"])
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    analytic = 6.0 * n_weights * tokens + 12.0 * n_layers * tokens * \
+        TRAIN_SEQ * units
+    # the gauge is set at each retire from the retire-to-retire time: read
+    # it while the loop is pipelined (the drain's retires follow each other
+    # at once)
+    for _ in range(TELE_STEPS):
+        loop.step(xt, yt)
+    mfu = tel.value(tel.names.MFU)
+    fps = tel.value(tel.names.MODEL_FLOPS_PER_SEC)
+    loop.synchronize()
+    return {"step_flops": flops, "analytic": analytic,
+            "rel": abs(flops - analytic) / analytic,
+            "peak_flops": PEAK_FLOPS["float32"],
+            "flops_per_sec": fps, "mfu": mfu,
+            "ok": abs(flops - analytic) <= TELE_FLOPS_RTOL * analytic
+            and mfu is not None and 0 < mfu <= 1}
+
+
+def tele_memory(torch, dev, loop, xt, yt):
+    """Phase 19b: the census against the allocator with a live loop; a
+    budget below use gives exactly one ``memory_budget`` anomaly; an
+    allocation past the free bytes inside an ``oom_guard`` seam exactly
+    one ``oom`` anomaly and one dump naming the largest pool, the same
+    error re-raised and the process carrying on."""
+    from mxnet_tpu_torch import telemetry as tel
+    from mxnet_tpu_torch.telemetry import memory as tmem
+    tr = loop.trainer
+    loop.compiled_step.optimizer_state_bytes()        # (re)files the states
+    rec = tmem.census().publish()
+    by = tmem.census().device_bytes_by_pool(dev)
+    params = sum(tmem.device_bytes(p) for p in tr._all_params)
+    states = sum(tmem.device_bytes(s) for st in tr._updater.states.values()
+                 for s in tr._optimizer.state_tensors(st))
+    alloc = torch.cuda.memory_allocated(dev)
+    out = {"by_pool": by, "allocated": alloc,
+           "untracked_bytes": tel.value(tel.names.MEM_UNTRACKED_BYTES),
+           "devices": rec["devices"],
+           "memory_report": (loop.compiled_step.memory_report().to_dict()
+                             if loop.compiled_step.memory_report() else None),
+           "census_ok": by["params"] == params and
+           by["optimizer"] == states and
+           rec["devices"].get(str(dev), {"tracked": 0})["tracked"] <= alloc}
+    tel.reset()
+    os.environ["MXNET_MEMORY_BUDGET"] = str(alloc // 2)
+    try:
+        for _ in range(3):
+            loop.step(xt, yt)
+        loop.synchronize()
+    finally:
+        del os.environ["MXNET_MEMORY_BUDGET"]
+    out["budget_anomalies"] = len(tel.watchdog().anomalies("memory_budget"))
+    tel.reset()
+    dump = os.path.join(BUILD_TELE, "oom")
+    os.environ["MXNET_MEMORY_DUMP_DIR"] = dump
+    # past the free bytes and the allocator's cached ones: the card's total
+    free, total = torch.cuda.mem_get_info(dev)
+    err = None
+    try:
+        with tmem.oom_guard("phase 19b"), tmem.oom_guard("inner seam"):
+            torch.empty(int(total) + (1 << 30), dtype=torch.uint8,
+                        device=dev)
+    except torch.cuda.OutOfMemoryError as e:
+        err = e
+    finally:
+        del os.environ["MXNET_MEMORY_DUMP_DIR"]
+    files = sorted(os.listdir(dump)) if os.path.isdir(dump) else []
+    named = None
+    if files:
+        with open(os.path.join(dump, files[0])) as f:
+            named = json.load(f).get("largest_pool")
+    torch.zeros(1, device=dev).add_(1)
+    torch.cuda.synchronize()
+    out.update(oom_anomalies=len(tel.watchdog().anomalies("oom")),
+               oom_dumps=len(files), oom_largest_pool=named,
+               oom_reraised=isinstance(err, torch.cuda.OutOfMemoryError))
+    out["ok"] = out["census_ok"] and out["budget_anomalies"] == 1 and \
+        out["oom_anomalies"] == 1 and out["oom_dumps"] == 1 and \
+        named == max(by, key=by.get) and out["oom_reraised"]
+    tel.reset()
+    return out
+
+
+def tele_dense(torch, K, dev):
+    """The Dense leg (phase 8b's model, every kernel deterministic): the
+    losses and weights with numerics global and per_layer bit-equal to
+    numerics off, one ``opt_update`` a step, nothing captured after the
+    warm-up."""
+    from mxnet_tpu_torch.gluon import Trainer
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from mxnet_tpu_torch.gluon.nn import Dense
+    g = torch.Generator(device=dev).manual_seed(21)
+    x = torch.randn(DENSE_ROWS, 768, generator=g, device=dev)
+    y = torch.randint(0, 2, (DENSE_ROWS,), generator=g, device=dev).float()
+
+    def build():
+        init = torch.Generator().manual_seed(5)
+        net = torch.nn.Sequential(
+            Dense(3072, activation="relu", in_units=768, device=dev,
+                  generator=init),
+            Dense(768, in_units=3072, device=dev, generator=init),
+            Dense(2, in_units=768, device=dev, generator=init))
+        return net, Trainer(dict(net.named_parameters()), "adam",
+                            {"learning_rate": 1e-3}), \
+            SoftmaxCrossEntropyLoss()
+
+    res = {}
+    for mode in (None, "global", "per_layer"):
+        loop, losses, vals, counts = _tele_run(torch, K, dev, build, x, y,
+                                               mode, TELE_STEPS)
+        res[mode] = (losses, [p.detach().clone()
+                              for p in loop.trainer._params], counts,
+                     loop.compiled_step.n_traces)
+        del loop
+    ref = res[None]
+    out = {m: {"bit_equal": all(torch.equal(a, b) for a, b in
+                                zip(r[0] + r[1], ref[0] + ref[1])),
+               "opt_update": r[2]["opt_update"], "n_traces": r[3]}
+           for m, r in res.items() if m}
+    out["ok"] = all(v["bit_equal"] and v["opt_update"] == TELE_STEPS and
+                    v["n_traces"] == 1 for v in out.values())
+    return out
+
+
+def tele_nan(torch, K, dev, build, xt, yt, token):
+    """One non-finite weight planted before step TELE_NAN_AT (a word
+    embedding row the batch reads): exactly one ``nan_loss`` anomaly at
+    that step, one ``nonfinite_grad`` episode and one numerics dump."""
+    from mxnet_tpu_torch import telemetry as tel
+    tel.reset()
+    dump = os.path.join(BUILD_TELE, "numerics")
+    os.environ["MXNET_NUMERICS_DUMP_DIR"] = dump
+
+    def poison(i, net):
+        if i == TELE_NAN_AT:
+            with torch.no_grad():
+                net.bert.word_embed.weight[token].fill_(float("nan"))
+
+    try:
+        loop, _, _, _ = _tele_run(torch, K, dev, build, xt, yt, "global",
+                                  TELE_STEPS, before_step=poison)
+    finally:
+        del os.environ["MXNET_NUMERICS_DUMP_DIR"]
+    nan = tel.watchdog().anomalies("nan_loss")
+    nfg = tel.watchdog().anomalies("nonfinite_grad")
+    files = os.listdir(dump) if os.path.isdir(dump) else []
+    op = None
+    if files:
+        with open(os.path.join(dump, files[0])) as f:
+            op = json.load(f).get("offending_op")
+    del loop
+    torch.cuda.empty_cache()
+    out = {"nan_loss": [e["step"] for e in nan],
+           "nonfinite_grad": [e["step"] for e in nfg], "dumps": len(files),
+           "offending_op": op}
+    out["ok"] = out["nan_loss"] == [TELE_NAN_AT] and \
+        out["nonfinite_grad"] == [TELE_NAN_AT] and out["dumps"] == 1
+    tel.reset()
+    return out
+
+
+def tele_stall(torch, K, dev, build, xt, yt, faults):
+    """One slow retire (``testing/faults.py``: a delay at the retire of
+    step TELE_STALL_AT): exactly one ``stall`` anomaly, at that step."""
+    from mxnet_tpu_torch import telemetry as tel
+    tel.reset()
+    # the retire of step s is the window's (s - 1)th hit + the capture's
+    # none: TrainLoop's window retires step s at push s + 2 (inflight 2)
+    faults.configure(f"window.retire:before={TELE_STALL_AT}:delay:"
+                     f"{TELE_STALL_MS}")
+    try:
+        loop, _, _, _ = _tele_run(torch, K, dev, build, xt, yt, None,
+                                  TELE_STALL_STEPS, sync_check=False)
+    finally:
+        faults.configure(None)
+    ev = tel.watchdog().anomalies("stall")
+    del loop
+    torch.cuda.empty_cache()
+    out = {"stall": [e["step"] for e in ev],
+           "messages": [e["message"] for e in ev]}
+    out["ok"] = out["stall"] == [TELE_STALL_AT]
+    tel.reset()
+    return out
+
+
+def tele_turns(torch, loop, xt, yt):
+    """Step ms (wall, synchronized, median of TELE_TIMED_STEPS) of one
+    numerics-off loop with telemetry and numerics ``global`` on
+    (``set_numerics``: a program of its own, captured first, in the same
+    graph pool) against both off, in turns (off, on, on, off), each
+    turn's peak memory beside it; printed, not gated."""
+    from mxnet_tpu_torch import telemetry as tel
+    step = loop.compiled_step
+    step.set_numerics("global")
+    step.aot_compile(xt, yt)
+    out = []
+    for on in (False, True, True, False):
+        tel.enable(on)
+        step.set_numerics("global" if on else None)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ms = []
+        for _ in range(TELE_TIMED_STEPS):
+            t0 = time.perf_counter()
+            loop.step(xt, yt)
+            loop.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        out.append({"telemetry_numerics": on,
+                    "step_ms": statistics.median(ms),
+                    "max_memory_allocated": torch.cuda.max_memory_allocated()})
+    tel.enable(True)
+    on = [t["step_ms"] for t in out if t["telemetry_numerics"]]
+    off = [t["step_ms"] for t in out if not t["telemetry_numerics"]]
+    return {"turns": out, "n_traces": step.n_traces,
+            "overhead_ms": statistics.mean(on) - statistics.mean(off),
+            "overhead_rel": statistics.mean(on) / statistics.mean(off) - 1,
+            "ok": step.n_traces == 2}
+
+
+def tele_serving(torch, np, K, dev, smi):
+    """Phase 19c: phase 4's closed loop through ``DynamicBatcher`` (the
+    ``mx_serving_*`` series against the batcher's own counts), then
+    decode_wide through ``run_decode`` (``rnn_decode`` launched, the
+    decode series against the run's tokens, the KV cache's census bytes
+    against the allocator's blocks)."""
+    from mxnet_tpu_torch import serving
+    from mxnet_tpu_torch import telemetry as tel
+    from mxnet_tpu_torch.serving import loadgen
+    from mxnet_tpu_torch.gluon.model_zoo.bert import BERTClassifier, bert_base
+    from mxnet_tpu_torch.gluon.params import init_params_numpy, \
+        load_jax_params
+    from mxnet_tpu_torch.serving import decode as sdecode
+    from mxnet_tpu_torch.telemetry import memory as tmem
+    net = BERTClassifier(bert_base(device=dev), num_classes=2, device=dev)
+    load_jax_params(net, init_params_numpy(net, seed=0))
+    pred = serving.predictor_for(net, dtype="float32", device=dev)
+    rs = np.random.RandomState(0)
+    vocab = net.bert.word_embed.weight.shape[0]
+    pred.warmup(rs.randint(0, vocab, (1, SERVE_SEQ)).astype(np.int64))
+    reqs = [rs.randint(0, vocab, (int(rs.randint(1, 9)), SERVE_SEQ))
+            .astype(np.int64) for _ in range(SERVE_REQUESTS)]
+    tel.reset()
+    K.reset_launch_counts()
+    with serving.DynamicBatcher(pred, max_batch=SERVE_MAX_BATCH,
+                                timeout_ms=2.0) as b:
+        rep = loadgen.run_closed_loop(
+            lambda i: b.submit(reqs[i]).result(120), SERVE_CLIENTS,
+            SERVE_REQUESTS)
+        stats = dict(b.stats)
+    srv = {"requests": tel.value(tel.names.SERVING_REQUESTS),
+           "batches": tel.value(tel.names.SERVING_BATCHES),
+           "batcher_batches": stats["batches"],
+           "request_seconds_count": tel.value(tel.names.SERVING_LATENCY),
+           "p99_ms": rep["p99_ms"], "errors": rep["errors"],
+           "flash_fwd": K.launch_counts()["flash_fwd"]}
+    srv["ok"] = srv["requests"] == SERVE_REQUESTS == \
+        srv["request_seconds_count"] and \
+        srv["batches"] == srv["batcher_batches"] and not rep["errors"] \
+        and srv["flash_fwd"] == 12 * stats["batches"]
+    del pred, net
+    torch.cuda.empty_cache()
+
+    caches = []
+
+    class Recorded(sdecode.PagedKVCache):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            caches.append(self)
+
+    model = serving.TinyDecoder(**DECODE_WIDE, seed=0, device=dev)
+    prompts, mns, _ = decode_mix(np, DECODE_WIDE["vocab"], DECODE_REQUESTS,
+                                 DECODE_PAGE)
+    tel.reset()
+    sdecode.PagedKVCache = Recorded
+    try:
+        drep, counts = decode_run(torch, K, model, prompts, mns)
+    finally:
+        sdecode.PagedKVCache = Recorded.__mro__[1]
+    kv = caches[-1]
+    blocks = {}
+    for seg in torch.cuda.memory_snapshot():
+        addr = seg["address"]
+        for blk in seg["blocks"]:
+            addr = blk.get("address", addr)
+            blocks[addr] = blk
+            addr += blk["size"]
+    pools = {}
+    for name, t in (("k_pages", kv.k_pages), ("v_pages", kv.v_pages)):
+        blk = blocks.get(t.data_ptr(), {})
+        pools[name] = {"census": tmem.device_bytes(t),
+                       "allocator_requested": blk.get("requested_size"),
+                       "allocator_block": blk.get("size")}
+    census_kv = tmem.census().device_bytes_by_pool(dev)["kvcache"]
+    dec = {"tokens": drep["tokens"], "rnn_decode": counts["rnn_decode"],
+           "decode_tokens_total": tel.value(tel.names.DECODE_TOKENS),
+           "kv_pages": tel.registry().gauge(tel.names.DECODE_KV_PAGES)
+           .values(), "pools": pools, "census_kvcache": census_kv,
+           "kv_total_bytes": kv.total_bytes(), "errors": drep["errors"]}
+    # the allocator's record of each pool: the bytes it was asked for
+    # (its block rounds them up to 512-byte multiples)
+    dec["ok"] = dec["rnn_decode"] > 0 and not drep["errors"] and \
+        dec["decode_tokens_total"] == drep["tokens"] and \
+        census_kv == kv.total_bytes() and all(
+            p["census"] == p["allocator_requested"]
+            for p in pools.values())
+    emit({"telemetry_serving": {"batcher": srv, "decode_wide": dec},
+          "smi": smi})
+    if not (srv["ok"] and dec["ok"]):
+        raise SystemExit(f"phase 19c failed: {srv} {dec}")
+    return {"flash_fwd": srv["flash_fwd"], "rnn_decode": dec["rnn_decode"]}
+
+
+def tele_export(torch, np, K, dev, smi):
+    """Phase 19d: ``write_prometheus`` holds every catalog series; a
+    profiler Chrome trace of two captured BERT steps holds the ops of the
+    funnel and the ``step`` spans."""
+    from mxnet_tpu_torch import profiler
+    from mxnet_tpu_torch import telemetry as tel
+    from mxnet_tpu_torch.gluon import Trainer, TrainLoop
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    path = tel.write_prometheus(os.path.join(BUILD_TELE, "mx.prom"))
+    with open(path) as f:
+        text = f.read()
+    missing = [n for n in tel.names.CATALOG if f"# TYPE {n} " not in text]
+    net = _tele_make(dev)
+    tr = Trainer(dict(net.named_parameters()), "adam",
+                 {"learning_rate": TRAIN_LR})
+    loop = TrainLoop(net, tr, SoftmaxCrossEntropyLoss(), inflight=2)
+    rs = np.random.RandomState(3)
+    vocab = net.bert.word_embed.weight.shape[0]
+    x = torch.from_numpy(rs.randint(0, vocab, (TRAIN_BATCH, TRAIN_SEQ))) \
+        .to(dev)
+    y = torch.from_numpy(rs.randint(0, 2, (TRAIN_BATCH,)).astype(
+        np.float32)).to(dev)
+    trace = os.path.join(BUILD_TELE, "profile.json")
+    profiler.set_config(filename=trace)
+    # the first step captures its program inside the trace: its warm-up
+    # runs the funnel's ops; the second replays it
+    profiler.set_state("run")
+    try:
+        for _ in range(2):
+            loop.step(x, y)
+        loop.synchronize()
+    finally:
+        profiler.set_state("stop")
+    profiler.dump()
+    with open(trace) as f:
+        evs = json.load(f)["traceEvents"]
+    steps = sorted({e["args"]["step"] for e in evs if e["cat"] == "step"})
+    ops = sorted({e["name"] for e in evs if e["cat"] == "operator"})
+    spans = sorted({e["args"]["phase"] for e in evs if e["cat"] == "step"})
+    out = {"prometheus_series": len(tel.names.CATALOG) - len(missing),
+           "catalog": len(tel.names.CATALOG), "missing": missing,
+           "trace_events": len(evs), "step_span_steps": steps,
+           "step_spans": spans, "ops": ops}
+    out["ok"] = not missing and steps == [1, 2] and bool(ops) and \
+        spans == ["dispatch", "retire", "window"]
+    emit({"telemetry_export": out, "smi": smi})
+    del loop, net, tr
+    if not out["ok"]:
+        raise SystemExit(f"phase 19d failed: {out}")
+
+
+def telemetry_phase(torch, np, K, dev, smi):
+    """Phase 19: the telemetry layer with telemetry on: 19a BERT-base
+    training in float32 then bf16 amp, 19b memory (inside 19a's float32
+    run), 19c serving and decode_wide, 19d export. Returns the launches of
+    its paths by kernel."""
+    import shutil
+    from mxnet_tpu_torch import telemetry as tel
+    t0 = time.perf_counter()
+    shutil.rmtree(BUILD_TELE, ignore_errors=True)
+    os.makedirs(BUILD_TELE)
+    tel.enable(True)
+    try:
+        launches = tele_train(torch, np, K, dev, smi)
+        torch.cuda.empty_cache()
+        bf = tele_train(torch, np, K, dev, smi, bf16=True)
+        torch.cuda.empty_cache()
+        for k, v in bf.items():
+            launches[k] = launches.get(k, 0) + v
+        for k, v in tele_serving(torch, np, K, dev, smi).items():
+            launches[k] = launches.get(k, 0) + v
+        torch.cuda.empty_cache()
+        tele_export(torch, np, K, dev, smi)
+    finally:
+        tel.enable(None)
+        shutil.rmtree(BUILD_TELE, ignore_errors=True)
+    emit({"telemetry_phase_s": time.perf_counter() - t0,
+          "telemetry_launch_counts": {k: v for k, v in launches.items()
+                                      if v}})
+    return launches
+
+
 def main(argv):
     import numpy as np
     import torch
@@ -9626,6 +10326,13 @@ def main(argv):
                                      "kind": torch.cuda.get_device_name(0),
                                      "count": torch.cuda.device_count()}})
         return 0
+    if "--telemetry" in argv:
+        telemetry_phase(torch, np, K, dev, smi)
+        print(smi, flush=True)
+        emit({"ok": True, "device": {"platform": "gpu",
+                                     "kind": torch.cuda.get_device_name(0),
+                                     "count": torch.cuda.device_count()}})
+        return 0
     if "--opt" in argv:
         # kernel 12 alone: its checks, its times, the two whole updates
         time_opt_kernel(torch, KO, check_opt_kernel(torch, KO, dev))
@@ -9720,6 +10427,8 @@ def main(argv):
                         multi=torch.cuda.device_count() >= 2)
     torch.cuda.empty_cache()
     data = data_phase(torch, np, K, dev, smi)
+    torch.cuda.empty_cache()
+    tele = telemetry_phase(torch, np, K, dev, smi)
     if torch.cuda.device_count() >= 2:
         zero_train_multi(torch, np, smi)
         zero_overlap(torch, np, smi)
@@ -9775,7 +10484,8 @@ def main(argv):
           "cells_launch_counts": {n: c for n, c in cells.items() if c},
           "fleet_launch_counts": {n: fleet[n] for n in FLEET_KERNELS},
           "data_launch_counts": {p: {n: c for n, c in counts.items() if c}
-                                 for p, counts in data.items()}})
+                                 for p, counts in data.items()},
+          "telemetry_launch_counts": {n: c for n, c in tele.items() if c}})
     if not all(n > 0 for n in launches.values()) or \
             not all(cells[n] > 0 for n in ("rnn_scan_fwd",
                                            "rnn_scan_bwd")) or \
@@ -9784,7 +10494,8 @@ def main(argv):
                     for c in resnet_launches.values()) or \
             not all(fleet[n] > 0 for n in FLEET_KERNELS) or \
             not all(data[p][n] > 0 for n, paths in DATA_KERNELS.items()
-                    for p in paths):
+                    for p in paths) or \
+            not all(tele.get(n, 0) > 0 for n in TELE_KERNELS):
         raise SystemExit(f"a kernel never launched on its path: {launches}"
                          f" {bf16_launches} {resnet_launches} {cells}")
     rows = []
@@ -9823,6 +10534,8 @@ def main(argv):
             rows[-1].update(data_launches={p: data[p][name]
                                            for p in DATA_KERNELS[name]},
                             data_path=list(DATA_KERNELS[name]))
+        if name in TELE_KERNELS:
+            rows[-1].update(telemetry_launches=tele[name])
     print(smi, flush=True)
     emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -58,6 +58,14 @@ How a capture goes, and the traps it avoids:
 
 On a CUDA device a capture or replay that fails raises ``MXNetError``;
 nothing runs the body eagerly on the card instead.
+
+Each capture on a card records what it holds of the caching allocator as
+a ``telemetry.MemoryReport`` (:attr:`CapturedProgram.memory`: its static
+inputs, its static outputs, and the segments of the graph pool beyond
+those outputs, read from ``torch.cuda.memory_snapshot()`` by the pool's
+id; the pool is the owner's, shared by its programs), filed for the OOM
+forensics; an allocation failure of a capture or a replay gets its
+post-mortem (``telemetry.memory.maybe_record_oom``).
 """
 from __future__ import annotations
 
@@ -70,6 +78,7 @@ from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 
+from . import telemetry as _telemetry
 from .base import MXNetError
 from .engine import allow_sync
 from .ops.kernels import add_launches, record_launches
@@ -110,6 +119,13 @@ def _end_generator_capture(device, generators) -> None:
     del graph
 
 
+def _pool_bytes(pool) -> int:
+    """Bytes of the caching allocator's segments in graph pool ``pool``."""
+    pool = tuple(pool)
+    return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+               if tuple(seg.get("segment_pool_id", ())) == pool)
+
+
 def map_tensors(fn, out):
     """Apply ``fn`` to every tensor of a nested tuple/list/dict output."""
     if isinstance(out, torch.Tensor):
@@ -139,6 +155,7 @@ class CapturedProgram:
         self.ptrs = ptrs
         self.graph = None
         self.outputs = None
+        self.memory = None
         self.delta: Dict[tuple, int] = {}
         t0 = time.perf_counter()
         if device.type == "cuda":
@@ -167,6 +184,7 @@ class CapturedProgram:
                     capture_error_mode="thread_local"):
                 out = self.body(*self.inputs)
         except Exception as e:
+            _telemetry.memory.maybe_record_oom(e, f"capture of {self.what}")
             # a capture that fails to end leaves its stream current
             torch.cuda.set_stream(cur)
             if capturing is not None:
@@ -181,6 +199,16 @@ class CapturedProgram:
                 gc.enable()
         cur.wait_stream(stream)
         self.graph, self.outputs, self.delta = graph, out, delta
+        mem = _telemetry.memory
+        outs: list = []
+        map_tensors(outs.append, out)
+        out_bytes = sum(mem.device_bytes(t) for t in outs)
+        self.memory = mem.MemoryReport(
+            argument_bytes=sum(mem.device_bytes(t) for t in self.inputs),
+            output_bytes=out_bytes,
+            temp_bytes=max(0, _pool_bytes(graph.pool()) - out_bytes))
+        mem.register_compiled_report(f"{self.what}@{id(self):x}",
+                                     self.memory)
 
     def run(self):
         """Replay the graph (the card) or run the body over the static
@@ -194,6 +222,8 @@ class CapturedProgram:
             try:
                 self.graph.replay()
             except Exception as e:
+                _telemetry.memory.maybe_record_oom(
+                    e, f"replay of {self.what}")
                 raise MXNetError(f"replay of {self.what} failed: "
                                  f"{type(e).__name__}: {e}") from e
             add_launches(self.delta)
@@ -226,6 +256,11 @@ class Programs:
 
     def __len__(self) -> int:
         return len(self._progs)
+
+    def programs(self) -> list:
+        """The programs captured now, in no particular order."""
+        with self._mu:
+            return list(self._progs.values())
 
     def ptrs(self) -> Tuple[int, ...]:
         """Where the owner's tensors live now."""

@@ -20,8 +20,14 @@ shards over the mesh, rank 0 writes, and every rank waits in
 :meth:`wait` (a collective) until rank 0's write is published, so no
 rank reads a checkpoint before it exists. The JAX package's per-host
 ``host-<rank>/`` subtrees, for process groups over several hosts, are
-not ported, nor are its telemetry counters: :attr:`stats` holds the
-counts and the last times instead.
+not ported.
+
+Telemetry: ``mx_checkpoint_saves_total`` / ``_errors_total`` /
+``_restores_total`` and the ``mx_checkpoint_capture_seconds`` /
+``_save_seconds`` / ``_recovery_seconds`` histograms (:attr:`stats` keeps
+the counts and the last times beside them); with ``MXNET_TELEMETRY`` each
+write is a ``checkpoint`` span; a capture's host copies are filed in the
+census pool ``checkpoint`` until the write drops them.
 """
 from __future__ import annotations
 
@@ -33,6 +39,7 @@ from typing import Any, Dict, Optional
 
 import torch.distributed as dist
 
+from .. import telemetry as _telemetry
 from ..base import MXNetError
 from ..parallel import dist as _dist
 from . import atomic
@@ -76,6 +83,15 @@ class TrainCheckpointManager:
         self.stats: Dict[str, float] = {
             "saves": 0, "errors": 0, "restores": 0, "capture_s": 0.0,
             "write_s": 0.0, "restore_s": 0.0}
+        t = _telemetry
+        reg = t.registry()
+        self._m_saves = reg.counter(t.names.CHECKPOINT_SAVES)
+        self._m_errors = reg.counter(t.names.CHECKPOINT_ERRORS)
+        self._m_capture = reg.histogram(t.names.CHECKPOINT_CAPTURE_SECONDS)
+        self._m_write = reg.histogram(t.names.CHECKPOINT_SAVE_SECONDS)
+        self._m_restores = reg.counter(t.names.CHECKPOINT_RESTORES)
+        self._m_recovery = reg.histogram(
+            t.names.CHECKPOINT_RECOVERY_SECONDS)
 
     # ---------------- save ----------------
     def save(self, step: int, trainer=None, net=None,
@@ -89,6 +105,9 @@ class TrainCheckpointManager:
         state = capture_train_state(trainer=trainer, net=net, step=step,
                                     extra=extra, keep=writer)
         self.stats["capture_s"] = time.perf_counter() - t0
+        self._m_capture.observe(self.stats["capture_s"])
+        # the capture's host copies live until the write drops them
+        _telemetry.memory.census().register("checkpoint", state)
         if self._last_restore is not None:
             # where the run came from rides every later save
             state.meta.setdefault("resumed_from", {
@@ -117,6 +136,7 @@ class TrainCheckpointManager:
             with self._mu:
                 self._error = e
                 self.stats["errors"] += 1
+            self._m_errors.inc()
 
     def _write(self, state: TrainState):
         t0 = time.perf_counter()
@@ -124,8 +144,16 @@ class TrainCheckpointManager:
                                 array_meta=state.array_meta,
                                 meta=state.meta)
         atomic.prune_checkpoints(self._root, self._keep_last)
-        self.stats["write_s"] = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        self.stats["write_s"] = t1 - t0
         self.stats["saves"] += 1
+        self._m_write.observe(t1 - t0)
+        self._m_saves.inc()
+        if _telemetry.active():
+            # on the writer thread for a background save; the timeline
+            # and the histograms hold their own locks
+            _telemetry.timeline().record("checkpoint", t0, t1,
+                                         step=state.step)
 
     def wait(self):
         """Block until the write in flight is done; re-raise its error.
@@ -201,6 +229,8 @@ class TrainCheckpointManager:
         dt = time.perf_counter() - t0
         self.stats["restores"] += 1
         self.stats["restore_s"] = dt
+        self._m_restores.inc()
+        self._m_recovery.observe(dt)
         dp_from = meta.get("dp_size")
         dp_to = self._current_dp()
         self._last_restore = {

@@ -18,11 +18,13 @@ The seams the elastic supervisor recovers from:
    run drains its window and commits a final checkpoint inside
    ``MXNET_PREEMPTION_GRACE_SEC``.
 
-The JAX package reports anomalies on its telemetry watchdog and
-escalates its ``stall`` episodes into recoveries. ``telemetry/`` is not
-ported (``ROADMAP.md`` queue 1, item 9): an anomaly is recorded on the
-exception (``exc._mx_anomaly``) and in a module-level list
-(:func:`anomalies`), and there is no watchdog.
+A ``device_lost`` anomaly goes out on the telemetry watchdog's channel
+(``telemetry.watchdog().report``: its ring, ``mx_anomalies_total{kind=
+device_lost}``, one JSON log line and the subscribers, the elastic
+supervisor among them), and is also kept on the exception
+(``exc._mx_anomaly``) and in this module's list (:func:`anomalies`).
+The supervisor escalates the watchdog's ``stall`` episodes into
+recoveries (``supervisor.py``: ``StallEscalation``).
 """
 from __future__ import annotations
 
@@ -173,8 +175,8 @@ def classify(exc: BaseException) -> str:
     """The failure taxonomy of the recovery decision:
 
     - ``device_lost``: the world shrank; re-form and restore;
-    - ``stall``: the supervisor's ``StallEscalation`` marker (no
-      escalation is ported: see ``supervisor.py``);
+    - ``stall``: escalated watchdog stall episodes (the supervisor's
+      ``StallEscalation`` marker);
     - ``oom``: ``torch.cuda.OutOfMemoryError``; NOT recovered (a smaller
       world only raises each device's load);
     - ``transient``: an ``OSError`` (an IO blip, an injected fault),
@@ -230,10 +232,12 @@ def _lost_device_count() -> int:
 
 def maybe_record_device_lost(exc: BaseException, seam: str,
                              step=None) -> bool:
-    """If ``exc`` is a device loss no inner seam has recorded, record
-    exactly one ``device_lost`` anomaly (on the exception and in
-    :func:`anomalies`) and log it. Returns True when it recorded. Never
-    raises: detection must not mask the original error."""
+    """If ``exc`` is a device loss no inner seam has recorded, emit
+    exactly one ``device_lost`` anomaly on the watchdog channel (ring,
+    ``mx_anomalies_total{kind=device_lost}``, one JSON log line and the
+    subscribers), also kept on the exception and in :func:`anomalies`.
+    Returns True when it recorded. Never raises: detection must not mask
+    the original error."""
     try:
         if not is_device_lost(exc):
             return False
@@ -255,7 +259,10 @@ def maybe_record_device_lost(exc: BaseException, seam: str,
             pass
         with _anom_lock:
             _anomalies.append(evt)
-        _LOG.warning("mx-anomaly %s", evt["message"])
+        from .. import telemetry
+        telemetry.watchdog().report("device_lost", step,
+                                    message=evt["message"],
+                                    value=evt["value"])
         return True
     except Exception:            # pragma: no cover - defensive
         _LOG.warning("device-lost detection failed", exc_info=True)

@@ -49,10 +49,22 @@ port runs one process a card, so:
   (module-level functions).
 
 Nothing continues on the CPU when the cards are gone: below
-``min_devices`` the supervisor raises. The JAX package's stall
-escalation reads its telemetry watchdog, which is not ported:
-``stall_escalation > 0``, and a failure classified ``stall``, raise
-:class:`MXNetError` (``ROADMAP.md`` queue 1, item 9).
+``min_devices`` the supervisor raises.
+
+**Stall escalation** (``stall_escalation=N > 0``): the supervisor
+subscribes to the telemetry watchdog (``telemetry.watchdog().subscribe``;
+its stall detector runs with ``MXNET_TELEMETRY``) and counts ``stall``
+episodes; at the N-th since the last recovery the next step boundary
+raises :class:`StallEscalation`, classified ``stall`` and recovered like
+a lost device: the world is treated as unhealthy, torn down, re-formed
+and restored. In a formation each rank counts its own watchdog's
+episodes and the ranks agree at the step boundary (the flag rides the
+boundary's all-reduce), so every rank stops at the same step.
+
+Telemetry: ``mx_elastic_recoveries_total{cause}``,
+``mx_elastic_downtime_seconds``, ``mx_elastic_world_size`` and
+``mx_elastic_preemptions_total``; :class:`RecoveryLog` keeps its
+``counts`` and ``world_size`` beside them.
 """
 from __future__ import annotations
 
@@ -66,6 +78,7 @@ import time
 from collections import deque
 from typing import Callable, List, Optional
 
+from .. import telemetry as _telemetry
 from ..base import MXNetError
 from ..parallel import dist as _dist
 from ..testing import faults
@@ -76,28 +89,29 @@ __all__ = ["ElasticSupervisor", "ElasticResult", "RecoveryLog",
 
 _LOG = logging.getLogger("mxnet_tpu_torch.elastic")
 
-_NO_STALL = ("stall escalation reads the telemetry watchdog, which "
-             "mxnet_tpu_torch does not port yet (ROADMAP.md queue 1, "
-             "item 9)")
-
-
 class StallEscalation(MXNetError):
-    """The JAX package's marker for escalated watchdog stalls
-    (``detect.classify`` maps it to ``stall``); the port has no watchdog
-    to raise it, and meeting it raises :class:`MXNetError`."""
+    """Raised at a step boundary once ``stall_escalation`` watchdog stall
+    episodes accumulated: the world is unhealthy (``detect.classify``
+    maps it to ``stall``, which the supervisor recovers)."""
 
 
 # ---------------------------------------------------------------- log
 class RecoveryLog:
-    """Bounded ring of recovery events (the JAX package's schema; its
-    telemetry series are not ported: :attr:`world_size` holds the last
-    world, :attr:`counts` the events by cause)."""
+    """Bounded ring of recovery events (the JAX package's schema), in the
+    ``mx_elastic_*`` series too; :attr:`world_size` holds the last
+    world, :attr:`counts` the events by cause."""
 
     def __init__(self, max_events: int = 256):
         self._lock = threading.Lock()
         self._events: "deque[dict]" = deque(maxlen=max_events)
         self.world_size = 0
         self.counts: dict = {}
+        t = _telemetry
+        reg = t.registry()
+        self._c_rec = reg.counter(t.names.ELASTIC_RECOVERIES,
+                                  label_key="cause")
+        self._h_down = reg.histogram(t.names.ELASTIC_DOWNTIME_SECONDS)
+        self._g_world = reg.gauge(t.names.ELASTIC_WORLD_SIZE)
 
     def record(self, cause: str, lost_devices: List[str], old_dp: int,
                new_dp: int, restored_step: int, downtime_s: float,
@@ -112,12 +126,16 @@ class RecoveryLog:
             self._events.append(evt)
             self.counts[cause] = self.counts.get(cause, 0) + 1
             self.world_size = int(new_dp)
+        self._c_rec.inc(label=cause)
+        self._h_down.observe(float(downtime_s))
+        self._g_world.set(int(new_dp))
         _LOG.warning("mx-recovery %s", json.dumps(evt))
         return evt
 
     def set_world(self, n: int):
         with self._lock:
             self.world_size = int(n)
+        self._g_world.set(int(n))
 
     def events(self, cause: Optional[str] = None) -> List[dict]:
         with self._lock:
@@ -227,7 +245,7 @@ class ElasticSupervisor:
     failure), ``formation_timeout_s`` (a formation that has not ended
     by then is killed and the run fails)."""
 
-    RECOVERABLE = ("device_lost", "transient")
+    RECOVERABLE = ("device_lost", "transient", "stall")
 
     def __init__(self, build: Callable, checkpoint_dir: str, *,
                  mesh_axes: Optional[dict] = None, axis: str = "dp",
@@ -244,10 +262,10 @@ class ElasticSupervisor:
                  log: Optional[RecoveryLog] = None,
                  device: str = "cuda",
                  formation_timeout_s: float = 3600.0):
-        if int(stall_escalation) > 0:
-            raise MXNetError(f"stall_escalation={stall_escalation}: "
-                             + _NO_STALL)
         self._build = build
+        self._stall_escalation = max(0, int(stall_escalation))
+        self._stall_count = 0
+        self._escalate = False
         self._dir = os.path.abspath(checkpoint_dir)
         self._mesh_axes = dict(mesh_axes) if mesh_axes else None
         self._axis = axis
@@ -319,9 +337,13 @@ class ElasticSupervisor:
         exit), recovering on the way. Raises when the failure is fatal,
         the retry budget is spent, too few devices survive, or recovery
         is off."""
+        wd = _telemetry.watchdog()
+        if self._stall_escalation and self._mesh_axes is None:
+            wd.subscribe(self._on_anomaly)
         self._preempt.install()
         self._loss_handles, self._losses = {}, {}
         self._retries = self._total_retries = 0
+        self._stall_count, self._escalate = 0, False
         self._events_before = len(self._log)
         try:
             if self._mesh_axes is None:
@@ -330,6 +352,7 @@ class ElasticSupervisor:
                 preempted = self._run_formations(batch_fn, total_steps)
         finally:
             self._preempt.uninstall()
+            wd.unsubscribe(self._on_anomaly)
         return ElasticResult(
             losses=self._finalize_losses(), preempted=preempted,
             events=self._log.events()[self._events_before:],
@@ -350,13 +373,28 @@ class ElasticSupervisor:
                 "re-form (nothing continues on another device kind)")
 
     def _recoverable(self, cause: str, exc: BaseException) -> bool:
-        if cause == "stall":
-            raise MXNetError("elastic: a stall escalation reached the "
-                             "supervisor; " + _NO_STALL) from exc
         return self._recover and cause in self.RECOVERABLE
+
+    def _on_anomaly(self, evt: dict):
+        """Watchdog-channel callback: counts ``stall`` episodes and sets
+        the flag the next step boundary turns into a recovery."""
+        if evt.get("kind") != "stall":
+            return
+        self._stall_count += 1
+        if self._stall_count >= self._stall_escalation > 0:
+            self._escalate = True
+
+    def _check_escalation(self):
+        if self._escalate:
+            self._escalate = False
+            raise StallEscalation(
+                f"{self._stall_count} watchdog stall episode(s) since the "
+                f"last recovery (threshold {self._stall_escalation}): "
+                "treating the world as unhealthy")
 
     def _count_retry(self, exc, cause):
         """One more recovery attempt: check the budget, back off."""
+        self._stall_count, self._escalate = 0, False
         self._retries += 1
         self._total_retries += 1
         if self._retries > self._max_retries:
@@ -416,6 +454,7 @@ class ElasticSupervisor:
             if self._preempt.requested():
                 self._graceful_preempt(loop)
                 return "preempted"
+            self._check_escalation()
             if self._grow and self._probe_every and i > start \
                     and (i - start) % self._probe_every == 0 \
                     and self._world_grew():
@@ -530,6 +569,8 @@ class ElasticSupervisor:
             _LOG.warning("elastic: preemption checkpoint committed at step "
                          "%d in %.1fs", step, took)
         self._final_step = step
+        _telemetry.registry().counter(
+            _telemetry.names.ELASTIC_PREEMPTIONS).inc()
         self._log.record(cause="preemption", lost_devices=[],
                          old_dp=self.dp_size, new_dp=self.dp_size,
                          restored_step=step, downtime_s=took, step=step)
@@ -586,7 +627,8 @@ class ElasticSupervisor:
                        "grow": self._grow, "probe_every": self._probe_every,
                        "max_world": self._max_world, "kind": self._kind,
                        "record_losses": self._record_losses,
-                       "final_checkpoint": self._final_checkpoint}
+                       "final_checkpoint": self._final_checkpoint,
+                       "stall_escalation": self._stall_escalation}
                 try:
                     ranks = _dist.spawn(
                         _formation_rank, len(devs), self._kind, (cfg,),
@@ -734,6 +776,16 @@ def _formation_rank(cfg: dict) -> dict:
     notice.install()
     ctl = tdist.new_group(backend="gloo")
     loop, handles, info = None, {}, {}
+    stalls = []
+    threshold = cfg.get("stall_escalation", 0)
+
+    def on_anomaly(evt):
+        if evt.get("kind") == "stall":
+            stalls.append(evt.get("step"))
+
+    wd = _telemetry.watchdog()
+    if threshold:
+        wd.subscribe(on_anomaly)
     try:
         with make_mesh({a: (world if s == -1 else s)
                         for a, s in cfg["mesh_axes"].items()}):
@@ -758,12 +810,19 @@ def _formation_rank(cfg: dict) -> dict:
                     flags = torch.tensor(
                         [int(notice.requested()
                              or os.path.exists(cfg["notice_file"])),
-                         int(grew)], dtype=torch.int32)
+                         int(grew),
+                         int(bool(threshold) and len(stalls) >= threshold)],
+                        dtype=torch.int32)
                     tdist.all_reduce(flags, op=tdist.ReduceOp.MAX,
                                      group=ctl)
                     if flags[0]:
                         outcome = "preempted"
                         break
+                    if flags[2]:
+                        raise StallEscalation(
+                            f"a rank saw {threshold} or more watchdog "
+                            "stall episode(s) in this formation: treating "
+                            "the world as unhealthy")
                     if flags[1]:
                         outcome = "reform"
                         break
@@ -805,5 +864,6 @@ def _formation_rank(cfg: dict) -> dict:
             f"elastic formation rank {rank} failed at step {step}: "
             f"{type(e).__name__}: {e} [elastic cause: {cause}]") from e
     finally:
+        wd.unsubscribe(on_anomaly)
         notice.uninstall()
 

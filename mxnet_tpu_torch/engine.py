@@ -17,17 +17,28 @@ retire is bracketed by the ``window.retire`` fault points, where a
 revoked device lands in a pipelined run. :meth:`DispatchWindow.
 drain_partial` is the recovery's drain: it retires what still completes
 and discards the rest.
+
+Telemetry (``telemetry/``): the push / retire / error counters and the
+occupancy / capacity gauges are always on; with ``MXNET_TELEMETRY`` (or a
+running profiler) each retire records the ``window`` and ``retire``
+spans and feeds the watchdog (step time, MFU, the NaN check of the
+retired loss, the memory budget). A step's numerics record
+(``telemetry.StepNumerics``), pushed beside its loss, is read at its
+retire. An allocation failure surfacing at a retire gets its OOM
+post-mortem (``telemetry.memory.maybe_record_oom``).
 """
 from __future__ import annotations
 
 import contextlib
 import logging
 import threading
+import time
 from collections import deque
 from typing import Any, Callable
 
 import torch
 
+from . import telemetry as _telemetry
 from .base import MXNetError
 from .testing.faults import fault_point
 
@@ -65,18 +76,34 @@ class DispatchWindow:
         self._mu = threading.Lock()
         self.stats = {"pushes": 0, "retires": 0, "errors": 0,
                       "max_pending": 0, "abandoned": 0}
+        self._last_retire_t = None
+        t = _telemetry
+        reg = t.registry()
+        self._m_pushes = reg.counter(t.names.WINDOW_PUSHES)
+        self._m_retires = reg.counter(t.names.WINDOW_RETIRES)
+        self._m_errors = reg.counter(t.names.WINDOW_ERRORS)
+        self._m_occupancy = reg.gauge(t.names.WINDOW_OCCUPANCY)
+        self._m_capacity = reg.gauge(t.names.WINDOW_CAPACITY)
+        self._m_capacity.set(self.max_inflight)
 
     def __len__(self) -> int:
         return len(self._pending)
 
-    def push(self, payload, tag=None):
+    def push(self, payload, tag=None, aux=None):
         """Record one dispatched step; returns at once unless the window
-        is over capacity, in which case the oldest entry retires."""
+        is over capacity, in which case the oldest entry retires.
+        ``aux`` is the step's numerics record
+        (``telemetry.StepNumerics``), read at this entry's retire."""
         with self._mu:
             self.stats["pushes"] += 1
-            self._pending.append((tag, payload))
+            self._pending.append((tag, payload, aux, time.perf_counter()))
             self.stats["max_pending"] = max(self.stats["max_pending"],
                                             len(self._pending))
+            depth = len(self._pending)
+        self._m_pushes.inc()
+        # re-asserted per push: gauges survive telemetry.reset() zeroing
+        self._m_capacity.set(self.max_inflight)
+        self._m_occupancy.set(depth)
         while len(self._pending) > self.max_inflight:
             self._retire_oldest()
 
@@ -84,28 +111,70 @@ class DispatchWindow:
         with self._mu:
             if not self._pending:
                 return
-            tag, payload = self._pending.popleft()
+            tag, payload, aux, t_push = self._pending.popleft()
+            depth = len(self._pending)
+        self._m_occupancy.set(depth)
         fault_point("window.retire", "before")
-        try:
-            with allow_sync():
+        t_wait = time.perf_counter()
+        with allow_sync():
+            try:
                 self._sync(payload)
-        except MXNetError as e:
+            except MXNetError as e:
+                self._failed(e, tag)
+                raise
+            except Exception as e:
+                self._failed(e, tag)
+                raise MXNetError(
+                    f"async {self._what} "
+                    f"{tag if tag is not None else '<untagged>'} failed "
+                    f"(deferred error surfaced at its in-flight-window "
+                    f"retire): {type(e).__name__}: {e}") from e
             with self._mu:
-                self.stats["errors"] += 1
-            _record_device_lost(e, tag)
-            raise
-        except Exception as e:
-            with self._mu:
-                self.stats["errors"] += 1
-            _record_device_lost(e, tag)
-            raise MXNetError(
-                f"async {self._what} "
-                f"{tag if tag is not None else '<untagged>'} failed "
-                f"(deferred error surfaced at its in-flight-window "
-                f"retire): {type(e).__name__}: {e}") from e
-        with self._mu:
-            self.stats["retires"] += 1
+                self.stats["retires"] += 1
+            self._m_retires.inc()
+            # still inside the retire's designed sync: the watchdog's
+            # NaN check of the (completed) loss and the numerics read
+            self._observe_retire(tag, payload, aux, t_push, t_wait)
         fault_point("window.retire", "after")
+
+    def _failed(self, e, tag):
+        with self._mu:
+            self.stats["errors"] += 1
+        self._m_errors.inc()
+        # a deferred allocation failure surfaces here, steps after the
+        # allocation: its post-mortem first, then the device-loss record
+        _telemetry.memory.maybe_record_oom(e, "dispatch-window retire",
+                                           step=tag)
+        _record_device_lost(e, tag)
+
+    def _observe_retire(self, tag, payload, aux, t_push, t_wait):
+        """Step-timeline spans + watchdog feed for one retire, gated on
+        ``MXNET_TELEMETRY`` / a running profiler; never kills a run. The
+        numerics record is read first and regardless of that gate
+        (``MXNET_NUMERICS`` is its own opt-in)."""
+        t = _telemetry
+        try:
+            if aux is not None:
+                t.numerics.monitor().observe_retire(tag, aux)
+            if not t.active():
+                self._last_retire_t = None
+                return
+            t_done = time.perf_counter()
+            tl = t.timeline()
+            tl.record("window", t_push, t_done, step=tag)
+            tl.record("retire", t_wait, t_done, step=tag)
+            dt = None if self._last_retire_t is None \
+                else t_done - self._last_retire_t
+            self._last_retire_t = t_done
+            if t.enabled():
+                t.watchdog().observe_retire(tag, payload=payload, dt=dt)
+                # the memory budget's headroom check, on the same retire
+                # (host-side allocator counters; no-op unless
+                # MXNET_MEMORY_BUDGET is set)
+                t.memory.maybe_check_budget(step=tag)
+        except Exception:            # pragma: no cover - defensive
+            logging.getLogger("mxnet_tpu_torch.telemetry").warning(
+                "window retire telemetry failed", exc_info=True)
 
     def drain(self):
         """Retire every outstanding entry; a deferred error surfaces here
@@ -117,9 +186,10 @@ class DispatchWindow:
         """Discard every in-flight entry without waiting; returns their
         tags."""
         with self._mu:
-            tags = [t for t, _ in self._pending]
+            tags = [t for t, *_ in self._pending]
             self._pending.clear()
             self.stats["abandoned"] += len(tags)
+        self._m_occupancy.set(0)
         return tags
 
     def drain_partial(self):

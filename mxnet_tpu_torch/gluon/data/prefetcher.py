@@ -32,6 +32,16 @@ recorded (``elastic.detect``). ``stats``: ``prefetch_batches``,
 ``starvation_count`` (times the queue was empty when it asked) and
 ``prefetch_depth``. ``MXNET_DEVICE_PREFETCH`` sets the default depth
 (2); 0 stages inline, on the consumer's thread.
+
+Telemetry: ``mx_prefetch_batches_total``, ``mx_prefetch_starvation_total``
+and ``mx_prefetch_input_wait_seconds_total`` beside ``stats``; with
+``MXNET_TELEMETRY`` (or a running profiler) the ``batch_fetch`` span (the
+source's pull and the staging, on the producer) and the ``h2d_wait``
+span (the consumer's wait) of each batch. Every staged tensor is filed
+in the census pool ``prefetch`` by weakref, so it leaves the pool when
+the step drops it, and on an early break or an error when the queue's
+batches are dropped. An allocation failure while staging gets its OOM
+post-mortem at the consumer.
 """
 from __future__ import annotations
 
@@ -46,6 +56,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from ... import telemetry as _telemetry
 from ...base import MXNetError
 from ...context import resolve_device
 from ...parallel.mesh import carry_placement, place_on_mesh
@@ -101,6 +112,11 @@ class DevicePrefetcher:
         self._stats_mu = threading.Lock()
         self._stream = None
         self._live = weakref.WeakSet()
+        reg = _telemetry.registry()
+        names = _telemetry.names
+        self._m_batches = reg.counter(names.PREFETCH_BATCHES)
+        self._m_starved = reg.counter(names.PREFETCH_STARVATION)
+        self._m_wait = reg.counter(names.PREFETCH_INPUT_WAIT)
 
     def stats_snapshot(self) -> dict:
         with self._stats_mu:
@@ -127,6 +143,7 @@ class DevicePrefetcher:
                 out = src.view_as(src)
         carry_placement(src, out)
         self._live.add(out)
+        _telemetry.memory.census().register("prefetch", out)
         return out
 
     def _stage(self, batch):
@@ -175,16 +192,32 @@ class DevicePrefetcher:
         with self._stats_mu:
             self.stats[key] += v
 
+    def _fetched(self, n, t0):
+        """One batch pulled and staged: the ``batch_fetch`` span."""
+        if _telemetry.active():
+            _telemetry.timeline().record("batch_fetch", t0,
+                                         time.perf_counter(), step=n)
+
+    def _handed(self, n):
+        self._count("prefetch_batches")
+        self._m_batches.inc()
+
     # ---------------- iteration ----------------
     def __iter__(self):
         if self._depth == 0:
+            it = iter(self._source)
             n = 0
-            for batch in self._source:
+            while True:
+                t0 = time.perf_counter()
+                try:
+                    batch = next(it)
+                except StopIteration:
+                    return
                 staged, ev = self._stage_batch(batch, n)
-                self._count("prefetch_batches")
+                self._fetched(n, t0)
+                self._handed(n)
                 n += 1
                 yield self._hand_out(staged, ev)
-            return
 
         q: "queue.Queue" = queue.Queue(maxsize=self._depth)
         stop = threading.Event()
@@ -200,8 +233,18 @@ class DevicePrefetcher:
 
         def produce():
             try:
-                for n, batch in enumerate(self._source):
-                    if not put(self._stage_batch(batch, n)):
+                it = iter(self._source)
+                n = 0
+                while True:
+                    t0 = time.perf_counter()
+                    try:
+                        batch = next(it)
+                    except StopIteration:
+                        break
+                    staged = self._stage_batch(batch, n)
+                    self._fetched(n, t0)
+                    n += 1
+                    if not put(staged):
                         return
                 item = _DONE
             except BaseException as e:   # carried to the consumer
@@ -216,6 +259,7 @@ class DevicePrefetcher:
             while True:
                 if q.empty():
                     self._count("starvation_count")
+                    self._m_starved.inc()
                 t0 = time.perf_counter()
                 try:
                     item = q.get(timeout=self._timeout)
@@ -223,16 +267,23 @@ class DevicePrefetcher:
                     raise MXNetError(
                         f"DevicePrefetcher produced no batch within "
                         f"timeout={self._timeout}s") from None
-                self._count("input_wait_ms",
-                            (time.perf_counter() - t0) * 1e3)
+                t1 = time.perf_counter()
+                self._count("input_wait_ms", (t1 - t0) * 1e3)
+                self._m_wait.inc(t1 - t0)
+                if _telemetry.active():
+                    _telemetry.timeline().record("h2d_wait", t0, t1, step=n)
                 if item is _DONE:
                     return
                 if isinstance(item, _Raised):
+                    # an allocation failure (or a lost device) of the
+                    # producer, recorded at the seam the caller sees
+                    _telemetry.memory.maybe_record_oom(
+                        item.exc, "prefetch staging", step=n)
                     from ...elastic import detect
                     detect.maybe_record_device_lost(
                         item.exc, "prefetch staging", step=n)
                     raise item.exc
-                self._count("prefetch_batches")
+                self._handed(n)
                 n += 1
                 yield self._hand_out(*item)
                 del item

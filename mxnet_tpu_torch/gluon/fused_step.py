@@ -134,6 +134,31 @@ The ``zero`` and ``mesh`` modes run eagerly: capturing their NCCL
 collectives and the ZeRO gradient hooks is later work. Under
 ``amp.init()`` parameters stay float32 and gradients come back float32,
 so no mode needs a master.
+
+**Numerics** (``numerics='global'|'per_layer'``, ``MXNET_NUMERICS``;
+``telemetry/numerics.py``): the step also computes the global grad norm
+(of the gradients the update reads, times its rescale), the param norm
+(the weights it reads), the update norm (new less old weights, from a
+copy of the weights taken before the in-place update), non-finite
+gradient counts by dtype and, ``per_layer``, each parameter's grad norm.
+In the ``fused`` mode they are reductions inside the captured graph into
+its one float64 aux output, copied out with the loss; the ``zero`` mode
+reduces each rank's shards and composes them with one all-reduce; the
+``mesh`` mode reduces the all-reduced gradients. The mode is part of the
+signature. The statistics only read what the step computes: losses and
+weights stay bit-equal with numerics off. :meth:`CompiledTrainStep.
+take_numerics` hands the record to the loop's dispatch window, which
+reads it at the retire. The split program and the ``eager`` mode run
+without it (a warning), as the JAX package's do.
+
+**Telemetry**: ``mx_compile_retraces_total`` counts captures,
+:meth:`CompiledTrainStep.step_flops` gives the FLOPs of one step (the
+eager step under ``torch.utils.flop_counter.FlopCounterMode`` plus what
+the hand-written kernels' wrappers report) for ``TrainLoop.arm_mfu``,
+and after its first step the parameters and optimizer states are filed in
+the memory census (pools ``params`` and ``optimizer``).
+:meth:`CompiledTrainStep.memory_report` merges the captures' allocator
+footprints.
 """
 from __future__ import annotations
 
@@ -142,18 +167,20 @@ import functools
 import itertools
 import logging
 import os
+import time
 from collections import OrderedDict
 from typing import Callable, List, Optional
 
 import numpy as np
 import torch
 
+from .. import telemetry as _telemetry
 from ..base import MXNetError
 from ..captured import Programs
 from ..kvstore import KVStoreDist
 from ..optimizer.optimizer import LOW_PRECISION, DeviceHParams, Optimizer
 from ..parallel import dist as _dist
-from ..parallel.collectives import (all_gather_rows, allgather,
+from ..parallel.collectives import (all_gather_rows, allgather, allreduce,
                                     reduce_scatter_rows, write_segment,
                                     zero_segment)
 from ..parallel.mesh import (batch_is_sharded, current_mesh, global_lead,
@@ -440,10 +467,16 @@ class _ZeroShardPlan:
 
     def state_bytes_per_replica(self) -> int:
         """Bytes of optimizer state this rank holds: its shards of the
-        states and of the float32 masters."""
-        return sum(s.numel() * s.element_size()
-                   for st in (self.states or []) + [self.masters.values()]
-                   for s in st)
+        states and of the float32 masters, each (re-)filed in the census
+        pool ``optimizer`` (the walk is the registration)."""
+        mem = _telemetry.memory
+        c = mem.census()
+        total = 0
+        for st in (self.states or []) + [self.masters.values()]:
+            for s in st:
+                c.register("optimizer", s)
+                total += mem.device_bytes(s)
+        return total
 
 
 class _BucketReducer:
@@ -612,8 +645,9 @@ class _Traced:
 _TRACED = _Traced()
 
 #: a fused step's signature, field by field (the JAX package's, less the
-#: NDArray mask and the numerics mode, which the port does not have)
-_SIG_FIELDS = ("train_mode", "arg_treedef", "static_spec", "shapes_dtypes")
+#: NDArray mask, which the port does not have)
+_SIG_FIELDS = ("train_mode", "arg_treedef", "static_spec", "shapes_dtypes",
+               "numerics")
 
 
 def explain_signature_diff(old, new) -> str:
@@ -775,10 +809,10 @@ def _step_body(loss_fn, treedef, spec, params, update, drawers: list,
                 drawers.append(m)
         if warming[0]:
             _note_update_draws(update)
-        else:
-            update([torch.zeros_like(p) if g is None else g
-                    for p, g in zip(params, grads)])
-        return loss.detach()
+            return loss.detach()
+        aux = update([torch.zeros_like(p) if g is None else g
+                      for p, g in zip(params, grads)])
+        return loss.detach() if aux is None else (loss.detach(), aux)
 
     return body
 
@@ -815,6 +849,94 @@ def _note_update_draws(update) -> None:
         note()
 
 
+def _dtype_groups(params):
+    """``[(dtype name, [indices])]`` of ``params`` by dtype, sorted (the
+    non-finite counts' keys)."""
+    groups: dict = {}
+    for j, p in enumerate(params):
+        groups.setdefault(str(p.dtype).replace("torch.", ""), []).append(j)
+    return sorted(groups.items())
+
+
+def _pack_aux(grad_sq, param_sq, upd_sq, nonfinite, layer=None,
+              drift=None) -> torch.Tensor:
+    """A step's numerics in one float64 vector: ``[grad_sq, param_sq,
+    upd_sq, non-finite count per dtype..., (master drift), (per-layer
+    grad_sq...)]`` (float64 keeps every count exact)."""
+    parts = [torch.stack([grad_sq.double(), param_sq.double(),
+                          upd_sq.double()]),
+             torch.stack([n.double() for n in nonfinite])]
+    if drift is not None:
+        parts.append(drift.double().reshape(1))
+    if layer is not None:
+        parts.append(layer.double())
+    return torch.cat(parts)
+
+
+def _unpack_aux(buf, dtypes, drift: bool, layers: bool) -> dict:
+    """:func:`_pack_aux`'s vector as ``StepNumerics.raw``: views."""
+    k = 3 + len(dtypes)
+    raw = {"grad_sq": buf[0], "param_sq": buf[1], "upd_sq": buf[2],
+           "nonfinite": {dt: buf[3 + i] for i, dt in enumerate(dtypes)}}
+    if drift:
+        raw["master_drift"] = buf[k]
+        k += 1
+    if layers:
+        raw["layer_grad_sq"] = buf[k:]
+    return raw
+
+
+class _NumericsUpdate:
+    """A captured step's ``update(grads)`` with the numerics aux. Before
+    the update (which overwrites the weights in place) the gradients and
+    the weights are each concatenated into one float32 vector, whose
+    sums of squares and non-finite count are a handful of reductions
+    (one a tensor would be ~1,600 small kernels for BERT-base); the
+    weights' vector is also the copy the update's distance is taken
+    from after it. ``per_layer`` adds one norm a gradient. Returns
+    :func:`_pack_aux`'s vector. The update itself runs unchanged."""
+
+    def __init__(self, update, params, rescale, per_layer: bool):
+        self.update = update
+        self.params = list(params)
+        self.rescale = rescale
+        self.per_layer = per_layer
+        self.groups = _dtype_groups(self.params)
+
+    @property
+    def note_draws(self):
+        return getattr(self.update, "note_draws", None)
+
+    @staticmethod
+    def _flat(tensors):
+        return torch.cat([t.reshape(-1).float() for t in tensors])
+
+    def __call__(self, grads):
+        with torch.no_grad():
+            ws = [p.detach() for p in self.params]
+            flat_g = self._flat(grads)
+            gsq = flat_g.square().sum()
+            if len(self.groups) == 1:
+                nfs = [torch.count_nonzero(~torch.isfinite(flat_g))]
+            else:
+                nfs = [torch.count_nonzero(~torch.isfinite(
+                    self._flat([grads[j] for j in js])))
+                    for _, js in self.groups]
+            layer = _telemetry.numerics.sumsq(grads) \
+                if self.per_layer else None
+            del flat_g
+            old = self._flat(ws)
+            psq = old.square().sum()
+        self.update(grads)
+        with torch.no_grad():
+            usq = (self._flat(ws) - old).square().sum()
+            r2 = torch.as_tensor(self.rescale, device=gsq.device,
+                                 dtype=torch.float64).square()
+            return _pack_aux(r2 * gsq.double(), psq, usq, nfs,
+                             layer=None if layer is None
+                             else r2 * layer.double())
+
+
 def _infer_batch_size(leaves) -> int:
     for leaf in leaves:
         if getattr(leaf, "ndim", 0) >= 1:
@@ -830,7 +952,7 @@ class CompiledTrainStep:
     def __init__(self, trainer, loss_fn: Callable, donate: bool = True,
                  train_mode: bool = True,
                  zero_shard: Optional[bool] = None, zero_axis: str = "dp",
-                 mesh=None):
+                 mesh=None, numerics: Optional[str] = None):
         self._trainer = trainer
         self._loss_fn = loss_fn
         # ``donate`` is the JAX package's: a graph updates its static
@@ -864,6 +986,15 @@ class CompiledTrainStep:
         # static gradient buffers between its two graphs
         self._split = False
         self._grads: Optional[List[torch.Tensor]] = None
+        # numerics: None | 'global' | 'per_layer' (MXNET_NUMERICS by
+        # default); part of the signature
+        self._numerics = _telemetry.numerics.mode(numerics)
+        self._pending_numerics = None
+        self._numerics_names: Optional[List[str]] = None
+        self._census_done = False
+        self._flops: dict = {}
+        self._m_retraces = _telemetry.registry().counter(
+            _telemetry.names.COMPILE_RETRACES)
         # the checkpoint stack asks the trainer's live steps whether a
         # ZeRO plan owns the optimizer state
         trainer._register_compiled(self)
@@ -927,6 +1058,215 @@ class CompiledTrainStep:
         order; empty before the first ZeRO step)."""
         return [list(b) for b in self._buckets]
 
+    # ---------------- numerics instrumentation ----------------
+    @property
+    def numerics(self) -> Optional[str]:
+        """Active numerics mode: None (off) | 'global' | 'per_layer'."""
+        return self._numerics
+
+    def set_numerics(self, mode: Optional[str]):
+        """Switch the numerics mode ('off'/None, 'global', 'per_layer').
+        The mode is part of the signature: the next call of a signature
+        captures its instrumented program; the others stay."""
+        self._numerics = _telemetry.numerics.mode(mode or "off")
+
+    def take_numerics(self):
+        """Pop the :class:`~mxnet_tpu_torch.telemetry.StepNumerics`
+        record of the most recent step (None when numerics is off). The
+        TrainLoop pushes it into the dispatch window beside the loss, so
+        it is read at the retire; a caller without a window can hand it
+        to ``telemetry.numerics.monitor()`` or call
+        :meth:`numerics_values`."""
+        rec, self._pending_numerics = self._pending_numerics, None
+        return rec
+
+    def numerics_values(self) -> Optional[dict]:
+        """The last step's numerics, read now: pops the record, publishes
+        it through the monitor (gauges, divergence anomalies, forensics)
+        as a retire would, and returns its host values — None when
+        numerics is off or no step ran. This WAITS for the step."""
+        rec = self.take_numerics()
+        if rec is None:
+            return None
+        return _telemetry.numerics.monitor().observe_retire(
+            self._steps_done, rec)
+
+    def _numerics_param_names(self) -> List[str]:
+        """The trainable parameters' names in the trainer's order: the
+        keys of the dict the trainer was given (``collect_params()`` /
+        ``named_parameters()`` names, as the JAX package's)."""
+        if self._numerics_names is None:
+            tr = self._trainer
+            by_id = {id(p): n for p, n in zip(tr._all_params,
+                                              tr._param_names)}
+            self._numerics_names = [by_id.get(id(p), str(j))
+                                    for j, p in enumerate(tr._params)]
+        return self._numerics_names
+
+    def _numerics_context(self, batch_size) -> dict:
+        tr = self._trainer
+        opt = tr._optimizer
+        ctx = {"optimizer": type(opt).__name__,
+               "learning_rate": float(opt.learning_rate),
+               "wd": float(getattr(opt, "wd", 0.0) or 0.0),
+               "rescale_grad": float(opt.rescale_grad),
+               "clip_gradient": None if opt.clip_gradient is None
+               else float(opt.clip_gradient),
+               "batch_size": batch_size,
+               "step_in_program": self._steps_done + 1,
+               "loss_scale": None, "mode": self._mode}
+        scaler = getattr(tr, "_amp_loss_scaler", None)
+        if scaler is not None:
+            ctx["loss_scale"] = float(scaler.loss_scale)
+        return ctx
+
+    def _stash_numerics(self, aux, batch_size, args, kwargs,
+                        drift: bool = False):
+        """Wrap this step's aux vector in a StepNumerics record for the
+        dispatch window: the vector (on the device until the retire
+        reads it), the host-side context and the one-shot NaN-origin
+        forensic closure over the step's own batch."""
+        params = self._trainer._params
+        rec = _telemetry.numerics.StepNumerics(
+            mode=self._numerics,
+            raw=_unpack_aux(aux, [dt for dt, _ in _dtype_groups(params)],
+                            drift, self._numerics == "per_layer"),
+            param_names=self._numerics_param_names(),
+            context=self._numerics_context(batch_size),
+            forensic=functools.partial(self._numerics_forensics, args,
+                                       kwargs))
+        self._pending_numerics = rec
+
+    def _numerics_forensics(self, args, kwargs, step_tag):
+        """NaN-origin forensics, run ONCE per non-finite episode and
+        OUTSIDE the hot loop (the monitor calls it at the retire when the
+        ``nonfinite_grad`` anomaly fires): the step's loss and backward
+        re-run eagerly on the step's batch under
+        ``telemetry.numerics.localize_nonfinite`` to name the first op
+        that produced a non-finite value, then once more for the ranked
+        per-layer norm table. The weights are the CURRENT ones (the step
+        updated them in place), so the replay chases the batch, not the
+        exact weight state (the dump says so). The random generators are
+        put back after."""
+        nx = _telemetry.numerics
+        tr = self._trainer
+        params = list(tr._params)
+        info = {"params_at": "retire (post-update weights)"}
+
+        def grads():
+            loss = self._forward(args, kwargs)
+            g = torch.autograd.grad(loss.sum(), params, allow_unused=True)
+            return loss, g
+
+        devices = [self._device.index or 0] \
+            if self._device.type == "cuda" else []
+        with torch.random.fork_rng(devices=devices):
+            info["offending_op"] = nx.localize_nonfinite(grads)
+        try:
+            with torch.random.fork_rng(devices=devices):
+                loss, gs = grads()
+            info["loss"] = float(loss.detach().double().mean())
+            layers = []
+            for name, p, g in zip(self._numerics_param_names(), params,
+                                  gs):
+                g = torch.zeros_like(p) if g is None else g.detach()
+                ga = g.double()
+                fin = torch.isfinite(ga)
+                layers.append({
+                    "param": name, "shape": list(g.shape),
+                    "dtype": str(g.dtype).replace("torch.", ""),
+                    "grad_norm": float(ga[fin].square().sum().sqrt()),
+                    "param_norm": float(p.detach().double().norm()),
+                    "nonfinite": int((~fin).sum())})
+            layers.sort(key=lambda d: (-d["nonfinite"], -d["grad_norm"]))
+            info["layers"] = layers
+        except Exception as e:
+            info["reexec_error"] = f"{type(e).__name__}: {e}"
+        return info
+
+    # ---------------- telemetry ----------------
+    def _register_census(self):
+        """File the step's long-lived buffers in the memory census:
+        parameters under ``params``, optimizer states (and ZeRO master
+        shards) under ``optimizer``. By weakref and idempotent, once
+        after the first step: the updates write in place."""
+        c = _telemetry.memory.census()
+        for p in self._trainer._all_params:
+            c.register("params", p)
+        if self._zero is not None:
+            self._zero.state_bytes_per_replica()      # registers
+        else:
+            opt = self._trainer._optimizer
+            for st in self._trainer._updater.states.values():
+                for s in opt.state_tensors(st):
+                    c.register("optimizer", s)
+        self._census_done = True
+
+    def step_flops(self, *args, batch_size: Optional[int] = None,
+                   **kwargs) -> Optional[float]:
+        """FLOPs of one step on this batch's shape — the numerator of
+        the live MFU gauge. The port has no ``cost_analysis()``: one
+        eager forward and backward on the batch under
+        ``torch.utils.flop_counter.FlopCounterMode`` counts the products
+        PyTorch runs (the dense layers', cuBLAS's), and each hand-written
+        kernel launched in it adds what its wrapper reports
+        (``ops.kernels.count_flops``: attention's and the recurrences'
+        products, the elementwise work of the norms; FlopCounterMode
+        cannot see behind ``ctypes``), plus the update's, once over the
+        trainable parameters (the ``opt_update`` kernel's count). Nothing
+        is updated and the random generators are put back. Cached by
+        signature; None in the ``eager`` mode (as the JAX package has no
+        program there)."""
+        from torch.utils.flop_counter import FlopCounterMode
+        from ..ops.kernels import count_flops
+        if self._mode is None:
+            self._mode = self._decide_mode()
+        if self._mode == "eager":
+            return None
+        leaves: list = []
+        _flatten((args, kwargs), leaves)
+        key = tuple((tuple(a.shape), str(a.dtype)) for a in leaves
+                    if hasattr(a, "shape"))
+        if key in self._flops:
+            return self._flops[key]
+        params = list(self._trainer._params)
+        devices = [self._device.index or 0] \
+            if self._device.type == "cuda" else []
+        with torch.random.fork_rng(devices=devices), \
+                FlopCounterMode(display=False) as fc, count_flops() as kf:
+            loss = self._forward(args, kwargs)
+            torch.autograd.grad(loss.sum(), params, allow_unused=True)
+        if self._device.type == "cuda":
+            torch.cuda.synchronize(self._device)
+        flops = float(fc.get_total_flops()) + kf["flops"] \
+            + 20.0 * sum(p.numel() for p in params)
+        self._flops[key] = flops
+        return flops
+
+    def memory_report(self):
+        """The captured programs' allocator footprint
+        (:class:`~mxnet_tpu_torch.telemetry.MemoryReport`): the field-wise
+        max over this step's captures, or None before the first capture
+        (and in the modes that capture nothing). Publishes the
+        ``mx_hbm_compiled_bytes{component}`` / ``mx_hbm_peak_estimate_
+        bytes`` gauges (absent components are not set)."""
+        if self._programs is None:
+            return None
+        reports = [p.memory for p in self._programs.programs()
+                   if p.memory is not None]
+        if not reports:
+            return None
+        t = _telemetry
+        merged = t.memory.MemoryReport.merge(reports)
+        reg = t.registry()
+        g = reg.gauge(t.names.HBM_COMPILED_BYTES)
+        for field in merged.FIELDS:
+            v = getattr(merged, field)
+            if v is not None:
+                g.set(v, label=field.replace("_bytes", ""))
+        reg.gauge(t.names.HBM_PEAK_BYTES).set(merged.peak_bytes)
+        return merged
+
     def input_placement(self) -> Optional[Callable]:
         """What :meth:`__call__` applies to each input leaf, or None on
         one device (``.to(device)`` then suffices): under a dp mesh
@@ -954,9 +1294,13 @@ class CompiledTrainStep:
         if self._zero is not None:
             return self._zero.state_bytes_per_replica()
         opt = self._trainer._optimizer
-        return sum(s.numel() * s.element_size()
-                   for st in self._trainer._updater.states.values()
-                   for s in opt.state_tensors(st))
+        c = _telemetry.memory.census()
+        total = 0
+        for st in self._trainer._updater.states.values():
+            for s in opt.state_tensors(st):
+                c.register("optimizer", s)
+                total += _telemetry.memory.device_bytes(s)
+        return total
 
     # ---------------- mode decision ----------------
     def _decide_mode(self) -> str:
@@ -1050,14 +1394,24 @@ class CompiledTrainStep:
         from ..elastic import detect
         if self._mode is None:
             self._mode = self._decide_mode()
+        if self._numerics and (self._mode == "eager" or self._split):
+            _LOG.warning(
+                "compile_step: numerics instrumentation needs the fused, "
+                "zero or mesh step (this one runs %s); disabled",
+                "the split program" if self._split else "eagerly")
+            self._numerics = None
         mesh = self._zero_ok or self._plain_mesh
         ctx = "dp%d" % (mesh[0].axis_size(mesh[1]) if mesh else 1)
         with detect.device_lost_guard("CompiledTrainStep.step",
-                                      step=self._steps_done + 1):
+                                      step=self._steps_done + 1), \
+                _telemetry.memory.oom_guard("CompiledTrainStep.step",
+                                            step=self._steps_done + 1):
             fault_point("step.dispatch", "before", ctx=ctx)
             loss = self._dispatch(args, kwargs, batch_size)
             fault_point("step.dispatch", "after", ctx=ctx)
         self._steps_done += 1
+        if not self._census_done:
+            self._register_census()
         return loss
 
     step = __call__
@@ -1136,6 +1490,9 @@ class CompiledTrainStep:
                                             advance=True, restore=restore)
             upd = self._update_program() if self._split else None
             loss = prog.run()
+            if isinstance(loss, tuple):
+                loss, aux = loss
+                self._stash_numerics(aux, batch_size, args, kwargs)
         except Exception as e:
             # a step that did not run updates nothing, its counts included
             opt._index_update_count, opt.num_update = counts
@@ -1208,7 +1565,8 @@ class CompiledTrainStep:
 
     def _signature(self, treedef, spec, shapes) -> tuple:
         sig = (tuple(m.training and self._train_mode
-                     for m in self._drawers), treedef, spec, shapes)
+                     for m in self._drawers), treedef, spec, shapes,
+               self._numerics)
         try:
             hash(sig)
         except TypeError as e:
@@ -1262,6 +1620,9 @@ class CompiledTrainStep:
             update = functools.partial(_keep_grads, self._grads) \
                 if self._split else \
                 opt.whole_step_fn(params, states, self._hp)
+            if self._numerics and not self._split:
+                update = _NumericsUpdate(update, params, self._hp.rescale,
+                                         self._numerics == "per_layer")
             return (_step_body(self._loss_fn, treedef, spec, params,
                                update, self._drawers, warming,
                                self._train_mode), inputs)
@@ -1270,6 +1631,7 @@ class CompiledTrainStep:
             sig, build, what=f"train step {shapes}",
             scope=functools.partial(_warmup_scope, warming, dev, restore))
         if self._programs.n_traces != traces:
+            self._m_retraces.inc()
             self._moved = known
             self._lru[sig] = None
             self._sig_history.append(sig)
@@ -1305,13 +1667,23 @@ class CompiledTrainStep:
 
     def _mesh_call(self, args, kwargs, batch_size, mesh, mean):
         """Replicated update after an all-reduce of every gradient (over
-        the mesh, or through a dist store that sums on the host)."""
+        the mesh, or through a dist store that sums on the host); the
+        numerics of the reduced gradients, which every rank holds."""
         tr = self._trainer
         loss = self._forward(args, kwargs)
         loss.sum().backward()
         tr.allreduce_grads(mean=mean,
                            mesh=None if tr._store_reduces() else mesh)
-        tr.update(batch_size)
+        if self._numerics:
+            params = list(tr._params)
+            upd = _NumericsUpdate(lambda _g: tr.update(batch_size), params,
+                                  tr._scale / batch_size,
+                                  self._numerics == "per_layer")
+            aux = upd([torch.zeros_like(p) if p.grad is None else p.grad
+                       for p in params])
+            self._stash_numerics(aux, batch_size, args, kwargs)
+        else:
+            tr.update(batch_size)
         return loss.detach()
 
     # ---------------- the ZeRO-1 step ----------------
@@ -1353,6 +1725,8 @@ class CompiledTrainStep:
             *plan.pack_hparams(opt, lrs, wds, ts), rank, dev)
         kernel = opt.kernel_step_fn()
         gathers = []
+        zn = _ZeroNumerics(plan, self._numerics, rescale) \
+            if self._numerics else None
         for g, bs in enumerate(red.groups):
             # an mp group's gradient was packed, and is reduced, in float32
             g_row = red.group_row(g, mean)
@@ -1373,20 +1747,24 @@ class CompiledTrainStep:
             # the weights of an mp group: its masters' rounding
             lows = [w_row[o:o + s] for o, s in zip(offs, cols)] \
                 if mp else None
-            args = (tuple(ws), tuple(gs), [ulrs[k] for k in idx],
-                    [uwds[k] for k in idx], [uts[k] for k in idx], rescale,
-                    clip, sts)
+            if zn is not None:
+                zn.before(idx, ws, gs)
+            step_args = (tuple(ws), tuple(gs), [ulrs[k] for k in idx],
+                         [uwds[k] for k in idx], [uts[k] for k in idx],
+                         rescale, clip, sts)
             if kernel is not None:
                 # the whole group in one launch, in place
-                kernel(*args, lows=lows)
+                kernel(*step_args, lows=lows)
             else:
-                new_ws, new_sts = opt.fused_step_fn()(*args)
+                new_ws, new_sts = opt.fused_step_fn()(*step_args)
                 for w, nw, st, nst in zip(ws, new_ws, sts, new_sts):
                     w.copy_(nw)
                     for s_, ns in zip(st, nst):
                         s_.copy_(ns)
                 for low, w in zip(lows or (), ws):
                     low.copy_(w)
+            if zn is not None:
+                zn.after(ws, lows)
             full, work = all_gather_rows(w_row, mesh, n, async_op=True)
             trace.append(("all_gather", g))
             gathers.append((idx, cols, offs, w_row, full, work))
@@ -1397,7 +1775,89 @@ class CompiledTrainStep:
         for p in params:
             p.fresh_grad = False
             p.grad = None
+        if zn is not None:
+            self._stash_numerics(zn.compose(mesh, self._zero_ok[1]),
+                                 batch_size, args, kwargs,
+                                 drift=zn.drift is not None)
         return loss.detach()
+
+
+class _ZeroNumerics:
+    """The numerics of a ZeRO step from this rank's shards (the JAX
+    ``zero_aux``): sums of squares of the reduced gradient shards, the
+    weight (or float32 master) shards and their update, non-finite
+    counts by the units' dtype, per parameter the grad sum of squares of
+    its columns in this rank's shards, and the float32 masters' drift
+    from their low-precision weights; :meth:`compose` sums the ranks'
+    (and takes the largest drift) with all-reduces, so every rank
+    reports the global statistic. Zero padding adds nothing."""
+
+    def __init__(self, plan, mode, rescale):
+        self.plan = plan
+        self.per_layer = mode == "per_layer"
+        self.r2 = float(rescale) ** 2
+        dev = plan.params[0].device
+        zero = functools.partial(torch.zeros, (), dtype=torch.float64,
+                                 device=dev)
+        self.gsq, self.psq, self.usq = zero(), zero(), zero()
+        self.dtypes = [dt for dt, _ in _dtype_groups(plan.params)]
+        self.nf = {dt: zero() for dt in self.dtypes}
+        self.layer = torch.zeros(len(plan.params), dtype=torch.float64,
+                                 device=dev) if self.per_layer else None
+        self.drift = None
+        self._olds = None
+
+    def before(self, idx, ws, gs):
+        nx = _telemetry.numerics
+        with torch.no_grad():
+            self.gsq += nx.sumsq(gs).double().sum()
+            self.psq += nx.sumsq(ws).double().sum()
+            for k, g in zip(idx, gs):
+                dt = str(self.plan.units[k]["dtypes"][0]).replace(
+                    "torch.", "")
+                self.nf[dt] += nx.nonfinite_count([g]).double()
+                if self.per_layer:
+                    self._members(k, g)
+            self._olds = [w.clone() for w in ws]
+
+    def _members(self, k, g):
+        u, plan = self.plan.units[k], self.plan
+        s = plan.shard_len(k)
+        lo = plan.rank * s
+        off = 0
+        for j, n in zip(u["members"], u["sizes"]):
+            a, b = max(lo, off), min(lo + s, off + n)
+            if a < b:
+                self.layer[j] += g[a - lo:b - lo].double().square().sum()
+            off += n
+
+    def after(self, ws, lows):
+        nx = _telemetry.numerics
+        with torch.no_grad():
+            for o, w in zip(self._olds, ws):
+                o.sub_(w)
+            self.usq += nx.sumsq(self._olds).double().sum()
+            self._olds = None
+            for low, w in zip(lows or (), ws):
+                d = w.float()
+                q = low.float()
+                drift = ((d - q).abs() / (d.abs() + 1e-8)).max().double()
+                self.drift = drift if self.drift is None \
+                    else torch.maximum(self.drift, drift)
+
+    def compose(self, mesh, axis) -> torch.Tensor:
+        """This step's aux vector (:func:`_pack_aux`), summed over the
+        ranks."""
+        vec = _pack_aux(self.r2 * self.gsq, self.psq, self.usq,
+                        [self.nf[dt] for dt in self.dtypes],
+                        layer=None if self.layer is None
+                        else self.r2 * self.layer)
+        vec = allreduce(vec, axis, mesh)
+        if self.drift is None:
+            return vec
+        drift = allreduce(self.drift.reshape(1), axis, mesh, op="max")
+        k = 3 + len(self.dtypes)
+        return torch.cat([vec[:k], drift, vec[k:]])
 
 
 def _loop_loss(net, loss, *batch):
@@ -1446,14 +1906,25 @@ class TrainLoop:
     (``gluon.data.DevicePrefetcher``); its stats join
     :meth:`engine_stats`. **Recovery**: :meth:`discard_inflight` retires
     what still completes and discards the rest (the elastic supervisor's
-    teardown). The JAX package's numerics, telemetry and ``arm_mfu``
-    wait for ``telemetry/`` (``ROADMAP.md`` queue 1, item 7)."""
+    teardown).
+
+    **Telemetry**: each step counts in ``mx_train_steps_total``; with
+    ``MXNET_TELEMETRY`` (or a running profiler) its dispatch is a
+    ``dispatch`` span (and a ``torch.profiler.record_function`` named
+    ``mx_train_step``, which groups the step's kernels in a device
+    trace), and the window's retires feed the watchdog. ``numerics=``
+    (``MXNET_NUMERICS``) computes the step's grad / param / update norms
+    and non-finite counts inside it (:class:`CompiledTrainStep`); the
+    record rides the window beside the loss and is read at its retire
+    (``mx_numerics_*``, divergence anomalies, one forensic dump a
+    non-finite episode). :meth:`arm_mfu` arms ``mx_model_mfu_ratio``.
+    The checkpoint's capture is the other designed wait of the loop."""
 
     def __init__(self, net, trainer, loss, inflight: Optional[int] = None,
                  checkpoint_dir: Optional[str] = None,
                  checkpoint_every: Optional[int] = None,
                  keep_last: int = 3, async_checkpoint: bool = True,
-                 resume: bool = True):
+                 resume: bool = True, numerics: Optional[str] = None):
         from ..engine import DispatchWindow
         self._net = net
         self._loss = loss
@@ -1462,7 +1933,9 @@ class TrainLoop:
         # is dropped frees its step's programs at once (no cycle for the
         # cyclic collector to find later)
         self._step = trainer.compile_step(
-            functools.partial(_loop_loss, net, loss))
+            functools.partial(_loop_loss, net, loss), numerics=numerics)
+        self._m_steps = _telemetry.registry().counter(
+            _telemetry.names.TRAIN_STEPS)
         if inflight is None:
             inflight = _env_int("MXNET_INFLIGHT_STEPS", 2)
         if os.environ.get("MXNET_ENGINE_TYPE") == "NaiveEngine":
@@ -1491,16 +1964,31 @@ class TrainLoop:
         loss.cpu()         # waits for the step's device work
 
     def step(self, *batch, batch_size: Optional[int] = None):
+        from ..engine import allow_sync
         try:
-            loss = self._step(*batch, batch_size=batch_size)
-            self._global_step += 1
-            self._window.push(loss, tag=self._global_step)
+            t = _telemetry
+            step_no = self._global_step + 1
+            if t.active():
+                t0 = time.perf_counter()
+                with torch.profiler.record_function("mx_train_step"):
+                    loss = self._step(*batch, batch_size=batch_size)
+                t.timeline().record("dispatch", t0, time.perf_counter(),
+                                    step=step_no)
+            else:
+                loss = self._step(*batch, batch_size=batch_size)
+            self._global_step = step_no
+            self._m_steps.inc()
+            # the numerics record rides the window with the loss and is
+            # read at its retire
+            self._window.push(loss, tag=step_no,
+                              aux=self._step.take_numerics())
             if self._manager is not None and self._every and \
                     self._global_step % self._every == 0:
                 # at the step's boundary, after its retire: the capture's
                 # copies to the host are then its only wait
                 self._window.drain()
-                self.save_checkpoint()
+                with allow_sync():
+                    self.save_checkpoint()
             return loss
         except (KeyboardInterrupt, SystemExit) as intr:
             fault = self._interrupt_cleanup()
@@ -1564,6 +2052,23 @@ class TrainLoop:
             batches, depth=depth, place=self._step.input_placement(),
             device=self._step.device)
         return self._prefetcher
+
+    def arm_mfu(self, *batch, peak_flops: Optional[float] = None,
+                batch_size: Optional[int] = None) -> Optional[float]:
+        """Arm the live MFU gauge (``mx_model_mfu_ratio``): this batch's
+        FLOPs a step (:meth:`CompiledTrainStep.step_flops`) into the
+        watchdog, and ``peak_flops`` (FLOP/s: the card's published peak
+        for the step's dtype) as the denominator. The watchdog then sets
+        FLOP/s and MFU at every retire. Call it OUTSIDE the timed loop:
+        it runs one eager forward and backward. Returns the FLOPs a step
+        (None in the eager mode)."""
+        flops = self._step.step_flops(*batch, batch_size=batch_size)
+        wd = _telemetry.watchdog()
+        if flops:
+            wd.set_model_flops(flops)
+        if peak_flops:
+            wd.set_peak_flops(peak_flops)
+        return flops
 
     def engine_stats(self) -> dict:
         """The window's pushes, retires, errors and size, and the last

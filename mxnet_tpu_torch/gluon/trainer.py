@@ -176,22 +176,26 @@ class Trainer:
         updates its static buffers in place already. ``train_mode=False``
         runs the forward with the layers that draw random numbers
         (dropout) in eval mode, whatever their own mode; it is part of
-        the signature. ``analyze``, ``numerics`` and ``autotune`` need
-        the JAX package's ``analysis/``, ``telemetry/`` and ``tuning/``,
-        not ported yet (``ROADMAP.md`` queue 1, item 7): anything but
-        None raises ``MXNetError``."""
-        for name, value in (("analyze", analyze), ("numerics", numerics),
-                            ("autotune", autotune)):
+        the signature. ``numerics='global'|'per_layer'``
+        (``MXNET_NUMERICS``) adds the step's grad / param / update norms
+        and non-finite counts (``telemetry/numerics.py``; losses and
+        weights stay bit-equal). ``analyze`` needs the JAX package's
+        ``analysis/`` and ``autotune`` its ``tuning/``, which later slices
+        port (``ROADMAP.md`` queue 1): anything but None raises
+        ``MXNetError``."""
+        for name, value, module in (("analyze", analyze, "analysis/"),
+                                    ("autotune", autotune, "tuning/")):
             if value is not None:
                 raise MXNetError(
                     f"compile_step({name}={value!r}): mxnet_tpu_torch does "
-                    "not port the program analysis, numerics and autotune "
-                    "yet (ROADMAP.md queue 1, item 7)")
+                    f"not port {module} yet (ROADMAP.md queue 1: the "
+                    f"{module} slice)")
         from .fused_step import CompiledTrainStep
         return CompiledTrainStep(self, loss_fn, donate=donate,
                                  train_mode=train_mode,
                                  zero_shard=zero_shard,
-                                 zero_axis=zero_axis, mesh=mesh)
+                                 zero_axis=zero_axis, mesh=mesh,
+                                 numerics=numerics)
 
     # ---------------- compiled-step registry ----------------
     def _register_compiled(self, step):

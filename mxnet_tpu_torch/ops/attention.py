@@ -24,6 +24,7 @@ path of this module.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import Optional, Tuple
 
@@ -31,7 +32,8 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from ..base import MXNetError
-from .kernels import DTYPE_CODES, check_cuda_operands, launch, library
+from .kernels import (DTYPE_CODES, causal_pairs, check_cuda_operands,
+                      count_plain, launch, library)
 
 __all__ = ["flash_attention", "flash_attention_fwd",
            "flash_attention_fwd_plain", "flash_attention_bwd",
@@ -159,6 +161,14 @@ def _check_cuda_attention(q, *others):
                          f"{MAX_HEAD_DIM}")
 
 
+def _products(q, k, causal: bool, n: int) -> float:
+    """FLOPs of ``n`` (B, H, Sq, D) x (B, H, D, Sk)-sized products over
+    the (query, key) pairs the mask keeps: a flash kernel's work (the
+    forward 2, QK^T and PV; the fused backward 5, dq 3, dkv 4)."""
+    b, h, sq, d = q.shape
+    return 2.0 * d * b * h * causal_pairs(sq, k.shape[2], causal) * n
+
+
 def _flash_fwd_kernel(q, k, v, causal: bool, sm_scale: float):
     """(out, lse) from the ``flash_fwd`` kernel (CUDA tensors)."""
     _check_cuda_attention(q, k, v)
@@ -170,7 +180,8 @@ def _flash_fwd_kernel(q, k, v, causal: bool, sm_scale: float):
         return out, lse
     launch("flash_fwd", q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
            out.data_ptr(), lse.data_ptr(), b * h, sq, sk, d, int(causal),
-           sm_scale, DTYPE_CODES[q.dtype], dtype=q.dtype)
+           sm_scale, DTYPE_CODES[q.dtype], dtype=q.dtype,
+           flops=functools.partial(_products, q, k, causal, 2))
     return out, lse
 
 
@@ -238,7 +249,7 @@ def flash_bwd_fused(q, k, v, dout, lse, delta, causal, sm_scale):
         torch.empty(dq.shape, dtype=torch.float32, device=q.device)
     launch("flash_bwd_fused", q.device, *ptrs, dq.data_ptr(),
            acc.data_ptr(), dk.data_ptr(), dv.data_ptr(), *geom,
-           dtype=q.dtype)
+           dtype=q.dtype, flops=functools.partial(_products, q, k, causal, 5))
     return dq, dk, dv
 
 
@@ -247,7 +258,7 @@ def flash_bwd_dq(q, k, v, dout, lse, delta, causal, sm_scale):
     ptrs, geom = _bwd_operands(q, k, v, dout, lse, delta, causal, sm_scale)
     dq = torch.empty_like(q)
     launch("flash_bwd_dq", q.device, *ptrs, dq.data_ptr(), *geom,
-           dtype=q.dtype)
+           dtype=q.dtype, flops=functools.partial(_products, q, k, causal, 3))
     return dq
 
 
@@ -256,7 +267,8 @@ def flash_bwd_dkv(q, k, v, dout, lse, delta, causal, sm_scale):
     ptrs, geom = _bwd_operands(q, k, v, dout, lse, delta, causal, sm_scale)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     launch("flash_bwd_dkv", q.device, *ptrs, dk.data_ptr(), dv.data_ptr(),
-           *geom, dtype=q.dtype)
+           *geom, dtype=q.dtype,
+           flops=functools.partial(_products, q, k, causal, 4))
     return dk, dv
 
 
@@ -294,6 +306,7 @@ def flash_attention_bwd(q, k, v, out, lse, dout, causal: bool = False,
     CPU tensor runs :func:`flash_attention_bwd_plain`."""
     _check_flash_shapes(q, k, v)
     if q.device.type == "cpu":
+        count_plain()
         return flash_attention_bwd_plain(q, k, v, out, lse, dout, causal,
                                          sm_scale)
     sm_scale = _default_scale(q, sm_scale)
@@ -317,6 +330,7 @@ class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, causal, sm_scale):
         if q.device.type == "cpu":
+            count_plain()
             out, lse = flash_attention_fwd_plain(q, k, v, causal, sm_scale)
         else:
             out, lse = _flash_fwd_kernel(q, k, v, causal, sm_scale)

@@ -24,7 +24,16 @@ nothing on the card: :func:`record_launches` takes what the capturing
 thread's wrappers, and any thread's on the capture's stream, would have
 counted into a dict instead, and
 :func:`add_launches` adds that delta at each replay, so the counts stay
-the launches the card ran.
+the launches the card ran. Every wrapper call also feeds the telemetry
+series ``mx_kernel_dispatch_total{path}``: ``cuda`` for a launch the card
+ran (a replay adds its graph's launches), ``plain`` for a CPU tensor's
+plain version (:func:`count_plain`).
+
+FLOPs: inside :func:`count_flops` each launch adds the operations its
+wrapper reports (the counts ``chip_smoke.py``'s bounds use: the products
+of attention and of the recurrences, the elementwise work of LayerNorm,
+bias-GELU and the update), which ``torch.utils.flop_counter`` cannot see
+behind ``ctypes`` (``CompiledTrainStep.step_flops``).
 """
 from __future__ import annotations
 
@@ -43,7 +52,8 @@ import torch
 
 from ...base import MXNetError
 
-__all__ = ["KERNELS", "KernelInfo", "launch_counts",
+__all__ = ["KERNELS", "KernelInfo", "launch_counts", "count_plain",
+           "count_flops", "causal_pairs",
            "launch_counts_by_dtype", "reset_launch_counts",
            "record_launches", "add_launches",
            "library", "build_library", "launch", "check_cuda_operands",
@@ -188,6 +198,54 @@ _LIB_MU = threading.Lock()
 _LIB: Optional[ctypes.CDLL] = None
 
 
+_DISPATCH = []
+
+
+def _dispatch_counter():
+    """``mx_kernel_dispatch_total`` (registered at first use: the
+    telemetry package is imported lazily by the kernel layer)."""
+    if not _DISPATCH:
+        from ...telemetry import names, registry
+        _DISPATCH.append(registry().counter(names.KERNEL_DISPATCH))
+    return _DISPATCH[0]
+
+
+def count_plain() -> None:
+    """A wrapper ran its kernel's plain version (a CPU tensor)."""
+    _dispatch_counter().inc(label="plain")
+
+
+#: FLOPs the launches report while :func:`count_flops` is open (a
+#: backward's launches come from autograd's worker thread, so the sum is
+#: the process's, not a thread's)
+_FLOPS = {"open": 0, "flops": 0.0}
+
+
+@contextmanager
+def count_flops():
+    """Within the block, each launch adds the FLOPs its wrapper reports;
+    yields a dict whose ``"flops"`` holds the sum on exit."""
+    out = {"flops": 0.0}
+    with _COUNT_MU:
+        _FLOPS["open"] += 1
+        start = _FLOPS["flops"]
+    try:
+        yield out
+    finally:
+        with _COUNT_MU:
+            _FLOPS["open"] -= 1
+            out["flops"] = _FLOPS["flops"] - start
+
+
+def causal_pairs(sq: int, sk: int, causal: bool) -> int:
+    """(query, key) pairs attention computes: all, or under the
+    end-aligned causal mask those with k <= q + (sk - sq)."""
+    if not causal:
+        return sq * sk
+    import numpy as np
+    return int(np.clip(np.arange(sq) + (sk - sq) + 1, 0, sk).sum())
+
+
 def launch_counts() -> Dict[str, int]:
     """Launches per kernel since the last :func:`reset_launch_counts`."""
     with _COUNT_MU:
@@ -237,10 +295,14 @@ def record_launches(stream=None):
 
 def add_launches(delta: Dict[tuple, int]) -> None:
     """Count ``delta``'s launches once (a graph's replay)."""
+    total = 0
     with _COUNT_MU:
         for key, n in delta.items():
             _COUNTS[key[0]] += n
             _DTYPE_COUNTS[key] = _DTYPE_COUNTS.get(key, 0) + n
+            total += n
+    if total:
+        _dispatch_counter().inc(total, label="cuda")
 
 
 def _count(name: str, dtype: torch.dtype, stream: Optional[int] = None
@@ -259,6 +321,7 @@ def _count(name: str, dtype: torch.dtype, stream: Optional[int] = None
             return
         _COUNTS[name] += 1
         _DTYPE_COUNTS[key] = _DTYPE_COUNTS.get(key, 0) + 1
+    _dispatch_counter().inc(label="cuda")
 
 
 def _sources():
@@ -389,12 +452,14 @@ def check_cuda_operands(name: str, x: torch.Tensor, *others) -> None:
 
 
 def launch(name: str, device: torch.device, *args,
-           dtype: torch.dtype) -> None:
+           dtype: torch.dtype, flops=None) -> None:
     """Call kernel ``name``'s C entry with ``args`` followed by PyTorch's
     current stream on ``device``, and count the launch, also under the
     ``dtype`` of its inputs (:func:`launch_counts_by_dtype`; under
-    :func:`record_launches`, into the capture's record). Raises when the
-    entry reports a CUDA error (a refused launch)."""
+    :func:`record_launches`, into the capture's record). ``flops`` (a
+    number, or a callable evaluated only inside :func:`count_flops`) is
+    the launch's work. Raises when the entry reports a CUDA error (a
+    refused launch)."""
     fn = getattr(library(), KERNELS[name].entry)
     stream = torch.cuda.current_stream(device).cuda_stream
     with torch.cuda.device(device):
@@ -403,3 +468,7 @@ def launch(name: str, device: torch.device, *args,
         what = library().mxt_error_string(err).decode()
         raise MXNetError(f"{name}: CUDA error {err} ({what}) at launch")
     _count(name, dtype, stream)
+    if flops is not None and _FLOPS["open"]:
+        n = float(flops() if callable(flops) else flops)
+        with _COUNT_MU:
+            _FLOPS["flops"] += n

@@ -24,7 +24,8 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from ...base import MXNetError
-from . import DTYPE_CODES, card_limits, check_cuda_operands, launch
+from . import (DTYPE_CODES, card_limits, check_cuda_operands, count_plain,
+               launch)
 
 __all__ = ["layer_norm", "layer_norm_plain", "ln_fwd_plan",
            "layer_norm_bwd", "layer_norm_bwd_plain", "ln_bwd_plan",
@@ -206,7 +207,7 @@ def _ln_fwd_kernel(x, gamma, beta, eps):
     launch("layernorm_fwd", x.device, x.data_ptr(), g.data_ptr(),
            b.data_ptr(), out.data_ptr(), rows, c, float(eps),
            DTYPE_CODES[x.dtype], plan["vec"], plan["packs"], plan["threads"],
-           plan["blocks"], dtype=x.dtype)
+           plan["blocks"], dtype=x.dtype, flops=8.0 * x.numel())
     return out
 
 
@@ -269,6 +270,7 @@ def layer_norm_bwd(x, gamma, dy, eps: float = 1e-5):
     (contiguous float32 or bfloat16 x, C <= 16384, else it raises); a CPU
     tensor runs :func:`layer_norm_bwd_plain`."""
     if x.device.type == "cpu":
+        count_plain()
         return layer_norm_bwd_plain(x, gamma, dy, eps)
     dy = dy.to(x.dtype).contiguous()
     check_cuda_operands("layer_norm_bwd", x, gamma, dy)
@@ -294,15 +296,18 @@ def layer_norm_bwd(x, gamma, dy, eps: float = 1e-5):
            dy.data_ptr(), dx.data_ptr(), part.data_ptr(), dgb[0].data_ptr(),
            dgb[1].data_ptr(), rows, c, float(eps), DTYPE_CODES[x.dtype],
            plan["vec"], plan["packs"], plan["threads"], plan["blocks"],
-           dtype=x.dtype)
+           dtype=x.dtype, flops=14.0 * x.numel())
     return dx, dgb[0].to(gamma.dtype), dgb[1].to(gamma.dtype)
 
 
 class _LayerNorm(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, gamma, beta, eps):
-        out = layer_norm_plain(x, gamma, beta, eps) \
-            if x.device.type == "cpu" else _ln_fwd_kernel(x, gamma, beta, eps)
+        if x.device.type == "cpu":
+            count_plain()
+            out = layer_norm_plain(x, gamma, beta, eps)
+        else:
+            out = _ln_fwd_kernel(x, gamma, beta, eps)
         ctx.save_for_backward(x, gamma)
         ctx.eps = eps
         return out
@@ -390,6 +395,7 @@ def bias_gelu_bwd(x, b, dy):
     float32 or bfloat16 x, else it raises; db written in b's dtype); a
     CPU tensor runs :func:`bias_gelu_bwd_plain`."""
     if x.device.type == "cpu":
+        count_plain()
         return bias_gelu_bwd_plain(x, b, dy)
     dy = dy.to(x.dtype).contiguous()
     check_cuda_operands("bias_gelu_bwd", x, b, dy)
@@ -413,7 +419,7 @@ def bias_gelu_bwd(x, b, dy):
            dy.data_ptr(), dx.data_ptr(), part.data_ptr(), db.data_ptr(),
            rows, c, DTYPE_CODES[x.dtype], DTYPE_CODES[bb.dtype],
            plan["vec"], plan["tiles"], plan["chunks"],
-           plan["rows_per_chunk"], dtype=x.dtype)
+           plan["rows_per_chunk"], dtype=x.dtype, flops=25.0 * x.numel())
     return dx, db.to(b.dtype)
 
 
@@ -426,15 +432,19 @@ def _bg_fwd_kernel(x, b):
         return out
     bb = b.to(x.dtype).contiguous()
     launch("bias_gelu_fwd", x.device, x.data_ptr(), bb.data_ptr(),
-           out.data_ptr(), x.numel(), c, DTYPE_CODES[x.dtype], dtype=x.dtype)
+           out.data_ptr(), x.numel(), c, DTYPE_CODES[x.dtype], dtype=x.dtype,
+           flops=20.0 * x.numel())
     return out
 
 
 class _BiasGelu(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, b):
-        out = bias_gelu_plain(x, b) if x.device.type == "cpu" \
-            else _bg_fwd_kernel(x, b)
+        if x.device.type == "cpu":
+            count_plain()
+            out = bias_gelu_plain(x, b)
+        else:
+            out = _bg_fwd_kernel(x, b)
         ctx.save_for_backward(x, b)
         return out
 

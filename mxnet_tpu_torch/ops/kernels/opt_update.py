@@ -43,7 +43,7 @@ import numpy as np
 import torch
 
 from ...base import MXNetError
-from . import DTYPE_CODES, check_cuda_operands, launch
+from . import DTYPE_CODES, check_cuda_operands, count_plain, launch
 
 __all__ = ["unit_update", "unit_update_plain", "multi_update",
            "multi_update_plain", "plan_launches", "opt_kernel_kind",
@@ -284,7 +284,8 @@ def _launch_group(code, cfg, records, dtype, dev, rescale, clip,
                CHUNK, KIND_CODES[code], int(bool(cfg["has_clip"])), rsp, clp,
                rs, cl, float(cfg.get("momentum", 0.0)), float(b1), float(b2),
                float(cfg.get("epsilon", 0.0)), float(1 - b1), float(1 - b2),
-               DTYPE_CODES[dtype], dtype=dtype)
+               DTYPE_CODES[dtype], dtype=dtype,
+               flops=20.0 * float(part["n"].sum()))
 
 
 def multi_update(kind: str, cfg: dict, ws, gs, lrs, wds, ts, rescale, clip,
@@ -317,6 +318,7 @@ def multi_update(kind: str, cfg: dict, ws, gs, lrs, wds, ts, rescale, clip,
     keep: list = []
     for i, w in enumerate(ws):
         if w.device.type == "cpu":
+            count_plain()
             nw, ns = unit_update_plain(kind, cfg, w, gs[i], lrs[i], wds[i],
                                        ts[i], rescale, clip, states[i])
             w.copy_(nw)

@@ -41,7 +41,8 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from ...base import MXNetError
-from . import DTYPE_CODES, card_limits, check_cuda_operands, launch, library
+from . import (DTYPE_CODES, card_limits, check_cuda_operands, count_plain,
+               launch, library)
 
 __all__ = ["GATES", "MODE_CODES", "scan_supported", "rnn_scan",
            "rnn_scan_plain", "rnn_scan_bwd_plain", "rnn_scan_fwd",
@@ -242,6 +243,7 @@ def rnn_scan_fwd(xw, h0, c0, w_hh, b_hh, mode: str):
     of one dtype, else it raises; any T, N, H); a CPU tensor runs
     :func:`rnn_scan_plain`."""
     if xw.device.type == "cpu":
+        count_plain()
         return rnn_scan_plain(xw, h0, c0, w_hh, b_hh, mode)
     n_t, n, h = _check_scan("rnn_scan_fwd", xw, h0, c0, w_hh, b_hh, mode)
     lstm = mode == "lstm"
@@ -252,7 +254,8 @@ def rnn_scan_fwd(xw, h0, c0, w_hh, b_hh, mode: str):
     launch("rnn_scan_fwd", xw.device, xw.data_ptr(), h0.data_ptr(),
            c0.data_ptr() if lstm else None, w.data_ptr(), b.data_ptr(),
            ys.data_ptr(), cs.data_ptr() if lstm else None, n_t, n, h,
-           MODE_CODES[mode], DTYPE_CODES[xw.dtype], dtype=xw.dtype)
+           MODE_CODES[mode], DTYPE_CODES[xw.dtype], dtype=xw.dtype,
+           flops=2.0 * n_t * n * w.shape[0] * h)
     return ys, cs
 
 
@@ -262,6 +265,7 @@ def rnn_scan_bwd(xw, h0, c0, w_hh, b_hh, ys, cs, dys, dc_t, mode: str):
     the dW/db sums, one launch counted), raising as :func:`rnn_scan_fwd`;
     a CPU tensor runs :func:`rnn_scan_bwd_plain`."""
     if xw.device.type == "cpu":
+        count_plain()
         return rnn_scan_bwd_plain(xw, h0, c0, w_hh, b_hh, ys, cs, dys, dc_t,
                                   mode)
     n_t, n, h = _check_scan("rnn_scan_bwd", xw, h0, c0, w_hh, b_hh, mode)
@@ -293,7 +297,8 @@ def rnn_scan_bwd(xw, h0, c0, w_hh, b_hh, ys, cs, dys, dc_t, mode: str):
            dys.data_ptr(), dh_s.data_ptr(), ptr(dc_s), dxw.data_ptr(),
            dhw.data_ptr(), dh0.data_ptr(), ptr(dc0), dw.data_ptr(),
            db.data_ptr(), n_t, n, h, MODE_CODES[mode],
-           DTYPE_CODES[xw.dtype], dtype=xw.dtype)
+           DTYPE_CODES[xw.dtype], dtype=xw.dtype,
+           flops=6.0 * n_t * n * w.shape[0] * h)
     return dxw, dh0, dc0, dw.to(w_hh.dtype), db.to(b_hh.dtype)
 
 
@@ -507,6 +512,7 @@ def rnn_decode_step(xw, h, c, w_hh, b_hh, mode: str):
     if why is not None and not (xw.device.type == "cpu" and "dtype" in why):
         raise MXNetError(f"rnn_decode_step: {why}")
     if xw.device.type == "cpu":
+        count_plain()
         return rnn_decode_step_plain(xw, h, c, w_hh, b_hh, mode)
     _, n, h_dim = _check_scan("rnn_decode_step", xw[None], h, c, w_hh, b_hh,
                               mode, own_weights=True)
@@ -520,7 +526,8 @@ def rnn_decode_step(xw, h, c, w_hh, b_hh, mode: str):
            h_new.data_ptr(), c_new.data_ptr() if lstm else None, n, h_dim,
            MODE_CODES[mode], DTYPE_CODES[xw.dtype], DTYPE_CODES[w_hh.dtype],
            plan["units"], plan["threads"], plan["group_rows"],
-           DEC_PATHS[plan["path"]], dtype=xw.dtype)
+           DEC_PATHS[plan["path"]], dtype=xw.dtype,
+           flops=2.0 * n * w_hh.shape[0] * h_dim)
     return h_new, c_new
 
 

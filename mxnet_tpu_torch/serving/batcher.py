@@ -52,9 +52,16 @@ hand; the flush, deadline and admission arithmetic read only the
 injected clock.
 
 ``max_batch_rows`` / ``batch_timeout_s`` read ``MXNET_SERVING_MAX_BATCH``
-/ ``MXNET_SERVING_BATCH_TIMEOUT_MS``; their autotune registration and the
-``mx_serving_*`` series wait for ``tuning/`` and ``telemetry/``
-(``ROADMAP.md`` queue 1, item 7).
+/ ``MXNET_SERVING_BATCH_TIMEOUT_MS``; their autotune registration waits
+for ``tuning/`` (``ROADMAP.md`` queue 1).
+
+Telemetry (the JAX package's ``mx_serving_*`` series, beside ``stats``):
+``mx_serving_requests_total`` (admitted), ``mx_serving_batches_total``,
+``mx_serving_rejected_total{reason}``, ``mx_serving_deadline_missed_
+total``, the ``mx_serving_queue_depth`` / ``mx_serving_inflight_batches``
+gauges and the ``mx_serving_batch_occupancy_ratio`` /
+``mx_serving_request_seconds`` (submit to the retire of its batch) /
+``mx_serving_drain_seconds`` histograms.
 """
 from __future__ import annotations
 
@@ -69,6 +76,7 @@ from typing import Callable, List, Optional
 
 import torch
 
+from .. import telemetry as _telemetry
 from ..base import MXNetError
 from ..testing.faults import fault_point
 from .predictor import map_tensors
@@ -329,6 +337,18 @@ class DynamicBatcher:
             collections.deque(maxlen=100_000)
         #: seconds of each drain, from its start to the last retire
         self.drain_seconds: List[float] = []
+        t = _telemetry
+        reg = t.registry()
+        self._m_requests = reg.counter(t.names.SERVING_REQUESTS)
+        self._m_batches = reg.counter(t.names.SERVING_BATCHES)
+        self._m_queue = reg.gauge(t.names.SERVING_QUEUE_DEPTH)
+        self._m_inflight = reg.gauge(t.names.SERVING_INFLIGHT)
+        self._m_occupancy = reg.histogram(t.names.SERVING_OCCUPANCY)
+        self._m_latency = reg.histogram(t.names.SERVING_LATENCY)
+        self._m_rejected = reg.counter(t.names.SERVING_REJECTED,
+                                       label_key="reason")
+        self._m_deadline = reg.counter(t.names.SERVING_DEADLINE_MISSED)
+        self._m_drain = reg.histogram(t.names.SERVING_DRAIN_SECONDS)
         if start:
             self._thread = threading.Thread(
                 target=self._serve_loop, name="mxt-serving-batcher",
@@ -339,6 +359,7 @@ class DynamicBatcher:
     def _reject(self, reason: str, msg: str):
         with self._stats_mu:
             self.stats["rejected"] += 1
+        self._m_rejected.inc(label=reason)
         raise Overloaded(msg, reason=reason)
 
     def submit(self, *args, deadline_ms: Optional[float] = None,
@@ -397,6 +418,8 @@ class DynamicBatcher:
             time.sleep(0.0005)
         with self._stats_mu:
             self.stats["requests"] += 1
+        self._m_requests.inc()
+        self._m_queue.set(self._queue.qsize() + len(self._forming))
         return fut
 
     def _check_open(self):
@@ -489,7 +512,7 @@ class DynamicBatcher:
             self._fail_pending(ServingShutdown(
                 "serving drained before this request could be "
                 "dispatched"))
-            self.drain_seconds.append(max(0.0, self._clock() - t0))
+            self._drained(t0)
 
     def close(self):
         """Stop the dispatcher thread, flush what is waiting, and fail
@@ -577,6 +600,7 @@ class DynamicBatcher:
             if r.deadline is not None and now >= r.deadline:
                 with self._stats_mu:
                     self.stats["deadline_missed"] += 1
+                self._m_deadline.inc()
                 r.future._fail(DeadlineExceeded(
                     f"request deadline expired after "
                     f"{(now - r.t_submit) * 1e3:.1f} ms in queue: dropped "
@@ -722,7 +746,14 @@ class DynamicBatcher:
         self._stop.set()
         self._fail_pending(ServingShutdown(
             "serving drained before this request could be dispatched"))
-        self.drain_seconds.append(max(0.0, self._clock() - t0))
+        self._drained(t0)
+
+    def _drained(self, t0):
+        dt = max(0.0, self._clock() - t0)
+        self.drain_seconds.append(dt)
+        self._m_drain.observe(dt)
+        self._m_queue.set(0)
+        self._m_inflight.set(len(self._window))
 
     # ---------------- dispatch ----------------
     def _handle_batch_failure(self, reqs, exc, seam: str) -> bool:
@@ -790,6 +821,10 @@ class DynamicBatcher:
             self.stats["flush_" + reason] += 1
             self.bucket_counts[bucket] += 1
         self._window.append(_Inflight(list(reqs), event, self._clock()))
+        self._m_batches.inc()
+        self._m_occupancy.observe(rows / bucket)
+        self._m_inflight.set(len(self._window))
+        self._m_queue.set(self._queue.qsize() + len(self._forming))
         while len(self._window) > self._inflight_cap:
             self._retire_oldest()
 
@@ -822,9 +857,12 @@ class DynamicBatcher:
         dt = max(0.0, now - rec.t_dispatch)
         self._ewma_service = dt if self._ewma_service is None \
             else 0.3 * dt + 0.7 * self._ewma_service
+        lat = [max(0.0, now - r.t_submit) for r in rec.reqs]
         with self._stats_mu:
-            self.latencies.extend(max(0.0, now - r.t_submit)
-                                  for r in rec.reqs)
+            self.latencies.extend(lat)
+        for v in lat:
+            self._m_latency.observe(v)
+        self._m_inflight.set(len(self._window))
         if self.on_batch_retired is not None:
             try:
                 self.on_batch_retired()

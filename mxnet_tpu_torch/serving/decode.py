@@ -60,8 +60,19 @@ prefill's first-token copy and the prefix registry's state snapshots
 (clones: a view of the live state rows would go on changing) run
 eagerly between replays.
 
-Not ported yet: the ``decode.*`` tunables, telemetry and the memory census,
-``lower_entry``/``analyze``, and the fleet's use of the engine.
+Telemetry: ``mx_decode_tokens_total``, ``mx_decode_active_slots``, the
+``mx_decode_ttft_seconds`` / ``mx_decode_tpot_seconds`` histograms,
+``mx_serving_rejected_total{reason}`` and ``mx_decode_spec_drafted_total``
+/ ``_accepted_total`` (the JAX engine's series), beside ``stats``; the
+KV cache's page pools are in the memory census (``kvcache.py``). With
+``MXNET_MEMORY_BUDGET`` set, the engine prices its real geometry at
+construction — the page pools, plus the speculative overrun slack of
+``spec_k`` positions a slot — and raises where it does not fit (the
+check the JAX package's ``decode.page_size`` / ``decode.spec_k``
+validators make at a nominal geometry).
+
+Not ported yet: the ``decode.*`` tunables (they wait for ``tuning/``) and
+``lower_entry`` / ``analyze`` (for ``analysis/``).
 """
 from __future__ import annotations
 
@@ -76,6 +87,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from .. import telemetry as _telemetry
 from ..base import MXNetError
 from ..context import resolve_device
 from ..engine import DispatchWindow
@@ -669,6 +681,7 @@ class DecodeEngine:
         self.kv = PagedKVCache(model.num_layers, kv_heads, model.head_dim,
                                num_pages, ps, dtype=dtype,
                                device=self.device)
+        self._check_budget(ps)
         self._h, self._c = model.init_state(self.slots)
         self._tokens_dev = torch.zeros(self.slots, dtype=torch.long,
                                        device=self.device)
@@ -714,6 +727,16 @@ class DecodeEngine:
                       "accept_hist": {},     # accepted-block len -> n
                       "prefix_hits": 0, "prefix_tokens": 0,
                       "kv_shared_peak": 0}
+        t = _telemetry
+        reg = t.registry()
+        self._m_tokens = reg.counter(t.names.DECODE_TOKENS)
+        self._m_active = reg.gauge(t.names.DECODE_ACTIVE_SLOTS)
+        self._m_ttft = reg.histogram(t.names.DECODE_TTFT_SECONDS)
+        self._m_tpot = reg.histogram(t.names.DECODE_TPOT_SECONDS)
+        self._m_rejected = reg.counter(t.names.SERVING_REJECTED,
+                                       label_key="reason")
+        self._m_drafted = reg.counter(t.names.DECODE_SPEC_DRAFTED)
+        self._m_accepted = reg.counter(t.names.DECODE_SPEC_ACCEPTED)
         self._stop = threading.Event()
         self._thread: Optional[threading.Thread] = None
         if start:
@@ -793,9 +816,35 @@ class DecodeEngine:
                         kind, int(b), count=False).capture_s
         return out
 
+    def _check_budget(self, ps: int):
+        """``MXNET_MEMORY_BUDGET`` against this engine's real geometry:
+        its page pools, plus ``spec_k`` uncommitted positions a slot (the
+        speculative overrun). Raises ``MXNetError`` where they do not
+        fit."""
+        budget = _telemetry.memory.memory_budget()
+        if budget is None:
+            return
+        need = self.kv.total_bytes()
+        if self._spec_k:
+            extra = pages_needed(self.max_context + self._spec_k, ps) \
+                - self.max_pages_per_slot
+            need += self.slots * extra * self.kv.bytes_per_page
+        if need > budget:
+            raise MXNetError(
+                f"DecodeEngine: the KV page pools ({self.kv.num_pages} "
+                f"pages of {ps} positions) and the spec_k={self._spec_k} "
+                f"overrun need {need} B, over MXNET_MEMORY_BUDGET "
+                f"({budget} B): lower the page size, slots, max_context "
+                "or spec_k")
+
+    def _active(self):
+        self._m_active.set(sum(1 for o in self._occupant
+                               if o is not None))
+
     # ---------------- admission ----------------
     def _reject(self, reason: str, msg: str):
         self.stats["rejected"] += 1
+        self._m_rejected.inc(label=reason)
         raise Overloaded(msg, reason=reason)
 
     def submit(self, prompt, max_new: Optional[int] = None,
@@ -926,6 +975,7 @@ class DecodeEngine:
             self._occupant[slot] = req
             self._table[slot, :] = 0
             self._table[slot, :len(pages)] = pages
+            self._active()
 
     def _plan(self):
         occ = self._occupant
@@ -1139,6 +1189,8 @@ class DecodeEngine:
                 drafted, accepted = n - 1, a - 1
                 self.stats["spec_drafted"] += drafted
                 self.stats["spec_accepted"] += accepted
+                self._m_drafted.inc(drafted)
+                self._m_accepted.inc(accepted)
                 hist = self.stats["accept_hist"]
                 hist[a] = hist.get(a, 0) + 1
                 req.stream._record_step(a, drafted, accepted)
@@ -1165,8 +1217,12 @@ class DecodeEngine:
         req.history.append(int(tok))
         req.stream._deliver(tok, now)
         self.stats["tokens"] += 1
-        if not first:
+        self._m_tokens.inc()
+        if first:
+            self._m_ttft.observe(max(0.0, now - req.t_submit))
+        else:
             gap = max(0.0, now - req.t_last_tok)
+            self._m_tpot.observe(gap)
             self._ewma_tpot = gap if self._ewma_tpot is None \
                 else 0.8 * self._ewma_tpot + 0.2 * gap
         req.t_last_tok = now
@@ -1200,6 +1256,7 @@ class DecodeEngine:
         if self._occupant[slot] is req:
             self._occupant[slot] = None
             self._table[slot, :] = 0
+            self._active()
         self.kv.release(req)
         if exc is None:
             self.stats["completed"] += 1
@@ -1216,6 +1273,7 @@ class DecodeEngine:
                 self.kv.release(req)
                 req.stream._fail(exc)
             self._occupant[slot] = None
+        self._m_active.set(0)
         while self._queue:
             req = self._queue.popleft()
             self.kv.release(req)

@@ -45,10 +45,13 @@ device, from one process, behind a router:
 
 Locks: the fleet's ``RLock`` is taken before a batcher's, never the
 other way, and no future is waited on under it. ``_failover`` runs on
-the lost replica's dispatcher thread. Telemetry: ``stats``, ``events``
-(:class:`FleetEvent`) and :meth:`FleetController.describe` are kept; the
-``mx_fleet_*`` series wait for ``telemetry/`` (``ROADMAP.md`` queue 1,
-item 7).
+the lost replica's dispatcher thread. Telemetry: the ``mx_fleet_*``
+series (``mx_fleet_replicas{state}``, refreshed at every fleet event,
+``mx_fleet_routed_requests_total{replica}``, ``mx_fleet_replica_restarts_
+total``, ``mx_fleet_weight_swaps_total``, ``mx_fleet_scale_events_total
+{direction}`` and the ``mx_fleet_queue_wait_seconds`` of each routed
+request's replica), beside ``stats``, ``events`` (:class:`FleetEvent`)
+and :meth:`FleetController.describe`.
 
 Deterministic testing: ``start=False`` runs every batcher by hand; drive
 :meth:`FleetController.pump` with an injected ``clock=``; restarts then
@@ -70,6 +73,7 @@ from typing import Callable, Dict, List, Optional, Sequence
 
 import torch
 
+from .. import telemetry as _telemetry
 from ..base import MXNetError
 from ..testing.faults import fault_point
 from .batcher import DynamicBatcher
@@ -237,6 +241,8 @@ class FleetRouter:
                 c.stats["routed"] += 1
                 c.routed[rep.name] = c.routed.get(rep.name, 0) + 1
                 c._note_wait(est)
+            c._m_routed.inc(label=rep.name)
+            c._m_queue_wait.observe(est)
             if c.autoscale:
                 c.maybe_scale()
             return fut
@@ -310,6 +316,17 @@ class FleetController:
                       "requeued": 0, "failed_requeues": 0, "restarts": 0,
                       "swaps": 0, "scale_ups": 0, "scale_downs": 0,
                       "drains": 0}
+        t = _telemetry
+        reg = t.registry()
+        self._m_replicas = reg.gauge(t.names.FLEET_REPLICAS,
+                                     label_key="state")
+        self._m_routed = reg.counter(t.names.FLEET_ROUTED,
+                                     label_key="replica")
+        self._m_restarts = reg.counter(t.names.FLEET_RESTARTS)
+        self._m_swaps = reg.counter(t.names.FLEET_SWAPS)
+        self._m_scale = reg.counter(t.names.FLEET_SCALE_EVENTS,
+                                    label_key="direction")
+        self._m_queue_wait = reg.histogram(t.names.FLEET_QUEUE_WAIT)
         n = fleet_replicas() if replicas is None else max(1, int(replicas))
         devs = _dist.available_devices()
         if n > len(devs):
@@ -327,6 +344,7 @@ class FleetController:
                 raise MXNetError("fleet: ran out of devices mid-spawn")
             self._spawn(dev)
         self.router = FleetRouter(self)
+        self._update_gauge()
 
     # ---------------- introspection ----------------
     @property
@@ -345,6 +363,16 @@ class FleetController:
             for r in self._replicas:
                 counts[r.state] += 1
             return counts
+
+    def _update_gauge(self):
+        """``mx_fleet_replicas{state}`` from a copy of the replica list,
+        without the fleet's lock (an event may be recorded under a
+        batcher's lock, which the fleet's never nests in)."""
+        counts = {s: 0 for s in _Replica.STATES}
+        for r in list(self._replicas):
+            counts[r.state] += 1
+        for st, n in counts.items():
+            self._m_replicas.set(float(n), label=st)
 
     def describe(self) -> dict:
         """A structured snapshot of the fleet."""
@@ -377,6 +405,7 @@ class FleetController:
         ev = FleetEvent(kind, replica, self._clock(), detail)
         if len(self.events) < 1024:
             self.events.append(ev)
+        self._update_gauge()
         _LOG.info("fleet: %s%s %s", kind,
                   f" [{replica}]" if replica else "", ev.detail)
 
@@ -573,6 +602,7 @@ class FleetController:
                     self._wire(rep)
                     rep.state = _Replica.SERVING
                     self.stats["restarts"] += 1
+                    self._m_restarts.inc()
                     self._event("restart", rep.name, {
                         "device": str(dev), "attempt": i + 1,
                         "restart_s": time.monotonic() - t0})
@@ -679,6 +709,7 @@ class FleetController:
                     return None
                 rep = self._spawn(dev)
                 self.stats["scale_ups"] += 1
+                self._m_scale.inc(label="up")
                 self._event("scale_up", rep.name, {
                     "queue_wait_ewma_s": ewma, "serving": n + 1})
                 return "up"
@@ -687,6 +718,7 @@ class FleetController:
                 empt = min(serving, key=lambda r: (
                     r.sup.batcher.estimated_wait_s(0) or 0.0, -r.index))
                 self.stats["scale_downs"] += 1
+                self._m_scale.inc(label="down")
                 self._event("scale_down", empt.name, {
                     "queue_wait_ewma_s": ewma, "serving": n - 1})
                 self.drain_then_retire(empt, cause="scale_down")
@@ -729,6 +761,7 @@ class FleetController:
             swapped += 1
         self.version = new_version
         self.stats["swaps"] += 1
+        self._m_swaps.inc()
         duration = time.monotonic() - t0
         self._event("swap_complete", None, {
             "version": new_version, "replicas": swapped,

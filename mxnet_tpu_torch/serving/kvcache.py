@@ -25,7 +25,12 @@ across layers) handed to each request as it needs them:
   returns to the free list when its last holder releases it, and every
   registry entry built over it goes with it.
 
-The buffer census and telemetry of the JAX package are not ported yet.
+Both page pools are filed in the memory census (pool ``kvcache``, by
+weakref), so the census prices them as the allocator holds them
+(``telemetry.memory.device_bytes``, equal to :meth:`PagedKVCache.
+total_bytes`). Telemetry: ``mx_decode_kv_pages{state}`` (used, free,
+shared) after every change, ``mx_decode_prefix_hits_total`` and
+``mx_decode_cow_copies_total``.
 """
 from __future__ import annotations
 
@@ -35,6 +40,7 @@ from typing import Dict, List, Optional, Union
 import numpy as np
 import torch
 
+from .. import telemetry as _telemetry
 from ..base import MXNetError
 
 __all__ = ["PagedKVCache", "KV_PAGE_SIZE", "pages_needed", "prefix_hash"]
@@ -114,6 +120,20 @@ class PagedKVCache:
         self._page_keys: Dict[int, set] = {}
         self.cow_copies = 0
         self.prefix_hits = 0
+        t = _telemetry
+        t.memory.census().register("kvcache", self.k_pages)
+        t.memory.census().register("kvcache", self.v_pages)
+        reg = t.registry()
+        self._g_pages = reg.gauge(t.names.DECODE_KV_PAGES,
+                                  label_key="state")
+        self._m_prefix_hits = reg.counter(t.names.DECODE_PREFIX_HITS)
+        self._m_cow = reg.counter(t.names.DECODE_COW_COPIES)
+        self._publish()
+
+    def _publish(self):
+        self._g_pages.set(self.used_pages(), label="used")
+        self._g_pages.set(self.free_pages(), label="free")
+        self._g_pages.set(self.shared_pages(), label="shared")
 
     # ---------------- accounting ----------------
     @property
@@ -161,6 +181,7 @@ class PagedKVCache:
         if not self.can_reserve(n):
             return False
         self._reserved[owner] = self._reserved.get(owner, 0) + n
+        self._publish()
         return True
 
     def trim_reservation(self, owner, keep: int):
@@ -188,6 +209,7 @@ class PagedKVCache:
                 self._reserved.pop(owner, None)
         pages = [self._free.pop() for _ in range(n)]
         self._owned.setdefault(owner, []).extend(pages)
+        self._publish()
         return pages
 
     def pages_of(self, owner) -> List[int]:
@@ -213,6 +235,7 @@ class PagedKVCache:
             self._free.append(p)
             freed += 1
         self._reserved.pop(owner, None)
+        self._publish()
         return freed
 
     # ---------------- prefix sharing + copy-on-write ----------------
@@ -229,6 +252,8 @@ class PagedKVCache:
             self._refcnt[p] = self._refcnt.get(p, 1) + 1
         self._owned.setdefault(owner, []).extend(pages)
         self.prefix_hits += 1
+        self._m_prefix_hits.inc()
+        self._publish()
         return pages
 
     def cow(self, owner, page: int) -> int:
@@ -255,6 +280,8 @@ class PagedKVCache:
             else:
                 self._refcnt[page] = n - 1
         self.cow_copies += 1
+        self._m_cow.inc()
+        self._publish()
         return new
 
     def register_prefix(self, tokens, pos: int, pages, state=None):

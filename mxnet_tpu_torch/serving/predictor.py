@@ -16,7 +16,9 @@ A signature not seen before is captured at its first call, and
 runs its forward eagerly over the same static inputs. :meth:`predict`
 returns copies of the net's outputs on the device without waiting for
 them. :func:`predictor_for` builds one at a serving precision (float32,
-or bfloat16 through ``amp.convert_hybrid_block``).
+or bfloat16 through ``amp.convert_hybrid_block``). Each capture counts in
+``mx_compile_retraces_total``; :meth:`CompiledPredictor.memory_report`
+merges the captures' allocator footprints (``telemetry.MemoryReport``).
 """
 from __future__ import annotations
 
@@ -28,6 +30,7 @@ from typing import Dict, Optional, Sequence
 import numpy as np
 import torch
 
+from .. import telemetry as _telemetry
 from ..base import MXNetError
 from ..context import resolve_device
 from ..captured import Programs, map_tensors
@@ -103,6 +106,8 @@ class CompiledPredictor:
         self._net = net.to(self.device).eval()
         self._programs = Programs(self._net, self.device)
         self._mu = threading.Lock()
+        self._m_retraces = _telemetry.registry().counter(
+            _telemetry.names.COMPILE_RETRACES)
         #: measured time of one micro-batch of the largest bucket, from
         #: :meth:`warmup`; None until warmup ran
         self.service_time_seed_s: Optional[float] = None
@@ -180,8 +185,21 @@ class CompiledPredictor:
             return body, inputs
 
         shapes = [tuple(t.shape) for t in tensors]
-        return self._programs.get(key, build,
-                                  what=f"predictor program {shapes}"), tensors
+        traces = self._programs.n_traces
+        prog = self._programs.get(key, build,
+                                  what=f"predictor program {shapes}")
+        if self._programs.n_traces != traces:
+            self._m_retraces.inc()
+        return prog, tensors
+
+    def memory_report(self):
+        """The field-wise max of the captured programs' allocator
+        footprints (``telemetry.MemoryReport``), None before a capture or
+        on the CPU."""
+        reports = [p.memory for p in self._programs.programs()
+                   if p.memory is not None]
+        return _telemetry.memory.MemoryReport.merge(reports) \
+            if reports else None
 
     def aot_compile(self, *args, **kwargs) -> float:
         """Capture the program of this (bucket-shaped) batch ahead of

@@ -26,9 +26,10 @@ breaker and the supervisor (counterpart of
 A rebuilt predictor captures every bucket's CUDA graph anew on its
 device (the JAX package warm-starts its AOT programs from a compile
 cache; graphs do not move between cards), so that capture is part of a
-recovery's downtime. The JAX package's ``mx_serving_*`` series wait for
-``telemetry/`` (``ROADMAP.md`` queue 1, item 7): the counts are kept in
-``stats``, :attr:`CircuitBreaker.transitions` and
+recovery's downtime. Telemetry: ``mx_serving_breaker_state`` (0 closed,
+1 half-open, 2 open), ``mx_serving_retries_total{cause}`` and
+``mx_serving_recoveries_total{cause}``, beside ``stats``,
+:attr:`CircuitBreaker.transitions` and
 :attr:`ServingSupervisor.last_recovery`.
 """
 from __future__ import annotations
@@ -39,6 +40,7 @@ import threading
 import time
 from typing import Callable, List, Optional, Sequence
 
+from .. import telemetry as _telemetry
 from ..base import MXNetError
 
 __all__ = ["DeadlineExceeded", "Overloaded", "ServingShutdown",
@@ -149,12 +151,19 @@ class CircuitBreaker:
         self._failures = 0
         self._opened_at: Optional[float] = None
         self.transitions: List[tuple] = [(self.CLOSED, clock(), "init")]
+        self._m_state = _telemetry.registry().gauge(
+            _telemetry.names.SERVING_BREAKER_STATE)
+        self._m_state.set(0)
+
+    #: ``mx_serving_breaker_state``'s value of each state
+    _LEVEL = {"closed": 0, "half_open": 1, "open": 2}
 
     def _set(self, state: str, cause: str):
         """Transition (under the lock)."""
         if state == self._state:
             return
         self._state = state
+        self._m_state.set(self._LEVEL[state])
         if state == self.OPEN:
             self._opened_at = self._clock()
         if len(self.transitions) < 256:
@@ -277,6 +286,11 @@ class ServingSupervisor:
                       "failed_requeues": 0, "recovery_downtime_s": 0.0,
                       "drains": 0}
         self.last_recovery: Optional[dict] = None
+        reg = _telemetry.registry()
+        self._m_retries = reg.counter(_telemetry.names.SERVING_RETRIES,
+                                      label_key="cause")
+        self._m_recoveries = reg.counter(
+            _telemetry.names.SERVING_RECOVERIES, label_key="cause")
         self._predictor = self._form(first=True)
         self._batcher = DynamicBatcher(
             self._predictor, max_batch=max_batch, timeout_ms=timeout_ms,
@@ -396,6 +410,7 @@ class ServingSupervisor:
             time.sleep(delay)
         for r in retry:
             r.future._rearm()
+            self._m_retries.inc(label="transient")
         self.stats["retried"] += len(retry)
         self._batcher.requeue(retry)
         return True
@@ -435,6 +450,7 @@ class ServingSupervisor:
                 else:
                     r.requeues += 1
                     r.future._rearm()
+                    self._m_retries.inc(label=cause)
                     requeue.append(r)
             self._batcher.requeue(requeue)
             self.stats["requeued"] += len(requeue)
@@ -442,6 +458,7 @@ class ServingSupervisor:
             downtime = time.monotonic() - t0
             self.stats["recoveries"] += 1
             self.stats["recovery_downtime_s"] += downtime
+            self._m_recoveries.inc(label=cause)
             self.last_recovery = {
                 "cause": cause, "seam": seam, "downtime_s": downtime,
                 "requeued": len(requeue),

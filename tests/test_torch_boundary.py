@@ -78,6 +78,11 @@ def test_package_has_its_modules():
               "gluon/contrib/nn/basic_layers.py",
               "gluon/contrib/estimator/__init__.py",
               "gluon/contrib/estimator/estimator.py", "serving/fleet.py",
+              "telemetry/__init__.py", "telemetry/names.py",
+              "telemetry/registry.py", "telemetry/timeline.py",
+              "telemetry/watchdog.py", "telemetry/exporters.py",
+              "telemetry/memory.py", "telemetry/numerics.py",
+              "profiler.py", "inspector.py",
               "gluon/contrib/estimator/event_handler.py", "recordio.py",
               "host.py", "gluon/data/dataset.py", "gluon/data/sampler.py",
               "gluon/data/batchify.py", "gluon/data/dataloader.py",

@@ -226,8 +226,9 @@ def test_compile_step_keywords_build_and_train_alike(donate):
     layer runs as in eval mode, though the module is in training mode)
     build and train in both packages alike, three Adam steps within
     TOL; with ``train_mode`` True the same net draws masks, and the flag
-    is the signature's first field. ``analyze``, ``numerics`` and
-    ``autotune`` raise, naming the queue item that ports them."""
+    is the signature's first field. ``analyze`` and ``autotune`` raise,
+    naming the slices that port them (``analysis/``, ``tuning/``);
+    ``numerics`` builds its instrumented step."""
     jnet, tnet = _drop_pair()
     kw = {"learning_rate": 0.01}
     jtr = JTrainer(jnet.collect_params(), "adam", dict(kw))
@@ -254,9 +255,10 @@ def test_compile_step_keywords_build_and_train_alike(donate):
         losses.append(step(*_batch(seed=1)))
         assert step._sig_history[-1][0] == (train_mode,)
     assert not torch.equal(losses[0], losses[1])
-    for name in ("analyze", "numerics", "autotune"):
-        with pytest.raises(mxt.MXNetError, match="queue 1, item 7"):
+    for name, module in (("analyze", "analysis/"), ("autotune", "tuning/")):
+        with pytest.raises(mxt.MXNetError, match=module):
             ttr.compile_step(lambda a: a, **{name: "on"})
+    assert ttr.compile_step(lambda a: a, numerics="on").numerics == "global"
 
 
 @pytest.mark.parametrize("where", ["loss", "update"])

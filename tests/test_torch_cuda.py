@@ -2283,3 +2283,125 @@ def test_clip_global_norm_on_card(cuda_dev):
     for a, h in zip(arrs, host):
         torch.testing.assert_close(a.cpu(), torch.from_numpy(h) * (10.0 / (
             ref + 1e-8)), rtol=1e-5, atol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# telemetry on the card (telemetry/, numerics, memory)
+# ---------------------------------------------------------------------------
+
+def _tele_mlp(dev, seed=0):
+    from mxnet_tpu_torch.gluon.nn import Dense
+    torch.manual_seed(seed)
+    return torch.nn.Sequential(Dense(64, in_units=32, activation="relu",
+                                     device=dev),
+                               Dense(8, in_units=64, device=dev))
+
+
+@pytest.mark.cuda
+def test_captured_numerics_bit_equal_and_norms_vs_float64(cuda_dev):
+    """The captured step with numerics on: losses and weights bit-equal
+    to numerics off after three Adam steps, one capture, the grad and
+    param norms within 1e-5 of a float64 ``vector_norm`` of the same
+    step's gradients (an eager backward from the same weights) and
+    weights, the update norm of the weights' float64 difference."""
+    from mxnet_tpu_torch.gluon import Trainer
+    from mxnet_tpu_torch.gluon import loss as gloss
+    r = onp.random.RandomState(0)
+    x = torch.from_numpy(r.randn(16, 32).astype("f4")).to(cuda_dev)
+    y = torch.from_numpy(r.randint(0, 8, 16).astype("f4")).to(cuda_dev)
+    lb = gloss.SoftmaxCrossEntropyLoss()
+    runs = {}
+    for mode in (None, "global", "per_layer"):
+        net = _tele_mlp(cuda_dev)
+        tr = Trainer(dict(net.named_parameters()), "adam",
+                     {"learning_rate": 0.01})
+        step = tr.compile_step(lambda a, b: lb(net(a), b), numerics=mode)
+        out = []
+        for _ in range(3):
+            before = [p.detach().double().clone() for p in net.parameters()]
+            loss = step(x, y)
+            vals = step.numerics_values()
+            out.append((loss, before, vals))
+        runs[mode] = (net, out, step)
+    ref_net, ref_out, _ = runs[None]
+    for mode in ("global", "per_layer"):
+        net, out, step = runs[mode]
+        assert step.n_traces == 1
+        for (l, _, _), (rl, _, _) in zip(out, ref_out):
+            assert torch.equal(l, rl)
+        for a, b in zip(net.parameters(), ref_net.parameters()):
+            assert torch.equal(a, b)
+        # step 3's statistics against float64 on the card
+        _, before, vals = out[2]
+        eager = _tele_mlp(cuda_dev)
+        with torch.no_grad():
+            for p, w in zip(eager.parameters(), before):
+                p.copy_(w.float())
+        g = torch.autograd.grad(lb(eager(x), y).sum(),
+                                list(eager.parameters()))
+        gn = torch.linalg.vector_norm(torch.stack(
+            [torch.linalg.vector_norm(t.double()) for t in g])).item() / 16
+        pn = torch.linalg.vector_norm(torch.stack(
+            [torch.linalg.vector_norm(w) for w in before])).item()
+        un = torch.linalg.vector_norm(torch.stack(
+            [torch.linalg.vector_norm(p.double() - w)
+             for p, w in zip(net.parameters(), before)])).item()
+        assert abs(vals["grad_norm"] - gn) <= 1e-5 * gn
+        assert abs(vals["param_norm"] - pn) <= 1e-5 * pn
+        assert abs(vals["update_norm"] - un) <= 1e-5 * un
+        assert vals["nonfinite_total"] == 0
+
+
+@pytest.mark.cuda
+def test_census_reconciles_with_the_allocator(cuda_dev):
+    """Tensors filed in the census count at their ``numel * element_size``
+    against ``torch.cuda.memory_allocated``; a KV cache's pools equal
+    what the allocator gave them (sizes a multiple of its 512-byte
+    blocks)."""
+    from mxnet_tpu_torch.serving.kvcache import PagedKVCache
+    from mxnet_tpu_torch.telemetry import memory as tmem
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated(cuda_dev)
+    kv = PagedKVCache(2, 4, 32, 17, 16, dtype="float32", device=cuda_dev)
+    grown = torch.cuda.memory_allocated(cuda_dev) - before
+    assert grown == kv.total_bytes() == \
+        tmem.census().device_bytes_by_pool(cuda_dev)["kvcache"]
+    rec = tmem.census().reconcile()
+    dev = rec["devices"][str(cuda_dev)]
+    assert dev["allocated"] == torch.cuda.memory_allocated(cuda_dev)
+    assert dev["tracked"] >= kv.total_bytes()
+    stats = tmem.device_memory_stats()[str(cuda_dev)]
+    assert stats["source"] == "allocator" and stats["bytes_limit"] > 0
+
+
+@pytest.mark.cuda
+def test_oom_guard_records_one_anomaly_and_reraises(cuda_dev, tmp_path,
+                                                    monkeypatch):
+    from mxnet_tpu_torch import telemetry as ttel
+    from mxnet_tpu_torch.telemetry import memory as tmem
+    monkeypatch.setenv("MXNET_MEMORY_DUMP_DIR", str(tmp_path))
+    ttel.reset()
+    # past the free bytes and the allocator's cached ones: the whole card
+    _, total = torch.cuda.mem_get_info(cuda_dev)
+    with pytest.raises(torch.cuda.OutOfMemoryError):
+        with tmem.oom_guard("outer"), tmem.oom_guard("inner"):
+            torch.empty(int(total) + (1 << 30), dtype=torch.uint8,
+                        device=cuda_dev)
+    assert len(ttel.watchdog().anomalies("oom")) == 1
+    assert len(list(tmp_path.glob("mx_oom_*.json"))) == 1
+    torch.zeros(1, device=cuda_dev)       # the process carries on
+    ttel.reset()
+
+
+@pytest.mark.cuda
+def test_kernel_dispatch_counter_counts_launches_and_replays(cuda_dev):
+    from mxnet_tpu_torch import telemetry as ttel
+    ttel.reset()
+    x = torch.randn(64, 768, device=cuda_dev)
+    g, b = torch.ones(768, device=cuda_dev), torch.zeros(768,
+                                                         device=cuda_dev)
+    KN.layer_norm(x, g, b, 1e-5)
+    KN.layer_norm(x, g, b, 1e-5)
+    assert ttel.value("mx_kernel_dispatch_total", "cuda") == 2
+    assert ttel.value("mx_kernel_dispatch_total", "plain") in (None, 0.0)
+    ttel.reset()
