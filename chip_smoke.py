@@ -8613,11 +8613,11 @@ def zero_batchnorm(torch, np, smi, device="cuda", world=None,
 #: batch, SGD without momentum, ``step(1)`` (lr DATA_LM_LR: phase 8's on
 #: the batch's mean, the loss here being the batch's sum)
 DATA_RECORDS, DATA_SHAPE, DATA_LABELS = 1536, (3, 480, 640), 1000
-DATA_EPOCHS, DATA_WORKERS, DATA_DEPTH, DATA_SEED = 3, 8, 2, 18
+DATA_EPOCHS, DATA_WORKERS, DATA_DEPTH, DATA_SEED = 2, 8, 2, 18
 DATA_MEAN, DATA_STD = (0.485, 0.456, 0.406), (0.229, 0.224, 0.225)
 DATA_MEAN_255, DATA_STD_255 = (123.68, 116.28, 103.53), \
     (58.395, 57.12, 57.375)
-DATA_ITER_BATCHES, DATA_JPEG_QUALITY = 4, 95
+DATA_ITER_BATCHES, DATA_JPEG_QUALITY = 2, 95
 DATA_JPEG_RECORDS = DATA_ITER_BATCHES * RESNET_BATCH
 #: the captured step timed on a resident batch, beside the fed steps
 DATA_RESIDENT_STEPS = 5
@@ -10209,6 +10209,463 @@ def telemetry_phase(torch, np, K, dev, smi):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 20: the autotuner (tuning/) at full width
+# ---------------------------------------------------------------------------
+
+TUNE_DIR = os.path.join("build", "chip_tuning")
+TUNE_BERT_BUDGET = 8        # trials of the BERT-base search
+TUNE_LM_BUDGET = 8          # trials of the LM search
+TUNE_SERVE_BUDGET = 48      # trials of the serving search
+TUNE_TURN_STEPS = 5         # steps a timed turn, tuned and untuned
+TUNE_SERVE_REQUESTS = 64    # requests a closed-loop turn
+#: decode_leg's non-default point of the decode.* space
+TUNE_DECODE_POINT = {"decode.prefill_chunk": 32, "decode.spec_k": 2,
+                     "decode.prefix_share": 0}
+TUNE_KERNELS = ("flash_fwd", "flash_bwd_fused", "layernorm_fwd",
+                "layernorm_bwd", "rnn_scan_fwd", "rnn_scan_bwd",
+                "rnn_decode", "opt_update")
+
+
+class _TuneEnv:
+    """The tuner's env for one leg (its cache file and trial budget), put
+    back on exit; the tuned overrides are cleared on both sides."""
+
+    def __init__(self, budget):
+        self._set = {"MXNET_AUTOTUNE_CACHE": os.path.join(TUNE_DIR,
+                                                          "autotune.json"),
+                     "MXNET_AUTOTUNE_BUDGET_TRIALS": str(budget)}
+
+    def __enter__(self):
+        from mxnet_tpu_torch.tuning import space
+        space.clear_overrides()
+        self._old = {k: os.environ.get(k) for k in self._set}
+        os.environ.update(self._set)
+        for k in ("MXNET_AUTOTUNE", "MXNET_AUTOTUNE_BACKEND"):
+            os.environ.pop(k, None)
+        return self
+
+    def __exit__(self, *exc):
+        from mxnet_tpu_torch.tuning import space
+        space.clear_overrides()
+        for k, v in self._old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        return False
+
+
+def tune_counts(tel, backend):
+    return {"trials": tel.value(tel.names.AUTOTUNE_TRIALS, backend) or 0.0,
+            "hits": tel.value(tel.names.AUTOTUNE_CACHE_HITS) or 0.0,
+            "misses": tel.value(tel.names.AUTOTUNE_CACHE_MISSES) or 0.0}
+
+
+def tune_gates(out, budget, counted, rec):
+    """The search's own gates: it ran on the card's timed backend (no
+    fallback to the defaults), within the budget, and its trial count is
+    the counter's and the kept record's."""
+    return {"source_search": out.source == "search",
+            "backend_timed": out.backend == "timed",
+            "within_budget": 1 <= out.trials <= budget,
+            "trials_counted": out.trials == counted
+            == len(rec["trial_log"])}
+
+
+def window_ms(torch, step, xt, yt, steps):
+    """Wall ms a step over ``steps`` steps pushed through a dispatch
+    window of the depth in force (``engine.inflight_steps``), timed to
+    its drain."""
+    from mxnet_tpu_torch import engine
+    torch.cuda.synchronize()
+    window = engine.DispatchWindow(lambda loss: loss.cpu(),
+                                   max_inflight=engine.inflight_steps())
+    t0 = time.perf_counter()
+    for i in range(steps):
+        window.push(step(xt, yt), tag=i)
+    window.drain()
+    return (time.perf_counter() - t0) * 1e3 / steps
+
+
+def tuning_bert(torch, np, K, dev, smi):
+    """Phase 20a: BERT-base training (32 x 512, Adam, float32) through
+    ``compile_step(autotune="on")``; the search runs on the timed backend
+    within TUNE_BERT_BUDGET trials. Gates: the search's own
+    (:func:`tune_gates`); weights, Adam states, update counts and the
+    card's generator bit-equal to the snapshot taken before it; 12 / 12 /
+    25 / 25 / 1 launches a step of the tuned step; then step ms tuned and
+    untuned (the defaults in force) in turns; then a second step of the
+    same signature under ``autotune="cached"``: source "cache", no trial,
+    the same config, one cache hit. Returns the launches of the tuned
+    step's steps."""
+    from mxnet_tpu_torch import telemetry as tel
+    from mxnet_tpu_torch import tuning
+    from mxnet_tpu_torch.gluon import Trainer
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from mxnet_tpu_torch.gluon.model_zoo.bert import BERTClassifier, bert_base
+    from mxnet_tpu_torch.gluon.params import init_params_numpy, \
+        load_jax_params
+    from mxnet_tpu_torch.tuning import space
+
+    def make():
+        net = BERTClassifier(bert_base(max_length=TRAIN_SEQ, dropout=0.1,
+                                       device=dev),
+                             num_classes=2, dropout=0.1, device=dev)
+        load_jax_params(net, init)
+        net.train()
+        return net, Trainer(dict(net.named_parameters()), "adam",
+                            {"learning_rate": TRAIN_LR})
+
+    t0 = time.perf_counter()
+    net = BERTClassifier(bert_base(max_length=TRAIN_SEQ, dropout=0.1,
+                                   device=dev),
+                         num_classes=2, dropout=0.1, device=dev)
+    init = init_params_numpy(net, seed=2)
+    del net
+    rs = np.random.RandomState(3)
+    x = rs.randint(0, BERT_VOCAB, (TRAIN_BATCH, TRAIN_SEQ)).astype(np.int64)
+    y = rs.randint(0, 2, (TRAIN_BATCH,)).astype(np.float32)
+    xt, yt = torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev)
+    loss_fn = SoftmaxCrossEntropyLoss()
+    with _TuneEnv(TUNE_BERT_BUDGET):
+        net, tr = make()
+        step = tr.compile_step(lambda a, b: loss_fn(net(a), b),
+                               autotune="on")
+        torch.manual_seed(0)
+        opt = tr._optimizer
+        states = [tr._updater._state_for(i, p)
+                  for i, p in enumerate(tr._params)]
+        before = ([p.detach().clone() for p in net.parameters()],
+                  [s.clone() for st in states for s in opt.state_tensors(st)],
+                  (opt.num_update, dict(opt._index_update_count)),
+                  torch.cuda.get_rng_state(dev))
+        c0 = tune_counts(tel, "timed")
+        t1 = time.perf_counter()
+        out = step.autotune(xt, yt)
+        torch.cuda.synchronize()
+        search_s = time.perf_counter() - t1
+        c1 = tune_counts(tel, "timed")
+        rec = tuning.default_cache().get(out.key)
+        after = ([p.detach() for p in net.parameters()],
+                 [s for st in states for s in opt.state_tensors(st)],
+                 (opt.num_update, dict(opt._index_update_count)),
+                 torch.cuda.get_rng_state(dev))
+        restored = {
+            "weights": all(torch.equal(a, b)
+                           for a, b in zip(before[0], after[0])),
+            "optimizer_states": all(torch.equal(a, b)
+                                    for a, b in zip(before[1], after[1])),
+            "update_counts": before[2] == after[2],
+            "rng": torch.equal(before[3], after[3])}
+        del before
+        gates = tune_gates(out, TUNE_BERT_BUDGET,
+                           c1["trials"] - c0["trials"], rec)
+        # the tuned step: captured, then counted a step
+        step.aot_compile(xt, yt)
+        per_step = []
+        K.reset_launch_counts()
+        for _ in range(2):
+            b0 = K.launch_counts()
+            step(xt, yt)
+            torch.cuda.synchronize()
+            per_step.append({n: c for n, c in step_launches(K, b0).items()
+                             if c})
+        expect = {"flash_fwd": 12, "flash_bwd_fused": 12,
+                  "layernorm_fwd": 25, "layernorm_bwd": 25, "opt_update": 1}
+        launches = dict(K.launch_counts())     # the two steps'
+        # step ms, tuned and untuned (the defaults in force), in turns
+        net0, tr0 = make()
+        step0 = tr0.compile_step(lambda a, b: loss_fn(net0(a), b),
+                                 autotune="off")
+        defaults = space.SearchSpace("train").defaults()
+        with space.trial(defaults):
+            step0.aot_compile(xt, yt)
+        turns = {"tuned": [], "untuned": []}
+        for what in ("tuned", "untuned", "untuned", "tuned"):
+            if what == "tuned":
+                turns[what].append(window_ms(torch, step, xt, yt,
+                                             TUNE_TURN_STEPS))
+            else:
+                with space.trial(defaults):
+                    turns[what].append(window_ms(torch, step0, xt, yt,
+                                                 TUNE_TURN_STEPS))
+        # a second step of the same signature replays the kept winner
+        space.clear_overrides()
+        cached = tr0.compile_step(lambda a, b: loss_fn(net0(a), b),
+                                  autotune="cached")
+        h0 = tune_counts(tel, "timed")
+        out_c = cached.autotune(xt, yt)
+        h1 = tune_counts(tel, "timed")
+        cache_ok = (out_c.source == "cache" and out_c.trials == 0
+                    and out_c.config == out.config
+                    and h1["hits"] - h0["hits"] == 1
+                    and h1["trials"] == h0["trials"])
+    report = {
+        "outcome": out.to_dict(), "score_s": out.score,
+        "default_score_s": out.default_score, "delta_pct": out.delta_pct,
+        "trials": out.trials, "budget": TUNE_BERT_BUDGET,
+        "trial_counter": c1["trials"] - c0["trials"],
+        "trial_log": [(t["config"].get("engine.inflight_steps"),
+                       t["score"], t["fidelity"]) for t in rec["trial_log"]],
+        "search_s": search_s, "restored": restored,
+        "launches_per_step": per_step, "launches_expected": expect,
+        "step_ms_turns": turns,
+        "tuned_ms": statistics.median(turns["tuned"]),
+        "untuned_ms": statistics.median(turns["untuned"]),
+        "cached": out_c.to_dict(), "cached_ok": cache_ok,
+        "setup_s": time.perf_counter() - t0, "card": smi}
+    ok = all(gates.values()) and all(restored.values()) and \
+        all(s == expect for s in per_step) and cache_ok
+    report.update(gates=gates, ok=ok)
+    emit({"tuning_bert": report})
+    del step, step0, cached, net, net0, tr, tr0
+    if not ok:
+        raise SystemExit(f"phase 20a failed: {report}")
+    return launches
+
+
+def tuning_lm(torch, np, K, dev, smi):
+    """Phase 20b: the LSTM LM (phase 8's widths, SGD momentum) tuned on
+    the timed backend, then LM_STEPS steps; the same steps from the same
+    weights and generator untuned (the defaults in force) and under a
+    kernel budget that moves the recurrence forward's plan
+    (``kernels.vmem_tile_budget`` 96 KiB). Replays are deterministic, so
+    losses and weights must be bit-equal across the three. Returns the
+    launches of the tuned run's steps."""
+    from mxnet_tpu_torch import telemetry as tel
+    from mxnet_tpu_torch import tuning
+    from mxnet_tpu_torch.gluon import Trainer
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from mxnet_tpu_torch.gluon.model_zoo.word_lm import WordLM
+    from mxnet_tpu_torch.gluon.params import init_params_numpy, \
+        load_jax_params
+    from mxnet_tpu_torch.ops.kernels import rnn_scan as KR
+    from mxnet_tpu_torch.tuning import space
+
+    net = WordLM(LM_VOCAB, LM_EMBED, LM_HIDDEN, LM_LAYERS, device=dev)
+    init = init_params_numpy(net, seed=6)
+    rs = np.random.RandomState(7)
+    x = rs.randint(0, LM_VOCAB, (LM_BATCH, LM_BPTT)).astype(np.int64)
+    y = rs.randint(0, LM_VOCAB, (LM_BATCH, LM_BPTT)).astype(np.float32)
+    xt, yt = torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev)
+    loss_fn = SoftmaxCrossEntropyLoss()
+    budget_point = {"kernels.vmem_tile_budget": 96 * 1024}
+
+    def run(autotune):
+        load_jax_params(net, init)
+        net.train()
+        tr = Trainer(dict(net.named_parameters()), "sgd",
+                     {"learning_rate": LM_LR, "momentum": 0.9})
+        step = tr.compile_step(lambda a, b: loss_fn(net(a), b),
+                               autotune=autotune)
+        torch.manual_seed(0)
+        out = step.autotune(xt, yt) if autotune == "on" else None
+        step.aot_compile(xt, yt)
+        b0 = K.launch_counts()
+        losses = [step(xt, yt) for _ in range(LM_STEPS)]
+        torch.cuda.synchronize()
+        counts = step_launches(K, b0)
+        return (out, [l.cpu() for l in losses],
+                [p.detach().clone() for p in net.parameters()], counts)
+
+    with _TuneEnv(TUNE_LM_BUDGET):
+        c0 = tune_counts(tel, "timed")
+        out, l_t, w_t, counts = run("on")
+        c1 = tune_counts(tel, "timed")
+        rec = tuning.default_cache().get(out.key)
+        tuned = dict(out.config)
+        defaults = space.SearchSpace("train").defaults()
+        with space.trial(defaults):
+            _, l_d, w_d, _ = run("off")
+            plan_d = KR.rnn_fwd_plan(LM_BATCH, LM_HIDDEN, "lstm", device=dev)
+        with space.trial(dict(defaults, **budget_point)):
+            _, l_b, w_b, _ = run("off")
+            plan_b = KR.rnn_fwd_plan(LM_BATCH, LM_HIDDEN, "lstm", device=dev)
+    gates = tune_gates(out, TUNE_LM_BUDGET, c1["trials"] - c0["trials"], rec)
+
+    def equal(a, b):
+        return all(torch.equal(u, v) for u, v in zip(a, b))
+
+    expect = {"rnn_scan_fwd": LM_LAYERS * LM_STEPS,
+              "rnn_scan_bwd": LM_LAYERS * LM_STEPS, "opt_update": LM_STEPS}
+    report = {"outcome": out.to_dict(), "tuned": tuned,
+              "delta_pct": out.delta_pct, "score_s": out.score,
+              "default_score_s": out.default_score,
+              "losses": [float(l.mean()) for l in l_t],
+              "tuned_vs_default": {"losses": equal(l_t, l_d),
+                                   "weights": equal(w_t, w_d)},
+              "budget_point": budget_point,
+              "budget_vs_default": {"losses": equal(l_b, l_d),
+                                    "weights": equal(w_b, w_d)},
+              "fwd_plan_default": plan_d, "fwd_plan_budget": plan_b,
+              "launches": {n: c for n, c in counts.items() if c},
+              "launches_expected": expect, "card": smi}
+    ok = all(gates.values()) and \
+        all(report["tuned_vs_default"].values()) and \
+        all(report["budget_vs_default"].values()) and \
+        {n: c for n, c in counts.items() if c} == expect
+    report.update(gates=gates, ok=ok)
+    emit({"tuning_lm": report})
+    if not ok:
+        raise SystemExit(f"phase 20b failed: {report}")
+    return counts
+
+
+def served_req_s(np, batcher, reqs):
+    from mxnet_tpu_torch.serving import loadgen
+
+    def issue(i):
+        batcher.submit(reqs[i]).result(120)
+
+    rep = loadgen.run_closed_loop(issue, SERVE_CLIENTS, len(reqs))
+    if rep["errors"]:
+        raise SystemExit(f"phase 20c: serving failed: {rep}")
+    return rep["requests"] / rep["wall_s"]
+
+
+def tuning_serving(torch, np, K, dev, smi):
+    """Phase 20c: BERT-base served at sequence 128 through
+    ``CompiledPredictor.warmup(autotune="on")`` (the timed backend, within
+    TUNE_SERVE_BUDGET trials), then a ``DynamicBatcher`` built on the
+    tuned knobs. Gates: the search's own; one micro-batch of ``max_batch``
+    one-row requests through the tuned batcher bit-equal to an untuned
+    predictor's replay of the same bucket; served req/s on the tuned
+    batcher and on the default one (max_batch 32, 2 ms) in turns. Returns
+    the launches of the micro-batch."""
+    from mxnet_tpu_torch import telemetry as tel
+    from mxnet_tpu_torch import tuning
+    from mxnet_tpu_torch.gluon.model_zoo.bert import BERTClassifier, bert_base
+    from mxnet_tpu_torch.gluon.params import init_params_numpy, \
+        load_jax_params
+    from mxnet_tpu_torch.serving import (CompiledPredictor, DynamicBatcher,
+                                         batcher as tbatcher)
+
+    net = BERTClassifier(bert_base(device=dev), num_classes=2, device=dev)
+    load_jax_params(net, init_params_numpy(net, seed=0))
+    rs = np.random.RandomState(0)
+    example = rs.randint(0, BERT_VOCAB, (1, SERVE_SEQ)).astype(np.int64)
+    with _TuneEnv(TUNE_SERVE_BUDGET):
+        pred = CompiledPredictor(net, device=dev)
+        c0 = tune_counts(tel, "timed")
+        t1 = time.perf_counter()
+        flops = pred.warmup(example, autotune="on")
+        warm_s = time.perf_counter() - t1
+        c1 = tune_counts(tel, "timed")
+        out = pred.autotune_result
+        rec = tuning.default_cache().get(out.key)
+        gates = tune_gates(out, TUNE_SERVE_BUDGET,
+                           c1["trials"] - c0["trials"], rec)
+        m, timeout_s = tbatcher.max_batch_rows(), tbatcher.batch_timeout_s()
+        # one micro-batch of m one-row requests, against an untuned
+        # predictor's replay of the same bucket
+        reqs = [rs.randint(0, BERT_VOCAB, (1, SERVE_SEQ)).astype(np.int64)
+                for _ in range(m)]
+        plain = CompiledPredictor(net, device=dev)
+        bucket = plain.bucket_for(m)
+        plain.warmup(example, buckets=(bucket,), autotune="off")
+        ref = plain.predict(*plain.pad_to_bucket(np.concatenate(reqs))[0])
+        ref = ref[:m].cpu()
+        b = DynamicBatcher(pred, start=False)
+        K.reset_launch_counts()
+        futs = [b.submit(r) for r in reqs]
+        b.flush()
+        got = torch.cat([f.result(60).cpu() for f in futs])
+        launches = dict(K.launch_counts())
+        b.close()
+        bit_equal = bool(torch.equal(got, ref))
+        traffic = [rs.randint(0, BERT_VOCAB, (int(rs.randint(1, 9)),
+                                              SERVE_SEQ)).astype(np.int64)
+                   for _ in range(TUNE_SERVE_REQUESTS)]
+        turns = {"tuned": [], "default": []}
+        for what in ("tuned", "default", "default", "tuned"):
+            kw = {} if what == "tuned" else {"max_batch": SERVE_MAX_BATCH,
+                                             "timeout_ms": 2.0}
+            with DynamicBatcher(pred, **kw) as bb:
+                turns[what].append(served_req_s(np, bb, traffic))
+    report = {"outcome": out.to_dict(), "score_s": out.score,
+              "default_score_s": out.default_score,
+              "delta_pct": out.delta_pct, "max_batch": m,
+              "timeout_ms": timeout_s * 1e3, "warmup_s": warm_s,
+              "bucket_flops": {str(k): v for k, v in flops.items()},
+              "micro_batch_bit_equal_untuned": bit_equal,
+              "micro_batch_launches": {n: c for n, c in launches.items()
+                                       if c},
+              "req_per_s_turns": turns,
+              "tuned_req_per_s": statistics.median(turns["tuned"]),
+              "default_req_per_s": statistics.median(turns["default"]),
+              "card": smi}
+    ok = all(gates.values()) and bit_equal and \
+        launches.get("flash_fwd") == 12 and \
+        launches.get("layernorm_fwd") == 25
+    report.update(gates=gates, ok=ok)
+    emit({"tuning_serving": report})
+    del pred, plain, net
+    if not ok:
+        raise SystemExit(f"phase 20c failed: {report}")
+    return launches
+
+
+def tuning_decode(torch, np, K, ATT, dev, smi):
+    """Phase 20d: decode_leg (continuous) under TUNE_DECODE_POINT, a
+    non-default point of the decode.* space that ``space.trial`` reaches
+    (a 32-token prefill chunk, 2 draft tokens a step, no prefix sharing):
+    its tokens against a CPU copy run under the same point, as phase 9
+    holds them, and its rnn_decode launches (spec_k + 1 a step, the chunk
+    width a prefill chunk). Returns the launches of the run."""
+    from mxnet_tpu_torch.serving import TinyDecoder, decode
+    from mxnet_tpu_torch.tuning import space
+    model = TinyDecoder(**DECODE_LEG, seed=0, device=dev)
+    cpu_model = TinyDecoder(**DECODE_LEG, seed=0, device="cpu")
+    prompts, mns, _ = decode_mix(np, DECODE_LEG["vocab"], DECODE_REQUESTS,
+                                 DECODE_PAGE)
+    with space.trial(TUNE_DECODE_POINT):
+        knobs = {"prefill_chunk": decode.prefill_chunk(),
+                 "spec_k": decode.spec_k(),
+                 "prefix_share": decode.prefix_share()}
+        rep, counts = decode_run(torch, K, model, prompts, mns)
+        ref = run_cpu_decode(cpu_model, prompts, mns)
+    late = check_tokens(torch, ATT, "decode_leg at a tuned point vs CPU copy",
+                        rep["tokens_by_request"], ref, cpu_model, prompts)
+    want = (knobs["spec_k"] + 1) * rep["steps"] + \
+        knobs["prefill_chunk"] * rep["prefill_chunks"]
+    ok = rep["errors"] == 0 and rep["n_traces"] == 0 and \
+        rep["launches"]["rnn_decode"] == want and late is None and \
+        knobs == {"prefill_chunk": 32, "spec_k": 2, "prefix_share": False}
+    decode_line("decode_tuned_point", rep, smi,
+                {"point": TUNE_DECODE_POINT, "knobs": knobs,
+                 "launches_expected": want,
+                 "tokens_equal_cpu_copy": late is None, "ok": ok})
+    if not ok:
+        raise SystemExit(f"phase 20d failed: {rep['launches']} (expected "
+                         f"{want}), knobs {knobs}, errors {rep['errors']}")
+    return counts
+
+
+def tuning_phase(torch, np, K, ATT, dev, smi):
+    """Phase 20: the autotuner at full width: 20a BERT-base training,
+    20b the LSTM LM, 20c BERT-base serving, 20d decode_leg at a tuned
+    point. Returns the launches of its paths by kernel."""
+    import shutil
+    t0 = time.perf_counter()
+    shutil.rmtree(TUNE_DIR, ignore_errors=True)
+    os.makedirs(TUNE_DIR)
+    launches = {}
+    try:
+        for part in (tuning_bert(torch, np, K, dev, smi),
+                     tuning_lm(torch, np, K, dev, smi),
+                     tuning_serving(torch, np, K, dev, smi),
+                     tuning_decode(torch, np, K, ATT, dev, smi)):
+            torch.cuda.empty_cache()
+            for k, v in part.items():
+                launches[k] = launches.get(k, 0) + v
+    finally:
+        shutil.rmtree(TUNE_DIR, ignore_errors=True)
+    emit({"tuning_phase_s": time.perf_counter() - t0,
+          "tuning_launch_counts": {k: v for k, v in launches.items() if v}})
+    return launches
+
+
 def main(argv):
     import numpy as np
     import torch
@@ -10326,6 +10783,13 @@ def main(argv):
                                      "kind": torch.cuda.get_device_name(0),
                                      "count": torch.cuda.device_count()}})
         return 0
+    if "--tuning" in argv:
+        tuning_phase(torch, np, K, ATT, dev, smi)
+        print(smi, flush=True)
+        emit({"ok": True, "device": {"platform": "gpu",
+                                     "kind": torch.cuda.get_device_name(0),
+                                     "count": torch.cuda.device_count()}})
+        return 0
     if "--telemetry" in argv:
         telemetry_phase(torch, np, K, dev, smi)
         print(smi, flush=True)
@@ -10356,6 +10820,14 @@ def main(argv):
                                      "count": torch.cuda.device_count()}})
         return 0
 
+    laps, t_lap = {}, [time.perf_counter()]
+
+    def lap(name):
+        """Seconds since the last lap: each phase's share of the run."""
+        now = time.perf_counter()
+        laps[name] = round(now - t_lap[0], 1)
+        t_lap[0] = now
+
     served_args = check_kernels(torch, ATT, K, KN, dev)
     timing = time_kernels(torch, F, ATT, K, KN, served_args)
     del served_args
@@ -10377,6 +10849,7 @@ def main(argv):
     del opt_timed
     time_bert_update(torch, K, KO, dev)
     torch.cuda.empty_cache()
+    lap("kernels (phase 3)")
     served, pred = serve_bert(torch, np, K, dev)
     if "--profile" in argv:
         profile_bucket(torch, np, pred, smi)
@@ -10387,48 +10860,66 @@ def main(argv):
         profile_bucket(torch, np, pred, smi)
     del pred
     torch.cuda.empty_cache()
+    lap("serving (phases 4, 4b)")
     encoder = run_encoder(torch, np, K, dev)
+    lap("encoder (phase 5)")
     trained = train_bert(torch, np, K, dev, smi, "--profile" in argv)
     torch.cuda.empty_cache()
     trained_bf16 = train_bert(torch, np, K, dev, smi, "--profile" in argv,
                               bf16=True)
     torch.cuda.empty_cache()
+    lap("train_bert (phases 6, 6b)")
     resumed = checkpoint_phase(torch, np, K, dev, smi)
     serve_loaded(torch, np, dev, smi, resumed)
     del resumed
     torch.cuda.empty_cache()
     checkpoint_phase(torch, np, K, dev, smi, bf16=True)
     torch.cuda.empty_cache()
+    lap("checkpoint (phase 6c)")
     trained_long = train_long(torch, np, K, dev)
     lstm = train_lstm(torch, np, K, dev, smi, "--profile" in argv)
     train_dense(torch, K, dev, smi)
     torch.cuda.empty_cache()
+    lap("long, lstm, dense (phases 7, 8, 8b)")
     serve_decode(torch, np, K, ATT, dev, smi, DECODE_LEG, leg=True)
     decode_wide, wide_model = serve_decode(torch, np, K, ATT, dev, smi,
                                            DECODE_WIDE, leg=False)
     if "--profile" in argv:
         profile_decode_step(torch, np, wide_model, smi)
     del wide_model
+    lap("decode (phase 9)")
     zero_layout(torch, np, K, dev, smi)
     torch.cuda.empty_cache()
     zero_layout_mp(torch, np, K, dev, smi)
     torch.cuda.empty_cache()
+    lap("zero layout (phase 10)")
     elastic_one_card(torch, np, K, dev, smi)
     torch.cuda.empty_cache()
+    lap("elastic (phase 12)")
     dist_kv = dist_kv_one_card(torch, np, K, dev, smi)
     torch.cuda.empty_cache()
+    lap("dist kv (phase 13)")
     resnet = resnet_phase(torch, np, K, dev, smi, "--profile" in argv)
     torch.cuda.empty_cache()
+    lap("resnet (phase 14)")
     surface = surface_phase(torch, np, K, dev, smi, "--profile" in argv)
     torch.cuda.empty_cache()
+    lap("surface (phase 15)")
     cells = cells_phase(torch, np, K, dev, smi)
     torch.cuda.empty_cache()
+    lap("cells (phase 16)")
     fleet = fleet_phase(torch, np, K, ATT, dev, smi,
                         multi=torch.cuda.device_count() >= 2)
     torch.cuda.empty_cache()
+    lap("fleet (phase 17)")
     data = data_phase(torch, np, K, dev, smi)
     torch.cuda.empty_cache()
+    lap("data (phase 18)")
     tele = telemetry_phase(torch, np, K, dev, smi)
+    torch.cuda.empty_cache()
+    lap("telemetry (phase 19)")
+    tune = tuning_phase(torch, np, K, ATT, dev, smi)
+    lap("tuning (phase 20)")
     if torch.cuda.device_count() >= 2:
         zero_train_multi(torch, np, smi)
         zero_overlap(torch, np, smi)
@@ -10440,6 +10931,8 @@ def main(argv):
               "leg), phase 13 across cards and phase 17b need >= 2 GPUs; "
               f"{torch.cuda.device_count()} visible, so they did not run",
               flush=True)
+    lap("across cards (phases 11, 13, 17b)")
+    emit({"phase_times_s": laps})
 
     # each kernel's launches on the path that drives it, counted from 0
     path = {"flash_fwd": "bert_base_serving",
@@ -10485,7 +10978,8 @@ def main(argv):
           "fleet_launch_counts": {n: fleet[n] for n in FLEET_KERNELS},
           "data_launch_counts": {p: {n: c for n, c in counts.items() if c}
                                  for p, counts in data.items()},
-          "telemetry_launch_counts": {n: c for n, c in tele.items() if c}})
+          "telemetry_launch_counts": {n: c for n, c in tele.items() if c},
+          "tuning_launch_counts": {n: c for n, c in tune.items() if c}})
     if not all(n > 0 for n in launches.values()) or \
             not all(cells[n] > 0 for n in ("rnn_scan_fwd",
                                            "rnn_scan_bwd")) or \
@@ -10495,7 +10989,8 @@ def main(argv):
             not all(fleet[n] > 0 for n in FLEET_KERNELS) or \
             not all(data[p][n] > 0 for n, paths in DATA_KERNELS.items()
                     for p in paths) or \
-            not all(tele.get(n, 0) > 0 for n in TELE_KERNELS):
+            not all(tele.get(n, 0) > 0 for n in TELE_KERNELS) or \
+            not all(tune.get(n, 0) > 0 for n in TUNE_KERNELS):
         raise SystemExit(f"a kernel never launched on its path: {launches}"
                          f" {bf16_launches} {resnet_launches} {cells}")
     rows = []
@@ -10536,6 +11031,8 @@ def main(argv):
                             data_path=list(DATA_KERNELS[name]))
         if name in TELE_KERNELS:
             rows[-1].update(telemetry_launches=tele[name])
+        if name in TUNE_KERNELS:
+            rows[-1].update(tuning_launches=tune[name])
     print(smi, flush=True)
     emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu",

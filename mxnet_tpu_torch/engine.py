@@ -26,11 +26,16 @@ retired loss, the memory budget). A step's numerics record
 (``telemetry.StepNumerics``), pushed beside its loss, is read at its
 retire. An allocation failure surfacing at a retire gets its OOM
 post-mortem (``telemetry.memory.maybe_record_oom``).
+
+:func:`inflight_steps` is the window depth a ``TrainLoop`` (and the
+autotuner's timed trials) takes: the ``engine.inflight_steps`` tunable
+(``tuning/space.py``), registered here next to its default.
 """
 from __future__ import annotations
 
 import contextlib
 import logging
+import os
 import threading
 import time
 from collections import deque
@@ -42,9 +47,44 @@ from . import telemetry as _telemetry
 from .base import MXNetError
 from .testing.faults import fault_point
 
-__all__ = ["DispatchWindow", "allow_sync"]
+__all__ = ["DispatchWindow", "allow_sync", "inflight_steps"]
 
 _LOG = logging.getLogger("mxnet_tpu_torch.engine")
+
+
+def inflight_steps(default: int = 2) -> int:
+    """The dispatch window's depth: how many dispatched steps the host
+    may keep outstanding before it waits on the oldest. Resolved autotune
+    override > ``MXNET_INFLIGHT_STEPS`` > ``default`` (the
+    ``engine.inflight_steps`` tunable); ``MXNET_ENGINE_TYPE=NaiveEngine``
+    forces 0 (every step retires at once)."""
+    if os.environ.get("MXNET_ENGINE_TYPE") == "NaiveEngine":
+        return 0
+    from .tuning import space as _tspace
+    found, v = _tspace.get_override("engine.inflight_steps")
+    if not found:
+        v = os.environ.get("MXNET_INFLIGHT_STEPS", str(default))
+    try:
+        return max(0, int(v))
+    except (TypeError, ValueError):
+        return default
+
+
+def _register_tunables():
+    """The window-depth tunable: losses are bit-equal at any depth (the
+    window only decides when the host waits), so it is speed alone."""
+    from .tuning.space import Tunable, register
+    register(Tunable(
+        "engine.inflight_steps", default=2, grid=(0, 1, 2, 3, 4, 6, 8),
+        env="MXNET_INFLIGHT_STEPS", parse=int,
+        valid=lambda v, _c: int(v) >= 0,
+        seam="engine.inflight_steps() -> DispatchWindow max_inflight",
+        scope="train",
+        doc="async step futures outstanding before the host blocks on "
+            "the oldest"))
+
+
+_register_tunables()
 
 
 @contextlib.contextmanager

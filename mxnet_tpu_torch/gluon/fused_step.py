@@ -201,16 +201,66 @@ def _env_int(name: str, default: int) -> int:
         return default
 
 
+def _tuned_int(name: str, env: str, default: int) -> int:
+    """Autotune override > ``env`` > ``default`` (``tuning/space.py``)."""
+    from ..tuning import space as _tspace
+    found, v = _tspace.get_override(name)
+    if not found:
+        v = os.environ.get(env, str(default))
+    try:
+        return int(v)
+    except (TypeError, ValueError):
+        return default
+
+
 def _zero_min_size() -> int:
-    """ZeRO bucket floor in elements: ``MXNET_ZERO_SHARD_MIN_SIZE``
-    (2048). A smaller parameter shares a bucket unit."""
-    return _env_int("MXNET_ZERO_SHARD_MIN_SIZE", 2048)
+    """ZeRO bucket floor in elements: autotune override >
+    ``MXNET_ZERO_SHARD_MIN_SIZE`` > 2048 (the ``zero.shard_min_size``
+    tunable). A smaller parameter shares a bucket unit."""
+    return _tuned_int("zero.shard_min_size", "MXNET_ZERO_SHARD_MIN_SIZE",
+                      2048)
 
 
 def _zero_bucket_bytes() -> int:
-    """ZeRO communication bucket bound in bytes: ``MXNET_ZERO_BUCKET_
-    BYTES`` (4 MiB); ``<= 0`` gives one bucket per dtype run."""
-    return _env_int("MXNET_ZERO_BUCKET_BYTES", 4 << 20)
+    """ZeRO communication bucket bound in bytes: autotune override >
+    ``MXNET_ZERO_BUCKET_BYTES`` > 4 MiB (the ``zero.bucket_bytes``
+    tunable); ``<= 0`` gives one bucket per dtype run."""
+    return _tuned_int("zero.bucket_bytes", "MXNET_ZERO_BUCKET_BYTES",
+                      4 << 20)
+
+
+def _register_tunables():
+    """The ZeRO layout's tunables, next to the constants they make
+    sweepable. Any packing and any bucketing give bit-equal updates (the
+    update is elementwise over the flat shards, and the row sums run in
+    rank order whatever the bucket: ``collectives.reduce_scatter_rows``),
+    so both knobs are speed alone. They change the plan built at the
+    first ZeRO call, so a trial with other values drops it
+    (``CompiledTrainStep._drop_programs``)."""
+    from ..tuning.space import Tunable, register
+    register(Tunable(
+        "zero.shard_min_size", default=2048,
+        grid=(512, 2048, 8192, 32768),
+        env="MXNET_ZERO_SHARD_MIN_SIZE", parse=int,
+        valid=lambda v, _c: int(v) >= 1,
+        seam="gluon.fused_step._zero_min_size() -> _ZeroShardPlan "
+             "solo-vs-bucketed unit split",
+        scope="train", affects_program=True,
+        doc="element floor for a param to get its own RS/AG pair "
+            "under the ZeRO-1 sharded update"))
+    register(Tunable(
+        "zero.bucket_bytes", default=4 << 20,
+        grid=(0, 1 << 20, 4 << 20, 16 << 20),
+        env="MXNET_ZERO_BUCKET_BYTES", parse=int,
+        valid=lambda v, _c: int(v) >= 0,
+        seam="gluon.fused_step._zero_bucket_bytes() -> "
+             "zero_bucket_schedule comm bucketing (0 = monolithic "
+             "serial baseline)",
+        scope="train", affects_program=True,
+        doc="byte bound per ZeRO gradient communication bucket"))
+
+
+_register_tunables()
 
 
 def zero_bucket_schedule(units, bucket_bytes: int):
@@ -952,9 +1002,16 @@ class CompiledTrainStep:
     def __init__(self, trainer, loss_fn: Callable, donate: bool = True,
                  train_mode: bool = True,
                  zero_shard: Optional[bool] = None, zero_axis: str = "dp",
-                 mesh=None, numerics: Optional[str] = None):
+                 mesh=None, numerics: Optional[str] = None,
+                 autotune: Optional[str] = None):
         self._trainer = trainer
         self._loss_fn = loss_fn
+        # the autopilot (tuning/): None = the MXNET_AUTOTUNE gate, else
+        # 'off' | 'cached' | 'on'; it runs once, at the first call,
+        # before the program is captured, so the winner governs it
+        self._autotune = autotune
+        self._autotune_done = False
+        self._autotune_outcome = None
         # ``donate`` is the JAX package's: a graph updates its static
         # buffers in place already, so there is nothing to donate
         self._train_mode = bool(train_mode)
@@ -1390,8 +1447,61 @@ class CompiledTrainStep:
             leaf = leaf.to(self._device)
         return leaf
 
+    # ---------------- autotune ----------------
+    @property
+    def autotune_result(self):
+        """The :class:`~mxnet_tpu_torch.tuning.AutotuneOutcome` of this
+        step's tuning (None before the first call; an 'off' outcome when
+        the gate is off)."""
+        return self._autotune_outcome
+
+    def autotune(self, *args, batch_size: Optional[int] = None,
+                 mode: Optional[str] = None, **kwargs):
+        """Tune this step for the shape ``args`` pin now (the first call
+        does it when ``compile_step(autotune=)`` / ``MXNET_AUTOTUNE`` arms
+        it). Returns the outcome; the winner applies as tuned overrides
+        and, after a search, is kept in ``MXNET_AUTOTUNE_CACHE``."""
+        from .. import tuning as _tuning
+        self._autotune_done = True
+        self._autotune_outcome = _tuning.tune_step(
+            self, args, kwargs, batch_size=batch_size,
+            mode=mode if mode is not None else self._autotune)
+        return self._autotune_outcome
+
+    def _maybe_autotune(self, args, kwargs, batch_size):
+        """The first call's tuning. A tuning that fails costs the tuned
+        config, not the run: a warning, and the defaults train."""
+        from .. import tuning as _tuning
+        self._autotune_done = True
+        if _tuning.autotune_mode(self._autotune) == "off":
+            self._autotune_outcome = _tuning.AutotuneOutcome("off", "off")
+            return
+        try:
+            self._autotune_outcome = _tuning.tune_step(
+                self, args, kwargs, batch_size=batch_size,
+                mode=self._autotune)
+        except Exception as e:
+            _LOG.warning("compile_step: autotune failed (%s: %s); "
+                         "running with defaults", type(e).__name__, e)
+
+    def _drop_programs(self):
+        """Drop every captured program, its graph freed at once
+        (``Programs.clear``), and a ZeRO plan (rebuilt at the next call
+        from the optimizer's states): the next call captures (or plans)
+        anew under the tunables in force then. The autotuner's trials
+        call it between candidates that differ in a program-affecting
+        tunable."""
+        if self._programs is not None:
+            self._programs.clear()
+        self._lru.clear()
+        if self._zero is not None:
+            self._zero = None
+            self._buckets = []
+
     def __call__(self, *args, batch_size: Optional[int] = None, **kwargs):
         from ..elastic import detect
+        if not self._autotune_done and not self._steps_done:
+            self._maybe_autotune(args, kwargs, batch_size)
         if self._mode is None:
             self._mode = self._decide_mode()
         if self._numerics and (self._mode == "eager" or self._split):
@@ -1882,9 +1992,10 @@ class TrainLoop:
     step). It returns the global batch's per-sample loss (under a dp
     mesh every rank gathers the others' rows, in rank order, as the JAX
     package's step returns them) without waiting for the device; a
-    bounded window (``engine.DispatchWindow``, size
-    ``inflight`` or ``MXNET_INFLIGHT_STEPS``, default 2;
-    ``MXNET_ENGINE_TYPE=NaiveEngine`` forces 0) makes the host wait, on
+    bounded window (``engine.DispatchWindow``, size ``inflight`` or
+    ``engine.inflight_steps()``: the tuned value, else
+    ``MXNET_INFLIGHT_STEPS``, default 2; ``MXNET_ENGINE_TYPE=NaiveEngine``
+    forces 0) makes the host wait, on
     the OLDEST step's loss, only when more steps are outstanding.
 
     **Checkpoints** (``checkpoint_dir=...``): the loop owns a
@@ -1937,7 +2048,8 @@ class TrainLoop:
         self._m_steps = _telemetry.registry().counter(
             _telemetry.names.TRAIN_STEPS)
         if inflight is None:
-            inflight = _env_int("MXNET_INFLIGHT_STEPS", 2)
+            from ..engine import inflight_steps
+            inflight = inflight_steps()
         if os.environ.get("MXNET_ENGINE_TYPE") == "NaiveEngine":
             inflight = 0
         self._window = DispatchWindow(self._retire, max_inflight=inflight,

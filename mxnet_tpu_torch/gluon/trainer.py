@@ -179,23 +179,30 @@ class Trainer:
         the signature. ``numerics='global'|'per_layer'``
         (``MXNET_NUMERICS``) adds the step's grad / param / update norms
         and non-finite counts (``telemetry/numerics.py``; losses and
-        weights stay bit-equal). ``analyze`` needs the JAX package's
-        ``analysis/`` and ``autotune`` its ``tuning/``, which later slices
-        port (``ROADMAP.md`` queue 1): anything but None raises
+        weights stay bit-equal).
+
+        ``autotune='off'|'cached'|'on'`` (``MXNET_AUTOTUNE`` by default;
+        ``tuning/``): at the first call, before the step's program is
+        captured, replay this signature's cached winner or search the
+        train-scope tunables (``kernels.vmem_tile_budget``,
+        ``engine.inflight_steps``, ``zero.*``) and apply the winner; the
+        outcome is ``step.autotune_result``. The search runs real steps on
+        a card and puts the whole train state back after them. A tuning
+        that fails logs a warning and the step trains on the defaults.
+        ``analyze`` needs the JAX package's ``analysis/``, which a later
+        slice ports (``ROADMAP.md`` queue 1): anything but None raises
         ``MXNetError``."""
-        for name, value, module in (("analyze", analyze, "analysis/"),
-                                    ("autotune", autotune, "tuning/")):
-            if value is not None:
-                raise MXNetError(
-                    f"compile_step({name}={value!r}): mxnet_tpu_torch does "
-                    f"not port {module} yet (ROADMAP.md queue 1: the "
-                    f"{module} slice)")
+        if analyze is not None:
+            raise MXNetError(
+                f"compile_step(analyze={analyze!r}): mxnet_tpu_torch does "
+                "not port analysis/ yet (ROADMAP.md queue 1: the "
+                "analysis/ slice)")
         from .fused_step import CompiledTrainStep
         return CompiledTrainStep(self, loss_fn, donate=donate,
                                  train_mode=train_mode,
                                  zero_shard=zero_shard,
                                  zero_axis=zero_axis, mesh=mesh,
-                                 numerics=numerics)
+                                 numerics=numerics, autotune=autotune)
 
     # ---------------- compiled-step registry ----------------
     def _register_compiled(self, step):

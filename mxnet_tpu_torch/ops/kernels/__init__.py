@@ -34,6 +34,26 @@ wrapper reports (the counts ``chip_smoke.py``'s bounds use: the products
 of attention and of the recurrences, the elementwise work of LayerNorm,
 bias-GELU and the update), which ``torch.utils.flop_counter`` cannot see
 behind ``ctypes`` (``CompiledTrainStep.step_flops``).
+
+The ``kernels.vmem_tile_budget`` tunable (``tuning/space.py``) keeps the
+JAX package's name; on the card it is the shared memory a launch plan
+may let one block claim (:func:`vmem_tile_budget`, capped by the card's
+opt-in limit). :func:`plan_limits` hands it to the plans written in
+Python (``norm.ln_fwd_plan``, ``norm.bg_bwd_plan``, which reads the SM
+count alone, and ``rnn_scan.rnn_decode_plan``) and
+:func:`sync_smem_budget` to the recurrence forward's plan, written in C
+(``rnn_fwd_plan``). Its grid holds only values under which those plans
+give bit-identical outputs (the card tests check each). Two plans keep
+the card's whole limit, because their grid decides a summation order:
+``norm.ln_bwd_plan`` (a smaller limit gives its block branch fewer blocks,
+and the blocks' column partials are dgamma's and dbeta's sums) and the
+recurrence walk (``rnn_bwd_walk_plan``: fed the budget, its tile moved
+the backward's outputs by up to 2.3e-5 at the LM's shape on an H100).
+The flash backward's tiles are fixed (``attention.flash_bwd_plan``
+reports them); no budget moves them. The JAX package's second kernel
+tunable, ``kernels.rnn_block_t`` (timesteps a Pallas grid step walks),
+has no counterpart: the cooperative scan walks every timestep in one
+launch.
 """
 from __future__ import annotations
 
@@ -57,7 +77,9 @@ __all__ = ["KERNELS", "KernelInfo", "launch_counts", "count_plain",
            "launch_counts_by_dtype", "reset_launch_counts",
            "record_launches", "add_launches",
            "library", "build_library", "launch", "check_cuda_operands",
-           "DTYPE_CODES", "card_limits", "launch_empty"]
+           "DTYPE_CODES", "card_limits", "launch_empty",
+           "vmem_tile_budget", "plan_limits", "sync_smem_budget",
+           "SMEM_TILE_BUDGET_BYTES", "SMEM_BUDGET_GRID"]
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
@@ -91,6 +113,74 @@ def card_limits(device=None):
         torch.cuda.current_device() if device is None else device)
     return props.multi_processor_count, getattr(
         props, "shared_memory_per_block_optin", H100_SMEM_OPTIN)
+
+
+#: the shared memory a launch plan may let a block claim, by default all
+#: that a block may opt in to on an H100, and the least the tunable takes
+SMEM_TILE_BUDGET_BYTES = H100_SMEM_OPTIN
+SMEM_BUDGET_FLOOR = 64 * 1024
+#: the budget's candidates: each gives plans whose outputs are
+#: bit-identical to the default's (tests/test_torch_cuda.py checks each;
+#: ROADMAP.md says which values left the grid and why)
+SMEM_BUDGET_GRID = (H100_SMEM_OPTIN, 192 * 1024, 128 * 1024, 96 * 1024,
+                    64 * 1024)
+
+
+def vmem_tile_budget(device=None) -> int:
+    """The shared memory a launch plan may let one block claim on
+    ``device``: autotune override > ``MXNET_VMEM_TILE_BUDGET`` > all the
+    card offers (the ``kernels.vmem_tile_budget`` tunable), clamped to
+    [64 KiB, the card's opt-in limit]."""
+    from ...tuning import space as _tspace
+    optin = card_limits(device)[1]
+    try:
+        v = int(_tspace.value("kernels.vmem_tile_budget",
+                              SMEM_TILE_BUDGET_BYTES))
+    except (TypeError, ValueError):
+        v = SMEM_TILE_BUDGET_BYTES
+    return max(SMEM_BUDGET_FLOOR, min(v, optin))
+
+
+def plan_limits(device=None):
+    """(SMs, the shared memory a block may claim) for a launch plan:
+    :func:`card_limits` with the opt-in limit capped by
+    :func:`vmem_tile_budget`."""
+    sms, optin = card_limits(device)
+    return sms, min(optin, vmem_tile_budget(device))
+
+
+_SMEM_SET = [None]
+
+
+def sync_smem_budget(device=None) -> None:
+    """Hand :func:`vmem_tile_budget` to the plan the library computes in
+    C (the recurrence forward's), when it changed since the last call."""
+    b = vmem_tile_budget(device)
+    if _SMEM_SET[0] != b:
+        library().mxt_set_smem_budget(b)
+        _SMEM_SET[0] = b
+
+
+def _register_tunables():
+    """The kernel layer's tunable, next to the constant it makes
+    sweepable. It changes launch plans, never a kernel's numbers: every
+    grid value gives bit-identical outputs."""
+    from ...tuning.space import Tunable, register
+    register(Tunable(
+        "kernels.vmem_tile_budget", default=SMEM_TILE_BUDGET_BYTES,
+        grid=SMEM_BUDGET_GRID,
+        env="MXNET_VMEM_TILE_BUDGET", parse=lambda s: int(float(s)),
+        valid=lambda v, _c: SMEM_BUDGET_FLOOR <= int(v)
+        <= card_limits()[1],
+        seam="ops.kernels.vmem_tile_budget() -> plan_limits(): the "
+             "LayerNorm forward, bias-GELU backward and decode-step "
+             "plans; sync_smem_budget(): the recurrence forward's plan",
+        scope="train", affects_program=True,
+        doc="shared memory (bytes) a launch plan may let one block "
+            "claim (<= the card's opt-in limit)"))
+
+
+_register_tunables()
 
 
 @dataclass(frozen=True)
@@ -413,6 +503,8 @@ def library() -> ctypes.CDLL:
             for query in ("mxt_rnn_fwd_plan", "mxt_rnn_bwd_walk_plan"):
                 getattr(lib, query).argtypes = [_I, _I, _I, _I, _P]
                 getattr(lib, query).restype = ctypes.c_int
+            lib.mxt_set_smem_budget.argtypes = [_I]
+            lib.mxt_set_smem_budget.restype = ctypes.c_int
             lib.mxt_flash_bwd_plan.argtypes = [_I] * 6 + [_P]
             lib.mxt_flash_bwd_plan.restype = ctypes.c_int
             # an empty kernel: the launch floor, for timing (not counted)
@@ -451,6 +543,10 @@ def check_cuda_operands(name: str, x: torch.Tensor, *others) -> None:
         raise MXNetError(f"{name}: the kernel takes contiguous tensors")
 
 
+#: kernels whose C entry plans its own launch against the budget
+_C_PLANNED = ("rnn_scan_fwd",)
+
+
 def launch(name: str, device: torch.device, *args,
            dtype: torch.dtype, flops=None) -> None:
     """Call kernel ``name``'s C entry with ``args`` followed by PyTorch's
@@ -463,6 +559,8 @@ def launch(name: str, device: torch.device, *args,
     fn = getattr(library(), KERNELS[name].entry)
     stream = torch.cuda.current_stream(device).cuda_stream
     with torch.cuda.device(device):
+        if name in _C_PLANNED:
+            sync_smem_budget(device)
         err = fn(*args, stream)
     if err != 0:
         what = library().mxt_error_string(err).decode()

@@ -159,6 +159,20 @@ __device__ __forceinline__ void mxt_rnn_reduce64(float (&v)[64]) {
   mxt_rnn_halve<4>(v, 1, lane & 1);
 }
 
+// The shared memory the forward's plan may let one block claim, in bytes
+// (0: all a block may opt in to): the kernels.vmem_tile_budget tunable,
+// set through mxt_set_smem_budget. One definition across the library
+// (C++17). The walk's plan keeps the card's limit: its tile decides the
+// order dh is summed in, so another tile moves the backward's bits.
+inline int g_mxt_smem_budget = 0;
+
+// The opt-in limit the plans size against: the card's, capped by the
+// budget. The kernels' own shared-memory attribute stays the card's.
+static inline int mxt_plan_optin(int optin) {
+  return g_mxt_smem_budget > 0 && g_mxt_smem_budget < optin
+             ? g_mxt_smem_budget : optin;
+}
+
 // The current device's SM count and the shared memory a block may opt in to.
 static inline int mxt_device_limits(int* sms, int* optin) {
   int dev;

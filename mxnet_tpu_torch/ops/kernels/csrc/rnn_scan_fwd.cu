@@ -339,7 +339,7 @@ static int fwd_prepare(int N, int H, int G, int dtype, FwdPlan* plan,
         fns[i], cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
     if (e) return e;
   }
-  if (!fwd_plan(N, H, G, sms, optin, plan))
+  if (!fwd_plan(N, H, G, sms, mxt_plan_optin(optin), plan))
     return (int)cudaErrorInvalidValue;
   *fn = fns[plan->ws];
   int occ = 0;
@@ -357,6 +357,13 @@ static int fwd_prepare(int N, int H, int G, int dtype, FwdPlan* plan,
 // tiles, blocks, tiles a block takes a step (at most), 1 if W_hh's rows
 // stay in shared memory else 0 (read through L2), columns of h staged at
 // once (H: whole rows)}. Launches nothing.
+// Cap the shared memory the forward's plan sizes against at `bytes` (0
+// or less: the card's opt-in limit).
+MXT_API int mxt_set_smem_budget(int bytes) {
+  g_mxt_smem_budget = bytes > 0 ? bytes : 0;
+  return 0;
+}
+
 MXT_API int mxt_rnn_fwd_plan(int N, int H, int mode, int dtype, int* out) {
   if (N <= 0 || H <= 0 || mode < MXT_RNN_RELU || mode > MXT_GRU ||
       (dtype != MXT_F32 && dtype != MXT_BF16))

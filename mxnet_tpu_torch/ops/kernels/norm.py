@@ -25,7 +25,7 @@ from torch.autograd.function import once_differentiable
 
 from ...base import MXNetError
 from . import (DTYPE_CODES, card_limits, check_cuda_operands, count_plain,
-               launch)
+               launch, plan_limits)
 
 __all__ = ["layer_norm", "layer_norm_plain", "ln_fwd_plan",
            "layer_norm_bwd", "layer_norm_bwd_plain", "ln_bwd_plan",
@@ -167,7 +167,7 @@ def ln_fwd_plan(rows: int, c: int, dtype: torch.dtype = torch.float32,
         raise MXNetError(f"ln_fwd_plan: no kernel in {dtype}")
     if c < 1 or rows < 1:
         raise MXNetError(f"ln_fwd_plan: rows {rows}, C {c}")
-    sms, optin = card_limits(device)
+    sms, optin = plan_limits(device)
     vec, packs = _ln_layout(c, dtype, aligned)
     if packs:
         warps = LN_WARP_THREADS // 32
@@ -372,7 +372,7 @@ def bg_bwd_plan(rows: int, c: int, dtype: torch.dtype = torch.float32,
         raise MXNetError(f"bg_bwd_plan: no kernel in {dtype}")
     if c < 1 or rows < 1:
         raise MXNetError(f"bg_bwd_plan: rows {rows}, C {c}")
-    sms, _ = card_limits(device)
+    sms, _ = plan_limits(device)
     wide = 16 // dtype.itemsize
     vec = wide if aligned and c % wide == 0 else 1
     tiles = -(-c // (32 * vec))

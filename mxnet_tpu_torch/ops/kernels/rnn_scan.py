@@ -41,8 +41,8 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from ...base import MXNetError
-from . import (DTYPE_CODES, card_limits, check_cuda_operands, count_plain,
-               launch, library)
+from . import (DTYPE_CODES, check_cuda_operands, count_plain, launch,
+               library, plan_limits, sync_smem_budget)
 
 __all__ = ["GATES", "MODE_CODES", "scan_supported", "rnn_scan",
            "rnn_scan_plain", "rnn_scan_bwd_plain", "rnn_scan_fwd",
@@ -308,6 +308,7 @@ def _plan_query(entry: str, n: int, h: int, mode: str, dtype, device,
         raise MXNetError(f"{entry}: no kernel for {mode!r} in {dtype}")
     out = (ctypes.c_int * size)()
     with torch.cuda.device(device):
+        sync_smem_budget(device)
         err = getattr(library(), "mxt_" + entry)(
             n, h, MODE_CODES[mode], DTYPE_CODES[dtype], out)
     if err != 0:
@@ -497,7 +498,7 @@ def rnn_decode_plan(n: int, h: int, mode: str,
     if n < 1 or h < 1:
         raise MXNetError(f"rnn_decode_plan: N {n}, H {h}")
     return dict(_decode_plan(int(n), int(h), GATES[mode], dtype.itemsize,
-                             w_dtype.itemsize, *card_limits(device)))
+                             w_dtype.itemsize, *plan_limits(device)))
 
 
 def rnn_decode_step(xw, h, c, w_hh, b_hh, mode: str):

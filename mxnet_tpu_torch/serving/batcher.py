@@ -51,9 +51,11 @@ its events, copies and replays land there. Deterministic testing: inject
 hand; the flush, deadline and admission arithmetic read only the
 injected clock.
 
-``max_batch_rows`` / ``batch_timeout_s`` read ``MXNET_SERVING_MAX_BATCH``
-/ ``MXNET_SERVING_BATCH_TIMEOUT_MS``; their autotune registration waits
-for ``tuning/`` (``ROADMAP.md`` queue 1).
+``max_batch_rows`` / ``batch_timeout_s`` are the ``serving.max_batch``
+/ ``serving.batch_timeout_ms`` tunables (``tuning/space.py``): autotune
+override > ``MXNET_SERVING_MAX_BATCH`` / ``MXNET_SERVING_BATCH_TIMEOUT_MS``
+> the default, read when a batcher is built, so one built after
+``CompiledPredictor.warmup(autotune=)`` takes the tuned knobs.
 
 Telemetry (the JAX package's ``mx_serving_*`` series, beside ``stats``):
 ``mx_serving_requests_total`` (admitted), ``mx_serving_batches_total``,
@@ -91,24 +93,63 @@ _LOG = logging.getLogger("mxnet_tpu_torch.serving")
 
 
 def max_batch_rows(default: int = 32) -> int:
-    """``MXNET_SERVING_MAX_BATCH``: the most rows coalesced into one
-    dispatch (at least 1; an unparsable value gives ``default``)."""
+    """The most rows coalesced into one dispatch: autotune override >
+    ``MXNET_SERVING_MAX_BATCH`` > ``default`` (the ``serving.max_batch``
+    tunable; at least 1, an unparsable value gives ``default``)."""
+    from ..tuning import space as _tspace
+    found, v = _tspace.get_override("serving.max_batch")
+    if not found:
+        v = os.environ.get("MXNET_SERVING_MAX_BATCH", str(default))
     try:
-        return max(1, int(os.environ.get("MXNET_SERVING_MAX_BATCH",
-                                         str(default))))
+        return max(1, int(v))
     except (TypeError, ValueError):
         return default
 
 
 def batch_timeout_s(default_ms: float = 2.0) -> float:
-    """``MXNET_SERVING_BATCH_TIMEOUT_MS``: how long the oldest waiting
-    request may age before a partial batch flushes, as seconds."""
+    """How long the oldest waiting request may age before a partial batch
+    flushes, as seconds: autotune override >
+    ``MXNET_SERVING_BATCH_TIMEOUT_MS`` (milliseconds) > ``default_ms``
+    (the ``serving.batch_timeout_ms`` tunable)."""
+    from ..tuning import space as _tspace
+    found, v = _tspace.get_override("serving.batch_timeout_ms")
+    if not found:
+        v = os.environ.get("MXNET_SERVING_BATCH_TIMEOUT_MS",
+                           str(default_ms))
     try:
-        v = float(os.environ.get("MXNET_SERVING_BATCH_TIMEOUT_MS",
-                                 str(default_ms)))
+        v = float(v)
     except (TypeError, ValueError):
         v = default_ms
     return max(0.0, v) / 1e3
+
+
+def _register_tunables():
+    """The coalescing tunables: the cap trades occupancy against padding,
+    the linger batching delay against fill. Both are dispatch policy (a
+    request's result is the same at any setting), so the autotuner may
+    sweep them."""
+    from ..tuning.space import Tunable, register
+    register(Tunable(
+        "serving.max_batch", default=32, grid=(8, 16, 32, 64),
+        env="MXNET_SERVING_MAX_BATCH", parse=int,
+        valid=lambda v, _c: int(v) >= 1,
+        seam="serving.batcher.max_batch_rows() -> DynamicBatcher "
+             "coalescing cap (must fit the predictor's bucket ladder)",
+        scope="serving",
+        doc="max coalesced request rows per serving micro-batch"))
+    register(Tunable(
+        "serving.batch_timeout_ms", default=2.0,
+        grid=(0.5, 1.0, 2.0, 5.0, 10.0),
+        env="MXNET_SERVING_BATCH_TIMEOUT_MS", parse=float,
+        valid=lambda v, _c: float(v) >= 0.0,
+        seam="serving.batcher.batch_timeout_s() -> oldest-request "
+             "linger before a partial flush",
+        scope="serving",
+        doc="max age (ms) of the oldest waiting request before a "
+            "partial micro-batch flushes"))
+
+
+_register_tunables()
 
 
 def queue_depth(default: int = 1024) -> int:

@@ -71,12 +71,15 @@ construction — the page pools, plus the speculative overrun slack of
 check the JAX package's ``decode.page_size`` / ``decode.spec_k``
 validators make at a nominal geometry).
 
-Not ported yet: the ``decode.*`` tunables (they wait for ``tuning/``) and
-``lower_entry`` / ``analyze`` (for ``analysis/``).
+The engine's knobs are the five ``decode.*`` tunables
+(``tuning/space.py``): :func:`slot_ladder`, :func:`kv_page_size`,
+:func:`prefill_chunk`, :func:`spec_k` and :func:`prefix_share` resolve
+autotune override > their env var > the default, when an engine is
+built. Not ported yet: ``lower_entry`` / ``analyze`` (for
+``analysis/``).
 """
 from __future__ import annotations
 
-import os
 import threading
 import time
 import weakref
@@ -129,46 +132,136 @@ def _parse_ladder(v) -> Tuple[int, ...]:
     return vals
 
 
-def _env_int(name: str, default: int) -> int:
+def slot_ladder() -> Tuple[int, ...]:
+    """The slot-count ladder: autotune override > ``MXNET_DECODE_SLOTS``
+    ('1,2,4,8') > the default (the ``decode.slot_ladder`` tunable)."""
+    from ..tuning import space as _tspace
+    v = _tspace.value("decode.slot_ladder",
+                      ",".join(str(x) for x in DECODE_SLOT_LADDER))
     try:
-        return int(os.environ.get(name, str(default)))
-    except ValueError:
+        return _parse_ladder(v)
+    except (TypeError, ValueError):
+        return DECODE_SLOT_LADDER
+
+
+def _tuned(name: str, default: int, least: int) -> int:
+    from ..tuning import space as _tspace
+    try:
+        return max(least, int(_tspace.value(name, default)))
+    except (TypeError, ValueError):
         return default
 
 
-def slot_ladder() -> Tuple[int, ...]:
-    """``MXNET_DECODE_SLOTS`` ('1,2,4,8'), else the default ladder."""
-    v = os.environ.get("MXNET_DECODE_SLOTS")
-    if not v:
-        return DECODE_SLOT_LADDER
-    try:
-        return _parse_ladder(v)
-    except ValueError:
-        return DECODE_SLOT_LADDER
-
-
 def kv_page_size() -> int:
-    """Tokens per KV page: ``MXNET_DECODE_KV_PAGE_SIZE``, else
-    ``kvcache.KV_PAGE_SIZE``."""
-    return max(1, _env_int("MXNET_DECODE_KV_PAGE_SIZE", KV_PAGE_SIZE))
+    """Tokens per KV page: autotune override >
+    ``MXNET_DECODE_KV_PAGE_SIZE`` > ``kvcache.KV_PAGE_SIZE``."""
+    return _tuned("decode.kv_page_size", KV_PAGE_SIZE, 1)
 
 
 def prefill_chunk() -> int:
-    """Prompt tokens one prefill chunk consumes:
-    ``MXNET_DECODE_PREFILL_CHUNK``, else the default."""
-    return max(1, _env_int("MXNET_DECODE_PREFILL_CHUNK", PREFILL_CHUNK))
+    """Prompt tokens one prefill chunk consumes: autotune override >
+    ``MXNET_DECODE_PREFILL_CHUNK`` > the default."""
+    return _tuned("decode.prefill_chunk", PREFILL_CHUNK, 1)
 
 
 def spec_k() -> int:
-    """Draft tokens per speculative step (0 = off):
-    ``MXNET_DECODE_SPEC_K``, else the default."""
-    return max(0, _env_int("MXNET_DECODE_SPEC_K", SPEC_K))
+    """Draft tokens per speculative step (0 = off): autotune override >
+    ``MXNET_DECODE_SPEC_K`` > the default."""
+    return _tuned("decode.spec_k", SPEC_K, 0)
 
 
 def prefix_share() -> bool:
-    """Whether the engine shares prefix pages across requests:
-    ``MXNET_DECODE_PREFIX_SHARE``, else the default."""
-    return bool(_env_int("MXNET_DECODE_PREFIX_SHARE", PREFIX_SHARE))
+    """Whether the engine shares prefix pages across requests: autotune
+    override > ``MXNET_DECODE_PREFIX_SHARE`` > the default."""
+    return bool(_tuned("decode.prefix_share", PREFIX_SHARE, 0))
+
+
+def _nominal_fits(page_size: int, overrun: int) -> bool:
+    """Whether a nominal full cache (the default ladder's most slots at a
+    256-token context, float32, 2 heads x 16 dims x 1 layer, plus
+    ``overrun`` speculative positions a slot) fits
+    ``MXNET_MEMORY_BUDGET`` (no budget: it fits). An engine checks its
+    real geometry at construction."""
+    from ..telemetry.memory import memory_budget
+    budget = memory_budget()
+    if budget is None:
+        return True
+    slots = DECODE_SLOT_LADDER[-1]
+    page_bytes = 2 * 1 * page_size * 2 * 16 * 4     # K+V, 1 layer, f32
+    pages = 1 + slots * pages_needed(256 + overrun, page_size)
+    return pages * page_bytes <= budget
+
+
+def _page_size_valid(v, _config) -> bool:
+    v = int(v)
+    return 1 <= v <= 4096 and _nominal_fits(v, 0)
+
+
+def _spec_k_valid(v, _config) -> bool:
+    v = int(v)
+    return 0 <= v <= 64 and (v == 0 or _nominal_fits(KV_PAGE_SIZE, v))
+
+
+def _register_tunables():
+    """The decode engine's tunables, with the JAX package's grids and
+    validity predicates (a candidate priced against the KV budget at the
+    nominal geometry)."""
+    from ..tuning.space import Tunable, register
+    register(Tunable(
+        "decode.slot_ladder",
+        default=",".join(str(x) for x in DECODE_SLOT_LADDER),
+        grid=("1,2,4", "1,2,4,8", "1,2,4,8,16", "1,4,16"),
+        env="MXNET_DECODE_SLOTS", parse=str,
+        valid=lambda v, _c: bool(_parse_ladder(v)),
+        seam="serving.decode.slot_ladder() -> DecodeEngine AOT "
+             "slot-count buckets",
+        scope="serving", affects_program=True,
+        doc="slot-count buckets the decode step is compiled for "
+            "(comma list; largest = physical slots)"))
+    register(Tunable(
+        "decode.kv_page_size", default=KV_PAGE_SIZE,
+        grid=(8, 16, 32, 64),
+        env="MXNET_DECODE_KV_PAGE_SIZE", parse=int,
+        valid=_page_size_valid,
+        seam="serving.decode.kv_page_size() -> PagedKVCache page "
+             "geometry + page-table width",
+        scope="serving", affects_program=True,
+        doc="tokens per KV page (pages x page_bytes must fit "
+            "MXNET_MEMORY_BUDGET)"))
+    register(Tunable(
+        "decode.prefill_chunk", default=PREFILL_CHUNK,
+        grid=(8, 16, 32, 64, 128),
+        env="MXNET_DECODE_PREFILL_CHUNK", parse=int,
+        valid=lambda v, _c: 1 <= int(v) <= 4096,
+        seam="serving.decode.prefill_chunk() -> chunked-prefill "
+             "program width",
+        scope="serving", affects_program=True,
+        doc="prompt tokens one prefill iteration consumes (smaller = "
+            "better decode-batch latency, larger = better prefill "
+            "throughput)"))
+    register(Tunable(
+        "decode.spec_k", default=SPEC_K,
+        grid=(0, 2, 4, 8),
+        env="MXNET_DECODE_SPEC_K", parse=int,
+        valid=_spec_k_valid,
+        seam="serving.decode.spec_k() -> DecodeEngine draft->verify "
+             "width (verify-program token dim = spec_k + 1)",
+        scope="serving", affects_program=True,
+        doc="max draft tokens the drafter proposes per speculative "
+            "step (0 = off; overrun slack must fit the KV budget)"))
+    register(Tunable(
+        "decode.prefix_share", default=PREFIX_SHARE,
+        grid=(0, 1),
+        env="MXNET_DECODE_PREFIX_SHARE", parse=int,
+        valid=lambda v, _c: int(v) in (0, 1),
+        seam="serving.decode.prefix_share() -> PagedKVCache prefix "
+             "registry + COW sharing",
+        scope="serving", affects_program=False,
+        doc="share committed prompt-prefix KV pages across requests "
+            "(refcounted, copy-on-write on divergence)"))
+
+
+_register_tunables()
 
 
 # ---------------------------------------------------------------------------

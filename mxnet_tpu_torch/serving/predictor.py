@@ -7,10 +7,12 @@ dimension is quantised to ``bucket_sizes``: :meth:`bucket_for` and
 bucket, so concurrent requests of any size run a handful of shapes.
 Where the JAX package AOT-compiles one XLA program per bucket, this
 predictor captures one CUDA graph per input signature
-(:mod:`mxnet_tpu_torch.captured`): :meth:`aot_compile` captures one,
-:meth:`warmup` captures every bucket before traffic arrives, and
-:meth:`predict` copies its arguments into the program's static inputs
-and replays it.
+(:mod:`mxnet_tpu_torch.captured`): :meth:`aot_compile` captures one and
+returns its FLOPs, :meth:`warmup` captures every bucket before traffic
+arrives (``{bucket: FLOPs}``, as the JAX package's; each capture's
+seconds in :attr:`CompiledPredictor.capture_s`), and :meth:`predict`
+copies its arguments into the program's static inputs and replays it.
+``warmup(autotune=)`` first tunes the serving knobs (``tuning/``).
 A signature not seen before is captured at its first call, and
 :attr:`n_traces` counts the programs captured. On the CPU each program
 runs its forward eagerly over the same static inputs. :meth:`predict`
@@ -23,6 +25,7 @@ merges the captures' allocator footprints (``telemetry.MemoryReport``).
 from __future__ import annotations
 
 import contextlib
+import logging
 import threading
 import time
 from typing import Dict, Optional, Sequence
@@ -42,6 +45,8 @@ __all__ = ["CompiledPredictor", "DEFAULT_BUCKETS", "map_tensors",
 DEFAULT_BUCKETS = (1, 2, 4, 8, 16, 32, 64)
 
 _ARRAY_TYPES = (torch.Tensor, np.ndarray)
+
+_LOG = logging.getLogger("mxnet_tpu_torch.serving")
 
 
 def _is_batched(leaf) -> bool:
@@ -111,6 +116,10 @@ class CompiledPredictor:
         #: measured time of one micro-batch of the largest bucket, from
         #: :meth:`warmup`; None until warmup ran
         self.service_time_seed_s: Optional[float] = None
+        #: {bucket: seconds its capture took}, from :meth:`warmup`
+        self.capture_s: Dict[int, float] = {}
+        self._flops: Dict = {}
+        self._autotune_outcome = None
 
     @property
     def net(self) -> torch.nn.Module:
@@ -156,17 +165,28 @@ class CompiledPredictor:
                 .to(self.device)
         return leaf
 
-    def _program(self, args, kwargs):
-        """The program of this call's signature (captured when new) and
-        the call's tensor arguments in the order of its static inputs."""
+    @staticmethod
+    def _leaves(args, kwargs):
         names = tuple(sorted(kwargs))
         leaves = [torch.from_numpy(np.ascontiguousarray(a))
                   if isinstance(a, np.ndarray) else a
                   for a in args + tuple(kwargs[k] for k in names)]
-        tensors = [a for a in leaves if isinstance(a, torch.Tensor)]
-        key = (len(args), names, tuple(
+        return names, leaves
+
+    def _key(self, args, kwargs) -> tuple:
+        """The signature of a call: its arguments' shapes and dtypes and
+        the other values."""
+        names, leaves = self._leaves(args, kwargs)
+        return (len(args), names, tuple(
             (tuple(a.shape), a.dtype) if isinstance(a, torch.Tensor)
             else _static_key(a) for a in leaves))
+
+    def _program(self, args, kwargs):
+        """The program of this call's signature (captured when new) and
+        the call's tensor arguments in the order of its static inputs."""
+        names, leaves = self._leaves(args, kwargs)
+        tensors = [a for a in leaves if isinstance(a, torch.Tensor)]
+        key = self._key(args, kwargs)
 
         net = self._net     # not self: a program must not keep its owner
         fixed = [_INPUT if isinstance(a, torch.Tensor) else a
@@ -201,11 +221,30 @@ class CompiledPredictor:
         return _telemetry.memory.MemoryReport.merge(reports) \
             if reports else None
 
-    def aot_compile(self, *args, **kwargs) -> float:
+    def aot_compile(self, *args, **kwargs) -> Optional[float]:
         """Capture the program of this (bucket-shaped) batch ahead of
-        traffic, unless it exists; returns its capture seconds."""
+        traffic, unless it exists; returns its FLOPs, as the JAX package
+        returns XLA's count: the products one eager forward on the
+        program's inputs runs (``torch.utils.flop_counter``) plus what
+        the hand-written kernels launched in it report
+        (``ops.kernels.count_flops``), counted once a signature, as
+        ``CompiledTrainStep.step_flops`` counts."""
         with self._mu, device_scope(self.device):
-            return self._program(args, kwargs)[0].capture_s
+            prog, _ = self._program(args, kwargs)
+            key = self._key(args, kwargs)
+            if key not in self._flops:
+                self._flops[key] = self._count_flops(prog)
+            return self._flops[key]
+
+    def _count_flops(self, prog) -> float:
+        from torch.utils.flop_counter import FlopCounterMode
+        from ..ops.kernels import count_flops, record_launches
+        # launched to be counted, not served: out of the launch counts
+        with FlopCounterMode(display=False) as fc, count_flops() as kf, \
+                record_launches(), torch.inference_mode():
+            prog.body(*prog.inputs)
+        synchronize(self.device)
+        return float(fc.get_total_flops()) + kf["flops"]
 
     def predict(self, *args, **kwargs):
         """Run one (bucket-shaped) batch: its arguments are copied into
@@ -222,18 +261,44 @@ class CompiledPredictor:
 
     __call__ = predict
 
-    def warmup(self, *example, buckets: Optional[Sequence[int]] = None
-               ) -> Dict[int, float]:
+    @property
+    def autotune_result(self):
+        """The :class:`~mxnet_tpu_torch.tuning.AutotuneOutcome` of the last
+        ``warmup(autotune=)`` (None before, or with the gate off)."""
+        return self._autotune_outcome
+
+    def warmup(self, *example, buckets: Optional[Sequence[int]] = None,
+               autotune: Optional[str] = None) -> Dict[int, Optional[float]]:
         """Capture every bucket's program from one example request (a
         one-row batch), then time one replay of the largest bucket into
-        :attr:`service_time_seed_s`. Returns {bucket: seconds of its
-        capture}."""
+        :attr:`service_time_seed_s`. Returns {bucket: FLOPs of its
+        program} (:meth:`aot_compile`); each capture's seconds go to
+        :attr:`capture_s`.
+
+        ``autotune`` (the ``MXNET_AUTOTUNE`` gate by default): first
+        replay or search this deployment's serving tunables
+        (``serving.max_batch``, ``serving.batch_timeout_ms``; a
+        ``max_batch`` past the largest bucket is infeasible); the tuned
+        overrides govern a :class:`~mxnet_tpu_torch.serving.DynamicBatcher`
+        built after warmup. A request's result is the same at any
+        setting. A tuning that fails logs a warning and the defaults
+        serve."""
+        from .. import tuning as _tuning
+        if _tuning.autotune_mode(autotune) != "off":
+            try:
+                self._autotune_outcome = _tuning.tune_predictor(
+                    self, example, mode=autotune)
+            except Exception as e:
+                _LOG.warning("CompiledPredictor: autotune failed (%s: %s); "
+                             "serving with defaults", type(e).__name__, e)
         out = {}
         padded = None
         for b in (buckets or self.bucket_sizes):
             padded = tuple(pad_rows(a, b) if _is_batched(a) else a
                            for a in example)
             out[b] = self.aot_compile(*padded)
+            with self._mu:
+                self.capture_s[b] = self._program(padded, {})[0].capture_s
         if padded is not None:
             t0 = time.perf_counter()
             self.predict(*padded)

@@ -90,7 +90,8 @@ def test_package_has_its_modules():
               "gluon/data/vision/__init__.py",
               "gluon/data/vision/transforms.py",
               "gluon/data/vision/datasets.py", "io/__init__.py",
-              "io/io.py"):
+              "io/io.py", "tuning/__init__.py", "tuning/space.py",
+              "tuning/search.py", "tuning/cache.py", "tuning/measure.py"):
         assert os.path.join("mxnet_tpu_torch", m) in rel, m
     csrc = os.listdir(os.path.join(PKG, "ops", "kernels", "csrc"))
     assert {"flash_fwd.cu", "layernorm_fwd.cu", "bias_gelu_fwd.cu",

@@ -2405,3 +2405,102 @@ def test_kernel_dispatch_counter_counts_launches_and_replays(cuda_dev):
     assert ttel.value("mx_kernel_dispatch_total", "cuda") == 2
     assert ttel.value("mx_kernel_dispatch_total", "plain") in (None, 0.0)
     ttel.reset()
+
+
+# ---------------------------------------------------------------------------
+# the kernels.vmem_tile_budget tunable: every grid value, bit-identical
+# ---------------------------------------------------------------------------
+
+def _smem_cases(dev):
+    """(name, fn) pairs at PERF.md section 6's shapes (rows 2, 5, 6, 8-11)
+    and at shapes where a smaller budget moves the plan: each fn returns
+    the kernel's outputs for fixed inputs, and the plan it launched."""
+    g = torch.Generator().manual_seed(7)
+
+    def t(*shape, s=1.0, dtype=torch.float32):
+        return (torch.randn(*shape, generator=g) * s).to(dev, dtype)
+
+    cases = []
+    for rows, c in ((16384, 768), (2048, 16384), (1000, 6017)):
+        x, gam, bet, dy = t(rows, c), t(c), t(c), t(rows, c)
+        cases.append((f"layernorm_fwd {rows}x{c}", functools.partial(
+            lambda x, gm, bt: ((KN.layer_norm(x, gm, bt, 1e-5),),
+                               KN.ln_fwd_plan(*x.shape, x.dtype, x.device)),
+            x, gam, bet)))
+        cases.append((f"layernorm_bwd {rows}x{c}", functools.partial(
+            lambda x, gm, dy: (KN.layer_norm_bwd(x, gm, dy, 1e-5),
+                               KN.ln_bwd_plan(*x.shape, x.dtype, x.device)),
+            x, gam, dy)))
+    x, b, dy = t(4096, 3072), t(3072), t(4096, 3072)
+    cases.append(("bias_gelu_bwd 4096x3072", lambda: (
+        KN.bias_gelu_bwd(x, b, dy), KN.bg_bwd_plan(4096, 3072,
+                                                   device=dev))))
+    for mode, n_t, n, h in (("lstm", 35, 64, 650), ("lstm", 8, 64, 1024),
+                            ("gru", 6, 130, 300)):
+        xw, h0, c0, w, bb, dys, dct = _rnn_inputs(mode, n_t, n, h,
+                                                  torch.float32, dev)
+
+        def scan(xw=xw, h0=h0, c0=c0, w=w, bb=bb, dys=dys, dct=dct,
+                 mode=mode, n=n, h=h):
+            ys, cs = KR.rnn_scan_fwd(xw, h0, c0, w, bb, mode)
+            grads = KR.rnn_scan_bwd(xw, h0, c0, w, bb, ys, cs, dys, dct,
+                                    mode)
+            plans = (KR.rnn_fwd_plan(n, h, mode, device=dev),
+                     KR.rnn_bwd_walk_plan(n, h, mode, device=dev))
+            return (ys, cs) + tuple(grads), plans
+        cases.append((f"rnn_scan {mode} T{n_t} N{n} H{h}", scan))
+    for n, h in ((8, 128), (128, 650), (8, 650)):
+        xw, hh, cc, w, bb = _decode_inputs("lstm", n, h, torch.float32, dev)
+        cases.append((f"rnn_decode N{n} H{h}", functools.partial(
+            lambda *a: (KR.rnn_decode_step(*a, "lstm"),
+                        KR.rnn_decode_plan(a[0].shape[0], a[1].shape[1],
+                                           "lstm", device=a[0].device)),
+            xw, hh, cc, w, bb)))
+    return cases
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("budget", K.SMEM_BUDGET_GRID[1:])
+def test_smem_budget_grid_values_bit_identical_on_card(cuda_dev, budget):
+    """Under every value of the kernels.vmem_tile_budget grid, the plans
+    the budget feeds may change, the outputs may not: each kernel's
+    outputs equal the default budget's bit for bit."""
+    from mxnet_tpu_torch.tuning import space
+    default = {"kernels.vmem_tile_budget": K.SMEM_TILE_BUDGET_BYTES}
+    moved = []
+    for name, fn in _smem_cases(cuda_dev):
+        with space.trial(default):
+            ref, ref_plan = fn()
+        with space.trial({"kernels.vmem_tile_budget": budget}):
+            got, plan = fn()
+        torch.cuda.synchronize()
+        if plan != ref_plan:
+            moved.append(name)
+        for a, r in zip(got, ref):
+            assert (a is None) == (r is None), name
+            if r is not None:
+                assert torch.equal(a, r), f"{name} at budget {budget}"
+    print(f"budget {budget}: plans moved for {moved}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("budget", K.SMEM_BUDGET_GRID[1:])
+def test_smem_budget_leaves_the_fused_flash_bwd_on_card(cuda_dev, budget):
+    """Row 2 (the fused flash backward at BERT's 32 x 12 x 512 x 64): its
+    tiles are fixed, so the budget moves nothing; dk and dv equal the
+    default budget's bit for bit, dq (summed by float32 atomics, which
+    repeat only within rounding) within the default's own spread over
+    two runs, or 1e-6 where that spread is 0."""
+    from mxnet_tpu_torch.tuning import space
+    q, k, v, out, lse, do, causal = _bwd_inputs((32, 12, 512, 512, 64,
+                                                 False), torch.float32,
+                                                cuda_dev)
+    with space.trial({"kernels.vmem_tile_budget":
+                      K.SMEM_TILE_BUDGET_BYTES}):
+        ref = ATT.flash_attention_bwd(q, k, v, out, lse, do, causal)
+        ref2 = ATT.flash_attention_bwd(q, k, v, out, lse, do, causal)
+    with space.trial({"kernels.vmem_tile_budget": budget}):
+        got = ATT.flash_attention_bwd(q, k, v, out, lse, do, causal)
+    spread = float((ref[0] - ref2[0]).abs().max())
+    assert float((got[0] - ref[0]).abs().max()) <= max(2 * spread, 1e-6)
+    assert torch.equal(got[1], ref[1]) and torch.equal(got[2], ref[2])
