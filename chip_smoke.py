@@ -25,6 +25,10 @@
                                         # on three or more cards)
     python3 chip_smoke.py --data        # phases 1, 2 and 18 alone
     python3 chip_smoke.py --telemetry   # phases 1, 2 and 19 alone
+    python3 chip_smoke.py --analysis    # phases 1, 2 and 21 alone (21c
+                                        # on four or more cards)
+    python3 chip_smoke.py --analysis-zero  # phases 1, 2 and 21c alone
+                                           # (four cards)
     python3 chip_smoke.py --compare DIR  # A/B on one card: the flash
         # forward, the flash backward (fused at BERT training's shape;
         # dq, dkv at phase 7's), the recurrence kernels, the LayerNorm
@@ -477,6 +481,32 @@ Phases, each of which fails the run (non-zero exit) when it fails:
     every catalog series, and a profiler trace of two BERT steps (the
     first captures) holds the funnel's ops and both steps' dispatch /
     window / retire spans.
+
+21. ``analysis/`` at full width (``analysis_phase``): (a) BERT-base
+    training (32 x 512, Adam) through ``compile_step(analyze="raise")``,
+    float32 then bf16 amp: ``step.analyze`` records one run of the
+    step's body before the first step, the weights, Adam states, update
+    counts and the card's generator bit-equal after it; the report clean
+    (no collective, no host transfer, no unblessed dtype drift, the 201
+    parameters and their 402 Adam states updated in place); the kernel
+    census's FLOPs within 5 % of ``step_flops``; the captured step's
+    first call finding nothing, ``n_traces`` 1, 12 / 12 / 25 / 25 / 1
+    launches a step; printed: the census's kernels, stranded ops and its
+    15 largest stranded chains by bytes, the record's kernel nodes
+    beside the captured graph's (``CUDAGraph.debug_dump``); (b) served
+    BERT-base at bucket 32 (``CompiledPredictor(analyze="raise")``) and
+    decode_wide's bucket-8 step (``DecodeEngine.analyze``), each clean
+    under the ``predict`` expectations; (c) on four cards, phase 11's
+    model under ZeRO dp 4, serial and at the default bucket: the
+    collective census against the plan, serial ``overlap_fraction`` <=
+    0.05 and bucketed above it, the analytical backend scoring serial
+    worse; printed beside each exposed time the NCCL time no compute
+    kernel overlapped in a ``torch.profiler`` trace of rank 0; (d) a
+    loss with a planted ``.item()`` under ``MXNET_TRANSFER_GUARD=raise``
+    raises naming its line, a clean loop stays quiet and
+    ``mx_guard_host_syncs_total`` counts its retires; after the whole
+    run the lock-order graph has no cycle and no edge outside
+    ``tests/fixtures/torch_lock_hierarchy.json``.
 
 ``{"launch_counts": {...}, "bf16_launch_counts": {...},
 "dist_kv_launch_counts": {...}, "resnet_launch_counts": {...},
@@ -10666,6 +10696,588 @@ def tuning_phase(torch, np, K, ATT, dev, smi):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 21: analysis/ at full width
+# ---------------------------------------------------------------------------
+
+#: the census's FLOPs against ``step_flops`` (the FlopCounterMode count
+#: plus the kernels' own): the census adds the elementwise work and
+#: counts the update at the JAX rule's 10 FLOPs an element (20 there)
+ANALYSIS_FLOPS_RTOL = 0.05
+ANALYSIS_TOP_CHAINS = 15    # stranded chains printed, by bytes
+ANALYSIS_STEPS = 2          # captured steps counted after the analysis
+#: per step of BERT-base training: its kernels' launches
+ANALYSIS_EXPECT = {"flash_fwd": 12, "flash_bwd_fused": 12,
+                   "layernorm_fwd": 25, "layernorm_bwd": 25,
+                   "opt_update": 1}
+ANALYSIS_KERNELS = ("flash_fwd", "flash_bwd_fused", "layernorm_fwd",
+                    "layernorm_bwd", "rnn_decode", "opt_update")
+ANALYSIS_ZERO_WORLD = 4     # 21c's cards
+ANALYSIS_ZERO_TURNS = 6     # 21c's timed turns of each layout
+ANALYSIS_ZERO_TURN_STEPS = 3   # steps a turn
+LOCK_HIERARCHY = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                              "tests", "fixtures",
+                              "torch_lock_hierarchy.json")
+
+
+def report_facts(rep):
+    """A ProgramReport's gated numbers."""
+    return {"ok": rep.ok,
+            "collectives": rep.collectives.by_kind,
+            "host_transfers": len([f for f in rep.host_transfers
+                                   if not f.blessed]),
+            "dtype_drift_unblessed": len([f for f in rep.dtype_drift
+                                          if not f.blessed]),
+            "dtype_drift_blessed": len([f for f in rep.dtype_drift
+                                        if f.blessed]),
+            "donation": rep.donation.to_dict() | {"copied":
+                                                  len(rep.donation.copied)},
+            "n_traces": rep.n_traces,
+            "error_findings": [str(f) for f in
+                               rep.all_findings(min_severity="error")]}
+
+
+def census_facts(fr):
+    """The kernel census's headline numbers and its largest stranded
+    chains by bytes (the split of a step's elementwise 'other' time)."""
+    by_name = {}
+    for s in fr.stranded:
+        by_name[s.opcode] = by_name.get(s.opcode, 0) + s.bytes
+    return {"kernels": fr.n_kernels, "by_kind": fr.by_kind(),
+            "flops": fr.total_flops, "flops_by_kind": fr.flops_by_kind(),
+            "stranded": len(fr.stranded),
+            "stranded_bytes": fr.stranded_bytes,
+            "boundary_bytes": fr.boundary_bytes,
+            "stranded_bytes_by_op": dict(sorted(
+                by_name.items(), key=lambda kv: -kv[1])[:12]),
+            "top_stranded_chains": fr.stranded_chains(ANALYSIS_TOP_CHAINS)}
+
+
+def analysis_bert(torch, np, K, dev, smi, bf16=False):
+    """Phase 21a: BERT-base training (TRAIN_BATCH x TRAIN_SEQ, Adam),
+    float32 or under bf16 amp, through ``compile_step(analyze="raise")``.
+    The step is captured (``aot_compile``), then ``step.analyze`` records
+    one run of the step's body before the first step; the weights, Adam
+    states, update counts, the card's generator and ``n_traces`` are
+    held equal to a copy taken before it. Gates: the
+    report clean (no collective, no host transfer, no unblessed dtype
+    drift, all 201 parameters and their 402 Adam states updated in
+    place); the census's FLOPs within ANALYSIS_FLOPS_RTOL of
+    ``step_flops``; the first call's ``analyze="raise"`` finding
+    nothing, ``n_traces`` 1 and ANALYSIS_EXPECT launches a step. Printed, not gated: the census's kernels, stranded
+    ops and chains, and the record's kernel nodes beside the captured
+    graph's. Returns the phase's launches."""
+    from mxnet_tpu_torch import amp
+    if bf16:
+        amp.init("bfloat16")
+        try:
+            return analysis_bert(torch, np, K, dev, smi)
+        finally:
+            amp.uninit()
+    from mxnet_tpu_torch.gluon import Trainer
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from mxnet_tpu_torch.gluon.model_zoo.bert import BERTClassifier, bert_base
+    from mxnet_tpu_torch.gluon.params import init_params_numpy, \
+        load_jax_params
+    name = "analysis_bert_bf16" if amp.is_enabled() else "analysis_bert"
+    t0 = time.perf_counter()
+    net = BERTClassifier(bert_base(max_length=TRAIN_SEQ, dropout=0.1,
+                                   device=dev),
+                         num_classes=2, dropout=0.1, device=dev)
+    load_jax_params(net, init_params_numpy(net, seed=2))
+    net.train()
+    rs = np.random.RandomState(3)
+    x = rs.randint(0, BERT_VOCAB, (TRAIN_BATCH, TRAIN_SEQ)).astype(np.int64)
+    y = rs.randint(0, 2, (TRAIN_BATCH,)).astype(np.float32)
+    xt, yt = torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev)
+    loss_fn = SoftmaxCrossEntropyLoss()
+    tr = Trainer(dict(net.named_parameters()), "adam",
+                 {"learning_rate": TRAIN_LR})
+    step = tr.compile_step(lambda a, b: loss_fn(net(a), b),
+                           analyze="raise")
+    torch.manual_seed(0)
+    # the captured step first (its graph kept for debug_dump), then the
+    # analysis before its first call
+    step.aot_compile(xt, yt, debug_graph=True)
+    opt = tr._optimizer
+    states = [tr._updater._state_for(i, p) for i, p in enumerate(tr._params)]
+    before = ([p.detach().clone() for p in net.parameters()],
+              [s.clone() for st in states for s in opt.state_tensors(st)],
+              (opt.num_update, dict(opt._index_update_count)),
+              torch.cuda.get_rng_state(dev))
+    K.reset_launch_counts()
+    t1 = time.perf_counter()
+    rep = step.analyze(xt, yt)
+    torch.cuda.synchronize()
+    analyze_s = time.perf_counter() - t1
+    after = ([p.detach() for p in net.parameters()],
+             [s for st in states for s in opt.state_tensors(st)],
+             (opt.num_update, dict(opt._index_update_count)),
+             torch.cuda.get_rng_state(dev))
+    restored = {
+        "weights": all(torch.equal(a, b)
+                       for a, b in zip(before[0], after[0])),
+        "optimizer_states": all(torch.equal(a, b)
+                                for a, b in zip(before[1], after[1])),
+        "update_counts": before[2] == after[2],
+        "rng": torch.equal(before[3], after[3]),
+        "n_traces_unmoved": step.n_traces == 1}
+    del before, after
+    launches = dict(K.launch_counts())
+    flops = step.step_flops(xt, yt)
+    census = rep.fusion.total_flops
+    per_step = []
+    K.reset_launch_counts()
+    for _ in range(ANALYSIS_STEPS):
+        b0 = K.launch_counts()
+        step(xt, yt)
+        torch.cuda.synchronize()
+        per_step.append({n: c for n, c in step_launches(K, b0).items()
+                         if c})
+    for n, c in K.launch_counts().items():
+        launches[n] = launches.get(n, 0) + c
+    prog = next(iter(step._programs.programs()))
+    graph_nodes = prog.graph_nodes(os.path.abspath(
+        os.path.join("build", f"{name}_graph.dot")))
+    facts = report_facts(rep)
+    n_params = len(tr._params)
+    n_states = sum(len(opt.state_tensors(st)) for st in states)
+    d = rep.donation
+    gates = {"clean": facts["ok"] and not facts["collectives"]
+             and facts["host_transfers"] == 0
+             and facts["dtype_drift_unblessed"] == 0,
+             "donated_all": d.declared == d.aliased == n_params + n_states
+             and not d.copied,
+             "restored": all(restored.values()),
+             "flops_vs_step_flops": abs(census / flops - 1.0)
+             <= ANALYSIS_FLOPS_RTOL,
+             "first_step_analysis": step.analysis_report is rep,
+             "n_traces_1": step.n_traces == 1,
+             "launches_per_step": all(s == ANALYSIS_EXPECT
+                                      for s in per_step)}
+    record = rep.fusion
+    out = {"report": facts, "summary": rep.summary().splitlines()[:9],
+           "census": census_facts(record),
+           "census_flops": census, "step_flops": flops,
+           "flops_ratio": census / flops, "restored": restored,
+           "analyze_s": analyze_s, "n_params": n_params,
+           "n_states": n_states, "launches_per_step": per_step,
+           "launches_expected": ANALYSIS_EXPECT,
+           "record_kernel_nodes": record.n_kernels,
+           "record_hand_written": record.by_kind().get("custom", 0),
+           "graph_nodes": graph_nodes,
+           "setup_s": time.perf_counter() - t0, "card": smi,
+           "gates": gates, "ok": all(gates.values())}
+    emit({name: out})
+    del step, net, tr, states, prog
+    if not out["ok"]:
+        raise SystemExit(f"phase 21a failed ({name}): {gates}")
+    return launches
+
+
+def analysis_serving(torch, np, K, dev, smi):
+    """Phase 21b: served BERT-base at bucket SERVE_MAX_BATCH
+    (``CompiledPredictor(analyze="raise")``: its first request records the
+    bucket's forward and lints it) and decode_wide's bucket-8 decode step
+    (``DecodeEngine.analyze``), each clean under the ``predict``
+    expectations: no collective, no host transfer, no unblessed dtype
+    drift, no error finding. Returns the phase's launches."""
+    from mxnet_tpu_torch.gluon.model_zoo.bert import BERTClassifier, bert_base
+    from mxnet_tpu_torch.gluon.params import init_params_numpy, \
+        load_jax_params
+    from mxnet_tpu_torch.serving import (CompiledPredictor, DecodeEngine,
+                                         TinyDecoder)
+    net = BERTClassifier(bert_base(device=dev), num_classes=2, device=dev)
+    load_jax_params(net, init_params_numpy(net, seed=0))
+    rs = np.random.RandomState(0)
+    x = rs.randint(0, BERT_VOCAB, (SERVE_MAX_BATCH, SERVE_SEQ)) \
+        .astype(np.int64)
+    pred = CompiledPredictor(net, device=dev, analyze="raise")
+    pred.warmup(x[:1], buckets=(SERVE_MAX_BATCH,))
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    pred.predict(x)
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    rep = pred.analysis_report
+    model = TinyDecoder(**DECODE_WIDE, seed=0, device=dev)
+    eng = DecodeEngine(model, start=False)
+    t1 = time.perf_counter()
+    drep = eng.analyze(batch_size=8)
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t1
+    launches = dict(K.launch_counts())
+    out = {}
+    for what, r in (("serving_bucket_%d" % SERVE_MAX_BATCH, rep),
+                    ("decode_wide_bucket_8", drep)):
+        facts = report_facts(r)
+        facts["clean"] = facts["ok"] and not facts["collectives"] and \
+            facts["host_transfers"] == 0 and \
+            facts["dtype_drift_unblessed"] == 0 and \
+            not facts["error_findings"]
+        facts["census"] = census_facts(r.fusion)
+        out[what] = facts
+    out.update(first_request_s=serve_s, decode_analyze_s=decode_s,
+               launches={n: c for n, c in launches.items() if c}, card=smi)
+    out["ok"] = all(v["clean"] for k, v in out.items()
+                    if isinstance(v, dict) and "clean" in v) and \
+        launches.get("rnn_decode", 0) > 0
+    emit({"analysis_serving": out})
+    eng.close()
+    del pred, net, eng, model
+    if not out["ok"]:
+        raise SystemExit(f"phase 21b failed: {out}")
+    return launches
+
+
+def analysis_guard(torch, np, K, dev, smi):
+    """Phase 21d, its first half: a loss with a planted ``.item()`` under
+    ``MXNET_TRANSFER_GUARD=raise`` raises ``MXNetError`` naming the
+    line; a clean ``TrainLoop`` stays quiet there, its only host syncs
+    the window's retires, which ``mx_guard_host_syncs_total`` counts."""
+    from mxnet_tpu_torch import MXNetError
+    from mxnet_tpu_torch import telemetry as tel
+    from mxnet_tpu_torch.analysis import guard
+    from mxnet_tpu_torch.gluon import Trainer, TrainLoop
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from mxnet_tpu_torch.gluon.nn import Dense
+
+    def make():
+        torch.manual_seed(0)
+        net = torch.nn.Sequential(Dense(64, in_units=32, activation="relu",
+                                        device=dev),
+                                  Dense(4, in_units=64, device=dev))
+        return net, Trainer(dict(net.named_parameters()), "sgd",
+                            {"learning_rate": 0.1})
+
+    loss_fn = SoftmaxCrossEntropyLoss()
+    rs = np.random.RandomState(0)
+    xt = torch.from_numpy(rs.randn(16, 32).astype(np.float32)).to(dev)
+    yt = torch.from_numpy(rs.randint(0, 4, (16,)).astype(np.float32)) \
+        .to(dev)
+    net, tr = make()
+
+    def planted(a, b):
+        loss = loss_fn(net(a), b)
+        peek = loss.sum().item()   # the planted host sync
+        return loss * (peek == peek)
+
+    line = planted.__code__.co_firstlineno + 2
+    prev = os.environ.get("MXNET_TRANSFER_GUARD")
+    os.environ["MXNET_TRANSFER_GUARD"] = "raise"
+    try:
+        step = tr.compile_step(planted)
+        raised = None
+        try:
+            step(xt, yt)
+        except MXNetError as e:
+            raised = str(e)
+        net2, tr2 = make()
+        loop = TrainLoop(net2, tr2, loss_fn, inflight=1)
+        guard.reset_sync_counts()
+        c0 = tel.value(tel.names.HOST_SYNCS, "window_retire") or 0.0
+        for _ in range(4):
+            loop.step(xt, yt)
+        loop.synchronize()
+        counts = guard.sync_counts()
+        c1 = tel.value(tel.names.HOST_SYNCS, "window_retire") or 0.0
+    finally:
+        if prev is None:
+            os.environ.pop("MXNET_TRANSFER_GUARD", None)
+        else:
+            os.environ["MXNET_TRANSFER_GUARD"] = prev
+    where = f"chip_smoke.py:{line}"
+    out = {"planted_raised": raised is not None,
+           "names_line": raised is not None and where in raised,
+           "message": (raised or "")[:240], "clean_loop_syncs": counts,
+           "host_syncs_counted": c1 - c0, "card": smi}
+    out["ok"] = (out["planted_raised"] and out["names_line"]
+                 and set(counts) == {"window_retire"}
+                 and counts["window_retire"] == c1 - c0 >= 4)
+    emit({"analysis_guard": out})
+    if not out["ok"]:
+        raise SystemExit(f"phase 21d (guard) failed: {out}")
+
+
+def analysis_locks(smi):
+    """Phase 21d, its second half, after the whole run: the audited
+    locks' order graph has no cycle and no edge outside
+    ``tests/fixtures/torch_lock_hierarchy.json``."""
+    from mxnet_tpu_torch.analysis import threads
+    base = threads.load_baseline(LOCK_HIERARCHY)
+    findings = threads.check_hierarchy(base)
+    cycles = threads.find_cycles()
+    out = {"locks": sorted({lk["name"] for lk in threads.describe_locks()}),
+           "edges": sorted((e["from"], e["to"], e["count"])
+                           for e in threads.graph().edges()),
+           "cycles": cycles, "findings": [str(f) for f in findings],
+           "card": smi}
+    out["ok"] = not cycles and not findings
+    emit({"analysis_locks": out})
+    if not out["ok"]:
+        raise SystemExit(f"phase 21d (lock order) failed: {out}")
+
+
+def analysis_zero_rank(widths, batch, seq, lr, trace_dir, bucket_bytes,
+                       turns=ANALYSIS_ZERO_TURNS):
+    """Phase 21c, one rank: BERT-base (phase 11's model) under the dp
+    mesh, serial (MXNET_ZERO_BUCKET_BYTES=0) and at ``bucket_bytes``
+    (None: the default bucket), each layout its own net and step: one
+    step, then ``step.analyze`` (the census, the overlap census), the
+    plan's buckets and gathers, the analytical backend's score. Then the
+    two layouts' whole steps timed in alternating turns (serial,
+    bucketed, bucketed, serial, ...; ANALYSIS_ZERO_TURN_STEPS steps a
+    turn, the card synchronized around each), and a ``torch.profiler``
+    trace of one step of each on every rank: each NCCL kernel's time and
+    the part of it no compute kernel of that rank overlaps, in issue
+    order, so :func:`analysis_zero` can take each collective's least
+    time over the ranks (its transfer; the rest of a rank's kernel is
+    waiting for its peers)."""
+    import numpy as np
+    import torch
+    from mxnet_tpu_torch.gluon import Trainer
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from mxnet_tpu_torch.gluon.params import init_params_numpy, \
+        load_jax_params
+    from mxnet_tpu_torch.parallel import dist, make_mesh
+    from mxnet_tpu_torch.tuning.measure import AnalyticalStepBackend
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = dist.device()
+    cuda = dev.type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    rank, world = dist.rank(), dist.size()
+    net = bert_base_classifier(torch, seq, dev, widths)
+    init = init_params_numpy(net, seed=2)
+    rs = np.random.RandomState(3)
+    vocab = net.bert.word_embed.weight.shape[0]
+    x = torch.from_numpy(rs.randint(0, vocab, (batch, seq))
+                         .astype(np.int64)).to(dev)
+    y = torch.from_numpy(rs.randint(0, 2, (batch,))
+                         .astype(np.float32)).to(dev)
+    loss_fn = SoftmaxCrossEntropyLoss()
+    runs, steps = {}, {}
+
+    def traced(step, mode):
+        from torch.profiler import ProfilerActivity
+        from torch.profiler import profile as prof_cm
+        with prof_cm(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            step(x, y)
+            sync()
+        path = os.path.join(trace_dir, f"analysis_{mode}_r{rank}.json")
+        prof.export_chrome_trace(path)
+        ivs = kernel_intervals(path)
+        os.remove(path)
+        nccl = sorted((a, b) for n, a, b in ivs if "nccl" in n.lower())
+        compute = union([(a, b) for n, a, b in ivs
+                         if "nccl" not in n.lower()])
+        busy = union([(a, b) for _, a, b in ivs])
+        span = (busy[-1][1] - busy[0][0]) if busy else 0.0
+        # [kernel us, us no compute kernel overlaps] each, issue order;
+        # the compute kernels' busy ms, and the ms from the first kernel
+        # to the last in which no kernel ran (the card idle)
+        return {"nccl": [[b - a, b - a - overlap_us([(a, b)], compute)]
+                         for a, b in nccl],
+                "compute_kernels": len(ivs) - len(nccl),
+                "compute_busy_ms": sum(b - a for a, b in compute) / 1e3,
+                "span_ms": span / 1e3,
+                "idle_ms": (span - sum(b - a for a, b in busy)) / 1e3}
+
+    for mode, bb in (("serial", "0"), ("bucketed", bucket_bytes)):
+        if bb is None:
+            os.environ.pop("MXNET_ZERO_BUCKET_BYTES", None)
+        else:
+            os.environ["MXNET_ZERO_BUCKET_BYTES"] = str(bb)
+        if mode != "serial":
+            net = bert_base_classifier(torch, seq, dev, widths)
+        load_jax_params(net, init)
+        tr = Trainer(dict(net.named_parameters()), "adam",
+                     {"learning_rate": lr})
+        step = tr.compile_step(
+            lambda a, b, net=net: loss_fn(net(a), b))
+        with make_mesh({"dp": world}):
+            step(x, y)
+            sync()
+            t0 = time.perf_counter()
+            rep = step.analyze(x, y)
+            analyze_s = time.perf_counter() - t0
+            plan = step.zero_plan
+            bucket_rows = [sum(plan.units[k]["padded"] // world for k in b)
+                           for b in step.buckets]
+            gathers = step._zero_gather_sizes()
+            score = AnalyticalStepBackend(step, (x, y)).measure({})
+            # one more step under this layout's setting (the score's
+            # probe may have rebuilt the plan)
+            step(x, y)
+            sync()
+        steps[mode] = step
+        ops = rep.collectives.ops
+        runs[mode] = {
+            "bucket_bytes": rep.overlap.zero_bucket_bytes,
+            "census": rep.collectives.by_kind,
+            "reduce_scatter_elements": [o.elements for o in ops
+                                        if o.kind == "reduce_scatter"],
+            "all_gather_elements": [o.elements for o in ops
+                                    if o.kind == "all_gather"],
+            "plan_bucket_rows": bucket_rows, "plan_gather_sizes": gathers,
+            "units": len(plan.units), "buckets": len(step.buckets),
+            "global_batch_loss_gather": batch,
+            "overlap": rep.overlap.brief(),
+            "exposed_comm_s": rep.overlap.exposed_comm_s,
+            "comm_cost_s": rep.sharding.cost.total_s,
+            "report_ok": rep.ok,
+            "error_findings": [str(f) for f in
+                               rep.all_findings(min_severity="error")],
+            "donation": rep.donation.to_dict() | {"copied":
+                                                  len(rep.donation.copied)},
+            "analytical_score_s": score.score,
+            "analytical_exposed_comm_s": score.detail.get("exposed_comm_s"),
+            "analyze_s": analyze_s}
+        del step, tr
+    os.environ.pop("MXNET_ZERO_BUCKET_BYTES", None)
+    with make_mesh({"dp": world}):
+        step_ms = {m: [] for m in steps}
+        issue_ms = {m: [] for m in steps}
+        for t in range(turns):
+            for mode in (("serial", "bucketed") if t % 2 == 0
+                         else ("bucketed", "serial")):
+                sync()
+                t0 = time.perf_counter()
+                for _ in range(ANALYSIS_ZERO_TURN_STEPS):
+                    steps[mode](x, y)
+                # the host's time to issue the turn (before the card is
+                # waited for): near the step's own time when host-bound
+                t1 = time.perf_counter()
+                sync()
+                n = ANALYSIS_ZERO_TURN_STEPS
+                step_ms[mode].append((time.perf_counter() - t0) * 1e3 / n)
+                issue_ms[mode].append((t1 - t0) * 1e3 / n)
+        for mode, step in steps.items():
+            runs[mode]["step_ms"] = step_ms[mode]
+            runs[mode]["issue_ms"] = issue_ms[mode]
+            runs[mode]["buckets_after_turns"] = len(step.buckets)
+            runs[mode]["trace"] = traced(step, mode) if cuda else None
+    del steps
+    if cuda:
+        torch.cuda.empty_cache()
+    return {"rank": rank, "world": world, "runs": runs}
+
+
+def zero_trace_split(runs):
+    """One layout's measurement over the ranks (``runs``: each rank's
+    run of :func:`analysis_zero_rank`): the median step ms of each rank
+    and of the slowest rank a turn; per rank the NCCL kernel ms and the
+    part no compute kernel overlaps; and, where every rank traced the
+    same number of NCCL kernels, each collective's least time over the
+    ranks summed (``transfer_ms``: the last rank to arrive waits for no
+    one) and its least unhidden time (``exposed_transfer_ms``), the rest
+    of the ranks' NCCL time being waiting; the host's issue ms a step
+    (host-bound where it nears the step's), and each rank's traced step:
+    compute busy ms, the span from its first kernel to its last, and the
+    ms of that span no kernel ran."""
+    import statistics
+    turns = list(zip(*[r["step_ms"] for r in runs]))
+    out = {"step_ms_median_by_rank": [statistics.median(r["step_ms"])
+                                      for r in runs],
+           "step_ms_slowest_rank_median": statistics.median(
+               max(t) for t in turns),
+           "step_ms_turns_rank0": runs[0]["step_ms"],
+           "issue_ms_median_by_rank": [statistics.median(r["issue_ms"])
+                                       for r in runs],
+           "buckets_after_turns": [r["buckets_after_turns"] for r in runs]}
+    traces = [r.get("trace") for r in runs]
+    if any(t is None for t in traces):
+        return out
+    out["nccl_kernels_by_rank"] = [len(t["nccl"]) for t in traces]
+    out["nccl_kernel_ms_by_rank"] = [sum(k for k, _ in t["nccl"]) / 1e3
+                                     for t in traces]
+    out["nccl_exposed_ms_by_rank"] = [sum(e for _, e in t["nccl"]) / 1e3
+                                      for t in traces]
+    for k in ("compute_busy_ms", "span_ms", "idle_ms"):
+        out[f"traced_{k}_by_rank"] = [t[k] for t in traces]
+    if len({len(t["nccl"]) for t in traces}) == 1:
+        per = list(zip(*[t["nccl"] for t in traces]))
+        out["transfer_ms"] = sum(min(k for k, _ in c) for c in per) / 1e3
+        out["exposed_transfer_ms"] = sum(min(e for _, e in c)
+                                         for c in per) / 1e3
+    return out
+
+
+def analysis_zero(torch, np, smi, device="cuda", world=ANALYSIS_ZERO_WORLD,
+                  widths=None, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                  bucket_bytes=None, timeout_s=900):
+    """Phase 21c: ZeRO dp 4 on four cards (:func:`analysis_zero_rank`).
+    Gates, each rank: the census one reduce-scatter a bucket with the
+    plan's row, one all-gather a run of buckets of one dtype with the
+    plan's payload plus the global batch's loss, the report clean; the
+    serial overlap_fraction <= 0.05 and the bucketed one above it; the
+    analytical backend scores serial worse than bucketed. Printed beside
+    each, not gated (:func:`zero_trace_split`): the exposed comm seconds,
+    the two layouts' step ms timed in alternating turns, and from a trace
+    of every rank the NCCL time no compute kernel overlapped, split into
+    transfer and waiting."""
+    from mxnet_tpu_torch.parallel import dist
+    trace_dir = os.path.abspath(os.path.join("build", "chip_trace"))
+    os.makedirs(trace_dir, exist_ok=True)
+    ranks = dist.spawn(analysis_zero_rank, world, device,
+                       (widths, batch, seq, TRAIN_LR, trace_dir,
+                        bucket_bytes),
+                       timeout_s=timeout_s)
+
+    def census_ok(run):
+        rs_ok = run["reduce_scatter_elements"] == run["plan_bucket_rows"]
+        ag = sorted(run["all_gather_elements"])
+        ag_ok = ag == sorted(run["plan_gather_sizes"]
+                             + [run["global_batch_loss_gather"]])
+        return rs_ok and ag_ok and run["report_ok"] and \
+            run["donation"]["copied"] == 0
+
+    r0 = ranks[0]["runs"]
+    serial, buck = r0["serial"], r0["bucketed"]
+    measured = {m: zero_trace_split([r["runs"][m] for r in ranks])
+                for m in r0}
+    gates = {
+        "census_matches_plan": all(census_ok(r["runs"][m])
+                                   for r in ranks for m in r["runs"]),
+        "serial_fraction_le_0.05":
+            serial["overlap"]["overlap_fraction"] <= 0.05,
+        "bucketed_above_serial": buck["overlap"]["overlap_fraction"]
+        > serial["overlap"]["overlap_fraction"],
+        "serial_exposed_positive": serial["exposed_comm_s"] > 0,
+        "analytical_serial_worse": all(
+            r["runs"]["serial"]["analytical_score_s"]
+            > r["runs"]["bucketed"]["analytical_score_s"] for r in ranks)}
+    for r in ranks:
+        for run in r["runs"].values():
+            run.pop("trace", None)
+    out = {"world": world, "batch": batch, "seq": seq,
+           "rank0": r0, "measured": measured, "gates": gates, "card": smi,
+           "ok": all(gates.values())}
+    emit({"analysis_zero": out})
+    if not out["ok"]:
+        raise SystemExit(f"phase 21c failed: {gates}")
+    return out
+
+
+def analysis_phase(torch, np, K, ATT, dev, smi):
+    """Phase 21 on one card: 21a (float32, bf16 amp), 21b and the guard
+    half of 21d. Returns the phase's launches by kernel."""
+    t0 = time.perf_counter()
+    launches = {}
+    for part in (analysis_bert(torch, np, K, dev, smi),
+                 analysis_bert(torch, np, K, dev, smi, bf16=True),
+                 analysis_serving(torch, np, K, dev, smi)):
+        torch.cuda.empty_cache()
+        for k, v in part.items():
+            launches[k] = launches.get(k, 0) + v
+    analysis_guard(torch, np, K, dev, smi)
+    emit({"analysis_phase_s": time.perf_counter() - t0,
+          "analysis_launch_counts": {k: v for k, v in launches.items()
+                                     if v}})
+    return launches
+
+
 def main(argv):
     import numpy as np
     import torch
@@ -10785,6 +11397,32 @@ def main(argv):
         return 0
     if "--tuning" in argv:
         tuning_phase(torch, np, K, ATT, dev, smi)
+        print(smi, flush=True)
+        emit({"ok": True, "device": {"platform": "gpu",
+                                     "kind": torch.cuda.get_device_name(0),
+                                     "count": torch.cuda.device_count()}})
+        return 0
+    if "--analysis-zero" in argv:
+        # phase 21c alone: the four-card part
+        if torch.cuda.device_count() < ANALYSIS_ZERO_WORLD:
+            raise SystemExit(f"--analysis-zero needs {ANALYSIS_ZERO_WORLD} "
+                             "cards")
+        analysis_zero(torch, np, smi)
+        analysis_locks(smi)
+        print(smi, flush=True)
+        emit({"ok": True, "device": {"platform": "gpu",
+                                     "kind": torch.cuda.get_device_name(0),
+                                     "count": torch.cuda.device_count()}})
+        return 0
+    if "--analysis" in argv:
+        analysis_phase(torch, np, K, ATT, dev, smi)
+        if torch.cuda.device_count() >= ANALYSIS_ZERO_WORLD:
+            analysis_zero(torch, np, smi)
+        else:
+            print(f"phase 21c needs {ANALYSIS_ZERO_WORLD} GPUs; "
+                  f"{torch.cuda.device_count()} visible, so it did not run",
+                  flush=True)
+        analysis_locks(smi)
         print(smi, flush=True)
         emit({"ok": True, "device": {"platform": "gpu",
                                      "kind": torch.cuda.get_device_name(0),
@@ -10920,18 +11558,28 @@ def main(argv):
     lap("telemetry (phase 19)")
     tune = tuning_phase(torch, np, K, ATT, dev, smi)
     lap("tuning (phase 20)")
+    analysis = analysis_phase(torch, np, K, ATT, dev, smi)
+    torch.cuda.empty_cache()
+    lap("analysis (phase 21)")
     if torch.cuda.device_count() >= 2:
         zero_train_multi(torch, np, smi)
         zero_overlap(torch, np, smi)
         zero_elastic(torch, np, smi)
         zero_batchnorm(torch, np, smi)
         dist_kv_multi(torch, np, smi)
+        if torch.cuda.device_count() >= ANALYSIS_ZERO_WORLD:
+            analysis_zero(torch, np, smi)
+        else:
+            print(f"phase 21c needs {ANALYSIS_ZERO_WORLD} GPUs; "
+                  f"{torch.cuda.device_count()} visible, so it did not run",
+                  flush=True)
     else:
         print("phase 11 (ZeRO training across cards, with A1's BatchNorm "
-              "leg), phase 13 across cards and phase 17b need >= 2 GPUs; "
-              f"{torch.cuda.device_count()} visible, so they did not run",
-              flush=True)
-    lap("across cards (phases 11, 13, 17b)")
+              "leg), phase 13 across cards, phase 17b and phase 21c need "
+              f">= 2 GPUs; {torch.cuda.device_count()} visible, so they "
+              "did not run", flush=True)
+    lap("across cards (phases 11, 13, 17b, 21c)")
+    analysis_locks(smi)
     emit({"phase_times_s": laps})
 
     # each kernel's launches on the path that drives it, counted from 0
@@ -10979,7 +11627,9 @@ def main(argv):
           "data_launch_counts": {p: {n: c for n, c in counts.items() if c}
                                  for p, counts in data.items()},
           "telemetry_launch_counts": {n: c for n, c in tele.items() if c},
-          "tuning_launch_counts": {n: c for n, c in tune.items() if c}})
+          "tuning_launch_counts": {n: c for n, c in tune.items() if c},
+          "analysis_launch_counts": {n: c for n, c in analysis.items()
+                                     if c}})
     if not all(n > 0 for n in launches.values()) or \
             not all(cells[n] > 0 for n in ("rnn_scan_fwd",
                                            "rnn_scan_bwd")) or \
@@ -10990,7 +11640,8 @@ def main(argv):
             not all(data[p][n] > 0 for n, paths in DATA_KERNELS.items()
                     for p in paths) or \
             not all(tele.get(n, 0) > 0 for n in TELE_KERNELS) or \
-            not all(tune.get(n, 0) > 0 for n in TUNE_KERNELS):
+            not all(tune.get(n, 0) > 0 for n in TUNE_KERNELS) or \
+            not all(analysis.get(n, 0) > 0 for n in ANALYSIS_KERNELS):
         raise SystemExit(f"a kernel never launched on its path: {launches}"
                          f" {bf16_launches} {resnet_launches} {cells}")
     rows = []
@@ -11033,6 +11684,8 @@ def main(argv):
             rows[-1].update(telemetry_launches=tele[name])
         if name in TUNE_KERNELS:
             rows[-1].update(tuning_launches=tune[name])
+        if name in ANALYSIS_KERNELS:
+            rows[-1].update(analysis_launches=analysis[name])
     print(smi, flush=True)
     emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu",

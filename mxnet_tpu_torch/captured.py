@@ -143,11 +143,12 @@ class CapturedProgram:
     CPU. ``ptrs`` are the owner's tensors' addresses it was built
     against. ``scope()`` wraps the warm-up runs: a context manager that
     yields the ``torch.Generator``s the body draws from (filled by the
-    time it exits) and undoes the runs' effects on exit."""
+    time it exits) and undoes the runs' effects on exit. ``debug`` keeps
+    the graph's nodes past instantiation, for :meth:`graph_nodes`."""
 
     def __init__(self, what: str, body: Callable, inputs: Sequence,
                  device: torch.device, ptrs: Tuple[int, ...], pool=None,
-                 scope: Optional[Callable] = None):
+                 scope: Optional[Callable] = None, debug: bool = False):
         self.what = what
         self.body = body
         self.inputs = tuple(inputs)
@@ -161,13 +162,18 @@ class CapturedProgram:
         if device.type == "cuda":
             with _CAPTURE_MU:
                 self._capture(pool, _capture_stream(device),
-                              scope or _no_scope)
+                              scope or _no_scope, debug)
         self.capture_s = time.perf_counter() - t0
 
-    def _capture(self, pool, stream, scope):
+    def _capture(self, pool, stream, scope, debug):
         cur = torch.cuda.current_stream(self.device)
         stream.wait_stream(cur)
-        graph = torch.cuda.CUDAGraph()
+        if debug:
+            # the cudaGraph_t kept past instantiation, for debug_dump
+            graph = torch.cuda.CUDAGraph(keep_graph=True)
+            graph.enable_debug_mode()
+        else:
+            graph = torch.cuda.CUDAGraph()
         collecting = gc.isenabled()
         capturing = None
         try:
@@ -209,6 +215,30 @@ class CapturedProgram:
             temp_bytes=max(0, _pool_bytes(graph.pool()) - out_bytes))
         mem.register_compiled_report(f"{self.what}@{id(self):x}",
                                      self.memory)
+
+    def graph_nodes(self, path: str) -> Optional[Dict[str, int]]:
+        """The captured graph's nodes by type (``KERNEL``, ``MEMCPY``,
+        ``MEMSET``, ...), read from its ``debug_dump`` written to
+        ``path`` (removed after); None where there is no graph (the
+        CPU), ``{"error": ...}`` where the dump failed (a capture not
+        made with ``debug``)."""
+        import os
+        import re
+        if self.graph is None:
+            return None
+        try:
+            self.graph.debug_dump(path)
+            with open(path) as f:
+                text = f.read()
+        except Exception as e:
+            return {"error": f"{type(e).__name__}: {e}"[:200]}
+        finally:
+            if os.path.exists(path):
+                os.remove(path)
+        out: Dict[str, int] = {}
+        for kind in re.findall(r'label="\{(\w+)', text):
+            out[kind] = out.get(kind, 0) + 1
+        return out
 
     def run(self):
         """Replay the graph (the card) or run the body over the static
@@ -299,13 +329,13 @@ class Programs:
             self.clear()
 
     def get(self, key, build: Callable[[], tuple], count: bool = True,
-            what: str = "", scope: Optional[Callable] = None
-            ) -> CapturedProgram:
+            what: str = "", scope: Optional[Callable] = None,
+            debug: bool = False) -> CapturedProgram:
         """The program of signature ``key``. When there is none, or the
         owner's tensors moved since its capture, ``build()`` gives
         ``(body, inputs)`` and the program is captured anew (one more
-        trace when ``count``), its warm-up inside ``scope``
-        (:class:`CapturedProgram`)."""
+        trace when ``count``), its warm-up inside ``scope``, its graph's
+        nodes kept when ``debug`` (:class:`CapturedProgram`)."""
         with self._mu:
             ptrs = self.ptrs()
             prog = self._progs.get(key)
@@ -315,7 +345,8 @@ class Programs:
                 self._drop([key])
             body, inputs = build()
             prog = CapturedProgram(what or repr(key), body, inputs,
-                                   self.device, ptrs, self._pool, scope)
+                                   self.device, ptrs, self._pool, scope,
+                                   debug)
             self._progs[key] = prog
             if count:
                 self.n_traces += 1

@@ -40,6 +40,7 @@ from typing import Any, Dict, Optional
 import torch.distributed as dist
 
 from .. import telemetry as _telemetry
+from ..analysis.threads import mx_lock
 from ..base import MXNetError
 from ..parallel import dist as _dist
 from . import atomic
@@ -76,7 +77,7 @@ class TrainCheckpointManager:
         # guards the writer handoff (_thread, _error) between save(),
         # wait() and the writer; the join runs outside it, so waiters
         # never block each other behind slow I/O
-        self._mu = threading.Lock()
+        self._mu = mx_lock("checkpoint.manager")
         self._last_restore: Optional[Dict[str, Any]] = None
         #: saves, errors, restores; seconds of the last capture, write
         #: (serialize + fsync + commit + prune) and restore

@@ -36,7 +36,6 @@ from __future__ import annotations
 import contextlib
 import logging
 import os
-import threading
 import time
 from collections import deque
 from typing import Any, Callable
@@ -44,6 +43,8 @@ from typing import Any, Callable
 import torch
 
 from . import telemetry as _telemetry
+from .analysis import guard as _tguard
+from .analysis.threads import mx_lock
 from .base import MXNetError
 from .testing.faults import fault_point
 
@@ -90,16 +91,18 @@ _register_tunables()
 @contextlib.contextmanager
 def allow_sync():
     """Turn PyTorch's CUDA sync debug mode off for the block (the
-    designed sync of a retire), restoring it afterwards."""
-    if not torch.cuda.is_available():
-        yield
-        return
-    prev = torch.cuda.get_sync_debug_mode()
-    torch.cuda.set_sync_debug_mode(0)
-    try:
-        yield
-    finally:
-        torch.cuda.set_sync_debug_mode(prev)
+    designed sync of a retire), restoring it afterwards; the transfer
+    guard (``analysis.guard``) blesses it too."""
+    with _tguard.allow_transfers("designed sync"):
+        if not torch.cuda.is_available():
+            yield
+            return
+        prev = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode(0)
+        try:
+            yield
+        finally:
+            torch.cuda.set_sync_debug_mode(prev)
 
 
 class DispatchWindow:
@@ -113,7 +116,7 @@ class DispatchWindow:
         self._sync = sync_fn
         self._what = what
         self._pending: "deque[tuple]" = deque()
-        self._mu = threading.Lock()
+        self._mu = mx_lock("engine.window")
         self.stats = {"pushes": 0, "retires": 0, "errors": 0,
                       "max_pending": 0, "abandoned": 0}
         self._last_retire_t = None
@@ -156,6 +159,7 @@ class DispatchWindow:
         self._m_occupancy.set(depth)
         fault_point("window.retire", "before")
         t_wait = time.perf_counter()
+        _tguard.count_sync("window_retire")
         with allow_sync():
             try:
                 self._sync(payload)

@@ -57,6 +57,7 @@ import numpy as np
 import torch
 
 from ... import telemetry as _telemetry
+from ...analysis.threads import mx_lock
 from ...base import MXNetError
 from ...context import resolve_device
 from ...parallel.mesh import carry_placement, place_on_mesh
@@ -109,7 +110,7 @@ class DevicePrefetcher:
                       "starvation_count": 0}
         # the stats are read while the producer runs: every update
         # holds this lock
-        self._stats_mu = threading.Lock()
+        self._stats_mu = mx_lock("data.prefetch.stats")
         self._stream = None
         self._live = weakref.WeakSet()
         reg = _telemetry.registry()

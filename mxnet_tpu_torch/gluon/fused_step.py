@@ -175,6 +175,8 @@ import numpy as np
 import torch
 
 from .. import telemetry as _telemetry
+from ..analysis import guard as _tguard
+from ..analysis.program import analysis_mode as _analysis_mode
 from ..base import MXNetError
 from ..captured import Programs
 from ..kvstore import KVStoreDist
@@ -1003,9 +1005,16 @@ class CompiledTrainStep:
                  train_mode: bool = True,
                  zero_shard: Optional[bool] = None, zero_axis: str = "dp",
                  mesh=None, numerics: Optional[str] = None,
-                 autotune: Optional[str] = None):
+                 autotune: Optional[str] = None,
+                 analyze: Optional[str] = None):
         self._trainer = trainer
         self._loss_fn = loss_fn
+        # the program lint after the first step (analysis/): None |
+        # 'report' | 'warn' | 'raise', MXNET_ANALYSIS by default
+        self._analyze = _analysis_mode(analyze)
+        self._analysis_report = None
+        #: lower_entry's records, by (mode, signature)
+        self._analysis_cache: dict = {}
         # the autopilot (tuning/): None = the MXNET_AUTOTUNE gate, else
         # 'off' | 'cached' | 'on'; it runs once, at the first call,
         # before the program is captured, so the winner governs it
@@ -1494,6 +1503,7 @@ class CompiledTrainStep:
         if self._programs is not None:
             self._programs.clear()
         self._lru.clear()
+        self._analysis_cache.clear()
         if self._zero is not None:
             self._zero = None
             self._buckets = []
@@ -1512,8 +1522,12 @@ class CompiledTrainStep:
             self._numerics = None
         mesh = self._zero_ok or self._plain_mesh
         ctx = "dp%d" % (mesh[0].axis_size(mesh[1]) if mesh else 1)
-        with detect.device_lost_guard("CompiledTrainStep.step",
-                                      step=self._steps_done + 1), \
+        # the step is a transfer-guard hot region: with
+        # MXNET_TRANSFER_GUARD=log|raise a host sync in here (an .item()
+        # in the loss) logs its line or raises
+        with _tguard.hot_scope("CompiledTrainStep.step"), \
+                detect.device_lost_guard("CompiledTrainStep.step",
+                                         step=self._steps_done + 1), \
                 _telemetry.memory.oom_guard("CompiledTrainStep.step",
                                             step=self._steps_done + 1):
             fault_point("step.dispatch", "before", ctx=ctx)
@@ -1522,11 +1536,239 @@ class CompiledTrainStep:
         self._steps_done += 1
         if not self._census_done:
             self._register_census()
+        if self._analyze is not None and self._analysis_report is None:
+            self._run_analysis(args, kwargs, batch_size)
         return loss
 
     step = __call__
 
-    def _dispatch(self, args, kwargs, batch_size):
+    # ---------------- program analysis (analysis/) ----------------
+    @property
+    def analysis_report(self):
+        """The ProgramReport of the ``analyze=`` run after the first step
+        (None before it, or without ``analyze``)."""
+        return self._analysis_report or None
+
+    def _run_analysis(self, args, kwargs, batch_size):
+        """The program lint after the first step (``analyze=`` /
+        MXNET_ANALYSIS): 'report' keeps the ProgramReport, 'warn' also
+        logs its findings, 'raise' raises on error-severity findings. As
+        in the JAX package, an analysis that fails for another reason
+        logs a warning and the run goes on."""
+        from ..analysis import program as _aprog
+        from ..analysis.lint import lint_function
+        try:
+            report = _aprog.analyze_step(self, *args,
+                                         batch_size=batch_size, **kwargs)
+        except MXNetError:
+            raise
+        except Exception as e:   # analysis must not kill a healthy run
+            _LOG.warning("compile_step: program analysis failed "
+                         "(%s: %s); skipping", type(e).__name__, e)
+            self._analysis_report = False
+            return
+        try:
+            # the source lint explains WHY a step fell back to eager
+            # (the .item() line) alongside the program findings
+            report.findings.extend(lint_function(self._loss_fn))
+        except Exception:        # pragma: no cover - defensive
+            pass
+        self._analysis_report = report
+        if self._analyze == "warn" and not report.ok:
+            _LOG.warning("compile_step program analysis:\n%s",
+                         report.summary())
+        elif self._analyze == "raise":
+            report.raise_if_findings()
+
+    def analyze(self, *args, batch_size: Optional[int] = None, **kwargs):
+        """The program lint of this batch's step
+        (:class:`~mxnet_tpu_torch.analysis.ProgramReport`): collective
+        census, donation audit, host transfers, dtype drift, the kernel
+        census, the sharding audit and the overlap census, over the
+        schedule record of one run of the step's body
+        (:meth:`lower_entry`). Nothing changes: no update count advances,
+        and the weights, states and generators are put back bit for
+        bit."""
+        from ..analysis.program import analyze_step
+        return analyze_step(self, *args, batch_size=batch_size, **kwargs)
+
+    def fusion_report(self, *args, batch_size: Optional[int] = None,
+                      **kwargs):
+        """The kernel census of this batch's step
+        (:class:`~mxnet_tpu_torch.analysis.fusion.FusionReport`), None in
+        the eager mode. Cached with :meth:`analyze`'s report."""
+        report = self.analyze(*args, batch_size=batch_size, **kwargs)
+        return getattr(report, "fusion", None)
+
+    def sharding_report(self, *args, batch_size: Optional[int] = None,
+                        **kwargs):
+        """The sharding audit of this batch's step
+        (:class:`~mxnet_tpu_torch.analysis.sharding.ShardingAudit`), None
+        in the eager mode. Cached with :meth:`analyze`'s report."""
+        report = self.analyze(*args, batch_size=batch_size, **kwargs)
+        return getattr(report, "sharding", None)
+
+    def lower_entry(self, *args, batch_size: Optional[int] = None,
+                    **kwargs):
+        """Record this batch's step for static analysis: a dict with the
+        JAX package's keys where they apply (``kind``, ``mode``,
+        ``mesh``, ``axis``, ``expected_donated``, ``unit_sizes``,
+        ``n_params``, ``n_state_leaves``, ``blessed_dtypes``,
+        ``report``) and ``schedule`` in place of ``lowered`` /
+        ``jaxpr``: the :class:`~mxnet_tpu_torch.analysis.schedule.
+        ScheduleRecord` of one run of the step's body, forward, backward,
+        collectives and update, run eagerly (on a card the kernels
+        launch; no graph is captured). Also ``table`` (the sharding
+        table), ``gather_sizes`` and ``mesh_size``. ``None`` in the
+        ``eager`` mode, where there is no step program. The weights,
+        optimizer states (a ZeRO plan's shards), update counts, random
+        generators and running statistics are put back bit for bit after
+        the run, and ``n_traces`` does not move. Cached per signature;
+        under a dp mesh every rank must call it (the run has the step's
+        collectives)."""
+        from ..analysis import schedule as _sched
+        from ..analysis.sharding import sharding_table
+        from ..tuning import _snapshot_step
+        if self._mode is None:
+            self._mode = self._decide_mode()
+        if self._mode == "eager":
+            return None
+        leaves: list = []
+        _flatten((args, kwargs), leaves)
+        key = (self._mode, self._split, self._numerics,
+               tuple((tuple(getattr(a, "shape", ())),
+                      str(getattr(a, "dtype", type(a).__name__)))
+                     for a in leaves))
+        info = self._analysis_cache.get(key)
+        if info is not None:
+            return info
+        if self._zero_ok is not None and self._zero is None:
+            self._prepare_zero()
+        tr, opt = self._trainer, self._trainer._optimizer
+        restore = _snapshot_step(self, create_states=self._zero is None)
+        try:
+            watch = self._analysis_watch()
+            with self._analysis_stream():
+                # the mode's own dispatch, the fused step's capture and
+                # replay replaced by one eager run of the same body
+                rec, _ = _sched.record(self._dispatch, args, kwargs,
+                                       batch_size, self._record_call,
+                                       watch=watch)
+        finally:
+            restore()
+        if self._device.type == "cuda":
+            torch.cuda.synchronize(self._device)
+        from .. import amp as _amp
+        blessed = [("bfloat16", "float32"), ("float16", "float32")] \
+            if (opt.multi_precision or _amp.is_enabled()) else []
+        mesh = self._zero_ok or self._plain_mesh
+        mode = "split" if self._split else self._mode
+        rec.meta.update(mode=mode, device=str(self._device))
+        plan = self._zero
+        info = dict(
+            kind=mode, mode=mode, schedule=rec,
+            mesh=mesh[0] if mesh else None,
+            axis=mesh[1] if mesh else None,
+            mesh_size=mesh[0].axis_size(mesh[1]) if mesh else 1,
+            expected_donated=sum(len(v) for v in watch.values()),
+            unit_sizes=sorted({u["padded"] for u in plan.units}
+                              | {u["total"] for u in plan.units})
+            if plan is not None else sorted({int(p.numel())
+                                             for p in tr._params}),
+            gather_sizes=self._zero_gather_sizes(),
+            n_params=len(tr._params),
+            n_state_leaves=len(watch.get("states", ())),
+            blessed_dtypes=blessed,
+            table=sharding_table(self, leaves), report=None)
+        self._analysis_cache[key] = info
+        return info
+
+    @contextlib.contextmanager
+    def _analysis_stream(self):
+        """Where the fused mode's record runs on a card: the capture
+        stream, as a capture's warm-up runs the body (the autograd nodes
+        a run creates remember their stream, and a capture must find its
+        own there); the current stream waits for it after."""
+        if self._mode != "fused" or self._device.type != "cuda":
+            yield
+            return
+        from ..captured import _capture_stream
+        cur = torch.cuda.current_stream(self._device)
+        stream = _capture_stream(self._device)
+        stream.wait_stream(cur)
+        try:
+            with torch.cuda.stream(stream):
+                yield
+        finally:
+            cur.wait_stream(stream)
+
+    def _zero_gather_sizes(self) -> List[int]:
+        """The ZeRO step's all-gather payloads: one a run of buckets of
+        one dtype (``_BucketReducer.groups``), N times its row."""
+        plan = self._zero
+        if plan is None:
+            return []
+        n, sizes, key = plan.n_shards, [], None
+        for idx in self._buckets:
+            u0 = plan.units[idx[0]]
+            k = (u0["upd_dtype"], u0["dtypes"][0])
+            if k != key:
+                key = k
+                sizes.append(0)
+            sizes[-1] += sum(plan.units[j]["padded"] // n for j in idx)
+        return [n * s for s in sizes]
+
+    def _analysis_watch(self) -> dict:
+        """The tensors the step must update in place, by role."""
+        tr = self._trainer
+        params = list(tr._params)
+        watch = {"params": params}
+        if self._mode == "zero":
+            plan = self._zero
+            watch["states"] = [s for st in plan.states for s in (st or ())]
+            watch["masters"] = [m for m in plan.masters if m is not None]
+            return watch
+        states = [tr._updater._state_for(i, p)
+                  for i, p in enumerate(params)]
+        watch["states"] = [s for st in states
+                           for s in Optimizer.state_tensors(st)]
+        return watch
+
+    def _record_call(self, args, kwargs, batch_size, mean=False):
+        """:meth:`_fused_call` without a capture, for a schedule record:
+        one eager run of the body :meth:`_fused_program` captures (the
+        split program's gradient body, then the store's sum and the
+        update body, as :meth:`_fused_call` runs them). Its
+        hyperparameters are staged as a step's; the caller puts the
+        state back."""
+        tr = self._trainer
+        opt, params = tr._optimizer, list(tr._params)
+        treedef, spec, arrays, batch_size = self._step_leaves(
+            args, kwargs, batch_size)
+        states = [tr._updater._state_for(i, p)
+                  for i, p in enumerate(params)]
+        hp = self._hp if self._hp is not None else \
+            DeviceHParams(len(params), self._device)
+        opt.stage_device_step(hp, list(range(len(params))))
+        grads = [torch.empty_like(p) for p in params] \
+            if self._split else None
+        body = self._make_body(treedef, spec, params, states, hp, grads,
+                               [], [False])
+        loss = body(*[self._as_tensor(a) for a in arrays])
+        if isinstance(loss, tuple):
+            loss = loss[0]
+        if grads is not None:
+            self._split_reduce(grads, mean)
+            _update_body(opt.whole_step_fn(params, states, hp),
+                         [False])(*grads)
+        for p in params:
+            p.fresh_grad = False
+        return loss
+
+    def _dispatch(self, args, kwargs, batch_size, fused=None):
+        """One step in this step's mode (``fused``: what runs the fused
+        body, :meth:`_fused_call` unless given)."""
+        fused = fused or self._fused_call
         leaves = list(args) + list(kwargs.values())
         if batch_size is None:
             batch_size = _infer_batch_size(leaves)
@@ -1534,7 +1776,7 @@ class CompiledTrainStep:
         if self._mode == "eager":
             return self._eager_call(args, kwargs, batch_size)
         if self._mode == "fused" and not (self._split and placed):
-            return self._fused_call(args, kwargs, batch_size)
+            return fused(args, kwargs, batch_size)
         mesh, axis = placed
         mean = not batch_is_sharded(mesh, axis, leaves)
         args = tuple(place_on_mesh(mesh, axis, a) for a in args)
@@ -1547,7 +1789,7 @@ class CompiledTrainStep:
             elif self._mode == "mesh":
                 loss = self._mesh_call(args, kwargs, batch_size, mesh, mean)
             else:
-                loss = self._fused_call(args, kwargs, batch_size, mean)
+                loss = fused(args, kwargs, batch_size, mean)
         if not mean:
             loss = _global_loss(loss, mesh, axis)
         return loss
@@ -1566,18 +1808,20 @@ class CompiledTrainStep:
 
     # ---------------- the fused (captured) step ----------------
     def aot_compile(self, *args, batch_size: Optional[int] = None,
-                    **kwargs):
+                    debug_graph: bool = False, **kwargs):
         """Capture this batch's signature ahead of time, everything a
         first call does up to its replay, so a timed loop captures
         nothing. No update count advances and no weight, state or
-        generator changes. Returns None: the JAX package returns XLA's
-        flop count, which a CUDA graph does not give."""
+        generator changes. ``debug_graph`` keeps the captured graph's
+        nodes (``CapturedProgram.graph_nodes``). Returns None: the JAX
+        package returns XLA's flop count, which a CUDA graph does not
+        give."""
         if self._mode is None:
             self._mode = self._decide_mode()
         if self._mode == "fused":
             n = len(self._drawers)
             _, key = self._fused_program(args, kwargs, batch_size,
-                                         advance=False)
+                                         advance=False, debug=debug_graph)
             if self._split:
                 self._update_program()
             self._settle_key(n, *key)
@@ -1620,13 +1864,7 @@ class CompiledTrainStep:
             raise
         self._settle_key(n, *key)
         if upd is not None:
-            for p, g in zip(tr._params, self._grads):
-                p.grad, p.fresh_grad = g, True
-            try:
-                tr._allreduce_grads(mean=mean, all_fresh=True)
-            finally:
-                for p in tr._params:
-                    p.grad = None
+            self._split_reduce(self._grads, mean)
             upd.run()
         for p in tr._params:
             p.fresh_grad = False
@@ -1685,13 +1923,14 @@ class CompiledTrainStep:
         return sig
 
     def _fused_program(self, args, kwargs, batch_size, advance: bool,
-                       restore: Optional[list] = None):
+                       restore: Optional[list] = None, debug: bool = False):
         """The program of this call's signature (captured when new or
         moved; the split program's gradient graph), the batch copied into
         its static inputs and, when ``advance``, the update counts
         advanced and the step's hyperparameters staged; and
         ``(signature, treedef, static spec, shapes)``. ``restore`` is
-        filled with the generator states a capture's warm-up put back."""
+        filled with the generator states a capture's warm-up put back;
+        ``debug`` keeps a new capture's graph nodes."""
         tr, dev = self._trainer, self._device
         opt, n = tr._optimizer, len(tr._params)
         if self._programs is None:
@@ -1702,20 +1941,12 @@ class CompiledTrainStep:
             self._programs = Programs(self._watch, dev)
             if self._split:
                 self._grads = [torch.empty_like(p) for p in tr._params]
-        leaves: list = []
-        treedef = _flatten((args, kwargs), leaves)
-        leaves = [torch.from_numpy(np.ascontiguousarray(v))
-                  if isinstance(v, np.ndarray) else v for v in leaves]
-        arrays = [v for v in leaves if isinstance(v, torch.Tensor)]
-        if batch_size is None:
-            batch_size = _infer_batch_size(arrays)
-        opt.rescale_grad = tr._scale / batch_size
+        treedef, spec, arrays, batch_size = self._step_leaves(
+            args, kwargs, batch_size)
         states = [tr._updater._state_for(i, p)
                   for i, p in enumerate(tr._params)]
         if advance:
             opt.stage_device_step(self._hp, list(range(n)))
-        spec = tuple(_TRACED if isinstance(v, torch.Tensor) else v
-                     for v in leaves)
         shapes = tuple((tuple(a.shape), str(a.dtype).replace("torch.", ""))
                        for a in arrays)
         sig = self._signature(treedef, spec, shapes)
@@ -1726,20 +1957,14 @@ class CompiledTrainStep:
         def build():
             inputs = [torch.empty(a.shape, dtype=a.dtype,
                                   device=dev).copy_(a) for a in arrays]
-            params = list(tr._params)
-            update = functools.partial(_keep_grads, self._grads) \
-                if self._split else \
-                opt.whole_step_fn(params, states, self._hp)
-            if self._numerics and not self._split:
-                update = _NumericsUpdate(update, params, self._hp.rescale,
-                                         self._numerics == "per_layer")
-            return (_step_body(self._loss_fn, treedef, spec, params,
-                               update, self._drawers, warming,
-                               self._train_mode), inputs)
+            return (self._make_body(treedef, spec, list(tr._params), states,
+                                    self._hp, self._grads, self._drawers,
+                                    warming), inputs)
 
         prog = self._programs.get(
             sig, build, what=f"train step {shapes}",
-            scope=functools.partial(_warmup_scope, warming, dev, restore))
+            scope=functools.partial(_warmup_scope, warming, dev, restore),
+            debug=debug)
         if self._programs.n_traces != traces:
             self._m_retraces.inc()
             self._moved = known
@@ -1755,6 +1980,52 @@ class CompiledTrainStep:
                 a = a.pin_memory()
             dst.copy_(a, non_blocking=True)
         return prog, (sig, treedef, spec, shapes)
+
+    def _step_leaves(self, args, kwargs, batch_size):
+        """``(treedef, static spec, arrays, batch size)`` of a call's
+        arguments (numpy arrays as tensors, the batch size inferred when
+        not given); sets the optimizer's ``rescale_grad`` for it."""
+        tr = self._trainer
+        leaves: list = []
+        treedef = _flatten((args, kwargs), leaves)
+        leaves = [torch.from_numpy(np.ascontiguousarray(v))
+                  if isinstance(v, np.ndarray) else v for v in leaves]
+        arrays = [v for v in leaves if isinstance(v, torch.Tensor)]
+        if batch_size is None:
+            batch_size = _infer_batch_size(arrays)
+        tr._optimizer.rescale_grad = tr._scale / batch_size
+        spec = tuple(_TRACED if isinstance(v, torch.Tensor) else v
+                     for v in leaves)
+        return treedef, spec, arrays, batch_size
+
+    def _make_body(self, treedef, spec, params, states, hp, grads,
+                   drawers: list, warming: list):
+        """The fused step's body (:func:`_step_body`): its update the
+        optimizer's whole step over ``hp`` (with the numerics aux when
+        asked), or, in the split program, the copy of each gradient into
+        ``grads``."""
+        if self._split:
+            update = functools.partial(_keep_grads, grads)
+        else:
+            update = self._trainer._optimizer.whole_step_fn(params, states,
+                                                            hp)
+            if self._numerics:
+                update = _NumericsUpdate(update, params, hp.rescale,
+                                         self._numerics == "per_layer")
+        return _step_body(self._loss_fn, treedef, spec, params, update,
+                          drawers, warming, self._train_mode)
+
+    def _split_reduce(self, grads, mean: bool) -> None:
+        """The split program's sum between its graphs: ``grads`` (the
+        gradient buffers) reduced in place through the store."""
+        tr = self._trainer
+        for p, g in zip(tr._params, grads):
+            p.grad, p.fresh_grad = g, True
+        try:
+            tr._allreduce_grads(mean=mean, all_fresh=True)
+        finally:
+            for p in tr._params:
+                p.grad = None
 
     def _update_program(self):
         """The split program's update graph (one for every signature,
@@ -2076,6 +2347,12 @@ class TrainLoop:
         loss.cpu()         # waits for the step's device work
 
     def step(self, *batch, batch_size: Optional[int] = None):
+        with _tguard.hot_scope("TrainLoop.step"):
+            return self._guarded_step(batch, batch_size)
+
+    __call__ = step
+
+    def _guarded_step(self, batch, batch_size):
         from ..engine import allow_sync
         try:
             t = _telemetry
@@ -2107,8 +2384,6 @@ class TrainLoop:
             if fault is not None:
                 raise fault from intr
             raise
-
-    __call__ = step
 
     def _interrupt_cleanup(self):
         """An interrupt landed in the loop: drain the window (the first

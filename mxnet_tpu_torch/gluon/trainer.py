@@ -189,20 +189,21 @@ class Trainer:
         outcome is ``step.autotune_result``. The search runs real steps on
         a card and puts the whole train state back after them. A tuning
         that fails logs a warning and the step trains on the defaults.
-        ``analyze`` needs the JAX package's ``analysis/``, which a later
-        slice ports (``ROADMAP.md`` queue 1): anything but None raises
-        ``MXNetError``."""
-        if analyze is not None:
-            raise MXNetError(
-                f"compile_step(analyze={analyze!r}): mxnet_tpu_torch does "
-                "not port analysis/ yet (ROADMAP.md queue 1: the "
-                "analysis/ slice)")
+        ``analyze='report'|'warn'|'raise'`` (``MXNET_ANALYSIS`` by
+        default; ``analysis/``): after the first step, record one run of
+        the step's body and lint it (collectives, in-place updates, host
+        transfers, dtype drift, the kernel census, sharding and overlap,
+        and the source lint of ``loss_fn``); the report is
+        ``step.analysis_report``, 'warn' logs its findings and 'raise'
+        raises ``MXNetError`` on an error-severity one. The run changes
+        nothing (the state is put back bit for bit)."""
         from .fused_step import CompiledTrainStep
         return CompiledTrainStep(self, loss_fn, donate=donate,
                                  train_mode=train_mode,
                                  zero_shard=zero_shard,
                                  zero_axis=zero_axis, mesh=mesh,
-                                 numerics=numerics, autotune=autotune)
+                                 numerics=numerics, autotune=autotune,
+                                 analyze=analyze)
 
     # ---------------- compiled-step registry ----------------
     def _register_compiled(self, step):

@@ -33,7 +33,7 @@ from torch.autograd.function import once_differentiable
 
 from ..base import MXNetError
 from .kernels import (DTYPE_CODES, causal_pairs, check_cuda_operands,
-                      count_plain, launch, library)
+                      count_plain, launch, library, plain_version)
 
 __all__ = ["flash_attention", "flash_attention_fwd",
            "flash_attention_fwd_plain", "flash_attention_bwd",
@@ -119,6 +119,7 @@ def attention_blockwise(q, k, v, causal: bool, sm_scale: float,
     return out.to(q.dtype)
 
 
+@plain_version("flash_fwd")
 def flash_attention_fwd_plain(q, k, v, causal: bool = False,
                               sm_scale: Optional[float] = None
                               ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -189,6 +190,8 @@ def _flash_fwd_kernel(q, k, v, causal: bool, sm_scale: float):
 # backward
 # ---------------------------------------------------------------------------
 
+@plain_version(lambda q, k, *a, **kw: "flash_bwd_fused"
+               if uses_fused_bwd(q.shape[2], k.shape[2]) else "flash_bwd")
 def flash_attention_bwd_plain(q, k, v, out, lse, dout, causal: bool = False,
                               sm_scale: Optional[float] = None):
     """Plain version of the flash backward kernels → (dq, dk, dv): P

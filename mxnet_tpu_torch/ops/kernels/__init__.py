@@ -58,6 +58,7 @@ launch.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -79,7 +80,8 @@ __all__ = ["KERNELS", "KernelInfo", "launch_counts", "count_plain",
            "library", "build_library", "launch", "check_cuda_operands",
            "DTYPE_CODES", "card_limits", "launch_empty",
            "vmem_tile_budget", "plan_limits", "sync_smem_budget",
-           "SMEM_TILE_BUDGET_BYTES", "SMEM_BUDGET_GRID"]
+           "SMEM_TILE_BUDGET_BYTES", "SMEM_BUDGET_GRID", "HOOKS",
+           "plain_version"]
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
@@ -303,6 +305,39 @@ def _dispatch_counter():
 def count_plain() -> None:
     """A wrapper ran its kernel's plain version (a CPU tensor)."""
     _dispatch_counter().inc(label="plain")
+
+
+#: observers of the kernel layer, None unless one is installed (a
+#: schedule record installs both while it runs): ``launch(name, dtype,
+#: flops, args, io)`` after each launch (:func:`launch`), and
+#: ``fold(name, args, kwargs, meta)``, a context manager around a call of
+#: a plain version (:func:`plain_version`) that yields a list to append
+#: the call's result to, or None
+HOOKS: Dict[str, object] = {"launch": None, "fold": None}
+
+
+def plain_version(kernel, when=None, meta=None):
+    """Decorator of a kernel's plain version: while a ``fold`` hook is
+    installed (:data:`HOOKS`), the call runs inside it, named ``kernel``
+    (a name, or a callable of the call's arguments: the kernel the card
+    would launch); ``when(*args, **kwargs)`` False leaves the call alone,
+    and ``meta(*args, **kwargs)`` is handed to the hook."""
+    def deco(fn):
+        @functools.wraps(fn)
+        def wrapper(*args, **kwargs):
+            fold = HOOKS["fold"]
+            if fold is None or (when is not None and
+                                not when(*args, **kwargs)):
+                return fn(*args, **kwargs)
+            name = kernel(*args, **kwargs) if callable(kernel) else kernel
+            extra = meta(*args, **kwargs) if meta is not None else None
+            with fold(name, args, kwargs, extra) as box:
+                out = fn(*args, **kwargs)
+                if box is not None:
+                    box.append(out)
+            return out
+        return wrapper
+    return deco
 
 
 #: FLOPs the launches report while :func:`count_flops` is open (a
@@ -548,14 +583,16 @@ _C_PLANNED = ("rnn_scan_fwd",)
 
 
 def launch(name: str, device: torch.device, *args,
-           dtype: torch.dtype, flops=None) -> None:
+           dtype: torch.dtype, flops=None, io=None) -> None:
     """Call kernel ``name``'s C entry with ``args`` followed by PyTorch's
     current stream on ``device``, and count the launch, also under the
     ``dtype`` of its inputs (:func:`launch_counts_by_dtype`; under
     :func:`record_launches`, into the capture's record). ``flops`` (a
     number, or a callable evaluated only inside :func:`count_flops`) is
-    the launch's work. Raises when the entry reports a CUDA error (a
-    refused launch)."""
+    the launch's work; ``io`` = ``(reads, writes in place)`` tensors
+    where the arguments hold no tensor's pointer (``opt_update``'s
+    table), for the ``launch`` hook (:data:`HOOKS`). Raises when the entry reports a CUDA error (a refused
+    launch)."""
     fn = getattr(library(), KERNELS[name].entry)
     stream = torch.cuda.current_stream(device).cuda_stream
     with torch.cuda.device(device):
@@ -566,6 +603,9 @@ def launch(name: str, device: torch.device, *args,
         what = library().mxt_error_string(err).decode()
         raise MXNetError(f"{name}: CUDA error {err} ({what}) at launch")
     _count(name, dtype, stream)
+    hook = HOOKS["launch"]
+    if hook is not None:
+        hook(name, dtype, flops, args, io)
     if flops is not None and _FLOPS["open"]:
         n = float(flops() if callable(flops) else flops)
         with _COUNT_MU:

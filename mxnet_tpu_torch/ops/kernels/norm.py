@@ -25,7 +25,7 @@ from torch.autograd.function import once_differentiable
 
 from ...base import MXNetError
 from . import (DTYPE_CODES, card_limits, check_cuda_operands, count_plain,
-               launch, plan_limits)
+               launch, plain_version, plan_limits)
 
 __all__ = ["layer_norm", "layer_norm_plain", "ln_fwd_plan",
            "layer_norm_bwd", "layer_norm_bwd_plain", "ln_bwd_plan",
@@ -80,6 +80,7 @@ def _ln_stats(xf):
     return mean, (d * d).mean(dim=-1, keepdim=True)
 
 
+@plain_version("layernorm_fwd")
 def layer_norm_plain(x, gamma, beta, eps: float = 1e-5):
     """LayerNorm over the trailing axis, statistics in float32."""
     dt = stat_dtype(x)
@@ -89,6 +90,7 @@ def layer_norm_plain(x, gamma, beta, eps: float = 1e-5):
     return (out * gamma.to(dt) + beta.to(dt)).to(x.dtype)
 
 
+@plain_version("layernorm_bwd")
 def layer_norm_bwd_plain(x, gamma, dy, eps: float = 1e-5):
     """Plain version of the LayerNorm backward kernel → (dx, dgamma,
     dbeta): statistics recomputed from x as in the forward, dy taken in
@@ -330,6 +332,7 @@ def layer_norm(x, gamma, beta, eps: float = 1e-5):
 # bias-GELU
 # ---------------------------------------------------------------------------
 
+@plain_version("bias_gelu_fwd")
 def bias_gelu_plain(x, b):
     """``gelu(x + b)``, exact erf form: z = x + b in x's dtype, then
     0.5 * z * erfc(-z / sqrt(2)) in float32, written in x's dtype."""
@@ -337,6 +340,7 @@ def bias_gelu_plain(x, b):
     return (0.5 * z * torch.erfc(-z * _SQRT_HALF)).to(x.dtype)
 
 
+@plain_version("bias_gelu_bwd")
 def bias_gelu_bwd_plain(x, b, dy):
     """Plain version of the JAX package's bias-GELU backward kernel →
     (dx, db): z = x + b, dx = dy * (Phi(z) + z * phi(z)) in float32

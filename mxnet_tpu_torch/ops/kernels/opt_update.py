@@ -43,7 +43,8 @@ import numpy as np
 import torch
 
 from ...base import MXNetError
-from . import DTYPE_CODES, check_cuda_operands, count_plain, launch
+from . import (DTYPE_CODES, check_cuda_operands, count_plain, launch,
+               plain_version)
 
 __all__ = ["unit_update", "unit_update_plain", "multi_update",
            "multi_update_plain", "plan_launches", "opt_kernel_kind",
@@ -266,8 +267,9 @@ def _entry(code, w, g, st, low, lr, wd, t, dev_form, keep) -> tuple:
 
 
 def _launch_group(code, cfg, records, dtype, dev, rescale, clip,
-                  dev_form) -> None:
-    """The launches of one (device, dtype) group's records."""
+                  dev_form, ios) -> None:
+    """The launches of one (device, dtype) group's records (``ios``: each
+    record's ``(reads, writes)`` tensors)."""
     if dev_form:
         rsp = _dev_scalar("rescale", rescale, torch.float32, dev)
         clp = _dev_scalar("clip", clip, torch.float32, dev)
@@ -285,9 +287,15 @@ def _launch_group(code, cfg, records, dtype, dev, rescale, clip,
                rs, cl, float(cfg.get("momentum", 0.0)), float(b1), float(b2),
                float(cfg.get("epsilon", 0.0)), float(1 - b1), float(1 - b2),
                DTYPE_CODES[dtype], dtype=dtype,
-               flops=20.0 * float(part["n"].sum()))
+               flops=20.0 * float(part["n"].sum()),
+               io=([t for i in idx for t in ios[i][0]],
+                   [t for i in idx for t in ios[i][1]]))
 
 
+@plain_version("opt_update", when=lambda kind, cfg, ws, *a, **kw:
+               bool(ws) and ws[0].device.type == "cpu",
+               meta=lambda kind, cfg, ws, gs, *a, **kw:
+               {"elements": sum(int(g.numel()) for g in gs)})
 def multi_update(kind: str, cfg: dict, ws, gs, lrs, wds, ts, rescale, clip,
                  states, lows=None):
     """A list of flat units through the update, in place: each ``ws[i]``,
@@ -315,6 +323,7 @@ def multi_update(kind: str, cfg: dict, ws, gs, lrs, wds, ts, rescale, clip,
         raise MXNetError("opt_update: lr, wd, t, the rescale and the clip "
                          "are all device scalars or none")
     groups: dict = {}
+    ios: dict = {}
     keep: list = []
     for i, w in enumerate(ws):
         if w.device.type == "cpu":
@@ -330,9 +339,13 @@ def multi_update(kind: str, cfg: dict, ws, gs, lrs, wds, ts, rescale, clip,
         rec = _entry(code, w, gs[i], states[i], lows[i], lrs[i], wds[i],
                      ts[i], dev_form, keep)
         groups.setdefault((w.device, w.dtype), []).append(rec)
-    for (dev, dtype), records in groups.items():
-        _launch_group(code, cfg, records, dtype, dev, rescale, clip,
-                      dev_form)
+        # what the entry reads and writes in place (a schedule record's)
+        ios.setdefault((w.device, w.dtype), []).append(
+            ([gs[i]], [w, *states[i]] + ([lows[i]] if lows[i] is not None
+                                         else [])))
+    for key, records in groups.items():
+        _launch_group(code, cfg, records, key[1], key[0], rescale, clip,
+                      dev_form, ios[key])
     return tuple(ws), states
 
 

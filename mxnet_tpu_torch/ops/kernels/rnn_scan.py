@@ -42,7 +42,7 @@ from torch.autograd.function import once_differentiable
 
 from ...base import MXNetError
 from . import (DTYPE_CODES, check_cuda_operands, count_plain, launch,
-               library, plan_limits, sync_smem_budget)
+               library, plain_version, plan_limits, sync_smem_budget)
 
 __all__ = ["GATES", "MODE_CODES", "scan_supported", "rnn_scan",
            "rnn_scan_plain", "rnn_scan_bwd_plain", "rnn_scan_fwd",
@@ -96,6 +96,7 @@ def _fwd_step(mode, x, hw, b, h_prev, c_prev, dtype):
     return (torch.tanh(pre) if mode == "rnn_tanh" else torch.relu(pre)), None
 
 
+@plain_version("rnn_scan_fwd")
 def rnn_scan_plain(xw, h0, c0, w_hh, b_hh, mode: str):
     """Plain forward (the Python loop of ``ops/rnn.py``'s reference) →
     (ys, cs|None), each (T, N, H) in xw's dtype; cs is the cell-state
@@ -163,6 +164,7 @@ def _bwd_step(mode, x, hw, b, h_prev, c_prev, c_new, y, dy, dh_carry,
     return dpre, dpre, None, None
 
 
+@plain_version("rnn_scan_bwd")
 def rnn_scan_bwd_plain(xw, h0, c0, w_hh, b_hh, ys, cs, dys, dc_t,
                        mode: str):
     """Plain backward: an explicit reverse-time loop that recomputes the
@@ -407,6 +409,7 @@ def decode_supported(xw, h, c, mode: str) -> Optional[str]:
     return None
 
 
+@plain_version("rnn_decode")
 def rnn_decode_step_plain(xw, h, c, w_hh, b_hh, mode: str):
     """Plain version of one decode step → (h_new, c_new|None) in xw's
     dtype: the scan's ``_fwd_step`` on one position, so a token decoded

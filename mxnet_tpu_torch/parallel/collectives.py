@@ -19,6 +19,12 @@ straight into its columns of such a buffer (one copy a segment, zeros
 only in the pad tail): the ZeRO step packs each unit's gradient so as
 it arrives, and :func:`reduce_scatter_rows` / :func:`all_gather_rows`
 take ``async_op`` to return the work handle with the output.
+
+Every ``torch.distributed`` call of the package's collectives is issued
+here, through :func:`_issue`, which hands it to the observer in
+:data:`HOOK` when one is installed (a schedule record installs one while
+it runs) with its logical kind (``reduce_scatter_rows`` is a
+reduce-scatter), mesh axis, element count and group size.
 """
 from __future__ import annotations
 
@@ -41,6 +47,30 @@ _RS = getattr(dist, "reduce_scatter_single", None) or \
 _AG = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
 
 
+def _axis_of(mesh: DeviceMesh, n: int) -> Optional[str]:
+    """The mesh axis a group of ``n`` ranks spans (its only axis of that
+    size), or None."""
+    hits = [a for a in mesh.axis_names if mesh.axis_size(a) == n]
+    return hits[0] if len(hits) == 1 else None
+
+
+#: the observer of the collectives, None unless one is installed:
+#: ``HOOK[0](kind, axis, n, inputs, outputs, call, async_op, elements)``
+#: runs ``call()`` and returns its result (an ``async_op`` call's work,
+#: or a stand-in with its ``wait()``)
+HOOK: list = [None]
+
+
+def _issue(kind, axis, n, inputs, outputs, call, async_op=False,
+           elements=None):
+    """``call()`` (one ``torch.distributed`` call), through the observer
+    when one is installed (:data:`HOOK`)."""
+    hook = HOOK[0]
+    if hook is None:
+        return call()
+    return hook(kind, axis, n, inputs, outputs, call, async_op, elements)
+
+
 def _mesh_n(mesh, axis):
     mesh = mesh or current_mesh()
     if mesh is None:
@@ -58,7 +88,8 @@ def allreduce(x: torch.Tensor, axis: str = "dp",
         raise MXNetError(f"unknown reduce op {op}")
     out = x.clone()
     if n > 1:
-        dist.all_reduce(out, ops[op], group=mesh.group)
+        _issue("all_reduce", axis, n, [x], [out],
+               lambda: dist.all_reduce(out, ops[op], group=mesh.group))
     if op == "mean":
         out.div_(n)
     return out
@@ -72,7 +103,8 @@ def allgather(x: torch.Tensor, axis: str = "dp",
     flat = x.reshape(-1)
     out = torch.empty(n * flat.numel(), dtype=x.dtype, device=x.device)
     if n > 1:
-        _AG(out, flat, group=mesh.group)
+        _issue("all_gather", axis, n, [flat], [out],
+               lambda: _AG(out, flat, group=mesh.group))
     else:
         out.copy_(flat)
     out = out.view((n,) + tuple(x.shape))
@@ -97,7 +129,8 @@ def reduce_scatter(x: torch.Tensor, axis: str = "dp",
     out = torch.empty((per,) + tuple(x.shape[1:]), dtype=x.dtype,
                       device=x.device)
     if n > 1:
-        _RS(out, data, group=mesh.group)
+        _issue("reduce_scatter", axis, n, [data], [out],
+               lambda: _RS(out, data, group=mesh.group))
     else:
         out.copy_(data)
     r = mesh.rank
@@ -110,7 +143,8 @@ def broadcast_axis(x: torch.Tensor, axis: str = "dp",
     mesh, n = _mesh_n(mesh, axis)
     out = x.clone()
     if n > 1:
-        dist.broadcast(out, src, group=mesh.group)
+        _issue("broadcast", axis, n, [x], [out],
+               lambda: dist.broadcast(out, src, group=mesh.group))
     return out
 
 
@@ -222,8 +256,11 @@ def reduce_scatter_rows(buf: torch.Tensor, mesh: DeviceMesh,
     if out is None:
         out = torch.empty(width, dtype=buf.dtype, device=buf.device)
     rows = torch.empty_like(buf)
-    work = dist.all_to_all_single(rows, buf, group=mesh.group,
-                                  async_op=async_op)
+    work = _issue("reduce_scatter", _axis_of(mesh, n), n, [buf], [rows],
+                  lambda: dist.all_to_all_single(rows, buf,
+                                                 group=mesh.group,
+                                                 async_op=async_op),
+                  async_op=async_op, elements=width)
     if async_op:
         return out, _RowSum(work, rows, out)
     _sum_rows(rows, out)
@@ -236,7 +273,9 @@ def all_gather_rows(row: torch.Tensor, mesh: DeviceMesh, n: int,
     ``async_op`` it returns ``(out, work)``; ``out`` holds the rows once
     ``work.wait()`` returned."""
     out = torch.empty(n, row.numel(), dtype=row.dtype, device=row.device)
-    work = _AG(out.view(-1), row, group=mesh.group, async_op=async_op)
+    work = _issue("all_gather", _axis_of(mesh, n), n, [row], [out],
+                  lambda: _AG(out.view(-1), row, group=mesh.group,
+                              async_op=async_op), async_op=async_op)
     return (out, work) if async_op else out
 
 

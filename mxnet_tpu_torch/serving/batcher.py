@@ -79,6 +79,7 @@ from typing import Callable, List, Optional
 import torch
 
 from .. import telemetry as _telemetry
+from ..analysis.threads import mx_condition, mx_lock
 from ..base import MXNetError
 from ..testing.faults import fault_point
 from .predictor import map_tensors
@@ -189,7 +190,7 @@ class ServingFuture:
                  "_supervised", "replica", "version")
 
     def __init__(self):
-        self._cv = threading.Condition()
+        self._cv = mx_condition("serving.future")
         self._build = None
         self._out = None
         self._err = None
@@ -361,8 +362,8 @@ class DynamicBatcher:
         self.on_batch_retired = None
         self.drain_check = None
         self.fault_ctx: Optional[str] = None
-        self._stats_mu = threading.Lock()
-        self._admit_mu = threading.Lock()
+        self._stats_mu = mx_lock("serving.batcher.stats")
+        self._admit_mu = mx_lock("serving.batcher.admit")
         self.stats = {"requests": 0, "batches": 0, "rows": 0,
                       "padded_rows": 0, "flush_full": 0,
                       "flush_timeout": 0, "flush_idle": 0,

@@ -75,8 +75,8 @@ The engine's knobs are the five ``decode.*`` tunables
 (``tuning/space.py``): :func:`slot_ladder`, :func:`kv_page_size`,
 :func:`prefill_chunk`, :func:`spec_k` and :func:`prefix_share` resolve
 autotune override > their env var > the default, when an engine is
-built. Not ported yet: ``lower_entry`` / ``analyze`` (for
-``analysis/``).
+built. :meth:`DecodeEngine.lower_entry` / :meth:`DecodeEngine.analyze`
+record a bucket's decode program for ``analysis/``.
 """
 from __future__ import annotations
 
@@ -785,6 +785,7 @@ class DecodeEngine:
                     self._fields(kind, self.slots))
                 for kind in ("decode", "prefill", "verify"))
         self._staged = torch.zeros(n, dtype=torch.long, device=self.device)
+        self._analysis: Dict[int, dict] = {}
         self._table = np.zeros((self.slots, self.max_pages_per_slot),
                                np.int64)
         self._device_len = np.zeros(self.slots, np.int64)
@@ -893,6 +894,68 @@ class DecodeEngine:
         covered every (kind, bucket) traffic needs and the parameters
         stayed where they were."""
         return self._programs.n_traces
+
+    def memory_report(self):
+        """The field-wise max of the captured programs' allocator
+        footprints, None before a capture or on the CPU."""
+        reports = [p.memory for p in self._programs.programs()
+                   if p.memory is not None]
+        return _telemetry.memory.MemoryReport.merge(reports) \
+            if reports else None
+
+    def lower_entry(self, *args, batch_size: Optional[int] = None,
+                    **kwargs):
+        """Record one slot bucket's DECODE program for static analysis
+        (the dict of ``CompiledPredictor.lower_entry``, mode ``predict``):
+        one eager run of the program's body on inactive dummy inputs, as
+        a capture's warm-up runs it, over copies of the slot rows and the
+        token buffer (the engine may hold live requests). No graph is
+        captured, no capture counted. Cached per bucket."""
+        from ..analysis import schedule as _sched
+        b = self._bucket_for(int(batch_size) if batch_size
+                             else self.slots)
+        info = self._analysis.get(b)
+        if info is not None:
+            return info
+        fields = self._fields("decode", b)
+        staged = torch.zeros_like(self._staged)
+        views, o = [], 0
+        for name, shape in fields:
+            n = int(np.prod(shape))
+            views.append(staged[o:o + n].view(shape))
+            if name == "lengths":
+                views[-1].fill_(1)
+            o += n
+        body = _program_body(
+            self.model, self.model.params, "decode",
+            [name for name, _ in fields],
+            (self._h[:b].clone(), self._c[:b].clone(), self.kv.k_pages,
+             self.kv.v_pages), self._tokens_dev[:b].clone(),
+            self.kv.page_size)
+        rec, _ = _sched.record(body, *views)
+        rec.meta.update(mode="predict", device=str(self.device))
+        info = dict(kind="predict", mode="predict", schedule=rec,
+                    mesh=None, axis=None, expected_donated=None,
+                    unit_sizes=[], n_params=len(self.model.params),
+                    n_state_leaves=0, blessed_dtypes=[], table=None,
+                    report=None)
+        self._analysis[b] = info
+        return info
+
+    def analyze(self, batch_size: Optional[int] = None):
+        """The program lint of the decode step of a bucket
+        (:class:`~mxnet_tpu_torch.analysis.ProgramReport`, ``predict``
+        expectations: no collectives, no host transfers, no unblessed
+        dtype drift, the kernel census)."""
+        from ..analysis.program import analyze_step
+        return analyze_step(self, batch_size=batch_size)
+
+    def _bucket_for(self, rows: int) -> int:
+        """The smallest ladder bucket of at least ``rows`` slots."""
+        for b in self._ladder:
+            if rows <= b:
+                return b
+        return self._ladder[-1]
 
     def warmup(self, buckets: Optional[Sequence[int]] = None) -> dict:
         """Capture the decode and prefill programs (and the verify one

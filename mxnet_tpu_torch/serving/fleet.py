@@ -74,6 +74,7 @@ from typing import Callable, Dict, List, Optional, Sequence
 import torch
 
 from .. import telemetry as _telemetry
+from ..analysis.threads import mx_lock, mx_rlock
 from ..base import MXNetError
 from ..testing.faults import fault_point
 from .batcher import DynamicBatcher
@@ -301,8 +302,8 @@ class FleetController:
         self._dist = _dist
         self._backoff_base = float(backoff_base)
         self._backoff_max = float(backoff_max)
-        self._lock = threading.RLock()
-        self._scale_lock = threading.Lock()
+        self._lock = mx_rlock("serving.fleet")
+        self._scale_lock = mx_lock("serving.fleet.scale")
         self._replicas: List[_Replica] = []
         self._restarts: List[threading.Thread] = []
         self._next_idx = 0

@@ -34,6 +34,7 @@ import numpy as np
 import torch
 
 from .. import telemetry as _telemetry
+from ..analysis.program import analysis_mode
 from ..base import MXNetError
 from ..context import resolve_device
 from ..captured import Programs, map_tensors
@@ -100,7 +101,7 @@ class CompiledPredictor:
 
     def __init__(self, net: torch.nn.Module,
                  bucket_sizes: Optional[Sequence[int]] = None,
-                 device=None):
+                 device=None, analyze: Optional[str] = None):
         sizes = tuple(sorted({int(b) for b in
                               (bucket_sizes or DEFAULT_BUCKETS)}))
         if not sizes or sizes[0] < 1:
@@ -120,6 +121,11 @@ class CompiledPredictor:
         self.capture_s: Dict[int, float] = {}
         self._flops: Dict = {}
         self._autotune_outcome = None
+        # the program lint after the first request (analysis/): None |
+        # 'report' | 'warn' | 'raise', MXNET_ANALYSIS by default
+        self._analyze = analysis_mode(analyze)
+        self._analysis_report = None
+        self._analysis: Dict = {}
 
     @property
     def net(self) -> torch.nn.Module:
@@ -257,9 +263,86 @@ class CompiledPredictor:
             for static, t in zip(prog.inputs, tensors):
                 static.copy_(t)
             with torch.inference_mode():
-                return prog.run()
+                out = prog.run()
+        if self._analyze is not None and self._analysis_report is None:
+            self._run_analysis(args, kwargs)
+        return out
 
     __call__ = predict
+
+    # ---------------- static analysis (analysis/) ----------------
+    @property
+    def analysis_report(self):
+        """The ProgramReport of the ``analyze=`` run after the first
+        request (None before it, or without ``analyze``)."""
+        return self._analysis_report or None
+
+    def _run_analysis(self, args, kwargs):
+        try:
+            report = self.analyze(*args, **kwargs)
+        except Exception as e:   # analysis must not kill serving
+            _LOG.warning("CompiledPredictor: program analysis failed "
+                         "(%s: %s); skipping", type(e).__name__, e)
+            self._analysis_report = False
+            return
+        self._analysis_report = report
+        if self._analyze == "warn" and not report.ok:
+            _LOG.warning("CompiledPredictor program analysis:\n%s",
+                         report.summary())
+        elif self._analyze == "raise":
+            report.raise_if_findings()
+
+    def lower_entry(self, *args, batch_size: Optional[int] = None,
+                    **kwargs):
+        """Record this (bucket-shaped) batch's program for static
+        analysis: the dict of ``CompiledTrainStep.lower_entry`` (mode
+        ``predict``, ``schedule`` the record of one eager run of the
+        forward: no graph is captured, no capture counted). Cached per
+        signature."""
+        from ..analysis import schedule as _sched
+        key = self._key(args, kwargs)
+        info = self._analysis.get(key)
+        if info is not None:
+            return info
+        names, leaves = self._leaves(args, kwargs)
+        vals = [self.as_tensor(a) for a in leaves]
+        nargs, net = len(args), self._net
+
+        def body():
+            # no_grad, not inference_mode: the record then sees the aten
+            # ops the kernels run (inference mode hands the dispatch mode
+            # composite ops such as ``linear`` before they decompose)
+            with torch.no_grad():
+                return net(*vals[:nargs], **dict(zip(names, vals[nargs:])))
+
+        params = list(net.parameters())
+        devices = [self.device.index or 0] \
+            if self.device.type == "cuda" else []
+        with self._mu, device_scope(self.device), \
+                torch.random.fork_rng(devices=devices):
+            rec, _ = _sched.record(body)
+        rec.meta.update(mode="predict", device=str(self.device))
+        blessed = [("bfloat16", "float32"), ("float16", "float32")] \
+            if any(p.dtype in (torch.bfloat16, torch.float16)
+                   for p in params) else []
+        info = dict(kind="predict", mode="predict", schedule=rec,
+                    mesh=None, axis=None, expected_donated=None,
+                    unit_sizes=[], n_params=len(params), n_state_leaves=0,
+                    blessed_dtypes=blessed, table=None, report=None)
+        self._analysis[key] = info
+        return info
+
+    def analyze(self, *args, **kwargs):
+        """The program lint of this bucket's serving program
+        (:class:`~mxnet_tpu_torch.analysis.ProgramReport`): no
+        collectives, no host transfers, no unblessed dtype drift, the
+        kernel census — the gates the training step passes."""
+        from ..analysis.program import analyze_step
+        return analyze_step(self, *args, **kwargs)
+
+    def fusion_report(self, *args, **kwargs):
+        report = self.analyze(*args, **kwargs)
+        return getattr(report, "fusion", None)
 
     @property
     def autotune_result(self):

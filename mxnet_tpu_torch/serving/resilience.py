@@ -36,11 +36,11 @@ from __future__ import annotations
 
 import logging
 import os
-import threading
 import time
 from typing import Callable, List, Optional, Sequence
 
 from .. import telemetry as _telemetry
+from ..analysis.threads import mx_lock, mx_rlock
 from ..base import MXNetError
 
 __all__ = ["DeadlineExceeded", "Overloaded", "ServingShutdown",
@@ -143,7 +143,7 @@ class CircuitBreaker:
     def __init__(self, failure_threshold: int = 1,
                  cooldown_s: Optional[float] = None,
                  clock: Callable[[], float] = time.monotonic):
-        self._lock = threading.Lock()
+        self._lock = mx_lock("serving.breaker")
         self._clock = clock
         self._threshold = max(1, int(failure_threshold))
         self._cooldown = cooldown_s
@@ -278,7 +278,7 @@ class ServingSupervisor:
         self._backoff_base = float(backoff_base)
         self._backoff_max = float(backoff_max)
         self._detect = _detect
-        self._lock = threading.RLock()
+        self._lock = mx_rlock("serving.supervisor")
         self._transient_streak = 0
         self._closed = False
         self.breaker = breaker if breaker is not None else CircuitBreaker()

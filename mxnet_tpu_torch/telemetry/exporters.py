@@ -29,13 +29,14 @@ import threading
 import time
 from typing import Optional
 
+from ..analysis.threads import mx_lock
 from ..base import MXNetError
 from . import names
 from .registry import (Counter, Gauge, Histogram, MetricsRegistry,
                        default as _default_registry)
 from .watchdog import watchdog as _watchdog
 
-__all__ = ["NamedLock", "SCHEMA_VERSION", "snapshot", "prometheus_text",
+__all__ = ["SCHEMA_VERSION", "snapshot", "prometheus_text",
            "write_prometheus", "prometheus_file", "Heartbeat",
            "start_heartbeat", "stop_heartbeat", "heartbeat_interval"]
 
@@ -43,35 +44,6 @@ _LOG = logging.getLogger("mxnet_tpu_torch.telemetry")
 
 #: bump ONLY with a documented migration; tests pin the snapshot schema
 SCHEMA_VERSION = 1
-
-
-class NamedLock:
-    """A ``threading.Lock`` that carries a name (the JAX package's
-    ``analysis.threads.mx_lock`` audits its locks by name; the port keeps
-    the name for tracebacks and ``repr`` only)."""
-
-    __slots__ = ("name", "_lock")
-
-    def __init__(self, name: str):
-        self.name = name
-        self._lock = threading.Lock()
-
-    def acquire(self, blocking: bool = True, timeout: float = -1) -> bool:
-        return self._lock.acquire(blocking, timeout)
-
-    def release(self) -> None:
-        self._lock.release()
-
-    def locked(self) -> bool:
-        return self._lock.locked()
-
-    __enter__ = acquire
-
-    def __exit__(self, *exc):
-        self._lock.release()
-
-    def __repr__(self):
-        return f"NamedLock({self.name!r}, locked={self.locked()})"
 
 
 def prometheus_file() -> Optional[str]:
@@ -260,7 +232,7 @@ class Heartbeat:
         # (atexit flush, tests); also guards the terminal _stopped flag,
         # so a stop() landing mid-beat waits the beat out instead of
         # racing it into a second MXNET_PROMETHEUS_FILE write
-        self._beat_mu = NamedLock("telemetry.heartbeat.beat")
+        self._beat_mu = mx_lock("telemetry.heartbeat.beat")
         self._stopped = False
 
     def start(self) -> "Heartbeat":
@@ -313,7 +285,7 @@ class Heartbeat:
 
 
 _active_heartbeat: Optional[Heartbeat] = None
-_hb_lock = NamedLock("telemetry.heartbeat")
+_hb_lock = mx_lock("telemetry.heartbeat")
 _atexit_installed = False
 
 

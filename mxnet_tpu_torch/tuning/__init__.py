@@ -329,9 +329,10 @@ def _rank() -> int:
     return _dist.rank()
 
 
-def _snapshot_step(step):
+def _snapshot_step(step, create_states: bool = True):
     """Capture the whole train state of ``step``'s trainer (its optimizer
-    states created first, as the first step would), and record the
+    states created first, as the first step would, unless
+    ``create_states`` is False: a ZeRO plan holds its own), and record the
     random generators the trials draw from and the buffers they write in
     place (a BatchNorm's running statistics). Returns the thunk that puts
     all of it back IN PLACE (captured graphs keep their pointers), with
@@ -340,8 +341,9 @@ def _snapshot_step(step):
     from ..gluon.fused_step import _copy_back
     from ..gluon.nn.basic_layers import recording_draws
     tr = step._trainer
-    for i, p in enumerate(tr._params):
-        tr._updater._state_for(i, p)
+    if create_states:
+        for i, p in enumerate(tr._params):
+            tr._updater._state_for(i, p)
     state = capture_train_state(trainer=tr)
     steps_done = step._steps_done
     scope = recording_draws(snapshot=True)

@@ -23,8 +23,9 @@ import hashlib
 import json
 import logging
 import os
-import threading
 from typing import Any, Dict, Optional
+
+from ..analysis.threads import mx_lock
 
 __all__ = ["AutotuneCache", "cache_path", "default_cache",
            "signature_key", "step_signature", "predictor_signature",
@@ -48,7 +49,7 @@ class AutotuneCache:
     def __init__(self, path: Optional[str] = None):
         self.path = path
         self._mem: Dict[str, dict] = {}
-        self._lock = threading.Lock()
+        self._lock = mx_lock("tuning.cache")
 
     # ------------- the file -------------
     def _read_file(self) -> Dict[str, dict]:
@@ -117,7 +118,7 @@ class AutotuneCache:
 
 _DEFAULT: Optional[AutotuneCache] = None
 _DEFAULT_PATH: Optional[str] = None
-_DLOCK = threading.Lock()
+_DLOCK = mx_lock("tuning.cache.default")
 
 
 def default_cache() -> AutotuneCache:

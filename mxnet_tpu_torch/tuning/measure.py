@@ -216,12 +216,25 @@ class AnalyticalStepBackend(_StepPrograms):
     capture's ``MemoryReport`` (argument + output + pool bytes) where the
     step is captured on a card, else :func:`_static_traffic` (the static
     buffers; activations left out). Both are probed once per distinct
-    program-affecting slice. ``exposed_comm_s`` is the JAX package's
-    census of collectives left unhidden in the compiled schedule
-    (``analysis/overlap.py``), which needs XLA's HLO; the port has no
-    counterpart yet, so it reads 0 with ``overlap_fraction`` 1.0, what
-    the reference yields where that census is unavailable and on one
-    device."""
+    program-affecting slice. ``exposed_comm_s`` and ``overlap_fraction``
+    come from the overlap census (``analysis/overlap.py``) of the
+    candidate's schedule record (``CompiledTrainStep.lower_entry``, the
+    candidate's ``zero.*`` bucketing in force) where the step has
+    collectives (the ``zero`` and ``mesh`` modes, the split program): a
+    bucketing that hides its reduce-scatters behind the backward scores
+    better than one that serialises them, at equal FLOPs and traffic.
+    A one-card step has none: 0 and 1.0. Under a dp group every rank
+    records its candidate alike (the record runs the step's
+    collectives).
+
+    ``exposed_comm_s`` is not validated on the card, and there the order
+    it gives is the wrong one: on four H100s (BERT-base, ZeRO dp 4, 8 x
+    512 a rank, ``chip_smoke.py`` phase 21c) it scores 4 MiB buckets
+    0.57 ms better than one bucket, yet the bucketed step takes 116.0
+    ms against the serial 85.4 (timed in alternating turns). The eager
+    ZeRO step is host-bound, each bucket costs ~0.4 ms of host time to
+    issue, and the last rank to reach a collective has no kernel queued
+    to hide it behind; this score counts none of that."""
 
     name = "analytical"
     deterministic = True
@@ -266,10 +279,25 @@ class AnalyticalStepBackend(_StepPrograms):
                 if traffic is None:
                     traffic = _static_traffic(step, self._args,
                                               self._kwargs)
+                exposed, frac = self._overlap(config)
                 probe = {"flops": float(flops), "traffic_bytes": traffic,
-                         "exposed_comm_s": 0.0, "overlap_fraction": 1.0}
+                         "exposed_comm_s": exposed,
+                         "overlap_fraction": frac}
         self._probes[key] = probe
         return probe
+
+    def _overlap(self, config: Dict[str, Any]):
+        """``(exposed_comm_s, overlap_fraction)`` of the candidate's
+        schedule record; ``(0.0, 1.0)`` without collectives."""
+        from ..analysis.overlap import overlap_census
+        step = self._step
+        if step.mode not in ("zero", "mesh") and not step._split:
+            return 0.0, 1.0
+        self._use(config)
+        info = step.lower_entry(*self._args, batch_size=self._batch_size,
+                                **self._kwargs)
+        rep = overlap_census(info["schedule"])
+        return float(rep.exposed_comm_s), float(rep.overlap_fraction)
 
     def _zero_units(self, min_size) -> int:
         """Reduce-scatter / all-gather units under a candidate bucket

@@ -91,7 +91,13 @@ def test_package_has_its_modules():
               "gluon/data/vision/transforms.py",
               "gluon/data/vision/datasets.py", "io/__init__.py",
               "io/io.py", "tuning/__init__.py", "tuning/space.py",
-              "tuning/search.py", "tuning/cache.py", "tuning/measure.py"):
+              "tuning/search.py", "tuning/cache.py", "tuning/measure.py",
+              "analysis/__init__.py", "analysis/report.py",
+              "analysis/guard.py", "analysis/threads.py",
+              "analysis/lint.py", "analysis/schedule.py",
+              "analysis/program.py", "analysis/fusion.py",
+              "analysis/sharding.py", "analysis/overlap.py",
+              "testing/sched.py"):
         assert os.path.join("mxnet_tpu_torch", m) in rel, m
     csrc = os.listdir(os.path.join(PKG, "ops", "kernels", "csrc"))
     assert {"flash_fwd.cu", "layernorm_fwd.cu", "bias_gelu_fwd.cu",
@@ -107,6 +113,50 @@ def test_no_jax_imports(path):
     bad = [(line, name) for line, name in _imports(_parse(path))
            if _forbidden_module(name)]
     assert not bad, f"{path} imports {bad}"
+
+
+def _lower_layer_files():
+    """The kernel layer, the ops and the collectives: below analysis/."""
+    return [p for p in _package_files()
+            if os.path.relpath(p, PKG).split(os.sep)[0] in ("ops",
+                                                            "parallel")]
+
+
+def _imports_analysis(tree, path) -> list:
+    """The imports of ``mxnet_tpu_torch.analysis`` in ``tree`` (absolute
+    or relative)."""
+    pkg = os.path.relpath(os.path.dirname(path), ROOT).split(os.sep)
+    out = []
+    for node in ast.walk(tree):
+        names = []
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            base = pkg[:len(pkg) - node.level + 1] if node.level else []
+            mod = ".".join(base + ([node.module] if node.module else []))
+            names = [mod] + [f"{mod}.{a.name}" for a in node.names]
+        if any(n.startswith("mxnet_tpu_torch.analysis") for n in names):
+            out.append(node.lineno)
+    return out
+
+
+@pytest.mark.parametrize("path", _lower_layer_files(),
+                         ids=lambda p: os.path.relpath(p, ROOT))
+def test_lower_layers_do_not_import_analysis(path):
+    """ops/ and parallel/ know nothing of analysis/: a schedule record
+    fills their hook slots while it runs (``ops.kernels.HOOKS``,
+    ``parallel.collectives.HOOK``)."""
+    bad = _imports_analysis(_parse(path), path)
+    assert not bad, f"{path} imports analysis/ at lines {bad}"
+
+
+def test_analysis_import_check_catches_relative_imports():
+    path = os.path.join(PKG, "ops", "kernels", "norm.py")
+    tree = ast.parse("from ...analysis.schedule import x\n"
+                     "from ... import analysis\nimport os\n"
+                     "from .. import nn\n")
+    assert _imports_analysis(tree, path) == [1, 2]
+    assert len(_lower_layer_files()) >= 10
 
 
 def _call_name(func):

@@ -2504,3 +2504,94 @@ def test_smem_budget_leaves_the_fused_flash_bwd_on_card(cuda_dev, budget):
     spread = float((ref[0] - ref2[0]).abs().max())
     assert float((got[0] - ref[0]).abs().max()) <= max(2 * spread, 1e-6)
     assert torch.equal(got[1], ref[1]) and torch.equal(got[2], ref[2])
+
+
+# ---------------------------------------------------------------------------
+# analysis/ on the card (phase 21a at a small size)
+# ---------------------------------------------------------------------------
+
+def _small_bert_step(dev, analyze=None):
+    from mxnet_tpu_torch.gluon import Trainer
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from mxnet_tpu_torch.gluon.model_zoo import bert as tbert
+    torch.manual_seed(0)
+    net = tbert.BERTClassifier(tbert.bert_small_test(dropout=0.1,
+                                                     device=dev),
+                               num_classes=3, dropout=0.1, device=dev)
+    tr = Trainer(dict(net.named_parameters()), "adam",
+                 {"learning_rate": 1e-3})
+    lb = SoftmaxCrossEntropyLoss()
+    step = tr.compile_step(lambda a, b: lb(net(a), b), analyze=analyze)
+    rs = onp.random.RandomState(1)
+    x = torch.from_numpy(rs.randint(0, 100, (4, 32))).to(dev)
+    y = torch.from_numpy(rs.randint(0, 3, (4,)).astype("f4")).to(dev)
+    return net, tr, step, x, y
+
+
+@pytest.mark.cuda
+def test_analyze_leaves_the_state_bit_equal_on_card(cuda_dev):
+    """``analyze()`` of a captured step: weights, Adam states, counts,
+    the card's generator and ``n_traces`` as before; the report clean;
+    the record's hand-written kernels, one node a launch, are what a
+    step launches."""
+    net, tr, step, x, y = _small_bert_step(cuda_dev, analyze="raise")
+    step.aot_compile(x, y)
+    opt = tr._optimizer
+    sts = [tr._updater._state_for(i, p) for i, p in enumerate(tr._params)]
+    before = ([p.detach().clone() for p in net.parameters()],
+              [s.clone() for st in sts for s in opt.state_tensors(st)],
+              (opt.num_update, dict(opt._index_update_count)),
+              torch.cuda.get_rng_state(cuda_dev))
+    rep = step.analyze(x, y)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b.detach()) for a, b in
+               zip(before[0], net.parameters()))
+    assert all(torch.equal(a, b) for a, b in zip(
+        before[1], [s for st in sts for s in opt.state_tensors(st)]))
+    assert before[2] == (opt.num_update, dict(opt._index_update_count))
+    assert torch.equal(before[3], torch.cuda.get_rng_state(cuda_dev))
+    assert step.n_traces == 1 and rep.ok
+    assert rep.collectives.ops == [] and rep.host_transfers == []
+    assert rep.donation.declared == rep.donation.aliased > 0
+    kernels = {}
+    for k in rep.fusion.kernels:
+        if k.kind == "custom":
+            name = k.name.split()[1]
+            kernels[name] = kernels.get(name, 0) + 1
+    b0 = K.launch_counts()
+    step(x, y)
+    torch.cuda.synchronize()
+    per_step = {n: c - b0[n] for n, c in K.launch_counts().items()
+                if c - b0[n]}
+    assert per_step == kernels
+    assert step.analysis_report is rep
+
+
+@pytest.mark.cuda
+def test_transfer_guard_raises_on_a_host_read_on_card(cuda_dev):
+    x = torch.ones(8, device=cuda_dev)
+    with mxt.analysis.transfer_guard("raise"):
+        with pytest.raises(mxt.MXNetError, match="test_torch_cuda.py"):
+            x.sum().item()
+        with pytest.raises(mxt.MXNetError, match="to_host"):
+            x.cpu()
+        with mxt.analysis.allow_transfers():
+            assert x.sum().item() == 8.0
+        y = x * 2
+    assert float(y.sum()) == 16.0
+
+
+@pytest.mark.cuda
+def test_predictor_analyze_on_card(cuda_dev):
+    from mxnet_tpu_torch.gluon.nn import Dense
+    from mxnet_tpu_torch.serving import CompiledPredictor
+    torch.manual_seed(0)
+    net = torch.nn.Sequential(Dense(32, in_units=16, activation="relu",
+                                    device=cuda_dev),
+                              Dense(4, in_units=32, device=cuda_dev))
+    pred = CompiledPredictor(net, bucket_sizes=(8,), device=cuda_dev,
+                             analyze="raise")
+    pred.predict(torch.randn(8, 16, device=cuda_dev))
+    rep = pred.analysis_report
+    assert rep.mode == "predict" and rep.ok and rep.n_traces == 1
+    assert rep.fusion.by_kind().get("dot", 0) == 2

@@ -176,7 +176,8 @@ def test_heartbeat_beats_writes_and_stops(tmp_path, monkeypatch):
     n = hb.beats
     hb.beat()                      # a no-op once stopped
     assert hb.beats == n
-    assert isinstance(hb._beat_mu, ttel.exporters.NamedLock)
+    assert isinstance(hb._beat_mu, mxt.analysis.threads.MxLock)
+    assert hb._beat_mu.name == "telemetry.heartbeat.beat"
 
 
 # ---------------------------------------------------------------------------

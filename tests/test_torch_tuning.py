@@ -473,9 +473,11 @@ def test_explicit_autotune_method_and_outcome_record(tmp_path, monkeypatch):
 
 
 def test_compile_step_analyze_still_raises():
+    """``analyze`` no longer raises at build time (``analysis/`` is
+    ported): 'raise' arms the lint, which raises only on a finding."""
     _, net, tr = make_step()
-    with pytest.raises(mxt.MXNetError, match="analysis/"):
-        tr.compile_step(lambda a, b: a, analyze="on")
+    assert tr.compile_step(lambda a, b: a, analyze="raise")._analyze == \
+        "raise"
 
 
 # ---------------------------------------------------------------------------
