@@ -29,6 +29,7 @@
                                         # on four or more cards)
     python3 chip_smoke.py --analysis-zero  # phases 1, 2 and 21c alone
                                            # (four cards)
+    python3 chip_smoke.py --ssd         # phases 1, 2 and 22 alone
     python3 chip_smoke.py --compare DIR  # A/B on one card: the flash
         # forward, the flash backward (fused at BERT training's shape;
         # dq, dkv at phase 7's), the recurrence kernels, the LayerNorm
@@ -507,6 +508,24 @@ Phases, each of which fails the run (non-zero exit) when it fails:
     ``mx_guard_host_syncs_total`` counts its retires; after the whole
     run the lock-order graph has no cycle and no edge outside
     ``tests/fixtures/torch_lock_hierarchy.json``.
+22. the detection path (``ssd_phase``): bench.py bench_ssd's
+    SSD-ResNet50 (resnet50_v1 features, two extra scales, 3 x 3 class and
+    box heads, 536 anchors at 300 x 300) trained at 32 x 3 x 300 x 300
+    with SGD momentum through ``compile_step``, float32 and bf16 amp,
+    ``MultiBoxTarget`` inside the captured step: phase 14's turns
+    (replays bit-equal to the body run eagerly under
+    ``cudnn.deterministic``), finite falling losses, one ``opt_update``
+    a step and nothing else of the library, gradients against a CPU
+    copy, no host transfer in the step's ``analyze()`` report; the box
+    ops on the card against the CPU (``MultiBoxTarget`` with planted
+    padding rows and a duplicate best anchor, with and without mining;
+    ``box_nms`` at the eval's shape); the NMS eval (softmax,
+    ``MultiBoxDetection``) of the trained net at batch 4 captured through
+    ``CompiledPredictor``; three steps fed by ``ImageDetIter`` over 64
+    records (crop, pad, mirror) with one capture. Printed: step ms,
+    images/s, peak memory, capture s, MultiBoxTarget's device ms and its
+    share of the step, the eval's replay and eager ms, the fed run's
+    images/s and input wait.
 
 ``{"launch_counts": {...}, "bf16_launch_counts": {...},
 "dist_kv_launch_counts": {...}, "resnet_launch_counts": {...},
@@ -519,8 +538,9 @@ phase 15's LAMB and NAG paths, on phase 16's cell-built LM, on phase
 17a's supervised float32 serving (rows 1 and 5, ``fleet_launches``) and
 on phase 18's two paths (``opt_update`` on ``resnet50_records`` and
 ``lstm_lm_clipped``, the recurrence kernels on ``lstm_lm_clipped``:
-``data_launches`` by path, ``data_path``) and on phase 19's paths
-(``telemetry_launches``).
+``data_launches`` by path, ``data_path``), on phase 19's paths
+(``telemetry_launches``) and on phase 22's three SSD paths
+(``ssd_launch_counts``; ``ssd_launches`` on the ``opt_update`` row).
 The line before the last is a JSON object with one entry per kernel
 (launches on its float32 path, error, times, bound; then its bf16 path,
 bf16 launches there, and its bf16 error, times and bound; ``rnn_decode``
@@ -11278,6 +11298,656 @@ def analysis_phase(torch, np, K, ATT, dev, smi):
     return launches
 
 
+#: phase 22: bench.py bench_ssd's leg (bench.py:590-706; BASELINE.md row 5,
+#: "SSD-ResNet50 object detection (gluon-cv, multi-loss, NMS on device)"):
+#: bench.py's _SSDResNet50 (bench.py:528-581) on the port's layers:
+#: resnet50_v1's features less their global pool, two extra stride-2
+#: scales (Conv2D 512 and 256, 3 x 3, ReLU), 3 x 3 class and box heads a
+#: scale with SSD_ANCHORS anchors of SSD_SIZES x SSD_RATIOS and
+#: SSD_CLASSES + 1 classes; batch SSD_BATCH x 3 x SSD_SIZE x SSD_SIZE
+#: numpy-uniform images, one random box a image as bench_ssd makes it;
+#: SGD momentum 0.9 at lr 1e-3 through ``compile_step`` (SSD_WARMUP +
+#: SSD_STEPS steps a run, the median of the last SSD_STEPS), float32 and
+#: under bf16 amp; each block's last BatchNorm gamma 0 (phase 14's
+#: weights). Feature maps 10 x 10, 5 x 5, 3 x 3 at 300: 536 anchors
+SSD_SIZES = ((0.2, 0.272), (0.37, 0.447), (0.54, 0.619))
+SSD_RATIOS = (1.0, 2.0, 0.5)
+SSD_ANCHORS = len(SSD_SIZES[0]) + len(SSD_RATIOS) - 1
+SSD_CLASSES, SSD_BATCH, SSD_SIZE = 20, 32, 300
+SSD_WARMUP, SSD_STEPS, SSD_LR, SSD_MOMENTUM = 3, 10, 1e-3, 0.9
+#: the backbone's last stage, extra1 and extra2: the heads' in_channels
+SSD_CHANNELS = (2048, 512, 256)
+#: the gradient check (phase 14's, on a fresh build after one eager step):
+#: SSD_GRAD_BATCH images of SSD_GRAD_SIZE pixels (feature maps 5 x 5,
+#: 3 x 3, 2 x 2)
+SSD_GRAD_BATCH, SSD_GRAD_SIZE = 2, 160
+#: MultiBoxTarget and box_nms on the card against the CPU: SSD_OPS_OBJECTS
+#: label rows an image (some padding, a planted duplicate best anchor),
+#: SSD_BATCH images over the 536 anchors; box targets within
+#: SSD_TARGET_RTOL relative; NMS pairs within SSD_NMS_NEAR of the
+#: threshold are counted and may differ
+SSD_OPS_OBJECTS, SSD_TARGET_RTOL, SSD_NMS_NEAR = 4, 1e-5, 1e-6
+#: the eval (bench.py:675-699): the trained net in eval mode on
+#: SSD_EVAL_BATCH images, softmax over the classes, MultiBoxDetection at
+#: nms_threshold 0.45 and threshold 0.01, captured through
+#: ``CompiledPredictor`` at one bucket of SSD_EVAL_BATCH; SSD_EVAL_ITERS
+#: replays and eager calls timed
+SSD_EVAL_BATCH, SSD_NMS_THRESHOLD, SSD_EVAL_THRESHOLD = 4, 0.45, 0.01
+SSD_EVAL_ITERS = 10
+#: the fed run: SSD_FED_STEPS float32 steps fed by ``ImageDetIter`` over
+#: SSD_FED_RECORDS raw 3 x 300 x 300 records of 1 to SSD_FED_OBJECTS boxes
+#: (written with ``recordio`` in a temporary directory the phase removes),
+#: rand_crop, rand_pad and rand_mirror on, labels padded to
+#: SSD_FED_OBJECTS rows
+SSD_FED_RECORDS, SSD_FED_OBJECTS, SSD_FED_STEPS, SSD_FED_SEED = 64, 3, 3, 22
+#: phase 22's paths, in the order ``ssd_phase`` returns their launches
+SSD_PATHS = ("ssd_resnet50_training", "ssd_resnet50_training_bf16",
+             "ssd_resnet50_records")
+
+
+def ssd_maps(size):
+    """The three feature maps' sides at ``size``: five stride-2 stages
+    (each ceil(n / 2)) to the backbone's, then the two extra scales."""
+    n = size
+    for _ in range(5):
+        n = (n + 1) // 2
+    return n, (n + 1) // 2, ((n + 1) // 2 + 1) // 2
+
+
+def ssd_resnet50(torch, device=None, num_classes=SSD_CLASSES):
+    """bench.py's ``_SSDResNet50.build()`` on the port's layers, its
+    parameters named as the JAX ``collect_params()`` names them. The
+    layers take their ``in_channels``: the port infers no shapes."""
+    from mxnet_tpu_torch.gluon import nn
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+    from mxnet_tpu_torch.ndarray import contrib
+
+    class SSD(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            base = vision.resnet50_v1(device=device)
+            self.backbone = nn.Sequential(*list(base.features)[:-1])
+            self.extra1 = nn.Sequential(nn.Conv2D(
+                512, 3, strides=2, padding=1, activation="relu",
+                in_channels=SSD_CHANNELS[0], device=device))
+            self.extra2 = nn.Sequential(nn.Conv2D(
+                256, 3, strides=2, padding=1, activation="relu",
+                in_channels=SSD_CHANNELS[1], device=device))
+            for i, ch in enumerate(SSD_CHANNELS):
+                setattr(self, f"cls{i}", nn.Conv2D(
+                    SSD_ANCHORS * (num_classes + 1), 3, padding=1,
+                    in_channels=ch, device=device))
+                setattr(self, f"loc{i}", nn.Conv2D(
+                    SSD_ANCHORS * 4, 3, padding=1, in_channels=ch,
+                    device=device))
+
+        def forward(self, x):
+            feats = [self.backbone(x)]
+            feats.append(self.extra1(feats[-1]))
+            feats.append(self.extra2(feats[-1]))
+            anchors, clses, locs = [], [], []
+            for i, f in enumerate(feats):
+                anchors.append(contrib.MultiBoxPrior(
+                    f, sizes=SSD_SIZES[i], ratios=SSD_RATIOS))
+                c = getattr(self, f"cls{i}")(f)
+                b, _, h, w = c.shape
+                clses.append(c.permute(0, 2, 3, 1).reshape(
+                    b, h * w * SSD_ANCHORS, num_classes + 1))
+                locs.append(getattr(self, f"loc{i}")(f).permute(
+                    0, 2, 3, 1).reshape(b, -1))
+            return (torch.cat(anchors, 1), torch.cat(clses, 1),
+                    torch.cat(locs, 1))
+
+    return SSD()
+
+
+def ssd_loss(torch):
+    """bench_ssd's loss (bench.py:618-636) a image: ``MultiBoxTarget`` on
+    the detached anchors and class scores, then the image's softmax
+    cross-entropy over its anchors / N plus its masked L1 / (N x 4). The
+    batch's mean is bench's loss (the summed cross-entropy / B / N plus
+    the mean L1), so ``compile_step``'s update (the sum's gradient / B)
+    is bench's. The cross-entropy runs through the op funnel as
+    ``"softmax_cross_entropy"`` (float32 under amp, as the JAX op)."""
+    from mxnet_tpu_torch.ndarray import contrib
+    from mxnet_tpu_torch.ops.registry import invoke
+
+    def image_ce(x, y):
+        logp = torch.log_softmax(x, dim=-1)
+        return -torch.gather(logp, -1, y.long()[..., None]).sum((1, 2))
+
+    def loss(out, labels):
+        anchors, cls, loc = out
+        with torch.no_grad():
+            loc_t, loc_mask, cls_t = contrib.MultiBoxTarget(
+                anchors.detach(), labels, cls.detach().transpose(1, 2))
+        ce = invoke("softmax_cross_entropy", image_ce, cls, cls_t)
+        l1 = (loc * loc_mask - loc_t * loc_mask).abs()
+        return ce / cls.shape[1] + l1.sum(1) / l1.shape[1]
+
+    return loss
+
+
+def ssd_batch(np, rs, batch, size):
+    """``batch`` uniform images and one box a image, as bench_ssd makes
+    them: labels (batch, 1, 5) [class, x0, y0, x0 + 0.3, y0 + 0.3]."""
+    x = rs.uniform(size=(batch, 3, size, size)).astype(np.float32)
+    lab = np.zeros((batch, 1, 5), np.float32)
+    lab[:, 0, 0] = rs.randint(0, SSD_CLASSES, size=batch)
+    x0 = rs.uniform(0, 0.6, size=(batch, 2)).astype(np.float32)
+    lab[:, 0, 1:3] = x0
+    lab[:, 0, 3:5] = x0 + 0.3
+    return x, lab
+
+
+def ssd_grad_check(torch, np, net, loss_fn, amp_on):
+    """:func:`resnet_grad_check`'s check on the SSD: a card copy of
+    ``net`` against a CPU copy (float32; under amp a float64 one, and a
+    float32 CPU copy under amp beside it) at SSD_GRAD_BATCH x
+    SSD_GRAD_SIZE, one training-mode backward each; then the running
+    statistics it wrote."""
+    from mxnet_tpu_torch import amp
+    from mxnet_tpu_torch.gluon.params import load_jax_params
+    t0 = time.perf_counter()
+
+    def copy(device):
+        return copy_to_cpu(lambda: ssd_resnet50(torch, device), net,
+                           load_jax_params)
+
+    card, cpu = copy(net.cls0.weight.device), copy("cpu")
+    x, y = ssd_batch(np, np.random.RandomState(23), SSD_GRAD_BATCH,
+                     SSD_GRAD_SIZE)
+    g_card = train_grads(torch, card, loss_fn, x, y)
+    if not amp_on:
+        check = grad_check(torch, None, None, loss_fn, x, y,
+                           grads=(g_card, train_grads(torch, cpu, loss_fn,
+                                                      x, y)))
+    else:
+        g_amp = train_grads(torch, copy("cpu"), loss_fn, x, y)
+        amp.uninit()
+        try:
+            g64 = train_grads(torch, cpu.double(), loss_fn, x, y)
+        finally:
+            amp.init("bfloat16")
+        rms = grad_errors(g_card, g64, bias_scale, rms=True)
+        worst = max(rms, key=rms.get)
+        check = {
+            "params": len(rms), "worst_param": worst,
+            "worst_rms_err_over_scale": rms[worst],
+            "rtol_of_param_max": GRAD_RTOL_BF16,
+            "largest_err_over_scale": {
+                side: max(grad_errors(g, g64, bias_scale).values())
+                for side, g in (("card_amp", g_card), ("cpu_amp", g_amp))},
+            "ok": rms[worst] <= GRAD_RTOL_BF16}
+    stats = grad_check(torch, None, None, loss_fn, None, None,
+                       rtol=GRAD_RTOL_BF16 if amp_on else GRAD_RTOL,
+                       grads=(running_stats(card), running_stats(cpu)))
+    return {"batch": SSD_GRAD_BATCH, "size": SSD_GRAD_SIZE,
+            "grads": check, "running_stats": stats,
+            "cpu_dtype": "float64" if amp_on else "float32",
+            "seconds": time.perf_counter() - t0,
+            "ok": check["ok"] and stats["ok"]}
+
+
+def ssd_target_ms(torch, anchors, labels, cls):
+    """Device ms of bench's ``MultiBoxTarget`` call at the step's shapes,
+    by graph replay (:func:`time_ms`)."""
+    from mxnet_tpu_torch.ndarray import contrib
+    cp = cls.detach().transpose(1, 2)
+    return time_ms(torch, lambda a, b, c: contrib.MultiBoxTarget(a, b, c),
+                   [(anchors.detach(), labels, cp)], iters=10)[0]
+
+
+def ssd_train(torch, np, K, dev, smi, bf16=False):
+    """Phase 22's training: the SSD through ``compile_step`` in the turns
+    of :func:`train_turns` (replays held bit-equal to the body run
+    eagerly: the caller sets ``cudnn.deterministic``). Gates: finite
+    falling losses, exactly one ``opt_update`` a step and nothing else of
+    the library, one capture a step object, the gradient check of
+    :func:`ssd_grad_check`, and the step's ``analyze()`` report naming no
+    host transfer. Printed: median step ms of the last SSD_STEPS and
+    images/s, peak memory, capture s, MultiBoxTarget's device ms and its
+    share of the step. ``bf16``: the same under ``amp.init()``. Returns
+    (launches of the gated run, the trained net)."""
+    from mxnet_tpu_torch import amp
+    if bf16:
+        amp.init("bfloat16")
+        try:
+            return ssd_train(torch, np, K, dev, smi)
+        finally:
+            amp.uninit()
+    from mxnet_tpu_torch.gluon import Trainer
+    from mxnet_tpu_torch.gluon.params import load_jax_params
+    amp_on = amp.is_enabled()
+    name = "ssd_train_bf16" if amp_on else "ssd_train"
+    t0 = time.perf_counter()
+    net = ssd_resnet50(torch, dev)
+    init = resnet_init(np, net, seed=24)
+    x, lab = ssd_batch(np, np.random.RandomState(25), SSD_BATCH, SSD_SIZE)
+    xt, yt = torch.from_numpy(x).to(dev), torch.from_numpy(lab).to(dev)
+    loss_fn = ssd_loss(torch)
+    made = [net]
+    del net, x
+
+    def build():
+        net = made.pop() if made else ssd_resnet50(torch, dev)
+        load_jax_params(net, init)
+        net.train()
+        return net, Trainer(dict(net.named_parameters()), "sgd",
+                            {"learning_rate": SSD_LR,
+                             "momentum": SSD_MOMENTUM}), loss_fn
+
+    setup_s = time.perf_counter() - t0
+    steps = SSD_WARMUP + SSD_STEPS
+    turns, (net, trainer, _), gated = train_turns(
+        torch, K, build, xt, yt, steps, SSD_BATCH, exact=True,
+        by_dtype=True, unit="images")
+    losses, step_ms, per_step, counts, per_step_dt = gated
+    n_params = len(trainer._params)
+    n_trainable = sum(p.requires_grad for p in net.parameters())
+    expect = {n: 0 for n in K.KERNELS}
+    expect.update(opt_update=1)
+    expect_dt = {"opt_update": {"float32": 1}}
+    launches_ok = n_params == n_trainable and \
+        all(s == expect for s in per_step) and \
+        all(s == expect_dt for s in per_step_dt)
+    losses_ok = all(math.isfinite(v) for v in losses) and \
+        losses[-1] < losses[0]
+    master_ok = all(p.dtype == torch.float32 for p in net.parameters())
+    median_ms = statistics.median(step_ms[SSD_WARMUP:])
+    with torch.no_grad():
+        anchors, cls, _ = net(xt)
+    target_ms = ssd_target_ms(torch, anchors, yt, cls)
+    n_anchors = anchors.shape[1]
+    del anchors, cls, trainer
+
+    # the step's analysis report: one eager run of the captured body
+    first, first_trainer, _ = build()
+    step = first_trainer.compile_step(
+        lambda a, b: loss_fn(first(a), b))
+    step.aot_compile(xt, yt)
+    rep = step.analyze(xt, yt)
+    torch.cuda.synchronize()
+    facts = report_facts(rep)
+    del step, rep
+    # the gradient check on a fresh build after one eager step
+    first, first_trainer, _ = build()
+    plain_step(first, first_trainer, loss_fn)(xt, yt)
+    del xt, yt, first_trainer
+    torch.cuda.empty_cache()
+    grads = ssd_grad_check(torch, np, first, loss_fn, amp_on)
+    del first
+    print(smi, flush=True)
+    report = {
+        "model": "ssd_resnet50 (bench.py _SSDResNet50)",
+        "classes": SSD_CLASSES, "anchors": n_anchors,
+        "dtype": "bfloat16 amp, float32 parameters" if amp_on
+        else "float32",
+        "cudnn.deterministic": torch.backends.cudnn.deterministic,
+        "batch": SSD_BATCH, "size": SSD_SIZE, "warmup": SSD_WARMUP,
+        "steps": SSD_STEPS, "optimizer": "sgd", "learning_rate": SSD_LR,
+        "momentum": SSD_MOMENTUM, "losses": losses, "step_ms": step_ms,
+        "median_step_ms": median_ms,
+        "images_per_s": SSD_BATCH / (median_ms / 1e3),
+        "max_memory_allocated": turns["captured_max_memory_allocated"][0],
+        "max_memory_reserved": turns["captured_max_memory_reserved"][0],
+        "setup_s": setup_s, "capture_s": turns["capture_s"][0],
+        "n_traces_after_warmup": turns["turns"][0]["n_traces_after_warmup"],
+        "n_traces_after_steps": turns["turns"][0]["n_traces_after_steps"],
+        "multibox_target_ms": target_ms,
+        "multibox_target_share": target_ms / median_ms,
+        "trainable": n_params, "launches": counts,
+        "launches_per_step": per_step[-1],
+        "launches_per_step_expected": expect,
+        "launches_per_step_by_dtype": per_step_dt[-1],
+        "parameters_float32": master_ok, "analysis": facts,
+        "grad_check": grads, "captured_vs_eager": turns, "card": smi}
+    gates = {"launches": launches_ok, "losses": losses_ok,
+             "float32_masters": master_ok, "turns": turns["ok"],
+             "grad_check": grads["ok"],
+             "no_host_transfer": facts["host_transfers"] == 0}
+    report.update(gates=gates, ok=all(gates.values()))
+    emit({name: report})
+    if not report["ok"]:
+        raise SystemExit(f"phase 22 training failed ({name}): {gates}; "
+                         f"losses {losses}, launches {per_step} "
+                         f"{per_step_dt}, gradients {grads}, analysis "
+                         f"{facts}")
+    return counts, net
+
+
+def ssd_ops_inputs(torch, np, rs):
+    """MultiBoxTarget's inputs at the step's anchors: SSD_BATCH images of
+    SSD_OPS_OBJECTS label rows (1 to SSD_OPS_OBJECTS valid, padding rows
+    -1, one padding row over a real box), image 0's first two truths the
+    same box of two classes (a duplicate best anchor), random class
+    scores; and box_nms rows at the eval's shape."""
+    from mxnet_tpu_torch.ndarray import contrib
+    anchors = torch.cat([contrib.MultiBoxPrior(
+        torch.zeros((1, 1, m, m)), sizes=s, ratios=SSD_RATIOS)
+        for m, s in zip(ssd_maps(SSD_SIZE), SSD_SIZES)], 1).numpy()
+    n = anchors.shape[1]
+    b, m = SSD_BATCH, SSD_OPS_OBJECTS
+    lab = np.full((b, m, 5), -1.0, np.float32)
+    for i in range(b):
+        k = 1 + i % m
+        lab[i, :k, 0] = rs.randint(0, SSD_CLASSES, k)
+        xy = rs.uniform(0, 0.6, (k, 2))
+        wh = rs.uniform(0.05, 0.4, (k, 2))
+        lab[i, :k, 1:] = np.concatenate([xy, xy + wh], 1)
+    lab[0, 1] = lab[0, 0]
+    lab[0, 1, 0] = (lab[0, 0, 0] + 1) % SSD_CLASSES
+    lab[1, 3, 1:] = lab[1, 0, 1:]
+    cls = rs.standard_normal((b, SSD_CLASSES + 1, n)).astype(np.float32)
+    xy = rs.uniform(0.1, 0.5, (SSD_EVAL_BATCH, n, 2))
+    wh = rs.uniform(0.1, 0.4, (SSD_EVAL_BATCH, n, 2))
+    rows = np.concatenate([
+        rs.randint(0, SSD_CLASSES, (SSD_EVAL_BATCH, n, 1)),
+        rs.uniform(0, 1, (SSD_EVAL_BATCH, n, 1)), xy, xy + wh], 2) \
+        .astype(np.float32)
+    return anchors, lab, cls, rows
+
+
+def ssd_ops_vs_cpu(torch, np, dev, smi):
+    """Phase 22's box ops on the card against the CPU on the same inputs
+    (:func:`ssd_ops_inputs`): ``MultiBoxTarget`` as bench calls it and
+    with hard-negative mining at ratio 3 (cls_target and box_mask equal,
+    box_target within SSD_TARGET_RTOL), ``box_nms`` as MultiBoxDetection
+    calls it (every row equal, but for rows of a pair whose IoU is within
+    SSD_NMS_NEAR of the threshold: counted and printed, and 0 expected)."""
+    from mxnet_tpu_torch.ndarray import contrib
+    anchors, lab, cls, rows = ssd_ops_inputs(
+        torch, np, np.random.RandomState(26))
+    out = {}
+    for case, kw in (("bench", {}),
+                     ("mining", dict(negative_mining_ratio=3.0))):
+        got = contrib.MultiBoxTarget(*(torch.from_numpy(a).to(dev)
+                                       for a in (anchors, lab, cls)), **kw)
+        ref = contrib.MultiBoxTarget(*(torch.from_numpy(a)
+                                       for a in (anchors, lab, cls)), **kw)
+        got = [g.cpu() for g in got]
+        ok, err, _ = compare(torch, got[0], ref[0], 0.0, SSD_TARGET_RTOL)
+        out[case] = {"cls_target_equal": bool(torch.equal(got[2], ref[2])),
+                     "box_mask_equal": bool(torch.equal(got[1], ref[1])),
+                     "box_target_max_abs_err": err,
+                     "box_target_bit_equal": bool(torch.equal(got[0],
+                                                              ref[0])),
+                     "matched": int((ref[2] > 0).sum()),
+                     "ignored": int((ref[2] < 0).sum()),
+                     "ok": ok and bool(torch.equal(got[2], ref[2]))
+                     and bool(torch.equal(got[1], ref[1]))}
+    kw = dict(overlap_thresh=SSD_NMS_THRESHOLD,
+              valid_thresh=SSD_EVAL_THRESHOLD, coord_start=2, score_index=1,
+              id_index=0)
+    got = contrib.box_nms(torch.from_numpy(rows).to(dev), **kw).cpu()
+    ref = contrib.box_nms(torch.from_numpy(rows), **kw)
+    # pairs of the same class whose IoU sits within SSD_NMS_NEAR of the
+    # threshold, by position in the sorted rows
+    order = np.argsort(-np.where(rows[..., 1] > SSD_EVAL_THRESHOLD,
+                                 rows[..., 1], -np.inf), 1, kind="stable")
+    srt = np.take_along_axis(rows, order[..., None], 1)
+    iou = contrib.box_iou(torch.from_numpy(srt[..., 2:6]),
+                          torch.from_numpy(srt[..., 2:6])).numpy()
+    same = srt[..., 0][:, :, None] == srt[..., 0][:, None, :]
+    near = np.triu(same & (np.abs(iou - SSD_NMS_THRESHOLD) <= SSD_NMS_NEAR),
+                   1)
+    near_rows = np.zeros(rows.shape[:2], bool)
+    b_i, i_i, j_i = np.nonzero(near)
+    near_rows[b_i, i_i] = near_rows[b_i, j_i] = True
+    differ = (got != ref).any(-1).numpy()
+    out["box_nms"] = {"rows": list(rows.shape), "kept": int(
+        (ref[..., 0] >= 0).sum()), "near_threshold_pairs": int(near.sum()),
+        "rows_differing": int(differ.sum()),
+        "bit_equal": bool(torch.equal(got, ref)),
+        "ok": bool((~differ | near_rows).all())}
+    report = {**out, "card": smi,
+              "ok": all(v["ok"] for v in out.values())}
+    emit({"ssd_ops_vs_cpu": report})
+    if not report["ok"]:
+        raise SystemExit(f"phase 22's box ops on the card differ from the "
+                         f"CPU: {report}")
+    return report
+
+
+def ssd_detector(torch, net):
+    """bench.py's eval program (bench.py:675-699) as a module: the net's
+    forward, softmax over the classes, ``MultiBoxDetection``."""
+    from mxnet_tpu_torch.ndarray import contrib
+    from mxnet_tpu_torch.ops import nn as ops_nn
+
+    class Detect(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.net = net
+
+        def forward(self, x):
+            anchors, cls, loc = self.net(x)
+            probs = ops_nn.softmax(cls.transpose(1, 2), axis=1)
+            return contrib.MultiBoxDetection(
+                probs, loc, anchors, nms_threshold=SSD_NMS_THRESHOLD,
+                threshold=SSD_EVAL_THRESHOLD)
+
+    return Detect()
+
+
+def ssd_eval(torch, np, dev, smi, net, what):
+    """Phase 22's eval: :func:`ssd_detector` of the trained ``net``
+    (eval mode) through ``CompiledPredictor`` at one bucket of
+    SSD_EVAL_BATCH: one capture, the replay bit-equal to the program
+    called eagerly on the card, rows of shape (SSD_EVAL_BATCH, N, 6),
+    suppressed rows all -1, kept scores non-increasing down each image;
+    replay and eager ms over SSD_EVAL_ITERS calls, and ``MultiBoxDetection``
+    alone (decode and NMS) by graph replay (:func:`time_ms`)."""
+    from mxnet_tpu_torch.ndarray import contrib
+    from mxnet_tpu_torch.ops import nn as ops_nn
+    from mxnet_tpu_torch.serving import CompiledPredictor
+    det = ssd_detector(torch, net)
+    pred = CompiledPredictor(det, bucket_sizes=(SSD_EVAL_BATCH,),
+                             device=dev)
+    x = torch.from_numpy(np.random.RandomState(27).uniform(
+        size=(SSD_EVAL_BATCH, 3, SSD_SIZE, SSD_SIZE)).astype(np.float32)) \
+        .to(dev)
+    pred.warmup(x[:1])
+    got = pred.predict(x)
+    with torch.inference_mode():
+        eager = det(x)
+    torch.cuda.synchronize()
+
+    def timed(fn):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(SSD_EVAL_ITERS):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / SSD_EVAL_ITERS
+
+    def eager_call():
+        with torch.inference_mode():
+            det(x)
+
+    replay_ms = timed(lambda: pred.predict(x))
+    eager_ms = timed(eager_call)
+    with torch.inference_mode():
+        anchors, cls, loc = net(x)
+        probs = ops_nn.softmax(cls.transpose(1, 2), axis=1)
+    nms_ms, nms_eager_ms = time_ms(
+        torch, lambda p, l, a: contrib.MultiBoxDetection(
+            p, l, a, nms_threshold=SSD_NMS_THRESHOLD,
+            threshold=SSD_EVAL_THRESHOLD), [(probs, loc, anchors)], iters=3)
+    rows = got.cpu()
+    kept = rows[..., 0] >= 0
+    supp = ~kept
+    scores = rows[..., 1]
+    mono = all(bool((s[k][1:] <= s[k][:-1]).all())
+               for s, k in zip(scores, kept))
+    n = rows.shape[1]
+    report = {
+        "net": what, "batch": SSD_EVAL_BATCH, "size": SSD_SIZE,
+        "program": "CompiledPredictor, one bucket",
+        "capture_s": pred.capture_s[SSD_EVAL_BATCH],
+        "n_traces": pred.n_traces, "shape": list(rows.shape),
+        "kept_per_image": kept.sum(1).tolist(),
+        "replay_ms": replay_ms, "eager_ms": eager_ms,
+        "detection_ms": nms_ms, "detection_eager_ms": nms_eager_ms,
+        "detection_share": nms_ms / replay_ms,
+        "graph_bit_equal_to_eager": bool(torch.equal(got, eager)),
+        "card": smi}
+    gates = {"shape": list(rows.shape) == [SSD_EVAL_BATCH, n, 6]
+             and n == SSD_ANCHORS * sum(m * m for m in ssd_maps(SSD_SIZE)),
+             "suppressed_rows_minus_one": bool((rows[supp] == -1).all()),
+             "kept_scores_non_increasing": mono,
+             "kept_some": bool(kept.any()),
+             "one_capture": pred.n_traces == 1,
+             "graph_vs_eager": report["graph_bit_equal_to_eager"]}
+    report.update(gates=gates, ok=all(gates.values()))
+    emit({"ssd_eval": report})
+    del pred, det
+    if not report["ok"]:
+        raise SystemExit(f"phase 22's eval failed: {gates}")
+    return report
+
+
+def ssd_records(np, path, rs):
+    """SSD_FED_RECORDS raw CHW uint8 records of 3 x SSD_SIZE x SSD_SIZE,
+    each with 1 to SSD_FED_OBJECTS boxes in the flat label form
+    ``[2, 5, objects...]``."""
+    from mxnet_tpu_torch import recordio
+    w = recordio.MXRecordIO(path, "w")
+    for i in range(SSD_FED_RECORDS):
+        k = 1 + i % SSD_FED_OBJECTS
+        obj = np.zeros((k, 5), np.float32)
+        obj[:, 0] = rs.randint(0, SSD_CLASSES, k)
+        xy = rs.uniform(0, 0.6, (k, 2))
+        obj[:, 1:3] = xy
+        obj[:, 3:5] = xy + rs.uniform(0.15, 0.4, (k, 2))
+        img = rs.randint(0, 256, (3, SSD_SIZE, SSD_SIZE)).astype(np.uint8)
+        w.write(recordio.pack(recordio.IRHeader(
+            0, np.concatenate([[2, 5], obj.ravel()]).astype(np.float32),
+            i, 0), img.tobytes()))
+    w.close()
+
+
+def ssd_fed(torch, np, K, dev, smi):
+    """Phase 22's fed run: SSD_FED_STEPS float32 steps of a fresh SSD
+    fed by ``ImageDetIter`` over :func:`ssd_records` (rand_crop,
+    rand_pad, rand_mirror, a ``random.Random`` of SSD_FED_SEED). Gates:
+    finite losses, one ``opt_update`` a step and nothing else of the
+    library, one capture (the label shape is fixed), the batches
+    (SSD_BATCH, 3, SSD_SIZE, SSD_SIZE) and (SSD_BATCH, SSD_FED_OBJECTS,
+    5). Printed: images/s, ``input_wait_ms`` (the host's time in
+    ``next``), step ms. Returns the run's launches."""
+    import random
+    import shutil
+    import tempfile
+    from mxnet_tpu_torch.gluon import Trainer
+    from mxnet_tpu_torch.gluon.params import load_jax_params
+    from mxnet_tpu_torch.image import ImageDetIter
+    tmp = tempfile.mkdtemp(prefix="mxt-det-records-")
+    try:
+        path = os.path.join(tmp, "det.rec")
+        t0 = time.perf_counter()
+        ssd_records(np, path, np.random.RandomState(SSD_FED_SEED))
+        write_s = time.perf_counter() - t0
+        it = ImageDetIter(SSD_BATCH, (3, SSD_SIZE, SSD_SIZE),
+                          path_imgrec=path, shuffle=True, rand_crop=1,
+                          rand_pad=0.5, rand_mirror=True,
+                          label_shape=(SSD_FED_OBJECTS, 5),
+                          rng=random.Random(SSD_FED_SEED))
+        net = ssd_resnet50(torch, dev)
+        load_jax_params(net, resnet_init(np, net, seed=24))
+        net.train()
+        trainer = Trainer(dict(net.named_parameters()), "sgd",
+                          {"learning_rate": SSD_LR,
+                           "momentum": SSD_MOMENTUM})
+        loss_fn = ssd_loss(torch)
+        step = trainer.compile_step(lambda a, b: loss_fn(net(a), b))
+
+        def batch():
+            t = time.perf_counter()
+            try:
+                b = next(it)
+            except StopIteration:
+                it.reset()
+                b = next(it)
+            x, y = b.data[0].to(dev), b.label[0].to(dev)
+            return x, y, (time.perf_counter() - t) * 1e3
+
+        x, y, wait0 = batch()
+        shapes = {(tuple(x.shape), tuple(y.shape))}
+        t0 = time.perf_counter()
+        step.aot_compile(x, y)
+        torch.cuda.synchronize()
+        capture_s = time.perf_counter() - t0
+        expect = {n: 0 for n in K.KERNELS}
+        expect.update(opt_update=1)
+        losses, step_ms, waits, per_step = [], [], [wait0], []
+        K.reset_launch_counts()
+        t_prev = time.perf_counter()
+        for i in range(SSD_FED_STEPS):
+            if i:
+                x, y, w = batch()
+                waits.append(w)
+                shapes.add((tuple(x.shape), tuple(y.shape)))
+            before = K.launch_counts()
+            losses.append(float(step(x, y).mean()))
+            torch.cuda.synchronize()
+            now = time.perf_counter()
+            step_ms.append((now - t_prev) * 1e3)
+            t_prev = now
+            per_step.append(step_launches(K, before))
+        counts = K.launch_counts()
+        n_traces = step.n_traces
+        del step, trainer, net
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    report = {"records": SSD_FED_RECORDS, "write_s": write_s,
+              "batch": SSD_BATCH, "steps": SSD_FED_STEPS,
+              "augmenters": "rand_crop 1, rand_pad 0.5, rand_mirror",
+              "shapes": sorted(shapes), "losses": losses, "step_ms": step_ms,
+              "images_per_s": SSD_BATCH * len(step_ms) /
+              (sum(step_ms) / 1e3),
+              "input_wait_ms": sum(waits[1:]),
+              "input_wait_ms_per_batch": waits,
+              "capture_s": capture_s, "n_traces": n_traces,
+              "launches": counts, "launches_per_step": per_step,
+              "card": smi}
+    gates = {"losses": all(math.isfinite(v) for v in losses),
+             "launches": all(s == expect for s in per_step),
+             "one_capture": n_traces == 1,
+             "shapes": shapes == {((SSD_BATCH, 3, SSD_SIZE, SSD_SIZE),
+                                   (SSD_BATCH, SSD_FED_OBJECTS, 5))}}
+    report.update(gates=gates, ok=all(gates.values()))
+    emit({"ssd_fed": report})
+    if not report["ok"]:
+        raise SystemExit(f"phase 22's fed run failed: {gates}")
+    return counts
+
+
+def ssd_phase(torch, np, K, dev, smi):
+    """Phase 22: the box ops on the card against the CPU, the SSD trained
+    in float32 and under bf16 amp (under ``cudnn.deterministic``, so the
+    replays are held bit-equal to the body run), the NMS eval of the
+    float32-trained net, and the fed run. Returns the launches of the
+    float32, bf16 and fed runs."""
+    ssd_ops_vs_cpu(torch, np, dev, smi)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        counts, net = ssd_train(torch, np, K, dev, smi)
+        torch.cuda.empty_cache()
+        ssd_eval(torch, np, dev, smi, net, "float32-trained")
+        del net
+        torch.cuda.empty_cache()
+        counts_bf16, _ = ssd_train(torch, np, K, dev, smi, bf16=True)
+        torch.cuda.empty_cache()
+        fed = ssd_fed(torch, np, K, dev, smi)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    torch.cuda.empty_cache()
+    return counts, counts_bf16, fed
+
+
 def main(argv):
     import numpy as np
     import torch
@@ -11428,6 +12098,13 @@ def main(argv):
                                      "kind": torch.cuda.get_device_name(0),
                                      "count": torch.cuda.device_count()}})
         return 0
+    if "--ssd" in argv:
+        ssd_phase(torch, np, K, dev, smi)
+        print(smi, flush=True)
+        emit({"ok": True, "device": {"platform": "gpu",
+                                     "kind": torch.cuda.get_device_name(0),
+                                     "count": torch.cuda.device_count()}})
+        return 0
     if "--telemetry" in argv:
         telemetry_phase(torch, np, K, dev, smi)
         print(smi, flush=True)
@@ -11561,6 +12238,8 @@ def main(argv):
     analysis = analysis_phase(torch, np, K, ATT, dev, smi)
     torch.cuda.empty_cache()
     lap("analysis (phase 21)")
+    ssd = ssd_phase(torch, np, K, dev, smi)
+    lap("ssd (phase 22)")
     if torch.cuda.device_count() >= 2:
         zero_train_multi(torch, np, smi)
         zero_overlap(torch, np, smi)
@@ -11629,7 +12308,9 @@ def main(argv):
           "telemetry_launch_counts": {n: c for n, c in tele.items() if c},
           "tuning_launch_counts": {n: c for n, c in tune.items() if c},
           "analysis_launch_counts": {n: c for n, c in analysis.items()
-                                     if c}})
+                                     if c},
+          "ssd_launch_counts": {p: {n: c for n, c in counts.items() if c}
+                                for p, counts in zip(SSD_PATHS, ssd)}})
     if not all(n > 0 for n in launches.values()) or \
             not all(cells[n] > 0 for n in ("rnn_scan_fwd",
                                            "rnn_scan_bwd")) or \
@@ -11641,7 +12322,8 @@ def main(argv):
                     for p in paths) or \
             not all(tele.get(n, 0) > 0 for n in TELE_KERNELS) or \
             not all(tune.get(n, 0) > 0 for n in TUNE_KERNELS) or \
-            not all(analysis.get(n, 0) > 0 for n in ANALYSIS_KERNELS):
+            not all(analysis.get(n, 0) > 0 for n in ANALYSIS_KERNELS) or \
+            not all(c.get("opt_update", 0) > 0 for c in ssd):
         raise SystemExit(f"a kernel never launched on its path: {launches}"
                          f" {bf16_launches} {resnet_launches} {cells}")
     rows = []
@@ -11686,6 +12368,9 @@ def main(argv):
             rows[-1].update(tuning_launches=tune[name])
         if name in ANALYSIS_KERNELS:
             rows[-1].update(analysis_launches=analysis[name])
+        if name == "opt_update":
+            rows[-1].update(ssd_launches=dict(zip(
+                SSD_PATHS, (c["opt_update"] for c in ssd))))
     print(smi, flush=True)
     emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -1,4 +1,8 @@
-"""Image decoding, resizing, rotation and augmenters (counterpart of
-``mxnet_tpu/image``; its ``detection.py`` is not ported yet)."""
+"""Image decoding, resizing, rotation and augmenters, and the detection
+augmenters and ``ImageDetIter`` (counterpart of ``mxnet_tpu/image``)."""
 from .image import *  # noqa: F401,F403
-from .image import __all__  # noqa: F401
+from .detection import *  # noqa: F401,F403
+from .image import __all__ as _image_all
+from .detection import __all__ as _det_all
+
+__all__ = list(_image_all) + list(_det_all)

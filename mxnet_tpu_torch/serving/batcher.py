@@ -448,12 +448,18 @@ class DynamicBatcher:
             # closes admission waits for this put, so what is enqueued
             # here is flushed or failed by it, never left behind
             with self._admit_mu:
+                closed = self._admission_closed()
+                if not closed:
+                    try:
+                        self._queue.put_nowait(req)
+                        break
+                    except queue.Full:
+                        pass
+            if closed:
+                # raised past the admission lock: a rejection takes the
+                # stats lock, which never nests under this one
                 self._check_open()
-                try:
-                    self._queue.put_nowait(req)
-                    break
-                except queue.Full:
-                    pass
+                continue
             if mode == "queue" or time.monotonic() >= end:
                 self._reject("queue", f"serving queue saturated "
                              f"({self._queue.maxsize} requests)")
@@ -463,6 +469,10 @@ class DynamicBatcher:
         self._m_requests.inc()
         self._m_queue.set(self._queue.qsize() + len(self._forming))
         return fut
+
+    def _admission_closed(self) -> bool:
+        return (self._dead is not None or self._stop.is_set()
+                or self._draining)
 
     def _check_open(self):
         """Raise what a request meets at a batcher that no longer

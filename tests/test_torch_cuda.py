@@ -2595,3 +2595,68 @@ def test_predictor_analyze_on_card(cuda_dev):
     rep = pred.analysis_report
     assert rep.mode == "predict" and rep.ok and rep.n_traces == 1
     assert rep.fusion.by_kind().get("dot", 0) == 2
+
+
+def _box_inputs(seed, b=6, m=4, n_classes=5):
+    """Anchors of two SSD scales, labels with padding rows and a duplicate
+    best anchor (image 0's first two truths share one box), class scores,
+    and NMS rows of heavily overlapping boxes."""
+    from mxnet_tpu_torch.ndarray import contrib
+    r = onp.random.RandomState(seed)
+    anc = torch.cat([contrib.MultiBoxPrior(torch.zeros(1, 1, s, s),
+                                           sizes=(0.2, 0.3),
+                                           ratios=(1.0, 2.0, 0.5))
+                     for s in (8, 4)], 1)
+    lab = onp.full((b, m, 5), -1.0, "f4")
+    for i in range(b):
+        k = 1 + i % m
+        xy = r.uniform(0, 0.6, (k, 2))
+        lab[i, :k, 0] = r.randint(0, n_classes, k)
+        lab[i, :k, 1:] = onp.concatenate([xy, xy + r.uniform(
+            0.1, 0.4, (k, 2))], 1)
+    lab[0, 1] = lab[0, 0]
+    lab[0, 1, 0] = (lab[0, 0, 0] + 1) % n_classes
+    cls = r.randn(b, n_classes + 1, anc.shape[1]).astype("f4")
+    xy = r.uniform(0.2, 0.4, (2, 200, 2))
+    rows = onp.concatenate([r.randint(0, 3, (2, 200, 1)),
+                            r.uniform(0, 1, (2, 200, 1)), xy,
+                            xy + r.uniform(0.2, 0.4, (2, 200, 2))], 2)
+    return anc, torch.from_numpy(lab), torch.from_numpy(cls), \
+        torch.from_numpy(rows.astype("f4"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mining", [-1.0, 3.0])
+def test_multibox_target_on_card_equals_cpu(cuda_dev, mining):
+    """The card's matching (duplicate best anchor: the later truth wins by
+    ``scatter_reduce``) equals the CPU's; no host transfer."""
+    from mxnet_tpu_torch.ndarray import contrib
+    anc, lab, cls, _ = _box_inputs(0)
+    ref = contrib.MultiBoxTarget(anc, lab, cls,
+                                 negative_mining_ratio=mining)
+    with mxt.analysis.transfer_guard("raise"):
+        got = contrib.MultiBoxTarget(anc.to(cuda_dev), lab.to(cuda_dev),
+                                     cls.to(cuda_dev),
+                                     negative_mining_ratio=mining)
+    got = [g.cpu() for g in got]
+    assert torch.equal(got[2], ref[2]) and torch.equal(got[1], ref[1])
+    torch.testing.assert_close(got[0], ref[0], rtol=1e-5, atol=0)
+
+
+@pytest.mark.cuda
+def test_box_nms_on_card_equals_cpu_and_replays(cuda_dev):
+    """``box_nms`` on the card equals the CPU; captured, its greedy walk
+    replays as one graph and equals the eager call."""
+    from mxnet_tpu_torch.captured import CapturedProgram
+    from mxnet_tpu_torch.ndarray import contrib
+    *_, rows = _box_inputs(1)
+    kw = dict(overlap_thresh=0.45, valid_thresh=0.01, id_index=0)
+    ref = contrib.box_nms(rows, **kw)
+    x = rows.to(cuda_dev)
+    with mxt.analysis.transfer_guard("raise"):
+        eager = contrib.box_nms(x, **kw)
+    assert torch.equal(eager.cpu(), ref)
+    prog = CapturedProgram("box_nms", lambda t: contrib.box_nms(t, **kw),
+                           [x.clone()], cuda_dev, ())
+    assert torch.equal(prog.run(), eager)
+    assert bool((ref[..., 0] < 0).any()) and bool((ref[..., 0] >= 0).any())

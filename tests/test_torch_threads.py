@@ -348,3 +348,39 @@ def test_threaded_serving_leaves_the_lock_graph_inside_the_hierarchy():
     base = tthreads.load_baseline(BASELINE)
     assert tthreads.check_hierarchy(base) == [], \
         [str(f) for f in tthreads.check_hierarchy(base)]
+
+
+def test_submit_that_meets_a_drain_rejects_outside_the_admission_lock():
+    """A submit that waits on a full queue while a drain closes admission
+    is shed as ``draining``, and its rejection (which counts under the
+    stats lock) does not nest that lock under the admission lock: the
+    graph gains no ``serving.batcher.admit`` edge."""
+    from mxnet_tpu_torch.gluon.nn import Dense
+    from mxnet_tpu_torch.serving import (CompiledPredictor, DynamicBatcher,
+                                         Overloaded)
+    torch.manual_seed(0)
+    net = torch.nn.Sequential(Dense(8, in_units=4, device="cpu"))
+    pred = CompiledPredictor(net, bucket_sizes=(4, 8), device="cpu")
+    row = onp.zeros((1, 4), "f4")
+    b = DynamicBatcher(pred, max_batch=8, timeout_ms=1.0, depth=1,
+                       start=False)
+    b.submit(row)                        # fills the one-slot queue
+    got = []
+
+    def client():
+        try:
+            b.submit(row, deadline_ms=0, timeout=30)
+        except Overloaded as e:
+            got.append(e.reason)
+
+    t = threading.Thread(target=client)
+    t.start()
+    time.sleep(0.05)                     # the client is in its Full loop
+    b._close_admission()
+    t.join(30)
+    assert not t.is_alive()
+    assert got == ["draining"]
+    assert b.stats["rejected"] == 1
+    assert not [e for e in tthreads.graph().edges()
+                if e["from"] == "serving.batcher.admit"]
+    b.close()
